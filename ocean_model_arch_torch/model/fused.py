@@ -1,0 +1,132 @@
+"""Driver of the fused step (counterpart of
+``ocean_model_arch_tpu/model/fused.py::FusedSWModel, fused_available``).
+
+Carries only the 6 prognostic fields (ssh, sshp, u, up, v, vp) in the
+fused layout; depths and staggered masks are recomputed inside the step.
+``pack``/``unpack`` take and return physical (nx, ny) states, as the JAX
+driver's do. The kernel covers the main-path envelope only; anything
+else raises ValueError naming what is unsupported, never a silent
+change of path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.grid import Grid
+from ..core.state import SWState
+from ..host import ModelConfig
+from ..ops import fused_layout as fl
+from ..ops import sw_kernels as swk
+from ..ops.fused_step import PLANES, fused_sw_step
+from .step import reinit_depth_families
+
+CARRIED = ("ssh", "sshp", "ubrtr", "ubrtrp", "vbrtr", "vbrtrp")
+
+
+def unsupported(grid: Grid, cfg: ModelConfig, mu_const: float = 0.0,
+                static_rslu: bool = True) -> list:
+    """What keeps a configuration off the fused kernel (empty: supported).
+    The kernel is the TPU kernel's fast x-uniform form with full free
+    surface and momentum advection, flat bathymetry, mu = 0, no tracers,
+    closed boundaries."""
+    sw = cfg.sw
+    out = []
+    if grid.periodic_x or grid.periodic_y:
+        out.append("periodic boundaries")
+    if not static_rslu:
+        out.append("static_rslu=False (the non-fast kernel form)")
+    if sw.use_tracers > 0:
+        out.append("tracers (use_tracers > 0)")
+    if mu_const != 0.0:
+        out.append("viscosity (mu_const != 0)")
+    if sw.full_free_surface != 1:
+        out.append(f"full_free_surface={sw.full_free_surface}")
+    if sw.trans_terms != 1:
+        out.append(f"trans_terms={sw.trans_terms}")
+    hr = grid.hhq_rest
+    if not bool((hr == hr.reshape(-1)[0]).all()):
+        out.append("non-flat bathymetry (the hrludxdy plane)")
+    for n in ("dx", "dy", "dxt", "dyt", "dxh", "dyh", "dxb", "dyb",
+              "rlh_s"):
+        f = getattr(grid, n)
+        if not bool((f == f[:1]).all()):
+            out.append(f"x-varying metric {n} (2D metrics)")
+            break
+    return out
+
+
+def fused_available(grid: Grid, cfg: ModelConfig) -> bool:
+    """Whether the fused kernel supports this configuration."""
+    return not unsupported(grid, cfg)
+
+
+class FusedSWModel:
+    """Shallow-water core on the fused CUDA kernel (the plain PyTorch
+    version on CPU tensors). ``steps_per_call`` model steps run per call
+    of the step loop, one kernel launch each; ``run_steps`` windows must
+    be multiples of it."""
+
+    def __init__(self, grid: Grid, cfg: ModelConfig, tau: float,
+                 mu_const: float = 0.0, static_rslu: bool = True,
+                 steps_per_call: int = 1):
+        bad = unsupported(grid, cfg, mu_const, static_rslu)
+        if bad:
+            raise ValueError("fused path unsupported: " + "; ".join(bad))
+        if steps_per_call < 1:
+            raise ValueError(f"steps_per_call={steps_per_call} < 1")
+        self.grid = grid
+        self.cfg = cfg
+        self.tau = float(tau)
+        self.mu_const = float(mu_const)
+        self.steps_per_call = int(steps_per_call)
+        self.lay = lay = fl.make_layout(grid.nx, grid.ny)
+        dev = grid.lu.device
+        self.hr_const = float(grid.hhq_rest.reshape(-1)[0])
+        names = fl.plane_names(cfg.sw.full_free_surface, cfg.sw.ksw_lat,
+                               self.mu_const, self.hr_const)
+        assert names == PLANES, names        # guaranteed by unsupported()
+        met = fl.metrics_profile_from_grid(grid, lay)
+        lu_s = np.asarray(fl.embed(lay, grid.lu.cpu()))
+        planes = fl.static_planes(
+            lu_s, None, (met[0] * met[1])[None, :], names,
+            interp_recips=(met[10:11], met[11:12], (met[14] * met[15])[None]))
+        self.met = torch.from_numpy(met).to(dev)
+        self.planes = torch.from_numpy(planes).to(dev)
+
+    def pack(self, state: SWState) -> tuple:
+        """SWState -> the 6 carried fields in the fused layout (float32).
+        The kernel has no viscosity term, so a state whose mu is not
+        mu_const everywhere is refused."""
+        if not bool((state.mu == self.mu_const).all()):
+            raise ValueError("fused path requires state.mu == mu_const "
+                             f"({self.mu_const}) everywhere")
+        return tuple(fl.embed(self.lay, getattr(state, n)) for n in CARRIED)
+
+    def unpack(self, s6, template: SWState) -> SWState:
+        """6 carried fields -> a full SWState in ``template``'s dtype; the
+        depth families are regenerated as the end-of-step hh_init does."""
+        dt = template.ssh.dtype
+        st = dataclasses.replace(template, **{
+            n: fl.extract(self.lay, a).to(dt) for n, a in zip(CARRIED, s6)})
+        return reinit_depth_families(st, self.grid, self.cfg)
+
+    def run_steps(self, s6, n_steps: int):
+        """Advance ``n_steps`` steps; returns ``(s6', ok)``. The per-step
+        max |ssh| accumulates on the device (``torch.maximum``, which
+        propagates NaN) and is read once at the end of the window, so a
+        transient blow-up at any step trips ``ok``."""
+        spc = self.steps_per_call
+        if n_steps % spc:
+            raise ValueError(f"n_steps={n_steps} not a multiple of "
+                             f"steps_per_call={spc}")
+        mx = torch.zeros((), dtype=torch.float32, device=s6[0].device)
+        sw = self.cfg.sw
+        for _ in range(n_steps):
+            s6, m = fused_sw_step(s6, self.met, self.planes, self.lay,
+                                  self.tau, sw.time_smooth, self.hr_const)
+            mx = torch.maximum(mx, m)
+        return s6, bool(mx < swk.SSH_ERR_BOUND)   # NaN compares False

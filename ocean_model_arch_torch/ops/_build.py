@@ -1,0 +1,67 @@
+"""Build and load the port's CUDA kernels: nvcc into a shared library with
+a plain C interface, bound with ctypes (the pattern of
+``ocean_model_arch_tpu/io/native.py``, for CUDA).
+
+Each ``csrc/<name>.cu`` compiles on first use into
+``build/torch_kernels/lib<name>-<hash>.so`` of the checkout, keyed on a
+hash of the source and the flags, so a fresh checkout builds what it
+runs and an edited source rebuilds. A failed build raises: there is no
+fallback. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "ops", "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+
+# No --use_fast_math: the tolerances assume IEEE f32 division and denormals.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# name -> {"path", "seconds", "log"} of the builds made by this process
+BUILDS: dict = {}
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the CUDA kernels cannot be built")
+    return path
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its hashed library exists;
+    returns the library path."""
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    so = os.path.join(BUILD_DIR, f"lib{name}-{key.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
+    os.replace(tmp, so)            # atomic: concurrent builds agree
+    BUILDS[name] = {"path": so, "seconds": time.perf_counter() - t0,
+                    "log": res.stdout + res.stderr}
+    return so
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    return ctypes.CDLL(build(name))

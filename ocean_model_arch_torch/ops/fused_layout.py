@@ -1,0 +1,177 @@
+"""Host helpers of the fused step: the array layout and the static inputs.
+
+Counterparts of the numpy/host helpers inside
+``ocean_model_arch_tpu/ops/pallas/fused_step.py`` (``margin_for`` :88,
+``make_layout`` :124, ``embed``/``extract`` :151-163, ``plane_names``
+:173, ``staggered_wet_masks`` :1719, ``metrics_profile_from_grid``
+:1771, ``static_planes`` :1809), re-homed here because that file
+imports ``jax.experimental.pallas``.
+
+The layout is the port's own, not the TPU's: a physical (nx, ny) field
+sits inside a land margin of ``MARGIN`` cells on every side of an
+(Xs, Ys) float32 array, with Ys rounded up to a multiple of 32 floats so
+every row starts on a 128-byte boundary. The margin is wider than the
+fused step's stencil reach (``STEP_REACH``), so every neighbour read of
+an interior cell is a real array cell, and all margin cells stay
+exactly 0. The TPU layout's 8-row x margin, 128-lane rounding and tile-multiple
+row count were Mosaic constraints and do not carry over.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+STEP_REACH = 3      # cells one fused step reads beyond its outputs
+ROW_ALIGN = 32      # Ys is a multiple of this many floats (128 bytes)
+N_PROF = 24         # profile rows (9 metrics + 7 reciprocals + 6 derived)
+
+
+def margin_for(steps_per_launch: int) -> int:
+    """Land margin for a kernel that chains ``steps_per_launch`` steps:
+    their total reach, and at least 4 cells."""
+    return max(4, STEP_REACH * int(steps_per_launch))
+
+
+MARGIN = margin_for(1)   # the kernel runs one step per launch
+
+
+class FusedLayout(NamedTuple):
+    nx: int          # physical extents
+    ny: int
+    Xs: int          # stored rows = nx + 2 * margin
+    Ys: int          # stored columns >= ny + 2 * margin, ROW_ALIGN multiple
+    margin: int = MARGIN
+
+
+def make_layout(nx: int, ny: int) -> FusedLayout:
+    Ys = -(-(ny + 2 * MARGIN) // ROW_ALIGN) * ROW_ALIGN
+    return FusedLayout(nx, ny, nx + 2 * MARGIN, Ys, MARGIN)
+
+
+def embed(lay: FusedLayout, a: torch.Tensor) -> torch.Tensor:
+    """Place an (nx, ny) field into the fused layout, float32, zeros
+    (land) elsewhere, on ``a``'s device."""
+    out = torch.zeros((lay.Xs, lay.Ys), dtype=torch.float32, device=a.device)
+    m = lay.margin
+    out[m:m + lay.nx, m:m + lay.ny] = a
+    return out
+
+
+def extract(lay: FusedLayout, a: torch.Tensor) -> torch.Tensor:
+    """Crop back to the physical (nx, ny) extents (a view)."""
+    m = lay.margin
+    return a[m:m + lay.nx, m:m + lay.ny]
+
+
+def plane_names(ffs: int, ksw: int, mu_const: float,
+                hr_const: float | None = None) -> tuple:
+    """The static planes a configuration needs (x-uniform metrics):
+
+    - ``rslu_u/v/h``: reciprocal wet-neighbour counts of the depth
+      interpolations, premultiplied by 1/dxt, 1/dyt and 1/(dxb*dyb);
+    - ``ludxdy`` = lu*dx*dy, the weighted depth column's static factor
+      (``ludxdy > 0.5`` doubles as the wet mask);
+    - ``hrludxdy`` = hhq_rest*lu*dx*dy, unless the bathymetry is flat and
+      folds into the scalar ``hr_const``;
+    - ``wlu``: only the viscosity branch reads it.
+    """
+    names = ["rslu_u", "rslu_v", "rslu_h", "ludxdy"]
+    if not (hr_const is not None and ffs):
+        names.append("hrludxdy")
+    if ksw and mu_const != 0.0:
+        names.append("wlu")
+    return tuple(names)
+
+
+def staggered_wet_masks(lu) -> tuple:
+    """(wlcu, wlcv, wlu) float32 0/1 masks from a T-point wet mask in any
+    layout: the wet sets of the u, v and T points (grid_kernels.f90:
+    40-92 lcu/lcv/lu)."""
+    lu_b = np.asarray(lu) > 0.5
+    x1 = np.zeros_like(lu_b)
+    x1[:-1] = lu_b[1:]
+    y1 = np.zeros_like(lu_b)
+    y1[:, :-1] = lu_b[:, 1:]
+    return ((lu_b & x1).astype(np.float32),
+            (lu_b & y1).astype(np.float32),
+            lu_b.astype(np.float32))
+
+
+def metrics_profile_from_grid(grid, lay: FusedLayout) -> np.ndarray:
+    """The (N_PROF, Ys) latitude profiles of an x-uniform grid; raises
+    ValueError if a metric varies along x. Row meanings:
+
+    0-8 dx, dy, dxt, dyt, dxh, dyh, dxb, dyb, rlh_s; 9 1/(dx*dy);
+    10-15 1/dxt, 1/dyt, 1/dxh, 1/dyh, 1/dxb, 1/dyb; 16 (dyt-dyb)/4;
+    17 (dxt(n+1)-dxb)/4; 18 (dxt-dxb)/4; 19 dy/dx; 20 dx/dy;
+    21 rlh_s*dxb*dyb/4.
+    """
+    rows = np.zeros((N_PROF, lay.Ys), np.float32)
+    names = ["dx", "dy", "dxt", "dyt", "dxh", "dyh", "dxb", "dyb", "rlh_s"]
+    yp = lay.margin
+    for k, name in enumerate(names):
+        f = getattr(grid, name).cpu().numpy()
+        if not np.array_equal(f, np.broadcast_to(f[:1, :], f.shape)):
+            raise ValueError(f"metric {name} is not x-uniform")
+        rows[k, yp:yp + lay.ny] = f[0, :]
+        # extend into the y margins so reciprocals stay finite
+        rows[k, :yp] = f[0, 0]
+        rows[k, yp + lay.ny:] = f[0, -1]
+    with np.errstate(divide="ignore"):
+        rows[9] = np.float32(1.0) / (rows[0] * rows[1])
+        for k, src in ((10, 2), (11, 3), (12, 4), (13, 5), (14, 6),
+                       (15, 7)):
+            rows[k] = np.float32(1.0) / rows[src]
+        rows[16] = (rows[3] - rows[7]) * np.float32(0.25)
+        rows[17] = (np.concatenate([rows[2][1:], rows[2][-1:]])
+                    - rows[6]) * np.float32(0.25)
+        rows[18] = (rows[2] - rows[6]) * np.float32(0.25)
+        rows[19] = rows[1] / rows[0]
+        rows[20] = rows[0] / rows[1]
+        rows[21] = rows[8] * rows[6] * rows[7] * np.float32(0.25)
+    rows[9:][~np.isfinite(rows[9:])] = 0.0
+    return rows
+
+
+def static_planes(lu_s: np.ndarray, hr_s: np.ndarray, dxdy: np.ndarray,
+                  names: tuple, interp_recips=None) -> np.ndarray:
+    """(len(names), Xs, Ys) float32 static planes, pure functions of the
+    land mask, bathymetry and metrics (see :func:`plane_names`).
+    ``dxdy``: (Xs, Ys) plane or (1, Ys) profile row. ``interp_recips``:
+    the (1, Ys) rows (1/dxt, 1/dyt, 1/(dxb*dyb)) folded into the rslu
+    planes."""
+    lu = np.asarray(lu_s, np.float32)
+    x1 = np.zeros_like(lu)
+    x1[:-1, :] = lu[1:, :]          # lu[i+1, j]
+    y1 = np.zeros_like(lu)
+    y1[:, :-1] = lu[:, 1:]          # lu[i, j+1]
+    xy1 = np.zeros_like(lu)
+    xy1[:-1, :-1] = lu[1:, 1:]      # lu[i+1, j+1]
+
+    def recip(s):
+        return np.float32(1.0) / np.maximum(s, 1.0)
+
+    if interp_recips is not None:
+        r_u, r_v, r_h = (np.asarray(r, np.float32) for r in interp_recips)
+    else:
+        r_u = r_v = r_h = np.float32(1.0)
+
+    ludxdy = (lu * np.asarray(dxdy, np.float32)).astype(np.float32)
+    if "ludxdy" in names:
+        wet = ludxdy[lu > 0.5]
+        if wet.size and wet.min() <= 0.5:
+            raise ValueError("dx*dy too small for ludxdy to double as the "
+                             "wet mask")
+    build = {
+        "rslu_u": lambda: recip(lu + x1) * r_u,
+        "rslu_v": lambda: recip(lu + y1) * r_v,
+        "rslu_h": lambda: recip(lu + x1 + y1 + xy1) * r_h,
+        "wlu": lambda: lu,
+        "ludxdy": lambda: ludxdy,
+        "hrludxdy": lambda: (np.asarray(hr_s, np.float32)
+                             * ludxdy).astype(np.float32),
+    }
+    return np.stack([build[n]() for n in names]).astype(np.float32)

@@ -1,0 +1,285 @@
+"""The port's fused driver (model/fused.py) and fused step on the CPU, where
+``fused_sw_step`` runs its plain PyTorch version: held against the JAX
+``FusedSWModel`` in interpret mode, the JAX f32 ``make_step``, the
+committed Black Sea golden digests, and the envelope checks. The CUDA
+kernel itself is compared with the plain version on the card by
+chip_smoke.py."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from ocean_model_arch_tpu.config import Precision, SWConfig
+from ocean_model_arch_tpu.core.grid import build_grid as jax_build_grid
+from ocean_model_arch_tpu.model.fused import FusedSWModel as JaxFused
+from ocean_model_arch_tpu.model.init import init_ocean_state as jax_init
+from ocean_model_arch_tpu.model.step import make_step as jax_make_step
+from ocean_model_arch_tpu.model.step import run_steps as jax_run_steps
+from ocean_model_arch_tpu.ops.pallas import fused_step as jfsk
+
+from ocean_model_arch_torch.core.grid import build_grid
+from ocean_model_arch_torch.model.fused import (CARRIED, FusedSWModel,
+                                                fused_available)
+from ocean_model_arch_torch.model.init import init_ocean_state
+from ocean_model_arch_torch.ops import _build
+from ocean_model_arch_torch.ops import fused_layout as fl
+from ocean_model_arch_torch.ops.fused_step import fused_sw_step
+
+from test_torch_step import GOLDEN, _bs_case, _case, check_golden, to_torch
+
+torch.set_num_threads(1)
+
+FIELDS = ("ssh", "sshp", "ubrtr", "ubrtrp", "vbrtr", "vbrtrp")
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+
+
+def _jax_f32_case(with_islands):
+    basin, cfg, mask = _case(Precision.f32(), with_islands)
+    jgrid = jax_build_grid(basin, mask, precision=cfg.precision)
+    return jgrid, cfg, jax_init(jgrid, cfg)
+
+
+@pytest.mark.parametrize("with_islands", [False, True])
+def test_fused_matches_jax_fused(with_islands):
+    """30 f32 steps against JAX FusedSWModel (fast kernel, interpret mode,
+    2 steps per call): < 1e-5 relative per field, the tolerance of
+    tests/test_fused.py (the two differ in f32 operation order)."""
+    jgrid, cfg, jstate = _jax_f32_case(with_islands)
+    jf = JaxFused(jgrid, cfg, 1.0, tx=8, interpret=True, static_rslu=True,
+                  steps_per_call=2)
+    j6, jok = jax.jit(lambda s: jf.run_steps(s, 30))(jf.pack(jstate))
+    want = jf.unpack(j6, jstate)
+    grid, state = to_torch(jgrid, jstate, torch.float32)
+    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True, steps_per_call=2)
+    s6, ok = fm.run_steps(fm.pack(state), 30)
+    got = fm.unpack(s6, state)
+    assert ok and bool(jok)
+    for n in FIELDS + ("hhu", "hhv", "hhh", "hhq"):
+        rel = _rel(getattr(got, n).numpy(), getattr(want, n))
+        assert rel < 1e-5, (n, rel)
+
+
+@pytest.mark.parametrize("with_islands", [False, True])
+def test_fused_matches_jax_make_step_f32(with_islands):
+    jgrid, cfg, jstate = _jax_f32_case(with_islands)
+    want, jok = jax_run_steps(jax.jit(jax_make_step(jgrid, cfg)), jstate,
+                              np.float32(1.0), 30)
+    grid, state = to_torch(jgrid, jstate, torch.float32)
+    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True, steps_per_call=2)
+    s6, ok = fm.run_steps(fm.pack(state), 30)
+    got = fm.unpack(s6, state)
+    assert ok and bool(jok)
+    for n in FIELDS:
+        rel = _rel(getattr(got, n).numpy(), getattr(want, n))
+        assert rel < 1e-5, (n, rel)
+
+
+def test_golden_bs100_f32_fused():
+    """The fused path (f32) tracks the committed f64 golden digests within
+    f32 accumulation error, as tests/test_golden.py holds the JAX kernel."""
+    grid, cfg, state = _bs_case(Precision.f32())
+    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True, steps_per_call=2)
+    s6 = fm.pack(state)
+    done = 0
+    for s in sorted(GOLDEN["steps"], key=int):
+        s6, ok = fm.run_steps(s6, int(s) - done)
+        done = int(s)
+        assert ok
+        check_golden(fm.unpack(s6, state), s, rtol=3e-4, pt_atol=5e-6)
+
+
+def test_land_stays_exactly_zero():
+    """Every land cell of all six carried fields, margins included, stays
+    exactly 0 (ssh/sshp off the T-point wet set, u/up off the u-point set,
+    v/vp off the v-point set)."""
+    basin, cfg, mask = _case(Precision.f32(), with_islands=True)
+    grid = build_grid(basin, mask, precision=cfg.precision)
+    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2)
+    s6, ok = fm.run_steps(fm.pack(init_ocean_state(grid, cfg)), 30)
+    assert ok
+    wlcu, wlcv, wlu = fl.staggered_wet_masks(fl.embed(fm.lay, grid.lu))
+    for f, w in zip(s6, (wlu, wlu, wlcu, wlcu, wlcv, wlcv)):
+        land = torch.from_numpy(w) < 0.5
+        assert bool((f[land] == 0).all())
+        assert bool((f[~land] != 0).any())
+
+
+def test_guard_catches_mid_window_transient():
+    """An sshp spike drives |ssh| past 1e4 in the first steps, and the
+    filter and gravity waves damp it below 1e4 by the end of the window:
+    the per-step max accumulated on the device must still trip ``ok``."""
+    basin, cfg, mask = _case(Precision.f32(), with_islands=False)
+    grid = build_grid(basin, mask, precision=cfg.precision)
+    state = init_ocean_state(grid, cfg)
+    sshp = state.sshp.clone()
+    sshp[30, 30] = 1.2e4
+    bad = dataclasses.replace(state, sshp=sshp)
+    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2)
+    s6, ok = fm.run_steps(fm.pack(bad), 30)
+    final = float(fm.unpack(s6, state).ssh.abs().max())
+    assert final < 1.0e4, "not a transient: final state still blown up"
+    assert not ok, "per-step guard missed the mid-window transient"
+    _, ok_nan = fm.run_steps(
+        fm.pack(dataclasses.replace(state, ssh=torch.where(
+            grid.lu > 0.5, torch.nan, state.ssh))), 2)
+    assert not ok_nan
+
+
+def _unsupported_cases():
+    def tracers(basin, cfg, mask):
+        return dict(cfg=dataclasses.replace(
+            cfg, sw=SWConfig(use_tracers=1, tracer_num=1)))
+
+    def periodic(basin, cfg, mask):
+        return dict(grid_kw=dict(periodic_x=True))
+
+    def mu(basin, cfg, mask):
+        return dict(model_kw=dict(mu_const=100.0))
+
+    def slow_form(basin, cfg, mask):
+        return dict(model_kw=dict(static_rslu=False))
+
+    def no_ffs(basin, cfg, mask):
+        return dict(cfg=dataclasses.replace(
+            cfg, sw=SWConfig(use_tracers=0, full_free_surface=0)))
+
+    def no_trans(basin, cfg, mask):
+        return dict(cfg=dataclasses.replace(
+            cfg, sw=SWConfig(use_tracers=0, trans_terms=0)))
+
+    def bathymetry(basin, cfg, mask):
+        hr = 100.0 + np.arange(basin.nx * basin.ny, dtype=np.float32)
+        return dict(hhq_rest=hr.reshape(basin.nx, basin.ny) % 37.0 + 50.0)
+
+    def bipolar(basin, cfg, mask):
+        return dict(basin=dataclasses.replace(basin, curve_grid=2))
+
+    return {f.__name__: f for f in (tracers, periodic, mu, slow_form,
+                                    no_ffs, no_trans, bathymetry, bipolar)}
+
+
+UNSUPPORTED = _unsupported_cases()
+MESSAGES = {"tracers": "tracers", "periodic": "periodic", "mu": "viscosity",
+            "slow_form": "static_rslu", "no_ffs": "full_free_surface",
+            "no_trans": "trans_terms", "bathymetry": "bathymetry",
+            "bipolar": "x-varying"}
+
+
+@pytest.mark.parametrize("name", sorted(UNSUPPORTED))
+def test_unsupported_config_raises(name):
+    """Outside the kernel's envelope FusedSWModel raises ValueError naming
+    what is unsupported; it never takes another path silently."""
+    basin, cfg, mask = _case(Precision.f32(), with_islands=False,
+                             nx=24, ny=20)
+    kw = UNSUPPORTED[name](basin, cfg, mask)
+    basin = kw.get("basin", basin)
+    cfg = dataclasses.replace(kw.get("cfg", cfg), basin=basin)
+    grid = build_grid(basin, mask, hhq_rest=kw.get("hhq_rest"),
+                      precision=cfg.precision)
+    grid = dataclasses.replace(grid, **kw.get("grid_kw", {}))
+    with pytest.raises(ValueError, match=MESSAGES[name]):
+        FusedSWModel(grid, cfg, 1.0, **kw.get("model_kw", {}))
+    if "model_kw" not in kw:
+        assert not fused_available(grid, cfg)
+
+
+def test_cpu_tensors_do_not_launch():
+    """On CPU tensors the wrapper takes the plain version: the launch
+    count stays 0 and nothing is built."""
+    basin, cfg, mask = _case(Precision.f32(), with_islands=False,
+                             nx=24, ny=20)
+    grid = build_grid(basin, mask, precision=cfg.precision)
+    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2)
+    before = fused_sw_step.launches
+    _, ok = fm.run_steps(fm.pack(init_ocean_state(grid, cfg)), 4)
+    assert ok and fused_sw_step.launches == before == 0
+    assert "fused_step" not in _build.BUILDS
+
+
+def test_non_cpu_tensors_never_take_the_plain_version():
+    """Tensors off the CPU go to the kernel or raise: here (meta tensors)
+    the input check raises before any build or launch."""
+    lay = fl.make_layout(24, 20)
+    f = torch.empty((lay.Xs, lay.Ys), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_sw_step((f,) * 6, torch.empty((fl.N_PROF, lay.Ys),
+                                            device="meta"),
+                      torch.empty((4, lay.Xs, lay.Ys), device="meta"),
+                      lay, 1.0, 0.5, 100.0)
+    assert fused_sw_step.launches == 0
+
+
+def test_build_raises_without_nvcc(monkeypatch):
+    """A missing toolchain is an error, not a fallback."""
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build("fused_step")
+
+
+def test_pack_refuses_nonzero_mu():
+    """A state with viscosity would be silently stepped without it."""
+    basin, cfg, mask = _case(Precision.f32(), with_islands=False,
+                             nx=24, ny=20)
+    grid = build_grid(basin, mask, precision=cfg.precision)
+    state = init_ocean_state(grid, cfg)
+    fm = FusedSWModel(grid, cfg, 1.0)
+    with pytest.raises(ValueError, match="mu"):
+        fm.pack(dataclasses.replace(state,
+                                    mu=torch.full_like(state.mu, 1e3)))
+
+
+def test_pack_unpack_round_trip():
+    basin, cfg, mask = _case(Precision.f32(), with_islands=True)
+    grid = build_grid(basin, mask, precision=cfg.precision)
+    state = init_ocean_state(grid, cfg)
+    fm = FusedSWModel(grid, cfg, 1.0)
+    s6 = fm.pack(state)
+    lay = fm.lay
+    assert lay.Ys % fl.ROW_ALIGN == 0 and lay.margin == fl.margin_for(1) == 4
+    assert fl.margin_for(2) == 2 * fl.STEP_REACH
+    for a in s6:
+        assert a.shape == (lay.Xs, lay.Ys) and a.dtype == torch.float32
+        inner = fl.extract(lay, a)
+        assert float(a.abs().sum()) == float(inner.abs().sum())
+    back = fm.unpack(s6, state)
+    for n in CARRIED + ("hhu", "hhv", "hhh", "hhq", "hhu_p"):
+        assert torch.equal(getattr(back, n), getattr(state, n)), n
+
+
+def test_layout_helpers_match_jax():
+    """The re-homed host helpers against their originals in the JAX
+    kernel module: the metric profile on the physical columns, the
+    static planes and wet masks on one mask, and the plane sets."""
+    jgrid, cfg, _ = _jax_f32_case(with_islands=True)
+    grid, _ = to_torch(jgrid, jax_init(jgrid, cfg), torch.float32)
+    lay = fl.make_layout(grid.nx, grid.ny)
+    jlay = jfsk.make_layout(grid.nx, grid.ny, 8)
+    mine = fl.metrics_profile_from_grid(grid, lay)
+    theirs = jfsk.metrics_profile_from_grid(jgrid, jlay)
+    np.testing.assert_array_equal(
+        mine[:, lay.margin:lay.margin + grid.ny],
+        theirs[:, jlay.ypad:jlay.ypad + grid.ny])
+    lu_s = fl.embed(lay, grid.lu).numpy()
+    hr_s = fl.embed(lay, grid.hhq_rest).numpy()
+    names = ("rslu_u", "rslu_v", "rslu_h", "wlu", "ludxdy", "hrludxdy")
+    recips = (mine[10:11], mine[11:12], (mine[14] * mine[15])[None])
+    np.testing.assert_array_equal(
+        fl.static_planes(lu_s, hr_s, (mine[0] * mine[1])[None], names,
+                         recips),
+        jfsk.static_planes(lu_s, hr_s, (mine[0] * mine[1])[None], names,
+                           recips))
+    for a, b in zip(fl.staggered_wet_masks(lu_s),
+                    jfsk.staggered_wet_masks(lu_s)):
+        np.testing.assert_array_equal(a, b)
+    for ffs, ksw, mu, hrc in ((1, 1, 0.0, 100.0), (1, 1, 5.0, None),
+                              (0, 0, 0.0, 100.0)):
+        assert fl.plane_names(ffs, ksw, mu, hrc) == jfsk.plane_names(
+            ffs, ksw, mu, False, hr_const=hrc)
