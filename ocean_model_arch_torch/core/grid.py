@@ -1,9 +1,10 @@
 """Static grid data as a dataclass of tensors (counterpart of
 ``ocean_model_arch_tpu/core/grid.py::Grid, build_grid``).
 
-The masks and metrics come from the numpy host modules shared with the
-JAX package; this module only places them on a device. Fields are
-unpadded ``(nx, ny)`` tensors with 0-based ``[x, y]`` indexing. The
+The masks and metrics come from the port's numpy host modules; this
+module only places them on a device (the current CUDA device unless the
+caller names one). Fields are unpadded ``(nx, ny)`` tensors with
+0-based ``[x, y]`` indexing. The
 geographic coordinates, areas and vertical levels of the JAX Grid are
 output-side data; they join when the ``OceanModel`` driver and I/O are
 ported.
@@ -17,7 +18,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..host import BasinConfig, Precision, masks, metrics
+from ..host import (BasinConfig, Precision, default_device, masks,
+                    metrics)
 
 # Tensor fields, in the order of the JAX Grid
 MASK_FIELDS = ("lu", "luu", "luh", "lcu", "lcv", "llu", "llv")
@@ -54,11 +56,14 @@ class Grid:
     periodic_y: bool = False
 
 
-def grid_from_numpy(d: dict, device, periodic_x: bool = False,
+def grid_from_numpy(d: dict, device=None, periodic_x: bool = False,
                     periodic_y: bool = False) -> Grid:
     """A Grid from numpy arrays named as the JAX Grid's fields (e.g.
     ``{n: np.asarray(getattr(jax_grid, n)) for n in GRID_FIELDS}``); each
-    array keeps its dtype, so both packages start from identical bits."""
+    array keeps its dtype, so both packages start from identical bits.
+    ``device``: None -> the current CUDA device (raises without one)."""
+    if device is None:
+        device = default_device()
     t = {n: torch.tensor(np.asarray(d[n]), device=device) for n in GRID_FIELDS}
     nx, ny = t["lu"].shape
     return Grid(**t, nx=int(nx), ny=int(ny), periodic_x=bool(periodic_x),
@@ -68,10 +73,11 @@ def grid_from_numpy(d: dict, device, periodic_x: bool = False,
 def build_grid(basin: BasinConfig, int_mask: np.ndarray,
                hhq_rest: Optional[np.ndarray] = None,
                precision: Precision = Precision.f64(),
-               device="cpu") -> Grid:
+               device=None) -> Grid:
     """Grid from config + integer land mask (0 = water, 1 = land), as the
     JAX ``build_grid`` builds it. ``hhq_rest``: rest bathymetry [m] on
-    T-points; None -> flat 100 m (init_data.f90:113-114)."""
+    T-points; None -> flat 100 m (init_data.f90:113-114). ``device``: None
+    -> the current CUDA device (raises without one); tests pass "cpu"."""
     nx, ny = basin.nx, basin.ny
     if int_mask.shape != (nx, ny):
         raise ValueError(f"mask shape {int_mask.shape} != {(nx, ny)}")

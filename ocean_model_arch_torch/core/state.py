@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..host import Precision, torch_dtype
+from ..host import Precision, default_device, torch_dtype
 
 TRACER_FIELDS = ("ff", "ffp", "ffn", "flux_x", "flux_y")
 
@@ -73,8 +73,11 @@ STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SWState))
 
 def zero_state(nx: int, ny: int, tracer_num: int = 0,
                precision: Precision = Precision.f64(),
-               device="cpu") -> SWState:
-    """An all-zero state (ocean_type%init, ocean.f90:56-117)."""
+               device=None) -> SWState:
+    """An all-zero state (ocean_type%init, ocean.f90:56-117) on ``device``
+    (None -> the current CUDA device; raises without one)."""
+    if device is None:
+        device = default_device()
     sd = torch_dtype(precision.state_dtype)
     d = {n: torch.zeros((nx, ny), dtype=sd, device=device)
          for n in STATE_FIELDS if n not in TRACER_FIELDS}
@@ -87,11 +90,15 @@ def zero_state(nx: int, ny: int, tracer_num: int = 0,
     return SWState(**d)
 
 
-def state_from_numpy(d: dict, device, dtype: torch.dtype) -> SWState:
+def state_from_numpy(d: dict, device=None,
+                     dtype: torch.dtype = torch.float64) -> SWState:
     """An SWState from numpy arrays named as the JAX SWState's fields
     (e.g. ``{n: np.asarray(getattr(jax_state, n)) for n in STATE_FIELDS}``;
     absent or None tracer fields stay None). Every field becomes
-    ``dtype`` except ``r_diss``, which is float32 in both packages."""
+    ``dtype`` except ``r_diss``, which is float32 in both packages.
+    ``device``: None -> the current CUDA device (raises without one)."""
+    if device is None:
+        device = default_device()
     out = {}
     for n in STATE_FIELDS:
         a = d.get(n)

@@ -1,12 +1,13 @@
 """Driver of the fused step (counterpart of
 ``ocean_model_arch_tpu/model/fused.py::FusedSWModel, fused_available``).
 
-Carries only the 6 prognostic fields (ssh, sshp, u, up, v, vp) in the
-fused layout; depths and staggered masks are recomputed inside the step.
-``pack``/``unpack`` take and return physical (nx, ny) states, as the JAX
-driver's do. The kernel covers the main-path envelope only; anything
-else raises ValueError naming what is unsupported, never a silent
-change of path.
+Carries only the 6 prognostic fields (ssh, sshp, u, up, v, vp) and the
+two carried levels (ff, ffp) of each tracer in the fused layout; depths
+and staggered masks are recomputed inside the step. ``pack``/``unpack``
+take and return physical (nx, ny) states, as the JAX ``FusedSWModel``
+does. The kernel covers the envelope of :func:`unsupported` only; anything else
+raises ValueError naming what is unsupported, never a silent change of
+path.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from ..core.state import SWState
 from ..host import ModelConfig
 from ..ops import fused_layout as fl
 from ..ops import sw_kernels as swk
-from ..ops.fused_step import PLANES, fused_sw_step
+from ..ops.fused_step import (MAX_TRACERS, PLANES, fused_sw_step,
+                              tile_shape)
 from .step import reinit_depth_families
 
 CARRIED = ("ssh", "sshp", "ubrtr", "ubrtrp", "vbrtr", "vbrtrp")
@@ -31,25 +33,31 @@ def unsupported(grid: Grid, cfg: ModelConfig, mu_const: float = 0.0,
                 static_rslu: bool = True) -> list:
     """What keeps a configuration off the fused kernel (empty: supported).
     The kernel is the TPU kernel's fast x-uniform form with full free
-    surface and momentum advection, flat bathymetry, mu = 0, no tracers,
-    closed boundaries."""
+    surface and momentum advection, flat bathymetry, mu = 0 (so tracers
+    have advective fluxes only), at most ``MAX_TRACERS`` tracers, closed
+    boundaries."""
     sw = cfg.sw
     out = []
     if grid.periodic_x or grid.periodic_y:
         out.append("periodic boundaries")
     if not static_rslu:
         out.append("static_rslu=False (the non-fast kernel form)")
-    if sw.use_tracers > 0:
-        out.append("tracers (use_tracers > 0)")
+    n_tr = sw.tracer_num if sw.use_tracers > 0 else 0
+    if n_tr > MAX_TRACERS:
+        out.append(f"tracer_num={n_tr} > {MAX_TRACERS}")
     if mu_const != 0.0:
         out.append("viscosity (mu_const != 0)")
+        if n_tr:
+            out.append("diffusive tracer fluxes (tracers with "
+                       "mu_const != 0)")
     if sw.full_free_surface != 1:
         out.append(f"full_free_surface={sw.full_free_surface}")
     if sw.trans_terms != 1:
         out.append(f"trans_terms={sw.trans_terms}")
     hr = grid.hhq_rest
     if not bool((hr == hr.reshape(-1)[0]).all()):
-        out.append("non-flat bathymetry (the hrludxdy plane)")
+        out.append("non-flat bathymetry (the hrludxdy plane"
+                   + (", the tracers' hr plane)" if n_tr else ")"))
     for n in ("dx", "dy", "dxt", "dyt", "dxh", "dyh", "dxb", "dyb",
               "rlh_s"):
         f = getattr(grid, n)
@@ -65,14 +73,18 @@ def fused_available(grid: Grid, cfg: ModelConfig) -> bool:
 
 
 class FusedSWModel:
-    """Shallow-water core on the fused CUDA kernel (the plain PyTorch
-    version on CPU tensors). ``steps_per_call`` model steps run per call
-    of the step loop, one kernel launch each; ``run_steps`` windows must
-    be multiples of it."""
+    """Shallow-water core, with the tracers of ``cfg.sw``, on the fused
+    CUDA kernel (the plain PyTorch version on CPU tensors), on the
+    grid's device. ``steps_per_call`` model steps run per call of the
+    step loop, one kernel launch each; ``run_steps`` windows must be
+    multiples of it. ``tile_guard``: skip the kernel's all-land output
+    tiles (they get exact zeros); None turns it on when the mask leaves
+    some tile without a wet cell."""
 
     def __init__(self, grid: Grid, cfg: ModelConfig, tau: float,
                  mu_const: float = 0.0, static_rslu: bool = True,
-                 steps_per_call: int = 1):
+                 steps_per_call: int = 1,
+                 tile_guard: bool | None = None):
         bad = unsupported(grid, cfg, mu_const, static_rslu)
         if bad:
             raise ValueError("fused path unsupported: " + "; ".join(bad))
@@ -83,6 +95,8 @@ class FusedSWModel:
         self.tau = float(tau)
         self.mu_const = float(mu_const)
         self.steps_per_call = int(steps_per_call)
+        self.n_tracers = (cfg.sw.tracer_num if cfg.sw.use_tracers > 0
+                          else 0)
         self.lay = lay = fl.make_layout(grid.nx, grid.ny)
         dev = grid.lu.device
         self.hr_const = float(grid.hhq_rest.reshape(-1)[0])
@@ -96,22 +110,44 @@ class FusedSWModel:
             interp_recips=(met[10:11], met[11:12], (met[14] * met[15])[None]))
         self.met = torch.from_numpy(met).to(dev)
         self.planes = torch.from_numpy(planes).to(dev)
+        # the guard's per-block wet flags, with the kernel's own tile
+        self.tile = tile_shape(dev)
+        wet = fl.tile_wet(lu_s, lay, *self.tile)
+        self.n_tiles = (int(wet.sum()), int(wet.size - wet.sum()))
+        if tile_guard is None:
+            tile_guard = not wet.all()      # some tile is all land
+        self.tile_guard = bool(tile_guard)
+        self.tile_wet = (torch.from_numpy(wet).to(dev) if self.tile_guard
+                         else None)
 
     def pack(self, state: SWState) -> tuple:
-        """SWState -> the 6 carried fields in the fused layout (float32).
-        The kernel has no viscosity term, so a state whose mu is not
+        """SWState -> the 6 + 2 T carried fields in the fused layout
+        (float32): the 6 SW fields, then ff_0, ffp_0, ff_1, ... The
+        kernel has no viscosity term, so a state whose mu is not
         mu_const everywhere is refused."""
         if not bool((state.mu == self.mu_const).all()):
             raise ValueError("fused path requires state.mu == mu_const "
                              f"({self.mu_const}) everywhere")
-        return tuple(fl.embed(self.lay, getattr(state, n)) for n in CARRIED)
+        carry = [fl.embed(self.lay, getattr(state, n)) for n in CARRIED]
+        for t in range(self.n_tracers):
+            carry.append(fl.embed(self.lay, state.ff[t]))
+            carry.append(fl.embed(self.lay, state.ffp[t]))
+        return tuple(carry)
 
     def unpack(self, s6, template: SWState) -> SWState:
-        """6 carried fields -> a full SWState in ``template``'s dtype; the
-        depth families are regenerated as the end-of-step hh_init does."""
+        """6 + 2 T carried fields -> a full SWState in ``template``'s
+        dtype; the depth families are regenerated as the end-of-step
+        hh_init does, and ffn = ff (what the rotation leaves at wet
+        cells)."""
         dt = template.ssh.dtype
         st = dataclasses.replace(template, **{
             n: fl.extract(self.lay, a).to(dt) for n, a in zip(CARRIED, s6)})
+        if self.n_tracers:
+            ff = torch.stack([fl.extract(self.lay, s6[6 + 2 * t]).to(dt)
+                              for t in range(self.n_tracers)])
+            ffp = torch.stack([fl.extract(self.lay, s6[7 + 2 * t]).to(dt)
+                               for t in range(self.n_tracers)])
+            st = dataclasses.replace(st, ff=ff, ffp=ffp, ffn=ff)
         return reinit_depth_families(st, self.grid, self.cfg)
 
     def run_steps(self, s6, n_steps: int):
@@ -127,6 +163,7 @@ class FusedSWModel:
         sw = self.cfg.sw
         for _ in range(n_steps):
             s6, m = fused_sw_step(s6, self.met, self.planes, self.lay,
-                                  self.tau, sw.time_smooth, self.hr_const)
+                                  self.tau, sw.time_smooth, self.hr_const,
+                                  self.tile_wet, self.tile)
             mx = torch.maximum(mx, m)
         return s6, bool(mx < swk.SSH_ERR_BOUND)   # NaN compares False

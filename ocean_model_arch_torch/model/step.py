@@ -22,6 +22,7 @@ from ..core.state import SWState
 from ..host import ModelConfig
 from ..ops import depth_kernels as dk
 from ..ops import sw_kernels as swk
+from ..ops import tracer_kernels as trk
 from ..ops.stencil import pad
 
 
@@ -162,13 +163,42 @@ def sw_step(state: SWState, grid: Grid, cfg: ModelConfig, tau, hp) -> SWState:
 
 def tracer_step(state: SWState, grid: Grid, cfg: ModelConfig, tau,
                 hp) -> SWState:
-    """One tracer step (expl_tracer, tracer.f90:33-62). Tracers are not
-    ported yet: a config with tracers raises instead of silently running
-    without them."""
-    if cfg.sw.use_tracers > 0:
-        raise NotImplementedError("tracers are not ported to the torch "
-                                  "package yet (use_tracers > 0)")
-    return state
+    """One tracer step for all tracers (expl_tracer, tracer.f90:33-62),
+    after :func:`sw_step`: the depths are the post-step ones (the
+    end-of-step hh_init), the velocities the rotated current level, and
+    ``flux_x``/``flux_y`` carry from tracer k to k+1 (land edges keep
+    them), as tracer_interface.f90 binds them."""
+    sw = cfg.sw
+    if sw.use_tracers <= 0 or state.ff is None:
+        return state
+    ex, zp = hp.ex, hp.zp
+    ts = sw.time_smooth
+
+    lu = zp(grid.lu)
+    lcu, lcv = zp(grid.lcu), zp(grid.lcv)
+    dx, dy = zp(grid.dx), zp(grid.dy)
+    dxt, dyt = zp(grid.dxt), zp(grid.dyt)
+    dxh, dyh = ex(grid.dxh), ex(grid.dyh)
+
+    ff, ffp, ffn = state.ff.clone(), state.ffp.clone(), state.ffn.clone()
+    flux_x, flux_y = state.flux_x, state.flux_y
+
+    for k in range(sw.tracer_num):
+        fx, fy = trk.tran_diff_fluxes(
+            lcu, lcv, dxt, dyt, dxh, dyh, zp(state.hhu), zp(state.hhv),
+            ex(ff[k]), zp(ffp[k]), zp(state.ubrtr), zp(state.vbrtr),
+            ex(state.mu), 1.0, zp(flux_x), zp(flux_y))
+        hp.ex_batch([fx, fy])
+        new_ffn = trk.tran_diff_tracer(
+            tau, lu, dx, dy, zp(state.hhq_n), zp(state.hhq_p),
+            ex(fx), ex(fy), zp(ffp[k]), zp(ffn[k]))
+        new_ff, new_ffp = trk.tracer_next_step(
+            ts, lu, zp(new_ffn), zp(ffp[k]), zp(ff[k]))
+        ff[k], ffp[k], ffn[k] = new_ff, new_ffp, new_ffn
+        flux_x, flux_y = fx, fy
+
+    return dataclasses.replace(state, ff=ff, ffp=ffp, ffn=ffn,
+                               flux_x=flux_x, flux_y=flux_y)
 
 
 def reinit_depth_families(state: SWState, grid: Grid,

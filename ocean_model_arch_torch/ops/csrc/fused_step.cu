@@ -1,33 +1,58 @@
 // Fused shallow-water step for Hopper (sm_90a): one launch advances the
-// 6 carried fields (ssh, sshp, u, up, v, vp) by one whole model step.
+// 6 carried fields (ssh, sshp, u, up, v, vp) and the 2 carried levels
+// (ff, ffp) of each of T passive tracers by one whole model step.
 //
 // Replaces: ocean_model_arch_tpu/ops/pallas/fused_step.py::
 //   build_fused_sw_step -> _make_kernel (pallas_call at :1642), fast
 //   branch with x-uniform latitude-profile metrics, full free surface,
-//   momentum advection, no viscosity (mu = 0) and no tracers.
+//   momentum advection, no viscosity (mu = 0), flat bathymetry; its
+//   tracer pass (:937-1039, advective fluxes only since mu = 0) and its
+//   land-tile guard (`guarded` :1106-1131, scalar-prefetch call :1630).
 //   Plain PyTorch version: ops/fused_step.py::fused_sw_step_reference,
 //   which evaluates the same formulas in the same order.
 //
-// What bounds it: memory. Per point and step it must read 10 f32 planes
-// (6 fields + rslu_u, rslu_v, rslu_h, ludxdy) and write 6, 64 bytes,
-// against roughly 100 flops (two divisions among them): at the H100's
-// 3.35 TB/s HBM that is about 19 ns per thousand points, far above the
-// compute time.
+// One kernel template, fused_sw_step_kernel<NT, GUARD>, instantiated for
+// NT = 0, 1, 2 tracers with and without the guard. <0, false> is the
+// form without tracers or guard: 4 stages, 16 shared-memory planes of a
+// (TX+6) x (TY+6) window.
+//
+// What bounds it: memory. Per layout cell and step the SW part must read
+// 10 f32 planes (6 fields + rslu_u, rslu_v, rslu_h, ludxdy) and write 6,
+// 64 bytes, against roughly 100 flops (two divisions among them); each
+// tracer adds 2 planes read and 2 written, 16 bytes, and about 25 flops.
+// So the tracer form moves 64 + 16 T bytes per cell (on the 1533 x 1152
+// layout of the Azov 250 m basin: 141 MB at T = 1, 170 MB at T = 2; 42 us
+// and 51 us at the H100's 3.35 TB/s HBM), far above the compute time.
+// The guarded form moves those bytes for the cells of wet tiles only,
+// plus (6 + 2 T) * 4 bytes of zero writes per cell of an all-land tile
+// (24 bytes at T = 0).
 //
 // What the design does about it: every intermediate of the step (the
 // weighted depth column aq, the depths hu/hv/hh and hup/hvp, the mass
 // fluxes, sshn, the vorticity, the edge fluxes F/G/K/L and the merged
-// vorticity+Coriolis products, un/vn) lives in shared memory or
+// vorticity+Coriolis products, un/vn, the post-step depths and
+// transports, the tracer edge fluxes) lives in shared memory or
 // registers and never touches device memory, so the kernel moves only
-// those 64 bytes per point plus the tile halos, which neighbouring
-// blocks re-read mostly from L2. A block owns a TX x TY tile of outputs
-// and loads a (TX+6) x (TY+6) window (the step's stencil reach is at most
-// 3 cells on either side); each stage then runs on a region whose halo
-// shrinks by one cell per stencil level (3 -> 2 -> 1 -> 0), with
-// __syncthreads() between stages. y, the contiguous axis, runs along
-// threadIdx so each warp reads consecutive addresses. Cells outside the
-// array read as 0 (land); the layout's 4-cell land margin keeps every
-// read of an interior cell inside the array.
+// the bytes above plus the tile halos, which neighbouring blocks re-read
+// mostly from L2. A block owns a TX x TY tile of outputs and loads a
+// (TX+2H) x (TY+2H) window; each stage then runs on a region whose halo
+// shrinks by one cell per stencil level, with __syncthreads() between
+// stages. Without tracers the reach is H = 3 (3 -> 2 -> 1 -> 0). The
+// tracer pass needs sshn two cells and un/vn one cell beyond the tile
+// (post-step depths and transports at the tile's edge fluxes), which
+// pushes every earlier stage one cell out: H = 4 (4 -> 3 -> 2 -> 2/1/0
+// -> 1 -> 0), six stages, and the same 16 planes -- the tracer stages
+// reuse planes whose contents are dead by then. y, the contiguous axis,
+// runs along threadIdx so each warp reads consecutive addresses. Cells
+// outside the array read as 0 (land); the layout's 4-cell land margin
+// keeps every read of an interior cell inside the array.
+//
+// The guard: a block whose own tile holds no wet cell (one int flag per
+// block, built on the host from the land mask with this file's tile
+// constants) writes exact zeros to its tile of every output and 0 to its
+// max slot, loads nothing and returns before the first barrier. That is
+// exact: land cells hold 0 in every carried field and every output
+// select keeps land at its input value.
 //
 // The per-block max |ssh| over interior cells feeds the stability guard
 // and propagates NaN (fmaxf would drop it). Land-only divisions are
@@ -37,19 +62,33 @@
 
 namespace {
 
-// Tile: 16 x 32 outputs, 512 threads, 53.5 KB of shared memory per
-// block. Swept at the production layout on an H100 SXM (700 W): 16x32
-// with 512 threads 75.0 us/launch; 16x16, 12x32 and 8x32 with 256
-// threads 76-78 us; 32x32 108 us; 32x64 172 us. Small tiles keep more
-// blocks, and so more loads, in flight per SM; their halo re-reads hit L2.
+// Tile, one for every form: 16 x 32 outputs, 512 threads, three blocks
+// per SM. Swept on an H100 SXM (700 W) at the 1533 x 1152 layout, device
+// us/launch. Without tracers: 16x32 with 512 threads 75.0; 16x16, 12x32
+// and 8x32 with 256 threads 76-78; 32x32 108; 32x64 172. With 2 tracers:
+// 16x32/512 122; 8x64/512 123; 12x32/512 126; 32x16/512 128; 16x64/512
+// 129; 16x32/384 131; 32x32/512 133; 16x16/256 134; 8x32/256 137. Small
+// tiles keep more blocks, and so more loads, in flight per SM; their halo
+// re-reads hit L2. Three blocks of 512 threads fit an SM only at 42
+// registers or fewer: left to itself ptxas takes 44 (47-48 with tracers),
+// two blocks fit, and the launch takes 95 us instead of 73 (164 instead
+// of 122); with MIN_BLOCKS = 3 it takes 39 and spills nothing.
 constexpr int TX = 16;                 // output rows (x) per block
 constexpr int TY = 32;                 // output columns (y) per block
-constexpr int HALO = 3;                // stencil reach of one step
-constexpr int WX = TX + 2 * HALO;      // window rows
-constexpr int WY = TY + 2 * HALO;      // window columns
-constexpr int PLANE = WX * WY;         // floats per shared-memory array
 constexpr int NTHREADS = 512;
 constexpr int NWARPS = NTHREADS / 32;
+constexpr int MIN_BLOCKS = 3;          // blocks per SM to keep registers for
+constexpr int MAX_TRACERS = 2;
+
+// The window of the form with NT tracers.
+template <int NT>
+struct Form {
+  static constexpr int EXTRA = NT ? 1 : 0;        // reach of the tracer pass
+  static constexpr int HALO = 3 + EXTRA;          // stencil reach of one step
+  static constexpr int WX = TX + 2 * HALO;        // window rows
+  static constexpr int WY = TY + 2 * HALO;        // window columns
+  static constexpr int PLANE = WX * WY;           // floats per shared array
+};
 
 // shared-memory arrays, each a WX x WY window
 enum {
@@ -60,9 +99,21 @@ enum {
   S_CX, S_CY,                // centre terms of the advection tails
   N_SMEM
 };
-constexpr size_t SMEM_BYTES = sizeof(float) * N_SMEM * PLANE;
+// What the tracer stages keep in planes that are dead by then:
+//   S_AQ <- aq_new (post-step depth column; aq is last read in stage 2)
+//   S_CX, S_CY <- un, vn (each thread overwrites the centre term it read)
+//   S_HU <- sshp_new of the tile's cells (hu is read by its own thread)
+//   tracer t's edge fluxes fx, fy <- S_F + 2 t, S_F + 2 t + 1
+//   (F, K, Rx, Sy are last read in stage 3)
+static_assert(S_F + 2 * MAX_TRACERS <= S_CX, "tracer flux planes overlap");
+
+template <int NT>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * N_SMEM * Form<NT>::PLANE;
+}
 
 // profile rows read by the kernel (ops/fused_layout.py row meanings)
+constexpr int R_DX = 0, R_DY = 1;
 constexpr int R_RDXDY = 9, R_RDXT = 10, R_RDYT = 11;
 constexpr int R_VORT_V = 16, R_VORT_UY = 17, R_VORT_U = 18, R_CORIO = 21;
 
@@ -76,10 +127,13 @@ struct Params {
   float* u_o; float* up_o;
   float* v_o; float* vp_o;
   float* blockmax;       // one max |ssh| per block
+  const float* tr[2 * MAX_TRACERS];   // ff_0, ffp_0, ff_1, ffp_1
+  float* tr_o[2 * MAX_TRACERS];
+  const int* tile_wet;   // one flag per block (guarded forms), else null
   int Xs, Ys, nx, ny, margin;
   float hr;              // flat rest bathymetry
   float neg_g;           // -FREE_FALL_ACC
-  float two_tau, neg_two_tau;
+  float two_tau, neg_two_tau, inv_two_tau;
   float ts1, ts2;        // 1 - time_smooth, time_smooth / 2
 };
 
@@ -91,8 +145,42 @@ __device__ __forceinline__ bool inside(const Params& p, int gx, int gy) {
   return gx >= 0 && gx < p.Xs && gy >= 0 && gy < p.Ys;
 }
 
-__global__ void __launch_bounds__(NTHREADS)
+// f[gx, gy], 0 outside the array
+__device__ __forceinline__ float at(const Params& p, const float* f,
+                                    int gx, int gy) {
+  return inside(p, gx, gy) ? f[(size_t)gx * p.Ys + gy] : 0.f;
+}
+
+template <int NT, bool GUARD>
+__global__ void
+__launch_bounds__(NTHREADS, MIN_BLOCKS)
 fused_sw_step_kernel(const Params p) {
+  constexpr int HALO = Form<NT>::HALO, EXTRA = Form<NT>::EXTRA;
+  constexpr int WY = Form<NT>::WY, PLANE = Form<NT>::PLANE;
+
+  const int tid = threadIdx.x;
+
+  if (GUARD) {
+    const int bid = blockIdx.y * gridDim.x + blockIdx.x;
+    // all-land tile: exact zeros, no loads; the whole block takes this
+    // branch (one flag per block) before any barrier
+    if (p.tile_wet[bid] == 0) {
+      for (int i = tid; i < TX * TY; i += NTHREADS) {
+        const int gx = blockIdx.y * TX + i / TY;
+        const int gy = blockIdx.x * TY + i % TY;
+        if (!inside(p, gx, gy)) continue;
+        const size_t g = (size_t)gx * p.Ys + gy;
+        p.ssh_o[g] = 0.f; p.sshp_o[g] = 0.f;
+        p.u_o[g] = 0.f; p.up_o[g] = 0.f;
+        p.v_o[g] = 0.f; p.vp_o[g] = 0.f;
+#pragma unroll
+        for (int t = 0; t < 2 * NT; ++t) p.tr_o[t][g] = 0.f;
+      }
+      if (tid == 0) p.blockmax[bid] = 0.f;
+      return;
+    }
+  }
+
   extern __shared__ float sm[];
   float* s_ssh = sm + S_SSH * PLANE;
   float* s_u = sm + S_U * PLANE;
@@ -112,7 +200,6 @@ fused_sw_step_kernel(const Params p) {
   float* s_cy = sm + S_CY * PLANE;
   __shared__ float s_red[NWARPS];
 
-  const int tid = threadIdx.x;
   const int x0 = blockIdx.y * TX - HALO;   // global row of window row 0
   const int y0 = blockIdx.x * TY - HALO;   // global column of window col 0
   const size_t plane = (size_t)p.Xs * p.Ys;
@@ -123,7 +210,7 @@ fused_sw_step_kernel(const Params p) {
   const int W = 1;                          // one window row/col offset
   const int S = WY;                         // window row stride
 
-  // stage 0 (halo 3): load the window; aq = (ssh + hr) * lu*dx*dy
+  // stage 0 (halo 3 + EXTRA): load the window; aq = (ssh + hr) * lu*dx*dy
   for (int i = tid; i < PLANE; i += NTHREADS) {
     const int gx = x0 + i / WY, gy = y0 + i % WY;
     float ssh = 0.f, u = 0.f, v = 0.f, ld = 0.f;
@@ -136,10 +223,10 @@ fused_sw_step_kernel(const Params p) {
   }
   __syncthreads();
 
-  // stage 1 (halo 2): depth interps hu = hhu*dyh, hv = hhv*dxh and the
-  // mass fluxes; the previous-level column aqp (halo 1)
+  // stage 1 (halo 2 + EXTRA): depth interps hu = hhu*dyh, hv = hhv*dxh and
+  // the mass fluxes; the previous-level column aqp (halo 1 + EXTRA)
   {
-    const int h = 2, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    constexpr int h = 2 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid; i < n; i += NTHREADS) {
       const int a = HALO - h + i / w, b = HALO - h + i % w;
       const int k = a * S + b, gx = x0 + a, gy = y0 + b;
@@ -156,20 +243,18 @@ fused_sw_step_kernel(const Params p) {
     }
   }
   {
-    const int h = 1, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    constexpr int h = 1 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid; i < n; i += NTHREADS) {
       const int a = HALO - h + i / w, b = HALO - h + i % w;
-      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
-      const float sshp = inside(p, gx, gy)
-          ? p.sshp[(size_t)gx * p.Ys + gy] : 0.f;
-      s_aqp[k] = (sshp + p.hr) * s_ld[k];
+      const int k = a * S + b;
+      s_aqp[k] = (at(p, p.sshp, x0 + a, y0 + b) + p.hr) * s_ld[k];
     }
   }
   __syncthreads();
 
-  // stage 2 (halo 1): vorticity, edge fluxes, vorticity + Coriolis
+  // stage 2 (halo 1 + EXTRA): vorticity, edge fluxes, vorticity + Coriolis
   {
-    const int h = 1, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    constexpr int h = 1 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid; i < n; i += NTHREADS) {
       const int a = HALO - h + i / w, b = HALO - h + i % w;
       const int k = a * S + b, gx = x0 + a, gy = y0 + b;
@@ -207,55 +292,140 @@ fused_sw_step_kernel(const Params p) {
   }
   __syncthreads();
 
-  // stage 3 (halo 0): continuity, momentum, leapfrog + filter, outputs
+  // stage 3: continuity, momentum, leapfrog + filter, the 6 SW outputs
+  // (halo 0). With tracers the continuity runs at halo 2 and the momentum
+  // at halo 1, and they leave aq_new, un, vn and sshp_new in shared memory.
   float mx = 0.f;
-  for (int i = tid; i < TX * TY; i += NTHREADS) {
-    const int a = HALO + i / TY, b = HALO + i % TY;
-    const int k = a * S + b, gx = x0 + a, gy = y0 + b;
-    if (!inside(p, gx, gy)) continue;
-    const size_t g = (size_t)gx * p.Ys + gy;
-    const float ssh = s_ssh[k], sshp = p.sshp[g];
-    const float u = s_u[k], up = p.up[g];
-    const float v = s_v[k], vp = p.vp[g];
-    const bool wlu = s_ld[k] > 0.5f;
-    const bool wlcu = wlu && s_ld[k + S] > 0.5f;
-    const bool wlcv = wlu && s_ld[k + W] > 0.5f;
+  {
+    constexpr int h = 2 * EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    for (int i = tid; i < n; i += NTHREADS) {
+      const int a = HALO - h + i / w, b = HALO - h + i % w;
+      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      // distance beyond the tile: 0 inside it
+      const int ring = !NT ? 0
+          : max(max(HALO - a, a - (HALO + TX - 1)),
+                max(max(HALO - b, b - (HALO + TY - 1)), 0));
+      if (!inside(p, gx, gy)) {
+        if (NT) { s_aq[k] = 0.f; s_cx[k] = 0.f; s_cy[k] = 0.f; }
+        continue;
+      }
+      const size_t g = (size_t)gx * p.Ys + gy;
+      const float ssh = s_ssh[k], sshp = p.sshp[g];
+      const bool wlu = s_ld[k] > 0.5f;
+      const bool wlcu = wlu && s_ld[k + S] > 0.5f;
+      const bool wlcv = wlu && s_ld[k + W] > 0.5f;
 
-    // continuity: sshn = sshp - 2 tau div(flux) / (dx dy)
-    const float div = ((s_ud[k] - s_ud[k - S]) + s_vd[k]) - s_vd[k - W];
-    const float sshn = sshp + div * (p.neg_two_tau * p.met[R_RDXDY * p.Ys + gy]);
+      // continuity: sshn = sshp - 2 tau div(flux) / (dx dy)
+      const float div = ((s_ud[k] - s_ud[k - S]) + s_vd[k]) - s_vd[k - W];
+      const float sshn = sshp + div * (p.neg_two_tau * p.met[R_RDXDY * p.Ys + gy]);
+      // post-step depth column; sshn, not ssh_new: ld kills land
+      if (NT) s_aq[k] = (sshn + p.hr) * s_ld[k];
+      if (ring > 1) continue;
 
-    // momentum: (up*bp0 + grx)/bp with the bp metric factor cancelled
-    float un = 0.f, vn = 0.f;
-    if (wlcu) {
-      const float hu = s_hu[k];
-      const float hup = (s_aqp[k] + s_aqp[k + S]) * rslu_u[g];
-      const float slx = (s_ssh[k + S] - ssh) * hu * p.neg_g;
-      const float acx = (s_cx[k] + s_rx[k - W]) + s_f[k - S];
-      const float grx = slx + acx;
-      un = (up * hup + grx * (p.two_tau * p.met[R_RDXT * p.Ys + gy])) / hu;
+      // momentum: (up*bp0 + grx)/bp with the bp metric factor cancelled
+      const float u = s_u[k], up = p.up[g];
+      const float v = s_v[k], vp = p.vp[g];
+      float un = 0.f, vn = 0.f;
+      if (wlcu) {
+        const float hu = s_hu[k];
+        const float hup = (s_aqp[k] + s_aqp[k + S]) * rslu_u[g];
+        const float slx = (s_ssh[k + S] - ssh) * hu * p.neg_g;
+        const float acx = (s_cx[k] + s_rx[k - W]) + s_f[k - S];
+        const float grx = slx + acx;
+        un = (up * hup + grx * (p.two_tau * p.met[R_RDXT * p.Ys + gy])) / hu;
+      }
+      if (wlcv) {
+        const float hv = s_hv[k];
+        const float hvp = (s_aqp[k] + s_aqp[k + W]) * rslu_v[g];
+        const float sly = (s_ssh[k + W] - ssh) * hv * p.neg_g;
+        const float acy = (s_cy[k] + s_sy[k - S]) + s_k[k - W];
+        const float gry = sly + acy;
+        vn = (vp * hvp + gry * (p.two_tau * p.met[R_RDYT * p.Ys + gy])) / hv;
+      }
+      if (NT) { s_cx[k] = un; s_cy[k] = vn; }   // 0 off the u / v wet sets
+      if (ring > 0) continue;
+
+      // leapfrog rotation + Robert-Asselin filter
+      const float ssh_new = wlu ? sshn : ssh;
+      const float sshp_new = wlu ? p.ts1 * ssh + p.ts2 * (sshn + sshp) : sshp;
+      p.ssh_o[g] = ssh_new;
+      p.sshp_o[g] = sshp_new;
+      if (NT) s_hu[k] = sshp_new;
+      p.u_o[g] = wlcu ? un : u;
+      p.up_o[g] = wlcu ? p.ts1 * u + p.ts2 * (un + up) : up;
+      p.v_o[g] = wlcv ? vn : v;
+      p.vp_o[g] = wlcv ? p.ts1 * v + p.ts2 * (vn + vp) : vp;
+
+      if (gx >= p.margin && gx < p.margin + p.nx
+          && gy >= p.margin && gy < p.margin + p.ny)
+        mx = nan_max(mx, fabsf(ssh_new));
     }
-    if (wlcv) {
-      const float hv = s_hv[k];
-      const float hvp = (s_aqp[k] + s_aqp[k + W]) * rslu_v[g];
-      const float sly = (s_ssh[k + W] - ssh) * hv * p.neg_g;
-      const float acy = (s_cy[k] + s_sy[k - S]) + s_k[k - W];
-      const float gry = sly + acy;
-      vn = (vp * hvp + gry * (p.two_tau * p.met[R_RDYT * p.Ys + gy])) / hv;
+  }
+
+  if (NT) {
+    __syncthreads();
+
+    // stage 4 (halo 1): post-step depths hun, hvn from aq_new, the
+    // transports uh = u_new * hun, vh = v_new * hvn on the u / v wet
+    // sets, and each tracer's centred advective edge fluxes
+    float* s_aqn = s_aq;
+    float* s_un = s_cx;
+    float* s_vn = s_cy;
+    {
+      constexpr int h = 1, w = TY + 2 * h, n = (TX + 2 * h) * w;
+      for (int i = tid; i < n; i += NTHREADS) {
+        const int a = HALO - h + i / w, b = HALO - h + i % w;
+        const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+        const float aqn = s_aqn[k];
+        const float hun = (aqn + s_aqn[k + S]) * at(p, rslu_u, gx, gy);
+        const float hvn = (aqn + s_aqn[k + W]) * at(p, rslu_v, gx, gy);
+        const bool wlu = s_ld[k] > 0.5f;
+        const bool wlcu = wlu && s_ld[k + S] > 0.5f;
+        const bool wlcv = wlu && s_ld[k + W] > 0.5f;
+        const float uh = wlcu ? s_un[k] * hun : 0.f;
+        const float vh = wlcv ? s_vn[k] * hvn : 0.f;
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const float* ffg = p.tr[2 * t];
+          const float ff = at(p, ffg, gx, gy);
+          sm[(S_F + 2 * t) * PLANE + k] =
+              uh * ((ff + at(p, ffg, gx + 1, gy)) * -0.5f);
+          sm[(S_F + 2 * t + 1) * PLANE + k] =
+              vh * ((ff + at(p, ffg, gx, gy + 1)) * -0.5f);
+        }
+      }
     }
+    __syncthreads();
 
-    // leapfrog rotation + Robert-Asselin filter
-    const float ssh_new = wlu ? sshn : ssh;
-    p.ssh_o[g] = ssh_new;
-    p.sshp_o[g] = wlu ? p.ts1 * ssh + p.ts2 * (sshn + sshp) : sshp;
-    p.u_o[g] = wlcu ? un : u;
-    p.up_o[g] = wlcu ? p.ts1 * u + p.ts2 * (un + up) : up;
-    p.v_o[g] = wlcv ? vn : v;
-    p.vp_o[g] = wlcv ? p.ts1 * v + p.ts2 * (vn + vp) : vp;
-
-    if (gx >= p.margin && gx < p.margin + p.nx
-        && gy >= p.margin && gy < p.margin + p.ny)
-      mx = nan_max(mx, fabsf(ssh_new));
+    // stage 5 (halo 0): leapfrog update from the flux divergence,
+    // rotation + Robert-Asselin filter, the 2 NT tracer outputs
+    const float* s_sshp_new = s_hu;
+    for (int i = tid; i < TX * TY; i += NTHREADS) {
+      const int a = HALO + i / TY, b = HALO + i % TY;
+      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      if (!inside(p, gx, gy)) continue;
+      const size_t g = (size_t)gx * p.Ys + gy;
+      const bool wlu = s_ld[k] > 0.5f;
+      // bp = hhq_n*area, bp0 = hhq_p*area with hhq_n = hr,
+      // hhq_p = hr + sshp_new, area = dx*dy / (2 tau)
+      const float area = (p.met[R_DX * p.Ys + gy] * p.met[R_DY * p.Ys + gy])
+          * p.inv_two_tau;
+      const float bp = p.hr * area;
+      const float bp0 = (p.hr + s_sshp_new[k]) * area;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const float* fx = sm + (S_F + 2 * t) * PLANE;
+        const float* fy = sm + (S_F + 2 * t + 1) * PLANE;
+        const float ff = p.tr[2 * t][g], ffp = p.tr[2 * t + 1][g];
+        float ffn = 0.f;
+        if (wlu) {
+          const float rhs = ((fx[k] - fx[k - S]) + fy[k]) - fy[k - W];
+          ffn = (bp0 * ffp + rhs) / bp;
+        }
+        p.tr_o[2 * t][g] = wlu ? ffn : ff;
+        p.tr_o[2 * t + 1][g] = wlu ? p.ts1 * ff + p.ts2 * (ffn + ffp) : ffp;
+      }
+    }
   }
 
   // block max |ssh|, NaN-propagating
@@ -271,42 +441,63 @@ fused_sw_step_kernel(const Params p) {
   }
 }
 
-dim3 grid_of(int Xs, int Ys) {
-  return dim3((Ys + TY - 1) / TY, (Xs + TX - 1) / TX);
+template <int NT, bool GUARD>
+int launch(const Params& p, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_sw_step_kernel<NT, GUARD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<NT>());
+  if (e != cudaSuccess) return (int)e;
+  fused_sw_step_kernel<NT, GUARD>
+      <<<dim3((p.Ys + TY - 1) / TY, (p.Xs + TX - 1) / TX), NTHREADS,
+         smem_bytes<NT>(), stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-int fused_sw_step_blocks(int Xs, int Ys) {
-  const dim3 g = grid_of(Xs, Ys);
-  return (int)(g.x * g.y);
-}
+// The output tile (rows, columns) of a block: the host sizes blockmax and
+// builds the guard's per-block wet flags with these, both row-major over
+// (x tiles, y tiles).
+int fused_sw_step_tile_x() { return TX; }
+
+int fused_sw_step_tile_y() { return TY; }
 
 const char* fused_sw_step_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
 // Launches one step on `stream`; returns cudaGetLastError() (0 = launched).
+// tr_in / tr_out: host arrays of 2 * n_tracers device pointers (ff_0,
+// ffp_0, ff_1, ...), unread when n_tracers = 0. tile_wet: device array of
+// one int per block, or null for the unguarded form.
 int fused_sw_step_launch(
     const float* ssh, const float* sshp, const float* u, const float* up,
     const float* v, const float* vp, const float* met, const float* planes,
     float* ssh_o, float* sshp_o, float* u_o, float* up_o, float* v_o,
-    float* vp_o, float* blockmax, int Xs, int Ys, int nx, int ny,
-    int margin, float hr, float neg_g, float two_tau, float neg_two_tau,
-    float ts1, float ts2, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_sw_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  const Params p{ssh, sshp, u, up, v, vp, met, planes,
-                 ssh_o, sshp_o, u_o, up_o, v_o, vp_o, blockmax,
-                 Xs, Ys, nx, ny, margin, hr, neg_g, two_tau, neg_two_tau,
-                 ts1, ts2};
-  fused_sw_step_kernel<<<grid_of(Xs, Ys), NTHREADS, SMEM_BYTES,
-                         (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+    float* vp_o, float* blockmax, const float* const* tr_in,
+    float* const* tr_out, const int* tile_wet, int n_tracers, int Xs, int Ys,
+    int nx, int ny, int margin, float hr, float neg_g, float two_tau,
+    float neg_two_tau, float inv_two_tau, float ts1, float ts2,
+    void* stream) {
+  if (n_tracers < 0 || n_tracers > MAX_TRACERS)
+    return (int)cudaErrorInvalidValue;
+  Params p{ssh, sshp, u, up, v, vp, met, planes,
+           ssh_o, sshp_o, u_o, up_o, v_o, vp_o, blockmax,
+           {}, {}, tile_wet, Xs, Ys, nx, ny, margin, hr, neg_g,
+           two_tau, neg_two_tau, inv_two_tau, ts1, ts2};
+  for (int t = 0; t < 2 * n_tracers; ++t) {
+    p.tr[t] = tr_in[t];
+    p.tr_o[t] = tr_out[t];
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool guard = tile_wet != nullptr;
+  switch (n_tracers) {
+    case 0: return guard ? launch<0, true>(p, s) : launch<0, false>(p, s);
+    case 1: return guard ? launch<1, true>(p, s) : launch<1, false>(p, s);
+    default: return guard ? launch<2, true>(p, s) : launch<2, false>(p, s);
+  }
 }
 
 }  // extern "C"

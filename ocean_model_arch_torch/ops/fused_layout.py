@@ -3,9 +3,9 @@
 Counterparts of the numpy/host helpers inside
 ``ocean_model_arch_tpu/ops/pallas/fused_step.py`` (``margin_for`` :88,
 ``make_layout`` :124, ``embed``/``extract`` :151-163, ``plane_names``
-:173, ``staggered_wet_masks`` :1719, ``metrics_profile_from_grid``
-:1771, ``static_planes`` :1809), re-homed here because that file
-imports ``jax.experimental.pallas``.
+:173, the guard's wet flags :1691-1705, ``staggered_wet_masks`` :1719,
+``metrics_profile_from_grid`` :1771, ``static_planes`` :1809), re-homed
+here because that file imports ``jax.experimental.pallas``.
 
 The layout is the port's own, not the TPU's: a physical (nx, ny) field
 sits inside a land margin of ``MARGIN`` cells on every side of an
@@ -25,17 +25,20 @@ import numpy as np
 import torch
 
 STEP_REACH = 3      # cells one fused step reads beyond its outputs
+TRACER_REACH = 4    # the same with the tracer pass (sshn at halo 2)
 ROW_ALIGN = 32      # Ys is a multiple of this many floats (128 bytes)
 N_PROF = 24         # profile rows (9 metrics + 7 reciprocals + 6 derived)
 
 
-def margin_for(steps_per_launch: int) -> int:
+def margin_for(steps_per_launch: int, n_tracers: int = 0) -> int:
     """Land margin for a kernel that chains ``steps_per_launch`` steps:
     their total reach, and at least 4 cells."""
-    return max(4, STEP_REACH * int(steps_per_launch))
+    reach = TRACER_REACH if n_tracers else STEP_REACH
+    return max(4, reach * int(steps_per_launch))
 
 
-MARGIN = margin_for(1)   # the kernel runs one step per launch
+MARGIN = margin_for(1)   # one step per launch, with or without tracers
+assert MARGIN == margin_for(1, n_tracers=1)
 
 
 class FusedLayout(NamedTuple):
@@ -84,6 +87,18 @@ def plane_names(ffs: int, ksw: int, mu_const: float,
     if ksw and mu_const != 0.0:
         names.append("wlu")
     return tuple(names)
+
+
+def tile_wet(lu_s, lay: FusedLayout, tx: int, ty: int) -> np.ndarray:
+    """The tile guard's flags: an int32 (x tiles, y tiles) array, 1 where
+    the ``tx`` x ``ty`` output tile of the kernel's grid (tiles start at
+    the array's corner and the last ones overhang it) holds a wet cell
+    of the embedded mask ``lu_s``, else 0."""
+    wet = np.asarray(lu_s) > 0.5
+    ntx, nty = -(-lay.Xs // tx), -(-lay.Ys // ty)
+    full = np.zeros((ntx * tx, nty * ty), bool)
+    full[:lay.Xs, :lay.Ys] = wet
+    return full.reshape(ntx, tx, nty, ty).any(axis=(1, 3)).astype(np.int32)
 
 
 def staggered_wet_masks(lu) -> tuple:

@@ -2,18 +2,25 @@
 
 Counterpart of ``ocean_model_arch_tpu/ops/pallas/fused_step.py::
 build_fused_sw_step`` / ``_make_kernel`` (fast branch, x-uniform
-profile metrics, full free surface, momentum advection, mu = 0, no
-tracers). One call advances the 6 carried fields by one model step on
-the layout of ops/fused_layout.py:
+profile metrics, full free surface, momentum advection, mu = 0, flat
+bathymetry), with its tracer pass (advective fluxes; mu = 0) and its
+land-tile guard. One call advances the 6 carried fields and the 2
+carried levels of each of T tracers by one model step on the layout of
+ops/fused_layout.py:
 
-    (ssh, sshp, u, up, v, vp), met (24, Ys), planes (4, Xs, Ys)
-        -> (6 new fields, max |ssh_new| over interior cells)
+    (ssh, sshp, u, up, v, vp, ff_0, ffp_0, ff_1, ...), met (24, Ys),
+    planes (4, Xs, Ys) [, tile_wet (x tiles, y tiles) int32]
+        -> (6 + 2 T new fields, max |ssh_new| over interior cells)
 
 The depths are recomputed from (ssh, sshp) every step instead of being
 carried, as the TPU kernel does: the step ends with hh_init, so every
 depth is a function of (ssh, sshp, bathymetry). The static planes are
 ``PLANES`` (built without the TPU kernel's q4 quarter fold); the
 staggered wet masks are derived from the ``ludxdy`` plane.
+
+With ``tile_wet`` the step is guarded: an output tile whose flag is 0
+(no wet cell) is not computed and gets exact zeros, which is what its
+land cells hold anyway.
 
 :func:`fused_sw_step` takes CPU tensors to :func:`fused_sw_step_reference`
 and CUDA tensors to the hand-written kernel (``csrc/fused_step.cu``),
@@ -23,6 +30,7 @@ raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -33,15 +41,17 @@ from ._build import load
 from .fused_layout import N_PROF, FusedLayout
 
 PLANES = ("rslu_u", "rslu_v", "rslu_h", "ludxdy")
-N_FIELDS = 6
+N_FIELDS = 6            # carried SW fields; each tracer adds 2
+MAX_TRACERS = 2         # the kernel's instantiations (csrc/fused_step.cu)
+CPU_TILE = (16, 32)     # the guard's tile where no kernel defines one
 
 
 def _scalars(tau: float, time_smooth: float):
     """The step's scalar constants, rounded once, as both versions use
-    them: (-g, 2 tau, -2 tau, 1 - ts, ts / 2)."""
+    them: (-g, 2 tau, -2 tau, 1 / (2 tau), 1 - ts, ts / 2)."""
     ts = float(time_smooth)
     return (-float(FREE_FALL_ACC), 2.0 * float(tau), -2.0 * float(tau),
-            1.0 - ts, 0.5 * ts)
+            1.0 / (2.0 * float(tau)), 1.0 - ts, 0.5 * ts)
 
 
 def _sh(a: torch.Tensor, dm: int, dn: int) -> torch.Tensor:
@@ -53,14 +63,48 @@ def _sh(a: torch.Tensor, dm: int, dn: int) -> torch.Tensor:
     return out
 
 
+def n_tracers_of(fields) -> int:
+    """T of a (6 + 2 T)-tuple of carried fields."""
+    extra = len(fields) - N_FIELDS
+    if extra < 0 or extra % 2:
+        raise ValueError(f"expected {N_FIELDS} + 2 T fields, got "
+                         f"{len(fields)}")
+    return extra // 2
+
+
+def tile_shape(device) -> tuple:
+    """The (rows, columns) of the output tile the guard's flags refer to:
+    the kernel's own tile constants for a CUDA device (the library is
+    built if needed), ``CPU_TILE`` for the plain version on the CPU."""
+    if torch.device(device).type == "cpu":
+        return CPU_TILE
+    lib = _library()
+    return lib.fused_sw_step_tile_x(), lib.fused_sw_step_tile_y()
+
+
+def _wet_cells(tile_wet: torch.Tensor, tile, lay: FusedLayout):
+    """The per-tile flags expanded to a bool (Xs, Ys) cell mask."""
+    tx, ty = tile
+    want = (-(-lay.Xs // tx), -(-lay.Ys // ty))
+    if tuple(tile_wet.shape) != want:
+        raise ValueError(f"tile_wet: need shape {want} for {tx} x {ty} "
+                         f"tiles, got {tuple(tile_wet.shape)}")
+    cells = tile_wet.repeat_interleave(tx, 0).repeat_interleave(ty, 1)
+    return cells[:lay.Xs, :lay.Ys] > 0
+
+
 def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
                             tau: float, time_smooth: float,
-                            hr_const: float):
+                            hr_const: float, tile_wet=None, tile=None):
     """One fused step in plain PyTorch on whole arrays, with the kernel's
-    formulas in the kernel's order (see csrc/fused_step.cu)."""
-    ssh, sshp, u, up, v, vp = fields
+    formulas in the kernel's order (see csrc/fused_step.cu). ``tile_wet``
+    (with its ``tile`` shape) reproduces the guard: zeros, and a max of
+    0, in every tile flagged all-land."""
+    n_tr = n_tracers_of(fields)
+    ssh, sshp, u, up, v, vp = fields[:N_FIELDS]
     rslu_u, rslu_v, rslu_h, ld = planes
-    neg_g, two_tau, neg_two_tau, ts1, ts2 = _scalars(tau, time_smooth)
+    neg_g, two_tau, neg_two_tau, inv_two_tau, ts1, ts2 = _scalars(
+        tau, time_smooth)
 
     def row(k):
         return met[k][None, :]
@@ -116,20 +160,49 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
 
     # leapfrog rotation + Robert-Asselin filter
     ssh_new = torch.where(wlu, sshn, ssh)
-    out = (ssh_new,
-           torch.where(wlu, ts1 * ssh + ts2 * (sshn + sshp), sshp),
+    sshp_new = torch.where(wlu, ts1 * ssh + ts2 * (sshn + sshp), sshp)
+    out = [ssh_new, sshp_new,
            torch.where(wlcu, un, u),
            torch.where(wlcu, ts1 * u + ts2 * (un + up), up),
            torch.where(wlcv, vn, v),
-           torch.where(wlcv, ts1 * v + ts2 * (vn + vp), vp))
+           torch.where(wlcv, ts1 * v + ts2 * (vn + vp), vp)]
+
+    if n_tr:
+        # tracer pass: post-step depths and transports (sshn, not
+        # ssh_new: ld kills land), centred advective edge fluxes,
+        # leapfrog update with hhq_n = hr, hhq_p = hr + sshp_new
+        aqn = (sshn + hr_const) * ld
+        hun = (aqn + xp(aqn)) * rslu_u
+        hvn = (aqn + yp(aqn)) * rslu_v
+        uh = torch.where(wlcu, un * hun, 0.0)
+        vh = torch.where(wlcv, vn * hvn, 0.0)
+        area = (row(0) * row(1)) * inv_two_tau
+        bp = hr_const * area
+        bp0 = (hr_const + sshp_new) * area
+    for t in range(n_tr):
+        ff, ffp = fields[N_FIELDS + 2 * t], fields[N_FIELDS + 2 * t + 1]
+        fx = uh * ((ff + xp(ff)) * -0.5)
+        fy = vh * ((ff + yp(ff)) * -0.5)
+        rhs = ((fx - _sh(fx, -1, 0)) + fy) - _sh(fy, 0, -1)
+        ffn = torch.where(wlu, (bp0 * ffp + rhs)
+                          / torch.where(wlu, bp, 1.0), 0.0)
+        out.append(torch.where(wlu, ffn, ff))
+        out.append(torch.where(wlu, ts1 * ff + ts2 * (ffn + ffp), ffp))
+
+    if tile_wet is not None:
+        cells = _wet_cells(tile_wet, tile, lay)
+        out = [torch.where(cells, o, 0.0) for o in out]
     m = lay.margin
-    mx = torch.amax(ssh_new[m:m + lay.nx, m:m + lay.ny].abs())
-    return out, mx
+    mx = torch.amax(out[0][m:m + lay.nx, m:m + lay.ny].abs())
+    return tuple(out), mx
 
 
-def _check_inputs(fields, met, planes, lay: FusedLayout) -> None:
-    if len(fields) != N_FIELDS:
-        raise ValueError(f"expected {N_FIELDS} fields, got {len(fields)}")
+def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
+                  tile) -> None:
+    n_tr = n_tracers_of(fields)
+    if n_tr > MAX_TRACERS:
+        raise ValueError(f"the kernel takes at most {MAX_TRACERS} "
+                         f"tracers, got {n_tr}")
     want = {"field": (lay.Xs, lay.Ys), "met": (N_PROF, lay.Ys),
             "planes": (len(PLANES), lay.Xs, lay.Ys)}
     dev = fields[0].device
@@ -144,37 +217,82 @@ def _check_inputs(fields, met, planes, lay: FusedLayout) -> None:
                 raise ValueError(f"{kind}: need a contiguous "
                                  f"{want[kind]} tensor, got "
                                  f"{tuple(t.shape)}")
+    if tile_wet is None:
+        return
+    if tuple(tile) != tile_shape(dev):
+        raise ValueError(f"tile_wet was built for {tuple(tile)} tiles, the "
+                         f"kernel's are {tile_shape(dev)}")
+    if (tile_wet.device != dev or tile_wet.dtype != torch.int32
+            or not tile_wet.is_contiguous()
+            or tuple(tile_wet.shape) != (-(-lay.Xs // tile[0]),
+                                         -(-lay.Ys // tile[1]))):
+        raise ValueError("tile_wet: need a contiguous int32 tensor on "
+                         f"{dev} with one flag per block, got "
+                         f"{tile_wet.dtype} {tuple(tile_wet.shape)} on "
+                         f"{tile_wet.device}")
 
 
-def fused_sw_step(fields, met, planes, lay: FusedLayout, tau: float,
-                  time_smooth: float, hr_const: float):
-    """One fused step: the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors (counted in ``fused_sw_step.launches``). Returns
-    ``(6 new fields, 0-dim max |ssh_new| over interior cells)``; the max
-    propagates NaN."""
-    if fields[0].device.type == "cpu":
-        return fused_sw_step_reference(fields, met, planes, lay, tau,
-                                       time_smooth, hr_const)
-    _check_inputs(fields, met, planes, lay)
+def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
+                           tau: float, time_smooth: float, hr_const: float,
+                           tile_wet=None, tile=None):
+    """Launch the CUDA kernel once on CUDA tensors (counted in
+    ``fused_sw_step.launches``, and per kernel instantiation
+    ``(T, guarded)`` in ``fused_sw_step.form_launches``). Returns ``(6 + 2 T new fields,
+    the (x tiles, y tiles) per-block max |ssh_new| over interior
+    cells)``; raises if the kernel does not build or launch."""
+    _check_inputs(fields, met, planes, lay, tile_wet, tile)
+    n_tr = n_tracers_of(fields)
     lib = _library()
+    tx, ty = tile_shape(fields[0].device)
     outs = tuple(torch.empty_like(f) for f in fields)
-    blockmax = torch.empty(lib.fused_sw_step_blocks(lay.Xs, lay.Ys),
+    blockmax = torch.empty((-(-lay.Xs // tx), -(-lay.Ys // ty)),
                            dtype=torch.float32, device=fields[0].device)
-    neg_g, two_tau, neg_two_tau, ts1, ts2 = _scalars(tau, time_smooth)
-    ptr = [t.data_ptr() for t in (*fields, met, planes, *outs, blockmax)]
+    scalars = _scalars(tau, time_smooth)
+    ptr = [t.data_ptr() for t in (*fields[:N_FIELDS], met, planes,
+                                  *outs[:N_FIELDS], blockmax)]
+    tr_in = (ctypes.c_void_p * (2 * n_tr))(
+        *(t.data_ptr() for t in fields[N_FIELDS:]))
+    tr_out = (ctypes.c_void_p * (2 * n_tr))(
+        *(t.data_ptr() for t in outs[N_FIELDS:]))
     with torch.cuda.device(fields[0].device):   # launch on the tensors' card
         rc = lib.fused_sw_step_launch(
-            *ptr, lay.Xs, lay.Ys, lay.nx, lay.ny, lay.margin,
-            float(hr_const), neg_g, two_tau, neg_two_tau, ts1, ts2,
-            torch.cuda.current_stream().cuda_stream)
+            *ptr, tr_in, tr_out,
+            None if tile_wet is None else tile_wet.data_ptr(), n_tr,
+            lay.Xs, lay.Ys, lay.nx, lay.ny, lay.margin, float(hr_const),
+            *scalars, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_sw_step kernel launch failed: "
                            + lib.fused_sw_step_error_string(rc).decode())
     fused_sw_step.launches += 1
+    fused_sw_step.form_launches[n_tr, tile_wet is not None] += 1
+    return outs, blockmax
+
+
+def fused_sw_step(fields, met, planes, lay: FusedLayout, tau: float,
+                  time_smooth: float, hr_const: float, tile_wet=None,
+                  tile=None):
+    """One fused step: the plain version for CPU tensors, the CUDA kernel
+    for CUDA tensors (:func:`fused_sw_step_blockmax`). Returns
+    ``(6 + 2 T new fields, 0-dim max |ssh_new| over interior cells)``;
+    the max propagates NaN. ``tile_wet``/``tile``: the guard's flags
+    (``fused_layout.tile_wet``) and the tile they were built for
+    (:func:`tile_shape`); None runs unguarded."""
+    if fields[0].device.type == "cpu":
+        return fused_sw_step_reference(fields, met, planes, lay, tau,
+                                       time_smooth, hr_const, tile_wet,
+                                       tile)
+    outs, blockmax = fused_sw_step_blockmax(
+        fields, met, planes, lay, tau, time_smooth, hr_const, tile_wet, tile)
     return outs, torch.amax(blockmax)
 
 
-fused_sw_step.launches = 0
+def reset_launch_counts() -> None:
+    """Zero ``fused_sw_step.launches`` and ``.form_launches``."""
+    fused_sw_step.launches = 0
+    fused_sw_step.form_launches = collections.Counter()
+
+
+reset_launch_counts()
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,11 +300,12 @@ def _library() -> ctypes.CDLL:
     """csrc/fused_step.cu, built on first use, with its C signatures."""
     lib = load("fused_step")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_sw_step_blocks.argtypes = [i, i]
-    lib.fused_sw_step_blocks.restype = i
+    for fn in (lib.fused_sw_step_tile_x, lib.fused_sw_step_tile_y):
+        fn.argtypes = []
+        fn.restype = i
     lib.fused_sw_step_error_string.argtypes = [i]
     lib.fused_sw_step_error_string.restype = ctypes.c_char_p
-    lib.fused_sw_step_launch.argtypes = ([p] * 15 + [i] * 5 + [f] * 6
+    lib.fused_sw_step_launch.argtypes = ([p] * 18 + [i] * 6 + [f] * 7
                                          + [p])
     lib.fused_sw_step_launch.restype = i
     return lib

@@ -1,10 +1,12 @@
-"""The port imports no JAX: the machine with the GPU has none installed.
+"""The port imports nothing of JAX and nothing of the JAX package: the
+machine with the GPU has no JAX, and the port keeps its own copies of the
+numpy-only host modules.
 
 A fresh interpreter imports ``ocean_model_arch_torch``, every module of
-the slice and chip_smoke.py's imports, and must end with no ``jax``
-module loaded. The port's sources (and chip_smoke.py) reach the JAX
-package's numpy-only host modules through ``ocean_model_arch_torch/
-host.py`` alone.
+the port and chip_smoke.py, and must end with no ``jax``, ``jaxlib`` or
+``ocean_model_arch_tpu`` module loaded; no source of the port names one
+of them in an import. And the entry points place their tensors on the
+CUDA device unless told otherwise: without one they raise.
 """
 
 import os
@@ -12,15 +14,34 @@ import re
 import subprocess
 import sys
 
+import numpy as np
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "ocean_model_arch_torch")
+FORBIDDEN = ("jax", "jaxlib", "ocean_model_arch_tpu")
 
 MODULES = [
     "ocean_model_arch_torch",
     "ocean_model_arch_torch.host",
+    "ocean_model_arch_torch.core",
+    "ocean_model_arch_torch.ops",
+    "ocean_model_arch_torch.model",
+    "ocean_model_arch_torch.config",
+    "ocean_model_arch_torch.config.basinpar",
+    "ocean_model_arch_torch.config.parallel",
+    "ocean_model_arch_torch.config.parfile",
+    "ocean_model_arch_torch.config.runpar",
+    "ocean_model_arch_torch.config.sw",
+    "ocean_model_arch_torch.core.constants",
+    "ocean_model_arch_torch.core.masks",
+    "ocean_model_arch_torch.core.metrics",
+    "ocean_model_arch_torch.io",
+    "ocean_model_arch_torch.io.mask_io",
     "ocean_model_arch_torch.ops.stencil",
     "ocean_model_arch_torch.ops.sw_kernels",
     "ocean_model_arch_torch.ops.depth_kernels",
+    "ocean_model_arch_torch.ops.tracer_kernels",
     "ocean_model_arch_torch.ops.fused_layout",
     "ocean_model_arch_torch.ops.fused_step",
     "ocean_model_arch_torch.ops._build",
@@ -33,34 +54,84 @@ MODULES = [
 ]
 
 
+def _port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_modules_list_covers_the_port():
+    """Every .py of the port is in MODULES (so the subprocess check
+    imports it)."""
+    have = set(MODULES)
+    for path in _port_sources():
+        rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        if rel.endswith(".__init__"):
+            rel = rel[:-len(".__init__")]
+        assert rel in have, rel
+
+
 def test_port_imports_without_jax():
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in MODULES)
             + "bad = sorted(m for m in sys.modules\n"
-              "             if m.split('.')[0] in ('jax', 'jaxlib'))\n"
-              "print('JAX_MODULES', bad)\n")
+              f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
+              "print('FORBIDDEN_MODULES', bad)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert "JAX_MODULES []" in res.stdout, res.stdout
+    assert "FORBIDDEN_MODULES []" in res.stdout, res.stdout
 
 
 def test_sources_reach_the_jax_package_only_through_host():
-    """No port module but host.py, and not chip_smoke.py, names jax or
-    the JAX package in an import."""
+    """No source of the port, ``host.py`` included, and not
+    chip_smoke.py, names jax, jaxlib or the JAX package in an import."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ocean_model_arch_tpu)"
                      r"\b", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(PORT):
-        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    files = _port_sources()
+    assert len(files) > 20
     offenders = []
     for path in files:
         with open(path) as f:
-            src = f.read()
-        hits = pat.findall(src)
-        if path == os.path.join(PORT, "host.py"):
-            hits = [h for h in hits if h[1] != "ocean_model_arch_tpu"]
-        if hits:
-            offenders.append(os.path.relpath(path, REPO))
+            if pat.search(f.read()):
+                offenders.append(os.path.relpath(path, REPO))
     assert not offenders, offenders
+
+
+@pytest.mark.parametrize("entry", ["build_grid", "zero_state",
+                                   "grid_from_numpy", "state_from_numpy"])
+def test_entry_points_default_to_the_card(entry):
+    """Called without a device on a machine without CUDA, the entry
+    points raise instead of returning CPU tensors; ``device="cpu"`` is
+    how the CPU is asked for."""
+    import torch
+
+    from ocean_model_arch_torch.core import grid as tg
+    from ocean_model_arch_torch.core import state as ts
+    from ocean_model_arch_torch.host import (Precision, basinpar_as250m_test,
+                                             default_device,
+                                             frame_of_land_mask)
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a CUDA device")
+    basin = basinpar_as250m_test()
+    basin = type(basin)(**{**basin.__dict__, "nx": 12, "ny": 10})
+    mask = frame_of_land_mask(12, 10)
+    cpu_grid = tg.build_grid(basin, mask, precision=Precision.f32(),
+                             device="cpu")
+    cpu_state = ts.zero_state(12, 10, 2, Precision.f32(), device="cpu")
+    assert cpu_grid.lu.device.type == cpu_state.ff.device.type == "cpu"
+    grid_d = {n: getattr(cpu_grid, n).numpy() for n in tg.GRID_FIELDS}
+    state_d = {n: np.zeros((12, 10)) for n in ts.STATE_FIELDS
+               if n not in ts.TRACER_FIELDS}
+    calls = {
+        "build_grid": lambda: tg.build_grid(basin, mask),
+        "zero_state": lambda: ts.zero_state(12, 10),
+        "grid_from_numpy": lambda: tg.grid_from_numpy(grid_d),
+        "state_from_numpy": lambda: ts.state_from_numpy(state_d),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        default_device()

@@ -1,8 +1,8 @@
 """The port's eager kernels against their JAX twins, f64, random inputs.
 
 Every function of ``ocean_model_arch_torch/ops/{stencil,sw_kernels,
-depth_kernels}.py`` gets the same numpy inputs as its counterpart in
-``ocean_model_arch_tpu`` and must agree to 1e-12 relative (in practice
+depth_kernels,tracer_kernels}.py`` gets the same numpy inputs as its
+counterpart in ``ocean_model_arch_tpu`` and must agree to 1e-12 relative (in practice
 bit-for-bit: the formulas keep the JAX operation order). Also the
 numpy -> torch carriers ``grid_from_numpy`` / ``state_from_numpy``.
 """
@@ -19,12 +19,14 @@ from ocean_model_arch_tpu.model.init import init_ocean_state as jax_init
 from ocean_model_arch_tpu.ops import depth_kernels as jdk
 from ocean_model_arch_tpu.ops import stencil as jst
 from ocean_model_arch_tpu.ops import sw_kernels as jswk
+from ocean_model_arch_tpu.ops import tracer_kernels as jtrk
 
 from ocean_model_arch_torch.core.grid import GRID_FIELDS, grid_from_numpy
 from ocean_model_arch_torch.core.state import STATE_FIELDS, state_from_numpy
 from ocean_model_arch_torch.ops import depth_kernels as tdk
 from ocean_model_arch_torch.ops import stencil as tst
 from ocean_model_arch_torch.ops import sw_kernels as tswk
+from ocean_model_arch_torch.ops import tracer_kernels as ttrk
 
 torch.set_num_threads(1)
 
@@ -54,6 +56,8 @@ def d():
     for k in ("hu", "hun", "hup", "hv", "hvn", "hvp", "hh", "hhn", "hhp",
               "hq", "hqn", "hqp", "h_r"):
         out[k] = 50.0 + 10.0 * rng.rand(NX, NY)
+    for k in ("ff", "ffp", "ffn", "flux_x", "flux_y"):
+        out[k] = rng.randn(NX, NY)
     return out
 
 
@@ -147,6 +151,41 @@ DEPTH_CASES = {
         *[P(d[k]) for k in ("hq", "hqp", "hqn", "hu", "hup", "hun", "hv",
                             "hvp", "hvn", "hh", "hhp", "hhn")]),
 }
+
+
+TRACER_CASES = {
+    "tran_diff_fluxes": lambda m, P, d: m.tran_diff_fluxes(
+        P(d["lcu"]), P(d["lcv"]), P(d["dxt"]), P(d["dyt"]), P(d["dxh"]),
+        P(d["dyh"]), P(d["hu"]), P(d["hv"]), P(d["ff"]), P(d["ffp"]),
+        P(d["u"]), P(d["v"]), P(d["mu"]), 1.0, P(d["flux_x"]),
+        P(d["flux_y"])),
+    "tran_diff_fluxes_mu0": lambda m, P, d: m.tran_diff_fluxes(
+        P(d["lcu"]), P(d["lcv"]), P(d["dxt"]), P(d["dyt"]), P(d["dxh"]),
+        P(d["dyh"]), P(d["hu"]), P(d["hv"]), P(d["ff"]), P(d["ffp"]),
+        P(d["u"]), P(d["v"]), P(0.0 * d["mu"]), 1.0, P(d["flux_x"]),
+        P(d["flux_y"])),
+    "tran_diff_tracer": lambda m, P, d: m.tran_diff_tracer(
+        1.0, P(d["lu"]), P(d["dx"]), P(d["dy"]), P(d["hqn"]), P(d["hqp"]),
+        P(d["flux_x"]), P(d["flux_y"]), P(d["ffp"]), P(d["ffn"])),
+    "tracer_next_step": lambda m, P, d: m.tracer_next_step(
+        0.5, P(d["lu"]), P(d["ffn"]), P(d["ffp"]), P(d["ff"])),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TRACER_CASES))
+def test_tracer_kernel_matches_jax(d, name):
+    """The quirks included: the flux uses ff (ffp is ignored), land edges
+    keep flux_x / flux_y, land cells keep ffn, ff and ffp."""
+    case = TRACER_CASES[name]
+    got, want = case(ttrk, _torch, d), case(jtrk, _jax, d)
+    _assert_same(got, want)
+    if name.startswith("tran_diff_fluxes"):
+        land_u = d["lcu"] < 0.5
+        assert land_u.any()
+        np.testing.assert_array_equal(_np(got[0])[land_u],
+                                      d["flux_x"][land_u])
+        changed = dict(d, ffp=d["ffp"] + 1.0)
+        _assert_same(case(ttrk, _torch, changed), got)
 
 
 @pytest.mark.parametrize("name", sorted(SW_CASES))

@@ -1,6 +1,7 @@
 """The port's eager step composition (model/step.py) against the JAX
-package: 30 f64 steps against JAX ``make_step`` at 1e-12, the committed
-Black Sea golden digests at rtol 1e-9, and the stability guard."""
+package: 30 f64 steps against JAX ``make_step`` at 1e-12, without and
+with 2 tracers, the committed Black Sea golden digests at rtol 1e-9,
+and the stability guard."""
 
 import dataclasses
 import json
@@ -24,9 +25,9 @@ from ocean_model_arch_torch.core.grid import (GRID_FIELDS, build_grid,
                                               grid_from_numpy)
 from ocean_model_arch_torch.core.state import STATE_FIELDS, state_from_numpy
 from ocean_model_arch_torch.model.init import init_ocean_state
-from ocean_model_arch_torch.model.step import (make_step,
+from ocean_model_arch_torch.model.step import (GlobalHalo, make_step,
                                                reinit_depth_families,
-                                               run_steps)
+                                               run_steps, tracer_step)
 
 torch.set_num_threads(1)
 
@@ -65,7 +66,7 @@ def test_build_grid_and_init_match_jax():
     basin, cfg, mask = _case(Precision.f64())
     jgrid = jax_build_grid(basin, mask, precision=cfg.precision)
     jstate = jax_init(jgrid, cfg)
-    grid = build_grid(basin, mask, precision=cfg.precision)
+    grid = build_grid(basin, mask, precision=cfg.precision, device="cpu")
     for n in GRID_FIELDS:
         a, b = np.asarray(getattr(jgrid, n)), getattr(grid, n).numpy()
         assert a.dtype == b.dtype, n
@@ -117,7 +118,7 @@ def _bs_case(precision):
                       precision=precision)
     mask = read_mask(os.path.join(REPO, basin.mask_file_name),
                      basin.nx, basin.ny)
-    grid = build_grid(basin, mask, precision=precision)
+    grid = build_grid(basin, mask, precision=precision, device="cpu")
     return grid, cfg, init_ocean_state(grid, cfg)
 
 
@@ -153,7 +154,7 @@ def test_golden_bs100_f64_eager():
 def test_guard_trips(field, value):
     """A NaN or an |ssh| > 1e4 at a wet cell makes ``ok`` False."""
     basin, cfg, mask = _case(Precision.f64(), with_islands=False)
-    grid = build_grid(basin, mask, precision=cfg.precision)
+    grid = build_grid(basin, mask, precision=cfg.precision, device="cpu")
     state = init_ocean_state(grid, cfg)
     bad = getattr(state, field).clone()
     bad[30, 30] = value
@@ -162,20 +163,65 @@ def test_guard_trips(field, value):
     assert ok is False
 
 
-def test_tracers_not_ported_raise():
-    basin, cfg, mask = _case(Precision.f64(), tracers=1)
-    grid = build_grid(basin, mask, precision=cfg.precision)
+TRACER_STATE = ("ff", "ffp", "ffn", "flux_x", "flux_y")
+
+
+@pytest.mark.parametrize("with_islands", [False, True])
+def test_make_step_with_tracers_matches_jax_f64(with_islands):
+    """30 f64 steps of sw_step + tracer_step with 2 tracers against the
+    JAX ``make_step`` at 1e-12, the tracer levels and the carried edge
+    fluxes included."""
+    basin, cfg, mask = _case(Precision.f64(), with_islands, tracers=2)
+    jgrid = jax_build_grid(basin, mask, precision=cfg.precision)
+    jstate = jax_init(jgrid, cfg)
+    grid, state = to_torch(jgrid, jstate, torch.float64)
+    assert state.ff.shape == (2, 70, 52) and state.flux_x.shape == (70, 52)
+    want, jok = jax_run_steps(jax.jit(jax_make_step(jgrid, cfg)), jstate,
+                              1.0, 30)
+    got, ok = run_steps(make_step(grid, cfg), state, 1.0, 30)
+    assert ok and bool(jok)
+    for n in TIGHT + TRACER_STATE:
+        a = np.asarray(getattr(want, n))
+        b = getattr(got, n).numpy()
+        assert a.shape == b.shape, n
+        rel = np.abs(a - b).max() / max(np.abs(a).max(), 1e-300)
+        assert rel < 1e-12, (n, rel)
+    assert float(got.ff.abs().max()) > 0 and float(got.flux_x.abs().max()) > 0
+    # the input state is not modified in place
+    for n in TRACER_STATE:
+        np.testing.assert_array_equal(getattr(state, n).numpy(),
+                                      np.asarray(getattr(jstate, n)))
+
+
+def test_init_with_tracers_matches_jax():
+    """The tracer bumps of init_ocean_state: equal to the JAX ones to the
+    last bits of exp(), exactly 0 on land."""
+    basin, cfg, mask = _case(Precision.f64(), tracers=2)
+    jstate = jax_init(jax_build_grid(basin, mask, precision=cfg.precision),
+                      cfg)
+    grid = build_grid(basin, mask, precision=cfg.precision, device="cpu")
     state = init_ocean_state(grid, cfg)
-    assert state.ff is not None and state.ff.shape == (1, 70, 52)
-    with pytest.raises(NotImplementedError, match="tracers"):
-        make_step(grid, cfg)(state, 1.0)
+    for n in TRACER_STATE:
+        a, b = np.asarray(getattr(jstate, n)), getattr(state, n).numpy()
+        assert a.shape == b.shape and a.dtype == b.dtype, n
+        np.testing.assert_allclose(b, a, rtol=1e-14, atol=1e-16, err_msg=n)
+    land = grid.lu < 0.5
+    assert bool((state.ff[:, land] == 0).all())
+
+
+def test_tracer_step_without_tracers_is_the_identity():
+    basin, cfg, mask = _case(Precision.f64())
+    grid = build_grid(basin, mask, precision=cfg.precision, device="cpu")
+    state = init_ocean_state(grid, cfg)
+    assert state.ff is None
+    assert tracer_step(state, grid, cfg, 1.0, GlobalHalo()) is state
 
 
 def test_reinit_depth_families_is_idempotent_after_init():
     """init already ends with hh_init, so regenerating the depth families
     from (ssh, sshp) reproduces them exactly."""
     basin, cfg, mask = _case(Precision.f64())
-    grid = build_grid(basin, mask, precision=cfg.precision)
+    grid = build_grid(basin, mask, precision=cfg.precision, device="cpu")
     state = init_ocean_state(grid, cfg)
     again = reinit_depth_families(state, grid, cfg)
     for n in ("hhq", "hhq_p", "hhq_n", "hhu", "hhu_p", "hhu_n", "hhv",
