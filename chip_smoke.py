@@ -5,18 +5,24 @@
 
 Drives the port's paths at the Azov 250 m extents 1525 x 1115
 (``basinpar_as250m_test``: flat 100 m bathymetry, gaussian SSH bump,
-f32) through ``build_grid`` -> ``init_ocean_state`` ->
-``FusedSWModel(static_rslu=True, steps_per_call=2)`` -> ``pack`` ->
-``run_steps`` -> ``unpack``, in phases:
+f32; on its spherical grid and, with ``curve_grid=2``, on the bipolar
+grid whose metrics vary along x) through ``build_grid`` ->
+``init_ocean_state`` -> ``FusedSWModel(static_rslu=True,
+steps_per_call=2)`` -> ``pack`` -> ``run_steps`` -> ``unpack``, in
+phases:
 
-1. device: the card, its power limit, the toolchain, the kernel build;
+1. device: the card, its power limit, the toolchain, the build of both
+   kernel sources (started together) with ptxas's registers and spills;
 2. every form of the fused-step CUDA kernel (no tracers / 2 tracers,
-   unguarded / tile guard) against its plain PyTorch version on the card,
-   on the 2-cell land frame mask and the shipped Azov coastline: one
+   unguarded / tile guard, profile / plane metrics) against its plain
+   PyTorch version on the card, on the 2-cell land frame mask, the
+   shipped Azov coastline and the coastline on the bipolar grid: one
    launch (tolerance 1e-5), 50 carried launches (1e-4), land exactly 0
    in all 6 + 2 T fields, all-land tiles exactly 0 with a block max of
    0, guarded and unguarded outputs bit-identical; the 1-tracer
-   instantiation likewise on the coastline;
+   instantiation likewise on the coastline; and the plane-metric
+   kernel, fed the profile rows repeated along x, against the profile
+   kernel bit for bit;
 3. the first main path (frame mask, no tracers, unguarded kernel) for
    200 steps: ``ok``, one kernel launch per step, agreement with the
    eager composition at the golden f32 tolerance; ms/step of the kernel
@@ -27,17 +33,29 @@ f32) through ``build_grid`` -> ``init_ocean_state`` ->
    steps, checked like phase 3 (tracers included) with the tracer mass
    before and after, and its two sub-paths (coastline without tracers,
    frame mask with 2 tracers); then ms/step, points/s and wet points/s
-   of seven configurations of the kernel path, and each form's bound
-   beside a ``copy_`` of as many bytes.
+   of seven configurations of the kernel path;
+6. the third main path (``bipolar_azov``: the coastline on the bipolar
+   grid, metric planes, tile guard) for 200 steps, checked like phase 3,
+   and its two sub-paths (the same with 2 tracers; ``bipolar``, the
+   289 x 163 frame-mask basin); their timing line; the stability guard
+   at a wet cell of the bipolar coastline;
+7. the copy step (the fused step's loads and stores without its
+   arithmetic) against its plain version, exactly, on each form's own
+   inputs; then us/launch of every form through the probe script
+   ``scripts/roofline_probe_torch.py``, and each timed configuration's
+   byte bound beside the copy step of its form.
 
 Every phase prints its lines; any failure raises (exit code != 0). The
-line before the last is one JSON object describing the three kernel
-forms; the last line is ``{"ok": true, "device": {...}}``. Needs a CUDA
+line before the last is one JSON object describing the five kernels
+(the fused step's plain, guarded, tracer and plane-metric forms and the
+copy step); the last line is ``{"ok": true, "device": {...}}``. Needs a CUDA
 device and nvcc; there is no CPU path.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import importlib.util
 import json
 import os
 import re
@@ -63,11 +81,13 @@ PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 CELL_BYTES, TRACER_BYTES = 64, 16
 CELL_FLOPS, TRACER_FLOPS = 100, 25
 
-SOURCE = "ocean_model_arch_torch/ops/csrc/fused_step.cu"
+CSRC = "ocean_model_arch_torch/ops/csrc/"
 PALLAS = "ocean_model_arch_tpu/ops/pallas/fused_step.py"
 REPLACES = {"fused_sw_step": PALLAS + ":1642",
             "fused_sw_step_guarded": PALLAS + ":1106",
-            "fused_sw_step_tracers": PALLAS + ":937"}
+            "fused_sw_step_tracers": PALLAS + ":937",
+            "fused_sw_step_fast2d": PALLAS + ":351",
+            "copy_step": "scripts/roofline_probe.py:71"}
 
 
 class SmokeFailure(RuntimeError):
@@ -130,13 +150,13 @@ def profile_device_ms(fn, kernel: str):
 
 
 def ptxas_summary(log: str) -> str:
-    """``<NT, GUARD>: registers / spill bytes`` per kernel instantiation
-    from nvcc's -Xptxas -v output."""
+    """``<template arguments>: registers / spill bytes`` per kernel
+    instantiation from nvcc's -Xptxas -v output."""
     out, name, spill = [], None, "?"
     for ln in log.splitlines():
-        m = re.search(r"fused_sw_step_kernelILi(\d)ELb(\d)E", ln)
+        m = re.search(r"_kernelILi(\d)E(?:Lb(\d)ELb(\d)E)?", ln)
         if m:
-            name = f"<{m.group(1)},{m.group(2)}>"
+            name = "<" + ",".join(g for g in m.groups() if g) + ">"
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and name:
             spill = m.group(1)
@@ -155,7 +175,7 @@ def model_args(fm, cfg):
     """The arguments of ``fused_sw_step`` after the fields, as the model
     passes them."""
     return (fm.met, fm.planes, fm.lay, fm.tau, cfg.sw.time_smooth,
-            fm.hr_const, fm.tile_wet, fm.tile)
+            fm.hr_const, fm.tile_wet, fm.tile, fm.met_map)
 
 
 def land_masks(fm, grid, n_tracers):
@@ -175,8 +195,9 @@ def bound_ms(fm, n_tracers: int):
     input plane read once and each output written once over the cells
     the form computes (all cells unguarded; the cells of wet tiles when
     guarded, plus the zero writes of the all-land tiles), the profile
-    rows, one flag and one max per block. Operations: an estimate of the f32
-    operations of those cells."""
+    rows or, per computed cell, the metric planes, one flag and one max
+    per block. Operations: an estimate of the f32 operations of those
+    cells."""
     lay = fm.lay
     cells = lay.Xs * lay.Ys
     blocks = fm.n_tiles[0] + fm.n_tiles[1]
@@ -188,8 +209,10 @@ def bound_ms(fm, n_tracers: int):
         done = int((wet[:lay.Xs, :lay.Ys] > 0).sum())
         skipped = cells - done
     n_out = 6 + 2 * n_tracers
+    met_bytes = (done * 4 * fm.met.shape[0] if fm.metrics_2d
+                 else fm.met.numel() * 4)
     nbytes = (done * (CELL_BYTES + TRACER_BYTES * n_tracers)
-              + skipped * 4 * n_out + fm.met.numel() * 4
+              + skipped * 4 * n_out + met_bytes
               + blocks * (4 + (4 if fm.tile_wet is not None else 0)))
     flops = done * (CELL_FLOPS + TRACER_FLOPS * n_tracers)
     t_b, t_f = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
@@ -197,13 +220,14 @@ def bound_ms(fm, n_tracers: int):
                                                       nbytes)
 
 
-def copy_floor_ms(nbytes: float, device) -> float:
-    """Device ms of one ``copy_`` that moves ``nbytes`` in all (half read,
-    half written): what the card's memory system gives a plain stream of
-    the bytes of ``bound_ms``."""
-    src = torch.empty(int(nbytes) // 8, dtype=torch.float32, device=device)
-    dst = torch.empty_like(src)
-    return cuda_ms(lambda: dst.copy_(src), 50)
+def broadcast_planes(fm, n_tr):
+    """The profile rows a step reads, repeated along x as (n, Xs, Ys)
+    planes, with their row -> plane map."""
+    from ocean_model_arch_torch.ops import fused_layout as fl
+    rows = fl.fast2d_met_rows(n_tr)
+    planes = fm.met[list(rows)][:, None, :].expand(
+        len(rows), fm.lay.Xs, fm.lay.Ys).contiguous()
+    return planes, {r: i for i, r in enumerate(rows)}
 
 
 def compare_forms(mname, grid, cfgs, stats):
@@ -223,7 +247,8 @@ def compare_forms(mname, grid, cfgs, stats):
             args = model_args(fm, cfg)
             land = land_masks(fm, grid, n_tr)
             s0 = fm.pack(state)
-            form = ("fused_sw_step_tracers" if n_tr else
+            form = ("fused_sw_step_fast2d" if fm.metrics_2d else
+                    "fused_sw_step_tracers" if n_tr else
                     "fused_sw_step_guarded" if guard else "fused_sw_step")
             tag = f"{mname} T={n_tr} guard={'on' if guard else 'off'}"
             if guard:
@@ -267,6 +292,23 @@ def compare_forms(mname, grid, cfgs, stats):
             r2, _ = fused_sw_step_reference(rs, *args)
             e2 = compare(f"1 launch after {N_CARRY}", k2, r2, TOL_ONE)
             carried[(n_tr, guard)] = (k1, ks)
+            same = ""
+            if not fm.metrics_2d:
+                # the plane-metric kernel on this x-uniform grid's profile
+                # rows repeated along x: the same f32 operations in the
+                # same order, so the same bits, from both states
+                met_b, map_b = broadcast_planes(fm, n_tr)
+                for what, start in (("the initial state", s0),
+                                    (f"step {N_CARRY}", rs)):
+                    kp, bp = fused_sw_step_blockmax(start, *args)
+                    kb, bb = fused_sw_step_blockmax(start, met_b,
+                                                    *args[1:-1], map_b)
+                    check(all(torch.equal(a, b) for a, b in zip(kp, kb))
+                          and torch.equal(bp, bb), f"{tag}: the plane-"
+                          "metric kernel on repeated profile rows differs "
+                          f"from the profile kernel, from {what}")
+                same = ("; plane-metric kernel on repeated profile rows == "
+                        "profile kernel bit for bit: yes")
             torch.cuda.synchronize()
             print(f"phase 2 kernel vs plain ({tag}, {fm.lay.Xs}x"
                   f"{fm.lay.Ys} layout, {fm.tile[0]}x{fm.tile[1]} tiles: "
@@ -275,7 +317,7 @@ def compare_forms(mname, grid, cfgs, stats):
                   f"launches {fmt(eN)} < {TOL_CARRY}; 1 launch from step "
                   f"{N_CARRY} {fmt(e2)} < {TOL_ONE}; land exactly 0: yes"
                   + ("; all-land tiles and their block max exactly 0: yes"
-                     if guard else ""))
+                     if guard else "") + same)
         for which, what in ((0, "1 launch"), (1, f"{N_CARRY} launches")):
             off, on = carried[(n_tr, False)][which], \
                 carried[(n_tr, True)][which]
@@ -297,8 +339,9 @@ def drive_path(tag, grid, cfg, tile_guard):
     """One path end to end: init -> FusedSWModel -> pack -> run_steps ->
     unpack for N_MAIN steps, against the eager composition. The launch
     counts are zeroed just before ``run_steps`` and read just after; the
-    path's kernel instantiation (its tracer count, guarded or not) must
-    have launched once per step and no other at all. Returns (model,
+    path's kernel instantiation (its tracer count, guarded or not, profile
+    or plane metrics) must have launched once per step and no other at
+    all. Returns (model,
     state, packed initial fields, launches of that instantiation)."""
     from ocean_model_arch_torch.model.fused import FusedSWModel
     from ocean_model_arch_torch.model.init import init_ocean_state
@@ -319,9 +362,9 @@ def drive_path(tag, grid, cfg, tile_guard):
     check(ok, f"{tag}: the stability guard tripped")
     check(launches == N_MAIN, f"{tag}: {launches} kernel launches for "
           f"{N_MAIN} steps")
-    check(counts == {(n_tr, fm.tile_guard): N_MAIN}, f"{tag}: launches per "
-          f"(tracers, guarded) {counts}, expected {N_MAIN} of "
-          f"{(n_tr, fm.tile_guard)}")
+    key = (n_tr, fm.tile_guard, fm.metrics_2d)
+    check(counts == {key: N_MAIN}, f"{tag}: launches per (tracers, guarded, "
+          f"plane metrics) {counts}, expected {N_MAIN} of {key}")
     ref, eok = run_steps(make_step(grid, cfg), state, 1.0, N_MAIN)
     check(eok, f"{tag}: the eager composition's guard tripped")
     errs = {}
@@ -336,7 +379,9 @@ def drive_path(tag, grid, cfg, tile_guard):
     check(max(errs.values()) < TOL_EAGER,
           f"{tag} vs eager composition: rel errors {errs}")
     line = (f"{tag}: {N_MAIN} steps ok={ok} launches={launches} "
-            f"(guard {'on' if fm.tile_guard else 'off'}, tiles "
+            f"of <{n_tr},{int(fm.tile_guard)},{int(fm.metrics_2d)}> "
+            f"(guard {'on' if fm.tile_guard else 'off'}, "
+            f"{'plane' if fm.metrics_2d else 'profile'} metrics, tiles "
             f"{fm.n_tiles[0]} wet / {fm.n_tiles[1]} land); vs eager "
             "composition rel err "
             + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
@@ -347,7 +392,7 @@ def drive_path(tag, grid, cfg, tile_guard):
                  + fmt(m0) + " after " + fmt(m1) + " (kernel path), "
                  + fmt(tracer_mass(ref, grid)) + " (eager)")
     print(line)
-    return fm, state, s0, counts[n_tr, fm.tile_guard]
+    return fm, state, s0, counts[key]
 
 
 def guard_trips(fm, s0, cell, where: str) -> None:
@@ -389,6 +434,26 @@ def time_path(fm, cfg, s0, wet_pts: int, pts: int) -> dict:
                      f"tiles {fm.n_tiles[0]} wet / {fm.n_tiles[1]} land")}
 
 
+def copy_step_inputs(fm, s0):
+    """What the fused step of model ``fm`` loads, as the copy step takes
+    it: (the carried fields then the static planes, the metric rows the
+    step reads)."""
+    from ocean_model_arch_torch.ops import fused_layout as fl
+    rows = fl.fast2d_met_rows(fm.n_tracers)
+    met = fm.met if fm.metrics_2d else fm.met[list(rows)].contiguous()
+    return tuple(s0) + tuple(fm.planes), met
+
+
+def load_probe():
+    """scripts/roofline_probe_torch.py as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "roofline_probe_torch",
+        os.path.join(REPO, "scripts", "roofline_probe_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -402,9 +467,9 @@ def main() -> int:
     from ocean_model_arch_torch.model.fused import FusedSWModel
     from ocean_model_arch_torch.model.init import init_ocean_state
     from ocean_model_arch_torch.model.step import make_step
-    from ocean_model_arch_torch.ops import _build
+    from ocean_model_arch_torch.ops import _build, copy_step as cs
     from ocean_model_arch_torch.ops.fused_step import (
-        fused_sw_step, fused_sw_step_reference)
+        fused_sw_step, fused_sw_step_reference, tile_shape)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -415,25 +480,39 @@ def main() -> int:
     nvcc_ver = subprocess.run([_build.nvcc(), "--version"],
                               capture_output=True, text=True,
                               check=True).stdout.strip().splitlines()[-1]
+    sources = ("fused_step", "copy_step")
     t0 = time.perf_counter()
-    so = _build.build("fused_step")
+    libs = _build.build_all(sources)
     build_s = time.perf_counter() - t0
-    log = _build.BUILDS.get("fused_step", {}).get("log", "")
     print(card)
     print(f"phase 1 device: {name}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}; {nvcc_ver}; kernel build "
-          f"{build_s:.2f} s -> {os.path.relpath(so, REPO)}; ptxas "
-          f"<tracers,guard>: {ptxas_summary(log)}")
+          f"{torch.version.cuda}; {nvcc_ver}; kernel build (both sources "
+          f"at once) {build_s:.2f} s -> "
+          + ", ".join(os.path.relpath(so, REPO) for so in libs)
+          + "; ptxas fused_sw_step_kernel<tracers,guard,plane metrics>: "
+          + ptxas_summary(_build.BUILDS.get("fused_step", {}).get("log", ""))
+          + "; copy_step_kernel<tracer window>: "
+          + ptxas_summary(_build.BUILDS.get("copy_step", {}).get("log", "")))
+    check(cs.tile_shape("cuda") == tile_shape("cuda"),
+          "the copy step and the fused step were built with different tiles")
 
     basin = basinpar_as250m_test()
+    basin_b = dataclasses.replace(basin, curve_grid=2)
+    basin_s = dataclasses.replace(basin, nx=289, ny=163, dxst=0.05,
+                                  dyst=0.04, rlon=27.525, rlat=40.94,
+                                  curve_grid=2)
     prec = Precision.f32()
     pts = basin.nx * basin.ny
-    cfgs = {0: ModelConfig(basin=basin, sw=SWConfig(use_tracers=0),
-                           precision=prec),
-            N_TRACERS: ModelConfig(
-                basin=basin, sw=SWConfig(use_tracers=1,
+
+    def configs(b):
+        return {0: ModelConfig(basin=b, sw=SWConfig(use_tracers=0),
+                               precision=prec),
+                N_TRACERS: ModelConfig(
+                    basin=b, sw=SWConfig(use_tracers=1,
                                          tracer_num=N_TRACERS),
-                precision=prec)}
+                    precision=prec)}
+
+    cfgs, cfgs_b, cfgs_s = configs(basin), configs(basin_b), configs(basin_s)
     masks = {
         "frame": frame_of_land_mask(basin.nx, basin.ny),
         "azov": read_mask(os.path.join(REPO, "data", "AS",
@@ -443,19 +522,24 @@ def main() -> int:
     # no device argument: the entry points place their tensors on the card
     grids = {m: build_grid(basin, mask, precision=prec)
              for m, mask in masks.items()}
+    grids["bipolar_azov"] = build_grid(basin_b, masks["azov"],
+                                       precision=prec)
+    grids["bipolar"] = build_grid(
+        basin_s, frame_of_land_mask(basin_s.nx, basin_s.ny), precision=prec)
     check(all(g.lu.is_cuda for g in grids.values()),
           "build_grid without a device did not use the card")
-    dev = grids["frame"].lu.device
     wet = {m: int((g.lu > 0.5).sum()) for m, g in grids.items()}
 
     # ---- phase 2: every kernel form vs its plain version ---------------
     max_abs: dict = {}
-    for mname, grid in grids.items():
-        compare_forms(mname, grid, cfgs, max_abs)
+    for mname in ("frame", "azov"):
+        compare_forms(mname, grids[mname], cfgs, max_abs)
     # the 1-tracer instantiation, which no path below launches
     compare_forms("azov", grids["azov"], {1: ModelConfig(
         basin=basin, sw=SWConfig(use_tracers=1, tracer_num=1),
         precision=prec)}, max_abs)
+    # the plane-metric instantiations, on the bipolar grid
+    compare_forms("bipolar_azov", grids["bipolar_azov"], cfgs_b, max_abs)
 
     # ---- phase 3: the first main path (frame, no tracers, unguarded) ---
     launches = {}
@@ -505,16 +589,16 @@ def main() -> int:
                        precision=prec)
     fm_f1 = model("frame", cfg1, False)
     s0_f1 = fm_f1.pack(init_ocean_state(grids["frame"], cfg1))
+    fm_fu = model("frame", cfgs[N_TRACERS], False)
+    fm_off = model("azov", cfgs[0], False)
+    # what FusedSWModel's default gives on the frame mask: the guard on
+    fm_auto = model("frame", cfgs[0], None)
     t_tr = time_path(fm_t, cfgs[N_TRACERS], s0_t, wet["azov"], pts)
-    t_fu = time_path(model("frame", cfgs[N_TRACERS], False),
-                     cfgs[N_TRACERS], s0_f, wet["frame"], pts)
+    t_fu = time_path(fm_fu, cfgs[N_TRACERS], s0_f, wet["frame"], pts)
     t_f1 = time_path(fm_f1, cfg1, s0_f1, wet["frame"], pts)
     t_on = time_path(fm_c, cfgs[0], s0_c, wet["azov"], pts)
-    t_off = time_path(model("azov", cfgs[0], False), cfgs[0], s0_c,
-                      wet["azov"], pts)
-    # what FusedSWModel's default gives on the frame mask: the guard on
-    t_auto = time_path(model("frame", cfgs[0], None), cfgs[0], s0,
-                       wet["frame"], pts)
+    t_off = time_path(fm_off, cfgs[0], s0_c, wet["azov"], pts)
+    t_auto = time_path(fm_auto, cfgs[0], s0, wet["frame"], pts)
     kernels["fused_sw_step_guarded"] = (fm_c, 0, t_on)
     kernels["fused_sw_step_tracers"] = (fm_t, N_TRACERS, t_tr)
     plain_ms["fused_sw_step_guarded"] = cuda_ms(
@@ -537,7 +621,45 @@ def main() -> int:
           f"version {plain_ms['fused_sw_step_tracers']:.4f} ms/step, eager "
           f"composition with tracers {ms_eager_t:.4f} ms/step")
 
-    # the guard at a wet cell of the coastline, tracers carried
+    # ---- phase 6: the third main path (2D metrics) and its sub-paths ---
+    fm_b, state_b, s0_b, launches["fused_sw_step_fast2d"] = drive_path(
+        "phase 6 main path bipolar_azov (azov coastline on the bipolar "
+        "grid, no tracers)", grids["bipolar_azov"], cfgs_b[0], None)
+    check(fm_b.metrics_2d and fm_b.fast2d and fm_b.tile_guard,
+          "bipolar_azov did not run guarded on plane metrics")
+    fm_bt, _, s0_bt, _ = drive_path(
+        f"phase 6 sub-path bipolar_azov with {N_TRACERS} tracers",
+        grids["bipolar_azov"], cfgs_b[N_TRACERS], None)
+    fm_s, _, s0_s, _ = drive_path(
+        f"phase 6 sub-path bipolar ({basin_s.nx} x {basin_s.ny}, frame "
+        "mask, no tracers)", grids["bipolar"], cfgs_s[0], None)
+    check(fm_bt.metrics_2d and fm_s.metrics_2d,
+          "a bipolar sub-path did not run on plane metrics")
+    fm_boff = model("bipolar_azov", cfgs_b[0], False)
+    pts_s = basin_s.nx * basin_s.ny
+    t_b = time_path(fm_b, cfgs_b[0], s0_b, wet["bipolar_azov"], pts)
+    t_boff = time_path(fm_boff, cfgs_b[0], s0_b, wet["bipolar_azov"], pts)
+    t_bt = time_path(fm_bt, cfgs_b[N_TRACERS], s0_bt, wet["bipolar_azov"],
+                     pts)
+    t_s = time_path(fm_s, cfgs_s[0], s0_s, wet["bipolar"], pts_s)
+    kernels["fused_sw_step_fast2d"] = (fm_b, 0, t_b)
+    plain_ms["fused_sw_step_fast2d"] = cuda_ms(
+        lambda: fused_sw_step_reference(s0_b, *model_args(fm_b, cfgs_b[0])),
+        20)
+    step_b = make_step(grids["bipolar_azov"], cfgs_b[0])
+    ms_eager_b = cuda_ms(lambda: step_b(state_b, 1.0), 20)
+    print(f"phase 6 timing ({name}; {card}), wet points bipolar_azov "
+          f"{wet['bipolar_azov']} of {pts}, bipolar {wet['bipolar']} of "
+          f"{pts_s}: bipolar_azov/no tracers/guard on {t_b['text']} | "
+          f"bipolar_azov/no tracers/guard off {t_boff['text']} | "
+          f"bipolar_azov/{N_TRACERS} tracers/guard on {t_bt['text']} | "
+          f"bipolar/no tracers/guard "
+          f"{'on' if fm_s.tile_guard else 'off'} {t_s['text']}; plain fused "
+          f"version {plain_ms['fused_sw_step_fast2d']:.4f} ms/step, eager "
+          f"composition {ms_eager_b:.4f} ms/step (bipolar_azov, no tracers)")
+
+    # the guard at a wet cell of the coastline: tracers carried on the
+    # spherical grid, plane metrics on the bipolar grid
     lu = grids["azov"].lu
     ij = torch.nonzero(lu > 0.5).double()
     centre = torch.tensor([basin.nx / 2, basin.ny / 2], dtype=ij.dtype,
@@ -545,27 +667,103 @@ def main() -> int:
     i, j = (int(v) for v in
             ij[((ij - centre) ** 2).sum(1).argmin()].tolist())
     check(bool(lu[i, j] > 0.5), "the injection cell is not wet")
-    guard_trips(fm_t, s0_t, (lay.margin + i, lay.margin + j),
-                "azov coastline with tracers")
+    cell = (lay.margin + i, lay.margin + j)
+    guard_trips(fm_t, s0_t, cell, "azov coastline with tracers")
+    guard_trips(fm_b, s0_b, cell, "bipolar_azov")
     print("phase 4 guard: ok=False on an injected NaN ssh and on an sshp "
-          "spike of 2e4 (|ssh| > 1e4 at the next step), on the frame mask "
-          f"and at wet cell ({i}, {j}) of the azov coastline with "
-          f"{N_TRACERS} tracers carried")
+          "spike of 2e4 (|ssh| > 1e4 at the next step), on the frame mask, "
+          f"at wet cell ({i}, {j}) of the azov coastline with "
+          f"{N_TRACERS} tracers carried, and at the same cell of "
+          "bipolar_azov")
 
-    entries, floors = [], []
+    # ---- phase 7: the copy step ----------------------------------------
+    # kernel vs plain version on what each form of the fused step loads:
+    # the same float additions in the same order, so exactly equal
+    cs_err = 0.0
+    for tag, m, fields in (("frame T=0 profile", fm, s0),
+                           ("azov T=2 profile", fm_t, s0_t),
+                           ("bipolar_azov T=0 planes", fm_b, s0_b),
+                           ("bipolar_azov T=2 planes", fm_bt, s0_bt)):
+        windows, met = copy_step_inputs(m, fields)
+        for flags in (None, m.tile_wet):
+            got = cs.copy_step(windows, met, len(fields), m.lay,
+                               tracer_form=m.n_tracers > 0, tile_wet=flags,
+                               tile=m.tile)
+            want = cs.copy_step_reference(windows, met, len(fields), m.lay,
+                                          flags, m.tile)
+            torch.cuda.synchronize()
+            cs_err = max([cs_err] + [float((g - w).abs().max())
+                                     for g, w in zip(got, want)])
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"copy step ({tag}, guard "
+                  f"{'off' if flags is None else 'on'}): kernel and plain "
+                  "version differ")
+    windows0, met0 = copy_step_inputs(fm, s0)
+    plain_ms["copy_step"] = cuda_ms(
+        lambda: cs.copy_step_reference(windows0, met0, 6, lay), 20)
+    # the probe's entry point: every form, random inputs from a seed
+    probe = load_probe()
+    cs.copy_step.launches = 0
+    forms = probe.probe(basin.nx, basin.ny, tuple(masks.items()), N_TIME)
+    launches["copy_step"] = cs.copy_step.launches
+    check(launches["copy_step"] == len(forms) * (N_TIME + 1) == 12 * (
+        N_TIME + 1), f"the probe launched the copy step "
+        f"{launches['copy_step']} times for {len(forms)} forms")
+    cs_us = {(r["n_tracers"], r["guard"], r["met2d"]): r for r in forms}
+    print(f"phase 7 copy step ({name}; {card}): kernel == plain version "
+          "exactly on the inputs of 4 forms, guard off and on; layout "
+          f"{lay.Xs}x{lay.Ys}, kernel us/launch (torch.profiler over "
+          f"{N_TIME} launches; byte "
+          f"bound at {PEAK_BYTES / 1e12:.2f} TB/s): "
+          + "; ".join(f"{probe.form_name(r)} {r['us']:.2f} "
+                      f"({r['bound_us']:.2f}, {r['bytes'] / 1e6:.1f} MB)"
+                      for r in forms)
+          + f"; plain version {plain_ms['copy_step']:.4f} ms (T=0 profile)")
+
+    # every timed configuration's byte bound beside the copy step of its
+    # own form, guarded by the same mask's flags (the probe has no
+    # 1-tracer form)
+    floors = []
+    for label, m, t, mask in (
+            ("frame/T=0/guard off", fm, t_frame, "frame"),
+            ("frame/T=0/guard auto (on)", fm_auto, t_auto, "frame"),
+            ("azov/T=0/guard on", fm_c, t_on, "azov"),
+            ("azov/T=0/guard off", fm_off, t_off, "azov"),
+            (f"azov/T={N_TRACERS}/guard on", fm_t, t_tr, "azov"),
+            (f"frame/T={N_TRACERS}/guard off", fm_fu, t_fu, "frame"),
+            ("frame/T=1/guard off", fm_f1, t_f1, "frame"),
+            ("bipolar_azov/T=0/guard on", fm_b, t_b, "azov"),
+            ("bipolar_azov/T=0/guard off", fm_boff, t_boff, "azov"),
+            (f"bipolar_azov/T={N_TRACERS}/guard on", fm_bt, t_bt, "azov")):
+        b_ms, b_by, nbytes = bound_ms(m, m.n_tracers)
+        row = cs_us.get((m.n_tracers, mask if m.tile_guard else None,
+                         m.metrics_2d))
+        floors.append(
+            f"{label}: kernel {t['ms_kernel'] * 1e3:.1f} us, "
+            f"{nbytes / 1e6:.1f} MB, bound {b_ms * 1e3:.1f} us ({b_by}), "
+            "copy step of its form "
+            + (f"{row['us']:.1f} us" if row else "not measured"))
+    print(f"bounds ({card}): " + "; ".join(floors))
+
+    entries = []
     for form, (m, n_tr, t) in kernels.items():
-        b_ms, b_by, nbytes = bound_ms(m, n_tr)
-        floors.append(f"{form} {nbytes / 1e6:.1f} MB, bound {b_ms:.4f} ms "
-                      f"({b_by}), copy_ of as many bytes "
-                      f"{copy_floor_ms(nbytes, dev):.4f} ms")
+        b_ms, b_by, _ = bound_ms(m, n_tr)
         check(launches[form] > 0, f"{form} was never launched on its path")
         entries.append({
-            "name": form, "route": "cuda", "source": SOURCE,
+            "name": form, "route": "cuda", "source": CSRC + "fused_step.cu",
             "replaces": REPLACES[form], "launches": launches[form],
             "max_abs_err": max_abs[form], "ms": t["ms_kernel"],
             "plain_ms": plain_ms[form], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
-    print(f"bounds ({card}): " + "; ".join(floors))
+    # the copy step beside the fused step's first form (T=0, profile)
+    row0 = cs_us[0, None, False]
+    entries.append({
+        "name": "copy_step", "route": "cuda", "source": CSRC + "copy_step.cu",
+        "replaces": REPLACES["copy_step"], "launches": launches["copy_step"],
+        "max_abs_err": cs_err, "ms": row0["us"] / 1e3,
+        "plain_ms": plain_ms["copy_step"],
+        "bound_ms": probe.bytes_moved(lay, 0, False) / PEAK_BYTES * 1e3,
+        "bound_by": "bytes", "library_ms": None})
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

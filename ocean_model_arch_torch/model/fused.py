@@ -32,16 +32,18 @@ CARRIED = ("ssh", "sshp", "ubrtr", "ubrtrp", "vbrtr", "vbrtrp")
 def unsupported(grid: Grid, cfg: ModelConfig, mu_const: float = 0.0,
                 static_rslu: bool = True) -> list:
     """What keeps a configuration off the fused kernel (empty: supported).
-    The kernel is the TPU kernel's fast x-uniform form with full free
-    surface and momentum advection, flat bathymetry, mu = 0 (so tracers
-    have advective fluxes only), at most ``MAX_TRACERS`` tracers, closed
-    boundaries."""
+    The kernel is the TPU kernel's fast form (profile metrics on
+    x-uniform grids, its fast2d form with metric planes on the others)
+    with full free surface and momentum advection, flat bathymetry,
+    mu = 0 (so tracers have advective fluxes only), at most
+    ``MAX_TRACERS`` tracers, closed boundaries."""
     sw = cfg.sw
     out = []
     if grid.periodic_x or grid.periodic_y:
         out.append("periodic boundaries")
     if not static_rslu:
-        out.append("static_rslu=False (the non-fast kernel form)")
+        out.append("static_rslu=False (the non-fast kernel form; fast2d "
+                   "requires static_rslu=True)")
     n_tr = sw.tracer_num if sw.use_tracers > 0 else 0
     if n_tr > MAX_TRACERS:
         out.append(f"tracer_num={n_tr} > {MAX_TRACERS}")
@@ -58,12 +60,6 @@ def unsupported(grid: Grid, cfg: ModelConfig, mu_const: float = 0.0,
     if not bool((hr == hr.reshape(-1)[0]).all()):
         out.append("non-flat bathymetry (the hrludxdy plane"
                    + (", the tracers' hr plane)" if n_tr else ")"))
-    for n in ("dx", "dy", "dxt", "dyt", "dxh", "dyh", "dxb", "dyb",
-              "rlh_s"):
-        f = getattr(grid, n)
-        if not bool((f == f[:1]).all()):
-            out.append(f"x-varying metric {n} (2D metrics)")
-            break
     return out
 
 
@@ -79,7 +75,9 @@ class FusedSWModel:
     step loop, one kernel launch each; ``run_steps`` windows must be
     multiples of it. ``tile_guard``: skip the kernel's all-land output
     tiles (they get exact zeros); None turns it on when the mask leaves
-    some tile without a wet cell."""
+    some tile without a wet cell. ``metrics_2d`` / ``fast2d`` say which
+    metric form runs: latitude profiles on an x-uniform grid, else the
+    pointwise metric planes of ``fused_layout.fast2d_met_rows``."""
 
     def __init__(self, grid: Grid, cfg: ModelConfig, tau: float,
                  mu_const: float = 0.0, static_rslu: bool = True,
@@ -103,11 +101,26 @@ class FusedSWModel:
         names = fl.plane_names(cfg.sw.full_free_surface, cfg.sw.ksw_lat,
                                self.mu_const, self.hr_const)
         assert names == PLANES, names        # guaranteed by unsupported()
-        met = fl.metrics_profile_from_grid(grid, lay)
         lu_s = np.asarray(fl.embed(lay, grid.lu.cpu()))
-        planes = fl.static_planes(
-            lu_s, None, (met[0] * met[1])[None, :], names,
-            interp_recips=(met[10:11], met[11:12], (met[14] * met[15])[None]))
+        # x-uniform metrics ride as latitude profiles; other grids
+        # (bipolar) stream the metric planes the step reads
+        try:
+            met = fl.metrics_profile_from_grid(grid, lay)
+            self.metrics_2d = self.fast2d = False
+            self.met_map = None
+            dxdy = (met[0] * met[1])[None, :]
+            recips = (met[10:11], met[11:12], (met[14] * met[15])[None])
+        except ValueError:
+            self.metrics_2d = self.fast2d = True
+            met22 = fl.metrics_full_from_grid(grid, lay)
+            rows = fl.fast2d_met_rows(self.n_tracers)
+            self.met_map = {r: i for i, r in enumerate(rows)}
+            met = met22[list(rows)]
+            dxdy = met22[0] * met22[1]
+            recips = (met22[10], met22[11], met22[14] * met22[15])
+            # met22 (155 MB at 1525 x 1115) lives only in this constructor
+        planes = fl.static_planes(lu_s, None, dxdy, names,
+                                  interp_recips=recips)
         self.met = torch.from_numpy(met).to(dev)
         self.planes = torch.from_numpy(planes).to(dev)
         # the guard's per-block wet flags, with the kernel's own tile
@@ -164,6 +177,6 @@ class FusedSWModel:
         for _ in range(n_steps):
             s6, m = fused_sw_step(s6, self.met, self.planes, self.lay,
                                   self.tau, sw.time_smooth, self.hr_const,
-                                  self.tile_wet, self.tile)
+                                  self.tile_wet, self.tile, self.met_map)
             mx = torch.maximum(mx, m)
         return s6, bool(mx < swk.SSH_ERR_BOUND)   # NaN compares False

@@ -4,15 +4,18 @@ a plain C interface, bound with ctypes (the pattern of
 
 Each ``csrc/<name>.cu`` compiles on first use into
 ``build/torch_kernels/lib<name>-<hash>.so`` of the checkout, keyed on a
-hash of the source and the flags, so a fresh checkout builds what it
-runs and an edited source rebuilds. A failed build raises: there is no
-fallback. Nothing here runs at import time.
+hash of the source, the headers beside it (``csrc/*.cuh``) and the
+flags, so a fresh checkout builds what it runs and an edited source or
+header rebuilds. A failed build raises: there is no fallback. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -43,8 +46,10 @@ def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its hashed library exists;
     returns the library path."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            key.update(f.read())
     so = os.path.join(BUILD_DIR, f"lib{name}-{key.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return so
@@ -59,6 +64,13 @@ def build(name: str) -> str:
     BUILDS[name] = {"path": so, "seconds": time.perf_counter() - t0,
                     "log": res.stdout + res.stderr}
     return so
+
+
+def build_all(names) -> list:
+    """Build several sources at once, one nvcc each, all started
+    together; returns their library paths."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 @functools.lru_cache(maxsize=None)

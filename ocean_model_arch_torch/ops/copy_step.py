@@ -1,0 +1,147 @@
+"""The copy step: the fused step's memory traffic without its arithmetic.
+
+Counterpart of ``scripts/roofline_probe.py::build_copy_step``, the
+copy-through Pallas kernel with exactly the fused step's windows and
+tiles. Every output is
+
+    out_i = (sum over all inputs, cell by cell) + i
+
+over the windowed inputs (the carried fields, then the static planes)
+and the metric rows (``(n, Ys)`` profiles or ``(n, Xs, Ys)`` planes),
+summed in that order in float32. The CUDA kernel (``csrc/copy_step.cu``)
+loads what the fused kernel loads, with its tile, its window halo (3, or
+4 with ``tracer_form``), its shared memory and, with ``tile_wet``, its
+land-tile guard, so its time is the floor of that form of the fused
+step on this layout. It is a measuring tool: nothing on the model's step
+loop calls it; ``scripts/roofline_probe_torch.py`` is its entry point.
+
+:func:`copy_step` takes CPU tensors to :func:`copy_step_reference` and
+CUDA tensors to the kernel, which it builds on first use; a kernel that
+does not build or launch raises. The two agree exactly: they make the
+same float32 additions in the same order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ._build import load
+from .fused_layout import FusedLayout
+from .fused_step import CPU_TILE, _wet_cells
+
+
+def copy_step_reference(windows, met, n_out: int, lay: FusedLayout,
+                        tile_wet=None, tile=None) -> tuple:
+    """The copy step in plain PyTorch on whole arrays. ``tile_wet`` (with
+    its ``tile`` shape) reproduces the guard: zeros in every tile flagged
+    all-land."""
+    acc = torch.zeros((lay.Xs, lay.Ys), dtype=torch.float32,
+                      device=windows[0].device)
+    for w in windows:
+        acc = acc + w
+    for r in (() if met is None else met):
+        acc = acc + (r[None, :] if r.dim() == 1 else r)
+    outs = [acc + float(i) for i in range(n_out)]
+    if tile_wet is not None:
+        cells = _wet_cells(tile_wet, tile, lay)
+        outs = [torch.where(cells, o, 0.0) for o in outs]
+    return tuple(outs)
+
+
+def tile_shape(device) -> tuple:
+    """The (rows, columns) of the kernel's output tile on a CUDA device
+    (the library is built if needed), ``CPU_TILE`` on the CPU."""
+    if torch.device(device).type == "cpu":
+        return CPU_TILE
+    lib = _library()
+    return lib.copy_step_tile_x(), lib.copy_step_tile_y()
+
+
+def _check_inputs(windows, met, n_out, lay, tile_wet, tile) -> None:
+    dev = windows[0].device
+    shapes = [(w, (lay.Xs, lay.Ys)) for w in windows]
+    if met is not None:
+        if met.dim() not in (2, 3):
+            raise ValueError("met: need (n, Ys) profiles or (n, Xs, Ys) "
+                             f"planes, got {tuple(met.shape)}")
+        shapes.append((met, (met.shape[0],) + ((lay.Ys,) if met.dim() == 2
+                                               else (lay.Xs, lay.Ys))))
+    for t, want in shapes:
+        if (dev.type != "cuda" or t.device != dev
+                or t.dtype != torch.float32):
+            raise ValueError(f"need float32 CUDA tensors on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+        if tuple(t.shape) != want or not t.is_contiguous():
+            raise ValueError(f"need a contiguous {want} tensor, got "
+                             f"{tuple(t.shape)}")
+    lib = _library()
+    if len(windows) > lib.copy_step_max_windows():
+        raise ValueError(f"at most {lib.copy_step_max_windows()} windowed "
+                         f"inputs, got {len(windows)}")
+    if not 0 < n_out <= lib.copy_step_max_outputs():
+        raise ValueError(f"need 1 to {lib.copy_step_max_outputs()} outputs, "
+                         f"got {n_out}")
+    if tile_wet is None:
+        return
+    want = (-(-lay.Xs // tile[0]), -(-lay.Ys // tile[1]))
+    if (tuple(tile) != tile_shape(dev) or tile_wet.device != dev
+            or tile_wet.dtype != torch.int32 or not tile_wet.is_contiguous()
+            or tuple(tile_wet.shape) != want):
+        raise ValueError(f"tile_wet: need a contiguous int32 {want} tensor "
+                         f"on {dev} for {tile_shape(dev)} tiles, got "
+                         f"{tile_wet.dtype} {tuple(tile_wet.shape)} for "
+                         f"{tuple(tile)} tiles")
+
+
+def copy_step(windows, met, n_out: int, lay: FusedLayout,
+              tracer_form: bool = False, tile_wet=None, tile=None) -> tuple:
+    """One copy step: ``n_out`` (Xs, Ys) outputs from the ``windows``
+    (the (Xs, Ys) fields and static planes) and the metric rows ``met``
+    ((n, Ys), (n, Xs, Ys) or None). The plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors (counted in ``copy_step.launches``).
+    ``tracer_form`` makes the kernel load the tracer form's wider window;
+    the result does not depend on it."""
+    if windows[0].device.type == "cpu":
+        return copy_step_reference(windows, met, n_out, lay, tile_wet, tile)
+    _check_inputs(windows, met, n_out, lay, tile_wet, tile)
+    lib = _library()
+    outs = tuple(torch.empty_like(windows[0]) for _ in range(n_out))
+    win_p = (ctypes.c_void_p * len(windows))(*(w.data_ptr()
+                                               for w in windows))
+    out_p = (ctypes.c_void_p * n_out)(*(o.data_ptr() for o in outs))
+    with torch.cuda.device(windows[0].device):
+        rc = lib.copy_step_launch(
+            win_p, len(windows), out_p, n_out,
+            None if met is None else met.data_ptr(),
+            0 if met is None else met.shape[0],
+            int(met is not None and met.dim() == 3),
+            None if tile_wet is None else tile_wet.data_ptr(),
+            int(bool(tracer_form)), lay.Xs, lay.Ys,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError("copy_step kernel launch failed: "
+                           + lib.copy_step_error_string(rc).decode())
+    copy_step.launches += 1
+    return outs
+
+
+copy_step.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """csrc/copy_step.cu, built on first use, with its C signatures."""
+    lib = load("copy_step")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.copy_step_tile_x, lib.copy_step_tile_y,
+               lib.copy_step_max_windows, lib.copy_step_max_outputs):
+        fn.argtypes = []
+        fn.restype = i
+    lib.copy_step_error_string.argtypes = [i]
+    lib.copy_step_error_string.restype = ctypes.c_char_p
+    lib.copy_step_launch.argtypes = [p, i, p, i, p, i, i, p, i, i, i, p]
+    lib.copy_step_launch.restype = i
+    return lib

@@ -4,17 +4,20 @@
 //
 // Replaces: ocean_model_arch_tpu/ops/pallas/fused_step.py::
 //   build_fused_sw_step -> _make_kernel (pallas_call at :1642), fast
-//   branch with x-uniform latitude-profile metrics, full free surface,
-//   momentum advection, no viscosity (mu = 0), flat bathymetry; its
-//   tracer pass (:937-1039, advective fluxes only since mu = 0) and its
-//   land-tile guard (`guarded` :1106-1131, scalar-prefetch call :1630).
+//   branch, full free surface, momentum advection, no viscosity (mu = 0),
+//   flat bathymetry, with x-uniform latitude-profile metrics or, for
+//   curvilinear (bipolar) grids, its fast2d form with pointwise metric
+//   planes (`metrics_2d, fast2d, met_map`, MT :351-354); its tracer pass
+//   (:937-1039, advective fluxes only since mu = 0) and its land-tile
+//   guard (`guarded` :1106-1131, scalar-prefetch call :1630).
 //   Plain PyTorch version: ops/fused_step.py::fused_sw_step_reference,
 //   which evaluates the same formulas in the same order.
 //
-// One kernel template, fused_sw_step_kernel<NT, GUARD>, instantiated for
-// NT = 0, 1, 2 tracers with and without the guard. <0, false> is the
-// form without tracers or guard: 4 stages, 16 shared-memory planes of a
-// (TX+6) x (TY+6) window.
+// One kernel template, fused_sw_step_kernel<NT, GUARD, MET2D>, instantiated
+// for NT = 0, 1, 2 tracers, with and without the guard, with profile or
+// plane metrics. <0, false, false> is the form without tracers or guard
+// on profile metrics: 4 stages, 16 shared-memory planes of a (TX+6) x
+// (TY+6) window.
 //
 // What bounds it: memory. Per layout cell and step the SW part must read
 // 10 f32 planes (6 fields + rslu_u, rslu_v, rslu_h, ludxdy) and write 6,
@@ -25,7 +28,8 @@
 // and 51 us at the H100's 3.35 TB/s HBM), far above the compute time.
 // The guarded form moves those bytes for the cells of wet tiles only,
 // plus (6 + 2 T) * 4 bytes of zero writes per cell of an all-land tile
-// (24 bytes at T = 0).
+// (24 bytes at T = 0). The plane-metric forms read 7 more f32 planes (9
+// with tracers): 92 bytes per cell at T = 0, 132 at T = 2.
 //
 // What the design does about it: every intermediate of the step (the
 // weighted depth column aq, the depths hu/hv/hh and hup/hvp, the mass
@@ -47,6 +51,14 @@
 // outside the array read as 0 (land); the layout's 4-cell land margin
 // keeps every read of an interior cell inside the array.
 //
+// Metrics: the step reads 7 metric rows (9 with tracers), each at the
+// thread's own cell only: the one shifted metric of the fast branch,
+// dxt(n+1), is baked into row 17 on the host. A profile row is read by
+// column, a plane by cell, coalesced along y, straight from device memory
+// (halo cells re-read them, mostly from L2); no shared-memory plane holds
+// a metric, so both metric forms have the same blocks. Every metric read
+// sits behind the same inside-the-array test as the fields.
+//
 // The guard: a block whose own tile holds no wet cell (one int flag per
 // block, built on the host from the land mask with this file's tile
 // constants) writes exact zeros to its tile of every output and 0 to its
@@ -58,37 +70,11 @@
 // and propagates NaN (fmaxf would drop it). Land-only divisions are
 // skipped by branching on the wet mask before dividing.
 
-#include <cuda_runtime.h>
+#include "fused_tile.cuh"
 
 namespace {
 
-// Tile, one for every form: 16 x 32 outputs, 512 threads, three blocks
-// per SM. Swept on an H100 SXM (700 W) at the 1533 x 1152 layout, device
-// us/launch. Without tracers: 16x32 with 512 threads 75.0; 16x16, 12x32
-// and 8x32 with 256 threads 76-78; 32x32 108; 32x64 172. With 2 tracers:
-// 16x32/512 122; 8x64/512 123; 12x32/512 126; 32x16/512 128; 16x64/512
-// 129; 16x32/384 131; 32x32/512 133; 16x16/256 134; 8x32/256 137. Small
-// tiles keep more blocks, and so more loads, in flight per SM; their halo
-// re-reads hit L2. Three blocks of 512 threads fit an SM only at 42
-// registers or fewer: left to itself ptxas takes 44 (47-48 with tracers),
-// two blocks fit, and the launch takes 95 us instead of 73 (164 instead
-// of 122); with MIN_BLOCKS = 3 it takes 39 and spills nothing.
-constexpr int TX = 16;                 // output rows (x) per block
-constexpr int TY = 32;                 // output columns (y) per block
-constexpr int NTHREADS = 512;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int MIN_BLOCKS = 3;          // blocks per SM to keep registers for
-constexpr int MAX_TRACERS = 2;
-
-// The window of the form with NT tracers.
-template <int NT>
-struct Form {
-  static constexpr int EXTRA = NT ? 1 : 0;        // reach of the tracer pass
-  static constexpr int HALO = 3 + EXTRA;          // stencil reach of one step
-  static constexpr int WX = TX + 2 * HALO;        // window rows
-  static constexpr int WY = TY + 2 * HALO;        // window columns
-  static constexpr int PLANE = WX * WY;           // floats per shared array
-};
+using namespace fused_tile;
 
 // shared-memory arrays, each a WX x WY window
 enum {
@@ -106,22 +92,24 @@ enum {
 //   tracer t's edge fluxes fx, fy <- S_F + 2 t, S_F + 2 t + 1
 //   (F, K, Rx, Sy are last read in stage 3)
 static_assert(S_F + 2 * MAX_TRACERS <= S_CX, "tracer flux planes overlap");
+static_assert(N_SMEM == N_SMEM_PLANES, "fused_tile.cuh sizes the windows");
 
-template <int NT>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * N_SMEM * Form<NT>::PLANE;
-}
-
-// profile rows read by the kernel (ops/fused_layout.py row meanings)
-constexpr int R_DX = 0, R_DY = 1;
-constexpr int R_RDXDY = 9, R_RDXT = 10, R_RDYT = 11;
-constexpr int R_VORT_V = 16, R_VORT_UY = 17, R_VORT_U = 18, R_CORIO = 21;
+// the metric rows the kernel reads, in the order the launcher takes their
+// slots (ops/fused_layout.py row meanings 0, 1, 9, 10, 11, 16, 17, 18, 21)
+enum {
+  M_DX, M_DY,                          // tracer pass only
+  M_RDXDY, M_RDXT, M_RDYT,
+  M_VORT_V, M_VORT_UY, M_VORT_U, M_CORIO,
+  N_MET
+};
 
 struct Params {
   const float* ssh; const float* sshp;
   const float* u; const float* up;
   const float* v; const float* vp;
-  const float* met;      // (24, Ys) latitude profiles
+  // each metric row: a (Ys) latitude profile (indexed by column) or an
+  // (Xs, Ys) plane (indexed by cell); rows the form does not read are null
+  const float* met[N_MET];
   const float* planes;   // (4, Xs, Ys): rslu_u, rslu_v, rslu_h, ludxdy
   float* ssh_o; float* sshp_o;
   float* u_o; float* up_o;
@@ -151,7 +139,7 @@ __device__ __forceinline__ float at(const Params& p, const float* f,
   return inside(p, gx, gy) ? f[(size_t)gx * p.Ys + gy] : 0.f;
 }
 
-template <int NT, bool GUARD>
+template <int NT, bool GUARD, bool MET2D>
 __global__ void
 __launch_bounds__(NTHREADS, MIN_BLOCKS)
 fused_sw_step_kernel(const Params p) {
@@ -260,11 +248,13 @@ fused_sw_step_kernel(const Params p) {
       const int k = a * S + b, gx = x0 + a, gy = y0 + b;
       float rh = 0.f, m16 = 0.f, m17 = 0.f, m18 = 0.f, m21 = 0.f;
       if (inside(p, gx, gy)) {
-        rh = rslu_h[(size_t)gx * p.Ys + gy];
-        m16 = p.met[R_VORT_V * p.Ys + gy];
-        m17 = p.met[R_VORT_UY * p.Ys + gy];
-        m18 = p.met[R_VORT_U * p.Ys + gy];
-        m21 = p.met[R_CORIO * p.Ys + gy];
+        const size_t g = (size_t)gx * p.Ys + gy;
+        const size_t mi = MET2D ? g : (size_t)gy;
+        rh = rslu_h[g];
+        m16 = p.met[M_VORT_V][mi];
+        m17 = p.met[M_VORT_UY][mi];
+        m18 = p.met[M_VORT_U][mi];
+        m21 = p.met[M_CORIO][mi];
       }
       const float su = s_aq[k] + s_aq[k + S];
       const float hh = (su + (s_aq[k + W] + s_aq[k + S + W])) * rh;
@@ -310,6 +300,7 @@ fused_sw_step_kernel(const Params p) {
         continue;
       }
       const size_t g = (size_t)gx * p.Ys + gy;
+      const size_t mi = MET2D ? g : (size_t)gy;
       const float ssh = s_ssh[k], sshp = p.sshp[g];
       const bool wlu = s_ld[k] > 0.5f;
       const bool wlcu = wlu && s_ld[k + S] > 0.5f;
@@ -317,7 +308,7 @@ fused_sw_step_kernel(const Params p) {
 
       // continuity: sshn = sshp - 2 tau div(flux) / (dx dy)
       const float div = ((s_ud[k] - s_ud[k - S]) + s_vd[k]) - s_vd[k - W];
-      const float sshn = sshp + div * (p.neg_two_tau * p.met[R_RDXDY * p.Ys + gy]);
+      const float sshn = sshp + div * (p.neg_two_tau * p.met[M_RDXDY][mi]);
       // post-step depth column; sshn, not ssh_new: ld kills land
       if (NT) s_aq[k] = (sshn + p.hr) * s_ld[k];
       if (ring > 1) continue;
@@ -332,7 +323,7 @@ fused_sw_step_kernel(const Params p) {
         const float slx = (s_ssh[k + S] - ssh) * hu * p.neg_g;
         const float acx = (s_cx[k] + s_rx[k - W]) + s_f[k - S];
         const float grx = slx + acx;
-        un = (up * hup + grx * (p.two_tau * p.met[R_RDXT * p.Ys + gy])) / hu;
+        un = (up * hup + grx * (p.two_tau * p.met[M_RDXT][mi])) / hu;
       }
       if (wlcv) {
         const float hv = s_hv[k];
@@ -340,7 +331,7 @@ fused_sw_step_kernel(const Params p) {
         const float sly = (s_ssh[k + W] - ssh) * hv * p.neg_g;
         const float acy = (s_cy[k] + s_sy[k - S]) + s_k[k - W];
         const float gry = sly + acy;
-        vn = (vp * hvp + gry * (p.two_tau * p.met[R_RDYT * p.Ys + gy])) / hv;
+        vn = (vp * hvp + gry * (p.two_tau * p.met[M_RDYT][mi])) / hv;
       }
       if (NT) { s_cx[k] = un; s_cy[k] = vn; }   // 0 off the u / v wet sets
       if (ring > 0) continue;
@@ -408,8 +399,8 @@ fused_sw_step_kernel(const Params p) {
       const bool wlu = s_ld[k] > 0.5f;
       // bp = hhq_n*area, bp0 = hhq_p*area with hhq_n = hr,
       // hhq_p = hr + sshp_new, area = dx*dy / (2 tau)
-      const float area = (p.met[R_DX * p.Ys + gy] * p.met[R_DY * p.Ys + gy])
-          * p.inv_two_tau;
+      const size_t mi = MET2D ? g : (size_t)gy;
+      const float area = (p.met[M_DX][mi] * p.met[M_DY][mi]) * p.inv_two_tau;
       const float bp = p.hr * area;
       const float bp0 = (p.hr + s_sshp_new[k]) * area;
 #pragma unroll
@@ -441,16 +432,24 @@ fused_sw_step_kernel(const Params p) {
   }
 }
 
-template <int NT, bool GUARD>
+template <int NT, bool GUARD, bool MET2D>
 int launch(const Params& p, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      fused_sw_step_kernel<NT, GUARD>,
+      fused_sw_step_kernel<NT, GUARD, MET2D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<NT>());
   if (e != cudaSuccess) return (int)e;
-  fused_sw_step_kernel<NT, GUARD>
+  fused_sw_step_kernel<NT, GUARD, MET2D>
       <<<dim3((p.Ys + TY - 1) / TY, (p.Xs + TX - 1) / TX), NTHREADS,
          smem_bytes<NT>(), stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int NT>
+int launch_form(const Params& p, bool met2d, cudaStream_t s) {
+  const bool guard = p.tile_wet != nullptr;
+  if (met2d)
+    return guard ? launch<NT, true, true>(p, s) : launch<NT, false, true>(p, s);
+  return guard ? launch<NT, true, false>(p, s) : launch<NT, false, false>(p, s);
 }
 
 }  // namespace
@@ -464,6 +463,9 @@ int fused_sw_step_tile_x() { return TX; }
 
 int fused_sw_step_tile_y() { return TY; }
 
+// How many metric rows fused_sw_step_launch takes slots for.
+int fused_sw_step_n_met() { return N_MET; }
+
 const char* fused_sw_step_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
@@ -471,32 +473,41 @@ const char* fused_sw_step_error_string(int code) {
 // Launches one step on `stream`; returns cudaGetLastError() (0 = launched).
 // tr_in / tr_out: host arrays of 2 * n_tracers device pointers (ff_0,
 // ffp_0, ff_1, ...), unread when n_tracers = 0. tile_wet: device array of
-// one int per block, or null for the unguarded form.
+// one int per block, or null for the unguarded form. met: (rows, Ys)
+// profiles when met2d = 0, (rows, Xs, Ys) planes otherwise; met_slots: host
+// array of fused_sw_step_n_met() ints, the row of `met` that holds each
+// metric the kernel reads (in the order 0, 1, 9, 10, 11, 16, 17, 18, 21 of
+// the layout's row meanings), negative for a row the form does not read.
 int fused_sw_step_launch(
     const float* ssh, const float* sshp, const float* u, const float* up,
     const float* v, const float* vp, const float* met, const float* planes,
     float* ssh_o, float* sshp_o, float* u_o, float* up_o, float* v_o,
     float* vp_o, float* blockmax, const float* const* tr_in,
-    float* const* tr_out, const int* tile_wet, int n_tracers, int Xs, int Ys,
-    int nx, int ny, int margin, float hr, float neg_g, float two_tau,
-    float neg_two_tau, float inv_two_tau, float ts1, float ts2,
-    void* stream) {
+    float* const* tr_out, const int* tile_wet, const int* met_slots,
+    int met2d, int n_tracers, int Xs, int Ys, int nx, int ny, int margin,
+    float hr, float neg_g, float two_tau, float neg_two_tau,
+    float inv_two_tau, float ts1, float ts2, void* stream) {
   if (n_tracers < 0 || n_tracers > MAX_TRACERS)
     return (int)cudaErrorInvalidValue;
-  Params p{ssh, sshp, u, up, v, vp, met, planes,
+  Params p{ssh, sshp, u, up, v, vp, {}, planes,
            ssh_o, sshp_o, u_o, up_o, v_o, vp_o, blockmax,
            {}, {}, tile_wet, Xs, Ys, nx, ny, margin, hr, neg_g,
            two_tau, neg_two_tau, inv_two_tau, ts1, ts2};
+  const size_t row = met2d ? (size_t)Xs * Ys : (size_t)Ys;
+  for (int k = 0; k < N_MET; ++k) {
+    const bool read = k > M_DY || n_tracers > 0;
+    if (read && met_slots[k] < 0) return (int)cudaErrorInvalidValue;
+    p.met[k] = met_slots[k] < 0 ? nullptr : met + met_slots[k] * row;
+  }
   for (int t = 0; t < 2 * n_tracers; ++t) {
     p.tr[t] = tr_in[t];
     p.tr_o[t] = tr_out[t];
   }
   cudaStream_t s = (cudaStream_t)stream;
-  const bool guard = tile_wet != nullptr;
   switch (n_tracers) {
-    case 0: return guard ? launch<0, true>(p, s) : launch<0, false>(p, s);
-    case 1: return guard ? launch<1, true>(p, s) : launch<1, false>(p, s);
-    default: return guard ? launch<2, true>(p, s) : launch<2, false>(p, s);
+    case 0: return launch_form<0>(p, met2d != 0, s);
+    case 1: return launch_form<1>(p, met2d != 0, s);
+    default: return launch_form<2>(p, met2d != 0, s);
   }
 }
 

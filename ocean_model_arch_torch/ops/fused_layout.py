@@ -4,7 +4,8 @@ Counterparts of the numpy/host helpers inside
 ``ocean_model_arch_tpu/ops/pallas/fused_step.py`` (``margin_for`` :88,
 ``make_layout`` :124, ``embed``/``extract`` :151-163, ``plane_names``
 :173, the guard's wet flags :1691-1705, ``staggered_wet_masks`` :1719,
-``metrics_profile_from_grid`` :1771, ``static_planes`` :1809), re-homed
+``metrics_profile_from_grid`` :1771, ``static_planes`` :1809,
+``fast2d_met_rows`` :1855, ``metrics_full_from_grid`` :1870), re-homed
 here because that file imports ``jax.experimental.pallas``.
 
 The layout is the port's own, not the TPU's: a physical (nx, ny) field
@@ -28,6 +29,9 @@ STEP_REACH = 3      # cells one fused step reads beyond its outputs
 TRACER_REACH = 4    # the same with the tracer pass (sshn at halo 2)
 ROW_ALIGN = 32      # Ys is a multiple of this many floats (128 bytes)
 N_PROF = 24         # profile rows (9 metrics + 7 reciprocals + 6 derived)
+N_FULL = 22         # the rows of them that carry a meaning (0-21)
+METRIC_NAMES = ("dx", "dy", "dxt", "dyt", "dxh", "dyh", "dxb", "dyb",
+                "rlh_s")
 
 
 def margin_for(steps_per_launch: int, n_tracers: int = 0) -> int:
@@ -125,9 +129,8 @@ def metrics_profile_from_grid(grid, lay: FusedLayout) -> np.ndarray:
     21 rlh_s*dxb*dyb/4.
     """
     rows = np.zeros((N_PROF, lay.Ys), np.float32)
-    names = ["dx", "dy", "dxt", "dyt", "dxh", "dyh", "dxb", "dyb", "rlh_s"]
     yp = lay.margin
-    for k, name in enumerate(names):
+    for k, name in enumerate(METRIC_NAMES):
         f = getattr(grid, name).cpu().numpy()
         if not np.array_equal(f, np.broadcast_to(f[:1, :], f.shape)):
             raise ValueError(f"metric {name} is not x-uniform")
@@ -135,20 +138,61 @@ def metrics_profile_from_grid(grid, lay: FusedLayout) -> np.ndarray:
         # extend into the y margins so reciprocals stay finite
         rows[k, :yp] = f[0, 0]
         rows[k, yp + lay.ny:] = f[0, -1]
-    with np.errstate(divide="ignore"):
+    _derive_metric_rows(rows)
+    return rows
+
+
+def _derive_metric_rows(rows: np.ndarray) -> None:
+    """Fill rows 9-21 of a (>= 22, ..., Ys) metric stack from its rows
+    0-8, pointwise in float32; the last axis is y. What is not finite
+    (a zero metric) becomes 0."""
+    with np.errstate(divide="ignore", invalid="ignore"):
         rows[9] = np.float32(1.0) / (rows[0] * rows[1])
         for k, src in ((10, 2), (11, 3), (12, 4), (13, 5), (14, 6),
                        (15, 7)):
             rows[k] = np.float32(1.0) / rows[src]
         rows[16] = (rows[3] - rows[7]) * np.float32(0.25)
-        rows[17] = (np.concatenate([rows[2][1:], rows[2][-1:]])
-                    - rows[6]) * np.float32(0.25)
+        dxt_n1 = np.concatenate([rows[2][..., 1:], rows[2][..., -1:]],
+                                axis=-1)
+        rows[17] = (dxt_n1 - rows[6]) * np.float32(0.25)
         rows[18] = (rows[2] - rows[6]) * np.float32(0.25)
         rows[19] = rows[1] / rows[0]
         rows[20] = rows[0] / rows[1]
         rows[21] = rows[8] * rows[6] * rows[7] * np.float32(0.25)
     rows[9:][~np.isfinite(rows[9:])] = 0.0
-    return rows
+
+
+def metrics_full_from_grid(grid, lay: FusedLayout) -> np.ndarray:
+    """The (N_FULL, Xs, Ys) metric planes of a grid whose metrics vary
+    along x and y (bipolar / curvilinear): the rows of
+    :func:`metrics_profile_from_grid`, computed pointwise in the same
+    order of float32 operations. The 9 grid metrics are edge-replicated
+    through the whole margin (y first, then the x rows, which covers the
+    corners) before rows 9-21 are derived, so no reciprocal is infinite;
+    row 17 takes dxt at n + 1 after that replication."""
+    planes = np.zeros((N_FULL, lay.Xs, lay.Ys), np.float32)
+    m = lay.margin
+    for k, name in enumerate(METRIC_NAMES):
+        f = getattr(grid, name).cpu().numpy().astype(np.float32)
+        p = planes[k]
+        p[m:m + lay.nx, m:m + lay.ny] = f
+        p[m:m + lay.nx, :m] = f[:, :1]
+        p[m:m + lay.nx, m + lay.ny:] = f[:, -1:]
+        p[:m, :] = p[m, :]
+        p[m + lay.nx:, :] = p[m + lay.nx - 1, :]
+    _derive_metric_rows(planes)
+    return planes
+
+
+def fast2d_met_rows(n_tracers: int) -> tuple:
+    """The metric rows the fused step reads (row meanings of
+    :func:`metrics_profile_from_grid`); the 2D-metrics path streams only
+    these planes. The masks come from ``ludxdy > 0.5``, so the rows 14
+    and 15 that the TPU kernel's thresholds need are not among them."""
+    rows = {9, 10, 11, 16, 17, 18, 21}
+    if n_tracers:
+        rows |= {0, 1}
+    return tuple(sorted(rows))
 
 
 def static_planes(lu_s: np.ndarray, hr_s: np.ndarray, dxdy: np.ndarray,
@@ -156,8 +200,8 @@ def static_planes(lu_s: np.ndarray, hr_s: np.ndarray, dxdy: np.ndarray,
     """(len(names), Xs, Ys) float32 static planes, pure functions of the
     land mask, bathymetry and metrics (see :func:`plane_names`).
     ``dxdy``: (Xs, Ys) plane or (1, Ys) profile row. ``interp_recips``:
-    the (1, Ys) rows (1/dxt, 1/dyt, 1/(dxb*dyb)) folded into the rslu
-    planes."""
+    (1/dxt, 1/dyt, 1/(dxb*dyb)), as (1, Ys) rows or (Xs, Ys) planes,
+    folded into the rslu planes."""
     lu = np.asarray(lu_s, np.float32)
     x1 = np.zeros_like(lu)
     x1[:-1, :] = lu[1:, :]          # lu[i+1, j]

@@ -1,16 +1,24 @@
 """The fused shallow-water step: CUDA kernel wrapper and its plain version.
 
 Counterpart of ``ocean_model_arch_tpu/ops/pallas/fused_step.py::
-build_fused_sw_step`` / ``_make_kernel`` (fast branch, x-uniform
-profile metrics, full free surface, momentum advection, mu = 0, flat
-bathymetry), with its tracer pass (advective fluxes; mu = 0) and its
-land-tile guard. One call advances the 6 carried fields and the 2
-carried levels of each of T tracers by one model step on the layout of
-ops/fused_layout.py:
+build_fused_sw_step`` / ``_make_kernel`` (fast branch, full free
+surface, momentum advection, mu = 0, flat bathymetry), with its tracer
+pass (advective fluxes; mu = 0) and its land-tile guard, on x-uniform
+profile metrics or on pointwise metric planes (the TPU kernel's fast2d
+form, for bipolar grids). One call advances the 6 carried fields and
+the 2 carried levels of each of T tracers by one model step on the
+layout of ops/fused_layout.py:
 
-    (ssh, sshp, u, up, v, vp, ff_0, ffp_0, ff_1, ...), met (24, Ys),
+    (ssh, sshp, u, up, v, vp, ff_0, ffp_0, ff_1, ...), met,
     planes (4, Xs, Ys) [, tile_wet (x tiles, y tiles) int32]
         -> (6 + 2 T new fields, max |ssh_new| over interior cells)
+
+``met`` is the (24, Ys) latitude profile of
+``fused_layout.metrics_profile_from_grid``, or, with ``met_map``, a
+stack of (Xs, Ys) planes: ``met_map[r]`` is the plane that holds row
+``r`` (``fused_layout.fast2d_met_rows`` names the rows a step reads).
+Both forms run the same formulas in the same order, each metric read at
+the cell's own index.
 
 The depths are recomputed from (ssh, sshp) every step instead of being
 carried, as the TPU kernel does: the step ends with hh_init, so every
@@ -38,12 +46,14 @@ import torch
 
 from ..host import FREE_FALL_ACC
 from ._build import load
-from .fused_layout import N_PROF, FusedLayout
+from .fused_layout import N_PROF, FusedLayout, fast2d_met_rows
 
 PLANES = ("rslu_u", "rslu_v", "rslu_h", "ludxdy")
 N_FIELDS = 6            # carried SW fields; each tracer adds 2
 MAX_TRACERS = 2         # the kernel's instantiations (csrc/fused_step.cu)
 CPU_TILE = (16, 32)     # the guard's tile where no kernel defines one
+# the metric rows whose slots the kernel's launcher takes, in its order
+KERNEL_MET_ROWS = fast2d_met_rows(n_tracers=1)
 
 
 def _scalars(tau: float, time_smooth: float):
@@ -95,11 +105,13 @@ def _wet_cells(tile_wet: torch.Tensor, tile, lay: FusedLayout):
 
 def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
                             tau: float, time_smooth: float,
-                            hr_const: float, tile_wet=None, tile=None):
+                            hr_const: float, tile_wet=None, tile=None,
+                            met_map=None):
     """One fused step in plain PyTorch on whole arrays, with the kernel's
     formulas in the kernel's order (see csrc/fused_step.cu). ``tile_wet``
     (with its ``tile`` shape) reproduces the guard: zeros, and a max of
-    0, in every tile flagged all-land."""
+    0, in every tile flagged all-land. ``met_map``: None for profile
+    metrics, else the row -> plane map of a (n, Xs, Ys) ``met``."""
     n_tr = n_tracers_of(fields)
     ssh, sshp, u, up, v, vp = fields[:N_FIELDS]
     rslu_u, rslu_v, rslu_h, ld = planes
@@ -107,7 +119,7 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
         tau, time_smooth)
 
     def row(k):
-        return met[k][None, :]
+        return met[k][None, :] if met_map is None else met[met_map[k]]
 
     def xp(a):
         return _sh(a, 1, 0)
@@ -198,12 +210,21 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
 
 
 def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
-                  tile) -> None:
+                  tile, met_map) -> None:
     n_tr = n_tracers_of(fields)
     if n_tr > MAX_TRACERS:
         raise ValueError(f"the kernel takes at most {MAX_TRACERS} "
                          f"tracers, got {n_tr}")
-    want = {"field": (lay.Xs, lay.Ys), "met": (N_PROF, lay.Ys),
+    if met_map is None:
+        met_shape = (N_PROF, lay.Ys)
+    else:
+        missing = [r for r in fast2d_met_rows(n_tr) if not
+                   0 <= met_map.get(r, -1) < met.shape[0]]
+        if missing:
+            raise ValueError(f"met_map: no plane of met for the metric "
+                             f"rows {missing}")
+        met_shape = (met.shape[0], lay.Xs, lay.Ys)
+    want = {"field": (lay.Xs, lay.Ys), "met": met_shape,
             "planes": (len(PLANES), lay.Xs, lay.Ys)}
     dev = fields[0].device
     for kind, ts in (("field", fields), ("met", [met]),
@@ -234,15 +255,20 @@ def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
 
 def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
                            tau: float, time_smooth: float, hr_const: float,
-                           tile_wet=None, tile=None):
+                           tile_wet=None, tile=None, met_map=None):
     """Launch the CUDA kernel once on CUDA tensors (counted in
     ``fused_sw_step.launches``, and per kernel instantiation
-    ``(T, guarded)`` in ``fused_sw_step.form_launches``). Returns ``(6 + 2 T new fields,
-    the (x tiles, y tiles) per-block max |ssh_new| over interior
-    cells)``; raises if the kernel does not build or launch."""
-    _check_inputs(fields, met, planes, lay, tile_wet, tile)
+    ``(T, guarded, 2D metrics)`` in ``fused_sw_step.form_launches``).
+    Returns ``(6 + 2 T new fields, the (x tiles, y tiles) per-block max
+    |ssh_new| over interior cells)``; raises if the kernel does not build
+    or launch."""
+    _check_inputs(fields, met, planes, lay, tile_wet, tile, met_map)
     n_tr = n_tracers_of(fields)
     lib = _library()
+    # where each metric row the kernel reads sits in met (-1: not there)
+    where = {r: r for r in KERNEL_MET_ROWS} if met_map is None else met_map
+    slots = (ctypes.c_int * len(KERNEL_MET_ROWS))(
+        *(where.get(r, -1) for r in KERNEL_MET_ROWS))
     tx, ty = tile_shape(fields[0].device)
     outs = tuple(torch.empty_like(f) for f in fields)
     blockmax = torch.empty((-(-lay.Xs // tx), -(-lay.Ys // ty)),
@@ -257,32 +283,36 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
     with torch.cuda.device(fields[0].device):   # launch on the tensors' card
         rc = lib.fused_sw_step_launch(
             *ptr, tr_in, tr_out,
-            None if tile_wet is None else tile_wet.data_ptr(), n_tr,
-            lay.Xs, lay.Ys, lay.nx, lay.ny, lay.margin, float(hr_const),
+            None if tile_wet is None else tile_wet.data_ptr(), slots,
+            int(met_map is not None), n_tr, lay.Xs, lay.Ys, lay.nx, lay.ny, lay.margin, float(hr_const),
             *scalars, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_sw_step kernel launch failed: "
                            + lib.fused_sw_step_error_string(rc).decode())
     fused_sw_step.launches += 1
-    fused_sw_step.form_launches[n_tr, tile_wet is not None] += 1
+    fused_sw_step.form_launches[n_tr, tile_wet is not None,
+                                met_map is not None] += 1
     return outs, blockmax
 
 
 def fused_sw_step(fields, met, planes, lay: FusedLayout, tau: float,
                   time_smooth: float, hr_const: float, tile_wet=None,
-                  tile=None):
+                  tile=None, met_map=None):
     """One fused step: the plain version for CPU tensors, the CUDA kernel
     for CUDA tensors (:func:`fused_sw_step_blockmax`). Returns
     ``(6 + 2 T new fields, 0-dim max |ssh_new| over interior cells)``;
     the max propagates NaN. ``tile_wet``/``tile``: the guard's flags
     (``fused_layout.tile_wet``) and the tile they were built for
-    (:func:`tile_shape`); None runs unguarded."""
+    (:func:`tile_shape`); None runs unguarded. ``met_map``: None for the
+    (24, Ys) profile ``met``, else the row -> plane map of the
+    (n, Xs, Ys) metric planes."""
     if fields[0].device.type == "cpu":
         return fused_sw_step_reference(fields, met, planes, lay, tau,
                                        time_smooth, hr_const, tile_wet,
-                                       tile)
+                                       tile, met_map)
     outs, blockmax = fused_sw_step_blockmax(
-        fields, met, planes, lay, tau, time_smooth, hr_const, tile_wet, tile)
+        fields, met, planes, lay, tau, time_smooth, hr_const, tile_wet, tile,
+        met_map)
     return outs, torch.amax(blockmax)
 
 
@@ -300,12 +330,17 @@ def _library() -> ctypes.CDLL:
     """csrc/fused_step.cu, built on first use, with its C signatures."""
     lib = load("fused_step")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn in (lib.fused_sw_step_tile_x, lib.fused_sw_step_tile_y):
+    for fn in (lib.fused_sw_step_tile_x, lib.fused_sw_step_tile_y,
+               lib.fused_sw_step_n_met):
         fn.argtypes = []
         fn.restype = i
+    if lib.fused_sw_step_n_met() != len(KERNEL_MET_ROWS):
+        raise RuntimeError("csrc/fused_step.cu reads "
+                           f"{lib.fused_sw_step_n_met()} metric rows, the "
+                           f"wrapper passes {len(KERNEL_MET_ROWS)}")
     lib.fused_sw_step_error_string.argtypes = [i]
     lib.fused_sw_step_error_string.restype = ctypes.c_char_p
-    lib.fused_sw_step_launch.argtypes = ([p] * 18 + [i] * 6 + [f] * 7
+    lib.fused_sw_step_launch.argtypes = ([p] * 19 + [i] * 7 + [f] * 7
                                          + [p])
     lib.fused_sw_step_launch.restype = i
     return lib

@@ -1,0 +1,168 @@
+#!/usr/bin/env python3
+"""Speed-of-light probe of the fused step's tiling on one NVIDIA GPU.
+
+The PyTorch + CUDA counterpart of ``scripts/roofline_probe.py``: it runs
+the copy step (``ocean_model_arch_torch/ops/copy_step.py``: the fused
+step's window loads and tile stores with a sum in place of the
+arithmetic) once per form of the fused kernel -- 0 or 2 tracers, profile
+or plane metrics, and for each mask named also under its land-tile guard
+-- and prints the kernel's device us/launch (torch.profiler) beside the
+byte bound of the same traffic. The gap between a form's copy step and the fused kernel itself is what
+the step's arithmetic and barriers cost; the gap between the copy step
+and the byte bound is what the tiling costs.
+
+Usage: python scripts/roofline_probe_torch.py [nx ny [mask ...]]
+
+Defaults to the Azov 250 m extents 1525 x 1115. Each ``mask`` is the word
+``frame`` (a 2-cell land frame) or an ASCII land/sea mask file of those
+extents (``data/AS/maskAzovCor.txt``); without one only the unguarded
+forms run. The first line printed is the card's name
+and power limit. Needs a CUDA device and nvcc; there is no CPU path.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from ocean_model_arch_torch.core.masks import (  # noqa: E402
+    frame_of_land_mask)
+from ocean_model_arch_torch.io.mask_io import read_mask  # noqa: E402
+from ocean_model_arch_torch.ops import fused_layout as fl  # noqa: E402
+from ocean_model_arch_torch.ops.copy_step import (copy_step,  # noqa: E402
+                                                  tile_shape)
+
+PEAK_BYTES = 3.35e12     # H100 SXM data sheet, HBM bytes/s
+N_STATIC = 4             # rslu_u, rslu_v, rslu_h, ludxdy
+N_LAUNCH = 200
+
+
+def form_counts(n_tracers: int) -> tuple:
+    """(windowed inputs, outputs, metric rows) of the fused step's form
+    with ``n_tracers`` tracers."""
+    n_out = 6 + 2 * n_tracers
+    return n_out + N_STATIC, n_out, len(fl.fast2d_met_rows(n_tracers))
+
+
+def bytes_moved(lay, n_tracers: int, met2d: bool, wet=None,
+                tile=None) -> int:
+    """The bytes one copy step of this form must move: each windowed
+    input and metric plane read once and each output written once over
+    the cells of the tiles it computes, the zero writes of the all-land
+    tiles (``wet``: the guard's per-tile flags, numpy), the profile rows,
+    one flag per block."""
+    n_win, n_out, n_met = form_counts(n_tracers)
+    cells = lay.Xs * lay.Ys
+    done, flags = cells, 0
+    if wet is not None:
+        full = wet.repeat(tile[0], 0).repeat(tile[1], 1)
+        done = int((full[:lay.Xs, :lay.Ys] > 0).sum())
+        flags = 4 * wet.size
+    per_cell = 4 * (n_win + n_out + (n_met if met2d else 0))
+    return (done * per_cell + (cells - done) * 4 * n_out
+            + (0 if met2d else 4 * n_met * lay.Ys) + flags)
+
+
+def form_inputs(lay, n_tracers: int, met2d: bool, device, seed: int = 0):
+    """(windowed inputs, metric rows) of one form, random float32 made
+    from ``seed`` on ``device``."""
+    n_win, _, n_met = form_counts(n_tracers)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    windows = tuple(torch.randn((lay.Xs, lay.Ys), generator=gen)
+                    .to(device) for _ in range(n_win))
+    shape = (n_met, lay.Xs, lay.Ys) if met2d else (n_met, lay.Ys)
+    return windows, torch.randn(shape, generator=gen).to(device)
+
+
+def kernel_us(fn, n: int, kernel: str = "copy_step_kernel") -> float:
+    """Mean device microseconds per launch of the CUDA kernel named
+    ``kernel`` over ``n`` calls of ``fn`` under torch.profiler, after one
+    warm-up call. The wrapper's Python takes longer than the kernel, so
+    CUDA events around the calls would time the host."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if kernel in e.key and e.count and e.self_device_time_total > 0:
+            return e.self_device_time_total / e.count
+    raise RuntimeError(f"torch.profiler recorded no device time for {kernel}")
+
+
+def probe(nx: int, ny: int, masks=(), n_launch: int = N_LAUNCH) -> list:
+    """Time the copy step of every form on the current CUDA device.
+    ``masks``: (name, (nx, ny) int array, 1 = land) pairs, each giving the
+    guarded forms their per-tile flags. Returns one dict per form:
+    ``n_tracers, met2d, guard`` (None or the mask's name), ``us, bytes,
+    bound_us`` (the bytes over the card's memory rate)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the roofline probe needs a CUDA device")
+    device = torch.device("cuda", torch.cuda.current_device())
+    lay = fl.make_layout(nx, ny)
+    tile = tile_shape(device)
+    guards = [(None, None)]
+    for name, mask in masks:
+        lu_s = fl.embed(lay, torch.from_numpy(1.0 - np.asarray(mask,
+                                                               np.float32)))
+        guards.append((name, fl.tile_wet(lu_s.numpy(), lay, *tile)))
+    rows = []
+    for n_tracers in (0, 2):
+        for met2d in (False, True):
+            windows, met = form_inputs(lay, n_tracers, met2d, device)
+            n_out = form_counts(n_tracers)[1]
+            for guard, wet in guards:
+                flags = None if wet is None else \
+                    torch.from_numpy(wet).to(device)
+                us = kernel_us(lambda: copy_step(
+                    windows, met, n_out, lay, tracer_form=n_tracers > 0,
+                    tile_wet=flags, tile=tile), n_launch)
+                nbytes = bytes_moved(lay, n_tracers, met2d, wet, tile)
+                rows.append({"n_tracers": n_tracers, "met2d": met2d,
+                             "guard": guard, "us": us,
+                             "bytes": nbytes,
+                             "bound_us": nbytes / PEAK_BYTES * 1e6})
+    return rows
+
+
+def form_name(row: dict) -> str:
+    return (f"T={row['n_tracers']} "
+            f"{'plane' if row['met2d'] else 'profile'} metrics "
+            f"guard {row['guard'] or 'off'}")
+
+
+def main(argv) -> int:
+    nx = int(argv[1]) if len(argv) > 1 else 1525
+    ny = int(argv[2]) if len(argv) > 2 else 1115
+    masks = [(os.path.basename(a), frame_of_land_mask(nx, ny)
+              if a == "frame" else read_mask(a, nx, ny)) for a in argv[3:]]
+    if not torch.cuda.is_available():
+        print("roofline_probe_torch: torch.cuda.is_available() is False; "
+              "the probe needs a CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    lay = fl.make_layout(nx, ny)
+    print(f"copy step, {nx} x {ny} points, layout {lay.Xs} x {lay.Ys}, "
+          f"{N_LAUNCH} launches per form (torch.profiler):")
+    for row in probe(nx, ny, masks):
+        print(f"  {form_name(row)}: {row['us']:.2f} us/launch, "
+              f"{row['bytes'] / 1e6:.1f} MB, byte bound "
+              f"{row['bound_us']:.2f} us at {PEAK_BYTES / 1e12:.2f} TB/s "
+              f"({row['bound_us'] / row['us']:.0%} of it reached, "
+              f"{row['bytes'] / row['us'] / 1e6:.3f} TB/s)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

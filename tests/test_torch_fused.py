@@ -168,12 +168,14 @@ def _unsupported_cases():
         hr = 100.0 + np.arange(basin.nx * basin.ny, dtype=np.float32)
         return dict(hhq_rest=hr.reshape(basin.nx, basin.ny) % 37.0 + 50.0)
 
-    def bipolar(basin, cfg, mask):
-        return dict(basin=dataclasses.replace(basin, curve_grid=2))
+    def bipolar_slow_form(basin, cfg, mask):
+        return dict(basin=dataclasses.replace(basin, curve_grid=2),
+                    model_kw=dict(static_rslu=False))
 
     return {f.__name__: f for f in (tracers_mu, tracers_bathymetry,
                                     three_tracers, periodic, mu, slow_form,
-                                    no_ffs, no_trans, bathymetry, bipolar)}
+                                    no_ffs, no_trans, bathymetry,
+                                    bipolar_slow_form)}
 
 
 UNSUPPORTED = _unsupported_cases()
@@ -183,7 +185,7 @@ MESSAGES = {"tracers_mu": "diffusive tracer fluxes",
             "periodic": "periodic", "mu": "viscosity",
             "slow_form": "static_rslu", "no_ffs": "full_free_surface",
             "no_trans": "trans_terms", "bathymetry": "bathymetry",
-            "bipolar": "x-varying"}
+            "bipolar_slow_form": "fast2d requires static_rslu=True"}
 
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))

@@ -3,7 +3,7 @@ machine with the GPU has no JAX, and the port keeps its own copies of the
 numpy-only host modules.
 
 A fresh interpreter imports ``ocean_model_arch_torch``, every module of
-the port and chip_smoke.py, and must end with no ``jax``, ``jaxlib`` or
+the port, chip_smoke.py and the port's probe script, and must end with no ``jax``, ``jaxlib`` or
 ``ocean_model_arch_tpu`` module loaded; no source of the port names one
 of them in an import. And the entry points place their tensors on the
 CUDA device unless told otherwise: without one they raise.
@@ -44,6 +44,7 @@ MODULES = [
     "ocean_model_arch_torch.ops.tracer_kernels",
     "ocean_model_arch_torch.ops.fused_layout",
     "ocean_model_arch_torch.ops.fused_step",
+    "ocean_model_arch_torch.ops.copy_step",
     "ocean_model_arch_torch.ops._build",
     "ocean_model_arch_torch.core.grid",
     "ocean_model_arch_torch.core.state",
@@ -51,11 +52,13 @@ MODULES = [
     "ocean_model_arch_torch.model.step",
     "ocean_model_arch_torch.model.fused",
     "chip_smoke",
+    "scripts.roofline_probe_torch",
 ]
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "scripts", "roofline_probe_torch.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -86,8 +89,8 @@ def test_port_imports_without_jax():
 
 
 def test_sources_reach_the_jax_package_only_through_host():
-    """No source of the port, ``host.py`` included, and not
-    chip_smoke.py, names jax, jaxlib or the JAX package in an import."""
+    """No source of the port, ``host.py`` included, and neither
+    chip_smoke.py nor the port's probe script, names jax, jaxlib or the JAX package in an import."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ocean_model_arch_tpu)"
                      r"\b", re.M)
     files = _port_sources()
