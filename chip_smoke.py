@@ -11,8 +11,10 @@ grid whose metrics vary along x) through ``build_grid`` ->
 steps_per_call=2)`` -> ``pack`` -> ``run_steps`` -> ``unpack``, in
 phases:
 
-1. device: the card, its power limit, the toolchain, the build of both
-   kernel sources (started together) with ptxas's registers and spills;
+1. device: the card, its power limit, the toolchain, the build of the
+   kernel libraries (the fused step's forms with 0, 1 and 2 tracers and
+   the copy step, started together) with ptxas's registers and spills,
+   which must stay at 42 registers and 0 bytes;
 2. every form of the fused-step CUDA kernel (no tracers / 2 tracers,
    unguarded / tile guard, profile / plane metrics) against its plain
    PyTorch version on the card, on the 2-cell land frame mask, the
@@ -20,9 +22,11 @@ phases:
    launch (tolerance 1e-5), 50 carried launches (1e-4), land exactly 0
    in all 6 + 2 T fields, all-land tiles exactly 0 with a block max of
    0, guarded and unguarded outputs bit-identical; the 1-tracer
-   instantiation likewise on the coastline; and the plane-metric
-   kernel, fed the profile rows repeated along x, against the profile
-   kernel bit for bit;
+   instantiation likewise on the coastline; the plane-metric kernel,
+   fed the profile rows repeated along x, against the profile kernel
+   bit for bit; then the same checks on the forms with lateral
+   viscosity (mu = 1000), with varying bathymetry (15-100 m) and with
+   both, and on the tracers' diffusive fluxes alone;
 3. the first main path (frame mask, no tracers, unguarded kernel) for
    200 steps: ``ok``, one kernel launch per step, agreement with the
    eager composition at the golden f32 tolerance; ms/step of the kernel
@@ -43,13 +47,25 @@ phases:
    arithmetic) against its plain version, exactly, on each form's own
    inputs; then us/launch of every form through the probe script
    ``scripts/roofline_probe_torch.py``, and each timed configuration's
-   byte bound beside the copy step of its form.
+   byte bound beside the copy step of its form;
+8. (printed before phase 7) the fourth main path ``azov_visc``: the
+   coastline over varying bathymetry with lateral viscosity (the shipped
+   ``lvisc_2 = 1000``) and 2 diffusing tracers, 200 steps, checked like
+   phase 5 against the eager composition with the same mu and
+   bathymetry; its sub-paths (a) viscosity alone on flat bathymetry, (b)
+   bathymetry alone, (c) both on the bipolar grid's plane metrics; what
+   the viscosity did to max |u|; the stability guard at a wet cell;
+   their timing line.
 
 Every phase prints its lines; any failure raises (exit code != 0). The
-line before the last is one JSON object describing the five kernels
-(the fused step's plain, guarded, tracer and plane-metric forms and the
-copy step); the last line is ``{"ok": true, "device": {...}}``. Needs a CUDA
-device and nvcc; there is no CPU path.
+line before the last is one JSON object describing the nine kernels
+(the fused step's plain, guarded, tracer, plane-metric, viscous,
+bathymetry-plane, viscous + bathymetry + tracer and viscous plane-metric
+forms and the copy step); the last line is ``{"ok": true, "device":
+{...}}``. With ``--parent DIR`` (the root of another checkout of this
+repository) it instead holds every instantiation that checkout has
+against this one's, bit for bit and in kernel time, and stops. Needs a
+CUDA device and nvcc; there is no CPU path.
 """
 
 from __future__ import annotations
@@ -74,12 +90,14 @@ TOL_ONE, TOL_CARRY = 1e-5, 1e-4
 TOL_EAGER = 3e-4        # golden_bs100 f32 tolerance (tests/test_golden.py)
 N_TRACERS = 2
 
+MU = 1.0e3              # the shipped lvisc_2 (every sw.par)
+MAX_REGS = 42           # above it only two 512-thread blocks fit an SM
+
 # H100 SXM data sheet: HBM bytes/s and f32 FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
-# what one step needs per computed layout cell: bytes (10 planes read and
-# 6 written; 2 + 2 per tracer) and an estimate of the f32 operations
-CELL_BYTES, TRACER_BYTES = 64, 16
-CELL_FLOPS, TRACER_FLOPS = 100, 25
+# an estimate of the f32 operations one step needs per computed layout
+# cell: the step, each tracer, the viscosity
+CELL_FLOPS, TRACER_FLOPS, VISC_FLOPS = 100, 25, 60
 
 CSRC = "ocean_model_arch_torch/ops/csrc/"
 PALLAS = "ocean_model_arch_tpu/ops/pallas/fused_step.py"
@@ -87,6 +105,10 @@ REPLACES = {"fused_sw_step": PALLAS + ":1642",
             "fused_sw_step_guarded": PALLAS + ":1106",
             "fused_sw_step_tracers": PALLAS + ":937",
             "fused_sw_step_fast2d": PALLAS + ":351",
+            "fused_sw_step_visc": PALLAS + ":711",
+            "fused_sw_step_bathy": PALLAS + ":467",
+            "fused_sw_step_visc_bathy_tracers": PALLAS + ":967",
+            "fused_sw_step_visc_bathy_fast2d": PALLAS + ":716",
             "copy_step": "scripts/roofline_probe.py:71"}
 
 
@@ -149,22 +171,34 @@ def profile_device_ms(fn, kernel: str):
     return None, None
 
 
-def ptxas_summary(log: str) -> str:
-    """``<template arguments>: registers / spill bytes`` per kernel
+def ptxas_table(log: str) -> list:
+    """(template arguments, registers, spill bytes) per kernel
     instantiation from nvcc's -Xptxas -v output."""
-    out, name, spill = [], None, "?"
+    out, name, spill = [], None, -1
     for ln in log.splitlines():
-        m = re.search(r"_kernelILi(\d)E(?:Lb(\d)ELb(\d)E)?", ln)
+        m = re.search(
+            r"_kernelILi(\d)E(?:Lb(\d)ELb(\d)ELi(\d)ELb(\d)E)?", ln)
         if m:
             name = "<" + ",".join(g for g in m.groups() if g) + ">"
-        m = re.search(r"(\d+) bytes spill stores", ln)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
         if m and name:
-            spill = m.group(1)
+            spill = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            out.append(f"{name} {m.group(1)} regs {spill} B spill")
+            out.append((name, int(m.group(1)), spill))
             name = None
-    return "; ".join(out) or "(cached build)"
+    return out
+
+
+def ptxas_summary(table: list) -> str:
+    """The table grouped: ``registers / spill bytes: instantiations``."""
+    groups: dict = {}
+    for name, regs, spill in table:
+        groups.setdefault((regs, spill), []).append(name)
+    return "; ".join(f"{r} regs {sp} B spill: " + " ".join(ns)
+                     for (r, sp), ns in sorted(groups.items())) \
+        or "(cached build)"
 
 
 def fmt(es) -> str:
@@ -175,7 +209,40 @@ def model_args(fm, cfg):
     """The arguments of ``fused_sw_step`` after the fields, as the model
     passes them."""
     return (fm.met, fm.planes, fm.lay, fm.tau, cfg.sw.time_smooth,
-            fm.hr_const, fm.tile_wet, fm.tile, fm.met_map)
+            fm.hr_const, fm.tile_wet, fm.tile, fm.met_map, fm.mu_const,
+            fm.visc)
+
+
+def form_key(fm) -> tuple:
+    """The kernel instantiation a model launches, as the wrapper counts
+    it: (tracers, guarded, plane metrics, mu mode, bathymetry planes)."""
+    from ocean_model_arch_torch.ops.fused_step import mu_mode
+    return (fm.n_tracers, fm.tile_guard, fm.metrics_2d,
+            mu_mode(fm.n_tracers, fm.mu_const, fm.visc), fm.hr_const is None)
+
+
+def form_name(fm) -> str:
+    """The entry of the kernels line a model's instantiation counts
+    under: the four names of the inviscid flat-bathymetry forms, else
+    the features spelt out."""
+    new = form_key(fm)[3] or fm.hr_const is None
+    if not new:
+        return ("fused_sw_step_fast2d" if fm.metrics_2d else
+                "fused_sw_step_tracers" if fm.n_tracers else
+                "fused_sw_step_guarded" if fm.tile_guard else
+                "fused_sw_step")
+    return "fused_sw_step" + "".join(
+        "_" + w for w, on in (("visc", fm.visc),
+                              ("diff", form_key(fm)[3] == 1),
+                              ("bathy", fm.hr_const is None),
+                              ("tracers", fm.n_tracers > 0),
+                              ("fast2d", fm.metrics_2d)) if on)
+
+
+def with_mu(state, mu: float):
+    """The state with its viscosity field filled with ``mu`` (the init
+    quirk zeroes it)."""
+    return dataclasses.replace(state, mu=torch.full_like(state.mu, mu))
 
 
 def land_masks(fm, grid, n_tracers):
@@ -192,12 +259,12 @@ def land_masks(fm, grid, n_tracers):
 def bound_ms(fm, n_tracers: int):
     """The least time the card could take for one launch of this model's
     kernel form: (ms, "bytes" or "operations", the bytes). Bytes: each
-    input plane read once and each output written once over the cells
-    the form computes (all cells unguarded; the cells of wet tiles when
-    guarded, plus the zero writes of the all-land tiles), the profile
-    rows or, per computed cell, the metric planes, one flag and one max
-    per block. Operations: an estimate of the f32 operations of those
-    cells."""
+    input plane (the carried fields and the form's static planes) read
+    once and each output written once over the cells the form computes
+    (all cells unguarded; the cells of wet tiles when guarded, plus the
+    zero writes of the all-land tiles), the profile rows or, per
+    computed cell, the metric planes, one flag and one max per block.
+    Operations: an estimate of the f32 operations of those cells."""
     lay = fm.lay
     cells = lay.Xs * lay.Ys
     blocks = fm.n_tiles[0] + fm.n_tiles[1]
@@ -211,10 +278,11 @@ def bound_ms(fm, n_tracers: int):
     n_out = 6 + 2 * n_tracers
     met_bytes = (done * 4 * fm.met.shape[0] if fm.metrics_2d
                  else fm.met.numel() * 4)
-    nbytes = (done * (CELL_BYTES + TRACER_BYTES * n_tracers)
+    nbytes = (done * 4 * (2 * n_out + fm.planes.shape[0])
               + skipped * 4 * n_out + met_bytes
               + blocks * (4 + (4 if fm.tile_wet is not None else 0)))
-    flops = done * (CELL_FLOPS + TRACER_FLOPS * n_tracers)
+    flops = done * (CELL_FLOPS + TRACER_FLOPS * n_tracers
+                    + VISC_FLOPS * fm.visc)
     t_b, t_f = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
     return (t_b, "bytes", nbytes) if t_b >= t_f else (t_f, "operations",
                                                       nbytes)
@@ -224,15 +292,16 @@ def broadcast_planes(fm, n_tr):
     """The profile rows a step reads, repeated along x as (n, Xs, Ys)
     planes, with their row -> plane map."""
     from ocean_model_arch_torch.ops import fused_layout as fl
-    rows = fl.fast2d_met_rows(n_tr)
+    rows = fl.fast2d_met_rows(n_tr, fm.visc)
     planes = fm.met[list(rows)][:, None, :].expand(
         len(rows), fm.lay.Xs, fm.lay.Ys).contiguous()
     return planes, {r: i for i, r in enumerate(rows)}
 
 
-def compare_forms(mname, grid, cfgs, stats):
+def compare_forms(mname, grid, cfgs, stats, mu=0.0):
     """Phase 2 on one mask: every kernel form against the plain version,
-    and guarded against unguarded. ``stats``: form name -> max abs err."""
+    and guarded against unguarded, with the state's viscosity ``mu``.
+    ``stats``: form name -> max abs err."""
     from ocean_model_arch_torch.model.fused import FusedSWModel
     from ocean_model_arch_torch.model.init import init_ocean_state
     from ocean_model_arch_torch.ops.fused_step import (
@@ -240,17 +309,16 @@ def compare_forms(mname, grid, cfgs, stats):
 
     carried = {}
     for n_tr, cfg in cfgs.items():
-        state = init_ocean_state(grid, cfg)
+        state = with_mu(init_ocean_state(grid, cfg), mu)
         for guard in (False, True):
-            fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True,
+            fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, static_rslu=True,
                               steps_per_call=2, tile_guard=guard)
             args = model_args(fm, cfg)
             land = land_masks(fm, grid, n_tr)
             s0 = fm.pack(state)
-            form = ("fused_sw_step_fast2d" if fm.metrics_2d else
-                    "fused_sw_step_tracers" if n_tr else
-                    "fused_sw_step_guarded" if guard else "fused_sw_step")
-            tag = f"{mname} T={n_tr} guard={'on' if guard else 'off'}"
+            form = form_name(fm)
+            tag = (f"{mname} T={n_tr} guard={'on' if guard else 'off'} "
+                   f"<{','.join(str(int(k)) for k in form_key(fm))}>")
             if guard:
                 tx, ty = fm.tile
                 dry = (fm.tile_wet == 0).repeat_interleave(tx, 0) \
@@ -301,8 +369,8 @@ def compare_forms(mname, grid, cfgs, stats):
                 for what, start in (("the initial state", s0),
                                     (f"step {N_CARRY}", rs)):
                     kp, bp = fused_sw_step_blockmax(start, *args)
-                    kb, bb = fused_sw_step_blockmax(start, met_b,
-                                                    *args[1:-1], map_b)
+                    kb, bb = fused_sw_step_blockmax(
+                        start, met_b, *args[1:8], map_b, *args[9:])
                     check(all(torch.equal(a, b) for a, b in zip(kp, kb))
                           and torch.equal(bp, bb), f"{tag}: the plane-"
                           "metric kernel on repeated profile rows differs "
@@ -335,14 +403,14 @@ def tracer_mass(state, grid) -> list:
             for t in range(state.ff.shape[0])]
 
 
-def drive_path(tag, grid, cfg, tile_guard):
+def drive_path(tag, grid, cfg, tile_guard, mu=0.0):
     """One path end to end: init -> FusedSWModel -> pack -> run_steps ->
-    unpack for N_MAIN steps, against the eager composition. The launch
-    counts are zeroed just before ``run_steps`` and read just after; the
-    path's kernel instantiation (its tracer count, guarded or not, profile
-    or plane metrics) must have launched once per step and no other at
-    all. Returns (model,
-    state, packed initial fields, launches of that instantiation)."""
+    unpack for N_MAIN steps, against the eager composition, with the
+    viscosity ``mu`` in the state and the model. The launch counts are
+    zeroed just before ``run_steps`` and read just after; the path's
+    kernel instantiation (``form_key``) must have launched once per step
+    and no other at all. Returns (model, state, packed initial fields,
+    launches of that instantiation, the final state)."""
     from ocean_model_arch_torch.model.fused import FusedSWModel
     from ocean_model_arch_torch.model.init import init_ocean_state
     from ocean_model_arch_torch.model.step import make_step, run_steps
@@ -350,9 +418,9 @@ def drive_path(tag, grid, cfg, tile_guard):
                                                        reset_launch_counts)
 
     n_tr = cfg.sw.tracer_num if cfg.sw.use_tracers > 0 else 0
-    state = init_ocean_state(grid, cfg)
-    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True, steps_per_call=2,
-                      tile_guard=tile_guard)
+    state = with_mu(init_ocean_state(grid, cfg), mu)
+    fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, static_rslu=True,
+                      steps_per_call=2, tile_guard=tile_guard)
     s0 = fm.pack(state)
     reset_launch_counts()
     s, ok = fm.run_steps(s0, N_MAIN)
@@ -362,9 +430,10 @@ def drive_path(tag, grid, cfg, tile_guard):
     check(ok, f"{tag}: the stability guard tripped")
     check(launches == N_MAIN, f"{tag}: {launches} kernel launches for "
           f"{N_MAIN} steps")
-    key = (n_tr, fm.tile_guard, fm.metrics_2d)
+    key = form_key(fm)
     check(counts == {key: N_MAIN}, f"{tag}: launches per (tracers, guarded, "
-          f"plane metrics) {counts}, expected {N_MAIN} of {key}")
+          f"plane metrics, mu mode, bathymetry planes) {counts}, expected "
+          f"{N_MAIN} of {key}")
     ref, eok = run_steps(make_step(grid, cfg), state, 1.0, N_MAIN)
     check(eok, f"{tag}: the eager composition's guard tripped")
     errs = {}
@@ -379,9 +448,11 @@ def drive_path(tag, grid, cfg, tile_guard):
     check(max(errs.values()) < TOL_EAGER,
           f"{tag} vs eager composition: rel errors {errs}")
     line = (f"{tag}: {N_MAIN} steps ok={ok} launches={launches} "
-            f"of <{n_tr},{int(fm.tile_guard)},{int(fm.metrics_2d)}> "
+            f"of <{','.join(str(int(k)) for k in key)}> "
             f"(guard {'on' if fm.tile_guard else 'off'}, "
-            f"{'plane' if fm.metrics_2d else 'profile'} metrics, tiles "
+            f"{'plane' if fm.metrics_2d else 'profile'} metrics, mu "
+            f"{fm.mu_const:g}, bathymetry "
+            f"{'planes' if fm.hr_const is None else 'flat'}, tiles "
             f"{fm.n_tiles[0]} wet / {fm.n_tiles[1]} land); vs eager "
             "composition rel err "
             + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
@@ -392,7 +463,7 @@ def drive_path(tag, grid, cfg, tile_guard):
                  + fmt(m0) + " after " + fmt(m1) + " (kernel path), "
                  + fmt(tracer_mass(ref, grid)) + " (eager)")
     print(line)
-    return fm, state, s0, counts[key]
+    return fm, state, s0, counts[key], out
 
 
 def guard_trips(fm, s0, cell, where: str) -> None:
@@ -439,7 +510,7 @@ def copy_step_inputs(fm, s0):
     it: (the carried fields then the static planes, the metric rows the
     step reads)."""
     from ocean_model_arch_torch.ops import fused_layout as fl
-    rows = fl.fast2d_met_rows(fm.n_tracers)
+    rows = fl.fast2d_met_rows(fm.n_tracers, fm.visc)
     met = fm.met if fm.metrics_2d else fm.met[list(rows)].contiguous()
     return tuple(s0) + tuple(fm.planes), met
 
@@ -454,7 +525,95 @@ def load_probe():
     return mod
 
 
-def main() -> int:
+def bathymetry(nx: int, ny: int) -> np.ndarray:
+    """A rest bathymetry of 15-100 m, float32: deepest in the middle of
+    the array, 15 m along its edges."""
+    i = np.arange(nx, dtype=np.float64)[:, None]
+    j = np.arange(ny, dtype=np.float64)[None, :]
+    return (15.0 + 85.0 * np.sin(np.pi * i / (nx - 1))
+            * np.sin(np.pi * j / (ny - 1))).astype(np.float32)
+
+
+def against_parent(parent: str, card: str) -> int:
+    """Every instantiation the checkout at ``parent`` has (the forms
+    without viscosity on flat bathymetry), on the Azov coastline at full
+    size, against this checkout's: outputs and block maxima bit for bit
+    from a state 20 steps in, and the kernel's device us/launch over
+    three windows a side in the order parent, this, this, parent,
+    parent, this (the medians must agree within 2 %)."""
+    from ocean_model_arch_torch.core.grid import build_grid
+    from ocean_model_arch_torch.host import (ModelConfig, Precision,
+                                             SWConfig, basinpar_as250m_test,
+                                             read_mask)
+    from ocean_model_arch_torch.model.fused import FusedSWModel
+    from ocean_model_arch_torch.model.init import init_ocean_state
+    from ocean_model_arch_torch.ops import fused_step as mine
+
+    pkg = os.path.join(os.path.abspath(parent), "ocean_model_arch_torch")
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    sys.modules["parent_port"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules["parent_port"])
+    theirs = importlib.import_module("parent_port.ops.fused_step")
+    probe = load_probe()
+
+    basin = basinpar_as250m_test()
+    prec = Precision.f32()
+    mask = read_mask(os.path.join(REPO, "data", "AS", "maskAzovCor.txt"),
+                     basin.nx, basin.ny)
+    worst = 0.0
+    for cg in (0, 2):
+        b = dataclasses.replace(basin, curve_grid=cg)
+        grid = build_grid(b, mask, precision=prec)
+        for n_tr in (0, 1, 2):
+            cfg = ModelConfig(basin=b, sw=SWConfig(
+                use_tracers=int(n_tr > 0), tracer_num=max(n_tr, 1)),
+                precision=prec)
+            state = init_ocean_state(grid, cfg)
+            for guard in (False, True):
+                fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True,
+                                  steps_per_call=2, tile_guard=guard)
+                args = model_args(fm, cfg)
+                old_args = args[:9]          # the parent's signature
+                s, _ = fm.run_steps(fm.pack(state), 20)
+                new, nb = mine.fused_sw_step_blockmax(s, *args)
+                old, ob = theirs.fused_sw_step_blockmax(s, *old_args)
+                tag = (f"<{n_tr},{int(guard)},{int(fm.metrics_2d)}> "
+                       f"(curve_grid={cg})")
+                check(all(torch.equal(x, y) for x, y in zip(new, old))
+                      and torch.equal(nb, ob), f"{tag}: outputs differ "
+                      "from the parent's")
+                def old():
+                    return theirs.fused_sw_step(s, *old_args)
+
+                def new():
+                    return mine.fused_sw_step(s, *args)
+
+                # three windows a side, compared by their medians: one
+                # window in a dozen reads 2-6 % off on either library
+                order = "PTTPPT"
+                us = [probe.kernel_us(old if c == "P" else new, N_TIME,
+                                      "fused_sw_step_kernel") for c in order]
+                med = {c: sorted(u for u, o in zip(us, order) if o == c)[1]
+                       for c in "PT"}
+                ratio = med["T"] / med["P"]
+                worst = max(worst, abs(ratio - 1.0))
+                print(f"against parent {tag}: outputs and block max "
+                      "bit-identical: yes; kernel us/launch "
+                      + ", ".join(f"{'parent' if c == 'P' else 'this'} "
+                                  f"{u:.2f}" for u, c in zip(us, order))
+                      + f" (medians this / parent {ratio:.4f})")
+    check(worst < 0.02, f"an instantiation's time moved by {worst:.1%}")
+    print(f"against parent ({card}): 12 instantiations bit-identical, "
+          f"kernel times within {worst:.2%}")
+    return 0
+
+
+def main(argv=()) -> int:
+    if argv and (len(argv) != 2 or argv[0] != "--parent"):
+        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "smoke run needs a CUDA device", file=sys.stderr)
@@ -469,7 +628,7 @@ def main() -> int:
     from ocean_model_arch_torch.model.step import make_step
     from ocean_model_arch_torch.ops import _build, copy_step as cs
     from ocean_model_arch_torch.ops.fused_step import (
-        fused_sw_step, fused_sw_step_reference, tile_shape)
+        fused_sw_step, fused_sw_step_reference, library_targets, tile_shape)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -480,21 +639,30 @@ def main() -> int:
     nvcc_ver = subprocess.run([_build.nvcc(), "--version"],
                               capture_output=True, text=True,
                               check=True).stdout.strip().splitlines()[-1]
-    sources = ("fused_step", "copy_step")
+    targets = library_targets() + ("copy_step",)
     t0 = time.perf_counter()
-    libs = _build.build_all(sources)
+    libs = _build.build_all(targets)
     build_s = time.perf_counter() - t0
+    fused_regs = [row for t in library_targets() for row in ptxas_table(
+        _build.BUILDS.get(t, {}).get("log", ""))]
+    copy_regs = ptxas_table(_build.BUILDS.get("copy_step", {}).get("log", ""))
     print(card)
     print(f"phase 1 device: {name}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}; {nvcc_ver}; kernel build (both sources "
-          f"at once) {build_s:.2f} s -> "
+          f"{torch.version.cuda}; {nvcc_ver}; kernel build ({len(targets)} "
+          f"libraries at once) {build_s:.2f} s -> "
           + ", ".join(os.path.relpath(so, REPO) for so in libs)
-          + "; ptxas fused_sw_step_kernel<tracers,guard,plane metrics>: "
-          + ptxas_summary(_build.BUILDS.get("fused_step", {}).get("log", ""))
-          + "; copy_step_kernel<tracer window>: "
-          + ptxas_summary(_build.BUILDS.get("copy_step", {}).get("log", "")))
+          + f"; ptxas, {len(fused_regs)} instantiations of "
+          "fused_sw_step_kernel<tracers,guard,plane metrics,mu mode,"
+          "bathymetry planes>: " + ptxas_summary(fused_regs)
+          + "; copy_step_kernel<tracer window>: " + ptxas_summary(copy_regs))
+    over = [r for r in fused_regs + copy_regs
+            if r[1] > MAX_REGS or r[2] != 0]
+    check(not over, f"instantiations above {MAX_REGS} registers or with "
+          f"spills: {over}")
     check(cs.tile_shape("cuda") == tile_shape("cuda"),
           "the copy step and the fused step were built with different tiles")
+    if argv:
+        return against_parent(argv[1], card)
 
     basin = basinpar_as250m_test()
     basin_b = dataclasses.replace(basin, curve_grid=2)
@@ -526,6 +694,12 @@ def main() -> int:
                                        precision=prec)
     grids["bipolar"] = build_grid(
         basin_s, frame_of_land_mask(basin_s.nx, basin_s.ny), precision=prec)
+    # the same coastline over varying bathymetry (15-100 m)
+    hr = bathymetry(basin.nx, basin.ny)
+    grids["azov_hr"] = build_grid(basin, masks["azov"], hhq_rest=hr,
+                                  precision=prec)
+    grids["bipolar_azov_hr"] = build_grid(basin_b, masks["azov"],
+                                          hhq_rest=hr, precision=prec)
     check(all(g.lu.is_cuda for g in grids.values()),
           "build_grid without a device did not use the card")
     wet = {m: int((g.lu > 0.5).sum()) for m, g in grids.items()}
@@ -540,10 +714,25 @@ def main() -> int:
         precision=prec)}, max_abs)
     # the plane-metric instantiations, on the bipolar grid
     compare_forms("bipolar_azov", grids["bipolar_azov"], cfgs_b, max_abs)
+    # viscosity, varying bathymetry and both, on profile metrics
+    compare_forms("azov mu=1000", grids["azov"], cfgs, max_abs, MU)
+    compare_forms("azov 15-100 m", grids["azov_hr"], cfgs, max_abs)
+    compare_forms("azov mu=1000 15-100 m", grids["azov_hr"], cfgs, max_abs,
+                  MU)
+    # the tracers' diffusive fluxes without the viscosity (ksw_lat = 0)
+    cfg_diff = ModelConfig(basin=basin, sw=SWConfig(
+        use_tracers=1, tracer_num=N_TRACERS, ksw_lat=0), precision=prec)
+    compare_forms("azov mu=1000 ksw_lat=0", grids["azov"],
+                  {N_TRACERS: cfg_diff}, max_abs, MU)
+    # and on plane metrics: viscosity alone, then with the bathymetry
+    compare_forms("bipolar_azov mu=1000", grids["bipolar_azov"],
+                  {0: cfgs_b[0]}, max_abs, MU)
+    compare_forms("bipolar_azov mu=1000 15-100 m", grids["bipolar_azov_hr"],
+                  cfgs_b, max_abs, MU)
 
     # ---- phase 3: the first main path (frame, no tracers, unguarded) ---
     launches = {}
-    fm, state, s0, launches["fused_sw_step"] = drive_path(
+    fm, state, s0, launches["fused_sw_step"], _ = drive_path(
         "phase 3 main path (frame mask, no tracers)", grids["frame"],
         cfgs[0], False)
     lay = fm.lay
@@ -569,15 +758,15 @@ def main() -> int:
     # each entry of the kernels line takes its launches from the path that
     # runs the instantiation its times describe: <2 tracers, guarded> on
     # the main path, <0, guarded> on the coastline sub-path
-    fm_t, state_t, s0_t, launches["fused_sw_step_tracers"] = drive_path(
+    fm_t, state_t, s0_t, launches["fused_sw_step_tracers"], _ = drive_path(
         f"phase 5 main path (azov coastline, {N_TRACERS} tracers)",
         grids["azov"], cfgs[N_TRACERS], None)
-    fm_c, _, s0_c, launches["fused_sw_step_guarded"] = drive_path(
+    fm_c, _, s0_c, launches["fused_sw_step_guarded"], _ = drive_path(
         "phase 5 sub-path (azov coastline, no tracers)", grids["azov"],
         cfgs[0], None)
     check(fm_t.tile_guard and fm_c.tile_guard,
           "the coastline did not turn the tile guard on")
-    _, _, s0_f, _ = drive_path(
+    _, _, s0_f, _, _ = drive_path(
         f"phase 5 sub-path (frame mask, {N_TRACERS} tracers)",
         grids["frame"], cfgs[N_TRACERS], None)
 
@@ -622,15 +811,15 @@ def main() -> int:
           f"composition with tracers {ms_eager_t:.4f} ms/step")
 
     # ---- phase 6: the third main path (2D metrics) and its sub-paths ---
-    fm_b, state_b, s0_b, launches["fused_sw_step_fast2d"] = drive_path(
+    fm_b, state_b, s0_b, launches["fused_sw_step_fast2d"], _ = drive_path(
         "phase 6 main path bipolar_azov (azov coastline on the bipolar "
         "grid, no tracers)", grids["bipolar_azov"], cfgs_b[0], None)
     check(fm_b.metrics_2d and fm_b.fast2d and fm_b.tile_guard,
           "bipolar_azov did not run guarded on plane metrics")
-    fm_bt, _, s0_bt, _ = drive_path(
+    fm_bt, _, s0_bt, _, _ = drive_path(
         f"phase 6 sub-path bipolar_azov with {N_TRACERS} tracers",
         grids["bipolar_azov"], cfgs_b[N_TRACERS], None)
-    fm_s, _, s0_s, _ = drive_path(
+    fm_s, _, s0_s, _, _ = drive_path(
         f"phase 6 sub-path bipolar ({basin_s.nx} x {basin_s.ny}, frame "
         "mask, no tracers)", grids["bipolar"], cfgs_s[0], None)
     check(fm_bt.metrics_2d and fm_s.metrics_2d,
@@ -676,19 +865,93 @@ def main() -> int:
           f"{N_TRACERS} tracers carried, and at the same cell of "
           "bipolar_azov")
 
+    # ---- phase 8: the fourth main path (viscosity, bathymetry) ---------
+    fm_v, state_v, s0_v, launches["fused_sw_step_visc_bathy_tracers"], \
+        out_v = drive_path(
+            f"phase 8 main path azov_visc (azov coastline, 15-100 m "
+            f"bathymetry, mu = {MU:g}, {N_TRACERS} tracers)",
+            grids["azov_hr"], cfgs[N_TRACERS], None, MU)
+    check(fm_v.visc and fm_v.hr_const is None and fm_v.tile_guard
+          and fm_v.planes.shape[0] == 6,
+          "azov_visc did not run guarded with viscosity on bathymetry planes")
+    fm_va, _, s0_va, launches["fused_sw_step_visc"], _ = drive_path(
+        f"phase 8 sub-path a (azov coastline, flat 100 m, mu = {MU:g}, no "
+        "tracers)", grids["azov"], cfgs[0], None, MU)
+    fm_vb, _, s0_vb, launches["fused_sw_step_bathy"], _ = drive_path(
+        "phase 8 sub-path b (azov coastline, 15-100 m bathymetry, mu = 0, "
+        "no tracers)", grids["azov_hr"], cfgs[0], None)
+    fm_vc, _, s0_vc, launches["fused_sw_step_visc_bathy_fast2d"], _ = \
+        drive_path(
+            f"phase 8 sub-path c (bipolar_azov, 15-100 m bathymetry, mu = "
+            f"{MU:g}, no tracers)", grids["bipolar_azov_hr"], cfgs_b[0],
+            None, MU)
+    check(fm_va.visc and fm_va.hr_const == 100.0 and not fm_vb.visc
+          and fm_vb.hr_const is None and fm_vb.planes.shape[0] == 5
+          and fm_vc.visc and fm_vc.metrics_2d and fm_vc.met.shape[0] == 17,
+          "a sub-path of azov_visc ran another form than its own")
+    # what the viscosity did: the same run with mu = 0
+    _, _, _, _, out_0 = drive_path(
+        "phase 8 comparison (azov_visc with mu = 0)", grids["azov_hr"],
+        cfgs[N_TRACERS], None)
+    u_v, u_0 = (float(o.ubrtr.abs().max()) for o in (out_v, out_0))
+    du = float((out_v.ubrtr - out_0.ubrtr).abs().max())
+    check(du > 0.0, "mu = 1000 changed nothing in u after 200 steps")
+    print(f"phase 8 viscosity: max |u| after {N_MAIN} steps {u_v:.6e} with "
+          f"mu = {MU:g}, {u_0:.6e} with mu = 0 ({u_v / u_0 - 1:+.3%}); max "
+          f"|u(mu) - u(0)| {du:.3e}; max |ff[0](mu) - ff[0](0)| "
+          f"{float((out_v.ff[0] - out_0.ff[0]).abs().max()):.3e}")
+    guard_trips(fm_v, s0_v, cell, "azov_visc")
+    print("phase 8 guard: ok=False on an injected NaN ssh and on an sshp "
+          f"spike of 2e4 at wet cell ({i}, {j}) of azov_visc")
+    t_v = time_path(fm_v, cfgs[N_TRACERS], s0_v, wet["azov"], pts)
+    t_va = time_path(fm_va, cfgs[0], s0_va, wet["azov"], pts)
+    t_vb = time_path(fm_vb, cfgs[0], s0_vb, wet["azov"], pts)
+    t_vc = time_path(fm_vc, cfgs_b[0], s0_vc, wet["azov"], pts)
+    for form, m, cfg_m, f0, t in (
+            ("fused_sw_step_visc_bathy_tracers", fm_v, cfgs[N_TRACERS],
+             s0_v, t_v),
+            ("fused_sw_step_visc", fm_va, cfgs[0], s0_va, t_va),
+            ("fused_sw_step_bathy", fm_vb, cfgs[0], s0_vb, t_vb),
+            ("fused_sw_step_visc_bathy_fast2d", fm_vc, cfgs_b[0], s0_vc,
+             t_vc)):
+        check(form == form_name(m), f"{form} is not {form_name(m)}")
+        kernels[form] = (m, m.n_tracers, t)
+        plain_ms[form] = cuda_ms(
+            lambda: fused_sw_step_reference(f0, *model_args(m, cfg_m)), 10)
+    step_v = make_step(grids["azov_hr"], cfgs[N_TRACERS])
+    ms_eager_v = cuda_ms(lambda: step_v(state_v, 1.0), 10)
+    print(f"phase 8 timing ({name}; {card}), wet points {wet['azov']} of "
+          f"{pts}: azov_visc/{N_TRACERS} tracers/guard on {t_v['text']} | "
+          f"a: viscosity alone/guard on {t_va['text']} | "
+          f"b: bathymetry alone/guard on {t_vb['text']} | "
+          f"c: bipolar_azov viscous over bathymetry/guard on "
+          f"{t_vc['text']}; plain fused version "
+          + ", ".join(f"{plain_ms[f]:.4f}" for f in (
+              "fused_sw_step_visc_bathy_tracers", "fused_sw_step_visc",
+              "fused_sw_step_bathy", "fused_sw_step_visc_bathy_fast2d"))
+          + f" ms/step (in that order), eager composition of azov_visc "
+          f"{ms_eager_v:.4f} ms/step")
+    # the unguarded 2-tracer plane-metric form, which no path launches
+    fm_btoff = model("bipolar_azov", cfgs_b[N_TRACERS], False)
+    t_btoff = time_path(fm_btoff, cfgs_b[N_TRACERS], s0_bt,
+                        wet["bipolar_azov"], pts)
+
     # ---- phase 7: the copy step ----------------------------------------
     # kernel vs plain version on what each form of the fused step loads:
     # the same float additions in the same order, so exactly equal
     cs_err = 0.0
-    for tag, m, fields in (("frame T=0 profile", fm, s0),
-                           ("azov T=2 profile", fm_t, s0_t),
-                           ("bipolar_azov T=0 planes", fm_b, s0_b),
-                           ("bipolar_azov T=2 planes", fm_bt, s0_bt)):
+    cs_cases = (("frame T=0 profile", fm, s0),
+                ("azov T=2 profile", fm_t, s0_t),
+                ("bipolar_azov T=0 planes", fm_b, s0_b),
+                ("bipolar_azov T=2 planes", fm_bt, s0_bt),
+                ("azov_visc T=2 profile viscous bathymetry", fm_v, s0_v),
+                ("bipolar_azov T=0 planes viscous bathymetry", fm_vc, s0_vc))
+    for tag, m, fields in cs_cases:
         windows, met = copy_step_inputs(m, fields)
         for flags in (None, m.tile_wet):
             got = cs.copy_step(windows, met, len(fields), m.lay,
                                tracer_form=m.n_tracers > 0, tile_wet=flags,
-                               tile=m.tile)
+                               tile=m.tile, visc_form=m.visc)
             want = cs.copy_step_reference(windows, met, len(fields), m.lay,
                                           flags, m.tile)
             torch.cuda.synchronize()
@@ -705,24 +968,40 @@ def main() -> int:
     probe = load_probe()
     cs.copy_step.launches = 0
     forms = probe.probe(basin.nx, basin.ny, tuple(masks.items()), N_TIME)
+    # the small bipolar basin's own layout: the plane-metric form
+    forms_s = probe.probe(basin_s.nx, basin_s.ny, (
+        ("frame", frame_of_land_mask(basin_s.nx, basin_s.ny)),), N_TIME,
+        forms=((0, True, False, False),))
     launches["copy_step"] = cs.copy_step.launches
-    check(launches["copy_step"] == len(forms) * (N_TIME + 1) == 12 * (
-        N_TIME + 1), f"the probe launched the copy step "
-        f"{launches['copy_step']} times for {len(forms)} forms")
-    cs_us = {(r["n_tracers"], r["guard"], r["met2d"]): r for r in forms}
+    n_forms = len(probe.FORMS) * (1 + len(masks)) + 2
+    check(launches["copy_step"] == n_forms * (N_TIME + 1)
+          and len(forms) + len(forms_s) == n_forms,
+          f"the probe launched the copy step {launches['copy_step']} times "
+          f"for {len(forms) + len(forms_s)} forms")
+
+    def cs_key(r):
+        return (r["n_tracers"], r["guard"], r["met2d"], r["visc"],
+                r["hr_varies"])
+
+    cs_us = {cs_key(r): r for r in forms}
+    cs_us_s = {cs_key(r): r for r in forms_s}
     print(f"phase 7 copy step ({name}; {card}): kernel == plain version "
-          "exactly on the inputs of 4 forms, guard off and on; layout "
+          f"exactly on the inputs of {len(cs_cases)} forms, guard off and "
+          "on; layout "
           f"{lay.Xs}x{lay.Ys}, kernel us/launch (torch.profiler over "
           f"{N_TIME} launches; byte "
           f"bound at {PEAK_BYTES / 1e12:.2f} TB/s): "
           + "; ".join(f"{probe.form_name(r)} {r['us']:.2f} "
                       f"({r['bound_us']:.2f}, {r['bytes'] / 1e6:.1f} MB)"
                       for r in forms)
+          + f"; layout {fm_s.lay.Xs}x{fm_s.lay.Ys}: "
+          + "; ".join(f"{probe.form_name(r)} {r['us']:.2f} "
+                      f"({r['bound_us']:.2f}, {r['bytes'] / 1e6:.1f} MB)"
+                      for r in forms_s)
           + f"; plain version {plain_ms['copy_step']:.4f} ms (T=0 profile)")
 
     # every timed configuration's byte bound beside the copy step of its
-    # own form, guarded by the same mask's flags (the probe has no
-    # 1-tracer form)
+    # own form, guarded by the same mask's flags
     floors = []
     for label, m, t, mask in (
             ("frame/T=0/guard off", fm, t_frame, "frame"),
@@ -734,10 +1013,20 @@ def main() -> int:
             ("frame/T=1/guard off", fm_f1, t_f1, "frame"),
             ("bipolar_azov/T=0/guard on", fm_b, t_b, "azov"),
             ("bipolar_azov/T=0/guard off", fm_boff, t_boff, "azov"),
-            (f"bipolar_azov/T={N_TRACERS}/guard on", fm_bt, t_bt, "azov")):
+            (f"bipolar_azov/T={N_TRACERS}/guard on", fm_bt, t_bt, "azov"),
+            (f"bipolar_azov/T={N_TRACERS}/guard off", fm_btoff, t_btoff,
+             "azov"),
+            (f"bipolar {basin_s.nx}x{basin_s.ny}/T=0/guard "
+             f"{'on' if fm_s.tile_guard else 'off'}", fm_s, t_s, "frame"),
+            (f"azov_visc/T={N_TRACERS}/guard on", fm_v, t_v, "azov"),
+            ("a: viscosity alone/T=0/guard on", fm_va, t_va, "azov"),
+            ("b: bathymetry alone/T=0/guard on", fm_vb, t_vb, "azov"),
+            ("c: bipolar_azov viscous over bathymetry/T=0/guard on", fm_vc,
+             t_vc, "azov")):
         b_ms, b_by, nbytes = bound_ms(m, m.n_tracers)
-        row = cs_us.get((m.n_tracers, mask if m.tile_guard else None,
-                         m.metrics_2d))
+        row = (cs_us_s if m is fm_s else cs_us).get(
+            (m.n_tracers, mask if m.tile_guard else None, m.metrics_2d,
+             m.visc, m.hr_const is None))
         floors.append(
             f"{label}: kernel {t['ms_kernel'] * 1e3:.1f} us, "
             f"{nbytes / 1e6:.1f} MB, bound {b_ms * 1e3:.1f} us ({b_by}), "
@@ -756,7 +1045,7 @@ def main() -> int:
             "plain_ms": plain_ms[form], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
     # the copy step beside the fused step's first form (T=0, profile)
-    row0 = cs_us[0, None, False]
+    row0 = cs_us[0, None, False, False, False]
     entries.append({
         "name": "copy_step", "route": "cuda", "source": CSRC + "copy_step.cu",
         "replaces": REPLACES["copy_step"], "launches": launches["copy_step"],
@@ -773,4 +1062,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

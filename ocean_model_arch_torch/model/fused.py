@@ -22,7 +22,7 @@ from ..core.state import SWState
 from ..host import ModelConfig
 from ..ops import fused_layout as fl
 from ..ops import sw_kernels as swk
-from ..ops.fused_step import (MAX_TRACERS, PLANES, fused_sw_step,
+from ..ops.fused_step import (MAX_TRACERS, fused_sw_step, kernel_planes,
                               tile_shape)
 from .step import reinit_depth_families
 
@@ -34,9 +34,9 @@ def unsupported(grid: Grid, cfg: ModelConfig, mu_const: float = 0.0,
     """What keeps a configuration off the fused kernel (empty: supported).
     The kernel is the TPU kernel's fast form (profile metrics on
     x-uniform grids, its fast2d form with metric planes on the others)
-    with full free surface and momentum advection, flat bathymetry,
-    mu = 0 (so tracers have advective fluxes only), at most
-    ``MAX_TRACERS`` tracers, closed boundaries."""
+    with full free surface and momentum advection, any constant
+    ``mu_const``, flat or varying bathymetry, at most ``MAX_TRACERS``
+    tracers, closed boundaries."""
     sw = cfg.sw
     out = []
     if grid.periodic_x or grid.periodic_y:
@@ -47,25 +47,24 @@ def unsupported(grid: Grid, cfg: ModelConfig, mu_const: float = 0.0,
     n_tr = sw.tracer_num if sw.use_tracers > 0 else 0
     if n_tr > MAX_TRACERS:
         out.append(f"tracer_num={n_tr} > {MAX_TRACERS}")
-    if mu_const != 0.0:
-        out.append("viscosity (mu_const != 0)")
-        if n_tr:
-            out.append("diffusive tracer fluxes (tracers with "
-                       "mu_const != 0)")
     if sw.full_free_surface != 1:
         out.append(f"full_free_surface={sw.full_free_surface}")
     if sw.trans_terms != 1:
         out.append(f"trans_terms={sw.trans_terms}")
-    hr = grid.hhq_rest
-    if not bool((hr == hr.reshape(-1)[0]).all()):
-        out.append("non-flat bathymetry (the hrludxdy plane"
-                   + (", the tracers' hr plane)" if n_tr else ")"))
     return out
 
 
 def fused_available(grid: Grid, cfg: ModelConfig) -> bool:
     """Whether the fused kernel supports this configuration."""
     return not unsupported(grid, cfg)
+
+
+def flat_bathymetry(grid: Grid) -> float | None:
+    """The rest bathymetry if it is one value everywhere (it then folds
+    into a scalar of the step), else None."""
+    hr = grid.hhq_rest.to(torch.float32)
+    first = hr.reshape(-1)[0]
+    return float(first) if bool((hr == first).all()) else None
 
 
 class FusedSWModel:
@@ -77,7 +76,11 @@ class FusedSWModel:
     tiles (they get exact zeros); None turns it on when the mask leaves
     some tile without a wet cell. ``metrics_2d`` / ``fast2d`` say which
     metric form runs: latitude profiles on an x-uniform grid, else the
-    pointwise metric planes of ``fused_layout.fast2d_met_rows``."""
+    pointwise metric planes of ``fused_layout.fast2d_met_rows``.
+    ``mu_const`` is the state's constant ``mu``: with ``cfg.sw.ksw_lat``
+    it runs the lateral viscosity (``visc``), and with or without it the
+    tracers' diffusive fluxes. ``hr_const`` is None when the bathymetry
+    varies; it then rides on static planes."""
 
     def __init__(self, grid: Grid, cfg: ModelConfig, tau: float,
                  mu_const: float = 0.0, static_rslu: bool = True,
@@ -97,11 +100,16 @@ class FusedSWModel:
                           else 0)
         self.lay = lay = fl.make_layout(grid.nx, grid.ny)
         dev = grid.lu.device
-        self.hr_const = float(grid.hhq_rest.reshape(-1)[0])
-        names = fl.plane_names(cfg.sw.full_free_surface, cfg.sw.ksw_lat,
-                               self.mu_const, self.hr_const)
-        assert names == PLANES, names        # guaranteed by unsupported()
+        self.visc = bool(cfg.sw.ksw_lat and self.mu_const != 0.0)
+        self.hr_const = flat_bathymetry(grid)
+        names = kernel_planes(self.n_tracers, self.visc,
+                              self.hr_const is None)
+        # what the TPU kernel streams, less the wlu plane
+        assert set(names) - {"hr"} == set(fl.plane_names(
+            cfg.sw.full_free_surface, cfg.sw.ksw_lat, self.mu_const,
+            self.hr_const)) - {"wlu"}, names
         lu_s = np.asarray(fl.embed(lay, grid.lu.cpu()))
+        hr_s = np.asarray(fl.embed(lay, grid.hhq_rest.cpu()))
         # x-uniform metrics ride as latitude profiles; other grids
         # (bipolar) stream the metric planes the step reads
         try:
@@ -113,13 +121,13 @@ class FusedSWModel:
         except ValueError:
             self.metrics_2d = self.fast2d = True
             met22 = fl.metrics_full_from_grid(grid, lay)
-            rows = fl.fast2d_met_rows(self.n_tracers)
+            rows = fl.fast2d_met_rows(self.n_tracers, self.visc)
             self.met_map = {r: i for i, r in enumerate(rows)}
             met = met22[list(rows)]
             dxdy = met22[0] * met22[1]
             recips = (met22[10], met22[11], met22[14] * met22[15])
             # met22 (155 MB at 1525 x 1115) lives only in this constructor
-        planes = fl.static_planes(lu_s, None, dxdy, names,
+        planes = fl.static_planes(lu_s, hr_s, dxdy, names,
                                   interp_recips=recips)
         self.met = torch.from_numpy(met).to(dev)
         self.planes = torch.from_numpy(planes).to(dev)
@@ -136,8 +144,8 @@ class FusedSWModel:
     def pack(self, state: SWState) -> tuple:
         """SWState -> the 6 + 2 T carried fields in the fused layout
         (float32): the 6 SW fields, then ff_0, ffp_0, ff_1, ... The
-        kernel has no viscosity term, so a state whose mu is not
-        mu_const everywhere is refused."""
+        kernel's viscosity is the constant ``mu_const``, so a state
+        whose mu is not that everywhere is refused."""
         if not bool((state.mu == self.mu_const).all()):
             raise ValueError("fused path requires state.mu == mu_const "
                              f"({self.mu_const}) everywhere")
@@ -177,6 +185,7 @@ class FusedSWModel:
         for _ in range(n_steps):
             s6, m = fused_sw_step(s6, self.met, self.planes, self.lay,
                                   self.tau, sw.time_smooth, self.hr_const,
-                                  self.tile_wet, self.tile, self.met_map)
+                                  self.tile_wet, self.tile, self.met_map,
+                                  self.mu_const, self.visc)
             mx = torch.maximum(mx, m)
         return s6, bool(mx < swk.SSH_ERR_BOUND)   # NaN compares False

@@ -6,8 +6,11 @@ Each ``csrc/<name>.cu`` compiles on first use into
 ``build/torch_kernels/lib<name>-<hash>.so`` of the checkout, keyed on a
 hash of the source, the headers beside it (``csrc/*.cuh``) and the
 flags, so a fresh checkout builds what it runs and an edited source or
-header rebuilds. A failed build raises: there is no fallback. Nothing
-here runs at import time.
+header rebuilds. A target ``<name>@<MACRO>=<value>`` is the same source
+compiled with ``-D<MACRO>=<value>`` into a library of its own: the fused
+step's forms are split so, by tracer count, into libraries that build
+side by side. A failed build raises: there is no fallback. Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -43,18 +46,22 @@ def nvcc() -> str:
 
 
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists;
+    """Compile the target ``name`` (``<source>`` or
+    ``<source>@<MACRO>=<value>``) unless its hashed library exists;
     returns the library path."""
-    src = os.path.join(CSRC, name + ".cu")
-    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    source, _, define = name.partition("@")
+    src = os.path.join(CSRC, source + ".cu")
+    flags = NVCC_FLAGS + (("-D" + define,) if define else ())
+    key = hashlib.sha256(" ".join(flags).encode())
     for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             key.update(f.read())
-    so = os.path.join(BUILD_DIR, f"lib{name}-{key.hexdigest()[:16]}.so")
+    so = os.path.join(BUILD_DIR, "lib" + name.replace("@", "-").replace(
+        "=", "") + f"-{key.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return so
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [nvcc(), *flags, "-o", tmp, src]
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
@@ -67,7 +74,7 @@ def build(name: str) -> str:
 
 
 def build_all(names) -> list:
-    """Build several sources at once, one nvcc each, all started
+    """Build several targets at once, one nvcc each, all started
     together; returns their library paths."""
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         return list(pool.map(build, names))
@@ -75,5 +82,5 @@ def build_all(names) -> list:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    """The loaded library of the target ``name``, built if needed."""
     return ctypes.CDLL(build(name))

@@ -10,9 +10,9 @@ over the windowed inputs (the carried fields, then the static planes)
 and the metric rows (``(n, Ys)`` profiles or ``(n, Xs, Ys)`` planes),
 summed in that order in float32. The CUDA kernel (``csrc/copy_step.cu``)
 loads what the fused kernel loads, with its tile, its window halo (3, or
-4 with ``tracer_form``), its shared memory and, with ``tile_wet``, its
-land-tile guard, so its time is the floor of that form of the fused
-step on this layout. It is a measuring tool: nothing on the model's step
+4 with ``tracer_form``), its shared memory (more with ``visc_form``)
+and, with ``tile_wet``, its land-tile guard, so its time is the floor of
+that form of the fused step on this layout. It is a measuring tool: nothing on the model's step
 loop calls it; ``scripts/roofline_probe_torch.py`` is its entry point.
 
 :func:`copy_step` takes CPU tensors to :func:`copy_step_reference` and
@@ -97,13 +97,15 @@ def _check_inputs(windows, met, n_out, lay, tile_wet, tile) -> None:
 
 
 def copy_step(windows, met, n_out: int, lay: FusedLayout,
-              tracer_form: bool = False, tile_wet=None, tile=None) -> tuple:
+              tracer_form: bool = False, tile_wet=None, tile=None,
+              visc_form: bool = False) -> tuple:
     """One copy step: ``n_out`` (Xs, Ys) outputs from the ``windows``
     (the (Xs, Ys) fields and static planes) and the metric rows ``met``
     ((n, Ys), (n, Xs, Ys) or None). The plain version for CPU tensors,
     the CUDA kernel for CUDA tensors (counted in ``copy_step.launches``).
-    ``tracer_form`` makes the kernel load the tracer form's wider window;
-    the result does not depend on it."""
+    ``tracer_form`` makes the kernel load the tracer form's wider window
+    and ``visc_form`` take a viscous form's shared memory; the result
+    depends on neither."""
     if windows[0].device.type == "cpu":
         return copy_step_reference(windows, met, n_out, lay, tile_wet, tile)
     _check_inputs(windows, met, n_out, lay, tile_wet, tile)
@@ -119,7 +121,7 @@ def copy_step(windows, met, n_out: int, lay: FusedLayout,
             0 if met is None else met.shape[0],
             int(met is not None and met.dim() == 3),
             None if tile_wet is None else tile_wet.data_ptr(),
-            int(bool(tracer_form)), lay.Xs, lay.Ys,
+            int(bool(tracer_form)), int(bool(visc_form)), lay.Xs, lay.Ys,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError("copy_step kernel launch failed: "
@@ -142,6 +144,6 @@ def _library() -> ctypes.CDLL:
         fn.restype = i
     lib.copy_step_error_string.argtypes = [i]
     lib.copy_step_error_string.restype = ctypes.c_char_p
-    lib.copy_step_launch.argtypes = [p, i, p, i, p, i, i, p, i, i, i, p]
+    lib.copy_step_launch.argtypes = [p, i, p, i, p, i, i, p, i, i, i, i, p]
     lib.copy_step_launch.restype = i
     return lib

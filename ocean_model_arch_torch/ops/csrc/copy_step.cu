@@ -17,7 +17,8 @@
 // What the design does: it is the fused kernel's skeleton. The same tile
 // (fused_tile.cuh: 16 x 32 outputs, 512 threads, three blocks per SM), the
 // same window halo (3, or 4 for the tracer form), the same dynamic shared
-// memory (16 windows, so the same blocks fit an SM), one block per tile.
+// memory (16 windows, plus the four stress planes of a viscous form, so
+// the same blocks fit an SM), one block per tile.
 // Stage 0 loads the haloed window of every windowed input into shared
 // memory, cells outside the array reading as 0; after the barrier each
 // thread sums the centre cells of its tile from shared memory, adds the
@@ -100,14 +101,16 @@ copy_step_kernel(const Params p) {
 }
 
 template <int NT>
-int launch(const Params& p, cudaStream_t stream) {
+int launch(const Params& p, bool visc, cudaStream_t stream) {
+  // a viscous form's block also holds its stress planes (unused here)
+  const size_t smem = smem_bytes<NT>(visc);
   cudaError_t e = cudaFuncSetAttribute(
       copy_step_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes<NT>());
+      (int)smem_bytes<NT>(true));
   if (e != cudaSuccess) return (int)e;
   copy_step_kernel<NT>
-      <<<dim3((p.Ys + TY - 1) / TY, (p.Xs + TX - 1) / TX), NTHREADS,
-         smem_bytes<NT>(), stream>>>(p);
+      <<<dim3((p.Ys + TY - 1) / TY, (p.Xs + TX - 1) / TX), NTHREADS, smem,
+         stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -134,11 +137,13 @@ const char* copy_step_error_string(int code) {
 // (Xs, Ys) planes. met: n_met metric rows, (n_met, Xs, Ys) planes when
 // met2d != 0, else (n_met, Ys) profiles; unread when n_met = 0. tile_wet:
 // device array of one int per block, or null. tracer_form: load the
-// tracer form's window (halo 4) instead of halo 3.
+// tracer form's window (halo 4) instead of halo 3. visc_form: take the
+// shared memory of a viscous form of the fused step.
 int copy_step_launch(const float* const* win, int n_win,
                      float* const* out, int n_out, const float* met,
                      int n_met, int met2d, const int* tile_wet,
-                     int tracer_form, int Xs, int Ys, void* stream) {
+                     int tracer_form, int visc_form, int Xs, int Ys,
+                     void* stream) {
   if (n_win < 0 || n_win > MAX_WIN || n_out < 1 || n_out > MAX_OUT
       || n_met < 0 || (n_met > 0 && met == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -146,7 +151,8 @@ int copy_step_launch(const float* const* win, int n_win,
   for (int j = 0; j < n_win; ++j) p.win[j] = win[j];
   for (int o = 0; o < n_out; ++o) p.out[o] = out[o];
   cudaStream_t s = (cudaStream_t)stream;
-  return tracer_form ? launch<1>(p, s) : launch<0>(p, s);
+  return tracer_form ? launch<1>(p, visc_form != 0, s)
+                     : launch<0>(p, visc_form != 0, s);
 }
 
 }  // extern "C"

@@ -4,20 +4,28 @@
 //
 // Replaces: ocean_model_arch_tpu/ops/pallas/fused_step.py::
 //   build_fused_sw_step -> _make_kernel (pallas_call at :1642), fast
-//   branch, full free surface, momentum advection, no viscosity (mu = 0),
-//   flat bathymetry, with x-uniform latitude-profile metrics or, for
-//   curvilinear (bipolar) grids, its fast2d form with pointwise metric
-//   planes (`metrics_2d, fast2d, met_map`, MT :351-354); its tracer pass
-//   (:937-1039, advective fluxes only since mu = 0) and its land-tile
+//   branch, full free surface, momentum advection, with x-uniform
+//   latitude-profile metrics or, for curvilinear (bipolar) grids, its
+//   fast2d form with pointwise metric planes (`metrics_2d, fast2d,
+//   met_map`, MT :351-354); its lateral viscosity (:711-743: stress
+//   components + uv_diff2 with a constant mu); its tracer pass (:937-1039)
+//   with the diffusive fluxes of a non-zero mu (:967-998); flat bathymetry
+//   folded into a scalar or varying bathymetry on the hrludxdy and hr
+//   planes (aq_of :459-470, :731, :947-951, :1016); and its land-tile
 //   guard (`guarded` :1106-1131, scalar-prefetch call :1630).
 //   Plain PyTorch version: ops/fused_step.py::fused_sw_step_reference,
 //   which evaluates the same formulas in the same order.
 //
-// One kernel template, fused_sw_step_kernel<NT, GUARD, MET2D>, instantiated
-// for NT = 0, 1, 2 tracers, with and without the guard, with profile or
-// plane metrics. <0, false, false> is the form without tracers or guard
-// on profile metrics: 4 stages, 16 shared-memory planes of a (TX+6) x
-// (TY+6) window.
+// One kernel template, fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP>,
+// instantiated for NT = 0, 1, 2 tracers, with and without the guard, with
+// profile or plane metrics, MU = 0 (mu = 0), 1 (the tracers' diffusive
+// fluxes only: mu != 0 with the viscosity switched off) or 2 (viscosity,
+// and the diffusive fluxes when there are tracers), and with the rest
+// bathymetry as a scalar or on planes. <0, false, false, 0, false> is the
+// form without tracers, guard or viscosity on profile metrics: 4 stages,
+// 16 shared-memory planes of a (TX+6) x (TY+6) window. Every addition of
+// the other forms sits behind a compile-time flag, so this form's code
+// does not depend on them.
 //
 // What bounds it: memory. Per layout cell and step the SW part must read
 // 10 f32 planes (6 fields + rslu_u, rslu_v, rslu_h, ludxdy) and write 6,
@@ -29,7 +37,11 @@
 // The guarded form moves those bytes for the cells of wet tiles only,
 // plus (6 + 2 T) * 4 bytes of zero writes per cell of an all-land tile
 // (24 bytes at T = 0). The plane-metric forms read 7 more f32 planes (9
-// with tracers): 92 bytes per cell at T = 0, 132 at T = 2.
+// with tracers): 92 bytes per cell at T = 0, 132 at T = 2. Viscosity
+// adds arithmetic (about 60 flops) and, on profile metrics, no bytes; on
+// plane metrics it reads 10 more metric planes (17 in all: 132 bytes per
+// cell at T = 0). Varying bathymetry reads the hrludxdy plane (4 bytes)
+// and, with viscosity or tracers, the hr plane (4 more).
 //
 // What the design does about it: every intermediate of the step (the
 // weighted depth column aq, the depths hu/hv/hh and hup/hvp, the mass
@@ -51,9 +63,21 @@
 // outside the array read as 0 (land); the layout's 4-cell land margin
 // keeps every read of an interior cell inside the array.
 //
-// Metrics: the step reads 7 metric rows (9 with tracers), each at the
-// thread's own cell only: the one shifted metric of the fast branch,
-// dxt(n+1), is baked into row 17 on the host. A profile row is read by
+// Viscosity keeps the reach. Stage 1 also forms the four products up/dyh,
+// vp/dxh, up/dxt, vp/dyt at halo 2 (up, vp read from device memory there),
+// in the four planes the flux stage has not written yet; one more stage,
+// between stages 1 and 2, turns them into the tension at T points and the
+// shear at H points and stores the four stress products dy^2 mu hq str_t,
+// dx^2 mu hq str_t, dxb^2 mu hh str_s, dyb^2 mu hh str_s at halo 1, in
+// four planes of their own that are only as large as that region (so
+// three blocks still fit an SM); stage 3 differences them beside the
+// advection tail. hh is computed twice (here and in stage 2) instead of
+// being kept.
+//
+// Metrics: the step reads 7 metric rows (9 with tracers, 17 with
+// viscosity), each at the thread's own cell only: the viscosity's shifted
+// terms are shifted products, and the one shifted metric of the fast
+// branch, dxt(n+1), is baked into row 17 on the host. A profile row is read by
 // column, a plane by cell, coalesced along y, straight from device memory
 // (halo cells re-read them, mostly from L2); no shared-memory plane holds
 // a metric, so both metric forms have the same blocks. Every metric read
@@ -68,7 +92,12 @@
 //
 // The per-block max |ssh| over interior cells feeds the stability guard
 // and propagates NaN (fmaxf would drop it). Land-only divisions are
-// skipped by branching on the wet mask before dividing.
+// skipped by branching on the wet mask before dividing; the viscosity
+// divides nowhere (its metric ratios are host rows, zeroed where not
+// finite) and selects 0 off the wet sets, so land stays exactly 0.
+//
+// With -DFUSED_NT=n only the forms with n tracers are compiled: the
+// package builds the three values as three libraries, side by side.
 
 #include "fused_tile.cuh"
 
@@ -91,15 +120,27 @@ enum {
 //   S_HU <- sshp_new of the tile's cells (hu is read by its own thread)
 //   tracer t's edge fluxes fx, fy <- S_F + 2 t, S_F + 2 t + 1
 //   (F, K, Rx, Sy are last read in stage 3)
+// What the viscous forms keep, between stage 1 and the stress stage, in
+// planes the flux stage (2) has not written yet:
+//   S_F <- up/dyh, S_K <- vp/dxh, S_RX <- up/dxt, S_SY <- vp/dyt
+// Their stress products live past stage 2, in N_VISC_PLANES small planes
+// behind these (V_A2 ...), indexed row-major over the halo 1 + EXTRA region.
 static_assert(S_F + 2 * MAX_TRACERS <= S_CX, "tracer flux planes overlap");
+static_assert(S_F + 4 <= S_CX, "velocity-over-metric planes overlap");
 static_assert(N_SMEM == N_SMEM_PLANES, "fused_tile.cuh sizes the windows");
+enum { V_A2, V_B2, V_D2, V_E2, N_VISC };
+static_assert(N_VISC == N_VISC_PLANES, "fused_tile.cuh sizes the planes");
 
 // the metric rows the kernel reads, in the order the launcher takes their
-// slots (ops/fused_layout.py row meanings 0, 1, 9, 10, 11, 16, 17, 18, 21)
+// slots (ops/fused_layout.py row meanings 0, 1, 6, 7, 9-21)
 enum {
-  M_DX, M_DY,                          // tracer pass only
+  M_DX, M_DY,                          // tracer pass and viscosity
+  M_DXB, M_DYB,                        // viscosity
   M_RDXDY, M_RDXT, M_RDYT,
-  M_VORT_V, M_VORT_UY, M_VORT_U, M_CORIO,
+  M_RDXH, M_RDYH, M_RDXB, M_RDYB,      // viscosity
+  M_VORT_V, M_VORT_UY, M_VORT_U,
+  M_DYDX, M_DXDY,                      // viscosity
+  M_CORIO,
   N_MET
 };
 
@@ -111,6 +152,8 @@ struct Params {
   // (Xs, Ys) plane (indexed by cell); rows the form does not read are null
   const float* met[N_MET];
   const float* planes;   // (4, Xs, Ys): rslu_u, rslu_v, rslu_h, ludxdy
+  const float* hrld;     // (Xs, Ys) hr*lu*dx*dy, varying bathymetry only
+  const float* hrp;      // (Xs, Ys) hr, the same with viscosity or tracers
   float* ssh_o; float* sshp_o;
   float* u_o; float* up_o;
   float* v_o; float* vp_o;
@@ -120,6 +163,7 @@ struct Params {
   const int* tile_wet;   // one flag per block (guarded forms), else null
   int Xs, Ys, nx, ny, margin;
   float hr;              // flat rest bathymetry
+  float mu;              // lateral viscosity / tracer diffusivity
   float neg_g;           // -FREE_FALL_ACC
   float two_tau, neg_two_tau, inv_two_tau;
   float ts1, ts2;        // 1 - time_smooth, time_smooth / 2
@@ -139,12 +183,15 @@ __device__ __forceinline__ float at(const Params& p, const float* f,
   return inside(p, gx, gy) ? f[(size_t)gx * p.Ys + gy] : 0.f;
 }
 
-template <int NT, bool GUARD, bool MET2D>
+template <int NT, bool GUARD, bool MET2D, int MU, bool HRP>
 __global__ void
 __launch_bounds__(NTHREADS, MIN_BLOCKS)
 fused_sw_step_kernel(const Params p) {
   constexpr int HALO = Form<NT>::HALO, EXTRA = Form<NT>::EXTRA;
   constexpr int WY = Form<NT>::WY, PLANE = Form<NT>::PLANE;
+  constexpr bool VISC = MU == 2;            // stress stages
+  constexpr bool DIFF = NT > 0 && MU != 0;  // tracers' diffusive fluxes
+  constexpr int VW = Form<NT>::VW, VPLANE = Form<NT>::VPLANE;
 
   const int tid = threadIdx.x;
 
@@ -186,6 +233,10 @@ fused_sw_step_kernel(const Params p) {
   float* s_sy = sm + S_SY * PLANE;
   float* s_cx = sm + S_CX * PLANE;
   float* s_cy = sm + S_CY * PLANE;
+  float* s_a2 = sm + N_SMEM * PLANE + V_A2 * VPLANE;   // viscous forms only
+  float* s_b2 = sm + N_SMEM * PLANE + V_B2 * VPLANE;
+  float* s_d2 = sm + N_SMEM * PLANE + V_D2 * VPLANE;
+  float* s_e2 = sm + N_SMEM * PLANE + V_E2 * VPLANE;
   __shared__ float s_red[NWARPS];
 
   const int x0 = blockIdx.y * TX - HALO;   // global row of window row 0
@@ -199,20 +250,23 @@ fused_sw_step_kernel(const Params p) {
   const int S = WY;                         // window row stride
 
   // stage 0 (halo 3 + EXTRA): load the window; aq = (ssh + hr) * lu*dx*dy
+  // or, on bathymetry planes, ssh * lu*dx*dy + hr*lu*dx*dy
   for (int i = tid; i < PLANE; i += NTHREADS) {
     const int gx = x0 + i / WY, gy = y0 + i % WY;
-    float ssh = 0.f, u = 0.f, v = 0.f, ld = 0.f;
+    float ssh = 0.f, u = 0.f, v = 0.f, ld = 0.f, hl = 0.f;
     if (inside(p, gx, gy)) {
       const size_t g = (size_t)gx * p.Ys + gy;
       ssh = p.ssh[g]; u = p.u[g]; v = p.v[g]; ld = ludxdy[g];
+      if (HRP) hl = p.hrld[g];
     }
     s_ssh[i] = ssh; s_u[i] = u; s_v[i] = v; s_ld[i] = ld;
-    s_aq[i] = (ssh + p.hr) * ld;
+    s_aq[i] = HRP ? ssh * ld + hl : (ssh + p.hr) * ld;
   }
   __syncthreads();
 
   // stage 1 (halo 2 + EXTRA): depth interps hu = hhu*dyh, hv = hhv*dxh and
-  // the mass fluxes; the previous-level column aqp (halo 1 + EXTRA)
+  // the mass fluxes; the previous-level column aqp (halo 1 + EXTRA); with
+  // viscosity the previous-level velocities over their metrics
   {
     constexpr int h = 2 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid; i < n; i += NTHREADS) {
@@ -222,6 +276,16 @@ fused_sw_step_kernel(const Params p) {
       if (inside(p, gx, gy)) {
         const size_t g = (size_t)gx * p.Ys + gy;
         ru = rslu_u[g]; rv = rslu_v[g];
+        if (VISC) {
+          const size_t mi = MET2D ? g : (size_t)gy;
+          const float up = p.up[g], vp = p.vp[g];
+          s_f[k] = up * p.met[M_RDYH][mi];
+          s_k[k] = vp * p.met[M_RDXH][mi];
+          s_rx[k] = up * p.met[M_RDXT][mi];
+          s_sy[k] = vp * p.met[M_RDYT][mi];
+        }
+      } else if (VISC) {
+        s_f[k] = 0.f; s_k[k] = 0.f; s_rx[k] = 0.f; s_sy[k] = 0.f;
       }
       const float hu = (s_aq[k] + s_aq[k + S]) * ru;
       const float hv = (s_aq[k] + s_aq[k + W]) * rv;
@@ -235,10 +299,58 @@ fused_sw_step_kernel(const Params p) {
     for (int i = tid; i < n; i += NTHREADS) {
       const int a = HALO - h + i / w, b = HALO - h + i % w;
       const int k = a * S + b;
-      s_aqp[k] = (at(p, p.sshp, x0 + a, y0 + b) + p.hr) * s_ld[k];
+      const float sshp = at(p, p.sshp, x0 + a, y0 + b);
+      s_aqp[k] = HRP ? sshp * s_ld[k] + at(p, p.hrld, x0 + a, y0 + b)
+                     : (sshp + p.hr) * s_ld[k];
     }
   }
   __syncthreads();
+
+  // stress stage (halo 1 + EXTRA, viscous forms): tension at T points,
+  // shear at H points, and their four products with mu, the depth and the
+  // squared metrics of the cell
+  if (VISC) {
+    constexpr int h = Form<NT>::VH, n = VPLANE;
+    const float* s_q = s_f;
+    const float* s_r = s_k;
+    const float* s_s1 = s_rx;
+    const float* s_s2 = s_sy;
+    for (int i = tid; i < n; i += NTHREADS) {
+      const int a = HALO - h + i / VW, b = HALO - h + i % VW;
+      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      float a2 = 0.f, b2 = 0.f, d2 = 0.f, e2 = 0.f;
+      if (inside(p, gx, gy)) {
+        const size_t g = (size_t)gx * p.Ys + gy;
+        const size_t mi = MET2D ? g : (size_t)gy;
+        const bool wlu = s_ld[k] > 0.5f;
+        const bool wluu = wlu && s_ld[k + S] > 0.5f
+            && s_ld[k + W] > 0.5f && s_ld[k + S + W] > 0.5f;
+        const float dx = p.met[M_DX][mi], dy = p.met[M_DY][mi];
+        const float dxb = p.met[M_DXB][mi], dyb = p.met[M_DYB][mi];
+        if (wlu) {
+          const float str_t =
+              p.met[M_DYDX][mi] * (s_q[k] - s_q[k - S])
+              - p.met[M_DXDY][mi] * (s_r[k] - s_r[k - W]);
+          const float hq = (HRP ? p.hrp[g] : p.hr) + s_ssh[k];
+          const float t2 = hq * str_t;
+          a2 = (dy * dy * p.mu) * t2;
+          b2 = (dx * dx * p.mu) * t2;
+        }
+        if (wluu) {
+          const float su = s_aq[k] + s_aq[k + S];
+          const float hh = (su + (s_aq[k + W] + s_aq[k + S + W])) * rslu_h[g];
+          const float str_s =
+              (dxb * p.met[M_RDYB][mi]) * (s_s1[k + W] - s_s1[k])
+              + (dyb * p.met[M_RDXB][mi]) * (s_s2[k + S] - s_s2[k]);
+          const float hs2 = hh * str_s;
+          d2 = (dxb * dxb * p.mu) * hs2;
+          e2 = (dyb * dyb * p.mu) * hs2;
+        }
+      }
+      s_a2[i] = a2; s_b2[i] = b2; s_d2[i] = d2; s_e2[i] = e2;
+    }
+    __syncthreads();
+  }
 
   // stage 2 (halo 1 + EXTRA): vorticity, edge fluxes, vorticity + Coriolis
   {
@@ -310,17 +422,25 @@ fused_sw_step_kernel(const Params p) {
       const float div = ((s_ud[k] - s_ud[k - S]) + s_vd[k]) - s_vd[k - W];
       const float sshn = sshp + div * (p.neg_two_tau * p.met[M_RDXDY][mi]);
       // post-step depth column; sshn, not ssh_new: ld kills land
-      if (NT) s_aq[k] = (sshn + p.hr) * s_ld[k];
+      if (NT) s_aq[k] = HRP ? sshn * s_ld[k] + p.hrld[g]
+                            : (sshn + p.hr) * s_ld[k];
       if (ring > 1) continue;
 
       // momentum: (up*bp0 + grx)/bp with the bp metric factor cancelled
       const float u = s_u[k], up = p.up[g];
       const float v = s_v[k], vp = p.vp[g];
       float un = 0.f, vn = 0.f;
+      // this cell in the small stress planes (viscous forms)
+      const int j = (a - (HALO - Form<NT>::VH)) * VW
+          + (b - (HALO - Form<NT>::VH));
       if (wlcu) {
         const float hu = s_hu[k];
         const float hup = (s_aqp[k] + s_aqp[k + S]) * rslu_u[g];
-        const float slx = (s_ssh[k + S] - ssh) * hu * p.neg_g;
+        float slx = (s_ssh[k + S] - ssh) * hu * p.neg_g;
+        // stress divergence: d(a2)/dx / dyh + d(D2)/dy / dxt
+        if (VISC)
+          slx += (s_a2[j + VW] - s_a2[j]) * p.met[M_RDYH][mi]
+              + (s_d2[j] - s_d2[j - 1]) * p.met[M_RDXT][mi];
         const float acx = (s_cx[k] + s_rx[k - W]) + s_f[k - S];
         const float grx = slx + acx;
         un = (up * hup + grx * (p.two_tau * p.met[M_RDXT][mi])) / hu;
@@ -328,7 +448,10 @@ fused_sw_step_kernel(const Params p) {
       if (wlcv) {
         const float hv = s_hv[k];
         const float hvp = (s_aqp[k] + s_aqp[k + W]) * rslu_v[g];
-        const float sly = (s_ssh[k + W] - ssh) * hv * p.neg_g;
+        float sly = (s_ssh[k + W] - ssh) * hv * p.neg_g;
+        if (VISC)
+          sly += -(s_b2[j + 1] - s_b2[j]) * p.met[M_RDXH][mi]
+              + (s_e2[j] - s_e2[j - VW]) * p.met[M_RDYT][mi];
         const float acy = (s_cy[k] + s_sy[k - S]) + s_k[k - W];
         const float gry = sly + acy;
         vn = (vp * hvp + gry * (p.two_tau * p.met[M_RDYT][mi])) / hv;
@@ -358,7 +481,8 @@ fused_sw_step_kernel(const Params p) {
 
     // stage 4 (halo 1): post-step depths hun, hvn from aq_new, the
     // transports uh = u_new * hun, vh = v_new * hvn on the u / v wet
-    // sets, and each tracer's centred advective edge fluxes
+    // sets, and each tracer's centred advective edge fluxes, plus the
+    // diffusive ones mu / dxt * hun * dff/dx when mu != 0
     float* s_aqn = s_aq;
     float* s_un = s_cx;
     float* s_vn = s_cy;
@@ -375,14 +499,23 @@ fused_sw_step_kernel(const Params p) {
         const bool wlcv = wlu && s_ld[k + W] > 0.5f;
         const float uh = wlcu ? s_un[k] * hun : 0.f;
         const float vh = wlcv ? s_vn[k] * hvn : 0.f;
+        float kx = 0.f, ky = 0.f;    // mu / dxt * hun, mu / dyt * hvn
+        if (DIFF && inside(p, gx, gy)) {
+          const size_t mi = MET2D ? (size_t)gx * p.Ys + gy : (size_t)gy;
+          kx = (p.mu * p.met[M_RDXT][mi]) * (wlcu ? hun : 0.f);
+          ky = (p.mu * p.met[M_RDYT][mi]) * (wlcv ? hvn : 0.f);
+        }
 #pragma unroll
         for (int t = 0; t < NT; ++t) {
           const float* ffg = p.tr[2 * t];
           const float ff = at(p, ffg, gx, gy);
-          sm[(S_F + 2 * t) * PLANE + k] =
-              uh * ((ff + at(p, ffg, gx + 1, gy)) * -0.5f);
-          sm[(S_F + 2 * t + 1) * PLANE + k] =
-              vh * ((ff + at(p, ffg, gx, gy + 1)) * -0.5f);
+          const float ffx = at(p, ffg, gx + 1, gy);
+          const float ffy = at(p, ffg, gx, gy + 1);
+          float fx = uh * ((ff + ffx) * -0.5f);
+          float fy = vh * ((ff + ffy) * -0.5f);
+          if (DIFF) { fx += kx * (ffx - ff); fy += ky * (ffy - ff); }
+          sm[(S_F + 2 * t) * PLANE + k] = fx;
+          sm[(S_F + 2 * t + 1) * PLANE + k] = fy;
         }
       }
     }
@@ -401,8 +534,9 @@ fused_sw_step_kernel(const Params p) {
       // hhq_p = hr + sshp_new, area = dx*dy / (2 tau)
       const size_t mi = MET2D ? g : (size_t)gy;
       const float area = (p.met[M_DX][mi] * p.met[M_DY][mi]) * p.inv_two_tau;
-      const float bp = p.hr * area;
-      const float bp0 = (p.hr + s_sshp_new[k]) * area;
+      const float hr = HRP ? p.hrp[g] : p.hr;
+      const float bp = hr * area;
+      const float bp0 = (hr + s_sshp_new[k]) * area;
 #pragma unroll
       for (int t = 0; t < NT; ++t) {
         const float* fx = sm + (S_F + 2 * t) * PLANE;
@@ -432,24 +566,45 @@ fused_sw_step_kernel(const Params p) {
   }
 }
 
-template <int NT, bool GUARD, bool MET2D>
+template <int NT, bool GUARD, bool MET2D, int MU, bool HRP>
 int launch(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<NT>(MU == 2);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_sw_step_kernel<NT, GUARD, MET2D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes<NT>());
+      fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  fused_sw_step_kernel<NT, GUARD, MET2D>
+  fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP>
       <<<dim3((p.Ys + TY - 1) / TY, (p.Xs + TX - 1) / TX), NTHREADS,
-         smem_bytes<NT>(), stream>>>(p);
+         smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+template <int NT, bool GUARD, bool MET2D>
+int launch_mu(const Params& p, int mu_mode, cudaStream_t s) {
+  const bool hrp = p.hrld != nullptr;
+  switch (mu_mode) {
+    case 0:
+      return hrp ? launch<NT, GUARD, MET2D, 0, true>(p, s)
+                 : launch<NT, GUARD, MET2D, 0, false>(p, s);
+    case 1:
+      if constexpr (NT > 0)
+        return hrp ? launch<NT, GUARD, MET2D, 1, true>(p, s)
+                   : launch<NT, GUARD, MET2D, 1, false>(p, s);
+      return (int)cudaErrorInvalidValue;
+    default:
+      return hrp ? launch<NT, GUARD, MET2D, 2, true>(p, s)
+                 : launch<NT, GUARD, MET2D, 2, false>(p, s);
+  }
+}
+
 template <int NT>
-int launch_form(const Params& p, bool met2d, cudaStream_t s) {
+int launch_form(const Params& p, bool met2d, int mu_mode, cudaStream_t s) {
   const bool guard = p.tile_wet != nullptr;
   if (met2d)
-    return guard ? launch<NT, true, true>(p, s) : launch<NT, false, true>(p, s);
-  return guard ? launch<NT, true, false>(p, s) : launch<NT, false, false>(p, s);
+    return guard ? launch_mu<NT, true, true>(p, mu_mode, s)
+                 : launch_mu<NT, false, true>(p, mu_mode, s);
+  return guard ? launch_mu<NT, true, false>(p, mu_mode, s)
+               : launch_mu<NT, false, false>(p, mu_mode, s);
 }
 
 }  // namespace
@@ -466,6 +621,15 @@ int fused_sw_step_tile_y() { return TY; }
 // How many metric rows fused_sw_step_launch takes slots for.
 int fused_sw_step_n_met() { return N_MET; }
 
+// The tracer count this library was built for (-DFUSED_NT), or -1 for all.
+int fused_sw_step_built_for() {
+#ifdef FUSED_NT
+  return FUSED_NT;
+#else
+  return -1;
+#endif
+}
+
 const char* fused_sw_step_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
@@ -476,26 +640,43 @@ const char* fused_sw_step_error_string(int code) {
 // one int per block, or null for the unguarded form. met: (rows, Ys)
 // profiles when met2d = 0, (rows, Xs, Ys) planes otherwise; met_slots: host
 // array of fused_sw_step_n_met() ints, the row of `met` that holds each
-// metric the kernel reads (in the order 0, 1, 9, 10, 11, 16, 17, 18, 21 of
-// the layout's row meanings), negative for a row the form does not read.
+// metric the kernel reads (in the order 0, 1, 6, 7, 9-21 of the layout's
+// row meanings), negative for a row the form does not read. planes:
+// (n_planes, Xs, Ys): rslu_u, rslu_v, rslu_h, ludxdy and, for varying
+// bathymetry (then `hr` is unread), hrludxdy (n_planes = 5) and hr (6, which
+// viscosity and tracers need). visc != 0 runs the lateral viscosity with
+// the constant `mu`; tracers take their diffusive fluxes whenever mu != 0.
 int fused_sw_step_launch(
     const float* ssh, const float* sshp, const float* u, const float* up,
     const float* v, const float* vp, const float* met, const float* planes,
     float* ssh_o, float* sshp_o, float* u_o, float* up_o, float* v_o,
     float* vp_o, float* blockmax, const float* const* tr_in,
     float* const* tr_out, const int* tile_wet, const int* met_slots,
-    int met2d, int n_tracers, int Xs, int Ys, int nx, int ny, int margin,
-    float hr, float neg_g, float two_tau, float neg_two_tau,
-    float inv_two_tau, float ts1, float ts2, void* stream) {
-  if (n_tracers < 0 || n_tracers > MAX_TRACERS)
+    int met2d, int n_tracers, int n_planes, int visc, int Xs, int Ys,
+    int nx, int ny, int margin, float hr, float mu, float neg_g,
+    float two_tau, float neg_two_tau, float inv_two_tau, float ts1,
+    float ts2, void* stream) {
+  if (n_tracers < 0 || n_tracers > MAX_TRACERS || n_planes < 4
+      || n_planes > 6)
     return (int)cudaErrorInvalidValue;
+  const int mu_mode = visc ? 2 : (n_tracers > 0 && mu != 0.f ? 1 : 0);
+  // varying bathymetry with viscosity or tracers reads the hr plane too
+  if (n_planes == 5 && (mu_mode == 2 || n_tracers > 0))
+    return (int)cudaErrorInvalidValue;
+  const size_t plane = (size_t)Xs * Ys;
   Params p{ssh, sshp, u, up, v, vp, {}, planes,
+           n_planes > 4 ? planes + 4 * plane : nullptr,
+           n_planes > 5 ? planes + 5 * plane : nullptr,
            ssh_o, sshp_o, u_o, up_o, v_o, vp_o, blockmax,
-           {}, {}, tile_wet, Xs, Ys, nx, ny, margin, hr, neg_g,
+           {}, {}, tile_wet, Xs, Ys, nx, ny, margin, hr, mu, neg_g,
            two_tau, neg_two_tau, inv_two_tau, ts1, ts2};
-  const size_t row = met2d ? (size_t)Xs * Ys : (size_t)Ys;
+  const size_t row = met2d ? plane : (size_t)Ys;
   for (int k = 0; k < N_MET; ++k) {
-    const bool read = k > M_DY || n_tracers > 0;
+    const bool visc_row = k == M_DXB || k == M_DYB || k == M_RDXH
+        || k == M_RDYH || k == M_RDXB || k == M_RDYB || k == M_DYDX
+        || k == M_DXDY;
+    const bool read = visc_row ? mu_mode == 2
+        : (k == M_DX || k == M_DY) ? (n_tracers > 0 || mu_mode == 2) : true;
     if (read && met_slots[k] < 0) return (int)cudaErrorInvalidValue;
     p.met[k] = met_slots[k] < 0 ? nullptr : met + met_slots[k] * row;
   }
@@ -505,9 +686,16 @@ int fused_sw_step_launch(
   }
   cudaStream_t s = (cudaStream_t)stream;
   switch (n_tracers) {
-    case 0: return launch_form<0>(p, met2d != 0, s);
-    case 1: return launch_form<1>(p, met2d != 0, s);
-    default: return launch_form<2>(p, met2d != 0, s);
+#if !defined(FUSED_NT) || FUSED_NT == 0
+    case 0: return launch_form<0>(p, met2d != 0, mu_mode, s);
+#endif
+#if !defined(FUSED_NT) || FUSED_NT == 1
+    case 1: return launch_form<1>(p, met2d != 0, mu_mode, s);
+#endif
+#if !defined(FUSED_NT) || FUSED_NT == 2
+    case 2: return launch_form<2>(p, met2d != 0, mu_mode, s);
+#endif
+    default: return (int)cudaErrorInvalidValue;   // not in this build
   }
 }
 

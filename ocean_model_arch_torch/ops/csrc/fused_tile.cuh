@@ -27,6 +27,7 @@ constexpr int NWARPS = NTHREADS / 32;
 constexpr int MIN_BLOCKS = 3;          // blocks per SM to keep registers for
 constexpr int MAX_TRACERS = 2;
 constexpr int N_SMEM_PLANES = 16;      // shared-memory windows of a block
+constexpr int N_VISC_PLANES = 4;       // stress products of the viscous forms
 
 // The window of the form with NT tracers.
 template <int NT>
@@ -36,11 +37,21 @@ struct Form {
   static constexpr int WX = TX + 2 * HALO;        // window rows
   static constexpr int WY = TY + 2 * HALO;        // window columns
   static constexpr int PLANE = WX * WY;           // floats per shared array
+  // The viscous forms keep their four stress products on the region one
+  // cell inside the flux stage's (halo 1 + EXTRA), row-major, no wider:
+  // with full windows the 2-tracer form would pass the 75 KB that let
+  // three blocks share an SM.
+  static constexpr int VH = 1 + EXTRA;
+  static constexpr int VW = TY + 2 * VH;          // columns of that region
+  static constexpr int VPLANE = (TX + 2 * VH) * VW;
 };
 
+// Dynamic shared memory of a block: 53.5 KB (61.4 KB with tracers), and
+// 63.3 KB (73.0 KB) for a viscous form.
 template <int NT>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * N_SMEM_PLANES * Form<NT>::PLANE;
+constexpr size_t smem_bytes(bool visc = false) {
+  return sizeof(float) * (N_SMEM_PLANES * Form<NT>::PLANE
+                          + (visc ? N_VISC_PLANES * Form<NT>::VPLANE : 0));
 }
 
 }  // namespace fused_tile

@@ -83,7 +83,9 @@ def plane_names(ffs: int, ksw: int, mu_const: float,
       (``ludxdy > 0.5`` doubles as the wet mask);
     - ``hrludxdy`` = hhq_rest*lu*dx*dy, unless the bathymetry is flat and
       folds into the scalar ``hr_const``;
-    - ``wlu``: only the viscosity branch reads it.
+    - ``wlu``: the TPU kernel's viscosity branch multiplies by it. The
+      CUDA kernel takes every mask from ``ludxdy > 0.5`` and never loads
+      it: ``fused_step.kernel_planes`` names what that kernel reads.
     """
     names = ["rslu_u", "rslu_v", "rslu_h", "ludxdy"]
     if not (hr_const is not None and ffs):
@@ -184,12 +186,15 @@ def metrics_full_from_grid(grid, lay: FusedLayout) -> np.ndarray:
     return planes
 
 
-def fast2d_met_rows(n_tracers: int) -> tuple:
+def fast2d_met_rows(n_tracers: int, visc: bool = False) -> tuple:
     """The metric rows the fused step reads (row meanings of
     :func:`metrics_profile_from_grid`); the 2D-metrics path streams only
     these planes. The masks come from ``ludxdy > 0.5``, so the rows 14
-    and 15 that the TPU kernel's thresholds need are not among them."""
+    and 15 that the TPU kernel's thresholds need are among them only
+    with viscosity, whose shear stress reads them."""
     rows = {9, 10, 11, 16, 17, 18, 21}
+    if visc:
+        rows |= {0, 1, 6, 7, 12, 13, 14, 15, 19, 20}
     if n_tracers:
         rows |= {0, 1}
     return tuple(sorted(rows))
@@ -198,7 +203,8 @@ def fast2d_met_rows(n_tracers: int) -> tuple:
 def static_planes(lu_s: np.ndarray, hr_s: np.ndarray, dxdy: np.ndarray,
                   names: tuple, interp_recips=None) -> np.ndarray:
     """(len(names), Xs, Ys) float32 static planes, pure functions of the
-    land mask, bathymetry and metrics (see :func:`plane_names`).
+    land mask, bathymetry and metrics (see :func:`plane_names`; ``hr``
+    is the embedded rest bathymetry ``hr_s`` itself).
     ``dxdy``: (Xs, Ys) plane or (1, Ys) profile row. ``interp_recips``:
     (1/dxt, 1/dyt, 1/(dxb*dyb)), as (1, Ys) rows or (Xs, Ys) planes,
     folded into the rslu planes."""
@@ -229,6 +235,7 @@ def static_planes(lu_s: np.ndarray, hr_s: np.ndarray, dxdy: np.ndarray,
         "rslu_v": lambda: recip(lu + y1) * r_v,
         "rslu_h": lambda: recip(lu + x1 + y1 + xy1) * r_h,
         "wlu": lambda: lu,
+        "hr": lambda: np.asarray(hr_s, np.float32),
         "ludxdy": lambda: ludxdy,
         "hrludxdy": lambda: (np.asarray(hr_s, np.float32)
                              * ludxdy).astype(np.float32),

@@ -2,15 +2,16 @@
 
 Counterpart of ``ocean_model_arch_tpu/ops/pallas/fused_step.py::
 build_fused_sw_step`` / ``_make_kernel`` (fast branch, full free
-surface, momentum advection, mu = 0, flat bathymetry), with its tracer
-pass (advective fluxes; mu = 0) and its land-tile guard, on x-uniform
-profile metrics or on pointwise metric planes (the TPU kernel's fast2d
-form, for bipolar grids). One call advances the 6 carried fields and
-the 2 carried levels of each of T tracers by one model step on the
-layout of ops/fused_layout.py:
+surface, momentum advection), with its lateral viscosity (constant
+``mu_const``), its tracer pass (advective fluxes, and diffusive ones
+when ``mu_const != 0``), flat or varying rest bathymetry and its
+land-tile guard, on x-uniform profile metrics or on pointwise metric
+planes (the TPU kernel's fast2d form, for bipolar grids). One call
+advances the 6 carried fields and the 2 carried levels of each of T
+tracers by one model step on the layout of ops/fused_layout.py:
 
     (ssh, sshp, u, up, v, vp, ff_0, ffp_0, ff_1, ...), met,
-    planes (4, Xs, Ys) [, tile_wet (x tiles, y tiles) int32]
+    planes (4 to 6, Xs, Ys) [, tile_wet (x tiles, y tiles) int32]
         -> (6 + 2 T new fields, max |ssh_new| over interior cells)
 
 ``met`` is the (24, Ys) latitude profile of
@@ -23,8 +24,14 @@ the cell's own index.
 The depths are recomputed from (ssh, sshp) every step instead of being
 carried, as the TPU kernel does: the step ends with hh_init, so every
 depth is a function of (ssh, sshp, bathymetry). The static planes are
-``PLANES`` (built without the TPU kernel's q4 quarter fold); the
-staggered wet masks are derived from the ``ludxdy`` plane.
+those of :func:`kernel_planes` (built without the TPU kernel's q4
+quarter fold); the staggered wet masks are derived from the ``ludxdy``
+plane. Flat bathymetry rides as the scalar ``hr_const``; with
+``hr_const=None`` the depth column is ``ssh * ludxdy + hrludxdy`` (the
+TPU kernel's grouping) and the viscosity and the tracers read the ``hr``
+plane. ``visc`` switches the stress stages on (the caller passes
+``ksw_lat and mu_const != 0``); the tracers' diffusive fluxes follow
+``mu_const != 0`` alone, as in the TPU kernel.
 
 With ``tile_wet`` the step is guarded: an output tile whose flag is 0
 (no wet cell) is not computed and gets exact zeros, which is what its
@@ -48,12 +55,35 @@ from ..host import FREE_FALL_ACC
 from ._build import load
 from .fused_layout import N_PROF, FusedLayout, fast2d_met_rows
 
-PLANES = ("rslu_u", "rslu_v", "rslu_h", "ludxdy")
 N_FIELDS = 6            # carried SW fields; each tracer adds 2
 MAX_TRACERS = 2         # the kernel's instantiations (csrc/fused_step.cu)
 CPU_TILE = (16, 32)     # the guard's tile where no kernel defines one
 # the metric rows whose slots the kernel's launcher takes, in its order
-KERNEL_MET_ROWS = fast2d_met_rows(n_tracers=1)
+KERNEL_MET_ROWS = fast2d_met_rows(n_tracers=1, visc=True)
+
+
+def kernel_planes(n_tracers: int = 0, visc: bool = False,
+                  hr_varies: bool = False) -> tuple:
+    """The static planes one form of the step reads, in the order of its
+    ``planes`` argument (``fused_layout.static_planes`` builds them):
+    varying bathymetry adds ``hrludxdy`` and, for the viscosity's depth
+    and the tracers' column, ``hr`` itself. No ``wlu`` plane: every mask
+    comes from ``ludxdy > 0.5``."""
+    names = ("rslu_u", "rslu_v", "rslu_h", "ludxdy")
+    if hr_varies:
+        names += ("hrludxdy",)
+        if visc or n_tracers:
+            names += ("hr",)
+    return names
+
+
+def mu_mode(n_tracers: int, mu_const: float, visc: bool) -> int:
+    """Which viscosity instantiation a step is: 0 none, 1 the tracers'
+    diffusive fluxes alone, 2 the stress stages (with the diffusive
+    fluxes when there are tracers)."""
+    if visc:
+        return 2
+    return 1 if n_tracers and mu_const != 0.0 else 0
 
 
 def _scalars(tau: float, time_smooth: float):
@@ -105,18 +135,33 @@ def _wet_cells(tile_wet: torch.Tensor, tile, lay: FusedLayout):
 
 def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
                             tau: float, time_smooth: float,
-                            hr_const: float, tile_wet=None, tile=None,
-                            met_map=None):
+                            hr_const: float | None, tile_wet=None,
+                            tile=None, met_map=None, mu_const: float = 0.0,
+                            visc: bool = False):
     """One fused step in plain PyTorch on whole arrays, with the kernel's
     formulas in the kernel's order (see csrc/fused_step.cu). ``tile_wet``
     (with its ``tile`` shape) reproduces the guard: zeros, and a max of
     0, in every tile flagged all-land. ``met_map``: None for profile
-    metrics, else the row -> plane map of a (n, Xs, Ys) ``met``."""
+    metrics, else the row -> plane map of a (n, Xs, Ys) ``met``.
+    ``hr_const=None``: varying bathymetry on the planes of
+    :func:`kernel_planes`."""
     n_tr = n_tracers_of(fields)
     ssh, sshp, u, up, v, vp = fields[:N_FIELDS]
-    rslu_u, rslu_v, rslu_h, ld = planes
+    rslu_u, rslu_v, rslu_h, ld = planes[:4]
     neg_g, two_tau, neg_two_tau, inv_two_tau, ts1, ts2 = _scalars(
         tau, time_smooth)
+    mu = float(mu_const)
+    if hr_const is None:
+        hrld = planes[4]
+        hr = planes[5] if (visc or n_tr) else None
+
+        def column(s):      # the TPU kernel's grouping, not (s + hr) * ld
+            return s * ld + hrld
+    else:
+        hr = hr_const
+
+        def column(s):
+            return (s + hr_const) * ld
 
     def row(k):
         return met[k][None, :] if met_map is None else met[met_map[k]]
@@ -128,12 +173,12 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
         return _sh(a, 0, 1)
 
     # depths from (ssh, sshp): hu = hhu*dyh, hv = hhv*dxh, hh = hhh
-    aq = (ssh + hr_const) * ld
+    aq = column(ssh)
     hu = (aq + xp(aq)) * rslu_u
     hv = (aq + yp(aq)) * rslu_v
     su = aq + xp(aq)
     hh = (su + yp(su)) * rslu_h
-    aqp = (sshp + hr_const) * ld
+    aqp = column(sshp)
     hup = (aqp + xp(aqp)) * rslu_u
     hvp = (aqp + yp(aqp)) * rslu_v
     ud = u * hu
@@ -165,6 +210,25 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
     sshn = sshp + div * (neg_two_tau * row(9))
     slx = (xp(ssh) - ssh) * hu * neg_g
     sly = (yp(ssh) - ssh) * hv * neg_g
+    if visc:
+        # stress components and uv_diff2 with a constant mu: tension at
+        # T points, shear at H points, their products with mu, the depth
+        # and the squared metrics, differenced beside the pressure term
+        q, r, s1, s2 = up * row(13), vp * row(12), up * row(10), vp * row(11)
+        str_t = torch.where(wlu, row(19) * (q - _sh(q, -1, 0))
+                            - row(20) * (r - _sh(r, 0, -1)), 0.0)
+        str_s = torch.where(wluu, (row(6) * row(15)) * (yp(s1) - s1)
+                            + (row(7) * row(14)) * (xp(s2) - s2), 0.0)
+        t2 = (hr + ssh) * str_t
+        a2 = (row(1) * row(1) * mu) * t2
+        b2 = (row(0) * row(0) * mu) * t2
+        hs2 = hh * str_s
+        d2 = (row(6) * row(6) * mu) * hs2
+        e2 = (row(7) * row(7) * mu) * hs2
+        slx = slx + ((xp(a2) - a2) * row(13)
+                     + (d2 - _sh(d2, 0, -1)) * row(10))
+        sly = sly + (-(yp(b2) - b2) * row(12)
+                     + (e2 - _sh(e2, -1, 0)) * row(11))
     un = torch.where(wlcu, (up * hup + (slx + acx) * (two_tau * row(10)))
                      / torch.where(wlcu, hu, 1.0), 0.0)
     vn = torch.where(wlcv, (vp * hvp + (sly + acy) * (two_tau * row(11)))
@@ -181,20 +245,27 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
 
     if n_tr:
         # tracer pass: post-step depths and transports (sshn, not
-        # ssh_new: ld kills land), centred advective edge fluxes,
+        # ssh_new: ld kills land), centred advective edge fluxes plus
+        # the diffusive ones mu / dxt * hun * dff/dx when mu != 0,
         # leapfrog update with hhq_n = hr, hhq_p = hr + sshp_new
-        aqn = (sshn + hr_const) * ld
+        aqn = column(sshn)
         hun = (aqn + xp(aqn)) * rslu_u
         hvn = (aqn + yp(aqn)) * rslu_v
         uh = torch.where(wlcu, un * hun, 0.0)
         vh = torch.where(wlcv, vn * hvn, 0.0)
         area = (row(0) * row(1)) * inv_two_tau
-        bp = hr_const * area
-        bp0 = (hr_const + sshp_new) * area
+        bp = hr * area
+        bp0 = (hr + sshp_new) * area
+        if mu != 0.0:
+            kx = (mu * row(10)) * torch.where(wlcu, hun, 0.0)
+            ky = (mu * row(11)) * torch.where(wlcv, hvn, 0.0)
     for t in range(n_tr):
         ff, ffp = fields[N_FIELDS + 2 * t], fields[N_FIELDS + 2 * t + 1]
         fx = uh * ((ff + xp(ff)) * -0.5)
         fy = vh * ((ff + yp(ff)) * -0.5)
+        if mu != 0.0:
+            fx = fx + kx * (xp(ff) - ff)
+            fy = fy + ky * (yp(ff) - ff)
         rhs = ((fx - _sh(fx, -1, 0)) + fy) - _sh(fy, 0, -1)
         ffn = torch.where(wlu, (bp0 * ffp + rhs)
                           / torch.where(wlu, bp, 1.0), 0.0)
@@ -210,7 +281,7 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
 
 
 def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
-                  tile, met_map) -> None:
+                  tile, met_map, hr_const, visc) -> None:
     n_tr = n_tracers_of(fields)
     if n_tr > MAX_TRACERS:
         raise ValueError(f"the kernel takes at most {MAX_TRACERS} "
@@ -218,26 +289,25 @@ def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
     if met_map is None:
         met_shape = (N_PROF, lay.Ys)
     else:
-        missing = [r for r in fast2d_met_rows(n_tr) if not
+        missing = [r for r in fast2d_met_rows(n_tr, visc) if not
                    0 <= met_map.get(r, -1) < met.shape[0]]
         if missing:
             raise ValueError(f"met_map: no plane of met for the metric "
                              f"rows {missing}")
         met_shape = (met.shape[0], lay.Xs, lay.Ys)
+    names = kernel_planes(n_tr, visc, hr_const is None)
     want = {"field": (lay.Xs, lay.Ys), "met": met_shape,
-            "planes": (len(PLANES), lay.Xs, lay.Ys)}
+            "planes " + ", ".join(names): (len(names), lay.Xs, lay.Ys)}
     dev = fields[0].device
-    for kind, ts in (("field", fields), ("met", [met]),
-                     ("planes", [planes])):
+    for (kind, shape), ts in zip(want.items(), (fields, [met], [planes])):
         for t in ts:
             if (dev.type != "cuda" or t.device != dev
                     or t.dtype != torch.float32):
                 raise ValueError(f"{kind}: need float32 CUDA tensors on "
                                  f"{dev}, got {t.dtype} on {t.device}")
-            if tuple(t.shape) != want[kind] or not t.is_contiguous():
-                raise ValueError(f"{kind}: need a contiguous "
-                                 f"{want[kind]} tensor, got "
-                                 f"{tuple(t.shape)}")
+            if tuple(t.shape) != shape or not t.is_contiguous():
+                raise ValueError(f"{kind}: need a contiguous {shape} "
+                                 f"tensor, got {tuple(t.shape)}")
     if tile_wet is None:
         return
     if tuple(tile) != tile_shape(dev):
@@ -254,17 +324,22 @@ def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
 
 
 def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
-                           tau: float, time_smooth: float, hr_const: float,
-                           tile_wet=None, tile=None, met_map=None):
+                           tau: float, time_smooth: float,
+                           hr_const: float | None, tile_wet=None, tile=None,
+                           met_map=None, mu_const: float = 0.0,
+                           visc: bool = False):
     """Launch the CUDA kernel once on CUDA tensors (counted in
-    ``fused_sw_step.launches``, and per kernel instantiation
-    ``(T, guarded, 2D metrics)`` in ``fused_sw_step.form_launches``).
+    ``fused_sw_step.launches``, and per kernel instantiation ``(T,
+    guarded, 2D metrics, mu mode, bathymetry planes)`` in
+    ``fused_sw_step.form_launches``; :func:`mu_mode` names the modes).
     Returns ``(6 + 2 T new fields, the (x tiles, y tiles) per-block max
     |ssh_new| over interior cells)``; raises if the kernel does not build
     or launch."""
-    _check_inputs(fields, met, planes, lay, tile_wet, tile, met_map)
+    visc = bool(visc)
+    _check_inputs(fields, met, planes, lay, tile_wet, tile, met_map,
+                  hr_const, visc)
     n_tr = n_tracers_of(fields)
-    lib = _library()
+    lib = _library(n_tr)
     # where each metric row the kernel reads sits in met (-1: not there)
     where = {r: r for r in KERNEL_MET_ROWS} if met_map is None else met_map
     slots = (ctypes.c_int * len(KERNEL_MET_ROWS))(
@@ -273,7 +348,6 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
     outs = tuple(torch.empty_like(f) for f in fields)
     blockmax = torch.empty((-(-lay.Xs // tx), -(-lay.Ys // ty)),
                            dtype=torch.float32, device=fields[0].device)
-    scalars = _scalars(tau, time_smooth)
     ptr = [t.data_ptr() for t in (*fields[:N_FIELDS], met, planes,
                                   *outs[:N_FIELDS], blockmax)]
     tr_in = (ctypes.c_void_p * (2 * n_tr))(
@@ -284,20 +358,25 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
         rc = lib.fused_sw_step_launch(
             *ptr, tr_in, tr_out,
             None if tile_wet is None else tile_wet.data_ptr(), slots,
-            int(met_map is not None), n_tr, lay.Xs, lay.Ys, lay.nx, lay.ny, lay.margin, float(hr_const),
-            *scalars, torch.cuda.current_stream().cuda_stream)
+            int(met_map is not None), n_tr, planes.shape[0], int(visc),
+            lay.Xs, lay.Ys, lay.nx, lay.ny, lay.margin,
+            0.0 if hr_const is None else float(hr_const), float(mu_const),
+            *_scalars(tau, time_smooth),
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_sw_step kernel launch failed: "
                            + lib.fused_sw_step_error_string(rc).decode())
     fused_sw_step.launches += 1
-    fused_sw_step.form_launches[n_tr, tile_wet is not None,
-                                met_map is not None] += 1
+    fused_sw_step.form_launches[
+        n_tr, tile_wet is not None, met_map is not None,
+        mu_mode(n_tr, mu_const, visc), hr_const is None] += 1
     return outs, blockmax
 
 
 def fused_sw_step(fields, met, planes, lay: FusedLayout, tau: float,
-                  time_smooth: float, hr_const: float, tile_wet=None,
-                  tile=None, met_map=None):
+                  time_smooth: float, hr_const: float | None, tile_wet=None,
+                  tile=None, met_map=None, mu_const: float = 0.0,
+                  visc: bool = False):
     """One fused step: the plain version for CPU tensors, the CUDA kernel
     for CUDA tensors (:func:`fused_sw_step_blockmax`). Returns
     ``(6 + 2 T new fields, 0-dim max |ssh_new| over interior cells)``;
@@ -305,14 +384,17 @@ def fused_sw_step(fields, met, planes, lay: FusedLayout, tau: float,
     (``fused_layout.tile_wet``) and the tile they were built for
     (:func:`tile_shape`); None runs unguarded. ``met_map``: None for the
     (24, Ys) profile ``met``, else the row -> plane map of the
-    (n, Xs, Ys) metric planes."""
+    (n, Xs, Ys) metric planes. ``hr_const``: the flat rest bathymetry, or
+    None when ``planes`` carries it (:func:`kernel_planes`).
+    ``mu_const``, ``visc``: the constant viscosity and whether the stress
+    stages run; tracers diffuse whenever ``mu_const != 0``."""
     if fields[0].device.type == "cpu":
         return fused_sw_step_reference(fields, met, planes, lay, tau,
                                        time_smooth, hr_const, tile_wet,
-                                       tile, met_map)
+                                       tile, met_map, mu_const, visc)
     outs, blockmax = fused_sw_step_blockmax(
         fields, met, planes, lay, tau, time_smooth, hr_const, tile_wet, tile,
-        met_map)
+        met_map, mu_const, visc)
     return outs, torch.amax(blockmax)
 
 
@@ -325,22 +407,33 @@ def reset_launch_counts() -> None:
 reset_launch_counts()
 
 
+def library_targets() -> tuple:
+    """The build targets of csrc/fused_step.cu (``_build.build_all``
+    takes them): one library per tracer count, so they build at once."""
+    return tuple(f"fused_step@FUSED_NT={n}" for n in range(MAX_TRACERS + 1))
+
+
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """csrc/fused_step.cu, built on first use, with its C signatures."""
-    lib = load("fused_step")
+def _library(n_tracers: int = 0) -> ctypes.CDLL:
+    """csrc/fused_step.cu's forms with ``n_tracers`` tracers, built on
+    first use, with their C signatures."""
+    lib = load(library_targets()[n_tracers])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.fused_sw_step_tile_x, lib.fused_sw_step_tile_y,
-               lib.fused_sw_step_n_met):
+               lib.fused_sw_step_n_met, lib.fused_sw_step_built_for):
         fn.argtypes = []
         fn.restype = i
     if lib.fused_sw_step_n_met() != len(KERNEL_MET_ROWS):
         raise RuntimeError("csrc/fused_step.cu reads "
                            f"{lib.fused_sw_step_n_met()} metric rows, the "
                            f"wrapper passes {len(KERNEL_MET_ROWS)}")
+    if lib.fused_sw_step_built_for() != n_tracers:
+        raise RuntimeError("the fused step's library was built for "
+                           f"{lib.fused_sw_step_built_for()} tracers, not "
+                           f"{n_tracers}")
     lib.fused_sw_step_error_string.argtypes = [i]
     lib.fused_sw_step_error_string.restype = ctypes.c_char_p
-    lib.fused_sw_step_launch.argtypes = ([p] * 19 + [i] * 7 + [f] * 7
+    lib.fused_sw_step_launch.argtypes = ([p] * 19 + [i] * 9 + [f] * 8
                                          + [p])
     lib.fused_sw_step_launch.restype = i
     return lib

@@ -4,12 +4,14 @@
 The PyTorch + CUDA counterpart of ``scripts/roofline_probe.py``: it runs
 the copy step (``ocean_model_arch_torch/ops/copy_step.py``: the fused
 step's window loads and tile stores with a sum in place of the
-arithmetic) once per form of the fused kernel -- 0 or 2 tracers, profile
-or plane metrics, and for each mask named also under its land-tile guard
--- and prints the kernel's device us/launch (torch.profiler) beside the
-byte bound of the same traffic. The gap between a form's copy step and the fused kernel itself is what
-the step's arithmetic and barriers cost; the gap between the copy step
-and the byte bound is what the tiling costs.
+arithmetic) once per form of the fused kernel in ``FORMS`` -- 0, 1 or 2
+tracers, profile or plane metrics, with or without the viscous metric
+rows and the bathymetry planes, and for each mask named also under its
+land-tile guard -- and prints the kernel's device us/launch
+(torch.profiler) beside the byte bound of the same traffic. The gap
+between a form's copy step and the fused kernel itself is what the
+step's arithmetic and barriers cost; the gap between the copy step and
+the byte bound is what the tiling costs.
 
 Usage: python scripts/roofline_probe_torch.py [nx ny [mask ...]]
 
@@ -37,27 +39,39 @@ from ocean_model_arch_torch.io.mask_io import read_mask  # noqa: E402
 from ocean_model_arch_torch.ops import fused_layout as fl  # noqa: E402
 from ocean_model_arch_torch.ops.copy_step import (copy_step,  # noqa: E402
                                                   tile_shape)
+from ocean_model_arch_torch.ops.fused_step import (  # noqa: E402
+    kernel_planes)
 
 PEAK_BYTES = 3.35e12     # H100 SXM data sheet, HBM bytes/s
-N_STATIC = 4             # rslu_u, rslu_v, rslu_h, ludxdy
 N_LAUNCH = 200
+# the forms timed: (tracers, plane metrics, viscous, bathymetry planes)
+FORMS = ((0, False, False, False), (0, True, False, False),
+         (2, False, False, False), (2, True, False, False),
+         (1, False, False, False),
+         (0, False, True, False), (0, False, False, True),
+         (2, False, True, True), (0, True, True, True))
 
 
-def form_counts(n_tracers: int) -> tuple:
+def form_counts(n_tracers: int, visc: bool = False,
+                hr_varies: bool = False) -> tuple:
     """(windowed inputs, outputs, metric rows) of the fused step's form
-    with ``n_tracers`` tracers."""
+    with ``n_tracers`` tracers, with or without viscosity and varying
+    bathymetry: the carried fields and the static planes
+    (``fused_step.kernel_planes``) are windowed."""
     n_out = 6 + 2 * n_tracers
-    return n_out + N_STATIC, n_out, len(fl.fast2d_met_rows(n_tracers))
+    return (n_out + len(kernel_planes(n_tracers, visc, hr_varies)), n_out,
+            len(fl.fast2d_met_rows(n_tracers, visc)))
 
 
 def bytes_moved(lay, n_tracers: int, met2d: bool, wet=None,
-                tile=None) -> int:
+                tile=None, visc: bool = False,
+                hr_varies: bool = False) -> int:
     """The bytes one copy step of this form must move: each windowed
     input and metric plane read once and each output written once over
     the cells of the tiles it computes, the zero writes of the all-land
     tiles (``wet``: the guard's per-tile flags, numpy), the profile rows,
     one flag per block."""
-    n_win, n_out, n_met = form_counts(n_tracers)
+    n_win, n_out, n_met = form_counts(n_tracers, visc, hr_varies)
     cells = lay.Xs * lay.Ys
     done, flags = cells, 0
     if wet is not None:
@@ -69,10 +83,11 @@ def bytes_moved(lay, n_tracers: int, met2d: bool, wet=None,
             + (0 if met2d else 4 * n_met * lay.Ys) + flags)
 
 
-def form_inputs(lay, n_tracers: int, met2d: bool, device, seed: int = 0):
+def form_inputs(lay, n_tracers: int, met2d: bool, device, seed: int = 0,
+                visc: bool = False, hr_varies: bool = False):
     """(windowed inputs, metric rows) of one form, random float32 made
     from ``seed`` on ``device``."""
-    n_win, _, n_met = form_counts(n_tracers)
+    n_win, _, n_met = form_counts(n_tracers, visc, hr_varies)
     gen = torch.Generator(device="cpu").manual_seed(seed)
     windows = tuple(torch.randn((lay.Xs, lay.Ys), generator=gen)
                     .to(device) for _ in range(n_win))
@@ -98,12 +113,14 @@ def kernel_us(fn, n: int, kernel: str = "copy_step_kernel") -> float:
     raise RuntimeError(f"torch.profiler recorded no device time for {kernel}")
 
 
-def probe(nx: int, ny: int, masks=(), n_launch: int = N_LAUNCH) -> list:
-    """Time the copy step of every form on the current CUDA device.
-    ``masks``: (name, (nx, ny) int array, 1 = land) pairs, each giving the
-    guarded forms their per-tile flags. Returns one dict per form:
-    ``n_tracers, met2d, guard`` (None or the mask's name), ``us, bytes,
-    bound_us`` (the bytes over the card's memory rate)."""
+def probe(nx: int, ny: int, masks=(), n_launch: int = N_LAUNCH,
+          forms=FORMS) -> list:
+    """Time the copy step of every form of ``forms`` on the current CUDA
+    device. ``masks``: (name, (nx, ny) int array, 1 = land) pairs, each
+    giving the guarded forms their per-tile flags. Returns one dict per
+    form and guard: ``n_tracers, met2d, visc, hr_varies, guard`` (None or
+    the mask's name), ``us, bytes, bound_us`` (the bytes over the card's
+    memory rate)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the roofline probe needs a CUDA device")
     device = torch.device("cuda", torch.cuda.current_device())
@@ -115,28 +132,31 @@ def probe(nx: int, ny: int, masks=(), n_launch: int = N_LAUNCH) -> list:
                                                                np.float32)))
         guards.append((name, fl.tile_wet(lu_s.numpy(), lay, *tile)))
     rows = []
-    for n_tracers in (0, 2):
-        for met2d in (False, True):
-            windows, met = form_inputs(lay, n_tracers, met2d, device)
-            n_out = form_counts(n_tracers)[1]
-            for guard, wet in guards:
-                flags = None if wet is None else \
-                    torch.from_numpy(wet).to(device)
-                us = kernel_us(lambda: copy_step(
-                    windows, met, n_out, lay, tracer_form=n_tracers > 0,
-                    tile_wet=flags, tile=tile), n_launch)
-                nbytes = bytes_moved(lay, n_tracers, met2d, wet, tile)
-                rows.append({"n_tracers": n_tracers, "met2d": met2d,
-                             "guard": guard, "us": us,
-                             "bytes": nbytes,
-                             "bound_us": nbytes / PEAK_BYTES * 1e6})
+    for n_tracers, met2d, visc, hr_varies in forms:
+        windows, met = form_inputs(lay, n_tracers, met2d, device,
+                                   visc=visc, hr_varies=hr_varies)
+        n_out = form_counts(n_tracers)[1]
+        for guard, wet in guards:
+            flags = None if wet is None else \
+                torch.from_numpy(wet).to(device)
+            us = kernel_us(lambda: copy_step(
+                windows, met, n_out, lay, tracer_form=n_tracers > 0,
+                tile_wet=flags, tile=tile, visc_form=visc), n_launch)
+            nbytes = bytes_moved(lay, n_tracers, met2d, wet, tile, visc,
+                                 hr_varies)
+            rows.append({"n_tracers": n_tracers, "met2d": met2d,
+                         "visc": visc, "hr_varies": hr_varies,
+                         "guard": guard, "us": us, "bytes": nbytes,
+                         "bound_us": nbytes / PEAK_BYTES * 1e6})
     return rows
 
 
 def form_name(row: dict) -> str:
     return (f"T={row['n_tracers']} "
-            f"{'plane' if row['met2d'] else 'profile'} metrics "
-            f"guard {row['guard'] or 'off'}")
+            f"{'plane' if row['met2d'] else 'profile'} metrics"
+            + (" viscous" if row["visc"] else "")
+            + (" bathymetry planes" if row["hr_varies"] else "")
+            + f" guard {row['guard'] or 'off'}")
 
 
 def main(argv) -> int:

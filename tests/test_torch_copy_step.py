@@ -159,6 +159,35 @@ def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
     assert before[0] != after[0] and before[1] != after[1]
 
 
+def test_build_targets_with_a_define_get_their_own_library(tmp_path,
+                                                           monkeypatch):
+    """``<source>@<MACRO>=<value>`` compiles the source with -D into a
+    library named after the target: the fused step's three tracer counts
+    build side by side and never share a file."""
+    cmds = []
+
+    def fake_run(cmd, **kw):
+        cmds.append(cmd)
+        raise RuntimeError("stop before nvcc")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", fake_run)
+    targets = fstep.library_targets()
+    assert targets == ("fused_step@FUSED_NT=0", "fused_step@FUSED_NT=1",
+                       "fused_step@FUSED_NT=2")
+    for t in targets + ("fused_step",):
+        with pytest.raises(RuntimeError, match="stop"):
+            _build.build(t)
+    outs = [os.path.basename(c[c.index("-o") + 1]) for c in cmds]
+    assert len(set(outs)) == 4
+    for n, (cmd, out) in enumerate(zip(cmds[:3], outs)):
+        assert f"-DFUSED_NT={n}" in cmd and cmd[-1].endswith("fused_step.cu")
+        assert out.startswith(f"libfused_step-FUSED_NT{n}-")
+    assert not any(a.startswith("-D") for a in cmds[3])
+    assert "--use_fast_math" not in " ".join(cmds[0])
+
+
 @pytest.mark.parametrize("tracers,met2d,per_cell",
                          [(0, False, 64), (0, True, 92), (2, False, 96),
                           (2, True, 132)])
@@ -180,6 +209,35 @@ def test_probe_counts_the_fused_steps_bytes(tracers, met2d, per_cell):
     assert probe.bytes_moved(lay, tracers, met2d, wet, (16, 32)) == (
         done * per_cell + (cells - done) * 4 * n_out + prof + 4 * wet.size)
     assert probe.form_counts(tracers) == (n_out + 4, n_out, n_met)
+
+
+@pytest.mark.parametrize("tracers,met2d,visc,hr_varies,per_cell", [
+    (0, False, True, False, 64),      # viscosity: no bytes on profiles
+    (0, True, True, False, 132),      # 17 metric planes instead of 7
+    (0, False, False, True, 68),      # + hrludxdy
+    (0, False, True, True, 72),       # + hrludxdy + hr
+    (2, False, True, True, 104),
+    (0, True, True, True, 140),
+    (1, False, False, False, 80)])
+def test_probe_counts_the_new_forms_bytes(tracers, met2d, visc, hr_varies,
+                                          per_cell):
+    """Bytes per layout cell of the viscous and bathymetry-plane forms
+    and of the 1-tracer form, all of them in the probe's list."""
+    probe = _probe_module()
+    lay = fl.make_layout(1525, 1115)
+    cells = lay.Xs * lay.Ys
+    n_out = 6 + 2 * tracers
+    n_met = len(fl.fast2d_met_rows(tracers, visc))
+    n_planes = len(fstep.kernel_planes(tracers, visc, hr_varies))
+    assert probe.form_counts(tracers, visc, hr_varies) == (
+        n_out + n_planes, n_out, n_met)
+    assert n_out + n_planes <= 16        # the copy kernel's windows
+    prof = 0 if met2d else 4 * n_met * lay.Ys
+    assert probe.bytes_moved(lay, tracers, met2d, visc=visc,
+                             hr_varies=hr_varies) == cells * per_cell + prof
+    assert {(0, False, True, False), (0, False, False, True),
+            (2, False, True, True), (0, True, True, True),
+            (1, False, False, False)} <= set(probe.FORMS)
 
 
 def test_probe_script_fails_without_a_card():

@@ -28,6 +28,8 @@ from ocean_model_arch_torch.ops import stencil as tst
 from ocean_model_arch_torch.ops import sw_kernels as tswk
 from ocean_model_arch_torch.ops import tracer_kernels as ttrk
 
+import oracle
+
 torch.set_num_threads(1)
 
 NX, NY = 23, 17
@@ -192,6 +194,46 @@ def test_tracer_kernel_matches_jax(d, name):
 def test_sw_kernel_matches_jax(d, name):
     case = SW_CASES[name]
     _assert_same(case(tswk, _torch, d), case(jswk, _jax, d))
+
+
+def _oracle_stress(d):
+    return oracle.o_stress(*[d[k] for k in (
+        "lu", "luu", "dx", "dy", "dxt", "dyt", "dxh", "dyh", "dxb", "dyb",
+        "up", "vp", "str_t", "str_s")])
+
+
+def _oracle_uv_diff2(d):
+    return oracle.o_uv_diff2(*[d[k] for k in (
+        "lcu", "lcv", "dx", "dy", "dxt", "dyt", "dxh", "dyh", "dxb", "dyb",
+        "mu", "str_t", "str_s", "hq", "hu", "hv", "hh", "rhsx_dif",
+        "rhsy_dif")])
+
+
+def _oracle_tracer_fluxes(d):
+    return oracle.o_tracer_fluxes(*[d[k] for k in (
+        "lcu", "lcv", "dxt", "dyt", "dxh", "dyh", "hu", "hv", "ff", "u", "v",
+        "mu")], 1.0, d["flux_x"], d["flux_y"])
+
+
+# the viscosity's kernels and the diffusive tracer flux with mu != 0
+# against the loop oracle (per-point numpy loops, tests/oracle.py)
+ORACLE_CASES = {
+    "stress_components": (tswk, SW_CASES, _oracle_stress),
+    "uv_diff2": (tswk, SW_CASES, _oracle_uv_diff2),
+    "tran_diff_fluxes": (ttrk, TRACER_CASES, _oracle_tracer_fluxes),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ORACLE_CASES))
+def test_viscous_kernel_matches_loop_oracle(d, name):
+    """mu != 0 (random, positive, varying in space): the eager kernels
+    against an implementation that shares no code with them."""
+    module, cases, loops = ORACLE_CASES[name]
+    assert float(np.abs(d["mu"]).min()) > 0
+    got = cases[name](module, _torch, d)
+    want = loops(d)
+    _assert_same(got, want)
+    assert all(np.abs(w).max() > 0 for w in want)
 
 
 @pytest.mark.parametrize("name", sorted(DEPTH_CASES))
