@@ -16,7 +16,11 @@ from ..core.masks import frame_of_land_mask
 def read_mask(path: str, nx: int, ny: int) -> np.ndarray:
     """Read a mask file into an (nx, ny) int array, [m, n] 0-based.
 
-    Pure Python: the native C++ parser (io/native.py) is not copied yet."""
+    Uses the native C++ parser (io/native.py) when available."""
+    from . import native
+    out = native.read_mask(path, nx, ny)
+    if out is not None:
+        return out
     with open(path, "r") as f:
         lines = f.read().splitlines()
     rows = [ln for ln in lines[1:] if ln.strip()]

@@ -1,4 +1,4 @@
-"""Driver of the fused step (counterpart of
+"""The fused step on a single block (counterpart of
 ``ocean_model_arch_tpu/model/fused.py::FusedSWModel, fused_available``).
 
 Carries only the 6 prognostic fields (ssh, sshp, u, up, v, vp) and the
@@ -30,17 +30,20 @@ CARRIED = ("ssh", "sshp", "ubrtr", "ubrtrp", "vbrtr", "vbrtrp")
 
 
 def unsupported(grid: Grid, cfg: ModelConfig, mu_const: float = 0.0,
-                static_rslu: bool = True) -> list:
+                static_rslu: bool = True, sharded: bool = False) -> list:
     """What keeps a configuration off the fused kernel (empty: supported).
     The kernel is the TPU kernel's fast form (profile metrics on
     x-uniform grids, its fast2d form with metric planes on the others)
     with full free surface and momentum advection, any constant
     ``mu_const``, flat or varying bathymetry, at most ``MAX_TRACERS``
-    tracers, closed boundaries."""
+    tracers. The single block has land margins, so closed boundaries
+    only; ``sharded``: on the margined shards of ``FusedSharded2DModel``,
+    whose margin exchange wraps, periodic ones too."""
     sw = cfg.sw
     out = []
-    if grid.periodic_x or grid.periodic_y:
-        out.append("periodic boundaries")
+    if (grid.periodic_x or grid.periodic_y) and not sharded:
+        out.append("periodic boundaries (model/fused_sharded2d.py::"
+                   "FusedSharded2DModel runs them, on a 1 x 1 mesh too)")
     if not static_rslu:
         out.append("static_rslu=False (the non-fast kernel form; fast2d "
                    "requires static_rslu=True)")
@@ -54,9 +57,17 @@ def unsupported(grid: Grid, cfg: ModelConfig, mu_const: float = 0.0,
     return out
 
 
-def fused_available(grid: Grid, cfg: ModelConfig) -> bool:
-    """Whether the fused kernel supports this configuration."""
-    return not unsupported(grid, cfg)
+def fused_available(grid: Grid, cfg: ModelConfig, sharded: bool = False,
+                    px: int = 1, py: int = 1) -> bool:
+    """Whether the fused kernel supports this configuration: on the
+    single block (closed boundaries only) or, with ``sharded``, on the
+    px x py margined shards of ``FusedSharded2DModel``, where periodic
+    boundaries run too (a 1 x 1 mesh wraps locally). The TPU package also
+    asks that a periodic axis divide into the mesh's tiles; the port's
+    uniform cuts always end at the basin's edge, so no mesh is refused
+    for that."""
+    del px, py
+    return not unsupported(grid, cfg, sharded=sharded)
 
 
 def flat_bathymetry(grid: Grid) -> float | None:
@@ -65,6 +76,23 @@ def flat_bathymetry(grid: Grid) -> float | None:
     hr = grid.hhq_rest.to(torch.float32)
     first = hr.reshape(-1)[0]
     return float(first) if bool((hr == first).all()) else None
+
+
+def state_from_fields(fields, template: SWState, grid: Grid,
+                      cfg: ModelConfig, n_tracers: int) -> SWState:
+    """6 + 2 T physical (nx, ny) fields (the order of ``pack``) -> a full
+    SWState in ``template``'s dtype; the depth families are regenerated
+    as the end-of-step hh_init does, and ffn = ff (what the rotation
+    leaves at wet cells)."""
+    dt = template.ssh.dtype
+    st = dataclasses.replace(template, **{
+        n: a.to(dt) for n, a in zip(CARRIED, fields)})
+    if n_tracers:
+        ff = torch.stack([fields[6 + 2 * t].to(dt) for t in range(n_tracers)])
+        ffp = torch.stack([fields[7 + 2 * t].to(dt)
+                           for t in range(n_tracers)])
+        st = dataclasses.replace(st, ff=ff, ffp=ffp, ffn=ff)
+    return reinit_depth_families(st, grid, cfg)
 
 
 class FusedSWModel:
@@ -160,16 +188,9 @@ class FusedSWModel:
         dtype; the depth families are regenerated as the end-of-step
         hh_init does, and ffn = ff (what the rotation leaves at wet
         cells)."""
-        dt = template.ssh.dtype
-        st = dataclasses.replace(template, **{
-            n: fl.extract(self.lay, a).to(dt) for n, a in zip(CARRIED, s6)})
-        if self.n_tracers:
-            ff = torch.stack([fl.extract(self.lay, s6[6 + 2 * t]).to(dt)
-                              for t in range(self.n_tracers)])
-            ffp = torch.stack([fl.extract(self.lay, s6[7 + 2 * t]).to(dt)
-                               for t in range(self.n_tracers)])
-            st = dataclasses.replace(st, ff=ff, ffp=ffp, ffn=ff)
-        return reinit_depth_families(st, self.grid, self.cfg)
+        return state_from_fields([fl.extract(self.lay, a) for a in s6],
+                                 template, self.grid, self.cfg,
+                                 self.n_tracers)
 
     def run_steps(self, s6, n_steps: int):
         """Advance ``n_steps`` steps; returns ``(s6', ok)``. The per-step

@@ -1,0 +1,380 @@
+"""The fused step over a px x py mesh of margined shards (counterpart of
+``ocean_model_arch_tpu/model/fused_sharded2d.py::FusedSharded2DModel``).
+
+The basin is cut into px x py shards. Every shard carries its 6 + 2 T
+fields as one ``(6 + 2 T, Xs, Ysp)`` float32 tensor: the shard's valid
+box ``[M, M + lx) x [M, M + ly)`` inside a margin of M = 4 cells (the
+step's reach, ``fused_layout.margin_for``) that holds the neighbouring
+shards' cells, and pad beyond it up to the extents all shards share
+(``Xs = max lx + 2 M``, ``Ysp`` the same for y, rounded up to whole
+128-byte rows). Each model step refreshes the margins and then runs the
+raw form of the fused kernel (``ops/fused_step.py::fused_sw_step_raw``)
+once per shard.
+
+One process runs all shards, as in the JAX package; ``devices`` may
+name one device px * py times, and then every shard is its own set of
+tensors on that device. The margin exchange is ``Tensor.copy_`` of
+strips between the shards' tensors (the JAX package exchanges outside its
+kernel too, with ``ppermute``): x strips first, then y strips over all
+rows including the fresh x strips, so a corner arrives through the
+orthogonal neighbour. A shard at the edge of a closed axis keeps the
+land zeros it was packed with; a periodic axis adds the pair across the
+seam, and with one shard along it the shard's own far edge. An axis that
+is closed and unsharded needs no margin work at all.
+
+The kernel cannot run in place (a block's halo is another block's
+output), so a runner keeps two buffers per shard and the exchange writes
+into the one the next launch reads. Only a shard's box is ever written
+by the kernel and only its margin by the exchange: the pad stays at the
+zeros of ``pack``, with no re-grounding between steps.
+
+Statics are cut per shard from the margined *global* arrays, so seams
+are exact: the land mask and the bathymetry wrap-padded on a periodic
+axis and land-padded on a closed one, the static planes built on those
+(a shifted mask at a seam sees the cell across it), metric rows extended
+by their edge values (by the values across the seam on a periodic axis,
+where row 17's ``dxt(n + 1)`` wraps too). Beyond a shard's valid box and
+margin the mask-like planes are land and the metric rows copies of their
+edge, so the pad holds no infinite reciprocal and nothing wet. The guard
+flags use the kernel's own tile; a tile without a wet cell of the
+shard's own box (pad tiles too) is skipped.
+
+Cut lines: uniform (``ceil(n / p)`` cells a shard, the last one shorter),
+weighted by wet points (``parallel/decomposition.py``), or given
+(``x_edges``, ``y_edges``). The port's rule for them is its own: they
+span ``[0, nx]`` and ``[0, ny]`` exactly, which on a periodic axis puts
+the seam neighbours side by side, and every shard is at least M cells
+wide. The TPU package instead needs tile multiples (``nx`` divisible by
+``px * tx`` on a periodic axis), a Mosaic constraint.
+
+Not here yet: shards on several devices and processes (the transport
+then becomes NCCL); two chained steps per exchange on a wider margin.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.grid import Grid
+from ..core.state import SWState
+from ..host import ModelConfig
+from ..ops import fused_layout as fl
+from ..ops import sw_kernels as swk
+from ..ops.fused_step import fused_sw_step_raw, kernel_planes, tile_shape
+from ..parallel.decomposition import weighted_x_edges, weighted_y_edges
+from .fused import CARRIED, flat_bathymetry, state_from_fields, unsupported
+
+
+def _cuts(n: int, parts: int, given, weighted: bool, int_mask, margin: int,
+          powers, axis: str) -> np.ndarray:
+    """The ``parts + 1`` cut lines of one axis, spanning [0, n]."""
+    if given is not None:
+        edges = np.asarray(given, np.int64)
+        if len(edges) != parts + 1:
+            raise ValueError(f"{axis}_edges has {len(edges)} entries for a "
+                             f"p{axis}={parts} mesh (need p{axis}+1)")
+    elif weighted and parts > 1:
+        cut = weighted_x_edges if axis == "x" else weighted_y_edges
+        edges = np.asarray(cut(int_mask, parts, min_width=margin,
+                               compute_powers=powers), np.int64)
+    else:
+        edges = np.minimum(np.arange(parts + 1, dtype=np.int64)
+                           * -(-n // parts), n)
+    if int(edges[0]) != 0 or int(edges[-1]) != n:
+        raise ValueError(f"the {axis} cuts must span [0, {n}] exactly (on a "
+                         "periodic axis the seam neighbours lie side by "
+                         f"side), got {edges.tolist()}")
+    return edges
+
+
+class FusedSharded2DModel:
+    """The fused model on a px x py mesh of shards, all driven by this
+    process. ``devices``: px * py torch devices, row-major over (x, y);
+    None puts every shard on the grid's device. ``mu_const``,
+    ``static_rslu``, ``tile_guard`` as in ``FusedSWModel`` (the guard is
+    on by default: pad tiles are always dry). ``steps_per_call``: model
+    steps per turn of the runner's loop, one exchange and one launch per
+    shard each; windows must be multiples of it. ``weighted``: cut lines
+    by wet points, with ``compute_powers_x / _y`` as the bands' relative
+    shares; ``x_edges`` / ``y_edges``: the cut lines themselves."""
+
+    def __init__(self, grid: Grid, cfg: ModelConfig, tau: float,
+                 px: int, py: int, devices=None, mu_const: float = 0.0,
+                 static_rslu: bool = True, steps_per_call: int = 1,
+                 weighted: bool = False, tile_guard: bool = True,
+                 compute_powers_x=None, compute_powers_y=None,
+                 x_edges=None, y_edges=None):
+        mu_const = float(mu_const or 0.0)
+        bad = unsupported(grid, cfg, mu_const, static_rslu, sharded=True)
+        if bad:
+            raise ValueError("fused path unsupported: " + "; ".join(bad))
+        if steps_per_call < 1:
+            raise ValueError(f"steps_per_call={steps_per_call} < 1")
+        dev = grid.lu.device
+        if devices is None:
+            devices = [dev] * (px * py)
+        devices = [torch.device(d) for d in devices]
+        if len(devices) != px * py:
+            raise ValueError(f"{len(devices)} devices for a {px} x {py} mesh")
+        if any(d != dev for d in devices):
+            raise NotImplementedError(
+                "shards on other devices than the grid's: the exchange "
+                "between devices and processes is not ported yet")
+        self.grid, self.cfg = grid, cfg
+        self.tau = float(tau)
+        self.px, self.py = px, py
+        self.devices = devices
+        self.mu_const = mu_const
+        self.static_rslu = bool(static_rslu)
+        self.steps_per_call = int(steps_per_call)
+        self.n_tracers = (cfg.sw.tracer_num if cfg.sw.use_tracers > 0
+                          else 0)
+        self.visc = bool(cfg.sw.ksw_lat and mu_const != 0.0)
+        self.periodic_x = bool(grid.periodic_x)
+        self.periodic_y = bool(grid.periodic_y)
+        M = self.M = fl.margin_for(1, self.n_tracers)
+        nx, ny = grid.nx, grid.ny
+
+        # ---- cut lines ---------------------------------------------------
+        lu = grid.lu.cpu().numpy()
+        int_mask = (lu < 0.5).astype(np.int32)
+        self.x_edges = _cuts(nx, px, x_edges, weighted, int_mask, M,
+                             compute_powers_x, "x")
+        self.y_edges = _cuts(ny, py, y_edges, weighted, int_mask, M,
+                             compute_powers_y, "y")
+        self.lx = [int(v) for v in np.diff(self.x_edges)]
+        self.ly = [int(v) for v in np.diff(self.y_edges)]
+        if min(self.lx) < M or min(self.ly) < M:
+            raise ValueError(
+                f"shards must be at least {M} cells wide for the margin "
+                f"exchange (got {min(self.lx)}x{min(self.ly)}); use a "
+                "smaller mesh")
+        self.Xpad, self.Ymax = max(self.lx), max(self.ly)
+        Xs = self.Xpad + 2 * M
+        Ysp = -(-(self.Ymax + 2 * M) // fl.ROW_ALIGN) * fl.ROW_ALIGN
+        self.lay = fl.FusedLayout(nx, ny, Xs, Ysp, M)
+        # what the kernel is given: the shard's own box in the shared extents
+        self.shard_lay = [[fl.FusedLayout(self.lx[i], self.ly[j], Xs, Ysp, M)
+                           for j in range(py)] for i in range(px)]
+
+        # ---- margined global statics -> per-shard blocks -----------------
+        glay = fl.FusedLayout(nx, ny, nx + 2 * M, ny + 2 * M, M)
+
+        def pad2(g):
+            """(nx, ny) -> (nx + 2 M, ny + 2 M): wrapped on a periodic
+            axis, land zeros on a closed one."""
+            g = np.pad(np.asarray(g, np.float32), ((M, M), (0, 0)),
+                       mode="wrap" if self.periodic_x else "constant")
+            return np.pad(g, ((0, 0), (M, M)),
+                          mode="wrap" if self.periodic_y else "constant")
+
+        def cut(gp, i, j, mode):
+            """Shard (i, j)'s valid box and margin of a margined global
+            (..., nx + 2 M, ny + 2 M) array, in the shards' (..., Xs,
+            Ysp) extents: zeros (land) beyond it, or copies of its edge."""
+            w, h = self.lx[i] + 2 * M, self.ly[j] + 2 * M
+            x0, y0 = int(self.x_edges[i]), int(self.y_edges[j])
+            box = gp[..., x0:x0 + w, y0:y0 + h]
+            pad = [(0, 0)] * (gp.ndim - 2) + [(0, Xs - w), (0, Ysp - h)]
+            return np.ascontiguousarray(np.pad(box, pad, mode=mode))
+
+        self.hr_const = flat_bathymetry(grid)
+        names = kernel_planes(self.n_tracers, self.visc,
+                              self.hr_const is None)
+        lu_gp = pad2(lu)
+        hr_gp = pad2(grid.hhq_rest.cpu().numpy())
+        try:
+            gprof = fl.metrics_profile_from_grid(grid, glay, self.periodic_y)
+            self.metrics_2d = self.fast2d = False
+            self.met_map = None
+            dxdy = (gprof[0] * gprof[1])[None, :]
+            recips = (gprof[10:11], gprof[11:12],
+                      (gprof[14] * gprof[15])[None])
+            # one profile per y band, shared by the shards of the band
+            mets = []
+            for j in range(py):
+                y0, h = int(self.y_edges[j]), self.ly[j] + 2 * M
+                mets.append(torch.from_numpy(np.ascontiguousarray(np.pad(
+                    gprof[:, y0:y0 + h], ((0, 0), (0, Ysp - h)),
+                    mode="edge"))).to(dev))
+            self.met_shards = [[mets[j] for j in range(py)]
+                               for _ in range(px)]
+        except ValueError:
+            self.metrics_2d = self.fast2d = True
+            met22 = fl.metrics_full_from_grid(grid, glay, self.periodic_x,
+                                              self.periodic_y)
+            rows = fl.fast2d_met_rows(self.n_tracers, self.visc)
+            self.met_map = {r: k for k, r in enumerate(rows)}
+            dxdy = met22[0] * met22[1]
+            recips = (met22[10], met22[11], met22[14] * met22[15])
+            met_g = met22[list(rows)]
+            self.met_shards = [[torch.from_numpy(cut(met_g, i, j, "edge"))
+                                .to(dev) for j in range(py)]
+                               for i in range(px)]
+        planes_g = fl.static_planes(lu_gp, hr_gp, dxdy, names,
+                                    interp_recips=recips)
+        self.lu_shards = [[cut(lu_gp, i, j, "constant") for j in range(py)]
+                          for i in range(px)]
+        self.hr_shards = [[cut(hr_gp, i, j, "constant") for j in range(py)]
+                          for i in range(px)]
+        self.plane_shards = [[torch.from_numpy(cut(planes_g, i, j,
+                                                   "constant")).to(dev)
+                              for j in range(py)] for i in range(px)]
+
+        # ---- the guard's flags: wet cells of the shard's own box ---------
+        self.tile = tile_shape(dev)
+        self.tile_guard = bool(tile_guard)
+        self.tile_wet = [[None] * py for _ in range(px)]
+        wet_tiles = all_tiles = 0
+        for i in range(px):
+            for j in range(py):
+                own = np.zeros((Xs, Ysp), np.float32)
+                own[M:M + self.lx[i], M:M + self.ly[j]] = \
+                    lu[self.x_edges[i]:self.x_edges[i + 1],
+                       self.y_edges[j]:self.y_edges[j + 1]]
+                wet = fl.tile_wet(own, self.lay, *self.tile)
+                wet_tiles += int(wet.sum())
+                all_tiles += wet.size
+                if self.tile_guard:
+                    self.tile_wet[i][j] = torch.from_numpy(wet).to(dev)
+        self.n_tiles = (wet_tiles, all_tiles - wet_tiles)
+        self._plan = self._exchange_plan()
+        self.strip_copies = 0
+
+    # ------------------------------------------------------------------
+    def _exchange_plan(self):
+        """The strip copies of one margin exchange, x pass then y pass:
+        ``(receiving shard, its index, sending shard, its index)``, the
+        indices over a shard's (fields, rows, columns)."""
+        M, px, py = self.M, self.px, self.py
+
+        def neighbours(k, n, periodic):
+            low = k - 1 if k > 0 else (n - 1 if periodic else None)
+            high = k + 1 if k < n - 1 else (0 if periodic else None)
+            return low, high
+
+        every = slice(None)
+        x_pass, y_pass = [], []
+        for i in range(px):
+            for j in range(py):
+                k, lx, ly = i * py + j, self.lx[i], self.ly[j]
+                cols = slice(0, ly + 2 * M)
+                low, high = neighbours(i, px, self.periodic_x)
+                if low is not None:       # its last M valid rows
+                    x_pass.append((k, (every, slice(0, M), cols),
+                                   low * py + j,
+                                   (every, slice(self.lx[low],
+                                                 self.lx[low] + M), cols)))
+                if high is not None:      # its first M valid rows
+                    x_pass.append((k, (every, slice(M + lx, 2 * M + lx),
+                                       cols), high * py + j,
+                                   (every, slice(M, 2 * M), cols)))
+                rows = slice(0, lx + 2 * M)   # the fresh x strips too
+                low, high = neighbours(j, py, self.periodic_y)
+                if low is not None:
+                    y_pass.append((k, (every, rows, slice(0, M)),
+                                   i * py + low,
+                                   (every, rows, slice(self.ly[low],
+                                                       self.ly[low] + M))))
+                if high is not None:
+                    y_pass.append((k, (every, rows,
+                                       slice(M + ly, 2 * M + ly)),
+                                   i * py + high,
+                                   (every, rows, slice(M, 2 * M))))
+        return x_pass + y_pass
+
+    def exchange(self, carry) -> None:
+        """Refresh the margins of every shard of ``carry`` in place from
+        its neighbours' valid cells (counted in ``strip_copies``)."""
+        for dst, into, src, what in self._plan:
+            carry[dst][into].copy_(carry[src][what])
+        self.strip_copies += len(self._plan)
+
+    # ------------------------------------------------------------------
+    def pack(self, state: SWState) -> tuple:
+        """SWState -> one ``(6 + 2 T, Xs, Ysp)`` float32 tensor per shard,
+        row-major over the mesh: the 6 SW fields, then ff_0, ffp_0, ...,
+        each shard's own cells at offset (M, M), margins and pad zero
+        (the first exchange fills the margins). A state whose mu is not
+        ``mu_const`` everywhere is refused."""
+        if not bool((state.mu == self.mu_const).all()):
+            raise ValueError("fused path requires state.mu == mu_const "
+                             f"({self.mu_const}) everywhere")
+        fields = [getattr(state, n) for n in CARRIED]
+        for t in range(self.n_tracers):
+            fields += [state.ff[t], state.ffp[t]]
+        whole = torch.stack([f.to(torch.float32) for f in fields])
+        M, carry = self.M, []
+        for i in range(self.px):
+            for j in range(self.py):
+                c = torch.zeros((len(fields), self.lay.Xs, self.lay.Ys),
+                                dtype=torch.float32, device=whole.device)
+                c[:, M:M + self.lx[i], M:M + self.ly[j]] = \
+                    whole[:, self.x_edges[i]:self.x_edges[i + 1],
+                          self.y_edges[j]:self.y_edges[j + 1]]
+                carry.append(c)
+        return tuple(carry)
+
+    def extract(self, carry) -> tuple:
+        """The shards' own cells -> the 6 + 2 T physical (nx, ny) fields."""
+        M = self.M
+        out = torch.empty((carry[0].shape[0], self.grid.nx, self.grid.ny),
+                          dtype=torch.float32, device=carry[0].device)
+        for i in range(self.px):
+            for j in range(self.py):
+                out[:, self.x_edges[i]:self.x_edges[i + 1],
+                    self.y_edges[j]:self.y_edges[j + 1]] = \
+                    carry[i * self.py + j][:, M:M + self.lx[i],
+                                           M:M + self.ly[j]]
+        return out.unbind(0)
+
+    def unpack(self, carry, template: SWState) -> SWState:
+        """The carry -> a full SWState in ``template``'s dtype, as
+        ``FusedSWModel.unpack`` gives it."""
+        return state_from_fields(self.extract(carry), template, self.grid,
+                                 self.cfg, self.n_tracers)
+
+    # ------------------------------------------------------------------
+    def make_runner(self, n_inner: int):
+        """``runner(carry) -> (carry', ok)``: ``n_inner`` steps, each one
+        margin exchange and one launch per shard. The runner owns the
+        carry it is given (the exchange writes its margins) and a second
+        set of buffers; the carry it returns is one of the two. The
+        per-step max |ssh| over all shards accumulates on the device
+        (``torch.maximum``, which propagates NaN) and is read once at the
+        end of the window."""
+        spc = self.steps_per_call
+        if n_inner % spc:
+            raise ValueError(f"n_inner={n_inner} not a multiple of "
+                             f"steps_per_call={spc}")
+        sw = self.cfg.sw
+        shards = [(i, j) for i in range(self.px) for j in range(self.py)]
+        tx, ty = self.tile
+        n_blocks = (-(-self.lay.Xs // tx), -(-self.lay.Ys // ty))
+
+        def runner(carry):
+            cur = list(carry)
+            # both buffers' margins and pad start at zero; only the
+            # exchange (margins) and the kernel (boxes) write afterwards
+            nxt = [torch.zeros_like(c) for c in cur]
+            cur_f = [c.unbind(0) for c in cur]
+            nxt_f = [c.unbind(0) for c in nxt]
+            dev = cur[0].device
+            blockmax = torch.zeros((len(shards),) + n_blocks,
+                                   dtype=torch.float32, device=dev)
+            mx = torch.zeros((), dtype=torch.float32, device=dev)
+            for _ in range(n_inner):
+                self.exchange(cur)
+                for k, (i, j) in enumerate(shards):
+                    fused_sw_step_raw(
+                        cur_f[k], nxt_f[k], blockmax[k],
+                        self.met_shards[i][j], self.plane_shards[i][j],
+                        self.shard_lay[i][j], self.tau, sw.time_smooth,
+                        self.hr_const, self.tile_wet[i][j], self.tile,
+                        self.met_map, self.mu_const, self.visc)
+                mx = torch.maximum(mx, torch.amax(blockmax))
+                cur, nxt, cur_f, nxt_f = nxt, cur, nxt_f, cur_f
+            return tuple(cur), bool(mx < swk.SSH_ERR_BOUND)  # NaN: False
+
+        return runner

@@ -12,11 +12,14 @@
 //   with the diffusive fluxes of a non-zero mu (:967-998); flat bathymetry
 //   folded into a scalar or varying bathymetry on the hrludxdy and hr
 //   planes (aq_of :459-470, :731, :947-951, :1016); and its land-tile
-//   guard (`guarded` :1106-1131, scalar-prefetch call :1630).
+//   guard (`guarded` :1106-1131, scalar-prefetch call :1630); and its raw /
+//   sharded form `step_raw` (:1652-1673: `guard_y_margin`, `alias_io`), the
+//   step on one shard's margined block whose margins hold the neighbouring
+//   shards' wet cells.
 //   Plain PyTorch version: ops/fused_step.py::fused_sw_step_reference,
 //   which evaluates the same formulas in the same order.
 //
-// One kernel template, fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP>,
+// One kernel template, fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW>,
 // instantiated for NT = 0, 1, 2 tracers, with and without the guard, with
 // profile or plane metrics, MU = 0 (mu = 0), 1 (the tracers' diffusive
 // fluxes only: mu != 0 with the viscosity switched off) or 2 (viscosity,
@@ -96,10 +99,29 @@
 // divides nowhere (its metric ratios are host rows, zeroed where not
 // finite) and selects 0 off the wet sets, so land stays exactly 0.
 //
-// With -DFUSED_NT=n only the forms with n tracers are compiled: the
-// package builds the three values as three libraries, side by side.
+// The raw form (RAW): the array is one shard of a mesh, (lx + 2 M) x
+// (ly + 2 M) cells and pad beyond; its margin holds the neighbouring
+// shards' cells (or land, at the basin's edge) and the caller refreshes it
+// between launches. A block computes as in the other forms, but stores
+// only inside the shard's valid box [M, M + lx) x [M, M + ly), which is
+// also the box of the max: a margin cell's stencil is cut off by the
+// array's edge, so what a block would compute there is wrong, and the pad
+// beyond the box must stay what it was. The TPU form writes its outputs
+// onto its inputs; with thousands of blocks in flight that would race (a
+// block's halo is another block's output), so the caller keeps two buffers
+// a field and the outputs go to the other one. An all-land tile of the
+// guard writes its zeros inside the box only. RAW is a compile-time flag:
+// the other forms' code does not depend on it.
+//
+// With -DFUSED_NT=n only the forms with n tracers are compiled, with
+// -DFUSED_RAW_NT=n only their raw forms: the package builds the six as six
+// libraries, side by side.
 
 #include "fused_tile.cuh"
+
+#ifdef FUSED_RAW_NT
+#define FUSED_NT FUSED_RAW_NT
+#endif
 
 namespace {
 
@@ -177,13 +199,19 @@ __device__ __forceinline__ bool inside(const Params& p, int gx, int gy) {
   return gx >= 0 && gx < p.Xs && gy >= 0 && gy < p.Ys;
 }
 
+// inside the valid box (the interior; a shard's own cells in the raw form)
+__device__ __forceinline__ bool in_box(const Params& p, int gx, int gy) {
+  return gx >= p.margin && gx < p.margin + p.nx
+      && gy >= p.margin && gy < p.margin + p.ny;
+}
+
 // f[gx, gy], 0 outside the array
 __device__ __forceinline__ float at(const Params& p, const float* f,
                                     int gx, int gy) {
   return inside(p, gx, gy) ? f[(size_t)gx * p.Ys + gy] : 0.f;
 }
 
-template <int NT, bool GUARD, bool MET2D, int MU, bool HRP>
+template <int NT, bool GUARD, bool MET2D, int MU, bool HRP, bool RAW>
 __global__ void
 __launch_bounds__(NTHREADS, MIN_BLOCKS)
 fused_sw_step_kernel(const Params p) {
@@ -204,6 +232,7 @@ fused_sw_step_kernel(const Params p) {
         const int gx = blockIdx.y * TX + i / TY;
         const int gy = blockIdx.x * TY + i % TY;
         if (!inside(p, gx, gy)) continue;
+        if (RAW && !in_box(p, gx, gy)) continue;
         const size_t g = (size_t)gx * p.Ys + gy;
         p.ssh_o[g] = 0.f; p.sshp_o[g] = 0.f;
         p.u_o[g] = 0.f; p.up_o[g] = 0.f;
@@ -458,6 +487,7 @@ fused_sw_step_kernel(const Params p) {
       }
       if (NT) { s_cx[k] = un; s_cy[k] = vn; }   // 0 off the u / v wet sets
       if (ring > 0) continue;
+      if (RAW && !in_box(p, gx, gy)) continue;   // the margin is not ours
 
       // leapfrog rotation + Robert-Asselin filter
       const float ssh_new = wlu ? sshn : ssh;
@@ -528,6 +558,7 @@ fused_sw_step_kernel(const Params p) {
       const int a = HALO + i / TY, b = HALO + i % TY;
       const int k = a * S + b, gx = x0 + a, gy = y0 + b;
       if (!inside(p, gx, gy)) continue;
+      if (RAW && !in_box(p, gx, gy)) continue;
       const size_t g = (size_t)gx * p.Ys + gy;
       const bool wlu = s_ld[k] > 0.5f;
       // bp = hhq_n*area, bp0 = hhq_p*area with hhq_n = hr,
@@ -566,14 +597,21 @@ fused_sw_step_kernel(const Params p) {
   }
 }
 
+// whether this library holds the raw forms (and then no other)
+#ifdef FUSED_RAW_NT
+constexpr bool RAW_BUILD = true;
+#else
+constexpr bool RAW_BUILD = false;
+#endif
+
 template <int NT, bool GUARD, bool MET2D, int MU, bool HRP>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<NT>(MU == 2);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP>,
+      fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP>
+  fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD>
       <<<dim3((p.Ys + TY - 1) / TY, (p.Xs + TX - 1) / TX), NTHREADS,
          smem, stream>>>(p);
   return (int)cudaGetLastError();
@@ -621,7 +659,8 @@ int fused_sw_step_tile_y() { return TY; }
 // How many metric rows fused_sw_step_launch takes slots for.
 int fused_sw_step_n_met() { return N_MET; }
 
-// The tracer count this library was built for (-DFUSED_NT), or -1 for all.
+// The tracer count this library was built for (-DFUSED_NT, -DFUSED_RAW_NT),
+// or -1 for all.
 int fused_sw_step_built_for() {
 #ifdef FUSED_NT
   return FUSED_NT;
@@ -629,6 +668,9 @@ int fused_sw_step_built_for() {
   return -1;
 #endif
 }
+
+// 1 if this library holds the raw forms (-DFUSED_RAW_NT), else 0.
+int fused_sw_step_built_raw() { return RAW_BUILD ? 1 : 0; }
 
 const char* fused_sw_step_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -646,18 +688,21 @@ const char* fused_sw_step_error_string(int code) {
 // bathymetry (then `hr` is unread), hrludxdy (n_planes = 5) and hr (6, which
 // viscosity and tracers need). visc != 0 runs the lateral viscosity with
 // the constant `mu`; tracers take their diffusive fluxes whenever mu != 0.
+// raw != 0 asks for the raw form, which stores only inside the box
+// [margin, margin + nx) x [margin, margin + ny) of the outputs; a library
+// holds either the raw forms or the others.
 int fused_sw_step_launch(
     const float* ssh, const float* sshp, const float* u, const float* up,
     const float* v, const float* vp, const float* met, const float* planes,
     float* ssh_o, float* sshp_o, float* u_o, float* up_o, float* v_o,
     float* vp_o, float* blockmax, const float* const* tr_in,
     float* const* tr_out, const int* tile_wet, const int* met_slots,
-    int met2d, int n_tracers, int n_planes, int visc, int Xs, int Ys,
-    int nx, int ny, int margin, float hr, float mu, float neg_g,
+    int met2d, int n_tracers, int n_planes, int visc, int raw, int Xs,
+    int Ys, int nx, int ny, int margin, float hr, float mu, float neg_g,
     float two_tau, float neg_two_tau, float inv_two_tau, float ts1,
     float ts2, void* stream) {
   if (n_tracers < 0 || n_tracers > MAX_TRACERS || n_planes < 4
-      || n_planes > 6)
+      || n_planes > 6 || (raw != 0) != RAW_BUILD)
     return (int)cudaErrorInvalidValue;
   const int mu_mode = visc ? 2 : (n_tracers > 0 && mu != 0.f ? 1 : 0);
   // varying bathymetry with viscosity or tracers reads the hr plane too

@@ -121,7 +121,25 @@ def staggered_wet_masks(lu) -> tuple:
             lu_b.astype(np.float32))
 
 
-def metrics_profile_from_grid(grid, lay: FusedLayout) -> np.ndarray:
+def _extend(a: np.ndarray, m: int, size: int, wrap: bool,
+            axis: int) -> np.ndarray:
+    """``a`` with ``m`` cells put before it and ``size - n - m`` after it
+    along ``axis``: copies of its edge values, or, with ``wrap``, its far
+    edge's cells in the ``m`` cells on either side (a periodic axis) and
+    copies of the edge beyond them."""
+    n = a.shape[axis]
+    pad = [(0, 0)] * a.ndim
+    if wrap:
+        pad[axis] = (m, m)
+        a = np.pad(a, pad, mode="wrap")
+        pad[axis] = (0, size - n - 2 * m)
+    else:
+        pad[axis] = (m, size - n - m)
+    return np.pad(a, pad, mode="edge")
+
+
+def metrics_profile_from_grid(grid, lay: FusedLayout,
+                              periodic_y: bool = False) -> np.ndarray:
     """The (N_PROF, Ys) latitude profiles of an x-uniform grid; raises
     ValueError if a metric varies along x. Row meanings:
 
@@ -129,33 +147,36 @@ def metrics_profile_from_grid(grid, lay: FusedLayout) -> np.ndarray:
     10-15 1/dxt, 1/dyt, 1/dxh, 1/dyh, 1/dxb, 1/dyb; 16 (dyt-dyb)/4;
     17 (dxt(n+1)-dxb)/4; 18 (dxt-dxb)/4; 19 dy/dx; 20 dx/dy;
     21 rlh_s*dxb*dyb/4.
+
+    The grid's metrics are extended into the y margins, so reciprocals
+    stay finite: by their edge values, or, on a periodic y axis
+    (``periodic_y``, which needs ``lay.Ys == lay.ny + 2 * lay.margin``),
+    by the values across the seam, where row 17's n + 1 wraps too.
     """
     rows = np.zeros((N_PROF, lay.Ys), np.float32)
-    yp = lay.margin
     for k, name in enumerate(METRIC_NAMES):
         f = getattr(grid, name).cpu().numpy()
         if not np.array_equal(f, np.broadcast_to(f[:1, :], f.shape)):
             raise ValueError(f"metric {name} is not x-uniform")
-        rows[k, yp:yp + lay.ny] = f[0, :]
-        # extend into the y margins so reciprocals stay finite
-        rows[k, :yp] = f[0, 0]
-        rows[k, yp + lay.ny:] = f[0, -1]
-    _derive_metric_rows(rows)
+        rows[k] = _extend(f[0, :], lay.margin, lay.Ys, periodic_y, 0)
+    _derive_metric_rows(rows, periodic_y)
     return rows
 
 
-def _derive_metric_rows(rows: np.ndarray) -> None:
+def _derive_metric_rows(rows: np.ndarray, wrap_y: bool = False) -> None:
     """Fill rows 9-21 of a (>= 22, ..., Ys) metric stack from its rows
-    0-8, pointwise in float32; the last axis is y. What is not finite
-    (a zero metric) becomes 0."""
+    0-8, pointwise in float32; the last axis is y, and dxt(n+1) wraps
+    along it with ``wrap_y``. What is not finite (a zero metric) becomes
+    0."""
     with np.errstate(divide="ignore", invalid="ignore"):
         rows[9] = np.float32(1.0) / (rows[0] * rows[1])
         for k, src in ((10, 2), (11, 3), (12, 4), (13, 5), (14, 6),
                        (15, 7)):
             rows[k] = np.float32(1.0) / rows[src]
         rows[16] = (rows[3] - rows[7]) * np.float32(0.25)
-        dxt_n1 = np.concatenate([rows[2][..., 1:], rows[2][..., -1:]],
-                                axis=-1)
+        dxt_n1 = (np.roll(rows[2], -1, axis=-1) if wrap_y else
+                  np.concatenate([rows[2][..., 1:], rows[2][..., -1:]],
+                                 axis=-1))
         rows[17] = (dxt_n1 - rows[6]) * np.float32(0.25)
         rows[18] = (rows[2] - rows[6]) * np.float32(0.25)
         rows[19] = rows[1] / rows[0]
@@ -164,25 +185,23 @@ def _derive_metric_rows(rows: np.ndarray) -> None:
     rows[9:][~np.isfinite(rows[9:])] = 0.0
 
 
-def metrics_full_from_grid(grid, lay: FusedLayout) -> np.ndarray:
+def metrics_full_from_grid(grid, lay: FusedLayout, periodic_x: bool = False,
+                           periodic_y: bool = False) -> np.ndarray:
     """The (N_FULL, Xs, Ys) metric planes of a grid whose metrics vary
     along x and y (bipolar / curvilinear): the rows of
     :func:`metrics_profile_from_grid`, computed pointwise in the same
     order of float32 operations. The 9 grid metrics are edge-replicated
     through the whole margin (y first, then the x rows, which covers the
-    corners) before rows 9-21 are derived, so no reciprocal is infinite;
-    row 17 takes dxt at n + 1 after that replication."""
+    corners), or wrapped across the seam of a periodic axis, before rows
+    9-21 are derived, so no reciprocal is infinite; row 17 takes dxt at
+    n + 1 after that."""
     planes = np.zeros((N_FULL, lay.Xs, lay.Ys), np.float32)
     m = lay.margin
     for k, name in enumerate(METRIC_NAMES):
         f = getattr(grid, name).cpu().numpy().astype(np.float32)
-        p = planes[k]
-        p[m:m + lay.nx, m:m + lay.ny] = f
-        p[m:m + lay.nx, :m] = f[:, :1]
-        p[m:m + lay.nx, m + lay.ny:] = f[:, -1:]
-        p[:m, :] = p[m, :]
-        p[m + lay.nx:, :] = p[m + lay.nx - 1, :]
-    _derive_metric_rows(planes)
+        planes[k] = _extend(_extend(f, m, lay.Ys, periodic_y, 1), m, lay.Xs,
+                            periodic_x, 0)
+    _derive_metric_rows(planes, periodic_y)
     return planes
 
 

@@ -37,10 +37,19 @@ With ``tile_wet`` the step is guarded: an output tile whose flag is 0
 (no wet cell) is not computed and gets exact zeros, which is what its
 land cells hold anyway.
 
-:func:`fused_sw_step` takes CPU tensors to :func:`fused_sw_step_reference`
-and CUDA tensors to the hand-written kernel (``csrc/fused_step.cu``),
-which it builds on first use; a kernel that does not build or launch
-raises.
+The raw form (:func:`fused_sw_step_raw`, counterpart of ``step_raw``,
+:1652-1673 of the TPU file) runs the same step on one shard of a
+mesh: the array is the shard's valid box ``[M, M + lay.nx) x [M, M +
+lay.ny)`` inside a margin that holds the neighbouring shards' cells, and
+pad beyond. The outputs are the caller's own tensors, other ones than the
+inputs, and only their box is written: margin and pad keep what they
+held, and the max is over the box. The statics are the caller's per-shard
+tensors, as in every form of the port.
+
+:func:`fused_sw_step` and :func:`fused_sw_step_raw` take CPU tensors to
+:func:`fused_sw_step_reference` and CUDA tensors to the hand-written
+kernel (``csrc/fused_step.cu``), which they build on first use; a kernel
+that does not build or launch raises.
 """
 
 from __future__ import annotations
@@ -137,14 +146,16 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
                             tau: float, time_smooth: float,
                             hr_const: float | None, tile_wet=None,
                             tile=None, met_map=None, mu_const: float = 0.0,
-                            visc: bool = False):
+                            visc: bool = False, outs=None):
     """One fused step in plain PyTorch on whole arrays, with the kernel's
     formulas in the kernel's order (see csrc/fused_step.cu). ``tile_wet``
     (with its ``tile`` shape) reproduces the guard: zeros, and a max of
     0, in every tile flagged all-land. ``met_map``: None for profile
     metrics, else the row -> plane map of a (n, Xs, Ys) ``met``.
     ``hr_const=None``: varying bathymetry on the planes of
-    :func:`kernel_planes`."""
+    :func:`kernel_planes`. ``outs``: the raw form -- the box ``[M, M +
+    lay.nx) x [M, M + lay.ny)`` of these 6 + 2 T tensors is written and
+    they are returned, everything else in them untouched."""
     n_tr = n_tracers_of(fields)
     ssh, sshp, u, up, v, vp = fields[:N_FIELDS]
     rslu_u, rslu_v, rslu_h, ld = planes[:4]
@@ -276,12 +287,17 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
         cells = _wet_cells(tile_wet, tile, lay)
         out = [torch.where(cells, o, 0.0) for o in out]
     m = lay.margin
-    mx = torch.amax(out[0][m:m + lay.nx, m:m + lay.ny].abs())
+    box = (slice(m, m + lay.nx), slice(m, m + lay.ny))
+    mx = torch.amax(out[0][box].abs())
+    if outs is not None:
+        for o, new in zip(outs, out):
+            o[box] = new[box]
+        out = outs
     return tuple(out), mx
 
 
 def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
-                  tile, met_map, hr_const, visc) -> None:
+                  tile, met_map, hr_const, visc, outs=None) -> None:
     n_tr = n_tracers_of(fields)
     if n_tr > MAX_TRACERS:
         raise ValueError(f"the kernel takes at most {MAX_TRACERS} "
@@ -297,9 +313,11 @@ def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
         met_shape = (met.shape[0], lay.Xs, lay.Ys)
     names = kernel_planes(n_tr, visc, hr_const is None)
     want = {"field": (lay.Xs, lay.Ys), "met": met_shape,
-            "planes " + ", ".join(names): (len(names), lay.Xs, lay.Ys)}
+            "planes " + ", ".join(names): (len(names), lay.Xs, lay.Ys),
+            "output": (lay.Xs, lay.Ys)}
     dev = fields[0].device
-    for (kind, shape), ts in zip(want.items(), (fields, [met], [planes])):
+    for (kind, shape), ts in zip(want.items(), (fields, [met], [planes],
+                                                outs or ())):
         for t in ts:
             if (dev.type != "cuda" or t.device != dev
                     or t.dtype != torch.float32):
@@ -327,27 +345,40 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
                            tau: float, time_smooth: float,
                            hr_const: float | None, tile_wet=None, tile=None,
                            met_map=None, mu_const: float = 0.0,
-                           visc: bool = False):
+                           visc: bool = False, outs=None, blockmax=None):
     """Launch the CUDA kernel once on CUDA tensors (counted in
     ``fused_sw_step.launches``, and per kernel instantiation ``(T,
-    guarded, 2D metrics, mu mode, bathymetry planes)`` in
+    guarded, 2D metrics, mu mode, bathymetry planes, raw)`` in
     ``fused_sw_step.form_launches``; :func:`mu_mode` names the modes).
     Returns ``(6 + 2 T new fields, the (x tiles, y tiles) per-block max
     |ssh_new| over interior cells)``; raises if the kernel does not build
-    or launch."""
+    or launch. With ``outs`` (and ``blockmax``, a contiguous float32
+    (x tiles, y tiles) tensor) it launches the raw form into them and
+    allocates nothing."""
     visc = bool(visc)
+    raw = outs is not None
     _check_inputs(fields, met, planes, lay, tile_wet, tile, met_map,
-                  hr_const, visc)
+                  hr_const, visc, outs)
     n_tr = n_tracers_of(fields)
-    lib = _library(n_tr)
+    lib = _library(n_tr, raw)
     # where each metric row the kernel reads sits in met (-1: not there)
     where = {r: r for r in KERNEL_MET_ROWS} if met_map is None else met_map
     slots = (ctypes.c_int * len(KERNEL_MET_ROWS))(
         *(where.get(r, -1) for r in KERNEL_MET_ROWS))
     tx, ty = tile_shape(fields[0].device)
-    outs = tuple(torch.empty_like(f) for f in fields)
-    blockmax = torch.empty((-(-lay.Xs // tx), -(-lay.Ys // ty)),
-                           dtype=torch.float32, device=fields[0].device)
+    n_blocks = (-(-lay.Xs // tx), -(-lay.Ys // ty))
+    if raw:
+        if (blockmax is None or blockmax.device != fields[0].device
+                or blockmax.dtype != torch.float32
+                or tuple(blockmax.shape) != n_blocks
+                or not blockmax.is_contiguous()):
+            raise ValueError("blockmax: the raw form needs a contiguous "
+                             f"float32 {n_blocks} tensor on "
+                             f"{fields[0].device}")
+    else:
+        outs = tuple(torch.empty_like(f) for f in fields)
+        blockmax = torch.empty(n_blocks, dtype=torch.float32,
+                               device=fields[0].device)
     ptr = [t.data_ptr() for t in (*fields[:N_FIELDS], met, planes,
                                   *outs[:N_FIELDS], blockmax)]
     tr_in = (ctypes.c_void_p * (2 * n_tr))(
@@ -359,7 +390,7 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
             *ptr, tr_in, tr_out,
             None if tile_wet is None else tile_wet.data_ptr(), slots,
             int(met_map is not None), n_tr, planes.shape[0], int(visc),
-            lay.Xs, lay.Ys, lay.nx, lay.ny, lay.margin,
+            int(raw), lay.Xs, lay.Ys, lay.nx, lay.ny, lay.margin,
             0.0 if hr_const is None else float(hr_const), float(mu_const),
             *_scalars(tau, time_smooth),
             torch.cuda.current_stream().cuda_stream)
@@ -369,7 +400,7 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
     fused_sw_step.launches += 1
     fused_sw_step.form_launches[
         n_tr, tile_wet is not None, met_map is not None,
-        mu_mode(n_tr, mu_const, visc), hr_const is None] += 1
+        mu_mode(n_tr, mu_const, visc), hr_const is None, raw] += 1
     return outs, blockmax
 
 
@@ -398,6 +429,40 @@ def fused_sw_step(fields, met, planes, lay: FusedLayout, tau: float,
     return outs, torch.amax(blockmax)
 
 
+def fused_sw_step_raw(fields, outs, blockmax, met, planes, lay: FusedLayout,
+                      tau: float, time_smooth: float,
+                      hr_const: float | None, tile_wet=None, tile=None,
+                      met_map=None, mu_const: float = 0.0,
+                      visc: bool = False) -> None:
+    """One fused step on a shard's margined block, into the caller's
+    tensors: the box ``[M, M + lay.nx) x [M, M + lay.ny)`` of ``outs``
+    (6 + 2 T tensors, none of them an input) gets the new fields, every
+    other cell of them stays what it was, and ``blockmax`` ((x tiles, y
+    tiles) of ``tile``, float32) gets each tile's max |ssh_new| over the
+    box, NaN-propagating. The plain version for CPU tensors, the CUDA
+    kernel's raw form for CUDA tensors. The other arguments are those of
+    :func:`fused_sw_step`."""
+    if len(outs) != len(fields) or any(o is f for o in outs for f in fields):
+        raise ValueError(f"outs: need {len(fields)} tensors, none of them "
+                         "an input (the step cannot run in place)")
+    if fields[0].device.type != "cpu":
+        fused_sw_step_blockmax(fields, met, planes, lay, tau, time_smooth,
+                               hr_const, tile_wet, tile, met_map, mu_const,
+                               visc, outs, blockmax)
+        return
+    fused_sw_step_reference(fields, met, planes, lay, tau, time_smooth,
+                            hr_const, tile_wet, tile, met_map, mu_const,
+                            visc, outs)
+    tx, ty = tile
+    m = lay.margin
+    a = torch.zeros((blockmax.shape[0] * tx, blockmax.shape[1] * ty),
+                    dtype=torch.float32)
+    box = (slice(m, m + lay.nx), slice(m, m + lay.ny))
+    a[box] = outs[0][box].abs()
+    blockmax.copy_(a.reshape(blockmax.shape[0], tx, blockmax.shape[1],
+                             ty).amax(dim=(1, 3)))
+
+
 def reset_launch_counts() -> None:
     """Zero ``fused_sw_step.launches`` and ``.form_launches``."""
     fused_sw_step.launches = 0
@@ -409,31 +474,37 @@ reset_launch_counts()
 
 def library_targets() -> tuple:
     """The build targets of csrc/fused_step.cu (``_build.build_all``
-    takes them): one library per tracer count, so they build at once."""
-    return tuple(f"fused_step@FUSED_NT={n}" for n in range(MAX_TRACERS + 1))
+    takes them): one library per tracer count, then one per tracer count
+    for the raw forms, so they build at once."""
+    return tuple(f"fused_step@{macro}={n}"
+                 for macro in ("FUSED_NT", "FUSED_RAW_NT")
+                 for n in range(MAX_TRACERS + 1))
 
 
 @functools.lru_cache(maxsize=None)
-def _library(n_tracers: int = 0) -> ctypes.CDLL:
-    """csrc/fused_step.cu's forms with ``n_tracers`` tracers, built on
-    first use, with their C signatures."""
-    lib = load(library_targets()[n_tracers])
+def _library(n_tracers: int = 0, raw: bool = False) -> ctypes.CDLL:
+    """csrc/fused_step.cu's forms (its raw forms with ``raw``) with
+    ``n_tracers`` tracers, built on first use, with their C signatures."""
+    lib = load(library_targets()[n_tracers + raw * (MAX_TRACERS + 1)])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.fused_sw_step_tile_x, lib.fused_sw_step_tile_y,
-               lib.fused_sw_step_n_met, lib.fused_sw_step_built_for):
+               lib.fused_sw_step_n_met, lib.fused_sw_step_built_for,
+               lib.fused_sw_step_built_raw):
         fn.argtypes = []
         fn.restype = i
     if lib.fused_sw_step_n_met() != len(KERNEL_MET_ROWS):
         raise RuntimeError("csrc/fused_step.cu reads "
                            f"{lib.fused_sw_step_n_met()} metric rows, the "
                            f"wrapper passes {len(KERNEL_MET_ROWS)}")
-    if lib.fused_sw_step_built_for() != n_tracers:
+    if (lib.fused_sw_step_built_for() != n_tracers
+            or bool(lib.fused_sw_step_built_raw()) != bool(raw)):
         raise RuntimeError("the fused step's library was built for "
-                           f"{lib.fused_sw_step_built_for()} tracers, not "
-                           f"{n_tracers}")
+                           f"{lib.fused_sw_step_built_for()} tracers, raw "
+                           f"{lib.fused_sw_step_built_raw()}, not "
+                           f"{n_tracers}, {int(raw)}")
     lib.fused_sw_step_error_string.argtypes = [i]
     lib.fused_sw_step_error_string.restype = ctypes.c_char_p
-    lib.fused_sw_step_launch.argtypes = ([p] * 19 + [i] * 9 + [f] * 8
+    lib.fused_sw_step_launch.argtypes = ([p] * 19 + [i] * 10 + [f] * 8
                                          + [p])
     lib.fused_sw_step_launch.restype = i
     return lib

@@ -20,6 +20,21 @@ Defaults to the Azov 250 m extents 1525 x 1115. Each ``mask`` is the word
 extents (``data/AS/maskAzovCor.txt``); without one only the unguarded
 forms run. The first line printed is the card's name
 and power limit. Needs a CUDA device and nvcc; there is no CPU path.
+
+The raw form of the fused step (one launch per shard of a mesh,
+``model/fused_sharded2d.py``) runs on a shard's own array, whose layout
+is that of a basin of the shard's extents: probe it with those extents
+and the shard's part of the coastline, ``file@NXxNY+x0+y0`` (the file
+read at NX x NY, cut at offset x0, y0). One shard of the 2 x 2 uniform
+split of the Azov basin is
+
+    python scripts/roofline_probe_torch.py 763 558 \
+        data/AS/maskAzovCor.txt@1525x1115+0+0
+
+and its rows ``T=2 profile metrics viscous bathymetry planes`` and ``T=0
+plane metrics`` are the copy steps of the forms that split launches
+(chip_smoke.py reads them so). The copy step stores whole tiles where
+the raw form stores only the shard's box.
 """
 
 from __future__ import annotations
@@ -159,11 +174,30 @@ def form_name(row: dict) -> str:
             + f" guard {row['guard'] or 'off'}")
 
 
+def mask_argument(arg: str, nx: int, ny: int) -> np.ndarray:
+    """The (nx, ny) mask a command-line word names: ``frame``, a mask
+    file of those extents, or ``file@NXxNY+x0+y0``, the part of an
+    NX x NY file that starts at (x0, y0)."""
+    if arg == "frame":
+        return frame_of_land_mask(nx, ny)
+    path, _, cut = arg.partition("@")
+    if not cut:
+        return read_mask(path, nx, ny)
+    size, x0, y0 = cut.split("+")
+    full_x, full_y = (int(v) for v in size.split("x"))
+    part = read_mask(path, full_x, full_y)[int(x0):int(x0) + nx,
+                                           int(y0):int(y0) + ny]
+    if part.shape != (nx, ny):
+        raise ValueError(f"{arg}: the cut leaves {part.shape}, not "
+                         f"{(nx, ny)}")
+    return np.ascontiguousarray(part)
+
+
 def main(argv) -> int:
     nx = int(argv[1]) if len(argv) > 1 else 1525
     ny = int(argv[2]) if len(argv) > 2 else 1115
-    masks = [(os.path.basename(a), frame_of_land_mask(nx, ny)
-              if a == "frame" else read_mask(a, nx, ny)) for a in argv[3:]]
+    masks = [(os.path.basename(a), mask_argument(a, nx, ny))
+             for a in argv[3:]]
     if not torch.cuda.is_available():
         print("roofline_probe_torch: torch.cuda.is_available() is False; "
               "the probe needs a CUDA device", file=sys.stderr)

@@ -162,8 +162,9 @@ def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
 def test_build_targets_with_a_define_get_their_own_library(tmp_path,
                                                            monkeypatch):
     """``<source>@<MACRO>=<value>`` compiles the source with -D into a
-    library named after the target: the fused step's three tracer counts
-    build side by side and never share a file."""
+    library named after the target: the fused step's three tracer counts,
+    and their three raw forms, build side by side and never share a
+    file."""
     cmds = []
 
     def fake_run(cmd, **kw):
@@ -175,16 +176,20 @@ def test_build_targets_with_a_define_get_their_own_library(tmp_path,
     monkeypatch.setattr(_build.subprocess, "run", fake_run)
     targets = fstep.library_targets()
     assert targets == ("fused_step@FUSED_NT=0", "fused_step@FUSED_NT=1",
-                       "fused_step@FUSED_NT=2")
+                       "fused_step@FUSED_NT=2", "fused_step@FUSED_RAW_NT=0",
+                       "fused_step@FUSED_RAW_NT=1",
+                       "fused_step@FUSED_RAW_NT=2")
     for t in targets + ("fused_step",):
         with pytest.raises(RuntimeError, match="stop"):
             _build.build(t)
     outs = [os.path.basename(c[c.index("-o") + 1]) for c in cmds]
-    assert len(set(outs)) == 4
-    for n, (cmd, out) in enumerate(zip(cmds[:3], outs)):
-        assert f"-DFUSED_NT={n}" in cmd and cmd[-1].endswith("fused_step.cu")
-        assert out.startswith(f"libfused_step-FUSED_NT{n}-")
-    assert not any(a.startswith("-D") for a in cmds[3])
+    assert len(set(outs)) == 7
+    for n, (cmd, out) in enumerate(zip(cmds[:6], outs)):
+        macro = "FUSED_NT" if n < 3 else "FUSED_RAW_NT"
+        assert f"-D{macro}={n % 3}" in cmd
+        assert cmd[-1].endswith("fused_step.cu")
+        assert out.startswith(f"libfused_step-{macro}{n % 3}-")
+    assert not any(a.startswith("-D") for a in cmds[6])
     assert "--use_fast_math" not in " ".join(cmds[0])
 
 
@@ -247,3 +252,23 @@ def test_probe_script_fails_without_a_card():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode != 0 and "CUDA" in res.stderr
     assert res.stdout == ""
+
+
+def test_probe_mask_argument_cuts_a_shard():
+    """``file@NXxNY+x0+y0`` names a shard's part of a basin's mask: the
+    raw form's array is probed at the shard's own extents, whose layout
+    is the sharded model's."""
+    from ocean_model_arch_torch.io.mask_io import read_mask
+    probe = _probe_module()
+    path = os.path.join(REPO, "data", "BS", "mask_bs4km.txt")
+    full = read_mask(path, 289, 163)
+    part = probe.mask_argument(f"{path}@289x163+145+82", 144, 81)
+    np.testing.assert_array_equal(part, full[145:, 82:])
+    np.testing.assert_array_equal(probe.mask_argument(path, 289, 163), full)
+    np.testing.assert_array_equal(probe.mask_argument("frame", 12, 9),
+                                  probe.frame_of_land_mask(12, 9))
+    with pytest.raises(ValueError, match="cut"):
+        probe.mask_argument(f"{path}@289x163+200+0", 144, 81)
+    # one shard of a 2 x 2 split has the layout of a basin of its extents
+    lay = fl.make_layout(144, 81)
+    assert (lay.Xs, lay.Ys) == (152, 96)

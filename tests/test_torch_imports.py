@@ -9,6 +9,7 @@ of them in an import. And the entry points place their tensors on the
 CUDA device unless told otherwise: without one they raise.
 """
 
+import ast
 import os
 import re
 import subprocess
@@ -38,6 +39,14 @@ MODULES = [
     "ocean_model_arch_torch.core.metrics",
     "ocean_model_arch_torch.io",
     "ocean_model_arch_torch.io.mask_io",
+    "ocean_model_arch_torch.io.native",
+    "ocean_model_arch_torch.io.grads",
+    "ocean_model_arch_torch.io.checkpoint",
+    "ocean_model_arch_torch.parallel",
+    "ocean_model_arch_torch.parallel.decomposition",
+    "ocean_model_arch_torch.utils",
+    "ocean_model_arch_torch.utils.calendar",
+    "ocean_model_arch_torch.utils.timers",
     "ocean_model_arch_torch.ops.stencil",
     "ocean_model_arch_torch.ops.sw_kernels",
     "ocean_model_arch_torch.ops.depth_kernels",
@@ -51,6 +60,9 @@ MODULES = [
     "ocean_model_arch_torch.model.init",
     "ocean_model_arch_torch.model.step",
     "ocean_model_arch_torch.model.fused",
+    "ocean_model_arch_torch.model.fused_sharded2d",
+    "ocean_model_arch_torch.model.model",
+    "ocean_model_arch_torch.__main__",
     "chip_smoke",
     "scripts.roofline_probe_torch",
 ]
@@ -101,6 +113,53 @@ def test_sources_reach_the_jax_package_only_through_host():
             if pat.search(f.read()):
                 offenders.append(os.path.relpath(path, REPO))
     assert not offenders, offenders
+
+
+def _imported_roots(path):
+    """The top-level package of every import statement in a source, at
+    any depth: inside functions and conditionals too."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_lazy_import_of_jax_either():
+    """An import inside a function counts: the scan walks every
+    statement of every source (the JAX package's own ``utils/timers.py``
+    imports jax inside ``gather``, and the scan sees it there)."""
+    lazy = os.path.join(REPO, "ocean_model_arch_tpu", "utils", "timers.py")
+    assert "jax" in _imported_roots(lazy)
+    with open(lazy) as f:
+        assert not re.search(r"^(import|from) jax", f.read(), re.M)
+    offenders = {os.path.relpath(p, REPO): sorted(bad)
+                 for p in _port_sources()
+                 if (bad := _imported_roots(p) & set(FORBIDDEN))}
+    assert not offenders, offenders
+
+
+def test_running_the_timers_loads_no_jax():
+    """``PhaseTimers.gather`` / ``reduced_report`` of the port, run in a
+    fresh interpreter, leave no forbidden module loaded."""
+    code = ("import sys\n"
+            "from ocean_model_arch_torch.utils.timers import PhaseTimers\n"
+            "t = PhaseTimers()\n"
+            "t.add('model_step', 1.5)\n"
+            "assert len(t.gather()) == 1\n"
+            "assert 'model_step' in t.reduced_report()\n"
+            "bad = sorted(m for m in sys.modules\n"
+            f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
+            "print('FORBIDDEN_MODULES', bad)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "FORBIDDEN_MODULES []" in res.stdout, res.stdout
 
 
 @pytest.mark.parametrize("entry", ["build_grid", "zero_state",
