@@ -12,9 +12,11 @@ steps_per_call=2)`` -> ``pack`` -> ``run_steps`` -> ``unpack``, in
 phases:
 
 1. device: the card, its power limit, the toolchain, the build of the
-   kernel libraries (the fused step's forms with 0, 1 and 2 tracers and
-   the copy step, started together) with ptxas's registers and spills,
-   which must stay at 42 registers and 0 bytes;
+   kernel libraries (the fused step's forms with 0, 1 and 2 tracers, raw
+   or not, with and without momentum advection and with a full or a
+   linear free surface, and the copy step: 25 libraries started
+   together) with ptxas's registers and spills, which must stay at 42
+   registers and 0 bytes;
 2. every form of the fused-step CUDA kernel (no tracers / 2 tracers,
    unguarded / tile guard, profile / plane metrics) against its plain
    PyTorch version on the card, on the 2-cell land frame mask, the
@@ -73,13 +75,26 @@ phases:
    into 2 x 2 shards on the one card, uniform and weighted cuts, 200
    steps, bit-identical to the single block on all 6 + 2 T fields, the
    guard tripping on a NaN in a shard's interior and not on one in its
-   pad; their timing lines (kernel, strip copies, device busy, path).
+   pad; their timing lines (kernel, strip copies, device busy, path);
+10. (printed before phase 7) the forms without momentum advection
+   (``trans_terms = 0``), with a linear free surface
+   (``full_free_surface = 0``) and both: (a) every instantiation against
+   the plain version as in phases 2 and 9a; (b) their main paths at
+   1525 x 1115 (``azov_notrans``, ``bipolar_azov_notrans``,
+   ``azov_linear`` and its viscous sub-path over the 15-100 m
+   bathymetry), 200 steps each against the eager composition, and their
+   timing line; (c) every shipped run directory ``examples/0*`` through
+   ``main --f32`` on the fused CUDA kernel against the eager composition
+   by hand, ``04_black_sea`` as shipped in f64 on the eager route, and
+   ``01_flat_basin --mesh 2x2`` == its 1 x 1 run bit for bit.
 
 Every phase prints its lines; any failure raises (exit code != 0). The
-line before the last is one JSON object describing the twelve kernels
-(the fused step's plain, guarded, tracer, plane-metric, viscous,
+line before the last is one JSON object describing the seventeen
+kernels (the fused step's plain, guarded, tracer, plane-metric, viscous,
 bathymetry-plane, viscous + bathymetry + tracer and viscous plane-metric
-forms, its raw form on the three paths of phase 9 and the copy step);
+forms, its raw form on the three paths of phase 9, the four forms of the
+paths of phase 10b and the raw form of ``01_flat_basin --mesh 2x2``, and
+the copy step);
 the last line is ``{"ok": true, "device": {...}}``. With ``--parent
 DIR`` (the root of another checkout of this repository) it instead holds
 every instantiation that checkout has against this one's, bit for bit
@@ -136,6 +151,11 @@ REPLACES = {"fused_sw_step": PALLAS + ":1642",
             "fused_sw_step_raw_visc_bathy_tracers": PALLAS + ":1652",
             "fused_sw_step_raw_fast2d": PALLAS + ":1652",
             "fused_sw_step_raw_tracers": PALLAS + ":1652",
+            "fused_sw_step_notrans_guarded": PALLAS + ":798",
+            "fused_sw_step_notrans_fast2d": PALLAS + ":798",
+            "fused_sw_step_linear_tracers": PALLAS + ":954",
+            "fused_sw_step_linear_visc_bathy_tracers": PALLAS + ":764",
+            "fused_sw_step_raw_notrans_guarded": PALLAS + ":1652",
             "copy_step": "scripts/roofline_probe.py:71"}
 
 
@@ -204,7 +224,8 @@ def ptxas_table(log: str) -> list:
     out, name, spill = [], None, -1
     for ln in log.splitlines():
         m = re.search(
-            r"_kernelILi(\d)E(?:Lb(\d)ELb(\d)ELi(\d)ELb(\d)ELb(\d)E)?", ln)
+            r"_kernelILi(\d)E(?:Lb(\d)ELb(\d)ELi(\d)ELb(\d)ELb(\d)E"
+            r"(?:Lb(\d)ELb(\d)E)?)?", ln)
         if m:
             name = "<" + ",".join(g for g in m.groups() if g) + ">"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -237,35 +258,40 @@ def model_args(fm, cfg):
     passes them."""
     return (fm.met, fm.planes, fm.lay, fm.tau, cfg.sw.time_smooth,
             fm.hr_const, fm.tile_wet, fm.tile, fm.met_map, fm.mu_const,
-            fm.visc)
+            fm.visc, fm.trans, fm.ffs)
 
 
 def form_key(fm) -> tuple:
     """The kernel instantiation a model launches, as the wrapper counts
     it: (tracers, guarded, plane metrics, mu mode, bathymetry planes,
-    raw). The sharded model launches the raw form."""
+    raw, advection, full free surface). The sharded model launches the
+    raw form."""
     from ocean_model_arch_torch.ops.fused_step import mu_mode
     return (fm.n_tracers, fm.tile_guard, fm.metrics_2d,
             mu_mode(fm.n_tracers, fm.mu_const, fm.visc), fm.hr_const is None,
-            hasattr(fm, "shard_lay"))
+            hasattr(fm, "shard_lay"), fm.trans, fm.ffs)
 
 
 def form_name(fm) -> str:
     """The entry of the kernels line a model's instantiation counts
     under: the four names of the inviscid flat-bathymetry forms, else
-    the features spelt out."""
+    the features spelt out, after ``notrans`` (no momentum advection)
+    and ``linear`` (a linear free surface) where the form has them."""
+    forms = "_notrans" * (not fm.trans) + "_linear" * (not fm.ffs)
     new = form_key(fm)[3] or fm.hr_const is None
-    if not new:
+    if not new and not forms:
         return ("fused_sw_step_fast2d" if fm.metrics_2d else
                 "fused_sw_step_tracers" if fm.n_tracers else
                 "fused_sw_step_guarded" if fm.tile_guard else
                 "fused_sw_step")
-    return "fused_sw_step" + "".join(
+    feats = "".join(
         "_" + w for w, on in (("visc", fm.visc),
                               ("diff", form_key(fm)[3] == 1),
                               ("bathy", fm.hr_const is None),
                               ("tracers", fm.n_tracers > 0),
                               ("fast2d", fm.metrics_2d)) if on)
+    return ("fused_sw_step" + forms
+            + (feats or "_guarded" * bool(fm.tile_guard)))
 
 
 def with_mu(state, mu: float):
@@ -321,7 +347,7 @@ def broadcast_planes(fm, n_tr):
     """The profile rows a step reads, repeated along x as (n, Xs, Ys)
     planes, with their row -> plane map."""
     from ocean_model_arch_torch.ops import fused_layout as fl
-    rows = fl.fast2d_met_rows(n_tr, fm.visc)
+    rows = fl.fast2d_met_rows(n_tr, fm.visc, fm.trans)
     planes = fm.met[list(rows)][:, None, :].expand(
         len(rows), fm.lay.Xs, fm.lay.Ys).contiguous()
     return planes, {r: i for i, r in enumerate(rows)}
@@ -461,8 +487,8 @@ def drive_path(tag, grid, cfg, tile_guard, mu=0.0):
           f"{N_MAIN} steps")
     key = form_key(fm)
     check(counts == {key: N_MAIN}, f"{tag}: launches per (tracers, guarded, "
-          f"plane metrics, mu mode, bathymetry planes, raw) {counts}, "
-          f"expected {N_MAIN} of {key}")
+          f"plane metrics, mu mode, bathymetry planes, raw, advection, "
+          f"full free surface) {counts}, expected {N_MAIN} of {key}")
     ref, eok = run_steps(make_step(grid, cfg), state, 1.0, N_MAIN)
     check(eok, f"{tag}: the eager composition's guard tripped")
     errs = {}
@@ -539,7 +565,7 @@ def copy_step_inputs(fm, s0):
     it: (the carried fields then the static planes, the metric rows the
     step reads)."""
     from ocean_model_arch_torch.ops import fused_layout as fl
-    rows = fl.fast2d_met_rows(fm.n_tracers, fm.visc)
+    rows = fl.fast2d_met_rows(fm.n_tracers, fm.visc, fm.trans)
     met = fm.met if fm.metrics_2d else fm.met[list(rows)].contiguous()
     return tuple(s0) + tuple(fm.planes), met
 
@@ -568,11 +594,15 @@ def against_parent(parent: str, card: str) -> int:
     coastline at full size, against this checkout's: profile and plane
     metrics, 0 / 1 / 2 tracers, guard off / on, mu = 0, the tracers'
     diffusive fluxes alone, viscosity, flat bathymetry and bathymetry
-    planes (the forms the parent's wrapper takes arguments for). Outputs
-    and block maxima bit for bit from a state 20 steps in, and the
-    kernel's device us/launch over three windows a side in the order
-    parent, this, this, parent, parent, this (the medians must agree
-    within 2 %; where they do not, over up to nine windows a side)."""
+    planes, each in its single-block and its raw form (the raw form on
+    the single block's layout, whose box is its interior), as far as the
+    parent's wrappers take arguments for them; forms whose further
+    arguments are not at their defaults (the advection and free-surface
+    switches) have no parent. Outputs and block maxima bit for bit from
+    a state 20 steps in, and the kernel's device us/launch over three
+    windows a side in the order parent, this, this, parent, parent, this
+    (the medians must agree within 2 %; where they do not, over up to
+    nine windows a side)."""
     from ocean_model_arch_torch.core.grid import build_grid
     from ocean_model_arch_torch.host import (ModelConfig, Precision,
                                              SWConfig, basinpar_as250m_test,
@@ -589,8 +619,12 @@ def against_parent(parent: str, card: str) -> int:
     spec.loader.exec_module(sys.modules["parent_port"])
     theirs = importlib.import_module("parent_port.ops.fused_step")
     probe = load_probe()
-    # the arguments the parent's wrapper takes after the fields
+    # the arguments the parent's wrapper takes after the fields, and the
+    # defaults of the ones only this checkout's takes
     n_old = len(inspect.signature(theirs.fused_sw_step).parameters) - 1
+    defaults = [v.default for v in list(inspect.signature(
+        mine.fused_sw_step).parameters.values())[1:]]
+    raws = (False, True) if hasattr(theirs, "fused_sw_step_raw") else (False,)
 
     basin = basinpar_as250m_test()
     prec = Precision.f32()
@@ -611,28 +645,46 @@ def against_parent(parent: str, card: str) -> int:
                     use_tracers=int(n_tr > 0), tracer_num=max(n_tr, 1),
                     ksw_lat=ksw), precision=prec)
                 state = with_mu(init_ocean_state(grid, cfg), mu)
-                for guard in (False, True):
+                for guard, raw in [(g, r) for r in raws
+                                   for g in (False, True)]:
                     fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu,
                                       tile_guard=guard)
                     args = model_args(fm, cfg)
                     old_args = args[:n_old]
-                    if n_old < len(args) and (mu or fm.hr_const is None):
+                    if any(a != d for a, d in zip(args[n_old:],
+                                                  defaults[n_old:])):
                         continue     # a form the parent does not have
                     s, _ = fm.run_steps(fm.pack(state), 20)
-                    new, nb = mine.fused_sw_step_blockmax(s, *args)
-                    old, ob = theirs.fused_sw_step_blockmax(s, *old_args)
+                    if raw:
+                        bm_shape = tuple(-(-n // t) for n, t in zip(
+                            (fm.lay.Xs, fm.lay.Ys), fm.tile))
+                        bufs = {k: (tuple(torch.zeros_like(a) for a in s),
+                                    torch.zeros(bm_shape, device=s[0].device))
+                                for k in "PT"}
+                        mine.fused_sw_step_raw(s, *bufs["T"], *args)
+                        theirs.fused_sw_step_raw(s, *bufs["P"], *old_args)
+                        (new, nb), (old, ob) = bufs["T"], bufs["P"]
+
+                        def old_call():
+                            theirs.fused_sw_step_raw(s, *bufs["P"], *old_args)
+
+                        def new_call():
+                            mine.fused_sw_step_raw(s, *bufs["T"], *args)
+                    else:
+                        new, nb = mine.fused_sw_step_blockmax(s, *args)
+                        old, ob = theirs.fused_sw_step_blockmax(s, *old_args)
+
+                        def old_call():
+                            theirs.fused_sw_step(s, *old_args)
+
+                        def new_call():
+                            mine.fused_sw_step(s, *args)
                     tag = ("<" + ",".join(str(int(k)) for k in
                                           form_key(fm)[:5])
-                           + f"> (curve_grid={cg})")
+                           + f",{int(raw)}> (curve_grid={cg})")
                     check(all(torch.equal(x, y) for x, y in zip(new, old))
                           and torch.equal(nb, ob), f"{tag}: outputs differ "
                           "from the parent's")
-
-                    def old():
-                        return theirs.fused_sw_step(s, *old_args)
-
-                    def new():
-                        return mine.fused_sw_step(s, *args)
 
                     # three windows a side, compared by their medians: one
                     # window in a dozen reads 2-6 % off on either library.
@@ -641,9 +693,9 @@ def against_parent(parent: str, card: str) -> int:
                     order, us = "", []
                     for _ in range(3):
                         order += "PTTPPT"
-                        us += [probe.kernel_us(old if c == "P" else new,
-                                               N_TIME, "fused_sw_step_kernel")
-                               for c in "PTTPPT"]
+                        us += [probe.kernel_us(
+                            old_call if c == "P" else new_call, N_TIME,
+                            "fused_sw_step_kernel") for c in "PTTPPT"]
                         med = {c: float(np.median([u for u, o in
                                                    zip(us, order) if o == c]))
                                for c in "PT"}
@@ -670,7 +722,7 @@ def shard_args(fs, cfg, i, j):
     blockmax) for shard (i, j), as the sharded model passes them."""
     return (fs.met_shards[i][j], fs.plane_shards[i][j], fs.shard_lay[i][j],
             fs.tau, cfg.sw.time_smooth, fs.hr_const, fs.tile_wet[i][j],
-            fs.tile, fs.met_map, fs.mu_const, fs.visc)
+            fs.tile, fs.met_map, fs.mu_const, fs.visc, fs.trans, fs.ffs)
 
 
 def n_blocks(fs) -> tuple:
@@ -843,8 +895,8 @@ def time_sharded(fs, state, wet_pts: int, pts: int) -> dict:
                      f"{pts / ms_path * 1e3:.4e} points/s, "
                      f"{wet_pts / ms_path * 1e3:.4e} wet points/s), raw "
                      f"kernel {us_kernel:.2f} us/launch x "
-                     f"{n_launch // N_TIME} launches/step, strip copies "
-                     f"{sum(c for c, _ in copies) // N_TIME}/step "
+                     f"{round(n_launch / N_TIME)} launches/step, strip copies "
+                     f"{round(sum(c for c, _ in copies) / N_TIME)}/step "
                      f"{us_copies:.2f} us/step, device busy "
                      f"{ms_dev * 1e3:.1f} us/step (torch.profiler over one "
                      f"window), device idle "
@@ -853,21 +905,18 @@ def time_sharded(fs, state, wet_pts: int, pts: int) -> dict:
                      f"tiles {fs.n_tiles[0]} wet / {fs.n_tiles[1]} dry")}
 
 
-def entry_point_dir(tmp: str, name: str, **edits) -> str:
-    """A copy of ``examples/05_azov_hires`` under ``tmp`` whose mask path
-    is absolute; ``edits``: 'old text' -> 'new text' in ocean_run.par."""
-    src = os.path.join(REPO, "examples", "05_azov_hires")
+def example_dir(tmp: str, example: str, name: str, **edits) -> str:
+    """A copy of ``examples/<example>`` under ``tmp`` whose data paths
+    are absolute; ``edits``: 'old text' -> 'new text' in ocean_run.par."""
+    src = os.path.join(REPO, "examples", example)
     dst = os.path.join(tmp, name)
     shutil.copytree(src, dst, ignore=shutil.ignore_patterns("RESULTS",
                                                             "CHECKPOINTS"))
     path = os.path.join(dst, "basin.par")
     with open(path) as f:
         text = f.read()
-    rel = "../../data/AS/maskAzovCor.txt"
-    check(rel in text, "examples/05_azov_hires/basin.par names another mask")
     with open(path, "w") as f:
-        f.write(text.replace(rel, os.path.join(REPO, "data", "AS",
-                                               "maskAzovCor.txt")))
+        f.write(text.replace("../../data/", os.path.join(REPO, "data", "")))
     path = os.path.join(dst, "ocean_run.par")
     with open(path) as f:
         text = f.read()
@@ -907,7 +956,7 @@ def entry_point(card: str, name: str) -> None:
     from ocean_model_arch_torch.ops.fused_step import (fused_sw_step,
                                                        reset_launch_counts)
     with tempfile.TemporaryDirectory() as tmp:
-        d = entry_point_dir(tmp, "full")
+        d = example_dir(tmp, "05_azov_hires", "full")
         full_ck = os.path.join(tmp, "full.npz")
         reset_launch_counts()
         out = run_main([d, "--f32", "--checkpoint", full_ck])
@@ -922,7 +971,7 @@ def entry_point(card: str, name: str) -> None:
         check("MODEL: compute path: fused CUDA kernel\n" in out,
               "the entry point did not take the fused CUDA kernel:\n"
               + "\n".join(ln for ln in out.splitlines() if "MODEL" in ln))
-        key = (0, True, False, 0, False, False)
+        key = (0, True, False, 0, False, False, 1, 1)
         check(counts == {key: n_total}, f"phase 9b: launches {counts}, "
               f"expected {n_total} of {key}")
         final, step = load_checkpoint(full_ck)
@@ -961,13 +1010,13 @@ def entry_point(card: str, name: str) -> None:
         check(n_win == n_rec - 1 and n_outs == n_rec, "window counts")
 
         # half way with --checkpoint, then resumed
-        half = entry_point_dir(tmp, "half", **{
+        half = example_dir(tmp, "05_azov_hires", "half", **{
             "0.007   : duration days": "0.003473 : duration days"})
         ck = os.path.join(tmp, "half.npz")
         run_main([half, "--f32", "--quiet", "--checkpoint", ck])
         _, at = load_checkpoint(ck)
         check(at == 300, f"the half-way checkpoint holds step {at}")
-        resume = entry_point_dir(tmp, "resume", **{
+        resume = example_dir(tmp, "05_azov_hires", "resume", **{
             "0       : cold start": "1       : resume"})
         out_r = run_main([resume, "--f32", "--checkpoint", ck])
         check(f"MODEL: resumed from {ck} at step 300" in out_r,
@@ -1144,6 +1193,293 @@ def sharded_2x2(tag, grid, cfg, mu, stats, form):
     return out, state
 
 
+# ---- phase 10: the forms without advection and with a linear free surface
+
+# (trans_terms, full_free_surface) of each new form, and its name
+NEW_FORMS = {"notrans": (0, 1), "linear": (1, 0), "notrans_linear": (0, 0)}
+
+
+def form_cfg(basin, prec, n_tracers: int, trans: int, ffs: int,
+             ksw_lat: int = 1):
+    from ocean_model_arch_torch.host import ModelConfig, SWConfig
+    return ModelConfig(basin=basin, sw=SWConfig(
+        use_tracers=int(n_tracers > 0), tracer_num=max(n_tracers, 1),
+        trans_terms=trans, full_free_surface=ffs, ksw_lat=ksw_lat),
+        precision=prec)
+
+
+def compare_new_forms(grids, basin, basin_b, prec, stats) -> int:
+    """Phase 10a: every instantiation of the three new (advection, free
+    surface) forms against the plain version, as phase 2 holds the old
+    ones (T = 0 and 2, guard off and on: profile metrics on the coastline,
+    plane metrics on ``bipolar_azov``, each inviscid on flat bathymetry
+    and with mu = 1000 over the 15-100 m planes), and its raw form on 2 x
+    2 shards (``azov_visc`` with 2 tracers, ``bipolar_azov`` without) as
+    phase 9a does. Returns the number of forms compared."""
+    from ocean_model_arch_torch.model.fused_sharded2d import \
+        FusedSharded2DModel
+    from ocean_model_arch_torch.model.init import init_ocean_state
+    n = 0
+    for form, (trans, ffs) in NEW_FORMS.items():
+        def cfgs(b):
+            return {t: form_cfg(b, prec, t, trans, ffs)
+                    for t in (0, N_TRACERS)}
+        for mname, gname, b, mu in (
+                (f"azov {form}", "azov", basin, 0.0),
+                (f"bipolar_azov {form}", "bipolar_azov", basin_b, 0.0),
+                (f"azov {form} mu=1000 15-100 m", "azov_hr", basin, MU),
+                (f"bipolar_azov {form} mu=1000 15-100 m", "bipolar_azov_hr",
+                 basin_b, MU)):
+            compare_forms(mname, grids[gname], cfgs(b), stats, mu)
+            n += 4
+        for gname, b, n_tr, mu in (("azov_hr", basin, N_TRACERS, MU),
+                                   ("bipolar_azov", basin_b, 0, 0.0)):
+            cfg = form_cfg(b, prec, n_tr, trans, ffs)
+            fs = FusedSharded2DModel(grids[gname], cfg, 1.0, 2, 2,
+                                     mu_const=mu)
+            state = with_mu(init_ocean_state(grids[gname], cfg), mu)
+            compare_raw(f"{gname} {form} T={n_tr} mu={mu:g}", fs, cfg, state,
+                        stats, "fused_sw_step_raw_" + form_name(fs)[14:])
+            n += 1
+    return n
+
+
+def new_form_paths(grids, basin, basin_b, prec, wet, pts, card, name, run):
+    """Phase 10b: the new forms' main paths at 1525 x 1115, each driven
+    like phase 5 (``drive_path``: 200 steps, its own instantiation only,
+    against the eager composition), then timed: the kernel path, the
+    kernel's device time, the byte bound and the copy step of the form.
+    ``run``: the dicts the kernels line is made from (launches, kernels,
+    plain_ms) and the list of ``bounds`` entries, filled here."""
+    from ocean_model_arch_torch.ops import copy_step as cs
+    from ocean_model_arch_torch.ops.fused_step import fused_sw_step_reference
+    probe = load_probe()
+    paths = (
+        ("main path azov_notrans", "azov coastline, trans_terms = 0, "
+         "ksw_lat = 0, no tracers", "azov",
+         form_cfg(basin, prec, 0, 0, 1, ksw_lat=0), 0.0,
+         "fused_sw_step_notrans_guarded"),
+        ("main path bipolar_azov_notrans", "the same on the bipolar grid's "
+         "metric planes", "bipolar_azov",
+         form_cfg(basin_b, prec, 0, 0, 1, ksw_lat=0), 0.0,
+         "fused_sw_step_notrans_fast2d"),
+        ("main path azov_linear", f"azov coastline, full_free_surface = 0, "
+         f"{N_TRACERS} tracers", "azov",
+         form_cfg(basin, prec, N_TRACERS, 1, 0), 0.0,
+         "fused_sw_step_linear_tracers"),
+        ("sub-path azov_linear_visc", "azov_linear over 15-100 m bathymetry "
+         f"with mu = {MU:g}", "azov_hr",
+         form_cfg(basin, prec, N_TRACERS, 1, 0), MU,
+         "fused_sw_step_linear_visc_bathy_tracers"))
+    texts = []
+    for label, what, gname, cfg, mu, want in paths:
+        fm, _, s0, n, _ = drive_path(f"phase 10b {label} ({what})",
+                                     grids[gname], cfg, None, mu)
+        form = form_name(fm)
+        check(form == want and fm.tile_guard, f"{label} ran {form}, "
+              f"guard {fm.tile_guard}, not {want} guarded")
+        if fm.metrics_2d:
+            check(fm.met.shape[0] == 4, f"{label} streams "
+                  f"{fm.met.shape[0]} metric planes, not 4")
+        run["launches"][form] = n
+        t = time_path(fm, cfg, s0, wet[gname], pts)
+        windows, met = copy_step_inputs(fm, s0)
+        us_copy = probe.kernel_us(lambda: cs.copy_step(
+            windows, met, len(s0), fm.lay, tracer_form=fm.n_tracers > 0,
+            tile_wet=fm.tile_wet, tile=fm.tile, visc_form=fm.visc), N_TIME)
+        b_ms, b_by, nbytes = bound_ms(fm, fm.n_tracers)
+        run["plain_ms"][form] = cuda_ms(
+            lambda: fused_sw_step_reference(s0, *model_args(fm, cfg)), 10)
+        run["kernels"][form] = (fm, fm.n_tracers, t)
+        run["bounds"].append(
+            f"{label.split()[-1]}/T={fm.n_tracers}/guard on: "
+            f"kernel {t['ms_kernel'] * 1e3:.1f} us, {nbytes / 1e6:.1f} MB, "
+            f"bound {b_ms * 1e3:.1f} us ({b_by}), copy step of its form "
+            f"{us_copy:.1f} us")
+        texts.append(f"{label.split()[-1]} <"
+                     + ",".join(str(int(k)) for k in form_key(fm)) + "> "
+                     + t["text"] + f"; byte bound {b_ms * 1e3:.1f} us "
+                     f"({nbytes / 1e6:.1f} MB); copy step of its form "
+                     f"{us_copy:.1f} us/launch; plain fused version "
+                     f"{run['plain_ms'][form]:.4f} ms/step")
+    print(f"phase 10b timing ({name}; {card}), wet points {wet['azov']} of "
+          f"{pts}: " + " | ".join(texts))
+
+
+def grads_records(d: str, nx: int, ny: int, n_rec: int) -> int:
+    """Every GrADS record under ``d``/RESULTS holds finite float32 values
+    (land is the finite undef), ``n_rec`` records a field; returns the
+    number of fields."""
+    res = os.path.join(d, "RESULTS")
+    dats = sorted(f for f in os.listdir(res) if f.endswith(".dat"))
+    check("ssh.dat" in dats, f"no ssh.dat in {res}")
+    for f in dats:
+        a = np.fromfile(os.path.join(res, f), np.float32)
+        check(a.size % ((nx - 4) * (ny - 4)) == 0
+              and a.size // ((nx - 4) * (ny - 4)) in (1, n_rec),
+              f"{f}: {a.size} values, not records of {nx - 4} x {ny - 4}")
+        check(bool(np.isfinite(a).all()), f"{f} holds a value that is not "
+              "finite")
+    return len(dats)
+
+
+def only_form(tag: str, counts: dict) -> tuple:
+    """(the one instantiation in a run's launch counts, its launches)."""
+    check(len(counts) == 1, f"{tag}: launches {counts}, not of one "
+          "instantiation")
+    return next(iter(counts.items()))
+
+
+def shipped_examples(card, name, stats, run) -> None:
+    """Phase 10c: every shipped run directory ``examples/0*`` through
+    ``main`` with ``--f32`` on a copy in a temporary directory: the route
+    (the fused CUDA kernel for all six), one launch a step of the run's
+    instantiation and no other, finite GrADS records, the final state
+    against the eager composition run by hand on the card;
+    ``04_black_sea`` also as shipped (f64, the eager route) against the
+    same by hand; ``01_flat_basin --mesh 2x2`` (the raw form without
+    advection) == the 1 x 1 run bit for bit, its raw kernel against the
+    plain version and timed."""
+    from ocean_model_arch_torch.config import Precision
+    from ocean_model_arch_torch.io.checkpoint import load_checkpoint
+    from ocean_model_arch_torch.model.fused import CARRIED
+    from ocean_model_arch_torch.model.model import (OceanModel,
+                                                    load_config_dir)
+    from ocean_model_arch_torch.model.step import make_step, run_steps
+    from ocean_model_arch_torch.ops.fused_step import (
+        fused_sw_step, fused_sw_step_reference, reset_launch_counts)
+
+    examples = sorted(e for e in os.listdir(os.path.join(REPO, "examples"))
+                      if e[:2].isdigit())
+    check(len(examples) == 6, f"shipped run directories {examples}")
+    fields = CARRIED + ("hhq", "hhu", "hhv", "hhh")
+
+    def through_main(tmp, ex, dst, *flags):
+        """main on a copy of ``ex``: (run directory, output, launch
+        counts, config as run, final state, steps)."""
+        d = example_dir(tmp, ex, dst)
+        ck = os.path.join(tmp, dst + ".npz")
+        reset_launch_counts()
+        out = run_main([d, *flags, "--checkpoint", ck])
+        counts = dict(fused_sw_step.form_launches)
+        cfg = load_config_dir(d)
+        if "--f32" in flags:
+            cfg = dataclasses.replace(cfg, precision=Precision.f32())
+        final, step = load_checkpoint(ck)
+        check(step == cfg.run.num_step_max and final.ssh.is_cuda,
+              f"{dst}: the checkpoint holds step {step} on "
+              f"{final.ssh.device}")
+        return d, out, counts, cfg, final, step
+
+    def against_eager(tag, d, cfg, final, step, tol):
+        model = OceanModel(cfg, base_dir=d)
+        ref, eok = run_steps(make_step(model.grid, cfg), model.state,
+                             cfg.run.tau, step)
+        check(bool(eok), f"{tag}: the eager composition's guard tripped")
+        names = ("ssh", "ubrtr", "vbrtr") + (("ff",) if cfg.sw.use_tracers
+                                             else ())
+        errs = {n: rel_err(getattr(final, n), getattr(ref, n))
+                for n in names}
+        check(max(errs.values()) <= tol, f"{tag} vs eager composition: "
+              f"rel errors {errs}")
+        return model, ref, errs
+
+    lines, finals = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for ex in examples:
+            d, out, counts, cfg, final, step = through_main(
+                tmp, ex, ex, "--f32")
+            nx, ny = cfg.basin.nx, cfg.basin.ny
+            check("MODEL: compute path: fused CUDA kernel\n" in out,
+                  f"{ex} did not take the fused CUDA kernel:\n" + "\n".join(
+                      ln for ln in out.splitlines() if "compute path" in ln))
+            key, n = only_form(ex, counts)
+            check(n == step and key[6:] == (cfg.sw.trans_terms,
+                                             cfg.sw.full_free_surface),
+                  f"{ex}: launches {counts} for {step} steps")
+            n_out = cfg.run.output_every_steps
+            n_rec = 1 + -(-step // n_out)
+            n_dat = grads_records(d, nx, ny, n_rec)
+            _, _, errs = against_eager(ex, d, cfg, final, step, TOL_EAGER)
+            finals[ex] = final
+            lines.append(f"{ex} ({nx} x {ny}, trans_terms "
+                         f"{cfg.sw.trans_terms}, tracers "
+                         f"{cfg.sw.tracer_num if cfg.sw.use_tracers else 0}"
+                         f"): {step} steps, launches={n} of <"
+                         + ",".join(str(int(k)) for k in key) + f">, {n_dat} "
+                         f"GrADS fields x {n_rec} records finite; vs eager "
+                         "composition rel err " + ", ".join(
+                             f"{k} {e:.2e}" for k, e in errs.items()))
+        print("phase 10c shipped run directories (main --f32, compute path: "
+              "fused CUDA kernel for all six): " + " | ".join(lines)
+              + f"; every error < {TOL_EAGER}")
+
+        # 04_black_sea as shipped: f64, the eager composition
+        d, out, counts, cfg, final, step = through_main(
+            tmp, "04_black_sea", "04_black_sea_f64")
+        check("MODEL: compute path: eager composition\n" in out
+              and not counts and final.ssh.dtype == torch.float64,
+              f"04_black_sea f64: route or launches {counts}")
+        grads_records(d, cfg.basin.nx, cfg.basin.ny,
+                      1 + -(-step // cfg.run.output_every_steps))
+        _, _, errs = against_eager("04_black_sea f64", d, cfg, final, step,
+                                   1e-12)
+        f32 = finals["04_black_sea"]
+        gap = {n: rel_err(getattr(f32, n).double(), getattr(final, n))
+               for n in ("ssh", "ubrtr", "vbrtr", "ff")}
+        print(f"phase 10c 04_black_sea as shipped (f64, compute path: eager "
+              f"composition, no kernel launch): {step} steps, GrADS records "
+              "finite; vs the eager composition by hand rel err "
+              + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+              + " <= 1e-12; the f32 fused run against it: rel err "
+              + ", ".join(f"{k} {e:.2e}" for k, e in gap.items()))
+
+        # 01_flat_basin on 2 x 2 shards: the raw form without advection
+        d, out, counts, cfg, final, step = through_main(
+            tmp, "01_flat_basin", "01_flat_basin_2x2", "--f32", "--mesh",
+            "2x2")
+        check("MODEL: compute path: fused CUDA kernel, sharded\n" in out,
+              "01_flat_basin --mesh 2x2 did not take the sharded kernel")
+        key, n = only_form("01_flat_basin 2x2", counts)
+        check(n == 4 * step and key[5] and key[6] == 0,
+              f"01_flat_basin 2x2: launches {counts} for {step} steps")
+        one = finals["01_flat_basin"]
+        same = [f for f in fields if torch.equal(getattr(final, f),
+                                                 getattr(one, f))]
+        check(len(same) == len(fields), "01_flat_basin 2x2: "
+              f"{sorted(set(fields) - set(same))} differ from the 1 x 1 run")
+        model = OceanModel(dataclasses.replace(cfg, parallel=dataclasses
+                                               .replace(cfg.parallel,
+                                                        mesh_x=2, mesh_y=2)),
+                           base_dir=d)
+        model._make_runner(1)
+        fs = model._fused_sh
+        form = "fused_sw_step_raw_" + form_name(fs)[14:]
+        check(form == "fused_sw_step_raw_notrans_guarded"
+              and tuple(key) == form_key(fs), f"the 2 x 2 run is {form}, "
+              f"{key}")
+        compare_raw("01_flat_basin 2 x 2", fs, cfg, model.state, stats, form)
+        wet_pts = int((model.grid.lu > 0.5).sum())
+        t = time_sharded(fs, model.state, wet_pts,
+                         cfg.basin.nx * cfg.basin.ny)
+        f_in = fs.pack(model.state)[0].unbind(0)
+        f_out = tuple(torch.zeros_like(a) for a in f_in)
+        run["plain_ms"][form] = cuda_ms(lambda: fused_sw_step_reference(
+            f_in, *shard_args(fs, cfg, 0, 0), outs=f_out), 10)
+        run["launches"][form] = n
+        run["kernels"][form] = (fs, 0, t)
+        run["bounds"].append(
+            f"01_flat_basin 2 x 2, raw form: kernel "
+            f"{t['ms_kernel'] * 1e3:.1f} us/launch, bound "
+            f"{t['bound_ms'] * 1e3:.1f} us/launch (bytes), copy step not "
+            "measured")
+    print(f"phase 10c 01_flat_basin --f32 --mesh 2x2 (main, compute path: "
+          f"fused CUDA kernel, sharded): {step} steps, launches={n} of <"
+          + ",".join(str(int(k)) for k in key) + ">; final state == the 1 x 1 "
+          f"run bit for bit ({len(fields)} fields): yes; timing ({name}; "
+          f"{card}): {t['text']}")
+
+
 def main(argv=()) -> int:
     if argv and (len(argv) != 2 or argv[0] != "--parent"):
         print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
@@ -1187,7 +1523,8 @@ def main(argv=()) -> int:
           + ", ".join(os.path.relpath(so, REPO) for so in libs)
           + f"; ptxas, {len(fused_regs)} instantiations of "
           "fused_sw_step_kernel<tracers,guard,plane metrics,mu mode,"
-          "bathymetry planes,raw>: " + ptxas_summary(fused_regs)
+          "bathymetry planes,raw,advection,full free surface>: "
+          + ptxas_summary(fused_regs)
           + "; copy_step_kernel<tracer window>: " + ptxas_summary(copy_regs))
     over = [r for r in fused_regs + copy_regs
             if r[1] > MAX_REGS or r[2] != 0]
@@ -1516,6 +1853,18 @@ def main(argv=()) -> int:
           f"(azov_visc), {plain_ms['fused_sw_step_raw_fast2d']:.4f} "
           "(bipolar_azov) ms/launch")
 
+    # ---- phase 10: no advection, a linear free surface; the examples ---
+    n_new = compare_new_forms(grids, basin, basin_b, prec, max_abs)
+    print(f"phase 10a kernel vs plain: the {n_new} forms above (without "
+          "advection, with a linear free surface, both; profile and plane "
+          "metrics, T = 0 and 2, guard off and on, mu 0 and 1000 over flat "
+          "and 15-100 m bathymetry, raw on 2 x 2 shards) within "
+          f"{TOL_ONE} after 1 launch and {TOL_CARRY} after {N_CARRY}")
+    run = {"launches": launches, "kernels": kernels, "plain_ms": plain_ms,
+           "bounds": []}
+    new_form_paths(grids, basin, basin_b, prec, wet, pts, card, name, run)
+    shipped_examples(card, name, max_abs, run)
+
     # ---- phase 7: the copy step ----------------------------------------
     # kernel vs plain version on what each form of the fused step loads:
     # the same float additions in the same order, so exactly equal
@@ -1639,7 +1988,7 @@ def main(argv=()) -> int:
             f"{t['bound_ms'] * 1e3:.1f} us/launch (bytes), copy step of its "
             "form on shard (0, 0)'s layout "
             + (f"{row['us']:.1f} us" if row else "not measured"))
-    print(f"bounds ({card}): " + "; ".join(floors))
+    print(f"bounds ({card}): " + "; ".join(floors + run["bounds"]))
 
     entries = []
     for form, (m, n_tr, t) in kernels.items():

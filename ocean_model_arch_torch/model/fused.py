@@ -34,11 +34,12 @@ def unsupported(grid: Grid, cfg: ModelConfig, mu_const: float = 0.0,
     """What keeps a configuration off the fused kernel (empty: supported).
     The kernel is the TPU kernel's fast form (profile metrics on
     x-uniform grids, its fast2d form with metric planes on the others)
-    with full free surface and momentum advection, any constant
-    ``mu_const``, flat or varying bathymetry, at most ``MAX_TRACERS``
-    tracers. The single block has land margins, so closed boundaries
-    only; ``sharded``: on the margined shards of ``FusedSharded2DModel``,
-    whose margin exchange wraps, periodic ones too."""
+    with or without momentum advection, with a full or a linear free
+    surface, any constant ``mu_const``, flat or varying bathymetry, at
+    most ``MAX_TRACERS`` tracers. The single block has land margins, so
+    closed boundaries only; ``sharded``: on the margined shards of
+    ``FusedSharded2DModel``, whose margin exchange wraps, periodic ones
+    too."""
     sw = cfg.sw
     out = []
     if (grid.periodic_x or grid.periodic_y) and not sharded:
@@ -50,10 +51,6 @@ def unsupported(grid: Grid, cfg: ModelConfig, mu_const: float = 0.0,
     n_tr = sw.tracer_num if sw.use_tracers > 0 else 0
     if n_tr > MAX_TRACERS:
         out.append(f"tracer_num={n_tr} > {MAX_TRACERS}")
-    if sw.full_free_surface != 1:
-        out.append(f"full_free_surface={sw.full_free_surface}")
-    if sw.trans_terms != 1:
-        out.append(f"trans_terms={sw.trans_terms}")
     return out
 
 
@@ -108,7 +105,9 @@ class FusedSWModel:
     ``mu_const`` is the state's constant ``mu``: with ``cfg.sw.ksw_lat``
     it runs the lateral viscosity (``visc``), and with or without it the
     tracers' diffusive fluxes. ``hr_const`` is None when the bathymetry
-    varies; it then rides on static planes."""
+    varies; it then rides on static planes. ``trans`` and ``ffs`` are
+    ``cfg.sw.trans_terms`` and ``cfg.sw.full_free_surface`` as the
+    kernel's switches (0 or 1)."""
 
     def __init__(self, grid: Grid, cfg: ModelConfig, tau: float,
                  mu_const: float = 0.0, static_rslu: bool = True,
@@ -129,13 +128,21 @@ class FusedSWModel:
         self.lay = lay = fl.make_layout(grid.nx, grid.ny)
         dev = grid.lu.device
         self.visc = bool(cfg.sw.ksw_lat and self.mu_const != 0.0)
+        self.trans = int(cfg.sw.trans_terms > 0)
+        self.ffs = int(cfg.sw.full_free_surface > 0)
         self.hr_const = flat_bathymetry(grid)
         names = kernel_planes(self.n_tracers, self.visc,
                               self.hr_const is None)
-        # what the TPU kernel streams, less the wlu plane
-        assert set(names) - {"hr"} == set(fl.plane_names(
-            cfg.sw.full_free_surface, cfg.sw.ksw_lat, self.mu_const,
-            self.hr_const)) - {"wlu"}, names
+        # what the TPU kernel streams, less the wlu plane (the masks come
+        # from ludxdy) and, with a linear free surface on flat bathymetry,
+        # less hrludxdy, which the TPU kernel streams there and this
+        # kernel folds into hr_const * ludxdy
+        theirs = set(fl.plane_names(cfg.sw.full_free_surface,
+                                    cfg.sw.ksw_lat, self.mu_const,
+                                    self.hr_const)) - {"wlu"}
+        if self.hr_const is not None:
+            theirs -= {"hrludxdy"}
+        assert set(names) - {"hr"} == theirs, names
         lu_s = np.asarray(fl.embed(lay, grid.lu.cpu()))
         hr_s = np.asarray(fl.embed(lay, grid.hhq_rest.cpu()))
         # x-uniform metrics ride as latitude profiles; other grids
@@ -149,7 +156,7 @@ class FusedSWModel:
         except ValueError:
             self.metrics_2d = self.fast2d = True
             met22 = fl.metrics_full_from_grid(grid, lay)
-            rows = fl.fast2d_met_rows(self.n_tracers, self.visc)
+            rows = fl.fast2d_met_rows(self.n_tracers, self.visc, self.trans)
             self.met_map = {r: i for i, r in enumerate(rows)}
             met = met22[list(rows)]
             dxdy = met22[0] * met22[1]
@@ -207,6 +214,7 @@ class FusedSWModel:
             s6, m = fused_sw_step(s6, self.met, self.planes, self.lay,
                                   self.tau, sw.time_smooth, self.hr_const,
                                   self.tile_wet, self.tile, self.met_map,
-                                  self.mu_const, self.visc)
+                                  self.mu_const, self.visc, self.trans,
+                                  self.ffs)
             mx = torch.maximum(mx, m)
         return s6, bool(mx < swk.SSH_ERR_BOUND)   # NaN compares False

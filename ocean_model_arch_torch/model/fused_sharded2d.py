@@ -131,6 +131,8 @@ class FusedSharded2DModel:
         self.n_tracers = (cfg.sw.tracer_num if cfg.sw.use_tracers > 0
                           else 0)
         self.visc = bool(cfg.sw.ksw_lat and mu_const != 0.0)
+        self.trans = int(cfg.sw.trans_terms > 0)
+        self.ffs = int(cfg.sw.full_free_surface > 0)
         self.periodic_x = bool(grid.periodic_x)
         self.periodic_y = bool(grid.periodic_y)
         M = self.M = fl.margin_for(1, self.n_tracers)
@@ -204,7 +206,7 @@ class FusedSharded2DModel:
             self.metrics_2d = self.fast2d = True
             met22 = fl.metrics_full_from_grid(grid, glay, self.periodic_x,
                                               self.periodic_y)
-            rows = fl.fast2d_met_rows(self.n_tracers, self.visc)
+            rows = fl.fast2d_met_rows(self.n_tracers, self.visc, self.trans)
             self.met_map = {r: k for k, r in enumerate(rows)}
             dxdy = met22[0] * met22[1]
             recips = (met22[10], met22[11], met22[14] * met22[15])
@@ -372,7 +374,8 @@ class FusedSharded2DModel:
                         self.met_shards[i][j], self.plane_shards[i][j],
                         self.shard_lay[i][j], self.tau, sw.time_smooth,
                         self.hr_const, self.tile_wet[i][j], self.tile,
-                        self.met_map, self.mu_const, self.visc)
+                        self.met_map, self.mu_const, self.visc, self.trans,
+                        self.ffs)
                 mx = torch.maximum(mx, torch.amax(blockmax))
                 cur, nxt, cur_f, nxt_f = nxt, cur, nxt_f, cur_f
             return tuple(cur), bool(mx < swk.SSH_ERR_BOUND)  # NaN: False

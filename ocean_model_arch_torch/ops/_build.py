@@ -6,11 +6,11 @@ Each ``csrc/<name>.cu`` compiles on first use into
 ``build/torch_kernels/lib<name>-<hash>.so`` of the checkout, keyed on a
 hash of the source, the headers beside it (``csrc/*.cuh``) and the
 flags, so a fresh checkout builds what it runs and an edited source or
-header rebuilds. A target ``<name>@<MACRO>=<value>`` is the same source
-compiled with ``-D<MACRO>=<value>`` into a library of its own: the fused
-step's forms are split so, by tracer count, into libraries that build
-side by side. A failed build raises: there is no fallback. Nothing here
-runs at import time.
+header rebuilds. A target ``<name>@<MACRO>=<value>[@<MACRO>=<value>...]``
+is the same source compiled with ``-D<MACRO>=<value>`` for each into a
+library of its own: the fused step's forms are split so, by tracer count
+and form, into libraries that build side by side. A failed build raises:
+there is no fallback. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -46,12 +46,12 @@ def nvcc() -> str:
 
 
 def build(name: str) -> str:
-    """Compile the target ``name`` (``<source>`` or
-    ``<source>@<MACRO>=<value>``) unless its hashed library exists;
-    returns the library path."""
-    source, _, define = name.partition("@")
+    """Compile the target ``name`` (``<source>``, or
+    ``<source>@<MACRO>=<value>`` with one or more defines) unless its
+    hashed library exists; returns the library path."""
+    source, *defines = name.split("@")
     src = os.path.join(CSRC, source + ".cu")
-    flags = NVCC_FLAGS + (("-D" + define,) if define else ())
+    flags = NVCC_FLAGS + tuple("-D" + d for d in defines)
     key = hashlib.sha256(" ".join(flags).encode())
     for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:

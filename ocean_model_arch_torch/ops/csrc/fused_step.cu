@@ -15,20 +15,26 @@
 //   guard (`guarded` :1106-1131, scalar-prefetch call :1630); and its raw /
 //   sharded form `step_raw` (:1652-1673: `guard_y_margin`, `alias_io`), the
 //   step on one shard's margined block whose margins hold the neighbouring
-//   shards' wet cells.
+//   shards' wet cells. Its forms without momentum advection (`trans`
+//   = 0: the Coriolis pair cpair_x / cpair_y alone, :580, :798-834) and
+//   with a linear free surface (`ffs` = 0: every depth column the static
+//   rest depth, :465-470, :731, :764, :945-954, :1015-1019).
 //   Plain PyTorch version: ops/fused_step.py::fused_sw_step_reference,
 //   which evaluates the same formulas in the same order.
 //
-// One kernel template, fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW>,
+// One kernel template,
+// fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS>,
 // instantiated for NT = 0, 1, 2 tracers, with and without the guard, with
 // profile or plane metrics, MU = 0 (mu = 0), 1 (the tracers' diffusive
 // fluxes only: mu != 0 with the viscosity switched off) or 2 (viscosity,
-// and the diffusive fluxes when there are tracers), and with the rest
-// bathymetry as a scalar or on planes. <0, false, false, 0, false> is the
-// form without tracers, guard or viscosity on profile metrics: 4 stages,
-// 16 shared-memory planes of a (TX+6) x (TY+6) window. Every addition of
-// the other forms sits behind a compile-time flag, so this form's code
-// does not depend on them.
+// and the diffusive fluxes when there are tracers), with the rest
+// bathymetry as a scalar or on planes, with or without the momentum
+// advection (TRANS) and with a full or a linear free surface (FFS).
+// <0, false, false, 0, false, false, true, true> is the form without
+// tracers, guard or viscosity on profile metrics: 4 stages, 16
+// shared-memory planes of a (TX+6) x (TY+6) window. Every addition of the
+// other forms sits behind a compile-time flag, so this form's code does
+// not depend on them.
 //
 // What bounds it: memory. Per layout cell and step the SW part must read
 // 10 f32 planes (6 fields + rslu_u, rslu_v, rslu_h, ludxdy) and write 6,
@@ -113,14 +119,36 @@
 // guard writes its zeros inside the box only. RAW is a compile-time flag:
 // the other forms' code does not depend on it.
 //
+// Without advection (TRANS = false) stage 2 forms no vorticity and no
+// edge fluxes F, G, K, L and reads no vorticity rows: it stores the
+// Coriolis products Px = rlh*hh*(v + v(m+1)) and -Ty = -rlh*hh*(u +
+// u(n+1)) (row 21 carries the 1/4), and stage 3 sums each with its
+// neighbour, Px + Px(n-1) and -Ty - Ty(m-1): what the TPU kernel adds as
+// cpair_x and subtracts as cpair_y. The mass fluxes stay: continuity
+// reads them. With a linear free surface (FFS = false) every depth column
+// is the static rest depth hr*lu*dx*dy (the scalar hr times ludxdy on
+// flat bathymetry, else the hrludxdy plane): the previous-level and
+// post-step columns equal the current one, so stage 1 skips the previous
+// level (hup = hu, hvp = hv), the tracers keep stage 0's column, the
+// stress stage's depth is hr and the tracers' bp0 is bp. The step is
+// otherwise whole: hu, hv, hh are recomputed from the static column.
+//
 // With -DFUSED_NT=n only the forms with n tracers are compiled, with
-// -DFUSED_RAW_NT=n only their raw forms: the package builds the six as six
-// libraries, side by side.
+// -DFUSED_RAW_NT=n only their raw forms; -DFUSED_TRANS=0 and
+// -DFUSED_FFS=0 pick the forms without advection and with a linear free
+// surface (both default to 1). The package builds each (tracers, raw,
+// TRANS, FFS) as a library of its own, 24 side by side.
 
 #include "fused_tile.cuh"
 
 #ifdef FUSED_RAW_NT
 #define FUSED_NT FUSED_RAW_NT
+#endif
+#ifndef FUSED_TRANS
+#define FUSED_TRANS 1
+#endif
+#ifndef FUSED_FFS
+#define FUSED_FFS 1
 #endif
 
 namespace {
@@ -160,7 +188,7 @@ enum {
   M_DXB, M_DYB,                        // viscosity
   M_RDXDY, M_RDXT, M_RDYT,
   M_RDXH, M_RDYH, M_RDXB, M_RDYB,      // viscosity
-  M_VORT_V, M_VORT_UY, M_VORT_U,
+  M_VORT_V, M_VORT_UY, M_VORT_U,       // advection
   M_DYDX, M_DXDY,                      // viscosity
   M_CORIO,
   N_MET
@@ -211,7 +239,8 @@ __device__ __forceinline__ float at(const Params& p, const float* f,
   return inside(p, gx, gy) ? f[(size_t)gx * p.Ys + gy] : 0.f;
 }
 
-template <int NT, bool GUARD, bool MET2D, int MU, bool HRP, bool RAW>
+template <int NT, bool GUARD, bool MET2D, int MU, bool HRP, bool RAW,
+          bool TRANS, bool FFS>
 __global__ void
 __launch_bounds__(NTHREADS, MIN_BLOCKS)
 fused_sw_step_kernel(const Params p) {
@@ -279,7 +308,8 @@ fused_sw_step_kernel(const Params p) {
   const int S = WY;                         // window row stride
 
   // stage 0 (halo 3 + EXTRA): load the window; aq = (ssh + hr) * lu*dx*dy
-  // or, on bathymetry planes, ssh * lu*dx*dy + hr*lu*dx*dy
+  // or, on bathymetry planes, ssh * lu*dx*dy + hr*lu*dx*dy; with a linear
+  // free surface the static hr * lu*dx*dy or hr*lu*dx*dy
   for (int i = tid; i < PLANE; i += NTHREADS) {
     const int gx = x0 + i / WY, gy = y0 + i % WY;
     float ssh = 0.f, u = 0.f, v = 0.f, ld = 0.f, hl = 0.f;
@@ -289,13 +319,15 @@ fused_sw_step_kernel(const Params p) {
       if (HRP) hl = p.hrld[g];
     }
     s_ssh[i] = ssh; s_u[i] = u; s_v[i] = v; s_ld[i] = ld;
-    s_aq[i] = HRP ? ssh * ld + hl : (ssh + p.hr) * ld;
+    if (FFS) s_aq[i] = HRP ? ssh * ld + hl : (ssh + p.hr) * ld;
+    else s_aq[i] = HRP ? hl : p.hr * ld;
   }
   __syncthreads();
 
   // stage 1 (halo 2 + EXTRA): depth interps hu = hhu*dyh, hv = hhv*dxh and
-  // the mass fluxes; the previous-level column aqp (halo 1 + EXTRA); with
-  // viscosity the previous-level velocities over their metrics
+  // the mass fluxes; the previous-level column aqp (halo 1 + EXTRA; with
+  // a linear free surface it is aq, and not formed); with viscosity the
+  // previous-level velocities over their metrics
   {
     constexpr int h = 2 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid; i < n; i += NTHREADS) {
@@ -323,7 +355,7 @@ fused_sw_step_kernel(const Params p) {
       s_vd[k] = s_v[k] * hv;
     }
   }
-  {
+  if (FFS) {
     constexpr int h = 1 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid; i < n; i += NTHREADS) {
       const int a = HALO - h + i / w, b = HALO - h + i % w;
@@ -360,7 +392,8 @@ fused_sw_step_kernel(const Params p) {
           const float str_t =
               p.met[M_DYDX][mi] * (s_q[k] - s_q[k - S])
               - p.met[M_DXDY][mi] * (s_r[k] - s_r[k - W]);
-          const float hq = (HRP ? p.hrp[g] : p.hr) + s_ssh[k];
+          const float hr = HRP ? p.hrp[g] : p.hr;
+          const float hq = FFS ? hr + s_ssh[k] : hr;
           const float t2 = hq * str_t;
           a2 = (dy * dy * p.mu) * t2;
           b2 = (dx * dx * p.mu) * t2;
@@ -381,7 +414,8 @@ fused_sw_step_kernel(const Params p) {
     __syncthreads();
   }
 
-  // stage 2 (halo 1 + EXTRA): vorticity, edge fluxes, vorticity + Coriolis
+  // stage 2 (halo 1 + EXTRA): vorticity, edge fluxes, vorticity + Coriolis;
+  // without advection the Coriolis products alone
   {
     constexpr int h = 1 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid; i < n; i += NTHREADS) {
@@ -392,9 +426,11 @@ fused_sw_step_kernel(const Params p) {
         const size_t g = (size_t)gx * p.Ys + gy;
         const size_t mi = MET2D ? g : (size_t)gy;
         rh = rslu_h[g];
-        m16 = p.met[M_VORT_V][mi];
-        m17 = p.met[M_VORT_UY][mi];
-        m18 = p.met[M_VORT_U][mi];
+        if (TRANS) {
+          m16 = p.met[M_VORT_V][mi];
+          m17 = p.met[M_VORT_UY][mi];
+          m18 = p.met[M_VORT_U][mi];
+        }
         m21 = p.met[M_CORIO][mi];
       }
       const float su = s_aq[k] + s_aq[k + S];
@@ -404,6 +440,12 @@ fused_sw_step_kernel(const Params p) {
       const float u = s_u[k], v = s_v[k];
       const float ux = s_u[k + S], uy = s_u[k + W];
       const float vx = s_v[k + S], vy = s_v[k + W];
+      if (!TRANS) {
+        const float vc = m21 * hh;
+        s_rx[k] = vc * (vx + v);     // Px
+        s_sy[k] = -(vc * (uy + u));  // -Ty
+        continue;
+      }
       // vorticity/4 (rows 16-18 carry the 1/4)
       const float vort = wluu ? (vx - v) * m16 - uy * m17 + u * m18 : 0.f;
       const float s2u = uy + u, s2v = vx + v;
@@ -450,9 +492,10 @@ fused_sw_step_kernel(const Params p) {
       // continuity: sshn = sshp - 2 tau div(flux) / (dx dy)
       const float div = ((s_ud[k] - s_ud[k - S]) + s_vd[k]) - s_vd[k - W];
       const float sshn = sshp + div * (p.neg_two_tau * p.met[M_RDXDY][mi]);
-      // post-step depth column; sshn, not ssh_new: ld kills land
-      if (NT) s_aq[k] = HRP ? sshn * s_ld[k] + p.hrld[g]
-                            : (sshn + p.hr) * s_ld[k];
+      // post-step depth column; sshn, not ssh_new: ld kills land (with a
+      // linear free surface it is stage 0's column, already in place)
+      if (NT && FFS) s_aq[k] = HRP ? sshn * s_ld[k] + p.hrld[g]
+                                   : (sshn + p.hr) * s_ld[k];
       if (ring > 1) continue;
 
       // momentum: (up*bp0 + grx)/bp with the bp metric factor cancelled
@@ -464,24 +507,26 @@ fused_sw_step_kernel(const Params p) {
           + (b - (HALO - Form<NT>::VH));
       if (wlcu) {
         const float hu = s_hu[k];
-        const float hup = (s_aqp[k] + s_aqp[k + S]) * rslu_u[g];
+        const float hup = FFS ? (s_aqp[k] + s_aqp[k + S]) * rslu_u[g] : hu;
         float slx = (s_ssh[k + S] - ssh) * hu * p.neg_g;
         // stress divergence: d(a2)/dx / dyh + d(D2)/dy / dxt
         if (VISC)
           slx += (s_a2[j + VW] - s_a2[j]) * p.met[M_RDYH][mi]
               + (s_d2[j] - s_d2[j - 1]) * p.met[M_RDXT][mi];
-        const float acx = (s_cx[k] + s_rx[k - W]) + s_f[k - S];
+        const float acx = TRANS ? (s_cx[k] + s_rx[k - W]) + s_f[k - S]
+                                : s_rx[k] + s_rx[k - W];
         const float grx = slx + acx;
         un = (up * hup + grx * (p.two_tau * p.met[M_RDXT][mi])) / hu;
       }
       if (wlcv) {
         const float hv = s_hv[k];
-        const float hvp = (s_aqp[k] + s_aqp[k + W]) * rslu_v[g];
+        const float hvp = FFS ? (s_aqp[k] + s_aqp[k + W]) * rslu_v[g] : hv;
         float sly = (s_ssh[k + W] - ssh) * hv * p.neg_g;
         if (VISC)
           sly += -(s_b2[j + 1] - s_b2[j]) * p.met[M_RDXH][mi]
               + (s_e2[j] - s_e2[j - VW]) * p.met[M_RDYT][mi];
-        const float acy = (s_cy[k] + s_sy[k - S]) + s_k[k - W];
+        const float acy = TRANS ? (s_cy[k] + s_sy[k - S]) + s_k[k - W]
+                                : s_sy[k] + s_sy[k - S];
         const float gry = sly + acy;
         vn = (vp * hvp + gry * (p.two_tau * p.met[M_RDYT][mi])) / hv;
       }
@@ -494,7 +539,7 @@ fused_sw_step_kernel(const Params p) {
       const float sshp_new = wlu ? p.ts1 * ssh + p.ts2 * (sshn + sshp) : sshp;
       p.ssh_o[g] = ssh_new;
       p.sshp_o[g] = sshp_new;
-      if (NT) s_hu[k] = sshp_new;
+      if (NT && FFS) s_hu[k] = sshp_new;
       p.u_o[g] = wlcu ? un : u;
       p.up_o[g] = wlcu ? p.ts1 * u + p.ts2 * (un + up) : up;
       p.v_o[g] = wlcv ? vn : v;
@@ -562,12 +607,13 @@ fused_sw_step_kernel(const Params p) {
       const size_t g = (size_t)gx * p.Ys + gy;
       const bool wlu = s_ld[k] > 0.5f;
       // bp = hhq_n*area, bp0 = hhq_p*area with hhq_n = hr,
-      // hhq_p = hr + sshp_new, area = dx*dy / (2 tau)
+      // hhq_p = hr + sshp_new (hr with a linear free surface),
+      // area = dx*dy / (2 tau)
       const size_t mi = MET2D ? g : (size_t)gy;
       const float area = (p.met[M_DX][mi] * p.met[M_DY][mi]) * p.inv_two_tau;
       const float hr = HRP ? p.hrp[g] : p.hr;
       const float bp = hr * area;
-      const float bp0 = (hr + s_sshp_new[k]) * area;
+      const float bp0 = FFS ? (hr + s_sshp_new[k]) * area : bp;
 #pragma unroll
       for (int t = 0; t < NT; ++t) {
         const float* fx = sm + (S_F + 2 * t) * PLANE;
@@ -603,15 +649,20 @@ constexpr bool RAW_BUILD = true;
 #else
 constexpr bool RAW_BUILD = false;
 #endif
+// the advection and free-surface forms this library holds
+constexpr bool TRANS_BUILD = FUSED_TRANS != 0;
+constexpr bool FFS_BUILD = FUSED_FFS != 0;
 
 template <int NT, bool GUARD, bool MET2D, int MU, bool HRP>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<NT>(MU == 2);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD>,
+      fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD, TRANS_BUILD,
+                           FFS_BUILD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD>
+  fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD, TRANS_BUILD,
+                       FFS_BUILD>
       <<<dim3((p.Ys + TY - 1) / TY, (p.Xs + TX - 1) / TX), NTHREADS,
          smem, stream>>>(p);
   return (int)cudaGetLastError();
@@ -672,6 +723,13 @@ int fused_sw_step_built_for() {
 // 1 if this library holds the raw forms (-DFUSED_RAW_NT), else 0.
 int fused_sw_step_built_raw() { return RAW_BUILD ? 1 : 0; }
 
+// 1 if this library's forms advect momentum (-DFUSED_TRANS, default 1).
+int fused_sw_step_built_trans() { return TRANS_BUILD ? 1 : 0; }
+
+// 1 if this library's forms have a full free surface (-DFUSED_FFS,
+// default 1), 0 for a linear one.
+int fused_sw_step_built_ffs() { return FFS_BUILD ? 1 : 0; }
+
 const char* fused_sw_step_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
@@ -690,19 +748,22 @@ const char* fused_sw_step_error_string(int code) {
 // the constant `mu`; tracers take their diffusive fluxes whenever mu != 0.
 // raw != 0 asks for the raw form, which stores only inside the box
 // [margin, margin + nx) x [margin, margin + ny) of the outputs; a library
-// holds either the raw forms or the others.
+// holds either the raw forms or the others. trans and ffs name the
+// advection and free-surface form, which must be this library's; without
+// advection the vorticity rows (16-18) are not read.
 int fused_sw_step_launch(
     const float* ssh, const float* sshp, const float* u, const float* up,
     const float* v, const float* vp, const float* met, const float* planes,
     float* ssh_o, float* sshp_o, float* u_o, float* up_o, float* v_o,
     float* vp_o, float* blockmax, const float* const* tr_in,
     float* const* tr_out, const int* tile_wet, const int* met_slots,
-    int met2d, int n_tracers, int n_planes, int visc, int raw, int Xs,
-    int Ys, int nx, int ny, int margin, float hr, float mu, float neg_g,
-    float two_tau, float neg_two_tau, float inv_two_tau, float ts1,
-    float ts2, void* stream) {
+    int met2d, int n_tracers, int n_planes, int visc, int raw, int trans,
+    int ffs, int Xs, int Ys, int nx, int ny, int margin, float hr, float mu,
+    float neg_g, float two_tau, float neg_two_tau, float inv_two_tau,
+    float ts1, float ts2, void* stream) {
   if (n_tracers < 0 || n_tracers > MAX_TRACERS || n_planes < 4
-      || n_planes > 6 || (raw != 0) != RAW_BUILD)
+      || n_planes > 6 || (raw != 0) != RAW_BUILD
+      || (trans != 0) != TRANS_BUILD || (ffs != 0) != FFS_BUILD)
     return (int)cudaErrorInvalidValue;
   const int mu_mode = visc ? 2 : (n_tracers > 0 && mu != 0.f ? 1 : 0);
   // varying bathymetry with viscosity or tracers reads the hr plane too
@@ -720,7 +781,9 @@ int fused_sw_step_launch(
     const bool visc_row = k == M_DXB || k == M_DYB || k == M_RDXH
         || k == M_RDYH || k == M_RDXB || k == M_RDYB || k == M_DYDX
         || k == M_DXDY;
+    const bool vort_row = k == M_VORT_V || k == M_VORT_UY || k == M_VORT_U;
     const bool read = visc_row ? mu_mode == 2
+        : vort_row ? TRANS_BUILD
         : (k == M_DX || k == M_DY) ? (n_tracers > 0 || mu_mode == 2) : true;
     if (read && met_slots[k] < 0) return (int)cudaErrorInvalidValue;
     p.met[k] = met_slots[k] < 0 ? nullptr : met + met_slots[k] * row;

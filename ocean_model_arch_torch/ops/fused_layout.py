@@ -205,13 +205,17 @@ def metrics_full_from_grid(grid, lay: FusedLayout, periodic_x: bool = False,
     return planes
 
 
-def fast2d_met_rows(n_tracers: int, visc: bool = False) -> tuple:
+def fast2d_met_rows(n_tracers: int, visc: bool = False,
+                    trans: int = 1) -> tuple:
     """The metric rows the fused step reads (row meanings of
     :func:`metrics_profile_from_grid`); the 2D-metrics path streams only
     these planes. The masks come from ``ludxdy > 0.5``, so the rows 14
     and 15 that the TPU kernel's thresholds need are among them only
-    with viscosity, whose shear stress reads them."""
-    rows = {9, 10, 11, 16, 17, 18, 21}
+    with viscosity, whose shear stress reads them; the vorticity rows
+    16-18 only with momentum advection (``trans``)."""
+    rows = {9, 10, 11, 21}
+    if trans:
+        rows |= {16, 17, 18}
     if visc:
         rows |= {0, 1, 6, 7, 12, 13, 14, 15, 19, 20}
     if n_tracers:

@@ -1,12 +1,13 @@
 """The fused shallow-water step: CUDA kernel wrapper and its plain version.
 
 Counterpart of ``ocean_model_arch_tpu/ops/pallas/fused_step.py::
-build_fused_sw_step`` / ``_make_kernel`` (fast branch, full free
-surface, momentum advection), with its lateral viscosity (constant
-``mu_const``), its tracer pass (advective fluxes, and diffusive ones
-when ``mu_const != 0``), flat or varying rest bathymetry and its
-land-tile guard, on x-uniform profile metrics or on pointwise metric
-planes (the TPU kernel's fast2d form, for bipolar grids). One call
+build_fused_sw_step`` / ``_make_kernel`` (fast branch), with or
+without momentum advection (``trans``) and with a full or a linear free
+surface (``ffs``), with its lateral viscosity (constant ``mu_const``),
+its tracer pass (advective fluxes, and diffusive ones when ``mu_const !=
+0``), flat or varying rest bathymetry and its land-tile guard, on
+x-uniform profile metrics or on pointwise metric planes (the TPU
+kernel's fast2d form, for bipolar grids). One call
 advances the 6 carried fields and the 2 carried levels of each of T
 tracers by one model step on the layout of ops/fused_layout.py:
 
@@ -31,7 +32,11 @@ plane. Flat bathymetry rides as the scalar ``hr_const``; with
 TPU kernel's grouping) and the viscosity and the tracers read the ``hr``
 plane. ``visc`` switches the stress stages on (the caller passes
 ``ksw_lat and mu_const != 0``); the tracers' diffusive fluxes follow
-``mu_const != 0`` alone, as in the TPU kernel.
+``mu_const != 0`` alone, as in the TPU kernel. ``trans=0`` drops the
+vorticity and the advective edge fluxes and keeps the Coriolis pair;
+``ffs=0`` makes every depth column the static rest depth (``hr_const *
+ludxdy`` or ``hrludxdy``), as ``hq = hr + ssh * ffs`` does in the TPU
+kernel.
 
 With ``tile_wet`` the step is guarded: an output tile whose flag is 0
 (no wet cell) is not computed and gets exact zeros, which is what its
@@ -66,6 +71,9 @@ from .fused_layout import N_PROF, FusedLayout, fast2d_met_rows
 
 N_FIELDS = 6            # carried SW fields; each tracer adds 2
 MAX_TRACERS = 2         # the kernel's instantiations (csrc/fused_step.cu)
+# the kernel's (trans, ffs) forms, each in libraries of its own: the full
+# step first, then without advection, with a linear free surface, both
+FORMS = ((1, 1), (0, 1), (1, 0), (0, 0))
 CPU_TILE = (16, 32)     # the guard's tile where no kernel defines one
 # the metric rows whose slots the kernel's launcher takes, in its order
 KERNEL_MET_ROWS = fast2d_met_rows(n_tracers=1, visc=True)
@@ -146,14 +154,16 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
                             tau: float, time_smooth: float,
                             hr_const: float | None, tile_wet=None,
                             tile=None, met_map=None, mu_const: float = 0.0,
-                            visc: bool = False, outs=None):
+                            visc: bool = False, trans: int = 1, ffs: int = 1,
+                            outs=None):
     """One fused step in plain PyTorch on whole arrays, with the kernel's
     formulas in the kernel's order (see csrc/fused_step.cu). ``tile_wet``
     (with its ``tile`` shape) reproduces the guard: zeros, and a max of
     0, in every tile flagged all-land. ``met_map``: None for profile
     metrics, else the row -> plane map of a (n, Xs, Ys) ``met``.
     ``hr_const=None``: varying bathymetry on the planes of
-    :func:`kernel_planes`. ``outs``: the raw form -- the box ``[M, M +
+    :func:`kernel_planes`. ``trans``, ``ffs``: the advection and
+    free-surface switches. ``outs``: the raw form -- the box ``[M, M +
     lay.nx) x [M, M + lay.ny)`` of these 6 + 2 T tensors is written and
     they are returned, everything else in them untouched."""
     n_tr = n_tracers_of(fields)
@@ -167,12 +177,12 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
         hr = planes[5] if (visc or n_tr) else None
 
         def column(s):      # the TPU kernel's grouping, not (s + hr) * ld
-            return s * ld + hrld
+            return s * ld + hrld if ffs else hrld
     else:
         hr = hr_const
 
         def column(s):
-            return (s + hr_const) * ld
+            return (s + hr_const) * ld if ffs else hr_const * ld
 
     def row(k):
         return met[k][None, :] if met_map is None else met[met_map[k]]
@@ -200,21 +210,29 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
     wlcv = wlu & yp(wlu)
     wluu = wlcu & yp(wlcu)
 
-    # vorticity/4, edge fluxes, vorticity + Coriolis (the 1/4s folded)
     ux, uy, vx, vy = xp(u), yp(u), xp(v), yp(v)
-    vort = torch.where(wluu, (vx - v) * row(16) - uy * row(17)
-                       + u * row(18), 0.0)
-    s2u = uy + u
-    s2v = vx + v
-    F = (ud + xp(ud)) * ((u + ux) * 0.25)
-    G = ((vd + xp(vd)) * 0.25) * torch.where(wluu, s2u, 0.0)
-    K = (vd + yp(vd)) * ((v + vy) * 0.25)
-    L = ((ud + yp(ud)) * 0.25) * s2v
-    vc = (vort + row(21)) * hh
-    Px = vc * s2v
-    Ty = vc * s2u
-    acx = (((Px - F) - G) + _sh(Px + G, 0, -1)) + _sh(F, -1, 0)
-    acy = (((-Ty - L) - K) + _sh(L - Ty, -1, 0)) + _sh(K, 0, -1)
+    if trans:
+        # vorticity/4, edge fluxes, vorticity + Coriolis (the 1/4s folded)
+        vort = torch.where(wluu, (vx - v) * row(16) - uy * row(17)
+                           + u * row(18), 0.0)
+        s2u = uy + u
+        s2v = vx + v
+        F = (ud + xp(ud)) * ((u + ux) * 0.25)
+        G = ((vd + xp(vd)) * 0.25) * torch.where(wluu, s2u, 0.0)
+        K = (vd + yp(vd)) * ((v + vy) * 0.25)
+        L = ((ud + yp(ud)) * 0.25) * s2v
+        vc = (vort + row(21)) * hh
+        Px = vc * s2v
+        Ty = vc * s2u
+        acx = (((Px - F) - G) + _sh(Px + G, 0, -1)) + _sh(F, -1, 0)
+        acy = (((-Ty - L) - K) + _sh(L - Ty, -1, 0)) + _sh(K, 0, -1)
+    else:
+        # the Coriolis pair alone: cpair_x, and -cpair_y
+        vc = row(21) * hh
+        Px = vc * (vx + v)
+        nTy = -(vc * (uy + u))
+        acx = Px + _sh(Px, 0, -1)
+        acy = nTy + _sh(nTy, -1, 0)
 
     # continuity and momentum
     div = ((ud - _sh(ud, -1, 0)) + vd) - _sh(vd, 0, -1)
@@ -230,7 +248,7 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
                             - row(20) * (r - _sh(r, 0, -1)), 0.0)
         str_s = torch.where(wluu, (row(6) * row(15)) * (yp(s1) - s1)
                             + (row(7) * row(14)) * (xp(s2) - s2), 0.0)
-        t2 = (hr + ssh) * str_t
+        t2 = ((hr + ssh) if ffs else hr) * str_t
         a2 = (row(1) * row(1) * mu) * t2
         b2 = (row(0) * row(0) * mu) * t2
         hs2 = hh * str_s
@@ -258,7 +276,8 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
         # tracer pass: post-step depths and transports (sshn, not
         # ssh_new: ld kills land), centred advective edge fluxes plus
         # the diffusive ones mu / dxt * hun * dff/dx when mu != 0,
-        # leapfrog update with hhq_n = hr, hhq_p = hr + sshp_new
+        # leapfrog update with hhq_n = hr, hhq_p = hr + sshp_new (hr with
+        # a linear free surface)
         aqn = column(sshn)
         hun = (aqn + xp(aqn)) * rslu_u
         hvn = (aqn + yp(aqn)) * rslu_v
@@ -266,7 +285,7 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
         vh = torch.where(wlcv, vn * hvn, 0.0)
         area = (row(0) * row(1)) * inv_two_tau
         bp = hr * area
-        bp0 = (hr + sshp_new) * area
+        bp0 = (hr + sshp_new) * area if ffs else bp
         if mu != 0.0:
             kx = (mu * row(10)) * torch.where(wlcu, hun, 0.0)
             ky = (mu * row(11)) * torch.where(wlcv, hvn, 0.0)
@@ -297,7 +316,7 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
 
 
 def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
-                  tile, met_map, hr_const, visc, outs=None) -> None:
+                  tile, met_map, hr_const, visc, trans, outs=None) -> None:
     n_tr = n_tracers_of(fields)
     if n_tr > MAX_TRACERS:
         raise ValueError(f"the kernel takes at most {MAX_TRACERS} "
@@ -305,7 +324,7 @@ def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
     if met_map is None:
         met_shape = (N_PROF, lay.Ys)
     else:
-        missing = [r for r in fast2d_met_rows(n_tr, visc) if not
+        missing = [r for r in fast2d_met_rows(n_tr, visc, trans) if not
                    0 <= met_map.get(r, -1) < met.shape[0]]
         if missing:
             raise ValueError(f"met_map: no plane of met for the metric "
@@ -345,22 +364,23 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
                            tau: float, time_smooth: float,
                            hr_const: float | None, tile_wet=None, tile=None,
                            met_map=None, mu_const: float = 0.0,
-                           visc: bool = False, outs=None, blockmax=None):
+                           visc: bool = False, trans: int = 1, ffs: int = 1,
+                           outs=None, blockmax=None):
     """Launch the CUDA kernel once on CUDA tensors (counted in
     ``fused_sw_step.launches``, and per kernel instantiation ``(T,
-    guarded, 2D metrics, mu mode, bathymetry planes, raw)`` in
-    ``fused_sw_step.form_launches``; :func:`mu_mode` names the modes).
+    guarded, 2D metrics, mu mode, bathymetry planes, raw, trans, ffs)``
+    in ``fused_sw_step.form_launches``; :func:`mu_mode` names the modes).
     Returns ``(6 + 2 T new fields, the (x tiles, y tiles) per-block max
     |ssh_new| over interior cells)``; raises if the kernel does not build
     or launch. With ``outs`` (and ``blockmax``, a contiguous float32
     (x tiles, y tiles) tensor) it launches the raw form into them and
     allocates nothing."""
-    visc = bool(visc)
+    visc, trans, ffs = bool(visc), int(bool(trans)), int(bool(ffs))
     raw = outs is not None
     _check_inputs(fields, met, planes, lay, tile_wet, tile, met_map,
-                  hr_const, visc, outs)
+                  hr_const, visc, trans, outs)
     n_tr = n_tracers_of(fields)
-    lib = _library(n_tr, raw)
+    lib = _library(n_tr, raw, trans, ffs)
     # where each metric row the kernel reads sits in met (-1: not there)
     where = {r: r for r in KERNEL_MET_ROWS} if met_map is None else met_map
     slots = (ctypes.c_int * len(KERNEL_MET_ROWS))(
@@ -390,7 +410,7 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
             *ptr, tr_in, tr_out,
             None if tile_wet is None else tile_wet.data_ptr(), slots,
             int(met_map is not None), n_tr, planes.shape[0], int(visc),
-            int(raw), lay.Xs, lay.Ys, lay.nx, lay.ny, lay.margin,
+            int(raw), trans, ffs, lay.Xs, lay.Ys, lay.nx, lay.ny, lay.margin,
             0.0 if hr_const is None else float(hr_const), float(mu_const),
             *_scalars(tau, time_smooth),
             torch.cuda.current_stream().cuda_stream)
@@ -400,14 +420,15 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
     fused_sw_step.launches += 1
     fused_sw_step.form_launches[
         n_tr, tile_wet is not None, met_map is not None,
-        mu_mode(n_tr, mu_const, visc), hr_const is None, raw] += 1
+        mu_mode(n_tr, mu_const, visc), hr_const is None, raw, trans,
+        ffs] += 1
     return outs, blockmax
 
 
 def fused_sw_step(fields, met, planes, lay: FusedLayout, tau: float,
                   time_smooth: float, hr_const: float | None, tile_wet=None,
                   tile=None, met_map=None, mu_const: float = 0.0,
-                  visc: bool = False):
+                  visc: bool = False, trans: int = 1, ffs: int = 1):
     """One fused step: the plain version for CPU tensors, the CUDA kernel
     for CUDA tensors (:func:`fused_sw_step_blockmax`). Returns
     ``(6 + 2 T new fields, 0-dim max |ssh_new| over interior cells)``;
@@ -418,14 +439,17 @@ def fused_sw_step(fields, met, planes, lay: FusedLayout, tau: float,
     (n, Xs, Ys) metric planes. ``hr_const``: the flat rest bathymetry, or
     None when ``planes`` carries it (:func:`kernel_planes`).
     ``mu_const``, ``visc``: the constant viscosity and whether the stress
-    stages run; tracers diffuse whenever ``mu_const != 0``."""
+    stages run; tracers diffuse whenever ``mu_const != 0``. ``trans``,
+    ``ffs``: the configuration's ``trans_terms`` and
+    ``full_free_surface`` (0 or 1)."""
     if fields[0].device.type == "cpu":
         return fused_sw_step_reference(fields, met, planes, lay, tau,
                                        time_smooth, hr_const, tile_wet,
-                                       tile, met_map, mu_const, visc)
+                                       tile, met_map, mu_const, visc, trans,
+                                       ffs)
     outs, blockmax = fused_sw_step_blockmax(
         fields, met, planes, lay, tau, time_smooth, hr_const, tile_wet, tile,
-        met_map, mu_const, visc)
+        met_map, mu_const, visc, trans, ffs)
     return outs, torch.amax(blockmax)
 
 
@@ -433,7 +457,8 @@ def fused_sw_step_raw(fields, outs, blockmax, met, planes, lay: FusedLayout,
                       tau: float, time_smooth: float,
                       hr_const: float | None, tile_wet=None, tile=None,
                       met_map=None, mu_const: float = 0.0,
-                      visc: bool = False) -> None:
+                      visc: bool = False, trans: int = 1,
+                      ffs: int = 1) -> None:
     """One fused step on a shard's margined block, into the caller's
     tensors: the box ``[M, M + lay.nx) x [M, M + lay.ny)`` of ``outs``
     (6 + 2 T tensors, none of them an input) gets the new fields, every
@@ -448,11 +473,11 @@ def fused_sw_step_raw(fields, outs, blockmax, met, planes, lay: FusedLayout,
     if fields[0].device.type != "cpu":
         fused_sw_step_blockmax(fields, met, planes, lay, tau, time_smooth,
                                hr_const, tile_wet, tile, met_map, mu_const,
-                               visc, outs, blockmax)
+                               visc, trans, ffs, outs, blockmax)
         return
     fused_sw_step_reference(fields, met, planes, lay, tau, time_smooth,
                             hr_const, tile_wet, tile, met_map, mu_const,
-                            visc, outs)
+                            visc, trans, ffs, outs)
     tx, ty = tile
     m = lay.margin
     a = torch.zeros((blockmax.shape[0] * tx, blockmax.shape[1] * ty),
@@ -472,39 +497,54 @@ def reset_launch_counts() -> None:
 reset_launch_counts()
 
 
+def library_target(n_tracers: int, raw: bool = False, trans: int = 1,
+                   ffs: int = 1) -> str:
+    """The build target of csrc/fused_step.cu that holds the forms with
+    ``n_tracers`` tracers (raw or not) of one (trans, ffs) form: macros
+    ``FUSED_NT`` or ``FUSED_RAW_NT``, then ``FUSED_TRANS=0`` and
+    ``FUSED_FFS=0`` where the form drops them."""
+    return (f"fused_step@{'FUSED_RAW_NT' if raw else 'FUSED_NT'}={n_tracers}"
+            + ("" if trans else "@FUSED_TRANS=0")
+            + ("" if ffs else "@FUSED_FFS=0"))
+
+
 def library_targets() -> tuple:
     """The build targets of csrc/fused_step.cu (``_build.build_all``
-    takes them): one library per tracer count, then one per tracer count
-    for the raw forms, so they build at once."""
-    return tuple(f"fused_step@{macro}={n}"
-                 for macro in ("FUSED_NT", "FUSED_RAW_NT")
-                 for n in range(MAX_TRACERS + 1))
+    takes them): for each (trans, ffs) of ``FORMS`` one library per tracer
+    count, then one per tracer count for the raw forms, so they build at
+    once."""
+    return tuple(library_target(n, raw, trans, ffs) for trans, ffs in FORMS
+                 for raw in (False, True) for n in range(MAX_TRACERS + 1))
 
 
 @functools.lru_cache(maxsize=None)
-def _library(n_tracers: int = 0, raw: bool = False) -> ctypes.CDLL:
+def _library(n_tracers: int = 0, raw: bool = False, trans: int = 1,
+             ffs: int = 1) -> ctypes.CDLL:
     """csrc/fused_step.cu's forms (its raw forms with ``raw``) with
-    ``n_tracers`` tracers, built on first use, with their C signatures."""
-    lib = load(library_targets()[n_tracers + raw * (MAX_TRACERS + 1)])
+    ``n_tracers`` tracers and the advection and free-surface form
+    ``trans``, ``ffs``, built on first use, with their C signatures."""
+    lib = load(library_target(n_tracers, raw, trans, ffs))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.fused_sw_step_tile_x, lib.fused_sw_step_tile_y,
                lib.fused_sw_step_n_met, lib.fused_sw_step_built_for,
-               lib.fused_sw_step_built_raw):
+               lib.fused_sw_step_built_raw, lib.fused_sw_step_built_trans,
+               lib.fused_sw_step_built_ffs):
         fn.argtypes = []
         fn.restype = i
     if lib.fused_sw_step_n_met() != len(KERNEL_MET_ROWS):
         raise RuntimeError("csrc/fused_step.cu reads "
                            f"{lib.fused_sw_step_n_met()} metric rows, the "
                            f"wrapper passes {len(KERNEL_MET_ROWS)}")
-    if (lib.fused_sw_step_built_for() != n_tracers
-            or bool(lib.fused_sw_step_built_raw()) != bool(raw)):
+    built = (lib.fused_sw_step_built_for(), lib.fused_sw_step_built_raw(),
+             lib.fused_sw_step_built_trans(), lib.fused_sw_step_built_ffs())
+    if built != (n_tracers, int(bool(raw)), int(bool(trans)),
+                 int(bool(ffs))):
         raise RuntimeError("the fused step's library was built for "
-                           f"{lib.fused_sw_step_built_for()} tracers, raw "
-                           f"{lib.fused_sw_step_built_raw()}, not "
-                           f"{n_tracers}, {int(raw)}")
+                           "(tracers, raw, trans, ffs) = " f"{built}, not "
+                           f"{(n_tracers, int(raw), trans, ffs)}")
     lib.fused_sw_step_error_string.argtypes = [i]
     lib.fused_sw_step_error_string.restype = ctypes.c_char_p
-    lib.fused_sw_step_launch.argtypes = ([p] * 19 + [i] * 10 + [f] * 8
+    lib.fused_sw_step_launch.argtypes = ([p] * 19 + [i] * 12 + [f] * 8
                                          + [p])
     lib.fused_sw_step_launch.restype = i
     return lib

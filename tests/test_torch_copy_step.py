@@ -161,10 +161,11 @@ def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
 
 def test_build_targets_with_a_define_get_their_own_library(tmp_path,
                                                            monkeypatch):
-    """``<source>@<MACRO>=<value>`` compiles the source with -D into a
-    library named after the target: the fused step's three tracer counts,
-    and their three raw forms, build side by side and never share a
-    file."""
+    """``<source>@<MACRO>=<value>[@...]`` compiles the source with a -D for
+    each define into a library named after the target: the fused step's
+    three tracer counts and their three raw forms, for each of the four
+    (trans, ffs) forms, build side by side and never share a file; the
+    full step's six keep the flags, and so the libraries, they had."""
     cmds = []
 
     def fake_run(cmd, **kw):
@@ -175,21 +176,31 @@ def test_build_targets_with_a_define_get_their_own_library(tmp_path,
     monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
     monkeypatch.setattr(_build.subprocess, "run", fake_run)
     targets = fstep.library_targets()
-    assert targets == ("fused_step@FUSED_NT=0", "fused_step@FUSED_NT=1",
-                       "fused_step@FUSED_NT=2", "fused_step@FUSED_RAW_NT=0",
-                       "fused_step@FUSED_RAW_NT=1",
-                       "fused_step@FUSED_RAW_NT=2")
+    assert targets[:6] == ("fused_step@FUSED_NT=0", "fused_step@FUSED_NT=1",
+                           "fused_step@FUSED_NT=2",
+                           "fused_step@FUSED_RAW_NT=0",
+                           "fused_step@FUSED_RAW_NT=1",
+                           "fused_step@FUSED_RAW_NT=2")
+    assert len(targets) == 24 and targets[6] == \
+        "fused_step@FUSED_NT=0@FUSED_TRANS=0"
+    assert targets[-1] == "fused_step@FUSED_RAW_NT=2@FUSED_TRANS=0@FUSED_FFS=0"
     for t in targets + ("fused_step",):
         with pytest.raises(RuntimeError, match="stop"):
             _build.build(t)
     outs = [os.path.basename(c[c.index("-o") + 1]) for c in cmds]
-    assert len(set(outs)) == 7
-    for n, (cmd, out) in enumerate(zip(cmds[:6], outs)):
-        macro = "FUSED_NT" if n < 3 else "FUSED_RAW_NT"
-        assert f"-D{macro}={n % 3}" in cmd
+    assert len(set(outs)) == 25
+    for n, (cmd, out) in enumerate(zip(cmds[:24], outs)):
+        trans, ffs = fstep.FORMS[n // 6]
+        macro = "FUSED_NT" if n % 6 < 3 else "FUSED_RAW_NT"
+        defines = [a for a in cmd if a.startswith("-D")]
+        assert defines == [f"-D{macro}={n % 3}"] + (
+            [] if trans else ["-DFUSED_TRANS=0"]) + (
+            [] if ffs else ["-DFUSED_FFS=0"])
         assert cmd[-1].endswith("fused_step.cu")
         assert out.startswith(f"libfused_step-{macro}{n % 3}-")
-    assert not any(a.startswith("-D") for a in cmds[6])
+        assert fstep.library_target(n % 3, n % 6 >= 3, trans, ffs) == \
+            targets[n]
+    assert not any(a.startswith("-D") for a in cmds[24])
     assert "--use_fast_math" not in " ".join(cmds[0])
 
 

@@ -144,27 +144,18 @@ def _unsupported_cases():
     def slow_form(basin, cfg, mask):
         return dict(model_kw=dict(static_rslu=False))
 
-    def no_ffs(basin, cfg, mask):
-        return dict(cfg=dataclasses.replace(
-            cfg, sw=SWConfig(use_tracers=0, full_free_surface=0)))
-
-    def no_trans(basin, cfg, mask):
-        return dict(cfg=dataclasses.replace(
-            cfg, sw=SWConfig(use_tracers=0, trans_terms=0)))
-
     def bipolar_slow_form(basin, cfg, mask):
         return dict(basin=dataclasses.replace(basin, curve_grid=2),
                     model_kw=dict(static_rslu=False))
 
     return {f.__name__: f for f in (three_tracers, periodic, slow_form,
-                                    no_ffs, no_trans, bipolar_slow_form)}
+                                    bipolar_slow_form)}
 
 
 UNSUPPORTED = _unsupported_cases()
 MESSAGES = {"three_tracers": "tracer_num=3",
             "periodic": "periodic",
-            "slow_form": "static_rslu", "no_ffs": "full_free_surface",
-            "no_trans": "trans_terms",
+            "slow_form": "static_rslu",
             "bipolar_slow_form": "fast2d requires static_rslu=True"}
 
 

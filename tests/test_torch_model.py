@@ -436,8 +436,8 @@ def test_main_runs_the_flat_basin_example_on_the_cpu(tmp_path, capsys):
                  "--checkpoint", ck]) == 0
     out = capsys.readouterr().out
     assert "MODEL: auto mesh 1x1" in out
-    # trans_terms = 0 in this example: outside the fused kernel's envelope
-    assert "MODEL: compute path: eager composition" in out
+    # trans_terms = 0 in this example: the kernel's form without advection
+    assert "MODEL: compute path: fused CUDA kernel" in out
     assert "MODEL: step 120/120" in out and "TIMER REPORT" in out
     assert "wet_points_per_sec" in out
     assert load_checkpoint(ck, device="cpu")[1] == 120

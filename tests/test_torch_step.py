@@ -113,8 +113,9 @@ def test_make_step_matches_jax_f64(with_islands):
 
 
 def _bs_case(precision):
+    """The Black Sea case of tests/test_golden.py, one tracer included."""
     basin = basinpar_bs4km()
-    cfg = ModelConfig(basin=basin, sw=SWConfig(use_tracers=0),
+    cfg = ModelConfig(basin=basin, sw=SWConfig(use_tracers=1, tracer_num=1),
                       precision=precision)
     mask = read_mask(os.path.join(REPO, basin.mask_file_name),
                      basin.nx, basin.ny)
@@ -123,11 +124,12 @@ def _bs_case(precision):
 
 
 def check_golden(state, step_key, rtol, pt_atol):
-    """ssh, u and v against the committed digests (tests/test_golden.py);
-    tracers are passive and wait for the tracer port."""
+    """ssh, u, v and the tracer against the committed digests
+    (tests/test_golden.py)."""
     want = GOLDEN["steps"][step_key]
-    for fld, name in (("ssh", "ssh"), ("u", "ubrtr"), ("v", "vbrtr")):
-        a = getattr(state, name).double().numpy()
+    for fld, a in (("ssh", state.ssh), ("u", state.ubrtr),
+                   ("v", state.vbrtr), ("tracer", state.ff[0])):
+        a = a.double().numpy()
         got = {"sum": a.sum(), "l2": np.sqrt((a * a).sum()),
                "absmax": np.abs(a).max()}
         for k in ("sum", "l2", "absmax"):

@@ -470,6 +470,8 @@ def test_static_planes_and_metric_rows_match_jax(curve_grid):
 # ---- the envelope of FusedSWModel ---------------------------------------
 
 def test_unsupported_no_longer_names_viscosity_or_bathymetry():
+    """Neither viscosity nor varying bathymetry keeps a configuration off
+    the kernel, with a linear free surface either."""
     jgrid, cfg, jstate = jax_case("f32", 1, 2, MU, True)
     grid, _ = to_torch(jgrid, jstate, torch.float32)
     assert unsupported(grid, cfg, mu_const=MU) == []
@@ -482,7 +484,7 @@ def test_unsupported_no_longer_names_viscosity_or_bathymetry():
     assert FusedSWModel(flat, cfg, 1.0, mu_const=MU).hr_const == 100.0
     bad = dataclasses.replace(cfg, sw=dataclasses.replace(
         cfg.sw, full_free_surface=0))
-    assert unsupported(grid, bad, mu_const=MU) == ["full_free_surface=0"]
+    assert unsupported(grid, bad, mu_const=MU) == []
 
 
 def test_pack_refuses_a_state_whose_mu_is_not_mu_const():
@@ -508,3 +510,51 @@ def test_kernel_inputs_are_checked_per_form():
         fstep.fused_sw_step((f,) * 6, met, planes, lay, 1.0, 0.5, 100.0,
                             met_map=met_map, mu_const=MU, visc=True)
     assert fstep.fused_sw_step.launches == 0
+
+
+def test_viscosity_lowers_max_u_alike_in_both_packages():
+    """The Azov run of chip_smoke.py phase 8 (coastline, 15-100 m
+    bathymetry, mu = 1000 against mu = 0) at 64 x 48 cells of the Azov
+    250 m grid cut from its coastline, 200 f64 steps: max |u| with and
+    without mu, in the port's eager composition and in the un-jitted JAX
+    ``make_step`` (the two agree bit for bit with mu != 0; the mu = 0 run
+    of JAX is jitted, which agrees at 1e-12 there). Both packages lower
+    max |u| by the same fraction, several percent here: the drop the card
+    shows at full size is the viscosity's, not the port's (grid-scale
+    diffusion number mu tau / dx^2 = 0.016 a step, 3.2 over 200 steps)."""
+    from ocean_model_arch_tpu.config import basinpar_as250m_test
+    from ocean_model_arch_tpu.io.mask_io import read_mask
+
+    nx, ny, steps = 64, 48, 200
+    full = read_mask("data/AS/maskAzovCor.txt", 1525, 1115)
+    mask = np.ascontiguousarray(full[700:700 + nx, 500:500 + ny])
+    mask[:2] = mask[-2:] = 1
+    mask[:, :2] = mask[:, -2:] = 1
+    assert 0.5 < 1 - mask.mean() < 0.95            # coast and water
+    basin = dataclasses.replace(basinpar_as250m_test(), nx=nx, ny=ny)
+    prec = Precision.f64()
+    cfg = ModelConfig(basin=basin, sw=SWConfig(use_tracers=0, ksw_lat=1),
+                      precision=prec)
+    jgrid = jax_build_grid(basin, mask, hhq_rest=bathymetry(nx, ny),
+                           precision=prec)
+    umax = {}
+    for mu in (MU, 0.0):
+        jstate = jax_init(jgrid, cfg)
+        jstate = dataclasses.replace(jstate, mu=jnp.full_like(jstate.mu, mu))
+        grid, state = to_torch(jgrid, jstate, torch.float64)
+        got, ok = run_steps(make_step(grid, cfg), state, 1.0, steps)
+        if mu:
+            with jax.disable_jit():
+                want, jok = jax_run_steps(jax_make_step(jgrid, cfg), jstate,
+                                          1.0, steps)
+        else:
+            want, jok = jax_run_steps(jax.jit(jax_make_step(jgrid, cfg)),
+                                      jstate, 1.0, steps)
+        assert ok and bool(jok)
+        umax[mu] = (float(got.ubrtr.abs().max()),
+                    float(np.abs(np.asarray(want.ubrtr)).max()))
+    assert umax[MU][0] == umax[MU][1]
+    assert abs(umax[0.0][0] - umax[0.0][1]) <= 1e-12 * umax[0.0][1]
+    port, jax_ = (umax[MU][k] / umax[0.0][k] - 1.0 for k in (0, 1))
+    assert abs(port - jax_) < 1e-10
+    assert -0.1 < port < -0.01
