@@ -8,15 +8,18 @@ Drives the port's paths at the Azov 250 m extents 1525 x 1115
 f32; on its spherical grid and, with ``curve_grid=2``, on the bipolar
 grid whose metrics vary along x) through ``build_grid`` ->
 ``init_ocean_state`` -> ``FusedSWModel(static_rslu=True,
-steps_per_call=2)`` -> ``pack`` -> ``run_steps`` -> ``unpack``, in
-phases:
+steps_per_call=1)`` (one step a launch, phases 2-10) or ``steps_per_call
+=2`` (two chained steps a launch, as the JAX ``OceanModel`` runs even
+windows: phase 11, and ``main`` in phases 9b and 10c) -> ``pack`` ->
+``run_steps`` -> ``unpack``, in phases:
 
 1. device: the card, its power limit, the toolchain, the build of the
    kernel libraries (the fused step's forms with 0, 1 and 2 tracers, raw
-   or not, with and without momentum advection and with a full or a
-   linear free surface, and the copy step: 25 libraries started
-   together) with ptxas's registers and spills, which must stay at 42
-   registers and 0 bytes;
+   or not, with and without momentum advection, with a full or a linear
+   free surface, one step or two chained a launch, and the copy step: 49
+   libraries started together) with ptxas's registers and spills, which
+   must stay at 42 registers (64, the chained forms' launch bound) and 0
+   bytes;
 2. every form of the fused-step CUDA kernel (no tracers / 2 tracers,
    unguarded / tile guard, profile / plane metrics) against its plain
    PyTorch version on the card, on the 2-cell land frame mask, the
@@ -64,8 +67,9 @@ phases:
    pad untouched; (b) ``python -m ocean_model_arch_torch`` in-process
    (``main``) on a copy of ``examples/05_azov_hires`` in a temporary
    directory: 604 steps at 1525 x 1115 in windows of 60 on the fused CUDA
-   kernel, a GrADS record per window, the final state and ``ssh.dat``'s
-   last record against ``FusedSWModel.run_steps`` by hand bit for bit,
+   kernel, 302 chained launches, a GrADS record per window, the final
+   state and ``ssh.dat``'s last record against ``FusedSWModel(
+   steps_per_call=2).run_steps`` by hand bit for bit,
    then the same run to half way with ``--checkpoint``, resumed, equal
    to the straight run bit for bit; (c) a zonal channel 1536 x 1115,
    periodic in x, 2 tracers, through ``OceanModel`` on
@@ -85,16 +89,31 @@ phases:
    bathymetry), 200 steps each against the eager composition, and their
    timing line; (c) every shipped run directory ``examples/0*`` through
    ``main --f32`` on the fused CUDA kernel against the eager composition
-   by hand, ``04_black_sea`` as shipped in f64 on the eager route, and
-   ``01_flat_basin --mesh 2x2`` == its 1 x 1 run bit for bit.
+   by hand (302 chained launches each), ``04_black_sea`` as shipped in
+   f64 on the eager route, and ``01_flat_basin --mesh 2x2`` == its 1 x 1
+   run bit for bit (its raw forms at two steps a launch and at one);
+11. (printed before phase 7) two chained model steps a launch: (a)
+   every chained instantiation of phases 2 and 10a against the plain
+   version (one launch 1e-5, 25 carried launches of 2 steps 1e-4, land
+   and all-land tiles 0, guarded == unguarded), and the chained raw
+   forms on 2 x 2 shards; (b) the chained paths ``azov_mask``,
+   ``azov_tracers``, ``bipolar_azov`` and ``azov_visc``, 200 steps in
+   100 launches each against the eager composition, the guard on an
+   sshp spike that only the first step of a launch holds above the
+   bound, their timing beside the same form's single-step kernel, byte
+   bound and the chained copy step; (c) ``azov_visc`` and
+   ``bipolar_azov`` on 2 x 2 shards at two steps a launch (margins 8 and
+   6), uniform and weighted cuts, == the chained single block bit for
+   bit, 4 strip copies a step.
 
 Every phase prints its lines; any failure raises (exit code != 0). The
-line before the last is one JSON object describing the seventeen
-kernels (the fused step's plain, guarded, tracer, plane-metric, viscous,
+line before the last is one JSON object describing twenty-five kernels
+(the fused step's plain, guarded, tracer, plane-metric, viscous,
 bathymetry-plane, viscous + bathymetry + tracer and viscous plane-metric
 forms, its raw form on the three paths of phase 9, the four forms of the
-paths of phase 10b and the raw form of ``01_flat_basin --mesh 2x2``, and
-the copy step);
+paths of phase 10b, the raw forms of ``01_flat_basin --mesh 2x2``, the
+chained forms of phase 11's four paths and two 2 x 2 splits, the copy
+step and the chained copy step);
 the last line is ``{"ok": true, "device": {...}}``. With ``--parent
 DIR`` (the root of another checkout of this repository) it instead holds
 every instantiation that checkout has against this one's, bit for bit
@@ -156,7 +175,15 @@ REPLACES = {"fused_sw_step": PALLAS + ":1642",
             "fused_sw_step_linear_tracers": PALLAS + ":954",
             "fused_sw_step_linear_visc_bathy_tracers": PALLAS + ":764",
             "fused_sw_step_raw_notrans_guarded": PALLAS + ":1652",
-            "copy_step": "scripts/roofline_probe.py:71"}
+            "fused_sw_step_chain_guarded": PALLAS + ":1061",
+            "fused_sw_step_chain_tracers": PALLAS + ":1061",
+            "fused_sw_step_chain_fast2d": PALLAS + ":1061",
+            "fused_sw_step_chain_visc_bathy_tracers": PALLAS + ":1061",
+            "fused_sw_step_raw_chain_visc_bathy_tracers": PALLAS + ":1061",
+            "fused_sw_step_raw_chain_fast2d": PALLAS + ":1061",
+            "fused_sw_step_raw_chain_notrans_guarded": PALLAS + ":1061",
+            "copy_step": "scripts/roofline_probe.py:71",
+            "copy_step_chain": "scripts/roofline_probe.py:71"}
 
 
 class SmokeFailure(RuntimeError):
@@ -223,11 +250,10 @@ def ptxas_table(log: str) -> list:
     instantiation from nvcc's -Xptxas -v output."""
     out, name, spill = [], None, -1
     for ln in log.splitlines():
-        m = re.search(
-            r"_kernelILi(\d)E(?:Lb(\d)ELb(\d)ELi(\d)ELb(\d)ELb(\d)E"
-            r"(?:Lb(\d)ELb(\d)E)?)?", ln)
+        m = re.search(r"_kernelI((?:L[bi]\d+E)+)E", ln)
         if m:
-            name = "<" + ",".join(g for g in m.groups() if g) + ">"
+            name = "<" + ",".join(re.findall(r"L[bi](\d+)E", m.group(1))) \
+                + ">"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
         if m and name:
@@ -258,32 +284,38 @@ def model_args(fm, cfg):
     passes them."""
     return (fm.met, fm.planes, fm.lay, fm.tau, cfg.sw.time_smooth,
             fm.hr_const, fm.tile_wet, fm.tile, fm.met_map, fm.mu_const,
-            fm.visc, fm.trans, fm.ffs)
+            fm.visc, fm.trans, fm.ffs, fm.steps_per_call)
 
 
 def form_key(fm) -> tuple:
     """The kernel instantiation a model launches, as the wrapper counts
     it: (tracers, guarded, plane metrics, mu mode, bathymetry planes,
-    raw, advection, full free surface). The sharded model launches the
-    raw form."""
+    raw, advection, full free surface, steps a launch). The sharded model
+    launches the raw form."""
     from ocean_model_arch_torch.ops.fused_step import mu_mode
     return (fm.n_tracers, fm.tile_guard, fm.metrics_2d,
             mu_mode(fm.n_tracers, fm.mu_const, fm.visc), fm.hr_const is None,
-            hasattr(fm, "shard_lay"), fm.trans, fm.ffs)
+            hasattr(fm, "shard_lay"), fm.trans, fm.ffs, fm.steps_per_call)
+
+
+def key_text(key) -> str:
+    return "<" + ",".join(str(int(k)) for k in key) + ">"
 
 
 def form_name(fm) -> str:
     """The entry of the kernels line a model's instantiation counts
     under: the four names of the inviscid flat-bathymetry forms, else
-    the features spelt out, after ``notrans`` (no momentum advection)
-    and ``linear`` (a linear free surface) where the form has them."""
-    forms = "_notrans" * (not fm.trans) + "_linear" * (not fm.ffs)
+    the features spelt out, after ``chain`` (two steps a launch),
+    ``notrans`` (no momentum advection) and ``linear`` (a linear free
+    surface) where the form has them."""
+    forms = ("_chain" * (fm.steps_per_call == 2) + "_notrans" * (not fm.trans)
+             + "_linear" * (not fm.ffs))
     new = form_key(fm)[3] or fm.hr_const is None
-    if not new and not forms:
-        return ("fused_sw_step_fast2d" if fm.metrics_2d else
-                "fused_sw_step_tracers" if fm.n_tracers else
-                "fused_sw_step_guarded" if fm.tile_guard else
-                "fused_sw_step")
+    if not new:
+        return ("fused_sw_step" + forms
+                + ("_fast2d" if fm.metrics_2d else
+                   "_tracers" if fm.n_tracers else
+                   "_guarded" if fm.tile_guard else ""))
     feats = "".join(
         "_" + w for w, on in (("visc", fm.visc),
                               ("diff", form_key(fm)[3] == 1),
@@ -313,9 +345,10 @@ def land_masks(fm, grid, n_tracers):
 
 def bound_ms(fm, n_tracers: int):
     """The least time the card could take for one launch of this model's
-    kernel form: (ms, "bytes" or "operations", the bytes). Bytes: each
-    input plane (the carried fields and the form's static planes) read
-    once and each output written once over the cells the form computes
+    kernel form (``steps_per_call`` model steps): (ms, "bytes" or
+    "operations", the bytes). Bytes: each input plane (the carried fields
+    and the form's static planes) read once and each output written once
+    over the cells the form computes
     (all cells unguarded; the cells of wet tiles when guarded, plus the
     zero writes of the all-land tiles), the profile rows or, per
     computed cell, the metric planes, one flag and one max per block.
@@ -337,7 +370,7 @@ def bound_ms(fm, n_tracers: int):
               + skipped * 4 * n_out + met_bytes
               + blocks * (4 + (4 if fm.tile_wet is not None else 0)))
     flops = done * (CELL_FLOPS + TRACER_FLOPS * n_tracers
-                    + VISC_FLOPS * fm.visc)
+                    + VISC_FLOPS * fm.visc) * fm.steps_per_call
     t_b, t_f = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
     return (t_b, "bytes", nbytes) if t_b >= t_f else (t_f, "operations",
                                                       nbytes)
@@ -353,27 +386,31 @@ def broadcast_planes(fm, n_tr):
     return planes, {r: i for i, r in enumerate(rows)}
 
 
-def compare_forms(mname, grid, cfgs, stats, mu=0.0):
+def compare_forms(mname, grid, cfgs, stats, mu=0.0, spc=1):
     """Phase 2 on one mask: every kernel form against the plain version,
-    and guarded against unguarded, with the state's viscosity ``mu``.
-    ``stats``: form name -> max abs err."""
+    and guarded against unguarded, with the state's viscosity ``mu``, at
+    ``spc`` model steps a launch (phase 11: 2, chained, with half the
+    carried launches, the same model steps). ``stats``: form name -> max
+    abs err."""
     from ocean_model_arch_torch.model.fused import FusedSWModel
     from ocean_model_arch_torch.model.init import init_ocean_state
     from ocean_model_arch_torch.ops.fused_step import (
         fused_sw_step, fused_sw_step_blockmax, fused_sw_step_reference)
 
     carried = {}
+    n_carry = N_CARRY // spc
+    phase = "phase 2" if spc == 1 else "phase 11a"
     for n_tr, cfg in cfgs.items():
         state = with_mu(init_ocean_state(grid, cfg), mu)
         for guard in (False, True):
             fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, static_rslu=True,
-                              steps_per_call=2, tile_guard=guard)
+                              steps_per_call=spc, tile_guard=guard)
             args = model_args(fm, cfg)
             land = land_masks(fm, grid, n_tr)
             s0 = fm.pack(state)
             form = form_name(fm)
             tag = (f"{mname} T={n_tr} guard={'on' if guard else 'off'} "
-                   f"<{','.join(str(int(k)) for k in form_key(fm))}>")
+                   f"{key_text(form_key(fm))}")
             if guard:
                 tx, ty = fm.tile
                 dry = (fm.tile_wet == 0).repeat_interleave(tx, 0) \
@@ -406,14 +443,14 @@ def compare_forms(mname, grid, cfgs, stats, mu=0.0):
                 check(bool((bmx[fm.tile_wet == 0] == 0).all()),
                       f"{tag}: the block max of an all-land tile is not 0")
             ks, rs = s0, s0
-            for _ in range(N_CARRY):
+            for _ in range(n_carry):
                 ks, _ = fused_sw_step(ks, *args)
                 rs, _ = fused_sw_step_reference(rs, *args)
-            eN = compare(f"{N_CARRY} launches", ks, rs, TOL_CARRY)
+            eN = compare(f"{n_carry} launches", ks, rs, TOL_CARRY)
             # one launch from the evolved state (advection, Coriolis live)
             k2, _ = fused_sw_step(rs, *args)
             r2, _ = fused_sw_step_reference(rs, *args)
-            e2 = compare(f"1 launch after {N_CARRY}", k2, r2, TOL_ONE)
+            e2 = compare(f"1 launch after {n_carry}", k2, r2, TOL_ONE)
             carried[(n_tr, guard)] = (k1, ks)
             same = ""
             if not fm.metrics_2d:
@@ -422,7 +459,7 @@ def compare_forms(mname, grid, cfgs, stats, mu=0.0):
                 # same order, so the same bits, from both states
                 met_b, map_b = broadcast_planes(fm, n_tr)
                 for what, start in (("the initial state", s0),
-                                    (f"step {N_CARRY}", rs)):
+                                    (f"launch {n_carry}", rs)):
                     kp, bp = fused_sw_step_blockmax(start, *args)
                     kb, bb = fused_sw_step_blockmax(
                         start, met_b, *args[1:8], map_b, *args[9:])
@@ -433,22 +470,22 @@ def compare_forms(mname, grid, cfgs, stats, mu=0.0):
                 same = ("; plane-metric kernel on repeated profile rows == "
                         "profile kernel bit for bit: yes")
             torch.cuda.synchronize()
-            print(f"phase 2 kernel vs plain ({tag}, {fm.lay.Xs}x"
+            print(f"{phase} kernel vs plain ({tag}, {fm.lay.Xs}x"
                   f"{fm.lay.Ys} layout, {fm.tile[0]}x{fm.tile[1]} tiles: "
                   f"{fm.n_tiles[0]} wet, {fm.n_tiles[1]} land): rel err "
-                  f"per field 1 launch {fmt(e1)} < {TOL_ONE}; {N_CARRY} "
-                  f"launches {fmt(eN)} < {TOL_CARRY}; 1 launch from step "
-                  f"{N_CARRY} {fmt(e2)} < {TOL_ONE}; land exactly 0: yes"
+                  f"per field 1 launch {fmt(e1)} < {TOL_ONE}; {n_carry} "
+                  f"launches {fmt(eN)} < {TOL_CARRY}; 1 launch from launch "
+                  f"{n_carry} {fmt(e2)} < {TOL_ONE}; land exactly 0: yes"
                   + ("; all-land tiles and their block max exactly 0: yes"
                      if guard else "") + same)
-        for which, what in ((0, "1 launch"), (1, f"{N_CARRY} launches")):
+        for which, what in ((0, "1 launch"), (1, f"{n_carry} launches")):
             off, on = carried[(n_tr, False)][which], \
                 carried[(n_tr, True)][which]
             check(all(torch.equal(a, b) for a, b in zip(off, on)),
                   f"{mname} T={n_tr}: guarded and unguarded kernel outputs "
                   f"differ after {what}")
-        print(f"phase 2 guard on vs off ({mname} T={n_tr}): kernel outputs "
-              f"bit-identical after 1 and {N_CARRY} launches")
+        print(f"{phase} guard on vs off ({mname} T={n_tr}): kernel outputs "
+              f"bit-identical after 1 and {n_carry} launches")
 
 
 def tracer_mass(state, grid) -> list:
@@ -458,14 +495,15 @@ def tracer_mass(state, grid) -> list:
             for t in range(state.ff.shape[0])]
 
 
-def drive_path(tag, grid, cfg, tile_guard, mu=0.0):
+def drive_path(tag, grid, cfg, tile_guard, mu=0.0, spc=1):
     """One path end to end: init -> FusedSWModel -> pack -> run_steps ->
-    unpack for N_MAIN steps, against the eager composition, with the
-    viscosity ``mu`` in the state and the model. The launch counts are
-    zeroed just before ``run_steps`` and read just after; the path's
-    kernel instantiation (``form_key``) must have launched once per step
-    and no other at all. Returns (model, state, packed initial fields,
-    launches of that instantiation, the final state)."""
+    unpack for N_MAIN steps at ``spc`` steps a launch, against the eager
+    composition, with the viscosity ``mu`` in the state and the model.
+    The launch counts are zeroed just before ``run_steps`` and read just
+    after; the path's kernel instantiation (``form_key``) must have
+    launched once per ``spc`` steps and no other at all. Returns (model,
+    state, packed initial fields, launches of that instantiation, the
+    final state)."""
     from ocean_model_arch_torch.model.fused import FusedSWModel
     from ocean_model_arch_torch.model.init import init_ocean_state
     from ocean_model_arch_torch.model.step import make_step, run_steps
@@ -475,20 +513,21 @@ def drive_path(tag, grid, cfg, tile_guard, mu=0.0):
     n_tr = cfg.sw.tracer_num if cfg.sw.use_tracers > 0 else 0
     state = with_mu(init_ocean_state(grid, cfg), mu)
     fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, static_rslu=True,
-                      steps_per_call=2, tile_guard=tile_guard)
+                      steps_per_call=spc, tile_guard=tile_guard)
     s0 = fm.pack(state)
     reset_launch_counts()
     s, ok = fm.run_steps(s0, N_MAIN)
     launches = fused_sw_step.launches
     counts = dict(fused_sw_step.form_launches)
     out = fm.unpack(s, state)
+    n = N_MAIN // spc
     check(ok, f"{tag}: the stability guard tripped")
-    check(launches == N_MAIN, f"{tag}: {launches} kernel launches for "
-          f"{N_MAIN} steps")
+    check(launches == n, f"{tag}: {launches} kernel launches for "
+          f"{N_MAIN} steps at {spc} a launch")
     key = form_key(fm)
-    check(counts == {key: N_MAIN}, f"{tag}: launches per (tracers, guarded, "
+    check(counts == {key: n}, f"{tag}: launches per (tracers, guarded, "
           f"plane metrics, mu mode, bathymetry planes, raw, advection, "
-          f"full free surface) {counts}, expected {N_MAIN} of {key}")
+          f"full free surface, steps) {counts}, expected {n} of {key}")
     ref, eok = run_steps(make_step(grid, cfg), state, 1.0, N_MAIN)
     check(eok, f"{tag}: the eager composition's guard tripped")
     errs = {}
@@ -503,7 +542,7 @@ def drive_path(tag, grid, cfg, tile_guard, mu=0.0):
     check(max(errs.values()) < TOL_EAGER,
           f"{tag} vs eager composition: rel errors {errs}")
     line = (f"{tag}: {N_MAIN} steps ok={ok} launches={launches} "
-            f"of <{','.join(str(int(k)) for k in key)}> "
+            f"of {key_text(key)} "
             f"(guard {'on' if fm.tile_guard else 'off'}, "
             f"{'plane' if fm.metrics_2d else 'profile'} metrics, mu "
             f"{fm.mu_const:g}, bathymetry "
@@ -594,18 +633,19 @@ def against_parent(parent: str, card: str) -> int:
     coastline at full size, against this checkout's: profile and plane
     metrics, 0 / 1 / 2 tracers, guard off / on, mu = 0, the tracers'
     diffusive fluxes alone, viscosity, flat bathymetry and bathymetry
-    planes, each in its single-block and its raw form (the raw form on
-    the single block's layout, whose box is its interior), as far as the
-    parent's wrappers take arguments for them; forms whose further
-    arguments are not at their defaults (the advection and free-surface
-    switches) have no parent. Outputs and block maxima bit for bit from
+    planes, with and without momentum advection, with a full and a
+    linear free surface, each in its single-block and its raw form (the
+    raw form on the single block's layout, whose box is its interior), as
+    far as the parent's wrappers take arguments for them; forms whose
+    further arguments are not at their defaults (the chained steps, or
+    the advection and free-surface switches of an older parent) have no
+    parent. Outputs and block maxima bit for bit from
     a state 20 steps in, and the kernel's device us/launch over three
     windows a side in the order parent, this, this, parent, parent, this
     (the medians must agree within 2 %; where they do not, over up to
     nine windows a side)."""
     from ocean_model_arch_torch.core.grid import build_grid
-    from ocean_model_arch_torch.host import (ModelConfig, Precision,
-                                             SWConfig, basinpar_as250m_test,
+    from ocean_model_arch_torch.host import (Precision, basinpar_as250m_test,
                                              read_mask)
     from ocean_model_arch_torch.model.fused import FusedSWModel
     from ocean_model_arch_torch.model.init import init_ocean_state
@@ -626,13 +666,23 @@ def against_parent(parent: str, card: str) -> int:
         mine.fused_sw_step).parameters.values())[1:]]
     raws = (False, True) if hasattr(theirs, "fused_sw_step_raw") else (False,)
 
+    def window_us(call):
+        # torch.profiler now and then records no device activity in a
+        # window (once in about 950 on an H100): that window is taken again
+        for attempt in range(3):
+            try:
+                return probe.kernel_us(call, N_TIME, "fused_sw_step_kernel")
+            except RuntimeError:
+                if attempt == 2:
+                    raise
+
     basin = basinpar_as250m_test()
     prec = Precision.f32()
     mask = read_mask(os.path.join(REPO, "data", "AS", "maskAzovCor.txt"),
                      basin.nx, basin.ny)
     hr = bathymetry(basin.nx, basin.ny)
     worst, n_forms = 0.0, 0
-    for cg in (0, 2):
+    for (trans, ffs), cg in [(f, c) for f in mine.FORMS for c in (0, 2)]:
         b = dataclasses.replace(basin, curve_grid=cg)
         for hr_planes in (False, True):
             grid = build_grid(b, mask, hhq_rest=hr if hr_planes else None,
@@ -641,9 +691,7 @@ def against_parent(parent: str, card: str) -> int:
             for n_tr, mu, ksw in [(t, m, k) for t in (0, 1, 2)
                                   for m, k in ((0.0, 1), (MU, 0), (MU, 1))
                                   if t or k]:
-                cfg = ModelConfig(basin=b, sw=SWConfig(
-                    use_tracers=int(n_tr > 0), tracer_num=max(n_tr, 1),
-                    ksw_lat=ksw), precision=prec)
+                cfg = form_cfg(b, prec, n_tr, trans, ffs, ksw)
                 state = with_mu(init_ocean_state(grid, cfg), mu)
                 for guard, raw in [(g, r) for r in raws
                                    for g in (False, True)]:
@@ -681,7 +729,7 @@ def against_parent(parent: str, card: str) -> int:
                             mine.fused_sw_step(s, *args)
                     tag = ("<" + ",".join(str(int(k)) for k in
                                           form_key(fm)[:5])
-                           + f",{int(raw)}> (curve_grid={cg})")
+                           + f",{int(raw)},{trans},{ffs}> (curve_grid={cg})")
                     check(all(torch.equal(x, y) for x, y in zip(new, old))
                           and torch.equal(nb, ob), f"{tag}: outputs differ "
                           "from the parent's")
@@ -693,9 +741,8 @@ def against_parent(parent: str, card: str) -> int:
                     order, us = "", []
                     for _ in range(3):
                         order += "PTTPPT"
-                        us += [probe.kernel_us(
-                            old_call if c == "P" else new_call, N_TIME,
-                            "fused_sw_step_kernel") for c in "PTTPPT"]
+                        us += [window_us(old_call if c == "P" else new_call)
+                               for c in "PTTPPT"]
                         med = {c: float(np.median([u for u, o in
                                                    zip(us, order) if o == c]))
                                for c in "PT"}
@@ -722,7 +769,8 @@ def shard_args(fs, cfg, i, j):
     blockmax) for shard (i, j), as the sharded model passes them."""
     return (fs.met_shards[i][j], fs.plane_shards[i][j], fs.shard_lay[i][j],
             fs.tau, cfg.sw.time_smooth, fs.hr_const, fs.tile_wet[i][j],
-            fs.tile, fs.met_map, fs.mu_const, fs.visc, fs.trans, fs.ffs)
+            fs.tile, fs.met_map, fs.mu_const, fs.visc, fs.trans, fs.ffs,
+            fs.steps_per_call)
 
 
 def n_blocks(fs) -> tuple:
@@ -733,8 +781,9 @@ def n_blocks(fs) -> tuple:
 def compare_raw(tag, fs, cfg, state, stats, form) -> None:
     """Phase 9a on one sharded model: after one margin exchange, the raw
     form of the kernel against its plain version on every shard (one
-    launch), then ``N_CARRY`` carried launches on the shard with the most
-    wet tiles, its margin frozen; the margins and the pad of the output
+    launch), then ``N_CARRY`` carried launches (half as many of the
+    chained form, the same model steps) on the shard with the most wet
+    tiles, its margin frozen; the margins and the pad of the output
     buffers must stay what they were, bit for bit. ``stats[form]`` takes
     the largest absolute difference."""
     from ocean_model_arch_torch.ops.fused_step import (
@@ -773,6 +822,7 @@ def compare_raw(tag, fs, cfg, state, stats, form) -> None:
         if wet > most:
             busiest, most = k, wet
     # carried launches on one shard, two buffers a side, the margin frozen
+    n_carry = N_CARRY // fs.steps_per_call
     i, j = divmod(busiest, fs.py)
     args = shard_args(fs, cfg, i, j)
     lay = fs.shard_lay[i][j]
@@ -780,36 +830,38 @@ def compare_raw(tag, fs, cfg, state, stats, form) -> None:
     kb = [start.clone(), start.clone()]
     rb = [start.clone(), start.clone()]
     bm = torch.zeros(n_blocks(fs), device=start.device)
-    for n in range(N_CARRY):
+    for n in range(n_carry):
         fused_sw_step_raw(kb[n % 2].unbind(0), kb[1 - n % 2].unbind(0), bm,
                           *args)
         fused_sw_step_reference(rb[n % 2].unbind(0), *args,
                                 outs=rb[1 - n % 2].unbind(0))
     torch.cuda.synchronize()
-    got, want = kb[N_CARRY % 2], rb[N_CARRY % 2]
+    got, want = kb[n_carry % 2], rb[n_carry % 2]
     errs = [rel_err(a, b) for a, b in zip(got, want)]
-    check(max(errs) < TOL_CARRY, f"{tag} shard ({i}, {j}) {N_CARRY} "
+    check(max(errs) < TOL_CARRY, f"{tag} shard ({i}, {j}) {n_carry} "
           f"launches: rel errors {errs} exceed {TOL_CARRY}")
     outside = torch.ones_like(start[0], dtype=torch.bool)
     outside[M:M + lay.nx, M:M + lay.ny] = False
     check(all(torch.equal(b[:, outside], start[:, outside]) for b in kb),
-          f"{tag} shard ({i}, {j}): margins or pad changed in {N_CARRY} "
+          f"{tag} shard ({i}, {j}): margins or pad changed in {n_carry} "
           "launches")
     stats[form] = max([stats[form]] + [
         float((a - b).abs().max()) for a, b in zip(got, want)])
-    print(f"phase 9a raw kernel vs plain ({tag}, {fs.px} x {fs.py} shards "
-          f"of {fs.lay.Xs}x{fs.lay.Ys}, form <"
-          + ",".join(str(int(k)) for k in form_key(fs)) + ">): 1 launch on "
-          f"every shard rel err <= {worst1:.2e} < {TOL_ONE}; {N_CARRY} "
-          f"launches on shard ({i}, {j}) {fmt(errs)} < {TOL_CARRY}; margins "
-          "and pad of the output buffers untouched bit for bit: yes")
+    print(f"{'phase 9a' if fs.steps_per_call == 1 else 'phase 11c'} raw "
+          f"kernel vs plain ({tag}, {fs.px} x {fs.py} shards of "
+          f"{fs.lay.Xs}x{fs.lay.Ys}, margin {M}, form "
+          f"{key_text(form_key(fs))}): 1 launch on every shard rel err <= "
+          f"{worst1:.2e} < {TOL_ONE}; {n_carry} launches on shard ({i}, "
+          f"{j}) {fmt(errs)} < {TOL_CARRY}; margins and pad of the output "
+          "buffers untouched bit for bit: yes")
 
 
 def run_sharded(tag, fs, state, n_steps):
     """``n_steps`` steps of a sharded model from ``state``, the launch
     counts set to 0 just before and read just after: the model's raw
-    instantiation must have launched once per shard and step and no
-    other. Returns (the 6 + 2 T physical fields, ok, launches)."""
+    instantiation must have launched once per shard and launch (every
+    ``steps_per_call`` steps) and no other, after one exchange each.
+    Returns (the 6 + 2 T physical fields, ok, launches)."""
     from ocean_model_arch_torch.ops.fused_step import (fused_sw_step,
                                                        reset_launch_counts)
     run = fs.make_runner(n_steps)
@@ -819,10 +871,11 @@ def run_sharded(tag, fs, state, n_steps):
     carry, ok = run(carry)
     counts = dict(fused_sw_step.form_launches)
     key = form_key(fs)
-    n = n_steps * fs.px * fs.py
+    turns = n_steps // fs.steps_per_call
+    n = turns * fs.px * fs.py
     check(counts == {key: n}, f"{tag}: launches {counts}, expected {n} of "
           f"{key}")
-    check(fs.strip_copies - before == len(fs._plan) * n_steps,
+    check(fs.strip_copies - before == len(fs._plan) * turns,
           f"{tag}: {fs.strip_copies - before} strip copies")
     return fs.extract(carry), ok, n
 
@@ -841,8 +894,9 @@ def profile_events(fn) -> dict:
 
 
 def sharded_bound_ms(fs):
-    """The least time the card could take for one step of a sharded
-    model, summed over its shards' launches: (ms, the bytes). Each input
+    """The least time the card could take for one launch on every shard
+    of a sharded model (``steps_per_call`` model steps): (ms, the bytes).
+    Each input
     plane (fields, static planes, metric planes) read once over the cells
     of the tiles a launch computes, each output written once over the
     shard's box, the profile rows, one flag and one max per block."""
@@ -901,7 +955,8 @@ def time_sharded(fs, state, wet_pts: int, pts: int) -> dict:
                      f"{ms_dev * 1e3:.1f} us/step (torch.profiler over one "
                      f"window), device idle "
                      f"{max(0.0, 1 - ms_dev / ms_path):.0%}, byte bound "
-                     f"{b_ms * 1e3:.1f} us/step ({nbytes / 1e6:.1f} MB), "
+                     f"{b_ms * 1e3:.1f} us a turn of {fs.steps_per_call} "
+                     f"step(s) ({nbytes / 1e6:.1f} MB), "
                      f"tiles {fs.n_tiles[0]} wet / {fs.n_tiles[1]} dry")}
 
 
@@ -971,9 +1026,11 @@ def entry_point(card: str, name: str) -> None:
         check("MODEL: compute path: fused CUDA kernel\n" in out,
               "the entry point did not take the fused CUDA kernel:\n"
               + "\n".join(ln for ln in out.splitlines() if "MODEL" in ln))
-        key = (0, True, False, 0, False, False, 1, 1)
-        check(counts == {key: n_total}, f"phase 9b: launches {counts}, "
-              f"expected {n_total} of {key}")
+        # every window is even: two chained steps a launch, as JAX runs it
+        key = (0, True, False, 0, False, False, 1, 1, 2)
+        n_launch = n_total // 2
+        check(counts == {key: n_launch}, f"phase 9b: launches {counts}, "
+              f"expected {n_launch} of {key}")
         final, step = load_checkpoint(full_ck)
         check(step == n_total and final.ssh.is_cuda,
               f"the checkpoint holds step {step} on {final.ssh.device}")
@@ -981,14 +1038,16 @@ def entry_point(card: str, name: str) -> None:
         model = OceanModel(cfg, base_dir=d)
         check(model.compute_path() == "fused CUDA kernel"
               and model.grid.lu.is_cuda, "OceanModel chose another route")
-        fm = FusedSWModel(model.grid, cfg, cfg.run.tau, mu_const=0.0)
+        fm = FusedSWModel(model.grid, cfg, cfg.run.tau, mu_const=0.0,
+                          steps_per_call=2)
         s, ok = fm.run_steps(fm.pack(model.state), n_total)
         want = fm.unpack(s, model.state)
         check(ok, "phase 9b: the hand-driven run's guard tripped")
         for n in CARRIED + ("hhq", "hhu", "hhv", "hhh"):
             check(torch.equal(getattr(final, n), getattr(want, n)),
                   f"phase 9b: {n} of the entry point's final state differs "
-                  "from FusedSWModel.run_steps of the same steps")
+                  "from FusedSWModel(steps_per_call=2).run_steps of the "
+                  "same steps")
         n_rec = 1 + -(-n_total // n_out)
         res = os.path.join(d, "RESULTS")
         nx, ny = cfg.basin.nx, cfg.basin.ny
@@ -1030,16 +1089,17 @@ def entry_point(card: str, name: str) -> None:
                   "straight run")
     print(f"phase 9b entry point (python -m ocean_model_arch_torch "
           f"examples/05_azov_hires --f32, {nx} x {ny}): {n_total} steps in "
-          f"windows of {n_out} on the fused CUDA kernel, launches="
-          f"{n_total} of <" + ",".join(str(int(k)) for k in key)
-          + f">; {n_rec} GrADS records of ssh; final state == "
-          "FusedSWModel.run_steps by hand bit for bit (6 fields and the "
-          "depths): yes; ssh.dat's last record == final ssh on wet cells: "
+          f"windows of {n_out} on the fused CUDA kernel, two chained a "
+          f"launch, launches={n_launch} of {key_text(key)}; {n_rec} GrADS "
+          "records of ssh; final state == FusedSWModel(steps_per_call=2)"
+          ".run_steps by hand bit for bit (6 fields and the depths): yes; "
+          "ssh.dat's last record == final ssh on wet cells: "
           "yes; run to step 300 with --checkpoint, resumed to "
           f"{n_total} == the straight run bit for bit (every field of the "
           "checkpoint): yes")
     text = (f"model_step {t_step / n_total * 1e3:.4f} ms/step "
-            f"({t_step:.4f} s in {n_win} windows, pack and unpack "
+            f"({t_step:.4f} s in {n_win} windows of {n_launch} chained "
+            "launches, pack and unpack "
             f"included), output {t_out:.4f} s in {n_outs} calls "
             f"({t_out / n_outs * 1e3:.1f} ms each), checkpoint {t_ck:.4f} s")
     print(f"phase 9b timing ({name}; {card}): {text}")
@@ -1124,8 +1184,9 @@ def periodic_channel(card: str, name: str, stats: dict):
     print(f"phase 9c periodic channel ({nx} x {ny}, periodic in x, walls "
           f"in y, {N_TRACERS} tracers) through OceanModel on "
           f"FusedSharded2DModel(1, 1): {N_MAIN} steps ok, launches="
-          f"{keep[3]} of <" + ",".join(str(int(k)) for k in form_key(keep[0]))
-          + ">; vs eager composition rel err "
+          f"{keep[3]} of {key_text(form_key(keep[0]))} (one step a launch, "
+          "as JAX runs the periodic 1 x 1 route); vs eager composition "
+          "rel err "
           + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
           + f" < {TOL_EAGER}; max |ssh| in the first 8 columns "
           f"{seam_max[1]:.3e} (periodic), {seam_max[0]:.1e} (closed: the "
@@ -1133,35 +1194,38 @@ def periodic_channel(card: str, name: str, stats: dict):
     return keep
 
 
-def sharded_2x2(tag, grid, cfg, mu, stats, form):
+def sharded_2x2(tag, grid, cfg, mu, stats, form, spc=1):
     """Phase 9d on one configuration: 2 x 2 shards on the one card, with
     uniform and with weighted cuts, against the single block, bit for
-    bit; the guard on a NaN in each shard's interior and in its pad.
-    Returns {cuts: (model, launches)} and the initial state."""
+    bit, both at ``spc`` steps a launch (phase 11c: 2, chained, on margins
+    of 6 or 8); the guard on a NaN in each shard's interior and in its
+    pad. Returns {cuts: (model, launches)} and the initial state."""
     from ocean_model_arch_torch.model.fused import FusedSWModel
     from ocean_model_arch_torch.model.fused_sharded2d import \
         FusedSharded2DModel
     from ocean_model_arch_torch.model.init import init_ocean_state
     state = with_mu(init_ocean_state(grid, cfg), mu)
-    fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu)
+    phase = "phase 9d" if spc == 1 else "phase 11c"
+    fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, steps_per_call=spc)
     s, ok1 = fm.run_steps(fm.pack(state), N_MAIN)
     from ocean_model_arch_torch.ops import fused_layout as fl
     want = [fl.extract(fm.lay, a) for a in s]
     out = {}
     for cuts in ("uniform", "weighted"):
         fs = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, mu_const=mu,
-                                 weighted=cuts == "weighted")
+                                 weighted=cuts == "weighted",
+                                 steps_per_call=spc)
         compare_raw(f"{tag}, {cuts} cuts", fs, cfg, state, stats, form)
-        got, ok, n = run_sharded(f"phase 9d {tag} {cuts}", fs, state, N_MAIN)
-        check(ok == ok1 and ok, f"phase 9d {tag} {cuts}: ok={ok}, single "
+        got, ok, n = run_sharded(f"{phase} {tag} {cuts}", fs, state, N_MAIN)
+        check(ok == ok1 and ok, f"{phase} {tag} {cuts}: ok={ok}, single "
               f"block {ok1}")
         diffs = [float((a - b).abs().max()) for a, b in zip(got, want)]
         rels = [rel_err(a, b) for a, b in zip(got, want)]
         same = all(torch.equal(a, b) for a, b in zip(got, want))
         if not same:
-            print(f"phase 9d {tag} {cuts}: NOT bit-identical; max abs "
+            print(f"{phase} {tag} {cuts}: NOT bit-identical; max abs "
                   f"difference per field {diffs}, relative {rels}")
-        check(same, f"phase 9d {tag} {cuts}: the shards differ from the "
+        check(same, f"{phase} {tag} {cuts}: the shards differ from the "
               f"single block (max abs {max(diffs):.3e})")
         # the guard: a NaN inside each shard trips it, one in a pad not
         run2 = fs.make_runner(2)
@@ -1174,19 +1238,19 @@ def sharded_2x2(tag, grid, cfg, mu, stats, form):
             bad = list(fs.pack(state))
             bad[k][0, fs.M + int(cell[0]), fs.M + int(cell[1])] = \
                 float("nan")
-            check(not run2(bad)[1], f"phase 9d {tag} {cuts}: ok stayed "
+            check(not run2(bad)[1], f"{phase} {tag} {cuts}: ok stayed "
                   f"True with a NaN inside shard ({i}, {j})")
             bad = list(fs.pack(state))
             bad[k][0, -1, -1] = float("nan")
-            check(run2(bad)[1], f"phase 9d {tag} {cuts}: a NaN in the pad "
+            check(run2(bad)[1], f"{phase} {tag} {cuts}: a NaN in the pad "
                   f"of shard ({i}, {j}) tripped the guard")
         out[cuts] = (fs, n)
-        print(f"phase 9d {tag}, 2 x 2 shards, {cuts} cuts x "
+        print(f"{phase} {tag}, 2 x 2 shards, {cuts} cuts x "
               f"{fs.x_edges.tolist()} y {fs.y_edges.tolist()} (shards of "
               f"{fs.lay.Xs}x{fs.lay.Ys}, tiles {fs.n_tiles[0]} wet / "
               f"{fs.n_tiles[1]} dry): {N_MAIN} steps ok={ok} launches={n} "
-              "of <" + ",".join(str(int(k)) for k in form_key(fs))
-              + f">, {len(fs._plan)} strip copies/step; all "
+              f"of {key_text(form_key(fs))}, {len(fs._plan)} strip copies "
+              f"an exchange, {N_MAIN // fs.steps_per_call} exchanges; all "
               f"{len(got)} fields == the single-block FusedSWModel run bit "
               "for bit: yes; guard trips on a NaN inside each shard and "
               "not on one in its pad: yes")
@@ -1394,9 +1458,10 @@ def shipped_examples(card, name, stats, run) -> None:
                   f"{ex} did not take the fused CUDA kernel:\n" + "\n".join(
                       ln for ln in out.splitlines() if "compute path" in ln))
             key, n = only_form(ex, counts)
-            check(n == step and key[6:] == (cfg.sw.trans_terms,
-                                             cfg.sw.full_free_surface),
-                  f"{ex}: launches {counts} for {step} steps")
+            # windows of 60 and a last of 4: two chained steps a launch
+            check(n == step // 2 and key[6:] == (
+                cfg.sw.trans_terms, cfg.sw.full_free_surface, 2),
+                f"{ex}: launches {counts} for {step} steps")
             n_out = cfg.run.output_every_steps
             n_rec = 1 + -(-step // n_out)
             n_dat = grads_records(d, nx, ny, n_rec)
@@ -1405,8 +1470,8 @@ def shipped_examples(card, name, stats, run) -> None:
             lines.append(f"{ex} ({nx} x {ny}, trans_terms "
                          f"{cfg.sw.trans_terms}, tracers "
                          f"{cfg.sw.tracer_num if cfg.sw.use_tracers else 0}"
-                         f"): {step} steps, launches={n} of <"
-                         + ",".join(str(int(k)) for k in key) + f">, {n_dat} "
+                         f"): {step} steps, launches={n} of "
+                         f"{key_text(key)}, {n_dat} "
                          f"GrADS fields x {n_rec} records finite; vs eager "
                          "composition rel err " + ", ".join(
                              f"{k} {e:.2e}" for k, e in errs.items()))
@@ -1441,7 +1506,8 @@ def shipped_examples(card, name, stats, run) -> None:
         check("MODEL: compute path: fused CUDA kernel, sharded\n" in out,
               "01_flat_basin --mesh 2x2 did not take the sharded kernel")
         key, n = only_form("01_flat_basin 2x2", counts)
-        check(n == 4 * step and key[5] and key[6] == 0,
+        check(n == 4 * (step // 2) and key[5] and key[6] == 0
+              and key[8] == 2,
               f"01_flat_basin 2x2: launches {counts} for {step} steps")
         one = finals["01_flat_basin"]
         same = [f for f in fields if torch.equal(getattr(final, f),
@@ -1452,32 +1518,264 @@ def shipped_examples(card, name, stats, run) -> None:
                                                .replace(cfg.parallel,
                                                         mesh_x=2, mesh_y=2)),
                            base_dir=d)
-        model._make_runner(1)
-        fs = model._fused_sh
-        form = "fused_sw_step_raw_" + form_name(fs)[14:]
-        check(form == "fused_sw_step_raw_notrans_guarded"
-              and tuple(key) == form_key(fs), f"the 2 x 2 run is {form}, "
-              f"{key}")
-        compare_raw("01_flat_basin 2 x 2", fs, cfg, model.state, stats, form)
         wet_pts = int((model.grid.lu > 0.5).sum())
-        t = time_sharded(fs, model.state, wet_pts,
-                         cfg.basin.nx * cfg.basin.ny)
-        f_in = fs.pack(model.state)[0].unbind(0)
-        f_out = tuple(torch.zeros_like(a) for a in f_in)
-        run["plain_ms"][form] = cuda_ms(lambda: fused_sw_step_reference(
-            f_in, *shard_args(fs, cfg, 0, 0), outs=f_out), 10)
-        run["launches"][form] = n
-        run["kernels"][form] = (fs, 0, t)
-        run["bounds"].append(
-            f"01_flat_basin 2 x 2, raw form: kernel "
-            f"{t['ms_kernel'] * 1e3:.1f} us/launch, bound "
-            f"{t['bound_ms'] * 1e3:.1f} us/launch (bytes), copy step not "
-            "measured")
+        texts = []
+        # the runner main built (two chained steps a launch), then the
+        # rebuild an odd window makes (one step a launch, the same cuts)
+        for n_inner in (2, 1):
+            model._make_runner(n_inner)
+            fs = model._fused_sh
+            form = "fused_sw_step_raw_" + form_name(fs)[14:]
+            check(form == ("fused_sw_step_raw_notrans_guarded" if n_inner == 1
+                           else "fused_sw_step_raw_chain_notrans_guarded"),
+                  f"the 2 x 2 runner is {form}")
+            if n_inner == 2:
+                check(tuple(key) == form_key(fs),
+                      f"the 2 x 2 run launched {key}, not {form_key(fs)}")
+                launched = n
+            else:
+                _, _, launched = run_sharded(
+                    "01_flat_basin 2 x 2, one step a launch", fs,
+                    model.state, 20)
+            compare_raw("01_flat_basin 2 x 2", fs, cfg, model.state, stats,
+                        form)
+            t = time_sharded(fs, model.state, wet_pts,
+                             cfg.basin.nx * cfg.basin.ny)
+            f_in = fs.pack(model.state)[0].unbind(0)
+            f_out = tuple(torch.zeros_like(a) for a in f_in)
+            run["plain_ms"][form] = cuda_ms(lambda: fused_sw_step_reference(
+                f_in, *shard_args(fs, cfg, 0, 0), outs=f_out), 10)
+            run["launches"][form] = launched
+            run["kernels"][form] = (fs, 0, t)
+            run["bounds"].append(
+                f"01_flat_basin 2 x 2, raw form, {fs.steps_per_call} "
+                f"step(s) a launch: kernel {t['ms_kernel'] * 1e3:.1f} "
+                f"us/launch, bound {t['bound_ms'] * 1e3:.1f} us/launch "
+                "(bytes), copy step not measured")
+            texts.append(f"{key_text(form_key(fs))} {t['text']}")
     print(f"phase 10c 01_flat_basin --f32 --mesh 2x2 (main, compute path: "
-          f"fused CUDA kernel, sharded): {step} steps, launches={n} of <"
-          + ",".join(str(int(k)) for k in key) + ">; final state == the 1 x 1 "
-          f"run bit for bit ({len(fields)} fields): yes; timing ({name}; "
-          f"{card}): {t['text']}")
+          f"fused CUDA kernel, sharded): {step} steps, launches={n} of "
+          f"{key_text(key)}; final state == the 1 x 1 run bit for bit "
+          f"({len(fields)} fields): yes; timing ({name}; {card}): "
+          + " | ".join(texts))
+
+
+# ---- phase 11: two chained model steps a launch ---------------------------
+
+def guard_sees_step_a(fm, s0, cell, where: str) -> None:
+    """Phase 11's guard on a chained model: an sshp spike of 1.5e4 at the
+    wet ``cell`` puts |ssh| above the 1e4 bound after the first step of a
+    launch and below it after the second (checked on two single-step
+    launches of the plain version), and the chained ``run_steps`` of one
+    launch trips; so does a NaN there."""
+    from ocean_model_arch_torch.ops import sw_kernels as swk
+    from ocean_model_arch_torch.ops.fused_step import fused_sw_step_reference
+    args1 = model_args(fm, fm.cfg)[:-1] + (1,)
+    for val in (1.5e4, float("nan")):
+        bad = tuple(f.clone() for f in s0)
+        bad[1][cell] = val
+        if val == val:
+            a, ma = fused_sw_step_reference(bad, *args1)
+            _, mb = fused_sw_step_reference(a, *args1)
+            check(float(ma) >= swk.SSH_ERR_BOUND > float(mb),
+                  f"guard ({where}): the spike gives max |ssh| {float(ma)} "
+                  f"after the first step, {float(mb)} after the second")
+        _, gok = fm.run_steps(bad, 2)
+        check(not gok, f"guard ({where}): ok stayed True with sshp = {val} "
+              "in the first step of a chained launch")
+
+
+def chained_paths(grids, cfgs, cfgs_b, basin, basin_b, prec, wet, pts, card,
+                  name, run, stats, single):
+    """Phase 11: the chained forms (two model steps a launch). (a) every
+    chained instantiation phases 2 and 10a hold, against its plain
+    version: one launch within 1e-5, 25 carried launches (50 steps)
+    within 1e-4, land and all-land tiles exactly 0, guarded == unguarded
+    bit for bit; and its raw forms on 2 x 2 shards; (b) the chained paths
+    ``azov_mask``, ``azov_tracers``, ``bipolar_azov`` and ``azov_visc``,
+    200 steps each in 100 launches of their own instantiation, against
+    the eager composition < 3e-4, the guard on a value that only the
+    first step of a launch holds, and their timing beside the same form's
+    single-step kernel of this run (``single``: form -> (model, timing));
+    (c) ``azov_visc`` and ``bipolar_azov`` on 2 x 2 shards at two steps a
+    launch == the chained single block bit for bit, half the strip
+    copies a step; (d) the chained copy step exactly against its plain
+    version, and timed. ``run`` collects the kernels line's entries."""
+    from ocean_model_arch_torch.model.fused_sharded2d import \
+        FusedSharded2DModel
+    from ocean_model_arch_torch.model.init import init_ocean_state
+    from ocean_model_arch_torch.ops import copy_step as cs
+    from ocean_model_arch_torch.ops.fused_step import fused_sw_step_reference
+    probe = load_probe()
+    # (a) every chained instantiation phases 2 and 10a hold
+    n_forms = 0
+    for mname, gname, c, mu in (
+            ("frame", "frame", cfgs, 0.0), ("azov", "azov", cfgs, 0.0),
+            ("bipolar_azov", "bipolar_azov", cfgs_b, 0.0),
+            ("azov mu=1000", "azov", cfgs, MU),
+            ("azov 15-100 m", "azov_hr", cfgs, 0.0),
+            ("azov mu=1000 15-100 m", "azov_hr", cfgs, MU),
+            ("bipolar_azov mu=1000 15-100 m", "bipolar_azov_hr", cfgs_b,
+             MU)):
+        compare_forms(mname, grids[gname], c, stats, mu, spc=2)
+        n_forms += 2 * len(c)
+    cfg1 = {1: dataclasses.replace(cfgs[N_TRACERS], sw=dataclasses.replace(
+        cfgs[N_TRACERS].sw, tracer_num=1))}
+    cfg_diff = {N_TRACERS: dataclasses.replace(
+        cfgs[N_TRACERS], sw=dataclasses.replace(cfgs[N_TRACERS].sw,
+                                                ksw_lat=0))}
+    for mname, gname, c, mu in (
+            ("azov", "azov", cfg1, 0.0),
+            ("azov mu=1000 ksw_lat=0", "azov", cfg_diff, MU),
+            ("bipolar_azov mu=1000", "bipolar_azov", {0: cfgs_b[0]}, MU)):
+        compare_forms(mname, grids[gname], c, stats, mu, spc=2)
+        n_forms += 2
+    for form, (trans, ffs) in NEW_FORMS.items():
+        def new_cfgs(b):
+            return {t: form_cfg(b, prec, t, trans, ffs)
+                    for t in (0, N_TRACERS)}
+        for mname, gname, b, mu in (
+                (f"azov {form}", "azov", basin, 0.0),
+                (f"bipolar_azov {form}", "bipolar_azov", basin_b, 0.0),
+                (f"azov {form} mu=1000 15-100 m", "azov_hr", basin, MU),
+                (f"bipolar_azov {form} mu=1000 15-100 m", "bipolar_azov_hr",
+                 basin_b, MU)):
+            compare_forms(mname, grids[gname], new_cfgs(b), stats, mu, spc=2)
+            n_forms += 4
+        for gname, b, n_tr, mu in (("azov_hr", basin, N_TRACERS, MU),
+                                   ("bipolar_azov", basin_b, 0, 0.0)):
+            cfg = form_cfg(b, prec, n_tr, trans, ffs)
+            fs = FusedSharded2DModel(grids[gname], cfg, 1.0, 2, 2,
+                                     mu_const=mu, steps_per_call=2)
+            state = with_mu(init_ocean_state(grids[gname], cfg), mu)
+            compare_raw(f"{gname} {form} T={n_tr} mu={mu:g}", fs, cfg, state,
+                        stats, "fused_sw_step_raw_" + form_name(fs)[14:])
+            n_forms += 1
+    print(f"phase 11a kernel vs plain: {n_forms} chained forms (profile and "
+          "plane metrics, T = 0, 1, 2, guard off and on, mu 0 and 1000 over "
+          "flat and 15-100 m bathymetry, with and without advection, full "
+          "and linear free surface, raw on 2 x 2 shards) within "
+          f"{TOL_ONE} after 1 launch and {TOL_CARRY} after "
+          f"{N_CARRY // 2} launches ({N_CARRY} steps); land and all-land "
+          "tiles exactly 0; guarded == unguarded bit for bit")
+
+    # (b) the chained paths at full width
+    paths = (("azov_mask", "azov coastline, no tracers", "azov", cfgs[0],
+              0.0, "fused_sw_step_chain_guarded"),
+             ("azov_tracers", f"azov coastline, {N_TRACERS} tracers",
+              "azov", cfgs[N_TRACERS], 0.0, "fused_sw_step_chain_tracers"),
+             ("bipolar_azov", "the coastline on the bipolar grid",
+              "bipolar_azov", cfgs_b[0], 0.0, "fused_sw_step_chain_fast2d"),
+             ("azov_visc", f"15-100 m, mu = {MU:g}, {N_TRACERS} tracers",
+              "azov_hr", cfgs[N_TRACERS], MU,
+              "fused_sw_step_chain_visc_bathy_tracers"))
+    lu = grids["azov"].lu
+    ij = torch.nonzero(lu > 0.5).double()
+    centre = torch.tensor([basin.nx / 2, basin.ny / 2], dtype=ij.dtype,
+                          device=ij.device)
+    ci, cj = (int(v) for v in ij[((ij - centre) ** 2).sum(1).argmin()])
+    texts = []
+    for label, what, gname, cfg, mu, want in paths:
+        fm, _, s0, n, _ = drive_path(f"phase 11b main path {label} "
+                                     f"chained ({what})", grids[gname], cfg,
+                                     None, mu, spc=2)
+        form = form_name(fm)
+        check(form == want and fm.tile_guard and n == N_MAIN // 2,
+              f"{label} ran {form} {n} times, guard {fm.tile_guard}")
+        cell = (fm.lay.margin + ci, fm.lay.margin + cj)
+        guard_sees_step_a(fm, s0, cell, f"{label} chained")
+        t = time_path(fm, cfg, s0, wet[gname], pts)
+        windows, met = copy_step_inputs(fm, s0)
+        flags = fm.tile_wet
+        for tw in (None, flags):
+            got = cs.copy_step(windows, met, len(s0), fm.lay,
+                               fm.n_tracers > 0, tw, fm.tile, fm.visc, 2)
+            ref = cs.copy_step_reference(windows, met, len(s0), fm.lay, tw,
+                                         fm.tile)
+            torch.cuda.synchronize()
+            stats["copy_step_chain"] = max(
+                [stats.get("copy_step_chain", 0.0)]
+                + [float((a - b).abs().max()) for a, b in zip(got, ref)])
+            check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                  f"chained copy step ({label}): kernel and plain differ")
+        if label == "azov_mask":
+            run["plain_ms"]["copy_step_chain"] = cuda_ms(
+                lambda: cs.copy_step_reference(windows, met, len(s0), fm.lay,
+                                               flags, fm.tile), 20)
+        us_copy = probe.kernel_us(lambda: cs.copy_step(
+            windows, met, len(s0), fm.lay, fm.n_tracers > 0, flags, fm.tile,
+            fm.visc, 2), N_TIME)
+        b_ms, b_by, nbytes = bound_ms(fm, fm.n_tracers)
+        run["launches"][form] = n
+        run["kernels"][form] = (fm, fm.n_tracers, t)
+        run["plain_ms"][form] = cuda_ms(
+            lambda: fused_sw_step_reference(s0, *model_args(fm, cfg)), 10)
+        run["copy_chain"][label] = us_copy
+        one_m, one_t = single[label]
+        b1_ms, _, _ = bound_ms(one_m, one_m.n_tracers)
+        run["bounds"].append(
+            f"{label} chained: kernel {t['ms_kernel'] * 1e3:.1f} us a launch "
+            f"of 2 steps, {nbytes / 1e6:.1f} MB, bound {b_ms * 1e3:.1f} us "
+            f"({b_by}), chained copy step {us_copy:.1f} us; one step a "
+            f"launch {one_t['ms_kernel'] * 1e3:.1f} us, bound "
+            f"{b1_ms * 1e3:.1f} us")
+        texts.append(
+            f"{label} {key_text(form_key(fm))} {t['text']}; kernel "
+            f"{t['ms_kernel'] * 5e2:.2f} us a model step (one step a launch "
+            f"{one_t['ms_kernel'] * 1e3:.2f}, path {one_t['ms_path']:.4f} "
+            f"ms/step); byte bound {b_ms * 1e3:.1f} us a launch "
+            f"({nbytes / 1e6:.1f} MB; one step a launch {b1_ms * 1e3:.1f}); "
+            f"chained copy step {us_copy:.1f} us/launch; plain chained "
+            f"version {run['plain_ms'][form]:.4f} ms/launch")
+    print(f"phase 11b guard: ok=False on an sshp spike of 1.5e4 that only "
+          f"the first step of a launch holds above 1e4, and on a NaN, at "
+          f"wet cell ({ci}, {cj}) of each chained path")
+    print(f"phase 11b timing ({name}; {card}), wet points {wet['azov']} of "
+          f"{pts}: " + " | ".join(texts))
+
+    # (c) 2 x 2 shards at two steps a launch
+    sh_v, st_v = sharded_2x2(
+        f"azov_visc chained (mu = {MU:g}, 15-100 m, {N_TRACERS} tracers)",
+        grids["azov_hr"], cfgs[N_TRACERS], MU, stats,
+        "fused_sw_step_raw_chain_visc_bathy_tracers", spc=2)
+    sh_b, st_b = sharded_2x2(
+        "bipolar_azov chained (plane metrics, no tracers)",
+        grids["bipolar_azov"], cfgs_b[0], 0.0, stats,
+        "fused_sw_step_raw_chain_fast2d", spc=2)
+    texts = []
+    for label, sh, st, cfg, form in (
+            ("azov_visc", sh_v, st_v, cfgs[N_TRACERS],
+             "fused_sw_step_raw_chain_visc_bathy_tracers"),
+            ("bipolar_azov", sh_b, st_b, cfgs_b[0],
+             "fused_sw_step_raw_chain_fast2d")):
+        check(len(sh["uniform"][0]._plan) == 8
+              and sh["uniform"][0].M == fl_margin(2, sh["uniform"][0]),
+              f"{label}: {len(sh['uniform'][0]._plan)} strips, margin "
+              f"{sh['uniform'][0].M}")
+        for cuts in ("uniform", "weighted"):
+            fs, n = sh[cuts]
+            t = time_sharded(fs, st, wet["azov"], pts)
+            texts.append(f"{label}/2 x 2/{cuts} cuts {t['text']}")
+            if cuts == "uniform":
+                check(form == "fused_sw_step_raw_" + form_name(fs)[14:],
+                      f"{label}: the shards ran {form_name(fs)}")
+                run["launches"][form] = n
+                run["kernels"][form] = (fs, fs.n_tracers, t)
+                f_in = fs.pack(st)[0].unbind(0)
+                f_out = tuple(torch.zeros_like(a) for a in f_in)
+                run["plain_ms"][form] = cuda_ms(
+                    lambda: fused_sw_step_reference(
+                        f_in, *shard_args(fs, cfg, 0, 0), outs=f_out), 10)
+                run["bounds"].append(
+                    f"{label} 2 x 2 uniform, raw form chained: kernel "
+                    f"{t['ms_kernel'] * 1e3:.1f} us/launch, bound "
+                    f"{t['bound_ms'] * 1e3:.1f} us/launch (bytes)")
+    print(f"phase 11c timing ({name}; {card}): " + " | ".join(texts))
+
+
+def fl_margin(steps: int, fs) -> int:
+    from ocean_model_arch_torch.ops import fused_layout as fl
+    return fl.margin_for(steps, fs.n_tracers)
 
 
 def main(argv=()) -> int:
@@ -1498,7 +1796,8 @@ def main(argv=()) -> int:
     from ocean_model_arch_torch.model.step import make_step
     from ocean_model_arch_torch.ops import _build, copy_step as cs
     from ocean_model_arch_torch.ops.fused_step import (
-        fused_sw_step, fused_sw_step_reference, library_targets, tile_shape)
+        _library as _fused_library, fused_sw_step, fused_sw_step_reference,
+        library_targets, tile_shape)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1516,6 +1815,11 @@ def main(argv=()) -> int:
     fused_regs = [row for t in library_targets() for row in ptxas_table(
         _build.BUILDS.get(t, {}).get("log", ""))]
     copy_regs = ptxas_table(_build.BUILDS.get("copy_step", {}).get("log", ""))
+    # the chained forms' launch bound: 65536 registers over its threads
+    # and blocks an SM
+    lib2 = _fused_library(steps=2)
+    chain_regs = 65536 // (lib2.fused_sw_step_threads()
+                           * lib2.fused_sw_step_min_blocks())
     print(card)
     print(f"phase 1 device: {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {nvcc_ver}; kernel build ({len(targets)} "
@@ -1523,14 +1827,24 @@ def main(argv=()) -> int:
           + ", ".join(os.path.relpath(so, REPO) for so in libs)
           + f"; ptxas, {len(fused_regs)} instantiations of "
           "fused_sw_step_kernel<tracers,guard,plane metrics,mu mode,"
-          "bathymetry planes,raw,advection,full free surface>: "
+          "bathymetry planes,raw,advection,full free surface,steps>: "
           + ptxas_summary(fused_regs)
-          + "; copy_step_kernel<tracer window>: " + ptxas_summary(copy_regs))
+          + "; copy_step_kernel<tracer window,steps>: "
+          + ptxas_summary(copy_regs) + f"; chained tile "
+          f"{tile_shape('cuda', 2)} of {lib2.fused_sw_step_threads()} "
+          f"threads, launch bound {lib2.fused_sw_step_min_blocks()} blocks "
+          f"an SM ({chain_regs} registers)")
     over = [r for r in fused_regs + copy_regs
-            if r[1] > MAX_REGS or r[2] != 0]
-    check(not over, f"instantiations above {MAX_REGS} registers or with "
-          f"spills: {over}")
-    check(cs.tile_shape("cuda") == tile_shape("cuda"),
+            if r[1] > (chain_regs if r[0].endswith(",2>") else MAX_REGS)
+            or r[2] != 0]
+    check(not over, f"instantiations above {MAX_REGS} registers (one step a "
+          f"launch) or {chain_regs} (chained), or with spills: {over}")
+    if all(t in _build.BUILDS for t in targets):     # none was cached
+        check(len(fused_regs) == 1024 and len(copy_regs) == 4,
+              f"{len(fused_regs)} fused and {len(copy_regs)} copy-step "
+              "instantiations in the build logs")
+    check(all(cs.tile_shape("cuda", s) == tile_shape("cuda", s)
+              for s in (1, 2)),
           "the copy step and the fused step were built with different tiles")
     if argv:
         return against_parent(argv[1], card)
@@ -1643,7 +1957,7 @@ def main(argv=()) -> int:
 
     def model(mname, cfg, guard):
         return FusedSWModel(grids[mname], cfg, 1.0, static_rslu=True,
-                            steps_per_call=2, tile_guard=guard)
+                            tile_guard=guard)
 
     cfg1 = ModelConfig(basin=basin, sw=SWConfig(use_tracers=1, tracer_num=1),
                        precision=prec)
@@ -1865,6 +2179,15 @@ def main(argv=()) -> int:
     new_form_paths(grids, basin, basin_b, prec, wet, pts, card, name, run)
     shipped_examples(card, name, max_abs, run)
 
+    # ---- phase 11: two chained steps a launch --------------------------
+    run["copy_chain"] = {}
+    cs.copy_step.launches = 0
+    chained_paths(grids, cfgs, cfgs_b, basin, basin_b, prec, wet, pts, card,
+                  name, run, max_abs,
+                  {"azov_mask": (fm_c, t_on), "azov_tracers": (fm_t, t_tr),
+                   "bipolar_azov": (fm_b, t_b), "azov_visc": (fm_v, t_v)})
+    launches["copy_step_chain"] = cs.copy_step.launches
+
     # ---- phase 7: the copy step ----------------------------------------
     # kernel vs plain version on what each form of the fused step loads:
     # the same float additions in the same order, so exactly equal
@@ -2011,6 +2334,21 @@ def main(argv=()) -> int:
         "max_abs_err": cs_err, "ms": row0["us"] / 1e3,
         "plain_ms": plain_ms["copy_step"],
         "bound_ms": probe.bytes_moved(lay, 0, False) / PEAK_BYTES * 1e3,
+        "bound_by": "bytes", "library_ms": None})
+    # the chained copy step beside the chained form of azov_mask (T=0,
+    # profile, guarded): the same bytes as one step's, for two steps
+    fm_cc = kernels["fused_sw_step_chain_guarded"][0]
+    entries.append({
+        "name": "copy_step_chain", "route": "cuda",
+        "source": CSRC + "copy_step.cu",
+        "replaces": REPLACES["copy_step_chain"],
+        "launches": launches["copy_step_chain"],
+        "max_abs_err": max_abs["copy_step_chain"],
+        "ms": run["copy_chain"]["azov_mask"] / 1e3,
+        "plain_ms": plain_ms["copy_step_chain"],
+        "bound_ms": probe.bytes_moved(
+            fm_cc.lay, 0, False, fm_cc.tile_wet.cpu().numpy(), fm_cc.tile)
+        / PEAK_BYTES * 1e3,
         "bound_by": "bytes", "library_ms": None})
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -95,9 +95,11 @@ def state_from_fields(fields, template: SWState, grid: Grid,
 class FusedSWModel:
     """Shallow-water core, with the tracers of ``cfg.sw``, on the fused
     CUDA kernel (the plain PyTorch version on CPU tensors), on the
-    grid's device. ``steps_per_call`` model steps run per call of the
-    step loop, one kernel launch each; ``run_steps`` windows must be
-    multiples of it. ``tile_guard``: skip the kernel's all-land output
+    grid's device. ``steps_per_call`` model steps run per kernel launch:
+    1, or 2 for the chained form (two whole steps in one launch, the
+    first one's state in the kernel's shared memory, as the JAX
+    ``FusedSWModel(steps_per_call=2)`` runs them); ``run_steps`` windows
+    must be multiples of it. ``tile_guard``: skip the kernel's all-land output
     tiles (they get exact zeros); None turns it on when the mask leaves
     some tile without a wet cell. ``metrics_2d`` / ``fast2d`` say which
     metric form runs: latitude profiles on an x-uniform grid, else the
@@ -116,8 +118,9 @@ class FusedSWModel:
         bad = unsupported(grid, cfg, mu_const, static_rslu)
         if bad:
             raise ValueError("fused path unsupported: " + "; ".join(bad))
-        if steps_per_call < 1:
-            raise ValueError(f"steps_per_call={steps_per_call} < 1")
+        if steps_per_call not in (1, 2):
+            raise ValueError(f"steps_per_call={steps_per_call}: the kernel "
+                             "runs 1 or 2 steps a launch")
         self.grid = grid
         self.cfg = cfg
         self.tau = float(tau)
@@ -166,8 +169,9 @@ class FusedSWModel:
                                   interp_recips=recips)
         self.met = torch.from_numpy(met).to(dev)
         self.planes = torch.from_numpy(planes).to(dev)
-        # the guard's per-block wet flags, with the kernel's own tile
-        self.tile = tile_shape(dev)
+        # the guard's per-block wet flags, with the kernel's own tile (the
+        # chained form's, for two steps a launch)
+        self.tile = tile_shape(dev, self.steps_per_call)
         wet = fl.tile_wet(lu_s, lay, *self.tile)
         self.n_tiles = (int(wet.sum()), int(wet.size - wet.sum()))
         if tile_guard is None:
@@ -200,21 +204,23 @@ class FusedSWModel:
                                  self.n_tracers)
 
     def run_steps(self, s6, n_steps: int):
-        """Advance ``n_steps`` steps; returns ``(s6', ok)``. The per-step
-        max |ssh| accumulates on the device (``torch.maximum``, which
-        propagates NaN) and is read once at the end of the window, so a
-        transient blow-up at any step trips ``ok``."""
+        """Advance ``n_steps`` steps in ``n_steps / steps_per_call``
+        launches; returns ``(s6', ok)``. The max |ssh| of every step
+        (a launch's covers each of its steps) accumulates on the device
+        (``torch.maximum``, which propagates NaN) and is read once at the
+        end of the window, so a transient blow-up at any step trips
+        ``ok``."""
         spc = self.steps_per_call
         if n_steps % spc:
             raise ValueError(f"n_steps={n_steps} not a multiple of "
                              f"steps_per_call={spc}")
         mx = torch.zeros((), dtype=torch.float32, device=s6[0].device)
         sw = self.cfg.sw
-        for _ in range(n_steps):
+        for _ in range(n_steps // spc):
             s6, m = fused_sw_step(s6, self.met, self.planes, self.lay,
                                   self.tau, sw.time_smooth, self.hr_const,
                                   self.tile_wet, self.tile, self.met_map,
                                   self.mu_const, self.visc, self.trans,
-                                  self.ffs)
+                                  self.ffs, spc)
             mx = torch.maximum(mx, m)
         return s6, bool(mx < swk.SSH_ERR_BOUND)   # NaN compares False

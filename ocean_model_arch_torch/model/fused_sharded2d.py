@@ -3,13 +3,17 @@
 
 The basin is cut into px x py shards. Every shard carries its 6 + 2 T
 fields as one ``(6 + 2 T, Xs, Ysp)`` float32 tensor: the shard's valid
-box ``[M, M + lx) x [M, M + ly)`` inside a margin of M = 4 cells (the
-step's reach, ``fused_layout.margin_for``) that holds the neighbouring
-shards' cells, and pad beyond it up to the extents all shards share
-(``Xs = max lx + 2 M``, ``Ysp`` the same for y, rounded up to whole
-128-byte rows). Each model step refreshes the margins and then runs the
-raw form of the fused kernel (``ops/fused_step.py::fused_sw_step_raw``)
-once per shard.
+box ``[M, M + lx) x [M, M + ly)`` inside a margin of M cells that holds
+the neighbouring shards' cells, and pad beyond it up to the extents all
+shards share (``Xs = max lx + 2 M``, ``Ysp`` the same for y, rounded up
+to whole 128-byte rows). M is the reach of the steps one launch runs
+(``fused_layout.margin_for``): 4 for one step a launch; for two chained
+steps (``steps_per_call = 2``, as in the JAX package) 6, or 8 with
+tracers. Each turn of the runner's loop refreshes the margins once and
+then runs the raw form of the fused kernel
+(``ops/fused_step.py::fused_sw_step_raw``) once per shard, which
+advances ``steps_per_call`` model steps: chaining halves the exchanges
+and the launches a model step, and widens the strips.
 
 One process runs all shards, as in the JAX package; ``devices`` may
 name one device px * py times, and then every shard is its own set of
@@ -48,7 +52,7 @@ wide. The TPU package instead needs tile multiples (``nx`` divisible by
 ``px * tx`` on a periodic axis), a Mosaic constraint.
 
 Not here yet: shards on several devices and processes (the transport
-then becomes NCCL); two chained steps per exchange on a wider margin.
+then becomes NCCL).
 """
 
 from __future__ import annotations
@@ -94,8 +98,9 @@ class FusedSharded2DModel:
     None puts every shard on the grid's device. ``mu_const``,
     ``static_rslu``, ``tile_guard`` as in ``FusedSWModel`` (the guard is
     on by default: pad tiles are always dry). ``steps_per_call``: model
-    steps per turn of the runner's loop, one exchange and one launch per
-    shard each; windows must be multiples of it. ``weighted``: cut lines
+    steps per turn of the runner's loop, which makes one exchange and one
+    launch per shard: 1, or 2 chained in the launch on a margin wide
+    enough for both; windows must be multiples of it. ``weighted``: cut lines
     by wet points, with ``compute_powers_x / _y`` as the bands' relative
     shares; ``x_edges`` / ``y_edges``: the cut lines themselves."""
 
@@ -109,8 +114,9 @@ class FusedSharded2DModel:
         bad = unsupported(grid, cfg, mu_const, static_rslu, sharded=True)
         if bad:
             raise ValueError("fused path unsupported: " + "; ".join(bad))
-        if steps_per_call < 1:
-            raise ValueError(f"steps_per_call={steps_per_call} < 1")
+        if steps_per_call not in (1, 2):
+            raise ValueError(f"steps_per_call={steps_per_call}: the kernel "
+                             "runs 1 or 2 steps a launch")
         dev = grid.lu.device
         if devices is None:
             devices = [dev] * (px * py)
@@ -135,7 +141,7 @@ class FusedSharded2DModel:
         self.ffs = int(cfg.sw.full_free_surface > 0)
         self.periodic_x = bool(grid.periodic_x)
         self.periodic_y = bool(grid.periodic_y)
-        M = self.M = fl.margin_for(1, self.n_tracers)
+        M = self.M = fl.margin_for(self.steps_per_call, self.n_tracers)
         nx, ny = grid.nx, grid.ny
 
         # ---- cut lines ---------------------------------------------------
@@ -225,7 +231,10 @@ class FusedSharded2DModel:
                               for j in range(py)] for i in range(px)]
 
         # ---- the guard's flags: wet cells of the shard's own box ---------
-        self.tile = tile_shape(dev)
+        # (the kernel's tile: the chained form's for two steps a launch);
+        # a chained launch's first step still computes a dry-flagged
+        # tile's margin cells in its wet neighbour's window
+        self.tile = tile_shape(dev, self.steps_per_call)
         self.tile_guard = bool(tile_guard)
         self.tile_wet = [[None] * py for _ in range(px)]
         wet_tiles = all_tiles = 0
@@ -339,8 +348,9 @@ class FusedSharded2DModel:
 
     # ------------------------------------------------------------------
     def make_runner(self, n_inner: int):
-        """``runner(carry) -> (carry', ok)``: ``n_inner`` steps, each one
-        margin exchange and one launch per shard. The runner owns the
+        """``runner(carry) -> (carry', ok)``: ``n_inner`` steps in turns of
+        ``steps_per_call``, each one margin exchange and one launch per
+        shard. The runner owns the
         carry it is given (the exchange writes its margins) and a second
         set of buffers; the carry it returns is one of the two. The
         per-step max |ssh| over all shards accumulates on the device
@@ -366,7 +376,7 @@ class FusedSharded2DModel:
             blockmax = torch.zeros((len(shards),) + n_blocks,
                                    dtype=torch.float32, device=dev)
             mx = torch.zeros((), dtype=torch.float32, device=dev)
-            for _ in range(n_inner):
+            for _ in range(n_inner // spc):
                 self.exchange(cur)
                 for k, (i, j) in enumerate(shards):
                     fused_sw_step_raw(
@@ -375,7 +385,7 @@ class FusedSharded2DModel:
                         self.shard_lay[i][j], self.tau, sw.time_smooth,
                         self.hr_const, self.tile_wet[i][j], self.tile,
                         self.met_map, self.mu_const, self.visc, self.trans,
-                        self.ffs)
+                        self.ffs, spc)
                 mx = torch.maximum(mx, torch.amax(blockmax))
                 cur, nxt, cur_f, nxt_f = nxt, cur, nxt_f, cur_f
             return tuple(cur), bool(mx < swk.SSH_ERR_BOUND)  # NaN: False

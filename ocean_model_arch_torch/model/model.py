@@ -355,20 +355,27 @@ class OceanModel:
         if self._use_fused_sharded():
             from .fused_sharded2d import FusedSharded2DModel
             fs = getattr(self, "_fused_sh", None)
-            if fs is None:
-                # parallel.par mod_decomposition=1 selects the weighted
-                # (equal-wet) cut lines (decomposition.f90:614-669),
-                # mod_decomposition=2 the cuts read at init
-                xe, ye = self._file_cuts or (None, None)
-                fs = self._fused_sh = FusedSharded2DModel(
-                    self.grid, self.cfg, tau, *self.mesh,
-                    mu_const=self.state_mu_const(),
-                    weighted=self.cfg.parallel.mod_decomposition == 1,
-                    x_edges=xe, y_edges=ye)
+            if fs is not None and n_inner % fs.steps_per_call == 0:
+                return self._fused_sharded_runner(fs, n_inner)
+            # two chained steps a launch halve the exchanges and the
+            # launches (on a wider margin); an odd window takes one. A
+            # rebuild keeps the cut lines already chosen
+            spc = 2 if n_inner % 2 == 0 else 1
+            # parallel.par mod_decomposition=1 selects the weighted
+            # (equal-wet) cut lines (decomposition.f90:614-669),
+            # mod_decomposition=2 the cuts read at init
+            xe, ye = self._file_cuts or (None, None)
+            if fs is not None:
+                xe, ye = fs.x_edges, fs.y_edges
+            fs = self._fused_sh = FusedSharded2DModel(
+                self.grid, self.cfg, tau, *self.mesh,
+                mu_const=self.state_mu_const(),
+                weighted=self.cfg.parallel.mod_decomposition == 1,
+                x_edges=xe, y_edges=ye, steps_per_call=spc)
             return self._fused_sharded_runner(fs, n_inner)
         if self._fused_periodic_tx() is not None:
             # periodic, no mesh: the fused kernel on a 1x1 'mesh' whose
-            # margin exchange wraps locally
+            # margin exchange wraps locally, one step a launch
             from .fused_sharded2d import FusedSharded2DModel
             if not hasattr(self, "_fused_per"):
                 self._fused_per = FusedSharded2DModel(
@@ -377,10 +384,15 @@ class OceanModel:
             return self._fused_sharded_runner(self._fused_per, n_inner)
         if self._use_fused():
             from .fused import FusedSWModel
-            if not hasattr(self, "_fused"):
+            # two chained steps a launch halve the streamed passes; an odd
+            # window takes one step a launch
+            spc = 2 if n_inner % 2 == 0 else 1
+            if getattr(self, "_fused_spc", None) != spc:
                 self._fused = FusedSWModel(self.grid, self.cfg, tau,
                                            static_rslu=True,
-                                           mu_const=self.state_mu_const())
+                                           mu_const=self.state_mu_const(),
+                                           steps_per_call=spc)
+                self._fused_spc = spc
             fm = self._fused
 
             def runner(st):

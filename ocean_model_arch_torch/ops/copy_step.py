@@ -12,8 +12,11 @@ summed in that order in float32. The CUDA kernel (``csrc/copy_step.cu``)
 loads what the fused kernel loads, with its tile, its window halo (3, or
 4 with ``tracer_form``), its shared memory (more with ``visc_form``)
 and, with ``tile_wet``, its land-tile guard, so its time is the floor of
-that form of the fused step on this layout. It is a measuring tool: nothing on the model's step
-loop calls it; ``scripts/roofline_probe_torch.py`` is its entry point.
+that form of the fused step on this layout; with ``steps = 2`` the
+chained form's tile, window (halo 6, or 8) and shared memory, the floor
+of a launch that runs two model steps. It is a measuring tool: nothing
+on the model's step loop calls it; ``scripts/roofline_probe_torch.py``
+is its entry point.
 
 :func:`copy_step` takes CPU tensors to :func:`copy_step_reference` and
 CUDA tensors to the kernel, which it builds on first use; a kernel that
@@ -51,16 +54,18 @@ def copy_step_reference(windows, met, n_out: int, lay: FusedLayout,
     return tuple(outs)
 
 
-def tile_shape(device) -> tuple:
+def tile_shape(device, steps: int = 1) -> tuple:
     """The (rows, columns) of the kernel's output tile on a CUDA device
-    (the library is built if needed), ``CPU_TILE`` on the CPU."""
+    for the forms of ``steps`` model steps a launch (the library is built
+    if needed), ``CPU_TILE`` on the CPU."""
     if torch.device(device).type == "cpu":
         return CPU_TILE
     lib = _library()
-    return lib.copy_step_tile_x(), lib.copy_step_tile_y()
+    return lib.copy_step_tile_x(steps), lib.copy_step_tile_y(steps)
 
 
-def _check_inputs(windows, met, n_out, lay, tile_wet, tile) -> None:
+def _check_inputs(windows, met, n_out, lay, tile_wet, tile,
+                  steps) -> None:
     dev = windows[0].device
     shapes = [(w, (lay.Xs, lay.Ys)) for w in windows]
     if met is not None:
@@ -77,6 +82,8 @@ def _check_inputs(windows, met, n_out, lay, tile_wet, tile) -> None:
         if tuple(t.shape) != want or not t.is_contiguous():
             raise ValueError(f"need a contiguous {want} tensor, got "
                              f"{tuple(t.shape)}")
+    if steps not in (1, 2):
+        raise ValueError(f"steps={steps}: 1 or 2 model steps a launch")
     lib = _library()
     if len(windows) > lib.copy_step_max_windows():
         raise ValueError(f"at most {lib.copy_step_max_windows()} windowed "
@@ -87,28 +94,29 @@ def _check_inputs(windows, met, n_out, lay, tile_wet, tile) -> None:
     if tile_wet is None:
         return
     want = (-(-lay.Xs // tile[0]), -(-lay.Ys // tile[1]))
-    if (tuple(tile) != tile_shape(dev) or tile_wet.device != dev
+    if (tuple(tile) != tile_shape(dev, steps) or tile_wet.device != dev
             or tile_wet.dtype != torch.int32 or not tile_wet.is_contiguous()
             or tuple(tile_wet.shape) != want):
         raise ValueError(f"tile_wet: need a contiguous int32 {want} tensor "
-                         f"on {dev} for {tile_shape(dev)} tiles, got "
+                         f"on {dev} for {tile_shape(dev, steps)} tiles, got "
                          f"{tile_wet.dtype} {tuple(tile_wet.shape)} for "
                          f"{tuple(tile)} tiles")
 
 
 def copy_step(windows, met, n_out: int, lay: FusedLayout,
               tracer_form: bool = False, tile_wet=None, tile=None,
-              visc_form: bool = False) -> tuple:
+              visc_form: bool = False, steps: int = 1) -> tuple:
     """One copy step: ``n_out`` (Xs, Ys) outputs from the ``windows``
     (the (Xs, Ys) fields and static planes) and the metric rows ``met``
     ((n, Ys), (n, Xs, Ys) or None). The plain version for CPU tensors,
     the CUDA kernel for CUDA tensors (counted in ``copy_step.launches``).
     ``tracer_form`` makes the kernel load the tracer form's wider window
-    and ``visc_form`` take a viscous form's shared memory; the result
-    depends on neither."""
+    and ``visc_form`` take a viscous form's shared memory, ``steps = 2``
+    the chained form's tile, window and shared memory; the result depends
+    on none of them but the tile of ``tile_wet``."""
     if windows[0].device.type == "cpu":
         return copy_step_reference(windows, met, n_out, lay, tile_wet, tile)
-    _check_inputs(windows, met, n_out, lay, tile_wet, tile)
+    _check_inputs(windows, met, n_out, lay, tile_wet, tile, steps)
     lib = _library()
     outs = tuple(torch.empty_like(windows[0]) for _ in range(n_out))
     win_p = (ctypes.c_void_p * len(windows))(*(w.data_ptr()
@@ -121,8 +129,8 @@ def copy_step(windows, met, n_out: int, lay: FusedLayout,
             0 if met is None else met.shape[0],
             int(met is not None and met.dim() == 3),
             None if tile_wet is None else tile_wet.data_ptr(),
-            int(bool(tracer_form)), int(bool(visc_form)), lay.Xs, lay.Ys,
-            torch.cuda.current_stream().cuda_stream)
+            int(bool(tracer_form)), int(bool(visc_form)), int(steps),
+            lay.Xs, lay.Ys, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError("copy_step kernel launch failed: "
                            + lib.copy_step_error_string(rc).decode())
@@ -138,12 +146,15 @@ def _library() -> ctypes.CDLL:
     """csrc/copy_step.cu, built on first use, with its C signatures."""
     lib = load("copy_step")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.copy_step_tile_x, lib.copy_step_tile_y,
-               lib.copy_step_max_windows, lib.copy_step_max_outputs):
+    for fn in (lib.copy_step_tile_x, lib.copy_step_tile_y):
+        fn.argtypes = [i]
+        fn.restype = i
+    for fn in (lib.copy_step_max_windows, lib.copy_step_max_outputs):
         fn.argtypes = []
         fn.restype = i
     lib.copy_step_error_string.argtypes = [i]
     lib.copy_step_error_string.restype = ctypes.c_char_p
-    lib.copy_step_launch.argtypes = [p, i, p, i, p, i, i, p, i, i, i, i, p]
+    lib.copy_step_launch.argtypes = [p, i, p, i, p, i, i, p, i, i, i, i, i,
+                                     p]
     lib.copy_step_launch.restype = i
     return lib

@@ -12,13 +12,16 @@
 // windowed f32 planes (the carried fields and the static planes) and n_met
 // metric rows, and writes n_out planes; beside the form <tracers, guard,
 // metric form> of fused_sw_step_kernel that is the same bytes: 64 + 16 T
-// per cell, + 4 per metric plane.
+// per cell, + 4 per metric plane. The chained form's copy step moves the
+// same bytes for a launch that runs two model steps.
 //
 // What the design does: it is the fused kernel's skeleton. The same tile
 // (fused_tile.cuh: 16 x 32 outputs, 512 threads, three blocks per SM), the
 // same window halo (3, or 4 for the tracer form), the same dynamic shared
 // memory (16 windows, plus the four stress planes of a viscous form, so
-// the same blocks fit an SM), one block per tile.
+// the same blocks fit an SM), one block per tile. With steps = 2 it takes
+// the chained form's tile, threads, window (halo 6, or 8) and shared
+// memory (20 + 2 T windows, plus the wider stress planes) instead.
 // Stage 0 loads the haloed window of every windowed input into shared
 // memory, cells outside the array reading as 0; after the barrier each
 // thread sums the centre cells of its tile from shared memory, adds the
@@ -49,13 +52,16 @@ __device__ __forceinline__ bool inside(const Params& p, int gx, int gy) {
   return gx >= 0 && gx < p.Xs && gy >= 0 && gy < p.Ys;
 }
 
-// NT selects the window: Form<0> has halo 3, Form<1> halo 4.
-template <int NT>
+// NT selects the window: Form<0> has halo 3, Form<1> halo 4; STEPS = 2
+// the chained form's tile and window (halo 6, 8).
+template <int NT, int STEPS>
 __global__ void
-__launch_bounds__(NTHREADS, MIN_BLOCKS)
+__launch_bounds__(Tile<STEPS>::NTHREADS, Tile<STEPS>::MIN_BLOCKS)
 copy_step_kernel(const Params p) {
-  constexpr int HALO = Form<NT>::HALO;
-  constexpr int WY = Form<NT>::WY, PLANE = Form<NT>::PLANE;
+  constexpr int HALO = Form<NT, STEPS>::WH;
+  constexpr int WY = Form<NT, STEPS>::WY, PLANE = Form<NT, STEPS>::PLANE;
+  constexpr int TX = Tile<STEPS>::TX, TY = Tile<STEPS>::TY;
+  constexpr int NTHREADS = Tile<STEPS>::NTHREADS;
 
   const int tid = threadIdx.x;
   const int tx0 = blockIdx.y * TX, ty0 = blockIdx.x * TY;
@@ -100,17 +106,19 @@ copy_step_kernel(const Params p) {
   }
 }
 
-template <int NT>
+template <int NT, int STEPS>
 int launch(const Params& p, bool visc, cudaStream_t stream) {
   // a viscous form's block also holds its stress planes (unused here)
-  const size_t smem = smem_bytes<NT>(visc);
+  using T = Tile<STEPS>;
+  const size_t smem = smem_bytes<NT, STEPS>(visc);
   cudaError_t e = cudaFuncSetAttribute(
-      copy_step_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes<NT>(true));
+      copy_step_kernel<NT, STEPS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<NT, STEPS>(true));
   if (e != cudaSuccess) return (int)e;
-  copy_step_kernel<NT>
-      <<<dim3((p.Ys + TY - 1) / TY, (p.Xs + TX - 1) / TX), NTHREADS, smem,
-         stream>>>(p);
+  copy_step_kernel<NT, STEPS>
+      <<<dim3((p.Ys + T::TY - 1) / T::TY, (p.Xs + T::TX - 1) / T::TX),
+         T::NTHREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -118,11 +126,16 @@ int launch(const Params& p, bool visc, cudaStream_t stream) {
 
 extern "C" {
 
-// The output tile (rows, columns) of a block: the same constants the fused
-// step is built with.
-int copy_step_tile_x() { return TX; }
+// The output tile (rows, columns) of a block for the forms that run
+// `steps` model steps a launch: the same constants the fused step is built
+// with.
+int copy_step_tile_x(int steps) {
+  return steps == 2 ? Tile<2>::TX : Tile<1>::TX;
+}
 
-int copy_step_tile_y() { return TY; }
+int copy_step_tile_y(int steps) {
+  return steps == 2 ? Tile<2>::TY : Tile<1>::TY;
+}
 
 int copy_step_max_windows() { return MAX_WIN; }
 
@@ -138,21 +151,25 @@ const char* copy_step_error_string(int code) {
 // met2d != 0, else (n_met, Ys) profiles; unread when n_met = 0. tile_wet:
 // device array of one int per block, or null. tracer_form: load the
 // tracer form's window (halo 4) instead of halo 3. visc_form: take the
-// shared memory of a viscous form of the fused step.
+// shared memory of a viscous form of the fused step. steps: 2 takes the
+// chained form's tile, window and shared memory.
 int copy_step_launch(const float* const* win, int n_win,
                      float* const* out, int n_out, const float* met,
                      int n_met, int met2d, const int* tile_wet,
-                     int tracer_form, int visc_form, int Xs, int Ys,
-                     void* stream) {
+                     int tracer_form, int visc_form, int steps, int Xs,
+                     int Ys, void* stream) {
   if (n_win < 0 || n_win > MAX_WIN || n_out < 1 || n_out > MAX_OUT
-      || n_met < 0 || (n_met > 0 && met == nullptr))
+      || n_met < 0 || (n_met > 0 && met == nullptr)
+      || (steps != 1 && steps != 2))
     return (int)cudaErrorInvalidValue;
   Params p{{}, {}, met, tile_wet, n_win, n_out, n_met, met2d, Xs, Ys};
   for (int j = 0; j < n_win; ++j) p.win[j] = win[j];
   for (int o = 0; o < n_out; ++o) p.out[o] = out[o];
   cudaStream_t s = (cudaStream_t)stream;
-  return tracer_form ? launch<1>(p, visc_form != 0, s)
-                     : launch<0>(p, visc_form != 0, s);
+  const bool visc = visc_form != 0;
+  if (steps == 2)
+    return tracer_form ? launch<1, 2>(p, visc, s) : launch<0, 2>(p, visc, s);
+  return tracer_form ? launch<1, 1>(p, visc, s) : launch<0, 1>(p, visc, s);
 }
 
 }  // extern "C"

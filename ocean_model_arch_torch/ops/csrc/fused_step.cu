@@ -18,19 +18,22 @@
 //   shards' wet cells. Its forms without momentum advection (`trans`
 //   = 0: the Coriolis pair cpair_x / cpair_y alone, :580, :798-834) and
 //   with a linear free surface (`ffs` = 0: every depth column the static
-//   rest depth, :465-470, :731, :764, :945-954, :1015-1019).
+//   rest depth, :465-470, :731, :764, :945-954, :1015-1019). And its
+//   chained form, `steps_per_call` = 2 (:1061-1084): two whole model steps
+//   a launch, the first one's state kept in fast memory.
 //   Plain PyTorch version: ops/fused_step.py::fused_sw_step_reference,
 //   which evaluates the same formulas in the same order.
 //
 // One kernel template,
-// fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS>,
+// fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS>,
 // instantiated for NT = 0, 1, 2 tracers, with and without the guard, with
 // profile or plane metrics, MU = 0 (mu = 0), 1 (the tracers' diffusive
 // fluxes only: mu != 0 with the viscosity switched off) or 2 (viscosity,
 // and the diffusive fluxes when there are tracers), with the rest
 // bathymetry as a scalar or on planes, with or without the momentum
-// advection (TRANS) and with a full or a linear free surface (FFS).
-// <0, false, false, 0, false, false, true, true> is the form without
+// advection (TRANS), with a full or a linear free surface (FFS), and one
+// or two model steps a launch (STEPS).
+// <0, false, false, 0, false, false, true, true, 1> is the form without
 // tracers, guard or viscosity on profile metrics: 4 stages, 16
 // shared-memory planes of a (TX+6) x (TY+6) window. Every addition of the
 // other forms sits behind a compile-time flag, so this form's code does
@@ -133,11 +136,30 @@
 // stress stage's depth is hr and the tracers' bp0 is bp. The step is
 // otherwise whole: hu, hv, hh are recomputed from the static column.
 //
+// The chained forms (STEPS = 2, the TPU kernel's steps_per_call = 2):
+// one launch runs two whole model steps on a window of halo 2 H (6, or 8
+// with tracers) around the tile. Step A runs every stage of one step
+// with each region H cells wider, so its outputs cover the tile and H
+// cells beyond it; it leaves them in shared memory (u and v in place in
+// the loaded planes, which stage 3 reads at the thread's own cell only;
+// ssh, sshp, up, vp and the tracers' levels in 4 + 2 T planes of their
+// own), zeros outside the array, and in the raw form it computes the
+// margin too. After a barrier, step B runs the single step's stages on
+// those planes where the single step reads device memory, forms aq anew
+// from step A's ssh (a linear free surface keeps the static column) and
+// stores as the single step does. The block max covers the tile's own
+// cells of the box at both steps. A chained launch moves the bytes of one
+// step for two, and recomputes step A on the H-cell ring of every tile;
+// its block holds 20 + 2 T planes of the wider window (fused_tile.cuh has
+// its tile and what fits an SM). The guard is unchanged: an all-land tile
+// writes zeros and returns.
+//
 // With -DFUSED_NT=n only the forms with n tracers are compiled, with
 // -DFUSED_RAW_NT=n only their raw forms; -DFUSED_TRANS=0 and
 // -DFUSED_FFS=0 pick the forms without advection and with a linear free
-// surface (both default to 1). The package builds each (tracers, raw,
-// TRANS, FFS) as a library of its own, 24 side by side.
+// surface (both default to 1), -DFUSED_STEPS=2 the chained forms. The
+// package builds each (tracers, raw, TRANS, FFS, STEPS) as a library of
+// its own, 48 side by side.
 
 #include "fused_tile.cuh"
 
@@ -149,6 +171,9 @@
 #endif
 #ifndef FUSED_FFS
 #define FUSED_FFS 1
+#endif
+#ifndef FUSED_STEPS
+#define FUSED_STEPS 1
 #endif
 
 namespace {
@@ -162,7 +187,11 @@ enum {
   S_HU, S_HV, S_UD, S_VD,    // depth interps (carry dyh / dxh), fluxes
   S_F, S_K, S_RX, S_SY,      // edge fluxes and the merged shifted terms
   S_CX, S_CY,                // centre terms of the advection tails
-  N_SMEM
+  N_SMEM,
+  // a chained launch: step A's outputs that step B reads (u and v stay in
+  // S_U and S_V)
+  E_SSH = N_SMEM, E_SSHP, E_UP, E_VP,
+  E_TR                       // ff_0, ffp_0, ff_1, ffp_1
 };
 // What the tracer stages keep in planes that are dead by then:
 //   S_AQ <- aq_new (post-step depth column; aq is last read in stage 2)
@@ -178,6 +207,7 @@ enum {
 static_assert(S_F + 2 * MAX_TRACERS <= S_CX, "tracer flux planes overlap");
 static_assert(S_F + 4 <= S_CX, "velocity-over-metric planes overlap");
 static_assert(N_SMEM == N_SMEM_PLANES, "fused_tile.cuh sizes the windows");
+static_assert(E_TR - E_SSH == N_CHAIN_PLANES, "fused_tile.cuh sizes them");
 enum { V_A2, V_B2, V_D2, V_E2, N_VISC };
 static_assert(N_VISC == N_VISC_PLANES, "fused_tile.cuh sizes the planes");
 
@@ -239,43 +269,33 @@ __device__ __forceinline__ float at(const Params& p, const float* f,
   return inside(p, gx, gy) ? f[(size_t)gx * p.Ys + gy] : 0.f;
 }
 
-template <int NT, bool GUARD, bool MET2D, int MU, bool HRP, bool RAW,
-          bool TRANS, bool FFS>
-__global__ void
-__launch_bounds__(NTHREADS, MIN_BLOCKS)
-fused_sw_step_kernel(const Params p) {
-  constexpr int HALO = Form<NT>::HALO, EXTRA = Form<NT>::EXTRA;
-  constexpr int WY = Form<NT>::WY, PLANE = Form<NT>::PLANE;
+// One model step of a launch that chains STEPS of them. Step STEP
+// (0-based) computes its outputs on the region OH = HALO * (STEPS - 1 -
+// STEP) cells beyond the tile, and every stage's region is that many cells
+// wider than in a launch of one step: the last step (OH = 0) stores to
+// device memory as the single-step form does; an earlier one (step A of a
+// chained launch) leaves its outputs in shared memory, where the next step
+// reads them in place of the device arrays: ssh in E_SSH, u and v in
+// place in S_U and S_V (stage 3 reads them at its own cell only), sshp,
+// up, vp and the tracers in E_SSHP, E_UP, E_VP, E_TR.
+template <int NT, bool MET2D, int MU, bool HRP, bool RAW, bool TRANS,
+          bool FFS, int STEPS, int STEP>
+__device__ __forceinline__ void sw_step(const Params& p, float* sm,
+                                        float& mx) {
+  using Fm = Form<NT, STEPS>;
+  constexpr int HALO = Fm::HALO, EXTRA = Fm::EXTRA, WH = Fm::WH;
+  constexpr int TX = Fm::TX, TY = Fm::TY;
+  constexpr int NTHREADS = Tile<STEPS>::NTHREADS;
+  constexpr int WY = Fm::WY, PLANE = Fm::PLANE;
   constexpr bool VISC = MU == 2;            // stress stages
   constexpr bool DIFF = NT > 0 && MU != 0;  // tracers' diffusive fluxes
-  constexpr int VW = Form<NT>::VW, VPLANE = Form<NT>::VPLANE;
+  constexpr bool FIRST = STEP == 0, LAST = STEP == STEPS - 1;
+  constexpr int OH = HALO * (STEPS - 1 - STEP);   // this step's output halo
+  // this step's stress region: its halo, columns and cells
+  constexpr int VH = OH + Fm::VH, VW = TY + 2 * VH, VN = (TX + 2 * VH) * VW;
 
   const int tid = threadIdx.x;
-
-  if (GUARD) {
-    const int bid = blockIdx.y * gridDim.x + blockIdx.x;
-    // all-land tile: exact zeros, no loads; the whole block takes this
-    // branch (one flag per block) before any barrier
-    if (p.tile_wet[bid] == 0) {
-      for (int i = tid; i < TX * TY; i += NTHREADS) {
-        const int gx = blockIdx.y * TX + i / TY;
-        const int gy = blockIdx.x * TY + i % TY;
-        if (!inside(p, gx, gy)) continue;
-        if (RAW && !in_box(p, gx, gy)) continue;
-        const size_t g = (size_t)gx * p.Ys + gy;
-        p.ssh_o[g] = 0.f; p.sshp_o[g] = 0.f;
-        p.u_o[g] = 0.f; p.up_o[g] = 0.f;
-        p.v_o[g] = 0.f; p.vp_o[g] = 0.f;
-#pragma unroll
-        for (int t = 0; t < 2 * NT; ++t) p.tr_o[t][g] = 0.f;
-      }
-      if (tid == 0) p.blockmax[bid] = 0.f;
-      return;
-    }
-  }
-
-  extern __shared__ float sm[];
-  float* s_ssh = sm + S_SSH * PLANE;
+  float* s_ssh = sm + (FIRST ? S_SSH : E_SSH) * PLANE;
   float* s_u = sm + S_U * PLANE;
   float* s_v = sm + S_V * PLANE;
   float* s_ld = sm + S_LD * PLANE;
@@ -291,14 +311,19 @@ fused_sw_step_kernel(const Params p) {
   float* s_sy = sm + S_SY * PLANE;
   float* s_cx = sm + S_CX * PLANE;
   float* s_cy = sm + S_CY * PLANE;
-  float* s_a2 = sm + N_SMEM * PLANE + V_A2 * VPLANE;   // viscous forms only
-  float* s_b2 = sm + N_SMEM * PLANE + V_B2 * VPLANE;
-  float* s_d2 = sm + N_SMEM * PLANE + V_D2 * VPLANE;
-  float* s_e2 = sm + N_SMEM * PLANE + V_E2 * VPLANE;
-  __shared__ float s_red[NWARPS];
+  float* s_a2 = sm + Fm::N_PLANES * PLANE + V_A2 * Fm::VPLANE;   // viscous
+  float* s_b2 = sm + Fm::N_PLANES * PLANE + V_B2 * Fm::VPLANE;   // forms only
+  float* s_d2 = sm + Fm::N_PLANES * PLANE + V_D2 * Fm::VPLANE;
+  float* s_e2 = sm + Fm::N_PLANES * PLANE + V_E2 * Fm::VPLANE;
+  // step A's outputs in a chained launch
+  float* e_ssh = sm + E_SSH * PLANE;
+  float* e_sshp = sm + E_SSHP * PLANE;
+  float* e_up = sm + E_UP * PLANE;
+  float* e_vp = sm + E_VP * PLANE;
+  float* e_tr = sm + E_TR * PLANE;          // tracer level t at t * PLANE
 
-  const int x0 = blockIdx.y * TX - HALO;   // global row of window row 0
-  const int y0 = blockIdx.x * TY - HALO;   // global column of window col 0
+  const int x0 = blockIdx.y * TX - WH;     // global row of window row 0
+  const int y0 = blockIdx.x * TY - WH;     // global column of window col 0
   const size_t plane = (size_t)p.Xs * p.Ys;
   const float* rslu_u = p.planes;
   const float* rslu_v = p.planes + plane;
@@ -309,29 +334,43 @@ fused_sw_step_kernel(const Params p) {
 
   // stage 0 (halo 3 + EXTRA): load the window; aq = (ssh + hr) * lu*dx*dy
   // or, on bathymetry planes, ssh * lu*dx*dy + hr*lu*dx*dy; with a linear
-  // free surface the static hr * lu*dx*dy or hr*lu*dx*dy
-  for (int i = tid; i < PLANE; i += NTHREADS) {
-    const int gx = x0 + i / WY, gy = y0 + i % WY;
-    float ssh = 0.f, u = 0.f, v = 0.f, ld = 0.f, hl = 0.f;
-    if (inside(p, gx, gy)) {
-      const size_t g = (size_t)gx * p.Ys + gy;
-      ssh = p.ssh[g]; u = p.u[g]; v = p.v[g]; ld = ludxdy[g];
-      if (HRP) hl = p.hrld[g];
+  // free surface the static hr * lu*dx*dy or hr*lu*dx*dy. A later step of
+  // a chained launch forms aq anew from the previous step's ssh (the
+  // static column of a linear free surface stays from the first)
+  if (FIRST) {
+    for (int i = tid; i < PLANE; i += NTHREADS) {
+      const int gx = x0 + i / WY, gy = y0 + i % WY;
+      float ssh = 0.f, u = 0.f, v = 0.f, ld = 0.f, hl = 0.f;
+      if (inside(p, gx, gy)) {
+        const size_t g = (size_t)gx * p.Ys + gy;
+        ssh = p.ssh[g]; u = p.u[g]; v = p.v[g]; ld = ludxdy[g];
+        if (HRP) hl = p.hrld[g];
+      }
+      s_ssh[i] = ssh; s_u[i] = u; s_v[i] = v; s_ld[i] = ld;
+      if (FFS) s_aq[i] = HRP ? ssh * ld + hl : (ssh + p.hr) * ld;
+      else s_aq[i] = HRP ? hl : p.hr * ld;
     }
-    s_ssh[i] = ssh; s_u[i] = u; s_v[i] = v; s_ld[i] = ld;
-    if (FFS) s_aq[i] = HRP ? ssh * ld + hl : (ssh + p.hr) * ld;
-    else s_aq[i] = HRP ? hl : p.hr * ld;
+    __syncthreads();
+  } else if (FFS) {
+    constexpr int h = OH + HALO, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    for (int i = tid; i < n; i += NTHREADS) {
+      const int a = WH - h + i / w, b = WH - h + i % w;
+      const int k = a * S + b;
+      const float ssh = s_ssh[k], ld = s_ld[k];
+      s_aq[k] = HRP ? ssh * ld + at(p, p.hrld, x0 + a, y0 + b)
+                    : (ssh + p.hr) * ld;
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // stage 1 (halo 2 + EXTRA): depth interps hu = hhu*dyh, hv = hhv*dxh and
   // the mass fluxes; the previous-level column aqp (halo 1 + EXTRA; with
   // a linear free surface it is aq, and not formed); with viscosity the
   // previous-level velocities over their metrics
   {
-    constexpr int h = 2 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    constexpr int h = OH + 2 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid; i < n; i += NTHREADS) {
-      const int a = HALO - h + i / w, b = HALO - h + i % w;
+      const int a = WH - h + i / w, b = WH - h + i % w;
       const int k = a * S + b, gx = x0 + a, gy = y0 + b;
       float ru = 0.f, rv = 0.f;
       if (inside(p, gx, gy)) {
@@ -339,7 +378,8 @@ fused_sw_step_kernel(const Params p) {
         ru = rslu_u[g]; rv = rslu_v[g];
         if (VISC) {
           const size_t mi = MET2D ? g : (size_t)gy;
-          const float up = p.up[g], vp = p.vp[g];
+          const float up = FIRST ? p.up[g] : e_up[k];
+          const float vp = FIRST ? p.vp[g] : e_vp[k];
           s_f[k] = up * p.met[M_RDYH][mi];
           s_k[k] = vp * p.met[M_RDXH][mi];
           s_rx[k] = up * p.met[M_RDXT][mi];
@@ -356,11 +396,11 @@ fused_sw_step_kernel(const Params p) {
     }
   }
   if (FFS) {
-    constexpr int h = 1 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    constexpr int h = OH + 1 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid; i < n; i += NTHREADS) {
-      const int a = HALO - h + i / w, b = HALO - h + i % w;
+      const int a = WH - h + i / w, b = WH - h + i % w;
       const int k = a * S + b;
-      const float sshp = at(p, p.sshp, x0 + a, y0 + b);
+      const float sshp = FIRST ? at(p, p.sshp, x0 + a, y0 + b) : e_sshp[k];
       s_aqp[k] = HRP ? sshp * s_ld[k] + at(p, p.hrld, x0 + a, y0 + b)
                      : (sshp + p.hr) * s_ld[k];
     }
@@ -371,13 +411,13 @@ fused_sw_step_kernel(const Params p) {
   // shear at H points, and their four products with mu, the depth and the
   // squared metrics of the cell
   if (VISC) {
-    constexpr int h = Form<NT>::VH, n = VPLANE;
+    constexpr int h = VH, n = VN;
     const float* s_q = s_f;
     const float* s_r = s_k;
     const float* s_s1 = s_rx;
     const float* s_s2 = s_sy;
     for (int i = tid; i < n; i += NTHREADS) {
-      const int a = HALO - h + i / VW, b = HALO - h + i % VW;
+      const int a = WH - h + i / VW, b = WH - h + i % VW;
       const int k = a * S + b, gx = x0 + a, gy = y0 + b;
       float a2 = 0.f, b2 = 0.f, d2 = 0.f, e2 = 0.f;
       if (inside(p, gx, gy)) {
@@ -417,9 +457,9 @@ fused_sw_step_kernel(const Params p) {
   // stage 2 (halo 1 + EXTRA): vorticity, edge fluxes, vorticity + Coriolis;
   // without advection the Coriolis products alone
   {
-    constexpr int h = 1 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    constexpr int h = OH + 1 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid; i < n; i += NTHREADS) {
-      const int a = HALO - h + i / w, b = HALO - h + i % w;
+      const int a = WH - h + i / w, b = WH - h + i % w;
       const int k = a * S + b, gx = x0 + a, gy = y0 + b;
       float rh = 0.f, m16 = 0.f, m17 = 0.f, m18 = 0.f, m21 = 0.f;
       if (inside(p, gx, gy)) {
@@ -468,23 +508,28 @@ fused_sw_step_kernel(const Params p) {
   // stage 3: continuity, momentum, leapfrog + filter, the 6 SW outputs
   // (halo 0). With tracers the continuity runs at halo 2 and the momentum
   // at halo 1, and they leave aq_new, un, vn and sshp_new in shared memory.
-  float mx = 0.f;
+  // Step A of a chained launch keeps its outputs (halo 3 + EXTRA) in
+  // shared memory, zeros outside the array, and computes the raw form's
+  // margin too.
   {
-    constexpr int h = 2 * EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    constexpr int h = OH + 2 * EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid; i < n; i += NTHREADS) {
-      const int a = HALO - h + i / w, b = HALO - h + i % w;
+      const int a = WH - h + i / w, b = WH - h + i % w;
       const int k = a * S + b, gx = x0 + a, gy = y0 + b;
-      // distance beyond the tile: 0 inside it
+      // distance beyond this step's output region: 0 inside it
       const int ring = !NT ? 0
-          : max(max(HALO - a, a - (HALO + TX - 1)),
-                max(max(HALO - b, b - (HALO + TY - 1)), 0));
+          : max(max(WH - OH - a, a - (WH + OH + TX - 1)),
+                max(max(WH - OH - b, b - (WH + OH + TY - 1)), 0));
       if (!inside(p, gx, gy)) {
         if (NT) { s_aq[k] = 0.f; s_cx[k] = 0.f; s_cy[k] = 0.f; }
+        if (!LAST && ring == 0) {
+          e_ssh[k] = 0.f; e_sshp[k] = 0.f; e_up[k] = 0.f; e_vp[k] = 0.f;
+        }
         continue;
       }
       const size_t g = (size_t)gx * p.Ys + gy;
       const size_t mi = MET2D ? g : (size_t)gy;
-      const float ssh = s_ssh[k], sshp = p.sshp[g];
+      const float ssh = s_ssh[k], sshp = FIRST ? p.sshp[g] : e_sshp[k];
       const bool wlu = s_ld[k] > 0.5f;
       const bool wlcu = wlu && s_ld[k + S] > 0.5f;
       const bool wlcv = wlu && s_ld[k + W] > 0.5f;
@@ -499,12 +544,11 @@ fused_sw_step_kernel(const Params p) {
       if (ring > 1) continue;
 
       // momentum: (up*bp0 + grx)/bp with the bp metric factor cancelled
-      const float u = s_u[k], up = p.up[g];
-      const float v = s_v[k], vp = p.vp[g];
+      const float u = s_u[k], up = FIRST ? p.up[g] : e_up[k];
+      const float v = s_v[k], vp = FIRST ? p.vp[g] : e_vp[k];
       float un = 0.f, vn = 0.f;
       // this cell in the small stress planes (viscous forms)
-      const int j = (a - (HALO - Form<NT>::VH)) * VW
-          + (b - (HALO - Form<NT>::VH));
+      const int j = (a - (WH - VH)) * VW + (b - (WH - VH));
       if (wlcu) {
         const float hu = s_hu[k];
         const float hup = FFS ? (s_aqp[k] + s_aqp[k + S]) * rslu_u[g] : hu;
@@ -532,20 +576,32 @@ fused_sw_step_kernel(const Params p) {
       }
       if (NT) { s_cx[k] = un; s_cy[k] = vn; }   // 0 off the u / v wet sets
       if (ring > 0) continue;
-      if (RAW && !in_box(p, gx, gy)) continue;   // the margin is not ours
+      if (LAST && RAW && !in_box(p, gx, gy)) continue;   // not our margin
 
       // leapfrog rotation + Robert-Asselin filter
       const float ssh_new = wlu ? sshn : ssh;
       const float sshp_new = wlu ? p.ts1 * ssh + p.ts2 * (sshn + sshp) : sshp;
-      p.ssh_o[g] = ssh_new;
-      p.sshp_o[g] = sshp_new;
-      if (NT && FFS) s_hu[k] = sshp_new;
-      p.u_o[g] = wlcu ? un : u;
-      p.up_o[g] = wlcu ? p.ts1 * u + p.ts2 * (un + up) : up;
-      p.v_o[g] = wlcv ? vn : v;
-      p.vp_o[g] = wlcv ? p.ts1 * v + p.ts2 * (vn + vp) : vp;
+      const float u_new = wlcu ? un : u;
+      const float up_new = wlcu ? p.ts1 * u + p.ts2 * (un + up) : up;
+      const float v_new = wlcv ? vn : v;
+      const float vp_new = wlcv ? p.ts1 * v + p.ts2 * (vn + vp) : vp;
+      if (LAST) {
+        p.ssh_o[g] = ssh_new;
+        p.sshp_o[g] = sshp_new;
+        if (NT && FFS) s_hu[k] = sshp_new;
+        p.u_o[g] = u_new;
+        p.up_o[g] = up_new;
+        p.v_o[g] = v_new;
+        p.vp_o[g] = vp_new;
+      } else {
+        e_ssh[k] = ssh_new; e_sshp[k] = sshp_new;
+        s_u[k] = u_new; e_up[k] = up_new;
+        s_v[k] = v_new; e_vp[k] = vp_new;
+      }
 
-      if (gx >= p.margin && gx < p.margin + p.nx
+      // the block's own cells of the box, at every step
+      if ((OH == 0 || (a >= WH && a < WH + TX && b >= WH && b < WH + TY))
+          && gx >= p.margin && gx < p.margin + p.nx
           && gy >= p.margin && gy < p.margin + p.ny)
         mx = nan_max(mx, fabsf(ssh_new));
     }
@@ -562,9 +618,9 @@ fused_sw_step_kernel(const Params p) {
     float* s_un = s_cx;
     float* s_vn = s_cy;
     {
-      constexpr int h = 1, w = TY + 2 * h, n = (TX + 2 * h) * w;
+      constexpr int h = OH + 1, w = TY + 2 * h, n = (TX + 2 * h) * w;
       for (int i = tid; i < n; i += NTHREADS) {
-        const int a = HALO - h + i / w, b = HALO - h + i % w;
+        const int a = WH - h + i / w, b = WH - h + i % w;
         const int k = a * S + b, gx = x0 + a, gy = y0 + b;
         const float aqn = s_aqn[k];
         const float hun = (aqn + s_aqn[k + S]) * at(p, rslu_u, gx, gy);
@@ -582,10 +638,16 @@ fused_sw_step_kernel(const Params p) {
         }
 #pragma unroll
         for (int t = 0; t < NT; ++t) {
-          const float* ffg = p.tr[2 * t];
-          const float ff = at(p, ffg, gx, gy);
-          const float ffx = at(p, ffg, gx + 1, gy);
-          const float ffy = at(p, ffg, gx, gy + 1);
+          float ff, ffx, ffy;
+          if (FIRST) {
+            const float* ffg = p.tr[2 * t];
+            ff = at(p, ffg, gx, gy);
+            ffx = at(p, ffg, gx + 1, gy);
+            ffy = at(p, ffg, gx, gy + 1);
+          } else {
+            const float* e = e_tr + 2 * t * PLANE;
+            ff = e[k]; ffx = e[k + S]; ffy = e[k + W];
+          }
           float fx = uh * ((ff + ffx) * -0.5f);
           float fy = vh * ((ff + ffy) * -0.5f);
           if (DIFF) { fx += kx * (ffx - ff); fy += ky * (ffy - ff); }
@@ -598,12 +660,19 @@ fused_sw_step_kernel(const Params p) {
 
     // stage 5 (halo 0): leapfrog update from the flux divergence,
     // rotation + Robert-Asselin filter, the 2 NT tracer outputs
-    const float* s_sshp_new = s_hu;
-    for (int i = tid; i < TX * TY; i += NTHREADS) {
-      const int a = HALO + i / TY, b = HALO + i % TY;
+    const float* s_sshp_new = LAST ? s_hu : e_sshp;
+    constexpr int h = OH, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    for (int i = tid; i < n; i += NTHREADS) {
+      const int a = WH - h + i / w, b = WH - h + i % w;
       const int k = a * S + b, gx = x0 + a, gy = y0 + b;
-      if (!inside(p, gx, gy)) continue;
-      if (RAW && !in_box(p, gx, gy)) continue;
+      if (!inside(p, gx, gy)) {
+        if (!LAST) {
+#pragma unroll
+          for (int t = 0; t < 2 * NT; ++t) e_tr[t * PLANE + k] = 0.f;
+        }
+        continue;
+      }
+      if (LAST && RAW && !in_box(p, gx, gy)) continue;
       const size_t g = (size_t)gx * p.Ys + gy;
       const bool wlu = s_ld[k] > 0.5f;
       // bp = hhq_n*area, bp0 = hhq_p*area with hhq_n = hr,
@@ -618,19 +687,72 @@ fused_sw_step_kernel(const Params p) {
       for (int t = 0; t < NT; ++t) {
         const float* fx = sm + (S_F + 2 * t) * PLANE;
         const float* fy = sm + (S_F + 2 * t + 1) * PLANE;
-        const float ff = p.tr[2 * t][g], ffp = p.tr[2 * t + 1][g];
+        const float ff = FIRST ? p.tr[2 * t][g] : e_tr[2 * t * PLANE + k];
+        const float ffp = FIRST ? p.tr[2 * t + 1][g]
+                                : e_tr[(2 * t + 1) * PLANE + k];
         float ffn = 0.f;
         if (wlu) {
           const float rhs = ((fx[k] - fx[k - S]) + fy[k]) - fy[k - W];
           ffn = (bp0 * ffp + rhs) / bp;
         }
-        p.tr_o[2 * t][g] = wlu ? ffn : ff;
-        p.tr_o[2 * t + 1][g] = wlu ? p.ts1 * ff + p.ts2 * (ffn + ffp) : ffp;
+        const float ff_new = wlu ? ffn : ff;
+        const float ffp_new = wlu ? p.ts1 * ff + p.ts2 * (ffn + ffp) : ffp;
+        if (LAST) {
+          p.tr_o[2 * t][g] = ff_new;
+          p.tr_o[2 * t + 1][g] = ffp_new;
+        } else {
+          e_tr[2 * t * PLANE + k] = ff_new;
+          e_tr[(2 * t + 1) * PLANE + k] = ffp_new;
+        }
       }
     }
   }
+}
 
-  // block max |ssh|, NaN-propagating
+template <int NT, bool GUARD, bool MET2D, int MU, bool HRP, bool RAW,
+          bool TRANS, bool FFS, int STEPS>
+__global__ void
+__launch_bounds__(Tile<STEPS>::NTHREADS, Tile<STEPS>::MIN_BLOCKS)
+fused_sw_step_kernel(const Params p) {
+  static_assert(STEPS == 1 || STEPS == 2, "one or two steps a launch");
+  constexpr int TX = Tile<STEPS>::TX, TY = Tile<STEPS>::TY;
+  constexpr int NTHREADS = Tile<STEPS>::NTHREADS, NWARPS = NTHREADS / 32;
+
+  const int tid = threadIdx.x;
+
+  if (GUARD) {
+    const int bid = blockIdx.y * gridDim.x + blockIdx.x;
+    // all-land tile: exact zeros, no loads; the whole block takes this
+    // branch (one flag per block) before any barrier
+    if (p.tile_wet[bid] == 0) {
+      for (int i = tid; i < TX * TY; i += NTHREADS) {
+        const int gx = blockIdx.y * TX + i / TY;
+        const int gy = blockIdx.x * TY + i % TY;
+        if (!inside(p, gx, gy)) continue;
+        if (RAW && !in_box(p, gx, gy)) continue;
+        const size_t g = (size_t)gx * p.Ys + gy;
+        p.ssh_o[g] = 0.f; p.sshp_o[g] = 0.f;
+        p.u_o[g] = 0.f; p.up_o[g] = 0.f;
+        p.v_o[g] = 0.f; p.vp_o[g] = 0.f;
+#pragma unroll
+        for (int t = 0; t < 2 * NT; ++t) p.tr_o[t][g] = 0.f;
+      }
+      if (tid == 0) p.blockmax[bid] = 0.f;
+      return;
+    }
+  }
+
+  extern __shared__ float sm[];
+  __shared__ float s_red[NWARPS];
+
+  float mx = 0.f;
+  sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 0>(p, sm, mx);
+  if constexpr (STEPS > 1) {
+    __syncthreads();       // step A's outputs are in shared memory
+    sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 1>(p, sm, mx);
+  }
+
+  // block max |ssh|, NaN-propagating, over both steps of a chained launch
   for (int off = 16; off > 0; off >>= 1)
     mx = nan_max(mx, __shfl_down_sync(0xffffffffu, mx, off));
   if ((tid & 31) == 0) s_red[tid >> 5] = mx;
@@ -649,22 +771,26 @@ constexpr bool RAW_BUILD = true;
 #else
 constexpr bool RAW_BUILD = false;
 #endif
-// the advection and free-surface forms this library holds
+// the advection and free-surface forms this library holds, and the model
+// steps its forms chain in a launch
 constexpr bool TRANS_BUILD = FUSED_TRANS != 0;
 constexpr bool FFS_BUILD = FUSED_FFS != 0;
+constexpr int STEPS_BUILD = FUSED_STEPS;
+using TILE = Tile<STEPS_BUILD>;
 
 template <int NT, bool GUARD, bool MET2D, int MU, bool HRP>
 int launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<NT>(MU == 2);
+  constexpr size_t smem = smem_bytes<NT, STEPS_BUILD>(MU == 2);
   cudaError_t e = cudaFuncSetAttribute(
       fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD, TRANS_BUILD,
-                           FFS_BUILD>,
+                           FFS_BUILD, STEPS_BUILD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD, TRANS_BUILD,
-                       FFS_BUILD>
-      <<<dim3((p.Ys + TY - 1) / TY, (p.Xs + TX - 1) / TX), NTHREADS,
-         smem, stream>>>(p);
+                       FFS_BUILD, STEPS_BUILD>
+      <<<dim3((p.Ys + TILE::TY - 1) / TILE::TY,
+              (p.Xs + TILE::TX - 1) / TILE::TX),
+         TILE::NTHREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -703,9 +829,15 @@ extern "C" {
 // The output tile (rows, columns) of a block: the host sizes blockmax and
 // builds the guard's per-block wet flags with these, both row-major over
 // (x tiles, y tiles).
-int fused_sw_step_tile_x() { return TX; }
+int fused_sw_step_tile_x() { return TILE::TX; }
 
-int fused_sw_step_tile_y() { return TY; }
+int fused_sw_step_tile_y() { return TILE::TY; }
+
+// The threads of a block and the blocks an SM keeps registers for
+// (__launch_bounds__): 65536 / (threads * blocks) registers a thread.
+int fused_sw_step_threads() { return TILE::NTHREADS; }
+
+int fused_sw_step_min_blocks() { return TILE::MIN_BLOCKS; }
 
 // How many metric rows fused_sw_step_launch takes slots for.
 int fused_sw_step_n_met() { return N_MET; }
@@ -730,6 +862,10 @@ int fused_sw_step_built_trans() { return TRANS_BUILD ? 1 : 0; }
 // default 1), 0 for a linear one.
 int fused_sw_step_built_ffs() { return FFS_BUILD ? 1 : 0; }
 
+// The model steps a launch of this library's forms runs (-DFUSED_STEPS,
+// default 1; 2 chains two).
+int fused_sw_step_built_steps() { return STEPS_BUILD; }
+
 const char* fused_sw_step_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
@@ -750,7 +886,9 @@ const char* fused_sw_step_error_string(int code) {
 // [margin, margin + nx) x [margin, margin + ny) of the outputs; a library
 // holds either the raw forms or the others. trans and ffs name the
 // advection and free-surface form, which must be this library's; without
-// advection the vorticity rows (16-18) are not read.
+// advection the vorticity rows (16-18) are not read. steps: the model steps
+// of one launch, which must be this library's; a chained launch (2) writes
+// the second step's fields and its block max covers both steps.
 int fused_sw_step_launch(
     const float* ssh, const float* sshp, const float* u, const float* up,
     const float* v, const float* vp, const float* met, const float* planes,
@@ -758,12 +896,14 @@ int fused_sw_step_launch(
     float* vp_o, float* blockmax, const float* const* tr_in,
     float* const* tr_out, const int* tile_wet, const int* met_slots,
     int met2d, int n_tracers, int n_planes, int visc, int raw, int trans,
-    int ffs, int Xs, int Ys, int nx, int ny, int margin, float hr, float mu,
+    int ffs, int steps, int Xs, int Ys, int nx, int ny, int margin,
+    float hr, float mu,
     float neg_g, float two_tau, float neg_two_tau, float inv_two_tau,
     float ts1, float ts2, void* stream) {
   if (n_tracers < 0 || n_tracers > MAX_TRACERS || n_planes < 4
       || n_planes > 6 || (raw != 0) != RAW_BUILD
-      || (trans != 0) != TRANS_BUILD || (ffs != 0) != FFS_BUILD)
+      || (trans != 0) != TRANS_BUILD || (ffs != 0) != FFS_BUILD
+      || steps != STEPS_BUILD)
     return (int)cudaErrorInvalidValue;
   const int mu_mode = visc ? 2 : (n_tracers > 0 && mu != 0.f ? 1 : 0);
   // varying bathymetry with viscosity or tracers reads the hr plane too

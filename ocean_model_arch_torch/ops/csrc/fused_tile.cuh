@@ -7,51 +7,112 @@
 
 #include <cuda_runtime.h>
 
+// The chained form's tile (two model steps a launch), defaults below; a
+// build may set them (-DFUSED_CHAIN_TX=... etc.) to sweep tiles.
+#ifndef FUSED_CHAIN_TX
+#define FUSED_CHAIN_TX 16
+#endif
+#ifndef FUSED_CHAIN_TY
+#define FUSED_CHAIN_TY 32
+#endif
+#ifndef FUSED_CHAIN_THREADS
+#define FUSED_CHAIN_THREADS 512
+#endif
+#ifndef FUSED_CHAIN_MIN_BLOCKS
+#define FUSED_CHAIN_MIN_BLOCKS 2
+#endif
+
 namespace fused_tile {
 
-// Tile, one for every form: 16 x 32 outputs, 512 threads, three blocks
-// per SM. Swept on an H100 SXM (700 W) at the 1533 x 1152 layout, device
-// us/launch. Without tracers: 16x32 with 512 threads 75.0; 16x16, 12x32
-// and 8x32 with 256 threads 76-78; 32x32 108; 32x64 172. With 2 tracers:
-// 16x32/512 122; 8x64/512 123; 12x32/512 126; 32x16/512 128; 16x64/512
-// 129; 16x32/384 131; 32x32/512 133; 16x16/256 134; 8x32/256 137. Small
-// tiles keep more blocks, and so more loads, in flight per SM; their halo
-// re-reads hit L2. Three blocks of 512 threads fit an SM only at 42
-// registers or fewer: left to itself ptxas takes 44 (47-48 with tracers),
-// two blocks fit, and the launch takes 95 us instead of 73 (164 instead
-// of 122); with MIN_BLOCKS = 3 it takes 39 and spills nothing.
+// Tile of the single-step forms: 16 x 32 outputs, 512 threads, three
+// blocks per SM. Swept on an H100 SXM (700 W) at the 1533 x 1152 layout,
+// device us/launch. Without tracers: 16x32 with 512 threads 75.0; 16x16,
+// 12x32 and 8x32 with 256 threads 76-78; 32x32 108; 32x64 172. With 2
+// tracers: 16x32/512 122; 8x64/512 123; 12x32/512 126; 32x16/512 128;
+// 16x64/512 129; 16x32/384 131; 32x32/512 133; 16x16/256 134; 8x32/256
+// 137. Small tiles keep more blocks, and so more loads, in flight per SM;
+// their halo re-reads hit L2. Three blocks of 512 threads fit an SM only
+// at 42 registers or fewer: left to itself ptxas takes 44 (47-48 with
+// tracers), two blocks fit, and the launch takes 95 us instead of 73 (164
+// instead of 122); with MIN_BLOCKS = 3 it takes 39 and spills nothing.
 constexpr int TX = 16;                 // output rows (x) per block
 constexpr int TY = 32;                 // output columns (y) per block
 constexpr int NTHREADS = 512;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int MIN_BLOCKS = 3;          // blocks per SM to keep registers for
+
+// Tile of the chained forms (two model steps a launch, window halo 6, or
+// 8 with tracers): 16 x 32 outputs, 512 threads, launch bound two blocks
+// per SM (64 registers; ptxas takes 40-60). The shared memory of a block
+// (20 + 2 T planes of the window, plus the four stress planes of a
+// viscous form) decides how many blocks an SM holds: 96 KB at T = 0 (two
+// blocks), 144 KB at T = 2 (one). Swept with
+// scripts/chain_tile_sweep_torch.py on an H100 SXM (700 W) at the 1533 x
+// 1152 layout, device us per launch of two steps (one step a launch in
+// the same run: 48.9 on the guarded Azov coastline, 78.7 with 2 tracers,
+// 76.7 on the unguarded frame). Coastline T = 0: 16x32/512 91.9;
+// 32x16/512 93.7; 16x16/256 112.4; 32x32/512 116.4; 8x32/256 122.2.
+// Coastline T = 2: 32x32/512 193.7; 32x16/512 248.9; 16x32/512 249.9;
+// 16x16/256 254.4; 8x32/256 273.9. Frame T = 0: 16x32/512 161.8;
+// 32x16/512 170.2; 32x32/512 206.7; 16x16/256 212.0; 8x32/256 222.0.
+// Launch bound 1 instead of 2 moves nothing (52 registers instead of 55,
+// within 0.7 %). One tile for every chained form: 16 x 32 is the best at
+// T = 0; at T = 2 32 x 32 would be 22 % faster, and both lose to one step
+// a launch there.
+constexpr int CHAIN_TX = FUSED_CHAIN_TX;
+constexpr int CHAIN_TY = FUSED_CHAIN_TY;
+constexpr int CHAIN_THREADS = FUSED_CHAIN_THREADS;
+constexpr int CHAIN_MIN_BLOCKS = FUSED_CHAIN_MIN_BLOCKS;
+
 constexpr int MAX_TRACERS = 2;
 constexpr int N_SMEM_PLANES = 16;      // shared-memory windows of a block
+constexpr int N_CHAIN_PLANES = 4;      // step A's ssh, sshp, up, vp (chain)
 constexpr int N_VISC_PLANES = 4;       // stress products of the viscous forms
 
-// The window of the form with NT tracers.
-template <int NT>
+// The launch shape of the forms that run STEPS model steps a launch.
+template <int STEPS>
+struct Tile {
+  static constexpr int TX = STEPS == 1 ? fused_tile::TX : CHAIN_TX;
+  static constexpr int TY = STEPS == 1 ? fused_tile::TY : CHAIN_TY;
+  static constexpr int NTHREADS =
+      STEPS == 1 ? fused_tile::NTHREADS : CHAIN_THREADS;
+  static constexpr int MIN_BLOCKS =
+      STEPS == 1 ? fused_tile::MIN_BLOCKS : CHAIN_MIN_BLOCKS;
+};
+
+// The window of the form with NT tracers and STEPS chained steps.
+template <int NT, int STEPS = 1>
 struct Form {
   static constexpr int EXTRA = NT ? 1 : 0;        // reach of the tracer pass
   static constexpr int HALO = 3 + EXTRA;          // stencil reach of one step
-  static constexpr int WX = TX + 2 * HALO;        // window rows
-  static constexpr int WY = TY + 2 * HALO;        // window columns
+  static constexpr int WH = STEPS * HALO;         // window halo
+  static constexpr int TX = Tile<STEPS>::TX;
+  static constexpr int TY = Tile<STEPS>::TY;
+  static constexpr int WX = TX + 2 * WH;          // window rows
+  static constexpr int WY = TY + 2 * WH;          // window columns
   static constexpr int PLANE = WX * WY;           // floats per shared array
+  // the 16 working planes; a chained form adds step A's carried outputs
+  // that do not stay in place: ssh, sshp, up, vp and each tracer's 2
+  static constexpr int N_PLANES =
+      N_SMEM_PLANES + (STEPS > 1 ? N_CHAIN_PLANES + 2 * NT : 0);
   // The viscous forms keep their four stress products on the region one
-  // cell inside the flux stage's (halo 1 + EXTRA), row-major, no wider:
-  // with full windows the 2-tracer form would pass the 75 KB that let
-  // three blocks share an SM.
+  // cell inside the flux stage's (halo 1 + EXTRA beyond a step's output
+  // region), row-major, no wider: with full windows the 2-tracer form
+  // would pass the 75 KB that let three blocks share an SM. Sized for the
+  // first step's, the widest, region.
   static constexpr int VH = 1 + EXTRA;
-  static constexpr int VW = TY + 2 * VH;          // columns of that region
-  static constexpr int VPLANE = (TX + 2 * VH) * VW;
+  static constexpr int VHW = (STEPS - 1) * HALO + VH;
+  static constexpr int VW = TY + 2 * VHW;         // columns of that region
+  static constexpr int VPLANE = (TX + 2 * VHW) * VW;
 };
 
-// Dynamic shared memory of a block: 53.5 KB (61.4 KB with tracers), and
-// 63.3 KB (73.0 KB) for a viscous form.
-template <int NT>
+// Dynamic shared memory of a block. One step: 53.5 KB (61.4 KB with
+// tracers), and 63.3 KB (73.0 KB) for a viscous form.
+template <int NT, int STEPS = 1>
 constexpr size_t smem_bytes(bool visc = false) {
-  return sizeof(float) * (N_SMEM_PLANES * Form<NT>::PLANE
-                          + (visc ? N_VISC_PLANES * Form<NT>::VPLANE : 0));
+  return sizeof(float) * (Form<NT, STEPS>::N_PLANES * Form<NT, STEPS>::PLANE
+                          + (visc ? N_VISC_PLANES * Form<NT, STEPS>::VPLANE
+                                  : 0));
 }
 
 }  // namespace fused_tile

@@ -9,7 +9,8 @@ its tracer pass (advective fluxes, and diffusive ones when ``mu_const !=
 x-uniform profile metrics or on pointwise metric planes (the TPU
 kernel's fast2d form, for bipolar grids). One call
 advances the 6 carried fields and the 2 carried levels of each of T
-tracers by one model step on the layout of ops/fused_layout.py:
+tracers by one model step (or two, chained) on the layout of
+ops/fused_layout.py:
 
     (ssh, sshp, u, up, v, vp, ff_0, ffp_0, ff_1, ...), met,
     planes (4 to 6, Xs, Ys) [, tile_wet (x tiles, y tiles) int32]
@@ -50,6 +51,16 @@ pad beyond. The outputs are the caller's own tensors, other ones than the
 inputs, and only their box is written: margin and pad keep what they
 held, and the max is over the box. The statics are the caller's per-shard
 tensors, as in every form of the port.
+
+``steps = 2`` is the chained form, the TPU kernel's ``steps_per_call =
+2`` (:1061-1084 there): two whole model steps in one launch, the first
+one's state kept in the kernel's shared memory, so a launch moves the
+bytes of one step for two. Its plain version is the single step twice,
+the guard applied to the second step's outputs only (the kernel computes
+the first step in each wet tile's window, whatever the flags of the
+tiles it covers), the max over both steps. The single block needs no
+wider margin (its margin is land, which every step keeps at its input
+0); a shard's margin must be ``fused_layout.margin_for(2, T)`` wide.
 
 :func:`fused_sw_step` and :func:`fused_sw_step_raw` take CPU tensors to
 :func:`fused_sw_step_reference` and CUDA tensors to the hand-written
@@ -129,13 +140,15 @@ def n_tracers_of(fields) -> int:
     return extra // 2
 
 
-def tile_shape(device) -> tuple:
+def tile_shape(device, steps: int = 1, chain_tile=None) -> tuple:
     """The (rows, columns) of the output tile the guard's flags refer to:
-    the kernel's own tile constants for a CUDA device (the library is
-    built if needed), ``CPU_TILE`` for the plain version on the CPU."""
+    the kernel's own tile constants for a CUDA device (the library of the
+    forms that run ``steps`` model steps a launch, built if needed; a
+    chained form has a tile of its own), ``CPU_TILE`` for the plain
+    version on the CPU. ``chain_tile``: see :func:`library_target`."""
     if torch.device(device).type == "cpu":
         return CPU_TILE
-    lib = _library()
+    lib = _library(steps=steps, chain_tile=chain_tile)
     return lib.fused_sw_step_tile_x(), lib.fused_sw_step_tile_y()
 
 
@@ -150,22 +163,12 @@ def _wet_cells(tile_wet: torch.Tensor, tile, lay: FusedLayout):
     return cells[:lay.Xs, :lay.Ys] > 0
 
 
-def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
-                            tau: float, time_smooth: float,
-                            hr_const: float | None, tile_wet=None,
-                            tile=None, met_map=None, mu_const: float = 0.0,
-                            visc: bool = False, trans: int = 1, ffs: int = 1,
-                            outs=None):
-    """One fused step in plain PyTorch on whole arrays, with the kernel's
-    formulas in the kernel's order (see csrc/fused_step.cu). ``tile_wet``
-    (with its ``tile`` shape) reproduces the guard: zeros, and a max of
-    0, in every tile flagged all-land. ``met_map``: None for profile
-    metrics, else the row -> plane map of a (n, Xs, Ys) ``met``.
-    ``hr_const=None``: varying bathymetry on the planes of
-    :func:`kernel_planes`. ``trans``, ``ffs``: the advection and
-    free-surface switches. ``outs``: the raw form -- the box ``[M, M +
-    lay.nx) x [M, M + lay.ny)`` of these 6 + 2 T tensors is written and
-    they are returned, everything else in them untouched."""
+def _one_step(fields, met, planes, lay: FusedLayout, tau: float,
+              time_smooth: float, hr_const: float | None, tile_wet, tile,
+              met_map, mu_const: float, visc: bool, trans: int, ffs: int,
+              outs) -> tuple:
+    """One step of :func:`fused_sw_step_reference`: the 6 + 2 T new
+    fields (``outs``, their box written, with ``outs``)."""
     n_tr = n_tracers_of(fields)
     ssh, sshp, u, up, v, vp = fields[:N_FIELDS]
     rslu_u, rslu_v, rslu_h, ld = planes[:4]
@@ -305,18 +308,82 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
     if tile_wet is not None:
         cells = _wet_cells(tile_wet, tile, lay)
         out = [torch.where(cells, o, 0.0) for o in out]
-    m = lay.margin
-    box = (slice(m, m + lay.nx), slice(m, m + lay.ny))
-    mx = torch.amax(out[0][box].abs())
     if outs is not None:
+        box = _box(lay)
         for o, new in zip(outs, out):
             o[box] = new[box]
         out = outs
-    return tuple(out), mx
+    return tuple(out)
+
+
+def _box(lay: FusedLayout) -> tuple:
+    """The valid box ``[M, M + lay.nx) x [M, M + lay.ny)``: the interior,
+    or a shard's own cells in the raw form."""
+    m = lay.margin
+    return slice(m, m + lay.nx), slice(m, m + lay.ny)
+
+
+def _chain(fields, met, planes, lay: FusedLayout, tau: float,
+           time_smooth: float, hr_const: float | None, tile_wet, tile,
+           met_map, mu_const: float, visc: bool, trans: int, ffs: int,
+           steps: int, outs):
+    """``steps`` plain steps as one launch of the kernel runs them: the
+    earlier ones on whole arrays without the guard (the kernel computes
+    them in each wet tile's own window, whatever the flags of the tiles
+    that window covers; in the raw form a dry-flagged tile's margin cells
+    may be wet and read), the last with the guard and into ``outs``.
+    Returns (the last step's fields, each step's |ssh| as the block max
+    reads it: zero in the tiles flagged all-land)."""
+    if steps not in (1, 2):
+        raise ValueError(f"steps={steps}: the kernel runs 1 or 2 steps a "
+                         "launch")
+    seen = []
+    for s in range(steps):
+        last = s == steps - 1
+        fields = _one_step(fields, met, planes, lay, tau, time_smooth,
+                           hr_const, tile_wet if last else None, tile,
+                           met_map, mu_const, visc, trans, ffs,
+                           outs if last else None)
+        ssh = fields[0]
+        if tile_wet is not None and not last:
+            ssh = torch.where(_wet_cells(tile_wet, tile, lay), ssh, 0.0)
+        seen.append(ssh.abs())
+    return fields, seen
+
+
+def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
+                            tau: float, time_smooth: float,
+                            hr_const: float | None, tile_wet=None,
+                            tile=None, met_map=None, mu_const: float = 0.0,
+                            visc: bool = False, trans: int = 1, ffs: int = 1,
+                            steps: int = 1, outs=None):
+    """One launch of the fused step in plain PyTorch on whole arrays,
+    with the kernel's formulas in the kernel's order (see
+    csrc/fused_step.cu). ``tile_wet`` (with its ``tile`` shape) reproduces
+    the guard: zeros, and a max of 0, in every tile flagged all-land.
+    ``met_map``: None for profile metrics, else the row -> plane map of a
+    (n, Xs, Ys) ``met``. ``hr_const=None``: varying bathymetry on the
+    planes of :func:`kernel_planes`. ``trans``, ``ffs``: the advection and
+    free-surface switches. ``steps``: model steps a launch; 2 is the
+    chained form, this function's single step twice, the guard on the
+    second only, the max over both. ``outs``: the raw form -- the box
+    ``[M, M + lay.nx) x [M, M + lay.ny)`` of these 6 + 2 T tensors is
+    written and they are returned, everything else in them untouched (a
+    chained raw launch runs its first step on the whole margined
+    block)."""
+    out, seen = _chain(fields, met, planes, lay, tau, time_smooth, hr_const,
+                       tile_wet, tile, met_map, mu_const, visc, trans, ffs,
+                       steps, outs)
+    box = _box(lay)
+    mx = torch.amax(seen[0][box])
+    for a in seen[1:]:
+        mx = torch.maximum(mx, torch.amax(a[box]))
+    return out, mx
 
 
 def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
-                  tile, met_map, hr_const, visc, trans, outs=None) -> None:
+                  tile, met_map, hr_const, visc, trans, outs=None,
+                  steps: int = 1, chain_tile=None) -> None:
     n_tr = n_tracers_of(fields)
     if n_tr > MAX_TRACERS:
         raise ValueError(f"the kernel takes at most {MAX_TRACERS} "
@@ -345,11 +412,15 @@ def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
             if tuple(t.shape) != shape or not t.is_contiguous():
                 raise ValueError(f"{kind}: need a contiguous {shape} "
                                  f"tensor, got {tuple(t.shape)}")
+    if steps not in (1, 2):
+        raise ValueError(f"steps={steps}: the kernel runs 1 or 2 steps a "
+                         "launch")
     if tile_wet is None:
         return
-    if tuple(tile) != tile_shape(dev):
+    want = tile_shape(dev, steps, chain_tile)
+    if tuple(tile) != want:
         raise ValueError(f"tile_wet was built for {tuple(tile)} tiles, the "
-                         f"kernel's are {tile_shape(dev)}")
+                         f"kernel's are {want}")
     if (tile_wet.device != dev or tile_wet.dtype != torch.int32
             or not tile_wet.is_contiguous()
             or tuple(tile_wet.shape) != (-(-lay.Xs // tile[0]),
@@ -365,27 +436,30 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
                            hr_const: float | None, tile_wet=None, tile=None,
                            met_map=None, mu_const: float = 0.0,
                            visc: bool = False, trans: int = 1, ffs: int = 1,
-                           outs=None, blockmax=None):
+                           steps: int = 1, outs=None, blockmax=None,
+                           chain_tile=None):
     """Launch the CUDA kernel once on CUDA tensors (counted in
     ``fused_sw_step.launches``, and per kernel instantiation ``(T,
-    guarded, 2D metrics, mu mode, bathymetry planes, raw, trans, ffs)``
-    in ``fused_sw_step.form_launches``; :func:`mu_mode` names the modes).
-    Returns ``(6 + 2 T new fields, the (x tiles, y tiles) per-block max
-    |ssh_new| over interior cells)``; raises if the kernel does not build
-    or launch. With ``outs`` (and ``blockmax``, a contiguous float32
-    (x tiles, y tiles) tensor) it launches the raw form into them and
-    allocates nothing."""
+    guarded, 2D metrics, mu mode, bathymetry planes, raw, trans, ffs,
+    steps)`` in ``fused_sw_step.form_launches``; :func:`mu_mode` names
+    the modes). ``steps = 2`` launches the chained form: two model steps
+    in the one launch, counted once. Returns ``(6 + 2 T new fields, the
+    (x tiles, y tiles) per-block max |ssh_new| over interior cells)``;
+    raises if the kernel does not build or launch. With ``outs`` (and
+    ``blockmax``, a contiguous float32 (x tiles, y tiles) tensor) it
+    launches the raw form into them and allocates nothing.
+    ``chain_tile``: see :func:`library_target`."""
     visc, trans, ffs = bool(visc), int(bool(trans)), int(bool(ffs))
     raw = outs is not None
     _check_inputs(fields, met, planes, lay, tile_wet, tile, met_map,
-                  hr_const, visc, trans, outs)
+                  hr_const, visc, trans, outs, steps, chain_tile)
     n_tr = n_tracers_of(fields)
-    lib = _library(n_tr, raw, trans, ffs)
+    lib = _library(n_tr, raw, trans, ffs, steps, chain_tile)
     # where each metric row the kernel reads sits in met (-1: not there)
     where = {r: r for r in KERNEL_MET_ROWS} if met_map is None else met_map
     slots = (ctypes.c_int * len(KERNEL_MET_ROWS))(
         *(where.get(r, -1) for r in KERNEL_MET_ROWS))
-    tx, ty = tile_shape(fields[0].device)
+    tx, ty = tile_shape(fields[0].device, steps, chain_tile)
     n_blocks = (-(-lay.Xs // tx), -(-lay.Ys // ty))
     if raw:
         if (blockmax is None or blockmax.device != fields[0].device
@@ -410,7 +484,8 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
             *ptr, tr_in, tr_out,
             None if tile_wet is None else tile_wet.data_ptr(), slots,
             int(met_map is not None), n_tr, planes.shape[0], int(visc),
-            int(raw), trans, ffs, lay.Xs, lay.Ys, lay.nx, lay.ny, lay.margin,
+            int(raw), trans, ffs, steps, lay.Xs, lay.Ys, lay.nx, lay.ny,
+            lay.margin,
             0.0 if hr_const is None else float(hr_const), float(mu_const),
             *_scalars(tau, time_smooth),
             torch.cuda.current_stream().cuda_stream)
@@ -421,16 +496,18 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
     fused_sw_step.form_launches[
         n_tr, tile_wet is not None, met_map is not None,
         mu_mode(n_tr, mu_const, visc), hr_const is None, raw, trans,
-        ffs] += 1
+        ffs, steps] += 1
     return outs, blockmax
 
 
 def fused_sw_step(fields, met, planes, lay: FusedLayout, tau: float,
                   time_smooth: float, hr_const: float | None, tile_wet=None,
                   tile=None, met_map=None, mu_const: float = 0.0,
-                  visc: bool = False, trans: int = 1, ffs: int = 1):
-    """One fused step: the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors (:func:`fused_sw_step_blockmax`). Returns
+                  visc: bool = False, trans: int = 1, ffs: int = 1,
+                  steps: int = 1):
+    """One launch of the fused step: the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors (:func:`fused_sw_step_blockmax`);
+    ``steps`` model steps (1, or 2 chained in the one launch). Returns
     ``(6 + 2 T new fields, 0-dim max |ssh_new| over interior cells)``;
     the max propagates NaN. ``tile_wet``/``tile``: the guard's flags
     (``fused_layout.tile_wet``) and the tile they were built for
@@ -441,15 +518,16 @@ def fused_sw_step(fields, met, planes, lay: FusedLayout, tau: float,
     ``mu_const``, ``visc``: the constant viscosity and whether the stress
     stages run; tracers diffuse whenever ``mu_const != 0``. ``trans``,
     ``ffs``: the configuration's ``trans_terms`` and
-    ``full_free_surface`` (0 or 1)."""
+    ``full_free_surface`` (0 or 1). The max covers every step of the
+    launch."""
     if fields[0].device.type == "cpu":
         return fused_sw_step_reference(fields, met, planes, lay, tau,
                                        time_smooth, hr_const, tile_wet,
                                        tile, met_map, mu_const, visc, trans,
-                                       ffs)
+                                       ffs, steps)
     outs, blockmax = fused_sw_step_blockmax(
         fields, met, planes, lay, tau, time_smooth, hr_const, tile_wet, tile,
-        met_map, mu_const, visc, trans, ffs)
+        met_map, mu_const, visc, trans, ffs, steps)
     return outs, torch.amax(blockmax)
 
 
@@ -457,15 +535,18 @@ def fused_sw_step_raw(fields, outs, blockmax, met, planes, lay: FusedLayout,
                       tau: float, time_smooth: float,
                       hr_const: float | None, tile_wet=None, tile=None,
                       met_map=None, mu_const: float = 0.0,
-                      visc: bool = False, trans: int = 1,
-                      ffs: int = 1) -> None:
-    """One fused step on a shard's margined block, into the caller's
-    tensors: the box ``[M, M + lay.nx) x [M, M + lay.ny)`` of ``outs``
-    (6 + 2 T tensors, none of them an input) gets the new fields, every
-    other cell of them stays what it was, and ``blockmax`` ((x tiles, y
-    tiles) of ``tile``, float32) gets each tile's max |ssh_new| over the
-    box, NaN-propagating. The plain version for CPU tensors, the CUDA
-    kernel's raw form for CUDA tensors. The other arguments are those of
+                      visc: bool = False, trans: int = 1, ffs: int = 1,
+                      steps: int = 1) -> None:
+    """One launch of the fused step on a shard's margined block, into the
+    caller's tensors: the box ``[M, M + lay.nx) x [M, M + lay.ny)`` of
+    ``outs`` (6 + 2 T tensors, none of them an input) gets the new fields
+    (of the second step, chained: ``steps = 2`` runs the first on the
+    whole margined block, which needs a margin of
+    ``fused_layout.margin_for(2, T)``), every other cell of them stays what
+    it was, and ``blockmax`` ((x tiles, y tiles) of ``tile``, float32)
+    gets each tile's max |ssh_new| over the box at every step,
+    NaN-propagating. The plain version for CPU tensors, the CUDA kernel's
+    raw form for CUDA tensors. The other arguments are those of
     :func:`fused_sw_step`."""
     if len(outs) != len(fields) or any(o is f for o in outs for f in fields):
         raise ValueError(f"outs: need {len(fields)} tensors, none of them "
@@ -473,19 +554,21 @@ def fused_sw_step_raw(fields, outs, blockmax, met, planes, lay: FusedLayout,
     if fields[0].device.type != "cpu":
         fused_sw_step_blockmax(fields, met, planes, lay, tau, time_smooth,
                                hr_const, tile_wet, tile, met_map, mu_const,
-                               visc, trans, ffs, outs, blockmax)
+                               visc, trans, ffs, steps, outs, blockmax)
         return
-    fused_sw_step_reference(fields, met, planes, lay, tau, time_smooth,
-                            hr_const, tile_wet, tile, met_map, mu_const,
-                            visc, trans, ffs, outs)
+    _, seen = _chain(fields, met, planes, lay, tau, time_smooth, hr_const,
+                     tile_wet, tile, met_map, mu_const, visc, trans, ffs,
+                     steps, outs)
     tx, ty = tile
-    m = lay.margin
-    a = torch.zeros((blockmax.shape[0] * tx, blockmax.shape[1] * ty),
-                    dtype=torch.float32)
-    box = (slice(m, m + lay.nx), slice(m, m + lay.ny))
-    a[box] = outs[0][box].abs()
-    blockmax.copy_(a.reshape(blockmax.shape[0], tx, blockmax.shape[1],
-                             ty).amax(dim=(1, 3)))
+    nbx, nby = blockmax.shape
+    box = _box(lay)
+    mx = None
+    for s in seen:
+        a = torch.zeros((nbx * tx, nby * ty), dtype=torch.float32)
+        a[box] = s[box]
+        a = a.reshape(nbx, tx, nby, ty).amax(dim=(1, 3))
+        mx = a if mx is None else torch.maximum(mx, a)
+    blockmax.copy_(mx)
 
 
 def reset_launch_counts() -> None:
@@ -498,37 +581,49 @@ reset_launch_counts()
 
 
 def library_target(n_tracers: int, raw: bool = False, trans: int = 1,
-                   ffs: int = 1) -> str:
+                   ffs: int = 1, steps: int = 1, chain_tile=None) -> str:
     """The build target of csrc/fused_step.cu that holds the forms with
-    ``n_tracers`` tracers (raw or not) of one (trans, ffs) form: macros
-    ``FUSED_NT`` or ``FUSED_RAW_NT``, then ``FUSED_TRANS=0`` and
-    ``FUSED_FFS=0`` where the form drops them."""
-    return (f"fused_step@{'FUSED_RAW_NT' if raw else 'FUSED_NT'}={n_tracers}"
-            + ("" if trans else "@FUSED_TRANS=0")
-            + ("" if ffs else "@FUSED_FFS=0"))
+    ``n_tracers`` tracers (raw or not) of one (trans, ffs, steps) form:
+    macros ``FUSED_NT`` or ``FUSED_RAW_NT``, then ``FUSED_TRANS=0``,
+    ``FUSED_FFS=0`` and ``FUSED_STEPS=2`` where the form has them.
+    ``chain_tile``: (rows, columns, threads, blocks an SM) of a chained
+    form's tile in place of csrc/fused_tile.cuh's (a tile sweep's
+    libraries); None for the header's own."""
+    target = (f"fused_step@{'FUSED_RAW_NT' if raw else 'FUSED_NT'}="
+              f"{n_tracers}" + ("" if trans else "@FUSED_TRANS=0")
+              + ("" if ffs else "@FUSED_FFS=0")
+              + ("" if steps == 1 else f"@FUSED_STEPS={steps}"))
+    if chain_tile is not None:
+        target += "".join(f"@FUSED_CHAIN_{k}={v}" for k, v in zip(
+            ("TX", "TY", "THREADS", "MIN_BLOCKS"), chain_tile))
+    return target
 
 
 def library_targets() -> tuple:
     """The build targets of csrc/fused_step.cu (``_build.build_all``
-    takes them): for each (trans, ffs) of ``FORMS`` one library per tracer
-    count, then one per tracer count for the raw forms, so they build at
-    once."""
-    return tuple(library_target(n, raw, trans, ffs) for trans, ffs in FORMS
+    takes them): for one step a launch, then for two chained, for each
+    (trans, ffs) of ``FORMS`` one library per tracer count, then one per
+    tracer count for the raw forms, so they build at once."""
+    return tuple(library_target(n, raw, trans, ffs, steps)
+                 for steps in (1, 2) for trans, ffs in FORMS
                  for raw in (False, True) for n in range(MAX_TRACERS + 1))
 
 
 @functools.lru_cache(maxsize=None)
 def _library(n_tracers: int = 0, raw: bool = False, trans: int = 1,
-             ffs: int = 1) -> ctypes.CDLL:
+             ffs: int = 1, steps: int = 1, chain_tile=None) -> ctypes.CDLL:
     """csrc/fused_step.cu's forms (its raw forms with ``raw``) with
-    ``n_tracers`` tracers and the advection and free-surface form
-    ``trans``, ``ffs``, built on first use, with their C signatures."""
-    lib = load(library_target(n_tracers, raw, trans, ffs))
+    ``n_tracers`` tracers, the advection and free-surface form ``trans``,
+    ``ffs`` and ``steps`` model steps a launch, built on first use, with
+    their C signatures."""
+    lib = load(library_target(n_tracers, raw, trans, ffs, steps,
+                              chain_tile))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.fused_sw_step_tile_x, lib.fused_sw_step_tile_y,
+               lib.fused_sw_step_threads, lib.fused_sw_step_min_blocks,
                lib.fused_sw_step_n_met, lib.fused_sw_step_built_for,
                lib.fused_sw_step_built_raw, lib.fused_sw_step_built_trans,
-               lib.fused_sw_step_built_ffs):
+               lib.fused_sw_step_built_ffs, lib.fused_sw_step_built_steps):
         fn.argtypes = []
         fn.restype = i
     if lib.fused_sw_step_n_met() != len(KERNEL_MET_ROWS):
@@ -536,15 +631,17 @@ def _library(n_tracers: int = 0, raw: bool = False, trans: int = 1,
                            f"{lib.fused_sw_step_n_met()} metric rows, the "
                            f"wrapper passes {len(KERNEL_MET_ROWS)}")
     built = (lib.fused_sw_step_built_for(), lib.fused_sw_step_built_raw(),
-             lib.fused_sw_step_built_trans(), lib.fused_sw_step_built_ffs())
-    if built != (n_tracers, int(bool(raw)), int(bool(trans)),
-                 int(bool(ffs))):
+             lib.fused_sw_step_built_trans(), lib.fused_sw_step_built_ffs(),
+             lib.fused_sw_step_built_steps())
+    want = (n_tracers, int(bool(raw)), int(bool(trans)), int(bool(ffs)),
+            steps)
+    if built != want:
         raise RuntimeError("the fused step's library was built for "
-                           "(tracers, raw, trans, ffs) = " f"{built}, not "
-                           f"{(n_tracers, int(raw), trans, ffs)}")
+                           "(tracers, raw, trans, ffs, steps) = "
+                           f"{built}, not {want}")
     lib.fused_sw_step_error_string.argtypes = [i]
     lib.fused_sw_step_error_string.restype = ctypes.c_char_p
-    lib.fused_sw_step_launch.argtypes = ([p] * 19 + [i] * 12 + [f] * 8
+    lib.fused_sw_step_launch.argtypes = ([p] * 19 + [i] * 13 + [f] * 8
                                          + [p])
     lib.fused_sw_step_launch.restype = i
     return lib

@@ -101,6 +101,34 @@ def test_guard_zeroes_all_land_tiles():
         copy_step_reference(windows, None, 6, lay, flags, (8, 8))
 
 
+@pytest.mark.parametrize("guard", [False, True])
+def test_chained_window_changes_no_output(guard):
+    """The chained form's copy step (``steps = 2``: the chained tile,
+    window and shared memory) gives the single step's outputs, guarded by
+    the chained tile's flags (the plain version's tile on the CPU); a
+    launch of 3 steps is refused before anything runs."""
+    lay = fl.make_layout(70, 52)
+    tile = tile_shape("cpu", 2)
+    assert tile == tile_shape("cpu") == fstep.CPU_TILE
+    lu = np.ones((70, 52), np.float32)
+    lu[40:64, :] = 0.0
+    flags = (torch.from_numpy(fl.tile_wet(fl.embed(
+        lay, torch.from_numpy(lu)).numpy(), lay, *tile)) if guard else None)
+    gen = torch.Generator().manual_seed(7)
+    windows = tuple(torch.randn((lay.Xs, lay.Ys), generator=gen)
+                    for _ in range(14))
+    met = torch.randn((9, lay.Ys), generator=gen)
+    one = copy_step(windows, met, 10, lay, True, flags, tile)
+    two = copy_step(windows, met, 10, lay, True, flags, tile, steps=2)
+    want = copy_step_reference(windows, met, 10, lay, flags, tile)
+    assert all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(two, one, want))
+    f = torch.empty((lay.Xs, lay.Ys), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        copy_step((f,) * 10, None, 6, lay, steps=2)
+    assert copy_step.launches == 0
+
+
 def test_cpu_tensors_do_not_launch():
     lay = fl.make_layout(24, 20)
     windows = tuple(torch.zeros((lay.Xs, lay.Ys)) for _ in range(10))
@@ -164,8 +192,9 @@ def test_build_targets_with_a_define_get_their_own_library(tmp_path,
     """``<source>@<MACRO>=<value>[@...]`` compiles the source with a -D for
     each define into a library named after the target: the fused step's
     three tracer counts and their three raw forms, for each of the four
-    (trans, ffs) forms, build side by side and never share a file; the
-    full step's six keep the flags, and so the libraries, they had."""
+    (trans, ffs) forms, one step a launch and two chained, build side by
+    side and never share a file; the full step's six keep the flags, and
+    so the libraries, they had."""
     cmds = []
 
     def fake_run(cmd, **kw):
@@ -181,26 +210,32 @@ def test_build_targets_with_a_define_get_their_own_library(tmp_path,
                            "fused_step@FUSED_RAW_NT=0",
                            "fused_step@FUSED_RAW_NT=1",
                            "fused_step@FUSED_RAW_NT=2")
-    assert len(targets) == 24 and targets[6] == \
+    assert len(targets) == 48 and targets[6] == \
         "fused_step@FUSED_NT=0@FUSED_TRANS=0"
-    assert targets[-1] == "fused_step@FUSED_RAW_NT=2@FUSED_TRANS=0@FUSED_FFS=0"
+    assert targets[23] == \
+        "fused_step@FUSED_RAW_NT=2@FUSED_TRANS=0@FUSED_FFS=0"
+    assert targets[24] == "fused_step@FUSED_NT=0@FUSED_STEPS=2"
+    assert targets[-1] == ("fused_step@FUSED_RAW_NT=2@FUSED_TRANS=0"
+                           "@FUSED_FFS=0@FUSED_STEPS=2")
     for t in targets + ("fused_step",):
         with pytest.raises(RuntimeError, match="stop"):
             _build.build(t)
     outs = [os.path.basename(c[c.index("-o") + 1]) for c in cmds]
-    assert len(set(outs)) == 25
-    for n, (cmd, out) in enumerate(zip(cmds[:24], outs)):
-        trans, ffs = fstep.FORMS[n // 6]
+    assert len(set(outs)) == 49
+    for n, (cmd, out) in enumerate(zip(cmds[:48], outs)):
+        trans, ffs = fstep.FORMS[n % 24 // 6]
+        steps = 1 + n // 24
         macro = "FUSED_NT" if n % 6 < 3 else "FUSED_RAW_NT"
         defines = [a for a in cmd if a.startswith("-D")]
         assert defines == [f"-D{macro}={n % 3}"] + (
             [] if trans else ["-DFUSED_TRANS=0"]) + (
-            [] if ffs else ["-DFUSED_FFS=0"])
+            [] if ffs else ["-DFUSED_FFS=0"]) + (
+            [] if steps == 1 else ["-DFUSED_STEPS=2"])
         assert cmd[-1].endswith("fused_step.cu")
         assert out.startswith(f"libfused_step-{macro}{n % 3}-")
-        assert fstep.library_target(n % 3, n % 6 >= 3, trans, ffs) == \
-            targets[n]
-    assert not any(a.startswith("-D") for a in cmds[24])
+        assert fstep.library_target(n % 3, n % 6 >= 3, trans, ffs,
+                                    steps) == targets[n]
+    assert not any(a.startswith("-D") for a in cmds[48])
     assert "--use_fast_math" not in " ".join(cmds[0])
 
 
