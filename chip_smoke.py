@@ -14,12 +14,13 @@ windows: phase 11, and ``main`` in phases 9b and 10c) -> ``pack`` ->
 ``run_steps`` -> ``unpack``, in phases:
 
 1. device: the card, its power limit, the toolchain, the build of the
-   kernel libraries (the fused step's forms with 0, 1 and 2 tracers, raw
-   or not, with and without momentum advection, with a full or a linear
-   free surface, one step or two chained a launch, and the copy step: 49
-   libraries started together) with ptxas's registers and spills, which
-   must stay at 42 registers (64, the chained forms' launch bound) and 0
-   bytes;
+   kernel libraries (the fused step's forms with 0, 1 and 2 tracers and
+   with any count from 3 up, raw or not, with and without momentum
+   advection, with a full or a linear free surface, one step or two
+   chained a launch, and the copy step: 65 libraries started together)
+   with ptxas's registers and spills, which must stay at 42 registers
+   (64, the chained forms' launch bound) and 0 bytes; the chained form's
+   shared memory at 3-10 tracers;
 2. every form of the fused-step CUDA kernel (no tracers / 2 tracers,
    unguarded / tile guard, profile / plane metrics) against its plain
    PyTorch version on the card, on the 2-cell land frame mask, the
@@ -52,7 +53,9 @@ windows: phase 11, and ``main`` in phases 9b and 10c) -> ``pack`` ->
    arithmetic) against its plain version, exactly, on each form's own
    inputs; then us/launch of every form through the probe script
    ``scripts/roofline_probe_torch.py``, and each timed configuration's
-   byte bound beside the copy step of its form;
+   byte bound beside the copy step of its form; the stacked copy step
+   (one stacked input, one stacked output) exactly against its plain
+   version and timed against the separate one;
 8. (printed before phase 7) the fourth main path ``azov_visc``: the
    coastline over varying bathymetry with lateral viscosity (the shipped
    ``lvisc_2 = 1000``) and 2 diffusing tracers, 200 steps, checked like
@@ -104,16 +107,32 @@ windows: phase 11, and ``main`` in phases 9b and 10c) -> ``pack`` ->
    bound and the chained copy step; (c) ``azov_visc`` and
    ``bipolar_azov`` on 2 x 2 shards at two steps a launch (margins 8 and
    6), uniform and weighted cuts, == the chained single block bit for
-   bit, 4 strip copies a step.
+   bit, 4 strip copies a step;
+12. (printed before phase 7) any number of tracers, the kernel's
+   run-time tracer family: (a) its forms at 3 and 4 tracers against the
+   plain version as in phases 2, 9a and 11a (profile and plane metrics,
+   guard off and on, viscosity and bathymetry planes, the diffusive
+   fluxes alone, without advection, with a linear free surface, one step
+   and two a launch, raw on 2 x 2 shards), and the chained form past its
+   shared-memory fit (9 tracers; 8 viscous); (b) the Azov coastline with
+   4 tracers, guarded, 200 steps chained and at one step a launch, its
+   sub-paths (3 tracers; ``azov_visc`` with 4; ``bipolar_azov`` with 3)
+   against the eager composition, the tracer mass before and after, and
+   2 x 2 shards at 4 tracers == the chained block bit for bit; (c)
+   ``examples/05_azov_hires`` with 4 tracers through ``main`` on the block
+   and on a 2 x 2 mesh == the hand-driven chained run bit for bit; (d)
+   T = 0..4 on the guarded coastline at one step and two a launch:
+   kernel, byte bound, copy step of the form, path, idle; 9 tracers.
 
 Every phase prints its lines; any failure raises (exit code != 0). The
-line before the last is one JSON object describing twenty-five kernels
+line before the last is one JSON object describing thirty-two kernels
 (the fused step's plain, guarded, tracer, plane-metric, viscous,
 bathymetry-plane, viscous + bathymetry + tracer and viscous plane-metric
 forms, its raw form on the three paths of phase 9, the four forms of the
 paths of phase 10b, the raw forms of ``01_flat_basin --mesh 2x2``, the
-chained forms of phase 11's four paths and two 2 x 2 splits, the copy
-step and the chained copy step);
+chained forms of phase 11's four paths and two 2 x 2 splits, the six
+forms of phase 12b's paths, the copy step, the chained copy step and the
+stacked copy step);
 the last line is ``{"ok": true, "device": {...}}``. With ``--parent
 DIR`` (the root of another checkout of this repository) it instead holds
 every instantiation that checkout has against this one's, bit for bit
@@ -182,8 +201,15 @@ REPLACES = {"fused_sw_step": PALLAS + ":1642",
             "fused_sw_step_raw_chain_visc_bathy_tracers": PALLAS + ":1061",
             "fused_sw_step_raw_chain_fast2d": PALLAS + ":1061",
             "fused_sw_step_raw_chain_notrans_guarded": PALLAS + ":1061",
+            "fused_sw_step_tracers4": PALLAS + ":937",
+            "fused_sw_step_chain_tracers4": PALLAS + ":937",
+            "fused_sw_step_chain_tracers3": PALLAS + ":937",
+            "fused_sw_step_chain_visc_bathy_tracers4": PALLAS + ":937",
+            "fused_sw_step_chain_tracers3_fast2d": PALLAS + ":937",
+            "fused_sw_step_raw_chain_tracers4": PALLAS + ":1652",
             "copy_step": "scripts/roofline_probe.py:71",
-            "copy_step_chain": "scripts/roofline_probe.py:71"}
+            "copy_step_chain": "scripts/roofline_probe.py:71",
+            "copy_step_stacked": "scripts/roofline_probe.py:103"}
 
 
 class SmokeFailure(RuntimeError):
@@ -250,10 +276,11 @@ def ptxas_table(log: str) -> list:
     instantiation from nvcc's -Xptxas -v output."""
     out, name, spill = [], None, -1
     for ln in log.splitlines():
-        m = re.search(r"_kernelI((?:L[bi]\d+E)+)E", ln)
+        m = re.search(r"_kernelI((?:L[bi]n?\d+E)+)E", ln)
         if m:
-            name = "<" + ",".join(re.findall(r"L[bi](\d+)E", m.group(1))) \
-                + ">"
+            name = "<" + ",".join(
+                v.replace("n", "-") for v in
+                re.findall(r"L[bi](n?\d+)E", m.group(1))) + ">"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
         if m and name:
@@ -305,12 +332,14 @@ def key_text(key) -> str:
 def form_name(fm) -> str:
     """The entry of the kernels line a model's instantiation counts
     under: the four names of the inviscid flat-bathymetry forms, else
-    the features spelt out, after ``chain`` (two steps a launch),
-    ``notrans`` (no momentum advection) and ``linear`` (a linear free
-    surface) where the form has them."""
+    the features spelt out (``tracersT`` for the run-time tracer forms,
+    T >= 3), after ``chain`` (two steps a launch), ``notrans`` (no
+    momentum advection) and ``linear`` (a linear free surface) where the
+    form has them."""
     forms = ("_chain" * (fm.steps_per_call == 2) + "_notrans" * (not fm.trans)
              + "_linear" * (not fm.ffs))
-    new = form_key(fm)[3] or fm.hr_const is None
+    many = fm.n_tracers > N_TRACERS
+    new = form_key(fm)[3] or fm.hr_const is None or many
     if not new:
         return ("fused_sw_step" + forms
                 + ("_fast2d" if fm.metrics_2d else
@@ -320,7 +349,8 @@ def form_name(fm) -> str:
         "_" + w for w, on in (("visc", fm.visc),
                               ("diff", form_key(fm)[3] == 1),
                               ("bathy", fm.hr_const is None),
-                              ("tracers", fm.n_tracers > 0),
+                              ("tracers" + f"{fm.n_tracers}" * many,
+                               fm.n_tracers > 0),
                               ("fast2d", fm.metrics_2d)) if on)
     return ("fused_sw_step" + forms
             + (feats or "_guarded" * bool(fm.tile_guard)))
@@ -386,12 +416,12 @@ def broadcast_planes(fm, n_tr):
     return planes, {r: i for i, r in enumerate(rows)}
 
 
-def compare_forms(mname, grid, cfgs, stats, mu=0.0, spc=1):
+def compare_forms(mname, grid, cfgs, stats, mu=0.0, spc=1, phase=None):
     """Phase 2 on one mask: every kernel form against the plain version,
     and guarded against unguarded, with the state's viscosity ``mu``, at
     ``spc`` model steps a launch (phase 11: 2, chained, with half the
     carried launches, the same model steps). ``stats``: form name -> max
-    abs err."""
+    abs err. ``phase``: the lines' tag, if not that of phase 2 or 11a."""
     from ocean_model_arch_torch.model.fused import FusedSWModel
     from ocean_model_arch_torch.model.init import init_ocean_state
     from ocean_model_arch_torch.ops.fused_step import (
@@ -399,7 +429,7 @@ def compare_forms(mname, grid, cfgs, stats, mu=0.0, spc=1):
 
     carried = {}
     n_carry = N_CARRY // spc
-    phase = "phase 2" if spc == 1 else "phase 11a"
+    phase = phase or ("phase 2" if spc == 1 else "phase 11a")
     for n_tr, cfg in cfgs.items():
         state = with_mu(init_ocean_state(grid, cfg), mu)
         for guard in (False, True):
@@ -778,14 +808,15 @@ def n_blocks(fs) -> tuple:
     return (-(-fs.lay.Xs // tx), -(-fs.lay.Ys // ty))
 
 
-def compare_raw(tag, fs, cfg, state, stats, form) -> None:
+def compare_raw(tag, fs, cfg, state, stats, form, phase=None) -> None:
     """Phase 9a on one sharded model: after one margin exchange, the raw
     form of the kernel against its plain version on every shard (one
     launch), then ``N_CARRY`` carried launches (half as many of the
     chained form, the same model steps) on the shard with the most wet
     tiles, its margin frozen; the margins and the pad of the output
     buffers must stay what they were, bit for bit. ``stats[form]`` takes
-    the largest absolute difference."""
+    the largest absolute difference. ``phase``: the line's tag, if not
+    that of phase 9a or 11c."""
     from ocean_model_arch_torch.ops.fused_step import (
         fused_sw_step_raw, fused_sw_step_reference)
     carry = list(fs.pack(state))
@@ -847,8 +878,8 @@ def compare_raw(tag, fs, cfg, state, stats, form) -> None:
           "launches")
     stats[form] = max([stats[form]] + [
         float((a - b).abs().max()) for a, b in zip(got, want)])
-    print(f"{'phase 9a' if fs.steps_per_call == 1 else 'phase 11c'} raw "
-          f"kernel vs plain ({tag}, {fs.px} x {fs.py} shards of "
+    phase = phase or ("phase 9a" if fs.steps_per_call == 1 else "phase 11c")
+    print(f"{phase} raw kernel vs plain ({tag}, {fs.px} x {fs.py} shards of "
           f"{fs.lay.Xs}x{fs.lay.Ys}, margin {M}, form "
           f"{key_text(form_key(fs))}): 1 launch on every shard rel err <= "
           f"{worst1:.2e} < {TOL_ONE}; {n_carry} launches on shard ({i}, "
@@ -960,9 +991,11 @@ def time_sharded(fs, state, wet_pts: int, pts: int) -> dict:
                      f"tiles {fs.n_tiles[0]} wet / {fs.n_tiles[1]} dry")}
 
 
-def example_dir(tmp: str, example: str, name: str, **edits) -> str:
+def example_dir(tmp: str, example: str, name: str, sw_edits=None,
+                **edits) -> str:
     """A copy of ``examples/<example>`` under ``tmp`` whose data paths
-    are absolute; ``edits``: 'old text' -> 'new text' in ocean_run.par."""
+    are absolute; ``edits``: 'old text' -> 'new text' in ocean_run.par,
+    ``sw_edits`` the same in sw.par."""
     src = os.path.join(REPO, "examples", example)
     dst = os.path.join(tmp, name)
     shutil.copytree(src, dst, ignore=shutil.ignore_patterns("RESULTS",
@@ -972,14 +1005,15 @@ def example_dir(tmp: str, example: str, name: str, **edits) -> str:
         text = f.read()
     with open(path, "w") as f:
         f.write(text.replace("../../data/", os.path.join(REPO, "data", "")))
-    path = os.path.join(dst, "ocean_run.par")
-    with open(path) as f:
-        text = f.read()
-    for old, new in edits.items():
-        check(old in text, f"ocean_run.par has no line {old!r}")
-        text = text.replace(old, new)
-    with open(path, "w") as f:
-        f.write(text)
+    for par, changes in (("ocean_run.par", edits), ("sw.par", sw_edits)):
+        path = os.path.join(dst, par)
+        with open(path) as f:
+            text = f.read()
+        for old, new in (changes or {}).items():
+            check(old in text, f"{par} has no line {old!r}")
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text)
     return dst
 
 
@@ -1194,18 +1228,19 @@ def periodic_channel(card: str, name: str, stats: dict):
     return keep
 
 
-def sharded_2x2(tag, grid, cfg, mu, stats, form, spc=1):
+def sharded_2x2(tag, grid, cfg, mu, stats, form, spc=1, phase=None):
     """Phase 9d on one configuration: 2 x 2 shards on the one card, with
     uniform and with weighted cuts, against the single block, bit for
     bit, both at ``spc`` steps a launch (phase 11c: 2, chained, on margins
     of 6 or 8); the guard on a NaN in each shard's interior and in its
-    pad. Returns {cuts: (model, launches)} and the initial state."""
+    pad. Returns {cuts: (model, launches)} and the initial state.
+    ``phase``: the lines' tag, if not that of phase 9d or 11c."""
     from ocean_model_arch_torch.model.fused import FusedSWModel
     from ocean_model_arch_torch.model.fused_sharded2d import \
         FusedSharded2DModel
     from ocean_model_arch_torch.model.init import init_ocean_state
     state = with_mu(init_ocean_state(grid, cfg), mu)
-    phase = "phase 9d" if spc == 1 else "phase 11c"
+    phase = phase or ("phase 9d" if spc == 1 else "phase 11c")
     fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, steps_per_call=spc)
     s, ok1 = fm.run_steps(fm.pack(state), N_MAIN)
     from ocean_model_arch_torch.ops import fused_layout as fl
@@ -1215,7 +1250,7 @@ def sharded_2x2(tag, grid, cfg, mu, stats, form, spc=1):
         fs = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, mu_const=mu,
                                  weighted=cuts == "weighted",
                                  steps_per_call=spc)
-        compare_raw(f"{tag}, {cuts} cuts", fs, cfg, state, stats, form)
+        compare_raw(f"{tag}, {cuts} cuts", fs, cfg, state, stats, form, phase)
         got, ok, n = run_sharded(f"{phase} {tag} {cuts}", fs, state, N_MAIN)
         check(ok == ok1 and ok, f"{phase} {tag} {cuts}: ok={ok}, single "
               f"block {ok1}")
@@ -1773,6 +1808,262 @@ def chained_paths(grids, cfgs, cfgs_b, basin, basin_b, prec, wet, pts, card,
     print(f"phase 11c timing ({name}; {card}): " + " | ".join(texts))
 
 
+# ---- phase 12: any number of tracers ---------------------------------------
+
+T_LOOP = (3, 4)        # counts of the run-time tracer family held everywhere
+T_PATH = 4             # phase 12's main path
+# past the chained form's shared-memory fit (8 tracers, 7 viscous): some
+# of step A's tracer levels in device scratch
+T_PAST, T_PAST_VISC = 9, 8
+
+
+def many_tracer_forms(grids, basin, basin_b, prec, stats) -> int:
+    """Phase 12a: the run-time tracer family (T >= 3) against its plain
+    version as phase 2 holds the others, at one step and two chained a
+    launch: profile and plane metrics, guard off and on, mu 0 and 1000
+    over flat and 15-100 m bathymetry, the diffusive fluxes alone,
+    without advection and with a linear free surface; the chained form
+    past its shared-memory fit; and raw forms on 2 x 2 shards. Returns the
+    number of forms compared."""
+    from ocean_model_arch_torch.model.fused_sharded2d import \
+        FusedSharded2DModel
+    from ocean_model_arch_torch.model.init import init_ocean_state
+    n = 0
+    for spc in (1, 2):
+        for mname, gname, b, mu, trans, ffs, ksw, counts in (
+                ("azov", "azov", basin, 0.0, 1, 1, 1, T_LOOP),
+                ("bipolar_azov", "bipolar_azov", basin_b, 0.0, 1, 1, 1,
+                 T_LOOP),
+                ("azov mu=1000 15-100 m", "azov_hr", basin, MU, 1, 1, 1,
+                 T_LOOP),
+                ("bipolar_azov mu=1000 15-100 m", "bipolar_azov_hr",
+                 basin_b, MU, 1, 1, 1, (3,)),
+                ("azov mu=1000 ksw_lat=0", "azov", basin, MU, 1, 1, 0, (3,)),
+                ("azov notrans", "azov", basin, 0.0, 0, 1, 1, (3,)),
+                ("azov linear", "azov", basin, 0.0, 1, 0, 1, (4,))):
+            compare_forms(mname, grids[gname], {
+                t: form_cfg(b, prec, t, trans, ffs, ksw) for t in counts},
+                stats, mu, spc, "phase 12a")
+            n += 2 * len(counts)
+    compare_forms("azov", grids["azov"], {T_PAST: form_cfg(
+        basin, prec, T_PAST, 1, 1)}, stats, 0.0, 2, "phase 12a")
+    compare_forms("azov mu=1000 15-100 m", grids["azov_hr"], {
+        T_PAST_VISC: form_cfg(basin, prec, T_PAST_VISC, 1, 1)}, stats, MU, 2,
+        "phase 12a")
+    n += 4
+    for gname, b, n_tr, mu, trans, ffs, spc in (
+            ("azov_hr", basin, 4, MU, 1, 1, 1),
+            ("azov_hr", basin, 4, MU, 1, 1, 2),
+            ("bipolar_azov", basin_b, 3, 0.0, 1, 1, 2),
+            ("azov", basin, 3, 0.0, 0, 1, 2),
+            ("azov", basin, 4, 0.0, 1, 0, 1)):
+        cfg = form_cfg(b, prec, n_tr, trans, ffs)
+        fs = FusedSharded2DModel(grids[gname], cfg, 1.0, 2, 2, mu_const=mu,
+                                 steps_per_call=spc)
+        state = with_mu(init_ocean_state(grids[gname], cfg), mu)
+        compare_raw(f"{gname} T={n_tr} mu={mu:g} trans={trans} ffs={ffs}",
+                    fs, cfg, state, stats,
+                    "fused_sw_step_raw_" + form_name(fs)[14:], "phase 12a")
+        n += 1
+    return n
+
+
+def many_tracer_entry_point(card: str, name: str) -> None:
+    """Phase 12c: ``main`` on a copy of ``examples/05_azov_hires`` with
+    ``T_PATH`` tracers (its sw.par edited), on the single block and on a
+    2 x 2 mesh: the route, the launches, finite GrADS records, and the
+    final state of each == ``FusedSWModel(steps_per_call=2).run_steps`` by
+    hand, bit for bit."""
+    from ocean_model_arch_torch.config import Precision
+    from ocean_model_arch_torch.io.checkpoint import load_checkpoint
+    from ocean_model_arch_torch.model.fused import CARRIED, FusedSWModel
+    from ocean_model_arch_torch.model.model import (OceanModel,
+                                                    load_config_dir)
+    from ocean_model_arch_torch.ops.fused_step import (fused_sw_step,
+                                                       reset_launch_counts)
+    sw = {"0       : tracers": "1       : tracers",
+          "1       : tracer_num": f"{T_PATH}       : tracer_num"}
+    fields = CARRIED + ("ff", "ffp", "hhq", "hhu", "hhv", "hhh")
+    texts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for mesh in ("", "2x2"):
+            d = example_dir(tmp, "05_azov_hires", "tracers" + mesh,
+                            sw_edits=sw)
+            ck = os.path.join(tmp, f"tracers{mesh}.npz")
+            reset_launch_counts()
+            out = run_main([d, "--f32", "--checkpoint", ck]
+                           + (["--mesh", mesh] if mesh else []))
+            counts = dict(fused_sw_step.form_launches)
+            route = "fused CUDA kernel" + (", sharded" if mesh else "")
+            check(f"MODEL: compute path: {route}\n" in out,
+                  f"phase 12c ({mesh or 'block'}) did not take the {route}:"
+                  "\n" + "\n".join(ln for ln in out.splitlines()
+                                    if "compute path" in ln))
+            final, step = load_checkpoint(ck)
+            key, n = only_form(f"phase 12c {mesh or 'block'}", counts)
+            check(key[0] == T_PATH and key[8] == 2
+                  and bool(key[5]) == bool(mesh)
+                  and n == (4 if mesh else 1) * step // 2,
+                  f"phase 12c ({mesh or 'block'}): launches {counts} for "
+                  f"{step} steps")
+            runs[mesh] = (d, out, final, step, key, n)
+        d, out, final, n_total, key, n = runs[""]
+        cfg = dataclasses.replace(load_config_dir(d),
+                                  precision=Precision.f32())
+        nx, ny = cfg.basin.nx, cfg.basin.ny
+        check((nx, ny, n_total) == (1525, 1115, 604)
+              and cfg.sw.use_tracers == 1 and cfg.sw.tracer_num == T_PATH,
+              f"phase 12c: {nx} x {ny}, {n_total} steps, tracers "
+              f"{cfg.sw.use_tracers} x {cfg.sw.tracer_num}")
+        n_rec = 1 + -(-n_total // cfg.run.output_every_steps)
+        n_dat = grads_records(d, nx, ny, n_rec)
+        model = OceanModel(cfg, base_dir=d)
+        fm = FusedSWModel(model.grid, cfg, cfg.run.tau, mu_const=0.0,
+                          steps_per_call=2)
+        s, ok = fm.run_steps(fm.pack(model.state), n_total)
+        want = fm.unpack(s, model.state)
+        check(ok and fm.n_tracers == T_PATH, "phase 12c: the hand-driven "
+              "run's guard tripped")
+        for mesh, (_, out_m, got, _, key_m, n_m) in runs.items():
+            for f in fields:
+                check(torch.equal(getattr(got, f), getattr(want, f)),
+                      f"phase 12c ({mesh or 'block'}): {f} differs from "
+                      "FusedSWModel(steps_per_call=2).run_steps by hand")
+            t_step, _ = timer_row(out_m, "model_step")
+            texts.append(f"{'2 x 2 mesh' if mesh else 'block'}: launches="
+                         f"{n_m} of {key_text(key_m)}, model_step "
+                         f"{t_step / n_total * 1e3:.4f} ms/step")
+    print(f"phase 12c entry point (python -m ocean_model_arch_torch "
+          f"examples/05_azov_hires --f32 with '1 : tracers', '{T_PATH} : "
+          f"tracer_num' in sw.par, {nx} x {ny}, {n_total} steps; {card}): "
+          f"compute path 'fused CUDA kernel' (', sharded' with --mesh 2x2); "
+          f"{n_dat} GrADS fields x {n_rec} records finite; the final state "
+          f"({len(fields)} fields, {T_PATH} tracers) of each == "
+          "FusedSWModel(steps_per_call=2).run_steps by hand bit for bit: "
+          "yes; " + " | ".join(texts))
+
+
+def many_tracer_paths(grids, basin, basin_b, prec, wet, pts, card, name,
+                      run, stats) -> dict:
+    """Phase 12b: the paths at full width with ``T_PATH`` tracers and their
+    sub-paths, each 200 steps against the eager composition on its own
+    instantiation, and timed; 2 x 2 shards at ``T_PATH``, chained, == the
+    block bit for bit. ``run`` collects the kernels line's entries.
+    Returns (grid, tracers, steps a launch) -> (model, packed initial
+    fields, timing) of the paths."""
+    from ocean_model_arch_torch.model.fused import FusedSWModel
+    from ocean_model_arch_torch.model.init import init_ocean_state
+    from ocean_model_arch_torch.ops import copy_step as cs
+    from ocean_model_arch_torch.ops.fused_step import fused_sw_step_reference
+    probe = load_probe()
+    paths = (
+        ("main path azov_tracers4 chained", f"azov coastline, {T_PATH} "
+         "tracers, two steps a launch", "azov", basin, T_PATH, 0.0, 2),
+        ("main path azov_tracers4", f"azov coastline, {T_PATH} tracers, "
+         "one step a launch", "azov", basin, T_PATH, 0.0, 1),
+        ("sub-path azov_tracers3 chained", "azov coastline, 3 tracers",
+         "azov", basin, 3, 0.0, 2),
+        ("sub-path azov_visc4 chained", f"15-100 m, mu = {MU:g}, {T_PATH} "
+         "tracers", "azov_hr", basin, T_PATH, MU, 2),
+        ("sub-path bipolar_azov_tracers3 chained", "the coastline on the "
+         "bipolar grid, 3 tracers", "bipolar_azov", basin_b, 3, 0.0, 2))
+    models, texts = {}, []
+    for label, what, gname, b, n_tr, mu, spc in paths:
+        cfg = form_cfg(b, prec, n_tr, 1, 1)
+        fm, _, s0, n, _ = drive_path(f"phase 12b {label} ({what})",
+                                     grids[gname], cfg, None, mu, spc)
+        check(fm.tile_guard and fm.n_tracers == n_tr,
+              f"{label}: guard {fm.tile_guard}, {fm.n_tracers} tracers")
+        form = form_name(fm)
+        t = time_path(fm, cfg, s0, wet[gname], pts)
+        run["launches"][form] = n
+        run["kernels"][form] = (fm, n_tr, t)
+        run["plain_ms"][form] = cuda_ms(
+            lambda: fused_sw_step_reference(s0, *model_args(fm, cfg)), 10)
+        models[gname, n_tr, spc] = (fm, s0, t)
+        texts.append(f"{label} {key_text(form_key(fm))} "
+                     f"{t['text']}; plain version "
+                     f"{run['plain_ms'][form]:.4f} ms/launch")
+
+    # 2 x 2 shards at T_PATH, chained
+    cfg4 = form_cfg(basin, prec, T_PATH, 1, 1)
+    form_r = f"fused_sw_step_raw_chain_tracers{T_PATH}"
+    sh, st = sharded_2x2(f"azov_tracers4 chained ({T_PATH} tracers)",
+                         grids["azov"], cfg4, 0.0, stats, form_r, spc=2,
+                         phase="phase 12b")
+    fs, n = sh["uniform"]
+    check(form_r == "fused_sw_step_raw_" + form_name(fs)[14:],
+          f"the shards ran {form_name(fs)}")
+    t_sh = {c: time_sharded(sh[c][0], st, wet["azov"], pts)
+            for c in ("uniform", "weighted")}
+    run["launches"][form_r] = n
+    run["kernels"][form_r] = (fs, T_PATH, t_sh["uniform"])
+    f_in = fs.pack(st)[0].unbind(0)
+    f_out = tuple(torch.zeros_like(a) for a in f_in)
+    run["plain_ms"][form_r] = cuda_ms(lambda: fused_sw_step_reference(
+        f_in, *shard_args(fs, cfg4, 0, 0), outs=f_out), 10)
+    print(f"phase 12b timing ({name}; {card}), wet points {wet['azov']} of "
+          f"{pts}: " + " | ".join(texts + [f"2 x 2 {c} cuts {t['text']}"
+                                          for c, t in t_sh.items()]))
+    return models
+
+
+def many_tracer_timing(grids, basin, prec, wet, pts, card, name, run,
+                       models) -> None:
+    """Phase 12d: T = 0..4 on the guarded coastline at one step and two
+    chained a launch (the paths of phase 12b where they ran), each kernel
+    beside its byte bound and the copy step of its form, and the path;
+    then T_PAST, whose chained form keeps some tracer levels in device
+    scratch."""
+    from ocean_model_arch_torch.model.fused import FusedSWModel
+    from ocean_model_arch_torch.model.init import init_ocean_state
+    from ocean_model_arch_torch.ops import copy_step as cs
+    from ocean_model_arch_torch.ops.fused_step import chain_smem
+    probe = load_probe()
+    texts = []
+    for n_tr in range(T_PATH + 1):
+        cfg = form_cfg(basin, prec, n_tr, 1, 1)
+        for spc in (1, 2):
+            if ("azov", n_tr, spc) in models:
+                fm, s0, t = models["azov", n_tr, spc]
+            else:
+                fm = FusedSWModel(grids["azov"], cfg, 1.0, steps_per_call=spc)
+                s0 = fm.pack(init_ocean_state(grids["azov"], cfg))
+                t = time_path(fm, cfg, s0, wet["azov"], pts)
+            windows, met = copy_step_inputs(fm, s0)
+            us_copy = probe.kernel_us(lambda: cs.copy_step(
+                windows, met, len(s0), fm.lay, n_tr, fm.tile_wet, fm.tile,
+                fm.visc, spc), N_TIME)
+            b_ms, b_by, nbytes = bound_ms(fm, n_tr)
+            head = (f"kernel {t['ms_kernel'] * 1e3:.1f} us a launch, byte "
+                    f"bound {b_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB, "
+                    f"{b_by}), copy step of its form {us_copy:.1f} us")
+            texts.append(f"T={n_tr}/{spc} step(s) a launch "
+                         f"{key_text(form_key(fm))}: {head}; path "
+                         + t["text"])
+            run["bounds"].append(f"azov T={n_tr} {spc} step(s) a launch: "
+                                 + head)
+    # past the fit: the chained form with levels in device scratch
+    cfg = form_cfg(basin, prec, T_PAST, 1, 1)
+    for spc in (1, 2):
+        fm = FusedSWModel(grids["azov"], cfg, 1.0, steps_per_call=spc)
+        s0 = fm.pack(init_ocean_state(grids["azov"], cfg))
+        us = probe.kernel_us(lambda: fm.run_steps(s0, spc), N_TIME // 4,
+                             "fused_sw_step_kernel")
+        b_ms, _, nbytes = bound_ms(fm, T_PAST)
+        smem, levels = chain_smem(T_PAST)
+        texts.append(f"T={T_PAST}/{spc} step(s) a launch "
+                     f"{key_text(form_key(fm))}: kernel {us:.1f} us a "
+                     f"launch, byte bound {b_ms * 1e3:.1f} us "
+                     f"({nbytes / 1e6:.1f} MB)" + (
+                         "" if spc == 1 else
+                         f", {levels} of {2 * T_PAST} tracer levels in "
+                         f"{smem / 1024:.1f} KB of shared memory"))
+    print(f"phase 12d timing ({name}; {card}), azov coastline, guard on, "
+          f"wet points {wet['azov']} of {pts}: " + " | ".join(texts))
+
+
 def fl_margin(steps: int, fs) -> int:
     from ocean_model_arch_torch.ops import fused_layout as fl
     return fl.margin_for(steps, fs.n_tracers)
@@ -1796,8 +2087,8 @@ def main(argv=()) -> int:
     from ocean_model_arch_torch.model.step import make_step
     from ocean_model_arch_torch.ops import _build, copy_step as cs
     from ocean_model_arch_torch.ops.fused_step import (
-        _library as _fused_library, fused_sw_step, fused_sw_step_reference,
-        library_targets, tile_shape)
+        _library as _fused_library, chain_smem, fused_sw_step,
+        fused_sw_step_reference, library_targets, tile_shape)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1829,18 +2120,26 @@ def main(argv=()) -> int:
           "fused_sw_step_kernel<tracers,guard,plane metrics,mu mode,"
           "bathymetry planes,raw,advection,full free surface,steps>: "
           + ptxas_summary(fused_regs)
-          + "; copy_step_kernel<tracer window,steps>: "
+          + "; copy_step_kernel<tracer window,steps,stacked>: "
           + ptxas_summary(copy_regs) + f"; chained tile "
           f"{tile_shape('cuda', 2)} of {lib2.fused_sw_step_threads()} "
           f"threads, launch bound {lib2.fused_sw_step_min_blocks()} blocks "
-          f"an SM ({chain_regs} registers)")
+          f"an SM ({chain_regs} registers); chained shared memory a block, "
+          "T: KB (tracer levels kept / 2 T; viscous) " + ", ".join(
+              f"{t}: {a / 1024:.1f} ({la}/{2 * t}; {b / 1024:.1f}, "
+              f"{lb}/{2 * t})" for t in range(3, 11)
+              for (a, la), (b, lb) in [(chain_smem(t), chain_smem(t, True))]))
+    # the steps a launch: the fused kernel's last template argument, the
+    # copy kernel's second
     over = [r for r in fused_regs + copy_regs
-            if r[1] > (chain_regs if r[0].endswith(",2>") else MAX_REGS)
+            if r[1] > (chain_regs if r[0].endswith(",2>")
+                       or r in copy_regs and r[0].split(",")[1] == "2"
+                       else MAX_REGS)
             or r[2] != 0]
     check(not over, f"instantiations above {MAX_REGS} registers (one step a "
           f"launch) or {chain_regs} (chained), or with spills: {over}")
     if all(t in _build.BUILDS for t in targets):     # none was cached
-        check(len(fused_regs) == 1024 and len(copy_regs) == 4,
+        check(len(fused_regs) == 1408 and len(copy_regs) == 8,
               f"{len(fused_regs)} fused and {len(copy_regs)} copy-step "
               "instantiations in the build logs")
     check(all(cs.tile_shape("cuda", s) == tile_shape("cuda", s)
@@ -2188,6 +2487,23 @@ def main(argv=()) -> int:
                    "bipolar_azov": (fm_b, t_b), "azov_visc": (fm_v, t_v)})
     launches["copy_step_chain"] = cs.copy_step.launches
 
+    # ---- phase 12: any number of tracers --------------------------------
+    n_many = many_tracer_forms(grids, basin, basin_b, prec, max_abs)
+    print(f"phase 12a kernel vs plain: {n_many} forms of the run-time "
+          f"tracer family (T = {', '.join(map(str, T_LOOP))}; {T_PAST} and, "
+          f"viscous, {T_PAST_VISC} past the chained form's shared-memory "
+          "fit; profile and plane metrics, guard off and on, mu 0 and 1000 "
+          "over flat and 15-100 m bathymetry, the diffusive fluxes alone, "
+          "without advection, with a linear free surface, one step and two "
+          f"chained a launch, raw on 2 x 2 shards) within {TOL_ONE} after 1 "
+          f"launch and {TOL_CARRY} after {N_CARRY} steps; land and all-land "
+          "tiles exactly 0 in all 6 + 2 T fields; guarded == unguarded bit "
+          "for bit")
+    many = many_tracer_paths(grids, basin, basin_b, prec, wet, pts, card,
+                             name, run, max_abs)
+    many_tracer_entry_point(card, name)
+    many_tracer_timing(grids, basin, prec, wet, pts, card, name, run, many)
+
     # ---- phase 7: the copy step ----------------------------------------
     # kernel vs plain version on what each form of the fused step loads:
     # the same float additions in the same order, so exactly equal
@@ -2197,13 +2513,17 @@ def main(argv=()) -> int:
                 ("bipolar_azov T=0 planes", fm_b, s0_b),
                 ("bipolar_azov T=2 planes", fm_bt, s0_bt),
                 ("azov_visc T=2 profile viscous bathymetry", fm_v, s0_v),
-                ("bipolar_azov T=0 planes viscous bathymetry", fm_vc, s0_vc))
+                ("bipolar_azov T=0 planes viscous bathymetry", fm_vc, s0_vc),
+                (f"azov T={T_PATH} profile", *many["azov", T_PATH, 1][:2]),
+                (f"azov T={T_PATH} profile chained",
+                 *many["azov", T_PATH, 2][:2]))
     for tag, m, fields in cs_cases:
         windows, met = copy_step_inputs(m, fields)
         for flags in (None, m.tile_wet):
             got = cs.copy_step(windows, met, len(fields), m.lay,
-                               tracer_form=m.n_tracers > 0, tile_wet=flags,
-                               tile=m.tile, visc_form=m.visc)
+                               tracer_form=m.n_tracers, tile_wet=flags,
+                               tile=m.tile, visc_form=m.visc,
+                               steps=m.steps_per_call)
             want = cs.copy_step_reference(windows, met, len(fields), m.lay,
                                           flags, m.tile)
             torch.cuda.synchronize()
@@ -2232,6 +2552,18 @@ def main(argv=()) -> int:
         N_TIME, forms=((N_TRACERS, False, True, True),
                        (0, True, False, False)))
     launches["copy_step"] = cs.copy_step.launches
+    # K4: the stacked copy step, exactly against its plain version on the
+    # card, and its us/launch against the separate form on the same planes
+    cs.copy_step_stacked.launches = 0
+    k4 = probe.stacked(basin.nx, basin.ny, N_TIME)
+    launches["copy_step_stacked"] = cs.copy_step_stacked.launches
+    check(all(r["equal"] for r in k4) and launches["copy_step_stacked"]
+          == len(k4) * (N_TIME + 2), "the stacked copy step differs from its "
+          f"plain version or launched {launches['copy_step_stacked']} times")
+    stack0 = torch.randn((k4[0]["n_in"], lay.Xs, lay.Ys), device="cuda")
+    met_k4 = torch.randn((k4[0]["n_met"], lay.Ys), device="cuda")
+    plain_ms["copy_step_stacked"] = cuda_ms(lambda: cs.copy_step_reference(
+        stack0.unbind(0), met_k4, k4[0]["n_out"], lay), 20)
     n_forms = len(probe.FORMS) * (1 + len(masks)) + 2 + len(forms_r)
     check(launches["copy_step"] == n_forms * (N_TIME + 1)
           and len(forms) + len(forms_s) + len(forms_r) == n_forms,
@@ -2263,6 +2595,14 @@ def main(argv=()) -> int:
                       f"({r['bound_us']:.2f}, {r['bytes'] / 1e6:.1f} MB)"
                       for r in forms_r)
           + f"; plain version {plain_ms['copy_step']:.4f} ms (T=0 profile)")
+    print(f"phase 7 stacked copy step (K4; {name}; {card}): kernel == plain "
+          "version exactly: yes; us/launch stacked against separate "
+          "(torch.profiler, the same planes; byte bound): " + "; ".join(
+              f"{probe.stacked_name(r)} {r['us_stacked']:.2f} against "
+              f"{r['us_separate']:.2f} "
+              f"({r['us_stacked'] / r['us_separate']:.3f}; "
+              f"{r['bound_us']:.2f}, {r['bytes'] / 1e6:.1f} MB)" for r in k4)
+          + f"; plain version {plain_ms['copy_step_stacked']:.4f} ms (8 -> 6)")
 
     # every timed configuration's byte bound beside the copy step of its
     # own form, guarded by the same mask's flags
@@ -2350,6 +2690,16 @@ def main(argv=()) -> int:
             fm_cc.lay, 0, False, fm_cc.tile_wet.cpu().numpy(), fm_cc.tile)
         / PEAK_BYTES * 1e3,
         "bound_by": "bytes", "library_ms": None})
+    entries.append({
+        "name": "copy_step_stacked", "route": "cuda",
+        "source": CSRC + "copy_step.cu",
+        "replaces": REPLACES["copy_step_stacked"],
+        "launches": launches["copy_step_stacked"],
+        "max_abs_err": max(r["max_abs"] for r in k4),
+        "ms": k4[0]["us_stacked"] / 1e3,
+        "plain_ms": plain_ms["copy_step_stacked"],
+        "bound_ms": k4[0]["bound_us"] / 1e3, "bound_by": "bytes",
+        "library_ms": None})
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,7 @@ from ..core.state import SWState
 from ..host import ModelConfig
 from ..ops import fused_layout as fl
 from ..ops import sw_kernels as swk
-from ..ops.fused_step import (MAX_TRACERS, fused_sw_step, kernel_planes,
-                              tile_shape)
+from ..ops.fused_step import fused_sw_step, kernel_planes, tile_shape
 from .step import reinit_depth_families
 
 CARRIED = ("ssh", "sshp", "ubrtr", "ubrtrp", "vbrtr", "vbrtrp")
@@ -35,12 +34,11 @@ def unsupported(grid: Grid, cfg: ModelConfig, mu_const: float = 0.0,
     The kernel is the TPU kernel's fast form (profile metrics on
     x-uniform grids, its fast2d form with metric planes on the others)
     with or without momentum advection, with a full or a linear free
-    surface, any constant ``mu_const``, flat or varying bathymetry, at
-    most ``MAX_TRACERS`` tracers. The single block has land margins, so
+    surface, any constant ``mu_const``, flat or varying bathymetry, any
+    number of tracers. The single block has land margins, so
     closed boundaries only; ``sharded``: on the margined shards of
     ``FusedSharded2DModel``, whose margin exchange wraps, periodic ones
     too."""
-    sw = cfg.sw
     out = []
     if (grid.periodic_x or grid.periodic_y) and not sharded:
         out.append("periodic boundaries (model/fused_sharded2d.py::"
@@ -48,9 +46,6 @@ def unsupported(grid: Grid, cfg: ModelConfig, mu_const: float = 0.0,
     if not static_rslu:
         out.append("static_rslu=False (the non-fast kernel form; fast2d "
                    "requires static_rslu=True)")
-    n_tr = sw.tracer_num if sw.use_tracers > 0 else 0
-    if n_tr > MAX_TRACERS:
-        out.append(f"tracer_num={n_tr} > {MAX_TRACERS}")
     return out
 
 

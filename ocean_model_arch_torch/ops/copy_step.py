@@ -10,13 +10,19 @@ over the windowed inputs (the carried fields, then the static planes)
 and the metric rows (``(n, Ys)`` profiles or ``(n, Xs, Ys)`` planes),
 summed in that order in float32. The CUDA kernel (``csrc/copy_step.cu``)
 loads what the fused kernel loads, with its tile, its window halo (3, or
-4 with ``tracer_form``), its shared memory (more with ``visc_form``)
-and, with ``tile_wet``, its land-tile guard, so its time is the floor of
-that form of the fused step on this layout; with ``steps = 2`` the
-chained form's tile, window (halo 6, or 8) and shared memory, the floor
-of a launch that runs two model steps. It is a measuring tool: nothing
-on the model's step loop calls it; ``scripts/roofline_probe_torch.py``
-is its entry point.
+4 with tracers: ``tracer_form``, the form's tracer count), its shared
+memory (more with ``visc_form``) and, with ``tile_wet``, its land-tile
+guard, so its time is the floor of that form of the fused step on this
+layout; with ``steps = 2`` the chained form's tile, window (halo 6, or 8)
+and shared memory, the floor of a launch that runs two model steps. It is
+a measuring tool: nothing on the model's step loop calls it;
+``scripts/roofline_probe_torch.py`` is its entry point.
+
+:func:`copy_step_stacked` is the counterpart of
+``scripts/roofline_probe.py::build_copy_step_stacked``: the same sum
+read from ONE (n_in, Xs, Ys) tensor and written to ONE (n_out, Xs, Ys)
+tensor. Its plain version is :func:`copy_step_reference` on the
+unstacked planes.
 
 :func:`copy_step` takes CPU tensors to :func:`copy_step_reference` and
 CUDA tensors to the kernel, which it builds on first use; a kernel that
@@ -65,7 +71,9 @@ def tile_shape(device, steps: int = 1) -> tuple:
 
 
 def _check_inputs(windows, met, n_out, lay, tile_wet, tile,
-                  steps) -> None:
+                  steps, stacked: bool = False) -> None:
+    """``stacked``: the windows are the planes of one tensor, and neither
+    they nor the outputs are bounded in number."""
     dev = windows[0].device
     shapes = [(w, (lay.Xs, lay.Ys)) for w in windows]
     if met is not None:
@@ -85,10 +93,10 @@ def _check_inputs(windows, met, n_out, lay, tile_wet, tile,
     if steps not in (1, 2):
         raise ValueError(f"steps={steps}: 1 or 2 model steps a launch")
     lib = _library()
-    if len(windows) > lib.copy_step_max_windows():
+    if not stacked and len(windows) > lib.copy_step_max_windows():
         raise ValueError(f"at most {lib.copy_step_max_windows()} windowed "
                          f"inputs, got {len(windows)}")
-    if not 0 < n_out <= lib.copy_step_max_outputs():
+    if n_out < 1 or not stacked and n_out > lib.copy_step_max_outputs():
         raise ValueError(f"need 1 to {lib.copy_step_max_outputs()} outputs, "
                          f"got {n_out}")
     if tile_wet is None:
@@ -110,10 +118,11 @@ def copy_step(windows, met, n_out: int, lay: FusedLayout,
     (the (Xs, Ys) fields and static planes) and the metric rows ``met``
     ((n, Ys), (n, Xs, Ys) or None). The plain version for CPU tensors,
     the CUDA kernel for CUDA tensors (counted in ``copy_step.launches``).
-    ``tracer_form`` makes the kernel load the tracer form's wider window
-    and ``visc_form`` take a viscous form's shared memory, ``steps = 2``
-    the chained form's tile, window and shared memory; the result depends
-    on none of them but the tile of ``tile_wet``."""
+    ``tracer_form`` (the fused form's tracer count; True counts 1) makes
+    the kernel load the tracer form's wider window and take that form's
+    shared memory, ``visc_form`` a viscous form's, ``steps = 2`` the
+    chained form's tile, window and shared memory; the result depends on
+    none of them but the tile of ``tile_wet``."""
     if windows[0].device.type == "cpu":
         return copy_step_reference(windows, met, n_out, lay, tile_wet, tile)
     _check_inputs(windows, met, n_out, lay, tile_wet, tile, steps)
@@ -129,7 +138,7 @@ def copy_step(windows, met, n_out: int, lay: FusedLayout,
             0 if met is None else met.shape[0],
             int(met is not None and met.dim() == 3),
             None if tile_wet is None else tile_wet.data_ptr(),
-            int(bool(tracer_form)), int(bool(visc_form)), int(steps),
+            int(tracer_form), int(bool(visc_form)), int(steps),
             lay.Xs, lay.Ys, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError("copy_step kernel launch failed: "
@@ -139,6 +148,45 @@ def copy_step(windows, met, n_out: int, lay: FusedLayout,
 
 
 copy_step.launches = 0
+
+
+def copy_step_stacked(stack: torch.Tensor, met, n_out: int, lay: FusedLayout,
+                      tracer_form: int = 0, tile_wet=None, tile=None,
+                      visc_form: bool = False, steps: int = 1) -> torch.Tensor:
+    """The copy step on ONE stacked (n_in, Xs, Ys) input, into ONE
+    (n_out, Xs, Ys) output: output o is that of :func:`copy_step` on
+    ``stack.unbind(0)``. The plain version for a CPU tensor, the stacked
+    CUDA kernel for a CUDA one (counted in ``copy_step_stacked.launches``);
+    the other arguments are those of :func:`copy_step`."""
+    if (stack.dim() != 3 or tuple(stack.shape[1:]) != (lay.Xs, lay.Ys)
+            or not stack.is_contiguous()):
+        raise ValueError(f"stack: need a contiguous (n, {lay.Xs}, {lay.Ys}) "
+                         f"tensor, got {tuple(stack.shape)}")
+    if stack.device.type == "cpu":
+        return torch.stack(copy_step_reference(stack.unbind(0), met, n_out,
+                                               lay, tile_wet, tile))
+    _check_inputs(stack.unbind(0), met, n_out, lay, tile_wet, tile, steps,
+                  stacked=True)
+    lib = _library()
+    out = torch.empty((n_out, lay.Xs, lay.Ys), dtype=torch.float32,
+                      device=stack.device)
+    with torch.cuda.device(stack.device):
+        rc = lib.copy_step_stacked_launch(
+            stack.data_ptr(), stack.shape[0], out.data_ptr(), n_out,
+            None if met is None else met.data_ptr(),
+            0 if met is None else met.shape[0],
+            int(met is not None and met.dim() == 3),
+            None if tile_wet is None else tile_wet.data_ptr(),
+            int(tracer_form), int(bool(visc_form)), int(steps),
+            lay.Xs, lay.Ys, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError("copy_step stacked kernel launch failed: "
+                           + lib.copy_step_error_string(rc).decode())
+    copy_step_stacked.launches += 1
+    return out
+
+
+copy_step_stacked.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,7 +202,7 @@ def _library() -> ctypes.CDLL:
         fn.restype = i
     lib.copy_step_error_string.argtypes = [i]
     lib.copy_step_error_string.restype = ctypes.c_char_p
-    lib.copy_step_launch.argtypes = [p, i, p, i, p, i, i, p, i, i, i, i, i,
-                                     p]
-    lib.copy_step_launch.restype = i
+    for fn in (lib.copy_step_launch, lib.copy_step_stacked_launch):
+        fn.argtypes = [p, i, p, i, p, i, i, p, i, i, i, i, i, p]
+        fn.restype = i
     return lib

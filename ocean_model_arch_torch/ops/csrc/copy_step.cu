@@ -7,6 +7,10 @@
 //       out_i = (sum over all inputs of the tile's centre cells) + i.
 //   Plain PyTorch version: ops/copy_step.py::copy_step_reference, the same
 //   sum in the same order (float additions only, so the two agree exactly).
+//   And its stacked form: scripts/roofline_probe.py::
+//   build_copy_step_stacked (pallas_call at :103), the same sum read from
+//   ONE (n_in, Xs, Ys) input and written to ONE (n_out, Xs, Ys) output,
+//   which on the TPU isolates the pipeline's cost per window.
 //
 // What bounds it: memory, by construction. Per layout cell it reads n_win
 // windowed f32 planes (the carried fields and the static planes) and n_met
@@ -21,14 +25,18 @@
 // memory (16 windows, plus the four stress planes of a viscous form, so
 // the same blocks fit an SM), one block per tile. With steps = 2 it takes
 // the chained form's tile, threads, window (halo 6, or 8) and shared
-// memory (20 + 2 T windows, plus the wider stress planes) instead.
-// Stage 0 loads the haloed window of every windowed input into shared
-// memory, cells outside the array reading as 0; after the barrier each
-// thread sums the centre cells of its tile from shared memory, adds the
+// memory (20 + 2 T windows as far as they fit, plus the wider stress
+// planes) instead. Stage 0 loads the haloed window of the windowed inputs
+// into shared memory, as many as its planes hold, cells outside the array
+// reading as 0; after the barrier each thread adds the centre cells of
+// its tile to its running sums, in registers; more inputs than planes (a
+// form with more than 2 tracers) load in turns. Then each thread adds the
 // metric rows of its own cell from device memory (a profile by column, a
 // plane by cell, as the fused kernel reads them) and stores the n_out
 // outputs. With per-block wet flags an all-land block writes zeros and
-// returns before it loads anything, as the guarded fused kernel does.
+// returns before it loads anything, as the guarded fused kernel does. The
+// stacked form differs only in its addresses: input j at in + j Xs Ys,
+// output o at out + o Xs Ys, instead of a pointer each.
 
 #include "fused_tile.cuh"
 
@@ -36,25 +44,44 @@ namespace {
 
 using namespace fused_tile;
 
-constexpr int MAX_WIN = N_SMEM_PLANES;   // windowed inputs: one window each
-constexpr int MAX_OUT = 6 + 2 * MAX_TRACERS;
+// windowed inputs and outputs of one launch: enough for the forms of the
+// fused step with up to 21 tracers (6 + 2 T fields and 6 static planes)
+constexpr int MAX_WIN = 48;
+constexpr int MAX_OUT = 48;
 
 struct Params {
   const float* win[MAX_WIN];   // (Xs, Ys) fields, then static planes
   float* out[MAX_OUT];         // (Xs, Ys)
+  const float* in_stack;       // stacked form: (n_win, Xs, Ys)
+  float* out_stack;            // stacked form: (n_out, Xs, Ys)
   const float* met;            // (n_met, Ys) or (n_met, Xs, Ys), or null
   const int* tile_wet;         // one flag per block, or null
   int n_win, n_out, n_met, met2d;
+  int n_chunk;                 // windows shared memory holds at once
   int Xs, Ys;
+  size_t plane;                // Xs * Ys: the stacked form's plane stride
 };
+static_assert(sizeof(Params) <= 4096, "kernel parameters are 4 KB");
 
 __device__ __forceinline__ bool inside(const Params& p, int gx, int gy) {
   return gx >= 0 && gx < p.Xs && gy >= 0 && gy < p.Ys;
 }
 
+// output o at cell g; the stacked form walks its planes with a pointer
+template <bool STACKED>
+__device__ __forceinline__ void store(const Params& p, size_t g, float a) {
+  if constexpr (STACKED) {
+    float* dst = p.out_stack + g;
+    for (int o = 0; o < p.n_out; ++o, dst += p.plane) *dst = a + (float)o;
+  } else {
+    for (int o = 0; o < p.n_out; ++o) p.out[o][g] = a + (float)o;
+  }
+}
+
 // NT selects the window: Form<0> has halo 3, Form<1> halo 4; STEPS = 2
-// the chained form's tile and window (halo 6, 8).
-template <int NT, int STEPS>
+// the chained form's tile and window (halo 6, 8); STACKED the stacked
+// form's addresses.
+template <int NT, int STEPS, bool STACKED>
 __global__ void
 __launch_bounds__(Tile<STEPS>::NTHREADS, Tile<STEPS>::MIN_BLOCKS)
 copy_step_kernel(const Params p) {
@@ -62,6 +89,7 @@ copy_step_kernel(const Params p) {
   constexpr int WY = Form<NT, STEPS>::WY, PLANE = Form<NT, STEPS>::PLANE;
   constexpr int TX = Tile<STEPS>::TX, TY = Tile<STEPS>::TY;
   constexpr int NTHREADS = Tile<STEPS>::NTHREADS;
+  constexpr int CELLS = (TX * TY + NTHREADS - 1) / NTHREADS;  // a thread's
 
   const int tid = threadIdx.x;
   const int tx0 = blockIdx.y * TX, ty0 = blockIdx.x * TY;
@@ -72,7 +100,12 @@ copy_step_kernel(const Params p) {
       const int gx = tx0 + i / TY, gy = ty0 + i % TY;
       if (!inside(p, gx, gy)) continue;
       const size_t g = (size_t)gx * p.Ys + gy;
-      for (int o = 0; o < p.n_out; ++o) p.out[o][g] = 0.f;
+      if constexpr (STACKED) {
+        float* dst = p.out_stack + g;
+        for (int o = 0; o < p.n_out; ++o, dst += p.plane) *dst = 0.f;
+      } else {
+        for (int o = 0; o < p.n_out; ++o) p.out[o][g] = 0.f;
+      }
     }
     return;
   }
@@ -80,46 +113,82 @@ copy_step_kernel(const Params p) {
   extern __shared__ float sm[];
   const int x0 = tx0 - HALO, y0 = ty0 - HALO;
 
-  // stage 0: the haloed window of every windowed input
-  for (int i = tid; i < PLANE; i += NTHREADS) {
-    const int gx = x0 + i / WY, gy = y0 + i % WY;
-    const bool in = inside(p, gx, gy);
-    const size_t g = in ? (size_t)gx * p.Ys + gy : 0;
-#pragma unroll 4
-    for (int j = 0; j < p.n_win; ++j)
-      sm[j * PLANE + i] = in ? p.win[j][g] : 0.f;
-  }
-  __syncthreads();
+  float acc[CELLS];
+#pragma unroll
+  for (int c = 0; c < CELLS; ++c) acc[c] = 0.f;
+  for (int j0 = 0; j0 < p.n_win; j0 += p.n_chunk) {
+    const int nj = min(p.n_chunk, p.n_win - j0);
+    if (j0) __syncthreads();   // every thread has summed the last turn's
 
-  // stage 1: sum the centre cells, add the cell's metrics, store
+    // stage 0: the haloed window of the turn's windowed inputs
+    for (int i = tid; i < PLANE; i += NTHREADS) {
+      const int gx = x0 + i / WY, gy = y0 + i % WY;
+      const bool in = inside(p, gx, gy);
+      const size_t g = in ? (size_t)gx * p.Ys + gy : 0;
+      if constexpr (STACKED) {
+        const float* src = p.in_stack + j0 * p.plane + g;
+#pragma unroll 4
+        for (int j = 0; j < nj; ++j, src += p.plane)
+          sm[j * PLANE + i] = in ? *src : 0.f;
+      } else {
+#pragma unroll 4
+        for (int j = 0; j < nj; ++j)
+          sm[j * PLANE + i] = in ? p.win[j0 + j][g] : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // stage 1: add the centre cells to the running sums
+#pragma unroll
+    for (int c = 0; c < CELLS; ++c) {
+      const int i = tid + c * NTHREADS;
+      if (i >= TX * TY) break;
+      const int k = (HALO + i / TY) * WY + HALO + i % TY;
+      for (int j = 0; j < nj; ++j) acc[c] += sm[j * PLANE + k];
+    }
+  }
+
+  // stage 2: add the cell's metrics, store
   const size_t plane = (size_t)p.Xs * p.Ys;
-  for (int i = tid; i < TX * TY; i += NTHREADS) {
-    const int a = HALO + i / TY, b = HALO + i % TY;
-    const int k = a * WY + b, gx = x0 + a, gy = y0 + b;
+#pragma unroll
+  for (int c = 0; c < CELLS; ++c) {
+    const int i = tid + c * NTHREADS;
+    if (i >= TX * TY) break;
+    const int gx = tx0 + i / TY, gy = ty0 + i % TY;
     if (!inside(p, gx, gy)) continue;
     const size_t g = (size_t)gx * p.Ys + gy;
-    float acc = 0.f;
-    for (int j = 0; j < p.n_win; ++j) acc += sm[j * PLANE + k];
+    float a = acc[c];
     for (int r = 0; r < p.n_met; ++r)
-      acc += p.met2d ? p.met[r * plane + g] : p.met[(size_t)r * p.Ys + gy];
-    for (int o = 0; o < p.n_out; ++o) p.out[o][g] = acc + (float)o;
+      a += p.met2d ? p.met[r * plane + g] : p.met[(size_t)r * p.Ys + gy];
+    store<STACKED>(p, g, a);
   }
 }
 
-template <int NT, int STEPS>
-int launch(const Params& p, bool visc, cudaStream_t stream) {
-  // a viscous form's block also holds its stress planes (unused here)
+template <int NT, int STEPS, bool STACKED>
+int launch(Params& p, int n_tr, bool visc, cudaStream_t stream) {
+  // the fused form's shared memory: a viscous form's block also holds its
+  // stress planes, unused here but for the turns' windows
   using T = Tile<STEPS>;
-  const size_t smem = smem_bytes<NT, STEPS>(visc);
+  int levels = 0;
+  const size_t smem = form_smem_bytes<STEPS>(n_tr, visc, &levels);
+  p.n_chunk = (int)(smem / (sizeof(float) * Form<NT, STEPS>::PLANE));
   cudaError_t e = cudaFuncSetAttribute(
-      copy_step_kernel<NT, STEPS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes<NT, STEPS>(true));
+      copy_step_kernel<NT, STEPS, STACKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  copy_step_kernel<NT, STEPS>
+  copy_step_kernel<NT, STEPS, STACKED>
       <<<dim3((p.Ys + T::TY - 1) / T::TY, (p.Xs + T::TX - 1) / T::TX),
          T::NTHREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <bool STACKED>
+int launch_form(Params& p, int n_tr, bool visc, int steps, cudaStream_t s) {
+  if (steps == 2)
+    return n_tr ? launch<1, 2, STACKED>(p, n_tr, visc, s)
+                : launch<0, 2, STACKED>(p, n_tr, visc, s);
+  return n_tr ? launch<1, 1, STACKED>(p, n_tr, visc, s)
+              : launch<0, 1, STACKED>(p, n_tr, visc, s);
 }
 
 }  // namespace
@@ -149,27 +218,41 @@ const char* copy_step_error_string(int code) {
 // launched). win / out: host arrays of n_win / n_out device pointers to
 // (Xs, Ys) planes. met: n_met metric rows, (n_met, Xs, Ys) planes when
 // met2d != 0, else (n_met, Ys) profiles; unread when n_met = 0. tile_wet:
-// device array of one int per block, or null. tracer_form: load the
-// tracer form's window (halo 4) instead of halo 3. visc_form: take the
-// shared memory of a viscous form of the fused step. steps: 2 takes the
+// device array of one int per block, or null. n_tracers: the tracer count
+// of the fused form whose window (halo 4 with tracers, else 3) and shared
+// memory to take; visc_form: that of its viscous form. steps: 2 takes the
 // chained form's tile, window and shared memory.
 int copy_step_launch(const float* const* win, int n_win,
                      float* const* out, int n_out, const float* met,
                      int n_met, int met2d, const int* tile_wet,
-                     int tracer_form, int visc_form, int steps, int Xs,
+                     int n_tracers, int visc_form, int steps, int Xs,
                      int Ys, void* stream) {
   if (n_win < 0 || n_win > MAX_WIN || n_out < 1 || n_out > MAX_OUT
-      || n_met < 0 || (n_met > 0 && met == nullptr)
+      || n_met < 0 || (n_met > 0 && met == nullptr) || n_tracers < 0
       || (steps != 1 && steps != 2))
     return (int)cudaErrorInvalidValue;
-  Params p{{}, {}, met, tile_wet, n_win, n_out, n_met, met2d, Xs, Ys};
+  Params p{{}, {}, nullptr, nullptr, met, tile_wet, n_win, n_out, n_met,
+           met2d, 0, Xs, Ys, (size_t)Xs * Ys};
   for (int j = 0; j < n_win; ++j) p.win[j] = win[j];
   for (int o = 0; o < n_out; ++o) p.out[o] = out[o];
-  cudaStream_t s = (cudaStream_t)stream;
-  const bool visc = visc_form != 0;
-  if (steps == 2)
-    return tracer_form ? launch<1, 2>(p, visc, s) : launch<0, 2>(p, visc, s);
-  return tracer_form ? launch<1, 1>(p, visc, s) : launch<0, 1>(p, visc, s);
+  return launch_form<false>(p, n_tracers, visc_form != 0, steps,
+                            (cudaStream_t)stream);
+}
+
+// The stacked form: in, (n_win, Xs, Ys); out, (n_out, Xs, Ys); the other
+// arguments as copy_step_launch's.
+int copy_step_stacked_launch(const float* in, int n_win, float* out,
+                             int n_out, const float* met, int n_met,
+                             int met2d, const int* tile_wet, int n_tracers,
+                             int visc_form, int steps, int Xs, int Ys,
+                             void* stream) {
+  if (n_win < 0 || n_out < 1 || n_met < 0 || (n_met > 0 && met == nullptr)
+      || n_tracers < 0 || (steps != 1 && steps != 2))
+    return (int)cudaErrorInvalidValue;
+  Params p{{}, {}, in, out, met, tile_wet, n_win, n_out, n_met, met2d, 0,
+           Xs, Ys, (size_t)Xs * Ys};
+  return launch_form<true>(p, n_tracers, visc_form != 0, steps,
+                           (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -26,7 +26,8 @@
 //
 // One kernel template,
 // fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS>,
-// instantiated for NT = 0, 1, 2 tracers, with and without the guard, with
+// instantiated for NT = 0, 1, 2 tracers and NT = TLOOP, any count from 3
+// up known at run time, with and without the guard, with
 // profile or plane metrics, MU = 0 (mu = 0), 1 (the tracers' diffusive
 // fluxes only: mu != 0 with the viscosity switched off) or 2 (viscosity,
 // and the diffusive fluxes when there are tracers), with the rest
@@ -154,12 +155,30 @@
 // its tile and what fits an SM). The guard is unchanged: an all-land tile
 // writes zeros and returns.
 //
+// Any number of tracers (NT = TLOOP, the TPU kernel's loop over
+// n_tracers): the tracer pass (stages 4 and 5) runs in groups of
+// MAX_TRACERS through the same four flux planes, a barrier between
+// groups, so a block of one step a launch takes the shared memory of the
+// 2-tracer form at any count (61.4 KB, 73.0 KB viscous: three blocks an
+// SM). The first group keeps the transports and diffusive weights, which
+// every tracer shares, in four planes dead since stage 3; the later
+// groups read them. The 4 T tracer pointers are a device array the
+// launcher fills in stream order (any count, no bound in the kernel's
+// parameters). A chained launch keeps as many of step A's 2 T tracer
+// levels as fit in shared memory (every level up to T = 8, 7 viscous, at
+// the H100's 227 KB) and the others in a device scratch of window planes
+// of the block's own, which it writes in step A and reads back in step B:
+// no other block touches them, so no grid-wide sync. What bounds it:
+// memory, as above, 16 bytes a cell for each tracer; the levels in
+// scratch add their write and read, mostly from L2.
+//
 // With -DFUSED_NT=n only the forms with n tracers are compiled, with
 // -DFUSED_RAW_NT=n only their raw forms; -DFUSED_TRANS=0 and
 // -DFUSED_FFS=0 pick the forms without advection and with a linear free
-// surface (both default to 1), -DFUSED_STEPS=2 the chained forms. The
-// package builds each (tracers, raw, TRANS, FFS, STEPS) as a library of
-// its own, 48 side by side.
+// surface (both default to 1), -DFUSED_STEPS=2 the chained forms;
+// -DFUSED_NT=3 (-DFUSED_RAW_NT=3) builds the TLOOP forms. The package
+// builds each (tracers 0, 1, 2 or 3 and more, raw, TRANS, FFS, STEPS) as a
+// library of its own, 64 side by side.
 
 #include "fused_tile.cuh"
 
@@ -191,14 +210,15 @@ enum {
   // a chained launch: step A's outputs that step B reads (u and v stay in
   // S_U and S_V)
   E_SSH = N_SMEM, E_SSHP, E_UP, E_VP,
-  E_TR                       // ff_0, ffp_0, ff_1, ffp_1
+  E_TR                       // ff_0, ffp_0, ff_1, ffp_1, ... (chain_level)
 };
 // What the tracer stages keep in planes that are dead by then:
 //   S_AQ <- aq_new (post-step depth column; aq is last read in stage 2)
 //   S_CX, S_CY <- un, vn (each thread overwrites the centre term it read)
 //   S_HU <- sshp_new of the tile's cells (hu is read by its own thread)
-//   tracer t's edge fluxes fx, fy <- S_F + 2 t, S_F + 2 t + 1
+//   tracer t of a group: its edge fluxes fx, fy <- S_F + 2 t, S_F + 2 t + 1
 //   (F, K, Rx, Sy are last read in stage 3)
+//   TLOOP: uh, vh, kx, ky <- S_HV, S_UD, S_VD, S_AQP (last read in stage 3)
 // What the viscous forms keep, between stage 1 and the stress stage, in
 // planes the flux stage (2) has not written yet:
 //   S_F <- up/dyh, S_K <- vp/dxh, S_RX <- up/dxt, S_SY <- vp/dyt
@@ -240,6 +260,13 @@ struct Params {
   float* blockmax;       // one max |ssh| per block
   const float* tr[2 * MAX_TRACERS];   // ff_0, ffp_0, ff_1, ffp_1
   float* tr_o[2 * MAX_TRACERS];
+  // TLOOP forms: n_tr tracers, whose 4 n_tr pointers (the 2 n_tr levels
+  // in, then out) are a device array; a chained launch keeps n_lev_sm of
+  // step A's levels in shared memory and the others in `scratch`, (2 n_tr
+  // - n_lev_sm) window planes a block
+  float* const* trp;
+  float* scratch;
+  int n_tr, n_lev_sm;
   const int* tile_wet;   // one flag per block (guarded forms), else null
   int Xs, Ys, nx, ny, margin;
   float hr;              // flat rest bathymetry
@@ -269,6 +296,31 @@ __device__ __forceinline__ float at(const Params& p, const float* f,
   return inside(p, gx, gy) ? f[(size_t)gx * p.Ys + gy] : 0.f;
 }
 
+// tracer level l (ff_0, ffp_0, ff_1, ...) in and out
+template <int NT>
+__device__ __forceinline__ const float* tr_in(const Params& p, int l) {
+  if constexpr (NT >= 0) return p.tr[l];
+  else return p.trp[l];
+}
+
+template <int NT>
+__device__ __forceinline__ float* tr_out(const Params& p, int l) {
+  if constexpr (NT >= 0) return p.tr_o[l];
+  else return p.trp[2 * p.n_tr + l];
+}
+
+// step A's tracer level l in a chained launch: a plane of the window in
+// shared memory from E_TR on, or, for a TLOOP form's levels beyond
+// n_lev_sm, the block's own planes of the device scratch
+template <int NT, int PLANE>
+__device__ __forceinline__ float* chain_level(const Params& p, float* e_tr,
+                                              int l) {
+  if (NT >= 0 || l < p.n_lev_sm) return e_tr + l * PLANE;
+  const size_t block = blockIdx.y * gridDim.x + blockIdx.x;
+  return p.scratch + (block * (2 * p.n_tr - p.n_lev_sm) + (l - p.n_lev_sm))
+      * PLANE;
+}
+
 // One model step of a launch that chains STEPS of them. Step STEP
 // (0-based) computes its outputs on the region OH = HALO * (STEPS - 1 -
 // STEP) cells beyond the tile, and every stage's region is that many cells
@@ -288,7 +340,8 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
   constexpr int NTHREADS = Tile<STEPS>::NTHREADS;
   constexpr int WY = Fm::WY, PLANE = Fm::PLANE;
   constexpr bool VISC = MU == 2;            // stress stages
-  constexpr bool DIFF = NT > 0 && MU != 0;  // tracers' diffusive fluxes
+  constexpr bool DIFF = NT != 0 && MU != 0; // tracers' diffusive fluxes
+  constexpr bool LOOP = NT < 0;             // a run-time tracer count
   constexpr bool FIRST = STEP == 0, LAST = STEP == STEPS - 1;
   constexpr int OH = HALO * (STEPS - 1 - STEP);   // this step's output halo
   // this step's stress region: its halo, columns and cells
@@ -311,16 +364,20 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
   float* s_sy = sm + S_SY * PLANE;
   float* s_cx = sm + S_CX * PLANE;
   float* s_cy = sm + S_CY * PLANE;
-  float* s_a2 = sm + Fm::N_PLANES * PLANE + V_A2 * Fm::VPLANE;   // viscous
-  float* s_b2 = sm + Fm::N_PLANES * PLANE + V_B2 * Fm::VPLANE;   // forms only
-  float* s_d2 = sm + Fm::N_PLANES * PLANE + V_D2 * Fm::VPLANE;
-  float* s_e2 = sm + Fm::N_PLANES * PLANE + V_E2 * Fm::VPLANE;
+  // the viscous forms' stress planes follow the window planes, the
+  // chained forms' tracer levels among them
+  const int n_win = LOOP && STEPS > 1 ? Fm::N_BASE + p.n_lev_sm
+                                      : Fm::N_PLANES;
+  float* s_a2 = sm + n_win * PLANE + V_A2 * Fm::VPLANE;   // viscous
+  float* s_b2 = sm + n_win * PLANE + V_B2 * Fm::VPLANE;   // forms only
+  float* s_d2 = sm + n_win * PLANE + V_D2 * Fm::VPLANE;
+  float* s_e2 = sm + n_win * PLANE + V_E2 * Fm::VPLANE;
   // step A's outputs in a chained launch
   float* e_ssh = sm + E_SSH * PLANE;
   float* e_sshp = sm + E_SSHP * PLANE;
   float* e_up = sm + E_UP * PLANE;
   float* e_vp = sm + E_VP * PLANE;
-  float* e_tr = sm + E_TR * PLANE;          // tracer level t at t * PLANE
+  float* e_tr = sm + E_TR * PLANE;          // see chain_level
 
   const int x0 = blockIdx.y * TX - WH;     // global row of window row 0
   const int y0 = blockIdx.x * TY - WH;     // global column of window col 0
@@ -608,101 +665,137 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
   }
 
   if (NT) {
-    __syncthreads();
-
-    // stage 4 (halo 1): post-step depths hun, hvn from aq_new, the
-    // transports uh = u_new * hun, vh = v_new * hvn on the u / v wet
-    // sets, and each tracer's centred advective edge fluxes, plus the
-    // diffusive ones mu / dxt * hun * dff/dx when mu != 0
+    // The tracers in groups of G (all NT of a fixed count, MAX_TRACERS of
+    // a run-time one): stages 4 and 5 per group, tracer t of a group
+    // keeping its edge fluxes in S_F + 2 t and S_F + 2 t + 1 (F, K, Rx, Sy
+    // are last read in stage 3). The transports uh, vh and the diffusive
+    // weights kx, ky are the same for every tracer: a run-time count's
+    // first group keeps them in S_HV, S_UD, S_VD, S_AQP (last read in
+    // stage 3) for the later groups.
+    constexpr int G = LOOP ? MAX_TRACERS : NT;
+    const int ntr = LOOP ? p.n_tr : NT;
     float* s_aqn = s_aq;
     float* s_un = s_cx;
     float* s_vn = s_cy;
-    {
-      constexpr int h = OH + 1, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    float* s_uh = s_hv;
+    float* s_vh = s_ud;
+    float* s_kx = s_vd;
+    float* s_ky = s_aqp;
+    const float* s_sshp_new = LAST ? s_hu : e_sshp;
+    for (int t0 = 0; t0 < ntr; t0 += G) {
+      const int ng = LOOP ? min(G, ntr - t0) : G;   // tracers of the group
+      __syncthreads();
+
+      // stage 4 (halo 1): post-step depths hun, hvn from aq_new, the
+      // transports uh = u_new * hun, vh = v_new * hvn on the u / v wet
+      // sets, and each tracer's centred advective edge fluxes, plus the
+      // diffusive ones mu / dxt * hun * dff/dx when mu != 0
+      {
+        constexpr int h = OH + 1, w = TY + 2 * h, n = (TX + 2 * h) * w;
+        for (int i = tid; i < n; i += NTHREADS) {
+          const int a = WH - h + i / w, b = WH - h + i % w;
+          const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+          float uh, vh, kx = 0.f, ky = 0.f;  // kx, ky: mu / dxt * hun, ...
+          if (!LOOP || t0 == 0) {
+            const float aqn = s_aqn[k];
+            const float hun = (aqn + s_aqn[k + S]) * at(p, rslu_u, gx, gy);
+            const float hvn = (aqn + s_aqn[k + W]) * at(p, rslu_v, gx, gy);
+            const bool wlu = s_ld[k] > 0.5f;
+            const bool wlcu = wlu && s_ld[k + S] > 0.5f;
+            const bool wlcv = wlu && s_ld[k + W] > 0.5f;
+            uh = wlcu ? s_un[k] * hun : 0.f;
+            vh = wlcv ? s_vn[k] * hvn : 0.f;
+            if (DIFF && inside(p, gx, gy)) {
+              const size_t mi = MET2D ? (size_t)gx * p.Ys + gy : (size_t)gy;
+              kx = (p.mu * p.met[M_RDXT][mi]) * (wlcu ? hun : 0.f);
+              ky = (p.mu * p.met[M_RDYT][mi]) * (wlcv ? hvn : 0.f);
+            }
+            if (LOOP) {
+              s_uh[k] = uh; s_vh[k] = vh;
+              if (DIFF) { s_kx[k] = kx; s_ky[k] = ky; }
+            }
+          } else {
+            uh = s_uh[k]; vh = s_vh[k];
+            if (DIFF) { kx = s_kx[k]; ky = s_ky[k]; }
+          }
+#pragma unroll
+          for (int t = 0; t < G; ++t) {
+            if (LOOP && t >= ng) break;
+            const int l = 2 * (t0 + t);
+            float ff, ffx, ffy;
+            if (FIRST) {
+              const float* ffg = tr_in<NT>(p, l);
+              ff = at(p, ffg, gx, gy);
+              ffx = at(p, ffg, gx + 1, gy);
+              ffy = at(p, ffg, gx, gy + 1);
+            } else {
+              const float* e = chain_level<NT, PLANE>(p, e_tr, l);
+              ff = e[k]; ffx = e[k + S]; ffy = e[k + W];
+            }
+            float fx = uh * ((ff + ffx) * -0.5f);
+            float fy = vh * ((ff + ffy) * -0.5f);
+            if (DIFF) { fx += kx * (ffx - ff); fy += ky * (ffy - ff); }
+            sm[(S_F + 2 * t) * PLANE + k] = fx;
+            sm[(S_F + 2 * t + 1) * PLANE + k] = fy;
+          }
+        }
+      }
+      __syncthreads();
+
+      // stage 5 (halo 0): leapfrog update from the flux divergence,
+      // rotation + Robert-Asselin filter, the group's 2 ng tracer outputs
+      constexpr int h = OH, w = TY + 2 * h, n = (TX + 2 * h) * w;
       for (int i = tid; i < n; i += NTHREADS) {
         const int a = WH - h + i / w, b = WH - h + i % w;
         const int k = a * S + b, gx = x0 + a, gy = y0 + b;
-        const float aqn = s_aqn[k];
-        const float hun = (aqn + s_aqn[k + S]) * at(p, rslu_u, gx, gy);
-        const float hvn = (aqn + s_aqn[k + W]) * at(p, rslu_v, gx, gy);
-        const bool wlu = s_ld[k] > 0.5f;
-        const bool wlcu = wlu && s_ld[k + S] > 0.5f;
-        const bool wlcv = wlu && s_ld[k + W] > 0.5f;
-        const float uh = wlcu ? s_un[k] * hun : 0.f;
-        const float vh = wlcv ? s_vn[k] * hvn : 0.f;
-        float kx = 0.f, ky = 0.f;    // mu / dxt * hun, mu / dyt * hvn
-        if (DIFF && inside(p, gx, gy)) {
-          const size_t mi = MET2D ? (size_t)gx * p.Ys + gy : (size_t)gy;
-          kx = (p.mu * p.met[M_RDXT][mi]) * (wlcu ? hun : 0.f);
-          ky = (p.mu * p.met[M_RDYT][mi]) * (wlcv ? hvn : 0.f);
-        }
+        if (!inside(p, gx, gy)) {
+          if (!LAST) {
 #pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          float ff, ffx, ffy;
-          if (FIRST) {
-            const float* ffg = p.tr[2 * t];
-            ff = at(p, ffg, gx, gy);
-            ffx = at(p, ffg, gx + 1, gy);
-            ffy = at(p, ffg, gx, gy + 1);
-          } else {
-            const float* e = e_tr + 2 * t * PLANE;
-            ff = e[k]; ffx = e[k + S]; ffy = e[k + W];
+            for (int t = 0; t < 2 * G; ++t) {
+              if (LOOP && t >= 2 * ng) break;
+              chain_level<NT, PLANE>(p, e_tr, 2 * t0 + t)[k] = 0.f;
+            }
           }
-          float fx = uh * ((ff + ffx) * -0.5f);
-          float fy = vh * ((ff + ffy) * -0.5f);
-          if (DIFF) { fx += kx * (ffx - ff); fy += ky * (ffy - ff); }
-          sm[(S_F + 2 * t) * PLANE + k] = fx;
-          sm[(S_F + 2 * t + 1) * PLANE + k] = fy;
+          continue;
         }
-      }
-    }
-    __syncthreads();
-
-    // stage 5 (halo 0): leapfrog update from the flux divergence,
-    // rotation + Robert-Asselin filter, the 2 NT tracer outputs
-    const float* s_sshp_new = LAST ? s_hu : e_sshp;
-    constexpr int h = OH, w = TY + 2 * h, n = (TX + 2 * h) * w;
-    for (int i = tid; i < n; i += NTHREADS) {
-      const int a = WH - h + i / w, b = WH - h + i % w;
-      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
-      if (!inside(p, gx, gy)) {
-        if (!LAST) {
+        if (LAST && RAW && !in_box(p, gx, gy)) continue;
+        const size_t g = (size_t)gx * p.Ys + gy;
+        const bool wlu = s_ld[k] > 0.5f;
+        // bp = hhq_n*area, bp0 = hhq_p*area with hhq_n = hr,
+        // hhq_p = hr + sshp_new (hr with a linear free surface),
+        // area = dx*dy / (2 tau)
+        const size_t mi = MET2D ? g : (size_t)gy;
+        const float area = (p.met[M_DX][mi] * p.met[M_DY][mi])
+            * p.inv_two_tau;
+        const float hr = HRP ? p.hrp[g] : p.hr;
+        const float bp = hr * area;
+        const float bp0 = FFS ? (hr + s_sshp_new[k]) * area : bp;
 #pragma unroll
-          for (int t = 0; t < 2 * NT; ++t) e_tr[t * PLANE + k] = 0.f;
-        }
-        continue;
-      }
-      if (LAST && RAW && !in_box(p, gx, gy)) continue;
-      const size_t g = (size_t)gx * p.Ys + gy;
-      const bool wlu = s_ld[k] > 0.5f;
-      // bp = hhq_n*area, bp0 = hhq_p*area with hhq_n = hr,
-      // hhq_p = hr + sshp_new (hr with a linear free surface),
-      // area = dx*dy / (2 tau)
-      const size_t mi = MET2D ? g : (size_t)gy;
-      const float area = (p.met[M_DX][mi] * p.met[M_DY][mi]) * p.inv_two_tau;
-      const float hr = HRP ? p.hrp[g] : p.hr;
-      const float bp = hr * area;
-      const float bp0 = FFS ? (hr + s_sshp_new[k]) * area : bp;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const float* fx = sm + (S_F + 2 * t) * PLANE;
-        const float* fy = sm + (S_F + 2 * t + 1) * PLANE;
-        const float ff = FIRST ? p.tr[2 * t][g] : e_tr[2 * t * PLANE + k];
-        const float ffp = FIRST ? p.tr[2 * t + 1][g]
-                                : e_tr[(2 * t + 1) * PLANE + k];
-        float ffn = 0.f;
-        if (wlu) {
-          const float rhs = ((fx[k] - fx[k - S]) + fy[k]) - fy[k - W];
-          ffn = (bp0 * ffp + rhs) / bp;
-        }
-        const float ff_new = wlu ? ffn : ff;
-        const float ffp_new = wlu ? p.ts1 * ff + p.ts2 * (ffn + ffp) : ffp;
-        if (LAST) {
-          p.tr_o[2 * t][g] = ff_new;
-          p.tr_o[2 * t + 1][g] = ffp_new;
-        } else {
-          e_tr[2 * t * PLANE + k] = ff_new;
-          e_tr[(2 * t + 1) * PLANE + k] = ffp_new;
+        for (int t = 0; t < G; ++t) {
+          if (LOOP && t >= ng) break;
+          const int l = 2 * (t0 + t);
+          const float* fx = sm + (S_F + 2 * t) * PLANE;
+          const float* fy = sm + (S_F + 2 * t + 1) * PLANE;
+          float* e0 = FIRST && LAST ? nullptr
+                                    : chain_level<NT, PLANE>(p, e_tr, l);
+          float* e1 = FIRST && LAST ? nullptr
+                                    : chain_level<NT, PLANE>(p, e_tr, l + 1);
+          const float ff = FIRST ? tr_in<NT>(p, l)[g] : e0[k];
+          const float ffp = FIRST ? tr_in<NT>(p, l + 1)[g] : e1[k];
+          float ffn = 0.f;
+          if (wlu) {
+            const float rhs = ((fx[k] - fx[k - S]) + fy[k]) - fy[k - W];
+            ffn = (bp0 * ffp + rhs) / bp;
+          }
+          const float ff_new = wlu ? ffn : ff;
+          const float ffp_new = wlu ? p.ts1 * ff + p.ts2 * (ffn + ffp) : ffp;
+          if (LAST) {
+            tr_out<NT>(p, l)[g] = ff_new;
+            tr_out<NT>(p, l + 1)[g] = ffp_new;
+          } else {
+            e0[k] = ff_new;
+            e1[k] = ffp_new;
+          }
         }
       }
     }
@@ -734,8 +827,12 @@ fused_sw_step_kernel(const Params p) {
         p.ssh_o[g] = 0.f; p.sshp_o[g] = 0.f;
         p.u_o[g] = 0.f; p.up_o[g] = 0.f;
         p.v_o[g] = 0.f; p.vp_o[g] = 0.f;
+        if constexpr (NT >= 0) {
 #pragma unroll
-        for (int t = 0; t < 2 * NT; ++t) p.tr_o[t][g] = 0.f;
+          for (int t = 0; t < 2 * NT; ++t) p.tr_o[t][g] = 0.f;
+        } else {
+          for (int t = 0; t < 2 * p.n_tr; ++t) tr_out<NT>(p, t)[g] = 0.f;
+        }
       }
       if (tid == 0) p.blockmax[bid] = 0.f;
       return;
@@ -780,7 +877,10 @@ using TILE = Tile<STEPS_BUILD>;
 
 template <int NT, bool GUARD, bool MET2D, int MU, bool HRP>
 int launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<NT, STEPS_BUILD>(MU == 2);
+  // a chained TLOOP form's tracer levels in shared memory on top
+  const size_t smem = smem_bytes<NT, STEPS_BUILD>(MU == 2)
+      + sizeof(float) * Form<NT, STEPS_BUILD>::PLANE
+        * (NT < 0 ? p.n_lev_sm : 0);
   cudaError_t e = cudaFuncSetAttribute(
       fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD, TRANS_BUILD,
                            FFS_BUILD, STEPS_BUILD>,
@@ -802,7 +902,7 @@ int launch_mu(const Params& p, int mu_mode, cudaStream_t s) {
       return hrp ? launch<NT, GUARD, MET2D, 0, true>(p, s)
                  : launch<NT, GUARD, MET2D, 0, false>(p, s);
     case 1:
-      if constexpr (NT > 0)
+      if constexpr (NT != 0)
         return hrp ? launch<NT, GUARD, MET2D, 1, true>(p, s)
                    : launch<NT, GUARD, MET2D, 1, false>(p, s);
       return (int)cudaErrorInvalidValue;
@@ -842,8 +942,9 @@ int fused_sw_step_min_blocks() { return TILE::MIN_BLOCKS; }
 // How many metric rows fused_sw_step_launch takes slots for.
 int fused_sw_step_n_met() { return N_MET; }
 
-// The tracer count this library was built for (-DFUSED_NT, -DFUSED_RAW_NT),
-// or -1 for all.
+// The tracer count this library was built for (-DFUSED_NT, -DFUSED_RAW_NT;
+// 3 builds the TLOOP forms, which take any count from 3 up), or -1 for
+// all.
 int fused_sw_step_built_for() {
 #ifdef FUSED_NT
   return FUSED_NT;
@@ -870,9 +971,36 @@ const char* fused_sw_step_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// Of a launch of this library's forms with n_tracers tracers (viscous if
+// visc != 0) on the current device: the dynamic shared memory of a block
+// in bytes, and in *levels how many of step A's 2 n_tracers tracer levels
+// a chained block keeps there (all of them but in a chained TLOOP form
+// past the fit; 0 for one step a launch).
+long long fused_sw_step_smem_bytes(int n_tracers, int visc, int* levels) {
+  return (long long)form_smem_bytes<STEPS_BUILD>(n_tracers, visc != 0,
+                                                 levels);
+}
+
+// The floats of device scratch a launch needs (fused_sw_step_launch's
+// `scratch`): the chained TLOOP form's tracer levels that shared memory
+// does not hold, a window plane each for every block; 0 for the others.
+long long fused_sw_step_scratch_floats(int n_tracers, int visc, int Xs,
+                                       int Ys) {
+  int levels = 0;
+  fused_sw_step_smem_bytes(n_tracers, visc, &levels);
+  if (STEPS_BUILD == 1 || n_tracers <= MAX_TRACERS) return 0;
+  const long long blocks = (long long)((Xs + TILE::TX - 1) / TILE::TX)
+      * ((Ys + TILE::TY - 1) / TILE::TY);
+  return blocks * (2 * n_tracers - levels) * Form<TLOOP, STEPS_BUILD>::PLANE;
+}
+
 // Launches one step on `stream`; returns cudaGetLastError() (0 = launched).
 // tr_in / tr_out: host arrays of 2 * n_tracers device pointers (ff_0,
-// ffp_0, ff_1, ...), unread when n_tracers = 0. tile_wet: device array of
+// ffp_0, ff_1, ...), unread when n_tracers = 0. Above 2 tracers (the
+// TLOOP forms) they are copied, stream-ordered, into tr_table, a device
+// array of 4 * n_tracers pointers, which the kernel reads; scratch:
+// fused_sw_step_scratch_floats() floats of device memory (null when that
+// is 0). tile_wet: device array of
 // one int per block, or null for the unguarded form. met: (rows, Ys)
 // profiles when met2d = 0, (rows, Xs, Ys) planes otherwise; met_slots: host
 // array of fused_sw_step_n_met() ints, the row of `met` that holds each
@@ -894,13 +1022,14 @@ int fused_sw_step_launch(
     const float* v, const float* vp, const float* met, const float* planes,
     float* ssh_o, float* sshp_o, float* u_o, float* up_o, float* v_o,
     float* vp_o, float* blockmax, const float* const* tr_in,
-    float* const* tr_out, const int* tile_wet, const int* met_slots,
+    float* const* tr_out, void* tr_table, float* scratch,
+    const int* tile_wet, const int* met_slots,
     int met2d, int n_tracers, int n_planes, int visc, int raw, int trans,
     int ffs, int steps, int Xs, int Ys, int nx, int ny, int margin,
     float hr, float mu,
     float neg_g, float two_tau, float neg_two_tau, float inv_two_tau,
     float ts1, float ts2, void* stream) {
-  if (n_tracers < 0 || n_tracers > MAX_TRACERS || n_planes < 4
+  if (n_tracers < 0 || n_planes < 4
       || n_planes > 6 || (raw != 0) != RAW_BUILD
       || (trans != 0) != TRANS_BUILD || (ffs != 0) != FFS_BUILD
       || steps != STEPS_BUILD)
@@ -914,8 +1043,9 @@ int fused_sw_step_launch(
            n_planes > 4 ? planes + 4 * plane : nullptr,
            n_planes > 5 ? planes + 5 * plane : nullptr,
            ssh_o, sshp_o, u_o, up_o, v_o, vp_o, blockmax,
-           {}, {}, tile_wet, Xs, Ys, nx, ny, margin, hr, mu, neg_g,
-           two_tau, neg_two_tau, inv_two_tau, ts1, ts2};
+           {}, {}, nullptr, nullptr, n_tracers, 0, tile_wet, Xs, Ys, nx, ny,
+           margin, hr, mu, neg_g, two_tau, neg_two_tau, inv_two_tau, ts1,
+           ts2};
   const size_t row = met2d ? plane : (size_t)Ys;
   for (int k = 0; k < N_MET; ++k) {
     const bool visc_row = k == M_DXB || k == M_DYB || k == M_RDXH
@@ -928,11 +1058,31 @@ int fused_sw_step_launch(
     if (read && met_slots[k] < 0) return (int)cudaErrorInvalidValue;
     p.met[k] = met_slots[k] < 0 ? nullptr : met + met_slots[k] * row;
   }
-  for (int t = 0; t < 2 * n_tracers; ++t) {
-    p.tr[t] = tr_in[t];
-    p.tr_o[t] = tr_out[t];
-  }
   cudaStream_t s = (cudaStream_t)stream;
+  if (n_tracers > MAX_TRACERS) {
+    // the pointer table: what the kernel reads is the copy made here, in
+    // stream order, so the caller's arrays may go when this returns
+    const size_t half = sizeof(float*) * 2 * n_tracers;
+    if (tr_table == nullptr) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaMemcpyAsync(tr_table, tr_in, half,
+                                    cudaMemcpyHostToDevice, s);
+    if (e == cudaSuccess)
+      e = cudaMemcpyAsync((char*)tr_table + half, tr_out, half,
+                          cudaMemcpyHostToDevice, s);
+    if (e != cudaSuccess) return (int)e;
+    p.trp = (float* const*)tr_table;
+    p.scratch = scratch;
+    if (STEPS_BUILD > 1) {
+      fused_sw_step_smem_bytes(n_tracers, mu_mode == 2, &p.n_lev_sm);
+      if (p.n_lev_sm < 2 * n_tracers && scratch == nullptr)
+        return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    for (int t = 0; t < 2 * n_tracers; ++t) {
+      p.tr[t] = tr_in[t];
+      p.tr_o[t] = tr_out[t];
+    }
+  }
   switch (n_tracers) {
 #if !defined(FUSED_NT) || FUSED_NT == 0
     case 0: return launch_form<0>(p, met2d != 0, mu_mode, s);
@@ -943,7 +1093,12 @@ int fused_sw_step_launch(
 #if !defined(FUSED_NT) || FUSED_NT == 2
     case 2: return launch_form<2>(p, met2d != 0, mu_mode, s);
 #endif
-    default: return (int)cudaErrorInvalidValue;   // not in this build
+    default:
+#if !defined(FUSED_NT) || FUSED_NT == 3
+      if (n_tracers > MAX_TRACERS)
+        return launch_form<TLOOP>(p, met2d != 0, mu_mode, s);
+#endif
+      return (int)cudaErrorInvalidValue;   // not in this build
   }
 }
 

@@ -64,7 +64,11 @@ constexpr int CHAIN_TY = FUSED_CHAIN_TY;
 constexpr int CHAIN_THREADS = FUSED_CHAIN_THREADS;
 constexpr int CHAIN_MIN_BLOCKS = FUSED_CHAIN_MIN_BLOCKS;
 
+// Tracers: NT = 0, 1, 2 are instantiations of their own; TLOOP stands
+// for a count known at run time, from MAX_TRACERS + 1 up, whose tracer
+// pass runs in groups of MAX_TRACERS through the same flux planes.
 constexpr int MAX_TRACERS = 2;
+constexpr int TLOOP = -1;
 constexpr int N_SMEM_PLANES = 16;      // shared-memory windows of a block
 constexpr int N_CHAIN_PLANES = 4;      // step A's ssh, sshp, up, vp (chain)
 constexpr int N_VISC_PLANES = 4;       // stress products of the viscous forms
@@ -92,9 +96,13 @@ struct Form {
   static constexpr int WY = TY + 2 * WH;          // window columns
   static constexpr int PLANE = WX * WY;           // floats per shared array
   // the 16 working planes; a chained form adds step A's carried outputs
-  // that do not stay in place: ssh, sshp, up, vp and each tracer's 2
+  // that do not stay in place: ssh, sshp, up, vp (N_BASE planes so far)
+  // and each tracer's 2, which TLOOP sizes at run time
+  // (chain_levels_in_smem)
+  static constexpr int N_BASE =
+      N_SMEM_PLANES + (STEPS > 1 ? N_CHAIN_PLANES : 0);
   static constexpr int N_PLANES =
-      N_SMEM_PLANES + (STEPS > 1 ? N_CHAIN_PLANES + 2 * NT : 0);
+      N_BASE + (STEPS > 1 && NT > 0 ? 2 * NT : 0);
   // The viscous forms keep their four stress products on the region one
   // cell inside the flux stage's (halo 1 + EXTRA beyond a step's output
   // region), row-major, no wider: with full windows the 2-tracer form
@@ -107,12 +115,56 @@ struct Form {
 };
 
 // Dynamic shared memory of a block. One step: 53.5 KB (61.4 KB with
-// tracers), and 63.3 KB (73.0 KB) for a viscous form.
+// tracers, at any count), and 63.3 KB (73.0 KB) for a viscous form. A
+// chained TLOOP form adds the levels chain_levels_in_smem keeps.
 template <int NT, int STEPS = 1>
 constexpr size_t smem_bytes(bool visc = false) {
   return sizeof(float) * (Form<NT, STEPS>::N_PLANES * Form<NT, STEPS>::PLANE
                           + (visc ? N_VISC_PLANES * Form<NT, STEPS>::VPLANE
                                   : 0));
+}
+
+// The dynamic shared memory a block may take on the current device: the
+// opt-in maximum (227 KB on an H100) less the block max's static array.
+inline size_t smem_limit() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return (size_t)bytes - sizeof(float) * (Tile<2>::NTHREADS / 32);
+}
+
+// How many of step A's 2 n_tr tracer levels a chained TLOOP block keeps
+// in shared memory (whole planes of its window, after the N_BASE planes
+// and a viscous form's stress planes); the levels beyond them go to a
+// device-memory scratch of the block's own. A window plane is 6 KB at the
+// chained tile, the N_BASE planes 120 KB and the stress planes 19.25 KB,
+// so every level fits up to 8 tracers, 7 viscous, at 227 KB.
+inline int chain_levels_in_smem(int n_tr, bool visc, size_t limit) {
+  const size_t fixed = smem_bytes<TLOOP, 2>(visc);
+  const size_t plane = sizeof(float) * Form<TLOOP, 2>::PLANE;
+  const size_t fit = limit > fixed ? (limit - fixed) / plane : 0;
+  return (int)(fit < (size_t)(2 * n_tr) ? fit : (size_t)(2 * n_tr));
+}
+
+// The dynamic shared memory of a block of the fused step's form with
+// n_tr tracers (viscous or not) that runs STEPS model steps a launch, on
+// the current device; *levels: how many of step A's 2 n_tr tracer levels
+// a chained block keeps there (0 for one step a launch).
+template <int STEPS>
+inline size_t form_smem_bytes(int n_tr, bool visc, int* levels) {
+  *levels = STEPS == 1 ? 0 : 2 * n_tr;
+  if (STEPS == 1)
+    return n_tr ? smem_bytes<1, 1>(visc) : smem_bytes<0, 1>(visc);
+  switch (n_tr) {
+    case 0: return smem_bytes<0, STEPS>(visc);
+    case 1: return smem_bytes<1, STEPS>(visc);
+    case 2: return smem_bytes<2, STEPS>(visc);
+    default:
+      *levels = chain_levels_in_smem(n_tr, visc, smem_limit());
+      return smem_bytes<TLOOP, STEPS>(visc)
+          + sizeof(float) * Form<TLOOP, STEPS>::PLANE * *levels;
+  }
 }
 
 }  // namespace fused_tile

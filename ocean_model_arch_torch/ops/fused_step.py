@@ -52,6 +52,11 @@ inputs, and only their box is written: margin and pad keep what they
 held, and the max is over the box. The statics are the caller's per-shard
 tensors, as in every form of the port.
 
+Any number of tracers T: the kernel has instantiations of its own for
+0, 1 and 2, and one family for every count from 3 up, which takes T at
+run time and runs the tracer pass in groups of two (the TPU kernel
+loops over its ``n_tracers``, :937-1039 there).
+
 ``steps = 2`` is the chained form, the TPU kernel's ``steps_per_call =
 2`` (:1061-1084 there): two whole model steps in one launch, the first
 one's state kept in the kernel's shared memory, so a launch moves the
@@ -81,7 +86,11 @@ from ._build import load
 from .fused_layout import N_PROF, FusedLayout, fast2d_met_rows
 
 N_FIELDS = 6            # carried SW fields; each tracer adds 2
-MAX_TRACERS = 2         # the kernel's instantiations (csrc/fused_step.cu)
+# the kernel's instantiations (csrc/fused_step.cu): 0, 1 and 2 tracers
+# each, and from LOOP_TRACERS up one family with the count at run time,
+# whose tracer pass runs in groups of MAX_TRACERS
+MAX_TRACERS = 2
+LOOP_TRACERS = MAX_TRACERS + 1
 # the kernel's (trans, ffs) forms, each in libraries of its own: the full
 # step first, then without advection, with a linear free surface, both
 FORMS = ((1, 1), (0, 1), (1, 0), (0, 0))
@@ -138,6 +147,18 @@ def n_tracers_of(fields) -> int:
         raise ValueError(f"expected {N_FIELDS} + 2 T fields, got "
                          f"{len(fields)}")
     return extra // 2
+
+
+def chain_smem(n_tracers: int, visc: bool = False) -> tuple:
+    """(dynamic shared memory bytes of a block, step A's tracer levels it
+    keeps) of the chained form with ``n_tracers`` tracers on the current
+    CUDA device (the library is built if needed): every level up to 8
+    tracers, 7 viscous; past that the others live in device scratch."""
+    lib = _library(n_tracers, steps=2)
+    levels = ctypes.c_int(0)
+    nbytes = lib.fused_sw_step_smem_bytes(n_tracers, int(visc),
+                                          ctypes.byref(levels))
+    return int(nbytes), levels.value
 
 
 def tile_shape(device, steps: int = 1, chain_tile=None) -> tuple:
@@ -385,9 +406,6 @@ def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
                   tile, met_map, hr_const, visc, trans, outs=None,
                   steps: int = 1, chain_tile=None) -> None:
     n_tr = n_tracers_of(fields)
-    if n_tr > MAX_TRACERS:
-        raise ValueError(f"the kernel takes at most {MAX_TRACERS} "
-                         f"tracers, got {n_tr}")
     if met_map is None:
         met_shape = (N_PROF, lay.Ys)
     else:
@@ -479,9 +497,25 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
         *(t.data_ptr() for t in fields[N_FIELDS:]))
     tr_out = (ctypes.c_void_p * (2 * n_tr))(
         *(t.data_ptr() for t in outs[N_FIELDS:]))
+    table = scratch = None
+    if n_tr >= LOOP_TRACERS:
+        # the pointer table the launcher fills in stream order, and the
+        # chained form's tracer levels that shared memory does not hold;
+        # both go when this returns, and the caching allocator hands
+        # their memory out again only in this stream's order, after the
+        # launch has read it
+        dev = fields[0].device
+        table = torch.empty(4 * n_tr, dtype=torch.int64, device=dev)
+        with torch.cuda.device(dev):
+            n_scratch = lib.fused_sw_step_scratch_floats(
+                n_tr, int(visc), lay.Xs, lay.Ys)
+        if n_scratch:
+            scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     with torch.cuda.device(fields[0].device):   # launch on the tensors' card
         rc = lib.fused_sw_step_launch(
             *ptr, tr_in, tr_out,
+            None if table is None else table.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             None if tile_wet is None else tile_wet.data_ptr(), slots,
             int(met_map is not None), n_tr, planes.shape[0], int(visc),
             int(raw), trans, ffs, steps, lay.Xs, lay.Ys, lay.nx, lay.ny,
@@ -584,13 +618,15 @@ def library_target(n_tracers: int, raw: bool = False, trans: int = 1,
                    ffs: int = 1, steps: int = 1, chain_tile=None) -> str:
     """The build target of csrc/fused_step.cu that holds the forms with
     ``n_tracers`` tracers (raw or not) of one (trans, ffs, steps) form:
-    macros ``FUSED_NT`` or ``FUSED_RAW_NT``, then ``FUSED_TRANS=0``,
-    ``FUSED_FFS=0`` and ``FUSED_STEPS=2`` where the form has them.
+    macros ``FUSED_NT`` or ``FUSED_RAW_NT`` (``LOOP_TRACERS`` for every
+    count from it up), then ``FUSED_TRANS=0``, ``FUSED_FFS=0`` and
+    ``FUSED_STEPS=2`` where the form has them.
     ``chain_tile``: (rows, columns, threads, blocks an SM) of a chained
     form's tile in place of csrc/fused_tile.cuh's (a tile sweep's
     libraries); None for the header's own."""
     target = (f"fused_step@{'FUSED_RAW_NT' if raw else 'FUSED_NT'}="
-              f"{n_tracers}" + ("" if trans else "@FUSED_TRANS=0")
+              f"{min(n_tracers, LOOP_TRACERS)}"
+              + ("" if trans else "@FUSED_TRANS=0")
               + ("" if ffs else "@FUSED_FFS=0")
               + ("" if steps == 1 else f"@FUSED_STEPS={steps}"))
     if chain_tile is not None:
@@ -602,20 +638,23 @@ def library_target(n_tracers: int, raw: bool = False, trans: int = 1,
 def library_targets() -> tuple:
     """The build targets of csrc/fused_step.cu (``_build.build_all``
     takes them): for one step a launch, then for two chained, for each
-    (trans, ffs) of ``FORMS`` one library per tracer count, then one per
-    tracer count for the raw forms, so they build at once."""
+    (trans, ffs) of ``FORMS`` one library per tracer count 0, 1, 2 and
+    one for the counts from ``LOOP_TRACERS`` up, then the same for the
+    raw forms, so they build at once."""
     return tuple(library_target(n, raw, trans, ffs, steps)
                  for steps in (1, 2) for trans, ffs in FORMS
-                 for raw in (False, True) for n in range(MAX_TRACERS + 1))
+                 for raw in (False, True) for n in range(LOOP_TRACERS + 1))
 
 
 @functools.lru_cache(maxsize=None)
 def _library(n_tracers: int = 0, raw: bool = False, trans: int = 1,
              ffs: int = 1, steps: int = 1, chain_tile=None) -> ctypes.CDLL:
     """csrc/fused_step.cu's forms (its raw forms with ``raw``) with
-    ``n_tracers`` tracers, the advection and free-surface form ``trans``,
-    ``ffs`` and ``steps`` model steps a launch, built on first use, with
-    their C signatures."""
+    ``n_tracers`` tracers (every count from ``LOOP_TRACERS`` up shares one
+    library), the advection and free-surface form ``trans``, ``ffs`` and
+    ``steps`` model steps a launch, built on first use, with their C
+    signatures."""
+    n_tracers = min(n_tracers, LOOP_TRACERS)
     lib = load(library_target(n_tracers, raw, trans, ffs, steps,
                               chain_tile))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -641,7 +680,11 @@ def _library(n_tracers: int = 0, raw: bool = False, trans: int = 1,
                            f"{built}, not {want}")
     lib.fused_sw_step_error_string.argtypes = [i]
     lib.fused_sw_step_error_string.restype = ctypes.c_char_p
-    lib.fused_sw_step_launch.argtypes = ([p] * 19 + [i] * 13 + [f] * 8
+    lib.fused_sw_step_smem_bytes.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.fused_sw_step_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_sw_step_scratch_floats.argtypes = [i, i, i, i]
+    lib.fused_sw_step_scratch_floats.restype = ctypes.c_longlong
+    lib.fused_sw_step_launch.argtypes = ([p] * 21 + [i] * 13 + [f] * 8
                                          + [p])
     lib.fused_sw_step_launch.restype = i
     return lib

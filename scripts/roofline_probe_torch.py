@@ -4,7 +4,7 @@
 The PyTorch + CUDA counterpart of ``scripts/roofline_probe.py``: it runs
 the copy step (``ocean_model_arch_torch/ops/copy_step.py``: the fused
 step's window loads and tile stores with a sum in place of the
-arithmetic) once per form of the fused kernel in ``FORMS`` -- 0, 1 or 2
+arithmetic) once per form of the fused kernel in ``FORMS`` -- 0 to 4
 tracers, profile or plane metrics, with or without the viscous metric
 rows and the bathymetry planes, and for each mask named also under its
 land-tile guard -- and prints the kernel's device us/launch
@@ -14,12 +14,21 @@ step's arithmetic and barriers cost; the gap between the copy step and
 the byte bound is what the tiling costs.
 
 Usage: python scripts/roofline_probe_torch.py [nx ny [mask ...]]
+       python scripts/roofline_probe_torch.py --stacked [nx ny]
 
 Defaults to the Azov 250 m extents 1525 x 1115. Each ``mask`` is the word
 ``frame`` (a 2-cell land frame) or an ASCII land/sea mask file of those
 extents (``data/AS/maskAzovCor.txt``); without one only the unguarded
 forms run. The first line printed is the card's name
 and power limit. Needs a CUDA device and nvcc; there is no CPU path.
+
+``--stacked`` times the stacked copy step instead (the counterpart of
+``scripts/roofline_probe.py --stacked``, ``build_copy_step_stacked``):
+ONE (n_in, Xs, Ys) input and ONE (n_out, Xs, Ys) output against the same
+sum over n_in separate planes into n_out, at JAX's default 8 -> 6 and at
+the stream counts of the T = 0, 2 and 4 forms (``STACKED``), each beside
+the byte bound, after checking the stacked kernel against its plain
+version exactly.
 
 The raw form of the fused step (one launch per shard of a mesh,
 ``model/fused_sharded2d.py``) runs on a shard's own array, whose layout
@@ -52,8 +61,8 @@ from ocean_model_arch_torch.core.masks import (  # noqa: E402
     frame_of_land_mask)
 from ocean_model_arch_torch.io.mask_io import read_mask  # noqa: E402
 from ocean_model_arch_torch.ops import fused_layout as fl  # noqa: E402
-from ocean_model_arch_torch.ops.copy_step import (copy_step,  # noqa: E402
-                                                  tile_shape)
+from ocean_model_arch_torch.ops.copy_step import (  # noqa: E402
+    copy_step, copy_step_reference, copy_step_stacked, tile_shape)
 from ocean_model_arch_torch.ops.fused_step import (  # noqa: E402
     kernel_planes)
 
@@ -64,7 +73,12 @@ FORMS = ((0, False, False, False), (0, True, False, False),
          (2, False, False, False), (2, True, False, False),
          (1, False, False, False),
          (0, False, True, False), (0, False, False, True),
-         (2, False, True, True), (0, True, True, True))
+         (2, False, True, True), (0, True, True, True),
+         (3, False, False, False), (4, False, False, False))
+# the stacked probe: (inputs, outputs, metric rows, the tracer form whose
+# window and shared memory it takes, what the counts are)
+STACKED = ((8, 6, 16, 0, "JAX's default"), (10, 6, 7, 0, "T=0 form"),
+           (14, 10, 9, 2, "T=2 form"), (18, 14, 9, 4, "T=4 form"))
 
 
 def form_counts(n_tracers: int, visc: bool = False,
@@ -155,7 +169,7 @@ def probe(nx: int, ny: int, masks=(), n_launch: int = N_LAUNCH,
             flags = None if wet is None else \
                 torch.from_numpy(wet).to(device)
             us = kernel_us(lambda: copy_step(
-                windows, met, n_out, lay, tracer_form=n_tracers > 0,
+                windows, met, n_out, lay, tracer_form=n_tracers,
                 tile_wet=flags, tile=tile, visc_form=visc), n_launch)
             nbytes = bytes_moved(lay, n_tracers, met2d, wet, tile, visc,
                                  hr_varies)
@@ -164,6 +178,46 @@ def probe(nx: int, ny: int, masks=(), n_launch: int = N_LAUNCH,
                          "guard": guard, "us": us, "bytes": nbytes,
                          "bound_us": nbytes / PEAK_BYTES * 1e6})
     return rows
+
+
+def stacked(nx: int, ny: int, n_launch: int = N_LAUNCH,
+            counts=STACKED) -> list:
+    """The stacked copy step against the separate one, on the current
+    CUDA device, for each (inputs, outputs, metric rows, tracer form) of
+    ``counts``: random float32 inputs made from a seed, the stacked
+    output checked against the plain version on the card (``equal``:
+    bit for bit), then both kernels' device us/launch on the same planes
+    and the byte bound of that traffic. Returns one dict per count."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the roofline probe needs a CUDA device")
+    device = torch.device("cuda", torch.cuda.current_device())
+    lay = fl.make_layout(nx, ny)
+    rows = []
+    for seed, (n_in, n_out, n_met, n_tr, what) in enumerate(counts):
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        stack = torch.randn((n_in, lay.Xs, lay.Ys), generator=gen).to(device)
+        met = torch.randn((n_met, lay.Ys), generator=gen).to(device)
+        planes = tuple(stack.unbind(0))
+        got = copy_step_stacked(stack, met, n_out, lay, n_tr)
+        want = copy_step_reference(planes, met, n_out, lay)
+        equal = all(torch.equal(a, b) for a, b in zip(got.unbind(0), want))
+        us_stacked = kernel_us(lambda: copy_step_stacked(
+            stack, met, n_out, lay, n_tr), n_launch)
+        us_separate = kernel_us(lambda: copy_step(
+            planes, met, n_out, lay, n_tr), n_launch)
+        nbytes = 4 * (lay.Xs * lay.Ys * (n_in + n_out) + n_met * lay.Ys)
+        rows.append({"n_in": n_in, "n_out": n_out, "n_met": n_met,
+                     "n_tracers": n_tr, "what": what, "equal": equal,
+                     "max_abs": max(float((a - b).abs().max())
+                                    for a, b in zip(got.unbind(0), want)),
+                     "us_stacked": us_stacked, "us_separate": us_separate,
+                     "bytes": nbytes, "bound_us": nbytes / PEAK_BYTES * 1e6})
+    return rows
+
+
+def stacked_name(row: dict) -> str:
+    return (f"{row['n_in']} -> {row['n_out']} ({row['what']}, "
+            f"{row['n_met']} metric rows)")
 
 
 def form_name(row: dict) -> str:
@@ -194,6 +248,8 @@ def mask_argument(arg: str, nx: int, ny: int) -> np.ndarray:
 
 
 def main(argv) -> int:
+    is_stacked = "--stacked" in argv[1:]
+    argv = [a for a in argv if a != "--stacked"]
     nx = int(argv[1]) if len(argv) > 1 else 1525
     ny = int(argv[2]) if len(argv) > 2 else 1115
     masks = [(os.path.basename(a), mask_argument(a, nx, ny))
@@ -207,6 +263,20 @@ def main(argv) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0])
     lay = fl.make_layout(nx, ny)
+    if is_stacked:
+        print(f"stacked copy step against the separate one, {nx} x {ny} "
+              f"points, layout {lay.Xs} x {lay.Ys}, {N_LAUNCH} launches "
+              "each (torch.profiler):")
+        rows = stacked(nx, ny)
+        for row in rows:
+            print(f"  {stacked_name(row)}: == plain version "
+                  f"{'yes' if row['equal'] else 'NO'}; stacked "
+                  f"{row['us_stacked']:.2f} us/launch, separate "
+                  f"{row['us_separate']:.2f} us/launch (stacked / separate "
+                  f"{row['us_stacked'] / row['us_separate']:.3f}), "
+                  f"{row['bytes'] / 1e6:.1f} MB, byte bound "
+                  f"{row['bound_us']:.2f} us at {PEAK_BYTES / 1e12:.2f} TB/s")
+        return 0 if all(r["equal"] for r in rows) else 1
     print(f"copy step, {nx} x {ny} points, layout {lay.Xs} x {lay.Ys}, "
           f"{N_LAUNCH} launches per form (torch.profiler):")
     for row in probe(nx, ny, masks):

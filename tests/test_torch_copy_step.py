@@ -191,10 +191,11 @@ def test_build_targets_with_a_define_get_their_own_library(tmp_path,
                                                            monkeypatch):
     """``<source>@<MACRO>=<value>[@...]`` compiles the source with a -D for
     each define into a library named after the target: the fused step's
-    three tracer counts and their three raw forms, for each of the four
-    (trans, ffs) forms, one step a launch and two chained, build side by
-    side and never share a file; the full step's six keep the flags, and
-    so the libraries, they had."""
+    libraries for 0, 1 and 2 tracers and for every count from 3 up, and
+    the same four raw, for each of the four (trans, ffs) forms, one step
+    a launch and two chained, build side by side and never share a file;
+    the full step's libraries keep the flags, and so the libraries, they
+    had."""
     cmds = []
 
     def fake_run(cmd, **kw):
@@ -205,37 +206,38 @@ def test_build_targets_with_a_define_get_their_own_library(tmp_path,
     monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
     monkeypatch.setattr(_build.subprocess, "run", fake_run)
     targets = fstep.library_targets()
-    assert targets[:6] == ("fused_step@FUSED_NT=0", "fused_step@FUSED_NT=1",
-                           "fused_step@FUSED_NT=2",
+    assert targets[:8] == ("fused_step@FUSED_NT=0", "fused_step@FUSED_NT=1",
+                           "fused_step@FUSED_NT=2", "fused_step@FUSED_NT=3",
                            "fused_step@FUSED_RAW_NT=0",
                            "fused_step@FUSED_RAW_NT=1",
-                           "fused_step@FUSED_RAW_NT=2")
-    assert len(targets) == 48 and targets[6] == \
+                           "fused_step@FUSED_RAW_NT=2",
+                           "fused_step@FUSED_RAW_NT=3")
+    assert len(targets) == 64 and targets[8] == \
         "fused_step@FUSED_NT=0@FUSED_TRANS=0"
-    assert targets[23] == \
-        "fused_step@FUSED_RAW_NT=2@FUSED_TRANS=0@FUSED_FFS=0"
-    assert targets[24] == "fused_step@FUSED_NT=0@FUSED_STEPS=2"
-    assert targets[-1] == ("fused_step@FUSED_RAW_NT=2@FUSED_TRANS=0"
+    assert targets[31] == \
+        "fused_step@FUSED_RAW_NT=3@FUSED_TRANS=0@FUSED_FFS=0"
+    assert targets[32] == "fused_step@FUSED_NT=0@FUSED_STEPS=2"
+    assert targets[-1] == ("fused_step@FUSED_RAW_NT=3@FUSED_TRANS=0"
                            "@FUSED_FFS=0@FUSED_STEPS=2")
     for t in targets + ("fused_step",):
         with pytest.raises(RuntimeError, match="stop"):
             _build.build(t)
     outs = [os.path.basename(c[c.index("-o") + 1]) for c in cmds]
-    assert len(set(outs)) == 49
-    for n, (cmd, out) in enumerate(zip(cmds[:48], outs)):
-        trans, ffs = fstep.FORMS[n % 24 // 6]
-        steps = 1 + n // 24
-        macro = "FUSED_NT" if n % 6 < 3 else "FUSED_RAW_NT"
+    assert len(set(outs)) == 65
+    for n, (cmd, out) in enumerate(zip(cmds[:64], outs)):
+        trans, ffs = fstep.FORMS[n % 32 // 8]
+        steps = 1 + n // 32
+        macro = "FUSED_NT" if n % 8 < 4 else "FUSED_RAW_NT"
         defines = [a for a in cmd if a.startswith("-D")]
-        assert defines == [f"-D{macro}={n % 3}"] + (
+        assert defines == [f"-D{macro}={n % 4}"] + (
             [] if trans else ["-DFUSED_TRANS=0"]) + (
             [] if ffs else ["-DFUSED_FFS=0"]) + (
             [] if steps == 1 else ["-DFUSED_STEPS=2"])
         assert cmd[-1].endswith("fused_step.cu")
-        assert out.startswith(f"libfused_step-{macro}{n % 3}-")
-        assert fstep.library_target(n % 3, n % 6 >= 3, trans, ffs,
+        assert out.startswith(f"libfused_step-{macro}{n % 4}-")
+        assert fstep.library_target(n % 4, n % 8 >= 4, trans, ffs,
                                     steps) == targets[n]
-    assert not any(a.startswith("-D") for a in cmds[48])
+    assert not any(a.startswith("-D") for a in cmds[64])
     assert "--use_fast_math" not in " ".join(cmds[0])
 
 

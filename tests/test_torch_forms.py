@@ -216,14 +216,14 @@ def test_land_stays_exactly_zero(trans, ffs):
 
 
 def test_unsupported_no_longer_names_the_forms():
-    """Neither switch keeps a configuration off the kernel; more than two
-    tracers still do."""
+    """Neither switch keeps a configuration off the kernel, and neither
+    does a count of tracers."""
     jgrid, cfg, jstate = _case("f32", 0, 0, 0)
     grid, _ = to_torch(jgrid, jstate, torch.float32)
     assert unsupported(grid, cfg) == []
     three = dataclasses.replace(cfg, sw=dataclasses.replace(
         cfg.sw, use_tracers=1, tracer_num=3))
-    assert unsupported(grid, three) == ["tracer_num=3 > 2"]
+    assert unsupported(grid, three) == []
 
 
 @pytest.mark.parametrize("example,nx,ny", [("01_flat_basin", 258, 258),

@@ -425,12 +425,12 @@ def test_raw_wrapper_never_takes_the_plain_version_off_the_cpu(monkeypatch):
             torch.empty((fl.N_PROF, lay.Ys), device="meta"),
             torch.empty((4, lay.Xs, lay.Ys), device="meta"), lay, 1.0, 0.5,
             100.0, tile=(16, 32))
-    assert len(fstep.library_targets()) == 48
-    assert sum("RAW" in t for t in fstep.library_targets()) == 24
-    assert sum("FUSED_STEPS=2" in t for t in fstep.library_targets()) == 24
+    assert len(fstep.library_targets()) == 64
+    assert sum("RAW" in t for t in fstep.library_targets()) == 32
+    assert sum("FUSED_STEPS=2" in t for t in fstep.library_targets()) == 32
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
-    for n in range(3):
+    for n in range(fstep.LOOP_TRACERS + 1):
         for steps in (1, 2):
             with pytest.raises(RuntimeError, match="nvcc"):
                 fstep._library.__wrapped__(n, True, steps=steps)
