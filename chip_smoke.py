@@ -10,17 +10,20 @@ grid whose metrics vary along x) through ``build_grid`` ->
 ``init_ocean_state`` -> ``FusedSWModel(static_rslu=True,
 steps_per_call=1)`` (one step a launch, phases 2-10) or ``steps_per_call
 =2`` (two chained steps a launch, as the JAX ``OceanModel`` runs even
-windows: phase 11, and ``main`` in phases 9b and 10c) -> ``pack`` ->
-``run_steps`` -> ``unpack``, in phases:
+windows: phase 11, and ``main`` in phases 9b and 10c), or the general
+form, ``FusedSWModel(grid, cfg, tau)`` with the JAX defaults (phase 13)
+-> ``pack`` -> ``run_steps`` -> ``unpack``, in phases:
 
 1. device: the card, its power limit, the toolchain, the build of the
    kernel libraries (the fused step's forms with 0, 1 and 2 tracers and
    with any count from 3 up, raw or not, with and without momentum
    advection, with a full or a linear free surface, one step or two
-   chained a launch, and the copy step: 65 libraries started together)
-   with ptxas's registers and spills, which must stay at 42 registers
-   (64, the chained forms' launch bound) and 0 bytes; the chained form's
-   shared memory at 3-10 tracers;
+   chained a launch; the general form's, every advection and free-surface
+   form in one library of each tracer count, raw or not and steps a
+   launch; and the copy step: 81 libraries started together) with
+   ptxas's registers and spills, which must stay at 42 registers (64, the
+   chained forms' launch bound) and 0 bytes; the chained form's shared
+   memory at 3-10 tracers;
 2. every form of the fused-step CUDA kernel (no tracers / 2 tracers,
    unguarded / tile guard, profile / plane metrics) against its plain
    PyTorch version on the card, on the 2-cell land frame mask, the
@@ -122,17 +125,34 @@ windows: phase 11, and ``main`` in phases 9b and 10c) -> ``pack`` ->
    ``examples/05_azov_hires`` with 4 tracers through ``main`` on the block
    and on a 2 x 2 mesh == the hand-driven chained run bit for bit; (d)
    T = 0..4 on the guarded coastline at one step and two a launch:
-   kernel, byte bound, copy step of the form, path, idle; 9 tracers.
+   kernel, byte bound, copy step of the form, path, idle; 9 tracers;
+13. (printed before phase 7) the general form (the TPU kernel's non-fast
+   branch: ``static_rslu=False``, the JAX default, or metric planes
+   without ``fast2d``): (a) every one of its 704 instantiations against
+   the plain version as in phases 2, 9a, 11a and 12a (profile and plane
+   metrics, T = 0, 1, 2 and the run-time family, each mu mode, with and
+   without advection, full and linear free surface, one step and two a
+   launch, guard off and on, the single block and the raw form on 2 x 2
+   shards), the static reciprocal planes == the selects bit for bit, and
+   the chained family past its shared-memory fit; (b) its paths, 200
+   steps each against the eager composition: ``azov_general``
+   (``FusedSWModel(grid, cfg, tau)``), ``bipolar_azov_general`` (16
+   metric planes) and its ``static_rslu=True, fast2d=False`` twin, bit
+   for bit, ``azov_visc_general``, ``azov_general`` chained, and
+   ``azov_visc_general`` on 2 x 2 shards == the single general block bit
+   for bit; the guard on a NaN at a wet cell; (c) a timing line per path
+   beside the fast form of the same configuration in the same run
+   (kernel, byte bound, copy step of each form, path, idle).
 
 Every phase prints its lines; any failure raises (exit code != 0). The
-line before the last is one JSON object describing thirty-two kernels
+line before the last is one JSON object describing thirty-eight kernels
 (the fused step's plain, guarded, tracer, plane-metric, viscous,
 bathymetry-plane, viscous + bathymetry + tracer and viscous plane-metric
 forms, its raw form on the three paths of phase 9, the four forms of the
 paths of phase 10b, the raw forms of ``01_flat_basin --mesh 2x2``, the
 chained forms of phase 11's four paths and two 2 x 2 splits, the six
-forms of phase 12b's paths, the copy step, the chained copy step and the
-stacked copy step);
+forms of phase 12b's paths, the six general forms of phase 13b's paths,
+the copy step, the chained copy step and the stacked copy step);
 the last line is ``{"ok": true, "device": {...}}``. With ``--parent
 DIR`` (the root of another checkout of this repository) it instead holds
 every instantiation that checkout has against this one's, bit for bit
@@ -143,6 +163,7 @@ CPU path.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import importlib.util
 import inspect
@@ -207,6 +228,12 @@ REPLACES = {"fused_sw_step": PALLAS + ":1642",
             "fused_sw_step_chain_visc_bathy_tracers4": PALLAS + ":937",
             "fused_sw_step_chain_tracers3_fast2d": PALLAS + ":937",
             "fused_sw_step_raw_chain_tracers4": PALLAS + ":1652",
+            "fused_sw_step_general_guarded": PALLAS + ":241",
+            "fused_sw_step_general_planes": PALLAS + ":351",
+            "fused_sw_step_general_planes_static": PALLAS + ":400",
+            "fused_sw_step_general_visc_tracers": PALLAS + ":744",
+            "fused_sw_step_general_chain_guarded": PALLAS + ":1061",
+            "fused_sw_step_raw_general_visc_tracers": PALLAS + ":1667",
             "copy_step": "scripts/roofline_probe.py:71",
             "copy_step_chain": "scripts/roofline_probe.py:71",
             "copy_step_stacked": "scripts/roofline_probe.py:103"}
@@ -311,18 +338,21 @@ def model_args(fm, cfg):
     passes them."""
     return (fm.met, fm.planes, fm.lay, fm.tau, cfg.sw.time_smooth,
             fm.hr_const, fm.tile_wet, fm.tile, fm.met_map, fm.mu_const,
-            fm.visc, fm.trans, fm.ffs, fm.steps_per_call)
+            fm.visc, fm.trans, fm.ffs, fm.steps_per_call, fm.general)
 
 
 def form_key(fm) -> tuple:
     """The kernel instantiation a model launches, as the wrapper counts
     it: (tracers, guarded, plane metrics, mu mode, bathymetry planes,
-    raw, advection, full free surface, steps a launch). The sharded model
-    launches the raw form."""
+    raw, advection, full free surface, steps a launch, general form). The
+    sharded model launches the raw form; the general form's bathymetry is
+    always a plane and counts as not."""
     from ocean_model_arch_torch.ops.fused_step import mu_mode
     return (fm.n_tracers, fm.tile_guard, fm.metrics_2d,
-            mu_mode(fm.n_tracers, fm.mu_const, fm.visc), fm.hr_const is None,
-            hasattr(fm, "shard_lay"), fm.trans, fm.ffs, fm.steps_per_call)
+            mu_mode(fm.n_tracers, fm.mu_const, fm.visc),
+            fm.hr_const is None and not fm.general,
+            hasattr(fm, "shard_lay"), fm.trans, fm.ffs, fm.steps_per_call,
+            fm.general)
 
 
 def key_text(key) -> str:
@@ -525,10 +555,13 @@ def tracer_mass(state, grid) -> list:
             for t in range(state.ff.shape[0])]
 
 
-def drive_path(tag, grid, cfg, tile_guard, mu=0.0, spc=1):
+def drive_path(tag, grid, cfg, tile_guard, mu=0.0, spc=1, model_kw=None):
     """One path end to end: init -> FusedSWModel -> pack -> run_steps ->
     unpack for N_MAIN steps at ``spc`` steps a launch, against the eager
     composition, with the viscosity ``mu`` in the state and the model.
+    ``model_kw``: FusedSWModel's form arguments (the fast form's
+    ``static_rslu=True`` when None; {} takes the model's defaults, the
+    general form).
     The launch counts are zeroed just before ``run_steps`` and read just
     after; the path's kernel instantiation (``form_key``) must have
     launched once per ``spc`` steps and no other at all. Returns (model,
@@ -542,8 +575,10 @@ def drive_path(tag, grid, cfg, tile_guard, mu=0.0, spc=1):
 
     n_tr = cfg.sw.tracer_num if cfg.sw.use_tracers > 0 else 0
     state = with_mu(init_ocean_state(grid, cfg), mu)
-    fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, static_rslu=True,
-                      steps_per_call=spc, tile_guard=tile_guard)
+    fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, steps_per_call=spc,
+                      tile_guard=tile_guard,
+                      **({"static_rslu": True} if model_kw is None
+                         else model_kw))
     s0 = fm.pack(state)
     reset_launch_counts()
     s, ok = fm.run_steps(s0, N_MAIN)
@@ -557,7 +592,8 @@ def drive_path(tag, grid, cfg, tile_guard, mu=0.0, spc=1):
     key = form_key(fm)
     check(counts == {key: n}, f"{tag}: launches per (tracers, guarded, "
           f"plane metrics, mu mode, bathymetry planes, raw, advection, "
-          f"full free surface, steps) {counts}, expected {n} of {key}")
+          f"full free surface, steps, general) {counts}, expected {n} of "
+          f"{key}")
     ref, eok = run_steps(make_step(grid, cfg), state, 1.0, N_MAIN)
     check(eok, f"{tag}: the eager composition's guard tripped")
     errs = {}
@@ -573,7 +609,8 @@ def drive_path(tag, grid, cfg, tile_guard, mu=0.0, spc=1):
           f"{tag} vs eager composition: rel errors {errs}")
     line = (f"{tag}: {N_MAIN} steps ok={ok} launches={launches} "
             f"of {key_text(key)} "
-            f"(guard {'on' if fm.tile_guard else 'off'}, "
+            f"({'general' if fm.general else 'fast'} form, "
+            f"guard {'on' if fm.tile_guard else 'off'}, "
             f"{'plane' if fm.metrics_2d else 'profile'} metrics, mu "
             f"{fm.mu_const:g}, bathymetry "
             f"{'planes' if fm.hr_const is None else 'flat'}, tiles "
@@ -632,9 +669,10 @@ def time_path(fm, cfg, s0, wet_pts: int, pts: int) -> dict:
 def copy_step_inputs(fm, s0):
     """What the fused step of model ``fm`` loads, as the copy step takes
     it: (the carried fields then the static planes, the metric rows the
-    step reads)."""
+    step reads: the general form's rows 0-15)."""
     from ocean_model_arch_torch.ops import fused_layout as fl
-    rows = fl.fast2d_met_rows(fm.n_tracers, fm.visc, fm.trans)
+    rows = (range(fl.N_GENERAL) if fm.general
+            else fl.fast2d_met_rows(fm.n_tracers, fm.visc, fm.trans))
     met = fm.met if fm.metrics_2d else fm.met[list(rows)].contiguous()
     return tuple(s0) + tuple(fm.planes), met
 
@@ -726,7 +764,7 @@ def against_parent(parent: str, card: str) -> int:
                 for guard, raw in [(g, r) for r in raws
                                    for g in (False, True)]:
                     fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu,
-                                      tile_guard=guard)
+                                      tile_guard=guard, static_rslu=True)
                     args = model_args(fm, cfg)
                     old_args = args[:n_old]
                     if any(a != d for a, d in zip(args[n_old:],
@@ -800,7 +838,7 @@ def shard_args(fs, cfg, i, j):
     return (fs.met_shards[i][j], fs.plane_shards[i][j], fs.shard_lay[i][j],
             fs.tau, cfg.sw.time_smooth, fs.hr_const, fs.tile_wet[i][j],
             fs.tile, fs.met_map, fs.mu_const, fs.visc, fs.trans, fs.ffs,
-            fs.steps_per_call)
+            fs.steps_per_call, fs.general)
 
 
 def n_blocks(fs) -> tuple:
@@ -808,7 +846,8 @@ def n_blocks(fs) -> tuple:
     return (-(-fs.lay.Xs // tx), -(-fs.lay.Ys // ty))
 
 
-def compare_raw(tag, fs, cfg, state, stats, form, phase=None) -> None:
+def compare_raw(tag, fs, cfg, state, stats, form, phase=None,
+                same_as=None) -> tuple:
     """Phase 9a on one sharded model: after one margin exchange, the raw
     form of the kernel against its plain version on every shard (one
     launch), then ``N_CARRY`` carried launches (half as many of the
@@ -816,7 +855,11 @@ def compare_raw(tag, fs, cfg, state, stats, form, phase=None) -> None:
     tiles, its margin frozen; the margins and the pad of the output
     buffers must stay what they were, bit for bit. ``stats[form]`` takes
     the largest absolute difference. ``phase``: the line's tag, if not
-    that of phase 9a or 11c."""
+    that of phase 9a or 11c. ``same_as``: what an earlier call returned
+    for the same form with the guard on; the carried launches then run on
+    its shard and must give its fields bit for bit (guarded ==
+    unguarded), in place of a second plain run. Returns (the shard of the
+    carried launches, its fields after them)."""
     from ocean_model_arch_torch.ops.fused_step import (
         fused_sw_step_raw, fused_sw_step_reference)
     carry = list(fs.pack(state))
@@ -852,6 +895,8 @@ def compare_raw(tag, fs, cfg, state, stats, form, phase=None) -> None:
             else int(fs.tile_wet[i][j].sum())
         if wet > most:
             busiest, most = k, wet
+    if same_as is not None:
+        busiest = same_as[0]
     # carried launches on one shard, two buffers a side, the margin frozen
     n_carry = N_CARRY // fs.steps_per_call
     i, j = divmod(busiest, fs.py)
@@ -864,27 +909,36 @@ def compare_raw(tag, fs, cfg, state, stats, form, phase=None) -> None:
     for n in range(n_carry):
         fused_sw_step_raw(kb[n % 2].unbind(0), kb[1 - n % 2].unbind(0), bm,
                           *args)
-        fused_sw_step_reference(rb[n % 2].unbind(0), *args,
-                                outs=rb[1 - n % 2].unbind(0))
+        if same_as is None:
+            fused_sw_step_reference(rb[n % 2].unbind(0), *args,
+                                    outs=rb[1 - n % 2].unbind(0))
     torch.cuda.synchronize()
-    got, want = kb[n_carry % 2], rb[n_carry % 2]
-    errs = [rel_err(a, b) for a, b in zip(got, want)]
-    check(max(errs) < TOL_CARRY, f"{tag} shard ({i}, {j}) {n_carry} "
-          f"launches: rel errors {errs} exceed {TOL_CARRY}")
+    got = kb[n_carry % 2]
+    if same_as is None:
+        want = rb[n_carry % 2]
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        check(max(errs) < TOL_CARRY, f"{tag} shard ({i}, {j}) {n_carry} "
+              f"launches: rel errors {errs} exceed {TOL_CARRY}")
+        stats[form] = max([stats[form]] + [
+            float((a - b).abs().max()) for a, b in zip(got, want)])
+        carried = f"{fmt(errs)} < {TOL_CARRY}"
+    else:
+        check(torch.equal(got, same_as[1]), f"{tag} shard ({i}, {j}) "
+              f"{n_carry} launches: not the guarded run's fields bit for bit")
+        carried = "== the guarded run bit for bit"
     outside = torch.ones_like(start[0], dtype=torch.bool)
     outside[M:M + lay.nx, M:M + lay.ny] = False
     check(all(torch.equal(b[:, outside], start[:, outside]) for b in kb),
           f"{tag} shard ({i}, {j}): margins or pad changed in {n_carry} "
           "launches")
-    stats[form] = max([stats[form]] + [
-        float((a - b).abs().max()) for a, b in zip(got, want)])
     phase = phase or ("phase 9a" if fs.steps_per_call == 1 else "phase 11c")
     print(f"{phase} raw kernel vs plain ({tag}, {fs.px} x {fs.py} shards of "
           f"{fs.lay.Xs}x{fs.lay.Ys}, margin {M}, form "
           f"{key_text(form_key(fs))}): 1 launch on every shard rel err <= "
           f"{worst1:.2e} < {TOL_ONE}; {n_carry} launches on shard ({i}, "
-          f"{j}) {fmt(errs)} < {TOL_CARRY}; margins and pad of the output "
-          "buffers untouched bit for bit: yes")
+          f"{j}) {carried}; margins and pad of the output buffers "
+          "untouched bit for bit: yes")
+    return busiest, got
 
 
 def run_sharded(tag, fs, state, n_steps):
@@ -1061,7 +1115,7 @@ def entry_point(card: str, name: str) -> None:
               "the entry point did not take the fused CUDA kernel:\n"
               + "\n".join(ln for ln in out.splitlines() if "MODEL" in ln))
         # every window is even: two chained steps a launch, as JAX runs it
-        key = (0, True, False, 0, False, False, 1, 1, 2)
+        key = (0, True, False, 0, False, False, 1, 1, 2, False)
         n_launch = n_total // 2
         check(counts == {key: n_launch}, f"phase 9b: launches {counts}, "
               f"expected {n_launch} of {key}")
@@ -1073,7 +1127,7 @@ def entry_point(card: str, name: str) -> None:
         check(model.compute_path() == "fused CUDA kernel"
               and model.grid.lu.is_cuda, "OceanModel chose another route")
         fm = FusedSWModel(model.grid, cfg, cfg.run.tau, mu_const=0.0,
-                          steps_per_call=2)
+                          steps_per_call=2, static_rslu=True)
         s, ok = fm.run_steps(fm.pack(model.state), n_total)
         want = fm.unpack(s, model.state)
         check(ok, "phase 9b: the hand-driven run's guard tripped")
@@ -1228,20 +1282,23 @@ def periodic_channel(card: str, name: str, stats: dict):
     return keep
 
 
-def sharded_2x2(tag, grid, cfg, mu, stats, form, spc=1, phase=None):
+def sharded_2x2(tag, grid, cfg, mu, stats, form, spc=1, phase=None,
+                static_rslu=True):
     """Phase 9d on one configuration: 2 x 2 shards on the one card, with
     uniform and with weighted cuts, against the single block, bit for
     bit, both at ``spc`` steps a launch (phase 11c: 2, chained, on margins
     of 6 or 8); the guard on a NaN in each shard's interior and in its
     pad. Returns {cuts: (model, launches)} and the initial state.
-    ``phase``: the lines' tag, if not that of phase 9d or 11c."""
+    ``phase``: the lines' tag, if not that of phase 9d or 11c.
+    ``static_rslu``: both models' (False: the general form)."""
     from ocean_model_arch_torch.model.fused import FusedSWModel
     from ocean_model_arch_torch.model.fused_sharded2d import \
         FusedSharded2DModel
     from ocean_model_arch_torch.model.init import init_ocean_state
     state = with_mu(init_ocean_state(grid, cfg), mu)
     phase = phase or ("phase 9d" if spc == 1 else "phase 11c")
-    fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, steps_per_call=spc)
+    fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, steps_per_call=spc,
+                      static_rslu=static_rslu)
     s, ok1 = fm.run_steps(fm.pack(state), N_MAIN)
     from ocean_model_arch_torch.ops import fused_layout as fl
     want = [fl.extract(fm.lay, a) for a in s]
@@ -1249,7 +1306,9 @@ def sharded_2x2(tag, grid, cfg, mu, stats, form, spc=1, phase=None):
     for cuts in ("uniform", "weighted"):
         fs = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, mu_const=mu,
                                  weighted=cuts == "weighted",
-                                 steps_per_call=spc)
+                                 steps_per_call=spc, static_rslu=static_rslu)
+        check(fs.general == fm.general, f"{phase} {tag}: the shards run "
+              "another form than the single block")
         compare_raw(f"{tag}, {cuts} cuts", fs, cfg, state, stats, form, phase)
         got, ok, n = run_sharded(f"{phase} {tag} {cuts}", fs, state, N_MAIN)
         check(ok == ok1 and ok, f"{phase} {tag} {cuts}: ok={ok}, single "
@@ -1495,7 +1554,7 @@ def shipped_examples(card, name, stats, run) -> None:
             key, n = only_form(ex, counts)
             # windows of 60 and a last of 4: two chained steps a launch
             check(n == step // 2 and key[6:] == (
-                cfg.sw.trans_terms, cfg.sw.full_free_surface, 2),
+                cfg.sw.trans_terms, cfg.sw.full_free_surface, 2, False),
                 f"{ex}: launches {counts} for {step} steps")
             n_out = cfg.run.output_every_steps
             n_rec = 1 + -(-step // n_out)
@@ -1605,7 +1664,7 @@ def guard_sees_step_a(fm, s0, cell, where: str) -> None:
     launch trips; so does a NaN there."""
     from ocean_model_arch_torch.ops import sw_kernels as swk
     from ocean_model_arch_torch.ops.fused_step import fused_sw_step_reference
-    args1 = model_args(fm, fm.cfg)[:-1] + (1,)
+    args1 = model_args(fm, fm.cfg)[:13] + (1, fm.general)
     for val in (1.5e4, float("nan")):
         bad = tuple(f.clone() for f in s0)
         bad[1][cell] = val
@@ -1920,7 +1979,7 @@ def many_tracer_entry_point(card: str, name: str) -> None:
         n_dat = grads_records(d, nx, ny, n_rec)
         model = OceanModel(cfg, base_dir=d)
         fm = FusedSWModel(model.grid, cfg, cfg.run.tau, mu_const=0.0,
-                          steps_per_call=2)
+                          steps_per_call=2, static_rslu=True)
         s, ok = fm.run_steps(fm.pack(model.state), n_total)
         want = fm.unpack(s, model.state)
         check(ok and fm.n_tracers == T_PATH, "phase 12c: the hand-driven "
@@ -2028,7 +2087,8 @@ def many_tracer_timing(grids, basin, prec, wet, pts, card, name, run,
             if ("azov", n_tr, spc) in models:
                 fm, s0, t = models["azov", n_tr, spc]
             else:
-                fm = FusedSWModel(grids["azov"], cfg, 1.0, steps_per_call=spc)
+                fm = FusedSWModel(grids["azov"], cfg, 1.0, steps_per_call=spc,
+                                  static_rslu=True)
                 s0 = fm.pack(init_ocean_state(grids["azov"], cfg))
                 t = time_path(fm, cfg, s0, wet["azov"], pts)
             windows, met = copy_step_inputs(fm, s0)
@@ -2047,7 +2107,8 @@ def many_tracer_timing(grids, basin, prec, wet, pts, card, name, run,
     # past the fit: the chained form with levels in device scratch
     cfg = form_cfg(basin, prec, T_PAST, 1, 1)
     for spc in (1, 2):
-        fm = FusedSWModel(grids["azov"], cfg, 1.0, steps_per_call=spc)
+        fm = FusedSWModel(grids["azov"], cfg, 1.0, steps_per_call=spc,
+                          static_rslu=True)
         s0 = fm.pack(init_ocean_state(grids["azov"], cfg))
         us = probe.kernel_us(lambda: fm.run_steps(s0, spc), N_TIME // 4,
                              "fused_sw_step_kernel")
@@ -2062,6 +2123,340 @@ def many_tracer_timing(grids, basin, prec, wet, pts, card, name, run,
                          f"{smem / 1024:.1f} KB of shared memory"))
     print(f"phase 12d timing ({name}; {card}), azov coastline, guard on, "
           f"wet points {wet['azov']} of {pts}: " + " | ".join(texts))
+
+
+# ---- phase 13: the general form ---------------------------------------------
+
+# the general form's (tracers, mu, ksw_lat) of each mu mode: 0 none, 1 the
+# tracers' diffusive fluxes alone, 2 the stress stages; T_LOOP[0] stands
+# for the run-time tracer family
+GEN_MODES = tuple((t, m, k) for t in (0, 1, 2, T_LOOP[0])
+                  for m, k in ((0.0, 1), (MU, 0), (MU, 1)) if t or k)
+
+
+def general_name(fm) -> str:
+    """The entry of the kernels line a general-form model's instantiation
+    counts under: ``fused_sw_step[_raw]_general`` and the features of
+    ``form_name`` (``planes`` for metric planes, ``static`` for their
+    static reciprocal counts)."""
+    forms = ("_chain" * (fm.steps_per_call == 2) + "_notrans" * (not fm.trans)
+             + "_linear" * (not fm.ffs))
+    mode = form_key(fm)[3]
+    feats = "".join("_" + w for w, on in (
+        ("visc", fm.visc), ("diff", mode == 1),
+        ("tracers" + f"{fm.n_tracers}" * (fm.n_tracers > N_TRACERS),
+         fm.n_tracers > 0),
+        ("planes", fm.metrics_2d),
+        ("static", fm.metrics_2d and fm.static_rslu)) if on)
+    return ("fused_sw_step" + "_raw" * hasattr(fm, "shard_lay") + "_general"
+            + forms + (feats or "_guarded" * bool(fm.tile_guard)))
+
+
+def with_form(model, cfg, mu: float):
+    """A shallow copy of a general-form model (single block or shards)
+    that runs the form of ``cfg`` with the viscosity ``mu``, as its
+    constructor would set it: the general form's statics depend on the
+    grid, the tracer count and the steps a launch only, so one build
+    serves every (advection, free surface, mu) form of them."""
+    m = copy.copy(model)
+    m.cfg, m.mu_const = cfg, float(mu)
+    m.visc = bool(cfg.sw.ksw_lat and m.mu_const != 0.0)
+    m.trans = int(cfg.sw.trans_terms > 0)
+    m.ffs = int(cfg.sw.full_free_surface > 0)
+    return m
+
+
+def general_models(grid, cfg, mu: float, spc: int, one=None) -> dict:
+    """Phase 13a's models of one (grid, tracer count, steps a launch),
+    built by their constructors: the single general block and, on metric
+    planes, its static reciprocal twin, guarded; the 2 x 2 general shards;
+    the land masks of the carried fields and the all-land tiles' cells.
+    ``one``: the same at one step a launch, whose block and twin serve two
+    steps a launch too (the chained tile is the same; the shards' margin
+    is not)."""
+    from ocean_model_arch_torch.model.fused import FusedSWModel
+    from ocean_model_arch_torch.model.fused_sharded2d import \
+        FusedSharded2DModel
+    from ocean_model_arch_torch.ops.fused_step import tile_shape
+    fs = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, mu_const=mu,
+                             steps_per_call=spc, static_rslu=False)
+    if one is not None:
+        out = dict(one, shards=fs)
+        for k in ("block", "static"):
+            if one[k] is not None:
+                out[k] = copy.copy(one[k])
+                out[k].steps_per_call = spc
+                check(out[k].tile == tile_shape(grid.lu.device, spc),
+                      "phase 13a: the chained tile is not the one-step tile")
+        return out
+    fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, steps_per_call=spc,
+                      tile_guard=True)
+    check(fm.general and fm.n_tiles[1] > 0,
+          "phase 13a: not the general form, or no all-land tile")
+    fst = (FusedSWModel(grid, cfg, 1.0, mu_const=mu, steps_per_call=spc,
+                        tile_guard=True, static_rslu=True, fast2d=False)
+           if fm.metrics_2d else None)
+    check((fst is None or fst.general) and fs.general,
+          "phase 13a: a twin or the shards are not the general form")
+    tx, ty = fm.tile
+    dry = (fm.tile_wet == 0).repeat_interleave(tx, 0) \
+        .repeat_interleave(ty, 1)[:fm.lay.Xs, :fm.lay.Ys]
+    return {"block": fm, "static": fst, "shards": fs, "dry": dry,
+            "land": land_masks(fm, grid, fm.n_tracers)}
+
+
+def compare_general(tag, grid, models, cfg, mu, stats, plain) -> int:
+    """Phase 13a on one configuration (``models`` from
+    :func:`general_models`): the general form's instantiation with the
+    guard off and on against its plain version, as phase 2 holds the fast
+    forms (one launch < 1e-5, N_CARRY steps < 1e-4, land and all-land
+    tiles exactly 0, the block max, guarded == unguarded bit for bit); on
+    metric planes the static reciprocal planes == the selects bit for
+    bit; and the raw form, guard off and on, on 2 x 2 shards as phase 9a
+    holds it. ``plain``: the plain version's N_CARRY single steps from
+    the configuration's initial state, which its one-step and chained
+    forms share (a chained plain launch is two single steps: filled by the
+    first call). Returns the number of instantiations compared."""
+    from ocean_model_arch_torch.model.init import init_ocean_state
+    from ocean_model_arch_torch.ops.fused_step import (
+        fused_sw_step, fused_sw_step_blockmax, fused_sw_step_reference)
+    state = with_mu(init_ocean_state(grid, cfg), mu)
+    fm = with_form(models["block"], cfg, mu)
+    spc, form = fm.steps_per_call, general_name(fm)
+    on = model_args(fm, cfg)
+    off = on[:6] + (None,) + on[7:]
+    land, dry = models["land"], models["dry"]
+    s0 = fm.pack(state)
+    n_carry = N_CARRY // spc
+
+    def compare(what, ks, rs, tol, guard):
+        errs = [rel_err(k, r) for k, r in zip(ks, rs)]
+        check(max(errs) < tol, f"{tag} guard={guard} {what}: kernel vs "
+              f"plain rel errors {errs} exceed {tol}")
+        for k, lm in zip(ks, land):
+            check(bool((k[lm] == 0).all()), f"{tag} {what}: a land cell of "
+                  "the kernel's output is not 0")
+            if guard:
+                check(bool((k[dry] == 0).all()), f"{tag} {what}: an "
+                      "all-land tile is not exactly 0")
+        stats[form] = max([stats.get(form, 0.0)] + [
+            float((k - r).abs().max()) for k, r in zip(ks, rs)])
+        return max(errs)
+
+    # the plain version: its guard zeroes only all-land tiles, whose cells
+    # hold land's 0 either way, so one carried run serves both forms
+    if not plain:
+        one, f = off[:13] + (1,) + off[14:], s0
+        for n in range(1, N_CARRY + 1):
+            f, m = fused_sw_step_reference(f, *one)
+            if n <= 2:
+                plain[n] = (f, max(float(m), plain.get(n - 1, (0, 0.0))[1]))
+        plain[N_CARRY] = (f, None)
+    (r1, rmx), rs = plain[spc], plain[N_CARRY][0]
+    check(all(torch.equal(a, b) for a, b in zip(
+        r1, fused_sw_step_reference(s0, *on)[0])),
+          f"{tag}: the guarded plain version differs from the unguarded")
+    errs, outs = [], {}
+    for guard, args in ((False, off), (True, on)):
+        k1, bmx = fused_sw_step_blockmax(s0, *args)
+        e1 = compare("1 launch", k1, r1, TOL_ONE, guard)
+        check(abs(float(torch.amax(bmx)) - rmx) <= TOL_ONE * rmx,
+              f"{tag}: block max {float(bmx.max())} vs plain {rmx}")
+        if guard:
+            check(bool((bmx[fm.tile_wet == 0] == 0).all()),
+                  f"{tag}: the block max of an all-land tile is not 0")
+        ks = s0
+        for _ in range(n_carry):
+            ks, _ = fused_sw_step(ks, *args)
+        errs += [e1, compare(f"{n_carry} launches", ks, rs, TOL_CARRY, guard)]
+        outs[guard] = (k1, ks)
+    for which in (0, 1):
+        check(all(torch.equal(a, b) for a, b in zip(outs[False][which],
+                                                    outs[True][which])),
+              f"{tag}: guarded and unguarded kernel outputs differ")
+    static = ""
+    if models["static"] is not None:
+        fst = with_form(models["static"], cfg, mu)
+        a = model_args(fst, cfg)
+        k1, _ = fused_sw_step_blockmax(s0, *a)
+        ks = s0
+        for _ in range(n_carry):
+            ks, _ = fused_sw_step(ks, *a)
+        check(all(torch.equal(x, y) for x, y in zip(
+            k1 + ks, outs[True][0] + outs[True][1])),
+              f"{tag}: the static reciprocal planes differ from the selects")
+        name_s = general_name(fst)
+        stats[name_s] = max(stats.get(name_s, 0.0), stats[form])
+        static = "; static reciprocal planes == selects bit for bit: yes"
+    torch.cuda.synchronize()
+    print(f"phase 13a kernel vs plain ({tag}, {key_text(form_key(fm))}, "
+          f"guard off and on): max rel err 1 launch {max(errs[0::2]):.2e} < "
+          f"{TOL_ONE}, {n_carry} launches {max(errs[1::2]):.2e} < "
+          f"{TOL_CARRY}; land and all-land tiles exactly 0, guarded == "
+          f"unguarded bit for bit: yes" + static)
+    fs = with_form(models["shards"], cfg, mu)
+    guarded = compare_raw(tag, fs, cfg, state, stats, general_name(fs),
+                          "phase 13a")
+    fs.tile_guard = False
+    fs.tile_wet = [[None] * fs.py for _ in range(fs.px)]
+    compare_raw(tag + " guard off", fs, cfg, state, stats, general_name(fs),
+                "phase 13a", same_as=guarded)
+    return 4
+
+
+def general_forms(grids, basin, basin_b, prec, stats) -> int:
+    """Phase 13a: every instantiation of the general form (profile and
+    plane metrics, T = 0, 1, 2 and the run-time family at 3, each mu
+    mode, with and without advection, full and linear free surface, one
+    step and two chained a launch, guard off and on, single block and raw)
+    against its plain version on the Azov coastline, the viscous modes
+    over the 15-100 m bathymetry; and the chained run-time family past
+    its shared-memory fit. Returns the number of instantiations
+    compared."""
+    from ocean_model_arch_torch.ops.fused_step import FORMS
+    n = 0
+    for g, b in (("azov", basin), ("azov_hr", basin),
+                 ("bipolar_azov", basin_b), ("bipolar_azov_hr", basin_b)):
+        for n_tr in (0, 1, 2, T_LOOP[0]):
+            # mu = 0 on flat bathymetry, mu = 1000 over 15-100 m
+            modes = [(m, k) for t, m, k in GEN_MODES
+                     if t == n_tr and bool(m) == g.endswith("_hr")]
+            cfg0 = form_cfg(b, prec, n_tr, 1, 1, modes[0][1])
+            one = general_models(grids[g], cfg0, modes[0][0], 1)
+            two = general_models(grids[g], cfg0, modes[0][0], 2, one)
+            for (trans, ffs), (mu, ksw) in [(f, m) for f in FORMS
+                                            for m in modes]:
+                cfg, plain = form_cfg(b, prec, n_tr, trans, ffs, ksw), {}
+                for spc, models in ((1, one), (2, two)):
+                    n += compare_general(
+                        f"{g} T={n_tr} mu={mu:g} ksw_lat={ksw} trans={trans} "
+                        f"ffs={ffs} steps={spc}", grids[g], models, cfg, mu,
+                        stats, plain)
+    for n_tr, mu, g in ((T_PAST, 0.0, "azov"), (T_PAST_VISC, MU, "azov_hr")):
+        cfg = form_cfg(basin, prec, n_tr, 1, 1)
+        compare_general(f"{g} T={n_tr} mu={mu:g} steps=2 (tracer levels in "
+                        "device scratch)", grids[g],
+                        general_models(grids[g], cfg, mu, 2), cfg, mu, stats,
+                        {})
+    return n
+
+
+def general_paths(grids, cfgs, cfgs_b, prec, wet, pts, card, name, run,
+                  stats, fast, cell):
+    """Phase 13b and 13c: the general form's paths at 1525 x 1115, each
+    200 steps against the eager composition on its own instantiation
+    only (``drive_path``): ``azov_general`` (``FusedSWModel(grid, cfg,
+    tau)`` with the JAX defaults), ``bipolar_azov_general`` and its static
+    reciprocal twin (bit for bit), ``azov_visc_general``, ``azov_general``
+    chained, and ``azov_visc_general`` on 2 x 2 shards (uniform and
+    weighted cuts, == the single general block bit for bit); the guard at
+    a wet ``cell``; then a timing line per path beside the fast form of
+    the same configuration (``fast``: path -> (model, timing) of this
+    run): kernel, byte bound, the copy step of each form, path, idle."""
+    from ocean_model_arch_torch.ops import copy_step as cs
+    from ocean_model_arch_torch.ops.fused_step import fused_sw_step_reference
+    probe = load_probe()
+    paths = (
+        ("azov_general", "azov coastline, no tracers, "
+         "FusedSWModel(grid, cfg, tau)", "azov", cfgs[0], 0.0, 1, {},
+         "fused_sw_step_general_guarded"),
+        ("bipolar_azov_general", "the coastline on the bipolar grid, 16 "
+         "metric planes", "bipolar_azov", cfgs_b[0], 0.0, 1, {},
+         "fused_sw_step_general_planes"),
+        ("bipolar_azov_general static", "its static reciprocal planes, "
+         "static_rslu=True, fast2d=False", "bipolar_azov", cfgs_b[0], 0.0, 1,
+         {"static_rslu": True, "fast2d": False},
+         "fused_sw_step_general_planes_static"),
+        ("azov_visc_general", f"15-100 m, mu = {MU:g}, {N_TRACERS} tracers",
+         "azov_hr", cfgs[N_TRACERS], MU, 1, {},
+         "fused_sw_step_general_visc_tracers"),
+        ("azov_general chained", "steps_per_call=2", "azov", cfgs[0], 0.0, 2,
+         {}, "fused_sw_step_general_chain_guarded"))
+    texts, models = [], {}
+    for label, what, gname, cfg, mu, spc, kw, want in paths:
+        fm, _, s0, n, out = drive_path(
+            f"phase 13b main path {label} ({what})", grids[gname], cfg, None,
+            mu, spc, kw)
+        form = general_name(fm)
+        check(form == want and fm.general and fm.tile_guard
+              and n == N_MAIN // spc, f"{label} ran {form} {n} times, guard "
+              f"{fm.tile_guard}, not {want}")
+        models[label] = (fm, s0, out)
+        run["launches"][form] = n
+        run["plain_ms"][form] = cuda_ms(
+            lambda: fused_sw_step_reference(s0, *model_args(fm, cfg)), 10)
+    a, b = (models[k][2] for k in ("bipolar_azov_general",
+                                   "bipolar_azov_general static"))
+    check(all(torch.equal(getattr(a, f), getattr(b, f))
+              for f in ("ssh", "sshp", "ubrtr", "ubrtrp", "vbrtr", "vbrtrp")),
+          "bipolar_azov_general: the static reciprocal planes' run differs "
+          "from the selects' run")
+    print(f"phase 13b bipolar_azov_general: {N_MAIN} steps with the static "
+          "reciprocal planes == with the selects bit for bit: yes")
+    sh, state_sh = sharded_2x2(
+        f"azov_visc_general (mu = {MU:g}, 15-100 m, {N_TRACERS} tracers)",
+        grids["azov_hr"], cfgs[N_TRACERS], MU, stats,
+        "fused_sw_step_raw_general_visc_tracers", phase="phase 13b",
+        static_rslu=False)
+    run["launches"]["fused_sw_step_raw_general_visc_tracers"] = \
+        sh["uniform"][1]
+    fm_g, s0_g, _ = models["azov_general"]
+    guard_trips(fm_g, s0_g, cell, "azov_general")
+    fm_c, s0_c, _ = models["azov_general chained"]
+    guard_trips(fm_c, s0_c, cell, "azov_general chained")
+    print("phase 13b guard: ok=False on an injected NaN ssh and on an sshp "
+          f"spike of 2e4 at wet cell {cell} of azov_general, one step and "
+          "two chained a launch")
+
+    # (c) the timing of each path beside the fast form of this run
+    def copy_us(m, s):
+        windows, met = copy_step_inputs(m, s)
+        return probe.kernel_us(lambda: cs.copy_step(
+            windows, met, len(s), m.lay, tracer_form=m.n_tracers,
+            tile_wet=m.tile_wet, tile=m.tile, visc_form=m.visc,
+            steps=m.steps_per_call), N_TIME)
+
+    for label, _, gname, cfg, _, _, _, _ in paths:
+        fm, s0, _ = models[label]
+        form = general_name(fm)
+        t = time_path(fm, cfg, s0, wet[gname], pts)
+        run["kernels"][form] = (fm, fm.n_tracers, t)
+        b_ms, b_by, nbytes = bound_ms(fm, fm.n_tracers)
+        head = (f"kernel {t['ms_kernel'] * 1e3:.1f} us a launch, "
+                f"{nbytes / 1e6:.1f} MB, bound {b_ms * 1e3:.1f} us ({b_by}), "
+                f"copy step of its form {copy_us(fm, s0):.1f} us")
+        fm_f, t_f = fast[label.split()[0] + " chained" * (
+            fm.steps_per_call == 2)]
+        bf_ms, _, bf_bytes = bound_ms(fm_f, fm_f.n_tracers)
+        fast_head = (f"kernel {t_f['ms_kernel'] * 1e3:.1f} us, "
+                     f"{bf_bytes / 1e6:.1f} MB, bound {bf_ms * 1e3:.1f} us, "
+                     "copy step of its form "
+                     f"{copy_us(fm_f, s0[:len(s0)]):.1f} us")
+        run["bounds"].append(f"{label}/T={fm.n_tracers}/guard on: {head}; "
+                             f"the fast form: {fast_head}")
+        texts.append(f"{label} {key_text(form_key(fm))}: {head}; path "
+                     f"{t['text']}; plain version "
+                     f"{run['plain_ms'][form]:.4f} ms/launch | the fast form "
+                     f"{key_text(form_key(fm_f))}: {fast_head}; path "
+                     f"{t_f['text']}")
+    for cuts in ("uniform", "weighted"):
+        fs = sh[cuts][0]
+        t = time_sharded(fs, state_sh, wet["azov"], pts)
+        if cuts == "uniform":
+            form = general_name(fs)
+            run["kernels"][form] = (fs, fs.n_tracers, t)
+            f_in = fs.pack(state_sh)[0].unbind(0)
+            f_out = tuple(torch.zeros_like(a) for a in f_in)
+            run["plain_ms"][form] = cuda_ms(lambda: fused_sw_step_reference(
+                f_in, *shard_args(fs, cfgs[N_TRACERS], 0, 0), outs=f_out), 10)
+            run["bounds"].append(
+                f"azov_visc_general 2 x 2 uniform, raw form: kernel "
+                f"{t['ms_kernel'] * 1e3:.1f} us/launch, bound "
+                f"{t['bound_ms'] * 1e3:.1f} us/launch (bytes)")
+        texts.append(f"azov_visc_general 2 x 2 {cuts} cuts "
+                     f"{key_text(form_key(fs))}: {t['text']}")
+    print(f"phase 13c timing ({name}; {card}), wet points {wet['azov']} of "
+          f"{pts}: " + " | ".join(texts))
 
 
 def fl_margin(steps: int, fs) -> int:
@@ -2099,12 +2494,17 @@ def main(argv=()) -> int:
     nvcc_ver = subprocess.run([_build.nvcc(), "--version"],
                               capture_output=True, text=True,
                               check=True).stdout.strip().splitlines()[-1]
-    targets = library_targets() + ("copy_step",)
+    targets = (library_targets() + library_targets(general=True)
+               + ("copy_step",))
+    # the seconds each phase took, printed at the end
+    marks = [("start", time.perf_counter())]
     t0 = time.perf_counter()
     libs = _build.build_all(targets)
     build_s = time.perf_counter() - t0
     fused_regs = [row for t in library_targets() for row in ptxas_table(
         _build.BUILDS.get(t, {}).get("log", ""))]
+    gen_regs = [row for t in library_targets(general=True) for row in
+                ptxas_table(_build.BUILDS.get(t, {}).get("log", ""))]
     copy_regs = ptxas_table(_build.BUILDS.get("copy_step", {}).get("log", ""))
     # the chained forms' launch bound: 65536 registers over its threads
     # and blocks an SM
@@ -2120,6 +2520,8 @@ def main(argv=()) -> int:
           "fused_sw_step_kernel<tracers,guard,plane metrics,mu mode,"
           "bathymetry planes,raw,advection,full free surface,steps>: "
           + ptxas_summary(fused_regs)
+          + f"; the general form (general = 1, {len(gen_regs)} "
+          "instantiations): " + ptxas_summary(gen_regs)
           + "; copy_step_kernel<tracer window,steps,stacked>: "
           + ptxas_summary(copy_regs) + f"; chained tile "
           f"{tile_shape('cuda', 2)} of {lib2.fused_sw_step_threads()} "
@@ -2129,24 +2531,26 @@ def main(argv=()) -> int:
               f"{t}: {a / 1024:.1f} ({la}/{2 * t}; {b / 1024:.1f}, "
               f"{lb}/{2 * t})" for t in range(3, 11)
               for (a, la), (b, lb) in [(chain_smem(t), chain_smem(t, True))]))
-    # the steps a launch: the fused kernel's last template argument, the
+    # the steps a launch: the fused kernel's ninth template argument, the
     # copy kernel's second
-    over = [r for r in fused_regs + copy_regs
-            if r[1] > (chain_regs if r[0].endswith(",2>")
-                       or r in copy_regs and r[0].split(",")[1] == "2"
+    over = [r for r in fused_regs + gen_regs + copy_regs
+            if r[1] > (chain_regs if r[0][1:-1].split(",")[
+                8 if r in fused_regs or r in gen_regs else 1] == "2"
                        else MAX_REGS)
             or r[2] != 0]
     check(not over, f"instantiations above {MAX_REGS} registers (one step a "
           f"launch) or {chain_regs} (chained), or with spills: {over}")
     if all(t in _build.BUILDS for t in targets):     # none was cached
-        check(len(fused_regs) == 1408 and len(copy_regs) == 8,
-              f"{len(fused_regs)} fused and {len(copy_regs)} copy-step "
-              "instantiations in the build logs")
+        check(len(fused_regs) == 1408 and len(gen_regs) == 704
+              and len(copy_regs) == 8,
+              f"{len(fused_regs)} fused, {len(gen_regs)} general and "
+              f"{len(copy_regs)} copy-step instantiations in the build logs")
     check(all(cs.tile_shape("cuda", s) == tile_shape("cuda", s)
               for s in (1, 2)),
           "the copy step and the fused step were built with different tiles")
     if argv:
         return against_parent(argv[1], card)
+    marks.append(("1", time.perf_counter()))
 
     basin = basinpar_as250m_test()
     basin_b = dataclasses.replace(basin, curve_grid=2)
@@ -2213,6 +2617,8 @@ def main(argv=()) -> int:
                   {0: cfgs_b[0]}, max_abs, MU)
     compare_forms("bipolar_azov mu=1000 15-100 m", grids["bipolar_azov_hr"],
                   cfgs_b, max_abs, MU)
+
+    marks.append(("2", time.perf_counter()))
 
     # ---- phase 3: the first main path (frame, no tracers, unguarded) ---
     launches = {}
@@ -2349,6 +2755,8 @@ def main(argv=()) -> int:
           f"{N_TRACERS} tracers carried, and at the same cell of "
           "bipolar_azov")
 
+    marks.append(("3-6", time.perf_counter()))
+
     # ---- phase 8: the fourth main path (viscosity, bathymetry) ---------
     fm_v, state_v, s0_v, launches["fused_sw_step_visc_bathy_tracers"], \
         out_v = drive_path(
@@ -2420,6 +2828,8 @@ def main(argv=()) -> int:
     t_btoff = time_path(fm_btoff, cfgs_b[N_TRACERS], s0_bt,
                         wet["bipolar_azov"], pts)
 
+    marks.append(("8", time.perf_counter()))
+
     # ---- phase 9: the entry point and the raw form ---------------------
     entry_point(card, name)
     fs_ch, cfg_ch, state_ch, launches["fused_sw_step_raw_tracers"], \
@@ -2466,6 +2876,8 @@ def main(argv=()) -> int:
           f"(azov_visc), {plain_ms['fused_sw_step_raw_fast2d']:.4f} "
           "(bipolar_azov) ms/launch")
 
+    marks.append(("9", time.perf_counter()))
+
     # ---- phase 10: no advection, a linear free surface; the examples ---
     n_new = compare_new_forms(grids, basin, basin_b, prec, max_abs)
     print(f"phase 10a kernel vs plain: the {n_new} forms above (without "
@@ -2478,6 +2890,8 @@ def main(argv=()) -> int:
     new_form_paths(grids, basin, basin_b, prec, wet, pts, card, name, run)
     shipped_examples(card, name, max_abs, run)
 
+    marks.append(("10", time.perf_counter()))
+
     # ---- phase 11: two chained steps a launch --------------------------
     run["copy_chain"] = {}
     cs.copy_step.launches = 0
@@ -2486,6 +2900,8 @@ def main(argv=()) -> int:
                   {"azov_mask": (fm_c, t_on), "azov_tracers": (fm_t, t_tr),
                    "bipolar_azov": (fm_b, t_b), "azov_visc": (fm_v, t_v)})
     launches["copy_step_chain"] = cs.copy_step.launches
+
+    marks.append(("11", time.perf_counter()))
 
     # ---- phase 12: any number of tracers --------------------------------
     n_many = many_tracer_forms(grids, basin, basin_b, prec, max_abs)
@@ -2503,6 +2919,32 @@ def main(argv=()) -> int:
                              name, run, max_abs)
     many_tracer_entry_point(card, name)
     many_tracer_timing(grids, basin, prec, wet, pts, card, name, run, many)
+
+    marks.append(("12", time.perf_counter()))
+
+    # ---- phase 13: the general form -------------------------------------
+    n_gen = general_forms(grids, basin, basin_b, prec, max_abs)
+    marks.append(("13a", time.perf_counter()))
+    print(f"phase 13a kernel vs plain: the general form's {n_gen} "
+          "instantiations (profile and plane metrics, T = 0, 1, 2 and the "
+          f"run-time family at {T_LOOP[0]}, each mu mode, with and without "
+          "advection, full and linear free surface, one step and two "
+          "chained a launch, guard off and on, the single block and the raw "
+          "form on 2 x 2 shards) and the chained family past its "
+          f"shared-memory fit ({T_PAST}; {T_PAST_VISC} viscous) within "
+          f"{TOL_ONE} after 1 launch and {TOL_CARRY} after {N_CARRY} steps; "
+          "land and all-land tiles exactly 0; guarded == unguarded and the "
+          "static reciprocal planes == the selects bit for bit")
+    fm_cc = kernels["fused_sw_step_chain_guarded"][0]
+    general_paths(grids, cfgs, cfgs_b, prec, wet, pts, card, name, run,
+                  max_abs, {"azov_general": (fm_c, t_on),
+                            "bipolar_azov_general": (fm_b, t_b),
+                            "azov_visc_general": (fm_v, t_v),
+                            "azov_general chained": (
+                                fm_cc, kernels["fused_sw_step_chain_guarded"]
+                                [2])}, cell)
+
+    marks.append(("13b-c", time.perf_counter()))
 
     # ---- phase 7: the copy step ----------------------------------------
     # kernel vs plain version on what each form of the fused step loads:
@@ -2652,6 +3094,10 @@ def main(argv=()) -> int:
             "form on shard (0, 0)'s layout "
             + (f"{row['us']:.1f} us" if row else "not measured"))
     print(f"bounds ({card}): " + "; ".join(floors + run["bounds"]))
+    marks.append(("7", time.perf_counter()))
+    print(f"phase seconds ({card}): " + ", ".join(
+        f"{k} {t - t0:.1f}" for (_, t0), (k, t) in zip(marks, marks[1:]))
+        + f"; all {marks[-1][1] - marks[0][1]:.1f}")
 
     entries = []
     for form, (m, n_tr, t) in kernels.items():

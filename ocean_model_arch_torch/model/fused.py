@@ -22,30 +22,29 @@ from ..core.state import SWState
 from ..host import ModelConfig
 from ..ops import fused_layout as fl
 from ..ops import sw_kernels as swk
-from ..ops.fused_step import fused_sw_step, kernel_planes, tile_shape
+from ..ops.fused_step import (GENERAL_MAP, fused_sw_step, kernel_planes,
+                              tile_shape)
 from .step import reinit_depth_families
 
 CARRIED = ("ssh", "sshp", "ubrtr", "ubrtrp", "vbrtr", "vbrtrp")
 
 
 def unsupported(grid: Grid, cfg: ModelConfig, mu_const: float = 0.0,
-                static_rslu: bool = True, sharded: bool = False) -> list:
+                sharded: bool = False) -> list:
     """What keeps a configuration off the fused kernel (empty: supported).
-    The kernel is the TPU kernel's fast form (profile metrics on
+    The kernel has the TPU kernel's fast form (profile metrics on
     x-uniform grids, its fast2d form with metric planes on the others)
-    with or without momentum advection, with a full or a linear free
-    surface, any constant ``mu_const``, flat or varying bathymetry, any
-    number of tracers. The single block has land margins, so
-    closed boundaries only; ``sharded``: on the margined shards of
-    ``FusedSharded2DModel``, whose margin exchange wraps, periodic ones
-    too."""
+    and its general form (``static_rslu=False``, or metric planes
+    without ``fast2d``), each with or without momentum advection, with a
+    full or a linear free surface, any constant ``mu_const``, flat or
+    varying bathymetry, any number of tracers. The single block has land
+    margins, so closed boundaries only; ``sharded``: on the margined
+    shards of ``FusedSharded2DModel``, whose margin exchange wraps,
+    periodic ones too."""
     out = []
     if (grid.periodic_x or grid.periodic_y) and not sharded:
         out.append("periodic boundaries (model/fused_sharded2d.py::"
                    "FusedSharded2DModel runs them, on a 1 x 1 mesh too)")
-    if not static_rslu:
-        out.append("static_rslu=False (the non-fast kernel form; fast2d "
-                   "requires static_rslu=True)")
     return out
 
 
@@ -87,6 +86,17 @@ def state_from_fields(fields, template: SWState, grid: Grid,
     return reinit_depth_families(st, grid, cfg)
 
 
+def general_inputs(lu_s, hr_s, metrics_2d: bool, static_rslu: bool):
+    """The general form's static planes and metric map for embedded lu
+    and hr: (planes, met_map). The static reciprocal counts ride only on
+    metric planes, as in the TPU kernel (on profiles ``static_rslu`` is
+    the fast form); none of the planes takes a metric factor."""
+    static = bool(static_rslu and metrics_2d)
+    planes = fl.static_planes(lu_s, hr_s, np.float32(1.0), kernel_planes(
+        general=True, static_rslu=static))
+    return planes, (GENERAL_MAP if metrics_2d else None)
+
+
 class FusedSWModel:
     """Shallow-water core, with the tracers of ``cfg.sw``, on the fused
     CUDA kernel (the plain PyTorch version on CPU tensors), on the
@@ -99,6 +109,12 @@ class FusedSWModel:
     some tile without a wet cell. ``metrics_2d`` / ``fast2d`` say which
     metric form runs: latitude profiles on an x-uniform grid, else the
     pointwise metric planes of ``fused_layout.fast2d_met_rows``.
+    ``static_rslu`` and ``fast2d`` pick the kernel's form as the JAX
+    model's do: the fast form needs ``static_rslu`` and, on metric
+    planes, ``fast2d`` (None: ``static_rslu``); otherwise the step runs
+    the general form (``general``), the JAX default, on the 16 metric
+    rows 0-15 and the planes ``lu``, ``hr`` (and on metric planes with
+    ``static_rslu`` the three reciprocal counts).
     ``mu_const`` is the state's constant ``mu``: with ``cfg.sw.ksw_lat``
     it runs the lateral viscosity (``visc``), and with or without it the
     tracers' diffusive fluxes. ``hr_const`` is None when the bathymetry
@@ -107,10 +123,11 @@ class FusedSWModel:
     kernel's switches (0 or 1)."""
 
     def __init__(self, grid: Grid, cfg: ModelConfig, tau: float,
-                 mu_const: float = 0.0, static_rslu: bool = True,
+                 mu_const: float = 0.0, static_rslu: bool = False,
                  steps_per_call: int = 1,
-                 tile_guard: bool | None = None):
-        bad = unsupported(grid, cfg, mu_const, static_rslu)
+                 tile_guard: bool | None = None,
+                 fast2d: bool | None = None):
+        bad = unsupported(grid, cfg, mu_const)
         if bad:
             raise ValueError("fused path unsupported: " + "; ".join(bad))
         if steps_per_call not in (1, 2):
@@ -129,6 +146,48 @@ class FusedSWModel:
         self.trans = int(cfg.sw.trans_terms > 0)
         self.ffs = int(cfg.sw.full_free_surface > 0)
         self.hr_const = flat_bathymetry(grid)
+        self.static_rslu = bool(static_rslu)
+        lu_s = np.asarray(fl.embed(lay, grid.lu.cpu()))
+        hr_s = np.asarray(fl.embed(lay, grid.hhq_rest.cpu()))
+        # x-uniform metrics ride as latitude profiles; other grids
+        # (bipolar) stream metric planes
+        try:
+            met = fl.metrics_profile_from_grid(grid, lay)
+            self.metrics_2d = self.fast2d = False
+        except ValueError:
+            met = None
+            self.metrics_2d = True
+            self.fast2d = (self.static_rslu if fast2d is None
+                           else bool(fast2d))
+            if self.fast2d and not self.static_rslu:
+                raise ValueError("fast2d requires static_rslu=True")
+        self.general = not (self.static_rslu
+                            and (not self.metrics_2d or self.fast2d))
+        if self.general:
+            met16 = (fl.metrics_full_from_grid(grid, lay, derived=False)
+                     if self.metrics_2d else None)
+            planes, self.met_map = general_inputs(
+                lu_s, hr_s, self.metrics_2d, self.static_rslu)
+            self.met = torch.from_numpy(
+                met16 if self.metrics_2d else met).to(dev)
+            self.planes = torch.from_numpy(planes).to(dev)
+        else:
+            self._fast_inputs(grid, cfg, lay, lu_s, hr_s, met)
+        # the guard's per-block wet flags, with the kernel's own tile (the
+        # chained form's, for two steps a launch)
+        self.tile = tile_shape(dev, self.steps_per_call)
+        wet = fl.tile_wet(lu_s, lay, *self.tile)
+        self.n_tiles = (int(wet.sum()), int(wet.size - wet.sum()))
+        if tile_guard is None:
+            tile_guard = not wet.all()      # some tile is all land
+        self.tile_guard = bool(tile_guard)
+        self.tile_wet = (torch.from_numpy(wet).to(dev) if self.tile_guard
+                         else None)
+
+    def _fast_inputs(self, grid: Grid, cfg: ModelConfig, lay, lu_s, hr_s,
+                     met) -> None:
+        """The fast form's metric rows or planes and static planes."""
+        dev = grid.lu.device
         names = kernel_planes(self.n_tracers, self.visc,
                               self.hr_const is None)
         # what the TPU kernel streams, less the wlu plane (the masks come
@@ -141,18 +200,11 @@ class FusedSWModel:
         if self.hr_const is not None:
             theirs -= {"hrludxdy"}
         assert set(names) - {"hr"} == theirs, names
-        lu_s = np.asarray(fl.embed(lay, grid.lu.cpu()))
-        hr_s = np.asarray(fl.embed(lay, grid.hhq_rest.cpu()))
-        # x-uniform metrics ride as latitude profiles; other grids
-        # (bipolar) stream the metric planes the step reads
-        try:
-            met = fl.metrics_profile_from_grid(grid, lay)
-            self.metrics_2d = self.fast2d = False
+        if not self.metrics_2d:
             self.met_map = None
             dxdy = (met[0] * met[1])[None, :]
             recips = (met[10:11], met[11:12], (met[14] * met[15])[None])
-        except ValueError:
-            self.metrics_2d = self.fast2d = True
+        else:
             met22 = fl.metrics_full_from_grid(grid, lay)
             rows = fl.fast2d_met_rows(self.n_tracers, self.visc, self.trans)
             self.met_map = {r: i for i, r in enumerate(rows)}
@@ -164,16 +216,6 @@ class FusedSWModel:
                                   interp_recips=recips)
         self.met = torch.from_numpy(met).to(dev)
         self.planes = torch.from_numpy(planes).to(dev)
-        # the guard's per-block wet flags, with the kernel's own tile (the
-        # chained form's, for two steps a launch)
-        self.tile = tile_shape(dev, self.steps_per_call)
-        wet = fl.tile_wet(lu_s, lay, *self.tile)
-        self.n_tiles = (int(wet.sum()), int(wet.size - wet.sum()))
-        if tile_guard is None:
-            tile_guard = not wet.all()      # some tile is all land
-        self.tile_guard = bool(tile_guard)
-        self.tile_wet = (torch.from_numpy(wet).to(dev) if self.tile_guard
-                         else None)
 
     def pack(self, state: SWState) -> tuple:
         """SWState -> the 6 + 2 T carried fields in the fused layout
@@ -216,6 +258,6 @@ class FusedSWModel:
                                   self.tau, sw.time_smooth, self.hr_const,
                                   self.tile_wet, self.tile, self.met_map,
                                   self.mu_const, self.visc, self.trans,
-                                  self.ffs, spc)
+                                  self.ffs, spc, self.general)
             mx = torch.maximum(mx, m)
         return s6, bool(mx < swk.SSH_ERR_BOUND)   # NaN compares False

@@ -67,7 +67,8 @@ from ..ops import fused_layout as fl
 from ..ops import sw_kernels as swk
 from ..ops.fused_step import fused_sw_step_raw, kernel_planes, tile_shape
 from ..parallel.decomposition import weighted_x_edges, weighted_y_edges
-from .fused import CARRIED, flat_bathymetry, state_from_fields, unsupported
+from .fused import (CARRIED, flat_bathymetry, general_inputs,
+                    state_from_fields, unsupported)
 
 
 def _cuts(n: int, parts: int, given, weighted: bool, int_mask, margin: int,
@@ -96,8 +97,10 @@ class FusedSharded2DModel:
     """The fused model on a px x py mesh of shards, all driven by this
     process. ``devices``: px * py torch devices, row-major over (x, y);
     None puts every shard on the grid's device. ``mu_const``,
-    ``static_rslu``, ``tile_guard`` as in ``FusedSWModel`` (the guard is
-    on by default: pad tiles are always dry). ``steps_per_call``: model
+    ``static_rslu``, ``fast2d``, ``tile_guard`` as in ``FusedSWModel``,
+    but ``static_rslu`` is on by default, as in the JAX model, whose
+    ``fast2d=True`` also needs metric planes (the guard is on by
+    default: pad tiles are always dry). ``steps_per_call``: model
     steps per turn of the runner's loop, which makes one exchange and one
     launch per shard: 1, or 2 chained in the launch on a margin wide
     enough for both; windows must be multiples of it. ``weighted``: cut lines
@@ -109,9 +112,9 @@ class FusedSharded2DModel:
                  static_rslu: bool = True, steps_per_call: int = 1,
                  weighted: bool = False, tile_guard: bool = True,
                  compute_powers_x=None, compute_powers_y=None,
-                 x_edges=None, y_edges=None):
+                 x_edges=None, y_edges=None, fast2d: bool | None = None):
         mu_const = float(mu_const or 0.0)
-        bad = unsupported(grid, cfg, mu_const, static_rslu, sharded=True)
+        bad = unsupported(grid, cfg, mu_const, sharded=True)
         if bad:
             raise ValueError("fused path unsupported: " + "; ".join(bad))
         if steps_per_call not in (1, 2):
@@ -188,17 +191,50 @@ class FusedSharded2DModel:
             return np.ascontiguousarray(np.pad(box, pad, mode=mode))
 
         self.hr_const = flat_bathymetry(grid)
-        names = kernel_planes(self.n_tracers, self.visc,
-                              self.hr_const is None)
         lu_gp = pad2(lu)
         hr_gp = pad2(grid.hhq_rest.cpu().numpy())
         try:
             gprof = fl.metrics_profile_from_grid(grid, glay, self.periodic_y)
-            self.metrics_2d = self.fast2d = False
-            self.met_map = None
-            dxdy = (gprof[0] * gprof[1])[None, :]
-            recips = (gprof[10:11], gprof[11:12],
-                      (gprof[14] * gprof[15])[None])
+            self.metrics_2d = False
+        except ValueError:
+            gprof = None
+            self.metrics_2d = True
+        self.fast2d = (self.static_rslu and self.metrics_2d if fast2d is None
+                       else bool(fast2d))
+        if self.fast2d and not (self.static_rslu and self.metrics_2d):
+            raise ValueError("fast2d requires static_rslu and 2D metrics")
+        self.general = not (self.static_rslu
+                            and (not self.metrics_2d or self.fast2d))
+        if self.general:
+            met_g = (fl.metrics_full_from_grid(
+                grid, glay, self.periodic_x, self.periodic_y, derived=False)
+                if self.metrics_2d else None)
+            planes_g, self.met_map = general_inputs(
+                lu_gp, hr_gp, self.metrics_2d, self.static_rslu)
+        else:
+            names = kernel_planes(self.n_tracers, self.visc,
+                                  self.hr_const is None)
+            if self.metrics_2d:
+                met22 = fl.metrics_full_from_grid(grid, glay, self.periodic_x,
+                                                  self.periodic_y)
+                rows = fl.fast2d_met_rows(self.n_tracers, self.visc,
+                                          self.trans)
+                self.met_map = {r: k for k, r in enumerate(rows)}
+                dxdy = met22[0] * met22[1]
+                recips = (met22[10], met22[11], met22[14] * met22[15])
+                met_g = met22[list(rows)]
+            else:
+                self.met_map = None
+                dxdy = (gprof[0] * gprof[1])[None, :]
+                recips = (gprof[10:11], gprof[11:12],
+                          (gprof[14] * gprof[15])[None])
+            planes_g = fl.static_planes(lu_gp, hr_gp, dxdy, names,
+                                        interp_recips=recips)
+        if self.metrics_2d:
+            self.met_shards = [[torch.from_numpy(cut(met_g, i, j, "edge"))
+                                .to(dev) for j in range(py)]
+                               for i in range(px)]
+        else:
             # one profile per y band, shared by the shards of the band
             mets = []
             for j in range(py):
@@ -208,20 +244,6 @@ class FusedSharded2DModel:
                     mode="edge"))).to(dev))
             self.met_shards = [[mets[j] for j in range(py)]
                                for _ in range(px)]
-        except ValueError:
-            self.metrics_2d = self.fast2d = True
-            met22 = fl.metrics_full_from_grid(grid, glay, self.periodic_x,
-                                              self.periodic_y)
-            rows = fl.fast2d_met_rows(self.n_tracers, self.visc, self.trans)
-            self.met_map = {r: k for k, r in enumerate(rows)}
-            dxdy = met22[0] * met22[1]
-            recips = (met22[10], met22[11], met22[14] * met22[15])
-            met_g = met22[list(rows)]
-            self.met_shards = [[torch.from_numpy(cut(met_g, i, j, "edge"))
-                                .to(dev) for j in range(py)]
-                               for i in range(px)]
-        planes_g = fl.static_planes(lu_gp, hr_gp, dxdy, names,
-                                    interp_recips=recips)
         self.lu_shards = [[cut(lu_gp, i, j, "constant") for j in range(py)]
                           for i in range(px)]
         self.hr_shards = [[cut(hr_gp, i, j, "constant") for j in range(py)]
@@ -385,7 +407,7 @@ class FusedSharded2DModel:
                         self.shard_lay[i][j], self.tau, sw.time_smooth,
                         self.hr_const, self.tile_wet[i][j], self.tile,
                         self.met_map, self.mu_const, self.visc, self.trans,
-                        self.ffs, spc)
+                        self.ffs, spc, self.general)
                 mx = torch.maximum(mx, torch.amax(blockmax))
                 cur, nxt, cur_f, nxt_f = nxt, cur, nxt_f, cur_f
             return tuple(cur), bool(mx < swk.SSH_ERR_BOUND)  # NaN: False

@@ -24,8 +24,8 @@
 //   Plain PyTorch version: ops/fused_step.py::fused_sw_step_reference,
 //   which evaluates the same formulas in the same order.
 //
-// One kernel template,
-// fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS>,
+// One kernel template, fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP,
+// RAW, TRANS, FFS, STEPS, GEN> (GEN: the general form, below),
 // instantiated for NT = 0, 1, 2 tracers and NT = TLOOP, any count from 3
 // up known at run time, with and without the guard, with
 // profile or plane metrics, MU = 0 (mu = 0), 1 (the tracers' diffusive
@@ -172,15 +172,68 @@
 // memory, as above, 16 bytes a cell for each tracer; the levels in
 // scratch add their write and read, mostly from L2.
 //
+// The general form (GEN, the TPU kernel's non-fast branch: `fast = False`
+// at :241, its `static_rslu=False` default, or metric planes without
+// fast2d), sw_step_gen below: the same step on the same stages, tile,
+// guard, chain, tracer groups and raw box, with what the fast forms take
+// from static planes formed in the step instead, formula by formula in
+// the TPU kernel's order. It reads the land mask lu and the rest
+// bathymetry hr (planes, also when hr is flat) and 16 metric rows (the
+// profile's rows 0-15, or 16 (Xs, Ys) planes): the staggered masks are
+// products of lu > 0.5 (:381-392); the reciprocal wet counts of the depth
+// interpolations are selects on the wet-neighbour sums (0.25, f32(1/3),
+// 0.5, 1; :400-421), or their three static planes (the static_rslu
+// variant on metric planes: the same values, so the same bits, by one run-
+// time test of a pointer ahead of the same instructions); every metric
+// factor is applied unfolded (u_mt = 1/dxt * 1/dyh, ...; :431-456); the
+// depth column is aq = (hr + ssh * ffs) * (dx * dy) * lu (:472-476); the
+// continuity divides the fluxes by the cell area and selects sshn on the
+// wet set (:526-544); the vorticity takes v*dyt and u*dxt at the shifted
+// cells (:650-703); the viscosity divides its metric rows (:744-786); the
+// Coriolis product is rlh*dxb*dyb*hh with its own 1/4 (:807-815); the
+// momentum update divides by the full bp = hhu*dxt*dyh/(2 tau) (:868-
+// 887); and the tracer pass takes its column from the new ssh (:952-955)
+// and its fluxes with their dyh, dxh factors (:999-1011).
+//
+// What bounds it: memory, as the fast forms. Per layout cell it reads the
+// 6 fields, lu and hr and writes 6: 56 bytes at T = 0, against the fast
+// form's 64 (the static planes were 4 reads, the general form's masks and
+// depths are arithmetic on 2); with the 16 metric planes 120 (the fast2d
+// form reads 7 to 17), and 12 more with the static reciprocal planes; each
+// tracer adds 16. The arithmetic is about half as much again as the fast
+// form's (the unfolded metric products, the selects, two divisions in the
+// viscosity), still far from the card's rate.
+//
+// What the design does about it: the same 16 shared-memory planes as the
+// fast form, so the same blocks an SM (three of one step a launch up to
+// 73 KB). The general form keeps no depth plane: its masks and wet counts
+// come from the lu window (in S_LD), the momentum stage re-forms hhu and
+// hhv from the aq window, and the previous-level column from sshp and hr
+// at the three cells it needs, so the planes the fast form spent on hu,
+// hv and aqp hold the general form's eight edge terms (F, G, K, L, the
+// vorticity terms H and M and the Coriolis terms, each differenced with
+// its own neighbour). The tracer pass keeps aq_new in S_AQP, un and vn in
+// S_U and S_V (read by their own thread only), and reads the new sshp
+// back from the output it just wrote. Registers: the general form indexes
+// its arrays with ints (its launcher refuses arrays of 2^31 / 3 cells and
+// more), stores each field of stage 3 as soon as it is known, in three
+// passes over the same cells, and runs its last tracer stage one tracer
+// at a time; so its one-step forms keep 40 registers without a spill.
+//
 // With -DFUSED_NT=n only the forms with n tracers are compiled, with
 // -DFUSED_RAW_NT=n only their raw forms; -DFUSED_TRANS=0 and
 // -DFUSED_FFS=0 pick the forms without advection and with a linear free
 // surface (both default to 1), -DFUSED_STEPS=2 the chained forms;
 // -DFUSED_NT=3 (-DFUSED_RAW_NT=3) builds the TLOOP forms. The package
 // builds each (tracers 0, 1, 2 or 3 and more, raw, TRANS, FFS, STEPS) as a
-// library of its own, 64 side by side.
+// library of its own, 64 side by side. -DFUSED_GEN=1 builds the general
+// forms instead, every (TRANS, FFS) of them in the library of its
+// (tracers, raw, STEPS): 16 more.
 
 #include "fused_tile.cuh"
+
+#include <climits>
+#include <type_traits>
 
 #ifdef FUSED_RAW_NT
 #define FUSED_NT FUSED_RAW_NT
@@ -251,9 +304,13 @@ struct Params {
   // each metric row: a (Ys) latitude profile (indexed by column) or an
   // (Xs, Ys) plane (indexed by cell); rows the form does not read are null
   const float* met[N_MET];
-  const float* planes;   // (4, Xs, Ys): rslu_u, rslu_v, rslu_h, ludxdy
-  const float* hrld;     // (Xs, Ys) hr*lu*dx*dy, varying bathymetry only
-  const float* hrp;      // (Xs, Ys) hr, the same with viscosity or tracers
+  const float* planes;   // (4, Xs, Ys): rslu_u, rslu_v, rslu_h, ludxdy;
+                         // the general forms: (Xs, Ys) lu
+  const float* hrld;     // (Xs, Ys) hr*lu*dx*dy, varying bathymetry only;
+                         // the general forms: (3, Xs, Ys) rslu_u, rslu_v,
+                         // rslu_h (static_rslu), or null (selects)
+  const float* hrp;      // (Xs, Ys) hr, the same with viscosity or tracers;
+                         // the general forms: always
   float* ssh_o; float* sshp_o;
   float* u_o; float* up_o;
   float* v_o; float* vp_o;
@@ -802,8 +859,558 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
   }
 }
 
+// the general form's metric rows: the profile's rows 0-15, or its 16
+// planes, at their own index (ops/fused_layout.py row meanings)
+enum {
+  G_DX, G_DY, G_DXT, G_DYT, G_DXH, G_DYH, G_DXB, G_DYB, G_RLH,
+  G_RDXDY, G_RDXT, G_RDYT, G_RDXH, G_RDYH, G_RDXB, G_RDYB,
+  N_GEN_MET
+};
+static_assert(N_GEN_MET <= N_MET, "Params holds the general form's rows");
+
+// The reciprocal wet counts of the general form's depth interpolations at
+// window cell k (array cell g, inside the array): with static planes
+// (p.hrld) their values, else the TPU kernel's selects on the wet-
+// neighbour sums of the lu window s_lu (row stride S, column stride 1).
+__device__ __forceinline__ float gen_rcp_u(const Params& p, const float* s_lu,
+                                           int k, int g, int S) {
+  return p.hrld ? p.hrld[g] : (s_lu[k] + s_lu[k + S] > 1.5f ? 0.5f : 1.f);
+}
+
+__device__ __forceinline__ float gen_rcp_v(const Params& p, const float* s_lu,
+                                           int k, int g, int plane) {
+  return p.hrld ? p.hrld[plane + g]
+                : (s_lu[k] + s_lu[k + 1] > 1.5f ? 0.5f : 1.f);
+}
+
+__device__ __forceinline__ float gen_rcp_h(const Params& p, const float* s_lu,
+                                           int k, int g, int plane,
+                                           int S) {
+  if (p.hrld) return p.hrld[2 * plane + g];
+  const float slu = ((s_lu[k] + s_lu[k + S]) + s_lu[k + 1]) + s_lu[k + S + 1];
+  return slu > 3.5f ? 0.25f
+       : slu > 2.5f ? 1.f / 3.f
+       : slu > 1.5f ? 0.5f : 1.f;
+}
+
+// One model step of the general form (see the file's head), with the
+// stages, regions and chained-step bookkeeping of sw_step. Its use of the
+// 16 window planes:
+//   S_LD <- lu; S_AQ <- aq; S_UD, S_VD <- the mass fluxes u*hhu*dyh,
+//   v*hhv*dxh; S_F, S_K, S_RX, S_SY <- the viscous forms' up/dyh, vp/dxh,
+//   up/dxt, vp/dyt between stage 1 and the stress stage, as in sw_step;
+//   stage 2's edge terms F -> S_F, G -> S_HU, K -> S_K, L -> S_HV, the
+//   vorticity terms H -> S_RX, M -> S_SY, the Coriolis terms Cv -> S_CX,
+//   Cu -> S_CY; the tracer pass: aq_new -> S_AQP (a linear free surface
+//   keeps S_AQ), un, vn -> S_U, S_V, its flux planes and a run-time
+//   count's shared uh, vh, kx, ky -> S_HU, S_HV, S_CX, S_CY.
+template <int NT, bool MET2D, int MU, bool RAW, bool TRANS, bool FFS,
+          int STEPS, int STEP>
+__device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
+                                            float& mx) {
+  using Fm = Form<NT, STEPS>;
+  constexpr int HALO = Fm::HALO, EXTRA = Fm::EXTRA, WH = Fm::WH;
+  constexpr int TX = Fm::TX, TY = Fm::TY;
+  constexpr int NTHREADS = Tile<STEPS>::NTHREADS;
+  constexpr int WY = Fm::WY, PLANE = Fm::PLANE;
+  constexpr bool VISC = MU == 2;            // stress stages
+  constexpr bool DIFF = NT != 0 && MU != 0; // tracers' diffusive fluxes
+  constexpr bool LOOP = NT < 0;             // a run-time tracer count
+  constexpr bool FIRST = STEP == 0, LAST = STEP == STEPS - 1;
+  constexpr int OH = HALO * (STEPS - 1 - STEP);   // this step's output halo
+  constexpr int VH = OH + Fm::VH, VW = TY + 2 * VH, VN = (TX + 2 * VH) * VW;
+
+  const int tid = threadIdx.x;
+  float* s_ssh = sm + (FIRST ? S_SSH : E_SSH) * PLANE;
+  float* s_u = sm + S_U * PLANE;
+  float* s_v = sm + S_V * PLANE;
+  float* s_lu = sm + S_LD * PLANE;
+  float* s_aq = sm + S_AQ * PLANE;
+  float* s_aqn = sm + (FFS ? S_AQP : S_AQ) * PLANE;   // tracers' column
+  float* s_ud = sm + S_UD * PLANE;
+  float* s_vd = sm + S_VD * PLANE;
+  float* s_ef = sm + S_F * PLANE;           // F   (viscous: up/dyh first)
+  float* s_ek = sm + S_K * PLANE;           // K   (vp/dxh)
+  float* s_eh = sm + S_RX * PLANE;          // H   (up/dxt)
+  float* s_em = sm + S_SY * PLANE;          // M   (vp/dyt)
+  float* s_eg = sm + S_HU * PLANE;          // G
+  float* s_el = sm + S_HV * PLANE;          // L
+  float* s_cv = sm + S_CX * PLANE;          // Cv
+  float* s_cu = sm + S_CY * PLANE;          // Cu
+  const int n_win = LOOP && STEPS > 1 ? Fm::N_BASE + p.n_lev_sm
+                                      : Fm::N_PLANES;
+  float* s_a2 = sm + n_win * PLANE + V_A2 * Fm::VPLANE;   // viscous
+  float* s_b2 = sm + n_win * PLANE + V_B2 * Fm::VPLANE;   // forms only
+  float* s_d2 = sm + n_win * PLANE + V_D2 * Fm::VPLANE;
+  float* s_e2 = sm + n_win * PLANE + V_E2 * Fm::VPLANE;
+  float* e_ssh = sm + E_SSH * PLANE;
+  float* e_sshp = sm + E_SSHP * PLANE;
+  float* e_up = sm + E_UP * PLANE;
+  float* e_vp = sm + E_VP * PLANE;
+  float* e_tr = sm + E_TR * PLANE;          // see chain_level
+
+  const int x0 = blockIdx.y * TX - WH;     // global row of window row 0
+  const int y0 = blockIdx.x * TY - WH;     // global column of window col 0
+  const int plane = p.Xs * p.Ys;
+  const float* lu = p.planes;
+  const float* hr = p.hrp;
+  const int W = 1;                          // one window row/col offset
+  const int S = WY;                         // window row stride
+  // a metric row's index of array cell g in column gy
+  auto mix = [&](int g, int gy) { return MET2D ? g : gy; };
+
+  // stage 0 (halo 3 + EXTRA): load the window; aq = (hr + ssh * ffs) *
+  // (dx * dy) * lu. A later step of a chained launch forms aq anew from
+  // the previous step's ssh (the static column of a linear free surface
+  // stays from the first)
+  if (FIRST) {
+    for (int i = tid; i < PLANE; i += NTHREADS) {
+      const int gx = x0 + i / WY, gy = y0 + i % WY;
+      float ssh = 0.f, u = 0.f, v = 0.f, l = 0.f, aq = 0.f;
+      if (inside(p, gx, gy)) {
+        const int g = gx * p.Ys + gy, mi = mix(g, gy);
+        ssh = p.ssh[g]; u = p.u[g]; v = p.v[g]; l = lu[g];
+        aq = ((FFS ? hr[g] + ssh : hr[g])
+              * (p.met[G_DX][mi] * p.met[G_DY][mi])) * l;
+      }
+      s_ssh[i] = ssh; s_u[i] = u; s_v[i] = v; s_lu[i] = l; s_aq[i] = aq;
+    }
+    __syncthreads();
+  } else if (FFS) {
+    constexpr int h = OH + HALO, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    for (int i = tid; i < n; i += NTHREADS) {
+      const int a = WH - h + i / w, b = WH - h + i % w;
+      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      float aq = 0.f;
+      if (inside(p, gx, gy)) {
+        const int g = gx * p.Ys + gy, mi = mix(g, gy);
+        aq = ((hr[g] + s_ssh[k]) * (p.met[G_DX][mi] * p.met[G_DY][mi]))
+            * s_lu[k];
+      }
+      s_aq[k] = aq;
+    }
+    __syncthreads();
+  }
+
+  // stage 1 (halo 2 + EXTRA): the depth interps hhu, hhv and the mass
+  // fluxes; with viscosity the previous-level velocities over their
+  // metrics
+  {
+    constexpr int h = OH + 2 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    for (int i = tid; i < n; i += NTHREADS) {
+      const int a = WH - h + i / w, b = WH - h + i % w;
+      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      float ud = 0.f, vd = 0.f;
+      if (inside(p, gx, gy)) {
+        const int g = gx * p.Ys + gy, mi = mix(g, gy);
+        const float hu = ((s_aq[k] + s_aq[k + S])
+                          * gen_rcp_u(p, s_lu, k, g, S))
+            * (p.met[G_RDXT][mi] * p.met[G_RDYH][mi]);
+        const float hv = ((s_aq[k] + s_aq[k + W])
+                          * gen_rcp_v(p, s_lu, k, g, plane))
+            * (p.met[G_RDXH][mi] * p.met[G_RDYT][mi]);
+        ud = (s_u[k] * hu) * p.met[G_DYH][mi];
+        vd = (s_v[k] * hv) * p.met[G_DXH][mi];
+        if (VISC) {
+          const float up = FIRST ? p.up[g] : e_up[k];
+          const float vp = FIRST ? p.vp[g] : e_vp[k];
+          s_ef[k] = up * p.met[G_RDYH][mi];
+          s_ek[k] = vp * p.met[G_RDXH][mi];
+          s_eh[k] = up * p.met[G_RDXT][mi];
+          s_em[k] = vp * p.met[G_RDYT][mi];
+        }
+      } else if (VISC) {
+        s_ef[k] = 0.f; s_ek[k] = 0.f; s_eh[k] = 0.f; s_em[k] = 0.f;
+      }
+      s_ud[k] = ud; s_vd[k] = vd;
+    }
+  }
+  __syncthreads();
+
+  // stress stage (halo 1 + EXTRA, viscous forms): tension at T points,
+  // shear at H points, and their four products with mu, the depth and the
+  // squared metrics of the cell
+  if (VISC) {
+    constexpr int h = VH, n = VN;
+    const float* s_q = s_ef;
+    const float* s_r = s_ek;
+    const float* s_s1 = s_eh;
+    const float* s_s2 = s_em;
+    for (int i = tid; i < n; i += NTHREADS) {
+      const int a = WH - h + i / VW, b = WH - h + i % VW;
+      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      float a2 = 0.f, b2 = 0.f, d2 = 0.f, e2 = 0.f;
+      if (inside(p, gx, gy)) {
+        const int g = gx * p.Ys + gy, mi = mix(g, gy);
+        const float l0 = s_lu[k];
+        const bool wluu = ((l0 * s_lu[k + S]) * s_lu[k + W])
+            * s_lu[k + S + W] > 0.5f;
+        const float dx = p.met[G_DX][mi], dy = p.met[G_DY][mi];
+        const float dxb = p.met[G_DXB][mi], dyb = p.met[G_DYB][mi];
+        if (l0 > 0.5f) {
+          const float str_t = (dy / dx) * (s_q[k] - s_q[k - S])
+              - (dx / dy) * (s_r[k] - s_r[k - W]);
+          const float t2 = (FFS ? hr[g] + s_ssh[k] : hr[g]) * str_t;
+          a2 = (dy * dy * p.mu) * t2;
+          b2 = (dx * dx * p.mu) * t2;
+        }
+        if (wluu) {
+          const float hh = ((((s_aq[k] + s_aq[k + S]) + s_aq[k + W])
+                             + s_aq[k + S + W])
+                            * gen_rcp_h(p, s_lu, k, g, plane, S))
+              * (p.met[G_RDXB][mi] * p.met[G_RDYB][mi]);
+          const float str_s =
+              (dxb * p.met[G_RDYB][mi]) * (s_s1[k + W] - s_s1[k])
+              + (dyb * p.met[G_RDXB][mi]) * (s_s2[k + S] - s_s2[k]);
+          const float hs2 = hh * str_s;
+          d2 = (dxb * dxb * p.mu) * hs2;
+          e2 = (dyb * dyb * p.mu) * hs2;
+        }
+      }
+      s_a2[i] = a2; s_b2[i] = b2; s_d2[i] = d2; s_e2[i] = e2;
+    }
+    __syncthreads();
+  }
+
+  // stage 2 (halo 1 + EXTRA): hhh, the Coriolis terms, and with advection
+  // the vorticity, the edge fluxes and the vorticity terms
+  {
+    constexpr int h = OH + 1 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    for (int i = tid; i < n; i += NTHREADS) {
+      const int a = WH - h + i / w, b = WH - h + i % w;
+      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      float F = 0.f, G = 0.f, K = 0.f, L = 0.f, H = 0.f, Mv = 0.f;
+      float cv = 0.f, cu = 0.f;
+      if (inside(p, gx, gy)) {
+        const int g = gx * p.Ys + gy, mi = mix(g, gy);
+        const bool wluu = ((s_lu[k] * s_lu[k + S]) * s_lu[k + W])
+            * s_lu[k + S + W] > 0.5f;
+        const float hh = ((((s_aq[k] + s_aq[k + S]) + s_aq[k + W])
+                           + s_aq[k + S + W])
+                          * gen_rcp_h(p, s_lu, k, g, plane, S))
+            * (p.met[G_RDXB][mi] * p.met[G_RDYB][mi]);
+        const float u = s_u[k], v = s_v[k];
+        const float ux = s_u[k + S], uy = s_u[k + W];
+        const float vx = s_v[k + S], vy = s_v[k + W];
+        const float s2u = uy + u, s2v = vx + v;
+        const float corio =
+            (p.met[G_RLH][mi] * p.met[G_DXB][mi] * p.met[G_DYB][mi]) * hh;
+        cv = corio * s2v;
+        cu = corio * s2u;
+        if (TRANS) {
+          float vort = 0.f;
+          if (wluu) {      // every neighbour wet: inside the array
+            const float vd_t = v * p.met[G_DYT][mi];
+            const float vd_tx = vx * p.met[G_DYT][MET2D ? g + p.Ys : mi];
+            const float ud_t = u * p.met[G_DXT][mi];
+            const float ud_ty = uy * p.met[G_DXT][mi + 1];
+            vort = ((vd_tx - vd_t) - (ud_ty - ud_t))
+                - ((vx - v) * p.met[G_DYB][mi] - (uy - u) * p.met[G_DXB][mi]);
+          }
+          const float vorth = vort * hh;
+          const float ud = s_ud[k], vd = s_vd[k];
+          F = (ud + s_ud[k + S]) * (u + ux) * 0.25f;
+          G = (vd + s_vd[k + S]) * s2u * (wluu ? 0.25f : 0.f);
+          K = (vd + s_vd[k + W]) * (v + vy) * 0.25f;
+          L = (ud + s_ud[k + W]) * s2v * 0.25f;
+          H = vorth * s2v;
+          Mv = vorth * s2u;
+        }
+      }
+      if (TRANS) {
+        s_ef[k] = F; s_eg[k] = G; s_ek[k] = K; s_el[k] = L;
+        s_eh[k] = H; s_em[k] = Mv;
+      }
+      s_cv[k] = cv; s_cu[k] = cu;
+    }
+  }
+  __syncthreads();
+
+  // stage 3: continuity, momentum, leapfrog + filter, the 6 SW outputs
+  // (halo 0). With tracers the continuity runs at halo 2 and the momentum
+  // at halo 1, and they leave aq_new, un and vn in shared memory. Step A
+  // of a chained launch keeps its outputs (halo 3 + EXTRA) in shared
+  // memory, zeros outside the array, and computes the raw form's margin
+  // too. Three passes, each field stored as soon as it is known: (a) the
+  // continuity and ssh, (b) u, (c) v. None reads what another writes, so
+  // no barrier parts them; apart, each holds few enough values that the
+  // one-step forms keep their 40 registers without spilling.
+  // distance of window cell (a, b) beyond this step's output region: 0
+  // inside it
+  auto ring_of = [&](int a, int b) {
+    return !NT ? 0
+        : max(max(WH - OH - a, a - (WH + OH + TX - 1)),
+              max(max(WH - OH - b, b - (WH + OH + TY - 1)), 0));
+  };
+  {
+    constexpr int h = OH + 2 * EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    for (int i = tid; i < n; i += NTHREADS) {
+      const int a = WH - h + i / w, b = WH - h + i % w;
+      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      const int ring = ring_of(a, b);
+      if (!inside(p, gx, gy)) {
+        if (NT && FFS) s_aqn[k] = 0.f;
+        if (!LAST && ring == 0) {
+          e_ssh[k] = 0.f; e_sshp[k] = 0.f; e_up[k] = 0.f; e_vp[k] = 0.f;
+        }
+        continue;
+      }
+      const int g = gx * p.Ys + gy, mi = mix(g, gy);
+      const float ssh = s_ssh[k], sshp = FIRST ? p.sshp[g] : e_sshp[k];
+      const float l0 = s_lu[k];
+      const bool wlu = l0 > 0.5f;
+
+      // continuity: sshn = sshp - 2 tau div(flux) / (dx dy) on the wet set
+      const float div = ((s_ud[k] - s_ud[k - S]) + s_vd[k]) - s_vd[k - W];
+      const float sshn = wlu ? sshp - p.two_tau * (div * p.met[G_RDXDY][mi])
+                             : 0.f;
+      // post-step depth column from the new ssh
+      if (NT && FFS)
+        s_aqn[k] = ((hr[g] + (wlu ? sshn : ssh))
+                    * (p.met[G_DX][mi] * p.met[G_DY][mi])) * l0;
+      if (ring > 0) continue;
+      if (LAST && RAW && !in_box(p, gx, gy)) continue;   // not our margin
+
+      // leapfrog rotation + Robert-Asselin filter
+      const float ssh_new = wlu ? sshn : ssh;
+      const float sshp_new = wlu ? p.ts1 * ssh + p.ts2 * (sshn + sshp) : sshp;
+      if (LAST) {
+        p.ssh_o[g] = ssh_new;
+        p.sshp_o[g] = sshp_new;
+      } else {
+        e_ssh[k] = ssh_new; e_sshp[k] = sshp_new;
+      }
+      // the block's own cells of the box, at every step
+      if ((OH == 0 || (a >= WH && a < WH + TX && b >= WH && b < WH + TY))
+          && gx >= p.margin && gx < p.margin + p.nx
+          && gy >= p.margin && gy < p.margin + p.ny)
+        mx = nan_max(mx, fabsf(ssh_new));
+    }
+  }
+  // (b), (c): momentum, (up*bp0 + gr) / bp with bp = hhu * dxt*dyh /
+  // (2 tau), then the rotation and filter of u, and of v. Y selects v.
+  // The previous-level column at cell k + d (array cell g + dg, its metric
+  // row index mi + dm) comes from sshp and hr, as stage 0 forms aq.
+  auto momentum = [&](auto y_pass) {
+    constexpr bool Y = decltype(y_pass)::value;
+    constexpr int h = OH + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
+    const int D = Y ? W : S;                  // the cell x + 1 or y + 1
+    float* s_c = Y ? s_v : s_u;               // the component
+    float* e_cp = Y ? e_vp : e_up;            // its previous level
+    const float* cp_g = Y ? p.vp : p.up;
+    float* c_o = Y ? p.v_o : p.u_o;
+    float* cp_o = Y ? p.vp_o : p.up_o;
+    for (int i = tid; i < n; i += NTHREADS) {
+      const int a = WH - h + i / w, b = WH - h + i % w;
+      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      if (!inside(p, gx, gy)) continue;
+      const int g = gx * p.Ys + gy, mi = mix(g, gy);
+      const int dg = Y ? 1 : p.Ys, dm = Y || MET2D ? dg : 0;
+      const bool wet = s_lu[k] * s_lu[k + D] > 0.5f;   // wlcu / wlcv
+      const float c = s_c[k], cp = FIRST ? cp_g[g] : e_cp[k];
+      float cn = 0.f;
+      if (wet) {          // the cell k + D is wet: inside the array
+        auto aqp = [&](int d, int eg, int em) {
+          const float sp = FIRST ? p.sshp[g + eg] : e_sshp[k + d];
+          return ((hr[g + eg] + sp)
+                  * (p.met[G_DX][mi + em] * p.met[G_DY][mi + em]))
+              * s_lu[k + d];
+        };
+        // this cell in the small stress planes (viscous forms)
+        const int j = (a - (WH - VH)) * VW + (b - (WH - VH));
+        const float r = Y ? gen_rcp_v(p, s_lu, k, g, plane)
+                          : gen_rcp_u(p, s_lu, k, g, S);
+        const float mt = Y ? p.met[G_RDXH][mi] * p.met[G_RDYT][mi]
+                           : p.met[G_RDXT][mi] * p.met[G_RDYH][mi];
+        const float hc = ((s_aq[k] + s_aq[k + D]) * r) * mt;
+        const float hcp = FFS ? ((aqp(0, 0, 0) + aqp(D, dg, dm)) * r) * mt
+                              : hc;
+        // the metric across the face: dyh for u, dxh for v
+        const float mf = p.met[Y ? G_DXH : G_DYH][mi];
+        const float bpm = (Y ? p.met[G_DYT][mi] * mf : p.met[G_DXT][mi] * mf)
+            * p.inv_two_tau;
+        float gr = (s_ssh[k + D] - s_ssh[k]) * hc * (mf * p.neg_g);
+        if (Y) {
+          if (VISC)
+            gr = gr + (-(s_b2[j + 1] - s_b2[j]) * p.met[G_RDXH][mi]
+                       + (s_e2[j] - s_e2[j - VW]) * p.met[G_RDYT][mi]);
+          if (TRANS)
+            gr = gr + (-(((s_el[k] - s_el[k - S]) + s_ek[k]) - s_ek[k - W])
+                       - (s_em[k] + s_em[k - S]) * 0.25f);
+          gr = gr - (s_cu[k] + s_cu[k - S]) * 0.25f;
+        } else {
+          if (VISC)
+            gr = gr + ((s_a2[j + VW] - s_a2[j]) * p.met[G_RDYH][mi]
+                       + (s_d2[j] - s_d2[j - 1]) * p.met[G_RDXT][mi]);
+          if (TRANS)
+            gr = gr + (-(((s_ef[k] - s_ef[k - S]) + s_eg[k]) - s_eg[k - W])
+                       + (s_eh[k] + s_eh[k - W]) * 0.25f);
+          gr = gr + (s_cv[k] + s_cv[k - W]) * 0.25f;
+        }
+        cn = (cp * (hcp * bpm) + gr) / (hc * bpm);
+      }
+      if (NT) s_c[k] = cn;      // 0 off the wet set
+      if (ring_of(a, b) > 0) continue;
+      if (LAST && RAW && !in_box(p, gx, gy)) continue;   // not our margin
+      const float c_new = wet ? cn : c;
+      const float cp_new = wet ? p.ts1 * c + p.ts2 * (cn + cp) : cp;
+      if (LAST) { c_o[g] = c_new; cp_o[g] = cp_new; }
+      else { s_c[k] = c_new; e_cp[k] = cp_new; }
+    }
+  };
+  momentum(std::false_type{});
+  momentum(std::true_type{});
+
+  if (NT) {
+    // The tracers in groups of G, as in sw_step. The transports uh = un *
+    // hhun, vh = vn * hhvn and the diffusive weights kx, ky are the same
+    // for every tracer: a run-time count's first group keeps them in
+    // S_HU, S_HV, S_CX, S_CY (last read in stage 3) for the later groups.
+    constexpr int G = LOOP ? MAX_TRACERS : NT;
+    const int ntr = LOOP ? p.n_tr : NT;
+    float* s_uh = sm + S_HU * PLANE;
+    float* s_vh = sm + S_HV * PLANE;
+    float* s_kx = sm + S_CX * PLANE;
+    float* s_ky = sm + S_CY * PLANE;
+    for (int t0 = 0; t0 < ntr; t0 += G) {
+      const int ng = LOOP ? min(G, ntr - t0) : G;   // tracers of the group
+      __syncthreads();
+
+      // stage 4 (halo 1): post-step depths hhun, hhvn from aq_new, the
+      // transports on the u / v wet sets, and each tracer's centred
+      // advective edge fluxes with their dyh, dxh, plus the diffusive
+      // ones mu * dyh/dxt * hhun * dff/dx when mu != 0
+      {
+        constexpr int h = OH + 1, w = TY + 2 * h, n = (TX + 2 * h) * w;
+        for (int i = tid; i < n; i += NTHREADS) {
+          const int a = WH - h + i / w, b = WH - h + i % w;
+          const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+          const float l0 = s_lu[k];
+          const bool wlcu = l0 * s_lu[k + S] > 0.5f;
+          const bool wlcv = l0 * s_lu[k + W] > 0.5f;
+          float uh = 0.f, vh = 0.f, kx = 0.f, ky = 0.f;
+          float cx = 0.f, cy = 0.f;          // dyh * -1/2, dxh * -1/2
+          if (inside(p, gx, gy)) {
+            const int g = gx * p.Ys + gy, mi = mix(g, gy);
+            cx = p.met[G_DYH][mi] * -0.5f;
+            cy = p.met[G_DXH][mi] * -0.5f;
+            if (!LOOP || t0 == 0) {
+              const float aqn = s_aqn[k];
+              const float hun = ((aqn + s_aqn[k + S])
+                                 * gen_rcp_u(p, s_lu, k, g, S))
+                  * (p.met[G_RDXT][mi] * p.met[G_RDYH][mi]);
+              const float hvn = ((aqn + s_aqn[k + W])
+                                 * gen_rcp_v(p, s_lu, k, g, plane))
+                  * (p.met[G_RDXH][mi] * p.met[G_RDYT][mi]);
+              uh = s_u[k] * hun;
+              vh = s_v[k] * hvn;
+              if (DIFF) {
+                kx = (p.mu * (p.met[G_DYH][mi] * p.met[G_RDXT][mi])) * hun;
+                ky = (p.mu * (p.met[G_DXH][mi] * p.met[G_RDYT][mi])) * hvn;
+              }
+              if (LOOP) {
+                s_uh[k] = uh; s_vh[k] = vh;
+                if (DIFF) { s_kx[k] = kx; s_ky[k] = ky; }
+              }
+            } else {
+              uh = s_uh[k]; vh = s_vh[k];
+              if (DIFF) { kx = s_kx[k]; ky = s_ky[k]; }
+            }
+          }
+#pragma unroll
+          for (int t = 0; t < G; ++t) {
+            if (LOOP && t >= ng) break;
+            const int l = 2 * (t0 + t);
+            float ff, ffx, ffy;
+            if (FIRST) {
+              const float* ffg = tr_in<NT>(p, l);
+              ff = at(p, ffg, gx, gy);
+              ffx = at(p, ffg, gx + 1, gy);
+              ffy = at(p, ffg, gx, gy + 1);
+            } else {
+              const float* e = chain_level<NT, PLANE>(p, e_tr, l);
+              ff = e[k]; ffx = e[k + S]; ffy = e[k + W];
+            }
+            float fx = 0.f, fy = 0.f;
+            if (wlcu) {
+              fx = uh * (ff + ffx) * cx;
+              if (DIFF) fx = fx + kx * (ffx - ff);
+            }
+            if (wlcv) {
+              fy = vh * (ff + ffy) * cy;
+              if (DIFF) fy = fy + ky * (ffy - ff);
+            }
+            sm[(S_F + 2 * t) * PLANE + k] = fx;
+            sm[(S_F + 2 * t + 1) * PLANE + k] = fy;
+          }
+        }
+      }
+      __syncthreads();
+
+      // stage 5 (halo 0): leapfrog update from the flux divergence,
+      // rotation + Robert-Asselin filter, the group's 2 ng tracer outputs
+      constexpr int h = OH, w = TY + 2 * h, n = (TX + 2 * h) * w;
+      for (int i = tid; i < n; i += NTHREADS) {
+        const int a = WH - h + i / w, b = WH - h + i % w;
+        const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+        if (!inside(p, gx, gy)) {
+          if (!LAST) {
+#pragma unroll
+            for (int t = 0; t < 2 * G; ++t) {
+              if (LOOP && t >= 2 * ng) break;
+              chain_level<NT, PLANE>(p, e_tr, 2 * t0 + t)[k] = 0.f;
+            }
+          }
+          continue;
+        }
+        if (LAST && RAW && !in_box(p, gx, gy)) continue;
+        const int g = gx * p.Ys + gy, mi = mix(g, gy);
+        const bool wlu = s_lu[k] > 0.5f;
+        // bp = hhq_n*area, bp0 = hhq_p*area with hhq_n = hr,
+        // hhq_p = hr + sshp_new * ffs, area = dx*dy / (2 tau); the new
+        // sshp is this step's output
+        const float area = p.met[G_DX][mi] * p.met[G_DY][mi] * p.inv_two_tau;
+        const float hrc = hr[g];
+        const float bp = hrc * area;
+        const float bp0 = FFS ? (hrc + (LAST ? p.sshp_o[g] : e_sshp[k]))
+                                    * area
+                              : bp;
+        // one tracer at a time: unrolled, the group's loads together
+        // spill the raw two-tracer forms past their 40 registers
+#pragma unroll 1
+        for (int t = 0; t < G; ++t) {
+          if (LOOP && t >= ng) break;
+          const int l = 2 * (t0 + t);
+          const float* fx = sm + (S_F + 2 * t) * PLANE;
+          const float* fy = sm + (S_F + 2 * t + 1) * PLANE;
+          float* e0 = FIRST && LAST ? nullptr
+                                    : chain_level<NT, PLANE>(p, e_tr, l);
+          float* e1 = FIRST && LAST ? nullptr
+                                    : chain_level<NT, PLANE>(p, e_tr, l + 1);
+          const float ff = FIRST ? tr_in<NT>(p, l)[g] : e0[k];
+          const float ffp = FIRST ? tr_in<NT>(p, l + 1)[g] : e1[k];
+          float ffn = 0.f;
+          if (wlu) {
+            const float rhs = ((fx[k] - fx[k - S]) + fy[k]) - fy[k - W];
+            ffn = (bp0 * ffp + rhs) / bp;
+          }
+          const float ff_new = wlu ? ffn : ff;
+          const float ffp_new = wlu ? p.ts1 * ff + p.ts2 * (ffn + ffp) : ffp;
+          if (LAST) {
+            tr_out<NT>(p, l)[g] = ff_new;
+            tr_out<NT>(p, l + 1)[g] = ffp_new;
+          } else {
+            e0[k] = ff_new;
+            e1[k] = ffp_new;
+          }
+        }
+      }
+    }
+  }
+}
+
 template <int NT, bool GUARD, bool MET2D, int MU, bool HRP, bool RAW,
-          bool TRANS, bool FFS, int STEPS>
+          bool TRANS, bool FFS, int STEPS, bool GEN>
 __global__ void
 __launch_bounds__(Tile<STEPS>::NTHREADS, Tile<STEPS>::MIN_BLOCKS)
 fused_sw_step_kernel(const Params p) {
@@ -843,10 +1450,18 @@ fused_sw_step_kernel(const Params p) {
   __shared__ float s_red[NWARPS];
 
   float mx = 0.f;
-  sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 0>(p, sm, mx);
-  if constexpr (STEPS > 1) {
-    __syncthreads();       // step A's outputs are in shared memory
-    sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 1>(p, sm, mx);
+  if constexpr (GEN) {
+    sw_step_gen<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 0>(p, sm, mx);
+    if constexpr (STEPS > 1) {
+      __syncthreads();     // step A's outputs are in shared memory
+      sw_step_gen<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 1>(p, sm, mx);
+    }
+  } else {
+    sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 0>(p, sm, mx);
+    if constexpr (STEPS > 1) {
+      __syncthreads();     // step A's outputs are in shared memory
+      sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 1>(p, sm, mx);
+    }
   }
 
   // block max |ssh|, NaN-propagating, over both steps of a chained launch
@@ -868,8 +1483,14 @@ constexpr bool RAW_BUILD = true;
 #else
 constexpr bool RAW_BUILD = false;
 #endif
-// the advection and free-surface forms this library holds, and the model
-// steps its forms chain in a launch
+// whether this library holds the general forms (and then no other)
+#ifdef FUSED_GEN
+constexpr bool GEN_BUILD = true;
+#else
+constexpr bool GEN_BUILD = false;
+#endif
+// the advection and free-surface forms this library holds (a general
+// library: all four), and the model steps its forms chain in a launch
 constexpr bool TRANS_BUILD = FUSED_TRANS != 0;
 constexpr bool FFS_BUILD = FUSED_FFS != 0;
 constexpr int STEPS_BUILD = FUSED_STEPS;
@@ -883,11 +1504,11 @@ int launch(const Params& p, cudaStream_t stream) {
         * (NT < 0 ? p.n_lev_sm : 0);
   cudaError_t e = cudaFuncSetAttribute(
       fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD, TRANS_BUILD,
-                           FFS_BUILD, STEPS_BUILD>,
+                           FFS_BUILD, STEPS_BUILD, false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD, TRANS_BUILD,
-                       FFS_BUILD, STEPS_BUILD>
+                       FFS_BUILD, STEPS_BUILD, false>
       <<<dim3((p.Ys + TILE::TY - 1) / TILE::TY,
               (p.Xs + TILE::TX - 1) / TILE::TX),
          TILE::NTHREADS, smem, stream>>>(p);
@@ -922,6 +1543,68 @@ int launch_form(const Params& p, bool met2d, int mu_mode, cudaStream_t s) {
                : launch_mu<NT, false, false>(p, mu_mode, s);
 }
 
+#ifdef FUSED_GEN
+// the general forms: every (TRANS, FFS) in this library
+template <int NT, bool GUARD, bool MET2D, int MU, bool TRANS, bool FFS>
+int launch_gen(const Params& p, cudaStream_t stream) {
+  const size_t smem = smem_bytes<NT, STEPS_BUILD>(MU == 2)
+      + sizeof(float) * Form<NT, STEPS_BUILD>::PLANE
+        * (NT < 0 ? p.n_lev_sm : 0);
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_sw_step_kernel<NT, GUARD, MET2D, MU, false, RAW_BUILD, TRANS,
+                           FFS, STEPS_BUILD, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  fused_sw_step_kernel<NT, GUARD, MET2D, MU, false, RAW_BUILD, TRANS, FFS,
+                       STEPS_BUILD, true>
+      <<<dim3((p.Ys + TILE::TY - 1) / TILE::TY,
+              (p.Xs + TILE::TX - 1) / TILE::TX),
+         TILE::NTHREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int NT, bool GUARD, bool MET2D, bool TRANS, bool FFS>
+int launch_gen_mu(const Params& p, int mu_mode, cudaStream_t s) {
+  switch (mu_mode) {
+    case 0: return launch_gen<NT, GUARD, MET2D, 0, TRANS, FFS>(p, s);
+    case 1:
+      if constexpr (NT != 0)
+        return launch_gen<NT, GUARD, MET2D, 1, TRANS, FFS>(p, s);
+      return (int)cudaErrorInvalidValue;
+    default: return launch_gen<NT, GUARD, MET2D, 2, TRANS, FFS>(p, s);
+  }
+}
+
+template <int NT, bool GUARD, bool MET2D>
+int launch_gen_forms(const Params& p, int mu_mode, bool trans, bool ffs,
+                     cudaStream_t s) {
+  if (trans)
+    return ffs ? launch_gen_mu<NT, GUARD, MET2D, true, true>(p, mu_mode, s)
+               : launch_gen_mu<NT, GUARD, MET2D, true, false>(p, mu_mode, s);
+  return ffs ? launch_gen_mu<NT, GUARD, MET2D, false, true>(p, mu_mode, s)
+             : launch_gen_mu<NT, GUARD, MET2D, false, false>(p, mu_mode, s);
+}
+#endif
+
+// the forms of this library with NT tracers
+template <int NT>
+int dispatch(const Params& p, bool met2d, int mu_mode, bool trans, bool ffs,
+             cudaStream_t s) {
+#ifdef FUSED_GEN
+  const bool guard = p.tile_wet != nullptr;
+  if (met2d)
+    return guard ? launch_gen_forms<NT, true, true>(p, mu_mode, trans, ffs, s)
+                 : launch_gen_forms<NT, false, true>(p, mu_mode, trans, ffs,
+                                                     s);
+  return guard ? launch_gen_forms<NT, true, false>(p, mu_mode, trans, ffs, s)
+               : launch_gen_forms<NT, false, false>(p, mu_mode, trans, ffs,
+                                                    s);
+#else
+  (void)trans; (void)ffs;
+  return launch_form<NT>(p, met2d, mu_mode, s);
+#endif
+}
+
 }  // namespace
 
 extern "C" {
@@ -940,7 +1623,7 @@ int fused_sw_step_threads() { return TILE::NTHREADS; }
 int fused_sw_step_min_blocks() { return TILE::MIN_BLOCKS; }
 
 // How many metric rows fused_sw_step_launch takes slots for.
-int fused_sw_step_n_met() { return N_MET; }
+int fused_sw_step_n_met() { return GEN_BUILD ? N_GEN_MET : N_MET; }
 
 // The tracer count this library was built for (-DFUSED_NT, -DFUSED_RAW_NT;
 // 3 builds the TLOOP forms, which take any count from 3 up), or -1 for
@@ -956,12 +1639,16 @@ int fused_sw_step_built_for() {
 // 1 if this library holds the raw forms (-DFUSED_RAW_NT), else 0.
 int fused_sw_step_built_raw() { return RAW_BUILD ? 1 : 0; }
 
-// 1 if this library's forms advect momentum (-DFUSED_TRANS, default 1).
-int fused_sw_step_built_trans() { return TRANS_BUILD ? 1 : 0; }
+// 1 if this library's forms advect momentum (-DFUSED_TRANS, default 1);
+// -1 for a general library, which holds both.
+int fused_sw_step_built_trans() { return GEN_BUILD ? -1 : TRANS_BUILD; }
 
 // 1 if this library's forms have a full free surface (-DFUSED_FFS,
-// default 1), 0 for a linear one.
-int fused_sw_step_built_ffs() { return FFS_BUILD ? 1 : 0; }
+// default 1), 0 for a linear one; -1 for a general library, both.
+int fused_sw_step_built_ffs() { return GEN_BUILD ? -1 : FFS_BUILD; }
+
+// 1 if this library holds the general forms (-DFUSED_GEN), else 0.
+int fused_sw_step_built_general() { return GEN_BUILD ? 1 : 0; }
 
 // The model steps a launch of this library's forms runs (-DFUSED_STEPS,
 // default 1; 2 chains two).
@@ -1008,7 +1695,12 @@ long long fused_sw_step_scratch_floats(int n_tracers, int visc, int Xs,
 // row meanings), negative for a row the form does not read. planes:
 // (n_planes, Xs, Ys): rslu_u, rslu_v, rslu_h, ludxdy and, for varying
 // bathymetry (then `hr` is unread), hrludxdy (n_planes = 5) and hr (6, which
-// viscosity and tracers need). visc != 0 runs the lateral viscosity with
+// viscosity and tracers need). A general library (-DFUSED_GEN) instead
+// takes the 16 metric rows 0-15 of the layout's row meanings (met_slots:
+// fused_sw_step_n_met() = 16 slots), the planes lu, hr (n_planes = 2) and
+// with static reciprocals rslu_u, rslu_v, rslu_h (5); `hr` is unread, and
+// trans and ffs pick any of its forms. visc != 0 runs the lateral
+// viscosity with
 // the constant `mu`; tracers take their diffusive fluxes whenever mu != 0.
 // raw != 0 asks for the raw form, which stores only inside the box
 // [margin, margin + nx) x [margin, margin + ny) of the outputs; a library
@@ -1029,16 +1721,34 @@ int fused_sw_step_launch(
     float hr, float mu,
     float neg_g, float two_tau, float neg_two_tau, float inv_two_tau,
     float ts1, float ts2, void* stream) {
+  const int mu_mode = visc ? 2 : (n_tracers > 0 && mu != 0.f ? 1 : 0);
+  const size_t plane = (size_t)Xs * Ys;
+  const size_t row = met2d ? plane : (size_t)Ys;
+#ifdef FUSED_GEN
+  // the general form indexes its planes with ints
+  if (n_tracers < 0 || (n_planes != 2 && n_planes != 5)
+      || (raw != 0) != RAW_BUILD || steps != STEPS_BUILD
+      || 3 * plane > (size_t)INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  Params p{ssh, sshp, u, up, v, vp, {}, planes,
+           n_planes == 5 ? planes + 2 * plane : nullptr, planes + plane,
+           ssh_o, sshp_o, u_o, up_o, v_o, vp_o, blockmax,
+           {}, {}, nullptr, nullptr, n_tracers, 0, tile_wet, Xs, Ys, nx, ny,
+           margin, hr, mu, neg_g, two_tau, neg_two_tau, inv_two_tau, ts1,
+           ts2};
+  for (int k = 0; k < N_GEN_MET; ++k) {
+    if (met_slots[k] < 0) return (int)cudaErrorInvalidValue;
+    p.met[k] = met + met_slots[k] * row;
+  }
+#else
   if (n_tracers < 0 || n_planes < 4
       || n_planes > 6 || (raw != 0) != RAW_BUILD
       || (trans != 0) != TRANS_BUILD || (ffs != 0) != FFS_BUILD
       || steps != STEPS_BUILD)
     return (int)cudaErrorInvalidValue;
-  const int mu_mode = visc ? 2 : (n_tracers > 0 && mu != 0.f ? 1 : 0);
   // varying bathymetry with viscosity or tracers reads the hr plane too
   if (n_planes == 5 && (mu_mode == 2 || n_tracers > 0))
     return (int)cudaErrorInvalidValue;
-  const size_t plane = (size_t)Xs * Ys;
   Params p{ssh, sshp, u, up, v, vp, {}, planes,
            n_planes > 4 ? planes + 4 * plane : nullptr,
            n_planes > 5 ? planes + 5 * plane : nullptr,
@@ -1046,7 +1756,6 @@ int fused_sw_step_launch(
            {}, {}, nullptr, nullptr, n_tracers, 0, tile_wet, Xs, Ys, nx, ny,
            margin, hr, mu, neg_g, two_tau, neg_two_tau, inv_two_tau, ts1,
            ts2};
-  const size_t row = met2d ? plane : (size_t)Ys;
   for (int k = 0; k < N_MET; ++k) {
     const bool visc_row = k == M_DXB || k == M_DYB || k == M_RDXH
         || k == M_RDYH || k == M_RDXB || k == M_RDYB || k == M_DYDX
@@ -1058,6 +1767,7 @@ int fused_sw_step_launch(
     if (read && met_slots[k] < 0) return (int)cudaErrorInvalidValue;
     p.met[k] = met_slots[k] < 0 ? nullptr : met + met_slots[k] * row;
   }
+#endif
   cudaStream_t s = (cudaStream_t)stream;
   if (n_tracers > MAX_TRACERS) {
     // the pointer table: what the kernel reads is the copy made here, in
@@ -1083,20 +1793,21 @@ int fused_sw_step_launch(
       p.tr_o[t] = tr_out[t];
     }
   }
+  const bool m2 = met2d != 0, tr = trans != 0, fs = ffs != 0;
   switch (n_tracers) {
 #if !defined(FUSED_NT) || FUSED_NT == 0
-    case 0: return launch_form<0>(p, met2d != 0, mu_mode, s);
+    case 0: return dispatch<0>(p, m2, mu_mode, tr, fs, s);
 #endif
 #if !defined(FUSED_NT) || FUSED_NT == 1
-    case 1: return launch_form<1>(p, met2d != 0, mu_mode, s);
+    case 1: return dispatch<1>(p, m2, mu_mode, tr, fs, s);
 #endif
 #if !defined(FUSED_NT) || FUSED_NT == 2
-    case 2: return launch_form<2>(p, met2d != 0, mu_mode, s);
+    case 2: return dispatch<2>(p, m2, mu_mode, tr, fs, s);
 #endif
     default:
 #if !defined(FUSED_NT) || FUSED_NT == 3
       if (n_tracers > MAX_TRACERS)
-        return launch_form<TLOOP>(p, met2d != 0, mu_mode, s);
+        return dispatch<TLOOP>(p, m2, mu_mode, tr, fs, s);
 #endif
       return (int)cudaErrorInvalidValue;   // not in this build
   }

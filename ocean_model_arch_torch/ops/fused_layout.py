@@ -30,6 +30,7 @@ TRACER_REACH = 4    # the same with the tracer pass (sshn at halo 2)
 ROW_ALIGN = 32      # Ys is a multiple of this many floats (128 bytes)
 N_PROF = 24         # profile rows (9 metrics + 7 reciprocals + 6 derived)
 N_FULL = 22         # the rows of them that carry a meaning (0-21)
+N_GENERAL = 16      # the rows the general form reads: 0-8 and 9-15
 METRIC_NAMES = ("dx", "dy", "dxt", "dyt", "dxh", "dyh", "dxb", "dyb",
                 "rlh_s")
 
@@ -74,8 +75,9 @@ def extract(lay: FusedLayout, a: torch.Tensor) -> torch.Tensor:
 
 
 def plane_names(ffs: int, ksw: int, mu_const: float,
-                hr_const: float | None = None) -> tuple:
-    """The static planes a configuration needs (x-uniform metrics):
+                hr_const: float | None = None, metrics_2d: bool = False,
+                fast2d: bool = False) -> tuple:
+    """The static planes a configuration needs:
 
     - ``rslu_u/v/h``: reciprocal wet-neighbour counts of the depth
       interpolations, premultiplied by 1/dxt, 1/dyt and 1/(dxb*dyb);
@@ -86,7 +88,13 @@ def plane_names(ffs: int, ksw: int, mu_const: float,
     - ``wlu``: the TPU kernel's viscosity branch multiplies by it. The
       CUDA kernel takes every mask from ``ludxdy > 0.5`` and never loads
       it: ``fused_step.kernel_planes`` names what that kernel reads.
+
+    On metric planes (``metrics_2d``) without ``fast2d`` the step is the
+    general form, which reads only the three reciprocal counts, without
+    the metric factors (JAX ``plane_names`` :197-198).
     """
+    if metrics_2d and not fast2d:
+        return ("rslu_u", "rslu_v", "rslu_h")
     names = ["rslu_u", "rslu_v", "rslu_h", "ludxdy"]
     if not (hr_const is not None and ffs):
         names.append("hrludxdy")
@@ -186,7 +194,8 @@ def _derive_metric_rows(rows: np.ndarray, wrap_y: bool = False) -> None:
 
 
 def metrics_full_from_grid(grid, lay: FusedLayout, periodic_x: bool = False,
-                           periodic_y: bool = False) -> np.ndarray:
+                           periodic_y: bool = False,
+                           derived: bool = True) -> np.ndarray:
     """The (N_FULL, Xs, Ys) metric planes of a grid whose metrics vary
     along x and y (bipolar / curvilinear): the rows of
     :func:`metrics_profile_from_grid`, computed pointwise in the same
@@ -194,7 +203,9 @@ def metrics_full_from_grid(grid, lay: FusedLayout, periodic_x: bool = False,
     through the whole margin (y first, then the x rows, which covers the
     corners), or wrapped across the seam of a periodic axis, before rows
     9-21 are derived, so no reciprocal is infinite; row 17 takes dxt at
-    n + 1 after that."""
+    n + 1 after that. ``derived=False``: the (N_GENERAL, Xs, Ys) planes of
+    rows 0-15, what the general form of the step reads (the JAX
+    function's default)."""
     planes = np.zeros((N_FULL, lay.Xs, lay.Ys), np.float32)
     m = lay.margin
     for k, name in enumerate(METRIC_NAMES):
@@ -202,7 +213,7 @@ def metrics_full_from_grid(grid, lay: FusedLayout, periodic_x: bool = False,
         planes[k] = _extend(_extend(f, m, lay.Ys, periodic_y, 1), m, lay.Xs,
                             periodic_x, 0)
     _derive_metric_rows(planes, periodic_y)
-    return planes
+    return planes if derived else planes[:N_GENERAL].copy()
 
 
 def fast2d_met_rows(n_tracers: int, visc: bool = False,
@@ -258,6 +269,7 @@ def static_planes(lu_s: np.ndarray, hr_s: np.ndarray, dxdy: np.ndarray,
         "rslu_v": lambda: recip(lu + y1) * r_v,
         "rslu_h": lambda: recip(lu + x1 + y1 + xy1) * r_h,
         "wlu": lambda: lu,
+        "lu": lambda: lu,
         "hr": lambda: np.asarray(hr_s, np.float32),
         "ludxdy": lambda: ludxdy,
         "hrludxdy": lambda: (np.asarray(hr_s, np.float32)

@@ -43,6 +43,21 @@ With ``tile_wet`` the step is guarded: an output tile whose flag is 0
 (no wet cell) is not computed and gets exact zeros, which is what its
 land cells hold anyway.
 
+``general=True`` is the general form of the step, the TPU kernel's
+non-fast branch (``_make_kernel`` with ``fast = False``, :241 there: its
+``static_rslu=False`` default, or metric planes without ``fast2d``): the
+same step with the staggered masks, the reciprocal wet counts of the
+depth interpolations and the depth columns ``aq = (hr + ssh * ffs) *
+(dx * dy) * lu`` formed in the step from the land mask ``lu`` and the
+rest bathymetry ``hr``, and every metric factor applied unfolded, in
+the order of the JAX formulas. Its ``planes`` are those of
+``kernel_planes(general=True)``: ``lu`` and ``hr``, and with
+``static_rslu`` the three reciprocal-count planes in place of the
+selects (the same values, so the same bits); ``met`` is the (24, Ys)
+profile, of which it reads rows 0-15, or the (16, Xs, Ys) planes of
+``fused_layout.metrics_full_from_grid(derived=False)`` with the identity
+``met_map``. ``hr_const`` is not read.
+
 The raw form (:func:`fused_sw_step_raw`, counterpart of ``step_raw``,
 :1652-1673 of the TPU file) runs the same step on one shard of a
 mesh: the array is the shard's valid box ``[M, M + lay.nx) x [M, M +
@@ -83,7 +98,7 @@ import torch
 
 from ..host import FREE_FALL_ACC
 from ._build import load
-from .fused_layout import N_PROF, FusedLayout, fast2d_met_rows
+from .fused_layout import N_GENERAL, N_PROF, FusedLayout, fast2d_met_rows
 
 N_FIELDS = 6            # carried SW fields; each tracer adds 2
 # the kernel's instantiations (csrc/fused_step.cu): 0, 1 and 2 tracers
@@ -97,15 +112,25 @@ FORMS = ((1, 1), (0, 1), (1, 0), (0, 0))
 CPU_TILE = (16, 32)     # the guard's tile where no kernel defines one
 # the metric rows whose slots the kernel's launcher takes, in its order
 KERNEL_MET_ROWS = fast2d_met_rows(n_tracers=1, visc=True)
+# and the general form's: rows 0-15, at their own index
+GENERAL_MET_ROWS = tuple(range(N_GENERAL))
+GENERAL_MAP = {r: r for r in GENERAL_MET_ROWS}   # its (16, Xs, Ys) planes
+STATIC_RSLU = ("rslu_u", "rslu_v", "rslu_h")
+THIRD = 1.0 / 3.0       # f32(1/3), one of the wet-count reciprocals
 
 
 def kernel_planes(n_tracers: int = 0, visc: bool = False,
-                  hr_varies: bool = False) -> tuple:
+                  hr_varies: bool = False, general: bool = False,
+                  static_rslu: bool = False) -> tuple:
     """The static planes one form of the step reads, in the order of its
     ``planes`` argument (``fused_layout.static_planes`` builds them):
     varying bathymetry adds ``hrludxdy`` and, for the viscosity's depth
     and the tracers' column, ``hr`` itself. No ``wlu`` plane: every mask
-    comes from ``ludxdy > 0.5``."""
+    comes from ``ludxdy > 0.5``. The general form reads the land mask and
+    the bathymetry, and with ``static_rslu`` the three reciprocal counts
+    of the depth interpolations, whatever the rest of the form."""
+    if general:
+        return ("lu", "hr") + (STATIC_RSLU if static_rslu else ())
     names = ("rslu_u", "rslu_v", "rslu_h", "ludxdy")
     if hr_varies:
         names += ("hrludxdy",)
@@ -325,7 +350,166 @@ def _one_step(fields, met, planes, lay: FusedLayout, tau: float,
                           / torch.where(wlu, bp, 1.0), 0.0)
         out.append(torch.where(wlu, ffn, ff))
         out.append(torch.where(wlu, ts1 * ff + ts2 * (ffn + ffp), ffp))
+    return _finish(out, tile_wet, tile, lay, outs)
 
+
+def _one_step_general(fields, met, planes, lay: FusedLayout, tau: float,
+                      time_smooth: float, tile_wet, tile, met_map,
+                      mu_const: float, visc: bool, trans: int, ffs: int,
+                      outs) -> tuple:
+    """One step of the general form (the TPU kernel's non-fast branch,
+    :381-1039 there), formula by formula in its order: the 6 + 2 T new
+    fields (``outs``, their box written, with ``outs``)."""
+    n_tr = n_tracers_of(fields)
+    ssh, sshp, u, up, v, vp = fields[:N_FIELDS]
+    lu, hr = planes[0], planes[1]
+    neg_g, two_tau, _, inv_two_tau, ts1, ts2 = _scalars(tau, time_smooth)
+    mu, f = float(mu_const), float(ffs)
+
+    def row(k):
+        return met[k][None, :] if met_map is None else met[met_map[k]]
+
+    def xp(a):
+        return _sh(a, 1, 0)
+
+    def yp(a):
+        return _sh(a, 0, 1)
+
+    # the staggered wet masks, and the reciprocal wet counts of the depth
+    # interpolations: selects on the wet-neighbour sums, or their planes
+    lux, luy, luxy = xp(lu), yp(lu), _sh(lu, 1, 1)
+    wlu = lu > 0.5
+    wlcu = (lu * lux) > 0.5
+    wlcv = (lu * luy) > 0.5
+    wluu = (((lu * lux) * luy) * luxy) > 0.5
+    if len(planes) > 2:
+        rslu_u, rslu_v, rslu_h = planes[2:5]
+    else:
+        rslu_u = torch.where(lu + lux > 1.5, 0.5, 1.0)
+        rslu_v = torch.where(lu + luy > 1.5, 0.5, 1.0)
+        slu = ((lu + lux) + luy) + luxy
+        rslu_h = torch.where(slu > 3.5, 0.25, torch.where(
+            slu > 2.5, THIRD, torch.where(slu > 1.5, 0.5, 1.0)))
+    u_mt = row(10) * row(13)             # 1/dxt * 1/dyh
+    v_mt = row(12) * row(11)             # 1/dxh * 1/dyt
+    h_mt = row(14) * row(15)             # 1/dxb * 1/dyb
+    dxdy = row(0) * row(1)
+
+    def column(s):                       # aq = hq * dx*dy * lu
+        return ((hr + s * f) * dxdy) * lu
+
+    def interp_u(a):
+        return ((a + xp(a)) * rslu_u) * u_mt
+
+    def interp_v(a):
+        return ((a + yp(a)) * rslu_v) * v_mt
+
+    aq = column(ssh)
+    hu, hv = interp_u(aq), interp_v(aq)
+    hh = ((((aq + xp(aq)) + yp(aq)) + _sh(aq, 1, 1)) * rslu_h) * h_mt
+    aqp = column(sshp)
+    hup, hvp = interp_u(aqp), interp_v(aqp)
+
+    # continuity
+    ud = (u * hu) * row(5)
+    vd = (v * hv) * row(4)
+    div = ((ud - _sh(ud, -1, 0)) + vd) - _sh(vd, 0, -1)
+    sshn = torch.where(wlu, sshp - two_tau * (div * row(9)), 0.0)
+
+    s2v = xp(v) + v
+    s2u = yp(u) + u
+    gx = (xp(ssh) - ssh) * hu * (row(5) * neg_g)
+    gy = (yp(ssh) - ssh) * hv * (row(4) * neg_g)
+    if visc:
+        # stress components and uv_diff2 with a constant mu
+        q, r = up * row(13), vp * row(12)
+        str_t = torch.where(wlu, (row(1) / row(0)) * (q - _sh(q, -1, 0))
+                            - (row(0) / row(1)) * (r - _sh(r, 0, -1)), 0.0)
+        s1, s2 = up * row(10), vp * row(11)
+        str_s = torch.where(wluu, (row(6) * row(15)) * (yp(s1) - s1)
+                            + (row(7) * row(14)) * (xp(s2) - s2), 0.0)
+        t2 = (hr + ssh * f) * str_t
+        a2 = (row(1) * row(1) * mu) * t2
+        b2 = (row(0) * row(0) * mu) * t2
+        hs2 = hh * str_s
+        d2 = (row(6) * row(6) * mu) * hs2
+        e2 = (row(7) * row(7) * mu) * hs2
+        gx = gx + torch.where(wlcu, (xp(a2) - a2) * row(13)
+                              + (d2 - _sh(d2, 0, -1)) * row(10), 0.0)
+        gy = gy + torch.where(wlcv, -(yp(b2) - b2) * row(12)
+                              + (e2 - _sh(e2, -1, 0)) * row(11), 0.0)
+    if trans:
+        # vorticity, the telescoped edge fluxes F, G, K, L and the
+        # vorticity double terms
+        vd_t, ud_t = v * row(3), u * row(2)
+        vort = torch.where(wluu, (xp(vd_t) - vd_t) - (yp(ud_t) - ud_t)
+                           - ((xp(v) - v) * row(7) - (yp(u) - u) * row(6)),
+                           0.0)
+        vorth = vort * hh
+        luu = torch.where(wluu, 1.0, 0.0)
+        F = (ud + xp(ud)) * (u + xp(u)) * 0.25
+        G = (vd + xp(vd)) * s2u * (luu * 0.25)
+        K = (vd + yp(vd)) * (v + yp(v)) * 0.25
+        L = (ud + yp(ud)) * s2v * 0.25
+        H2, M2 = vorth * s2v, vorth * s2u
+        gx = gx + torch.where(wlcu, -(F - _sh(F, -1, 0) + G - _sh(G, 0, -1))
+                              + (H2 + _sh(H2, 0, -1)) * 0.25, 0.0)
+        gy = gy + torch.where(wlcv, -(L - _sh(L, -1, 0) + K - _sh(K, 0, -1))
+                              - (M2 + _sh(M2, -1, 0)) * 0.25, 0.0)
+    # Coriolis
+    corio = (row(8) * row(6) * row(7)) * hh
+    C2v, C2u = corio * s2v, corio * s2u
+    gx = gx + (C2v + _sh(C2v, 0, -1)) * 0.25
+    gy = gy - (C2u + _sh(C2u, -1, 0)) * 0.25
+
+    # momentum: (up*bp0 + gr) / bp
+    bpm_u = row(2) * row(5) * inv_two_tau
+    bpm_v = row(3) * row(4) * inv_two_tau
+    un = torch.where(wlcu, (up * (hup * bpm_u) + gx)
+                     / torch.where(wlcu, hu * bpm_u, 1.0), 0.0)
+    vn = torch.where(wlcv, (vp * (hvp * bpm_v) + gy)
+                     / torch.where(wlcv, hv * bpm_v, 1.0), 0.0)
+
+    # leapfrog rotation + Robert-Asselin filter
+    ssh_new = torch.where(wlu, sshn, ssh)
+    sshp_new = torch.where(wlu, ts1 * ssh + ts2 * (sshn + sshp), sshp)
+    out = [ssh_new, sshp_new,
+           torch.where(wlcu, un, u),
+           torch.where(wlcu, ts1 * u + ts2 * (un + up), up),
+           torch.where(wlcv, vn, v),
+           torch.where(wlcv, ts1 * v + ts2 * (vn + vp), vp)]
+
+    if n_tr:
+        # the post-step depths from the new ssh, the transports and the
+        # flux factors every tracer shares
+        aqn = column(ssh_new)
+        hun, hvn = interp_u(aqn), interp_v(aqn)
+        uh, vh = out[2] * hun, out[4] * hvn
+        mu_x = mu * (row(5) * row(10))
+        mu_y = mu * (row(4) * row(11))
+        area = row(0) * row(1) * inv_two_tau
+        bp = hr * area
+        bp0 = (hr + sshp_new * f) * area
+    for t in range(n_tr):
+        ff, ffp = fields[N_FIELDS + 2 * t], fields[N_FIELDS + 2 * t + 1]
+        fx = uh * (ff + xp(ff)) * (row(5) * -0.5)
+        fy = vh * (ff + yp(ff)) * (row(4) * -0.5)
+        if mu != 0.0:
+            fx = fx + mu_x * hun * (xp(ff) - ff)
+            fy = fy + mu_y * hvn * (yp(ff) - ff)
+        fx = torch.where(wlcu, fx, 0.0)
+        fy = torch.where(wlcv, fy, 0.0)
+        rhs = ((fx - _sh(fx, -1, 0)) + fy) - _sh(fy, 0, -1)
+        ffn = torch.where(wlu, (bp0 * ffp + rhs)
+                          / torch.where(wlu, bp, 1.0), 0.0)
+        out.append(torch.where(wlu, ffn, ff))
+        out.append(torch.where(wlu, ts1 * ff + ts2 * (ffn + ffp), ffp))
+    return _finish(out, tile_wet, tile, lay, outs)
+
+
+def _finish(out, tile_wet, tile, lay: FusedLayout, outs) -> tuple:
+    """A step's new fields: the guard's zeros in the tiles flagged
+    all-land, and with ``outs`` their box written into those."""
     if tile_wet is not None:
         cells = _wet_cells(tile_wet, tile, lay)
         out = [torch.where(cells, o, 0.0) for o in out]
@@ -347,7 +531,7 @@ def _box(lay: FusedLayout) -> tuple:
 def _chain(fields, met, planes, lay: FusedLayout, tau: float,
            time_smooth: float, hr_const: float | None, tile_wet, tile,
            met_map, mu_const: float, visc: bool, trans: int, ffs: int,
-           steps: int, outs):
+           steps: int, outs, general: bool = False):
     """``steps`` plain steps as one launch of the kernel runs them: the
     earlier ones on whole arrays without the guard (the kernel computes
     them in each wet tile's own window, whatever the flags of the tiles
@@ -361,10 +545,15 @@ def _chain(fields, met, planes, lay: FusedLayout, tau: float,
     seen = []
     for s in range(steps):
         last = s == steps - 1
-        fields = _one_step(fields, met, planes, lay, tau, time_smooth,
-                           hr_const, tile_wet if last else None, tile,
-                           met_map, mu_const, visc, trans, ffs,
-                           outs if last else None)
+        guard, into = (tile_wet, outs) if last else (None, None)
+        if general:
+            fields = _one_step_general(fields, met, planes, lay, tau,
+                                       time_smooth, guard, tile, met_map,
+                                       mu_const, visc, trans, ffs, into)
+        else:
+            fields = _one_step(fields, met, planes, lay, tau, time_smooth,
+                               hr_const, guard, tile, met_map, mu_const,
+                               visc, trans, ffs, into)
         ssh = fields[0]
         if tile_wet is not None and not last:
             ssh = torch.where(_wet_cells(tile_wet, tile, lay), ssh, 0.0)
@@ -377,7 +566,8 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
                             hr_const: float | None, tile_wet=None,
                             tile=None, met_map=None, mu_const: float = 0.0,
                             visc: bool = False, trans: int = 1, ffs: int = 1,
-                            steps: int = 1, outs=None):
+                            steps: int = 1, general: bool = False,
+                            outs=None):
     """One launch of the fused step in plain PyTorch on whole arrays,
     with the kernel's formulas in the kernel's order (see
     csrc/fused_step.cu). ``tile_wet`` (with its ``tile`` shape) reproduces
@@ -387,14 +577,15 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
     planes of :func:`kernel_planes`. ``trans``, ``ffs``: the advection and
     free-surface switches. ``steps``: model steps a launch; 2 is the
     chained form, this function's single step twice, the guard on the
-    second only, the max over both. ``outs``: the raw form -- the box
+    second only, the max over both. ``general``: the general form (see
+    the module's docstring). ``outs``: the raw form -- the box
     ``[M, M + lay.nx) x [M, M + lay.ny)`` of these 6 + 2 T tensors is
     written and they are returned, everything else in them untouched (a
     chained raw launch runs its first step on the whole margined
     block)."""
     out, seen = _chain(fields, met, planes, lay, tau, time_smooth, hr_const,
                        tile_wet, tile, met_map, mu_const, visc, trans, ffs,
-                       steps, outs)
+                       steps, outs, general)
     box = _box(lay)
     mx = torch.amax(seen[0][box])
     for a in seen[1:]:
@@ -404,10 +595,16 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
 
 def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
                   tile, met_map, hr_const, visc, trans, outs=None,
-                  steps: int = 1, chain_tile=None) -> None:
+                  steps: int = 1, chain_tile=None,
+                  general: bool = False) -> None:
     n_tr = n_tracers_of(fields)
     if met_map is None:
         met_shape = (N_PROF, lay.Ys)
+    elif general:
+        if dict(met_map) != GENERAL_MAP:
+            raise ValueError("met_map: the general form reads metric planes "
+                             "0-15 at their own index (GENERAL_MAP)")
+        met_shape = (N_GENERAL, lay.Xs, lay.Ys)
     else:
         missing = [r for r in fast2d_met_rows(n_tr, visc, trans) if not
                    0 <= met_map.get(r, -1) < met.shape[0]]
@@ -415,7 +612,11 @@ def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
             raise ValueError(f"met_map: no plane of met for the metric "
                              f"rows {missing}")
         met_shape = (met.shape[0], lay.Xs, lay.Ys)
-    names = kernel_planes(n_tr, visc, hr_const is None)
+    if general:
+        names = kernel_planes(general=True,
+                              static_rslu=planes.shape[0] > 2)
+    else:
+        names = kernel_planes(n_tr, visc, hr_const is None)
     want = {"field": (lay.Xs, lay.Ys), "met": met_shape,
             "planes " + ", ".join(names): (len(names), lay.Xs, lay.Ys),
             "output": (lay.Xs, lay.Ys)}
@@ -454,29 +655,31 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
                            hr_const: float | None, tile_wet=None, tile=None,
                            met_map=None, mu_const: float = 0.0,
                            visc: bool = False, trans: int = 1, ffs: int = 1,
-                           steps: int = 1, outs=None, blockmax=None,
-                           chain_tile=None):
+                           steps: int = 1, general: bool = False, outs=None,
+                           blockmax=None, chain_tile=None):
     """Launch the CUDA kernel once on CUDA tensors (counted in
     ``fused_sw_step.launches``, and per kernel instantiation ``(T,
     guarded, 2D metrics, mu mode, bathymetry planes, raw, trans, ffs,
-    steps)`` in ``fused_sw_step.form_launches``; :func:`mu_mode` names
-    the modes). ``steps = 2`` launches the chained form: two model steps
-    in the one launch, counted once. Returns ``(6 + 2 T new fields, the
-    (x tiles, y tiles) per-block max |ssh_new| over interior cells)``;
-    raises if the kernel does not build or launch. With ``outs`` (and
+    steps, general)`` in ``fused_sw_step.form_launches``; :func:`mu_mode`
+    names the modes; the general form's bathymetry is always a plane,
+    and counts as not). ``steps = 2`` launches the chained form: two
+    model steps in the one launch, counted once. Returns ``(6 + 2 T new
+    fields, the (x tiles, y tiles) per-block max |ssh_new| over interior
+    cells)``; raises if the kernel does not build or launch. With ``outs`` (and
     ``blockmax``, a contiguous float32 (x tiles, y tiles) tensor) it
     launches the raw form into them and allocates nothing.
     ``chain_tile``: see :func:`library_target`."""
     visc, trans, ffs = bool(visc), int(bool(trans)), int(bool(ffs))
+    general = bool(general)
     raw = outs is not None
     _check_inputs(fields, met, planes, lay, tile_wet, tile, met_map,
-                  hr_const, visc, trans, outs, steps, chain_tile)
+                  hr_const, visc, trans, outs, steps, chain_tile, general)
     n_tr = n_tracers_of(fields)
-    lib = _library(n_tr, raw, trans, ffs, steps, chain_tile)
+    lib = _library(n_tr, raw, trans, ffs, steps, chain_tile, general)
     # where each metric row the kernel reads sits in met (-1: not there)
-    where = {r: r for r in KERNEL_MET_ROWS} if met_map is None else met_map
-    slots = (ctypes.c_int * len(KERNEL_MET_ROWS))(
-        *(where.get(r, -1) for r in KERNEL_MET_ROWS))
+    rows = GENERAL_MET_ROWS if general else KERNEL_MET_ROWS
+    where = {r: r for r in rows} if met_map is None else met_map
+    slots = (ctypes.c_int * len(rows))(*(where.get(r, -1) for r in rows))
     tx, ty = tile_shape(fields[0].device, steps, chain_tile)
     n_blocks = (-(-lay.Xs // tx), -(-lay.Ys // ty))
     if raw:
@@ -529,8 +732,8 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
     fused_sw_step.launches += 1
     fused_sw_step.form_launches[
         n_tr, tile_wet is not None, met_map is not None,
-        mu_mode(n_tr, mu_const, visc), hr_const is None, raw, trans,
-        ffs, steps] += 1
+        mu_mode(n_tr, mu_const, visc), hr_const is None and not general,
+        raw, trans, ffs, steps, general] += 1
     return outs, blockmax
 
 
@@ -538,7 +741,7 @@ def fused_sw_step(fields, met, planes, lay: FusedLayout, tau: float,
                   time_smooth: float, hr_const: float | None, tile_wet=None,
                   tile=None, met_map=None, mu_const: float = 0.0,
                   visc: bool = False, trans: int = 1, ffs: int = 1,
-                  steps: int = 1):
+                  steps: int = 1, general: bool = False):
     """One launch of the fused step: the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors (:func:`fused_sw_step_blockmax`);
     ``steps`` model steps (1, or 2 chained in the one launch). Returns
@@ -552,16 +755,17 @@ def fused_sw_step(fields, met, planes, lay: FusedLayout, tau: float,
     ``mu_const``, ``visc``: the constant viscosity and whether the stress
     stages run; tracers diffuse whenever ``mu_const != 0``. ``trans``,
     ``ffs``: the configuration's ``trans_terms`` and
-    ``full_free_surface`` (0 or 1). The max covers every step of the
-    launch."""
+    ``full_free_surface`` (0 or 1). ``general``: the general form, with
+    the planes and metrics of the module's docstring. The max covers
+    every step of the launch."""
     if fields[0].device.type == "cpu":
         return fused_sw_step_reference(fields, met, planes, lay, tau,
                                        time_smooth, hr_const, tile_wet,
                                        tile, met_map, mu_const, visc, trans,
-                                       ffs, steps)
+                                       ffs, steps, general)
     outs, blockmax = fused_sw_step_blockmax(
         fields, met, planes, lay, tau, time_smooth, hr_const, tile_wet, tile,
-        met_map, mu_const, visc, trans, ffs, steps)
+        met_map, mu_const, visc, trans, ffs, steps, general)
     return outs, torch.amax(blockmax)
 
 
@@ -570,7 +774,7 @@ def fused_sw_step_raw(fields, outs, blockmax, met, planes, lay: FusedLayout,
                       hr_const: float | None, tile_wet=None, tile=None,
                       met_map=None, mu_const: float = 0.0,
                       visc: bool = False, trans: int = 1, ffs: int = 1,
-                      steps: int = 1) -> None:
+                      steps: int = 1, general: bool = False) -> None:
     """One launch of the fused step on a shard's margined block, into the
     caller's tensors: the box ``[M, M + lay.nx) x [M, M + lay.ny)`` of
     ``outs`` (6 + 2 T tensors, none of them an input) gets the new fields
@@ -588,11 +792,12 @@ def fused_sw_step_raw(fields, outs, blockmax, met, planes, lay: FusedLayout,
     if fields[0].device.type != "cpu":
         fused_sw_step_blockmax(fields, met, planes, lay, tau, time_smooth,
                                hr_const, tile_wet, tile, met_map, mu_const,
-                               visc, trans, ffs, steps, outs, blockmax)
+                               visc, trans, ffs, steps, general, outs,
+                               blockmax)
         return
     _, seen = _chain(fields, met, planes, lay, tau, time_smooth, hr_const,
                      tile_wet, tile, met_map, mu_const, visc, trans, ffs,
-                     steps, outs)
+                     steps, outs, general)
     tx, ty = tile
     nbx, nby = blockmax.shape
     box = _box(lay)
@@ -615,7 +820,8 @@ reset_launch_counts()
 
 
 def library_target(n_tracers: int, raw: bool = False, trans: int = 1,
-                   ffs: int = 1, steps: int = 1, chain_tile=None) -> str:
+                   ffs: int = 1, steps: int = 1, chain_tile=None,
+                   general: bool = False) -> str:
     """The build target of csrc/fused_step.cu that holds the forms with
     ``n_tracers`` tracers (raw or not) of one (trans, ffs, steps) form:
     macros ``FUSED_NT`` or ``FUSED_RAW_NT`` (``LOOP_TRACERS`` for every
@@ -623,11 +829,14 @@ def library_target(n_tracers: int, raw: bool = False, trans: int = 1,
     ``FUSED_STEPS=2`` where the form has them.
     ``chain_tile``: (rows, columns, threads, blocks an SM) of a chained
     form's tile in place of csrc/fused_tile.cuh's (a tile sweep's
-    libraries); None for the header's own."""
+    libraries); None for the header's own. ``general``: the library of
+    the general forms, ``FUSED_GEN=1``, which holds every (trans, ffs)
+    form of its tracer count, raw or not, and steps a launch."""
     target = (f"fused_step@{'FUSED_RAW_NT' if raw else 'FUSED_NT'}="
               f"{min(n_tracers, LOOP_TRACERS)}"
-              + ("" if trans else "@FUSED_TRANS=0")
-              + ("" if ffs else "@FUSED_FFS=0")
+              + ("@FUSED_GEN=1" if general else
+                 ("" if trans else "@FUSED_TRANS=0")
+                 + ("" if ffs else "@FUSED_FFS=0"))
               + ("" if steps == 1 else f"@FUSED_STEPS={steps}"))
     if chain_tile is not None:
         target += "".join(f"@FUSED_CHAIN_{k}={v}" for k, v in zip(
@@ -635,12 +844,18 @@ def library_target(n_tracers: int, raw: bool = False, trans: int = 1,
     return target
 
 
-def library_targets() -> tuple:
+def library_targets(general: bool = False) -> tuple:
     """The build targets of csrc/fused_step.cu (``_build.build_all``
     takes them): for one step a launch, then for two chained, for each
     (trans, ffs) of ``FORMS`` one library per tracer count 0, 1, 2 and
     one for the counts from ``LOOP_TRACERS`` up, then the same for the
-    raw forms, so they build at once."""
+    raw forms, so they build at once. ``general``: the general forms'
+    16 libraries instead, in the same order without the (trans, ffs)
+    split."""
+    if general:
+        return tuple(library_target(n, raw, steps=steps, general=True)
+                     for steps in (1, 2) for raw in (False, True)
+                     for n in range(LOOP_TRACERS + 1))
     return tuple(library_target(n, raw, trans, ffs, steps)
                  for steps in (1, 2) for trans, ffs in FORMS
                  for raw in (False, True) for n in range(LOOP_TRACERS + 1))
@@ -648,35 +863,42 @@ def library_targets() -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def _library(n_tracers: int = 0, raw: bool = False, trans: int = 1,
-             ffs: int = 1, steps: int = 1, chain_tile=None) -> ctypes.CDLL:
+             ffs: int = 1, steps: int = 1, chain_tile=None,
+             general: bool = False) -> ctypes.CDLL:
     """csrc/fused_step.cu's forms (its raw forms with ``raw``) with
     ``n_tracers`` tracers (every count from ``LOOP_TRACERS`` up shares one
     library), the advection and free-surface form ``trans``, ``ffs`` and
     ``steps`` model steps a launch, built on first use, with their C
-    signatures."""
+    signatures; ``general``: its general forms, every (trans, ffs) in
+    one library."""
     n_tracers = min(n_tracers, LOOP_TRACERS)
     lib = load(library_target(n_tracers, raw, trans, ffs, steps,
-                              chain_tile))
+                              chain_tile, general))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.fused_sw_step_tile_x, lib.fused_sw_step_tile_y,
                lib.fused_sw_step_threads, lib.fused_sw_step_min_blocks,
                lib.fused_sw_step_n_met, lib.fused_sw_step_built_for,
                lib.fused_sw_step_built_raw, lib.fused_sw_step_built_trans,
-               lib.fused_sw_step_built_ffs, lib.fused_sw_step_built_steps):
+               lib.fused_sw_step_built_ffs, lib.fused_sw_step_built_steps,
+               lib.fused_sw_step_built_general):
         fn.argtypes = []
         fn.restype = i
-    if lib.fused_sw_step_n_met() != len(KERNEL_MET_ROWS):
+    rows = GENERAL_MET_ROWS if general else KERNEL_MET_ROWS
+    if lib.fused_sw_step_n_met() != len(rows):
         raise RuntimeError("csrc/fused_step.cu reads "
                            f"{lib.fused_sw_step_n_met()} metric rows, the "
-                           f"wrapper passes {len(KERNEL_MET_ROWS)}")
+                           f"wrapper passes {len(rows)}")
     built = (lib.fused_sw_step_built_for(), lib.fused_sw_step_built_raw(),
              lib.fused_sw_step_built_trans(), lib.fused_sw_step_built_ffs(),
-             lib.fused_sw_step_built_steps())
-    want = (n_tracers, int(bool(raw)), int(bool(trans)), int(bool(ffs)),
-            steps)
+             lib.fused_sw_step_built_steps(),
+             lib.fused_sw_step_built_general())
+    # a general library holds every (trans, ffs) form: -1 for both
+    want = (n_tracers, int(bool(raw)),
+            -1 if general else int(bool(trans)),
+            -1 if general else int(bool(ffs)), steps, int(bool(general)))
     if built != want:
         raise RuntimeError("the fused step's library was built for "
-                           "(tracers, raw, trans, ffs, steps) = "
+                           "(tracers, raw, trans, ffs, steps, general) = "
                            f"{built}, not {want}")
     lib.fused_sw_step_error_string.argtypes = [i]
     lib.fused_sw_step_error_string.restype = ctypes.c_char_p

@@ -136,7 +136,7 @@ def sweep(n_launch: int = N_LAUNCH, tiles=TILES) -> list:
             use_tracers=int(n_tr > 0), tracer_num=max(n_tr, 1)),
             precision=prec)
         grid = grids[gname]
-        one = FusedSWModel(grid, cfg, 1.0, tile_guard=guard)
+        one = FusedSWModel(grid, cfg, 1.0, tile_guard=guard, static_rslu=True)
         s, _ = one.run_steps(one.pack(init_ocean_state(grid, cfg)), 20)
         lu_s = np.asarray(fl.embed(one.lay, grid.lu.cpu()))
 

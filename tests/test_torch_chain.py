@@ -224,7 +224,7 @@ def test_dry_tile_margin_read_by_its_wet_neighbour():
     assert lu[:M, :ty].any() and lu[M:tx, M:ty].sum() == 0
     assert lu[M - 1, ty - 1] > 0.5 and lu[M, ty] > 0.5
     c, ok = fs.make_runner(STEPS)(fs.pack(state))
-    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2)
+    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, static_rslu=True)
     s, ok1 = fm.run_steps(fm.pack(state), STEPS)
     assert ok and ok1
     for a, b in zip(fs.extract(c), s):
@@ -273,7 +273,7 @@ def test_exchanges_halve_when_chained():
         FusedSharded2DModel(grid, cfg, 1.0, 2, 2, steps_per_call=2) \
             .make_runner(7)
     with pytest.raises(ValueError, match="1 or 2"):
-        FusedSWModel(grid, cfg, 1.0, steps_per_call=3)
+        FusedSWModel(grid, cfg, 1.0, steps_per_call=3, static_rslu=True)
 
 
 def test_guard_sees_the_first_step_of_a_launch():
@@ -282,8 +282,8 @@ def test_guard_sees_the_first_step_of_a_launch():
     and below it after the second (the filter halves it), and the
     chained ``run_steps`` trips; so does a NaN there."""
     _, cfg, _, grid, state = _case("T2")
-    fm2 = FusedSWModel(grid, cfg, 1.0, steps_per_call=2)
-    fm1 = FusedSWModel(grid, cfg, 1.0, steps_per_call=1)
+    fm2 = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, static_rslu=True)
+    fm1 = FusedSWModel(grid, cfg, 1.0, steps_per_call=1, static_rslu=True)
     wet = torch.nonzero(grid.lu > 0.5)[100]
     cell = (fl.MARGIN + int(wet[0]), fl.MARGIN + int(wet[1]))
     for val in (1.5e4, float("nan")):

@@ -132,7 +132,7 @@ def test_fast2d_met_rows_match_jax_without_the_thresholds(tracers):
     assert set(got) == want and list(got) == sorted(got)
     assert set(got) <= set(fstep.KERNEL_MET_ROWS)
     grid, cfg, _ = _port_case("frame", tracers)
-    fm = FusedSWModel(grid, cfg, 1.0)
+    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True)
     assert fm.met_map == {r: i for i, r in enumerate(got)}
     assert tuple(fm.met.shape) == (len(got), fm.lay.Xs, fm.lay.Ys)
 
@@ -144,7 +144,7 @@ def test_static_planes_2d_match_jax(mask_kind):
     interior to what the JAX function gives in its own layout."""
     jgrid, _, _ = _bipolar("f32", mask_kind)
     grid, cfg, _ = _port_case(mask_kind)
-    fm = FusedSWModel(grid, cfg, 1.0)
+    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True)
     lay = fm.lay
     names = fstep.kernel_planes()
     m22 = fl.metrics_full_from_grid(grid, lay)
@@ -168,12 +168,12 @@ def test_static_planes_2d_match_jax(mask_kind):
 
 def test_model_reports_its_metric_form():
     grid, cfg, _ = _port_case("frame")
-    fm = FusedSWModel(grid, cfg, 1.0)
+    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True)
     assert fm.metrics_2d and fm.fast2d and fm.met_map is not None
     assert fused_available(grid, cfg)
     assert not hasattr(fm, "met22") and not hasattr(fm, "_met22")
     ugrid, ucfg, _ = _port_case("frame", curve_grid=1)
-    um = FusedSWModel(ugrid, ucfg, 1.0)
+    um = FusedSWModel(ugrid, ucfg, 1.0, static_rslu=True)
     assert not um.metrics_2d and not um.fast2d and um.met_map is None
     assert tuple(um.met.shape) == (fl.N_PROF, um.lay.Ys)
 
@@ -262,7 +262,7 @@ def test_broadcast_profile_planes_equal_the_profile_form(tracers):
     the plane-metric form gives the profile form's outputs bit for bit,
     over 10 carried steps: same f32 operations in the same order."""
     grid, cfg, state = _port_case("strip", tracers, curve_grid=1)
-    fm = FusedSWModel(grid, cfg, 1.0, tile_guard=True)
+    fm = FusedSWModel(grid, cfg, 1.0, tile_guard=True, static_rslu=True)
     assert not fm.metrics_2d
     rows = fl.fast2d_met_rows(tracers)
     planes = fm.met[list(rows)][:, None, :].expand(
@@ -284,8 +284,10 @@ def test_broadcast_profile_planes_equal_the_profile_form(tracers):
 def test_guard_on_and_off_are_bit_identical_on_2d_metrics(tracers):
     """... and every land cell of all 6 + 2 T fields stays exactly 0."""
     grid, cfg, state = _port_case("strip", tracers)
-    on = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, tile_guard=True)
-    off = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, tile_guard=False)
+    on = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, tile_guard=True,
+                      static_rslu=True)
+    off = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, tile_guard=False,
+                       static_rslu=True)
     a, ok1 = on.run_steps(on.pack(state), 30)
     b, ok2 = off.run_steps(off.pack(state), 30)
     assert ok1 and ok2 and len(a) == len(b) == 6 + 2 * tracers
@@ -301,7 +303,7 @@ def test_guard_on_and_off_are_bit_identical_on_2d_metrics(tracers):
 
 def test_cpu_tensors_do_not_launch_on_2d_metrics():
     grid, cfg, state = _port_case("strip", 2)
-    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2)
+    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, static_rslu=True)
     _, ok = fm.run_steps(fm.pack(state), 4)
     assert ok and fused_sw_step.launches == 0
     assert not fused_sw_step.form_launches

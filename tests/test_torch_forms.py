@@ -198,7 +198,7 @@ def test_raw_split_equals_single_block(trans, ffs):
     carry, ok = fs.make_runner(STEPS)(fs.pack(state))
     assert ok
     _, block, _ = _port_fused(trans, ffs, 2)
-    fm = FusedSWModel(grid, cfg, 1.0)
+    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True)
     for a, b in zip(fs.extract(carry), block):
         assert torch.equal(a, fl.extract(fm.lay, b))
 

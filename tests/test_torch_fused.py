@@ -102,7 +102,7 @@ def test_land_stays_exactly_zero():
     v/vp off the v-point set)."""
     basin, cfg, mask = _case(Precision.f32(), with_islands=True)
     grid = build_grid(basin, mask, precision=cfg.precision, device="cpu")
-    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2)
+    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, static_rslu=True)
     s6, ok = fm.run_steps(fm.pack(init_ocean_state(grid, cfg)), 30)
     assert ok
     wlcu, wlcv, wlu = fl.staggered_wet_masks(fl.embed(fm.lay, grid.lu))
@@ -122,7 +122,7 @@ def test_guard_catches_mid_window_transient():
     sshp = state.sshp.clone()
     sshp[30, 30] = 1.2e4
     bad = dataclasses.replace(state, sshp=sshp)
-    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2)
+    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, static_rslu=True)
     s6, ok = fm.run_steps(fm.pack(bad), 30)
     final = float(fm.unpack(s6, state).ssh.abs().max())
     assert final < 1.0e4, "not a transient: final state still blown up"
@@ -137,19 +137,15 @@ def _unsupported_cases():
     def periodic(basin, cfg, mask):
         return dict(grid_kw=dict(periodic_x=True))
 
-    def slow_form(basin, cfg, mask):
-        return dict(model_kw=dict(static_rslu=False))
-
     def bipolar_slow_form(basin, cfg, mask):
         return dict(basin=dataclasses.replace(basin, curve_grid=2),
-                    model_kw=dict(static_rslu=False))
+                    model_kw=dict(static_rslu=False, fast2d=True))
 
-    return {f.__name__: f for f in (periodic, slow_form, bipolar_slow_form)}
+    return {f.__name__: f for f in (periodic, bipolar_slow_form)}
 
 
 UNSUPPORTED = _unsupported_cases()
 MESSAGES = {"periodic": "periodic",
-            "slow_form": "static_rslu",
             "bipolar_slow_form": "fast2d requires static_rslu=True"}
 
 
@@ -176,7 +172,7 @@ def test_cpu_tensors_do_not_launch():
     basin, cfg, mask = _case(Precision.f32(), with_islands=False,
                              nx=24, ny=20)
     grid = build_grid(basin, mask, precision=cfg.precision, device="cpu")
-    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2)
+    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, static_rslu=True)
     before = fused_sw_step.launches
     _, ok = fm.run_steps(fm.pack(init_ocean_state(grid, cfg)), 4)
     assert ok and fused_sw_step.launches == before == 0
@@ -214,17 +210,19 @@ def test_pack_refuses_nonzero_mu():
     state = init_ocean_state(grid, cfg)
     viscous = dataclasses.replace(state, mu=torch.full_like(state.mu, 1e3))
     with pytest.raises(ValueError, match="mu"):
-        FusedSWModel(grid, cfg, 1.0).pack(viscous)
+        FusedSWModel(grid, cfg, 1.0, static_rslu=True).pack(viscous)
     with pytest.raises(ValueError, match="mu"):
-        FusedSWModel(grid, cfg, 1.0, mu_const=1e3).pack(state)
-    assert len(FusedSWModel(grid, cfg, 1.0, mu_const=1e3).pack(viscous)) == 6
+        FusedSWModel(grid, cfg, 1.0, mu_const=1e3,
+                     static_rslu=True).pack(state)
+    assert len(FusedSWModel(grid, cfg, 1.0, mu_const=1e3,
+                            static_rslu=True).pack(viscous)) == 6
 
 
 def test_pack_unpack_round_trip():
     basin, cfg, mask = _case(Precision.f32(), with_islands=True)
     grid = build_grid(basin, mask, precision=cfg.precision, device="cpu")
     state = init_ocean_state(grid, cfg)
-    fm = FusedSWModel(grid, cfg, 1.0)
+    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True)
     s6 = fm.pack(state)
     lay = fm.lay
     assert lay.Ys % fl.ROW_ALIGN == 0 and lay.margin == fl.margin_for(1) == 4
@@ -331,8 +329,10 @@ def _strip_case(tracers, nx=70, ny=52):
 @pytest.mark.parametrize("tracers", [0, 2])
 def test_guard_on_and_off_are_bit_identical(tracers):
     grid, cfg, state = _strip_case(tracers)
-    on = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, tile_guard=True)
-    off = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, tile_guard=False)
+    on = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, tile_guard=True,
+                      static_rslu=True)
+    off = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, tile_guard=False,
+                       static_rslu=True)
     assert on.tile_wet is not None and off.tile_wet is None
     assert on.n_tiles == off.n_tiles and on.n_tiles[1] > 0
     a, ok1 = on.run_steps(on.pack(state), 30)
@@ -348,17 +348,19 @@ def test_tile_guard_auto_rule():
     cell (the JAX ``FusedSWModel``'s rule, model/fused.py:197-204); an
     explicit value wins."""
     grid, cfg, _ = _strip_case(0)
-    assert FusedSWModel(grid, cfg, 1.0).tile_guard is True
-    assert FusedSWModel(grid, cfg, 1.0, tile_guard=False).tile_guard is False
+    assert FusedSWModel(grid, cfg, 1.0, static_rslu=True).tile_guard is True
+    assert FusedSWModel(grid, cfg, 1.0, tile_guard=False,
+                        static_rslu=True).tile_guard is False
     # 56 + 8 = 64 columns and 72 + 8 = 80 rows: every 16 x 32 tile is wet
     basin, cfg2, mask = _case(Precision.f32(), with_islands=False, nx=72,
                               ny=56)
     wet_grid = build_grid(basin, mask, precision=cfg2.precision,
                           device="cpu")
-    fm = FusedSWModel(wet_grid, cfg2, 1.0)
+    fm = FusedSWModel(wet_grid, cfg2, 1.0, static_rslu=True)
     assert fm.n_tiles == (10, 0) and fm.tile_guard is False
     assert fm.tile_wet is None
-    forced = FusedSWModel(wet_grid, cfg2, 1.0, tile_guard=True)
+    forced = FusedSWModel(wet_grid, cfg2, 1.0, tile_guard=True,
+                          static_rslu=True)
     assert forced.tile_guard and int(forced.tile_wet.sum()) == 10
 
 
@@ -416,7 +418,7 @@ def test_reference_guard_zeroes_all_land_tiles():
     land cell of an all-land tile is seen without the guard and is not
     with it; the max of such a tile is 0."""
     grid, cfg, state = _strip_case(2)
-    fm = FusedSWModel(grid, cfg, 1.0, tile_guard=True)
+    fm = FusedSWModel(grid, cfg, 1.0, tile_guard=True, static_rslu=True)
     s0 = fm.pack(state)
     tx, ty = fm.tile
     i, j = (int(v) for v in (fm.tile_wet == 0).nonzero()[0])
@@ -440,7 +442,7 @@ def test_land_stays_exactly_zero_with_tracers():
     """Every land cell of all 6 + 2 T carried fields stays exactly 0,
     from ``pack`` on (the guard's zero writes rely on it)."""
     grid, cfg, state = _strip_case(2)
-    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2)
+    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, static_rslu=True)
     s0 = fm.pack(state)
     s10, ok = fm.run_steps(s0, 30)
     assert ok and len(s10) == 10
@@ -462,7 +464,7 @@ def test_pack_unpack_round_trip_with_tracers():
     state = dataclasses.replace(
         state, ff=state.ff * torch.tensor([1.0, 2.0])[:, None, None],
         ffp=state.ffp * torch.tensor([3.0, 4.0])[:, None, None])
-    fm = FusedSWModel(grid, cfg, 1.0)
+    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True)
     s10 = fm.pack(state)
     assert len(s10) == 10
     for k, (name, t) in enumerate((("ff", 0), ("ffp", 0), ("ff", 1),
@@ -482,7 +484,7 @@ def test_pack_unpack_round_trip_with_tracers():
 def test_cpu_tensors_do_not_launch_with_tracers_and_guard():
     """No launch is counted, for any kernel form, and nothing is built."""
     grid, cfg, state = _strip_case(2)
-    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2)
+    fm = FusedSWModel(grid, cfg, 1.0, steps_per_call=2, static_rslu=True)
     assert fm.tile == fstep.CPU_TILE and fm.tile_guard
     _, ok = fm.run_steps(fm.pack(state), 4)
     assert ok and fused_sw_step.launches == 0

@@ -26,7 +26,8 @@ def _flat_model(spc):
     grid = build_grid(basin, frame_of_land_mask(basin.nx, basin.ny),
                       precision=Precision.f32(), device="cpu")
     state = init_ocean_state(grid, cfg)
-    return grid, state, FusedSWModel(grid, cfg, 1.0, steps_per_call=spc)
+    return grid, state, FusedSWModel(grid, cfg, 1.0, steps_per_call=spc,
+                                     static_rslu=True)
 
 
 def _run(spc, n):

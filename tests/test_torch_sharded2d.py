@@ -107,7 +107,7 @@ def _port_fields(grid, cfg, state, px, py, **kw):
 
 
 def _single_block(grid, cfg, state, mu=0.0):
-    fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu)
+    fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, static_rslu=True)
     s, ok = fm.run_steps(fm.pack(state), N_STEPS)
     assert ok
     return [fl.extract(fm.lay, a) for a in s]
@@ -280,7 +280,8 @@ def test_cuts_must_span_the_basin():
 def test_constructor_refusals():
     _, cfg, _, grid, _ = _case()
     with pytest.raises(ValueError, match="static_rslu"):
-        FusedSharded2DModel(grid, cfg, 1.0, 2, 2, static_rslu=False)
+        FusedSharded2DModel(grid, cfg, 1.0, 2, 2, static_rslu=False,
+                            fast2d=True)
     with pytest.raises(ValueError, match="devices"):
         FusedSharded2DModel(grid, cfg, 1.0, 2, 2, devices=["cpu"] * 3)
     with pytest.raises(NotImplementedError, match="devices"):
@@ -331,7 +332,7 @@ def test_pack_extract_round_trip_and_mu():
 def _evolved(case, n=10):
     """The carried fields ``n`` steps in, as physical numpy arrays."""
     _, cfg, _, grid, state = case
-    fm = FusedSWModel(grid, cfg, 1.0)
+    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True)
     s, ok = fm.run_steps(fm.pack(state), n)
     assert ok
     return [fl.extract(fm.lay, a).numpy() for a in s]
@@ -397,7 +398,7 @@ def test_raw_form_equals_the_single_block_on_the_box():
     """With land margins the raw form writes what the single-block form
     computes, on the box only, and returns its max."""
     _, cfg, _, grid, state = _case()
-    fm = FusedSWModel(grid, cfg, 1.0, tile_guard=True)
+    fm = FusedSWModel(grid, cfg, 1.0, tile_guard=True, static_rslu=True)
     s0 = fm.pack(state)
     args = (fm.met, fm.planes, fm.lay, 1.0, cfg.sw.time_smooth, fm.hr_const,
             fm.tile_wet, fm.tile, fm.met_map, 0.0, False)

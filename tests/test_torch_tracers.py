@@ -231,7 +231,7 @@ def test_permuted_tracers_permute_the_outputs(spc):
     one = dataclasses.replace(fm.cfg, sw=dataclasses.replace(
         fm.cfg.sw, tracer_num=1))
     f1 = FusedSWModel(fm.grid, one, 1.0, steps_per_call=spc,
-                      tile_guard=True)
+                      tile_guard=True, static_rslu=True)
     for t in range(4):
         c, _ = fstep.fused_sw_step(s0[:6] + s0[6 + 2 * t:8 + 2 * t],
                                    *_args(f1), steps=spc)
@@ -360,7 +360,7 @@ def test_cuda_tensors_with_many_tracers_go_to_the_kernel_or_raise():
     input checks (here on meta tensors, before any build or launch) raise
     for the device only."""
     _, cfg, _, grid, state = _case("T4_linear")
-    fm = FusedSWModel(grid, cfg, 1.0, tile_guard=False)
+    fm = FusedSWModel(grid, cfg, 1.0, tile_guard=False, static_rslu=True)
     f = tuple(torch.empty((fm.lay.Xs, fm.lay.Ys), device="meta")
               for _ in range(14))
     with pytest.raises(ValueError, match="CUDA") as err:

@@ -476,12 +476,13 @@ def test_unsupported_no_longer_names_viscosity_or_bathymetry():
     grid, _ = to_torch(jgrid, jstate, torch.float32)
     assert unsupported(grid, cfg, mu_const=MU) == []
     assert flat_bathymetry(grid) is None
-    fm = FusedSWModel(grid, cfg, 1.0, mu_const=MU)
+    fm = FusedSWModel(grid, cfg, 1.0, mu_const=MU, static_rslu=True)
     assert fm.visc and fm.hr_const is None and fm.n_tracers == 2
     flat, _ = to_torch(jax_case("f32", 1, 0, MU, False)[0], jstate,
                        torch.float32)
     assert flat_bathymetry(flat) == 100.0
-    assert FusedSWModel(flat, cfg, 1.0, mu_const=MU).hr_const == 100.0
+    assert FusedSWModel(flat, cfg, 1.0, mu_const=MU,
+                        static_rslu=True).hr_const == 100.0
     bad = dataclasses.replace(cfg, sw=dataclasses.replace(
         cfg.sw, full_free_surface=0))
     assert unsupported(grid, bad, mu_const=MU) == []
@@ -490,11 +491,12 @@ def test_unsupported_no_longer_names_viscosity_or_bathymetry():
 def test_pack_refuses_a_state_whose_mu_is_not_mu_const():
     jgrid, cfg, jstate = jax_case("f32", 1, 0, MU, False)
     grid, state = to_torch(jgrid, jstate, torch.float32)
-    FusedSWModel(grid, cfg, 1.0, mu_const=MU).pack(state)
+    FusedSWModel(grid, cfg, 1.0, mu_const=MU, static_rslu=True).pack(state)
     with pytest.raises(ValueError, match="mu"):
-        FusedSWModel(grid, cfg, 1.0, mu_const=500.0).pack(state)
+        FusedSWModel(grid, cfg, 1.0, mu_const=500.0,
+                     static_rslu=True).pack(state)
     with pytest.raises(ValueError, match="mu"):
-        FusedSWModel(grid, cfg, 1.0).pack(state)
+        FusedSWModel(grid, cfg, 1.0, static_rslu=True).pack(state)
 
 
 def test_kernel_inputs_are_checked_per_form():
