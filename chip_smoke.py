@@ -11,8 +11,10 @@ grid whose metrics vary along x) through ``build_grid`` ->
 steps_per_call=1)`` (one step a launch, phases 2-10) or ``steps_per_call
 =2`` (two chained steps a launch, as the JAX ``OceanModel`` runs even
 windows: phase 11, and ``main`` in phases 9b and 10c), or the general
-form, ``FusedSWModel(grid, cfg, tau)`` with the JAX defaults (phase 13)
--> ``pack`` -> ``run_steps`` -> ``unpack``, in phases:
+form, ``FusedSWModel(grid, cfg, tau)`` with the JAX defaults (phase 13),
+or the persistent step, ``FusedSWModel(persistent=True)``, a whole
+window in one launch (phase 14) -> ``pack`` -> ``run_steps`` ->
+``unpack``, in phases:
 
 1. device: the card, its power limit, the toolchain, the build of the
    kernel libraries (the fused step's forms with 0, 1 and 2 tracers and
@@ -20,10 +22,12 @@ form, ``FusedSWModel(grid, cfg, tau)`` with the JAX defaults (phase 13)
    advection, with a full or a linear free surface, one step or two
    chained a launch; the general form's, every advection and free-surface
    form in one library of each tracer count, raw or not and steps a
-   launch; and the copy step: 81 libraries started together) with
-   ptxas's registers and spills, which must stay at 42 registers (64, the
-   chained forms' launch bound) and 0 bytes; the chained form's shared
-   memory at 3-10 tracers;
+   launch; the persistent form's, fast and general, one library of each
+   tracer count; the copy step and the persistent walk: 90 libraries
+   started together) with ptxas's registers and spills, which must stay
+   at 42 registers (64, the chained forms' launch bound) and 0 bytes; the
+   persistent libraries' non-coherent loads (none may be); the chained
+   form's shared memory at 3-10 tracers;
 2. every form of the fused-step CUDA kernel (no tracers / 2 tracers,
    unguarded / tile guard, profile / plane metrics) against its plain
    PyTorch version on the card, on the 2-cell land frame mask, the
@@ -142,21 +146,39 @@ form, ``FusedSWModel(grid, cfg, tau)`` with the JAX defaults (phase 13)
    ``azov_visc_general`` on 2 x 2 shards == the single general block bit
    for bit; the guard on a NaN at a wet cell; (c) a timing line per path
    beside the fast form of the same configuration in the same run
-   (kernel, byte bound, copy step of each form, path, idle).
+   (kernel, byte bound, copy step of each form, path, idle);
+14. (printed before phase 7) the persistent step (K2) and its probe (K5):
+   (a) the persistent walk through ``scripts/persistent_probe_torch.py``
+   at the TPU probe's 6 x 1552 x 1152 f32: its three forms (in place,
+   ping-pong, one launch a step) bit for bit against each other and
+   within one unit in the last place of the plain version (its float64
+   ties named), timed at 64- and 256-row tiles, the barrier's cost, the
+   grid, the L2 hit rate where ncu exists; (b) ``FusedSWModel(
+   persistent=True)`` on six runs (``default``, ``azov_mask``,
+   ``azov_tracers``, ``azov_general``, ``azov_tracers3``, ``azov_visc``):
+   the kernel against the plain version after 1 and 50 steps (1e-5,
+   1e-4), 200 steps in one launch of the run's own instantiation ==
+   ``run_steps`` at one step a launch bit for bit, the guard on a NaN
+   and an sshp spike; (c) each timed beside ``run_steps`` (guarded as the
+   model defaults, and unguarded) and the chained form of the same run:
+   kernel us a step, path, idle, the grid.
 
 Every phase prints its lines; any failure raises (exit code != 0). The
-line before the last is one JSON object describing thirty-eight kernels
+line before the last is one JSON object describing forty-seven kernels
 (the fused step's plain, guarded, tracer, plane-metric, viscous,
 bathymetry-plane, viscous + bathymetry + tracer and viscous plane-metric
 forms, its raw form on the three paths of phase 9, the four forms of the
 paths of phase 10b, the raw forms of ``01_flat_basin --mesh 2x2``, the
 chained forms of phase 11's four paths and two 2 x 2 splits, the six
 forms of phase 12b's paths, the six general forms of phase 13b's paths,
-the copy step, the chained copy step and the stacked copy step);
+the copy step, the chained copy step and the stacked copy step, the
+persistent step on phase 14's six runs and the walk's three forms, these
+nine per model step);
 the last line is ``{"ok": true, "device": {...}}``. With ``--parent
 DIR`` (the root of another checkout of this repository) it instead holds
-every instantiation that checkout has against this one's, bit for bit
-and in kernel time, and stops. Needs a CUDA device and nvcc; there is no
+every one-step instantiation that checkout has against this one's, bit
+for bit and in kernel time, and every instantiation's registers, and
+stops. Needs a CUDA device and nvcc; there is no
 CPU path.
 """
 
@@ -298,6 +320,20 @@ def profile_device_ms(fn, kernel: str):
     return None, None
 
 
+def profiled_kernels(fn) -> str:
+    """The kernels torch.profiler records device time for in one call of
+    ``fn`` (after a warm-up call), with their device us: what it saw."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    seen = [f"{e.key[:60]} {e.self_device_time_total:.0f} us"
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    return "; ".join(seen) or "nothing"
+
+
 def ptxas_table(log: str) -> list:
     """(template arguments, registers, spill bytes) per kernel
     instantiation from nvcc's -Xptxas -v output."""
@@ -327,6 +363,28 @@ def ptxas_summary(table: list) -> str:
     return "; ".join(f"{r} regs {sp} B spill: " + " ".join(ns)
                      for (r, sp), ns in sorted(groups.items())) \
         or "(cached build)"
+
+
+def nc_loads(targets) -> str:
+    """The global loads of the libraries of ``targets`` in their SASS, and
+    how many of them go through the non-coherent path (LDG .CONSTANT or
+    .NC), which a block of a persistent launch must not use for what other
+    blocks wrote before a grid barrier: "n of m", or why not known."""
+    from ocean_model_arch_torch.ops import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return "not measured (no cuobjdump)"
+    ldg = nc = 0
+    for t in targets:
+        sass = subprocess.run([cuobjdump, "-sass", _build.build(t)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for ln in sass.splitlines():
+            if re.search(r"\bLDG\b", ln):
+                ldg += 1
+                nc += "CONSTANT" in ln or ".NC" in ln
+    check(nc == 0, f"{nc} non-coherent loads in the persistent libraries")
+    return f"{nc} of {ldg}"
 
 
 def fmt(es) -> str:
@@ -677,11 +735,10 @@ def copy_step_inputs(fm, s0):
     return tuple(s0) + tuple(fm.planes), met
 
 
-def load_probe():
-    """scripts/roofline_probe_torch.py as a module."""
+def load_script(name: str):
+    """scripts/<name>.py as a module."""
     spec = importlib.util.spec_from_file_location(
-        "roofline_probe_torch",
-        os.path.join(REPO, "scripts", "roofline_probe_torch.py"))
+        name, os.path.join(REPO, "scripts", name + ".py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -697,17 +754,22 @@ def bathymetry(nx: int, ny: int) -> np.ndarray:
 
 
 def against_parent(parent: str, card: str) -> int:
-    """Every instantiation the checkout at ``parent`` has, on the Azov
-    coastline at full size, against this checkout's: profile and plane
-    metrics, 0 / 1 / 2 tracers, guard off / on, mu = 0, the tracers'
-    diffusive fluxes alone, viscosity, flat bathymetry and bathymetry
-    planes, with and without momentum advection, with a full and a
-    linear free surface, each in its single-block and its raw form (the
-    raw form on the single block's layout, whose box is its interior), as
-    far as the parent's wrappers take arguments for them; forms whose
-    further arguments are not at their defaults (the chained steps, or
-    the advection and free-surface switches of an older parent) have no
-    parent. Outputs and block maxima bit for bit from
+    """Every one-step instantiation the checkout at ``parent`` has, on the
+    Azov coastline at full size, against this checkout's: profile and
+    plane metrics, 0 / 1 / 2 tracers and the run-time family at 3, guard
+    off / on, mu = 0, the tracers' diffusive fluxes alone, viscosity,
+    flat bathymetry and bathymetry planes, with and without momentum
+    advection, with a full and a linear free surface, the fast and the
+    general form (the general one on flat bathymetry at mu = 0 and over
+    the 15-100 m one at mu = 1000: its bathymetry is a plane either way),
+    each in its single-block and its raw form (the raw form on the single
+    block's layout, whose box is its interior), as far as the parent's
+    wrappers take arguments for them; forms whose further arguments are
+    not at their defaults (the chained steps, or the switches of an older
+    parent) have no parent. First the parent's libraries of those forms
+    are built, all at once, and where this process built its own (phase
+    1), every instantiation's registers and spills, the chained ones too,
+    must equal the parent's. Outputs and block maxima bit for bit from
     a state 20 steps in, and the kernel's device us/launch over three
     windows a side in the order parent, this, this, parent, parent, this
     (the medians must agree within 2 %; where they do not, over up to
@@ -726,7 +788,29 @@ def against_parent(parent: str, card: str) -> int:
     sys.modules["parent_port"] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sys.modules["parent_port"])
     theirs = importlib.import_module("parent_port.ops.fused_step")
-    probe = load_probe()
+    theirs_build = importlib.import_module("parent_port.ops._build")
+    probe = load_script("roofline_probe_torch")
+    from ocean_model_arch_torch.ops import _build
+    old_targets = theirs.library_targets() + (
+        theirs.library_targets(general=True)
+        if "general" in inspect.signature(theirs.library_targets).parameters
+        else ())
+    t0 = time.perf_counter()
+    theirs_build.build_all(old_targets)
+    regs = ""
+    if all(t in _build.BUILDS for t in old_targets):
+        n_inst = 0
+        for t in old_targets:
+            a = sorted(ptxas_table(_build.BUILDS[t]["log"]))
+            b = sorted(ptxas_table(theirs_build.BUILDS.get(t, {}).get(
+                "log", "")))
+            check(a == b, f"{t}: registers or spills differ from the "
+                  f"parent's: {sorted(set(a) ^ set(b))[:6]}")
+            n_inst += len(a)
+        regs = (f"; registers and spills of all {n_inst} instantiations of "
+                f"its {len(old_targets)} libraries == the parent's: yes")
+    print(f"against parent: the parent's {len(old_targets)} libraries built "
+          f"in {time.perf_counter() - t0:.1f} s{regs}", flush=True)
     # the arguments the parent's wrapper takes after the fields, and the
     # defaults of the ones only this checkout's takes
     n_old = len(inspect.signature(theirs.fused_sw_step).parameters) - 1
@@ -755,16 +839,20 @@ def against_parent(parent: str, card: str) -> int:
         for hr_planes in (False, True):
             grid = build_grid(b, mask, hhq_rest=hr if hr_planes else None,
                               precision=prec)
-            # (tracers, mu, ksw_lat): mu modes 0, 1 (tracers only), 2
-            for n_tr, mu, ksw in [(t, m, k) for t in (0, 1, 2)
-                                  for m, k in ((0.0, 1), (MU, 0), (MU, 1))
-                                  if t or k]:
+            # (tracers, mu, ksw_lat): mu modes 0, 1 (tracers only), 2; the
+            # general form (fast = False) on flat bathymetry at mu = 0 and
+            # over the 15-100 m one at mu = 1000
+            for n_tr, mu, ksw, fast in [
+                    (t, m, k, f) for f in (True, False)
+                    for t in (0, 1, 2, T_LOOP[0])
+                    for m, k in ((0.0, 1), (MU, 0), (MU, 1))
+                    if (t or k) and (f or bool(m) == hr_planes)]:
                 cfg = form_cfg(b, prec, n_tr, trans, ffs, ksw)
                 state = with_mu(init_ocean_state(grid, cfg), mu)
                 for guard, raw in [(g, r) for r in raws
                                    for g in (False, True)]:
                     fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu,
-                                      tile_guard=guard, static_rslu=True)
+                                      tile_guard=guard, static_rslu=fast)
                     args = model_args(fm, cfg)
                     old_args = args[:n_old]
                     if any(a != d for a, d in zip(args[n_old:],
@@ -797,7 +885,8 @@ def against_parent(parent: str, card: str) -> int:
                             mine.fused_sw_step(s, *args)
                     tag = ("<" + ",".join(str(int(k)) for k in
                                           form_key(fm)[:5])
-                           + f",{int(raw)},{trans},{ffs}> (curve_grid={cg})")
+                           + f",{int(raw)},{trans},{ffs},1,{int(not fast)}> "
+                           f"(curve_grid={cg})")
                     check(all(torch.equal(x, y) for x, y in zip(new, old))
                           and torch.equal(nb, ob), f"{tag}: outputs differ "
                           "from the parent's")
@@ -1411,7 +1500,7 @@ def new_form_paths(grids, basin, basin_b, prec, wet, pts, card, name, run):
     plain_ms) and the list of ``bounds`` entries, filled here."""
     from ocean_model_arch_torch.ops import copy_step as cs
     from ocean_model_arch_torch.ops.fused_step import fused_sw_step_reference
-    probe = load_probe()
+    probe = load_script("roofline_probe_torch")
     paths = (
         ("main path azov_notrans", "azov coastline, trans_terms = 0, "
          "ksw_lat = 0, no tracers", "azov",
@@ -1700,7 +1789,7 @@ def chained_paths(grids, cfgs, cfgs_b, basin, basin_b, prec, wet, pts, card,
     from ocean_model_arch_torch.model.init import init_ocean_state
     from ocean_model_arch_torch.ops import copy_step as cs
     from ocean_model_arch_torch.ops.fused_step import fused_sw_step_reference
-    probe = load_probe()
+    probe = load_script("roofline_probe_torch")
     # (a) every chained instantiation phases 2 and 10a hold
     n_forms = 0
     for mname, gname, c, mu in (
@@ -2015,7 +2104,7 @@ def many_tracer_paths(grids, basin, basin_b, prec, wet, pts, card, name,
     from ocean_model_arch_torch.model.init import init_ocean_state
     from ocean_model_arch_torch.ops import copy_step as cs
     from ocean_model_arch_torch.ops.fused_step import fused_sw_step_reference
-    probe = load_probe()
+    probe = load_script("roofline_probe_torch")
     paths = (
         ("main path azov_tracers4 chained", f"azov coastline, {T_PATH} "
          "tracers, two steps a launch", "azov", basin, T_PATH, 0.0, 2),
@@ -2079,7 +2168,7 @@ def many_tracer_timing(grids, basin, prec, wet, pts, card, name, run,
     from ocean_model_arch_torch.model.init import init_ocean_state
     from ocean_model_arch_torch.ops import copy_step as cs
     from ocean_model_arch_torch.ops.fused_step import chain_smem
-    probe = load_probe()
+    probe = load_script("roofline_probe_torch")
     texts = []
     for n_tr in range(T_PATH + 1):
         cfg = form_cfg(basin, prec, n_tr, 1, 1)
@@ -2355,7 +2444,7 @@ def general_paths(grids, cfgs, cfgs_b, prec, wet, pts, card, name, run,
     run): kernel, byte bound, the copy step of each form, path, idle."""
     from ocean_model_arch_torch.ops import copy_step as cs
     from ocean_model_arch_torch.ops.fused_step import fused_sw_step_reference
-    probe = load_probe()
+    probe = load_script("roofline_probe_torch")
     paths = (
         ("azov_general", "azov coastline, no tracers, "
          "FusedSWModel(grid, cfg, tau)", "azov", cfgs[0], 0.0, 1, {},
@@ -2459,6 +2548,224 @@ def general_paths(grids, cfgs, cfgs_b, prec, wet, pts, card, name, run,
           f"{pts}: " + " | ".join(texts))
 
 
+# ---- phase 14: the persistent step (K2) and its probe (K5) ------------------
+
+N_WALK = 500            # steps of a window of the walk (the TPU probe's)
+# the persistent runs: (label, what, grid, tracers, mu, fast form, entry)
+PERSIST_RUNS = (
+    ("default", "frame mask, no tracers", "frame", 0, 0.0, True,
+     "fused_sw_persistent"),
+    ("azov_mask", "azov coastline, no tracers", "azov", 0, 0.0, True,
+     "fused_sw_persistent_azov_mask"),
+    ("azov_tracers", f"azov coastline, {N_TRACERS} tracers", "azov",
+     N_TRACERS, 0.0, True, "fused_sw_persistent_tracers"),
+    ("azov_general", "azov coastline, no tracers, FusedSWModel(grid, cfg, "
+     "tau, persistent=True): the general form", "azov", 0, 0.0, False,
+     "fused_sw_persistent_general"),
+    ("azov_tracers3", "azov coastline, 3 tracers (run-time tracer family)",
+     "azov", 3, 0.0, True, "fused_sw_persistent_tracers3"),
+    ("azov_visc", f"azov coastline, 15-100 m bathymetry, mu = {MU:g}, "
+     f"{N_TRACERS} tracers", "azov_hr", N_TRACERS, MU, True,
+     "fused_sw_persistent_visc_bathy_tracers"))
+WALK_REPLACES = {"inplace": "scripts/persistent_probe.py:102",
+                 "pingpong": "scripts/persistent_probe.py:187",
+                 "launches": "scripts/persistent_probe.py:187"}
+
+
+def walk_phase(card: str, name: str) -> list:
+    """Phase 14a: the persistent walk (K5) through its entry point,
+    ``scripts/persistent_probe_torch.py``: the three forms against each
+    other (bit for bit) and the plain version on the card, each timed at
+    the TPU probe's extents, the barrier's cost, the grid, the L2 hit rate
+    where ncu exists. Returns the kernels line's entries, per model step;
+    the launches are those of this run of the probe."""
+    from ocean_model_arch_torch.ops import persistent_probe as pp
+    probe = load_script("persistent_probe_torch")
+    pp.reset_launch_counts()
+    rows = probe.probe(N_WALK, 3)
+    counts = dict(pp.persistent_walk.form_launches)
+    fields = probe.fields_from_seed(probe.X, probe.YS)
+    plain_ms = cuda_ms(lambda: pp.persistent_walk_reference(fields, 1), 5)
+    l2 = {f: probe.l2_hit_rate(f, pp.TILE_ROWS)
+          for f in ("inplace", "pingpong")}
+    torch.cuda.synchronize()
+    r0 = rows[0]
+    print(f"phase 14a persistent walk (K5; {name}; {card}): "
+          f"{pp.N_FIELDS} fields of {probe.X + 2 * pp.MARGIN} x {probe.YS} "
+          f"f32, M = {pp.MARGIN}, {N_WALK} steps a window (CUDA events, best "
+          f"of 3); the three forms bit-identical after {probe.N_CHECK} "
+          f"steps: yes; against the plain version at most {r0['ulps']} ulp"
+          + (f" (float64 ties at {r0['tie_cells']})" if r0["tie_cells"]
+             else " (no tie)")
+          + f"; byte bound {r0['bytes'] / 1e6:.1f} MB a step = "
+          f"{r0['bound_us']:.2f} us; us/step: "
+          + "; ".join(f"{r['form']} tile rows {r['tile_rows']} "
+                      f"{r['us']:.2f} (grid {r['grid']} of {r['tiles']} "
+                      f"tiles, {r['us'] / r['bound_us']:.2f} x bound)"
+                      for r in rows)
+          + "; barrier a step: " + "; ".join(
+              "tile rows {}: {:.2f} us (pingpong less the same launch "
+              "without it), {:.2f} us (less one launch a step)".format(
+                  tr, *probe.barrier_us(rows, tr))
+              for tr in probe.TILE_ROWS)
+          + f"; L2 hit rate (tile rows {pp.TILE_ROWS}): inplace "
+          f"{l2['inplace']}, pingpong {l2['pingpong']}; plain version "
+          f"{plain_ms:.4f} ms a step; launches {counts}")
+    entries = []
+    for form in pp.FORMS:
+        r = next(x for x in rows if x["form"] == form
+                 and x["tile_rows"] == pp.TILE_ROWS)
+        check(counts.get(form, 0) > 0, f"walk form {form} never launched")
+        entries.append({
+            "name": f"persistent_walk_{form}", "route": "cuda",
+            "source": CSRC + "persistent_probe.cu",
+            "replaces": WALK_REPLACES[form], "launches": counts[form],
+            "max_abs_err": r["max_abs"], "ms": r["us"] / 1e3,
+            "plain_ms": plain_ms, "bound_ms": r["bound_us"] / 1e3,
+            "bound_by": "bytes", "library_ms": None})
+    return entries
+
+
+def persistent_paths(grids, basin, prec, wet, pts, card, name, stats, cell):
+    """Phase 14b and 14c: ``FusedSWModel(persistent=True)`` at 1525 x 1115
+    on the runs of ``PERSIST_RUNS``: the kernel against the plain version
+    after 1 and N_CARRY steps (1e-5, 1e-4), land exactly 0; the main path,
+    N_MAIN steps in ONE launch of its own instantiation and no other
+    kernel, against ``run_steps`` at one step a launch (N_MAIN launches)
+    bit for bit; the guard at a wet ``cell``; then the timing beside
+    ``run_steps`` (the model's default guard, and unguarded as the walk
+    runs) and the chained form of the same run: kernel us a step
+    (torch.profiler), path, idle, the grid. Returns the kernels line's
+    entries, per model step."""
+    from ocean_model_arch_torch.model.fused import FusedSWModel
+    from ocean_model_arch_torch.model.init import init_ocean_state
+    from ocean_model_arch_torch.ops import fused_step as fstep
+    texts, entries = [], []
+    for label, what, gname, n_tr, mu, fast, entry in PERSIST_RUNS:
+        grid = grids[gname]
+        cfg = form_cfg(basin, prec, n_tr, 1, 1)
+        state = with_mu(init_ocean_state(grid, cfg), mu)
+        kw = {"static_rslu": True} if fast else {}
+        fp = FusedSWModel(grid, cfg, 1.0, mu_const=mu, persistent=True, **kw)
+        check(fp.persistent and fp.general != fast and not fp.metrics_2d,
+              f"{label}: not the persistent {'fast' if fast else 'general'} "
+              "form on profile metrics")
+        s0 = fp.pack(state)
+        args = (fp.met, fp.planes, fp.lay, fp.tau, cfg.sw.time_smooth,
+                fp.hr_const, fp.mu_const, fp.visc, fp.trans, fp.ffs)
+        land = land_masks(fp, grid, n_tr)
+        spare = tuple(torch.zeros_like(f) for f in s0)
+        # (b) the kernel against the plain version after 1 and N_CARRY steps
+        r1, m1 = fstep.fused_sw_persistent_reference(
+            s0, *args, n_steps=1, general=fp.general)
+        rN, mN = fstep.fused_sw_persistent_reference(
+            r1, *args, n_steps=N_CARRY - 1, general=fp.general)
+        errs = {}
+        for n, (r, rmx), tol in ((1, (r1, m1), TOL_ONE),
+                                 (N_CARRY, (rN, torch.maximum(m1, mN)),
+                                  TOL_CARRY)):
+            k, kmx = fstep.fused_sw_persistent(
+                tuple(f.clone() for f in s0), *args, n_steps=n,
+                general=fp.general, spare=spare)
+            e = [rel_err(a, b) for a, b in zip(k, r)]
+            check(max(e) <= tol, f"{label}: persistent kernel vs plain after "
+                  f"{n} steps, rel errors {e} above {tol}")
+            check(abs(float(kmx) - float(rmx)) <= tol * float(rmx),
+                  f"{label}: max {float(kmx)} vs plain {float(rmx)}")
+            check(all(bool((a[lm] == 0).all()) for a, lm in zip(k, land)),
+                  f"{label}: a land cell of the kernel's output is not 0")
+            stats[entry] = max([stats.get(entry, 0.0)] + [
+                float((a - b).abs().max()) for a, b in zip(k, r)])
+            errs[n] = max(e)
+        # the main path: one launch, its own instantiation only
+        key = (n_tr, fstep.mu_mode(n_tr, mu, fp.visc),
+               fp.hr_const is None and not fp.general, fp.trans, fp.ffs,
+               fp.general)
+        fstep.reset_launch_counts()
+        s, ok = fp.run_steps(tuple(f.clone() for f in s0), N_MAIN)
+        launches = fstep.fused_sw_persistent.launches
+        counts = dict(fstep.fused_sw_persistent.form_launches)
+        check(ok and launches == 1 and counts == {key: 1}
+              and fstep.fused_sw_step.launches == 0,
+              f"{label}: ok={ok}, {launches} persistent launches {counts} and "
+              f"{fstep.fused_sw_step.launches} one-step launches for "
+              f"{N_MAIN} steps, expected one of {key}")
+        f1 = FusedSWModel(grid, cfg, 1.0, mu_const=mu, tile_guard=False, **kw)
+        want, wok = f1.run_steps(s0, N_MAIN)
+        same = all(torch.equal(a, b) for a, b in zip(s, want))
+        e200 = max(rel_err(a, b) for a, b in zip(s, want))
+        check(wok and (same or e200 <= TOL_ONE), f"{label}: {N_MAIN} steps "
+              f"in one launch vs run_steps: rel error {e200}")
+        guard_trips(fp, s0, cell, f"{label} persistent")
+        print(f"phase 14b main path {label} ({what}): {N_MAIN} steps in "
+              f"{launches} launch of <{','.join(str(int(k)) for k in key)}> "
+              f"(tracers, mu mode, bathymetry planes, advection, full free "
+              f"surface, general), no one-step launch, ok={ok}; == run_steps "
+              f"at one step a launch ({N_MAIN} launches) bit for bit: "
+              f"{'yes' if same else f'no, rel err {e200:.2e} <= {TOL_ONE}'}; "
+              f"kernel vs plain version rel err 1 step {errs[1]:.2e} <= "
+              f"{TOL_ONE}, {N_CARRY} steps {errs[N_CARRY]:.2e} <= "
+              f"{TOL_CARRY}; land exactly 0: yes; guard: ok=False on an "
+              f"injected NaN ssh and on an sshp spike of 2e4 at wet cell "
+              f"{cell}: yes; max|ssh| {float(s[0].abs().max()):.6e}")
+
+        # (c) timing beside run_steps and the chained form of the same run
+        cur = {"s": tuple(f.clone() for f in s0)}
+
+        def window():
+            cur["s"], _ = fp.run_steps(cur["s"], N_TIME)
+
+        lo, ms_path, hi = sorted(cuda_ms(window, 1) / N_TIME
+                                 for _ in range(3))
+        ms_launch, ms_dev = profile_device_ms(window,
+                                              "fused_sw_persist_kernel")
+        how = f"torch.profiler over one launch of {N_TIME} steps"
+        if ms_launch is None:
+            # CUDA events around the launch alone (and its amax), no host
+            # synchronisation between them
+            pair = (tuple(f.clone() for f in s0), spare)
+            ms_launch = ms_dev = cuda_ms(lambda: fstep.fused_sw_persistent(
+                pair[0], *args, n_steps=N_TIME, general=fp.general,
+                spare=pair[1]), 3)
+            how = (f"CUDA events around one launch of {N_TIME} steps: "
+                   "torch.profiler recorded no device time for it (it saw: "
+                   f"{profiled_kernels(window)})")
+        us_step = ms_launch / N_TIME * 1e3
+        idle = max(0.0, 1 - ms_dev / N_TIME / ms_path)
+        n_grid = fstep.persistent_grid(n_tr, fp.hr_const, mu, fp.visc,
+                                       fp.trans, fp.ffs, fp.general)
+        b_ms, b_by, nbytes = bound_ms(f1, n_tr)
+        plain_ms = cuda_ms(lambda: fstep.fused_sw_persistent_reference(
+            s0, *args, n_steps=1, general=fp.general), 5)
+        fd = FusedSWModel(grid, cfg, 1.0, mu_const=mu, **kw)
+        fc = FusedSWModel(grid, cfg, 1.0, mu_const=mu, steps_per_call=2, **kw)
+        t_d = time_path(fd, cfg, s0, wet[gname], pts)
+        t_1 = time_path(f1, cfg, s0, wet[gname], pts) if fd.tile_guard \
+            else t_d
+        t_c = time_path(fc, cfg, s0, wet[gname], pts)
+        texts.append(
+            f"{label} <{','.join(str(int(k)) for k in key)}>: persistent "
+            f"kernel {us_step:.2f} us a step ({how}; grid {n_grid} blocks "
+            f"co-resident), bound "
+            f"{b_ms * 1e3:.1f} us ({b_by}, {nbytes / 1e6:.1f} MB a step), "
+            f"device busy {ms_dev / N_TIME * 1e3:.2f} us a step, path "
+            f"{ms_path * 1e3:.2f} us a step (windows {lo * 1e3:.2f}-"
+            f"{hi * 1e3:.2f}), device idle {idle:.0%}, plain version "
+            f"{plain_ms:.4f} ms a step | run_steps one step a launch, guard "
+            f"{'on' if fd.tile_guard else 'off'}: {t_d['text']}"
+            + (f" | unguarded: {t_1['text']}" if fd.tile_guard else "")
+            + f" | chained: {t_c['text']}")
+        entries.append({
+            "name": entry, "route": "cuda", "source": CSRC + "fused_step.cu",
+            "replaces": PALLAS + ":1355", "launches": launches,
+            "max_abs_err": stats[entry], "ms": us_step / 1e3,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
+    print(f"phase 14c timing ({name}; {card}), a model step each: "
+          + " || ".join(texts))
+    return entries
+
+
 def fl_margin(steps: int, fs) -> int:
     from ocean_model_arch_torch.ops import fused_layout as fl
     return fl.margin_for(steps, fs.n_tracers)
@@ -2483,7 +2790,8 @@ def main(argv=()) -> int:
     from ocean_model_arch_torch.ops import _build, copy_step as cs
     from ocean_model_arch_torch.ops.fused_step import (
         _library as _fused_library, chain_smem, fused_sw_step,
-        fused_sw_step_reference, library_targets, tile_shape)
+        fused_sw_step_reference, library_targets, persist_targets,
+        tile_shape)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2495,7 +2803,7 @@ def main(argv=()) -> int:
                               capture_output=True, text=True,
                               check=True).stdout.strip().splitlines()[-1]
     targets = (library_targets() + library_targets(general=True)
-               + ("copy_step",))
+               + persist_targets() + ("copy_step", "persistent_probe"))
     # the seconds each phase took, printed at the end
     marks = [("start", time.perf_counter())]
     t0 = time.perf_counter()
@@ -2506,6 +2814,11 @@ def main(argv=()) -> int:
     gen_regs = [row for t in library_targets(general=True) for row in
                 ptxas_table(_build.BUILDS.get(t, {}).get("log", ""))]
     copy_regs = ptxas_table(_build.BUILDS.get("copy_step", {}).get("log", ""))
+    persist_regs = [row for t in persist_targets() for row in ptxas_table(
+        _build.BUILDS.get(t, {}).get("log", ""))]
+    walk_regs = [(int(m.group(1)), int(m.group(2))) for m in re.finditer(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+        _build.BUILDS.get("persistent_probe", {}).get("log", ""))]
     # the chained forms' launch bound: 65536 registers over its threads
     # and blocks an SM
     lib2 = _fused_library(steps=2)
@@ -2522,6 +2835,15 @@ def main(argv=()) -> int:
           + ptxas_summary(fused_regs)
           + f"; the general form (general = 1, {len(gen_regs)} "
           "instantiations): " + ptxas_summary(gen_regs)
+          + f"; the persistent form (K2, {len(persist_regs)} "
+          "instantiations of fused_sw_persist_kernel<tracers,mu mode,"
+          "bathymetry planes,advection,full free surface>, fast then general "
+          "libraries): " + ptxas_summary(persist_regs)
+          + "; its loads of the carried fields through the non-coherent path "
+          "(cuobjdump -sass: LDG .CONSTANT / .NC in the persistent "
+          f"libraries): {nc_loads(persist_targets())}"
+          + "; walk_kernel<in place> (K5): spill bytes "
+          + (", ".join(f"{a} + {b}" for a, b in walk_regs) or "(cached)")
           + "; copy_step_kernel<tracer window,steps,stacked>: "
           + ptxas_summary(copy_regs) + f"; chained tile "
           f"{tile_shape('cuda', 2)} of {lib2.fused_sw_step_threads()} "
@@ -2538,13 +2860,17 @@ def main(argv=()) -> int:
                 8 if r in fused_regs or r in gen_regs else 1] == "2"
                        else MAX_REGS)
             or r[2] != 0]
+    over += [r for r in persist_regs if r[1] > MAX_REGS or r[2] != 0]
+    over += [r for r in walk_regs if r != (0, 0)]
     check(not over, f"instantiations above {MAX_REGS} registers (one step a "
           f"launch) or {chain_regs} (chained), or with spills: {over}")
     if all(t in _build.BUILDS for t in targets):     # none was cached
         check(len(fused_regs) == 1408 and len(gen_regs) == 704
-              and len(copy_regs) == 8,
-              f"{len(fused_regs)} fused, {len(gen_regs)} general and "
-              f"{len(copy_regs)} copy-step instantiations in the build logs")
+              and len(copy_regs) == 8 and len(persist_regs) == 132
+              and len(walk_regs) == 2,
+              f"{len(fused_regs)} fused, {len(gen_regs)} general, "
+              f"{len(persist_regs)} persistent, {len(copy_regs)} copy-step "
+              f"and {len(walk_regs)} walk instantiations in the build logs")
     check(all(cs.tile_shape("cuda", s) == tile_shape("cuda", s)
               for s in (1, 2)),
           "the copy step and the fused step were built with different tiles")
@@ -2946,6 +3272,13 @@ def main(argv=()) -> int:
 
     marks.append(("13b-c", time.perf_counter()))
 
+    # ---- phase 14: the persistent step (K2) and its probe (K5) -----------
+    walk_entries = walk_phase(card, name)
+    persist_entries = persistent_paths(grids, basin, prec, wet, pts, card,
+                                       name, max_abs, cell)
+
+    marks.append(("14", time.perf_counter()))
+
     # ---- phase 7: the copy step ----------------------------------------
     # kernel vs plain version on what each form of the fused step loads:
     # the same float additions in the same order, so exactly equal
@@ -2979,7 +3312,7 @@ def main(argv=()) -> int:
     plain_ms["copy_step"] = cuda_ms(
         lambda: cs.copy_step_reference(windows0, met0, 6, lay), 20)
     # the probe's entry point: every form, random inputs from a seed
-    probe = load_probe()
+    probe = load_script("roofline_probe_torch")
     cs.copy_step.launches = 0
     forms = probe.probe(basin.nx, basin.ny, tuple(masks.items()), N_TIME)
     # the small bipolar basin's own layout: the plane-metric form
@@ -3146,6 +3479,7 @@ def main(argv=()) -> int:
         "plain_ms": plain_ms["copy_step_stacked"],
         "bound_ms": k4[0]["bound_us"] / 1e3, "bound_by": "bytes",
         "library_ms": None})
+    entries += persist_entries + walk_entries
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

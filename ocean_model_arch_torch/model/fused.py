@@ -22,8 +22,8 @@ from ..core.state import SWState
 from ..host import ModelConfig
 from ..ops import fused_layout as fl
 from ..ops import sw_kernels as swk
-from ..ops.fused_step import (GENERAL_MAP, fused_sw_step, kernel_planes,
-                              tile_shape)
+from ..ops.fused_step import (GENERAL_MAP, fused_sw_persistent,
+                              fused_sw_step, kernel_planes, tile_shape)
 from .step import reinit_depth_families
 
 CARRIED = ("ssh", "sshp", "ubrtr", "ubrtrp", "vbrtr", "vbrtrp")
@@ -120,13 +120,26 @@ class FusedSWModel:
     tracers' diffusive fluxes. ``hr_const`` is None when the bathymetry
     varies; it then rides on static planes. ``trans`` and ``ffs`` are
     ``cfg.sw.trans_terms`` and ``cfg.sw.full_free_surface`` as the
-    kernel's switches (0 or 1)."""
+    kernel's switches (0 or 1).
+
+    ``persistent``: the JAX model's persistent mode (its
+    ``build_persistent_sw_step``): ``run_steps`` runs a whole window of
+    any length in ONE launch of the persistent kernel
+    (``fused_sw_persistent``), fast or general form as above, ignoring
+    ``steps_per_call``; x-uniform (profile) metrics only, as in JAX,
+    which refuses metric planes (ValueError). It runs every tile, as the
+    TPU builder does (``tile_guard=False`` there): the tile guard does not
+    apply, and its all-land tiles' zeros are what every step computes
+    there anyway. On the card the window steps between ``s6`` and a second
+    buffer set the model keeps, so ``s6``'s tensors are overwritten and may
+    be the result; the model then keeps the other set. Pass each window
+    the state the last one returned (a clone of a state to keep)."""
 
     def __init__(self, grid: Grid, cfg: ModelConfig, tau: float,
                  mu_const: float = 0.0, static_rslu: bool = False,
                  steps_per_call: int = 1,
                  tile_guard: bool | None = None,
-                 fast2d: bool | None = None):
+                 fast2d: bool | None = None, persistent: bool = False):
         bad = unsupported(grid, cfg, mu_const)
         if bad:
             raise ValueError("fused path unsupported: " + "; ".join(bad))
@@ -163,6 +176,11 @@ class FusedSWModel:
                 raise ValueError("fast2d requires static_rslu=True")
         self.general = not (self.static_rslu
                             and (not self.metrics_2d or self.fast2d))
+        self.persistent = bool(persistent)
+        if self.persistent and self.metrics_2d:
+            raise ValueError("persistent mode: x-uniform metrics, per-field "
+                             "windows, x-strip tiling only")
+        self._spare = None      # the persistent window's second buffer set
         if self.general:
             met16 = (fl.metrics_full_from_grid(grid, lay, derived=False)
                      if self.metrics_2d else None)
@@ -242,11 +260,13 @@ class FusedSWModel:
 
     def run_steps(self, s6, n_steps: int):
         """Advance ``n_steps`` steps in ``n_steps / steps_per_call``
-        launches; returns ``(s6', ok)``. The max |ssh| of every step
-        (a launch's covers each of its steps) accumulates on the device
-        (``torch.maximum``, which propagates NaN) and is read once at the
-        end of the window, so a transient blow-up at any step trips
-        ``ok``."""
+        launches (persistent: any ``n_steps`` in one); returns ``(s6',
+        ok)``. The max |ssh| of every step (a launch's covers each of its
+        steps) accumulates on the device (``torch.maximum``, which
+        propagates NaN) and is read once at the end of the window, so a
+        transient blow-up at any step trips ``ok``."""
+        if self.persistent:
+            return self._run_persistent(s6, n_steps)
         spc = self.steps_per_call
         if n_steps % spc:
             raise ValueError(f"n_steps={n_steps} not a multiple of "
@@ -261,3 +281,24 @@ class FusedSWModel:
                                   self.ffs, spc, self.general)
             mx = torch.maximum(mx, m)
         return s6, bool(mx < swk.SSH_ERR_BOUND)   # NaN compares False
+
+    def _run_persistent(self, s6, n_steps: int):
+        """``run_steps`` in persistent mode: one launch for the window."""
+        spare = None
+        if s6[0].device.type != "cpu":
+            spare = self._spare
+            if spare is None or spare[0].device != s6[0].device:
+                spare = tuple(torch.zeros_like(f) for f in s6)
+            elif {t.data_ptr() for t in spare} & {t.data_ptr() for t in s6}:
+                raise ValueError("persistent window: s6 is this model's "
+                                 "second buffer set (a state handed to an "
+                                 "earlier window); pass the state the last "
+                                 "window returned")
+        sw = self.cfg.sw
+        out, mx = fused_sw_persistent(
+            s6, self.met, self.planes, self.lay, self.tau, sw.time_smooth,
+            self.hr_const, self.mu_const, self.visc, self.trans, self.ffs,
+            n_steps, self.general, spare)
+        if spare is not None:
+            self._spare = tuple(s6) if out[0] is spare[0] else spare
+        return out, bool(mx < swk.SSH_ERR_BOUND)   # NaN compares False

@@ -229,11 +229,28 @@
 // library of its own, 64 side by side. -DFUSED_GEN=1 builds the general
 // forms instead, every (TRANS, FFS) of them in the library of its
 // (tracers, raw, STEPS): 16 more.
+//
+// The persistent form (K2, the TPU's build_persistent_sw_step, :1170
+// there): fused_sw_persist_kernel<NT, MU, HRP, TRANS, FFS> runs n_steps
+// model steps in one cooperative launch, each step the same tile body as
+// the unguarded one-step form with profile metrics (GUARD, MET2D, RAW = 0,
+// STEPS = 1), walked over every tile by a co-resident grid, between two
+// buffer sets, with a grid barrier between steps (see the kernel).
+// -DFUSED_PERSIST=1 with -DFUSED_NT=n builds only those forms, fast ones
+// or, with -DFUSED_GEN=1, general ones, every (MU, HRP, TRANS, FFS) of them
+// in one library: 8 more.
 
 #include "fused_tile.cuh"
 
 #include <climits>
 #include <type_traits>
+#ifdef FUSED_PERSIST
+#include <cooperative_groups.h>
+
+#include <vector>
+
+namespace cg = cooperative_groups;
+#endif
 
 #ifdef FUSED_RAW_NT
 #define FUSED_NT FUSED_RAW_NT
@@ -333,9 +350,49 @@ struct Params {
   float ts1, ts2;        // 1 - time_smooth, time_smooth / 2
 };
 
+// The carried fields' pointers of a step, in and out, by Params' names: the
+// step bodies read them from an object of their own (`f`), which is the
+// launch's Params itself in a launch of one step and, in the persistent
+// walk, the set of the step's parity (walk_fields).
+struct Fields {
+  const float* ssh; const float* sshp;
+  const float* u; const float* up;
+  const float* v; const float* vp;
+  float* ssh_o; float* sshp_o;
+  float* u_o; float* up_o;
+  float* v_o; float* vp_o;
+  const float* tr[2 * MAX_TRACERS];
+  float* tr_o[2 * MAX_TRACERS];
+  float* const* trp;
+};
+
 __device__ __forceinline__ float nan_max(float m, float v) {
   return (v != v || v > m) ? v : m;
 }
+
+// Where a step body's output tile is: column tile bx(), row tile by() of
+// the layout, and the window's origin (global row x0 of its row 0, column
+// y0 of its column 0), and the thread's index. In a launch of one block a
+// tile, the block's own indices (unsigned, as blockIdx is), the origin and
+// the thread taken once at the body's top (origin(), thread(); then x0(o),
+// y0(o), thread(t) return them); the persistent walk has a policy of its
+// own (WalkTile).
+struct BlockTile {
+  __device__ __forceinline__ unsigned bx() const { return blockIdx.x; }
+  __device__ __forceinline__ unsigned by() const { return blockIdx.y; }
+  __device__ __forceinline__ int thread() const { return threadIdx.x; }
+  __device__ __forceinline__ int thread(int t) const { return t; }
+  template <int TX, int TY, int WH>
+  __device__ __forceinline__ int2 origin() const {
+    const int x0 = blockIdx.y * TX - WH;
+    const int y0 = blockIdx.x * TY - WH;
+    return make_int2(x0, y0);
+  }
+  template <int TX, int TY, int WH>
+  __device__ __forceinline__ int x0(int2 o) const { return o.x; }
+  template <int TX, int TY, int WH>
+  __device__ __forceinline__ int y0(int2 o) const { return o.y; }
+};
 
 __device__ __forceinline__ bool inside(const Params& p, int gx, int gy) {
   return gx >= 0 && gx < p.Xs && gy >= 0 && gy < p.Ys;
@@ -353,27 +410,29 @@ __device__ __forceinline__ float at(const Params& p, const float* f,
   return inside(p, gx, gy) ? f[(size_t)gx * p.Ys + gy] : 0.f;
 }
 
-// tracer level l (ff_0, ffp_0, ff_1, ...) in and out
-template <int NT>
-__device__ __forceinline__ const float* tr_in(const Params& p, int l) {
-  if constexpr (NT >= 0) return p.tr[l];
-  else return p.trp[l];
+// tracer level l (ff_0, ffp_0, ff_1, ...) in and out, of the fields f
+template <int NT, class FieldsT>
+__device__ __forceinline__ const float* tr_in(const FieldsT& f, int l) {
+  if constexpr (NT >= 0) return f.tr[l];
+  else return f.trp[l];
 }
 
-template <int NT>
-__device__ __forceinline__ float* tr_out(const Params& p, int l) {
-  if constexpr (NT >= 0) return p.tr_o[l];
-  else return p.trp[2 * p.n_tr + l];
+template <int NT, class FieldsT>
+__device__ __forceinline__ float* tr_out(const Params& p,
+                                              const FieldsT& f, int l) {
+  if constexpr (NT >= 0) return f.tr_o[l];
+  else return f.trp[2 * p.n_tr + l];
 }
 
 // step A's tracer level l in a chained launch: a plane of the window in
 // shared memory from E_TR on, or, for a TLOOP form's levels beyond
-// n_lev_sm, the block's own planes of the device scratch
-template <int NT, int PLANE>
+// n_lev_sm, the planes of the device scratch that belong to the tile
+// (a chained launch runs one tile a block, so the block's own)
+template <int NT, int PLANE, class Where>
 __device__ __forceinline__ float* chain_level(const Params& p, float* e_tr,
-                                              int l) {
+                                              int l, const Where& where) {
   if (NT >= 0 || l < p.n_lev_sm) return e_tr + l * PLANE;
-  const size_t block = blockIdx.y * gridDim.x + blockIdx.x;
+  const size_t block = where.by() * gridDim.x + where.bx();
   return p.scratch + (block * (2 * p.n_tr - p.n_lev_sm) + (l - p.n_lev_sm))
       * PLANE;
 }
@@ -386,11 +445,14 @@ __device__ __forceinline__ float* chain_level(const Params& p, float* e_tr,
 // chained launch) leaves its outputs in shared memory, where the next step
 // reads them in place of the device arrays: ssh in E_SSH, u and v in
 // place in S_U and S_V (stage 3 reads them at its own cell only), sshp,
-// up, vp and the tracers in E_SSHP, E_UP, E_VP, E_TR.
+// up, vp and the tracers in E_SSHP, E_UP, E_VP, E_TR. `f` holds the carried
+// fields' pointers (Fields), `where` says which tile of the layout is the
+// output tile (BlockTile, WalkTile).
 template <int NT, bool MET2D, int MU, bool HRP, bool RAW, bool TRANS,
-          bool FFS, int STEPS, int STEP>
-__device__ __forceinline__ void sw_step(const Params& p, float* sm,
-                                        float& mx) {
+          bool FFS, int STEPS, int STEP, class FieldsT, class Where>
+__device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
+                                        float* sm, float& mx,
+                                        const Where& where) {
   using Fm = Form<NT, STEPS>;
   constexpr int HALO = Fm::HALO, EXTRA = Fm::EXTRA, WH = Fm::WH;
   constexpr int TX = Fm::TX, TY = Fm::TY;
@@ -404,7 +466,8 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
   // this step's stress region: its halo, columns and cells
   constexpr int VH = OH + Fm::VH, VW = TY + 2 * VH, VN = (TX + 2 * VH) * VW;
 
-  const int tid = threadIdx.x;
+  const int tid0 = where.thread();
+  const auto tid = [&] { return where.thread(tid0); };
   float* s_ssh = sm + (FIRST ? S_SSH : E_SSH) * PLANE;
   float* s_u = sm + S_U * PLANE;
   float* s_v = sm + S_V * PLANE;
@@ -436,8 +499,10 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
   float* e_vp = sm + E_VP * PLANE;
   float* e_tr = sm + E_TR * PLANE;          // see chain_level
 
-  const int x0 = blockIdx.y * TX - WH;     // global row of window row 0
-  const int y0 = blockIdx.x * TY - WH;     // global column of window col 0
+  // global row of window row 0, global column of window column 0
+  const int2 org = where.template origin<TX, TY, WH>();
+  const auto x0 = [&] { return where.template x0<TX, TY, WH>(org); };
+  const auto y0 = [&] { return where.template y0<TX, TY, WH>(org); };
   const size_t plane = (size_t)p.Xs * p.Ys;
   const float* rslu_u = p.planes;
   const float* rslu_v = p.planes + plane;
@@ -452,12 +517,12 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
   // a chained launch forms aq anew from the previous step's ssh (the
   // static column of a linear free surface stays from the first)
   if (FIRST) {
-    for (int i = tid; i < PLANE; i += NTHREADS) {
-      const int gx = x0 + i / WY, gy = y0 + i % WY;
+    for (int i = tid(); i < PLANE; i += NTHREADS) {
+      const int gx = x0() + i / WY, gy = y0() + i % WY;
       float ssh = 0.f, u = 0.f, v = 0.f, ld = 0.f, hl = 0.f;
       if (inside(p, gx, gy)) {
         const size_t g = (size_t)gx * p.Ys + gy;
-        ssh = p.ssh[g]; u = p.u[g]; v = p.v[g]; ld = ludxdy[g];
+        ssh = f.ssh[g]; u = f.u[g]; v = f.v[g]; ld = ludxdy[g];
         if (HRP) hl = p.hrld[g];
       }
       s_ssh[i] = ssh; s_u[i] = u; s_v[i] = v; s_ld[i] = ld;
@@ -467,11 +532,11 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
     __syncthreads();
   } else if (FFS) {
     constexpr int h = OH + HALO, w = TY + 2 * h, n = (TX + 2 * h) * w;
-    for (int i = tid; i < n; i += NTHREADS) {
+    for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
       const int k = a * S + b;
       const float ssh = s_ssh[k], ld = s_ld[k];
-      s_aq[k] = HRP ? ssh * ld + at(p, p.hrld, x0 + a, y0 + b)
+      s_aq[k] = HRP ? ssh * ld + at(p, p.hrld, x0() + a, y0() + b)
                     : (ssh + p.hr) * ld;
     }
     __syncthreads();
@@ -483,17 +548,17 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
   // previous-level velocities over their metrics
   {
     constexpr int h = OH + 2 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
-    for (int i = tid; i < n; i += NTHREADS) {
+    for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
-      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      const int k = a * S + b, gx = x0() + a, gy = y0() + b;
       float ru = 0.f, rv = 0.f;
       if (inside(p, gx, gy)) {
         const size_t g = (size_t)gx * p.Ys + gy;
         ru = rslu_u[g]; rv = rslu_v[g];
         if (VISC) {
           const size_t mi = MET2D ? g : (size_t)gy;
-          const float up = FIRST ? p.up[g] : e_up[k];
-          const float vp = FIRST ? p.vp[g] : e_vp[k];
+          const float up = FIRST ? f.up[g] : e_up[k];
+          const float vp = FIRST ? f.vp[g] : e_vp[k];
           s_f[k] = up * p.met[M_RDYH][mi];
           s_k[k] = vp * p.met[M_RDXH][mi];
           s_rx[k] = up * p.met[M_RDXT][mi];
@@ -511,11 +576,11 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
   }
   if (FFS) {
     constexpr int h = OH + 1 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
-    for (int i = tid; i < n; i += NTHREADS) {
+    for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
       const int k = a * S + b;
-      const float sshp = FIRST ? at(p, p.sshp, x0 + a, y0 + b) : e_sshp[k];
-      s_aqp[k] = HRP ? sshp * s_ld[k] + at(p, p.hrld, x0 + a, y0 + b)
+      const float sshp = FIRST ? at(p, f.sshp, x0() + a, y0() + b) : e_sshp[k];
+      s_aqp[k] = HRP ? sshp * s_ld[k] + at(p, p.hrld, x0() + a, y0() + b)
                      : (sshp + p.hr) * s_ld[k];
     }
   }
@@ -530,9 +595,9 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
     const float* s_r = s_k;
     const float* s_s1 = s_rx;
     const float* s_s2 = s_sy;
-    for (int i = tid; i < n; i += NTHREADS) {
+    for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / VW, b = WH - h + i % VW;
-      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      const int k = a * S + b, gx = x0() + a, gy = y0() + b;
       float a2 = 0.f, b2 = 0.f, d2 = 0.f, e2 = 0.f;
       if (inside(p, gx, gy)) {
         const size_t g = (size_t)gx * p.Ys + gy;
@@ -572,9 +637,9 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
   // without advection the Coriolis products alone
   {
     constexpr int h = OH + 1 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
-    for (int i = tid; i < n; i += NTHREADS) {
+    for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
-      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      const int k = a * S + b, gx = x0() + a, gy = y0() + b;
       float rh = 0.f, m16 = 0.f, m17 = 0.f, m18 = 0.f, m21 = 0.f;
       if (inside(p, gx, gy)) {
         const size_t g = (size_t)gx * p.Ys + gy;
@@ -627,9 +692,9 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
   // margin too.
   {
     constexpr int h = OH + 2 * EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
-    for (int i = tid; i < n; i += NTHREADS) {
+    for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
-      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      const int k = a * S + b, gx = x0() + a, gy = y0() + b;
       // distance beyond this step's output region: 0 inside it
       const int ring = !NT ? 0
           : max(max(WH - OH - a, a - (WH + OH + TX - 1)),
@@ -643,7 +708,7 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
       }
       const size_t g = (size_t)gx * p.Ys + gy;
       const size_t mi = MET2D ? g : (size_t)gy;
-      const float ssh = s_ssh[k], sshp = FIRST ? p.sshp[g] : e_sshp[k];
+      const float ssh = s_ssh[k], sshp = FIRST ? f.sshp[g] : e_sshp[k];
       const bool wlu = s_ld[k] > 0.5f;
       const bool wlcu = wlu && s_ld[k + S] > 0.5f;
       const bool wlcv = wlu && s_ld[k + W] > 0.5f;
@@ -658,8 +723,8 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
       if (ring > 1) continue;
 
       // momentum: (up*bp0 + grx)/bp with the bp metric factor cancelled
-      const float u = s_u[k], up = FIRST ? p.up[g] : e_up[k];
-      const float v = s_v[k], vp = FIRST ? p.vp[g] : e_vp[k];
+      const float u = s_u[k], up = FIRST ? f.up[g] : e_up[k];
+      const float v = s_v[k], vp = FIRST ? f.vp[g] : e_vp[k];
       float un = 0.f, vn = 0.f;
       // this cell in the small stress planes (viscous forms)
       const int j = (a - (WH - VH)) * VW + (b - (WH - VH));
@@ -700,13 +765,13 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
       const float v_new = wlcv ? vn : v;
       const float vp_new = wlcv ? p.ts1 * v + p.ts2 * (vn + vp) : vp;
       if (LAST) {
-        p.ssh_o[g] = ssh_new;
-        p.sshp_o[g] = sshp_new;
+        f.ssh_o[g] = ssh_new;
+        f.sshp_o[g] = sshp_new;
         if (NT && FFS) s_hu[k] = sshp_new;
-        p.u_o[g] = u_new;
-        p.up_o[g] = up_new;
-        p.v_o[g] = v_new;
-        p.vp_o[g] = vp_new;
+        f.u_o[g] = u_new;
+        f.up_o[g] = up_new;
+        f.v_o[g] = v_new;
+        f.vp_o[g] = vp_new;
       } else {
         e_ssh[k] = ssh_new; e_sshp[k] = sshp_new;
         s_u[k] = u_new; e_up[k] = up_new;
@@ -749,9 +814,9 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
       // diffusive ones mu / dxt * hun * dff/dx when mu != 0
       {
         constexpr int h = OH + 1, w = TY + 2 * h, n = (TX + 2 * h) * w;
-        for (int i = tid; i < n; i += NTHREADS) {
+        for (int i = tid(); i < n; i += NTHREADS) {
           const int a = WH - h + i / w, b = WH - h + i % w;
-          const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+          const int k = a * S + b, gx = x0() + a, gy = y0() + b;
           float uh, vh, kx = 0.f, ky = 0.f;  // kx, ky: mu / dxt * hun, ...
           if (!LOOP || t0 == 0) {
             const float aqn = s_aqn[k];
@@ -781,12 +846,12 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
             const int l = 2 * (t0 + t);
             float ff, ffx, ffy;
             if (FIRST) {
-              const float* ffg = tr_in<NT>(p, l);
+              const float* ffg = tr_in<NT>(f, l);
               ff = at(p, ffg, gx, gy);
               ffx = at(p, ffg, gx + 1, gy);
               ffy = at(p, ffg, gx, gy + 1);
             } else {
-              const float* e = chain_level<NT, PLANE>(p, e_tr, l);
+              const float* e = chain_level<NT, PLANE>(p, e_tr, l, where);
               ff = e[k]; ffx = e[k + S]; ffy = e[k + W];
             }
             float fx = uh * ((ff + ffx) * -0.5f);
@@ -802,15 +867,15 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
       // stage 5 (halo 0): leapfrog update from the flux divergence,
       // rotation + Robert-Asselin filter, the group's 2 ng tracer outputs
       constexpr int h = OH, w = TY + 2 * h, n = (TX + 2 * h) * w;
-      for (int i = tid; i < n; i += NTHREADS) {
+      for (int i = tid(); i < n; i += NTHREADS) {
         const int a = WH - h + i / w, b = WH - h + i % w;
-        const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+        const int k = a * S + b, gx = x0() + a, gy = y0() + b;
         if (!inside(p, gx, gy)) {
           if (!LAST) {
 #pragma unroll
             for (int t = 0; t < 2 * G; ++t) {
               if (LOOP && t >= 2 * ng) break;
-              chain_level<NT, PLANE>(p, e_tr, 2 * t0 + t)[k] = 0.f;
+              chain_level<NT, PLANE>(p, e_tr, 2 * t0 + t, where)[k] = 0.f;
             }
           }
           continue;
@@ -833,12 +898,12 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
           const int l = 2 * (t0 + t);
           const float* fx = sm + (S_F + 2 * t) * PLANE;
           const float* fy = sm + (S_F + 2 * t + 1) * PLANE;
-          float* e0 = FIRST && LAST ? nullptr
-                                    : chain_level<NT, PLANE>(p, e_tr, l);
-          float* e1 = FIRST && LAST ? nullptr
-                                    : chain_level<NT, PLANE>(p, e_tr, l + 1);
-          const float ff = FIRST ? tr_in<NT>(p, l)[g] : e0[k];
-          const float ffp = FIRST ? tr_in<NT>(p, l + 1)[g] : e1[k];
+          float* e0 = FIRST && LAST
+              ? nullptr : chain_level<NT, PLANE>(p, e_tr, l, where);
+          float* e1 = FIRST && LAST
+              ? nullptr : chain_level<NT, PLANE>(p, e_tr, l + 1, where);
+          const float ff = FIRST ? tr_in<NT>(f, l)[g] : e0[k];
+          const float ffp = FIRST ? tr_in<NT>(f, l + 1)[g] : e1[k];
           float ffn = 0.f;
           if (wlu) {
             const float rhs = ((fx[k] - fx[k - S]) + fy[k]) - fy[k - W];
@@ -847,8 +912,8 @@ __device__ __forceinline__ void sw_step(const Params& p, float* sm,
           const float ff_new = wlu ? ffn : ff;
           const float ffp_new = wlu ? p.ts1 * ff + p.ts2 * (ffn + ffp) : ffp;
           if (LAST) {
-            tr_out<NT>(p, l)[g] = ff_new;
-            tr_out<NT>(p, l + 1)[g] = ffp_new;
+            tr_out<NT>(p, f, l)[g] = ff_new;
+            tr_out<NT>(p, f, l + 1)[g] = ffp_new;
           } else {
             e0[k] = ff_new;
             e1[k] = ffp_new;
@@ -905,9 +970,10 @@ __device__ __forceinline__ float gen_rcp_h(const Params& p, const float* s_lu,
 //   keeps S_AQ), un, vn -> S_U, S_V, its flux planes and a run-time
 //   count's shared uh, vh, kx, ky -> S_HU, S_HV, S_CX, S_CY.
 template <int NT, bool MET2D, int MU, bool RAW, bool TRANS, bool FFS,
-          int STEPS, int STEP>
-__device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
-                                            float& mx) {
+          int STEPS, int STEP, class FieldsT, class Where>
+__device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
+                                            float* sm, float& mx,
+                                            const Where& where) {
   using Fm = Form<NT, STEPS>;
   constexpr int HALO = Fm::HALO, EXTRA = Fm::EXTRA, WH = Fm::WH;
   constexpr int TX = Fm::TX, TY = Fm::TY;
@@ -920,7 +986,8 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
   constexpr int OH = HALO * (STEPS - 1 - STEP);   // this step's output halo
   constexpr int VH = OH + Fm::VH, VW = TY + 2 * VH, VN = (TX + 2 * VH) * VW;
 
-  const int tid = threadIdx.x;
+  const int tid0 = where.thread();
+  const auto tid = [&] { return where.thread(tid0); };
   float* s_ssh = sm + (FIRST ? S_SSH : E_SSH) * PLANE;
   float* s_u = sm + S_U * PLANE;
   float* s_v = sm + S_V * PLANE;
@@ -949,8 +1016,10 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
   float* e_vp = sm + E_VP * PLANE;
   float* e_tr = sm + E_TR * PLANE;          // see chain_level
 
-  const int x0 = blockIdx.y * TX - WH;     // global row of window row 0
-  const int y0 = blockIdx.x * TY - WH;     // global column of window col 0
+  // global row of window row 0, global column of window column 0
+  const int2 org = where.template origin<TX, TY, WH>();
+  const auto x0 = [&] { return where.template x0<TX, TY, WH>(org); };
+  const auto y0 = [&] { return where.template y0<TX, TY, WH>(org); };
   const int plane = p.Xs * p.Ys;
   const float* lu = p.planes;
   const float* hr = p.hrp;
@@ -964,12 +1033,12 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
   // the previous step's ssh (the static column of a linear free surface
   // stays from the first)
   if (FIRST) {
-    for (int i = tid; i < PLANE; i += NTHREADS) {
-      const int gx = x0 + i / WY, gy = y0 + i % WY;
+    for (int i = tid(); i < PLANE; i += NTHREADS) {
+      const int gx = x0() + i / WY, gy = y0() + i % WY;
       float ssh = 0.f, u = 0.f, v = 0.f, l = 0.f, aq = 0.f;
       if (inside(p, gx, gy)) {
         const int g = gx * p.Ys + gy, mi = mix(g, gy);
-        ssh = p.ssh[g]; u = p.u[g]; v = p.v[g]; l = lu[g];
+        ssh = f.ssh[g]; u = f.u[g]; v = f.v[g]; l = lu[g];
         aq = ((FFS ? hr[g] + ssh : hr[g])
               * (p.met[G_DX][mi] * p.met[G_DY][mi])) * l;
       }
@@ -978,9 +1047,9 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
     __syncthreads();
   } else if (FFS) {
     constexpr int h = OH + HALO, w = TY + 2 * h, n = (TX + 2 * h) * w;
-    for (int i = tid; i < n; i += NTHREADS) {
+    for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
-      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      const int k = a * S + b, gx = x0() + a, gy = y0() + b;
       float aq = 0.f;
       if (inside(p, gx, gy)) {
         const int g = gx * p.Ys + gy, mi = mix(g, gy);
@@ -997,9 +1066,9 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
   // metrics
   {
     constexpr int h = OH + 2 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
-    for (int i = tid; i < n; i += NTHREADS) {
+    for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
-      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      const int k = a * S + b, gx = x0() + a, gy = y0() + b;
       float ud = 0.f, vd = 0.f;
       if (inside(p, gx, gy)) {
         const int g = gx * p.Ys + gy, mi = mix(g, gy);
@@ -1012,8 +1081,8 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
         ud = (s_u[k] * hu) * p.met[G_DYH][mi];
         vd = (s_v[k] * hv) * p.met[G_DXH][mi];
         if (VISC) {
-          const float up = FIRST ? p.up[g] : e_up[k];
-          const float vp = FIRST ? p.vp[g] : e_vp[k];
+          const float up = FIRST ? f.up[g] : e_up[k];
+          const float vp = FIRST ? f.vp[g] : e_vp[k];
           s_ef[k] = up * p.met[G_RDYH][mi];
           s_ek[k] = vp * p.met[G_RDXH][mi];
           s_eh[k] = up * p.met[G_RDXT][mi];
@@ -1036,9 +1105,9 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
     const float* s_r = s_ek;
     const float* s_s1 = s_eh;
     const float* s_s2 = s_em;
-    for (int i = tid; i < n; i += NTHREADS) {
+    for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / VW, b = WH - h + i % VW;
-      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      const int k = a * S + b, gx = x0() + a, gy = y0() + b;
       float a2 = 0.f, b2 = 0.f, d2 = 0.f, e2 = 0.f;
       if (inside(p, gx, gy)) {
         const int g = gx * p.Ys + gy, mi = mix(g, gy);
@@ -1076,9 +1145,9 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
   // the vorticity, the edge fluxes and the vorticity terms
   {
     constexpr int h = OH + 1 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
-    for (int i = tid; i < n; i += NTHREADS) {
+    for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
-      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      const int k = a * S + b, gx = x0() + a, gy = y0() + b;
       float F = 0.f, G = 0.f, K = 0.f, L = 0.f, H = 0.f, Mv = 0.f;
       float cv = 0.f, cu = 0.f;
       if (inside(p, gx, gy)) {
@@ -1144,9 +1213,9 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
   };
   {
     constexpr int h = OH + 2 * EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
-    for (int i = tid; i < n; i += NTHREADS) {
+    for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
-      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      const int k = a * S + b, gx = x0() + a, gy = y0() + b;
       const int ring = ring_of(a, b);
       if (!inside(p, gx, gy)) {
         if (NT && FFS) s_aqn[k] = 0.f;
@@ -1156,7 +1225,7 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
         continue;
       }
       const int g = gx * p.Ys + gy, mi = mix(g, gy);
-      const float ssh = s_ssh[k], sshp = FIRST ? p.sshp[g] : e_sshp[k];
+      const float ssh = s_ssh[k], sshp = FIRST ? f.sshp[g] : e_sshp[k];
       const float l0 = s_lu[k];
       const bool wlu = l0 > 0.5f;
 
@@ -1175,8 +1244,8 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
       const float ssh_new = wlu ? sshn : ssh;
       const float sshp_new = wlu ? p.ts1 * ssh + p.ts2 * (sshn + sshp) : sshp;
       if (LAST) {
-        p.ssh_o[g] = ssh_new;
-        p.sshp_o[g] = sshp_new;
+        f.ssh_o[g] = ssh_new;
+        f.sshp_o[g] = sshp_new;
       } else {
         e_ssh[k] = ssh_new; e_sshp[k] = sshp_new;
       }
@@ -1197,12 +1266,12 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
     const int D = Y ? W : S;                  // the cell x + 1 or y + 1
     float* s_c = Y ? s_v : s_u;               // the component
     float* e_cp = Y ? e_vp : e_up;            // its previous level
-    const float* cp_g = Y ? p.vp : p.up;
-    float* c_o = Y ? p.v_o : p.u_o;
-    float* cp_o = Y ? p.vp_o : p.up_o;
-    for (int i = tid; i < n; i += NTHREADS) {
+    const float* cp_g = Y ? f.vp : f.up;
+    float* c_o = Y ? f.v_o : f.u_o;
+    float* cp_o = Y ? f.vp_o : f.up_o;
+    for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
-      const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+      const int k = a * S + b, gx = x0() + a, gy = y0() + b;
       if (!inside(p, gx, gy)) continue;
       const int g = gx * p.Ys + gy, mi = mix(g, gy);
       const int dg = Y ? 1 : p.Ys, dm = Y || MET2D ? dg : 0;
@@ -1211,7 +1280,7 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
       float cn = 0.f;
       if (wet) {          // the cell k + D is wet: inside the array
         auto aqp = [&](int d, int eg, int em) {
-          const float sp = FIRST ? p.sshp[g + eg] : e_sshp[k + d];
+          const float sp = FIRST ? f.sshp[g + eg] : e_sshp[k + d];
           return ((hr[g + eg] + sp)
                   * (p.met[G_DX][mi + em] * p.met[G_DY][mi + em]))
               * s_lu[k + d];
@@ -1282,9 +1351,9 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
       // ones mu * dyh/dxt * hhun * dff/dx when mu != 0
       {
         constexpr int h = OH + 1, w = TY + 2 * h, n = (TX + 2 * h) * w;
-        for (int i = tid; i < n; i += NTHREADS) {
+        for (int i = tid(); i < n; i += NTHREADS) {
           const int a = WH - h + i / w, b = WH - h + i % w;
-          const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+          const int k = a * S + b, gx = x0() + a, gy = y0() + b;
           const float l0 = s_lu[k];
           const bool wlcu = l0 * s_lu[k + S] > 0.5f;
           const bool wlcv = l0 * s_lu[k + W] > 0.5f;
@@ -1323,12 +1392,12 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
             const int l = 2 * (t0 + t);
             float ff, ffx, ffy;
             if (FIRST) {
-              const float* ffg = tr_in<NT>(p, l);
+              const float* ffg = tr_in<NT>(f, l);
               ff = at(p, ffg, gx, gy);
               ffx = at(p, ffg, gx + 1, gy);
               ffy = at(p, ffg, gx, gy + 1);
             } else {
-              const float* e = chain_level<NT, PLANE>(p, e_tr, l);
+              const float* e = chain_level<NT, PLANE>(p, e_tr, l, where);
               ff = e[k]; ffx = e[k + S]; ffy = e[k + W];
             }
             float fx = 0.f, fy = 0.f;
@@ -1350,15 +1419,15 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
       // stage 5 (halo 0): leapfrog update from the flux divergence,
       // rotation + Robert-Asselin filter, the group's 2 ng tracer outputs
       constexpr int h = OH, w = TY + 2 * h, n = (TX + 2 * h) * w;
-      for (int i = tid; i < n; i += NTHREADS) {
+      for (int i = tid(); i < n; i += NTHREADS) {
         const int a = WH - h + i / w, b = WH - h + i % w;
-        const int k = a * S + b, gx = x0 + a, gy = y0 + b;
+        const int k = a * S + b, gx = x0() + a, gy = y0() + b;
         if (!inside(p, gx, gy)) {
           if (!LAST) {
 #pragma unroll
             for (int t = 0; t < 2 * G; ++t) {
               if (LOOP && t >= 2 * ng) break;
-              chain_level<NT, PLANE>(p, e_tr, 2 * t0 + t)[k] = 0.f;
+              chain_level<NT, PLANE>(p, e_tr, 2 * t0 + t, where)[k] = 0.f;
             }
           }
           continue;
@@ -1372,7 +1441,7 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
         const float area = p.met[G_DX][mi] * p.met[G_DY][mi] * p.inv_two_tau;
         const float hrc = hr[g];
         const float bp = hrc * area;
-        const float bp0 = FFS ? (hrc + (LAST ? p.sshp_o[g] : e_sshp[k]))
+        const float bp0 = FFS ? (hrc + (LAST ? f.sshp_o[g] : e_sshp[k]))
                                     * area
                               : bp;
         // one tracer at a time: unrolled, the group's loads together
@@ -1383,12 +1452,12 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
           const int l = 2 * (t0 + t);
           const float* fx = sm + (S_F + 2 * t) * PLANE;
           const float* fy = sm + (S_F + 2 * t + 1) * PLANE;
-          float* e0 = FIRST && LAST ? nullptr
-                                    : chain_level<NT, PLANE>(p, e_tr, l);
-          float* e1 = FIRST && LAST ? nullptr
-                                    : chain_level<NT, PLANE>(p, e_tr, l + 1);
-          const float ff = FIRST ? tr_in<NT>(p, l)[g] : e0[k];
-          const float ffp = FIRST ? tr_in<NT>(p, l + 1)[g] : e1[k];
+          float* e0 = FIRST && LAST
+              ? nullptr : chain_level<NT, PLANE>(p, e_tr, l, where);
+          float* e1 = FIRST && LAST
+              ? nullptr : chain_level<NT, PLANE>(p, e_tr, l + 1, where);
+          const float ff = FIRST ? tr_in<NT>(f, l)[g] : e0[k];
+          const float ffp = FIRST ? tr_in<NT>(f, l + 1)[g] : e1[k];
           float ffn = 0.f;
           if (wlu) {
             const float rhs = ((fx[k] - fx[k - S]) + fy[k]) - fy[k - W];
@@ -1397,8 +1466,8 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, float* sm,
           const float ff_new = wlu ? ffn : ff;
           const float ffp_new = wlu ? p.ts1 * ff + p.ts2 * (ffn + ffp) : ffp;
           if (LAST) {
-            tr_out<NT>(p, l)[g] = ff_new;
-            tr_out<NT>(p, l + 1)[g] = ffp_new;
+            tr_out<NT>(p, f, l)[g] = ff_new;
+            tr_out<NT>(p, f, l + 1)[g] = ffp_new;
           } else {
             e0[k] = ff_new;
             e1[k] = ffp_new;
@@ -1438,7 +1507,7 @@ fused_sw_step_kernel(const Params p) {
 #pragma unroll
           for (int t = 0; t < 2 * NT; ++t) p.tr_o[t][g] = 0.f;
         } else {
-          for (int t = 0; t < 2 * p.n_tr; ++t) tr_out<NT>(p, t)[g] = 0.f;
+          for (int t = 0; t < 2 * p.n_tr; ++t) tr_out<NT>(p, p, t)[g] = 0.f;
         }
       }
       if (tid == 0) p.blockmax[bid] = 0.f;
@@ -1451,16 +1520,20 @@ fused_sw_step_kernel(const Params p) {
 
   float mx = 0.f;
   if constexpr (GEN) {
-    sw_step_gen<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 0>(p, sm, mx);
+    sw_step_gen<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 0>(p, p, sm, mx,
+                                                          BlockTile{});
     if constexpr (STEPS > 1) {
       __syncthreads();     // step A's outputs are in shared memory
-      sw_step_gen<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 1>(p, sm, mx);
+      sw_step_gen<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 1>(p, p, sm, mx,
+                                                            BlockTile{});
     }
   } else {
-    sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 0>(p, sm, mx);
+    sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 0>(p, p, sm, mx,
+                                                           BlockTile{});
     if constexpr (STEPS > 1) {
       __syncthreads();     // step A's outputs are in shared memory
-      sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 1>(p, sm, mx);
+      sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 1>(p, p, sm, mx,
+                                                             BlockTile{});
     }
   }
 
@@ -1489,13 +1562,24 @@ constexpr bool GEN_BUILD = true;
 #else
 constexpr bool GEN_BUILD = false;
 #endif
-// the advection and free-surface forms this library holds (a general
-// library: all four), and the model steps its forms chain in a launch
+// whether this library holds the persistent forms (and then no other)
+#ifdef FUSED_PERSIST
+constexpr bool PERSIST_BUILD = true;
+#else
+constexpr bool PERSIST_BUILD = false;
+#endif
+// the advection and free-surface forms this library holds (a general or
+// a persistent library: all four), and the model steps its forms chain in
+// a launch
 constexpr bool TRANS_BUILD = FUSED_TRANS != 0;
 constexpr bool FFS_BUILD = FUSED_FFS != 0;
+constexpr bool ALL_FORMS = GEN_BUILD || PERSIST_BUILD;
 constexpr int STEPS_BUILD = FUSED_STEPS;
 using TILE = Tile<STEPS_BUILD>;
+static_assert(!PERSIST_BUILD || (!RAW_BUILD && STEPS_BUILD == 1),
+              "the persistent forms are of the single block, one step each");
 
+#ifndef FUSED_PERSIST
 template <int NT, bool GUARD, bool MET2D, int MU, bool HRP>
 int launch(const Params& p, cudaStream_t stream) {
   // a chained TLOOP form's tracer levels in shared memory on top
@@ -1604,6 +1688,318 @@ int dispatch(const Params& p, bool met2d, int mu_mode, bool trans, bool ffs,
   return launch_form<NT>(p, met2d, mu_mode, s);
 #endif
 }
+#else  // FUSED_PERSIST
+
+// The persistent step (K2): n_steps whole model steps in one cooperative
+// launch. Replaces ocean_model_arch_tpu/ops/pallas/fused_step.py::
+// build_persistent_sw_step (pallas_call at :1355), which runs the inner
+// kernel of the step (_make_kernel, built at :1219-1225 with profile
+// metrics, one step a call and no tile guard) over every tile for each
+// step, the state in VMEM scratch for the whole window, and the max |ssh|
+// of all steps in one (8, 128) block.
+//
+// Here a co-resident grid (blocks an SM x SMs, at most one launch's worth
+// of tiles) walks the tiles of the single block's layout: tile t (row tile
+// t / n_ty, column tile t % n_ty) goes to block t mod gridDim, which runs
+// sw_step / sw_step_gen on it -- the same tile body, the same bits, as a
+// launch of the unguarded one-step form with profile metrics -- with a
+// __syncthreads() before the next tile reuses the shared planes. The state
+// is two buffer sets: step s reads one and writes the other (A -> B for
+// even s, B -> A for odd s), and a grid barrier
+// (cooperative_groups::this_grid().sync(), no relocatable device code
+// needed) separates the steps. Every block calls it n_steps - 1 times,
+// whatever tiles it had. Across the barrier a block reads cells another
+// block wrote: the loads are ordinary ones (Params has no __restrict__, so
+// nvcc emits no non-coherent loads of the carried fields), which the
+// barrier's fences order. The max |ssh| of every step and tile a block ran
+// (NaN-keeping) is written once, per block, at the end.
+//
+// What bounds it: memory, as the one-step form, for every step: the carried
+// fields read and written and the static planes read each step (113 MB on
+// the 1533 x 1152 layout without tracers); the two buffer sets (85 MB
+// without tracers) do not fit the 50 MB L2. What it saves is the launch of
+// each step and the host's work between them: one launch a window.
+
+// The walk's position, in shared memory, read at each use (volatile): the
+// tile's column and row tile, the tile index, whether there is one, the
+// step, and the layout's column tiles and tiles. Held in registers across
+// the step body (nvcc hoists what it can out of the walk's loops), they
+// would push it past the 40 registers that let three blocks share an SM,
+// where a launch of one block a tile reads its tile from blockIdx
+// whenever it needs it. And the carried fields' pointers of the step's
+// parity, which thread 0 writes before each step and the barriers order:
+// one body whose fields change with the parity, since two bodies, one a
+// parity with its own parameter set, hoist twice as many constants out of
+// the step loop, which spills.
+enum { W_BX, W_BY, W_TILE, W_MORE, W_STEP, W_NTY, W_NTILES, N_WALK };
+__shared__ volatile int walk_at[N_WALK];
+__shared__ Fields walk_fields;
+
+// The walk's tile: its position and origin read from walk_at at each use,
+// and the thread's index read afresh at each use (a volatile read), so
+// that nvcc neither keeps it nor hoists what derives from it out of the
+// walk's loops.
+struct WalkTile {
+  __device__ __forceinline__ int bx() const { return walk_at[W_BX]; }
+  __device__ __forceinline__ int by() const { return walk_at[W_BY]; }
+  __device__ __forceinline__ int thread() const { return 0; }
+  __device__ __forceinline__ int thread(int) const {
+    int t;
+    asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+    return t;
+  }
+  template <int TX, int TY, int WH>
+  __device__ __forceinline__ int2 origin() const { return make_int2(0, 0); }
+  template <int TX, int TY, int WH>
+  __device__ __forceinline__ int x0(int2) const {
+    return walk_at[W_BY] * TX - WH;
+  }
+  template <int TX, int TY, int WH>
+  __device__ __forceinline__ int y0(int2) const {
+    return walk_at[W_BX] * TY - WH;
+  }
+};
+
+// Thread 0 moves the walk to the block's first tile (first) or on by the
+// grid, and says whether there is one (the block's barriers order it).
+__device__ __forceinline__ void walk_on(bool first) {
+  if (threadIdx.x == 0) {
+    const int t = first ? (int)blockIdx.x : walk_at[W_TILE] + gridDim.x;
+    walk_at[W_TILE] = t;
+    walk_at[W_BX] = t % walk_at[W_NTY];
+    walk_at[W_BY] = t / walk_at[W_NTY];
+    walk_at[W_MORE] = t < walk_at[W_NTILES];
+  }
+}
+
+// Thread 0 sets the step's fields: a -> b for even steps, b -> a for odd.
+__device__ __forceinline__ void walk_fields_of(const Fields& a,
+                                               const Fields& b, bool odd) {
+  if (threadIdx.x != 0) return;
+  walk_fields.ssh = odd ? b.ssh : a.ssh;
+  walk_fields.sshp = odd ? b.sshp : a.sshp;
+  walk_fields.u = odd ? b.u : a.u;
+  walk_fields.up = odd ? b.up : a.up;
+  walk_fields.v = odd ? b.v : a.v;
+  walk_fields.vp = odd ? b.vp : a.vp;
+  walk_fields.ssh_o = odd ? b.ssh_o : a.ssh_o;
+  walk_fields.sshp_o = odd ? b.sshp_o : a.sshp_o;
+  walk_fields.u_o = odd ? b.u_o : a.u_o;
+  walk_fields.up_o = odd ? b.up_o : a.up_o;
+  walk_fields.v_o = odd ? b.v_o : a.v_o;
+  walk_fields.vp_o = odd ? b.vp_o : a.vp_o;
+#pragma unroll
+  for (int l = 0; l < 2 * MAX_TRACERS; ++l) {
+    walk_fields.tr[l] = odd ? b.tr[l] : a.tr[l];
+    walk_fields.tr_o[l] = odd ? b.tr_o[l] : a.tr_o[l];
+  }
+  walk_fields.trp = odd ? b.trp : a.trp;
+}
+
+// One model step of the walk: every tile t = blockIdx.x + k gridDim.x.
+template <int NT, int MU, bool HRP, bool TRANS, bool FFS>
+__device__ __forceinline__ void persist_step(const Params& p, float* sm,
+                                             float& mx) {
+  walk_on(true);
+  __syncthreads();
+  while (walk_at[W_MORE]) {
+    if constexpr (GEN_BUILD)
+      sw_step_gen<NT, false, MU, false, TRANS, FFS, 1, 0>(
+          p, walk_fields, sm, mx, WalkTile{});
+    else
+      sw_step<NT, false, MU, HRP, false, TRANS, FFS, 1, 0>(
+          p, walk_fields, sm, mx, WalkTile{});
+    __syncthreads();      // the tile is done with the planes and the walk
+    walk_on(false);
+    __syncthreads();
+  }
+}
+
+// p: the statics (its own fields unread); fa, fb: the fields of the even
+// and the odd steps.
+template <int NT, int MU, bool HRP, bool TRANS, bool FFS>
+__global__ void __launch_bounds__(TILE::NTHREADS, TILE::MIN_BLOCKS)
+fused_sw_persist_kernel(const Params p, const Fields fa, const Fields fb,
+                        int n_steps) {
+  constexpr int NWARPS = TILE::NTHREADS / 32;
+  extern __shared__ float sm[];
+  __shared__ float s_red[NWARPS];
+
+  float mx = 0.f;
+  if (threadIdx.x == 0) {
+    walk_at[W_STEP] = 0;
+    walk_at[W_NTY] = (p.Ys + TILE::TY - 1) / TILE::TY;
+    walk_at[W_NTILES] = walk_at[W_NTY] * ((p.Xs + TILE::TX - 1) / TILE::TX);
+  }
+  for (;;) {
+    walk_fields_of(fa, fb, walk_at[W_STEP] & 1);
+    persist_step<NT, MU, HRP, TRANS, FFS>(p, sm, mx);
+    if (walk_at[W_STEP] + 1 >= n_steps) break;
+    // every block meets the barrier n_steps - 1 times; past it, every
+    // thread has read the step and the fields
+    cg::this_grid().sync();
+    if (threadIdx.x == 0) walk_at[W_STEP] += 1;
+  }
+
+  // block max |ssh| over every step, NaN-propagating
+  const int tid = threadIdx.x;
+  for (int off = 16; off > 0; off >>= 1)
+    mx = nan_max(mx, __shfl_down_sync(0xffffffffu, mx, off));
+  if ((tid & 31) == 0) s_red[tid >> 5] = mx;
+  __syncthreads();
+  if (tid < 32) {
+    mx = tid < NWARPS ? s_red[tid] : 0.f;
+    for (int off = 16; off > 0; off >>= 1)
+      mx = nan_max(mx, __shfl_down_sync(0xffffffffu, mx, off));
+    if (tid == 0) p.blockmax[blockIdx.x] = mx;
+  }
+}
+
+// The carried fields' pointers of a Params.
+Fields fields_of(const Params& p) {
+  Fields f{p.ssh, p.sshp, p.u, p.up, p.v, p.vp, p.ssh_o, p.sshp_o, p.u_o,
+           p.up_o, p.v_o, p.vp_o, {}, {}, p.trp};
+  for (int l = 0; l < 2 * MAX_TRACERS; ++l) {
+    f.tr[l] = p.tr[l];
+    f.tr_o[l] = p.tr_o[l];
+  }
+  return f;
+}
+
+// The co-resident grid of one persistent instantiation into *grid (grid
+// = 0), or its cooperative launch with *grid blocks, which must not pass
+// that.
+template <int NT, int MU, bool HRP, bool TRANS, bool FFS>
+int persist_launch(const Params& p0, const Params& p1, int n_steps,
+                   int* grid, cudaStream_t stream) {
+  static_assert(sizeof(Params) + 2 * sizeof(Fields) + sizeof(int) <= 4096,
+                "the kernel's parameters");
+  auto kernel = fused_sw_persist_kernel<NT, MU, HRP, TRANS, FFS>;
+  const size_t smem = smem_bytes<NT, 1>(MU == 2);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, TILE::NTHREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  // one block an SM at least, or the card cannot hold the grid
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (*grid == 0) {
+    *grid = per_sm * sms;
+    return 0;
+  }
+  if (*grid < 1 || *grid > per_sm * sms)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  Params p = p0;
+  Fields a = fields_of(p0), b = fields_of(p1);
+  void* args[] = {&p, &a, &b, &n_steps};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(*grid),
+                                  dim3(TILE::NTHREADS), args, smem, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int NT, int MU, bool HRP>
+int persist_forms(const Params& p0, const Params& p1, int n_steps, int* grid,
+                  bool trans, bool ffs, cudaStream_t s) {
+  if (trans)
+    return ffs ? persist_launch<NT, MU, HRP, true, true>(p0, p1, n_steps,
+                                                         grid, s)
+               : persist_launch<NT, MU, HRP, true, false>(p0, p1, n_steps,
+                                                          grid, s);
+  return ffs ? persist_launch<NT, MU, HRP, false, true>(p0, p1, n_steps,
+                                                        grid, s)
+             : persist_launch<NT, MU, HRP, false, false>(p0, p1, n_steps,
+                                                         grid, s);
+}
+
+template <int NT, int MU>
+int persist_hrp(const Params& p0, const Params& p1, int n_steps, int* grid,
+                bool trans, bool ffs, cudaStream_t s) {
+  // the general form reads the hr plane whatever the bathymetry
+  if (!GEN_BUILD && p0.hrld != nullptr)
+    return persist_forms<NT, MU, !GEN_BUILD>(p0, p1, n_steps, grid, trans,
+                                             ffs, s);
+  return persist_forms<NT, MU, false>(p0, p1, n_steps, grid, trans, ffs, s);
+}
+
+// the persistent forms of this library with NT tracers
+template <int NT>
+int persist_dispatch(const Params& p0, const Params& p1, int n_steps,
+                     int* grid, int mu_mode, bool trans, bool ffs,
+                     cudaStream_t s) {
+  switch (mu_mode) {
+    case 0: return persist_hrp<NT, 0>(p0, p1, n_steps, grid, trans, ffs, s);
+    case 1:
+      if constexpr (NT != 0)
+        return persist_hrp<NT, 1>(p0, p1, n_steps, grid, trans, ffs, s);
+      return (int)cudaErrorInvalidValue;
+    default: return persist_hrp<NT, 2>(p0, p1, n_steps, grid, trans, ffs, s);
+  }
+}
+#endif  // FUSED_PERSIST
+
+// The parts of a launch's Params that do not depend on which buffers are
+// its inputs and outputs (statics, metric rows, scalars), from the
+// launchers' arguments; returns 0, or cudaErrorInvalidValue for arguments
+// this library cannot take.
+int statics(Params& p, const float* met, const float* planes,
+            float* blockmax, const int* tile_wet, const int* met_slots,
+            int met2d, int n_tracers, int n_planes, int mu_mode, int raw,
+            int trans, int ffs, int steps, int Xs, int Ys, int nx, int ny,
+            int margin, float hr, float mu, float neg_g, float two_tau,
+            float neg_two_tau, float inv_two_tau, float ts1, float ts2) {
+  const size_t plane = (size_t)Xs * Ys;
+  const size_t row = met2d ? plane : (size_t)Ys;
+  if (n_tracers < 0 || (raw != 0) != RAW_BUILD || steps != STEPS_BUILD)
+    return (int)cudaErrorInvalidValue;
+  p = Params{};
+  p.planes = planes;
+  p.blockmax = blockmax;
+  p.n_tr = n_tracers;
+  p.tile_wet = tile_wet;
+  p.Xs = Xs; p.Ys = Ys; p.nx = nx; p.ny = ny; p.margin = margin;
+  p.hr = hr; p.mu = mu; p.neg_g = neg_g;
+  p.two_tau = two_tau; p.neg_two_tau = neg_two_tau;
+  p.inv_two_tau = inv_two_tau; p.ts1 = ts1; p.ts2 = ts2;
+  if (GEN_BUILD) {
+    // the general form indexes its planes with ints
+    if ((n_planes != 2 && n_planes != 5) || 3 * plane > (size_t)INT_MAX)
+      return (int)cudaErrorInvalidValue;
+    p.hrld = n_planes == 5 ? planes + 2 * plane : nullptr;
+    p.hrp = planes + plane;
+    for (int k = 0; k < N_GEN_MET; ++k) {
+      if (met_slots[k] < 0) return (int)cudaErrorInvalidValue;
+      p.met[k] = met + met_slots[k] * row;
+    }
+    return 0;
+  }
+  if (n_planes < 4 || n_planes > 6
+      || (!ALL_FORMS && ((trans != 0) != TRANS_BUILD
+                         || (ffs != 0) != FFS_BUILD)))
+    return (int)cudaErrorInvalidValue;
+  // varying bathymetry with viscosity or tracers reads the hr plane too
+  if (n_planes == 5 && (mu_mode == 2 || n_tracers > 0))
+    return (int)cudaErrorInvalidValue;
+  p.hrld = n_planes > 4 ? planes + 4 * plane : nullptr;
+  p.hrp = n_planes > 5 ? planes + 5 * plane : nullptr;
+  for (int k = 0; k < N_MET; ++k) {
+    const bool visc_row = k == M_DXB || k == M_DYB || k == M_RDXH
+        || k == M_RDYH || k == M_RDXB || k == M_RDYB || k == M_DYDX
+        || k == M_DXDY;
+    const bool vort_row = k == M_VORT_V || k == M_VORT_UY || k == M_VORT_U;
+    const bool read = visc_row ? mu_mode == 2
+        : vort_row ? trans != 0
+        : (k == M_DX || k == M_DY) ? (n_tracers > 0 || mu_mode == 2) : true;
+    if (read && met_slots[k] < 0) return (int)cudaErrorInvalidValue;
+    p.met[k] = met_slots[k] < 0 ? nullptr : met + met_slots[k] * row;
+  }
+  return 0;
+}
 
 }  // namespace
 
@@ -1640,15 +2036,19 @@ int fused_sw_step_built_for() {
 int fused_sw_step_built_raw() { return RAW_BUILD ? 1 : 0; }
 
 // 1 if this library's forms advect momentum (-DFUSED_TRANS, default 1);
-// -1 for a general library, which holds both.
-int fused_sw_step_built_trans() { return GEN_BUILD ? -1 : TRANS_BUILD; }
+// -1 for a general or a persistent library, which holds both.
+int fused_sw_step_built_trans() { return ALL_FORMS ? -1 : TRANS_BUILD; }
 
 // 1 if this library's forms have a full free surface (-DFUSED_FFS,
-// default 1), 0 for a linear one; -1 for a general library, both.
-int fused_sw_step_built_ffs() { return GEN_BUILD ? -1 : FFS_BUILD; }
+// default 1), 0 for a linear one; -1 for a general or a persistent
+// library, both.
+int fused_sw_step_built_ffs() { return ALL_FORMS ? -1 : FFS_BUILD; }
 
 // 1 if this library holds the general forms (-DFUSED_GEN), else 0.
 int fused_sw_step_built_general() { return GEN_BUILD ? 1 : 0; }
+
+// 1 if this library holds the persistent forms (-DFUSED_PERSIST), else 0.
+int fused_sw_step_built_persist() { return PERSIST_BUILD ? 1 : 0; }
 
 // The model steps a launch of this library's forms runs (-DFUSED_STEPS,
 // default 1; 2 chains two).
@@ -1681,6 +2081,7 @@ long long fused_sw_step_scratch_floats(int n_tracers, int visc, int Xs,
   return blocks * (2 * n_tracers - levels) * Form<TLOOP, STEPS_BUILD>::PLANE;
 }
 
+#ifndef FUSED_PERSIST
 // Launches one step on `stream`; returns cudaGetLastError() (0 = launched).
 // tr_in / tr_out: host arrays of 2 * n_tracers device pointers (ff_0,
 // ffp_0, ff_1, ...), unread when n_tracers = 0. Above 2 tracers (the
@@ -1722,52 +2123,15 @@ int fused_sw_step_launch(
     float neg_g, float two_tau, float neg_two_tau, float inv_two_tau,
     float ts1, float ts2, void* stream) {
   const int mu_mode = visc ? 2 : (n_tracers > 0 && mu != 0.f ? 1 : 0);
-  const size_t plane = (size_t)Xs * Ys;
-  const size_t row = met2d ? plane : (size_t)Ys;
-#ifdef FUSED_GEN
-  // the general form indexes its planes with ints
-  if (n_tracers < 0 || (n_planes != 2 && n_planes != 5)
-      || (raw != 0) != RAW_BUILD || steps != STEPS_BUILD
-      || 3 * plane > (size_t)INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  Params p{ssh, sshp, u, up, v, vp, {}, planes,
-           n_planes == 5 ? planes + 2 * plane : nullptr, planes + plane,
-           ssh_o, sshp_o, u_o, up_o, v_o, vp_o, blockmax,
-           {}, {}, nullptr, nullptr, n_tracers, 0, tile_wet, Xs, Ys, nx, ny,
-           margin, hr, mu, neg_g, two_tau, neg_two_tau, inv_two_tau, ts1,
-           ts2};
-  for (int k = 0; k < N_GEN_MET; ++k) {
-    if (met_slots[k] < 0) return (int)cudaErrorInvalidValue;
-    p.met[k] = met + met_slots[k] * row;
-  }
-#else
-  if (n_tracers < 0 || n_planes < 4
-      || n_planes > 6 || (raw != 0) != RAW_BUILD
-      || (trans != 0) != TRANS_BUILD || (ffs != 0) != FFS_BUILD
-      || steps != STEPS_BUILD)
-    return (int)cudaErrorInvalidValue;
-  // varying bathymetry with viscosity or tracers reads the hr plane too
-  if (n_planes == 5 && (mu_mode == 2 || n_tracers > 0))
-    return (int)cudaErrorInvalidValue;
-  Params p{ssh, sshp, u, up, v, vp, {}, planes,
-           n_planes > 4 ? planes + 4 * plane : nullptr,
-           n_planes > 5 ? planes + 5 * plane : nullptr,
-           ssh_o, sshp_o, u_o, up_o, v_o, vp_o, blockmax,
-           {}, {}, nullptr, nullptr, n_tracers, 0, tile_wet, Xs, Ys, nx, ny,
-           margin, hr, mu, neg_g, two_tau, neg_two_tau, inv_two_tau, ts1,
-           ts2};
-  for (int k = 0; k < N_MET; ++k) {
-    const bool visc_row = k == M_DXB || k == M_DYB || k == M_RDXH
-        || k == M_RDYH || k == M_RDXB || k == M_RDYB || k == M_DYDX
-        || k == M_DXDY;
-    const bool vort_row = k == M_VORT_V || k == M_VORT_UY || k == M_VORT_U;
-    const bool read = visc_row ? mu_mode == 2
-        : vort_row ? TRANS_BUILD
-        : (k == M_DX || k == M_DY) ? (n_tracers > 0 || mu_mode == 2) : true;
-    if (read && met_slots[k] < 0) return (int)cudaErrorInvalidValue;
-    p.met[k] = met_slots[k] < 0 ? nullptr : met + met_slots[k] * row;
-  }
-#endif
+  Params p;
+  const int bad = statics(p, met, planes, blockmax, tile_wet, met_slots,
+                          met2d, n_tracers, n_planes, mu_mode, raw, trans,
+                          ffs, steps, Xs, Ys, nx, ny, margin, hr, mu, neg_g,
+                          two_tau, neg_two_tau, inv_two_tau, ts1, ts2);
+  if (bad) return bad;
+  p.ssh = ssh; p.sshp = sshp; p.u = u; p.up = up; p.v = v; p.vp = vp;
+  p.ssh_o = ssh_o; p.sshp_o = sshp_o; p.u_o = u_o; p.up_o = up_o;
+  p.v_o = v_o; p.vp_o = vp_o;
   cudaStream_t s = (cudaStream_t)stream;
   if (n_tracers > MAX_TRACERS) {
     // the pointer table: what the kernel reads is the copy made here, in
@@ -1812,5 +2176,98 @@ int fused_sw_step_launch(
       return (int)cudaErrorInvalidValue;   // not in this build
   }
 }
+#else  // FUSED_PERSIST
+
+// Launches n_steps model steps of the persistent form (K2) on `stream` as
+// one cooperative launch of *grid blocks; returns its CUDA error (0 =
+// launched). With *grid = 0 it launches nothing and sets *grid to the
+// co-resident grid of the form (blocks an SM x SMs), the most a launch
+// takes; a card that cannot hold one block an SM refuses both. set_a,
+// set_b: host arrays of the 6 + 2 n_tracers device pointers of the two
+// buffer sets (ssh, sshp, u, up, v, vp, ff_0, ffp_0, ...): even steps read
+// A and write B, odd steps the reverse, so step n_steps is in B for odd
+// n_steps and in A for even. Every cell of the array is written each step
+// (land margins keep their input). blockmax: *grid floats, each block's
+// max |ssh| over every step it ran. tr_table: 8 n_tracers device pointers
+// of scratch for more than 2 tracers (null otherwise), filled here in
+// stream order. The statics, metric rows (profiles: met2d = 0) and
+// scalars are fused_sw_step_launch's; there is no guard, no raw form and
+// one step a tile a step; trans and ffs pick any of this library's forms,
+// and a fast library's bathymetry planes (n_planes 5 or 6) its HRP forms.
+int fused_sw_persist_launch(
+    const float* const* set_a, float* const* set_b, const float* met,
+    const float* planes, float* blockmax, void* tr_table,
+    const int* met_slots, int n_tracers, int n_planes, int visc, int trans,
+    int ffs, int n_steps, int* grid, int Xs, int Ys, int nx, int ny,
+    int margin, float hr, float mu, float neg_g, float two_tau,
+    float neg_two_tau, float inv_two_tau, float ts1, float ts2,
+    void* stream) {
+  const int mu_mode = visc ? 2 : (n_tracers > 0 && mu != 0.f ? 1 : 0);
+  Params p0;
+  const int bad = statics(p0, met, planes, blockmax, nullptr, met_slots, 0,
+                          n_tracers, n_planes, mu_mode, 0, trans, ffs, 1, Xs,
+                          Ys, nx, ny, margin, hr, mu, neg_g, two_tau,
+                          neg_two_tau, inv_two_tau, ts1, ts2);
+  if (bad) return bad;
+  if (n_steps < 1) return (int)cudaErrorInvalidValue;
+  // p0 steps A -> B, p1 B -> A (no sets for the grid's query)
+  Params p1 = p0;
+  const float* const* in[2] = {set_a, set_b};
+  float* const* out[2] = {(float* const*)set_b, (float* const*)set_a};
+  Params* ps[2] = {&p0, &p1};
+  for (int k = 0; k < 2 && *grid != 0; ++k) {
+    Params& p = *ps[k];
+    p.ssh = in[k][0]; p.sshp = in[k][1]; p.u = in[k][2]; p.up = in[k][3];
+    p.v = in[k][4]; p.vp = in[k][5];
+    p.ssh_o = out[k][0]; p.sshp_o = out[k][1]; p.u_o = out[k][2];
+    p.up_o = out[k][3]; p.v_o = out[k][4]; p.vp_o = out[k][5];
+    if (n_tracers <= MAX_TRACERS) {
+      for (int t = 0; t < 2 * n_tracers; ++t) {
+        p.tr[t] = in[k][6 + t];
+        p.tr_o[t] = out[k][6 + t];
+      }
+    }
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_tracers > MAX_TRACERS && *grid != 0) {
+    // two tables of 4 n_tracers pointers, one a parity: the levels in, then
+    // out; what the kernel reads is the copy made here, in stream order
+    if (tr_table == nullptr) return (int)cudaErrorInvalidValue;
+    std::vector<const float*> table;
+    for (int k = 0; k < 2; ++k) {
+      for (int t = 0; t < 2 * n_tracers; ++t) table.push_back(in[k][6 + t]);
+      for (int t = 0; t < 2 * n_tracers; ++t) table.push_back(out[k][6 + t]);
+    }
+    cudaError_t e = cudaMemcpyAsync(tr_table, table.data(),
+                                    sizeof(float*) * table.size(),
+                                    cudaMemcpyHostToDevice, s);
+    if (e != cudaSuccess) return (int)e;
+    p0.trp = (float* const*)tr_table;
+    p1.trp = p0.trp + 4 * n_tracers;
+  }
+  const bool tr = trans != 0, fs = ffs != 0;
+  switch (n_tracers) {
+#if !defined(FUSED_NT) || FUSED_NT == 0
+    case 0: return persist_dispatch<0>(p0, p1, n_steps, grid, mu_mode, tr, fs,
+                                       s);
+#endif
+#if !defined(FUSED_NT) || FUSED_NT == 1
+    case 1: return persist_dispatch<1>(p0, p1, n_steps, grid, mu_mode, tr, fs,
+                                       s);
+#endif
+#if !defined(FUSED_NT) || FUSED_NT == 2
+    case 2: return persist_dispatch<2>(p0, p1, n_steps, grid, mu_mode, tr, fs,
+                                       s);
+#endif
+    default:
+#if !defined(FUSED_NT) || FUSED_NT == 3
+      if (n_tracers > MAX_TRACERS)
+        return persist_dispatch<TLOOP>(p0, p1, n_steps, grid, mu_mode, tr,
+                                       fs, s);
+#endif
+      return (int)cudaErrorInvalidValue;   // not in this build
+  }
+}
+#endif  // FUSED_PERSIST
 
 }  // extern "C"

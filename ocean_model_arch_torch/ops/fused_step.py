@@ -82,10 +82,19 @@ tiles it covers), the max over both steps. The single block needs no
 wider margin (its margin is land, which every step keeps at its input
 0); a shard's margin must be ``fused_layout.margin_for(2, T)`` wide.
 
-:func:`fused_sw_step` and :func:`fused_sw_step_raw` take CPU tensors to
-:func:`fused_sw_step_reference` and CUDA tensors to the hand-written
-kernel (``csrc/fused_step.cu``), which they build on first use; a kernel
-that does not build or launch raises.
+:func:`fused_sw_persistent` is the persistent form, the TPU's
+``build_persistent_sw_step`` (:1170 there): ``n_steps`` whole steps in
+one cooperative launch, each the unguarded one-step form with profile
+metrics, fast or general, walked over every tile by a grid that the card
+holds at once, between the caller's fields and a second buffer set, a
+grid barrier between the steps; its max covers every step. Its plain
+version is :func:`fused_sw_step_reference` ``n_steps`` times.
+
+:func:`fused_sw_step`, :func:`fused_sw_step_raw` and
+:func:`fused_sw_persistent` take CPU tensors to the plain version and
+CUDA tensors to the hand-written kernel (``csrc/fused_step.cu``), which
+they build on first use; a kernel that does not build or launch (a
+cooperative launch the card refuses among them) raises.
 """
 
 from __future__ import annotations
@@ -810,10 +819,140 @@ def fused_sw_step_raw(fields, outs, blockmax, met, planes, lay: FusedLayout,
     blockmax.copy_(mx)
 
 
+def fused_sw_persistent_reference(fields, met, planes, lay: FusedLayout,
+                                  tau: float, time_smooth: float,
+                                  hr_const: float | None,
+                                  mu_const: float = 0.0, visc: bool = False,
+                                  trans: int = 1, ffs: int = 1,
+                                  n_steps: int = 1, general: bool = False):
+    """The plain version of :func:`fused_sw_persistent`: ``n_steps``
+    unguarded single steps of :func:`fused_sw_step_reference` on profile
+    metrics, the max over every step (``torch.maximum``, which keeps
+    NaN). Returns (new fields, 0-dim max); zero steps return the fields
+    and 0."""
+    mx = torch.zeros((), dtype=torch.float32, device=fields[0].device)
+    for _ in range(n_steps):
+        fields, m = fused_sw_step_reference(
+            fields, met, planes, lay, tau, time_smooth, hr_const, None, None,
+            None, mu_const, visc, trans, ffs, 1, general)
+        mx = torch.maximum(mx, m)
+    return tuple(fields), mx
+
+
+def persistent_grid(n_tracers: int, hr_const: float | None, mu_const: float,
+                    visc: bool, trans: int, ffs: int,
+                    general: bool = False) -> int:
+    """The co-resident grid of the persistent form on the current CUDA
+    device (blocks an SM x SMs, for its registers and shared memory): the
+    most blocks one launch takes. Raises if the card cannot hold one block
+    an SM."""
+    return _persist_grid(min(n_tracers, LOOP_TRACERS), hr_const is None,
+                         mu_mode(n_tracers, mu_const, visc), int(bool(trans)),
+                         int(bool(ffs)), bool(general),
+                         torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _persist_grid(n_tr: int, hr_planes: bool, mode: int, trans: int, ffs: int,
+                  general: bool, device: int) -> int:
+    del device                    # a key: the grid is the current card's
+    lib = _persist_library(n_tr, general)
+    grid = ctypes.c_int(0)
+    planes = (5 if general else 4 + hr_planes + (hr_planes and
+                                                   (mode == 2 or n_tr > 0)))
+    slots = (ctypes.c_int * lib.fused_sw_step_n_met())(
+        *range(lib.fused_sw_step_n_met()))
+    rc = lib.fused_sw_persist_launch(
+        None, None, None, None, None, None, slots, n_tr, planes,
+        int(mode == 2), trans, ffs, 1, ctypes.byref(grid), 1, 1, 1, 1, 0,
+        0.0, 1.0 if mode else 0.0, *([0.0] * 6), None)
+    if rc != 0:
+        raise RuntimeError("fused_sw_persistent occupancy query failed: "
+                           + lib.fused_sw_step_error_string(rc).decode())
+    return grid.value
+
+
+def fused_sw_persistent(fields, met, planes, lay: FusedLayout, tau: float,
+                        time_smooth: float, hr_const: float | None,
+                        mu_const: float = 0.0, visc: bool = False,
+                        trans: int = 1, ffs: int = 1, n_steps: int = 1,
+                        general: bool = False, spare=None):
+    """``n_steps`` model steps of the unguarded step on profile metrics
+    (``met`` the (24, Ys) profile; the fast form's planes, or with
+    ``general`` the general form's) in ONE launch. Returns ``(6 + 2 T
+    fields after the last step, 0-dim max |ssh| over every step's interior
+    cells)``, NaN-keeping. CPU tensors: the plain version,
+    :func:`fused_sw_persistent_reference`. CUDA tensors: the persistent
+    kernel (counted once a launch in ``fused_sw_persistent.launches`` and,
+    per instantiation ``(T, mu mode, bathymetry planes, trans, ffs,
+    general)``, in ``.form_launches``), which steps between ``fields`` and
+    ``spare`` (6 + 2 T contiguous tensors of the layout, none of them a
+    field) and returns whichever set holds step ``n_steps``: ``spare``
+    for odd ``n_steps``, ``fields`` itself for even ones; the other set is
+    overwritten. Every cell of the layout is written each step (land
+    margins keep their input's zeros). Raises if the kernel does not build
+    or the card refuses the cooperative launch."""
+    if n_steps < 0:
+        raise ValueError(f"n_steps={n_steps}")
+    if fields[0].device.type == "cpu":
+        return fused_sw_persistent_reference(
+            fields, met, planes, lay, tau, time_smooth, hr_const, mu_const,
+            visc, trans, ffs, n_steps, general)
+    visc, trans, ffs = bool(visc), int(bool(trans)), int(bool(ffs))
+    general = bool(general)
+    if spare is None or len(spare) != len(fields) or (
+            {t.data_ptr() for t in spare} & {t.data_ptr() for t in fields}):
+        raise ValueError(f"spare: need {len(fields)} tensors, none of them a "
+                         "field (the steps run between the two sets)")
+    _check_inputs(fields, met, planes, lay, None, None, None, hr_const, visc,
+                  trans, spare, 1, None, general)
+    if n_steps == 0:
+        return tuple(fields), torch.zeros((), dtype=torch.float32,
+                                          device=fields[0].device)
+    n_tr = n_tracers_of(fields)
+    lib = _persist_library(n_tr, general)
+    rows = GENERAL_MET_ROWS if general else KERNEL_MET_ROWS
+    slots = (ctypes.c_int * len(rows))(*rows)
+    dev = fields[0].device
+    with torch.cuda.device(dev):
+        tiles = (-(-lay.Xs // lib.fused_sw_step_tile_x())
+                 * -(-lay.Ys // lib.fused_sw_step_tile_y()))
+        grid = ctypes.c_int(min(tiles, persistent_grid(
+            n_tr, hr_const, mu_const, visc, trans, ffs, general)))
+        # the blocks' maxima and the run-time family's pointer tables (the
+        # launcher fills them in stream order): both go when this returns,
+        # and the caching allocator hands their memory out again only in
+        # this stream's order, after the launch
+        blockmax = torch.empty(grid.value, dtype=torch.float32, device=dev)
+        table = (torch.empty(8 * n_tr, dtype=torch.int64, device=dev)
+                 if n_tr >= LOOP_TRACERS else None)
+        sets = [(ctypes.c_void_p * len(fields))(*(t.data_ptr() for t in s))
+                for s in (fields, spare)]
+        rc = lib.fused_sw_persist_launch(
+            sets[0], sets[1], met.data_ptr(), planes.data_ptr(),
+            blockmax.data_ptr(), None if table is None else table.data_ptr(),
+            slots, n_tr, planes.shape[0], int(visc), trans, ffs, n_steps,
+            ctypes.byref(grid), lay.Xs, lay.Ys, lay.nx, lay.ny, lay.margin,
+            0.0 if hr_const is None else float(hr_const), float(mu_const),
+            *_scalars(tau, time_smooth),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError("fused_sw_persistent kernel launch failed: "
+                           + lib.fused_sw_step_error_string(rc).decode())
+    fused_sw_persistent.launches += 1
+    fused_sw_persistent.form_launches[
+        n_tr, mu_mode(n_tr, mu_const, visc), hr_const is None and not general,
+        trans, ffs, general] += 1
+    out = spare if n_steps % 2 else fields
+    return tuple(out), torch.amax(blockmax)
+
+
 def reset_launch_counts() -> None:
-    """Zero ``fused_sw_step.launches`` and ``.form_launches``."""
-    fused_sw_step.launches = 0
-    fused_sw_step.form_launches = collections.Counter()
+    """Zero ``fused_sw_step.launches`` and ``.form_launches``, and those
+    of ``fused_sw_persistent``."""
+    for fn in (fused_sw_step, fused_sw_persistent):
+        fn.launches = 0
+        fn.form_launches = collections.Counter()
 
 
 reset_launch_counts()
@@ -842,6 +981,22 @@ def library_target(n_tracers: int, raw: bool = False, trans: int = 1,
         target += "".join(f"@FUSED_CHAIN_{k}={v}" for k, v in zip(
             ("TX", "TY", "THREADS", "MIN_BLOCKS"), chain_tile))
     return target
+
+
+def persist_target(n_tracers: int, general: bool = False) -> str:
+    """The build target of csrc/fused_step.cu that holds the persistent
+    forms with ``n_tracers`` tracers (``LOOP_TRACERS`` for every count from
+    it up), fast or ``general``: every (mu mode, bathymetry, trans, ffs)
+    of them."""
+    return (f"fused_step@FUSED_NT={min(n_tracers, LOOP_TRACERS)}"
+            + ("@FUSED_GEN=1" if general else "") + "@FUSED_PERSIST=1")
+
+
+def persist_targets() -> tuple:
+    """The persistent forms' 8 build targets: fast, then general, at 0, 1,
+    2 tracers and from ``LOOP_TRACERS`` up."""
+    return tuple(persist_target(n, general) for general in (False, True)
+                 for n in range(LOOP_TRACERS + 1))
 
 
 def library_targets(general: bool = False) -> tuple:
@@ -909,4 +1064,35 @@ def _library(n_tracers: int = 0, raw: bool = False, trans: int = 1,
     lib.fused_sw_step_launch.argtypes = ([p] * 21 + [i] * 13 + [f] * 8
                                          + [p])
     lib.fused_sw_step_launch.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _persist_library(n_tracers: int = 0, general: bool = False) -> ctypes.CDLL:
+    """csrc/fused_step.cu's persistent forms with ``n_tracers`` tracers
+    (every count from ``LOOP_TRACERS`` up shares one library), fast or
+    ``general``, built on first use, with their C signatures."""
+    n_tracers = min(n_tracers, LOOP_TRACERS)
+    lib = load(persist_target(n_tracers, general))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for fn in (lib.fused_sw_step_tile_x, lib.fused_sw_step_tile_y,
+               lib.fused_sw_step_n_met, lib.fused_sw_step_built_for,
+               lib.fused_sw_step_built_general,
+               lib.fused_sw_step_built_persist):
+        fn.argtypes = []
+        fn.restype = i
+    built = (lib.fused_sw_step_built_for(), lib.fused_sw_step_built_general(),
+             lib.fused_sw_step_built_persist(), lib.fused_sw_step_n_met())
+    want = (n_tracers, int(bool(general)), 1,
+            len(GENERAL_MET_ROWS if general else KERNEL_MET_ROWS))
+    if built != want:
+        raise RuntimeError("the persistent step's library was built for "
+                           "(tracers, general, persistent, metric rows) = "
+                           f"{built}, not {want}")
+    lib.fused_sw_step_error_string.argtypes = [i]
+    lib.fused_sw_step_error_string.restype = ctypes.c_char_p
+    lib.fused_sw_persist_launch.argtypes = ([p] * 7 + [i] * 6
+                                            + [ctypes.POINTER(i)] + [i] * 5
+                                            + [f] * 8 + [p])
+    lib.fused_sw_persist_launch.restype = i
     return lib
