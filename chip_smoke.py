@@ -10,7 +10,11 @@ grid whose metrics vary along x) through ``build_grid`` ->
 ``init_ocean_state`` -> ``FusedSWModel(static_rslu=True,
 steps_per_call=1)`` (one step a launch, phases 2-10) or ``steps_per_call
 =2`` (two chained steps a launch, as the JAX ``OceanModel`` runs even
-windows: phase 11, and ``main`` in phases 9b and 10c), or the general
+windows: phase 11, and ``main`` in phases 9b and 10c), the fast form
+without its folds (``elide_sel=q4=share_prev=False``) in those phases,
+with them, as the drivers default them, in phase 15 and through the
+entry points (``main`` in phases 9b, 10c and 12c; ``OceanModel`` in
+9c), or the general
 form, ``FusedSWModel(grid, cfg, tau)`` with the JAX defaults (phase 13),
 or the persistent step, ``FusedSWModel(persistent=True)``, a whole
 window in one launch (phase 14) -> ``pack`` -> ``run_steps`` ->
@@ -27,7 +31,10 @@ window in one launch (phase 14) -> ``pack`` -> ``run_steps`` ->
    started together) with ptxas's registers and spills, which must stay
    at 42 registers (64, the chained forms' launch bound) and 0 bytes; the
    persistent libraries' non-coherent loads (none may be); the chained
-   form's shared memory at 3-10 tracers;
+   form's shared memory at 3-10 tracers; the op-cost probes' three
+   libraries (K = 16, 48, 64); the fast form's 96 fold libraries
+   (``fold_targets``) start building right after, in the background at a
+   lower priority, while phases 2-14 run on the card;
 2. every form of the fused-step CUDA kernel (no tracers / 2 tracers,
    unguarded / tile guard, profile / plane metrics) against its plain
    PyTorch version on the card, on the 2-cell land frame mask, the
@@ -161,10 +168,35 @@ window in one launch (phase 14) -> ``pack`` -> ``run_steps`` ->
    ``run_steps`` at one step a launch bit for bit, the guard on a NaN
    and an sshp spike; (c) each timed beside ``run_steps`` (guarded as the
    model defaults, and unguarded) and the chained form of the same run:
-   kernel us a step, path, idle, the grid.
+   kernel us a step, path, idle, the grid;
+15. (printed before phase 7) K1's arithmetic folds as the drivers
+   default them: (a) the fold libraries' registers (42 one step, 64
+   chained, no spill); (b) six folded main paths (``azov_mask`` one
+   step and chained, ``azov_tracers``, ``azov_tracers4`` (the run-time
+   tracer count of phase 12c's entry point), ``bipolar_azov`` and
+   ``azov_visc`` chained): 200 steps of their own folded instantiation
+   only against the eager composition, the kernel against the plain
+   version with the same folds after 1 and 50 launches (25 chained), the
+   folded kernel against the unfolded one after 30 steps (1e-6 for
+   elide_sel and q4; with share_prev 1e-4, and 1e-6 against share_prev
+   alone), land exactly 0 in the velocity carriers and tracer levels,
+   the guard; (c) the folded raw form of ``azov_visc`` on 2 x 2 shards
+   against its plain version and == the folded block bit for bit, one
+   step and two a launch, and of ``azov_tracers4`` chained likewise;
+   (d) each folded kernel timed beside the
+   unfolded one of the same configuration; (e) tests/test_fused.py's
+   round-5 cases on the card (70 x 52 islands; also with 2 and 4
+   tracers): elide_sel + q4 within 1e-6, share_prev within 1e-5;
+16. (printed before phase 7) the op-cost probes K6 and K7: (a) every
+   kind at both Ks of its probe against the plain version after 1 and 3
+   carried calls (1e-6), the SASS instructions an iteration of each
+   kind; (b) ``scripts/vpu_op_probe_torch.py`` and
+   ``scripts/vpu_shift_probe_torch.py``'s timing at their own n (2000,
+   500), each kind's launches counted.
 
 Every phase prints its lines; any failure raises (exit code != 0). The
-line before the last is one JSON object describing forty-seven kernels
+line before the last is one JSON object describing the kernels: forty-
+seven unfolded ones
 (the fused step's plain, guarded, tracer, plane-metric, viscous,
 bathymetry-plane, viscous + bathymetry + tracer and viscous plane-metric
 forms, its raw form on the three paths of phase 9, the four forms of the
@@ -173,7 +205,9 @@ chained forms of phase 11's four paths and two 2 x 2 splits, the six
 forms of phase 12b's paths, the six general forms of phase 13b's paths,
 the copy step, the chained copy step and the stacked copy step, the
 persistent step on phase 14's six runs and the walk's three forms, these
-nine per model step);
+nine per model step), the folded instantiations launched on the entry
+points' and phase 15's paths, and the probes' 26 (K6: ten kinds at two
+Ks; K7: three at two);
 the last line is ``{"ok": true, "device": {...}}``. With ``--parent
 DIR`` (the root of another checkout of this repository) it instead holds
 every one-step instantiation that checkout has against this one's, bit
@@ -184,6 +218,7 @@ CPU path.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -212,6 +247,13 @@ N_TRACERS = 2
 
 MU = 1.0e3              # the shipped lvisc_2 (every sw.par)
 MAX_REGS = 42           # above it only two 512-thread blocks fit an SM
+# the fast form without its folds (elide_sel, q4, share_prev), which the
+# drivers turn on by default: the phases that hold the unfolded
+# instantiations build their models with it; the entry points (phases
+# 9b, 9c, 10c, 12c) and phase 15 run the folded ones
+UNFOLDED = {"elide_sel": False, "q4": False, "share_prev": False}
+# the kernels' names in torch.profiler's events: unfolded, folded
+FUSED_KERNELS = ("fused_sw_step_kernel", "fused_sw_fold_kernel")
 
 # H100 SXM data sheet: HBM bytes/s and f32 FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
@@ -231,12 +273,10 @@ REPLACES = {"fused_sw_step": PALLAS + ":1642",
             "fused_sw_step_visc_bathy_fast2d": PALLAS + ":716",
             "fused_sw_step_raw_visc_bathy_tracers": PALLAS + ":1652",
             "fused_sw_step_raw_fast2d": PALLAS + ":1652",
-            "fused_sw_step_raw_tracers": PALLAS + ":1652",
             "fused_sw_step_notrans_guarded": PALLAS + ":798",
             "fused_sw_step_notrans_fast2d": PALLAS + ":798",
             "fused_sw_step_linear_tracers": PALLAS + ":954",
             "fused_sw_step_linear_visc_bathy_tracers": PALLAS + ":764",
-            "fused_sw_step_raw_notrans_guarded": PALLAS + ":1652",
             "fused_sw_step_chain_guarded": PALLAS + ":1061",
             "fused_sw_step_chain_tracers": PALLAS + ":1061",
             "fused_sw_step_chain_fast2d": PALLAS + ":1061",
@@ -355,6 +395,27 @@ def ptxas_table(log: str) -> list:
     return out
 
 
+def vpu_ptxas(log: str) -> list:
+    """(kernel, registers, spill bytes) of the probe library's kernels
+    from nvcc's -Xptxas -v output: the elementwise kinds by their names."""
+    from ocean_model_arch_torch.ops.vpu_probe import KINDS
+    out, name, spill = [], None, -1
+    for ln in log.splitlines():
+        m = re.search(r"entry function '\S*?(elem|bf16|rollx|rolly)_kernel"
+                      r"(?:ILi(\d+)E)?", ln)
+        if m:
+            name = KINDS[int(m.group(2))] if m.group(2) else m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
+
+
 def ptxas_summary(table: list) -> str:
     """The table grouped: ``registers / spill bytes: instantiations``."""
     groups: dict = {}
@@ -396,21 +457,36 @@ def model_args(fm, cfg):
     passes them."""
     return (fm.met, fm.planes, fm.lay, fm.tau, cfg.sw.time_smooth,
             fm.hr_const, fm.tile_wet, fm.tile, fm.met_map, fm.mu_const,
-            fm.visc, fm.trans, fm.ffs, fm.steps_per_call, fm.general)
+            fm.visc, fm.trans, fm.ffs, fm.steps_per_call, fm.general,
+            fm.folds)
 
 
 def form_key(fm) -> tuple:
     """The kernel instantiation a model launches, as the wrapper counts
     it: (tracers, guarded, plane metrics, mu mode, bathymetry planes,
-    raw, advection, full free surface, steps a launch, general form). The
-    sharded model launches the raw form; the general form's bathymetry is
-    always a plane and counts as not."""
-    from ocean_model_arch_torch.ops.fused_step import mu_mode
+    raw, advection, full free surface, steps a launch, general form,
+    folds). The sharded model launches the raw form; the general form's
+    bathymetry is always a plane and counts as not; folds: the kernel's
+    FOLD code (0 none, 3 elide_sel + q4, 7 with share_prev, 4
+    share_prev)."""
+    from ocean_model_arch_torch.ops.fused_step import (fold_code,
+                                                       kernel_folds, mu_mode)
     return (fm.n_tracers, fm.tile_guard, fm.metrics_2d,
             mu_mode(fm.n_tracers, fm.mu_const, fm.visc),
             fm.hr_const is None and not fm.general,
             hasattr(fm, "shard_lay"), fm.trans, fm.ffs, fm.steps_per_call,
-            fm.general)
+            fm.general, fold_code(kernel_folds(fm.folds, fm.steps_per_call,
+                                               fm.ffs)))
+
+
+def kernel_name(fm) -> str:
+    """The CUDA kernel a model's launches run, as torch.profiler names
+    it."""
+    return FUSED_KERNELS[bool(form_key(fm)[10])]
+
+
+# the kernels line's suffix of each fold code
+FOLD_SUFFIX = {0: "", 3: "_folds", 7: "_folds_share", 4: "_share"}
 
 
 def key_text(key) -> str:
@@ -428,11 +504,12 @@ def form_name(fm) -> str:
              + "_linear" * (not fm.ffs))
     many = fm.n_tracers > N_TRACERS
     new = form_key(fm)[3] or fm.hr_const is None or many
+    folds = FOLD_SUFFIX[form_key(fm)[10]]
     if not new:
         return ("fused_sw_step" + forms
                 + ("_fast2d" if fm.metrics_2d else
                    "_tracers" if fm.n_tracers else
-                   "_guarded" if fm.tile_guard else ""))
+                   "_guarded" if fm.tile_guard else "") + folds)
     feats = "".join(
         "_" + w for w, on in (("visc", fm.visc),
                               ("diff", form_key(fm)[3] == 1),
@@ -441,7 +518,16 @@ def form_name(fm) -> str:
                                fm.n_tracers > 0),
                               ("fast2d", fm.metrics_2d)) if on)
     return ("fused_sw_step" + forms
-            + (feats or "_guarded" * bool(fm.tile_guard)))
+            + (feats or "_guarded" * bool(fm.tile_guard)) + folds)
+
+
+def replaces(form: str) -> str:
+    """The TPU kernel a kernels-line entry replaces: its form's line, or
+    for a folded instantiation the folds' flags of ``_make_kernel``."""
+    for suffix in sorted(FOLD_SUFFIX.values(), key=len, reverse=True):
+        if suffix and form.endswith(suffix):
+            return PALLAS + ":246"
+    return REPLACES[form]
 
 
 def with_mu(state, mu: float):
@@ -522,6 +608,7 @@ def compare_forms(mname, grid, cfgs, stats, mu=0.0, spc=1, phase=None):
         state = with_mu(init_ocean_state(grid, cfg), mu)
         for guard in (False, True):
             fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, static_rslu=True,
+                              **UNFOLDED,
                               steps_per_call=spc, tile_guard=guard)
             args = model_args(fm, cfg)
             land = land_masks(fm, grid, n_tr)
@@ -635,7 +722,7 @@ def drive_path(tag, grid, cfg, tile_guard, mu=0.0, spc=1, model_kw=None):
     state = with_mu(init_ocean_state(grid, cfg), mu)
     fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, steps_per_call=spc,
                       tile_guard=tile_guard,
-                      **({"static_rslu": True} if model_kw is None
+                      **({"static_rslu": True, **UNFOLDED} if model_kw is None
                          else model_kw))
     s0 = fm.pack(state)
     reset_launch_counts()
@@ -707,7 +794,7 @@ def time_path(fm, cfg, s0, wet_pts: int, pts: int) -> dict:
         cuda_ms(lambda: fm.run_steps(s0, N_TIME), 1) / N_TIME
         for _ in range(3))
     ms_kernel, ms_window = profile_device_ms(
-        lambda: fm.run_steps(s0, N_TIME), "fused_sw_step_kernel")
+        lambda: fm.run_steps(s0, N_TIME), kernel_name(fm))
     if ms_kernel is None:
         args = model_args(fm, cfg)
         ms_kernel = cuda_ms(lambda: fused_sw_step(s0, *args), N_TIME)
@@ -818,16 +905,6 @@ def against_parent(parent: str, card: str) -> int:
         mine.fused_sw_step).parameters.values())[1:]]
     raws = (False, True) if hasattr(theirs, "fused_sw_step_raw") else (False,)
 
-    def window_us(call):
-        # torch.profiler now and then records no device activity in a
-        # window (once in about 950 on an H100): that window is taken again
-        for attempt in range(3):
-            try:
-                return probe.kernel_us(call, N_TIME, "fused_sw_step_kernel")
-            except RuntimeError:
-                if attempt == 2:
-                    raise
-
     basin = basinpar_as250m_test()
     prec = Precision.f32()
     mask = read_mask(os.path.join(REPO, "data", "AS", "maskAzovCor.txt"),
@@ -852,7 +929,8 @@ def against_parent(parent: str, card: str) -> int:
                 for guard, raw in [(g, r) for r in raws
                                    for g in (False, True)]:
                     fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu,
-                                      tile_guard=guard, static_rslu=fast)
+                                      tile_guard=guard, static_rslu=fast,
+                                      **UNFOLDED)
                     args = model_args(fm, cfg)
                     old_args = args[:n_old]
                     if any(a != d for a, d in zip(args[n_old:],
@@ -898,8 +976,9 @@ def against_parent(parent: str, card: str) -> int:
                     order, us = "", []
                     for _ in range(3):
                         order += "PTTPPT"
-                        us += [window_us(old_call if c == "P" else new_call)
-                               for c in "PTTPPT"]
+                        us += [probe.kernel_us(
+                            old_call if c == "P" else new_call, N_TIME,
+                            "fused_sw_step_kernel") for c in "PTTPPT"]
                         med = {c: float(np.median([u for u, o in
                                                    zip(us, order) if o == c]))
                                for c in "PT"}
@@ -927,7 +1006,7 @@ def shard_args(fs, cfg, i, j):
     return (fs.met_shards[i][j], fs.plane_shards[i][j], fs.shard_lay[i][j],
             fs.tau, cfg.sw.time_smooth, fs.hr_const, fs.tile_wet[i][j],
             fs.tile, fs.met_map, fs.mu_const, fs.visc, fs.trans, fs.ffs,
-            fs.steps_per_call, fs.general)
+            fs.steps_per_call, fs.general, fs.folds)
 
 
 def n_blocks(fs) -> tuple:
@@ -1056,15 +1135,22 @@ def run_sharded(tag, fs, state, n_steps):
 
 def profile_events(fn) -> dict:
     """One call of ``fn`` under torch.profiler, after a warm-up call:
-    device kernel name -> (launches, device us in all)."""
+    device kernel name -> (launches, device us in all). A window with no
+    device activity recorded is taken again, as in
+    ``roofline_probe_torch.kernel_us``, three at most."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: (e.count, e.self_device_time_total)
-            for e in prof.key_averages() if e.self_device_time_total > 0}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = {e.key: (e.count, e.self_device_time_total)
+                  for e in prof.key_averages()
+                  if e.self_device_time_total > 0}
+        if events:
+            return events
+    return events
 
 
 def sharded_bound_ms(fs):
@@ -1107,7 +1193,7 @@ def time_sharded(fs, state, wet_pts: int, pts: int) -> dict:
                              for _ in range(3))
     ev = profile_events(lambda: run(carry))
     kern = [(c, us) for k, (c, us) in ev.items()
-            if "fused_sw_step_kernel" in k]
+            if any(n in k for n in FUSED_KERNELS)]
     check(bool(kern), "torch.profiler recorded no device time for the raw "
           "kernel")
     n_launch = sum(c for c, _ in kern)
@@ -1204,7 +1290,7 @@ def entry_point(card: str, name: str) -> None:
               "the entry point did not take the fused CUDA kernel:\n"
               + "\n".join(ln for ln in out.splitlines() if "MODEL" in ln))
         # every window is even: two chained steps a launch, as JAX runs it
-        key = (0, True, False, 0, False, False, 1, 1, 2, False)
+        key = (0, True, False, 0, False, False, 1, 1, 2, False, 7)
         n_launch = n_total // 2
         check(counts == {key: n_launch}, f"phase 9b: launches {counts}, "
               f"expected {n_launch} of {key}")
@@ -1291,7 +1377,9 @@ def channel_mask(nx: int, ny: int) -> np.ndarray:
 
 def periodic_channel(card: str, name: str, stats: dict):
     """Phase 9c. Returns (the sharded model, its config, the initial
-    state, launches on the path, the grid's wet points)."""
+    state, launches on the path, the grid's wet points, the kernels-line
+    name of its instantiation: OceanModel's, with the drivers' default
+    folds)."""
     from ocean_model_arch_torch.host import (ModelConfig, Precision,
                                              SWConfig, basinpar_as250m_test)
     from ocean_model_arch_torch.config import RunConfig
@@ -1352,10 +1440,13 @@ def periodic_channel(card: str, name: str, stats: dict):
                 errs[f"ff[{t}]"] = rel_err(final.ff[t], ref.ff[t])
             check(max(errs.values()) < TOL_EAGER,
                   f"phase 9c vs eager composition: rel errors {errs}")
+            form = "fused_sw_step_raw_" + form_name(fs)[14:]
+            check(form == "fused_sw_step_raw_tracers_folds",
+                  f"phase 9c: the channel runs {form}")
             keep = (fs, cfg, state, sum(counts.values()),
-                    int((grid.lu > 0.5).sum()))
+                    int((grid.lu > 0.5).sum()), form)
             compare_raw("channel 1536 x 1115 periodic x, T=2", fs, cfg,
-                        state, stats, "fused_sw_step_raw_tracers")
+                        state, stats, form)
     check(seam_max[1] > 0.0 and seam_max[0] == 0.0,
           f"phase 9c: max |ssh| in the first 8 columns {seam_max}")
     print(f"phase 9c periodic channel ({nx} x {ny}, periodic in x, walls "
@@ -1387,7 +1478,7 @@ def sharded_2x2(tag, grid, cfg, mu, stats, form, spc=1, phase=None,
     state = with_mu(init_ocean_state(grid, cfg), mu)
     phase = phase or ("phase 9d" if spc == 1 else "phase 11c")
     fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, steps_per_call=spc,
-                      static_rslu=static_rslu)
+                      static_rslu=static_rslu, **UNFOLDED)
     s, ok1 = fm.run_steps(fm.pack(state), N_MAIN)
     from ocean_model_arch_torch.ops import fused_layout as fl
     want = [fl.extract(fm.lay, a) for a in s]
@@ -1395,7 +1486,8 @@ def sharded_2x2(tag, grid, cfg, mu, stats, form, spc=1, phase=None,
     for cuts in ("uniform", "weighted"):
         fs = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, mu_const=mu,
                                  weighted=cuts == "weighted",
-                                 steps_per_call=spc, static_rslu=static_rslu)
+                                 steps_per_call=spc, static_rslu=static_rslu,
+                                 **UNFOLDED)
         check(fs.general == fm.general, f"{phase} {tag}: the shards run "
               "another form than the single block")
         compare_raw(f"{tag}, {cuts} cuts", fs, cfg, state, stats, form, phase)
@@ -1483,7 +1575,7 @@ def compare_new_forms(grids, basin, basin_b, prec, stats) -> int:
                                    ("bipolar_azov", basin_b, 0, 0.0)):
             cfg = form_cfg(b, prec, n_tr, trans, ffs)
             fs = FusedSharded2DModel(grids[gname], cfg, 1.0, 2, 2,
-                                     mu_const=mu)
+                                     mu_const=mu, **UNFOLDED)
             state = with_mu(init_ocean_state(grids[gname], cfg), mu)
             compare_raw(f"{gname} {form} T={n_tr} mu={mu:g}", fs, cfg, state,
                         stats, "fused_sw_step_raw_" + form_name(fs)[14:])
@@ -1643,7 +1735,8 @@ def shipped_examples(card, name, stats, run) -> None:
             key, n = only_form(ex, counts)
             # windows of 60 and a last of 4: two chained steps a launch
             check(n == step // 2 and key[6:] == (
-                cfg.sw.trans_terms, cfg.sw.full_free_surface, 2, False),
+                cfg.sw.trans_terms, cfg.sw.full_free_surface, 2, False,
+                7 if cfg.sw.full_free_surface else 3),
                 f"{ex}: launches {counts} for {step} steps")
             n_out = cfg.run.output_every_steps
             n_rec = 1 + -(-step // n_out)
@@ -1709,8 +1802,9 @@ def shipped_examples(card, name, stats, run) -> None:
             model._make_runner(n_inner)
             fs = model._fused_sh
             form = "fused_sw_step_raw_" + form_name(fs)[14:]
-            check(form == ("fused_sw_step_raw_notrans_guarded" if n_inner == 1
-                           else "fused_sw_step_raw_chain_notrans_guarded"),
+            check(form == ("fused_sw_step_raw_notrans_guarded_folds"
+                           if n_inner == 1 else
+                           "fused_sw_step_raw_chain_notrans_guarded_folds_share"),
                   f"the 2 x 2 runner is {form}")
             if n_inner == 2:
                 check(tuple(key) == form_key(fs),
@@ -1753,7 +1847,7 @@ def guard_sees_step_a(fm, s0, cell, where: str) -> None:
     launch trips; so does a NaN there."""
     from ocean_model_arch_torch.ops import sw_kernels as swk
     from ocean_model_arch_torch.ops.fused_step import fused_sw_step_reference
-    args1 = model_args(fm, fm.cfg)[:13] + (1, fm.general)
+    args1 = model_args(fm, fm.cfg)[:13] + (1, fm.general, fm.folds)
     for val in (1.5e4, float("nan")):
         bad = tuple(f.clone() for f in s0)
         bad[1][cell] = val
@@ -1829,7 +1923,8 @@ def chained_paths(grids, cfgs, cfgs_b, basin, basin_b, prec, wet, pts, card,
                                    ("bipolar_azov", basin_b, 0, 0.0)):
             cfg = form_cfg(b, prec, n_tr, trans, ffs)
             fs = FusedSharded2DModel(grids[gname], cfg, 1.0, 2, 2,
-                                     mu_const=mu, steps_per_call=2)
+                                     mu_const=mu, steps_per_call=2,
+                                     **UNFOLDED)
             state = with_mu(init_ocean_state(grids[gname], cfg), mu)
             compare_raw(f"{gname} {form} T={n_tr} mu={mu:g}", fs, cfg, state,
                         stats, "fused_sw_step_raw_" + form_name(fs)[14:])
@@ -2007,7 +2102,7 @@ def many_tracer_forms(grids, basin, basin_b, prec, stats) -> int:
             ("azov", basin, 4, 0.0, 1, 0, 1)):
         cfg = form_cfg(b, prec, n_tr, trans, ffs)
         fs = FusedSharded2DModel(grids[gname], cfg, 1.0, 2, 2, mu_const=mu,
-                                 steps_per_call=spc)
+                                 steps_per_call=spc, **UNFOLDED)
         state = with_mu(init_ocean_state(grids[gname], cfg), mu)
         compare_raw(f"{gname} T={n_tr} mu={mu:g} trans={trans} ffs={ffs}",
                     fs, cfg, state, stats,
@@ -2019,7 +2114,9 @@ def many_tracer_forms(grids, basin, basin_b, prec, stats) -> int:
 def many_tracer_entry_point(card: str, name: str) -> None:
     """Phase 12c: ``main`` on a copy of ``examples/05_azov_hires`` with
     ``T_PATH`` tracers (its sw.par edited), on the single block and on a
-    2 x 2 mesh: the route, the launches, finite GrADS records, and the
+    2 x 2 mesh: the route, the launches (of the folded chained form, the
+    drivers' default; phase 15 holds it against its plain version), finite
+    GrADS records, and the
     final state of each == ``FusedSWModel(steps_per_call=2).run_steps`` by
     hand, bit for bit."""
     from ocean_model_arch_torch.config import Precision
@@ -2027,8 +2124,8 @@ def many_tracer_entry_point(card: str, name: str) -> None:
     from ocean_model_arch_torch.model.fused import CARRIED, FusedSWModel
     from ocean_model_arch_torch.model.model import (OceanModel,
                                                     load_config_dir)
-    from ocean_model_arch_torch.ops.fused_step import (fused_sw_step,
-                                                       reset_launch_counts)
+    from ocean_model_arch_torch.ops.fused_step import (
+        Folds, fold_code, fused_sw_step, reset_launch_counts)
     sw = {"0       : tracers": "1       : tracers",
           "1       : tracer_num": f"{T_PATH}       : tracer_num"}
     fields = CARRIED + ("ff", "ffp", "hhq", "hhu", "hhv", "hhh")
@@ -2052,6 +2149,7 @@ def many_tracer_entry_point(card: str, name: str) -> None:
             key, n = only_form(f"phase 12c {mesh or 'block'}", counts)
             check(key[0] == T_PATH and key[8] == 2
                   and bool(key[5]) == bool(mesh)
+                  and key[10] == fold_code(Folds(True, True, True))
                   and n == (4 if mesh else 1) * step // 2,
                   f"phase 12c ({mesh or 'block'}): launches {counts} for "
                   f"{step} steps")
@@ -2177,7 +2275,7 @@ def many_tracer_timing(grids, basin, prec, wet, pts, card, name, run,
                 fm, s0, t = models["azov", n_tr, spc]
             else:
                 fm = FusedSWModel(grids["azov"], cfg, 1.0, steps_per_call=spc,
-                                  static_rslu=True)
+                                  static_rslu=True, **UNFOLDED)
                 s0 = fm.pack(init_ocean_state(grids["azov"], cfg))
                 t = time_path(fm, cfg, s0, wet["azov"], pts)
             windows, met = copy_step_inputs(fm, s0)
@@ -2197,7 +2295,7 @@ def many_tracer_timing(grids, basin, prec, wet, pts, card, name, run,
     cfg = form_cfg(basin, prec, T_PAST, 1, 1)
     for spc in (1, 2):
         fm = FusedSWModel(grids["azov"], cfg, 1.0, steps_per_call=spc,
-                          static_rslu=True)
+                          static_rslu=True, **UNFOLDED)
         s0 = fm.pack(init_ocean_state(grids["azov"], cfg))
         us = probe.kernel_us(lambda: fm.run_steps(s0, spc), N_TIME // 4,
                              "fused_sw_step_kernel")
@@ -2645,7 +2743,7 @@ def persistent_paths(grids, basin, prec, wet, pts, card, name, stats, cell):
         grid = grids[gname]
         cfg = form_cfg(basin, prec, n_tr, 1, 1)
         state = with_mu(init_ocean_state(grid, cfg), mu)
-        kw = {"static_rslu": True} if fast else {}
+        kw = {"static_rslu": True, **UNFOLDED} if fast else {}
         fp = FusedSWModel(grid, cfg, 1.0, mu_const=mu, persistent=True, **kw)
         check(fp.persistent and fp.general != fast and not fp.metrics_2d,
               f"{label}: not the persistent {'fast' if fast else 'general'} "
@@ -2766,6 +2864,377 @@ def persistent_paths(grids, basin, prec, wet, pts, card, name, stats, cell):
     return entries
 
 
+# ---- phase 15: K1's arithmetic folds ------------------------------------------
+
+# the folded main paths: (label, what, grid, tracers, mu, steps a launch)
+FOLD_PATHS = (
+    ("azov_mask", "azov coastline, no tracers", "azov", 0, 0.0, 1),
+    ("azov_mask chained", "azov coastline, no tracers", "azov", 0, 0.0, 2),
+    ("azov_tracers chained", f"azov coastline, {N_TRACERS} tracers", "azov",
+     N_TRACERS, 0.0, 2),
+    ("azov_tracers4 chained", f"azov coastline, {T_PATH} tracers (the "
+     "run-time tracer count, phase 12c's form)", "azov", T_PATH, 0.0, 2),
+    ("bipolar_azov chained", "azov coastline on the bipolar grid, plane "
+     "metrics (fast2d)", "bipolar_azov", 0, 0.0, 2),
+    ("azov_visc chained", f"15-100 m bathymetry, mu = {MU:g}, {N_TRACERS} "
+     "tracers", "azov_hr", N_TRACERS, MU, 2),
+)
+N_FOLD_CMP = 30          # steps of the folded-against-unfolded comparison
+# tests/test_fused.py::_assert_ulp_close: elide_sel and q4 (exact scalings,
+# contraction round-off), share_prev (a regrouping) on its 70 x 52 basin
+TOL_FOLD, TOL_SHARE = 1e-6, 1e-5
+
+
+def build_behind(names) -> None:
+    """Build ``names`` at niceness 10, as many at once as there are cores,
+    below the phases that time the card: on Linux ``os.nice`` lowers the
+    calling thread only, and the threads and compilers it starts inherit
+    it. (All 96 at once take the host loop's core: the run took 1056 s.)"""
+    from ocean_model_arch_torch.ops import _build
+    os.nice(10)
+    n = os.cpu_count() or 8
+    for i in range(0, len(names), n):
+        _build.build_all(names[i:i + n])
+
+
+def fold_registers(fold_build, chain_regs: int) -> str:
+    """Phase 15a: wait for the fold libraries' background build; every
+    folded instantiation within the launch bound of its steps (42
+    registers one step a launch, ``chain_regs`` chained), no spill, and as
+    many instantiations in each fold library as in its unfolded twin."""
+    from ocean_model_arch_torch.ops import _build
+    from ocean_model_arch_torch.ops.fused_step import fold_targets
+    t0 = time.perf_counter()
+    fold_build.result()
+    waited = time.perf_counter() - t0
+    rows, built = [], 0
+    for t in fold_targets():
+        if t not in _build.BUILDS:
+            continue                    # cached: no log
+        built += 1
+        mine = ptxas_table(_build.BUILDS[t]["log"])
+        twin = ptxas_table(_build.BUILDS.get(
+            t.split("@FUSED_FOLD=")[0], {}).get("log", ""))
+        check(not twin or len(mine) == len(twin), f"{t}: {len(mine)} "
+              f"instantiations, its unfolded twin {len(twin)}")
+        rows += mine
+    over = [r for r in rows
+            if r[1] > (chain_regs if r[0][1:-1].split(",")[8] == "2"
+                       else MAX_REGS) or r[2] != 0]
+    check(not over, f"fold instantiations above {MAX_REGS} registers (one "
+          f"step a launch) or {chain_regs} (chained), or with spills: "
+          f"{over}")
+    secs = [_build.BUILDS[t]["seconds"] for t in fold_targets()
+            if t in _build.BUILDS]
+    return (f"{built} of {len(fold_targets())} fold libraries built here "
+            f"(in the background from phase 2 on, nice 10; the longest "
+            f"{max(secs, default=0.0):.1f} s), waited {waited:.1f} s for "
+            f"the rest; {len(rows)} instantiations of fused_sw_fold_kernel"
+            "<tracers,guard,plane metrics,mu mode,bathymetry planes,raw,"
+            "advection,full free surface,steps,folds>: "
+            + ptxas_summary(rows))
+
+
+def fold_phase(grids, basin, basin_b, prec, wet, pts, card, name, run,
+               stats, cell, fold_build, chain_regs) -> None:
+    """Phase 15: the folds (elide_sel, q4, share_prev) as the drivers
+    default them. (a) the fold libraries' registers; (b) each folded main
+    path (``FOLD_PATHS``: 200 steps through ``FusedSWModel`` with its
+    defaults, its own folded instantiation only, against the eager
+    composition), its kernel against the plain version with the same
+    folds after 1 and 50 launches (25 chained), folded against unfolded
+    kernels after 30 steps (rel <= 1e-6 without share_prev, 1e-5 with it:
+    tests/test_fused.py::_assert_ulp_close), land exactly 0 in the
+    velocity carriers and the tracer levels, the guard on an injected NaN
+    and an sshp spike; (c) the folded raw form on 2 x 2 shards against its
+    plain version and == the folded block bit for bit, one step and two a
+    launch (``azov_visc``), two a launch with ``T_PATH`` tracers (the
+    entry point's form of phase 12c); (d) timing, each folded kernel
+    beside the unfolded one of the same configuration in the same run."""
+    from ocean_model_arch_torch.model.fused import FusedSWModel
+    from ocean_model_arch_torch.model.fused_sharded2d import \
+        FusedSharded2DModel
+    from ocean_model_arch_torch.model.init import init_ocean_state
+    from ocean_model_arch_torch.ops import fused_layout as fl
+    from ocean_model_arch_torch.ops.fused_step import (
+        fused_sw_step_blockmax, fused_sw_step_reference)
+    print(f"phase 15a fold registers: "
+          + fold_registers(fold_build, chain_regs), flush=True)
+    basins = {"azov": basin, "azov_hr": basin, "bipolar_azov": basin_b}
+    texts, blocks = [], {}
+    for label, what, gname, n_tr, mu, spc in FOLD_PATHS:
+        grid = grids[gname]
+        cfg = form_cfg(basins[gname], prec, n_tr, 1, 1)
+        fm, state, s0, n, _ = drive_path(
+            f"phase 15b main path {label} (folds on; {what})", grid, cfg,
+            None, mu, spc, {"static_rslu": True})
+        folds = tuple(map(int, fm.folds))
+        check(folds == (1, 1, int(spc > 1)), f"{label}: folds {folds}")
+        form = form_name(fm)
+        run["launches"][form] = n
+        # (b) kernel against the plain version with the same folds
+        args = model_args(fm, cfg)
+        k1, bmx = fused_sw_step_blockmax(s0, *args)
+        r1, rmx = fused_sw_step_reference(s0, *args)
+        e1 = max(rel_err(a, b) for a, b in zip(k1, r1))
+        ks, rs = s0, s0
+        for _ in range(N_CARRY // spc):
+            ks, _ = fused_sw_step_blockmax(ks, *args)
+            rs, _ = fused_sw_step_reference(rs, *args)
+        torch.cuda.synchronize()
+        e50 = max(rel_err(a, b) for a, b in zip(ks, rs))
+        check(e1 <= TOL_ONE and e50 <= TOL_CARRY, f"{label}: folded kernel "
+              f"vs plain rel err {e1:.2e} (1 launch), {e50:.2e} "
+              f"({N_CARRY // spc} launches)")
+        check(abs(float(bmx.max()) - float(rmx)) <= TOL_ONE * float(rmx),
+              f"{label}: block max {float(bmx.max())} vs plain {float(rmx)}")
+        stats[form] = max(float((a - b).abs().max())
+                          for a, b in zip(ks + k1, rs + r1))
+        # folded against unfolded, the same steps on the card; with
+        # share_prev also against share_prev alone (elide_sel and q4 apart)
+        fu = FusedSWModel(grid, cfg, 1.0, mu_const=mu, static_rslu=True,
+                          steps_per_call=spc, tile_guard=fm.tile_guard,
+                          **UNFOLDED)
+        a, aok = fu.run_steps(fu.pack(state), N_FOLD_CMP)
+        b, bok = fm.run_steps(s0, N_FOLD_CMP)
+        ef = max(rel_err(x, y) for x, y in zip(b, a))
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        lim = TOL_CARRY if fm.share_prev else TOL_FOLD
+        check(aok and bok and ef <= lim, f"{label}: folded vs unfolded "
+              f"after {N_FOLD_CMP} steps rel err {ef:.2e} > {lim}")
+        vs_share = ""
+        if fm.share_prev:
+            fsh = FusedSWModel(grid, cfg, 1.0, mu_const=mu, static_rslu=True,
+                               steps_per_call=spc, tile_guard=fm.tile_guard,
+                               elide_sel=False, q4=False)
+            c, cok = fsh.run_steps(fsh.pack(state), N_FOLD_CMP)
+            es = max(rel_err(x, y) for x, y in zip(b, c))
+            check(cok and es <= TOL_FOLD, f"{label}: folded vs share_prev "
+                  f"alone after {N_FOLD_CMP} steps rel err {es:.2e}")
+            vs_share = (f"; against share_prev alone "
+                        f"{key_text(form_key(fsh))} rel err {es:.2e} <= "
+                        f"{TOL_FOLD} (elide_sel and q4 apart)")
+        land = land_masks(fm, grid, n_tr)
+        check(all(bool((f[m] == 0).all())
+                  for f, m in zip(b[2:] + ks[2:], land[2:] + land[2:])),
+              f"{label}: a land cell of a velocity or tracer carrier is "
+              "not 0")
+        guard_trips(fm, s0, cell, f"phase 15 {label}")
+        # (d) timing beside the unfolded twin
+        t = time_path(fm, cfg, s0, wet[gname], pts)
+        tu = time_path(fu, cfg, fu.pack(state), wet[gname], pts)
+        run["kernels"][form] = (fm, n_tr, t)
+        run["plain_ms"][form] = cuda_ms(
+            lambda: fused_sw_step_reference(s0, *args), 10)
+        b_ms, b_by, nbytes = bound_ms(fm, n_tr)
+        blocks[gname, n_tr, spc] = (fm, state)
+        print(f"phase 15b folds {label} {key_text(form_key(fm))}: kernel "
+              f"vs plain (same folds) rel err {e1:.2e} <= {TOL_ONE} after 1 "
+              f"launch, {e50:.2e} <= {TOL_CARRY} after {N_CARRY // spc}; "
+              f"folded vs unfolded kernel after {N_FOLD_CMP} steps "
+              + ("bit for bit" if same else f"rel err {ef:.2e} <= {lim}")
+              + vs_share + "; land exactly 0 in the velocity carriers and tracer "
+              "levels: yes; guard: ok=False on a NaN ssh and an sshp spike "
+              "at a wet cell: yes")
+        texts.append(
+            f"{label} {key_text(form_key(fm))}: folded kernel "
+            f"{t['ms_kernel'] * 1e3:.2f} us a launch against unfolded "
+            f"{tu['ms_kernel'] * 1e3:.2f} {key_text(form_key(fu))} "
+            f"({t['ms_kernel'] / tu['ms_kernel']:.4f}); byte bound "
+            f"{b_ms * 1e3:.1f} us ({nbytes / 1e6:.1f} MB, {b_by}); path "
+            f"folded {t['ms_path']:.4f} ms/step, unfolded "
+            f"{tu['ms_path']:.4f}")
+    # (c) the folded raw form: 2 x 2 shards == the folded block
+    for label, gname, n_tr, mu, spc in (
+            ("azov_visc", "azov_hr", N_TRACERS, MU, 1),
+            ("azov_visc", "azov_hr", N_TRACERS, MU, 2),
+            ("azov_tracers4", "azov", T_PATH, 0.0, 2)):
+        cfg = form_cfg(basin, prec, n_tr, 1, 1)
+        fm, state = blocks.get((gname, n_tr, spc), (None, None))
+        if fm is None:
+            state = with_mu(init_ocean_state(grids[gname], cfg), mu)
+            fm = FusedSWModel(grids[gname], cfg, 1.0, mu_const=mu,
+                              static_rslu=True, steps_per_call=spc)
+        want, ok1 = fm.run_steps(fm.pack(state), N_MAIN)
+        fs = FusedSharded2DModel(grids[gname], cfg, 1.0, 2, 2,
+                                 mu_const=mu, steps_per_call=spc)
+        check(fs.folds == fm.folds, "the shards' folds are not the block's")
+        form = "fused_sw_step_raw_" + form_name(fs)[14:]
+        compare_raw(f"{label} folded, T={n_tr}", fs, cfg, state, stats,
+                    form, "phase 15c")
+        got, ok, n = run_sharded(f"phase 15c {label} folded {spc}", fs,
+                                 state, N_MAIN)
+        same = all(torch.equal(a, fl.extract(fm.lay, b))
+                   for a, b in zip(got, want))
+        check(ok and ok1 and same, f"phase 15c: the folded {label} shards "
+              f"differ from the folded block ({spc} step(s) a launch)")
+        land = land_masks(fm, grids[gname], n_tr)
+        check(all(bool((f[m] == 0).all())
+                  for f, m in zip(want[2:], land[2:])),
+              f"phase 15c {label}: a land cell of a velocity or tracer "
+              "carrier is not 0")
+        t = time_sharded(fs, state, wet[gname], pts)
+        run["launches"][form] = n
+        run["kernels"][form] = (fs, n_tr, t)
+        f_in = fs.pack(state)[0].unbind(0)
+        f_out = tuple(torch.zeros_like(a) for a in f_in)
+        run["plain_ms"][form] = cuda_ms(lambda: fused_sw_step_reference(
+            f_in, *shard_args(fs, cfg, 0, 0), outs=f_out), 10)
+        print(f"phase 15c {label} folded, 2 x 2 shards "
+              f"{key_text(form_key(fs))}: {N_MAIN} steps == the folded "
+              f"block {key_text(form_key(fm))} bit for bit, land exactly 0 "
+              f"in the velocity carriers and tracer levels: yes; "
+              f"{t['text']}")
+    fold_ulp_case(prec)
+    print(f"phase 15d timing ({name}; {card}), folds on against off, the "
+          "same run: " + " | ".join(texts))
+
+
+def fold_ulp_case(prec) -> None:
+    """Phase 15e: tests/test_fused.py's round-5 cases on the card, the
+    70 x 52 island basin, 30 steps at two a launch: elide_sel + q4 (with
+    share_prev, as the JAX tests run them) against share_prev alone
+    within 1e-6, also with 2 tracers and mu = 500 and with ``T_PATH``
+    (the run-time tracer count); share_prev against none within 1e-5;
+    land exactly 0 in the velocity carriers and tracer levels."""
+    from ocean_model_arch_torch.core.grid import build_grid
+    from ocean_model_arch_torch.host import frame_of_land_mask
+    from ocean_model_arch_torch.config import basinpar_flat
+    from ocean_model_arch_torch.model.fused import FusedSWModel
+    from ocean_model_arch_torch.model.init import init_ocean_state
+    basin = basinpar_flat(70, 52, curve_grid=1, rlon=27.5, rlat=41.0)
+    mask = frame_of_land_mask(70, 52)
+    rng = np.random.RandomState(3)
+    mask[2:-2, 2:-2] |= (rng.rand(66, 48) < 0.15).astype(np.int32)
+    grid = build_grid(basin, mask, precision=prec)
+    errs = []
+    for n_tr, mu in ((0, 0.0), (N_TRACERS, 500.0), (T_PATH, 0.0)):
+        cfg = form_cfg(basin, prec, n_tr, 1, 1)
+        state = with_mu(init_ocean_state(grid, cfg), mu)
+        runs = {}
+        for what, kw in (("all", {}), ("share", {"elide_sel": False,
+                                                 "q4": False}),
+                         ("eq", {"share_prev": False})):
+            m = FusedSWModel(grid, cfg, 1.0, mu_const=mu, static_rslu=True,
+                             steps_per_call=2, **kw)
+            runs[what], ok = m.run_steps(m.pack(state), N_FOLD_CMP)
+            check(ok, f"phase 15e T={n_tr}: the guard tripped")
+            land = land_masks(m, grid, n_tr)
+            check(all(bool((f[w] == 0).all())
+                      for f, w in zip(runs[what][2:], land[2:])),
+                  f"phase 15e T={n_tr} {what}: a land cell is not 0")
+        e_eq = max(rel_err(a, b) for a, b in zip(runs["all"], runs["share"]))
+        check(e_eq <= TOL_FOLD, f"phase 15e T={n_tr}: elide_sel + q4 rel "
+              f"err {e_eq:.2e} > {TOL_FOLD}")
+        errs.append(f"T={n_tr} mu={mu:g}: elide_sel + q4 {e_eq:.2e} <= "
+                    f"{TOL_FOLD}")
+        if not n_tr:
+            e_s = max(rel_err(a, b) for a, b in zip(runs["all"], runs["eq"]))
+            check(e_s <= TOL_SHARE, f"phase 15e: share_prev rel err "
+                  f"{e_s:.2e} > {TOL_SHARE}")
+            errs.append(f"T=0: share_prev {e_s:.2e} <= {TOL_SHARE}")
+    print("phase 15e tests/test_fused.py's round-5 cases on the card (70 x "
+          f"52 islands, {N_FOLD_CMP} steps, two a launch): "
+          + "; ".join(errs) + "; land exactly 0 in the velocity carriers "
+          "and tracer levels: yes")
+
+
+# ---- phase 16: the op-cost probes (K6, K7) ------------------------------------
+
+PROBE_SEED = 7           # the kernel-vs-plain inputs: [0.5, 1.5) from numpy
+TOL_PROBE = 1e-6         # max |kernel - plain| / max |plain| over the interior
+
+
+def probe_phase(card: str, name: str) -> list:
+    """Phase 16: K6 and K7. (a) every kind at both Ks of its probe, the
+    kernel against the plain version after 1 and 3 carried calls on seeded
+    inputs at the scripts' layouts (rel <= 1e-6 over the interior rows,
+    the same non-finite cells, margins the input's; the carrier is one
+    fused multiply-add on both sides, IEEE division on both; ``rcp`` runs
+    rcp.approx, whose plain version is the exact 1 / b, an ulp apart
+    before the carrier's 1e-4 weight); the SASS instructions an iteration
+    of each kind; (b) the two scripts' own timing at their n, their
+    launches counted (zeroed just before each script, read just after).
+    Returns the kernels line's entries."""
+    from ocean_model_arch_torch.ops import vpu_probe as vp
+    n_cmp, worst = 0, {}
+    for ks, kinds, ys in ((vp.OP_KS, vp.KINDS, vp.YS_OP),
+                          (vp.SHIFT_KS, vp.SHIFT_KINDS, vp.YS_SHIFT)):
+        x = vp.probe_input(ys, "cuda", PROBE_SEED)
+        for kind in kinds:
+            for k in ks:
+                for n in (1, 3):
+                    got = vp.vpu_probe(x, kind, k, n)
+                    want = vp.vpu_probe_reference(x, kind, k, n)
+                    torch.cuda.synchronize()
+                    a, b = got[vp.M:-vp.M], want[vp.M:-vp.M]
+                    fin = torch.isfinite(b)
+                    check(torch.equal(torch.isfinite(a), fin)
+                          and torch.equal(a[~fin], b[~fin])
+                          and torch.equal(got[:vp.M], x[:vp.M])
+                          and torch.equal(got[-vp.M:], x[-vp.M:]),
+                          f"probe {kind} K={k} n={n}: non-finite cells or "
+                          "margins differ")
+                    scale = max(float(b[fin].abs().max()), 1e-30)
+                    err = float((a[fin] - b[fin]).abs().max()) / scale
+                    check(err <= TOL_PROBE, f"probe {kind} K={k} n={n} "
+                          f"(YS {ys}): kernel vs plain rel err {err:.2e}")
+                    key = (kind, k, ys)
+                    worst[key] = max(worst.get(key, 0.0),
+                                     float((a[fin] - b[fin]).abs().max()))
+                    n_cmp += 1
+    sass = vp.sass_per_iteration(*vp.OP_KS)
+    check(all(sass.values()), f"SASS: a kind with no instructions an "
+          f"iteration: {sass}")
+    sass_text = "; ".join(
+        f"{kind} {sum(c.values()):.2f} ("
+        + ", ".join(f"{op} {v:g}" for op, v in c.items()) + ")"
+        for kind, c in sass.items())
+    print(f"phase 16a probes (K6, K7) kernel vs plain: {n_cmp} comparisons "
+          f"(every kind at K = {vp.OP_KS} on {vp.XS}x{vp.YS_OP}, the shift "
+          f"kinds at K = {vp.SHIFT_KS} on {vp.XS}x{vp.YS_SHIFT}; 1 and 3 "
+          f"carried calls) rel err <= {max(v for v in worst.values()):.2e} "
+          f"(<= {TOL_PROBE}); margins the input's, non-finite cells alike: "
+          f"yes; SASS instructions an iteration (K = {vp.OP_KS[1]} less K = "
+          f"{vp.OP_KS[0]}, cuobjdump -sass; the rolls: a pass of a thread's "
+          f"loop): {sass_text}", flush=True)
+
+    entries = []
+    for script, ks, kinds, ys, n, replaces_at in (
+            ("vpu_op_probe", vp.OP_KS, vp.KINDS, vp.YS_OP, vp.OP_N,
+             "scripts/vpu_op_probe.py:88"),
+            ("vpu_shift_probe", vp.SHIFT_KS, vp.SHIFT_KINDS, vp.YS_SHIFT,
+             vp.SHIFT_N, "scripts/vpu_shift_probe.py:50")):
+        mod = load_script(script + "_torch")
+        lines = []
+        vp.reset_launch_counts()
+        if script == "vpu_op_probe":
+            times = mod.probe(kinds, ks, n, ys, True, "cuda", lines.append)
+        else:
+            times = mod.shift(ks, n, "cuda", lines.append)
+        counts = dict(vp.vpu_probe.form_launches)
+        print(f"phase 16b {script}_torch (n = {n}; device ms a call, the "
+              f"best of three runs; {name}; {card}): " + " | ".join(
+                  " ".join(ln.split()) for ln in lines), flush=True)
+        x = vp.probe_input(ys, "cuda", PROBE_SEED)
+        for kind in kinds:
+            for k in ks:
+                launches = counts.get((kind, k), 0)
+                check(launches == 4 * n, f"{script}: {kind} K={k} launched "
+                      f"{launches} times, expected {4 * n}")
+                b_ms, b_by, _ = vp.bound(kind, k, ys, PEAK_BYTES, PEAK_FLOPS)
+                entries.append({
+                    "name": f"{script}_{kind}_K{k}", "route": "cuda",
+                    "source": CSRC + "vpu_probe.cu", "replaces": replaces_at,
+                    "launches": launches,
+                    "max_abs_err": worst[kind, k, ys],
+                    "ms": times[kind][k],
+                    "plain_ms": cuda_ms(
+                        lambda: vp.vpu_probe_reference(x, kind, k), 3),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return entries
+
+
 def fl_margin(steps: int, fs) -> int:
     from ocean_model_arch_torch.ops import fused_layout as fl
     return fl.margin_for(steps, fs.n_tracers)
@@ -2789,9 +3258,10 @@ def main(argv=()) -> int:
     from ocean_model_arch_torch.model.step import make_step
     from ocean_model_arch_torch.ops import _build, copy_step as cs
     from ocean_model_arch_torch.ops.fused_step import (
-        _library as _fused_library, chain_smem, fused_sw_step,
+        _library as _fused_library, chain_smem, fold_targets, fused_sw_step,
         fused_sw_step_reference, library_targets, persist_targets,
         tile_shape)
+    from ocean_model_arch_torch.ops import vpu_probe as vp
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2802,13 +3272,24 @@ def main(argv=()) -> int:
     nvcc_ver = subprocess.run([_build.nvcc(), "--version"],
                               capture_output=True, text=True,
                               check=True).stdout.strip().splitlines()[-1]
+    vpu_targets = tuple(vp.target(k) for k in sorted(set(vp.OP_KS
+                                                         + vp.SHIFT_KS)))
     targets = (library_targets() + library_targets(general=True)
-               + persist_targets() + ("copy_step", "persistent_probe"))
+               + persist_targets() + ("copy_step", "persistent_probe")
+               + vpu_targets)
     # the seconds each phase took, printed at the end
     marks = [("start", time.perf_counter())]
     t0 = time.perf_counter()
     libs = _build.build_all(targets)
     build_s = time.perf_counter() - t0
+    # the fast forms' folded instantiations (96 libraries) build in the
+    # background while phases 2-14 run on the card: in the foreground
+    # they took 217 s more, and the whole run 1018 s of its 1200 (H100
+    # host, 8 cores). A phase that loads one first builds it itself.
+    fold_build = None
+    if not argv:
+        fold_build = concurrent.futures.ThreadPoolExecutor(1).submit(
+            build_behind, fold_targets())
     fused_regs = [row for t in library_targets() for row in ptxas_table(
         _build.BUILDS.get(t, {}).get("log", ""))]
     gen_regs = [row for t in library_targets(general=True) for row in
@@ -2845,7 +3326,11 @@ def main(argv=()) -> int:
           + "; walk_kernel<in place> (K5): spill bytes "
           + (", ".join(f"{a} + {b}" for a, b in walk_regs) or "(cached)")
           + "; copy_step_kernel<tracer window,steps,stacked>: "
-          + ptxas_summary(copy_regs) + f"; chained tile "
+          + ptxas_summary(copy_regs) + "; the op-cost probes (K6, K7, "
+          + ", ".join(vpu_targets) + "): " + ptxas_summary(
+              [r for t in vpu_targets for r in vpu_ptxas(
+                  _build.BUILDS.get(t, {}).get("log", ""))])
+          + f"; chained tile "
           f"{tile_shape('cuda', 2)} of {lib2.fused_sw_step_threads()} "
           f"threads, launch bound {lib2.fused_sw_step_min_blocks()} blocks "
           f"an SM ({chain_regs} registers); chained shared memory a block, "
@@ -2988,7 +3473,7 @@ def main(argv=()) -> int:
 
     def model(mname, cfg, guard):
         return FusedSWModel(grids[mname], cfg, 1.0, static_rslu=True,
-                            tile_guard=guard)
+                            tile_guard=guard, **UNFOLDED)
 
     cfg1 = ModelConfig(basin=basin, sw=SWConfig(use_tracers=1, tracer_num=1),
                        precision=prec)
@@ -3158,8 +3643,9 @@ def main(argv=()) -> int:
 
     # ---- phase 9: the entry point and the raw form ---------------------
     entry_point(card, name)
-    fs_ch, cfg_ch, state_ch, launches["fused_sw_step_raw_tracers"], \
-        wet_ch = periodic_channel(card, name, max_abs)
+    fs_ch, cfg_ch, state_ch, n_ch, wet_ch, ch_form = periodic_channel(
+        card, name, max_abs)
+    launches[ch_form] = n_ch
     sh_v, state_sv = sharded_2x2(
         f"azov_visc (mu = {MU:g}, 15-100 m, {N_TRACERS} tracers)",
         grids["azov_hr"], cfgs[N_TRACERS], MU, max_abs,
@@ -3176,7 +3662,7 @@ def main(argv=()) -> int:
                               ("bipolar_azov", sh_b, state_sb))
             for c in ("uniform", "weighted")}
     for form, fs_r, cfg_r, st_r, t in (
-            ("fused_sw_step_raw_tracers", fs_ch, cfg_ch, state_ch, t_ch),
+            (ch_form, fs_ch, cfg_ch, state_ch, t_ch),
             ("fused_sw_step_raw_visc_bathy_tracers", sh_v["uniform"][0],
              cfgs[N_TRACERS], state_sv, t_sh["azov_visc", "uniform"]),
             ("fused_sw_step_raw_fast2d", sh_b["uniform"][0], cfgs_b[0],
@@ -3190,7 +3676,7 @@ def main(argv=()) -> int:
     print(f"phase 9c timing ({name}; {card}), wet points {wet_ch} of "
           f"{pts_ch}: channel/{N_TRACERS} tracers/1 x 1 shard "
           f"{t_ch['text']}; plain version of the raw form "
-          f"{plain_ms['fused_sw_step_raw_tracers']:.4f} ms/launch")
+          f"{plain_ms[ch_form]:.4f} ms/launch")
     print(f"phase 9d timing ({name}; {card}), wet points {wet['azov']} of "
           f"{pts}: " + " | ".join(
               f"{m}/2 x 2 shards/{c} cuts {t['text']}"
@@ -3278,6 +3764,15 @@ def main(argv=()) -> int:
                                        name, max_abs, cell)
 
     marks.append(("14", time.perf_counter()))
+
+    # ---- phase 15: K1's arithmetic folds ----------------------------------
+    fold_phase(grids, basin, basin_b, prec, wet, pts, card, name, run,
+               max_abs, cell, fold_build, chain_regs)
+    marks.append(("15", time.perf_counter()))
+
+    # ---- phase 16: the op-cost probes (K6, K7) ----------------------------
+    probe_entries = probe_phase(card, name)
+    marks.append(("16", time.perf_counter()))
 
     # ---- phase 7: the copy step ----------------------------------------
     # kernel vs plain version on what each form of the fused step loads:
@@ -3441,7 +3936,7 @@ def main(argv=()) -> int:
         check(launches[form] > 0, f"{form} was never launched on its path")
         entries.append({
             "name": form, "route": "cuda", "source": CSRC + "fused_step.cu",
-            "replaces": REPLACES[form], "launches": launches[form],
+            "replaces": replaces(form), "launches": launches[form],
             "max_abs_err": max_abs[form], "ms": t["ms_kernel"],
             "plain_ms": plain_ms[form], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
@@ -3479,7 +3974,7 @@ def main(argv=()) -> int:
         "plain_ms": plain_ms["copy_step_stacked"],
         "bound_ms": k4[0]["bound_us"] / 1e3, "bound_by": "bytes",
         "library_ms": None})
-    entries += persist_entries + walk_entries
+    entries += persist_entries + walk_entries + probe_entries
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

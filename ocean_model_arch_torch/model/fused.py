@@ -22,7 +22,7 @@ from ..core.state import SWState
 from ..host import ModelConfig
 from ..ops import fused_layout as fl
 from ..ops import sw_kernels as swk
-from ..ops.fused_step import (GENERAL_MAP, fused_sw_persistent,
+from ..ops.fused_step import (GENERAL_MAP, Folds, fused_sw_persistent,
                               fused_sw_step, kernel_planes, tile_shape)
 from .step import reinit_depth_families
 
@@ -86,6 +86,40 @@ def state_from_fields(fields, template: SWState, grid: Grid,
     return reinit_depth_families(st, grid, cfg)
 
 
+def fold_flags(fast: bool, auto: bool, steps_per_call: int, elide_sel,
+               q4, share_prev, refusal: str = "elide_sel/q4/share_prev "
+               "require fast mode (static_rslu=True, x-uniform metrics or "
+               "fast2d)") -> Folds:
+    """The drivers' fold arguments resolved as the JAX drivers resolve
+    them: None is ``auto`` (on wherever the fast form runs, off in
+    persistent mode), ``share_prev`` only for chained steps; a fold on
+    where the fast form does not run raises ValueError(``refusal``)."""
+    folds = Folds(auto if elide_sel is None else bool(elide_sel),
+                  auto if q4 is None else bool(q4),
+                  (auto if share_prev is None else bool(share_prev))
+                  and steps_per_call > 1)
+    if any(folds) and not fast:
+        raise ValueError(refusal)
+    return folds
+
+
+def quarter(recips, q4: bool) -> tuple:
+    """The fast form's interpolation reciprocals (u, v, h) with q4's 1/4
+    folded into the u and v ones (a power of two: exact)."""
+    q = np.float32(0.25 if q4 else 1.0)
+    return recips[0] * q, recips[1] * q, recips[2]
+
+
+def mask_carriers(carry, wet) -> list:
+    """elide_sel's masking at ``pack``: the carried velocities (u, up, v,
+    vp) times the u and v wet masks and every tracer level times the T
+    one, ``wet`` being (wlcu, wlcv, wlu) on the carriers' grid; ssh and
+    sshp as they are."""
+    wlcu, wlcv, wlu = (m.to(carry[0].device) for m in wet)
+    masks = (None, None, wlcu, wlcu, wlcv, wlcv) + (wlu,) * (len(carry) - 6)
+    return [c if m is None else c * m for c, m in zip(carry, masks)]
+
+
 def general_inputs(lu_s, hr_s, metrics_2d: bool, static_rslu: bool):
     """The general form's static planes and metric map for embedded lu
     and hr: (planes, met_map). The static reciprocal counts ride only on
@@ -122,6 +156,18 @@ class FusedSWModel:
     ``cfg.sw.trans_terms`` and ``cfg.sw.full_free_surface`` as the
     kernel's switches (0 or 1).
 
+    ``elide_sel``, ``q4``, ``share_prev``: the fast form's arithmetic
+    folds (``ops/fused_step.py::Folds``), as in the JAX model: None turns
+    ``elide_sel`` and ``q4`` on wherever the fast form runs and
+    ``share_prev`` too at two steps a launch; all three off in persistent
+    mode, where any of them raises ValueError, as it does where the fast
+    form does not run. With ``q4`` the static planes carry the 1/4;
+    with ``elide_sel`` ``pack`` masks the carried velocities and tracer
+    levels with their staggered wet masks. The kernel has elide_sel and
+    q4 together (with or without share_prev) and share_prev alone; the
+    other combinations run on the CPU only (NotImplementedError on the
+    card).
+
     ``persistent``: the JAX model's persistent mode (its
     ``build_persistent_sw_step``): ``run_steps`` runs a whole window of
     any length in ONE launch of the persistent kernel
@@ -139,7 +185,9 @@ class FusedSWModel:
                  mu_const: float = 0.0, static_rslu: bool = False,
                  steps_per_call: int = 1,
                  tile_guard: bool | None = None,
-                 fast2d: bool | None = None, persistent: bool = False):
+                 fast2d: bool | None = None, persistent: bool = False,
+                 elide_sel: bool | None = None, q4: bool | None = None,
+                 share_prev: bool | None = None):
         bad = unsupported(grid, cfg, mu_const)
         if bad:
             raise ValueError("fused path unsupported: " + "; ".join(bad))
@@ -177,6 +225,14 @@ class FusedSWModel:
         self.general = not (self.static_rslu
                             and (not self.metrics_2d or self.fast2d))
         self.persistent = bool(persistent)
+        self.folds = fold_flags(not self.general,
+                                not self.general and not self.persistent,
+                                self.steps_per_call, elide_sel, q4,
+                                share_prev)
+        self.elide_sel, self.q4, self.share_prev = self.folds
+        if self.persistent and any(self.folds):
+            raise ValueError("persistent probe mode predates the round-5 "
+                             "reductions; pass elide_sel=q4=False")
         if self.persistent and self.metrics_2d:
             raise ValueError("persistent mode: x-uniform metrics, per-field "
                              "windows, x-strip tiling only")
@@ -201,6 +257,11 @@ class FusedSWModel:
         self.tile_guard = bool(tile_guard)
         self.tile_wet = (torch.from_numpy(wet).to(dev) if self.tile_guard
                          else None)
+        # elide_sel: the wet masks of the u, v and T points, which pack
+        # puts on the carried fields
+        self._wet = (tuple(torch.from_numpy(m).to(dev)
+                           for m in fl.staggered_wet_masks(lu_s))
+                     if self.elide_sel else None)
 
     def _fast_inputs(self, grid: Grid, cfg: ModelConfig, lay, lu_s, hr_s,
                      met) -> None:
@@ -221,14 +282,16 @@ class FusedSWModel:
         if not self.metrics_2d:
             self.met_map = None
             dxdy = (met[0] * met[1])[None, :]
-            recips = (met[10:11], met[11:12], (met[14] * met[15])[None])
+            recips = quarter((met[10:11], met[11:12],
+                              (met[14] * met[15])[None]), self.q4)
         else:
             met22 = fl.metrics_full_from_grid(grid, lay)
             rows = fl.fast2d_met_rows(self.n_tracers, self.visc, self.trans)
             self.met_map = {r: i for i, r in enumerate(rows)}
             met = met22[list(rows)]
             dxdy = met22[0] * met22[1]
-            recips = (met22[10], met22[11], met22[14] * met22[15])
+            recips = quarter((met22[10], met22[11], met22[14] * met22[15]),
+                             self.q4)
             # met22 (155 MB at 1525 x 1115) lives only in this constructor
         planes = fl.static_planes(lu_s, hr_s, dxdy, names,
                                   interp_recips=recips)
@@ -239,7 +302,10 @@ class FusedSWModel:
         """SWState -> the 6 + 2 T carried fields in the fused layout
         (float32): the 6 SW fields, then ff_0, ffp_0, ff_1, ... The
         kernel's viscosity is the constant ``mu_const``, so a state
-        whose mu is not that everywhere is refused."""
+        whose mu is not that everywhere is refused. With ``elide_sel``
+        the velocities are masked with the u and v wet masks and the
+        tracer levels with the T one, as the JAX model packs them (land
+        is 0 in every state the model makes)."""
         if not bool((state.mu == self.mu_const).all()):
             raise ValueError("fused path requires state.mu == mu_const "
                              f"({self.mu_const}) everywhere")
@@ -247,6 +313,8 @@ class FusedSWModel:
         for t in range(self.n_tracers):
             carry.append(fl.embed(self.lay, state.ff[t]))
             carry.append(fl.embed(self.lay, state.ffp[t]))
+        if self._wet is not None:
+            carry = mask_carriers(carry, self._wet)
         return tuple(carry)
 
     def unpack(self, s6, template: SWState) -> SWState:
@@ -278,7 +346,7 @@ class FusedSWModel:
                                   self.tau, sw.time_smooth, self.hr_const,
                                   self.tile_wet, self.tile, self.met_map,
                                   self.mu_const, self.visc, self.trans,
-                                  self.ffs, spc, self.general)
+                                  self.ffs, spc, self.general, self.folds)
             mx = torch.maximum(mx, m)
         return s6, bool(mx < swk.SSH_ERR_BOUND)   # NaN compares False
 

@@ -67,8 +67,8 @@ from ..ops import fused_layout as fl
 from ..ops import sw_kernels as swk
 from ..ops.fused_step import fused_sw_step_raw, kernel_planes, tile_shape
 from ..parallel.decomposition import weighted_x_edges, weighted_y_edges
-from .fused import (CARRIED, flat_bathymetry, general_inputs,
-                    state_from_fields, unsupported)
+from .fused import (CARRIED, flat_bathymetry, fold_flags, general_inputs,
+                    mask_carriers, quarter, state_from_fields, unsupported)
 
 
 def _cuts(n: int, parts: int, given, weighted: bool, int_mask, margin: int,
@@ -105,14 +105,21 @@ class FusedSharded2DModel:
     launch per shard: 1, or 2 chained in the launch on a margin wide
     enough for both; windows must be multiples of it. ``weighted``: cut lines
     by wet points, with ``compute_powers_x / _y`` as the bands' relative
-    shares; ``x_edges`` / ``y_edges``: the cut lines themselves."""
+    shares; ``x_edges`` / ``y_edges``: the cut lines themselves.
+    ``elide_sel``, ``q4``, ``share_prev``: the fast form's folds, as in
+    ``FusedSWModel`` and the JAX model (None: on wherever the fast form
+    runs, ``share_prev`` at two steps a launch); ``pack`` masks the
+    carried velocities and tracer levels with the wet masks of their
+    points, which on a periodic axis see the cell across the seam."""
 
     def __init__(self, grid: Grid, cfg: ModelConfig, tau: float,
                  px: int, py: int, devices=None, mu_const: float = 0.0,
                  static_rslu: bool = True, steps_per_call: int = 1,
                  weighted: bool = False, tile_guard: bool = True,
                  compute_powers_x=None, compute_powers_y=None,
-                 x_edges=None, y_edges=None, fast2d: bool | None = None):
+                 x_edges=None, y_edges=None, fast2d: bool | None = None,
+                 elide_sel: bool | None = None, q4: bool | None = None,
+                 share_prev: bool | None = None):
         mu_const = float(mu_const or 0.0)
         bad = unsupported(grid, cfg, mu_const, sharded=True)
         if bad:
@@ -205,6 +212,16 @@ class FusedSharded2DModel:
             raise ValueError("fast2d requires static_rslu and 2D metrics")
         self.general = not (self.static_rslu
                             and (not self.metrics_2d or self.fast2d))
+        self.folds = fold_flags(not self.general, not self.general,
+                                self.steps_per_call, elide_sel, q4,
+                                share_prev, "elide_sel/q4/share_prev "
+                                "require fast mode")
+        self.elide_sel, self.q4, self.share_prev = self.folds
+        # elide_sel: the wet masks of the u, v and T points on the
+        # physical grid, from the margined mask (across a periodic seam)
+        self._wet = (tuple(torch.from_numpy(np.ascontiguousarray(
+            m[M:M + nx, M:M + ny])) for m in fl.staggered_wet_masks(lu_gp))
+            if self.elide_sel else None)
         if self.general:
             met_g = (fl.metrics_full_from_grid(
                 grid, glay, self.periodic_x, self.periodic_y, derived=False)
@@ -221,13 +238,14 @@ class FusedSharded2DModel:
                                           self.trans)
                 self.met_map = {r: k for k, r in enumerate(rows)}
                 dxdy = met22[0] * met22[1]
-                recips = (met22[10], met22[11], met22[14] * met22[15])
+                recips = quarter((met22[10], met22[11],
+                                  met22[14] * met22[15]), self.q4)
                 met_g = met22[list(rows)]
             else:
                 self.met_map = None
                 dxdy = (gprof[0] * gprof[1])[None, :]
-                recips = (gprof[10:11], gprof[11:12],
-                          (gprof[14] * gprof[15])[None])
+                recips = quarter((gprof[10:11], gprof[11:12],
+                                  (gprof[14] * gprof[15])[None]), self.q4)
             planes_g = fl.static_planes(lu_gp, hr_gp, dxdy, names,
                                         interp_recips=recips)
         if self.metrics_2d:
@@ -330,14 +348,18 @@ class FusedSharded2DModel:
         row-major over the mesh: the 6 SW fields, then ff_0, ffp_0, ...,
         each shard's own cells at offset (M, M), margins and pad zero
         (the first exchange fills the margins). A state whose mu is not
-        ``mu_const`` everywhere is refused."""
+        ``mu_const`` everywhere is refused. With ``elide_sel`` the
+        velocities and tracer levels are masked (see the class)."""
         if not bool((state.mu == self.mu_const).all()):
             raise ValueError("fused path requires state.mu == mu_const "
                              f"({self.mu_const}) everywhere")
         fields = [getattr(state, n) for n in CARRIED]
         for t in range(self.n_tracers):
             fields += [state.ff[t], state.ffp[t]]
-        whole = torch.stack([f.to(torch.float32) for f in fields])
+        fields = [f.to(torch.float32) for f in fields]
+        if self._wet is not None:
+            fields = mask_carriers(fields, self._wet)
+        whole = torch.stack(fields)
         M, carry = self.M, []
         for i in range(self.px):
             for j in range(self.py):
@@ -407,7 +429,7 @@ class FusedSharded2DModel:
                         self.shard_lay[i][j], self.tau, sw.time_smooth,
                         self.hr_const, self.tile_wet[i][j], self.tile,
                         self.met_map, self.mu_const, self.visc, self.trans,
-                        self.ffs, spc, self.general)
+                        self.ffs, spc, self.general, self.folds)
                 mx = torch.maximum(mx, torch.amax(blockmax))
                 cur, nxt, cur_f, nxt_f = nxt, cur, nxt_f, cur_f
             return tuple(cur), bool(mx < swk.SSH_ERR_BOUND)  # NaN: False

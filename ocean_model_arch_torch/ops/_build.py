@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,7 +61,7 @@ def build(name: str) -> str:
         "=", "") + f"-{key.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return so
-    tmp = f"{so}.{os.getpid()}.tmp"
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [nvcc(), *flags, "-o", tmp, src]
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()

@@ -220,6 +220,39 @@
 // passes over the same cells, and runs its last tracer stage one tracer
 // at a time; so its one-step forms keep 40 registers without a spill.
 //
+// The folds (the TPU kernel's round-5 arithmetic reductions of its fast
+// form, :41-58 and :246-267 there, which its drivers turn on wherever the
+// fast form runs): fused_sw_fold_kernel<..., FOLD> is the fast form with
+// the bits of FOLD, each a compile-time flag of sw_step. F_ELIDE
+// (elide_sel) drops the selects of the u / up / v / vp filter and of the
+// tracers' pair (:886-916, :1028-1031): un and vn are 0 off the u / v wet
+// sets and ffn off the T wet set, and the driver masks the carried
+// velocities and tracer levels with the staggered wet masks once, when it
+// packs them, so the filter of three zeros is the 0 the select kept. F_Q4
+// (q4) takes the advection's 1/4 from the host, which folds it into the
+// rslu_u and rslu_v planes: hu, hv, hup, hvp and the mass fluxes arrive
+// quartered, the four 1/4 multiplies of F, G, K, L vanish (:608-612), and
+// the constants that meet them shift by exact powers of two: -4 g, tau / 2
+// and -8 tau (the launcher's scalars, :259-267), the tracers' -2 and 4 mu
+// (:982-991). Both are exact: the outputs are those of the unfolded form
+// but where a contraction rounds otherwise. This kernel derives its masks
+// from ludxdy, not from the rslu planes, so the TPU kernel's encoded-mask
+// thresholds have no counterpart here. F_SHARE (share_prev, chained forms
+// with a full free surface; :498-520, :1076-1081): step B takes its
+// previous-level depths from step A's through the leapfrog filter, hup =
+// (ts1 hu_A + ts2 hup_A) + ts2 hu (the TPU kernel's ts1 hu_A + ts2 (hu +
+// hup_A), grouped so that step A's two depths travel as one value): step A
+// leaves ts1 hu_A + ts2 hup_A in S_HU / S_HV (each thread its own cell,
+// after its momentum; a run-time tracer count's first group then keeps uh
+// in S_SSH, dead since stage 3), and step B, in stage 1, puts hup and hvp
+// in S_AQP and S_SSH, where the previous-level column is not formed. With
+// a linear free surface hup = hu in both steps: nothing to share. The
+// drivers reach elide_sel and q4 together, each with or without
+// share_prev in the chained forms, and share_prev alone; -DFUSED_FOLD=3,
+// 7 or 4 builds those (one combination a library, beside the unfolded
+// library of the same form). What bounds the folded forms: memory, as the
+// unfolded ones (the same bytes; the folds remove arithmetic).
+//
 // With -DFUSED_NT=n only the forms with n tracers are compiled, with
 // -DFUSED_RAW_NT=n only their raw forms; -DFUSED_TRANS=0 and
 // -DFUSED_FFS=0 pick the forms without advection and with a linear free
@@ -264,10 +297,17 @@ namespace cg = cooperative_groups;
 #ifndef FUSED_STEPS
 #define FUSED_STEPS 1
 #endif
+#ifndef FUSED_FOLD
+#define FUSED_FOLD 0
+#endif
 
 namespace {
 
 using namespace fused_tile;
+
+// The fast form's arithmetic folds (the TPU kernel's round-5 reductions,
+// a FOLD template argument): elide_sel, q4, share_prev.
+enum { F_ELIDE = 1, F_Q4 = 2, F_SHARE = 4 };
 
 // shared-memory arrays, each a WX x WY window
 enum {
@@ -447,9 +487,11 @@ __device__ __forceinline__ float* chain_level(const Params& p, float* e_tr,
 // place in S_U and S_V (stage 3 reads them at its own cell only), sshp,
 // up, vp and the tracers in E_SSHP, E_UP, E_VP, E_TR. `f` holds the carried
 // fields' pointers (Fields), `where` says which tile of the layout is the
-// output tile (BlockTile, WalkTile).
+// output tile (BlockTile, WalkTile). FOLD: the arithmetic folds of the
+// fast form (F_ELIDE, F_Q4, F_SHARE; see the file's head), 0 for none.
 template <int NT, bool MET2D, int MU, bool HRP, bool RAW, bool TRANS,
-          bool FFS, int STEPS, int STEP, class FieldsT, class Where>
+          bool FFS, int STEPS, int STEP, int FOLD = 0, class FieldsT,
+          class Where>
 __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
                                         float* sm, float& mx,
                                         const Where& where) {
@@ -465,6 +507,14 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
   constexpr int OH = HALO * (STEPS - 1 - STEP);   // this step's output halo
   // this step's stress region: its halo, columns and cells
   constexpr int VH = OH + Fm::VH, VW = TY + 2 * VH, VN = (TX + 2 * VH) * VW;
+  // the folds: no filter selects; the advection 1/4 in rslu_u / rslu_v;
+  // step A's depths shared with step B (a full free surface chained: step
+  // A leaves them in S_HU / S_HV, step B takes its previous-level depths
+  // from them into S_AQP / S_SSH)
+  constexpr bool ELIDE = (FOLD & F_ELIDE) != 0, Q4 = (FOLD & F_Q4) != 0;
+  constexpr bool SHARE = (FOLD & F_SHARE) != 0 && STEPS > 1 && FFS;
+  constexpr bool SHARE_A = SHARE && !LAST, SHARE_B = SHARE && !FIRST;
+  constexpr float ADV = Q4 ? -2.f : -0.5f;  // the tracers' advective factor
 
   const int tid0 = where.thread();
   const auto tid = [&] { return where.thread(tid0); };
@@ -569,12 +619,18 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
       }
       const float hu = (s_aq[k] + s_aq[k + S]) * ru;
       const float hv = (s_aq[k] + s_aq[k + W]) * rv;
+      if (SHARE_B) {
+        // share_prev: hup = (ts1 hu_A + ts2 hup_A) + ts2 hu, the filter
+        // through the interpolation (step A left the bracket in S_HU)
+        s_aqp[k] = s_hu[k] + p.ts2 * hu;
+        sm[S_SSH * PLANE + k] = s_hv[k] + p.ts2 * hv;
+      }
       s_hu[k] = hu; s_hv[k] = hv;
       s_ud[k] = s_u[k] * hu;
       s_vd[k] = s_v[k] * hv;
     }
   }
-  if (FFS) {
+  if (FFS && !SHARE_B) {
     constexpr int h = OH + 1 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
@@ -669,10 +725,15 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
       const float vort = wluu ? (vx - v) * m16 - uy * m17 + u * m18 : 0.f;
       const float s2u = uy + u, s2v = vx + v;
       const float ud = s_ud[k], vd = s_vd[k];
-      const float F = (ud + s_ud[k + S]) * ((u + ux) * 0.25f);
-      const float G = ((vd + s_vd[k + S]) * 0.25f) * (wluu ? s2u : 0.f);
-      const float K = (vd + s_vd[k + W]) * ((v + vy) * 0.25f);
-      const float L = ((ud + s_ud[k + W]) * 0.25f) * s2v;
+      // with q4 ud, vd arrive quartered: the 1/4 multiplies vanish
+      const float F = Q4 ? (ud + s_ud[k + S]) * (u + ux)
+                         : (ud + s_ud[k + S]) * ((u + ux) * 0.25f);
+      const float G = Q4 ? (vd + s_vd[k + S]) * (wluu ? s2u : 0.f)
+                         : ((vd + s_vd[k + S]) * 0.25f) * (wluu ? s2u : 0.f);
+      const float K = Q4 ? (vd + s_vd[k + W]) * (v + vy)
+                         : (vd + s_vd[k + W]) * ((v + vy) * 0.25f);
+      const float L = Q4 ? (ud + s_ud[k + W]) * s2v
+                         : ((ud + s_ud[k + W]) * 0.25f) * s2v;
       const float vc = (vort + m21) * hh;
       const float Px = vc * s2v, Ty = vc * s2u;
       s_f[k] = F; s_k[k] = K;
@@ -730,7 +791,8 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
       const int j = (a - (WH - VH)) * VW + (b - (WH - VH));
       if (wlcu) {
         const float hu = s_hu[k];
-        const float hup = FFS ? (s_aqp[k] + s_aqp[k + S]) * rslu_u[g] : hu;
+        const float hup = !FFS ? hu : SHARE_B ? s_aqp[k]
+            : (s_aqp[k] + s_aqp[k + S]) * rslu_u[g];
         float slx = (s_ssh[k + S] - ssh) * hu * p.neg_g;
         // stress divergence: d(a2)/dx / dyh + d(D2)/dy / dxt
         if (VISC)
@@ -740,10 +802,12 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
                                 : s_rx[k] + s_rx[k - W];
         const float grx = slx + acx;
         un = (up * hup + grx * (p.two_tau * p.met[M_RDXT][mi])) / hu;
+        if (SHARE_A) s_hu[k] = p.ts1 * hu + p.ts2 * hup;   // for step B
       }
       if (wlcv) {
         const float hv = s_hv[k];
-        const float hvp = FFS ? (s_aqp[k] + s_aqp[k + W]) * rslu_v[g] : hv;
+        const float hvp = !FFS ? hv : SHARE_B ? sm[S_SSH * PLANE + k]
+            : (s_aqp[k] + s_aqp[k + W]) * rslu_v[g];
         float sly = (s_ssh[k + W] - ssh) * hv * p.neg_g;
         if (VISC)
           sly += -(s_b2[j + 1] - s_b2[j]) * p.met[M_RDXH][mi]
@@ -752,6 +816,7 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
                                 : s_sy[k] + s_sy[k - S];
         const float gry = sly + acy;
         vn = (vp * hvp + gry * (p.two_tau * p.met[M_RDYT][mi])) / hv;
+        if (SHARE_A) s_hv[k] = p.ts1 * hv + p.ts2 * hvp;
       }
       if (NT) { s_cx[k] = un; s_cy[k] = vn; }   // 0 off the u / v wet sets
       if (ring > 0) continue;
@@ -760,10 +825,12 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
       // leapfrog rotation + Robert-Asselin filter
       const float ssh_new = wlu ? sshn : ssh;
       const float sshp_new = wlu ? p.ts1 * ssh + p.ts2 * (sshn + sshp) : sshp;
-      const float u_new = wlcu ? un : u;
-      const float up_new = wlcu ? p.ts1 * u + p.ts2 * (un + up) : up;
-      const float v_new = wlcv ? vn : v;
-      const float vp_new = wlcv ? p.ts1 * v + p.ts2 * (vn + vp) : vp;
+      // elide_sel: un, vn are 0 off the u / v wet sets, where the carried
+      // velocities are 0 too, so the selects are the identity
+      const float u_new = ELIDE || wlcu ? un : u;
+      const float up_new = ELIDE || wlcu ? p.ts1 * u + p.ts2 * (un + up) : up;
+      const float v_new = ELIDE || wlcv ? vn : v;
+      const float vp_new = ELIDE || wlcv ? p.ts1 * v + p.ts2 * (vn + vp) : vp;
       if (LAST) {
         f.ssh_o[g] = ssh_new;
         f.sshp_o[g] = sshp_new;
@@ -799,7 +866,9 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
     float* s_aqn = s_aq;
     float* s_un = s_cx;
     float* s_vn = s_cy;
-    float* s_uh = s_hv;
+    // (step A of share_prev keeps its depths in S_HV: uh in S_SSH, dead
+    // since stage 3, instead)
+    float* s_uh = SHARE_A ? sm + S_SSH * PLANE : s_hv;
     float* s_vh = s_ud;
     float* s_kx = s_vd;
     float* s_ky = s_aqp;
@@ -829,8 +898,10 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
             vh = wlcv ? s_vn[k] * hvn : 0.f;
             if (DIFF && inside(p, gx, gy)) {
               const size_t mi = MET2D ? (size_t)gx * p.Ys + gy : (size_t)gy;
-              kx = (p.mu * p.met[M_RDXT][mi]) * (wlcu ? hun : 0.f);
-              ky = (p.mu * p.met[M_RDYT][mi]) * (wlcv ? hvn : 0.f);
+              // with q4 hun, hvn arrive quartered: 4 mu
+              const float mu = Q4 ? 4.f * p.mu : p.mu;
+              kx = (mu * p.met[M_RDXT][mi]) * (wlcu ? hun : 0.f);
+              ky = (mu * p.met[M_RDYT][mi]) * (wlcv ? hvn : 0.f);
             }
             if (LOOP) {
               s_uh[k] = uh; s_vh[k] = vh;
@@ -854,8 +925,8 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
               const float* e = chain_level<NT, PLANE>(p, e_tr, l, where);
               ff = e[k]; ffx = e[k + S]; ffy = e[k + W];
             }
-            float fx = uh * ((ff + ffx) * -0.5f);
-            float fy = vh * ((ff + ffy) * -0.5f);
+            float fx = uh * ((ff + ffx) * ADV);
+            float fy = vh * ((ff + ffy) * ADV);
             if (DIFF) { fx += kx * (ffx - ff); fy += ky * (ffy - ff); }
             sm[(S_F + 2 * t) * PLANE + k] = fx;
             sm[(S_F + 2 * t + 1) * PLANE + k] = fy;
@@ -909,8 +980,9 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
             const float rhs = ((fx[k] - fx[k - S]) + fy[k]) - fy[k - W];
             ffn = (bp0 * ffp + rhs) / bp;
           }
-          const float ff_new = wlu ? ffn : ff;
-          const float ffp_new = wlu ? p.ts1 * ff + p.ts2 * (ffn + ffp) : ffp;
+          const float ff_new = ELIDE || wlu ? ffn : ff;
+          const float ffp_new = ELIDE || wlu ? p.ts1 * ff + p.ts2 * (ffn + ffp)
+                                             : ffp;
           if (LAST) {
             tr_out<NT>(p, f, l)[g] = ff_new;
             tr_out<NT>(p, f, l + 1)[g] = ffp_new;
@@ -1478,12 +1550,13 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
   }
 }
 
+// The body of a launch: the guard, one or two steps of the tile, the
+// block max. FOLD: the fast form's folds (0: none).
 template <int NT, bool GUARD, bool MET2D, int MU, bool HRP, bool RAW,
-          bool TRANS, bool FFS, int STEPS, bool GEN>
-__global__ void
-__launch_bounds__(Tile<STEPS>::NTHREADS, Tile<STEPS>::MIN_BLOCKS)
-fused_sw_step_kernel(const Params p) {
+          bool TRANS, bool FFS, int STEPS, bool GEN, int FOLD>
+__device__ __forceinline__ void step_launch(const Params& p) {
   static_assert(STEPS == 1 || STEPS == 2, "one or two steps a launch");
+  static_assert(!GEN || FOLD == 0, "the folds are the fast form's");
   constexpr int TX = Tile<STEPS>::TX, TY = Tile<STEPS>::TY;
   constexpr int NTHREADS = Tile<STEPS>::NTHREADS, NWARPS = NTHREADS / 32;
 
@@ -1528,12 +1601,12 @@ fused_sw_step_kernel(const Params p) {
                                                             BlockTile{});
     }
   } else {
-    sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 0>(p, p, sm, mx,
-                                                           BlockTile{});
+    sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 0, FOLD>(
+        p, p, sm, mx, BlockTile{});
     if constexpr (STEPS > 1) {
       __syncthreads();     // step A's outputs are in shared memory
-      sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 1>(p, p, sm, mx,
-                                                             BlockTile{});
+      sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 1, FOLD>(
+          p, p, sm, mx, BlockTile{});
     }
   }
 
@@ -1548,6 +1621,25 @@ fused_sw_step_kernel(const Params p) {
       mx = nan_max(mx, __shfl_down_sync(0xffffffffu, mx, off));
     if (tid == 0) p.blockmax[blockIdx.y * gridDim.x + blockIdx.x] = mx;
   }
+}
+
+template <int NT, bool GUARD, bool MET2D, int MU, bool HRP, bool RAW,
+          bool TRANS, bool FFS, int STEPS, bool GEN>
+__global__ void
+__launch_bounds__(Tile<STEPS>::NTHREADS, Tile<STEPS>::MIN_BLOCKS)
+fused_sw_step_kernel(const Params p) {
+  step_launch<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, GEN, 0>(p);
+}
+
+// The fast form with its arithmetic folds (FOLD != 0), a kernel of its own
+// so that the unfolded forms above keep their names.
+template <int NT, bool GUARD, bool MET2D, int MU, bool HRP, bool RAW,
+          bool TRANS, bool FFS, int STEPS, int FOLD>
+__global__ void
+__launch_bounds__(Tile<STEPS>::NTHREADS, Tile<STEPS>::MIN_BLOCKS)
+fused_sw_fold_kernel(const Params p) {
+  step_launch<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, false,
+              FOLD>(p);
 }
 
 // whether this library holds the raw forms (and then no other)
@@ -1575,9 +1667,31 @@ constexpr bool TRANS_BUILD = FUSED_TRANS != 0;
 constexpr bool FFS_BUILD = FUSED_FFS != 0;
 constexpr bool ALL_FORMS = GEN_BUILD || PERSIST_BUILD;
 constexpr int STEPS_BUILD = FUSED_STEPS;
+// the folds of this library's forms (a fast library's; 0: none)
+constexpr int FOLD_BUILD = FUSED_FOLD;
 using TILE = Tile<STEPS_BUILD>;
 static_assert(!PERSIST_BUILD || (!RAW_BUILD && STEPS_BUILD == 1),
               "the persistent forms are of the single block, one step each");
+static_assert(FOLD_BUILD == 0 || !(GEN_BUILD || PERSIST_BUILD),
+              "the folds are the fast form's, one step or two a launch");
+static_assert(FOLD_BUILD == 0 || FOLD_BUILD == (F_ELIDE | F_Q4)
+              || (STEPS_BUILD > 1 && FUSED_FFS != 0
+                  && (FOLD_BUILD == F_SHARE
+                      || FOLD_BUILD == (F_ELIDE | F_Q4 | F_SHARE))),
+              "the fold combinations the drivers reach");
+
+// The kernel of this library's fast forms: the unfolded one, or the one
+// with this library's folds.
+template <int NT, bool GUARD, bool MET2D, int MU, bool HRP>
+auto fast_kernel() {
+  if constexpr (FOLD_BUILD == 0)
+    return fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD,
+                                TRANS_BUILD, FFS_BUILD, STEPS_BUILD, false>;
+  else
+    return fused_sw_fold_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD,
+                                TRANS_BUILD, FFS_BUILD, STEPS_BUILD,
+                                FOLD_BUILD>;
+}
 
 #ifndef FUSED_PERSIST
 template <int NT, bool GUARD, bool MET2D, int MU, bool HRP>
@@ -1586,13 +1700,11 @@ int launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes<NT, STEPS_BUILD>(MU == 2)
       + sizeof(float) * Form<NT, STEPS_BUILD>::PLANE
         * (NT < 0 ? p.n_lev_sm : 0);
+  const auto kernel = fast_kernel<NT, GUARD, MET2D, MU, HRP>();
   cudaError_t e = cudaFuncSetAttribute(
-      fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD, TRANS_BUILD,
-                           FFS_BUILD, STEPS_BUILD, false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  fused_sw_step_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD, TRANS_BUILD,
-                       FFS_BUILD, STEPS_BUILD, false>
+  kernel
       <<<dim3((p.Ys + TILE::TY - 1) / TILE::TY,
               (p.Xs + TILE::TX - 1) / TILE::TX),
          TILE::NTHREADS, smem, stream>>>(p);
@@ -2053,6 +2165,10 @@ int fused_sw_step_built_persist() { return PERSIST_BUILD ? 1 : 0; }
 // The model steps a launch of this library's forms runs (-DFUSED_STEPS,
 // default 1; 2 chains two).
 int fused_sw_step_built_steps() { return STEPS_BUILD; }
+
+// The folds of this library's fast forms (-DFUSED_FOLD, default 0: none):
+// 1 elide_sel, 2 q4, 4 share_prev, or'ed.
+int fused_sw_step_built_folds() { return FOLD_BUILD; }
 
 const char* fused_sw_step_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -26,9 +26,8 @@ the cell's own index.
 The depths are recomputed from (ssh, sshp) every step instead of being
 carried, as the TPU kernel does: the step ends with hh_init, so every
 depth is a function of (ssh, sshp, bathymetry). The static planes are
-those of :func:`kernel_planes` (built without the TPU kernel's q4
-quarter fold); the staggered wet masks are derived from the ``ludxdy``
-plane. Flat bathymetry rides as the scalar ``hr_const``; with
+those of :func:`kernel_planes`; the staggered wet masks are derived from
+the ``ludxdy`` plane. Flat bathymetry rides as the scalar ``hr_const``; with
 ``hr_const=None`` the depth column is ``ssh * ludxdy + hrludxdy`` (the
 TPU kernel's grouping) and the viscosity and the tracers read the ``hr``
 plane. ``visc`` switches the stress stages on (the caller passes
@@ -90,6 +89,19 @@ holds at once, between the caller's fields and a second buffer set, a
 grid barrier between the steps; its max covers every step. Its plain
 version is :func:`fused_sw_step_reference` ``n_steps`` times.
 
+``folds`` (:class:`Folds`) are the fast form's arithmetic folds, the
+TPU kernel's ``elide_sel``, ``q4`` and ``share_prev`` (:41-58 there),
+which its drivers turn on wherever the fast form runs: ``elide_sel``
+drops the selects of the velocities' and the tracers' filter (the caller
+keeps the carried velocities and tracer levels 0 off their wet sets);
+``q4`` expects ``rslu_u`` and ``rslu_v`` scaled by 1/4 and drops the
+advection's four 1/4 multiplies, its constants shifted by exact powers
+of two (-4 g, tau / 2, -8 tau, the tracers' -2 and 4 mu); ``share_prev``
+has step B of a chained launch take its previous-level depths from step
+A's through the leapfrog filter. The kernel runs each reached
+combination as an instantiation of its own (:func:`fold_targets`), the
+plain version any.
+
 :func:`fused_sw_step`, :func:`fused_sw_step_raw` and
 :func:`fused_sw_persistent` take CPU tensors to the plain version and
 CUDA tensors to the hand-written kernel (``csrc/fused_step.cu``), which
@@ -102,6 +114,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import typing
 
 import torch
 
@@ -157,12 +170,32 @@ def mu_mode(n_tracers: int, mu_const: float, visc: bool) -> int:
     return 1 if n_tracers and mu_const != 0.0 else 0
 
 
-def _scalars(tau: float, time_smooth: float):
+class Folds(typing.NamedTuple):
+    """The fast form's arithmetic folds (the TPU kernel's round-5
+    reductions, which its drivers turn on wherever the fast form runs):
+    ``elide_sel`` drops the filter's selects of the carried velocities
+    and tracer levels (the caller keeps them 0 off their wet sets);
+    ``q4`` takes the advection's 1/4 from ``rslu_u`` and ``rslu_v``, which
+    the caller has scaled by it; ``share_prev`` (chained, full free
+    surface) has step B take its previous-level depths from step A's."""
+    elide_sel: bool = False
+    q4: bool = False
+    share_prev: bool = False
+
+
+NO_FOLDS = Folds()
+
+
+def _scalars(tau: float, time_smooth: float, q4: bool = False):
     """The step's scalar constants, rounded once, as both versions use
-    them: (-g, 2 tau, -2 tau, 1 / (2 tau), 1 - ts, ts / 2)."""
+    them: (-g, 2 tau, -2 tau, 1 / (2 tau), 1 - ts, ts / 2); with ``q4``
+    the first three shifted by the exact powers of two that meet the
+    quartered depths: (-4 g, tau / 2, -8 tau, ...)."""
     ts = float(time_smooth)
-    return (-float(FREE_FALL_ACC), 2.0 * float(tau), -2.0 * float(tau),
-            1.0 / (2.0 * float(tau)), 1.0 - ts, 0.5 * ts)
+    s = 4.0 if q4 else 1.0
+    return (-s * float(FREE_FALL_ACC), 2.0 / s * float(tau),
+            -2.0 * s * float(tau), 1.0 / (2.0 * float(tau)), 1.0 - ts,
+            0.5 * ts)
 
 
 def _sh(a: torch.Tensor, dm: int, dn: int) -> torch.Tensor:
@@ -221,14 +254,16 @@ def _wet_cells(tile_wet: torch.Tensor, tile, lay: FusedLayout):
 def _one_step(fields, met, planes, lay: FusedLayout, tau: float,
               time_smooth: float, hr_const: float | None, tile_wet, tile,
               met_map, mu_const: float, visc: bool, trans: int, ffs: int,
-              outs) -> tuple:
-    """One step of :func:`fused_sw_step_reference`: the 6 + 2 T new
-    fields (``outs``, their box written, with ``outs``)."""
+              outs, folds: Folds = NO_FOLDS, prev=None) -> tuple:
+    """One step of :func:`fused_sw_step_reference`: (the 6 + 2 T new
+    fields (``outs``, their box written, with ``outs``), what step B of
+    ``share_prev`` takes from this step). ``prev``: that of the step
+    before, with ``folds.share_prev``."""
     n_tr = n_tracers_of(fields)
     ssh, sshp, u, up, v, vp = fields[:N_FIELDS]
     rslu_u, rslu_v, rslu_h, ld = planes[:4]
     neg_g, two_tau, neg_two_tau, inv_two_tau, ts1, ts2 = _scalars(
-        tau, time_smooth)
+        tau, time_smooth, folds.q4)
     mu = float(mu_const)
     if hr_const is None:
         hrld = planes[4]
@@ -257,9 +292,15 @@ def _one_step(fields, met, planes, lay: FusedLayout, tau: float,
     hv = (aq + yp(aq)) * rslu_v
     su = aq + xp(aq)
     hh = (su + yp(su)) * rslu_h
-    aqp = column(sshp)
-    hup = (aqp + xp(aqp)) * rslu_u
-    hvp = (aqp + yp(aqp)) * rslu_v
+    if prev is not None and ffs:
+        # share_prev: the filter through the interpolation, from step A's
+        # ts1 hu_A + ts2 hup_A (the kernel's grouping)
+        hup = prev[0] + ts2 * hu
+        hvp = prev[1] + ts2 * hv
+    else:
+        aqp = column(sshp)
+        hup = (aqp + xp(aqp)) * rslu_u
+        hvp = (aqp + yp(aqp)) * rslu_v
     ud = u * hu
     vd = v * hv
 
@@ -275,10 +316,16 @@ def _one_step(fields, met, planes, lay: FusedLayout, tau: float,
                            + u * row(18), 0.0)
         s2u = uy + u
         s2v = vx + v
-        F = (ud + xp(ud)) * ((u + ux) * 0.25)
-        G = ((vd + xp(vd)) * 0.25) * torch.where(wluu, s2u, 0.0)
-        K = (vd + yp(vd)) * ((v + vy) * 0.25)
-        L = ((ud + yp(ud)) * 0.25) * s2v
+        if folds.q4:        # ud, vd arrive quartered
+            F = (ud + xp(ud)) * (u + ux)
+            G = (vd + xp(vd)) * torch.where(wluu, s2u, 0.0)
+            K = (vd + yp(vd)) * (v + vy)
+            L = (ud + yp(ud)) * s2v
+        else:
+            F = (ud + xp(ud)) * ((u + ux) * 0.25)
+            G = ((vd + xp(vd)) * 0.25) * torch.where(wluu, s2u, 0.0)
+            K = (vd + yp(vd)) * ((v + vy) * 0.25)
+            L = ((ud + yp(ud)) * 0.25) * s2v
         vc = (vort + row(21)) * hh
         Px = vc * s2v
         Ty = vc * s2u
@@ -321,14 +368,19 @@ def _one_step(fields, met, planes, lay: FusedLayout, tau: float,
     vn = torch.where(wlcv, (vp * hvp + (sly + acy) * (two_tau * row(11)))
                      / torch.where(wlcv, hv, 1.0), 0.0)
 
-    # leapfrog rotation + Robert-Asselin filter
+    # leapfrog rotation + Robert-Asselin filter (elide_sel: the velocity
+    # selects are the identity, un and vn being 0 off their wet sets)
     ssh_new = torch.where(wlu, sshn, ssh)
     sshp_new = torch.where(wlu, ts1 * ssh + ts2 * (sshn + sshp), sshp)
-    out = [ssh_new, sshp_new,
-           torch.where(wlcu, un, u),
-           torch.where(wlcu, ts1 * u + ts2 * (un + up), up),
-           torch.where(wlcv, vn, v),
-           torch.where(wlcv, ts1 * v + ts2 * (vn + vp), vp)]
+    up_f, vp_f = ts1 * u + ts2 * (un + up), ts1 * v + ts2 * (vn + vp)
+    if folds.elide_sel:
+        out = [ssh_new, sshp_new, un, up_f, vn, vp_f]
+    else:
+        out = [ssh_new, sshp_new,
+               torch.where(wlcu, un, u), torch.where(wlcu, up_f, up),
+               torch.where(wlcv, vn, v), torch.where(wlcv, vp_f, vp)]
+    # what step B of share_prev takes from this step
+    dep = (ts1 * hu + ts2 * hup, ts1 * hv + ts2 * hvp)
 
     if n_tr:
         # tracer pass: post-step depths and transports (sshn, not
@@ -345,21 +397,27 @@ def _one_step(fields, met, planes, lay: FusedLayout, tau: float,
         bp = hr * area
         bp0 = (hr + sshp_new) * area if ffs else bp
         if mu != 0.0:
-            kx = (mu * row(10)) * torch.where(wlcu, hun, 0.0)
-            ky = (mu * row(11)) * torch.where(wlcv, hvn, 0.0)
+            # with q4 hun, hvn arrive quartered: 4 mu
+            mu_t = 4.0 * mu if folds.q4 else mu
+            kx = (mu_t * row(10)) * torch.where(wlcu, hun, 0.0)
+            ky = (mu_t * row(11)) * torch.where(wlcv, hvn, 0.0)
+        adv = -2.0 if folds.q4 else -0.5
     for t in range(n_tr):
         ff, ffp = fields[N_FIELDS + 2 * t], fields[N_FIELDS + 2 * t + 1]
-        fx = uh * ((ff + xp(ff)) * -0.5)
-        fy = vh * ((ff + yp(ff)) * -0.5)
+        fx = uh * ((ff + xp(ff)) * adv)
+        fy = vh * ((ff + yp(ff)) * adv)
         if mu != 0.0:
             fx = fx + kx * (xp(ff) - ff)
             fy = fy + ky * (yp(ff) - ff)
         rhs = ((fx - _sh(fx, -1, 0)) + fy) - _sh(fy, 0, -1)
         ffn = torch.where(wlu, (bp0 * ffp + rhs)
                           / torch.where(wlu, bp, 1.0), 0.0)
-        out.append(torch.where(wlu, ffn, ff))
-        out.append(torch.where(wlu, ts1 * ff + ts2 * (ffn + ffp), ffp))
-    return _finish(out, tile_wet, tile, lay, outs)
+        ffp_f = ts1 * ff + ts2 * (ffn + ffp)
+        if folds.elide_sel:
+            out += [ffn, ffp_f]
+        else:
+            out += [torch.where(wlu, ffn, ff), torch.where(wlu, ffp_f, ffp)]
+    return _finish(out, tile_wet, tile, lay, outs), dep
 
 
 def _one_step_general(fields, met, planes, lay: FusedLayout, tau: float,
@@ -540,18 +598,22 @@ def _box(lay: FusedLayout) -> tuple:
 def _chain(fields, met, planes, lay: FusedLayout, tau: float,
            time_smooth: float, hr_const: float | None, tile_wet, tile,
            met_map, mu_const: float, visc: bool, trans: int, ffs: int,
-           steps: int, outs, general: bool = False):
+           steps: int, outs, general: bool = False,
+           folds: Folds = NO_FOLDS):
     """``steps`` plain steps as one launch of the kernel runs them: the
     earlier ones on whole arrays without the guard (the kernel computes
     them in each wet tile's own window, whatever the flags of the tiles
     that window covers; in the raw form a dry-flagged tile's margin cells
-    may be wet and read), the last with the guard and into ``outs``.
-    Returns (the last step's fields, each step's |ssh| as the block max
-    reads it: zero in the tiles flagged all-land)."""
+    may be wet and read), the last with the guard and into ``outs``; with
+    ``folds.share_prev`` each later step takes its previous-level depths
+    from the step before. Returns (the last step's fields, each step's
+    |ssh| as the block max reads it: zero in the tiles flagged
+    all-land)."""
     if steps not in (1, 2):
         raise ValueError(f"steps={steps}: the kernel runs 1 or 2 steps a "
                          "launch")
-    seen = []
+    folds = _check_folds(folds, general)
+    seen, dep = [], None
     for s in range(steps):
         last = s == steps - 1
         guard, into = (tile_wet, outs) if last else (None, None)
@@ -560,9 +622,10 @@ def _chain(fields, met, planes, lay: FusedLayout, tau: float,
                                        time_smooth, guard, tile, met_map,
                                        mu_const, visc, trans, ffs, into)
         else:
-            fields = _one_step(fields, met, planes, lay, tau, time_smooth,
-                               hr_const, guard, tile, met_map, mu_const,
-                               visc, trans, ffs, into)
+            fields, dep = _one_step(
+                fields, met, planes, lay, tau, time_smooth, hr_const, guard,
+                tile, met_map, mu_const, visc, trans, ffs, into, folds,
+                dep if folds.share_prev else None)
         ssh = fields[0]
         if tile_wet is not None and not last:
             ssh = torch.where(_wet_cells(tile_wet, tile, lay), ssh, 0.0)
@@ -576,7 +639,7 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
                             tile=None, met_map=None, mu_const: float = 0.0,
                             visc: bool = False, trans: int = 1, ffs: int = 1,
                             steps: int = 1, general: bool = False,
-                            outs=None):
+                            folds: Folds = NO_FOLDS, outs=None):
     """One launch of the fused step in plain PyTorch on whole arrays,
     with the kernel's formulas in the kernel's order (see
     csrc/fused_step.cu). ``tile_wet`` (with its ``tile`` shape) reproduces
@@ -587,19 +650,44 @@ def fused_sw_step_reference(fields, met, planes, lay: FusedLayout,
     free-surface switches. ``steps``: model steps a launch; 2 is the
     chained form, this function's single step twice, the guard on the
     second only, the max over both. ``general``: the general form (see
-    the module's docstring). ``outs``: the raw form -- the box
+    the module's docstring). ``folds``: the fast form's :class:`Folds`.
+    ``outs``: the raw form -- the box
     ``[M, M + lay.nx) x [M, M + lay.ny)`` of these 6 + 2 T tensors is
     written and they are returned, everything else in them untouched (a
     chained raw launch runs its first step on the whole margined
     block)."""
     out, seen = _chain(fields, met, planes, lay, tau, time_smooth, hr_const,
                        tile_wet, tile, met_map, mu_const, visc, trans, ffs,
-                       steps, outs, general)
+                       steps, outs, general, folds)
     box = _box(lay)
     mx = torch.amax(seen[0][box])
     for a in seen[1:]:
         mx = torch.maximum(mx, torch.amax(a[box]))
     return out, mx
+
+
+def _check_folds(folds, general: bool) -> Folds:
+    """``folds`` as :class:`Folds`; the general form has none."""
+    folds = Folds(*map(bool, folds))
+    if general and any(folds):
+        raise ValueError("elide_sel/q4/share_prev are folds of the fast "
+                         "form, not of the general form")
+    return folds
+
+
+def kernel_folds(folds, steps: int, ffs: int) -> Folds:
+    """The folds of the kernel instantiation a launch runs: share_prev
+    only where there is a step B whose previous-level depths are not the
+    static ones (two steps a launch, a full free surface)."""
+    folds = Folds(*map(bool, folds))
+    return folds._replace(share_prev=folds.share_prev and steps > 1
+                          and bool(ffs))
+
+
+def fold_code(folds) -> int:
+    """The kernel's FOLD template argument of ``folds``: 1 elide_sel, 2
+    q4, 4 share_prev, or'ed (``csrc/fused_step.cu``)."""
+    return int(folds[0]) | 2 * int(folds[1]) | 4 * int(folds[2])
 
 
 def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
@@ -664,27 +752,38 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
                            hr_const: float | None, tile_wet=None, tile=None,
                            met_map=None, mu_const: float = 0.0,
                            visc: bool = False, trans: int = 1, ffs: int = 1,
-                           steps: int = 1, general: bool = False, outs=None,
+                           steps: int = 1, general: bool = False,
+                           folds: Folds = NO_FOLDS, outs=None,
                            blockmax=None, chain_tile=None):
     """Launch the CUDA kernel once on CUDA tensors (counted in
     ``fused_sw_step.launches``, and per kernel instantiation ``(T,
     guarded, 2D metrics, mu mode, bathymetry planes, raw, trans, ffs,
-    steps, general)`` in ``fused_sw_step.form_launches``; :func:`mu_mode`
-    names the modes; the general form's bathymetry is always a plane,
-    and counts as not). ``steps = 2`` launches the chained form: two
+    steps, general, folds)`` in ``fused_sw_step.form_launches``;
+    :func:`mu_mode` names the modes; the general form's bathymetry is
+    always a plane, and counts as not; folds: :func:`fold_code` of
+    :func:`kernel_folds`). ``steps = 2`` launches the chained form: two
     model steps in the one launch, counted once. Returns ``(6 + 2 T new
     fields, the (x tiles, y tiles) per-block max |ssh_new| over interior
     cells)``; raises if the kernel does not build or launch. With ``outs`` (and
     ``blockmax``, a contiguous float32 (x tiles, y tiles) tensor) it
     launches the raw form into them and allocates nothing.
-    ``chain_tile``: see :func:`library_target`."""
+    ``chain_tile``: see :func:`library_target`. ``folds``: the fast
+    form's :class:`Folds`; the kernel has elide_sel and q4 together, with
+    or without share_prev, and share_prev alone: elide_sel without q4, or
+    q4 without it, raises NotImplementedError."""
     visc, trans, ffs = bool(visc), int(bool(trans)), int(bool(ffs))
     general = bool(general)
     raw = outs is not None
+    folds = kernel_folds(_check_folds(folds, general), steps, ffs)
+    if folds.elide_sel != folds.q4:
+        raise NotImplementedError(
+            "elide_sel without q4, or q4 without elide_sel: the kernel "
+            "has no instantiation of it (ROADMAP B1); pass both or neither")
     _check_inputs(fields, met, planes, lay, tile_wet, tile, met_map,
                   hr_const, visc, trans, outs, steps, chain_tile, general)
     n_tr = n_tracers_of(fields)
-    lib = _library(n_tr, raw, trans, ffs, steps, chain_tile, general)
+    lib = _library(n_tr, raw, trans, ffs, steps, chain_tile, general,
+                   fold_code(folds))
     # where each metric row the kernel reads sits in met (-1: not there)
     rows = GENERAL_MET_ROWS if general else KERNEL_MET_ROWS
     where = {r: r for r in rows} if met_map is None else met_map
@@ -733,7 +832,7 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
             int(raw), trans, ffs, steps, lay.Xs, lay.Ys, lay.nx, lay.ny,
             lay.margin,
             0.0 if hr_const is None else float(hr_const), float(mu_const),
-            *_scalars(tau, time_smooth),
+            *_scalars(tau, time_smooth, folds.q4),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_sw_step kernel launch failed: "
@@ -742,7 +841,7 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
     fused_sw_step.form_launches[
         n_tr, tile_wet is not None, met_map is not None,
         mu_mode(n_tr, mu_const, visc), hr_const is None and not general,
-        raw, trans, ffs, steps, general] += 1
+        raw, trans, ffs, steps, general, fold_code(folds)] += 1
     return outs, blockmax
 
 
@@ -750,7 +849,8 @@ def fused_sw_step(fields, met, planes, lay: FusedLayout, tau: float,
                   time_smooth: float, hr_const: float | None, tile_wet=None,
                   tile=None, met_map=None, mu_const: float = 0.0,
                   visc: bool = False, trans: int = 1, ffs: int = 1,
-                  steps: int = 1, general: bool = False):
+                  steps: int = 1, general: bool = False,
+                  folds: Folds = NO_FOLDS):
     """One launch of the fused step: the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors (:func:`fused_sw_step_blockmax`);
     ``steps`` model steps (1, or 2 chained in the one launch). Returns
@@ -765,16 +865,18 @@ def fused_sw_step(fields, met, planes, lay: FusedLayout, tau: float,
     stages run; tracers diffuse whenever ``mu_const != 0``. ``trans``,
     ``ffs``: the configuration's ``trans_terms`` and
     ``full_free_surface`` (0 or 1). ``general``: the general form, with
-    the planes and metrics of the module's docstring. The max covers
-    every step of the launch."""
+    the planes and metrics of the module's docstring. ``folds``: the fast
+    form's :class:`Folds` (``q4`` with ``rslu_u``, ``rslu_v`` scaled by
+    1/4, ``elide_sel`` with the carried velocities and tracer levels 0
+    off their wet sets). The max covers every step of the launch."""
     if fields[0].device.type == "cpu":
         return fused_sw_step_reference(fields, met, planes, lay, tau,
                                        time_smooth, hr_const, tile_wet,
                                        tile, met_map, mu_const, visc, trans,
-                                       ffs, steps, general)
+                                       ffs, steps, general, folds)
     outs, blockmax = fused_sw_step_blockmax(
         fields, met, planes, lay, tau, time_smooth, hr_const, tile_wet, tile,
-        met_map, mu_const, visc, trans, ffs, steps, general)
+        met_map, mu_const, visc, trans, ffs, steps, general, folds)
     return outs, torch.amax(blockmax)
 
 
@@ -783,7 +885,8 @@ def fused_sw_step_raw(fields, outs, blockmax, met, planes, lay: FusedLayout,
                       hr_const: float | None, tile_wet=None, tile=None,
                       met_map=None, mu_const: float = 0.0,
                       visc: bool = False, trans: int = 1, ffs: int = 1,
-                      steps: int = 1, general: bool = False) -> None:
+                      steps: int = 1, general: bool = False,
+                      folds: Folds = NO_FOLDS) -> None:
     """One launch of the fused step on a shard's margined block, into the
     caller's tensors: the box ``[M, M + lay.nx) x [M, M + lay.ny)`` of
     ``outs`` (6 + 2 T tensors, none of them an input) gets the new fields
@@ -801,12 +904,12 @@ def fused_sw_step_raw(fields, outs, blockmax, met, planes, lay: FusedLayout,
     if fields[0].device.type != "cpu":
         fused_sw_step_blockmax(fields, met, planes, lay, tau, time_smooth,
                                hr_const, tile_wet, tile, met_map, mu_const,
-                               visc, trans, ffs, steps, general, outs,
+                               visc, trans, ffs, steps, general, folds, outs,
                                blockmax)
         return
     _, seen = _chain(fields, met, planes, lay, tau, time_smooth, hr_const,
                      tile_wet, tile, met_map, mu_const, visc, trans, ffs,
-                     steps, outs, general)
+                     steps, outs, general, folds)
     tx, ty = tile
     nbx, nby = blockmax.shape
     box = _box(lay)
@@ -960,7 +1063,7 @@ reset_launch_counts()
 
 def library_target(n_tracers: int, raw: bool = False, trans: int = 1,
                    ffs: int = 1, steps: int = 1, chain_tile=None,
-                   general: bool = False) -> str:
+                   general: bool = False, folds: int = 0) -> str:
     """The build target of csrc/fused_step.cu that holds the forms with
     ``n_tracers`` tracers (raw or not) of one (trans, ffs, steps) form:
     macros ``FUSED_NT`` or ``FUSED_RAW_NT`` (``LOOP_TRACERS`` for every
@@ -970,13 +1073,16 @@ def library_target(n_tracers: int, raw: bool = False, trans: int = 1,
     form's tile in place of csrc/fused_tile.cuh's (a tile sweep's
     libraries); None for the header's own. ``general``: the library of
     the general forms, ``FUSED_GEN=1``, which holds every (trans, ffs)
-    form of its tracer count, raw or not, and steps a launch."""
+    form of its tracer count, raw or not, and steps a launch. ``folds``:
+    the :func:`fold_code` of a fast library's folds, ``FUSED_FOLD``
+    (one combination a library; 0, none, has no macro)."""
     target = (f"fused_step@{'FUSED_RAW_NT' if raw else 'FUSED_NT'}="
               f"{min(n_tracers, LOOP_TRACERS)}"
               + ("@FUSED_GEN=1" if general else
                  ("" if trans else "@FUSED_TRANS=0")
                  + ("" if ffs else "@FUSED_FFS=0"))
-              + ("" if steps == 1 else f"@FUSED_STEPS={steps}"))
+              + ("" if steps == 1 else f"@FUSED_STEPS={steps}")
+              + (f"@FUSED_FOLD={folds}" if folds else ""))
     if chain_tile is not None:
         target += "".join(f"@FUSED_CHAIN_{k}={v}" for k, v in zip(
             ("TX", "TY", "THREADS", "MIN_BLOCKS"), chain_tile))
@@ -1016,26 +1122,46 @@ def library_targets(general: bool = False) -> tuple:
                  for raw in (False, True) for n in range(LOOP_TRACERS + 1))
 
 
+# the folds the drivers reach (fold_code): elide_sel with q4, and in the
+# chained forms with a full free surface the same with share_prev, and
+# share_prev alone
+FOLD_COMBOS = {1: (3,), 2: (3, 7, 4)}
+
+
+def fold_targets() -> tuple:
+    """The build targets of the fast forms' folded instantiations, one
+    fold combination a library beside each unfolded library of
+    :func:`library_targets`: elide_sel + q4 for one step a launch; for
+    two chained, that with and without share_prev and share_prev alone
+    (a linear free surface has nothing to share: elide_sel + q4 only)."""
+    return tuple(library_target(n, raw, trans, ffs, steps, folds=f)
+                 for steps in (1, 2) for trans, ffs in FORMS
+                 for f in FOLD_COMBOS[steps] if ffs or not f & 4
+                 for raw in (False, True) for n in range(LOOP_TRACERS + 1))
+
+
 @functools.lru_cache(maxsize=None)
 def _library(n_tracers: int = 0, raw: bool = False, trans: int = 1,
              ffs: int = 1, steps: int = 1, chain_tile=None,
-             general: bool = False) -> ctypes.CDLL:
+             general: bool = False, folds: int = 0) -> ctypes.CDLL:
     """csrc/fused_step.cu's forms (its raw forms with ``raw``) with
     ``n_tracers`` tracers (every count from ``LOOP_TRACERS`` up shares one
     library), the advection and free-surface form ``trans``, ``ffs`` and
     ``steps`` model steps a launch, built on first use, with their C
     signatures; ``general``: its general forms, every (trans, ffs) in
-    one library."""
+    one library; ``folds``: the fast forms with those folds
+    (:func:`fold_code`)."""
     n_tracers = min(n_tracers, LOOP_TRACERS)
     lib = load(library_target(n_tracers, raw, trans, ffs, steps,
-                              chain_tile, general))
+                              chain_tile, general, folds))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.fused_sw_step_tile_x, lib.fused_sw_step_tile_y,
                lib.fused_sw_step_threads, lib.fused_sw_step_min_blocks,
                lib.fused_sw_step_n_met, lib.fused_sw_step_built_for,
                lib.fused_sw_step_built_raw, lib.fused_sw_step_built_trans,
                lib.fused_sw_step_built_ffs, lib.fused_sw_step_built_steps,
-               lib.fused_sw_step_built_general):
+               lib.fused_sw_step_built_general,
+               lib.fused_sw_step_built_folds):
         fn.argtypes = []
         fn.restype = i
     rows = GENERAL_MET_ROWS if general else KERNEL_MET_ROWS
@@ -1046,15 +1172,17 @@ def _library(n_tracers: int = 0, raw: bool = False, trans: int = 1,
     built = (lib.fused_sw_step_built_for(), lib.fused_sw_step_built_raw(),
              lib.fused_sw_step_built_trans(), lib.fused_sw_step_built_ffs(),
              lib.fused_sw_step_built_steps(),
-             lib.fused_sw_step_built_general())
+             lib.fused_sw_step_built_general(),
+             lib.fused_sw_step_built_folds())
     # a general library holds every (trans, ffs) form: -1 for both
     want = (n_tracers, int(bool(raw)),
             -1 if general else int(bool(trans)),
-            -1 if general else int(bool(ffs)), steps, int(bool(general)))
+            -1 if general else int(bool(ffs)), steps, int(bool(general)),
+            folds)
     if built != want:
         raise RuntimeError("the fused step's library was built for "
-                           "(tracers, raw, trans, ffs, steps, general) = "
-                           f"{built}, not {want}")
+                           "(tracers, raw, trans, ffs, steps, general, "
+                           f"folds) = {built}, not {want}")
     lib.fused_sw_step_error_string.argtypes = [i]
     lib.fused_sw_step_error_string.restype = ctypes.c_char_p
     lib.fused_sw_step_smem_bytes.argtypes = [i, i, ctypes.POINTER(i)]

@@ -136,7 +136,9 @@ def sweep(n_launch: int = N_LAUNCH, tiles=TILES) -> list:
             use_tracers=int(n_tr > 0), tracer_num=max(n_tr, 1)),
             precision=prec)
         grid = grids[gname]
-        one = FusedSWModel(grid, cfg, 1.0, tile_guard=guard, static_rslu=True)
+        # the unfolded fast form (the drivers default to its folds)
+        one = FusedSWModel(grid, cfg, 1.0, tile_guard=guard, static_rslu=True,
+                           elide_sel=False, q4=False, share_prev=False)
         s, _ = one.run_steps(one.pack(init_ocean_state(grid, cfg)), 20)
         lu_s = np.asarray(fl.embed(one.lay, grid.lu.cpu()))
 

@@ -128,17 +128,20 @@ def kernel_us(fn, n: int, kernel: str = "copy_step_kernel") -> float:
     """Mean device microseconds per launch of the CUDA kernel named
     ``kernel`` over ``n`` calls of ``fn`` under torch.profiler, after one
     warm-up call. The wrapper's Python takes longer than the kernel, so
-    CUDA events around the calls would time the host."""
+    CUDA events around the calls would time the host. torch.profiler now
+    and then records no device activity in a window (about once in 950
+    on an H100): such a window is taken again, three windows at most."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    for e in prof.key_averages():
-        if kernel in e.key and e.count and e.self_device_time_total > 0:
-            return e.self_device_time_total / e.count
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if kernel in e.key and e.count and e.self_device_time_total > 0:
+                return e.self_device_time_total / e.count
     raise RuntimeError(f"torch.profiler recorded no device time for {kernel}")
 
 

@@ -120,11 +120,13 @@ def _jax_fused(form, share_prev):
 
 @functools.lru_cache(maxsize=None)
 def _port_fused(form, spc):
-    """The port's ``FusedSWModel`` (guard on) on the same inputs, 30
+    """The port's ``FusedSWModel`` (guard on, the fast form without its
+    folds, which tests/test_torch_folds.py holds) on the same inputs, 30
     steps: (model, carried fields, unpacked state)."""
     _, cfg, _, grid, state = _case(form)
     fm = FusedSWModel(grid, cfg, 1.0, mu_const=FORMS[form][2],
-                      static_rslu=True, steps_per_call=spc, tile_guard=True)
+                      static_rslu=True, steps_per_call=spc, tile_guard=True,
+                      elide_sel=False, q4=False, share_prev=False)
     assert fm.n_tiles[1] > 0 and fm.steps_per_call == spc
     s, ok = fm.run_steps(fm.pack(state), STEPS)
     assert ok
@@ -189,7 +191,9 @@ def test_sharded_chain_matches_jax_and_the_block(form):
     jm = JaxSharded(jgrid, cfg, 1.0, 2, 2, tx=8, interpret=True,
                     steps_per_call=2)
     jc, jok = jm.make_runner(STEPS)(jm.pack(jstate))
-    fs = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, steps_per_call=2)
+    # the folds of the block it equals (none; JAX's are its defaults)
+    fs = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, steps_per_call=2,
+                             elide_sel=False, q4=False, share_prev=False)
     assert fs.M == fl.margin_for(2, FORMS[form][0]) == (8 if FORMS[form][0]
                                                         else 6)
     c, ok = fs.make_runner(STEPS)(fs.pack(state))

@@ -144,7 +144,7 @@ def test_static_planes_2d_match_jax(mask_kind):
     interior to what the JAX function gives in its own layout."""
     jgrid, _, _ = _bipolar("f32", mask_kind)
     grid, cfg, _ = _port_case(mask_kind)
-    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True)
+    fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True, q4=False)
     lay = fm.lay
     names = fstep.kernel_planes()
     m22 = fl.metrics_full_from_grid(grid, lay)

@@ -197,7 +197,9 @@ def test_raw_split_equals_single_block(trans, ffs):
     assert (fs.trans, fs.ffs) == (trans, ffs)
     carry, ok = fs.make_runner(STEPS)(fs.pack(state))
     assert ok
-    _, block, _ = _port_fused(trans, ffs, 2)
+    # the block at the shards' folds (elide_sel and q4; share_prev regroups
+    # the chained block's second step)
+    _, block, _ = _port_fused(trans, ffs, 2, share_prev=False)
     fm = FusedSWModel(grid, cfg, 1.0, static_rslu=True)
     for a, b in zip(fs.extract(carry), block):
         assert torch.equal(a, fl.extract(fm.lay, b))

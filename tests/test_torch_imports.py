@@ -55,6 +55,7 @@ MODULES = [
     "ocean_model_arch_torch.ops.fused_step",
     "ocean_model_arch_torch.ops.copy_step",
     "ocean_model_arch_torch.ops.persistent_probe",
+    "ocean_model_arch_torch.ops.vpu_probe",
     "ocean_model_arch_torch.ops._build",
     "ocean_model_arch_torch.core.grid",
     "ocean_model_arch_torch.core.state",
@@ -67,13 +68,17 @@ MODULES = [
     "chip_smoke",
     "scripts.roofline_probe_torch",
     "scripts.persistent_probe_torch",
+    "scripts.vpu_op_probe_torch",
+    "scripts.vpu_shift_probe_torch",
 ]
 
 
 def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "scripts", "roofline_probe_torch.py"),
-             os.path.join(REPO, "scripts", "persistent_probe_torch.py")]
+             os.path.join(REPO, "scripts", "persistent_probe_torch.py"),
+             os.path.join(REPO, "scripts", "vpu_op_probe_torch.py"),
+             os.path.join(REPO, "scripts", "vpu_shift_probe_torch.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files

@@ -381,7 +381,10 @@ def test_raw_reference_matches_jax_step_raw():
     fstep.fused_sw_step_raw(
         pf, pouts, bmax, fs.met_shards[i][j], fs.plane_shards[i][j],
         fs.shard_lay[i][j], 1.0, cfg.sw.time_smooth, fs.hr_const,
-        fs.tile_wet[i][j], fs.tile, fs.met_map, 0.0, False)
+        fs.tile_wet[i][j], fs.tile, fs.met_map, 0.0, False,
+        folds=fs.folds)     # both drivers' default folds: elide_sel, q4
+    assert fs.folds == (jm.elide_sel, jm.q4, jm.share_prev) == (
+        True, True, False)
     for n, o, b in zip(NAMES, pouts, want):
         got = o[M:M + lx, M:M + ly].numpy()
         assert _rel(got, b) < 1e-6, (n, _rel(got, b))

@@ -116,11 +116,13 @@ def _jax_fused(form, spc):
 
 @functools.lru_cache(maxsize=None)
 def _port_fused(form, spc):
-    """The port's ``FusedSWModel`` (guard on) on the same inputs, 30
+    """The port's ``FusedSWModel`` (guard on, the fast form without its
+    folds, which tests/test_torch_folds.py holds) on the same inputs, 30
     steps: (model, carried fields, unpacked state)."""
     _, cfg, _, grid, state = _case(form)
     fm = FusedSWModel(grid, cfg, 1.0, mu_const=FORMS[form][2],
-                      static_rslu=True, steps_per_call=spc, tile_guard=True)
+                      static_rslu=True, steps_per_call=spc, tile_guard=True,
+                      elide_sel=False, q4=False, share_prev=False)
     assert fm.n_tiles[1] > 0 and fm.n_tracers == FORMS[form][0]
     s, ok = fm.run_steps(fm.pack(state), STEPS)
     assert ok and len(s) == 6 + 2 * fm.n_tracers
@@ -231,7 +233,8 @@ def test_permuted_tracers_permute_the_outputs(spc):
     one = dataclasses.replace(fm.cfg, sw=dataclasses.replace(
         fm.cfg.sw, tracer_num=1))
     f1 = FusedSWModel(fm.grid, one, 1.0, steps_per_call=spc,
-                      tile_guard=True, static_rslu=True)
+                      tile_guard=True, static_rslu=True, elide_sel=False,
+                      q4=False, share_prev=False)
     for t in range(4):
         c, _ = fstep.fused_sw_step(s0[:6] + s0[6 + 2 * t:8 + 2 * t],
                                    *_args(f1), steps=spc)
@@ -251,7 +254,9 @@ def test_sharded_matches_jax_and_the_block(spc):
     jm = JaxSharded(jgrid, cfg, 1.0, 2, 2, tx=8, interpret=True,
                     steps_per_call=spc)
     jc, jok = jm.make_runner(STEPS)(jm.pack(jstate))
-    fs = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, steps_per_call=spc)
+    # the folds of the block it equals (none; JAX's are its defaults)
+    fs = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, steps_per_call=spc,
+                             elide_sel=False, q4=False, share_prev=False)
     assert fs.M == fl.margin_for(spc, 3) == 4 * spc
     assert fs.n_tracers == 3
     c, ok = fs.make_runner(STEPS)(fs.pack(state))
