@@ -163,10 +163,8 @@ class FusedSWModel:
     mode, where any of them raises ValueError, as it does where the fast
     form does not run. With ``q4`` the static planes carry the 1/4;
     with ``elide_sel`` ``pack`` masks the carried velocities and tracer
-    levels with their staggered wet masks. The kernel has elide_sel and
-    q4 together (with or without share_prev) and share_prev alone; the
-    other combinations run on the CPU only (NotImplementedError on the
-    card).
+    levels with their staggered wet masks. The kernel has every
+    combination, elide_sel or q4 alone too.
 
     ``persistent``: the JAX model's persistent mode (its
     ``build_persistent_sw_step``): ``run_steps`` runs a whole window of

@@ -27,11 +27,16 @@ unstacked planes.
 :func:`copy_step` takes CPU tensors to :func:`copy_step_reference` and
 CUDA tensors to the kernel, which it builds on first use; a kernel that
 does not build or launch raises. The two agree exactly: they make the
-same float32 additions in the same order.
+same float32 additions in the same order. The kernel loads its windows by
+TMA, as the fused step does (``loader="tma"``: one block a tile; at most
+``copy_step_max_async_windows()`` windowed inputs, each 16-byte aligned),
+or by its threads, element by element (``"threads"``, the loader the fused
+step had before; the stacked form always).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -39,7 +44,11 @@ import torch
 
 from ._build import load
 from .fused_layout import FusedLayout
-from .fused_step import CPU_TILE, _wet_cells
+from .fused_step import CPU_TILE, _wet_cells, tma_refusal
+
+
+# the kernel's loaders and their codes in the C launcher
+LOADERS = {"threads": 0, "tma": 1}
 
 
 def copy_step_reference(windows, met, n_out: int, lay: FusedLayout,
@@ -71,9 +80,11 @@ def tile_shape(device, steps: int = 1) -> tuple:
 
 
 def _check_inputs(windows, met, n_out, lay, tile_wet, tile,
-                  steps, stacked: bool = False) -> None:
+                  steps, stacked: bool = False,
+                  loader: str = "threads") -> None:
     """``stacked``: the windows are the planes of one tensor, and neither
-    they nor the outputs are bounded in number."""
+    they nor the outputs are bounded in number; ``loader``: with TMA, its
+    bounds and alignment too."""
     dev = windows[0].device
     shapes = [(w, (lay.Xs, lay.Ys)) for w in windows]
     if met is not None:
@@ -99,6 +110,16 @@ def _check_inputs(windows, met, n_out, lay, tile_wet, tile,
     if n_out < 1 or not stacked and n_out > lib.copy_step_max_outputs():
         raise ValueError(f"need 1 to {lib.copy_step_max_outputs()} outputs, "
                          f"got {n_out}")
+    if loader not in LOADERS:
+        raise ValueError(f"loader={loader!r}: one of {tuple(LOADERS)}")
+    if loader == "tma":
+        if len(windows) > lib.copy_step_max_async_windows():
+            raise ValueError(f"the TMA loader takes at most "
+                             f"{lib.copy_step_max_async_windows()} windowed "
+                             f"inputs, got {len(windows)}")
+        why = tma_refusal(lay, windows, steps)
+        if why:
+            raise ValueError(f"the TMA loader cannot take {why}")
     if tile_wet is None:
         return
     want = (-(-lay.Xs // tile[0]), -(-lay.Ys // tile[1]))
@@ -113,19 +134,23 @@ def _check_inputs(windows, met, n_out, lay, tile_wet, tile,
 
 def copy_step(windows, met, n_out: int, lay: FusedLayout,
               tracer_form: bool = False, tile_wet=None, tile=None,
-              visc_form: bool = False, steps: int = 1) -> tuple:
+              visc_form: bool = False, steps: int = 1,
+              loader: str = "tma") -> tuple:
     """One copy step: ``n_out`` (Xs, Ys) outputs from the ``windows``
     (the (Xs, Ys) fields and static planes) and the metric rows ``met``
     ((n, Ys), (n, Xs, Ys) or None). The plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors (counted in ``copy_step.launches``).
+    the CUDA kernel for CUDA tensors (counted in ``copy_step.launches``,
+    and by loader in ``copy_step.loader_launches``).
     ``tracer_form`` (the fused form's tracer count; True counts 1) makes
     the kernel load the tracer form's wider window and take that form's
     shared memory, ``visc_form`` a viscous form's, ``steps = 2`` the
-    chained form's tile, window and shared memory; the result depends on
-    none of them but the tile of ``tile_wet``."""
+    chained form's tile, window and shared memory, ``loader`` the loader
+    (``LOADERS``); the result depends on none of them but the tile of
+    ``tile_wet``."""
     if windows[0].device.type == "cpu":
         return copy_step_reference(windows, met, n_out, lay, tile_wet, tile)
-    _check_inputs(windows, met, n_out, lay, tile_wet, tile, steps)
+    _check_inputs(windows, met, n_out, lay, tile_wet, tile, steps,
+                  loader=loader)
     lib = _library()
     outs = tuple(torch.empty_like(windows[0]) for _ in range(n_out))
     win_p = (ctypes.c_void_p * len(windows))(*(w.data_ptr()
@@ -139,15 +164,18 @@ def copy_step(windows, met, n_out: int, lay: FusedLayout,
             int(met is not None and met.dim() == 3),
             None if tile_wet is None else tile_wet.data_ptr(),
             int(tracer_form), int(bool(visc_form)), int(steps),
-            lay.Xs, lay.Ys, torch.cuda.current_stream().cuda_stream)
+            lay.Xs, lay.Ys, LOADERS[loader],
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError("copy_step kernel launch failed: "
                            + lib.copy_step_error_string(rc).decode())
     copy_step.launches += 1
+    copy_step.loader_launches[loader] += 1
     return outs
 
 
 copy_step.launches = 0
+copy_step.loader_launches = collections.Counter()    # by loader
 
 
 def copy_step_stacked(stack: torch.Tensor, met, n_out: int, lay: FusedLayout,
@@ -197,12 +225,18 @@ def _library() -> ctypes.CDLL:
     for fn in (lib.copy_step_tile_x, lib.copy_step_tile_y):
         fn.argtypes = [i]
         fn.restype = i
-    for fn in (lib.copy_step_max_windows, lib.copy_step_max_outputs):
+    for fn in (lib.copy_step_max_windows, lib.copy_step_max_outputs,
+               lib.copy_step_max_async_windows):
         fn.argtypes = []
         fn.restype = i
+    lib.copy_step_window.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.copy_step_window.restype = i
     lib.copy_step_error_string.argtypes = [i]
     lib.copy_step_error_string.restype = ctypes.c_char_p
+    lib.copy_step_launch.argtypes = [p, i, p, i, p, i, i, p, i, i, i, i, i,
+                                     i, p]
+    lib.copy_step_stacked_launch.argtypes = [p, i, p, i, p, i, i, p, i, i,
+                                             i, i, i, p]
     for fn in (lib.copy_step_launch, lib.copy_step_stacked_launch):
-        fn.argtypes = [p, i, p, i, p, i, i, p, i, i, i, i, i, p]
         fn.restype = i
     return lib

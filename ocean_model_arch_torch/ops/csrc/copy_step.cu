@@ -37,8 +37,25 @@
 // returns before it loads anything, as the guarded fused kernel does. The
 // stacked form differs only in its addresses: input j at in + j Xs Ys,
 // output o at out + o Xs Ys, instead of a pointer each.
+//
+// The TMA form (ASYNC = 1, the fused step's loader since it brings its
+// windows in by TMA, fused_step.cu's head): one tensor map a windowed input
+// (2D f32, dims (Ys, Xs), box = the window, zeros outside the array;
+// tma.cuh), passed in the parameter block. Thread 0 initialises one
+// mbarrier, posts the bytes of the turn's boxes and issues them all; every
+// thread waits on the barrier's phase, then sums and stores as the other
+// form does. A later turn reuses the planes after a barrier (every thread
+// has read them; the copies only write). The threads spend no instruction
+// on an address or a bounds test of a window cell, and every window of a
+// turn is in flight at once instead of four loads a thread. The guard's
+// all-land return comes before any copy. ASYNC = 0 is the loader of
+// threads above (the stacked form K4 keeps it), kept to time against.
 
 #include "fused_tile.cuh"
+#include "tma.cuh"
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -61,7 +78,16 @@ struct Params {
   int Xs, Ys;
   size_t plane;                // Xs * Ys: the stacked form's plane stride
 };
-static_assert(sizeof(Params) <= 4096, "kernel parameters are 4 KB");
+
+// the TMA form's tensor maps, one a windowed input, beside Params in the
+// kernel's 4 KB of parameters
+constexpr int MAX_ASYNC_WIN = 24;
+struct Maps {
+  CUtensorMap m[MAX_ASYNC_WIN];
+};
+struct NoMaps {};
+static_assert(sizeof(Params) + sizeof(Maps) + 64 <= 4096,
+              "kernel parameters are 4 KB");
 
 __device__ __forceinline__ bool inside(const Params& p, int gx, int gy) {
   return gx >= 0 && gx < p.Xs && gy >= 0 && gy < p.Ys;
@@ -80,13 +106,21 @@ __device__ __forceinline__ void store(const Params& p, size_t g, float a) {
 
 // NT selects the window: Form<0> has halo 3, Form<1> halo 4; STEPS = 2
 // the chained form's tile and window (halo 6, 8); STACKED the stacked
-// form's addresses.
-template <int NT, int STEPS, bool STACKED>
+// form's addresses; ASYNC the TMA loader (maps: its tensor maps, first in
+// the parameter block, where each keeps the 64-byte alignment TMA asks).
+template <int NT, int STEPS, bool STACKED, bool ASYNC>
 __global__ void
 __launch_bounds__(Tile<STEPS>::NTHREADS, Tile<STEPS>::MIN_BLOCKS)
-copy_step_kernel(const Params p) {
-  constexpr int HALO = Form<NT, STEPS>::WH;
-  constexpr int WY = Form<NT, STEPS>::WY, PLANE = Form<NT, STEPS>::PLANE;
+copy_step_kernel(const __grid_constant__ std::conditional_t<ASYNC, Maps,
+                                                            NoMaps> maps,
+                 const Params p) {
+  static_assert(!(ASYNC && STACKED), "the stacked form loads by threads");
+  // the window of the loader's form (the threads' the one they had)
+  using Fm = Form<NT, STEPS, ASYNC>;
+  constexpr int HALO = Fm::WH;
+  constexpr int WY = Fm::WY, PLANE = Fm::PLANE;
+  constexpr int WCELLS = Fm::CELLS;
+  constexpr int SH = Fm::R;  // the TMA box begins SH columns before it
   constexpr int TX = Tile<STEPS>::TX, TY = Tile<STEPS>::TY;
   constexpr int NTHREADS = Tile<STEPS>::NTHREADS;
   constexpr int CELLS = (TX * TY + NTHREADS - 1) / NTHREADS;  // a thread's
@@ -110,18 +144,34 @@ copy_step_kernel(const Params p) {
     return;
   }
 
-  extern __shared__ float sm[];
+  extern __shared__ float sm_raw[];
+  float* sm = ASYNC ? tma::align128(sm_raw) : sm_raw;
+  __shared__ uint64_t bar;      // the TMA form's
   const int x0 = tx0 - HALO, y0 = ty0 - HALO;
 
+  if constexpr (ASYNC) {
+    if (tid == 0) {
+      tma::bar_init(&bar);
+      tma::bar_fence();
+    }
+    __syncthreads();
+  }
   float acc[CELLS];
 #pragma unroll
   for (int c = 0; c < CELLS; ++c) acc[c] = 0.f;
-  for (int j0 = 0; j0 < p.n_win; j0 += p.n_chunk) {
+  for (int j0 = 0, turn = 0; j0 < p.n_win; j0 += p.n_chunk, ++turn) {
     const int nj = min(p.n_chunk, p.n_win - j0);
     if (j0) __syncthreads();   // every thread has summed the last turn's
 
     // stage 0: the haloed window of the turn's windowed inputs
-    for (int i = tid; i < PLANE; i += NTHREADS) {
+    if constexpr (ASYNC) {
+      if (tid == 0) {
+        tma::bar_expect(&bar, sizeof(float) * WCELLS * nj);
+        for (int j = 0; j < nj; ++j)
+          tma::load_2d(sm + j * PLANE, &maps.m[j0 + j], &bar, x0, y0 - SH);
+      }
+      tma::bar_wait(&bar, turn & 1);
+    } else for (int i = tid; i < WCELLS; i += NTHREADS) {
       const int gx = x0 + i / WY, gy = y0 + i % WY;
       const bool in = inside(p, gx, gy);
       const size_t g = in ? (size_t)gx * p.Ys + gy : 0;
@@ -136,7 +186,7 @@ copy_step_kernel(const Params p) {
           sm[j * PLANE + i] = in ? p.win[j0 + j][g] : 0.f;
       }
     }
-    __syncthreads();
+    if constexpr (!ASYNC) __syncthreads();
 
     // stage 1: add the centre cells to the running sums
 #pragma unroll
@@ -144,7 +194,7 @@ copy_step_kernel(const Params p) {
       const int i = tid + c * NTHREADS;
       if (i >= TX * TY) break;
       const int k = (HALO + i / TY) * WY + HALO + i % TY;
-      for (int j = 0; j < nj; ++j) acc[c] += sm[j * PLANE + k];
+      for (int j = 0; j < nj; ++j) acc[c] += sm[j * PLANE + SH + k];
     }
   }
 
@@ -164,31 +214,43 @@ copy_step_kernel(const Params p) {
   }
 }
 
-template <int NT, int STEPS, bool STACKED>
+template <int NT, int STEPS, bool STACKED, bool ASYNC>
 int launch(Params& p, int n_tr, bool visc, cudaStream_t stream) {
   // the fused form's shared memory: a viscous form's block also holds its
-  // stress planes, unused here but for the turns' windows
+  // stress planes, unused here but for the turns' windows (and the TMA
+  // form 128 bytes more, by which it aligns them)
   using T = Tile<STEPS>;
+  using Fm = Form<NT, STEPS, ASYNC>;
   int levels = 0;
-  const size_t smem = form_smem_bytes<STEPS>(n_tr, visc, &levels);
-  p.n_chunk = (int)(smem / (sizeof(float) * Form<NT, STEPS>::PLANE));
+  const size_t fsmem = form_smem_bytes<STEPS, ASYNC>(n_tr, visc, &levels);
+  p.n_chunk = (int)(fsmem / (sizeof(float) * Fm::PLANE));
+  const size_t smem = fsmem + (ASYNC ? 128 : 0);
+  std::conditional_t<ASYNC, Maps, NoMaps> maps{};
+  if constexpr (ASYNC) {
+    if (p.n_win > MAX_ASYNC_WIN) return (int)cudaErrorInvalidValue;
+    for (int j = 0; j < p.n_win; ++j) {
+      const int e = tma::map_2d(&maps.m[j], p.win[j], p.Xs, p.Ys, Fm::WX,
+                                Fm::WY);
+      if (e) return e;
+    }
+  }
   cudaError_t e = cudaFuncSetAttribute(
-      copy_step_kernel<NT, STEPS, STACKED>,
+      copy_step_kernel<NT, STEPS, STACKED, ASYNC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  copy_step_kernel<NT, STEPS, STACKED>
+  copy_step_kernel<NT, STEPS, STACKED, ASYNC>
       <<<dim3((p.Ys + T::TY - 1) / T::TY, (p.Xs + T::TX - 1) / T::TX),
-         T::NTHREADS, smem, stream>>>(p);
+         T::NTHREADS, smem, stream>>>(maps, p);
   return (int)cudaGetLastError();
 }
 
-template <bool STACKED>
+template <bool STACKED, bool ASYNC>
 int launch_form(Params& p, int n_tr, bool visc, int steps, cudaStream_t s) {
   if (steps == 2)
-    return n_tr ? launch<1, 2, STACKED>(p, n_tr, visc, s)
-                : launch<0, 2, STACKED>(p, n_tr, visc, s);
-  return n_tr ? launch<1, 1, STACKED>(p, n_tr, visc, s)
-              : launch<0, 1, STACKED>(p, n_tr, visc, s);
+    return n_tr ? launch<1, 2, STACKED, ASYNC>(p, n_tr, visc, s)
+                : launch<0, 2, STACKED, ASYNC>(p, n_tr, visc, s);
+  return n_tr ? launch<1, 1, STACKED, ASYNC>(p, n_tr, visc, s)
+              : launch<0, 1, STACKED, ASYNC>(p, n_tr, visc, s);
 }
 
 }  // namespace
@@ -210,6 +272,22 @@ int copy_step_max_windows() { return MAX_WIN; }
 
 int copy_step_max_outputs() { return MAX_OUT; }
 
+int copy_step_max_async_windows() { return MAX_ASYNC_WIN; }
+
+// The window (rows, columns, floats a shared plane) of the form with
+// n_tracers tracers (its window halo) and `steps` model steps a launch.
+int copy_step_window(int n_tracers, int steps, int* out) {
+  const auto put = [out](int wx, int wy, int plane) {
+    out[0] = wx; out[1] = wy; out[2] = plane;
+    return 0;
+  };
+  if (steps == 2)
+    return n_tracers ? put(Form<1, 2>::WX, Form<1, 2>::WY, Form<1, 2>::PLANE)
+                     : put(Form<0, 2>::WX, Form<0, 2>::WY, Form<0, 2>::PLANE);
+  return n_tracers ? put(Form<1, 1>::WX, Form<1, 1>::WY, Form<1, 1>::PLANE)
+                   : put(Form<0, 1>::WX, Form<0, 1>::WY, Form<0, 1>::PLANE);
+}
+
 const char* copy_step_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
@@ -221,12 +299,15 @@ const char* copy_step_error_string(int code) {
 // device array of one int per block, or null. n_tracers: the tracer count
 // of the fused form whose window (halo 4 with tracers, else 3) and shared
 // memory to take; visc_form: that of its viscous form. steps: 2 takes the
-// chained form's tile, window and shared memory.
+// chained form's tile, window and shared memory. async: the loader, 0 the
+// threads', 1 TMA a tile a block; TMA takes at most
+// copy_step_max_async_windows() windowed inputs, each 16-byte aligned,
+// Ys a multiple of 4.
 int copy_step_launch(const float* const* win, int n_win,
                      float* const* out, int n_out, const float* met,
                      int n_met, int met2d, const int* tile_wet,
                      int n_tracers, int visc_form, int steps, int Xs,
-                     int Ys, void* stream) {
+                     int Ys, int async, void* stream) {
   if (n_win < 0 || n_win > MAX_WIN || n_out < 1 || n_out > MAX_OUT
       || n_met < 0 || (n_met > 0 && met == nullptr) || n_tracers < 0
       || (steps != 1 && steps != 2))
@@ -235,8 +316,14 @@ int copy_step_launch(const float* const* win, int n_win,
            met2d, 0, Xs, Ys, (size_t)Xs * Ys};
   for (int j = 0; j < n_win; ++j) p.win[j] = win[j];
   for (int o = 0; o < n_out; ++o) p.out[o] = out[o];
-  return launch_form<false>(p, n_tracers, visc_form != 0, steps,
-                            (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (async) {
+    case 0: return launch_form<false, false>(p, n_tracers, visc_form != 0,
+                                             steps, s);
+    case 1: return launch_form<false, true>(p, n_tracers, visc_form != 0,
+                                            steps, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The stacked form: in, (n_win, Xs, Ys); out, (n_out, Xs, Ys); the other
@@ -251,8 +338,8 @@ int copy_step_stacked_launch(const float* in, int n_win, float* out,
     return (int)cudaErrorInvalidValue;
   Params p{{}, {}, in, out, met, tile_wet, n_win, n_out, n_met, met2d, 0,
            Xs, Ys, (size_t)Xs * Ys};
-  return launch_form<true>(p, n_tracers, visc_form != 0, steps,
-                           (cudaStream_t)stream);
+  return launch_form<true, false>(p, n_tracers, visc_form != 0, steps,
+                                  (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -247,11 +247,13 @@
 // in S_SSH, dead since stage 3), and step B, in stage 1, puts hup and hvp
 // in S_AQP and S_SSH, where the previous-level column is not formed. With
 // a linear free surface hup = hu in both steps: nothing to share. The
-// drivers reach elide_sel and q4 together, each with or without
-// share_prev in the chained forms, and share_prev alone; -DFUSED_FOLD=3,
-// 7 or 4 builds those (one combination a library, beside the unfolded
-// library of the same form). What bounds the folded forms: memory, as the
-// unfolded ones (the same bytes; the folds remove arithmetic).
+// drivers reach every combination: elide_sel and q4 together or each
+// alone, each with or without share_prev in the chained forms, and
+// share_prev alone; -DFUSED_FOLD=1-7 builds one (one combination a
+// library, beside the unfolded library of the same form): the package
+// builds 3, 7 and 4 ahead (fold_targets), the others at first use. What
+// bounds the folded forms: memory, as the unfolded ones (the same bytes;
+// the folds remove arithmetic).
 //
 // With -DFUSED_NT=n only the forms with n tracers are compiled, with
 // -DFUSED_RAW_NT=n only their raw forms; -DFUSED_TRANS=0 and
@@ -272,8 +274,71 @@
 // -DFUSED_PERSIST=1 with -DFUSED_NT=n builds only those forms, fast ones
 // or, with -DFUSED_GEN=1, general ones, every (MU, HRP, TRANS, FFS) of them
 // in one library: 8 more.
+//
+// The loader of the fast body (sw_step under BlockTile: every instantiation
+// of fused_sw_step_kernel<..., GEN = 0> and fused_sw_fold_kernel, one step
+// and chained, raw or not, at every tracer count, but the viscous forms on
+// metric planes, MET2D && MU == 2, which keep the loads of threads: they
+// read 17 metric planes through L1, and the loader's wider windows took
+// three of their blocks past the 196 KB shared-memory carveout, halving
+// L1, 12-19 % slower; PERF.md section 6). What held it back was
+// how the tile moved its bytes: element by element, each thread computing
+// a cell's index, a bounds test and a 64-bit address, four stages behind a
+// barrier each exposing a load latency of its own, and only stage 0's loop
+// with enough bytes in flight; the copy step of the same tiling took its
+// time. Now every windowed input the first step of a launch reads comes by
+// TMA (tma.cuh): after the guard's all-land return, thread 0 initialises
+// five mbarriers and issues one box of the whole window (WX x WY, at the
+// window's origin, zeros outside the array: what at() and inside() gave)
+// for each input, all at once (the box begins R columns before the window,
+// on a multiple of 16 bytes: fused_tile.cuh's Form); the cells' metric
+// rows stay ordinary loads
+// (one row a column, in L1). Each group of boxes is waited on by the stage
+// that first reads it: stage 0 (ssh, u, v, ludxdy, hrludxdy), stage 1 and
+// 1b (rslu_u, rslu_v; a viscous form's up, vp; sshp), the stress stage or
+// stage 2 (rslu_h), stage 3 (up, vp), the tracer pass (the levels); hr
+// stays a device load. The plane plan (fused_tile.cuh's Plan):
+//   ssh, u, v, ludxdy -> S_SSH, S_U, S_V, S_LD, their working planes;
+//   a chained launch: sshp, up, vp and each tracer's ff, ffp (a fixed
+//     count) -> E_SSHP, E_UP, E_VP, E_TR, where step B reads step A's:
+//     step A reads its inputs where step B reads its own, and stage 3 (5)
+//     overwrites each cell after its thread has read it;
+//   planes of their own (after the working planes) as far as the blocks
+//     an SM the working planes leave allow: three one step (75 KB a
+//     block), two chained T = 0 (113 KB), one chained T >= 1 and chained
+//     viscous T = 0 (its 48-column window); in order rslu_u + rslu_v,
+//     sshp (one step), up + vp (one step), rslu_h, a one-step form's
+//     tracer levels: one step T = 0: rslu_u, rslu_v, sshp, up, vp;
+//     T >= 1: rslu_u, rslu_v, sshp; viscous T = 0: rslu_u, rslu_v;
+//     viscous T >= 1: none; chained T = 0: none; chained T = 1, 2 and
+//     viscous T = 0: rslu_u, rslu_v, rslu_h; chained TLOOP: none (its
+//     room is step A's tracer levels); the bathymetry planes none (with
+//     one, 16 forms left the threads' bits by an ulp);
+//   an input without a plane of its own lands in the working plane its
+//     first stage writes at the same cell, read there by that stage's
+//     thread before it writes: hrludxdy -> S_AQ (stage 0), rslu_u,
+//     rslu_v -> S_HU, S_HV and a viscous form's up, vp -> S_F, S_K (stage
+//     1), sshp -> S_AQP (1b), rslu_h -> S_CX (the stress stage and stage
+//     2; stage 2 writes S_CX after it); the later own-cell reads of such an
+//     input (stage 3's sshp, up, vp, rslu_u, rslu_v; the tracer pass's
+//     rslu_u, rslu_v and, one step, the levels; stage 1b's and 3's
+//     hrludxdy) stay device loads, as
+//     do step B's reads of the static planes that have no plane of their
+//     own and the run-time tracer family's levels (pointers in a device
+//     table).
+// A box begins and its rows end on 16 bytes, so the one-step T = 0
+// window is 40 columns wide, not 38, and the chained one 48, not 44
+// (every form's: fused_tile.cuh), and each plane starts at 128 bytes (the
+// block's planes are aligned within 128 bytes more of shared memory). The general body (sw_step_gen) and the
+// persistent walk (WalkTile) keep the loads of threads: the loader is a
+// compile-time choice of the Where policy. Every stage's arithmetic is
+// unchanged, the same expressions in the same order, so the outputs and
+// block maxima are those of the loads of threads bit for bit. Step A of a
+// chained launch writes u and v in place into planes TMA filled: past the
+// mbarrier's wait they are ordinary shared memory, one tile a block.
 
 #include "fused_tile.cuh"
+#include "tma.cuh"
 
 #include <climits>
 #include <type_traits>
@@ -390,6 +455,89 @@ struct Params {
   float ts1, ts2;        // 1 - time_smooth, time_smooth / 2
 };
 
+// The fast body's tensor maps (tma.cuh), one a windowed input, passed
+// beside Params in the kernel's 4 KB of parameters; the general form's
+// kernel takes none.
+enum {
+  T_SSH, T_SSHP, T_U, T_UP, T_V, T_VP,     // the carried fields
+  T_RU, T_RV, T_RH, T_LD, T_HRLD,          // the static planes
+  T_TR,                                    // ff_0, ffp_0, ff_1, ffp_1
+  N_TMAP = T_TR + 2 * MAX_TRACERS
+};
+struct Maps {
+  CUtensorMap m[N_TMAP];
+};
+struct NoMaps {};
+static_assert(sizeof(Params) + sizeof(Maps) + 64 <= 4096,
+              "kernel parameters are 4 KB");
+
+// The loader's groups of boxes, an mbarrier each, by the stage that waits.
+enum { G_S0, G_S1, G_S2, G_S3, G_TR, N_GROUPS };
+
+// Which boxes the loader issues for a fast form (Plan: where they land),
+// by map slot (USED) and group (the boxes of each, N of them in all).
+template <int NT, int MU, bool HRP, bool FFS, int STEPS>
+struct Loads {
+  using Pl = Plan<NT, STEPS, MU == 2, HRP, FFS>;
+  static constexpr bool VISC = MU == 2, CHAIN = STEPS > 1;
+  static constexpr bool SSHP = CHAIN || Pl::SSHP || FFS;   // in group 1
+  static constexpr bool UV3 = !VISC && (CHAIN || Pl::UVP); // up, vp, 3
+  static constexpr bool TRW = NT > 0 && (CHAIN || Pl::TR); // the levels
+  enum : int {
+    NG0 = 4 + HRP, NG1 = 2 + 2 * VISC + SSHP, NG2 = 1, NG3 = 2 * UV3,
+    NG4 = TRW ? 2 * NT : 0, N = NG0 + NG1 + NG2 + NG3 + NG4
+  };
+  enum : unsigned {
+    USED = 1u << T_SSH | 1u << T_U | 1u << T_V | 1u << T_LD | 1u << T_RU
+        | 1u << T_RV | 1u << T_RH | (HRP ? 1u << T_HRLD : 0u)
+        | (SSHP ? 1u << T_SSHP : 0u)
+        | (VISC || UV3 ? 1u << T_UP | 1u << T_VP : 0u)
+        | (TRW ? ((1u << 2 * (NT > 0 ? NT : 0)) - 1u) << T_TR : 0u)
+  };
+};
+
+// Thread 0 of the block: the barriers, then every box of the first step's
+// windows (Loads, Plan), each group's bytes posted before its boxes.
+template <int NT, int MU, bool HRP, bool FFS, int STEPS>
+__device__ __forceinline__ void load_windows(const Maps& m, float* sm,
+                                             uint64_t* bars, int x0, int y0) {
+  using Fm = Form<NT, STEPS>;
+  using Ld = Loads<NT, MU, HRP, FFS, STEPS>;
+  using Pl = typename Ld::Pl;
+  constexpr bool CHAIN = STEPS > 1;
+  // the box begins R columns before the window, on a multiple of 16 bytes
+  const auto box = [&](int slot, int plane, int group) {
+    tma::load_2d(sm + plane * Fm::PLANE, &m.m[slot], &bars[group], x0,
+                 y0 - Fm::R);
+  };
+  const int ng[N_GROUPS] = {Ld::NG0, Ld::NG1, Ld::NG2, Ld::NG3, Ld::NG4};
+  for (int gr = 0; gr < N_GROUPS; ++gr) tma::bar_init(&bars[gr]);
+  tma::bar_fence();
+  for (int gr = 0; gr < N_GROUPS; ++gr)
+    if (ng[gr]) tma::bar_expect(&bars[gr], sizeof(float) * Fm::CELLS * ng[gr]);
+  box(T_SSH, S_SSH, G_S0);
+  box(T_U, S_U, G_S0);
+  box(T_V, S_V, G_S0);
+  box(T_LD, S_LD, G_S0);
+  if (HRP) box(T_HRLD, S_AQ, G_S0);
+  box(T_RU, Pl::RUV ? Pl::P_RU : S_HU, G_S1);
+  box(T_RV, Pl::RUV ? Pl::P_RV : S_HV, G_S1);
+  if (Ld::VISC) {
+    box(T_UP, CHAIN ? E_UP : Pl::UVP ? Pl::P_UP : S_F, G_S1);
+    box(T_VP, CHAIN ? E_VP : Pl::UVP ? Pl::P_VP : S_K, G_S1);
+  }
+  if (Ld::SSHP) box(T_SSHP, CHAIN ? E_SSHP : Pl::SSHP ? Pl::P_SSHP : S_AQP,
+                    G_S1);
+  box(T_RH, Pl::RH ? Pl::P_RH : S_CX, G_S2);
+  if (Ld::UV3) {
+    box(T_UP, CHAIN ? E_UP : Pl::P_UP, G_S3);
+    box(T_VP, CHAIN ? E_VP : Pl::P_VP, G_S3);
+  }
+  if (Ld::TRW)
+    for (int l = 0; l < 2 * NT; ++l)
+      box(T_TR + l, (CHAIN ? E_TR : Pl::P_TR) + l, G_TR);
+}
+
 // The carried fields' pointers of a step, in and out, by Params' names: the
 // step bodies read them from an object of their own (`f`), which is the
 // launch's Params itself in a launch of one step and, in the persistent
@@ -416,8 +564,10 @@ __device__ __forceinline__ float nan_max(float m, float v) {
 // tile, the block's own indices (unsigned, as blockIdx is), the origin and
 // the thread taken once at the body's top (origin(), thread(); then x0(o),
 // y0(o), thread(t) return them); the persistent walk has a policy of its
-// own (WalkTile).
+// own (WalkTile). TMA: whether the step bodies bring their windows in by
+// TMA (the loader, see the file's head).
 struct BlockTile {
+  static constexpr bool TMA = true;
   __device__ __forceinline__ unsigned bx() const { return blockIdx.x; }
   __device__ __forceinline__ unsigned by() const { return blockIdx.y; }
   __device__ __forceinline__ int thread() const { return threadIdx.x; }
@@ -489,13 +639,22 @@ __device__ __forceinline__ float* chain_level(const Params& p, float* e_tr,
 // fields' pointers (Fields), `where` says which tile of the layout is the
 // output tile (BlockTile, WalkTile). FOLD: the arithmetic folds of the
 // fast form (F_ELIDE, F_Q4, F_SHARE; see the file's head), 0 for none.
+// Under a Where with TMA, the first step brings its windows in by TMA
+// (maps, the block's N_GROUPS mbarriers bars; the loader of the file's
+// head), sm 128-byte aligned; the viscous forms on metric planes load by
+// threads.
 template <int NT, bool MET2D, int MU, bool HRP, bool RAW, bool TRANS,
           bool FFS, int STEPS, int STEP, int FOLD = 0, class FieldsT,
           class Where>
 __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
                                         float* sm, float& mx,
-                                        const Where& where) {
-  using Fm = Form<NT, STEPS>;
+                                        const Where& where,
+                                        const Maps* maps = nullptr,
+                                        uint64_t* bars = nullptr) {
+  // whether this body loads by TMA: under a Where with TMA, but for the
+  // viscous forms on metric planes (fused_tile.cuh's Form)
+  constexpr bool USE_TMA = Where::TMA && !(MET2D && MU == 2);
+  using Fm = Form<NT, STEPS, USE_TMA>;
   constexpr int HALO = Fm::HALO, EXTRA = Fm::EXTRA, WH = Fm::WH;
   constexpr int TX = Fm::TX, TY = Fm::TY;
   constexpr int NTHREADS = Tile<STEPS>::NTHREADS;
@@ -515,39 +674,59 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
   constexpr bool SHARE = (FOLD & F_SHARE) != 0 && STEPS > 1 && FFS;
   constexpr bool SHARE_A = SHARE && !LAST, SHARE_B = SHARE && !FIRST;
   constexpr float ADV = Q4 ? -2.f : -0.5f;  // the tracers' advective factor
+  // the loader: LD, this step's inputs came by TMA; EIN, a chained
+  // launch's E planes hold the previous levels in both steps (step A's
+  // inputs, then its outputs); TRE, TRX: the tracer levels came to E_TR,
+  // or to planes of their own
+  using Pl = Plan<NT, STEPS, VISC, HRP, FFS, USE_TMA>;
+  using Ld = Loads<NT, MU, HRP, FFS, STEPS>;
+  constexpr bool LD = USE_TMA && FIRST;
+  constexpr bool EIN = USE_TMA && STEPS > 1;
+  constexpr bool TRE = EIN && NT > 0, TRX = LD && Pl::TR;
 
   const int tid0 = where.thread();
+  // the window planes: under the loader R columns into each plane, where
+  // its box begins on a multiple of 16 bytes (fused_tile.cuh)
+  float* sw = sm + Fm::R;
   const auto tid = [&] { return where.thread(tid0); };
-  float* s_ssh = sm + (FIRST ? S_SSH : E_SSH) * PLANE;
-  float* s_u = sm + S_U * PLANE;
-  float* s_v = sm + S_V * PLANE;
-  float* s_ld = sm + S_LD * PLANE;
-  float* s_aq = sm + S_AQ * PLANE;
-  float* s_aqp = sm + S_AQP * PLANE;
-  float* s_hu = sm + S_HU * PLANE;
-  float* s_hv = sm + S_HV * PLANE;
-  float* s_ud = sm + S_UD * PLANE;
-  float* s_vd = sm + S_VD * PLANE;
-  float* s_f = sm + S_F * PLANE;
-  float* s_k = sm + S_K * PLANE;
-  float* s_rx = sm + S_RX * PLANE;
-  float* s_sy = sm + S_SY * PLANE;
-  float* s_cx = sm + S_CX * PLANE;
-  float* s_cy = sm + S_CY * PLANE;
+  float* s_ssh = sw + (FIRST ? S_SSH : E_SSH) * PLANE;
+  float* s_u = sw + S_U * PLANE;
+  float* s_v = sw + S_V * PLANE;
+  float* s_ld = sw + S_LD * PLANE;
+  float* s_aq = sw + S_AQ * PLANE;
+  float* s_aqp = sw + S_AQP * PLANE;
+  float* s_hu = sw + S_HU * PLANE;
+  float* s_hv = sw + S_HV * PLANE;
+  float* s_ud = sw + S_UD * PLANE;
+  float* s_vd = sw + S_VD * PLANE;
+  float* s_f = sw + S_F * PLANE;
+  float* s_k = sw + S_K * PLANE;
+  float* s_rx = sw + S_RX * PLANE;
+  float* s_sy = sw + S_SY * PLANE;
+  float* s_cx = sw + S_CX * PLANE;
+  float* s_cy = sw + S_CY * PLANE;
   // the viscous forms' stress planes follow the window planes, the
   // chained forms' tracer levels among them
   const int n_win = LOOP && STEPS > 1 ? Fm::N_BASE + p.n_lev_sm
-                                      : Fm::N_PLANES;
+                                      : Fm::N_PLANES + Pl::N_EXTRA;
   float* s_a2 = sm + n_win * PLANE + V_A2 * Fm::VPLANE;   // viscous
   float* s_b2 = sm + n_win * PLANE + V_B2 * Fm::VPLANE;   // forms only
   float* s_d2 = sm + n_win * PLANE + V_D2 * Fm::VPLANE;
   float* s_e2 = sm + n_win * PLANE + V_E2 * Fm::VPLANE;
   // step A's outputs in a chained launch
-  float* e_ssh = sm + E_SSH * PLANE;
-  float* e_sshp = sm + E_SSHP * PLANE;
-  float* e_up = sm + E_UP * PLANE;
-  float* e_vp = sm + E_VP * PLANE;
-  float* e_tr = sm + E_TR * PLANE;          // see chain_level
+  float* e_ssh = sw + E_SSH * PLANE;
+  float* e_sshp = sw + E_SSHP * PLANE;
+  float* e_up = sw + E_UP * PLANE;
+  float* e_vp = sw + E_VP * PLANE;
+  float* e_tr = sw + E_TR * PLANE;          // see chain_level
+  // the loader's planes of their own (Plan)
+  const float* x_ru = sw + Pl::P_RU * PLANE;
+  const float* x_rv = sw + Pl::P_RV * PLANE;
+  const float* x_sshp = sw + Pl::P_SSHP * PLANE;
+  const float* x_up = sw + Pl::P_UP * PLANE;
+  const float* x_vp = sw + Pl::P_VP * PLANE;
+  const float* x_rh = sw + Pl::P_RH * PLANE;
+  float* x_tr = sw + Pl::P_TR * PLANE;
 
   // global row of window row 0, global column of window column 0
   const int2 org = where.template origin<TX, TY, WH>();
@@ -566,8 +745,21 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
   // free surface the static hr * lu*dx*dy or hr*lu*dx*dy. A later step of
   // a chained launch forms aq anew from the previous step's ssh (the
   // static column of a linear free surface stays from the first)
-  if (FIRST) {
-    for (int i = tid(); i < PLANE; i += NTHREADS) {
+  if (FIRST && LD) {
+    // every box in flight at once; the barriers initialised for all
+    if (tid0 == 0)
+      load_windows<NT, MU, HRP, FFS, STEPS>(*maps, sm, bars, x0(), y0());
+    __syncthreads();
+    tma::bar_wait(&bars[G_S0], 0);
+    for (int i = tid(); i < Fm::CELLS; i += NTHREADS) {
+      const float ssh = s_ssh[i], ld = s_ld[i];
+      const float hl = HRP ? s_aq[i] : 0.f;
+      if (FFS) s_aq[i] = HRP ? ssh * ld + hl : (ssh + p.hr) * ld;
+      else s_aq[i] = HRP ? hl : p.hr * ld;
+    }
+    __syncthreads();
+  } else if (FIRST) {
+    for (int i = tid(); i < Fm::CELLS; i += NTHREADS) {
       const int gx = x0() + i / WY, gy = y0() + i % WY;
       float ssh = 0.f, u = 0.f, v = 0.f, ld = 0.f, hl = 0.f;
       if (inside(p, gx, gy)) {
@@ -597,18 +789,25 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
   // a linear free surface it is aq, and not formed); with viscosity the
   // previous-level velocities over their metrics
   {
+    if constexpr (LD) tma::bar_wait(&bars[G_S1], 0);
     constexpr int h = OH + 2 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
       const int k = a * S + b, gx = x0() + a, gy = y0() + b;
-      float ru = 0.f, rv = 0.f;
+      // by TMA: in planes of their own, or where this stage writes hu, hv
+      float ru = Pl::RUV ? x_ru[k] : LD ? s_hu[k] : 0.f;
+      float rv = Pl::RUV ? x_rv[k] : LD ? s_hv[k] : 0.f;
       if (inside(p, gx, gy)) {
         const size_t g = (size_t)gx * p.Ys + gy;
-        ru = rslu_u[g]; rv = rslu_v[g];
+        if (!Pl::RUV && !LD) { ru = rslu_u[g]; rv = rslu_v[g]; }
         if (VISC) {
           const size_t mi = MET2D ? g : (size_t)gy;
-          const float up = FIRST ? f.up[g] : e_up[k];
-          const float vp = FIRST ? f.vp[g] : e_vp[k];
+          // by TMA: E_UP, E_VP chained, else a plane of their own or S_F,
+          // S_K, which this cell's products overwrite below
+          const float up = EIN || !FIRST ? e_up[k] : Pl::UVP ? x_up[k]
+                         : LD ? s_f[k] : f.up[g];
+          const float vp = EIN || !FIRST ? e_vp[k] : Pl::UVP ? x_vp[k]
+                         : LD ? s_k[k] : f.vp[g];
           s_f[k] = up * p.met[M_RDYH][mi];
           s_k[k] = vp * p.met[M_RDXH][mi];
           s_rx[k] = up * p.met[M_RDXT][mi];
@@ -623,7 +822,7 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
         // share_prev: hup = (ts1 hu_A + ts2 hup_A) + ts2 hu, the filter
         // through the interpolation (step A left the bracket in S_HU)
         s_aqp[k] = s_hu[k] + p.ts2 * hu;
-        sm[S_SSH * PLANE + k] = s_hv[k] + p.ts2 * hv;
+        sw[S_SSH * PLANE + k] = s_hv[k] + p.ts2 * hv;
       }
       s_hu[k] = hu; s_hv[k] = hv;
       s_ud[k] = s_u[k] * hu;
@@ -635,7 +834,10 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
     for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
       const int k = a * S + b;
-      const float sshp = FIRST ? at(p, f.sshp, x0() + a, y0() + b) : e_sshp[k];
+      // by TMA: E_SSHP chained, else a plane of its own or S_AQP, which
+      // this cell's column overwrites
+      const float sshp = EIN || !FIRST ? e_sshp[k] : Pl::SSHP ? x_sshp[k]
+                       : LD ? s_aqp[k] : at(p, f.sshp, x0() + a, y0() + b);
       s_aqp[k] = HRP ? sshp * s_ld[k] + at(p, p.hrld, x0() + a, y0() + b)
                      : (sshp + p.hr) * s_ld[k];
     }
@@ -645,6 +847,7 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
   // stress stage (halo 1 + EXTRA, viscous forms): tension at T points,
   // shear at H points, and their four products with mu, the depth and the
   // squared metrics of the cell
+  if constexpr (LD) tma::bar_wait(&bars[G_S2], 0);
   if (VISC) {
     constexpr int h = VH, n = VN;
     const float* s_q = s_f;
@@ -675,7 +878,9 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
         }
         if (wluu) {
           const float su = s_aq[k] + s_aq[k + S];
-          const float hh = (su + (s_aq[k + W] + s_aq[k + S + W])) * rslu_h[g];
+          // rslu_h by TMA: a plane of its own, or S_CX (stage 2's)
+          const float rh = Pl::RH ? x_rh[k] : LD ? s_cx[k] : rslu_h[g];
+          const float hh = (su + (s_aq[k + W] + s_aq[k + S + W])) * rh;
           const float str_s =
               (dxb * p.met[M_RDYB][mi]) * (s_s1[k + W] - s_s1[k])
               + (dyb * p.met[M_RDXB][mi]) * (s_s2[k + S] - s_s2[k]);
@@ -696,11 +901,13 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
     for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
       const int k = a * S + b, gx = x0() + a, gy = y0() + b;
-      float rh = 0.f, m16 = 0.f, m17 = 0.f, m18 = 0.f, m21 = 0.f;
+      // rslu_h by TMA: a plane of its own, or S_CX, written below
+      float rh = Pl::RH ? x_rh[k] : LD ? s_cx[k] : 0.f;
+      float m16 = 0.f, m17 = 0.f, m18 = 0.f, m21 = 0.f;
       if (inside(p, gx, gy)) {
         const size_t g = (size_t)gx * p.Ys + gy;
         const size_t mi = MET2D ? g : (size_t)gy;
-        rh = rslu_h[g];
+        if (!Pl::RH && !LD) rh = rslu_h[g];
         if (TRANS) {
           m16 = p.met[M_VORT_V][mi];
           m17 = p.met[M_VORT_UY][mi];
@@ -752,6 +959,7 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
   // shared memory, zeros outside the array, and computes the raw form's
   // margin too.
   {
+    if constexpr (LD && Ld::UV3) tma::bar_wait(&bars[G_S3], 0);
     constexpr int h = OH + 2 * EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
@@ -769,7 +977,9 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
       }
       const size_t g = (size_t)gx * p.Ys + gy;
       const size_t mi = MET2D ? g : (size_t)gy;
-      const float ssh = s_ssh[k], sshp = FIRST ? f.sshp[g] : e_sshp[k];
+      const float ssh = s_ssh[k];
+      const float sshp = EIN || !FIRST ? e_sshp[k] : Pl::SSHP ? x_sshp[k]
+                       : f.sshp[g];
       const bool wlu = s_ld[k] > 0.5f;
       const bool wlcu = wlu && s_ld[k + S] > 0.5f;
       const bool wlcv = wlu && s_ld[k + W] > 0.5f;
@@ -784,15 +994,17 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
       if (ring > 1) continue;
 
       // momentum: (up*bp0 + grx)/bp with the bp metric factor cancelled
-      const float u = s_u[k], up = FIRST ? f.up[g] : e_up[k];
-      const float v = s_v[k], vp = FIRST ? f.vp[g] : e_vp[k];
+      const float u = s_u[k], up = EIN || !FIRST ? e_up[k]
+                                  : Pl::UVP ? x_up[k] : f.up[g];
+      const float v = s_v[k], vp = EIN || !FIRST ? e_vp[k]
+                                  : Pl::UVP ? x_vp[k] : f.vp[g];
       float un = 0.f, vn = 0.f;
       // this cell in the small stress planes (viscous forms)
       const int j = (a - (WH - VH)) * VW + (b - (WH - VH));
       if (wlcu) {
         const float hu = s_hu[k];
         const float hup = !FFS ? hu : SHARE_B ? s_aqp[k]
-            : (s_aqp[k] + s_aqp[k + S]) * rslu_u[g];
+            : (s_aqp[k] + s_aqp[k + S]) * (Pl::RUV ? x_ru[k] : rslu_u[g]);
         float slx = (s_ssh[k + S] - ssh) * hu * p.neg_g;
         // stress divergence: d(a2)/dx / dyh + d(D2)/dy / dxt
         if (VISC)
@@ -806,8 +1018,8 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
       }
       if (wlcv) {
         const float hv = s_hv[k];
-        const float hvp = !FFS ? hv : SHARE_B ? sm[S_SSH * PLANE + k]
-            : (s_aqp[k] + s_aqp[k + W]) * rslu_v[g];
+        const float hvp = !FFS ? hv : SHARE_B ? sw[S_SSH * PLANE + k]
+            : (s_aqp[k] + s_aqp[k + W]) * (Pl::RUV ? x_rv[k] : rslu_v[g]);
         float sly = (s_ssh[k + W] - ssh) * hv * p.neg_g;
         if (VISC)
           sly += -(s_b2[j + 1] - s_b2[j]) * p.met[M_RDXH][mi]
@@ -868,7 +1080,7 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
     float* s_vn = s_cy;
     // (step A of share_prev keeps its depths in S_HV: uh in S_SSH, dead
     // since stage 3, instead)
-    float* s_uh = SHARE_A ? sm + S_SSH * PLANE : s_hv;
+    float* s_uh = SHARE_A ? sw + S_SSH * PLANE : s_hv;
     float* s_vh = s_ud;
     float* s_kx = s_vd;
     float* s_ky = s_aqp;
@@ -876,6 +1088,8 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
     for (int t0 = 0; t0 < ntr; t0 += G) {
       const int ng = LOOP ? min(G, ntr - t0) : G;   // tracers of the group
       __syncthreads();
+      if constexpr (LD && Ld::NG4 > 0)
+        if (t0 == 0) tma::bar_wait(&bars[G_TR], 0);
 
       // stage 4 (halo 1): post-step depths hun, hvn from aq_new, the
       // transports uh = u_new * hun, vh = v_new * hvn on the u / v wet
@@ -889,8 +1103,10 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
           float uh, vh, kx = 0.f, ky = 0.f;  // kx, ky: mu / dxt * hun, ...
           if (!LOOP || t0 == 0) {
             const float aqn = s_aqn[k];
-            const float hun = (aqn + s_aqn[k + S]) * at(p, rslu_u, gx, gy);
-            const float hvn = (aqn + s_aqn[k + W]) * at(p, rslu_v, gx, gy);
+            const float hun = (aqn + s_aqn[k + S])
+                * (Pl::RUV ? x_ru[k] : at(p, rslu_u, gx, gy));
+            const float hvn = (aqn + s_aqn[k + W])
+                * (Pl::RUV ? x_rv[k] : at(p, rslu_v, gx, gy));
             const bool wlu = s_ld[k] > 0.5f;
             const bool wlcu = wlu && s_ld[k + S] > 0.5f;
             const bool wlcv = wlu && s_ld[k + W] > 0.5f;
@@ -916,20 +1132,22 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
             if (LOOP && t >= ng) break;
             const int l = 2 * (t0 + t);
             float ff, ffx, ffy;
-            if (FIRST) {
+            if (FIRST && !TRE && !TRX) {
               const float* ffg = tr_in<NT>(f, l);
               ff = at(p, ffg, gx, gy);
               ffx = at(p, ffg, gx + 1, gy);
               ffy = at(p, ffg, gx, gy + 1);
             } else {
-              const float* e = chain_level<NT, PLANE>(p, e_tr, l, where);
+              // step A's levels, or this step's by TMA
+              const float* e = TRX ? x_tr + l * PLANE
+                                   : chain_level<NT, PLANE>(p, e_tr, l, where);
               ff = e[k]; ffx = e[k + S]; ffy = e[k + W];
             }
             float fx = uh * ((ff + ffx) * ADV);
             float fy = vh * ((ff + ffy) * ADV);
             if (DIFF) { fx += kx * (ffx - ff); fy += ky * (ffy - ff); }
-            sm[(S_F + 2 * t) * PLANE + k] = fx;
-            sm[(S_F + 2 * t + 1) * PLANE + k] = fy;
+            sw[(S_F + 2 * t) * PLANE + k] = fx;
+            sw[(S_F + 2 * t + 1) * PLANE + k] = fy;
           }
         }
       }
@@ -967,14 +1185,15 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
         for (int t = 0; t < G; ++t) {
           if (LOOP && t >= ng) break;
           const int l = 2 * (t0 + t);
-          const float* fx = sm + (S_F + 2 * t) * PLANE;
-          const float* fy = sm + (S_F + 2 * t + 1) * PLANE;
-          float* e0 = FIRST && LAST
-              ? nullptr : chain_level<NT, PLANE>(p, e_tr, l, where);
-          float* e1 = FIRST && LAST
-              ? nullptr : chain_level<NT, PLANE>(p, e_tr, l + 1, where);
-          const float ff = FIRST ? tr_in<NT>(f, l)[g] : e0[k];
-          const float ffp = FIRST ? tr_in<NT>(f, l + 1)[g] : e1[k];
+          const float* fx = sw + (S_F + 2 * t) * PLANE;
+          const float* fy = sw + (S_F + 2 * t + 1) * PLANE;
+          float* e0 = FIRST && LAST ? (TRX ? x_tr + l * PLANE : nullptr)
+              : chain_level<NT, PLANE>(p, e_tr, l, where);
+          float* e1 = FIRST && LAST ? (TRX ? x_tr + (l + 1) * PLANE : nullptr)
+              : chain_level<NT, PLANE>(p, e_tr, l + 1, where);
+          const float ff = FIRST && !TRE && !TRX ? tr_in<NT>(f, l)[g] : e0[k];
+          const float ffp = FIRST && !TRE && !TRX ? tr_in<NT>(f, l + 1)[g]
+                                                  : e1[k];
           float ffn = 0.f;
           if (wlu) {
             const float rhs = ((fx[k] - fx[k - S]) + fy[k]) - fy[k - W];
@@ -1046,7 +1265,7 @@ template <int NT, bool MET2D, int MU, bool RAW, bool TRANS, bool FFS,
 __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
                                             float* sm, float& mx,
                                             const Where& where) {
-  using Fm = Form<NT, STEPS>;
+  using Fm = Form<NT, STEPS, false>;
   constexpr int HALO = Fm::HALO, EXTRA = Fm::EXTRA, WH = Fm::WH;
   constexpr int TX = Fm::TX, TY = Fm::TY;
   constexpr int NTHREADS = Tile<STEPS>::NTHREADS;
@@ -1105,7 +1324,7 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
   // the previous step's ssh (the static column of a linear free surface
   // stays from the first)
   if (FIRST) {
-    for (int i = tid(); i < PLANE; i += NTHREADS) {
+    for (int i = tid(); i < Fm::CELLS; i += NTHREADS) {
       const int gx = x0() + i / WY, gy = y0() + i % WY;
       float ssh = 0.f, u = 0.f, v = 0.f, l = 0.f, aq = 0.f;
       if (inside(p, gx, gy)) {
@@ -1551,10 +1770,12 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
 }
 
 // The body of a launch: the guard, one or two steps of the tile, the
-// block max. FOLD: the fast form's folds (0: none).
+// block max. FOLD: the fast form's folds (0: none); maps: the fast form's
+// tensor maps (the loader).
 template <int NT, bool GUARD, bool MET2D, int MU, bool HRP, bool RAW,
           bool TRANS, bool FFS, int STEPS, bool GEN, int FOLD>
-__device__ __forceinline__ void step_launch(const Params& p) {
+__device__ __forceinline__ void step_launch(const Params& p,
+                                            const Maps* maps) {
   static_assert(STEPS == 1 || STEPS == 2, "one or two steps a launch");
   static_assert(!GEN || FOLD == 0, "the folds are the fast form's");
   constexpr int TX = Tile<STEPS>::TX, TY = Tile<STEPS>::TY;
@@ -1601,12 +1822,15 @@ __device__ __forceinline__ void step_launch(const Params& p) {
                                                             BlockTile{});
     }
   } else {
+    // the loader's barriers; its boxes land at 128-byte boundaries
+    __shared__ uint64_t s_bar[N_GROUPS];
+    float* sma = MET2D && MU == 2 ? sm : tma::align128(sm);
     sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 0, FOLD>(
-        p, p, sm, mx, BlockTile{});
+        p, p, sma, mx, BlockTile{}, maps, s_bar);
     if constexpr (STEPS > 1) {
       __syncthreads();     // step A's outputs are in shared memory
       sw_step<NT, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, 1, FOLD>(
-          p, p, sm, mx, BlockTile{});
+          p, p, sma, mx, BlockTile{}, maps, s_bar);
     }
   }
 
@@ -1623,12 +1847,21 @@ __device__ __forceinline__ void step_launch(const Params& p) {
   }
 }
 
+// maps: the fast form's tensor maps (the general form takes none), first
+// in the parameter block, where each keeps the 64-byte alignment TMA asks
 template <int NT, bool GUARD, bool MET2D, int MU, bool HRP, bool RAW,
           bool TRANS, bool FFS, int STEPS, bool GEN>
 __global__ void
 __launch_bounds__(Tile<STEPS>::NTHREADS, Tile<STEPS>::MIN_BLOCKS)
-fused_sw_step_kernel(const Params p) {
-  step_launch<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, GEN, 0>(p);
+fused_sw_step_kernel(
+    const __grid_constant__ std::conditional_t<GEN, NoMaps, Maps> maps,
+    const Params p) {
+  if constexpr (GEN)
+    step_launch<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, GEN, 0>(
+        p, nullptr);
+  else
+    step_launch<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, GEN, 0>(
+        p, &maps);
 }
 
 // The fast form with its arithmetic folds (FOLD != 0), a kernel of its own
@@ -1637,9 +1870,9 @@ template <int NT, bool GUARD, bool MET2D, int MU, bool HRP, bool RAW,
           bool TRANS, bool FFS, int STEPS, int FOLD>
 __global__ void
 __launch_bounds__(Tile<STEPS>::NTHREADS, Tile<STEPS>::MIN_BLOCKS)
-fused_sw_fold_kernel(const Params p) {
+fused_sw_fold_kernel(const __grid_constant__ Maps maps, const Params p) {
   step_launch<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, false,
-              FOLD>(p);
+              FOLD>(p, &maps);
 }
 
 // whether this library holds the raw forms (and then no other)
@@ -1674,10 +1907,9 @@ static_assert(!PERSIST_BUILD || (!RAW_BUILD && STEPS_BUILD == 1),
               "the persistent forms are of the single block, one step each");
 static_assert(FOLD_BUILD == 0 || !(GEN_BUILD || PERSIST_BUILD),
               "the folds are the fast form's, one step or two a launch");
-static_assert(FOLD_BUILD == 0 || FOLD_BUILD == (F_ELIDE | F_Q4)
-              || (STEPS_BUILD > 1 && FUSED_FFS != 0
-                  && (FOLD_BUILD == F_SHARE
-                      || FOLD_BUILD == (F_ELIDE | F_Q4 | F_SHARE))),
+static_assert(FOLD_BUILD >= 0 && FOLD_BUILD <= (F_ELIDE | F_Q4 | F_SHARE)
+              && (!(FOLD_BUILD & F_SHARE)
+                  || (STEPS_BUILD > 1 && FUSED_FFS != 0)),
               "the fold combinations the drivers reach");
 
 // The kernel of this library's fast forms: the unfolded one, or the one
@@ -1694,12 +1926,41 @@ auto fast_kernel() {
 }
 
 #ifndef FUSED_PERSIST
+// The tensor maps of the windowed inputs a fast form's loader reads
+// (Loads::USED), each a box of the form's window (tma.cuh); 0 or the
+// error of one TMA refuses.
+template <int NT, int MU, bool HRP, bool FFS, int STEPS>
+int encode_maps(Maps& m, const Params& p) {
+  using Fm = Form<NT, STEPS>;
+  const size_t plane = (size_t)p.Xs * p.Ys;
+  const float* src[N_TMAP] = {
+      p.ssh, p.sshp, p.u, p.up, p.v, p.vp, p.planes, p.planes + plane,
+      p.planes + 2 * plane, p.planes + 3 * plane, p.hrld};
+  for (int l = 0; l < 2 * MAX_TRACERS; ++l) src[T_TR + l] = p.tr[l];
+  for (int t = 0; t < N_TMAP; ++t) {
+    if (!(Loads<NT, MU, HRP, FFS, STEPS>::USED >> t & 1u)) continue;
+    const int e = tma::map_2d(&m.m[t], src[t], p.Xs, p.Ys, Fm::WX, Fm::WY);
+    if (e) return e;
+  }
+  return 0;
+}
+
 template <int NT, bool GUARD, bool MET2D, int MU, bool HRP>
 int launch(const Params& p, cudaStream_t stream) {
-  // a chained TLOOP form's tracer levels in shared memory on top
-  const size_t smem = smem_bytes<NT, STEPS_BUILD>(MU == 2)
-      + sizeof(float) * Form<NT, STEPS_BUILD>::PLANE
+  // the loader's planes (and their alignment), or the viscous forms on
+  // metric planes' loads of threads; a chained TLOOP form's tracer levels
+  // in shared memory on top
+  constexpr bool USE_TMA = !(MET2D && MU == 2);
+  using Pl = Plan<NT, STEPS_BUILD, MU == 2, HRP, FFS_BUILD, USE_TMA>;
+  const size_t smem = Pl::SMEM
+      + sizeof(float) * Form<NT, STEPS_BUILD, USE_TMA>::PLANE
         * (NT < 0 ? p.n_lev_sm : 0);
+  Maps maps;
+  if (USE_TMA) {
+    const int bad =
+        encode_maps<NT, MU, HRP, FFS_BUILD, STEPS_BUILD>(maps, p);
+    if (bad) return bad;
+  }
   const auto kernel = fast_kernel<NT, GUARD, MET2D, MU, HRP>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1707,7 +1968,7 @@ int launch(const Params& p, cudaStream_t stream) {
   kernel
       <<<dim3((p.Ys + TILE::TY - 1) / TILE::TY,
               (p.Xs + TILE::TX - 1) / TILE::TX),
-         TILE::NTHREADS, smem, stream>>>(p);
+         TILE::NTHREADS, smem, stream>>>(maps, p);
   return (int)cudaGetLastError();
 }
 
@@ -1743,8 +2004,8 @@ int launch_form(const Params& p, bool met2d, int mu_mode, cudaStream_t s) {
 // the general forms: every (TRANS, FFS) in this library
 template <int NT, bool GUARD, bool MET2D, int MU, bool TRANS, bool FFS>
 int launch_gen(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes<NT, STEPS_BUILD>(MU == 2)
-      + sizeof(float) * Form<NT, STEPS_BUILD>::PLANE
+  const size_t smem = smem_bytes<NT, STEPS_BUILD, false>(MU == 2)
+      + sizeof(float) * Form<NT, STEPS_BUILD, false>::PLANE
         * (NT < 0 ? p.n_lev_sm : 0);
   cudaError_t e = cudaFuncSetAttribute(
       fused_sw_step_kernel<NT, GUARD, MET2D, MU, false, RAW_BUILD, TRANS,
@@ -1755,7 +2016,7 @@ int launch_gen(const Params& p, cudaStream_t stream) {
                        STEPS_BUILD, true>
       <<<dim3((p.Ys + TILE::TY - 1) / TILE::TY,
               (p.Xs + TILE::TX - 1) / TILE::TX),
-         TILE::NTHREADS, smem, stream>>>(p);
+         TILE::NTHREADS, smem, stream>>>(NoMaps{}, p);
   return (int)cudaGetLastError();
 }
 
@@ -1852,6 +2113,7 @@ __shared__ Fields walk_fields;
 // that nvcc neither keeps it nor hoists what derives from it out of the
 // walk's loops.
 struct WalkTile {
+  static constexpr bool TMA = false;
   __device__ __forceinline__ int bx() const { return walk_at[W_BX]; }
   __device__ __forceinline__ int by() const { return walk_at[W_BY]; }
   __device__ __forceinline__ int thread() const { return 0; }
@@ -1987,7 +2249,7 @@ int persist_launch(const Params& p0, const Params& p1, int n_steps,
   static_assert(sizeof(Params) + 2 * sizeof(Fields) + sizeof(int) <= 4096,
                 "the kernel's parameters");
   auto kernel = fused_sw_persist_kernel<NT, MU, HRP, TRANS, FFS>;
-  const size_t smem = smem_bytes<NT, 1>(MU == 2);
+  const size_t smem = smem_bytes<NT, 1, false>(MU == 2);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int dev = 0, sms = 0, per_sm = 0;
@@ -2113,9 +2375,53 @@ int statics(Params& p, const float* met, const float* planes,
   return 0;
 }
 
+// The geometry of the fast form with NT tracers (fused_sw_step_geometry).
+template <int NT, bool VISC, bool HRP, bool FFS>
+int geometry_of(long long* out) {
+  using Fm = Form<NT, STEPS_BUILD>;
+  using Pl = Plan<NT, STEPS_BUILD, VISC, HRP, FFS>;
+  const long long g[] = {Fm::TX, Fm::TY, Fm::WH, Fm::WX, Fm::WY, Fm::PLANE,
+                         Pl::N_EXTRA, Pl::BLOCKS, (long long)Pl::SMEM,
+                         Loads<NT, VISC ? 2 : 0, HRP, FFS, STEPS_BUILD>::N};
+  for (int i = 0; i < 10; ++i) out[i] = g[i];
+  return 0;
+}
+
+template <int NT>
+int geometry_nt(bool visc, bool hrp, bool ffs, long long* out) {
+  if (visc)
+    return hrp ? (ffs ? geometry_of<NT, true, true, true>(out)
+                      : geometry_of<NT, true, true, false>(out))
+               : (ffs ? geometry_of<NT, true, false, true>(out)
+                      : geometry_of<NT, true, false, false>(out));
+  return hrp ? (ffs ? geometry_of<NT, false, true, true>(out)
+                    : geometry_of<NT, false, true, false>(out))
+             : (ffs ? geometry_of<NT, false, false, true>(out)
+                    : geometry_of<NT, false, false, false>(out));
+}
+
 }  // namespace
 
 extern "C" {
+
+// The window geometry of this library's fast form (its steps a launch)
+// with n_tracers tracers, viscous or not, on bathymetry planes or not,
+// with a full free surface or not, into out[10]: the tile's rows and
+// columns, the window halo WH, rows WX and columns WY, the floats of a
+// shared plane, the loader's planes of their own, the blocks an SM the
+// plan keeps, the dynamic shared memory of a block in bytes (a chained
+// TLOOP form's tracer levels not counted) and the TMA boxes of a launch
+// (tma.cuh: each of WX x WY cells). Returns 0.
+int fused_sw_step_geometry(int n_tracers, int visc, int hrp, int ffs,
+                           long long* out) {
+  const bool v = visc != 0, h = hrp != 0, f = ffs != 0;
+  switch (n_tracers) {
+    case 0: return geometry_nt<0>(v, h, f, out);
+    case 1: return geometry_nt<1>(v, h, f, out);
+    case 2: return geometry_nt<2>(v, h, f, out);
+    default: return geometry_nt<TLOOP>(v, h, f, out);
+  }
+}
 
 // The output tile (rows, columns) of a block: the host sizes blockmax and
 // builds the guard's per-block wet flags with these, both row-major over

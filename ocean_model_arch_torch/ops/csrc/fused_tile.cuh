@@ -84,8 +84,11 @@ struct Tile {
       STEPS == 1 ? fused_tile::MIN_BLOCKS : CHAIN_MIN_BLOCKS;
 };
 
-// The window of the form with NT tracers and STEPS chained steps.
-template <int NT, int STEPS = 1>
+// The window of the form with NT tracers and STEPS chained steps, whose
+// body loads it by TMA (the loader: fused_step.cu's head) or by its
+// threads (the general body, the persistent walk, the viscous forms on
+// metric planes, the copy step's threads).
+template <int NT, int STEPS = 1, bool TMA = true>
 struct Form {
   static constexpr int EXTRA = NT ? 1 : 0;        // reach of the tracer pass
   static constexpr int HALO = 3 + EXTRA;          // stencil reach of one step
@@ -93,8 +96,22 @@ struct Form {
   static constexpr int TX = Tile<STEPS>::TX;
   static constexpr int TY = Tile<STEPS>::TY;
   static constexpr int WX = TX + 2 * WH;          // window rows
-  static constexpr int WY = TY + 2 * WH;          // window columns
-  static constexpr int PLANE = WX * WY;           // floats per shared array
+  // A TMA box (tma.cuh) begins on a column that is a multiple of 4 (16
+  // bytes) and its rows are multiples of 16 bytes: the loader's box
+  // begins R columns before the window (a tile's first column is a
+  // multiple of 4), and the window's columns are rounded up to 4 with
+  // them: the one-step window of 38 columns takes 40 (R = 1), the chained
+  // one of 44 takes 48 (R = 2). With tracers (halo 4, 8) nothing changes.
+  // The loads of threads keep the window as it is: the larger planes of
+  // the one-step window would push three blocks of the viscous forms past
+  // the 196 KB shared-memory carveout, which halves L1 (PERF.md).
+  static constexpr int R = TMA ? (4 - WH % 4) % 4 : 0;
+  static constexpr int WY =                       // window columns
+      TMA ? (TY + 2 * WH + R + 3) / 4 * 4 : TY + 2 * WH;
+  static constexpr int CELLS = WX * WY;           // floats of a window
+  // floats per shared array: a window (and its R columns, rounded up to
+  // 128 bytes, where a TMA box lands)
+  static constexpr int PLANE = TMA ? (CELLS + R + 31) / 32 * 32 : CELLS;
   // the 16 working planes; a chained form adds step A's carried outputs
   // that do not stay in place: ssh, sshp, up, vp (N_BASE planes so far)
   // and each tracer's 2, which TLOOP sizes at run time
@@ -114,24 +131,89 @@ struct Form {
   static constexpr int VPLANE = (TX + 2 * VHW) * VW;
 };
 
-// Dynamic shared memory of a block. One step: 53.5 KB (61.4 KB with
-// tracers, at any count), and 63.3 KB (73.0 KB) for a viscous form. A
-// chained TLOOP form adds the levels chain_levels_in_smem keeps.
-template <int NT, int STEPS = 1>
+// Dynamic shared memory of a block's working planes. One step: 57.3 KB
+// (61.4 KB with tracers, at any count), and 67.1 KB (73.0 KB) for a
+// viscous form. A chained TLOOP form adds the levels chain_levels_in_smem
+// keeps; the fast form adds the planes of its Plan.
+template <int NT, int STEPS = 1, bool TMA = true>
 constexpr size_t smem_bytes(bool visc = false) {
-  return sizeof(float) * (Form<NT, STEPS>::N_PLANES * Form<NT, STEPS>::PLANE
-                          + (visc ? N_VISC_PLANES * Form<NT, STEPS>::VPLANE
-                                  : 0));
+  using Fm = Form<NT, STEPS, TMA>;
+  return sizeof(float) * (Fm::N_PLANES * Fm::PLANE
+                          + (visc ? N_VISC_PLANES * Fm::VPLANE : 0));
 }
 
+// What a block may take so that `blocks` of them share an SM of the H100
+// (228 KB an SM, 1 KB of it reserved a block, 227 KB at most a block),
+// less its static arrays (the block max's and the TMA barriers) and the
+// 128 bytes by which the fast form aligns its planes.
+constexpr size_t SM_SMEM = 233472, BLOCK_RESERVED = 1024, STATIC_SMEM = 256;
+constexpr size_t smem_budget(int blocks) {
+  return SM_SMEM / blocks - BLOCK_RESERVED - STATIC_SMEM;
+}
+
+// Where the fast body's TMA boxes land (fused_step.cu's head: "the
+// loader"). Each windowed input of the first step of a launch is one box
+// of the whole window; stage 0's fields land in their working planes,
+// step A's previous levels of a chained launch in the planes step B reads
+// them from (E_SSHP, E_UP, E_VP, the tracers' E_TR), and the rest in
+// planes of their own, as many as the blocks the form's working planes
+// leave on an SM still hold, in this order: rslu_u and rslu_v; sshp (one
+// step); up and vp (one step); rslu_h; the tracer levels (one step, a
+// fixed count). An input without a plane of its own lands in the working
+// plane its first stage writes at the same cell (rslu_u, rslu_v -> S_HU,
+// S_HV; sshp -> S_AQP; hrludxdy -> S_AQ; a viscous form's up, vp -> S_F,
+// S_K; rslu_h -> S_CX), where that stage reads it; later stages read it
+// from device memory. The bathymetry planes hrludxdy and hr get no plane
+// of their own: with one, 16 one-step forms and the chained viscous ones
+// left the threads' bits by an ulp (a contraction; PERF.md). A
+// chained TLOOP form keeps its room for step A's tracer levels.
+// ON = false (a body that loads by threads): no TMA, no planes.
+template <int NT, int STEPS, bool VISC, bool HRP, bool FFS, bool ON = true>
+struct Plan {
+  using Fm = Form<NT, STEPS, ON>;
+  static constexpr bool CHAIN = STEPS > 1;
+  static constexpr size_t BASE = smem_bytes<NT, STEPS, ON>(VISC);
+  static constexpr size_t PBYTES = sizeof(float) * Fm::PLANE;
+  static constexpr int FITS = (int)(SM_SMEM
+      / (BASE + BLOCK_RESERVED + STATIC_SMEM));
+  static constexpr int BLOCKS =
+      FITS < Tile<STEPS>::MIN_BLOCKS ? (FITS < 1 ? 1 : FITS)
+                                     : Tile<STEPS>::MIN_BLOCKS;
+  static constexpr int ROOM = !ON || (NT < 0 && CHAIN)
+      || smem_budget(BLOCKS) < BASE
+      ? 0 : (int)((smem_budget(BLOCKS) - BASE) / PBYTES);
+  static constexpr bool RUV = ROOM >= 2;
+  static constexpr int R1 = ROOM - 2 * RUV;
+  static constexpr bool SSHP = !CHAIN && R1 >= 1;
+  static constexpr int R2 = R1 - SSHP;
+  static constexpr bool UVP = !CHAIN && R2 >= 2;
+  static constexpr int R3 = R2 - 2 * UVP;
+  static constexpr bool RH = R3 >= 1;
+  static constexpr int R4 = R3 - RH;
+  static constexpr bool TR = !CHAIN && NT > 0 && R4 >= 2 * NT;
+  static constexpr int N_EXTRA = ROOM - R4 + (TR ? 2 * NT : 0);
+  // the planes of their own, after the working planes
+  static constexpr int P_RU = Fm::N_PLANES, P_RV = P_RU + 1;
+  static constexpr int P_SSHP = P_RU + 2 * RUV;
+  static constexpr int P_UP = P_SSHP + SSHP, P_VP = P_UP + 1;
+  static constexpr int P_RH = P_UP + 2 * UVP;
+  static constexpr int P_TR = P_RH + RH;
+  static_assert(P_TR + (TR ? 2 * NT : 0) == Fm::N_PLANES + N_EXTRA,
+                "the planes of their own");
+  // dynamic shared memory of a block (a chained TLOOP form's tracer
+  // levels on top), with the 128 bytes of the planes' alignment
+  static constexpr size_t SMEM = BASE + N_EXTRA * PBYTES + (ON ? 128 : 0);
+};
+
 // The dynamic shared memory a block may take on the current device: the
-// opt-in maximum (227 KB on an H100) less the block max's static array.
+// opt-in maximum (227 KB on an H100) less the static arrays and the
+// planes' alignment (STATIC_SMEM).
 inline size_t smem_limit() {
   int dev = 0, bytes = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
-  return (size_t)bytes - sizeof(float) * (Tile<2>::NTHREADS / 32);
+  return (size_t)bytes - STATIC_SMEM;
 }
 
 // How many of step A's 2 n_tr tracer levels a chained TLOOP block keeps
@@ -141,25 +223,28 @@ inline size_t smem_limit() {
 // chained tile, the N_BASE planes 120 KB and the stress planes 19.25 KB,
 // so every level fits up to 8 tracers, 7 viscous, at 227 KB.
 inline int chain_levels_in_smem(int n_tr, bool visc, size_t limit) {
+  static_assert(Form<TLOOP, 2>::PLANE == Form<TLOOP, 2, false>::PLANE,
+                "the run-time tracer family's window is the loaders' both");
   const size_t fixed = smem_bytes<TLOOP, 2>(visc);
   const size_t plane = sizeof(float) * Form<TLOOP, 2>::PLANE;
   const size_t fit = limit > fixed ? (limit - fixed) / plane : 0;
   return (int)(fit < (size_t)(2 * n_tr) ? fit : (size_t)(2 * n_tr));
 }
 
-// The dynamic shared memory of a block of the fused step's form with
-// n_tr tracers (viscous or not) that runs STEPS model steps a launch, on
-// the current device; *levels: how many of step A's 2 n_tr tracer levels
-// a chained block keeps there (0 for one step a launch).
-template <int STEPS>
+// The dynamic shared memory of a block's working planes of the fused
+// step's form with n_tr tracers (viscous or not) that runs STEPS model
+// steps a launch and loads by TMA or by threads, on the current device;
+// *levels: how many of step A's 2 n_tr tracer levels a chained block keeps
+// there (0 for one step a launch).
+template <int STEPS, bool TMA = true>
 inline size_t form_smem_bytes(int n_tr, bool visc, int* levels) {
   *levels = STEPS == 1 ? 0 : 2 * n_tr;
   if (STEPS == 1)
-    return n_tr ? smem_bytes<1, 1>(visc) : smem_bytes<0, 1>(visc);
+    return n_tr ? smem_bytes<1, 1, TMA>(visc) : smem_bytes<0, 1, TMA>(visc);
   switch (n_tr) {
-    case 0: return smem_bytes<0, STEPS>(visc);
-    case 1: return smem_bytes<1, STEPS>(visc);
-    case 2: return smem_bytes<2, STEPS>(visc);
+    case 0: return smem_bytes<0, STEPS, TMA>(visc);
+    case 1: return smem_bytes<1, STEPS, TMA>(visc);
+    case 2: return smem_bytes<2, STEPS, TMA>(visc);
     default:
       *levels = chain_levels_in_smem(n_tr, visc, smem_limit());
       return smem_bytes<TLOOP, STEPS>(visc)

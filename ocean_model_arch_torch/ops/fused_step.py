@@ -240,6 +240,101 @@ def tile_shape(device, steps: int = 1, chain_tile=None) -> tuple:
     return lib.fused_sw_step_tile_x(), lib.fused_sw_step_tile_y()
 
 
+class Geometry(typing.NamedTuple):
+    """A fast form's window on the card where it loads by TMA (every fast
+    form but the viscous ones on metric planes; csrc/fused_tile.cuh's Form
+    and Plan): its output ``tile`` (rows, columns), window ``halo``, rows and
+    columns (``rows`` x ``cols``, the box of every TMA load), floats a
+    shared plane (``plane``), the loader's planes of their own
+    (``extra``), the ``blocks`` an SM its shared memory leaves, the
+    dynamic shared memory of a block (``smem`` bytes; a chained run-time
+    tracer form's levels not counted) and the TMA ``boxes`` of a launch."""
+    tile: tuple
+    halo: int
+    rows: int
+    cols: int
+    plane: int
+    extra: int
+    blocks: int
+    smem: int
+    boxes: int
+
+
+# the H100's shared memory as csrc/fused_tile.cuh budgets it: an SM's
+# bytes, those reserved a block, and a block's static arrays with the
+# planes' alignment; the one-step and chained tiles' (rows, columns,
+# threads, launch bound in blocks an SM); the working planes
+SM_SMEM, BLOCK_RESERVED, STATIC_SMEM = 233472, 1024, 256
+BLOCK_SMEM_MAX = 232448     # what one block may take (227 KB)
+TILES = {1: (16, 32, 512, 3), 2: (16, 32, 512, 2)}
+N_SMEM_PLANES, N_CHAIN_PLANES, N_VISC_PLANES = 16, 4, 4
+TMA_BOX_MAX = 256       # cells a side of a TMA box
+TMA_ALIGN = 16          # bytes: addresses, rows and a box's row
+
+
+@functools.lru_cache(maxsize=None)
+def window_geometry(n_tracers: int, steps: int = 1, visc: bool = False,
+                    hrp: bool = False, ffs: bool = True) -> Geometry:
+    """The :class:`Geometry` of the fast form with ``n_tracers`` tracers
+    and ``steps`` model steps a launch, viscous or not, on bathymetry
+    planes (``hrp``) or not, with a full free surface (``ffs``) or not:
+    what ``csrc/fused_step.cu``'s ``fused_sw_step_geometry`` reports,
+    computed here from the same rules (chip_smoke.py holds the two
+    together on the card)."""
+    tx, ty, _, min_blocks = TILES[steps]
+    nt = n_tracers if n_tracers <= MAX_TRACERS else -1   # TLOOP
+    extra = 1 if n_tracers else 0
+    halo = steps * (3 + extra)
+    rows = tx + 2 * halo
+    shift = -halo % 4            # the box's columns before the window
+    cols = -(-(ty + 2 * halo + shift) // 4) * 4
+    plane = -(-(rows * cols + shift) // 32) * 32
+    chain = steps > 1
+    n_planes = N_SMEM_PLANES + (N_CHAIN_PLANES if chain else 0) + (
+        2 * n_tracers if chain and nt > 0 else 0)
+    vhw = (steps - 1) * (3 + extra) + 1 + extra
+    vplane = (tx + 2 * vhw) * (ty + 2 * vhw)
+    base = 4 * (n_planes * plane + (N_VISC_PLANES * vplane if visc else 0))
+    fits = SM_SMEM // (base + BLOCK_RESERVED + STATIC_SMEM)
+    blocks = max(1, fits) if fits < min_blocks else min_blocks
+    budget = SM_SMEM // blocks - BLOCK_RESERVED - STATIC_SMEM
+    room = 0 if (nt < 0 and chain) or budget < base \
+        else (budget - base) // (4 * plane)
+    ruv = room >= 2
+    r = room - 2 * ruv
+    sshp = not chain and r >= 1
+    r -= sshp
+    uvp = not chain and r >= 2
+    r -= 2 * uvp
+    rh = r >= 1
+    r -= rh
+    tr = not chain and nt > 0 and r >= 2 * nt
+    n_extra = room - r + (2 * nt if tr else 0)
+    boxes = ((4 + hrp) + (2 + 2 * visc + (chain or sshp or ffs)) + 1
+             + 2 * (not visc and (chain or uvp))
+             + (2 * nt if nt > 0 and (chain or tr) else 0))
+    return Geometry((tx, ty), halo, rows, cols, plane, n_extra, blocks,
+                    base + 4 * n_extra * plane + 128, boxes)
+
+
+def tma_refusal(lay: FusedLayout, tensors, steps: int = 1,
+                n_tracers: int = 0) -> str | None:
+    """Why TMA cannot load the windows of ``tensors`` (each (..., Xs,
+    Ys) of ``lay``, contiguous float32) for the forms of ``steps`` model
+    steps a launch with ``n_tracers`` tracers, or None: each address and
+    row 16-byte aligned, the box's row a multiple of 16 bytes, at most
+    256 cells a side (csrc/tma.cuh)."""
+    g = window_geometry(n_tracers, steps)
+    if (lay.Ys * 4) % TMA_ALIGN:
+        return f"rows of {lay.Ys} floats are not a multiple of 16 bytes"
+    if (g.cols * 4) % TMA_ALIGN or max(g.rows, g.cols) > TMA_BOX_MAX:
+        return f"a {g.rows} x {g.cols} box"
+    for t in tensors:
+        if t.data_ptr() % TMA_ALIGN:
+            return f"an input at {t.data_ptr():#x}, not 16-byte aligned"
+    return None
+
+
 def _wet_cells(tile_wet: torch.Tensor, tile, lay: FusedLayout):
     """The per-tile flags expanded to a bool (Xs, Ys) cell mask."""
     tx, ty = tile
@@ -731,6 +826,10 @@ def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
     if steps not in (1, 2):
         raise ValueError(f"steps={steps}: the kernel runs 1 or 2 steps a "
                          "launch")
+    why = None if general else tma_refusal(lay, (*fields, planes), steps,
+                                            n_tr)
+    if why:
+        raise ValueError(f"the fast form's TMA loader cannot take {why}")
     if tile_wet is None:
         return
     want = tile_shape(dev, steps, chain_tile)
@@ -768,17 +867,12 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
     ``blockmax``, a contiguous float32 (x tiles, y tiles) tensor) it
     launches the raw form into them and allocates nothing.
     ``chain_tile``: see :func:`library_target`. ``folds``: the fast
-    form's :class:`Folds`; the kernel has elide_sel and q4 together, with
-    or without share_prev, and share_prev alone: elide_sel without q4, or
-    q4 without it, raises NotImplementedError."""
+    form's :class:`Folds`, any combination (the libraries of the ones
+    :func:`fold_targets` leaves out build at their first launch)."""
     visc, trans, ffs = bool(visc), int(bool(trans)), int(bool(ffs))
     general = bool(general)
     raw = outs is not None
     folds = kernel_folds(_check_folds(folds, general), steps, ffs)
-    if folds.elide_sel != folds.q4:
-        raise NotImplementedError(
-            "elide_sel without q4, or q4 without elide_sel: the kernel "
-            "has no instantiation of it (ROADMAP B1); pass both or neither")
     _check_inputs(fields, met, planes, lay, tile_wet, tile, met_map,
                   hr_const, visc, trans, outs, steps, chain_tile, general)
     n_tr = n_tracers_of(fields)
@@ -1122,9 +1216,10 @@ def library_targets(general: bool = False) -> tuple:
                  for raw in (False, True) for n in range(LOOP_TRACERS + 1))
 
 
-# the folds the drivers reach (fold_code): elide_sel with q4, and in the
-# chained forms with a full free surface the same with share_prev, and
-# share_prev alone
+# the folds the drivers reach by default (fold_code): elide_sel with q4,
+# and in the chained forms with a full free surface the same with
+# share_prev, and share_prev alone. elide_sel or q4 alone (1, 2; 5, 6 with
+# share_prev) are JAX arguments too: their libraries build at first use
 FOLD_COMBOS = {1: (3,), 2: (3, 7, 4)}
 
 
@@ -1189,6 +1284,9 @@ def _library(n_tracers: int = 0, raw: bool = False, trans: int = 1,
     lib.fused_sw_step_smem_bytes.restype = ctypes.c_longlong
     lib.fused_sw_step_scratch_floats.argtypes = [i, i, i, i]
     lib.fused_sw_step_scratch_floats.restype = ctypes.c_longlong
+    lib.fused_sw_step_geometry.argtypes = [i, i, i, i,
+                                           ctypes.POINTER(ctypes.c_longlong)]
+    lib.fused_sw_step_geometry.restype = i
     lib.fused_sw_step_launch.argtypes = ([p] * 21 + [i] * 13 + [f] * 8
                                          + [p])
     lib.fused_sw_step_launch.restype = i

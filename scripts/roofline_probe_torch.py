@@ -11,7 +11,11 @@ land-tile guard -- and prints the kernel's device us/launch
 (torch.profiler) beside the byte bound of the same traffic. The gap
 between a form's copy step and the fused kernel itself is what the
 step's arithmetic and barriers cost; the gap between the copy step and
-the byte bound is what the tiling costs.
+the byte bound is what the tiling costs. Each form is timed with both
+loaders: TMA a tile a block (the fused step's, the copy step's default)
+and the threads' element by element (the fused step's loader before
+it). The card's own ceiling for the same bytes follows: ``Tensor.copy_`` of a
+buffer that moves the T = 0 form's bytes (read half, write half).
 
 Usage: python scripts/roofline_probe_torch.py [nx ny [mask ...]]
        python scripts/roofline_probe_torch.py --stacked [nx ny]
@@ -151,8 +155,9 @@ def probe(nx: int, ny: int, masks=(), n_launch: int = N_LAUNCH,
     device. ``masks``: (name, (nx, ny) int array, 1 = land) pairs, each
     giving the guarded forms their per-tile flags. Returns one dict per
     form and guard: ``n_tracers, met2d, visc, hr_varies, guard`` (None or
-    the mask's name), ``us, bytes, bound_us`` (the bytes over the card's
-    memory rate)."""
+    the mask's name), ``us`` (the TMA loader), ``us_threads`` (the
+    threads'), ``bytes, bound_us`` (the bytes over the
+    card's memory rate)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the roofline probe needs a CUDA device")
     device = torch.device("cuda", torch.cuda.current_device())
@@ -171,16 +176,37 @@ def probe(nx: int, ny: int, masks=(), n_launch: int = N_LAUNCH,
         for guard, wet in guards:
             flags = None if wet is None else \
                 torch.from_numpy(wet).to(device)
-            us = kernel_us(lambda: copy_step(
+            us, us_threads = (kernel_us(lambda: copy_step(
                 windows, met, n_out, lay, tracer_form=n_tracers,
-                tile_wet=flags, tile=tile, visc_form=visc), n_launch)
+                tile_wet=flags, tile=tile, visc_form=visc, loader=loader),
+                n_launch) for loader in ("tma", "threads"))
             nbytes = bytes_moved(lay, n_tracers, met2d, wet, tile, visc,
                                  hr_varies)
             rows.append({"n_tracers": n_tracers, "met2d": met2d,
                          "visc": visc, "hr_varies": hr_varies,
-                         "guard": guard, "us": us, "bytes": nbytes,
+                         "guard": guard, "us": us,
+                         "us_threads": us_threads, "bytes": nbytes,
                          "bound_us": nbytes / PEAK_BYTES * 1e6})
     return rows
+
+
+def copy_rate(nbytes: int, n_launch: int = N_LAUNCH) -> tuple:
+    """(device us a call, bytes/s) of ``Tensor.copy_`` between two float32
+    buffers that together hold ``nbytes`` (it reads one and writes the
+    other) on the current CUDA device, by CUDA events over ``n_launch``
+    calls after one: the card's own rate for the copy step's bytes."""
+    src = torch.zeros(nbytes // 8, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n_launch):
+        dst.copy_(src)
+    t1.record()
+    t1.synchronize()
+    us = t0.elapsed_time(t1) * 1e3 / n_launch
+    return us, 8 * src.numel() / us * 1e6
 
 
 def stacked(nx: int, ny: int, n_launch: int = N_LAUNCH,
@@ -207,7 +233,7 @@ def stacked(nx: int, ny: int, n_launch: int = N_LAUNCH,
         us_stacked = kernel_us(lambda: copy_step_stacked(
             stack, met, n_out, lay, n_tr), n_launch)
         us_separate = kernel_us(lambda: copy_step(
-            planes, met, n_out, lay, n_tr), n_launch)
+            planes, met, n_out, lay, n_tr, loader="threads"), n_launch)
         nbytes = 4 * (lay.Xs * lay.Ys * (n_in + n_out) + n_met * lay.Ys)
         rows.append({"n_in": n_in, "n_out": n_out, "n_met": n_met,
                      "n_tracers": n_tr, "what": what, "equal": equal,
@@ -283,11 +309,17 @@ def main(argv) -> int:
     print(f"copy step, {nx} x {ny} points, layout {lay.Xs} x {lay.Ys}, "
           f"{N_LAUNCH} launches per form (torch.profiler):")
     for row in probe(nx, ny, masks):
-        print(f"  {form_name(row)}: {row['us']:.2f} us/launch, "
+        print(f"  {form_name(row)}: {row['us']:.2f} us/launch by TMA, "
+              f"{row['us_threads']:.2f} by threads, "
               f"{row['bytes'] / 1e6:.1f} MB, byte bound "
               f"{row['bound_us']:.2f} us at {PEAK_BYTES / 1e12:.2f} TB/s "
               f"({row['bound_us'] / row['us']:.0%} of it reached, "
               f"{row['bytes'] / row['us'] / 1e6:.3f} TB/s)")
+    nbytes = bytes_moved(lay, 0, False)
+    us, rate = copy_rate(nbytes)
+    print(f"Tensor.copy_ moving {nbytes / 1e6:.1f} MB (the T=0 profile "
+          f"form's bytes): {us:.2f} us, {rate / 1e12:.3f} TB/s against "
+          f"{PEAK_BYTES / 1e12:.2f}")
     return 0
 
 

@@ -207,6 +207,48 @@ def test_folded_matches_jax_kernel(form, spc):
 
 
 @pytest.mark.parametrize("spc", [1, 2], ids=["one_step", "chained"])
+@pytest.mark.parametrize("fold", ["elide_sel", "q4"])
+@pytest.mark.parametrize("form", ["T0", "T2", "visc_T2"])
+def test_one_fold_alone_matches_jax_kernel(form, fold, spc):
+    """elide_sel without q4 and q4 without elide_sel (fold codes 1 and 2;
+    5 and 6 chained, where share_prev stays on by default): 30 f32 steps
+    of the port's ``FusedSWModel`` through the wrapper against the JAX
+    fused kernel in interpret mode with the same arguments, < 1e-5
+    relative per field (2e-5 with tracers, as
+    :func:`test_folded_matches_jax_kernel`); land exactly 0 in the
+    velocity carriers under elide_sel; the libraries of these codes build
+    at first use, not among ``fold_targets()``."""
+    jgrid, cfg, jstate, grid, state = _case(form)
+    kw = dict(static_rslu=True, mu_const=FORMS[form][2], steps_per_call=spc,
+              elide_sel=fold == "elide_sel", q4=fold == "q4")
+    jf = JaxFused(jgrid, cfg, 1.0, tx=8, interpret=True, **kw)
+    j, ok = jax.jit(lambda s: jf.run_steps(s, STEPS))(jf.pack(jstate))
+    assert bool(ok)
+    want = jf.unpack(j, jstate)
+    fm = FusedSWModel(grid, cfg, 1.0, **kw)
+    assert fm.folds == (jf.elide_sel, jf.q4, jf.share_prev)
+    code = fstep.fold_code(fstep.kernel_folds(fm.folds, spc, fm.ffs))
+    assert code == (1 if fold == "elide_sel" else 2) + 4 * (spc > 1)
+    assert fstep.library_target(FORMS[form][0], steps=spc, folds=code) \
+        not in fstep.fold_targets()
+    s, ok = fm.run_steps(fm.pack(state), STEPS)
+    assert ok
+    got = fm.unpack(s, state)
+    tol = 2e-5 if FORMS[form][0] else 1e-5
+    for n in _names(form):
+        a, b = getattr(got, n), getattr(want, n)
+        if n in ("ff", "ffp"):
+            for t in range(FORMS[form][0]):
+                assert _rel(a[t].numpy(), b[t]) < tol, (n, t)
+        else:
+            assert _rel(a.numpy(), b) < tol, n
+    if fm.elide_sel:
+        wlcu, wlcv, _ = fl.staggered_wet_masks(fl.embed(fm.lay, fm.grid.lu))
+        for f, w in zip(s[2:6], (wlcu, wlcu, wlcv, wlcv)):
+            assert bool((f[torch.from_numpy(w) < 0.5] == 0).all())
+
+
+@pytest.mark.parametrize("spc", [1, 2], ids=["one_step", "chained"])
 @pytest.mark.parametrize("form", sorted(FORMS))
 def test_folded_land_stays_exactly_zero(form, spc):
     """After 30 folded steps land is exactly 0 in the four velocity
@@ -390,14 +432,16 @@ def test_sharded_folded_equals_the_block(spc):
 # ---- the wrapper ---------------------------------------------------------
 
 def test_wrapper_refuses_what_the_kernel_lacks():
-    """The kernel has elide_sel and q4 together: one without the other is
-    NotImplementedError before any launch (on the CPU the plain version
-    runs it); the general form has no folds (ValueError)."""
+    """The kernel has every fold combination: elide_sel without q4 and q4
+    without elide_sel (with share_prev too) reach the wrapper's input
+    checks, which refuse CPU tensors (ValueError), and no
+    NotImplementedError; on the CPU the plain version runs them. The
+    general form has no folds (ValueError)."""
     fm, s, _ = _port("T0", 1)
     args = (fm.met, fm.planes, fm.lay, 1.0, fm.cfg.sw.time_smooth,
             fm.hr_const, None, None, None, 0.0, False, 1, 1, 1, False)
     for folds in ((True, False, False), (False, True, True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+        with pytest.raises(ValueError, match="CUDA"):
             fstep.fused_sw_step_blockmax(s, *args, folds)
         fstep.fused_sw_step(s, *args, folds)          # the plain version
     gm = FusedSWModel(fm.grid, fm.cfg, 1.0)
