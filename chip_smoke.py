@@ -256,6 +256,10 @@ MAX_REGS = 42           # above it only two 512-thread blocks fit an SM
 UNFOLDED = {"elide_sel": False, "q4": False, "share_prev": False}
 # the kernels' names in torch.profiler's events: unfolded, folded
 FUSED_KERNELS = ("fused_sw_step_kernel", "fused_sw_fold_kernel")
+# the copy step's forms (tracers, plane metrics, viscous, bathymetry
+# planes) whose fused step keeps the threads' loader: phase 7 times the
+# threads' copy step on these only
+THREADS_FORMS = ((0, True, True, True),)
 
 # H100 SXM data sheet: HBM bytes/s and f32 FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
@@ -438,11 +442,15 @@ def nc_loads(targets) -> str:
     if not os.path.exists(cuobjdump):
         return "not measured (no cuobjdump)"
     ldg = nc = 0
-    for t in targets:
-        sass = subprocess.run([cuobjdump, "-sass", _build.build(t)],
+
+    def sass(t):
+        return subprocess.run([cuobjdump, "-sass", _build.build(t)],
                               capture_output=True, text=True,
                               check=True).stdout
-        for ln in sass.splitlines():
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 8) as ex:
+        listings = list(ex.map(sass, targets))
+    for listing in listings:
+        for ln in listing.splitlines():
             if re.search(r"\bLDG\b", ln):
                 ldg += 1
                 nc += "CONSTANT" in ln or ".NC" in ln
@@ -450,11 +458,21 @@ def nc_loads(targets) -> str:
     return f"{nc} of {ldg}"
 
 
+def general_loads_by_tma(target: str) -> bool:
+    """Whether the general forms of a general library's ``target`` load by
+    TMA (``general_geometry``): every form of a library is alike, all but
+    the chained ones without tracers."""
+    from ocean_model_arch_torch.ops.fused_step import general_geometry
+    n_tr = int(re.search(r"NT=(\d)", target).group(1))
+    return general_geometry(n_tr, 2 if "FUSED_STEPS=2" in target else 1).tma
+
+
 def tma_loads(fast, other) -> str:
     """The TMA box loads (UTMALDG) in the SASS of each library: every one
-    of ``fast`` (the fast forms' and the copy step's) must have them, none
-    of ``other`` (the general and the persistent forms keep the loads of
-    threads); "n in m libraries", or why not known."""
+    of ``fast`` (the fast forms', the copy step's, the persistent walk's
+    and the general forms' that load by TMA) must have them, none of
+    ``other`` (the general forms that keep the loads of threads); "n in m
+    libraries", or why not known."""
     from ocean_model_arch_torch.ops import _build
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
@@ -470,9 +488,50 @@ def tma_loads(fast, other) -> str:
     check(all(n_fast) and not any(n_other), "UTMALDG missing from "
           f"{[t for t, n in zip(fast, n_fast) if not n]} or present in "
           f"{[t for t, n in zip(other, n_other) if n]}")
-    return (f"{sum(n_fast)} in the {len(fast)} libraries of the fast form "
-            f"and the copy step (each has them), {sum(n_other)} in the "
-            f"{len(other)} general and persistent ones")
+    return (f"{sum(n_fast)} in the {len(fast)} libraries of the fast form, "
+            "the copy step, the persistent walk and the general forms by TMA "
+            f"(each has them), {sum(n_other)} in the {len(other)} general "
+            "ones that load by threads")
+
+
+def persistent_grids() -> str:
+    """Phase 1: each K2 instantiation's registers (ptxas) and co-resident
+    grid (the occupancy query of ``persistent_grid``): blocks an SM, and
+    the rounds a step of the walk over the 1533 x 1152 layout's tiles with
+    the last round's fill; three blocks an SM for every one (the plans'
+    promise)."""
+    from ocean_model_arch_torch.ops import _build
+    from ocean_model_arch_torch.ops import fused_layout as fl
+    from ocean_model_arch_torch.ops.fused_step import (
+        persist_targets, persistent_grid, persistent_rounds)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lay = fl.make_layout(1525, 1115)
+    groups: dict = {}
+    n = 0
+    for t in persist_targets():
+        general = "FUSED_GEN" in t
+        for name, regs, spill in ptxas_table(
+                _build.BUILDS.get(t, {}).get("log", "")):
+            nt, mode, hrp, trans, ffs = (int(v) for v in name[1:-1].split(","))
+            n_tr = 3 if nt < 0 else nt
+            grid = persistent_grid(n_tr, None if hrp else 1.0,
+                                   1.0 if mode else 0.0, mode == 2, trans,
+                                   ffs, general)
+            tiles, rounds, fill = persistent_rounds(lay, grid)
+            check(grid == 3 * sms and spill == 0, f"persistent {name} "
+                  f"({'general' if general else 'fast'}): grid {grid} on "
+                  f"{sms} SMs, spill {spill} B")
+            groups.setdefault((regs, grid // sms, rounds, round(fill, 3)),
+                              []).append(("g" if general else "f") + name)
+            n += 1
+    return (f"{n} instantiations (f: fast, g: general <tracers,mu mode,"
+            "bathymetry planes,advection,full free surface>) by registers, "
+            "blocks an SM, rounds a step over the 96 x 36 tiles of 1533 x "
+            "1152 and the last round's fill: " + "; ".join(
+                f"{r} regs, {b} blocks an SM ({b * sms} co-resident), {k} "
+                f"rounds, last {f:.0%} full: {len(ns)} (" + " ".join(ns) + ")"
+                for (r, b, k, f), ns in sorted(groups.items()))
+            if n else "(cached build)")
 
 
 def sass_loops(so: str, kernel: str) -> list:
@@ -527,26 +586,51 @@ def geometry_mirror() -> str:
     (``copy_step_window``) against it."""
     import ctypes
     from ocean_model_arch_torch.ops import copy_step as cs
-    from ocean_model_arch_torch.ops.fused_step import (_library,
-                                                       window_geometry)
+    from ocean_model_arch_torch.ops.fused_step import (
+        _library, _persist_library, general_geometry, window_geometry)
+
+    def held(lib, t, visc, hrp, ffs, g, what):
+        out = (ctypes.c_longlong * 12)()
+        lib.fused_sw_step_geometry(t, visc, hrp, ffs, out)
+        want = (*g.tile, g.halo, g.rows, g.cols, g.plane, g.extra, g.blocks,
+                g.smem, g.boxes, int(g.tma), g.carveout)
+        check(tuple(out) == want, f"window geometry ({what} T={t}, visc="
+              f"{visc}, hrp={hrp}, ffs={ffs}): the library's {tuple(out)}, "
+              f"the mirror's {want}")
+        check(not g.tma or ((g.cols * 4) % 16 == 0 and g.plane % 32 == 0),
+              f"window geometry {want}: alignment")
+
     n = 0
     for steps in (1, 2):
         lib = _library(steps=steps)
+        gen = _library(steps=steps, general=True)
         for t, visc, hrp, ffs in itertools.product(range(5), (0, 1), (0, 1),
                                                    (0, 1)):
-            out = (ctypes.c_longlong * 10)()
-            lib.fused_sw_step_geometry(t, visc, hrp, ffs, out)
             g = window_geometry(t, steps, bool(visc), bool(hrp), bool(ffs))
-            want = (*g.tile, g.halo, g.rows, g.cols, g.plane, g.extra,
-                    g.blocks, g.smem, g.boxes)
-            check(tuple(out) == want, f"window geometry (T={t}, steps="
-                  f"{steps}, visc={visc}, hrp={hrp}, ffs={ffs}): the "
-                  f"library's {tuple(out)}, the mirror's {want}")
+            held(lib, t, visc, hrp, ffs, g, f"fast, steps={steps}")
             check(g.blocks == (3 if steps == 1 else 2 if t == 0 and not visc
-                               else 1)
-                  and (g.cols * 4) % 16 == 0 and g.plane % 32 == 0,
-                  f"window geometry {want}: blocks an SM or alignment")
-            n += 1
+                               else 1), f"window geometry {g}: blocks an SM")
+            held(gen, t, visc, hrp, ffs, general_geometry(t, steps,
+                                                          bool(visc)),
+                 f"general, steps={steps}")
+            n += 2
+    for t, visc, hrp, ffs in itertools.product(range(4), (0, 1), (0, 1),
+                                               (0, 1)):
+        held(_persist_library(t), t, visc, hrp, ffs, window_geometry(
+            t, 1, bool(visc), bool(hrp), bool(ffs), persistent=True),
+            "persistent fast")
+        held(_persist_library(t, True), t, visc, hrp, ffs,
+             general_geometry(t, 1, bool(visc)), "persistent general")
+        n += 2
+    gen_text = "; ".join(
+        f"{'chained' if steps == 2 else 'one step'} T={t}"
+        + " viscous" * visc + f": {'TMA' if g.tma else 'threads'}, "
+        f"{g.blocks} blocks an SM, {g.smem / 1e3:.1f} KB, hr plane "
+        f"{g.extra}, carveout {g.carveout} KB"
+        for steps, t, visc in itertools.product((1, 2), (0, 1, 2, 3),
+                                                (False, True))
+        for g in [general_geometry(t, steps, visc)])
+    for steps in (1, 2):
         for t in (0, 1):
             win = (ctypes.c_int * 3)()
             cs._library().copy_step_window(t, steps, win)
@@ -554,8 +638,10 @@ def geometry_mirror() -> str:
             check(tuple(win) == (g.rows, g.cols, g.plane),
                   f"copy step window {tuple(win)} != {g[2:5]}")
     g1, g2 = window_geometry(0, 1), window_geometry(0, 2)
-    return (f"window geometry of {n} fast forms == the mirror "
-            "(ops/fused_step.py::window_geometry); one step T=0: "
+    return (f"window geometry of {n} fast, general and persistent forms == "
+            "the mirror (ops/fused_step.py::window_geometry, "
+            f"general_geometry); the general forms: {gen_text}; fast one "
+            "step T=0: "
             f"{g1.rows} x {g1.cols} window, {g1.extra} planes of its own, "
             f"{g1.smem / 1e3:.1f} KB, {g1.blocks} blocks an SM, {g1.boxes} "
             f"boxes; chained T=0: {g2.rows} x {g2.cols}, {g2.extra}, "
@@ -956,7 +1042,7 @@ def bathymetry(nx: int, ny: int) -> np.ndarray:
 
 
 def against_parent(parent: str, card: str, chain_regs: int,
-                   bathymetry_only: bool = False) -> int:
+                   subset: str | None = None) -> int:
     """Every one-step instantiation the checkout at ``parent`` has, on the
     Azov coastline at full size, against this checkout's: profile and
     plane metrics, 0 / 1 / 2 tracers and the run-time family at 3, guard
@@ -969,25 +1055,31 @@ def against_parent(parent: str, card: str, chain_regs: int,
     block's layout, whose box is its interior), as far as the parent's
     wrappers take arguments for them; forms whose further arguments are
     not at their defaults (the switches of an older parent) have no
-    parent. Then the main path's chained and folded fast instantiations
-    (``PARENT_MAIN``: T = 0 and 2, guarded, profile and plane metrics,
-    one step and two a launch, unfolded and with the drivers' folds).
-    First the parent's libraries of those forms are built, all at once;
-    where this process built its own (phase 1), the general form's
-    instantiations must have the parent's registers and spills, and the
-    fast form's (redesigned: the TMA loader) as many instantiations
-    within the launch bound (42 registers one step, ``chain_regs``
-    chained) with no spill. Outputs and block maxima from a state 20
-    steps in: bit for bit, or for a fast instantiation each difference
-    listed (and within 1e-5 of the parent's). Kernel device us/launch
-    over three windows a side in the order parent, this, this, parent,
-    parent, this: the general form's medians within 2 % (where they are
-    not, over up to nine windows a side); a fast form's this / parent at
-    most 1.02, one-sided (the same retries). ``bathymetry_only``: of the
-    one-step instantiations only the fast ones over bathymetry planes
-    with 0 or ``N_TRACERS`` tracers (those whose plane plan places the
-    bathymetry planes), and only their libraries and ``PARENT_MAIN``'s
-    are built."""
+    parent; the general form also two steps a launch (chained, and its
+    raw form chained on the same layout). Then the main path's chained
+    and folded fast instantiations (``PARENT_MAIN``: T = 0 and 2, guarded,
+    profile and plane metrics, one step and two a launch, unfolded and
+    with the drivers' folds), and the six K2 runs of ``PERSIST_RUNS`` (one
+    launch of ``N_TIME`` steps each). First the parent's libraries of
+    those forms are built, all at once; where this process built its own
+    (phase 1), a redesigned form's instantiations (those on the TMA
+    loader: the fast body's, the general body's by TMA, the persistent
+    walk's) must be as many, within the launch bound (42 registers one step,
+    ``chain_regs`` chained) with no spill, a form left on the threads'
+    loader must have the parent's registers and spills. Outputs and block
+    maxima from a state 20 steps in (K2: from the initial state, the
+    fields and the max over the blocks): bit for bit, or for a fast
+    instantiation each difference listed (and within 1e-5 of the
+    parent's). Kernel device us/launch over three windows a side in the
+    order parent, this, this, parent, parent, this (torch.profiler; K2:
+    CUDA events around its launch): a redesigned form's this / parent at
+    most 1.02, one-sided; a form on the threads' loader within 2 % (where
+    a form is off its rule, over up to nine windows a side). ``subset``:
+    ``--bathymetry``, of the one-step instantiations only the fast ones
+    over bathymetry planes with 0 or ``N_TRACERS`` tracers (those whose
+    plane plan places the bathymetry planes), and only their libraries and
+    ``PARENT_MAIN``'s are built; ``--general``, only the general form's
+    instantiations and the K2 runs, and only their libraries."""
     from ocean_model_arch_torch.core.grid import build_grid
     from ocean_model_arch_torch.host import (Precision, basinpar_as250m_test,
                                              frame_of_land_mask, read_mask)
@@ -996,6 +1088,7 @@ def against_parent(parent: str, card: str, chain_regs: int,
         FusedSharded2DModel
     from ocean_model_arch_torch.model.init import init_ocean_state
     from ocean_model_arch_torch.ops import fused_step as mine
+    from ocean_model_arch_torch.ops.fused_step import general_geometry
 
     pkg = os.path.join(os.path.abspath(parent), "ocean_model_arch_torch")
     spec = importlib.util.spec_from_file_location(
@@ -1007,10 +1100,15 @@ def against_parent(parent: str, card: str, chain_regs: int,
     theirs_build = importlib.import_module("parent_port.ops._build")
     probe = load_script("roofline_probe_torch")
     from ocean_model_arch_torch.ops import _build
-    fast_targets = theirs.library_targets()
+    bathymetry_only, general_only = (subset == "--bathymetry",
+                                     subset == "--general")
+    fast_targets = () if general_only else theirs.library_targets()
     gen_targets = (theirs.library_targets(general=True)
                    if "general" in inspect.signature(
                        theirs.library_targets).parameters else ())
+    persist = (theirs.persist_targets()
+               if hasattr(theirs, "persist_targets") and not bathymetry_only
+               else ())
     if bathymetry_only:
         fast_targets = tuple(sorted(
             {theirs.library_target(t, raw, trans, ffs) for t in (0, N_TRACERS)
@@ -1024,34 +1122,34 @@ def against_parent(parent: str, card: str, chain_regs: int,
         | {theirs.library_target(N_TRACERS, True, 1, 1, spc,
                                  folds=3 + 4 * (spc > 1))
            for spc in (1, 2)})) if hasattr(
-            theirs, "fold_targets") else ()
-    old_targets = fast_targets + gen_targets + fold_targets
+            theirs, "fold_targets") and not general_only else ()
+    old_targets = fast_targets + gen_targets + fold_targets + persist
     t0 = time.perf_counter()
     theirs_build.build_all(old_targets)
     if fold_targets:            # this checkout's twins, at once too
         _build.build_all(fold_targets)
     regs = ""
-    if all(t in _build.BUILDS for t in fast_targets + gen_targets):
-        n_gen = n_fast = 0
-        for t in fast_targets + gen_targets:
+    if all(t in _build.BUILDS for t in fast_targets + gen_targets + persist):
+        n_old = n_new = 0
+        for t in fast_targets + gen_targets + persist:
             a = sorted(ptxas_table(_build.BUILDS[t]["log"]))
             b = sorted(ptxas_table(theirs_build.BUILDS.get(t, {}).get(
                 "log", "")))
-            if t in gen_targets:
+            if t in gen_targets and not general_loads_by_tma(t):
                 check(a == b, f"{t}: registers or spills differ from the "
                       f"parent's: {sorted(set(a) ^ set(b))[:6]}")
-                n_gen += len(a)
+                n_old += len(a)
                 continue
             lim = chain_regs if "FUSED_STEPS=2" in t else MAX_REGS
             over = [r for r in a if r[1] > lim or r[2] != 0]
             check(not over and len(a) == len(b), f"{t}: {len(a)} "
                   f"instantiations ({len(b)} in the parent's), above "
                   f"{lim} registers or spilling: {over[:6]}")
-            n_fast += len(a)
-        regs = (f"; registers and spills of the general form's {n_gen} "
-                "instantiations == the parent's: yes; the fast form's "
-                f"{n_fast} (the TMA loader) within the launch bound, no "
-                "spill: yes")
+            n_new += len(a)
+        regs = (f"; registers and spills of the {n_old} instantiations on "
+                "the threads' loader == the parent's: yes; the "
+                f"{n_new} on the TMA loader (fast, general, persistent) "
+                "within the launch bound, no spill: yes")
     print(f"against parent: the parent's {len(old_targets)} libraries built "
           f"in {time.perf_counter() - t0:.1f} s{regs}", flush=True)
     print("against parent: the parent's window loads in SASS: " + "; ".join(
@@ -1075,13 +1173,18 @@ def against_parent(parent: str, card: str, chain_regs: int,
     mask = read_mask(os.path.join(REPO, "data", "AS", "maskAzovCor.txt"),
                      basin.nx, basin.ny)
     hr = bathymetry(basin.nx, basin.ny)
-    worst = {True: 0.0, False: 0.0}      # fast: this / parent; general: |1 - it|
+    # redesigned: this / parent; on the threads' loader: |1 - it|
+    worst = {True: 0.0, False: 0.0}
     n_forms, exceptions = 0, []
 
     def compare(fm, cfg, state, raw, fast, tag, shard=None):
         """``shard``: (sharded model, its first shard's fields): that
-        shard's raw launch instead of ``fm``'s."""
+        shard's raw launch instead of ``fm``'s. ``fast``: the fast body
+        (its differences listed); a general form by TMA is judged as
+        redesigned too, bit for bit."""
         nonlocal n_forms
+        redesigned = fast or general_geometry(
+            fm.n_tracers, fm.steps_per_call, fm.visc).tma
         args = model_args(fm, cfg) if shard is None else \
             shard_args(shard[0], cfg, 0, 0)
         old_args = args[:n_old]
@@ -1138,9 +1241,10 @@ def against_parent(parent: str, card: str, chain_regs: int,
             med = {c: float(np.median([u for u, o in zip(us, order)
                                        if o == c])) for c in "PT"}
             ratio = med["T"] / med["P"]
-            if (ratio <= 1.02) if fast else abs(ratio - 1.0) < 0.02:
+            if (ratio <= 1.02) if redesigned else abs(ratio - 1.0) < 0.02:
                 break
-        worst[fast] = max(worst[fast], ratio if fast else abs(ratio - 1.0))
+        worst[redesigned] = max(worst[redesigned], ratio if redesigned
+                                else abs(ratio - 1.0))
         n_forms += 1
         print(f"against parent {tag}: outputs and block max bit-identical: "
               + ("yes" if same else "no (" + exceptions[-1] + ")")
@@ -1163,14 +1267,16 @@ def against_parent(parent: str, card: str, chain_regs: int,
                     for m, k in ((0.0, 1), (MU, 0), (MU, 1))
                     if (t or k) and (f or bool(m) == hr_planes)
                     and (not bathymetry_only or f and hr_planes
-                         and t in (0, N_TRACERS))]:
+                         and t in (0, N_TRACERS))
+                    and not (general_only and f)]:
                 cfg = form_cfg(b, prec, n_tr, trans, ffs, ksw)
                 state = with_mu(init_ocean_state(grid, cfg), mu)
-                for guard, raw in [(g, r) for r in raws
-                                   for g in (False, True)]:
+                for guard, raw, spc in [(g, r, c) for r in raws
+                                        for g in (False, True)
+                                        for c in ((1,) if fast else (1, 2))]:
                     fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu,
                                       tile_guard=guard, static_rslu=fast,
-                                      **UNFOLDED)
+                                      steps_per_call=spc, **UNFOLDED)
                     compare(fm, cfg, state, raw, fast,
                             key_text(form_key(fm)[:5] + (
                                 raw,) + form_key(fm)[6:])
@@ -1178,7 +1284,7 @@ def against_parent(parent: str, card: str, chain_regs: int,
     # the main path's chained and folded forms, where the parent has them:
     # on the coastline guarded, on the frame unguarded (``default``), and
     # azov_visc's first shard of the 2 x 2 split
-    if hasattr(theirs, "fold_targets"):
+    if hasattr(theirs, "fold_targets") and not general_only:
         frame = frame_of_land_mask(basin.nx, basin.ny)
         for where, cg, n_tr, spc, kw in PARENT_MAIN:
             b = dataclasses.replace(basin, curve_grid=cg)
@@ -1200,15 +1306,79 @@ def against_parent(parent: str, card: str, chain_regs: int,
             compare(fs, cfg, state, True, True, key_text(form_key(fs))
                     + " (azov_visc 2 x 2, shard (0, 0))",
                     (fs, c[0].unbind(0)))
-    check(worst[True] <= 1.02 and worst[False] < 0.02, "a fast "
-          f"instantiation's time rose by {worst[True] - 1:.1%} or a general "
-          f"one's moved by {worst[False]:.1%}")
+    if persist:
+        n_forms += parent_persistent(theirs, basin, prec, mask, hr, worst)
+    check(worst[True] <= 1.02 and worst[False] < 0.02, "a redesigned "
+          f"instantiation's time rose by {worst[True] - 1:.1%} or one on the "
+          f"threads' loader moved by {worst[False]:.1%}")
     print(f"against parent ({card}): {n_forms} instantiations, "
           f"{n_forms - len(exceptions)} bit-identical"
           + (f" (not: {'; '.join(exceptions)})" if exceptions else "")
-          + f"; fast forms this / parent at most {worst[True]:.4f}, general "
-          f"forms within {worst[False]:.2%}")
+          + f"; redesigned forms (the TMA loader) this / parent at most "
+          f"{worst[True]:.4f}, forms on the threads' loader within "
+          f"{worst[False]:.2%}")
     return 0
+
+
+def parent_persistent(theirs, basin, prec, mask, hr, worst) -> int:
+    """``against_parent``'s K2 runs: each of ``PERSIST_RUNS`` at full size,
+    one launch of ``N_TIME`` steps of this checkout's persistent kernel and
+    of the parent's (``theirs``: its ``ops.fused_step``) from the same
+    initial state, fields and max bit for bit, then CUDA events around
+    one launch a window (torch.profiler misses cooperative launches) in
+    the order parent, this, this, parent, parent, this, three windows a
+    side (up to nine where this / parent is above 1.02). Folds the ratio
+    into ``worst[True]``; returns the runs held."""
+    from ocean_model_arch_torch.core.grid import build_grid
+    from ocean_model_arch_torch.host import frame_of_land_mask
+    from ocean_model_arch_torch.model.fused import FusedSWModel
+    from ocean_model_arch_torch.model.init import init_ocean_state
+    from ocean_model_arch_torch.ops import fused_step as mine
+    masks = {"frame": frame_of_land_mask(basin.nx, basin.ny), "azov": mask,
+             "azov_hr": mask}
+    for label, _, gname, n_tr, mu, fast, _ in PERSIST_RUNS:
+        grid = build_grid(basin, masks[gname], precision=prec,
+                          hhq_rest=hr if gname == "azov_hr" else None)
+        cfg = form_cfg(basin, prec, n_tr, 1, 1)
+        kw = {"static_rslu": True, **UNFOLDED} if fast else {}
+        fp = FusedSWModel(grid, cfg, 1.0, mu_const=mu, persistent=True, **kw)
+        s0 = fp.pack(with_mu(init_ocean_state(grid, cfg), mu))
+        args = (fp.met, fp.planes, fp.lay, fp.tau, cfg.sw.time_smooth,
+                fp.hr_const, fp.mu_const, fp.visc, fp.trans, fp.ffs)
+        bufs = {c: (tuple(f.clone() for f in s0),
+                    tuple(torch.zeros_like(f) for f in s0)) for c in "PT"}
+        outs = {c: (mine if c == "T" else theirs).fused_sw_persistent(
+            *bufs[c][:1], *args, n_steps=N_TIME, general=fp.general,
+            spare=bufs[c][1]) for c in "PT"}
+        same = (all(torch.equal(a, b) for a, b in zip(outs["T"][0],
+                                                      outs["P"][0]))
+                and torch.equal(outs["T"][1], outs["P"][1]))
+        check(same, f"K2 {label}: {N_TIME} steps differ from the parent's")
+
+        def call(c):
+            return lambda: (mine if c == "T" else theirs).fused_sw_persistent(
+                *bufs[c][:1], *args, n_steps=N_TIME, general=fp.general,
+                spare=bufs[c][1])
+        order, us = "", []
+        for _ in range(3):
+            order += "PTTPPT"
+            us += [cuda_ms(call(c), 1) * 1e3 / N_TIME for c in "PTTPPT"]
+            med = {c: float(np.median([u for u, o in zip(us, order)
+                                       if o == c])) for c in "PT"}
+            ratio = med["T"] / med["P"]
+            if ratio <= 1.02:
+                break
+        worst[True] = max(worst[True], ratio)
+        key = (n_tr, mine.mu_mode(n_tr, mu, fp.visc),
+               fp.hr_const is None and not fp.general, fp.trans, fp.ffs,
+               fp.general)
+        print(f"against parent K2 {label} {key_text(key)}: "
+              f"{N_TIME} steps in one launch bit-identical to the parent's: "
+              "yes; us a step "
+              + ", ".join(f"{'parent' if c == 'P' else 'this'} {u:.2f}"
+                          for u, c in zip(us, order))
+              + f" (medians this / parent {ratio:.4f})", flush=True)
+    return len(PERSIST_RUNS)
 
 
 # ---- phase 9: the entry point and the raw form ------------------------------
@@ -1855,7 +2025,8 @@ def new_form_paths(grids, basin, basin_b, prec, wet, pts, card, name, run):
     ``run``: the dicts the kernels line is made from (launches, kernels,
     plain_ms) and the list of ``bounds`` entries, filled here."""
     from ocean_model_arch_torch.ops import copy_step as cs
-    from ocean_model_arch_torch.ops.fused_step import fused_sw_step_reference
+    from ocean_model_arch_torch.ops.fused_step import (
+        fused_sw_step_reference, general_geometry)
     probe = load_script("roofline_probe_torch")
     paths = (
         ("main path azov_notrans", "azov coastline, trans_terms = 0, "
@@ -2244,11 +2415,10 @@ def chained_paths(grids, cfgs, cfgs_b, basin, basin_b, prec, wet, pts, card,
             run["plain_ms"]["copy_step_chain"] = cuda_ms(
                 lambda: cs.copy_step_reference(windows, met, len(s0), fm.lay,
                                                flags, fm.tile), 20)
-        us_copy, us_threads = (probe.kernel_us(
+        us_copy = probe.kernel_us(
             lambda: cs.copy_step(windows, met, len(s0), fm.lay,
                                  fm.n_tracers > 0, flags, fm.tile, fm.visc,
-                                 2, loader), N_TIME)
-            for loader in ("tma", "threads"))
+                                 2), N_TIME)
         b_ms, b_by, nbytes = bound_ms(fm, fm.n_tracers)
         run["launches"][form] = n
         run["kernels"][form] = (fm, fm.n_tracers, t)
@@ -2260,8 +2430,7 @@ def chained_paths(grids, cfgs, cfgs_b, basin, basin_b, prec, wet, pts, card,
         run["bounds"].append(
             f"{label} chained: kernel {t['ms_kernel'] * 1e3:.1f} us a launch "
             f"of 2 steps, {nbytes / 1e6:.1f} MB, bound {b_ms * 1e3:.1f} us "
-            f"({b_by}), chained copy step {us_copy:.1f} us (by threads "
-            f"{us_threads:.1f}); one step a "
+            f"({b_by}), chained copy step {us_copy:.1f} us; one step a "
             f"launch {one_t['ms_kernel'] * 1e3:.1f} us, bound "
             f"{b1_ms * 1e3:.1f} us")
         texts.append(
@@ -2468,7 +2637,8 @@ def many_tracer_paths(grids, basin, basin_b, prec, wet, pts, card, name,
     from ocean_model_arch_torch.model.fused import FusedSWModel
     from ocean_model_arch_torch.model.init import init_ocean_state
     from ocean_model_arch_torch.ops import copy_step as cs
-    from ocean_model_arch_torch.ops.fused_step import fused_sw_step_reference
+    from ocean_model_arch_torch.ops.fused_step import (
+        fused_sw_step_reference, general_geometry)
     probe = load_script("roofline_probe_torch")
     paths = (
         ("main path azov_tracers4 chained", f"azov coastline, {T_PATH} "
@@ -2808,7 +2978,8 @@ def general_paths(grids, cfgs, cfgs_b, prec, wet, pts, card, name, run,
     the same configuration (``fast``: path -> (model, timing) of this
     run): kernel, byte bound, the copy step of each form, path, idle."""
     from ocean_model_arch_torch.ops import copy_step as cs
-    from ocean_model_arch_torch.ops.fused_step import fused_sw_step_reference
+    from ocean_model_arch_torch.ops.fused_step import (
+        fused_sw_step_reference, general_geometry)
     probe = load_script("roofline_probe_torch")
     paths = (
         ("azov_general", "azov coastline, no tracers, "
@@ -2863,12 +3034,12 @@ def general_paths(grids, cfgs, cfgs_b, prec, wet, pts, card, name, run,
           "two chained a launch")
 
     # (c) the timing of each path beside the fast form of this run
-    def copy_us(m, s):
+    def copy_us(m, s, loader="tma"):
         windows, met = copy_step_inputs(m, s)
         return probe.kernel_us(lambda: cs.copy_step(
             windows, met, len(s), m.lay, tracer_form=m.n_tracers,
             tile_wet=m.tile_wet, tile=m.tile, visc_form=m.visc,
-            steps=m.steps_per_call), N_TIME)
+            steps=m.steps_per_call, loader=loader), N_TIME)
 
     for label, _, gname, cfg, _, _, _, _ in paths:
         fm, s0, _ = models[label]
@@ -2876,9 +3047,14 @@ def general_paths(grids, cfgs, cfgs_b, prec, wet, pts, card, name, run,
         t = time_path(fm, cfg, s0, wet[gname], pts)
         run["kernels"][form] = (fm, fm.n_tracers, t)
         b_ms, b_by, nbytes = bound_ms(fm, fm.n_tracers)
-        head = (f"kernel {t['ms_kernel'] * 1e3:.1f} us a launch, "
+        by_tma = general_geometry(fm.n_tracers, fm.steps_per_call,
+                                  fm.visc).tma
+        head = (f"kernel by {'TMA' if by_tma else 'threads'} "
+                f"{t['ms_kernel'] * 1e3:.1f} us a launch, "
                 f"{nbytes / 1e6:.1f} MB, bound {b_ms * 1e3:.1f} us ({b_by}), "
-                f"copy step of its form {copy_us(fm, s0):.1f} us")
+                f"copy step of its form {copy_us(fm, s0):.1f} us"
+                + ("" if by_tma else
+                   f" (by threads {copy_us(fm, s0, 'threads'):.1f} us)"))
         fm_f, t_f = fast[label.split()[0] + " chained" * (
             fm.steps_per_call == 2)]
         bf_ms, _, bf_bytes = bound_ms(fm_f, fm_f.n_tracers)
@@ -2932,6 +3108,85 @@ PERSIST_RUNS = (
     ("azov_visc", f"azov coastline, 15-100 m bathymetry, mu = {MU:g}, "
      f"{N_TRACERS} tracers", "azov_hr", N_TRACERS, MU, True,
      "fused_sw_persistent_visc_bathy_tracers"))
+# the design of K2's walk this checkout keeps (the kernels line names it)
+WALK_DESIGN = ("tma, design A: three blocks an SM, one set of planes, each "
+               "tile's boxes issued after the last tile's final barrier")
+# the other K2 instantiations run on this cut of the azov coastline's
+# mask (rows, columns: 60 % wet), with two land cells around it
+PERSIST_CUT = ((750, 1150), (300, 600))
+N_PERSIST_TWICE = 200    # steps of each of the two launches held bit for bit
+
+
+def persist_keys() -> list:
+    """Every K2 instantiation as the wrapper counts it: (tracers, mu mode,
+    bathymetry planes, advection, full free surface, general), 132 of them
+    (the fast form's 88, the general form's 44, which has no bathymetry
+    planes of its own)."""
+    return [(t, m, h, tr, fs, g) for g in (False, True) for t in (0, 1, 2, 3)
+            for m in ((0, 2) if t == 0 else (0, 1, 2))
+            for h in ((False,) if g else (False, True))
+            for tr in (1, 0) for fs in (1, 0)]
+
+
+def persistent_forms(basin, prec, mask, done) -> tuple:
+    """Phase 14d: every K2 instantiation but the keys in ``done`` (the six
+    runs of ``PERSIST_RUNS``, held at full size), on ``PERSIST_CUT`` of
+    the coastline: the kernel against the plain version after 1 step
+    (``TOL_ONE``) and after ``N_CARRY`` (``TOL_CARRY``), land exactly 0,
+    each its own instantiation once. Mu mode 1 is the tracers' diffusive
+    fluxes alone (``ksw_lat = 0``); the bathymetry is 15-100 m where the
+    fast form reads its planes and for the general form's viscous ones.
+    Returns (instantiations held, worst relative error, seconds)."""
+    from ocean_model_arch_torch.core.grid import build_grid
+    from ocean_model_arch_torch.model.fused import FusedSWModel
+    from ocean_model_arch_torch.model.init import init_ocean_state
+    from ocean_model_arch_torch.ops import fused_step as fstep
+    t0 = time.perf_counter()
+    (x0, x1), (y0, y1) = PERSIST_CUT
+    cut = np.array(mask[x0:x1, y0:y1], copy=True)
+    cut[:2] = cut[-2:] = 1
+    cut[:, :2] = cut[:, -2:] = 1
+    b = dataclasses.replace(basin, nx=x1 - x0, ny=y1 - y0)
+    grids = {hrp: build_grid(b, cut, hhq_rest=bathymetry(b.nx, b.ny)
+                             if hrp else None, precision=prec)
+             for hrp in (False, True)}
+    worst, n = 0.0, 0
+    for key in persist_keys():
+        if key in done:
+            continue
+        n_tr, mode, hrp, trans, ffs, general = key
+        mu = MU if mode else 0.0
+        cfg = form_cfg(b, prec, n_tr, trans, ffs, 0 if mode == 1 else 1)
+        grid = grids[hrp or (general and mode == 2)]
+        kw = {} if general else {"static_rslu": True, **UNFOLDED}
+        fp = FusedSWModel(grid, cfg, 1.0, mu_const=mu, persistent=True, **kw)
+        s0 = fp.pack(with_mu(init_ocean_state(grid, cfg), mu))
+        args = (fp.met, fp.planes, fp.lay, fp.tau, cfg.sw.time_smooth,
+                fp.hr_const, fp.mu_const, fp.visc, fp.trans, fp.ffs)
+        land = land_masks(fp, grid, n_tr)
+        spare = tuple(torch.zeros_like(f) for f in s0)
+        r1, m1 = fstep.fused_sw_persistent_reference(
+            s0, *args, n_steps=1, general=general)
+        rn, _ = fstep.fused_sw_persistent_reference(
+            r1, *args, n_steps=N_CARRY - 1, general=general)
+        fstep.reset_launch_counts()
+        for n_steps, want, tol in ((1, r1, TOL_ONE), (N_CARRY, rn, TOL_CARRY)):
+            got, _ = fstep.fused_sw_persistent(
+                tuple(f.clone() for f in s0), *args, n_steps=n_steps,
+                general=general, spare=spare)
+            e = max(rel_err(a, w) for a, w in zip(got, want))
+            check(e <= tol, f"persistent {key_text(key)} on the cut: kernel "
+                  f"vs plain after {n_steps} steps, rel error {e:.2e}")
+            check(all(bool((a[lm] == 0).all()) for a, lm in zip(got, land)),
+                  f"persistent {key_text(key)}: a land cell is not 0")
+            worst = max(worst, e)
+        counts = dict(fstep.fused_sw_persistent.form_launches)
+        check(counts == {key: 2}, f"persistent {key_text(key)} launched "
+              f"{counts}")
+        n += 1
+    return n, worst, time.perf_counter() - t0
+
+
 WALK_REPLACES = {"inplace": "scripts/persistent_probe.py:102",
                  "pingpong": "scripts/persistent_probe.py:187",
                  "launches": "scripts/persistent_probe.py:187"}
@@ -2991,7 +3246,8 @@ def walk_phase(card: str, name: str) -> list:
     return entries
 
 
-def persistent_paths(grids, basin, prec, wet, pts, card, name, stats, cell):
+def persistent_paths(grids, basin, prec, wet, pts, card, name, stats, cell,
+                     mask):
     """Phase 14b and 14c: ``FusedSWModel(persistent=True)`` at 1525 x 1115
     on the runs of ``PERSIST_RUNS``: the kernel against the plain version
     after 1 and N_CARRY steps (1e-5, 1e-4), land exactly 0; the main path,
@@ -3005,7 +3261,7 @@ def persistent_paths(grids, basin, prec, wet, pts, card, name, stats, cell):
     from ocean_model_arch_torch.model.fused import FusedSWModel
     from ocean_model_arch_torch.model.init import init_ocean_state
     from ocean_model_arch_torch.ops import fused_step as fstep
-    texts, entries = [], []
+    texts, entries, done_keys = [], [], set()
     for label, what, gname, n_tr, mu, fast, entry in PERSIST_RUNS:
         grid = grids[gname]
         cfg = form_cfg(basin, prec, n_tr, 1, 1)
@@ -3057,17 +3313,22 @@ def persistent_paths(grids, basin, prec, wet, pts, card, name, stats, cell):
               f"{N_MAIN} steps, expected one of {key}")
         f1 = FusedSWModel(grid, cfg, 1.0, mu_const=mu, tile_guard=False, **kw)
         want, wok = f1.run_steps(s0, N_MAIN)
-        same = all(torch.equal(a, b) for a, b in zip(s, want))
+        # bit for bit, in this launch and in another: a box that read a
+        # cell before the fences let it would show now and then
+        s2, _ = fp.run_steps(tuple(f.clone() for f in s0), N_MAIN)
+        same = wok and all(torch.equal(a, b) and torch.equal(c, b)
+                           for a, c, b in zip(s, s2, want))
         e200 = max(rel_err(a, b) for a, b in zip(s, want))
-        check(wok and (same or e200 <= TOL_ONE), f"{label}: {N_MAIN} steps "
-              f"in one launch vs run_steps: rel error {e200}")
+        check(same, f"{label}: {N_MAIN} steps in one launch, twice, vs "
+              f"run_steps: not bit for bit (rel error {e200})")
+        done_keys.add(key)
         guard_trips(fp, s0, cell, f"{label} persistent")
         print(f"phase 14b main path {label} ({what}): {N_MAIN} steps in "
               f"{launches} launch of <{','.join(str(int(k)) for k in key)}> "
               f"(tracers, mu mode, bathymetry planes, advection, full free "
               f"surface, general), no one-step launch, ok={ok}; == run_steps "
-              f"at one step a launch ({N_MAIN} launches) bit for bit: "
-              f"{'yes' if same else f'no, rel err {e200:.2e} <= {TOL_ONE}'}; "
+              f"at one step a launch ({N_MAIN} launches) bit for bit, in two "
+              "launches: yes; "
               f"kernel vs plain version rel err 1 step {errs[1]:.2e} <= "
               f"{TOL_ONE}, {N_CARRY} steps {errs[N_CARRY]:.2e} <= "
               f"{TOL_CARRY}; land exactly 0: yes; guard: ok=False on an "
@@ -3125,9 +3386,20 @@ def persistent_paths(grids, basin, prec, wet, pts, card, name, stats, cell):
             "replaces": PALLAS + ":1355", "launches": launches,
             "max_abs_err": stats[entry], "ms": us_step / 1e3,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None})
+            "library_ms": None, "loader": WALK_DESIGN})
     print(f"phase 14c timing ({name}; {card}), a model step each: "
           + " || ".join(texts))
+    n_cut, worst, secs = persistent_forms(basin, prec, mask, done_keys)
+    (x0, x1), (y0, y1) = PERSIST_CUT
+    check(n_cut + len(done_keys) == len(persist_keys()) == 132,
+          f"{n_cut} + {len(done_keys)} of {len(persist_keys())} persistent "
+          "instantiations held")
+    print(f"phase 14d every persistent instantiation: the {len(done_keys)} "
+          f"above at full size, the other {n_cut} on rows {x0}-{x1}, columns "
+          f"{y0}-{y1} of the coastline ({x1 - x0} x {y1 - y0}): kernel vs "
+          f"plain version within {TOL_ONE} after 1 step and {TOL_CARRY} "
+          f"after {N_CARRY} (worst {worst:.2e}), land exactly 0, each its "
+          f"own instantiation; {secs:.1f} s")
     return entries
 
 
@@ -3632,9 +3904,9 @@ def fl_margin(steps: int, fs) -> int:
 
 def main(argv=()) -> int:
     if argv and (len(argv) not in (2, 3) or argv[0] != "--parent"
-                 or argv[2:] not in ([], ["--bathymetry"])):
-        print("usage: chip_smoke.py [--parent DIR [--bathymetry]]",
-              file=sys.stderr)
+                 or argv[2:] not in ([], ["--bathymetry"], ["--general"])):
+        print("usage: chip_smoke.py [--parent DIR [--bathymetry | "
+              "--general]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -3650,9 +3922,9 @@ def main(argv=()) -> int:
     from ocean_model_arch_torch.model.step import make_step
     from ocean_model_arch_torch.ops import _build, copy_step as cs
     from ocean_model_arch_torch.ops.fused_step import (
-        _library as _fused_library, chain_smem, fold_targets, fused_sw_step,
-        fused_sw_step_reference, library_targets, persist_targets,
-        tile_shape)
+        TILES, _library as _fused_library, chain_smem, fold_targets,
+        fused_sw_step, fused_sw_step_reference, general_geometry,
+        library_target, library_targets, persist_targets, tile_shape)
     from ocean_model_arch_torch.ops import vpu_probe as vp
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3669,107 +3941,169 @@ def main(argv=()) -> int:
     targets = (library_targets() + library_targets(general=True)
                + persist_targets() + ("copy_step", "persistent_probe")
                + vpu_targets)
-    # the seconds each phase took, printed at the end
+    # the seconds each phase took, printed as each ends and at the end
     marks = [("start", time.perf_counter())]
-    t0 = time.perf_counter()
-    libs = _build.build_all(targets)
-    build_s = time.perf_counter() - t0
-    # the fast forms' folded instantiations (96 libraries) build in the
-    # background while phases 2-14 run on the card: in the foreground
-    # they took 217 s more, and the whole run 1018 s of its 1200 (H100
-    # host, 8 cores). A phase that loads one first builds it itself.
-    fold_build = None
-    if not argv:
-        fold_build = concurrent.futures.ThreadPoolExecutor(1).submit(
-            build_behind, fold_targets() + one_fold_targets())
-    fused_regs = [row for t in library_targets() for row in ptxas_table(
-        _build.BUILDS.get(t, {}).get("log", ""))]
-    gen_regs = [row for t in library_targets(general=True) for row in
-                ptxas_table(_build.BUILDS.get(t, {}).get("log", ""))]
-    copy_regs = ptxas_table(_build.BUILDS.get("copy_step", {}).get("log", ""))
-    persist_regs = [row for t in persist_targets() for row in ptxas_table(
-        _build.BUILDS.get(t, {}).get("log", ""))]
-    walk_regs = [(int(m.group(1)), int(m.group(2))) for m in re.finditer(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-        _build.BUILDS.get("persistent_probe", {}).get("log", ""))]
+
+    def mark(phase: str) -> None:
+        marks.append((phase, time.perf_counter()))
+        print(f"phase {phase} took {marks[-1][1] - marks[-2][1]:.1f} s "
+              f"({marks[-1][1] - marks[0][1]:.1f} s in all)", flush=True)
+
     # the chained forms' launch bound: 65536 registers over its threads
-    # and blocks an SM
-    lib2 = _fused_library(steps=2)
-    chain_regs = 65536 // (lib2.fused_sw_step_threads()
-                           * lib2.fused_sw_step_min_blocks())
-    print(card)
-    print(f"phase 1 device: {name}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}; {nvcc_ver}; kernel build ({len(targets)} "
-          f"libraries at once) {build_s:.2f} s -> "
-          + ", ".join(os.path.relpath(so, REPO) for so in libs)
-          + f"; ptxas, {len(fused_regs)} instantiations of "
-          "fused_sw_step_kernel<tracers,guard,plane metrics,mu mode,"
-          "bathymetry planes,raw,advection,full free surface,steps>: "
-          + ptxas_summary(fused_regs)
-          + f"; the general form (general = 1, {len(gen_regs)} "
-          "instantiations): " + ptxas_summary(gen_regs)
-          + f"; the persistent form (K2, {len(persist_regs)} "
-          "instantiations of fused_sw_persist_kernel<tracers,mu mode,"
-          "bathymetry planes,advection,full free surface>, fast then general "
-          "libraries): " + ptxas_summary(persist_regs)
-          + "; its loads of the carried fields through the non-coherent path "
-          "(cuobjdump -sass: LDG .CONSTANT / .NC in the persistent "
-          f"libraries): {nc_loads(persist_targets())}"
-          + "; walk_kernel<in place> (K5): spill bytes "
-          + (", ".join(f"{a} + {b}" for a, b in walk_regs) or "(cached)")
-          + "; copy_step_kernel<tracer window,steps,stacked>: "
-          + ptxas_summary(copy_regs) + "; the op-cost probes (K6, K7, "
-          + ", ".join(vpu_targets) + "): " + ptxas_summary(
-              [r for t in vpu_targets for r in vpu_ptxas(
-                  _build.BUILDS.get(t, {}).get("log", ""))])
-          + f"; chained tile "
-          f"{tile_shape('cuda', 2)} of {lib2.fused_sw_step_threads()} "
-          f"threads, launch bound {lib2.fused_sw_step_min_blocks()} blocks "
-          f"an SM ({chain_regs} registers); chained shared memory a block, "
-          "T: KB (tracer levels kept / 2 T; viscous) " + ", ".join(
-              f"{t}: {a / 1024:.1f} ({la}/{2 * t}; {b / 1024:.1f}, "
-              f"{lb}/{2 * t})" for t in range(3, 11)
-              for (a, la), (b, lb) in [(chain_smem(t), chain_smem(t, True))]))
-    # the steps a launch: the fused kernel's ninth template argument, the
-    # copy kernel's second
-    over = [r for r in fused_regs + gen_regs + copy_regs
-            if r[1] > (chain_regs if r[0][1:-1].split(",")[
-                8 if r in fused_regs or r in gen_regs else 1] == "2"
-                       else MAX_REGS)
-            or r[2] != 0]
-    over += [r for r in persist_regs if r[1] > MAX_REGS or r[2] != 0]
-    over += [r for r in walk_regs if r != (0, 0)]
-    check(not over, f"instantiations above {MAX_REGS} registers (one step a "
-          f"launch) or {chain_regs} (chained), or with spills: {over}")
-    if all(t in _build.BUILDS for t in targets):     # none was cached
-        check(len(fused_regs) == 1408 and len(gen_regs) == 704
-              and len(copy_regs) == 12 and len(persist_regs) == 132
-              and len(walk_regs) == 2,
-              f"{len(fused_regs)} fused, {len(gen_regs)} general, "
-              f"{len(persist_regs)} persistent, {len(copy_regs)} copy-step "
-              f"and {len(walk_regs)} walk instantiations in the build logs")
-    check(all(cs.tile_shape("cuda", s) == tile_shape("cuda", s)
-              for s in (1, 2)),
-          "the copy step and the fused step were built with different tiles")
-    cs_so, k1_so = _build.build("copy_step"), _build.build(
-        library_targets()[0])
-    print(f"phase 1 loader: TMA loads (cuobjdump -sass, UTMALDG) "
-          + tma_loads(library_targets() + ("copy_step",),
-                      library_targets(general=True) + persist_targets())
-          + "; " + geometry_mirror() + "; window loads in SASS (the "
-          "innermost loop that loads window cells): " + "; ".join(
-              loader_sass(label, so, kern) for label, so, kern in (
-                  ("copy step by threads <0,1,0,0>", cs_so,
-                   "copy_step_kernelILi0ELi1ELb0ELb0E"),
-                  ("copy step by TMA <0,1,0,1>", cs_so,
-                   "copy_step_kernelILi0ELi1ELb0ELb1E"),
-                  ("fused step T=0 one step <0,0,0,0,0,0,1,1,1,0>", k1_so,
-                   "fused_sw_step_kernelILi0ELb0ELb0ELi0ELb0ELb0ELb1ELb1"
-                   "ELi1ELb0E"))), flush=True)
+    # and blocks an SM (phase 1's checks hold it against the library's)
+    chain_regs = 65536 // (TILES[2][2] * TILES[2][3])
+    gen_tma = tuple(t for t in library_targets(general=True)
+                    if general_loads_by_tma(t))
+    gen_threads = tuple(t for t in library_targets(general=True)
+                        if t not in gen_tma)
+
+    def sass_checks() -> str:
+        """Phase 1's look at the libraries' SASS (cuobjdump, minutes of
+        CPU for about 100 libraries)."""
+        return (
+            "phase 1 SASS: the persistent libraries' loads of the carried "
+            "fields through the non-coherent path (LDG .CONSTANT / .NC): "
+            + nc_loads(persist_targets()) + "; TMA loads (UTMALDG) "
+            + tma_loads(library_targets() + ("copy_step",)
+                        + persist_targets() + gen_tma, gen_threads)
+            + "; window loads in SASS (the innermost loop that loads "
+            "window cells): " + "; ".join(
+                loader_sass(label, _build.build(t), kern)
+                for label, t, kern in (
+                    ("copy step by threads <0,1,0,0>", "copy_step",
+                     "copy_step_kernelILi0ELi1ELb0ELb0E"),
+                    ("copy step by TMA <0,1,0,1>", "copy_step",
+                     "copy_step_kernelILi0ELi1ELb0ELb1E"),
+                    ("fused step T=0 one step <0,0,0,0,0,0,1,1,1,0>",
+                     library_targets()[0],
+                     "fused_sw_step_kernelILi0ELb0ELb0ELi0ELb0ELb0ELb1"
+                     "ELb1ELi1ELb0E"),
+                    ("general step T=0 one step <0,0,0,0,0,0,1,1,1,1>",
+                     library_targets(general=True)[0],
+                     "fused_sw_step_kernelILi0ELb0ELb0ELi0ELb0ELb0ELb1"
+                     "ELb1ELi1ELb1E"),
+                    ("persistent walk T=0 <0,0,0,1,1>", persist_targets()[0],
+                     "fused_sw_persist_kernelILi0ELi0ELb0ELb1ELb1E"))))
+
+    t0 = time.perf_counter()
     if argv:
+        _build.build_all(targets)
+        build_s = time.perf_counter() - t0
+        build_how = "at once"
+    else:
+        # Every library builds behind the phases on the card, at nice 10,
+        # a core's worth at a time, about in the order the phases need
+        # them: the fast one-step forms, the rest of the fast ones, the
+        # general and persistent forms, the probes, then the folded twins
+        # (phase 15; the few the entry points of phases 9-12 launch first
+        # build as those load them). A phase that loads a library not
+        # built yet builds it itself, or waits for the build under way.
+        # In the foreground the 93 took 266 s before phase 2 and the run
+        # 1071.5 s of command (H100 host, 8 cores); phase 1's checks of
+        # the builds print at the end, its SASS is read behind the phases
+        # once the build is done.
+        first = tuple(library_target(n) for n in (0, 1, 2))
+        queue = (first + tuple(t for t in library_targets()
+                               if t not in first)
+                 + library_targets(general=True) + persist_targets()
+                 + ("copy_step", "persistent_probe") + vpu_targets
+                 + fold_targets() + one_fold_targets())
+        build = concurrent.futures.ThreadPoolExecutor(1).submit(
+            build_behind, queue)
+
+        def after_build():
+            build.result()
+            os.nice(10)
+            return time.perf_counter() - t0, sass_checks()
+        sass = concurrent.futures.ThreadPoolExecutor(1).submit(after_build)
+        build_how = "behind the phases on the card (nice 10)"
+
+    def phase1_checks():
+        """Phase 1's lines: the builds' registers and spills, the loader's
+        geometry, the walk's grid."""
+        libs = [_build.build(t) for t in targets]
+        lib2 = _fused_library(steps=2)
+        check(chain_regs == 65536 // (lib2.fused_sw_step_threads()
+                                      * lib2.fused_sw_step_min_blocks()),
+              "the chained library's launch bound is not TILES[2]'s")
+        fused_regs = [row for t in library_targets() for row in ptxas_table(
+            _build.BUILDS.get(t, {}).get("log", ""))]
+        gen_regs = [row for t in library_targets(general=True) for row in
+                    ptxas_table(_build.BUILDS.get(t, {}).get("log", ""))]
+        copy_regs = ptxas_table(_build.BUILDS.get("copy_step", {}).get(
+            "log", ""))
+        persist_regs = [row for t in persist_targets() for row in ptxas_table(
+            _build.BUILDS.get(t, {}).get("log", ""))]
+        walk_regs = [(int(m.group(1)), int(m.group(2))) for m in re.finditer(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+            _build.BUILDS.get("persistent_probe", {}).get("log", ""))]
+        print(card)
+        print(f"phase 1 device: {name}; torch {torch.__version__} cuda "
+              f"{torch.version.cuda}; {nvcc_ver}; kernel build "
+              f"({len(targets)} libraries {build_how}) {build_s:.2f} s -> "
+              + ", ".join(os.path.relpath(so, REPO) for so in libs)
+              + f"; ptxas, {len(fused_regs)} instantiations of "
+              "fused_sw_step_kernel<tracers,guard,plane metrics,mu mode,"
+              "bathymetry planes,raw,advection,full free surface,steps>: "
+              + ptxas_summary(fused_regs)
+              + f"; the general form (general = 1, {len(gen_regs)} "
+              "instantiations): " + ptxas_summary(gen_regs)
+              + f"; the persistent form (K2, {len(persist_regs)} "
+              "instantiations of fused_sw_persist_kernel<tracers,mu mode,"
+              "bathymetry planes,advection,full free surface>, fast then "
+              "general libraries): " + ptxas_summary(persist_regs)
+              + "; walk_kernel<in place> (K5): spill bytes "
+              + (", ".join(f"{a} + {b}" for a, b in walk_regs)
+                 or "(cached)")
+              + "; copy_step_kernel<tracer window,steps,stacked>: "
+              + ptxas_summary(copy_regs) + "; the op-cost probes (K6, K7, "
+              + ", ".join(vpu_targets) + "): " + ptxas_summary(
+                  [r for t in vpu_targets for r in vpu_ptxas(
+                      _build.BUILDS.get(t, {}).get("log", ""))])
+              + f"; chained tile "
+              f"{tile_shape('cuda', 2)} of {lib2.fused_sw_step_threads()} "
+              f"threads, launch bound {lib2.fused_sw_step_min_blocks()} "
+              f"blocks an SM ({chain_regs} registers); chained shared memory "
+              "a block, T: KB (tracer levels kept / 2 T; viscous) "
+              + ", ".join(
+                  f"{t}: {a / 1024:.1f} ({la}/{2 * t}; {b / 1024:.1f}, "
+                  f"{lb}/{2 * t})" for t in range(3, 11)
+                  for (a, la), (b, lb) in [(chain_smem(t),
+                                            chain_smem(t, True))]))
+        # the steps a launch: the fused kernel's ninth template argument,
+        # the copy kernel's second
+        over = [r for r in fused_regs + gen_regs + copy_regs
+                if r[1] > (chain_regs if r[0][1:-1].split(",")[
+                    8 if r in fused_regs or r in gen_regs else 1] == "2"
+                           else MAX_REGS)
+                or r[2] != 0]
+        over += [r for r in persist_regs if r[1] > MAX_REGS or r[2] != 0]
+        over += [r for r in walk_regs if r != (0, 0)]
+        check(not over, f"instantiations above {MAX_REGS} registers (one "
+              f"step a launch) or {chain_regs} (chained), or with spills: "
+              f"{over}")
+        if all(t in _build.BUILDS for t in targets):     # none was cached
+            check(len(fused_regs) == 1408 and len(gen_regs) == 704
+                  and len(copy_regs) == 12 and len(persist_regs) == 132
+                  and len(walk_regs) == 2,
+                  f"{len(fused_regs)} fused, {len(gen_regs)} general, "
+                  f"{len(persist_regs)} persistent, {len(copy_regs)} "
+                  f"copy-step and {len(walk_regs)} walk instantiations in "
+                  "the build logs")
+        check(all(cs.tile_shape("cuda", s) == tile_shape("cuda", s)
+                  for s in (1, 2)),
+              "the copy step and the fused step were built with different "
+              "tiles")
+        print("phase 1 loader: " + geometry_mirror(), flush=True)
+        print("phase 1 persistent grid: " + persistent_grids(), flush=True)
+
+    if argv:
+        phase1_checks()
+        print(sass_checks(), flush=True)
         return against_parent(argv[1], card, chain_regs,
-                              "--bathymetry" in argv)
-    marks.append(("1", time.perf_counter()))
+                              argv[2] if argv[2:] else None)
+    print(card)
+    mark("1")
 
     basin = basinpar_as250m_test()
     basin_b = dataclasses.replace(basin, curve_grid=2)
@@ -3837,7 +4171,7 @@ def main(argv=()) -> int:
     compare_forms("bipolar_azov mu=1000 15-100 m", grids["bipolar_azov_hr"],
                   cfgs_b, max_abs, MU)
 
-    marks.append(("2", time.perf_counter()))
+    mark("2")
 
     # ---- phase 3: the first main path (frame, no tracers, unguarded) ---
     launches = {}
@@ -3974,7 +4308,7 @@ def main(argv=()) -> int:
           f"{N_TRACERS} tracers carried, and at the same cell of "
           "bipolar_azov")
 
-    marks.append(("3-6", time.perf_counter()))
+    mark("3-6")
 
     # ---- phase 8: the fourth main path (viscosity, bathymetry) ---------
     fm_v, state_v, s0_v, launches["fused_sw_step_visc_bathy_tracers"], \
@@ -4047,7 +4381,7 @@ def main(argv=()) -> int:
     t_btoff = time_path(fm_btoff, cfgs_b[N_TRACERS], s0_bt,
                         wet["bipolar_azov"], pts)
 
-    marks.append(("8", time.perf_counter()))
+    mark("8")
 
     # ---- phase 9: the entry point and the raw form ---------------------
     entry_point(card, name)
@@ -4096,7 +4430,7 @@ def main(argv=()) -> int:
           f"(azov_visc), {plain_ms['fused_sw_step_raw_fast2d']:.4f} "
           "(bipolar_azov) ms/launch")
 
-    marks.append(("9", time.perf_counter()))
+    mark("9")
 
     # ---- phase 10: no advection, a linear free surface; the examples ---
     n_new = compare_new_forms(grids, basin, basin_b, prec, max_abs)
@@ -4110,7 +4444,7 @@ def main(argv=()) -> int:
     new_form_paths(grids, basin, basin_b, prec, wet, pts, card, name, run)
     shipped_examples(card, name, max_abs, run)
 
-    marks.append(("10", time.perf_counter()))
+    mark("10")
 
     # ---- phase 11: two chained steps a launch --------------------------
     run["copy_chain"] = {}
@@ -4122,7 +4456,7 @@ def main(argv=()) -> int:
                    "bipolar_azov": (fm_b, t_b), "azov_visc": (fm_v, t_v)})
     launches["copy_step_chain"] = cs.copy_step.loader_launches["tma"]
 
-    marks.append(("11", time.perf_counter()))
+    mark("11")
 
     # ---- phase 12: any number of tracers --------------------------------
     n_many = many_tracer_forms(grids, basin, basin_b, prec, max_abs)
@@ -4141,11 +4475,11 @@ def main(argv=()) -> int:
     many_tracer_entry_point(card, name)
     many_tracer_timing(grids, basin, prec, wet, pts, card, name, run, many)
 
-    marks.append(("12", time.perf_counter()))
+    mark("12")
 
     # ---- phase 13: the general form -------------------------------------
     n_gen = general_forms(grids, basin, basin_b, prec, max_abs)
-    marks.append(("13a", time.perf_counter()))
+    mark("13a")
     print(f"phase 13a kernel vs plain: the general form's {n_gen} "
           "instantiations (profile and plane metrics, T = 0, 1, 2 and the "
           f"run-time family at {T_LOOP[0]}, each mu mode, with and without "
@@ -4165,23 +4499,23 @@ def main(argv=()) -> int:
                                 fm_cc, kernels["fused_sw_step_chain_guarded"]
                                 [2])}, cell)
 
-    marks.append(("13b-c", time.perf_counter()))
+    mark("13b-c")
 
     # ---- phase 14: the persistent step (K2) and its probe (K5) -----------
     walk_entries = walk_phase(card, name)
     persist_entries = persistent_paths(grids, basin, prec, wet, pts, card,
-                                       name, max_abs, cell)
+                                       name, max_abs, cell, masks["azov"])
 
-    marks.append(("14", time.perf_counter()))
+    mark("14")
 
     # ---- phase 15: K1's arithmetic folds ----------------------------------
     fold_phase(grids, basin, basin_b, prec, wet, pts, card, name, run,
-               max_abs, cell, fold_build, chain_regs)
-    marks.append(("15", time.perf_counter()))
+               max_abs, cell, build, chain_regs)
+    mark("15")
 
     # ---- phase 16: the op-cost probes (K6, K7) ----------------------------
     probe_entries = probe_phase(card, name)
-    marks.append(("16", time.perf_counter()))
+    mark("16")
 
     # ---- phase 7: the copy step ----------------------------------------
     # kernel vs plain version on what each form of the fused step loads:
@@ -4217,22 +4551,30 @@ def main(argv=()) -> int:
     windows0, met0 = copy_step_inputs(fm, s0)
     plain_ms["copy_step"] = cuda_ms(
         lambda: cs.copy_step_reference(windows0, met0, 6, lay), 20)
+    windows_t, met_t = load_script("roofline_probe_torch").form_inputs(
+        lay, 0, True, "cuda", visc=True, hr_varies=True)
+    plain_ms["copy_step_threads"] = cuda_ms(
+        lambda: cs.copy_step_reference(windows_t, met_t, 6, lay), 20)
     # the probe's entry point: every form, random inputs from a seed
     probe = load_script("roofline_probe_torch")
     cs.copy_step.launches = 0
     cs.copy_step.loader_launches.clear()
-    forms = probe.probe(basin.nx, basin.ny, tuple(masks.items()), N_TIME)
+    # the threads' loader is the floor only of the forms that keep it:
+    # the viscous fast forms on metric planes (every general form the
+    # probe's inputs stand for loads by TMA)
+    forms = probe.probe(basin.nx, basin.ny, tuple(masks.items()), N_TIME,
+                        threads=THREADS_FORMS)
     # the small bipolar basin's own layout: the plane-metric form
     forms_s = probe.probe(basin_s.nx, basin_s.ny, (
         ("frame", frame_of_land_mask(basin_s.nx, basin_s.ny)),), N_TIME,
-        forms=((0, True, False, False),))
+        forms=((0, True, False, False),), threads=THREADS_FORMS)
     # the layout of one shard of the 2 x 2 uniform split (the raw form's
     # array), guarded by that shard's own part of the coastline
     fs_u = sh_v["uniform"][0]
     forms_r = probe.probe(fs_u.lx[0], fs_u.ly[0], (
         ("azov shard (0, 0)", masks["azov"][:fs_u.lx[0], :fs_u.ly[0]]),),
         N_TIME, forms=((N_TRACERS, False, True, True),
-                       (0, True, False, False)))
+                       (0, True, False, False)), threads=THREADS_FORMS)
     launches["copy_step"] = cs.copy_step.loader_launches["tma"]
     launches["copy_step_threads"] = cs.copy_step.loader_launches["threads"]
     # K4: the stacked copy step, exactly against its plain version on the
@@ -4248,12 +4590,16 @@ def main(argv=()) -> int:
     plain_ms["copy_step_stacked"] = cuda_ms(lambda: cs.copy_step_reference(
         stack0.unbind(0), met_k4, k4[0]["n_out"], lay), 20)
     n_forms = len(probe.FORMS) * (1 + len(masks)) + 2 + len(forms_r)
-    # each form timed with each loader (TMA, threads)
-    check(launches["copy_step"] == launches["copy_step_threads"]
-          == n_forms * (N_TIME + 1)
+    n_threads = sum(r["us_threads"] is not None
+                    for r in forms + forms_s + forms_r)
+    # each form timed by TMA, the forms that keep it by threads too
+    check(launches["copy_step"] == n_forms * (N_TIME + 1)
+          and launches["copy_step_threads"] == n_threads * (N_TIME + 1)
+          and n_threads == len(THREADS_FORMS) * (1 + len(masks))
           and len(forms) + len(forms_s) + len(forms_r) == n_forms,
           f"the probe launched the copy step {launches['copy_step']} times "
-          f"for {len(forms) + len(forms_s) + len(forms_r)} forms")
+          f"by TMA and {launches['copy_step_threads']} by threads for "
+          f"{len(forms) + len(forms_s) + len(forms_r)} forms")
 
     def cs_key(r):
         return (r["n_tracers"], r["guard"], r["met2d"], r["visc"],
@@ -4267,7 +4613,9 @@ def main(argv=()) -> int:
 
     def cs_text(r):
         return (f"{probe.form_name(r)} {r['us']:.2f} ("
-                f"{r['us_threads']:.2f}; {r['bound_us']:.2f}, "
+                + (f"by threads {r['us_threads']:.2f}; "
+                   if r["us_threads"] is not None else "")
+                + f"{r['bound_us']:.2f}, "
                 f"{r['bytes'] / 1e6:.1f} MB, "
                 f"{r['bytes'] / r['us'] / 1e6:.3f} TB/s)")
     print(f"phase 7 copy step ({name}; {card}): kernel == plain version "
@@ -4344,7 +4692,11 @@ def main(argv=()) -> int:
             "form on shard (0, 0)'s layout "
             + (f"{row['us']:.1f} us" if row else "not measured"))
     print(f"bounds ({card}): " + "; ".join(floors + run["bounds"]))
-    marks.append(("7", time.perf_counter()))
+    mark("7")
+    build_s, sass_text = sass.result()
+    phase1_checks()
+    print(sass_text, flush=True)
+    mark("1 (its checks)")
     print(f"phase seconds ({card}): " + ", ".join(
         f"{k} {t - t0:.1f}" for (_, t0), (k, t) in zip(marks, marks[1:]))
         + f"; all {marks[-1][1] - marks[0][1]:.1f}")
@@ -4356,23 +4708,29 @@ def main(argv=()) -> int:
         else:
             b_ms, b_by, _ = bound_ms(m, n_tr)
         check(launches[form] > 0, f"{form} was never launched on its path")
+        by_tma = (general_geometry(m.n_tracers, m.steps_per_call, m.visc).tma
+                  if m.general else not (m.metrics_2d and m.visc))
         entries.append({
             "name": form, "route": "cuda", "source": CSRC + "fused_step.cu",
             "replaces": replaces(form), "launches": launches[form],
             "max_abs_err": max_abs[form], "ms": t["ms_kernel"],
             "plain_ms": plain_ms[form], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None})
-    # the copy step beside the fused step's first form (T=0, profile): the
-    # TMA loader, and the threads' (ASYNC = 0; the phase-7 launches of both)
-    row0 = cs_us[0, None, False, False, False]
-    for entry, key in (("copy_step", "us"),
-                       ("copy_step_threads", "us_threads")):
+            "bound_by": b_by, "library_ms": None,
+            "loader": "tma" if by_tma else "threads"})
+    # the copy step beside the fused step's first form (T=0, profile) by
+    # TMA, and by threads beside the form that keeps that loader (the
+    # viscous one on metric planes over bathymetry; the phase-7 launches
+    # of each)
+    row0, row_t = (cs_us[(*f[:1], None, *f[1:])] for f in
+                   ((0, False, False, False), THREADS_FORMS[0]))
+    for entry, row, key in (("copy_step", row0, "us"),
+                            ("copy_step_threads", row_t, "us_threads")):
         entries.append({
             "name": entry, "route": "cuda", "source": CSRC + "copy_step.cu",
             "replaces": REPLACES["copy_step"],
             "launches": launches[entry], "max_abs_err": cs_err,
-            "ms": row0[key] / 1e3, "plain_ms": plain_ms["copy_step"],
-            "bound_ms": nbytes0 / PEAK_BYTES * 1e3,
+            "ms": row[key] / 1e3, "plain_ms": plain_ms[entry],
+            "bound_ms": row["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": None})
     # the chained copy step beside the chained form of azov_mask (T=0,
     # profile, guarded): the same bytes as one step's, for two steps

@@ -36,6 +36,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # name -> {"path", "seconds", "log"} of the builds made by this process
 BUILDS: dict = {}
+# one lock a target: a caller that asks for a library another thread is
+# building waits for that build instead of starting a second one
+_LOCKS: dict = {}
+_LOCKS_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -49,7 +53,15 @@ def nvcc() -> str:
 def build(name: str) -> str:
     """Compile the target ``name`` (``<source>``, or
     ``<source>@<MACRO>=<value>`` with one or more defines) unless its
-    hashed library exists; returns the library path."""
+    hashed library exists; returns the library path. Another thread's
+    build of the same target is waited for, not repeated."""
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        return _build_locked(name)
+
+
+def _build_locked(name: str) -> str:
     source, *defines = name.split("@")
     src = os.path.join(CSRC, source + ".cu")
     flags = NVCC_FLAGS + tuple("-D" + d for d in defines)

@@ -329,13 +329,35 @@
 // A box begins and its rows end on 16 bytes, so the one-step T = 0
 // window is 40 columns wide, not 38, and the chained one 48, not 44
 // (every form's: fused_tile.cuh), and each plane starts at 128 bytes (the
-// block's planes are aligned within 128 bytes more of shared memory). The general body (sw_step_gen) and the
-// persistent walk (WalkTile) keep the loads of threads: the loader is a
-// compile-time choice of the Where policy. Every stage's arithmetic is
-// unchanged, the same expressions in the same order, so the outputs and
-// block maxima are those of the loads of threads bit for bit. Step A of a
-// chained launch writes u and v in place into planes TMA filled: past the
-// mbarrier's wait they are ordinary shared memory, one tile a block.
+// block's planes are aligned within 128 bytes more of shared memory). The
+// loader is a compile-time choice of the Where policy. Every stage's
+// arithmetic is unchanged, the same expressions in the same order, so the
+// outputs and block maxima are those of the loads of threads bit for bit.
+// Step A of a chained launch writes u and v in place into planes TMA
+// filled: past the mbarrier's wait they are ordinary shared memory.
+//
+// The general body's loader (sw_step_gen under GenPlan, fused_tile.cuh):
+// ssh, u, v, lu and hr, and a viscous form's up, vp, each one box of the
+// window, two mbarrier groups (stage 0, stage 1). That body reads up to a
+// dozen metric values a cell from device memory (16 planes on metric
+// planes) through L1, so its budget is the carveout its threads' twin
+// sits in, not the SM: a form moves only where its blocks keep that
+// carveout with the 40-column window (164 KB one step without tracers,
+// with 15 working planes: S_AQP is the tracers' column only; 196 KB with
+// tracers, and hr gets a plane of its own; 196 KB / 228 KB viscous;
+// chained with tracers, one block), and every general kernel is given its
+// carveout (cudaFuncAttributePreferredSharedMemoryCarveout). The chained
+// forms without tracers keep the threads' loader: their 48-column window
+// takes two blocks past 196 KB.
+//
+// K2's walk (WalkTile, below) loads each tile by TMA, the fast body with
+// Plan, the general one with GenPlan: the barriers are initialised once a
+// launch, each tile is one phase of them (its parity flips from tile to
+// tile and from step to step), and two proxy fences order the async
+// proxy's boxes after the generic proxy's accesses: fence.proxy.async.
+// shared::cta after a tile's planes are done with, before the next tile's
+// boxes land in them, and fence.proxy.async.global around the grid
+// barrier, before a step's boxes read what other blocks stored.
 
 #include "fused_tile.cuh"
 #include "tma.cuh"
@@ -466,10 +488,17 @@ enum {
 };
 struct Maps {
   CUtensorMap m[N_TMAP];
+  __device__ __forceinline__ const CUtensorMap* at(int slot) const {
+    return &m[slot];
+  }
 };
 struct NoMaps {};
 static_assert(sizeof(Params) + sizeof(Maps) + 64 <= 4096,
               "kernel parameters are 4 KB");
+// The general body takes its lu and hr planes through the slots of
+// ludxdy and hrludxdy (T_LD, T_HRLD).
+enum { T_LU = T_LD, T_HR = T_HRLD };
+
 
 // The loader's groups of boxes, an mbarrier each, by the stage that waits.
 enum { G_S0, G_S1, G_S2, G_S3, G_TR, N_GROUPS };
@@ -496,10 +525,13 @@ struct Loads {
   };
 };
 
-// Thread 0 of the block: the barriers, then every box of the first step's
-// windows (Loads, Plan), each group's bytes posted before its boxes.
-template <int NT, int MU, bool HRP, bool FFS, int STEPS>
-__device__ __forceinline__ void load_windows(const Maps& m, float* sm,
+// Thread 0 of the block: the barriers (INIT: a launch of one tile a block;
+// the persistent walk initialises them once a launch), then every box of
+// the first step's windows (Loads, Plan), each group's bytes posted before
+// its boxes.
+template <int NT, int MU, bool HRP, bool FFS, int STEPS, bool INIT,
+          class MapsT>
+__device__ __forceinline__ void load_windows(const MapsT& m, float* sm,
                                              uint64_t* bars, int x0, int y0) {
   using Fm = Form<NT, STEPS>;
   using Ld = Loads<NT, MU, HRP, FFS, STEPS>;
@@ -507,12 +539,14 @@ __device__ __forceinline__ void load_windows(const Maps& m, float* sm,
   constexpr bool CHAIN = STEPS > 1;
   // the box begins R columns before the window, on a multiple of 16 bytes
   const auto box = [&](int slot, int plane, int group) {
-    tma::load_2d(sm + plane * Fm::PLANE, &m.m[slot], &bars[group], x0,
+    tma::load_2d(sm + plane * Fm::PLANE, m.at(slot), &bars[group], x0,
                  y0 - Fm::R);
   };
   const int ng[N_GROUPS] = {Ld::NG0, Ld::NG1, Ld::NG2, Ld::NG3, Ld::NG4};
-  for (int gr = 0; gr < N_GROUPS; ++gr) tma::bar_init(&bars[gr]);
-  tma::bar_fence();
+  if (INIT) {
+    for (int gr = 0; gr < N_GROUPS; ++gr) tma::bar_init(&bars[gr]);
+    tma::bar_fence();
+  }
   for (int gr = 0; gr < N_GROUPS; ++gr)
     if (ng[gr]) tma::bar_expect(&bars[gr], sizeof(float) * Fm::CELLS * ng[gr]);
   box(T_SSH, S_SSH, G_S0);
@@ -536,6 +570,44 @@ __device__ __forceinline__ void load_windows(const Maps& m, float* sm,
   if (Ld::TRW)
     for (int l = 0; l < 2 * NT; ++l)
       box(T_TR + l, (CHAIN ? E_TR : Pl::P_TR) + l, G_TR);
+}
+
+// Where the general body keeps working plane s: by TMA without tracers
+// S_AQP is gone (GenPlan) and the later planes move down by one.
+template <int NT, bool TMA>
+__host__ __device__ constexpr int gen_plane(int s) {
+  return s - (TMA && NT == 0 && s > S_AQP ? 1 : 0);
+}
+
+// The general body's boxes (GenPlan): group 0 ssh, u, v, lu and hr (into
+// a plane of its own, or S_AQ), waited on by stage 0; group 1 a viscous
+// form's up, vp (into S_F, S_K), waited on by stage 1.
+template <int NT, int STEPS, bool VISC, bool INIT, class MapsT>
+__device__ __forceinline__ void load_gen_windows(const MapsT& m, float* sm,
+                                                 uint64_t* bars, int x0,
+                                                 int y0) {
+  using Fm = Form<NT, STEPS>;
+  using GP = GenPlan<NT, STEPS, VISC>;
+  const auto box = [&](int slot, int plane, int group) {
+    tma::load_2d(sm + plane * Fm::PLANE, m.at(slot), &bars[group], x0,
+                 y0 - Fm::R);
+  };
+  if (INIT) {
+    for (int gr = 0; gr < N_GROUPS; ++gr) tma::bar_init(&bars[gr]);
+    tma::bar_fence();
+  }
+  const uint32_t cells = sizeof(float) * Fm::CELLS;
+  tma::bar_expect(&bars[G_S0], 5 * cells);
+  if (VISC) tma::bar_expect(&bars[G_S1], 2 * cells);
+  box(T_SSH, gen_plane<NT, true>(S_SSH), G_S0);
+  box(T_U, gen_plane<NT, true>(S_U), G_S0);
+  box(T_V, gen_plane<NT, true>(S_V), G_S0);
+  box(T_LU, gen_plane<NT, true>(S_LD), G_S0);
+  box(T_HR, GP::HR ? GP::P_HR : gen_plane<NT, true>(S_AQ), G_S0);
+  if (VISC) {
+    box(T_UP, gen_plane<NT, true>(S_F), G_S1);
+    box(T_VP, gen_plane<NT, true>(S_K), G_S1);
+  }
 }
 
 // The carried fields' pointers of a step, in and out, by Params' names: the
@@ -565,9 +637,12 @@ __device__ __forceinline__ float nan_max(float m, float v) {
 // the thread taken once at the body's top (origin(), thread(); then x0(o),
 // y0(o), thread(t) return them); the persistent walk has a policy of its
 // own (WalkTile). TMA: whether the step bodies bring their windows in by
-// TMA (the loader, see the file's head).
+// TMA (the loader, see the file's head); INIT: whether the body
+// initialises the loader's barriers (one tile a block), and phase(): the
+// parity of this tile's phase of them.
 struct BlockTile {
-  static constexpr bool TMA = true;
+  static constexpr bool TMA = true, INIT = true;
+  __device__ __forceinline__ uint32_t phase() const { return 0; }
   __device__ __forceinline__ unsigned bx() const { return blockIdx.x; }
   __device__ __forceinline__ unsigned by() const { return blockIdx.y; }
   __device__ __forceinline__ int thread() const { return threadIdx.x; }
@@ -645,11 +720,11 @@ __device__ __forceinline__ float* chain_level(const Params& p, float* e_tr,
 // threads.
 template <int NT, bool MET2D, int MU, bool HRP, bool RAW, bool TRANS,
           bool FFS, int STEPS, int STEP, int FOLD = 0, class FieldsT,
-          class Where>
+          class Where, class MapsT = Maps>
 __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
                                         float* sm, float& mx,
                                         const Where& where,
-                                        const Maps* maps = nullptr,
+                                        const MapsT* maps = nullptr,
                                         uint64_t* bars = nullptr) {
   // whether this body loads by TMA: under a Where with TMA, but for the
   // viscous forms on metric planes (fused_tile.cuh's Form)
@@ -747,10 +822,11 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
   // static column of a linear free surface stays from the first)
   if (FIRST && LD) {
     // every box in flight at once; the barriers initialised for all
-    if (tid0 == 0)
-      load_windows<NT, MU, HRP, FFS, STEPS>(*maps, sm, bars, x0(), y0());
-    __syncthreads();
-    tma::bar_wait(&bars[G_S0], 0);
+    if (tid() == 0)
+      load_windows<NT, MU, HRP, FFS, STEPS, Where::INIT>(*maps, sm, bars,
+                                                         x0(), y0());
+    if (Where::INIT) __syncthreads();
+    tma::bar_wait(&bars[G_S0], where.phase());
     for (int i = tid(); i < Fm::CELLS; i += NTHREADS) {
       const float ssh = s_ssh[i], ld = s_ld[i];
       const float hl = HRP ? s_aq[i] : 0.f;
@@ -789,7 +865,7 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
   // a linear free surface it is aq, and not formed); with viscosity the
   // previous-level velocities over their metrics
   {
-    if constexpr (LD) tma::bar_wait(&bars[G_S1], 0);
+    if constexpr (LD) tma::bar_wait(&bars[G_S1], where.phase());
     constexpr int h = OH + 2 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
@@ -847,7 +923,7 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
   // stress stage (halo 1 + EXTRA, viscous forms): tension at T points,
   // shear at H points, and their four products with mu, the depth and the
   // squared metrics of the cell
-  if constexpr (LD) tma::bar_wait(&bars[G_S2], 0);
+  if constexpr (LD) tma::bar_wait(&bars[G_S2], where.phase());
   if (VISC) {
     constexpr int h = VH, n = VN;
     const float* s_q = s_f;
@@ -959,7 +1035,8 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
   // shared memory, zeros outside the array, and computes the raw form's
   // margin too.
   {
-    if constexpr (LD && Ld::UV3) tma::bar_wait(&bars[G_S3], 0);
+    if constexpr (LD && Ld::UV3)
+      tma::bar_wait(&bars[G_S3], where.phase());
     constexpr int h = OH + 2 * EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
@@ -1089,7 +1166,7 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
       const int ng = LOOP ? min(G, ntr - t0) : G;   // tracers of the group
       __syncthreads();
       if constexpr (LD && Ld::NG4 > 0)
-        if (t0 == 0) tma::bar_wait(&bars[G_TR], 0);
+        if (t0 == 0) tma::bar_wait(&bars[G_TR], where.phase());
 
       // stage 4 (halo 1): post-step depths hun, hvn from aq_new, the
       // transports uh = u_new * hun, vh = v_new * hvn on the u / v wet
@@ -1260,12 +1337,19 @@ __device__ __forceinline__ float gen_rcp_h(const Params& p, const float* s_lu,
 //   Cu -> S_CY; the tracer pass: aq_new -> S_AQP (a linear free surface
 //   keeps S_AQ), un, vn -> S_U, S_V, its flux planes and a run-time
 //   count's shared uh, vh, kx, ky -> S_HU, S_HV, S_CX, S_CY.
+// Under a Where with TMA, the forms GenPlan moves bring their windows in by
+// TMA (load_gen_windows; maps, the block's N_GROUPS mbarriers bars; sm
+// 128-byte aligned), the arithmetic unchanged: the same bits.
 template <int NT, bool MET2D, int MU, bool RAW, bool TRANS, bool FFS,
-          int STEPS, int STEP, class FieldsT, class Where>
+          int STEPS, int STEP, class FieldsT, class Where, class MapsT = Maps>
 __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
                                             float* sm, float& mx,
-                                            const Where& where) {
-  using Fm = Form<NT, STEPS, false>;
+                                            const Where& where,
+                                            const MapsT* maps = nullptr,
+                                            uint64_t* bars = nullptr) {
+  using GP = GenPlan<NT, STEPS, MU == 2>;
+  constexpr bool USE_TMA = Where::TMA && GP::ON;
+  using Fm = Form<NT, STEPS, USE_TMA>;
   constexpr int HALO = Fm::HALO, EXTRA = Fm::EXTRA, WH = Fm::WH;
   constexpr int TX = Fm::TX, TY = Fm::TY;
   constexpr int NTHREADS = Tile<STEPS>::NTHREADS;
@@ -1276,36 +1360,45 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
   constexpr bool FIRST = STEP == 0, LAST = STEP == STEPS - 1;
   constexpr int OH = HALO * (STEPS - 1 - STEP);   // this step's output halo
   constexpr int VH = OH + Fm::VH, VW = TY + 2 * VH, VN = (TX + 2 * VH) * VW;
+  // the loader: LD, this step's window came by TMA; HRX, hr in a plane of
+  // its own
+  constexpr bool LD = USE_TMA && FIRST, HRX = USE_TMA && GP::HR;
 
   const int tid0 = where.thread();
   const auto tid = [&] { return where.thread(tid0); };
-  float* s_ssh = sm + (FIRST ? S_SSH : E_SSH) * PLANE;
-  float* s_u = sm + S_U * PLANE;
-  float* s_v = sm + S_V * PLANE;
-  float* s_lu = sm + S_LD * PLANE;
-  float* s_aq = sm + S_AQ * PLANE;
-  float* s_aqn = sm + (FFS ? S_AQP : S_AQ) * PLANE;   // tracers' column
-  float* s_ud = sm + S_UD * PLANE;
-  float* s_vd = sm + S_VD * PLANE;
-  float* s_ef = sm + S_F * PLANE;           // F   (viscous: up/dyh first)
-  float* s_ek = sm + S_K * PLANE;           // K   (vp/dxh)
-  float* s_eh = sm + S_RX * PLANE;          // H   (up/dxt)
-  float* s_em = sm + S_SY * PLANE;          // M   (vp/dyt)
-  float* s_eg = sm + S_HU * PLANE;          // G
-  float* s_el = sm + S_HV * PLANE;          // L
-  float* s_cv = sm + S_CX * PLANE;          // Cv
-  float* s_cu = sm + S_CY * PLANE;          // Cu
-  const int n_win = LOOP && STEPS > 1 ? Fm::N_BASE + p.n_lev_sm
-                                      : Fm::N_PLANES;
+  // the window planes: under the loader R columns into each plane, where
+  // its box begins on a multiple of 16 bytes (fused_tile.cuh)
+  float* sw = sm + Fm::R;
+  const auto at_plane = [&](int s) {
+    return sw + gen_plane<NT, USE_TMA>(s) * PLANE;
+  };
+  float* s_ssh = at_plane(FIRST ? S_SSH : E_SSH);
+  float* s_u = at_plane(S_U);
+  float* s_v = at_plane(S_V);
+  float* s_lu = at_plane(S_LD);
+  float* s_aq = at_plane(S_AQ);
+  float* s_aqn = at_plane(FFS ? S_AQP : S_AQ);   // tracers' column
+  float* s_ud = at_plane(S_UD);
+  float* s_vd = at_plane(S_VD);
+  float* s_ef = at_plane(S_F);              // F   (viscous: up/dyh first)
+  float* s_ek = at_plane(S_K);              // K   (vp/dxh)
+  float* s_eh = at_plane(S_RX);             // H   (up/dxt)
+  float* s_em = at_plane(S_SY);             // M   (vp/dyt)
+  float* s_eg = at_plane(S_HU);             // G
+  float* s_el = at_plane(S_HV);             // L
+  float* s_cv = at_plane(S_CX);             // Cv
+  float* s_cu = at_plane(S_CY);             // Cu
+  const float* x_hr = sw + GP::P_HR * PLANE;   // hr's own plane (HRX)
+  const int n_win = LOOP && STEPS > 1 ? Fm::N_BASE + p.n_lev_sm : GP::N_WIN;
   float* s_a2 = sm + n_win * PLANE + V_A2 * Fm::VPLANE;   // viscous
   float* s_b2 = sm + n_win * PLANE + V_B2 * Fm::VPLANE;   // forms only
   float* s_d2 = sm + n_win * PLANE + V_D2 * Fm::VPLANE;
   float* s_e2 = sm + n_win * PLANE + V_E2 * Fm::VPLANE;
-  float* e_ssh = sm + E_SSH * PLANE;
-  float* e_sshp = sm + E_SSHP * PLANE;
-  float* e_up = sm + E_UP * PLANE;
-  float* e_vp = sm + E_VP * PLANE;
-  float* e_tr = sm + E_TR * PLANE;          // see chain_level
+  float* e_ssh = at_plane(E_SSH);
+  float* e_sshp = at_plane(E_SSHP);
+  float* e_up = at_plane(E_UP);
+  float* e_vp = at_plane(E_VP);
+  float* e_tr = at_plane(E_TR);             // see chain_level
 
   // global row of window row 0, global column of window column 0
   const int2 org = where.template origin<TX, TY, WH>();
@@ -1323,7 +1416,41 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
   // (dx * dy) * lu. A later step of a chained launch forms aq anew from
   // the previous step's ssh (the static column of a linear free surface
   // stays from the first)
-  if (FIRST) {
+  if (FIRST && LD) {
+    // every box in flight at once; hr in its plane, or in S_AQ, which this
+    // cell's column overwrites. Each thread's cell areas are loaded while
+    // the boxes land (metric planes are as many bytes as the fields).
+    if (tid() == 0)
+      load_gen_windows<NT, STEPS, MU == 2, Where::INIT>(*maps, sm, bars,
+                                                        x0(), y0());
+    if (Where::INIT) __syncthreads();
+    constexpr int NI = (Fm::CELLS + NTHREADS - 1) / NTHREADS;
+    float area[NI];
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const int i = tid() + j * NTHREADS;
+      const int gx = x0() + i / WY, gy = y0() + i % WY;
+      area[j] = 0.f;
+      if (i < Fm::CELLS && inside(p, gx, gy)) {
+        const int mi = mix(gx * p.Ys + gy, gy);
+        area[j] = p.met[G_DX][mi] * p.met[G_DY][mi];
+      }
+    }
+    tma::bar_wait(&bars[G_S0], where.phase());
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const int i = tid() + j * NTHREADS;
+      if (i >= Fm::CELLS) break;
+      const int gx = x0() + i / WY, gy = y0() + i % WY;
+      float aq = 0.f;
+      if (inside(p, gx, gy)) {
+        const float h = HRX ? x_hr[i] : s_aq[i];
+        aq = ((FFS ? h + s_ssh[i] : h) * area[j]) * s_lu[i];
+      }
+      s_aq[i] = aq;
+    }
+    __syncthreads();
+  } else if (FIRST) {
     for (int i = tid(); i < Fm::CELLS; i += NTHREADS) {
       const int gx = x0() + i / WY, gy = y0() + i % WY;
       float ssh = 0.f, u = 0.f, v = 0.f, l = 0.f, aq = 0.f;
@@ -1344,8 +1471,8 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
       float aq = 0.f;
       if (inside(p, gx, gy)) {
         const int g = gx * p.Ys + gy, mi = mix(g, gy);
-        aq = ((hr[g] + s_ssh[k]) * (p.met[G_DX][mi] * p.met[G_DY][mi]))
-            * s_lu[k];
+        aq = (((HRX ? x_hr[k] : hr[g]) + s_ssh[k])
+              * (p.met[G_DX][mi] * p.met[G_DY][mi])) * s_lu[k];
       }
       s_aq[k] = aq;
     }
@@ -1354,8 +1481,9 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
 
   // stage 1 (halo 2 + EXTRA): the depth interps hhu, hhv and the mass
   // fluxes; with viscosity the previous-level velocities over their
-  // metrics
+  // metrics (by TMA in S_F, S_K, which this cell's products overwrite)
   {
+    if constexpr (LD && MU == 2) tma::bar_wait(&bars[G_S1], where.phase());
     constexpr int h = OH + 2 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
     for (int i = tid(); i < n; i += NTHREADS) {
       const int a = WH - h + i / w, b = WH - h + i % w;
@@ -1372,8 +1500,8 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
         ud = (s_u[k] * hu) * p.met[G_DYH][mi];
         vd = (s_v[k] * hv) * p.met[G_DXH][mi];
         if (VISC) {
-          const float up = FIRST ? f.up[g] : e_up[k];
-          const float vp = FIRST ? f.vp[g] : e_vp[k];
+          const float up = LD ? s_ef[k] : FIRST ? f.up[g] : e_up[k];
+          const float vp = LD ? s_ek[k] : FIRST ? f.vp[g] : e_vp[k];
           s_ef[k] = up * p.met[G_RDYH][mi];
           s_ek[k] = vp * p.met[G_RDXH][mi];
           s_eh[k] = up * p.met[G_RDXT][mi];
@@ -1410,7 +1538,8 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
         if (l0 > 0.5f) {
           const float str_t = (dy / dx) * (s_q[k] - s_q[k - S])
               - (dx / dy) * (s_r[k] - s_r[k - W]);
-          const float t2 = (FFS ? hr[g] + s_ssh[k] : hr[g]) * str_t;
+          const float hq = HRX ? x_hr[k] : hr[g];
+          const float t2 = (FFS ? hq + s_ssh[k] : hq) * str_t;
           a2 = (dy * dy * p.mu) * t2;
           b2 = (dx * dx * p.mu) * t2;
         }
@@ -1526,7 +1655,7 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
                              : 0.f;
       // post-step depth column from the new ssh
       if (NT && FFS)
-        s_aqn[k] = ((hr[g] + (wlu ? sshn : ssh))
+        s_aqn[k] = (((HRX ? x_hr[k] : hr[g]) + (wlu ? sshn : ssh))
                     * (p.met[G_DX][mi] * p.met[G_DY][mi])) * l0;
       if (ring > 0) continue;
       if (LAST && RAW && !in_box(p, gx, gy)) continue;   // not our margin
@@ -1572,7 +1701,7 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
       if (wet) {          // the cell k + D is wet: inside the array
         auto aqp = [&](int d, int eg, int em) {
           const float sp = FIRST ? f.sshp[g + eg] : e_sshp[k + d];
-          return ((hr[g + eg] + sp)
+          return (((HRX ? x_hr[k + d] : hr[g + eg]) + sp)
                   * (p.met[G_DX][mi + em] * p.met[G_DY][mi + em]))
               * s_lu[k + d];
         };
@@ -1628,10 +1757,10 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
     // S_HU, S_HV, S_CX, S_CY (last read in stage 3) for the later groups.
     constexpr int G = LOOP ? MAX_TRACERS : NT;
     const int ntr = LOOP ? p.n_tr : NT;
-    float* s_uh = sm + S_HU * PLANE;
-    float* s_vh = sm + S_HV * PLANE;
-    float* s_kx = sm + S_CX * PLANE;
-    float* s_ky = sm + S_CY * PLANE;
+    float* s_uh = at_plane(S_HU);
+    float* s_vh = at_plane(S_HV);
+    float* s_kx = at_plane(S_CX);
+    float* s_ky = at_plane(S_CY);
     for (int t0 = 0; t0 < ntr; t0 += G) {
       const int ng = LOOP ? min(G, ntr - t0) : G;   // tracers of the group
       __syncthreads();
@@ -1700,8 +1829,8 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
               fy = vh * (ff + ffy) * cy;
               if (DIFF) fy = fy + ky * (ffy - ff);
             }
-            sm[(S_F + 2 * t) * PLANE + k] = fx;
-            sm[(S_F + 2 * t + 1) * PLANE + k] = fy;
+            at_plane(S_F + 2 * t)[k] = fx;
+            at_plane(S_F + 2 * t + 1)[k] = fy;
           }
         }
       }
@@ -1730,7 +1859,7 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
         // hhq_p = hr + sshp_new * ffs, area = dx*dy / (2 tau); the new
         // sshp is this step's output
         const float area = p.met[G_DX][mi] * p.met[G_DY][mi] * p.inv_two_tau;
-        const float hrc = hr[g];
+        const float hrc = HRX ? x_hr[k] : hr[g];
         const float bp = hrc * area;
         const float bp0 = FFS ? (hrc + (LAST ? f.sshp_o[g] : e_sshp[k]))
                                     * area
@@ -1741,8 +1870,8 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
         for (int t = 0; t < G; ++t) {
           if (LOOP && t >= ng) break;
           const int l = 2 * (t0 + t);
-          const float* fx = sm + (S_F + 2 * t) * PLANE;
-          const float* fy = sm + (S_F + 2 * t + 1) * PLANE;
+          const float* fx = at_plane(S_F + 2 * t);
+          const float* fy = at_plane(S_F + 2 * t + 1);
           float* e0 = FIRST && LAST
               ? nullptr : chain_level<NT, PLANE>(p, e_tr, l, where);
           float* e1 = FIRST && LAST
@@ -1813,7 +1942,18 @@ __device__ __forceinline__ void step_launch(const Params& p,
   __shared__ float s_red[NWARPS];
 
   float mx = 0.f;
-  if constexpr (GEN) {
+  if constexpr (GEN && GenPlan<NT, STEPS, MU == 2>::ON) {
+    // the loader's barriers; its boxes land at 128-byte boundaries
+    __shared__ uint64_t s_bar[N_GROUPS];
+    float* sma = tma::align128(sm);
+    sw_step_gen<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 0>(
+        p, p, sma, mx, BlockTile{}, maps, s_bar);
+    if constexpr (STEPS > 1) {
+      __syncthreads();     // step A's outputs are in shared memory
+      sw_step_gen<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 1>(
+          p, p, sma, mx, BlockTile{}, maps, s_bar);
+    }
+  } else if constexpr (GEN) {
     sw_step_gen<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 0>(p, p, sm, mx,
                                                           BlockTile{});
     if constexpr (STEPS > 1) {
@@ -1847,21 +1987,28 @@ __device__ __forceinline__ void step_launch(const Params& p,
   }
 }
 
-// maps: the fast form's tensor maps (the general form takes none), first
-// in the parameter block, where each keeps the 64-byte alignment TMA asks
+// Whether the form's kernel takes tensor maps: every fast form, and the
+// general forms that GenPlan moves to TMA.
+template <int NT, int MU, int STEPS, bool GEN>
+constexpr bool TAKES_MAPS = !GEN || GenPlan<NT, STEPS, MU == 2>::ON;
+
+// maps: the tensor maps (a general form on the threads' loader takes
+// none), first in the parameter block, where each keeps the 64-byte
+// alignment TMA asks
 template <int NT, bool GUARD, bool MET2D, int MU, bool HRP, bool RAW,
           bool TRANS, bool FFS, int STEPS, bool GEN>
 __global__ void
 __launch_bounds__(Tile<STEPS>::NTHREADS, Tile<STEPS>::MIN_BLOCKS)
 fused_sw_step_kernel(
-    const __grid_constant__ std::conditional_t<GEN, NoMaps, Maps> maps,
+    const __grid_constant__
+    std::conditional_t<TAKES_MAPS<NT, MU, STEPS, GEN>, Maps, NoMaps> maps,
     const Params p) {
-  if constexpr (GEN)
-    step_launch<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, GEN, 0>(
-        p, nullptr);
-  else
+  if constexpr (TAKES_MAPS<NT, MU, STEPS, GEN>)
     step_launch<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, GEN, 0>(
         p, &maps);
+  else
+    step_launch<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, GEN, 0>(
+        p, nullptr);
 }
 
 // The fast form with its arithmetic folds (FOLD != 0), a kernel of its own
@@ -1923,6 +2070,24 @@ auto fast_kernel() {
     return fused_sw_fold_kernel<NT, GUARD, MET2D, MU, HRP, RAW_BUILD,
                                 TRANS_BUILD, FFS_BUILD, STEPS_BUILD,
                                 FOLD_BUILD>;
+}
+
+// The tensor maps of the general body's boxes (load_gen_windows): the
+// carried fields ssh, u, v (and a viscous form's up, vp) of `p`, its lu
+// and hr planes, each a box of the form's window; 0 or the error of one
+// TMA refuses.
+template <int NT, int STEPS, bool VISC>
+int encode_gen_maps(Maps& m, const Params& p) {
+  using Fm = Form<NT, STEPS>;
+  const float* src[] = {p.ssh, p.u, p.v, p.up, p.vp, p.planes, p.hrp};
+  const int slot[] = {T_SSH, T_U, T_V, T_UP, T_VP, T_LU, T_HR};
+  for (int i = 0; i < 7; ++i) {
+    if (!VISC && (slot[i] == T_UP || slot[i] == T_VP)) continue;
+    const int e = tma::map_2d(&m.m[slot[i]], src[i], p.Xs, p.Ys, Fm::WX,
+                              Fm::WY);
+    if (e) return e;
+  }
+  return 0;
 }
 
 #ifndef FUSED_PERSIST
@@ -2001,22 +2166,36 @@ int launch_form(const Params& p, bool met2d, int mu_mode, cudaStream_t s) {
 }
 
 #ifdef FUSED_GEN
-// the general forms: every (TRANS, FFS) in this library
+// the general forms: every (TRANS, FFS) in this library, each kernel at
+// the carveout of its blocks (GenPlan), by TMA where GenPlan says
 template <int NT, bool GUARD, bool MET2D, int MU, bool TRANS, bool FFS>
 int launch_gen(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes<NT, STEPS_BUILD, false>(MU == 2)
-      + sizeof(float) * Form<NT, STEPS_BUILD, false>::PLANE
+  using GP = GenPlan<NT, STEPS_BUILD, MU == 2>;
+  const size_t smem = GP::SMEM
+      + sizeof(float) * Form<NT, STEPS_BUILD, GP::ON>::PLANE
         * (NT < 0 ? p.n_lev_sm : 0);
+  const auto kernel = fused_sw_step_kernel<NT, GUARD, MET2D, MU, false,
+                                           RAW_BUILD, TRANS, FFS,
+                                           STEPS_BUILD, true>;
+  std::conditional_t<GP::ON, Maps, NoMaps> maps;
+  if constexpr (GP::ON) {
+    const int bad = encode_gen_maps<NT, STEPS_BUILD, MU == 2>(maps, p);
+    if (bad) return bad;
+  }
+  // a chained TLOOP block's step is that of its tracer levels (one
+  // block an SM: 164 KB at 3 tracers, not 228)
+  const int carve = GP::LOOP_CHAIN
+      ? carveout_kb(smem + GEN_STATIC + BLOCK_RESERVED) : GP::CARVE;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_sw_step_kernel<NT, GUARD, MET2D, MU, false, RAW_BUILD, TRANS,
-                           FFS, STEPS_BUILD, true>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             carveout_percent(carve));
   if (e != cudaSuccess) return (int)e;
-  fused_sw_step_kernel<NT, GUARD, MET2D, MU, false, RAW_BUILD, TRANS, FFS,
-                       STEPS_BUILD, true>
-      <<<dim3((p.Ys + TILE::TY - 1) / TILE::TY,
-              (p.Xs + TILE::TX - 1) / TILE::TX),
-         TILE::NTHREADS, smem, stream>>>(NoMaps{}, p);
+  kernel<<<dim3((p.Ys + TILE::TY - 1) / TILE::TY,
+                (p.Xs + TILE::TX - 1) / TILE::TX),
+           TILE::NTHREADS, smem, stream>>>(maps, p);
   return (int)cudaGetLastError();
 }
 
@@ -2082,10 +2261,17 @@ int dispatch(const Params& p, bool met2d, int mu_mode, bool trans, bool ffs,
 // (cooperative_groups::this_grid().sync(), no relocatable device code
 // needed) separates the steps. Every block calls it n_steps - 1 times,
 // whatever tiles it had. Across the barrier a block reads cells another
-// block wrote: the loads are ordinary ones (Params has no __restrict__, so
-// nvcc emits no non-coherent loads of the carried fields), which the
-// barrier's fences order. The max |ssh| of every step and tile a block ran
+// block wrote: by TMA boxes, which the proxy fences around the barrier
+// order, and by ordinary loads (Params has no __restrict__, so nvcc emits
+// no non-coherent loads of the carried fields), which the barrier's own
+// fences order. The max |ssh| of every step and tile a block ran
 // (NaN-keeping) is written once, per block, at the end.
+//
+// Its loader (design A): each tile's boxes are issued by thread 0 when the
+// tile starts, after the last tile's final barrier, into the block's one
+// set of planes; three blocks an SM hide each other's load latency, as in
+// a launch of one tile a block. The tensor maps of both buffer sets are
+// the kernel's first parameter (WalkMaps), the step's parity picks one.
 //
 // What bounds it: memory, as the one-step form, for every step: the carried
 // fields read and written and the static planes read each step (113 MB on
@@ -2104,16 +2290,40 @@ int dispatch(const Params& p, bool met2d, int mu_mode, bool trans, bool ffs,
 // one body whose fields change with the parity, since two bodies, one a
 // parity with its own parameter set, hoist twice as many constants out of
 // the step loop, which spills.
-enum { W_BX, W_BY, W_TILE, W_MORE, W_STEP, W_NTY, W_NTILES, N_WALK };
+enum {
+  W_BX, W_BY, W_TILE, W_MORE, W_STEP, W_NTY, W_NTILES, W_PHASE, N_WALK
+};
 __shared__ volatile int walk_at[N_WALK];
 __shared__ Fields walk_fields;
+
+// The walk's maps: the static planes' once, the carried fields' of each
+// buffer set (even steps read set A, odd steps set B: the step's parity in
+// walk_at); no one-step form loads its tracer levels by TMA.
+constexpr int N_WALK_STATIC = T_TR - T_RU;
+struct WalkMaps {
+  CUtensorMap st[N_WALK_STATIC];       // T_RU ... T_HRLD
+  CUtensorMap f[2][T_RU];              // T_SSH ... T_VP of each set
+  __device__ __forceinline__ const CUtensorMap* at(int slot) const {
+    return slot < T_RU ? &f[walk_at[W_STEP] & 1][slot] : &st[slot - T_RU];
+  }
+};
+// the walk's static shared memory, as GenPlan budgets it
+static_assert(sizeof(int) * N_WALK + sizeof(Fields) + sizeof(uint64_t)
+              * N_GROUPS + sizeof(float) * TILE::NTHREADS / 32
+              <= GEN_STATIC, "the walk's static shared memory");
 
 // The walk's tile: its position and origin read from walk_at at each use,
 // and the thread's index read afresh at each use (a volatile read), so
 // that nvcc neither keeps it nor hoists what derives from it out of the
-// walk's loops.
+// walk's loops. Its windows come by TMA: the kernel initialises the
+// loader's barriers once a launch, and each tile a block runs is one
+// phase of them, whose parity (W_PHASE) flips from tile to tile and from
+// step to step.
 struct WalkTile {
-  static constexpr bool TMA = false;
+  static constexpr bool TMA = true, INIT = false;
+  __device__ __forceinline__ uint32_t phase() const {
+    return walk_at[W_PHASE];
+  }
   __device__ __forceinline__ int bx() const { return walk_at[W_BX]; }
   __device__ __forceinline__ int by() const { return walk_at[W_BY]; }
   __device__ __forceinline__ int thread() const { return 0; }
@@ -2135,9 +2345,11 @@ struct WalkTile {
 };
 
 // Thread 0 moves the walk to the block's first tile (first) or on by the
-// grid, and says whether there is one (the block's barriers order it).
+// grid (the next phase of the loader's barriers), and says whether there
+// is one (the block's barriers order it).
 __device__ __forceinline__ void walk_on(bool first) {
   if (threadIdx.x == 0) {
+    if (!first) walk_at[W_PHASE] ^= 1;
     const int t = first ? (int)blockIdx.x : walk_at[W_TILE] + gridDim.x;
     walk_at[W_TILE] = t;
     walk_at[W_BX] = t % walk_at[W_NTY];
@@ -2170,49 +2382,82 @@ __device__ __forceinline__ void walk_fields_of(const Fields& a,
   walk_fields.trp = odd ? b.trp : a.trp;
 }
 
+// The two proxy fences of the walk: the boxes are the async proxy's
+// writes of shared memory and reads of device memory, the step bodies'
+// loads and stores the generic proxy's, and a barrier orders only the
+// latter. fence_shared: before the next tile's boxes land in planes this
+// tile's threads read and wrote; fence_global: around the grid barrier,
+// before the next step's boxes read cells other blocks stored.
+__device__ __forceinline__ void fence_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // One model step of the walk: every tile t = blockIdx.x + k gridDim.x.
 template <int NT, int MU, bool HRP, bool TRANS, bool FFS>
-__device__ __forceinline__ void persist_step(const Params& p, float* sm,
+__device__ __forceinline__ void persist_step(const Params& p,
+                                             const WalkMaps& maps,
+                                             float* sm, uint64_t* bars,
                                              float& mx) {
   walk_on(true);
   __syncthreads();
   while (walk_at[W_MORE]) {
     if constexpr (GEN_BUILD)
       sw_step_gen<NT, false, MU, false, TRANS, FFS, 1, 0>(
-          p, walk_fields, sm, mx, WalkTile{});
+          p, walk_fields, sm, mx, WalkTile{}, &maps, bars);
     else
       sw_step<NT, false, MU, HRP, false, TRANS, FFS, 1, 0>(
-          p, walk_fields, sm, mx, WalkTile{});
+          p, walk_fields, sm, mx, WalkTile{}, &maps, bars);
+    fence_shared();
     __syncthreads();      // the tile is done with the planes and the walk
     walk_on(false);
     __syncthreads();
   }
 }
 
-// p: the statics (its own fields unread); fa, fb: the fields of the even
-// and the odd steps.
+// maps: the boxes' maps (WalkMaps), first in the parameter block; p: the
+// statics (its own fields unread); fa, fb: the fields of the even and the
+// odd steps.
 template <int NT, int MU, bool HRP, bool TRANS, bool FFS>
 __global__ void __launch_bounds__(TILE::NTHREADS, TILE::MIN_BLOCKS)
-fused_sw_persist_kernel(const Params p, const Fields fa, const Fields fb,
+fused_sw_persist_kernel(const __grid_constant__ WalkMaps maps,
+                        const Params p, const Fields fa, const Fields fb,
                         int n_steps) {
+  static_assert(GEN_BUILD || !Loads<NT, MU, HRP, FFS, 1>::TRW,
+                "no one-step form loads its tracer levels by TMA");
   constexpr int NWARPS = TILE::NTHREADS / 32;
   extern __shared__ float sm[];
   __shared__ float s_red[NWARPS];
+  // the loader's barriers, initialised once; its boxes land at 128-byte
+  // boundaries
+  __shared__ uint64_t s_bar[N_GROUPS];
+  float* sma = tma::align128(sm);
 
   float mx = 0.f;
   if (threadIdx.x == 0) {
     walk_at[W_STEP] = 0;
+    walk_at[W_PHASE] = 0;
     walk_at[W_NTY] = (p.Ys + TILE::TY - 1) / TILE::TY;
     walk_at[W_NTILES] = walk_at[W_NTY] * ((p.Xs + TILE::TX - 1) / TILE::TX);
+    for (int gr = 0; gr < N_GROUPS; ++gr) tma::bar_init(&s_bar[gr]);
+    tma::bar_fence();
   }
   for (;;) {
     walk_fields_of(fa, fb, walk_at[W_STEP] & 1);
-    persist_step<NT, MU, HRP, TRANS, FFS>(p, sm, mx);
+    persist_step<NT, MU, HRP, TRANS, FFS>(p, maps, sma, s_bar, mx);
     if (walk_at[W_STEP] + 1 >= n_steps) break;
     // every block meets the barrier n_steps - 1 times; past it, every
-    // thread has read the step and the fields
+    // thread has read the step and the fields, and every box of the next
+    // step reads what the other blocks stored before it
+    fence_global();
     cg::this_grid().sync();
-    if (threadIdx.x == 0) walk_at[W_STEP] += 1;
+    if (threadIdx.x == 0) {
+      fence_global();
+      walk_at[W_STEP] += 1;
+    }
   }
 
   // block max |ssh| over every step, NaN-propagating
@@ -2243,15 +2488,62 @@ Fields fields_of(const Params& p) {
 // The co-resident grid of one persistent instantiation into *grid (grid
 // = 0), or its cooperative launch with *grid blocks, which must not pass
 // that.
+// The dynamic shared memory of a block of the walk: the fast body's Plan
+// or the general body's GenPlan, one step a tile.
+template <int NT, int MU, bool HRP, bool FFS>
+constexpr size_t walk_smem() {
+  if constexpr (GEN_BUILD) return GenPlan<NT, 1, MU == 2>::SMEM;
+  else return Plan<NT, 1, MU == 2, HRP, FFS>::SMEM;
+}
+
+// The walk's maps of p0 (set A's carried fields and the statics) and p1
+// (set B's): the fast body's boxes (Loads) or the general body's.
+template <int NT, int MU, bool HRP, bool FFS>
+int encode_walk_maps(WalkMaps& w, const Params& p0, const Params& p1) {
+  using Fm = Form<NT, 1>;
+  const size_t plane = (size_t)p0.Xs * p0.Ys;
+  const Params* ps[2] = {&p0, &p1};
+  unsigned used;
+  const float* st[N_WALK_STATIC] = {};
+  if constexpr (GEN_BUILD) {
+    used = 1u << T_SSH | 1u << T_U | 1u << T_V | 1u << T_LU | 1u << T_HR
+        | (MU == 2 ? 1u << T_UP | 1u << T_VP : 0u);
+    st[T_LU - T_RU] = p0.planes;
+    st[T_HR - T_RU] = p0.hrp;
+  } else {
+    used = Loads<NT, MU, HRP, FFS, 1>::USED;
+    for (int t = T_RU; t <= T_LD; ++t)
+      st[t - T_RU] = p0.planes + (t - T_RU) * plane;
+    st[T_HRLD - T_RU] = p0.hrld;
+  }
+  for (int t = 0; t < T_TR; ++t) {
+    if (!(used >> t & 1u)) continue;
+    for (int k = 0; k < (t < T_RU ? 2 : 1); ++k) {
+      const Params& p = *ps[k];
+      const float* f[T_RU] = {p.ssh, p.sshp, p.u, p.up, p.v, p.vp};
+      const int e = tma::map_2d(t < T_RU ? &w.f[k][t] : &w.st[t - T_RU],
+                                t < T_RU ? f[t] : st[t - T_RU], p.Xs, p.Ys,
+                                Fm::WX, Fm::WY);
+      if (e) return e;
+    }
+  }
+  return 0;
+}
+
 template <int NT, int MU, bool HRP, bool TRANS, bool FFS>
 int persist_launch(const Params& p0, const Params& p1, int n_steps,
                    int* grid, cudaStream_t stream) {
-  static_assert(sizeof(Params) + 2 * sizeof(Fields) + sizeof(int) <= 4096,
-                "the kernel's parameters");
+  static_assert(sizeof(WalkMaps) + sizeof(Params) + 2 * sizeof(Fields)
+                + sizeof(int) + 64 <= 4096, "the kernel's parameters");
   auto kernel = fused_sw_persist_kernel<NT, MU, HRP, TRANS, FFS>;
-  const size_t smem = smem_bytes<NT, 1, false>(MU == 2);
+  const size_t smem = walk_smem<NT, MU, HRP, FFS>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the general body at the carveout of its blocks (GenPlan)
+  if (GEN_BUILD && e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             carveout_percent(GenPlan<NT, 1, MU == 2>::CARVE));
   int dev = 0, sms = 0, per_sm = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -2268,9 +2560,12 @@ int persist_launch(const Params& p0, const Params& p1, int n_steps,
   }
   if (*grid < 1 || *grid > per_sm * sms)
     return (int)cudaErrorCooperativeLaunchTooLarge;
+  WalkMaps maps;
+  const int bad = encode_walk_maps<NT, MU, HRP, FFS>(maps, p0, p1);
+  if (bad) return bad;
   Params p = p0;
   Fields a = fields_of(p0), b = fields_of(p1);
-  void* args[] = {&p, &a, &b, &n_steps};
+  void* args[] = {&maps, &p, &a, &b, &n_steps};
   e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(*grid),
                                   dim3(TILE::NTHREADS), args, smem, stream);
   if (e != cudaSuccess) return (int)e;
@@ -2375,15 +2670,30 @@ int statics(Params& p, const float* met, const float* planes,
   return 0;
 }
 
-// The geometry of the fast form with NT tracers (fused_sw_step_geometry).
+// The geometry of this library's form with NT tracers
+// (fused_sw_step_geometry): the fast body's (Plan) or the general body's
+// (GenPlan), one step a tile in the persistent walk.
+constexpr int N_GEOMETRY = 12;
 template <int NT, bool VISC, bool HRP, bool FFS>
 int geometry_of(long long* out) {
-  using Fm = Form<NT, STEPS_BUILD>;
-  using Pl = Plan<NT, STEPS_BUILD, VISC, HRP, FFS>;
-  const long long g[] = {Fm::TX, Fm::TY, Fm::WH, Fm::WX, Fm::WY, Fm::PLANE,
-                         Pl::N_EXTRA, Pl::BLOCKS, (long long)Pl::SMEM,
-                         Loads<NT, VISC ? 2 : 0, HRP, FFS, STEPS_BUILD>::N};
-  for (int i = 0; i < 10; ++i) out[i] = g[i];
+  if constexpr (GEN_BUILD) {
+    using GP = GenPlan<NT, STEPS_BUILD, VISC>;
+    using Fm = Form<NT, STEPS_BUILD, GP::ON>;
+    const long long g[N_GEOMETRY] = {
+        Fm::TX, Fm::TY, Fm::WH, Fm::WX, Fm::WY, Fm::PLANE, GP::HR,
+        GP::BLOCKS, (long long)GP::SMEM, GP::BOXES, GP::ON, GP::CARVE};
+    for (int i = 0; i < N_GEOMETRY; ++i) out[i] = g[i];
+  } else {
+    using Fm = Form<NT, STEPS_BUILD>;
+    using Pl = Plan<NT, STEPS_BUILD, VISC, HRP, FFS>;
+    const size_t stat = PERSIST_BUILD ? GEN_STATIC : STATIC_SMEM;
+    const long long g[N_GEOMETRY] = {
+        Fm::TX, Fm::TY, Fm::WH, Fm::WX, Fm::WY, Fm::PLANE, Pl::N_EXTRA,
+        Pl::BLOCKS, (long long)Pl::SMEM,
+        Loads<NT, VISC ? 2 : 0, HRP, FFS, STEPS_BUILD>::N, 1,
+        carveout_kb(Pl::BLOCKS * (Pl::SMEM + stat + BLOCK_RESERVED))};
+    for (int i = 0; i < N_GEOMETRY; ++i) out[i] = g[i];
+  }
   return 0;
 }
 
@@ -2404,14 +2714,17 @@ int geometry_nt(bool visc, bool hrp, bool ffs, long long* out) {
 
 extern "C" {
 
-// The window geometry of this library's fast form (its steps a launch)
-// with n_tracers tracers, viscous or not, on bathymetry planes or not,
-// with a full free surface or not, into out[10]: the tile's rows and
-// columns, the window halo WH, rows WX and columns WY, the floats of a
-// shared plane, the loader's planes of their own, the blocks an SM the
-// plan keeps, the dynamic shared memory of a block in bytes (a chained
-// TLOOP form's tracer levels not counted) and the TMA boxes of a launch
-// (tma.cuh: each of WX x WY cells). Returns 0.
+// The window geometry of this library's form (its steps a launch; the
+// general body's in a general library, one step a tile in a persistent
+// one) with n_tracers tracers, viscous or not, on bathymetry planes or not,
+// with a full free surface or not (the general body: neither), into
+// out[12]: the tile's rows and columns, the window halo WH, rows WX and
+// columns WY, the floats of a shared plane, the loader's planes of their
+// own, the blocks an SM the plan keeps, the dynamic shared memory of a
+// block in bytes (a chained TLOOP form's tracer levels not counted), the
+// TMA boxes of a launch (tma.cuh: each of WX x WY cells), 1 if the body
+// loads by TMA (0: by threads) and the carveout of its blocks in KB.
+// Returns 0.
 int fused_sw_step_geometry(int n_tracers, int visc, int hrp, int ffs,
                            long long* out) {
   const bool v = visc != 0, h = hrp != 0, f = ffs != 0;

@@ -86,8 +86,8 @@ struct Tile {
 
 // The window of the form with NT tracers and STEPS chained steps, whose
 // body loads it by TMA (the loader: fused_step.cu's head) or by its
-// threads (the general body, the persistent walk, the viscous forms on
-// metric planes, the copy step's threads).
+// threads (the viscous fast forms on metric planes, the general forms
+// GenPlan leaves there, the copy step's threads).
 template <int NT, int STEPS = 1, bool TMA = true>
 struct Form {
   static constexpr int EXTRA = NT ? 1 : 0;        // reach of the tracer pass
@@ -203,6 +203,90 @@ struct Plan {
   // dynamic shared memory of a block (a chained TLOOP form's tracer
   // levels on top), with the 128 bytes of the planes' alignment
   static constexpr size_t SMEM = BASE + N_EXTRA * PBYTES + (ON ? 128 : 0);
+};
+
+// The shared-memory carveouts an H100 SM offers (KB of its 256 KB of L1
+// and shared memory; the rest is L1), and the smallest that holds `bytes`
+// (-1: none). The driver takes the smallest that keeps a kernel's blocks,
+// so a block's shared memory decides its L1: three blocks past 196 KB
+// leave 28 KB of L1, not 60.
+constexpr int N_CARVEOUTS = 10;
+constexpr int CARVEOUT_KB[N_CARVEOUTS] = {0, 8, 16, 32, 64, 100, 132, 164,
+                                          196, 228};
+constexpr int carveout_kb(size_t bytes) {
+  for (int i = 0; i < N_CARVEOUTS; ++i)
+    if (bytes <= (size_t)CARVEOUT_KB[i] * 1024) return CARVEOUT_KB[i];
+  return -1;
+}
+
+// The carveout as cudaFuncAttributePreferredSharedMemoryCarveout takes it,
+// percent of the largest, rounded down: the driver rounds it up to the
+// step.
+constexpr int carveout_percent(int kb) {
+  return kb * 100 / CARVEOUT_KB[N_CARVEOUTS - 1];
+}
+
+// The static shared memory the general body's kernels are budgeted for
+// (the block max's warps, the TMA barriers and, in the persistent walk,
+// its position and fields; fused_step.cu asserts it).
+constexpr size_t GEN_STATIC = 384;
+
+// How the general body (fused_step.cu's sw_step_gen) loads its window and
+// where its boxes land. The budget is the carveout its threads' twin sits
+// in, not the SM: that body reads up to a dozen metric values a cell from
+// device memory (16 whole planes on metric planes), which L1 serves, so a
+// form moves to TMA only if its blocks an SM keep that carveout with the
+// wider window (ON). Without tracers it has no use for S_AQP (the
+// tracers' post-step column), so its TMA form keeps 15 working planes,
+// which is what lets the one-step form without tracers keep 164 KB. Its
+// boxes: ssh, u, v, lu into their stage-0 planes, hr into a plane of its
+// own where the carveout leaves one (HR; stages 0, 2, 3 and the tracers'
+// read it there), else into S_AQ, which stage 0 writes at the same cell; a
+// viscous form's up, vp into S_F, S_K, which stage 1 writes at the same
+// cell. The rest, and every later read of an input without a plane, stay
+// device loads. A chained form without tracers keeps the threads' loader:
+// its 48-column window takes its two blocks past 196 KB. So does a chained
+// TLOOP form, one block an SM whose tracer levels decide its shared memory
+// at run time (its launcher takes that carveout; CARVE is the most it
+// needs): with the carveout fixed at 228 KB it ran 2-7 % slower than its
+// parent on either loader (PERF.md), and TMA with the right carveout is
+// not measured yet.
+template <int NT, int STEPS, bool VISC>
+struct GenPlan {
+  using Th = Form<NT, STEPS, false>;
+  using Fm = Form<NT, STEPS, true>;
+  static constexpr bool LOOP_CHAIN = NT < 0 && STEPS > 1;
+  static constexpr size_t VBYTES =
+      VISC ? sizeof(float) * N_VISC_PLANES * Fm::VPLANE : 0;
+  // the threads' twin: its blocks an SM and their carveout
+  static constexpr size_t TH_BASE = smem_bytes<NT, STEPS, false>(VISC);
+  static constexpr size_t TH_BLOCK = TH_BASE + GEN_STATIC + BLOCK_RESERVED;
+  static constexpr int TH_FITS = (int)(SM_SMEM / TH_BLOCK);
+  static constexpr int BLOCKS = LOOP_CHAIN ? 1
+      : TH_FITS < Tile<STEPS>::MIN_BLOCKS ? (TH_FITS < 1 ? 1 : TH_FITS)
+                                          : Tile<STEPS>::MIN_BLOCKS;
+  static constexpr int TH_CARVE = LOOP_CHAIN
+      ? CARVEOUT_KB[N_CARVEOUTS - 1] : carveout_kb(BLOCKS * TH_BLOCK);
+  // by TMA: the working planes, the planes' alignment
+  static constexpr int N_WORK = Fm::N_PLANES - (NT == 0 ? 1 : 0);
+  static constexpr size_t PBYTES = sizeof(float) * Fm::PLANE;
+  static constexpr size_t BASE = N_WORK * PBYTES + VBYTES + 128;
+  static constexpr size_t LIMIT = (size_t)TH_CARVE * 1024;
+  static constexpr bool ON = !LOOP_CHAIN
+      && BLOCKS * (BASE + GEN_STATIC + BLOCK_RESERVED) <= LIMIT;
+  static constexpr bool HR = ON
+      && BLOCKS * (BASE + PBYTES + GEN_STATIC + BLOCK_RESERVED) <= LIMIT;
+  // hr's plane, after the working planes; the stress planes follow it
+  static constexpr int P_HR = N_WORK;
+  static constexpr int N_WIN = ON ? N_WORK + HR : Th::N_PLANES;
+  // dynamic shared memory of a block (a chained TLOOP form's tracer levels
+  // on top) and the carveout its blocks take (a chained TLOOP form's: the
+  // most; its launcher takes the step of its levels)
+  static constexpr size_t SMEM = ON ? BASE + HR * PBYTES : TH_BASE;
+  static constexpr int CARVE = LOOP_CHAIN ? TH_CARVE
+      : carveout_kb(BLOCKS * (SMEM + GEN_STATIC + BLOCK_RESERVED));
+  static constexpr int BOXES = ON ? 5 + 2 * VISC : 0;
+  static_assert(!ON || CARVE <= TH_CARVE, "the threads' twin's carveout");
 };
 
 // The dynamic shared memory a block may take on the current device: the

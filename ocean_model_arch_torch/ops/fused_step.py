@@ -241,14 +241,16 @@ def tile_shape(device, steps: int = 1, chain_tile=None) -> tuple:
 
 
 class Geometry(typing.NamedTuple):
-    """A fast form's window on the card where it loads by TMA (every fast
-    form but the viscous ones on metric planes; csrc/fused_tile.cuh's Form
-    and Plan): its output ``tile`` (rows, columns), window ``halo``, rows and
-    columns (``rows`` x ``cols``, the box of every TMA load), floats a
-    shared plane (``plane``), the loader's planes of their own
-    (``extra``), the ``blocks`` an SM its shared memory leaves, the
-    dynamic shared memory of a block (``smem`` bytes; a chained run-time
-    tracer form's levels not counted) and the TMA ``boxes`` of a launch."""
+    """A form's window on the card (csrc/fused_tile.cuh's Form, and Plan
+    for the fast body or GenPlan for the general one): its output ``tile``
+    (rows, columns), window ``halo``, rows and columns (``rows`` x
+    ``cols``, the box of every TMA load), floats a shared plane
+    (``plane``), the loader's planes of their own (``extra``), the
+    ``blocks`` an SM its shared memory leaves, the dynamic shared memory of
+    a block (``smem`` bytes; a chained run-time tracer form's levels not
+    counted), the TMA ``boxes`` of a launch, whether the body loads by TMA
+    (``tma``; else by its threads, with no boxes) and the carveout its
+    blocks take (``carveout``, KB of the SM's shared memory)."""
     tile: tuple
     halo: int
     rows: int
@@ -258,6 +260,8 @@ class Geometry(typing.NamedTuple):
     blocks: int
     smem: int
     boxes: int
+    tma: bool = True
+    carveout: int = 0
 
 
 # the H100's shared memory as csrc/fused_tile.cuh budgets it: an SM's
@@ -270,30 +274,68 @@ TILES = {1: (16, 32, 512, 3), 2: (16, 32, 512, 2)}
 N_SMEM_PLANES, N_CHAIN_PLANES, N_VISC_PLANES = 16, 4, 4
 TMA_BOX_MAX = 256       # cells a side of a TMA box
 TMA_ALIGN = 16          # bytes: addresses, rows and a box's row
+# the SM's shared-memory carveouts (KB; the rest of its 256 KB is L1), and
+# the static shared memory the general body's kernels and the persistent
+# walk are budgeted for
+CARVEOUTS_KB = (0, 8, 16, 32, 64, 100, 132, 164, 196, 228)
+GEN_STATIC = 384
+
+
+def carveout_kb(nbytes: int) -> int:
+    """The smallest carveout (KB) that holds ``nbytes`` of an SM's shared
+    memory, -1 for none: the one the driver takes for a kernel's blocks."""
+    return next((k for k in CARVEOUTS_KB if nbytes <= k * 1024), -1)
+
+
+def _window(n_tracers: int, steps: int, tma: bool) -> tuple:
+    """(halo, rows, columns, floats a plane) of csrc/fused_tile.cuh's
+    Form: by TMA the box begins R columns before the window on 16 bytes,
+    the columns rounded up to 4 and each plane to 128 bytes."""
+    tx, ty = TILES[steps][:2]
+    halo = steps * (3 + (1 if n_tracers else 0))
+    rows = tx + 2 * halo
+    if not tma:
+        cols = ty + 2 * halo
+        return halo, rows, cols, rows * cols
+    shift = -halo % 4            # the box's columns before the window
+    cols = -(-(ty + 2 * halo + shift) // 4) * 4
+    return halo, rows, cols, -(-(rows * cols + shift) // 32) * 32
+
+
+def _visc_plane(n_tracers: int, steps: int) -> int:
+    """Floats of one of a viscous form's four stress planes."""
+    tx, ty = TILES[steps][:2]
+    vhw = (steps - 1) * (3 + (1 if n_tracers else 0)) + 1 + (
+        1 if n_tracers else 0)
+    return (tx + 2 * vhw) * (ty + 2 * vhw)
+
+
+def _n_planes(n_tracers: int, steps: int) -> int:
+    """The working planes of Form: 16, a chained form's 4 and, chained
+    with a fixed tracer count, each tracer's 2 levels."""
+    nt = n_tracers if n_tracers <= MAX_TRACERS else -1   # TLOOP
+    chain = steps > 1
+    return N_SMEM_PLANES + (N_CHAIN_PLANES if chain else 0) + (
+        2 * n_tracers if chain and nt > 0 else 0)
 
 
 @functools.lru_cache(maxsize=None)
 def window_geometry(n_tracers: int, steps: int = 1, visc: bool = False,
-                    hrp: bool = False, ffs: bool = True) -> Geometry:
+                    hrp: bool = False, ffs: bool = True,
+                    persistent: bool = False) -> Geometry:
     """The :class:`Geometry` of the fast form with ``n_tracers`` tracers
     and ``steps`` model steps a launch, viscous or not, on bathymetry
     planes (``hrp``) or not, with a full free surface (``ffs``) or not:
     what ``csrc/fused_step.cu``'s ``fused_sw_step_geometry`` reports,
     computed here from the same rules (chip_smoke.py holds the two
-    together on the card)."""
+    together on the card). ``persistent``: the persistent walk's (one step
+    a tile), whose larger static shared memory enters its carveout."""
     tx, ty, _, min_blocks = TILES[steps]
     nt = n_tracers if n_tracers <= MAX_TRACERS else -1   # TLOOP
-    extra = 1 if n_tracers else 0
-    halo = steps * (3 + extra)
-    rows = tx + 2 * halo
-    shift = -halo % 4            # the box's columns before the window
-    cols = -(-(ty + 2 * halo + shift) // 4) * 4
-    plane = -(-(rows * cols + shift) // 32) * 32
+    halo, rows, cols, plane = _window(n_tracers, steps, True)
     chain = steps > 1
-    n_planes = N_SMEM_PLANES + (N_CHAIN_PLANES if chain else 0) + (
-        2 * n_tracers if chain and nt > 0 else 0)
-    vhw = (steps - 1) * (3 + extra) + 1 + extra
-    vplane = (tx + 2 * vhw) * (ty + 2 * vhw)
+    n_planes = _n_planes(n_tracers, steps)
+    vplane = _visc_plane(n_tracers, steps)
     base = 4 * (n_planes * plane + (N_VISC_PLANES * vplane if visc else 0))
     fits = SM_SMEM // (base + BLOCK_RESERVED + STATIC_SMEM)
     blocks = max(1, fits) if fits < min_blocks else min_blocks
@@ -313,18 +355,79 @@ def window_geometry(n_tracers: int, steps: int = 1, visc: bool = False,
     boxes = ((4 + hrp) + (2 + 2 * visc + (chain or sshp or ffs)) + 1
              + 2 * (not visc and (chain or uvp))
              + (2 * nt if nt > 0 and (chain or tr) else 0))
+    smem = base + 4 * n_extra * plane + 128
+    static = GEN_STATIC if persistent else STATIC_SMEM
     return Geometry((tx, ty), halo, rows, cols, plane, n_extra, blocks,
-                    base + 4 * n_extra * plane + 128, boxes)
+                    smem, boxes, True,
+                    carveout_kb(blocks * (smem + static + BLOCK_RESERVED)))
+
+
+@functools.lru_cache(maxsize=None)
+def general_geometry(n_tracers: int, steps: int = 1,
+                     visc: bool = False) -> Geometry:
+    """The :class:`Geometry` of the general form (csrc/fused_tile.cuh's
+    GenPlan, what a general or a persistent general library's
+    ``fused_sw_step_geometry`` reports): its threads' twin's blocks an SM
+    and carveout; the form loads by TMA only where its blocks keep that
+    carveout with the TMA window (without tracers 15 working planes: it
+    has no use for S_AQP), and then gives hr a plane of its own
+    (``extra``) where the carveout leaves room. A chained run-time tracer
+    form takes one block and keeps the threads' loader; its carveout here
+    is the most it needs (its launcher takes the step of the tracer levels
+    its block holds at run time)."""
+    tx, ty, _, min_blocks = TILES[steps]
+    loop_chain = n_tracers > MAX_TRACERS and steps > 1
+    vbytes = (4 * N_VISC_PLANES * _visc_plane(n_tracers, steps) if visc
+              else 0)
+    halo, rows, cols, plane = _window(n_tracers, steps, False)
+    th_base = 4 * _n_planes(n_tracers, steps) * plane + vbytes
+    th_block = th_base + GEN_STATIC + BLOCK_RESERVED
+    fits = SM_SMEM // th_block
+    blocks = (1 if loop_chain else max(1, fits) if fits < min_blocks
+              else min_blocks)
+    th_carve = CARVEOUTS_KB[-1] if loop_chain else carveout_kb(
+        blocks * th_block)
+    _, _, t_cols, t_plane = _window(n_tracers, steps, True)
+    n_work = _n_planes(n_tracers, steps) - (n_tracers == 0)
+    base = 4 * n_work * t_plane + vbytes + 128
+    limit = th_carve * 1024
+    on = not loop_chain and blocks * (
+        base + GEN_STATIC + BLOCK_RESERVED) <= limit
+    hr = on and blocks * (
+        base + 4 * t_plane + GEN_STATIC + BLOCK_RESERVED) <= limit
+    if not on:
+        return Geometry((tx, ty), halo, rows, cols, plane, 0, blocks,
+                        th_base, 0, False, th_carve)
+    smem = base + 4 * t_plane * hr
+    return Geometry((tx, ty), halo, rows, t_cols, t_plane, int(hr), blocks,
+                    smem, 5 + 2 * visc, True, carveout_kb(
+                        blocks * (smem + GEN_STATIC + BLOCK_RESERVED)))
+
+
+def persistent_rounds(lay: FusedLayout, grid: int) -> tuple:
+    """How the persistent walk's ``grid`` blocks cover the single block's
+    tiles of ``lay``: (tiles, rounds a step, the last round's share of the
+    grid that has a tile)."""
+    tx, ty = TILES[1][:2]
+    tiles = -(-lay.Xs // tx) * -(-lay.Ys // ty)
+    rounds = -(-tiles // grid)
+    return tiles, rounds, (tiles - (rounds - 1) * grid) / grid
 
 
 def tma_refusal(lay: FusedLayout, tensors, steps: int = 1,
-                n_tracers: int = 0) -> str | None:
+                n_tracers: int = 0, general: bool = False,
+                visc: bool = False) -> str | None:
     """Why TMA cannot load the windows of ``tensors`` (each (..., Xs,
     Ys) of ``lay``, contiguous float32) for the forms of ``steps`` model
-    steps a launch with ``n_tracers`` tracers, or None: each address and
-    row 16-byte aligned, the box's row a multiple of 16 bytes, at most
-    256 cells a side (csrc/tma.cuh)."""
-    g = window_geometry(n_tracers, steps)
+    steps a launch with ``n_tracers`` tracers (the general form's with
+    ``general``, viscous or not), or None: each address and row 16-byte
+    aligned, the box's row a multiple of 16 bytes, at most 256 cells a
+    side (csrc/tma.cuh). A general form that loads by its threads
+    (:func:`general_geometry`) has nothing to refuse."""
+    g = (general_geometry(n_tracers, steps, visc) if general
+         else window_geometry(n_tracers, steps))
+    if not g.tma:
+        return None
     if (lay.Ys * 4) % TMA_ALIGN:
         return f"rows of {lay.Ys} floats are not a multiple of 16 bytes"
     if (g.cols * 4) % TMA_ALIGN or max(g.rows, g.cols) > TMA_BOX_MAX:
@@ -826,10 +929,10 @@ def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
     if steps not in (1, 2):
         raise ValueError(f"steps={steps}: the kernel runs 1 or 2 steps a "
                          "launch")
-    why = None if general else tma_refusal(lay, (*fields, planes), steps,
-                                            n_tr)
+    why = tma_refusal(lay, (*fields, planes), steps, n_tr, general, visc)
     if why:
-        raise ValueError(f"the fast form's TMA loader cannot take {why}")
+        raise ValueError(f"the {'general' if general else 'fast'} form's "
+                         f"TMA loader cannot take {why}")
     if tile_wet is None:
         return
     want = tile_shape(dev, steps, chain_tile)
@@ -1317,6 +1420,9 @@ def _persist_library(n_tracers: int = 0, general: bool = False) -> ctypes.CDLL:
                            f"{built}, not {want}")
     lib.fused_sw_step_error_string.argtypes = [i]
     lib.fused_sw_step_error_string.restype = ctypes.c_char_p
+    lib.fused_sw_step_geometry.argtypes = [i, i, i, i,
+                                           ctypes.POINTER(ctypes.c_longlong)]
+    lib.fused_sw_step_geometry.restype = i
     lib.fused_sw_persist_launch.argtypes = ([p] * 7 + [i] * 6
                                             + [ctypes.POINTER(i)] + [i] * 5
                                             + [f] * 8 + [p])

@@ -150,14 +150,15 @@ def kernel_us(fn, n: int, kernel: str = "copy_step_kernel") -> float:
 
 
 def probe(nx: int, ny: int, masks=(), n_launch: int = N_LAUNCH,
-          forms=FORMS) -> list:
+          forms=FORMS, threads=None) -> list:
     """Time the copy step of every form of ``forms`` on the current CUDA
     device. ``masks``: (name, (nx, ny) int array, 1 = land) pairs, each
-    giving the guarded forms their per-tile flags. Returns one dict per
-    form and guard: ``n_tracers, met2d, visc, hr_varies, guard`` (None or
-    the mask's name), ``us`` (the TMA loader), ``us_threads`` (the
-    threads'), ``bytes, bound_us`` (the bytes over the
-    card's memory rate)."""
+    giving the guarded forms their per-tile flags. ``threads``: the forms
+    whose copy step is timed with the threads' loader too (None: every
+    form). Returns one dict per form and guard: ``n_tracers, met2d, visc,
+    hr_varies, guard`` (None or the mask's name), ``us`` (the TMA loader),
+    ``us_threads`` (the threads', None where not timed), ``bytes,
+    bound_us`` (the bytes over the card's memory rate)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the roofline probe needs a CUDA device")
     device = torch.device("cuda", torch.cuda.current_device())
@@ -179,7 +180,9 @@ def probe(nx: int, ny: int, masks=(), n_launch: int = N_LAUNCH,
             us, us_threads = (kernel_us(lambda: copy_step(
                 windows, met, n_out, lay, tracer_form=n_tracers,
                 tile_wet=flags, tile=tile, visc_form=visc, loader=loader),
-                n_launch) for loader in ("tma", "threads"))
+                n_launch) if loader == "tma" or threads is None
+                or (n_tracers, met2d, visc, hr_varies) in threads else None
+                for loader in ("tma", "threads"))
             nbytes = bytes_moved(lay, n_tracers, met2d, wet, tile, visc,
                                  hr_varies)
             rows.append({"n_tracers": n_tracers, "met2d": met2d,

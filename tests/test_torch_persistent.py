@@ -299,3 +299,22 @@ def test_non_cpu_tensors_never_take_the_plain_versions():
     assert pp.persistent_walk.launches == 0
     assert not any(t.startswith("persistent_probe") or "PERSIST" in t
                    for t in _build.BUILDS)
+
+
+@pytest.mark.parametrize("size,want", [((1525, 1115), (3456, 9, 0.7273)),
+                                       ((400, 300), (260, 1, 0.6566))],
+                         ids=["azov250m", "cut400x300"])
+def test_walk_rounds(size, want):
+    """The walk's grid over the single block's tiles, as chip_smoke.py
+    prints it: three blocks an SM on 132 SMs (396 blocks) walk the 96 x 36
+    tiles of the 1533 x 1152 layout in 9 rounds a step, the last 73 %
+    full, and the 26 x 10 of the 408 x 320 cut in one. Block b runs tiles
+    b, b + grid, ...: every tile once a step."""
+    from ocean_model_arch_torch.ops import fused_layout as fl
+    lay = fl.make_layout(*size)
+    grid = 3 * 132
+    tiles, rounds, fill = fstep.persistent_rounds(lay, grid)
+    assert (tiles, rounds) == want[:2] and abs(fill - want[2]) < 1e-4
+    walked = sorted(t for b in range(grid) for t in range(b, tiles, grid))
+    assert walked == list(range(tiles))
+    assert max(len(range(b, tiles, grid)) for b in range(grid)) == rounds

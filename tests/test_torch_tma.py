@@ -1,11 +1,13 @@
-"""The TMA loader's geometry on the CPU (ops/fused_step.py::window_geometry,
-the mirror of csrc/fused_tile.cuh's Form and Plan; tma_refusal, the
-wrapper's check of what TMA takes): every fast form's window and planes
-fit the blocks an SM the plan promises, every box keeps TMA's limits, and
-every layout the drivers build (frame, coastline, bipolar 289 x 163, 2 x 2
-uniform and weighted shards, a periodic channel) and every array they pack
-is one TMA takes. chip_smoke.py holds the mirror against the CUDA
-libraries' own getter on the card."""
+"""The TMA loader's geometry on the CPU (ops/fused_step.py::window_geometry
+and general_geometry, the mirrors of csrc/fused_tile.cuh's Form, Plan and
+GenPlan; tma_refusal, the wrapper's check of what TMA takes): every fast
+form's window and planes fit the blocks an SM the plan promises, every
+general form that loads by TMA keeps the carveout of its threads' twin,
+the persistent walk's forms keep three blocks an SM, every box keeps TMA's
+limits, and every layout the drivers build (frame, coastline, bipolar 289
+x 163, 2 x 2 uniform and weighted shards, a periodic channel) and every
+array they pack is one TMA takes. chip_smoke.py holds the mirrors against
+the CUDA libraries' own getter on the card."""
 
 import dataclasses
 import itertools
@@ -187,3 +189,135 @@ def test_refusals():
     shifted = base[1:].view(lay.Xs, lay.Ys)
     assert "aligned" in fstep.tma_refusal(lay, (shifted,))
     assert fstep.tma_refusal(lay, (base[:-1].view(lay.Xs, lay.Ys),)) is None
+
+
+# the general form's (tracers, steps a launch, viscous)
+GEN_FORMS = list(itertools.product((0, 1, 2, 3, 9), (1, 2), (False, True)))
+
+
+def _gen_name(form):
+    t, steps, visc = form
+    return f"T{t}-{steps}step" + "-visc" * visc
+
+
+def _twin_carveout(t, steps, visc):
+    """(blocks an SM, carveout KB) of the general form's threads' twin,
+    worked out here from its window: (16 + 2 H) x (32 + 2 H) cells a
+    plane, 16 planes (20 + 2 T chained at a fixed count), a viscous
+    form's four stress planes of the region 1 + EXTRA cells (plus a
+    chained step's H) around the tile."""
+    halo = steps * (3 + (t > 0))
+    plane = (16 + 2 * halo) * (32 + 2 * halo)
+    n = 16 + (4 + (2 * t if 0 < t <= 2 else 0) if steps == 2 else 0)
+    vh = (steps - 1) * (3 + (t > 0)) + 1 + (t > 0)
+    nbytes = 4 * (n * plane + (4 * (16 + 2 * vh) * (32 + 2 * vh)
+                               if visc else 0))
+    if t > 2 and steps == 2:          # its tracer levels fill one block
+        return 1, 228
+    block = nbytes + fstep.GEN_STATIC + fstep.BLOCK_RESERVED
+    blocks = min(3 if steps == 1 else 2, fstep.SM_SMEM // block)
+    return blocks, fstep.carveout_kb(blocks * block)
+
+
+@pytest.mark.parametrize("form", GEN_FORMS, ids=_gen_name)
+def test_general_window_keeps_tma_limits(form):
+    """A general form by TMA: the box is the whole window, its columns a
+    multiple of 16 bytes from a column that is one, at most 256 cells a
+    side, each plane on 128 bytes; five boxes (ssh, u, v, lu, hr) and a
+    viscous form's up, vp. Only the chained forms without tracers and of
+    the run-time tracer count keep the threads' loader (no boxes)."""
+    t, steps, visc = form
+    g = fstep.general_geometry(t, steps, visc)
+    assert g.tma == (steps == 1 or 0 < t <= 2)
+    assert g.tile == (16, 32) and g.halo == steps * (3 + (t > 0))
+    if not g.tma:
+        assert g.boxes == 0 and g.extra == 0
+        assert g.cols == g.tile[1] + 2 * g.halo
+        return
+    shift = -g.halo % 4
+    assert (g.tile[1] - g.halo - shift) % 4 == 0
+    assert (4 * g.cols) % fstep.TMA_ALIGN == 0
+    assert g.cols >= g.tile[1] + 2 * g.halo + shift
+    assert max(g.rows, g.cols) <= fstep.TMA_BOX_MAX
+    assert g.plane % 32 == 0 and g.plane >= g.rows * g.cols + shift
+    assert g.boxes == 5 + 2 * visc
+    assert g.smem + fstep.STATIC_SMEM <= fstep.BLOCK_SMEM_MAX
+
+
+@pytest.mark.parametrize("form", GEN_FORMS, ids=_gen_name)
+def test_general_keeps_its_twins_carveout(form):
+    """No general form's blocks an SM times its shared memory (with the
+    static arrays and the block's reserve) pass the carveout step its
+    threads' twin sits in: the body reads its metric rows or planes
+    through L1, which a larger carveout shrinks. The blocks an SM are the
+    twin's: three one step, two chained without tracers, one chained
+    with."""
+    t, steps, visc = form
+    g = fstep.general_geometry(t, steps, visc)
+    blocks, carve = _twin_carveout(t, steps, visc)
+    assert g.blocks == blocks
+    assert g.carveout <= carve
+    if not (t > 2 and steps == 2):
+        assert g.blocks * (g.smem + fstep.GEN_STATIC
+                           + fstep.BLOCK_RESERVED) <= carve * 1024
+    # the one-step forms all move; hr gets a plane of its own where the
+    # carveout leaves one: with tracers (not viscous) and chained
+    assert g.extra == (g.tma and t > 0 and not visc and steps == 1
+                       or g.tma and steps == 2 and t in (1, 2))
+
+
+# the persistent walk's forms: (tracers, viscous, bathymetry planes, full
+# free surface, general)
+WALK_FORMS = [f for f in itertools.product((0, 1, 2, 3), (False, True),
+                                           (False, True), (False, True),
+                                           (False, True))
+              if not (f[4] and f[2])]
+
+
+def _walk_name(form):
+    t, visc, hrp, ffs, gen = form
+    return (f"T{t}" + "-visc" * visc + "-hrp" * hrp + "-linear" * (not ffs)
+            + "-general" * gen)
+
+
+@pytest.mark.parametrize("form", WALK_FORMS, ids=_walk_name)
+def test_walk_keeps_three_blocks(form):
+    """K2's walk loads every tile by TMA with the one-step plan of its
+    body (the fast one's Plan, the general one's GenPlan): three blocks an
+    SM with the walk's larger static shared memory, boxes within TMA's
+    limits; a general form at its twin's carveout."""
+    t, visc, hrp, ffs, gen = form
+    g = (fstep.general_geometry(t, 1, visc) if gen else
+         fstep.window_geometry(t, 1, visc, hrp, ffs, persistent=True))
+    assert g.tma and g.blocks == 3
+    assert 3 * (g.smem + fstep.GEN_STATIC + fstep.BLOCK_RESERVED) \
+        <= fstep.SM_SMEM
+    assert (4 * g.cols) % fstep.TMA_ALIGN == 0 and g.plane % 32 == 0
+    assert max(g.rows, g.cols) <= fstep.TMA_BOX_MAX
+    if gen:
+        assert g.carveout <= _twin_carveout(t, 1, visc)[1]
+    else:
+        assert g.carveout == fstep.carveout_kb(
+            3 * (g.smem + fstep.GEN_STATIC + fstep.BLOCK_RESERVED))
+
+
+def test_general_refusals():
+    """A general form by TMA refuses what TMA does not take, as the fast
+    forms do; a chained general form without tracers (the threads'
+    loader) has nothing to refuse."""
+    lay = fl.make_layout(40, 40)
+    base = torch.zeros(lay.Xs * lay.Ys + 1)
+    shifted = base[1:].view(lay.Xs, lay.Ys)
+    for t, visc in itertools.product((0, 2), (False, True)):
+        assert "aligned" in fstep.tma_refusal(lay, (shifted,), 1, t, True,
+                                              visc)
+    assert fstep.tma_refusal(lay, (shifted,), 2, 0, True) is None
+    assert "aligned" in fstep.tma_refusal(lay, (shifted,), 2, 2, True)
+
+
+def test_carveouts():
+    """The carveout steps: the smallest that holds the bytes."""
+    assert fstep.carveout_kb(0) == 0
+    assert fstep.carveout_kb(164 * 1024) == 164
+    assert fstep.carveout_kb(164 * 1024 + 1) == 196
+    assert fstep.carveout_kb(228 * 1024 + 1) == -1
