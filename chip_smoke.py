@@ -106,7 +106,8 @@ window in one launch (phase 14) -> ``pack`` -> ``run_steps`` ->
    bathymetry), 200 steps each against the eager composition, and their
    timing line; (c) every shipped run directory ``examples/0*`` through
    ``main --f32`` on the fused CUDA kernel against the eager composition
-   by hand (302 chained launches each), ``04_black_sea`` as shipped in
+   by hand (124 of their 604 steps: 62 chained launches each; the windows
+   of 60, 60 and 4 keep the even last window), ``04_black_sea`` as shipped in
    f64 on the eager route, and ``01_flat_basin --mesh 2x2`` == its 1 x 1
    run bit for bit (its raw forms at two steps a launch and at one);
 11. (printed before phase 7) two chained model steps a launch: (a)
@@ -192,7 +193,20 @@ window in one launch (phase 14) -> ``pack`` -> ``run_steps`` ->
    carried calls (1e-6), the SASS instructions an iteration of each
    kind; (b) ``scripts/vpu_op_probe_torch.py`` and
    ``scripts/vpu_shift_probe_torch.py``'s timing at their own n (2000,
-   500), each kind's launches counted.
+   500), each kind's launches counted;
+17. (printed before phase 7) ``OceanModel`` on a 4 x 2 mesh off the fused
+   path, and the dynamic load balance: (a) ``main`` on
+   ``examples/05_azov_hires`` in f64 (the CLI's default) with ``--mesh
+   4x2``, 20 steps on the eager sharded step (every shard of the padded
+   1528 x 1116 domain stacked on the card, in lockstep; no fused
+   launch), its cropped final state == the 1 x 1 eager f64 run bit for
+   bit, ms/step of both; (b) the halo self-test on the padded extents
+   (that run at parallel.par's debug level 2, and by hand, timed); (c)
+   ``OceanModel.run`` in f32 on 4 x 2 with 3 balance rounds of 2 probe
+   steps: the rounds' ratios and the selected cuts, K1b's launches (the
+   probes' and the window's), the installed runner's 20 steps against
+   the eager composition on one block (3e-4), K1b on those cuts against
+   its plain version and timed beside uniform cuts.
 
 Every phase prints its lines; any failure raises (exit code != 0). The
 line before the last is one JSON object describing the kernels: forty-
@@ -206,8 +220,8 @@ forms of phase 12b's paths, the six general forms of phase 13b's paths,
 the copy step, the chained copy step and the stacked copy step, the
 persistent step on phase 14's six runs and the walk's three forms, these
 nine per model step), the folded instantiations launched on the entry
-points' and phase 15's paths, and the probes' 26 (K6: ten kinds at two
-Ks; K7: three at two);
+points' and phase 15's paths, the probes' 26 (K6: ten kinds at two
+Ks; K7: three at two), and K1b on phase 17's balanced cuts;
 the last line is ``{"ok": true, "device": {...}}``. With ``--parent
 DIR`` (the root of another checkout of this repository) it instead holds
 every one-step instantiation that checkout has against this one's, bit
@@ -901,6 +915,27 @@ def tracer_mass(state, grid) -> list:
             for t in range(state.ff.shape[0])]
 
 
+# the eager composition's N_MAIN steps a path is held against, by (grid,
+# config, mu): the forms of one configuration (one step, chained, general,
+# folded, persistent) share it
+EAGER_REFS = {}
+
+
+def eager_reference(tag, grid, cfg, state, mu):
+    """The eager composition's state after N_MAIN steps from ``state`` (the
+    initial state of ``grid`` and ``cfg`` with viscosity ``mu``), computed
+    once a configuration; the entry holds the grid, so a recycled id
+    cannot hit."""
+    from ocean_model_arch_torch.model.step import make_step, run_steps
+    key = (id(grid), repr(cfg), float(mu))
+    hit = EAGER_REFS.get(key)
+    if hit is None or hit[0] is not grid:
+        ref, eok = run_steps(make_step(grid, cfg), state, 1.0, N_MAIN)
+        check(eok, f"{tag}: the eager composition's guard tripped")
+        hit = EAGER_REFS[key] = (grid, ref)
+    return hit[1]
+
+
 def drive_path(tag, grid, cfg, tile_guard, mu=0.0, spc=1, model_kw=None):
     """One path end to end: init -> FusedSWModel -> pack -> run_steps ->
     unpack for N_MAIN steps at ``spc`` steps a launch, against the eager
@@ -915,7 +950,6 @@ def drive_path(tag, grid, cfg, tile_guard, mu=0.0, spc=1, model_kw=None):
     final state)."""
     from ocean_model_arch_torch.model.fused import FusedSWModel
     from ocean_model_arch_torch.model.init import init_ocean_state
-    from ocean_model_arch_torch.model.step import make_step, run_steps
     from ocean_model_arch_torch.ops.fused_step import (fused_sw_step,
                                                        reset_launch_counts)
 
@@ -940,8 +974,7 @@ def drive_path(tag, grid, cfg, tile_guard, mu=0.0, spc=1, model_kw=None):
           f"plane metrics, mu mode, bathymetry planes, raw, advection, "
           f"full free surface, steps, general) {counts}, expected {n} of "
           f"{key}")
-    ref, eok = run_steps(make_step(grid, cfg), state, 1.0, N_MAIN)
-    check(eok, f"{tag}: the eager composition's guard tripped")
+    ref = eager_reference(tag, grid, cfg, state, mu)
     errs = {}
     for n in ("ssh", "ubrtr", "vbrtr"):
         a, b = getattr(out, n), getattr(ref, n)
@@ -1604,10 +1637,10 @@ def time_sharded(fs, state, wet_pts: int, pts: int) -> dict:
 
 
 def example_dir(tmp: str, example: str, name: str, sw_edits=None,
-                **edits) -> str:
+                parallel_edits=None, **edits) -> str:
     """A copy of ``examples/<example>`` under ``tmp`` whose data paths
     are absolute; ``edits``: 'old text' -> 'new text' in ocean_run.par,
-    ``sw_edits`` the same in sw.par."""
+    ``sw_edits`` the same in sw.par, ``parallel_edits`` in parallel.par."""
     src = os.path.join(REPO, "examples", example)
     dst = os.path.join(tmp, name)
     shutil.copytree(src, dst, ignore=shutil.ignore_patterns("RESULTS",
@@ -1617,7 +1650,8 @@ def example_dir(tmp: str, example: str, name: str, sw_edits=None,
         text = f.read()
     with open(path, "w") as f:
         f.write(text.replace("../../data/", os.path.join(REPO, "data", "")))
-    for par, changes in (("ocean_run.par", edits), ("sw.par", sw_edits)):
+    for par, changes in (("ocean_run.par", edits), ("sw.par", sw_edits),
+                         ("parallel.par", parallel_edits)):
         path = os.path.join(dst, par)
         with open(path) as f:
             text = f.read()
@@ -1749,6 +1783,197 @@ def entry_point(card: str, name: str) -> None:
             f"included), output {t_out:.4f} s in {n_outs} calls "
             f"({t_out / n_outs * 1e3:.1f} ms each), checkpoint {t_ck:.4f} s")
     print(f"phase 9b timing ({name}; {card}): {text}")
+
+
+# phase 17: 20 steps of examples/05_azov_hires (its 604 cut), on a 4 x 2 mesh
+MESH_EXAMPLE = "05_azov_hires"
+MESH_STEPS = 20
+PROFILE_STEPS = 5       # the steps of a profiled window of the f64 routes
+MESH_DAYS = {"0.007   : duration days": "0.0002315 : duration days"}
+
+
+def mesh_route(card: str, name: str, stats: dict) -> list:
+    """Phase 17: ``OceanModel`` on a 4 x 2 mesh on the card. (a) ``main``
+    on examples/05_azov_hires in f64 (the CLI's default) with ``--mesh
+    4x2``: the eager sharded step (all 8 shards stacked on the card, in
+    lockstep; no fused kernel launched), its cropped final state == the
+    1 x 1 eager f64 run of the same steps bit for bit, ms/step of both;
+    (b) the halo self-test on the padded extents (the same run at
+    parallel.par's debug level 2, and once more by hand, timed); (c) the
+    dynamic load balance through ``OceanModel.run`` in f32 (3 rounds of 2
+    probe steps; the fused-sharded route, K1b's raw form), the rounds'
+    ratios and the cuts it selects, the installed runner's 20 steps
+    against the eager f32 composition on one block, K1b on those cuts
+    against its plain version and timed beside uniform cuts. Returns the
+    kernels line's entry of K1b on this path."""
+    from ocean_model_arch_torch.config import Precision
+    from ocean_model_arch_torch.io.checkpoint import load_checkpoint
+    from ocean_model_arch_torch.model.fused_sharded2d import \
+        FusedSharded2DModel
+    from ocean_model_arch_torch.model.model import (OceanModel,
+                                                    load_config_dir)
+    from ocean_model_arch_torch.model.step import make_step, run_steps
+    from ocean_model_arch_torch.ops.fused_step import (
+        fused_sw_step, fused_sw_step_reference, reset_launch_counts)
+    from ocean_model_arch_torch.parallel.domain import (pad_state,
+                                                        padded_extents)
+    from ocean_model_arch_torch.parallel.halo import halo_self_test
+    from ocean_model_arch_torch.parallel.mesh import make_mesh, shard_tree
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- (a) + (b): f64 through main, 4 x 2 at debug level 2 -------
+        d = example_dir(tmp, MESH_EXAMPLE, "mesh", parallel_edits={
+            "0       : debug": "2       : debug"}, **MESH_DAYS)
+        ck = os.path.join(tmp, "mesh.npz")
+        reset_launch_counts()
+        out = run_main([d, "--mesh", "4x2", "--checkpoint", ck])
+        check(not fused_sw_step.form_launches, "phase 17a: the eager mesh "
+              f"launched the fused kernel {dict(fused_sw_step.form_launches)}")
+        check("MODEL: compute path: eager composition, sharded\n" in out,
+              "phase 17a: main --mesh 4x2 (f64) took another route:\n"
+              + "\n".join(ln for ln in out.splitlines() if "MODEL" in ln))
+        check("SYNC INFO: halo self-test passed (4x2 mesh)" in out,
+              "phase 17b: no halo self-test line at debug level 2")
+        t_mesh, _ = timer_row(out, "model_step")
+        d1 = example_dir(tmp, MESH_EXAMPLE, "block", **MESH_DAYS)
+        ck1 = os.path.join(tmp, "block.npz")
+        out1 = run_main([d1, "--checkpoint", ck1])
+        check("MODEL: compute path: eager composition\n" in out1,
+              "phase 17a: the 1 x 1 f64 run took another route")
+        t_block, _ = timer_row(out1, "model_step")
+        a, n_a = load_checkpoint(ck)
+        b, n_b = load_checkpoint(ck1)
+        check(n_a == n_b == MESH_STEPS, f"phase 17a: the runs ended at steps "
+              f"{n_a} and {n_b}, not {MESH_STEPS}")
+        nx, ny = a.ssh.shape
+        basin = load_config_dir(d).basin
+        check(a.ssh.is_cuda and a.ssh.dtype == torch.float64
+              and (nx, ny) == (basin.nx, basin.ny)
+              and bool(torch.isfinite(a.ssh).all())
+              and float(a.ssh.abs().max()) > 0, "phase 17a: the mesh run's "
+              f"ssh is {a.ssh.dtype} {tuple(a.ssh.shape)} on {a.ssh.device}")
+        diffs = {f.name: float((getattr(a, f.name)
+                                - getattr(b, f.name)).abs().max())
+                 for f in dataclasses.fields(a)
+                 if getattr(a, f.name) is not None}
+        same = all(torch.equal(getattr(a, f), getattr(b, f)) for f in diffs)
+        worst = max(diffs, key=diffs.get)
+        print(f"phase 17a mesh route (python -m ocean_model_arch_torch "
+              f"examples/{MESH_EXAMPLE} --mesh 4x2, f64, {nx} x {ny} padded "
+              f"to {padded_extents(nx, ny, 4, 2)}): {MESH_STEPS} steps on the "
+              "eager sharded step (8 shards stacked on the card, lockstep), "
+              "no fused launch; the cropped final state == the 1 x 1 eager "
+              f"f64 run bit for bit on all {len(diffs)} fields: "
+              f"{'yes' if same else 'NO'}; largest difference "
+              f"{diffs[worst]:.3e} ({worst})", flush=True)
+        check(same, "phase 17a: the 4 x 2 mesh differs from the 1 x 1 run "
+              f"(largest {diffs[worst]:.3e} in {worst})")
+        # where a step's time goes on each route: one profiled window
+        split = {}
+        for px, py in ((4, 2), (1, 1)):
+            cfg64 = load_config_dir(d1)
+            cfg64 = dataclasses.replace(cfg64, parallel=dataclasses.replace(
+                cfg64.parallel, mesh_x=px, mesh_y=py))
+            m = OceanModel(cfg64, base_dir=d1)
+            st = (shard_tree(pad_state(m.state, px, py), m.mesh)
+                  if m.mesh is not None else m.state)
+            runner = m._make_runner(PROFILE_STEPS)
+            ev = profile_events(lambda: runner(st))
+            busy = sum(us for _, us in ev.values()) / PROFILE_STEPS
+            halo = sum(us for k, (_, us) in ev.items()
+                       if "cat" in k.lower() or "pad" in k.lower())
+            wall = cuda_ms(lambda: runner(st), 1) / PROFILE_STEPS
+            split[px, py] = (
+                f"{wall:.3f} ms/step (one window of {PROFILE_STEPS}), "
+                f"device busy {busy / 1e3:.3f} ms/step, idle "
+                f"{max(0.0, 1 - busy / 1e3 / wall):.0%}, "
+                f"{sum(c for c, _ in ev.values()) / PROFILE_STEPS:.0f} "
+                f"kernels/step, halo copies (cat, pad) "
+                f"{halo / PROFILE_STEPS / 1e3:.3f} ms/step "
+                f"({halo / PROFILE_STEPS / max(busy, 1e-9):.0%} of busy)")
+            del m, st, runner
+        tx, ty = padded_extents(nx, ny, 4, 2)
+        t0 = time.perf_counter()
+        halo_self_test(make_mesh(4, 2), tx, ty)
+        t_halo = time.perf_counter() - t0
+        print(f"phase 17b halo self-test: 4 x 2 shards of the padded "
+              f"{tx} x {ty} extents on the card, every cell of every "
+              "shard's exchanged block == the analytic i*j: yes (the main "
+              f"run's own at debug level 2 passed too); {t_halo:.3f} s, the "
+              "exchange and the host's check", flush=True)
+
+        # ---- (c): the dynamic load balance through OceanModel.run -------
+        dd = example_dir(tmp, MESH_EXAMPLE, "dlb", parallel_edits={
+            "0       : dlb balance steps": "3       : dlb balance steps",
+            "0       : dlb model steps": "2       : dlb model steps"},
+            **MESH_DAYS)
+        cfg = load_config_dir(dd)
+        cfg = dataclasses.replace(
+            cfg, precision=Precision.f32(), parallel=dataclasses.replace(
+                cfg.parallel, mesh_x=4, mesh_y=2))
+        model = OceanModel(cfg, base_dir=dd)
+        s0 = model.state
+        reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            final = model.run(verbose=True)
+        text = buf.getvalue()
+        counts = dict(fused_sw_step.form_launches)
+        rounds = [ln for ln in text.splitlines() if ln.startswith("PREP:")]
+        check(len(rounds) == 4 and "PREP: DLB selected cuts" in rounds[-1],
+              f"phase 17c: the DLB lines are {rounds}")
+        check(model.compute_path() == "fused CUDA kernel, sharded",
+              f"phase 17c: the route is {model.compute_path()}")
+        fs = model._fused_sh
+        key = form_key(fs)
+        # 3 rounds of one chained launch a shard, then the window's 10
+        n_launch = (3 + MESH_STEPS // 2) * 8
+        check(counts == {key: n_launch}, f"phase 17c: launches {counts}, "
+              f"expected {n_launch} of {key}")
+        ref, ok = run_steps(make_step(model.grid, cfg), s0, cfg.run.tau,
+                            MESH_STEPS)
+        check(ok, "phase 17c: the eager composition's guard tripped")
+        errs = [rel_err(getattr(final, n), getattr(ref, n))
+                for n in ("ssh", "ubrtr", "vbrtr")]
+        check(max(errs) < TOL_EAGER, f"phase 17c: the DLB cuts' run vs the "
+              f"eager composition rel errors {errs} exceed {TOL_EAGER}")
+        print("phase 17c dynamic load balance (OceanModel.run, "
+              f"examples/{MESH_EXAMPLE} --f32 --mesh 4x2, dlb 3 rounds of 2 "
+              "probe steps): " + "; ".join(rounds) + f"; cuts x "
+              f"{fs.x_edges.tolist()} y {fs.y_edges.tolist()}, tile "
+              f"{fs.tile}, tiles {fs.n_tiles[0]} wet / {fs.n_tiles[1]} dry; "
+              f"launches={n_launch} of {key_text(key)} (the probes' and the "
+              f"window's); {MESH_STEPS} steps on the installed runner vs "
+              f"the eager f32 composition on one block: rel {fmt(errs)} < "
+              f"{TOL_EAGER}", flush=True)
+        form = "fused_sw_step_raw_chain_dlb" + FOLD_SUFFIX[key[-1]]
+        compare_raw("DLB cuts 4 x 2", fs, cfg, s0, stats, form,
+                    phase="phase 17c")
+        wet = int(model.grid.lu.sum())
+        pts = nx * ny
+        t = time_sharded(fs, s0, wet, pts)
+        uni = FusedSharded2DModel(model.grid, cfg, cfg.run.tau, 4, 2,
+                                  steps_per_call=2)
+        t_uni = time_sharded(uni, s0, wet, pts)
+        f_in = fs.pack(s0)[0].unbind(0)
+        f_out = tuple(torch.zeros_like(v) for v in f_in)
+        plain = cuda_ms(lambda: fused_sw_step_reference(
+            f_in, *shard_args(fs, cfg, 0, 0), outs=f_out), 10)
+    print(f"phase 17 timing ({name}; {card}): {MESH_EXAMPLE} f64 "
+          f"model_step {t_mesh / MESH_STEPS * 1e3:.4f} ms/step on the 4 x 2 "
+          f"eager mesh, {t_block / MESH_STEPS * 1e3:.4f} ms/step on the "
+          f"1 x 1 eager block (the run's own timer, {MESH_STEPS} steps, one "
+          f"window); profiled: 4 x 2 mesh {split[4, 2]} | 1 x 1 block "
+          f"{split[1, 1]}; f32 4 x 2 chained, DLB cuts {t['text']} | uniform cuts "
+          f"x {uni.x_edges.tolist()} y {uni.y_edges.tolist()} "
+          f"{t_uni['text']}; plain version of the raw form on shard (0, 0) "
+          f"{plain:.4f} ms/launch", flush=True)
+    return [{"name": form, "route": "cuda", "source": CSRC + "fused_step.cu",
+             "replaces": PALLAS + ":1652", "launches": n_launch,
+             "max_abs_err": stats[form], "ms": t["ms_kernel"],
+             "plain_ms": plain, "bound_ms": t["bound_ms"],
+             "bound_by": "bytes", "library_ms": None,
+             "loader": "tma" if not (fs.metrics_2d and fs.visc) else
+             "threads"}]
 
 
 def channel_mask(nx: int, ny: int) -> np.ndarray:
@@ -2104,6 +2329,13 @@ def only_form(tag: str, counts: dict) -> tuple:
     return next(iter(counts.items()))
 
 
+# phase 10c runs each shipped directory's first 124 of its 604 steps (its
+# windows of 60 steps and a last of 4, cut to 60, 60, 4): the eager
+# composition by hand at full size is most of the phase
+SHIPPED_STEPS = 124
+SHIPPED_DAYS = {"0.007   : duration days": "0.001436 : duration days"}
+
+
 def shipped_examples(card, name, stats, run) -> None:
     """Phase 10c: every shipped run directory ``examples/0*`` through
     ``main`` with ``--f32`` on a copy in a temporary directory: the route
@@ -2129,9 +2361,9 @@ def shipped_examples(card, name, stats, run) -> None:
     fields = CARRIED + ("hhq", "hhu", "hhv", "hhh")
 
     def through_main(tmp, ex, dst, *flags):
-        """main on a copy of ``ex``: (run directory, output, launch
-        counts, config as run, final state, steps)."""
-        d = example_dir(tmp, ex, dst)
+        """main on a copy of ``ex`` cut to SHIPPED_STEPS: (run directory,
+        output, launch counts, config as run, final state, steps)."""
+        d = example_dir(tmp, ex, dst, **SHIPPED_DAYS)
         ck = os.path.join(tmp, dst + ".npz")
         reset_launch_counts()
         out = run_main([d, *flags, "--checkpoint", ck])
@@ -2140,7 +2372,8 @@ def shipped_examples(card, name, stats, run) -> None:
         if "--f32" in flags:
             cfg = dataclasses.replace(cfg, precision=Precision.f32())
         final, step = load_checkpoint(ck)
-        check(step == cfg.run.num_step_max and final.ssh.is_cuda,
+        check(step == cfg.run.num_step_max == SHIPPED_STEPS
+              and final.ssh.is_cuda,
               f"{dst}: the checkpoint holds step {step} on "
               f"{final.ssh.device}")
         return d, out, counts, cfg, final, step
@@ -3450,6 +3683,21 @@ def one_fold_targets() -> tuple:
                  for _, spc, e, q in ONE_FOLD_PATHS for raw in (False, True))
 
 
+def entry_fold_targets() -> tuple:
+    """The folded libraries the entry points launch (``main`` and
+    ``OceanModel`` in phases 9b, 9c, 10c, 12c and 17c): (tracers, raw,
+    advection, steps a launch, fold code), every one with a full free
+    surface."""
+    from ocean_model_arch_torch.ops.fused_step import library_target
+    return tuple(library_target(n, raw, trans, 1, steps, folds=f)
+                 for n, raw, trans, steps, f in (
+                     (0, False, 1, 2, 7), (2, True, 1, 1, 3),
+                     (0, False, 0, 2, 7), (2, False, 1, 2, 7),
+                     (1, False, 1, 2, 7), (0, True, 0, 2, 7),
+                     (0, True, 0, 1, 3), (4, False, 1, 2, 7),
+                     (4, True, 1, 2, 7), (0, True, 1, 2, 7)))
+
+
 def build_behind(names) -> None:
     """Build ``names`` at niceness 10, as many at once as there are cores,
     below the phases that time the card: on Linux ``os.nice`` lowers the
@@ -3993,21 +4241,22 @@ def main(argv=()) -> int:
     else:
         # Every library builds behind the phases on the card, at nice 10,
         # a core's worth at a time, about in the order the phases need
-        # them: the fast one-step forms, the rest of the fast ones, the
-        # general and persistent forms, the probes, then the folded twins
-        # (phase 15; the few the entry points of phases 9-12 launch first
-        # build as those load them). A phase that loads a library not
+        # them: the fast one-step forms, the folded ones the entry points
+        # launch (phases 9b-17c: built in front as each phase loaded them,
+        # they took 90-110 s of a run), the rest of the fast ones, the
+        # general and persistent forms, the probes, then the other folded
+        # twins (phase 15). A phase that loads a library not
         # built yet builds it itself, or waits for the build under way.
         # In the foreground the 93 took 266 s before phase 2 and the run
         # 1071.5 s of command (H100 host, 8 cores); phase 1's checks of
         # the builds print at the end, its SASS is read behind the phases
         # once the build is done.
         first = tuple(library_target(n) for n in (0, 1, 2))
-        queue = (first + tuple(t for t in library_targets()
-                               if t not in first)
-                 + library_targets(general=True) + persist_targets()
-                 + ("copy_step", "persistent_probe") + vpu_targets
-                 + fold_targets() + one_fold_targets())
+        queue = tuple(dict.fromkeys(
+            first + entry_fold_targets() + library_targets()
+            + library_targets(general=True) + persist_targets()
+            + ("copy_step", "persistent_probe") + vpu_targets
+            + fold_targets() + one_fold_targets()))
         build = concurrent.futures.ThreadPoolExecutor(1).submit(
             build_behind, queue)
 
@@ -4517,6 +4766,10 @@ def main(argv=()) -> int:
     probe_entries = probe_phase(card, name)
     mark("16")
 
+    # ---- phase 17: OceanModel on a mesh off the fused path; the DLB -----
+    mesh_entries = mesh_route(card, name, max_abs)
+    mark("17")
+
     # ---- phase 7: the copy step ----------------------------------------
     # kernel vs plain version on what each form of the fused step loads:
     # the same float additions in the same order, so exactly equal
@@ -4757,7 +5010,7 @@ def main(argv=()) -> int:
         "plain_ms": plain_ms["copy_step_stacked"],
         "bound_ms": k4[0]["bound_us"] / 1e3, "bound_by": "bytes",
         "library_ms": None})
-    entries += persist_entries + walk_entries + probe_entries
+    entries += persist_entries + walk_entries + probe_entries + mesh_entries
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

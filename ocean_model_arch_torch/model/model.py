@@ -15,10 +15,13 @@ f32 with a constant viscosity inside the fused kernel's envelope runs the
 fused step (``FusedSWModel`` on a closed basin, ``FusedSharded2DModel``
 on a periodic one and on a px x py mesh; on CPU tensors they run the
 kernel's plain version), anything else the eager composition of
-``model/step.py``. Routes of the JAX model that are not ported yet (the
-eager sharded fallback, the dynamic load balance, the halo self-test,
-orbax checkpoints) raise ``NotImplementedError`` naming the module; no
-run takes another path than the one it reports.
+``model/step.py``: on a px x py mesh, the eager sharded step of
+``model/sharded.py`` (every shard stacked on the model's device, in
+lockstep). On a mesh, ``debug_level >= 2`` runs the halo self-test and,
+on the fused-sharded route, ``dlb_balance_steps > 0`` the dynamic load
+balance, as the JAX model does. Orbax checkpoints and shards on other
+devices are not ported and raise ``NotImplementedError``; no run takes
+another path than the one it reports.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from ..host import default_device
 from ..io import grads
 from ..io.checkpoint import load_checkpoint, save_checkpoint
 from ..io.mask_io import load_mask
+from ..parallel.domain import crop_state, pad_grid, pad_state
+from ..parallel.mesh import make_mesh, shard_tree, unshard_tree
 from ..utils.calendar import model_time
 from ..utils.timers import PhaseTimers
 from .init import init_ocean_state
@@ -138,23 +143,27 @@ class OceanModel:
             ye[0], ye[-1] = 0, basin.ny
             self._file_cuts = (xe, ye)
         # the mesh: px * py shards, all on this model's device
-        self.mesh = (px, py) if px * py > 1 else None
-        if self.mesh is not None and not self._use_fused_sharded():
+        self.mesh = None
+        if px * py > 1:
+            self.mesh = make_mesh(px, py, self.device)
             # The cut-line policy is decided HERE, not at run time.
             # Non-uniform cut lines (weighted / file) are realized by the
-            # fused-sharded model alone; the uniform eager sharded
-            # fallback of the JAX package is not ported yet.
-            why = self._fused_sharded_blockers()
-            if self._file_cuts is not None:
-                raise ValueError(
-                    "mod_decomposition=2 (cuts from file) needs the "
-                    "fused-sharded path, which this config cannot "
-                    f"select ({why}); use mod_decomposition=0, or "
-                    "lift the blocker")
-            raise NotImplementedError(
-                f"a {px}x{py} mesh off the fused-sharded path ({why}) "
-                "needs the eager sharded step of model/sharded.py and "
-                "parallel/{halo,mesh,domain}.py, which are not ported yet")
+            # fused-sharded model alone; the eager sharded step cuts the
+            # padded domain uniformly.
+            if not self._use_fused_sharded():
+                why = self._fused_sharded_blockers()
+                if self._file_cuts is not None:
+                    raise ValueError(
+                        "mod_decomposition=2 (cuts from file) needs the "
+                        "fused-sharded path, which this config cannot "
+                        f"select ({why}); use mod_decomposition=0, or "
+                        "lift the blocker")
+                if cfg.parallel.mod_decomposition == 1:
+                    print("MODEL: mod_decomposition=1 (weighted cuts) "
+                          "needs the fused-sharded path, which this "
+                          f"config cannot select ({why}); falling back "
+                          "to uniform cuts on the eager sharded path")
+                self._prepare_mesh_grid()
 
     def startup_report(self) -> str:
         """Decomposition + memory diagnostics (the reference's DD INFO /
@@ -241,6 +250,91 @@ class OceanModel:
         why += unsupported(self.grid, self.cfg, sharded=True)
         return ", ".join(why)
 
+    def _prepare_mesh_grid(self) -> None:
+        """The eager sharded step's grid: padded to the mesh, laid out on
+        it (``model/sharded.py::prepare``; the state is laid out at run
+        time, after a resume)."""
+        px, py = self.mesh.shape
+        self._grid_s = shard_tree(pad_grid(self.grid, px, py), self.mesh)
+
+    def dynamic_load_balance(self, verbose: bool = True,
+                             steps_per_call: int = 2) -> list:
+        """Closed-loop dynamic load balancing -- the analog of
+        control/preprocess.f90:21-100: build the fused-sharded model with
+        the current cut lines, run ``dlb_model_steps`` probe steps (timed),
+        MEASURE each shard's work -- the wet tile count, the tiles the
+        kernel's guard runs at the port's own tile (``tile_shape``:
+        ``CPU_TILE`` on the CPU, the kernel's on the card) -- derive
+        per-band compute powers = wet share / work, re-cut the weighted
+        edges in BOTH axes (the reference re-packs its full 2D block
+        grid, preprocess.f90:71-72 feeding decomposition.f90:532-612),
+        and keep the best decomposition. Honors parallel.par's
+        dlb_balance_steps / dlb_model_steps. Returns the per-round history
+        [(work_balance_ratio, probe_seconds), ...]; the selected model is
+        installed as the fused-sharded runner. The JAX method's TPU knobs
+        (``interpret``, ``tx``) are not taken (``TypeError``)."""
+        import time as _time
+
+        from .fused_sharded2d import FusedSharded2DModel
+        p = self.cfg.parallel
+        px, py = p.mesh_x, p.mesh_y
+        spc = steps_per_call
+        n_probe = max(spc, (p.dlb_model_steps // spc) * spc)
+        powers = powers_y = None
+        best = None
+        hist = []
+        wet = self.grid.lu.cpu().numpy() > 0.5
+        for r in range(p.dlb_balance_steps):
+            fs = FusedSharded2DModel(
+                self.grid, self.cfg, self.cfg.run.tau, px, py,
+                weighted=True, mu_const=self.state_mu_const() or 0.0,
+                steps_per_call=spc, compute_powers_x=powers,
+                compute_powers_y=powers_y)
+            # measured per-shard work: tiles the guard actually runs
+            tiles = np.array([[float(fs.tile_wet[i][j].sum())
+                               for j in range(py)] for i in range(px)])
+            ratio = float(tiles.max() / max(tiles.mean(), 1e-12))
+            # timed probe pass (the reference's compute_power measure; on
+            # the lockstep shards of one card the time is the critical
+            # path, the tile counts carry the per-shard signal); reading
+            # the window's flag is the barrier
+            t0 = _time.perf_counter()
+            _, ok = fs.make_runner(n_probe)(fs.pack(self.state))
+            bool(ok)
+            dt = _time.perf_counter() - t0
+            hist.append((ratio, dt))
+            if verbose:
+                print(f"PREP: DLB round {r}: work balance ratio "
+                      f"{ratio:.3f}, probe {n_probe} steps {dt:.2f}s")
+            if best is None or ratio < best[0] - 1e-12:
+                best = (ratio, fs)
+            # feedback: band k's power <- its wet share / its critical
+            # work, so bands whose tile quantization makes them slow shed
+            # wet points (preprocess.f90:71-72's compute_power =
+            # tot_weight / time, with work as the lockstep time proxy)
+            shares = np.array([
+                wet[int(fs.x_edges[k]):int(fs.x_edges[k + 1])].sum()
+                for k in range(px)], float)
+            work = tiles.max(axis=1)
+            work = np.where(work > 0, work, work.max() or 1.0)
+            powers = shares / work
+            powers = powers / powers.sum()
+            # ... and the symmetric y feedback
+            if py > 1:
+                shares_y = np.array([
+                    wet[:, int(fs.y_edges[k]):int(fs.y_edges[k + 1])].sum()
+                    for k in range(py)], float)
+                work_y = tiles.max(axis=0)
+                work_y = np.where(work_y > 0, work_y, work_y.max() or 1.0)
+                powers_y = shares_y / work_y
+                powers_y = powers_y / powers_y.sum()
+        self._fused_sh = best[1]
+        if verbose:
+            print(f"PREP: DLB selected cuts "
+                  f"{list(map(int, best[1].x_edges))} "
+                  f"(work balance {best[0]:.3f})")
+        return hist
+
     def dump_decomposition_txt(self) -> str:
         """Write the active decomposition to RESULTS/decomposition.txt --
         the reference's debug_level >= 3 dump
@@ -259,6 +353,13 @@ class OceanModel:
             ye = np.array(fs.y_edges, np.int64)
         elif self._file_cuts is not None:
             xe, ye = self._file_cuts
+        elif self.mesh is not None and not self._use_fused_sharded():
+            # the cuts the eager sharded step runs: uniform over the padded
+            # extents, the last shard's padding cropped (JAX's dump writes
+            # the weighted cuts here under mod_decomposition=1, which that
+            # route does not run)
+            xe = np.minimum(np.arange(px + 1) * -(-nx // px), nx)
+            ye = np.minimum(np.arange(py + 1) * -(-ny // py), ny)
         else:
             xe = ye = None
             if self.cfg.parallel.mod_decomposition == 1 and px * py > 1:
@@ -311,7 +412,9 @@ class OceanModel:
         the blow-up (step + cell + the kernel's tile) before raising --
         the reference aborts with the offending (m, n) every step
         (check_ssh_err_kernel); the fused loop only carries a
-        window-level scalar, so the failed window is replayed un-fused."""
+        window-level scalar, so the failed window is replayed un-fused
+        (in the plain global view: the eager sharded step's state is
+        cropped first)."""
         first = done - n_batch
         loc = self.locate_blowup(prev_state, n_batch)
         if loc is not None:
@@ -368,11 +471,22 @@ class OceanModel:
             if fs is not None:
                 xe, ye = fs.x_edges, fs.y_edges
             fs = self._fused_sh = FusedSharded2DModel(
-                self.grid, self.cfg, tau, *self.mesh,
+                self.grid, self.cfg, tau, *self.mesh.shape,
                 mu_const=self.state_mu_const(),
                 weighted=self.cfg.parallel.mod_decomposition == 1,
                 x_edges=xe, y_edges=ye, steps_per_call=spc)
             return self._fused_sharded_runner(fs, n_inner)
+        if self.mesh is not None:
+            # the eager sharded step on the padded, stacked state
+            from .sharded import make_sharded_step
+            if not hasattr(self, "_grid_s"):    # mu made to vary since
+                self._prepare_mesh_grid()
+            stepn = make_sharded_step(self._grid_s, self.cfg, self.mesh,
+                                      n_inner=n_inner)
+
+            def runner(st):
+                return stepn(st, tau)
+            return runner
         if self._fused_periodic_tx() is not None:
             # periodic, no mesh: the fused kernel on a 1x1 'mesh' whose
             # margin exchange wraps locally, one step a launch
@@ -410,11 +524,19 @@ class OceanModel:
         """The route ``run`` takes, as its 'compute path' line names it."""
         if self._use_fused_sharded():
             return "fused CUDA kernel, sharded"
+        if self.mesh is not None:
+            return "eager composition, sharded"
         if self._fused_periodic_tx() is not None:
             return "fused CUDA kernel, periodic (1x1 wrap)"
         if self._use_fused():
             return "fused CUDA kernel"
         return "eager composition"
+
+    def _global_state(self, state: SWState) -> SWState:
+        """The eager sharded step's stacked, padded state -> the plain
+        global view at the basin's extents."""
+        return crop_state(unshard_tree(state), self.cfg.basin.nx,
+                          self.cfg.basin.ny)
 
     def _output(self, state: SWState, nrec: int):
         basin, run = self.cfg.basin, self.cfg.run
@@ -467,15 +589,6 @@ class OceanModel:
                 "orbax (per-shard directory) checkpoints, io/checkpoint.py"
                 "::save_checkpoint_sharded, join with the multi-process "
                 "runs; use checkpoint_format=\"npz\"")
-        if cfg.parallel.dlb_balance_steps > 0 and self.mesh is not None:
-            raise NotImplementedError(
-                "dlb_balance_steps > 0: the dynamic load balance of "
-                "model/model.py::dynamic_load_balance is not ported yet")
-        if cfg.parallel.debug_level >= 2 and self.mesh is not None:
-            raise NotImplementedError(
-                "debug_level >= 2 on a mesh runs the halo self-test of "
-                "parallel/halo.py::halo_self_test, which is not ported yet")
-
         if run.start_type == 1 and checkpoint_path \
                 and os.path.exists(checkpoint_path):
             self.state, self.num_step = load_checkpoint(checkpoint_path,
@@ -484,6 +597,28 @@ class OceanModel:
                 print(f"MODEL: resumed from {checkpoint_path} "
                       f"at step {self.num_step}")
 
+        # dynamic load balance (model.f90:64-89's dlb branch): probe,
+        # measure, re-cut before the production loop -- on the
+        # fused-sharded route only, as in the JAX model
+        if (cfg.parallel.dlb_balance_steps > 0
+                and (cfg.parallel.mesh_x > 1 or cfg.parallel.mesh_y > 1)
+                and self._use_fused_sharded()):
+            self.dynamic_load_balance(verbose=verbose)
+
+        if cfg.parallel.debug_level >= 2 and self.mesh is not None:
+            # the reference's sync_test hook (init_data.f90:41-44,
+            # syncborder_block2D_gen_test.fi): verify the halo exchange
+            # against the analytic i*j field before the production loop
+            from ..parallel.halo import halo_self_test
+            px, py = cfg.parallel.mesh_x, cfg.parallel.mesh_y
+            nxt = -(-self.grid.nx // px) * px
+            nyt = -(-self.grid.ny // py) * py
+            halo_self_test(self.mesh, nxt, nyt,
+                           self.grid.periodic_x and nxt == self.grid.nx,
+                           self.grid.periodic_y and nyt == self.grid.ny)
+            if verbose:
+                print("SYNC INFO: halo self-test passed "
+                      f"({px}x{py} mesh)")
         if cfg.parallel.debug_level >= 3:
             # the reference's debug ladder writes decomposition.txt on
             # every run at this level (decomposition.f90:895-909)
@@ -495,13 +630,18 @@ class OceanModel:
             print(self.startup_report())
             print(f"MODEL: compute path: {self.compute_path()}")
 
-        state = self.state
+        # the eager sharded step runs on the padded state laid out on the
+        # mesh; output, restart points and the result are its crop
+        sharded = self.mesh is not None and not self._use_fused_sharded()
+        state = (shard_tree(pad_state(self.state, *self.mesh.shape),
+                            self.mesh) if sharded else self.state)
+        plain = self._global_state if sharded else (lambda st: st)
         runner = self._make_runner(n_out)
 
         nrec = 1
         if run.output_every_steps:
             with self.timers.phase("output"):
-                self._output(state, nrec)
+                self._output(plain(state), nrec)
 
         done = self.num_step
         while done < n_total:
@@ -517,16 +657,17 @@ class OceanModel:
             done += n_batch
             self.num_step += n_batch
             if not stable:
-                self._raise_blowup(prev_state, n_batch, done)
+                self._raise_blowup(plain(prev_state), n_batch, done)
             if run.output_every_steps:
                 nrec += 1
                 with self.timers.phase("output"):
-                    self._output(state, nrec)
+                    self._output(plain(state), nrec)
             if checkpoint_path and checkpoint_every \
                     and done < n_total \
                     and done % max(checkpoint_every, 1) < n_batch:
                 with self.timers.phase("checkpoint"):
-                    save_checkpoint(checkpoint_path, state, self.num_step)
+                    save_checkpoint(checkpoint_path, plain(state),
+                                    self.num_step)
                 if verbose:
                     print(f"MODEL: restart point at step "
                           f"{self.num_step} -> {checkpoint_path}")
@@ -534,7 +675,7 @@ class OceanModel:
                 t = model_time(self.num_step, run.tau, run.init_year)
                 print(f"MODEL: step {self.num_step}/{n_total}  {t.stamp()}")
 
-        self.state = state
+        state = self.state = plain(state)
         if checkpoint_path:
             with self.timers.phase("checkpoint"):
                 save_checkpoint(checkpoint_path, state, self.num_step)

@@ -44,6 +44,9 @@ MODULES = [
     "ocean_model_arch_torch.io.checkpoint",
     "ocean_model_arch_torch.parallel",
     "ocean_model_arch_torch.parallel.decomposition",
+    "ocean_model_arch_torch.parallel.mesh",
+    "ocean_model_arch_torch.parallel.domain",
+    "ocean_model_arch_torch.parallel.halo",
     "ocean_model_arch_torch.utils",
     "ocean_model_arch_torch.utils.calendar",
     "ocean_model_arch_torch.utils.timers",
@@ -63,6 +66,7 @@ MODULES = [
     "ocean_model_arch_torch.model.step",
     "ocean_model_arch_torch.model.fused",
     "ocean_model_arch_torch.model.fused_sharded2d",
+    "ocean_model_arch_torch.model.sharded",
     "ocean_model_arch_torch.model.model",
     "ocean_model_arch_torch.__main__",
     "chip_smoke",
@@ -171,7 +175,8 @@ def test_running_the_timers_loads_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["build_grid", "zero_state",
-                                   "grid_from_numpy", "state_from_numpy"])
+                                   "grid_from_numpy", "state_from_numpy",
+                                   "make_mesh"])
 def test_entry_points_default_to_the_card(entry):
     """Called without a device on a machine without CUDA, the entry
     points raise instead of returning CPU tensors; ``device="cpu"`` is
@@ -183,6 +188,7 @@ def test_entry_points_default_to_the_card(entry):
     from ocean_model_arch_torch.host import (Precision, basinpar_as250m_test,
                                              default_device,
                                              frame_of_land_mask)
+    from ocean_model_arch_torch.parallel.mesh import make_mesh
     if torch.cuda.is_available():
         pytest.skip("needs a machine without a CUDA device")
     basin = basinpar_as250m_test()
@@ -200,6 +206,7 @@ def test_entry_points_default_to_the_card(entry):
         "zero_state": lambda: ts.zero_state(12, 10),
         "grid_from_numpy": lambda: tg.grid_from_numpy(grid_d),
         "state_from_numpy": lambda: ts.state_from_numpy(state_d),
+        "make_mesh": lambda: make_mesh(2, 2),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

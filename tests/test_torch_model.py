@@ -43,7 +43,7 @@ BS_MASK = os.path.join(REPO, "data/BS/mask_bs4km.txt")
 
 def _run_dir(path, mask_path, nx, ny, steps_min=1.0, duration_days=0.0007,
              tau=1.0, mod_decomposition=0, decomposition_file="none",
-             parallel_dbg=0, periodic_x=0, dlb=0):
+             parallel_dbg=0, periodic_x=0):
     """The run directory the JAX package's ``OceanModel`` tests write."""
     path.mkdir(parents=True, exist_ok=True)
     (path / "basin.par").write_text(
@@ -55,7 +55,7 @@ def _run_dir(path, mask_path, nx, ny, steps_min=1.0, duration_days=0.0007,
         "1 :\n1 :\n1 :\n0.5d0 :\n1.0d+03 :\n1 : tracers\n1 :\nnone :\n")
     (path / "parallel.par").write_text(
         f"{mod_decomposition} :\n{decomposition_file} :\n1 :\n1 :\n"
-        f"{parallel_dbg} :\n0 :\nnone :\n{dlb} :\n{dlb} :\n")
+        f"{parallel_dbg} :\n0 :\nnone :\n0 :\n0 :\n")
     (path / "ocean_run.par").write_text(
         f"0 :\n{tau}d0 : tau\n{duration_days} : days\n0 :\n2012 :\n"
         f"{steps_min} : out min\n-1.0 :\n0 :\n0 :\nnone :\n")
@@ -179,13 +179,17 @@ def test_checkpoints_cross_the_packages(tmp_path):
 
 
 @pytest.mark.parametrize("route", ["f64 eager", "f32 fused", "f32 2x2",
-                                   "f32 periodic"])
+                                   "f32 periodic", "f64 2x2"])
 def test_resume_equals_the_straight_run(tmp_path, route):
     """Running 2 N steps straight == running N, checkpointing, resuming N,
-    bit for bit, on every route."""
+    bit for bit, on every route (f64 2x2: the eager sharded step, which
+    lays the resumed state out on the mesh)."""
     d = _small(tmp_path, periodic_x=int(route == "f32 periodic"))
     cfg = load_config_dir(d)
-    if route != "f64 eager":
+    if route == "f64 2x2":
+        cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
+            cfg.parallel, mesh_x=2, mesh_y=2))
+    elif route != "f64 eager":
         cfg = _f32(cfg, **({"mesh_x": 2, "mesh_y": 2} if route == "f32 2x2"
                            else {}))
     full = _run(cfg, d)
@@ -364,10 +368,6 @@ def test_route_selection(tmp_path, name):
 LEFT_OUT = {
     "orbax format": ({}, {"checkpoint_format": "orbax"}, "orbax"),
     "checkpoint directory": ({}, {"checkpoint_path": "."}, "orbax"),
-    "dynamic load balance": ({"dlb": 2, "mesh": True}, {},
-                             "dynamic_load_balance"),
-    "halo self-test": ({"parallel_dbg": 2, "mesh": True}, {},
-                       "halo_self_test"),
 }
 
 
@@ -376,10 +376,8 @@ def test_routes_left_out_raise(tmp_path, name):
     """What this port has not got yet raises NotImplementedError naming
     the module; nothing takes another path silently."""
     dir_kw, run_kw, match = LEFT_OUT[name]
-    dir_kw = dict(dir_kw)
-    mesh = dir_kw.pop("mesh", False)
     d = _small(tmp_path, **dir_kw)
-    cfg = _f32(load_config_dir(d), **({"mesh_x": 2} if mesh else {}))
+    cfg = _f32(load_config_dir(d))
     run_kw = {"checkpoint_path": str(tmp_path / "ck"), **run_kw}
     if run_kw["checkpoint_path"] == ".":
         run_kw["checkpoint_path"] = str(tmp_path)
@@ -387,18 +385,6 @@ def test_routes_left_out_raise(tmp_path, name):
     with pytest.raises(NotImplementedError, match=match):
         model.run(verbose=False, **run_kw)
     assert model.num_step == 0            # nothing ran
-
-
-@pytest.mark.parametrize("mod", [0, 1])
-def test_a_mesh_off_the_fused_path_raises_at_init(tmp_path, mod):
-    """f64 on a mesh would take the eager sharded step, which is not
-    ported: refused at construction, for uniform and weighted cuts."""
-    d = _small(tmp_path, mod_decomposition=mod)
-    cfg = load_config_dir(d)
-    cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
-        cfg.parallel, mesh_x=2, mesh_y=2))
-    with pytest.raises(NotImplementedError, match="model/sharded.py"):
-        OceanModel(cfg, base_dir=d, device="cpu")
 
 
 def test_entry_points_raise_without_a_card(tmp_path):
