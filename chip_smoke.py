@@ -206,7 +206,24 @@ window in one launch (phase 14) -> ``pack`` -> ``run_steps`` ->
    steps: the rounds' ratios and the selected cuts, K1b's launches (the
    probes' and the window's), the installed runner's 20 steps against
    the eager composition on one block (3e-4), K1b on those cuts against
-   its plain version and timed beside uniform cuts.
+   its plain version and timed beside uniform cuts;
+18. (printed before phase 7) the mesh across processes on the card: (a)
+   ``FusedSharded2DModel`` 2 x 1 in this process on the Azov coastline
+   (f32, two steps a launch, the folds as the model defaults them), 40
+   steps, K1b's launches counted, == the chained block bit for bit, K1b
+   against its plain version; (b) the same over two processes of
+   ``scripts/multiprocess_worker_torch.py azov_mask`` sharing the card
+   (Gloo, each strip staged through pinned host buffers), a shard each:
+   == (a) bit for bit, a NaN in rank 1's shard trips the guard on both
+   ranks; (c) NCCL where the host has two cards, else a line saying it
+   was not run, and what Gloo does with a CUDA tensor (and, on one card,
+   NCCL with two processes on it: ``transport_probe``); (d) ``python -m
+   ocean_model_arch_torch
+   examples/05_azov_hires --mesh 2x1 --ckpt-format orbax`` in f64 over two
+   processes: 10 steps straight, and 4 with a sharded checkpoint resumed
+   to 10, == bit for bit, rank 0 printing the timer table reduced over
+   both; its timing line: strip bytes a step, ms/step in one process and
+   in two, K1b us a launch on each shard in one process and on each rank.
 
 Every phase prints its lines; any failure raises (exit code != 0). The
 line before the last is one JSON object describing the kernels: forty-
@@ -221,7 +238,8 @@ the copy step, the chained copy step and the stacked copy step, the
 persistent step on phase 14's six runs and the walk's three forms, these
 nine per model step), the folded instantiations launched on the entry
 points' and phase 15's paths, the probes' 26 (K6: ten kinds at two
-Ks; K7: three at two), and K1b on phase 17's balanced cuts;
+Ks; K7: three at two), K1b on phase 17's balanced cuts and on phase
+18a's 2 x 1 shards;
 the last line is ``{"ok": true, "device": {...}}``. With ``--parent
 DIR`` (the root of another checkout of this repository) it instead holds
 every one-step instantiation that checkout has against this one's, bit
@@ -1576,25 +1594,28 @@ def sharded_bound_ms(fs):
     plane (fields, static planes, metric planes) read once over the cells
     of the tiles a launch computes, each output written once over the
     shard's box, the profile rows, one flag and one max per block."""
-    n_out = 6 + 2 * fs.n_tracers
-    nbytes = 0
-    tx, ty = fs.tile
-    for i in range(fs.px):
-        for j in range(fs.py):
-            lay = fs.shard_lay[i][j]
-            if fs.tile_wet[i][j] is None:
-                done = lay.Xs * lay.Ys
-            else:
-                wet = fs.tile_wet[i][j].cpu().numpy().repeat(tx, 0) \
-                    .repeat(ty, 1)
-                done = int((wet[:lay.Xs, :lay.Ys] > 0).sum())
-            met = fs.met_shards[i][j]
-            nbytes += (done * 4 * (n_out + fs.plane_shards[i][j].shape[0]
-                                   + (met.shape[0] if fs.metrics_2d else 0))
-                       + lay.nx * lay.ny * 4 * n_out
-                       + (0 if fs.metrics_2d else met.numel() * 4)
-                       + n_blocks(fs)[0] * n_blocks(fs)[1] * 8)
+    nbytes = sum(shard_bytes(fs, i, j) for i in range(fs.px)
+                 for j in range(fs.py))
     return nbytes / PEAK_BYTES * 1e3, nbytes
+
+
+def shard_bytes(fs, i, j) -> int:
+    """The bytes one launch of the raw form moves on shard (i, j) (see
+    :func:`sharded_bound_ms`)."""
+    n_out = 6 + 2 * fs.n_tracers
+    tx, ty = fs.tile
+    lay = fs.shard_lay[i][j]
+    if fs.tile_wet[i][j] is None:
+        done = lay.Xs * lay.Ys
+    else:
+        wet = fs.tile_wet[i][j].cpu().numpy().repeat(tx, 0).repeat(ty, 1)
+        done = int((wet[:lay.Xs, :lay.Ys] > 0).sum())
+    met = fs.met_shards[i][j]
+    return (done * 4 * (n_out + fs.plane_shards[i][j].shape[0]
+                        + (met.shape[0] if fs.metrics_2d else 0))
+            + lay.nx * lay.ny * 4 * n_out
+            + (0 if fs.metrics_2d else met.numel() * 4)
+            + n_blocks(fs)[0] * n_blocks(fs)[1] * 8)
 
 
 def time_sharded(fs, state, wet_pts: int, pts: int) -> dict:
@@ -1974,6 +1995,282 @@ def mesh_route(card: str, name: str, stats: dict) -> list:
              "bound_by": "bytes", "library_ms": None,
              "loader": "tma" if not (fs.metrics_2d and fs.visc) else
              "threads"}]
+
+
+# phase 18: the mesh across two processes on the card
+PROC_TIMEOUT = 240      # seconds a group of processes may take, then killed
+EAGER_STEPS, EAGER_HALF = 10, 4
+EAGER_DAYS = {"0.007   : duration days": "0.00011575 : duration days"}
+HALF_DAYS = {"0.007   : duration days": "0.0000463 : duration days"}
+
+
+def spawn(cmds, what: str, timeout: int = PROC_TIMEOUT) -> list:
+    """Start the commands together, wait for all of them (all killed past
+    ``timeout`` seconds) and return their outputs; fails on a non-zero
+    exit."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise SmokeFailure(f"{what}: a process did not end within "
+                           f"{timeout} s")
+    for k, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{what}: process {k} exited "
+              f"{p.returncode}:\n{out[-3000:]}")
+    return outs
+
+
+def k1b_us(fs, cfg, carry, k: int, n: int) -> tuple:
+    """The raw form on shard k of ``fs``, from ``carry``'s fields into
+    scratch, n launches after one: (device us a launch from
+    torch.profiler, us between launches from CUDA events, which the
+    wrapper's host time sets when it exceeds the kernel's)."""
+    from ocean_model_arch_torch.ops.fused_step import fused_sw_step_raw
+    i, j = divmod(k, fs.py)
+    f = carry[k].unbind(0)
+    out = tuple(torch.zeros_like(a) for a in f)
+    bm = torch.zeros(n_blocks(fs), device=carry[k].device)
+    args = shard_args(fs, cfg, i, j)
+
+    def launches():
+        for _ in range(n):
+            fused_sw_step_raw(f, out, bm, *args)
+    dev = next(ms for name in FUSED_KERNELS
+               if (ms := profile_device_ms(launches, name)[0]) is not None)
+    return dev * 1e3, cuda_ms(launches, 1) / n * 1e3
+
+
+def process_route(card: str, name: str, stats: dict) -> list:
+    """Phase 18: the mesh across two processes on the card (Gloo, each
+    strip staged through pinned host buffers; two processes cannot share
+    a card under NCCL). (a) one process: ``FusedSharded2DModel`` 2 x 1 on
+    the Azov coastline at 1525 x 1115 (f32, two steps a launch, the folds
+    as the model defaults them) for the worker's 40 steps, K1b's launches
+    counted, == the chained block bit for bit, K1b against its plain
+    version; (b) the same over two processes of
+    ``scripts/multiprocess_worker_torch.py azov_mask``, a shard each: ==
+    (a) bit for bit, the guard tripping on both ranks on a NaN in rank
+    1's shard; (c) NCCL where the host has two cards, and what Gloo (and,
+    on one card, NCCL) does with CUDA tensors; (d) ``python -m
+    ocean_model_arch_torch`` on ``examples/05_azov_hires`` in f64 on 2 x
+    1 over two processes: 10 steps straight, and 4 with a sharded
+    checkpoint then resumed to 10, == bit for bit, rank 0 printing the
+    timer table reduced over both; the timing line: strip bytes a step,
+    ms/step of one process and two, K1b us a launch in each. Returns the
+    kernels line's entry of K1b on (a)'s path."""
+    from ocean_model_arch_torch.diag.scaling import (
+        cross_process_bytes_per_step, halo_bytes_per_step)
+    from ocean_model_arch_torch.io.checkpoint import load_checkpoint_sharded
+    from ocean_model_arch_torch.model.fused import FusedSWModel
+    from ocean_model_arch_torch.model.fused_sharded2d import \
+        FusedSharded2DModel
+    from ocean_model_arch_torch.ops import fused_layout as fl
+    from ocean_model_arch_torch.ops.fused_step import (
+        fused_sw_step, fused_sw_step_reference, reset_launch_counts)
+    mw = load_script("multiprocess_worker_torch")
+    worker = os.path.join(REPO, "scripts", "multiprocess_worker_torch.py")
+    t_phase = time.perf_counter()
+    # ---- (a) one process ------------------------------------------------
+    grid, cfg, state = mw.azov_workload("cuda")
+    fs = FusedSharded2DModel(grid, cfg, cfg.run.tau, 2, 1, steps_per_call=2)
+    key = form_key(fs)
+    form = "fused_sw_step_raw_chain_2x1" + FOLD_SUFFIX[key[-1]]
+    reset_launch_counts()
+    c, ok = fs.make_runner(mw.AZOV_STEPS)(fs.pack(state))
+    torch.cuda.synchronize()
+    counts = dict(fused_sw_step.form_launches)
+    n_launch = mw.AZOV_STEPS // 2 * 2
+    check(ok and counts == {key: n_launch}, f"phase 18a: ok={ok}, launches "
+          f"{counts}, expected {n_launch} of {key}")
+    one = [f.clone() for f in fs.extract(c)]
+    fm = FusedSWModel(grid, cfg, cfg.run.tau, static_rslu=True,
+                      steps_per_call=2)
+    s6, ok_b = fm.run_steps(fm.pack(state), mw.AZOV_STEPS)
+    check(ok_b and all(torch.equal(a, fl.extract(fm.lay, b))
+                       for a, b in zip(one, s6)),
+          "phase 18a: the one-process 2 x 1 run differs from the block")
+    compare_raw("azov_mask 2 x 1", fs, cfg, state, stats, form,
+                phase="phase 18a")
+    run = fs.make_runner(mw.TIME_STEPS)
+    win1 = []
+    for _ in range(3):
+        t = time.perf_counter()
+        c, ok_w = run(c)
+        win1.append((time.perf_counter() - t) / mw.TIME_STEPS * 1e3)
+        check(ok_w, "phase 18a: the guard tripped in a timed window")
+    us1 = [k1b_us(fs, cfg, c, k, mw.N_K1B) for k in range(2)]
+    bound = [shard_bytes(fs, i, 0) for i in range(2)]
+    f_in = c[0].unbind(0)
+    f_out = tuple(torch.zeros_like(v) for v in f_in)
+    plain = cuda_ms(lambda: fused_sw_step_reference(
+        f_in, *shard_args(fs, cfg, 0, 0), outs=f_out), 5)
+    hbytes = halo_bytes_per_step(fs)
+    del fm, s6, c, run
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- (b) two processes over Gloo, a shard each -----------------
+        def group(tag, backend):
+            out = os.path.join(tmp, tag)
+            os.makedirs(out)
+            t = time.perf_counter()
+            outs = spawn([[sys.executable, worker, str(r), "2",
+                           f"file://{out}/store", out, "azov_mask",
+                           "--device", "cuda" if backend == "gloo" else
+                           f"cuda:{r}", "--backend", backend]
+                          for r in range(2)], f"phase 18 {tag}")
+            wall = time.perf_counter() - t
+            got = np.load(os.path.join(out, "azov.npz"))
+            same = all(np.array_equal(got[str(k)], f.cpu().numpy())
+                       for k, f in enumerate(one))
+            infos = []
+            for r in range(2):
+                with open(os.path.join(out, f"azov-{r}.json")) as f:
+                    infos.append(json.load(f))
+            check(same, f"phase 18 {tag}: two processes differ from one")
+            check(all(i["ok"] for i in infos), f"phase 18 {tag}: the guard "
+                  "tripped in the run")
+            check(all(i["guard_tripped"] for i in infos), f"phase 18 {tag}: "
+                  "a NaN in rank 1's shard did not trip every rank")
+            check(all(i["halo_bytes_per_step"] == hbytes for i in infos),
+                  f"phase 18 {tag}: strip bytes differ from one process")
+            return infos, wall, outs
+        infos, wall, _ = group("gloo", "gloo")
+        cross = infos[0]["cross_process_bytes_per_step"]
+        print(f"phase 18b mesh across processes ({name}; {card}): "
+              f"FusedSharded2DModel 2 x 1 on azov_mask 1525 x 1115, a shard "
+              f"each of 2 processes of scripts/multiprocess_worker_torch.py "
+              f"({infos[0]['transport']}): {mw.AZOV_STEPS} steps == one "
+              f"process bit for bit on all {len(one)} fields: yes; a NaN at "
+              f"cell {infos[1]['nan_at']} of rank 1's shard tripped the "
+              "guard on both ranks: yes; spawn to exit "
+              f"{wall:.1f} s (to the first result "
+              + ", ".join(f"{i['seconds_to_first_result']:.1f}"
+                          for i in infos) + " s a rank)", flush=True)
+        # ---- (c) NCCL only where the host has two cards ----------------
+        if torch.cuda.device_count() >= 2:
+            infos_n, wall_n, _ = group("nccl", "nccl")
+            nccl = (f"NCCL ({infos_n[0]['transport']}, a card a process, "
+                    f"{', '.join(i['device'] for i in infos_n)}): == one "
+                    "process bit for bit, guard on both ranks: yes; ms/step "
+                    "(min/median/max) rank 0 "
+                    f"{fmt(infos_n[0]['ms_per_step'])}, rank 1 "
+                    f"{fmt(infos_n[1]['ms_per_step'])}; K1b us a launch "
+                    "(device; between launches) "
+                    + ", ".join(f"rank {r} {i['k1b_us']:.2f} "
+                                f"({i['k1b_interval_us']:.2f})"
+                                for r, i in enumerate(infos_n))
+                    + f"; spawn to exit {wall_n:.1f} s")
+        else:
+            nccl = ("NCCL not run: the host has one card "
+                    f"(torch.cuda.device_count() = "
+                    f"{torch.cuda.device_count()})")
+        # why the one card takes Gloo, staged: what each transport does
+        # with CUDA tensors (NCCL with both processes on the one card)
+        probe = os.path.join(tmp, "probe")
+        os.makedirs(probe)
+        met = {}
+        for backend in ("gloo", "nccl") if torch.cuda.device_count() < 2 \
+                else ("gloo",):
+            try:
+                spawn([[sys.executable, worker, str(r), "2",
+                        f"file://{probe}/{backend}_store", probe,
+                        "transport_probe", "--device", "cuda:0",
+                        "--backend", backend] for r in range(2)],
+                      f"phase 18c {backend} probe", timeout=90)
+            except SmokeFailure as e:       # a hang is an answer too
+                met[backend, "both"] = str(e).splitlines()[0]
+                continue
+            for r in range(2):
+                with open(os.path.join(probe,
+                                       f"probe-{backend}-{r}.json")) as f:
+                    met[backend, r] = json.load(f)["error"]
+        print(f"phase 18c {nccl}; what the transports do with CUDA tensors "
+              "(two processes on cuda:0): " + "; ".join(
+                  f"{b} rank {r}: " + (e if e else "no error")
+                  for (b, r), e in met.items()), flush=True)
+        # ---- (d) the eager route through main over two processes --------
+        def main_cmds(d, ck, store):
+            return [[sys.executable, "-m", "ocean_model_arch_torch", d,
+                     "--mesh", "2x1", "--checkpoint", ck, "--ckpt-format",
+                     "orbax", "--rank", str(r), "--world-size", "2",
+                     "--init-method", f"file://{store}", "--backend",
+                     "gloo"] for r in range(2)]
+        d_s = example_dir(tmp, MESH_EXAMPLE, "straight", **EAGER_DAYS)
+        d_h = example_dir(tmp, MESH_EXAMPLE, "half", **HALF_DAYS)
+        d_r = example_dir(tmp, MESH_EXAMPLE, "resume", **{
+            "0       : cold start": "1       : cold start", **EAGER_DAYS})
+        ck_s, ck_h = os.path.join(tmp, "ck_straight"), os.path.join(
+            tmp, "ck_half")
+        t = time.perf_counter()
+        outs = spawn(main_cmds(d_s, ck_s, os.path.join(tmp, "s_store"))
+                     + main_cmds(d_h, ck_h, os.path.join(tmp, "h_store")),
+                     "phase 18d straight and half")
+        outs_r = spawn(main_cmds(d_r, ck_h, os.path.join(tmp, "r_store")),
+                       "phase 18d resumed")
+        wall_e = time.perf_counter() - t
+        a, n_a = load_checkpoint_sharded(ck_s, device="cuda")
+        b, n_b = load_checkpoint_sharded(ck_h, device="cuda")
+        check(n_a == n_b == EAGER_STEPS, f"phase 18d: steps {n_a}, {n_b}")
+        fields = [f.name for f in dataclasses.fields(a)
+                  if getattr(a, f.name) is not None]
+        same = all(torch.equal(getattr(a, n), getattr(b, n)) for n in fields)
+        check(same and a.ssh.dtype == torch.float64
+              and float(a.ssh.abs().max()) > 0, "phase 18d: the resumed "
+              "run differs from the straight run")
+        path = ("MODEL: compute path: eager composition, sharded (2 "
+                "processes, gloo, staged through pinned host buffers)")
+        check(all(path in o for o in outs + outs_r),
+              "phase 18d: a process took another route:\n" + "\n".join(
+                  ln for o in outs for ln in o.splitlines() if "MODEL" in ln))
+        check(all("TIMER REPORT (2 processes, max/min over ranks)" in o
+                  for o in (outs[0], outs[2], outs_r[0]))
+              and "resumed from" in outs_r[0], "phase 18d: rank 0 printed no "
+              "reduced timer table, or did not resume")
+        step_row = re.search(r"^model_step\s+([0-9.]+)\s+([0-9.]+)",
+                             outs[0], re.M)
+        print(f"phase 18d eager route across processes (python -m "
+              f"ocean_model_arch_torch examples/{MESH_EXAMPLE} --mesh 2x1 "
+              "--ckpt-format orbax, f64, 2 processes each, Gloo): "
+              f"{EAGER_STEPS} steps straight, and {EAGER_HALF} steps with a "
+              f"sharded checkpoint resumed to {EAGER_STEPS}: == bit for bit "
+              f"on all {len(fields)} fields: yes; rank 0 printed the timer "
+              "table reduced over 2 processes (model_step max "
+              f"{step_row.group(1)} s, min {step_row.group(2)} s, "
+              f"straight run); 6 processes in {wall_e:.1f} s", flush=True)
+    print(f"phase 18 timing ({name}; {card}): transport "
+          f"{infos[0]['transport']}; margin strips {hbytes} bytes a model "
+          f"step (diag/scaling.py::halo_bytes_per_step, "
+          f"{cross} of them between the processes, "
+          f"{infos[0]['strips_sent']} strips / {infos[0]['bytes_sent']} "
+          f"bytes sent by rank 0 in its {mw.AZOV_STEPS} steps); ms/step "
+          f"(windows of {mw.TIME_STEPS} steps, min/median/max): one process "
+          f"{fmt(sorted(win1))}, two processes rank 0 "
+          f"{fmt(infos[0]['ms_per_step'])}, rank 1 "
+          f"{fmt(infos[1]['ms_per_step'])}; K1b us a launch of 2 steps "
+          f"(device time, torch.profiler over {mw.N_K1B} launches; between "
+          f"launches, CUDA events: the wrapper's host time; byte bound): "
+          f"one process shard (0, 0) {us1[0][0]:.2f} ({us1[0][1]:.2f}), "
+          f"(1, 0) {us1[1][0]:.2f} ({us1[1][1]:.2f}); two processes rank 0 "
+          f"{infos[0]['k1b_us']:.2f} ({infos[0]['k1b_interval_us']:.2f}), "
+          f"rank 1 {infos[1]['k1b_us']:.2f} "
+          f"({infos[1]['k1b_interval_us']:.2f}) (each rank in turn); bound "
+          f"{bound[0] / PEAK_BYTES * 1e6:.2f} / "
+          f"{bound[1] / PEAK_BYTES * 1e6:.2f} us ({bound[0] / 1e6:.1f} / "
+          f"{bound[1] / 1e6:.1f} MB); shards {fs.lx[0]} / {fs.lx[1]} x "
+          f"{fs.ly[0]} rows, layout {fs.lay.Xs}x{fs.lay.Ys}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return [{"name": form, "route": "cuda", "source": CSRC + "fused_step.cu",
+             "replaces": PALLAS + ":1652", "launches": n_launch,
+             "max_abs_err": stats[form], "ms": sum(u for u, _ in us1) / 2e3,
+             "plain_ms": plain, "bound_ms": sum(bound) / 2 / PEAK_BYTES * 1e3,
+             "bound_by": "bytes", "library_ms": None, "loader": "tma"}]
 
 
 def channel_mask(nx: int, ny: int) -> np.ndarray:
@@ -4769,6 +5066,10 @@ def main(argv=()) -> int:
     # ---- phase 17: OceanModel on a mesh off the fused path; the DLB -----
     mesh_entries = mesh_route(card, name, max_abs)
     mark("17")
+
+    # ---- phase 18: the mesh across two processes on the card -----------
+    mesh_entries += process_route(card, name, max_abs)
+    mark("18")
 
     # ---- phase 7: the copy step ----------------------------------------
     # kernel vs plain version on what each form of the fused step loads:

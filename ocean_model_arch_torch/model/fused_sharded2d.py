@@ -15,16 +15,19 @@ then runs the raw form of the fused kernel
 advances ``steps_per_call`` model steps: chaining halves the exchanges
 and the launches a model step, and widens the strips.
 
-One process runs all shards, as in the JAX package; ``devices`` may
-name one device px * py times, and then every shard is its own set of
-tensors on that device. The margin exchange is ``Tensor.copy_`` of
-strips between the shards' tensors (the JAX package exchanges outside its
-kernel too, with ``ppermute``): x strips first, then y strips over all
-rows including the fresh x strips, so a corner arrives through the
-orthogonal neighbour. A shard at the edge of a closed axis keeps the
-land zeros it was packed with; a periodic axis adds the pair across the
-seam, and with one shard along it the shard's own far edge. An axis that
-is closed and unsharded needs no margin work at all.
+One process may run all shards, each its own set of tensors on the
+grid's device; or the shards belong to N processes
+(``parallel/multihost.py``), each holding its own on its own device (a
+card, or the CPU when asked for) and building only their statics. The
+margin exchange is ``Tensor.copy_`` of strips between the shards of one
+process and a point-to-point strip between shards of two (the JAX
+package exchanges outside its kernel too, with ``ppermute``): x strips
+first, as one ``batch_isend_irecv`` that ends before the y strips are
+posted over all rows including the fresh x strips, so a corner arrives
+through the orthogonal neighbour. A shard at the edge of a closed axis
+keeps the land zeros it was packed with; a periodic axis adds the pair
+across the seam, and with one shard along it the shard's own far edge.
+An axis that is closed and unsharded needs no margin work at all.
 
 The kernel cannot run in place (a block's halo is another block's
 output), so a runner keeps two buffers per shard and the exchange writes
@@ -51,8 +54,10 @@ the seam neighbours side by side, and every shard is at least M cells
 wide. The TPU package instead needs tile multiples (``nx`` divisible by
 ``px * tx`` on a periodic axis), a Mosaic constraint.
 
-Not here yet: shards on several devices and processes (the transport
-then becomes NCCL).
+Every process runs the same turns in lockstep: each launches the kernel
+on its own shards, and the window's guard flag ("not finite, or over the
+bound", so a NaN on any rank trips every rank) is reduced over the
+processes at the end of a window.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ from ..host import ModelConfig
 from ..ops import fused_layout as fl
 from ..ops import sw_kernels as swk
 from ..ops.fused_step import fused_sw_step_raw, kernel_planes, tile_shape
+from ..parallel import multihost
 from ..parallel.decomposition import weighted_x_edges, weighted_y_edges
 from .fused import (CARRIED, flat_bathymetry, fold_flags, general_inputs,
                     mask_carriers, quarter, state_from_fields, unsupported)
@@ -94,13 +100,18 @@ def _cuts(n: int, parts: int, given, weighted: bool, int_mask, margin: int,
 
 
 class FusedSharded2DModel:
-    """The fused model on a px x py mesh of shards, all driven by this
-    process. ``devices``: px * py torch devices, row-major over (x, y);
-    None puts every shard on the grid's device. ``mu_const``,
-    ``static_rslu``, ``fast2d``, ``tile_guard`` as in ``FusedSWModel``,
-    but ``static_rslu`` is on by default, as in the JAX model, whose
-    ``fast2d=True`` also needs metric planes (the guard is on by
-    default: pad tiles are always dry). ``steps_per_call``: model
+    """The fused model on a px x py mesh of shards. ``devices``: one a
+    shard, row-major over (x, y): a torch device (a shard of this
+    process, which must be the grid's device) or a
+    ``multihost.RankDevice`` (a shard of that rank: of this process when
+    the rank is its own, then on the grid's device); None puts every shard
+    on the grid's device, in this process (``parallel/mesh.py::Mesh.
+    shard_devices`` gives a mesh's list). A carry (``pack``) holds a
+    tensor for each shard of this process and None for the others.
+    ``mu_const``, ``static_rslu``, ``fast2d``, ``tile_guard`` as in
+    ``FusedSWModel``, but ``static_rslu`` is on by default, as in the JAX
+    model, whose ``fast2d=True`` also needs metric planes (the guard is on
+    by default: pad tiles are always dry). ``steps_per_call``: model
     steps per turn of the runner's loop, which makes one exchange and one
     launch per shard: 1, or 2 chained in the launch on a margin wide
     enough for both; windows must be multiples of it. ``weighted``: cut lines
@@ -130,13 +141,28 @@ class FusedSharded2DModel:
         dev = grid.lu.device
         if devices is None:
             devices = [dev] * (px * py)
-        devices = [torch.device(d) for d in devices]
         if len(devices) != px * py:
             raise ValueError(f"{len(devices)} devices for a {px} x {py} mesh")
-        if any(d != dev for d in devices):
+        rank = multihost.process_index()
+        self.owners = [d.rank if isinstance(d, multihost.RankDevice)
+                       else rank for d in devices]
+        devices = [torch.device(d.device if isinstance(
+            d, multihost.RankDevice) else d) for d in devices]
+        self.local = [r == rank for r in self.owners]
+        if any(loc and d != dev for loc, d in zip(self.local, devices)):
             raise NotImplementedError(
-                "shards on other devices than the grid's: the exchange "
-                "between devices and processes is not ported yet")
+                "one device a process: this process's shards lie on the "
+                f"grid's device ({dev}), not on the devices "
+                f"{sorted({str(d) for d in devices})}; the shards of "
+                "another device belong to another process "
+                "(multihost.RankDevice)")
+        world = multihost.process_count()
+        if not all(self.local) and (
+                sorted(set(self.owners)) != list(range(world))
+                or len({self.owners.count(r) for r in range(world)}) != 1):
+            raise ValueError(
+                f"shard owners {self.owners}: every rank of the process "
+                f"group ({world}) must hold as many shards as the others")
         self.grid, self.cfg = grid, cfg
         self.tau = float(tau)
         self.px, self.py = px, py
@@ -248,10 +274,13 @@ class FusedSharded2DModel:
                                   (gprof[14] * gprof[15])[None]), self.q4)
             planes_g = fl.static_planes(lu_gp, hr_gp, dxdy, names,
                                         interp_recips=recips)
+        def mine(i, j):
+            return self.local[i * py + j]
+
         if self.metrics_2d:
             self.met_shards = [[torch.from_numpy(cut(met_g, i, j, "edge"))
-                                .to(dev) for j in range(py)]
-                               for i in range(px)]
+                                .to(dev) if mine(i, j) else None
+                                for j in range(py)] for i in range(px)]
         else:
             # one profile per y band, shared by the shards of the band
             mets = []
@@ -260,14 +289,15 @@ class FusedSharded2DModel:
                 mets.append(torch.from_numpy(np.ascontiguousarray(np.pad(
                     gprof[:, y0:y0 + h], ((0, 0), (0, Ysp - h)),
                     mode="edge"))).to(dev))
-            self.met_shards = [[mets[j] for j in range(py)]
-                               for _ in range(px)]
-        self.lu_shards = [[cut(lu_gp, i, j, "constant") for j in range(py)]
-                          for i in range(px)]
-        self.hr_shards = [[cut(hr_gp, i, j, "constant") for j in range(py)]
-                          for i in range(px)]
+            self.met_shards = [[mets[j] if mine(i, j) else None
+                                for j in range(py)] for i in range(px)]
+        self.lu_shards = [[cut(lu_gp, i, j, "constant") if mine(i, j)
+                           else None for j in range(py)] for i in range(px)]
+        self.hr_shards = [[cut(hr_gp, i, j, "constant") if mine(i, j)
+                           else None for j in range(py)] for i in range(px)]
         self.plane_shards = [[torch.from_numpy(cut(planes_g, i, j,
                                                    "constant")).to(dev)
+                              if mine(i, j) else None
                               for j in range(py)] for i in range(px)]
 
         # ---- the guard's flags: wet cells of the shard's own box ---------
@@ -291,13 +321,19 @@ class FusedSharded2DModel:
                     self.tile_wet[i][j] = torch.from_numpy(wet).to(dev)
         self.n_tiles = (wet_tiles, all_tiles - wet_tiles)
         self._plan = self._exchange_plan()
-        self.strip_copies = 0
+        self._n_x = sum(1 for e in self._plan if e[4] == "x")
+        self._strips = multihost.Strips()
+        # strips (and their bytes) copied within this process, sent to
+        # and received from other processes
+        self.strip_copies = self.bytes_copied = 0
+        self.strips_sent = self.bytes_sent = 0
+        self.strips_received = 0
 
     # ------------------------------------------------------------------
     def _exchange_plan(self):
-        """The strip copies of one margin exchange, x pass then y pass:
-        ``(receiving shard, its index, sending shard, its index)``, the
-        indices over a shard's (fields, rows, columns)."""
+        """The strips of one margin exchange, x pass then y pass:
+        ``(receiving shard, its index, sending shard, its index, pass)``,
+        the indices over a shard's (fields, rows, columns)."""
         M, px, py = self.M, self.px, self.py
 
         def neighbours(k, n, periodic):
@@ -316,38 +352,60 @@ class FusedSharded2DModel:
                     x_pass.append((k, (every, slice(0, M), cols),
                                    low * py + j,
                                    (every, slice(self.lx[low],
-                                                 self.lx[low] + M), cols)))
+                                                 self.lx[low] + M), cols),
+                                   "x"))
                 if high is not None:      # its first M valid rows
                     x_pass.append((k, (every, slice(M + lx, 2 * M + lx),
                                        cols), high * py + j,
-                                   (every, slice(M, 2 * M), cols)))
+                                   (every, slice(M, 2 * M), cols), "x"))
                 rows = slice(0, lx + 2 * M)   # the fresh x strips too
                 low, high = neighbours(j, py, self.periodic_y)
                 if low is not None:
                     y_pass.append((k, (every, rows, slice(0, M)),
                                    i * py + low,
                                    (every, rows, slice(self.ly[low],
-                                                       self.ly[low] + M))))
+                                                       self.ly[low] + M)),
+                                   "y"))
                 if high is not None:
                     y_pass.append((k, (every, rows,
                                        slice(M + ly, 2 * M + ly)),
                                    i * py + high,
-                                   (every, rows, slice(M, 2 * M))))
+                                   (every, rows, slice(M, 2 * M)), "y"))
         return x_pass + y_pass
 
     def exchange(self, carry) -> None:
-        """Refresh the margins of every shard of ``carry`` in place from
-        its neighbours' valid cells (counted in ``strip_copies``)."""
-        for dst, into, src, what in self._plan:
-            carry[dst][into].copy_(carry[src][what])
-        self.strip_copies += len(self._plan)
+        """Refresh the margins of this process's shards of ``carry`` in
+        place from their neighbours' valid cells: ``copy_`` between two
+        shards of this process (counted in ``strip_copies``,
+        ``bytes_copied``), a strip sent to or received from another
+        (``strips_sent``, ``bytes_sent``, ``strips_received``), each
+        pass's strips posted together and waited on before the next
+        pass. Every process of the group calls it in the same turn."""
+        strips = self._strips
+        for part in (self._plan[:self._n_x], self._plan[self._n_x:]):
+            for tag, (dst, into, src, what, _) in enumerate(part):
+                here, there = self.local[dst], self.local[src]
+                if here and there:
+                    piece = carry[src][what]
+                    carry[dst][into].copy_(piece)
+                    self.strip_copies += 1
+                    self.bytes_copied += piece.numel() * piece.element_size()
+                elif there:
+                    self.bytes_sent += strips.send(
+                        self.owners[dst], carry[src][what], tag)
+                    self.strips_sent += 1
+                elif here:
+                    strips.recv(self.owners[src], carry[dst][into], tag)
+                    self.strips_received += 1
+            strips.run()
 
     # ------------------------------------------------------------------
     def pack(self, state: SWState) -> tuple:
-        """SWState -> one ``(6 + 2 T, Xs, Ysp)`` float32 tensor per shard,
-        row-major over the mesh: the 6 SW fields, then ff_0, ffp_0, ...,
-        each shard's own cells at offset (M, M), margins and pad zero
-        (the first exchange fills the margins). A state whose mu is not
+        """SWState (the whole basin) -> one ``(6 + 2 T, Xs, Ysp)`` float32
+        tensor per shard of this process, None for the others, row-major
+        over the mesh: the 6 SW fields, then ff_0, ffp_0, ..., each
+        shard's own cells at offset (M, M), margins and pad zero (the
+        first exchange fills the margins). A state whose mu is not
         ``mu_const`` everywhere is refused. With ``elide_sel`` the
         velocities and tracer levels are masked (see the class)."""
         if not bool((state.mu == self.mu_const).all()):
@@ -363,6 +421,9 @@ class FusedSharded2DModel:
         M, carry = self.M, []
         for i in range(self.px):
             for j in range(self.py):
+                if not self.local[i * self.py + j]:
+                    carry.append(None)
+                    continue
                 c = torch.zeros((len(fields), self.lay.Xs, self.lay.Ys),
                                 dtype=torch.float32, device=whole.device)
                 c[:, M:M + self.lx[i], M:M + self.ly[j]] = \
@@ -371,24 +432,48 @@ class FusedSharded2DModel:
                 carry.append(c)
         return tuple(carry)
 
-    def extract(self, carry) -> tuple:
-        """The shards' own cells -> the 6 + 2 T physical (nx, ny) fields."""
+    def gather(self, carry) -> tuple:
+        """Every shard's tensor, on every process: this process's own and
+        the others' (collective: every process calls it). One process:
+        ``carry`` itself."""
+        if all(self.local):
+            return tuple(carry)
+        mine = [k for k, loc in enumerate(self.local) if loc]
+        parts = multihost.all_gather(torch.stack([carry[k] for k in mine]))
+        whole = list(carry)
+        seen = {}
+        for k, r in enumerate(self.owners):
+            if not self.local[k]:
+                whole[k] = parts[r][seen.get(r, 0)]
+            seen[r] = seen.get(r, 0) + 1
+        return tuple(whole)
+
+    def extract(self, carry, gather: bool = False) -> tuple:
+        """The shards' own cells -> the 6 + 2 T physical (nx, ny) fields:
+        every shard's with ``gather`` (collective), else this process's,
+        the cells of the others' zero."""
+        if gather:
+            carry = self.gather(carry)
         M = self.M
-        out = torch.empty((carry[0].shape[0], self.grid.nx, self.grid.ny),
-                          dtype=torch.float32, device=carry[0].device)
+        c0 = next(c for c in carry if c is not None)
+        out = torch.zeros((c0.shape[0], self.grid.nx, self.grid.ny),
+                          dtype=torch.float32, device=c0.device)
         for i in range(self.px):
             for j in range(self.py):
-                out[:, self.x_edges[i]:self.x_edges[i + 1],
-                    self.y_edges[j]:self.y_edges[j + 1]] = \
-                    carry[i * self.py + j][:, M:M + self.lx[i],
-                                           M:M + self.ly[j]]
+                c = carry[i * self.py + j]
+                if c is not None:
+                    out[:, self.x_edges[i]:self.x_edges[i + 1],
+                        self.y_edges[j]:self.y_edges[j + 1]] = \
+                        c[:, M:M + self.lx[i], M:M + self.ly[j]]
         return out.unbind(0)
 
-    def unpack(self, carry, template: SWState) -> SWState:
+    def unpack(self, carry, template: SWState,
+               gather: bool = False) -> SWState:
         """The carry -> a full SWState in ``template``'s dtype, as
-        ``FusedSWModel.unpack`` gives it."""
-        return state_from_fields(self.extract(carry), template, self.grid,
-                                 self.cfg, self.n_tracers)
+        ``FusedSWModel.unpack`` gives it (``gather`` as in
+        :meth:`extract`)."""
+        return state_from_fields(self.extract(carry, gather), template,
+                                 self.grid, self.cfg, self.n_tracers)
 
     # ------------------------------------------------------------------
     def make_runner(self, n_inner: int):
@@ -399,13 +484,17 @@ class FusedSharded2DModel:
         set of buffers; the carry it returns is one of the two. The
         per-step max |ssh| over all shards accumulates on the device
         (``torch.maximum``, which propagates NaN) and is read once at the
-        end of the window."""
+        end of the window; across processes every one of them runs its
+        own shards, and the window's flag ("not finite, or over the
+        bound") is reduced over them, so a NaN on any rank fails the
+        window on every rank."""
         spc = self.steps_per_call
         if n_inner % spc:
             raise ValueError(f"n_inner={n_inner} not a multiple of "
                              f"steps_per_call={spc}")
         sw = self.cfg.sw
-        shards = [(i, j) for i in range(self.px) for j in range(self.py)]
+        shards = [(k, i, j) for i in range(self.px) for j in range(self.py)
+                  if self.local[k := i * self.py + j]]
         tx, ty = self.tile
         n_blocks = (-(-self.lay.Xs // tx), -(-self.lay.Ys // ty))
 
@@ -413,18 +502,18 @@ class FusedSharded2DModel:
             cur = list(carry)
             # both buffers' margins and pad start at zero; only the
             # exchange (margins) and the kernel (boxes) write afterwards
-            nxt = [torch.zeros_like(c) for c in cur]
-            cur_f = [c.unbind(0) for c in cur]
-            nxt_f = [c.unbind(0) for c in nxt]
-            dev = cur[0].device
+            nxt = [None if c is None else torch.zeros_like(c) for c in cur]
+            cur_f = [None if c is None else c.unbind(0) for c in cur]
+            nxt_f = [None if c is None else c.unbind(0) for c in nxt]
+            dev = cur[shards[0][0]].device
             blockmax = torch.zeros((len(shards),) + n_blocks,
                                    dtype=torch.float32, device=dev)
             mx = torch.zeros((), dtype=torch.float32, device=dev)
             for _ in range(n_inner // spc):
                 self.exchange(cur)
-                for k, (i, j) in enumerate(shards):
+                for b, (k, i, j) in enumerate(shards):
                     fused_sw_step_raw(
-                        cur_f[k], nxt_f[k], blockmax[k],
+                        cur_f[k], nxt_f[k], blockmax[b],
                         self.met_shards[i][j], self.plane_shards[i][j],
                         self.shard_lay[i][j], self.tau, sw.time_smooth,
                         self.hr_const, self.tile_wet[i][j], self.tile,
@@ -432,6 +521,8 @@ class FusedSharded2DModel:
                         self.ffs, spc, self.general, self.folds)
                 mx = torch.maximum(mx, torch.amax(blockmax))
                 cur, nxt, cur_f, nxt_f = nxt, cur, nxt_f, cur_f
-            return tuple(cur), bool(mx < swk.SSH_ERR_BOUND)  # NaN: False
+            # NaN compares False: "not below the bound" trips the guard
+            return tuple(cur), not multihost.any_rank(
+                ~(mx < swk.SSH_ERR_BOUND))
 
         return runner

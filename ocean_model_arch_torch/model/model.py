@@ -19,9 +19,16 @@ kernel's plain version), anything else the eager composition of
 ``model/sharded.py`` (every shard stacked on the model's device, in
 lockstep). On a mesh, ``debug_level >= 2`` runs the halo self-test and,
 on the fused-sharded route, ``dlb_balance_steps > 0`` the dynamic load
-balance, as the JAX model does. Orbax checkpoints and shards on other
-devices are not ported and raise ``NotImplementedError``; no run takes
-another path than the one it reports.
+balance, as the JAX model does. No run takes another path than the one
+it reports.
+
+In a process group (``parallel/multihost.py``) the mesh spans the
+processes: each holds its shards on its own device and every process
+runs the same loop in lockstep; the outputs are gathered collectively
+and written by rank 0, a sharded checkpoint (``checkpoint_format=
+"orbax"`` or a directory; the port's own per-shard format, not orbax)
+by every process, and rank 0 prints the timer table reduced over the
+ranks.
 """
 
 from __future__ import annotations
@@ -39,8 +46,10 @@ from ..core.grid import Grid, build_grid
 from ..core.state import SWState
 from ..host import default_device
 from ..io import grads
-from ..io.checkpoint import load_checkpoint, save_checkpoint
+from ..io.checkpoint import (load_checkpoint, load_checkpoint_sharded,
+                             save_checkpoint, save_checkpoint_sharded)
 from ..io.mask_io import load_mask
+from ..parallel import multihost
 from ..parallel.domain import crop_state, pad_grid, pad_state
 from ..parallel.mesh import make_mesh, shard_tree, unshard_tree
 from ..utils.calendar import model_time
@@ -142,7 +151,8 @@ class OceanModel:
             xe[0], xe[-1] = 0, basin.nx
             ye[0], ye[-1] = 0, basin.ny
             self._file_cuts = (xe, ye)
-        # the mesh: px * py shards, all on this model's device
+        # the mesh: px * py shards on this model's device, or, in a process
+        # group, each process's block of them on its own
         self.mesh = None
         if px * py > 1:
             self.mesh = make_mesh(px, py, self.device)
@@ -250,6 +260,12 @@ class OceanModel:
         why += unsupported(self.grid, self.cfg, sharded=True)
         return ", ".join(why)
 
+    def _shard_devices(self):
+        """Each shard's device for ``FusedSharded2DModel``: the mesh's (a
+        process's own, or another's rank), None without a mesh."""
+        mesh = getattr(self, "mesh", None)
+        return None if mesh is None else mesh.shard_devices()
+
     def _prepare_mesh_grid(self) -> None:
         """The eager sharded step's grid: padded to the mesh, laid out on
         it (``model/sharded.py::prepare``; the state is laid out at run
@@ -287,6 +303,7 @@ class OceanModel:
         for r in range(p.dlb_balance_steps):
             fs = FusedSharded2DModel(
                 self.grid, self.cfg, self.cfg.run.tau, px, py,
+                devices=self._shard_devices(),
                 weighted=True, mu_const=self.state_mu_const() or 0.0,
                 steps_per_call=spc, compute_powers_x=powers,
                 compute_powers_y=powers_y)
@@ -377,11 +394,13 @@ class OceanModel:
         wet = lu > 0.5
         w = np.array([[wet[xe[i]:xe[i + 1], ye[j]:ye[j + 1]].sum()
                        for j in range(py)] for i in range(px)], np.int64)
-        owner = (np.arange(px * py).reshape(px, py)).astype(np.int64)
+        owner = (np.asarray(self.mesh.owners) if self.mesh is not None
+                 else np.zeros(px * py)).reshape(px, py).astype(np.int64)
         path = os.path.join(self.results_dir, "decomposition.txt")
-        os.makedirs(self.results_dir, exist_ok=True)
-        dump_decomposition(
-            BlockDecomposition(px, py, w, owner, xe, ye), path)
+        if multihost.process_index() == 0:
+            os.makedirs(self.results_dir, exist_ok=True)
+            dump_decomposition(
+                BlockDecomposition(px, py, w, owner, xe, ye), path)
         return path
 
     def locate_blowup(self, prev_state: SWState, n_batch: int):
@@ -414,8 +433,14 @@ class OceanModel:
         (check_ssh_err_kernel); the fused loop only carries a
         window-level scalar, so the failed window is replayed un-fused
         (in the plain global view: the eager sharded step's state is
-        cropped first)."""
+        cropped first). Across processes every rank raises the window's
+        range alone, as the JAX model does."""
         first = done - n_batch
+        if multihost.process_count() > 1:
+            raise FloatingPointError(
+                "SIGFPRE predict error: |ssh| bound exceeded between "
+                f"steps {first + 1} and {done} (multi-process run; "
+                "re-run single-process to localize the cell)")
         loc = self.locate_blowup(prev_state, n_batch)
         if loc is not None:
             k, m, n, val = loc
@@ -449,8 +474,9 @@ class OceanModel:
         inner = fs.make_runner(n_inner)
 
         def runner(st):
+            # every process gets the whole basin (collective)
             carry, ok = inner(fs.pack(st))
-            return fs.unpack(carry, st), ok
+            return fs.unpack(carry, st, gather=True), ok
         return runner
 
     def _make_runner(self, n_inner: int):
@@ -472,6 +498,7 @@ class OceanModel:
                 xe, ye = fs.x_edges, fs.y_edges
             fs = self._fused_sh = FusedSharded2DModel(
                 self.grid, self.cfg, tau, *self.mesh.shape,
+                devices=self._shard_devices(),
                 mu_const=self.state_mu_const(),
                 weighted=self.cfg.parallel.mod_decomposition == 1,
                 x_edges=xe, y_edges=ye, steps_per_call=spc)
@@ -521,11 +548,15 @@ class OceanModel:
         return runner
 
     def compute_path(self) -> str:
-        """The route ``run`` takes, as its 'compute path' line names it."""
+        """The route ``run`` takes, as its 'compute path' line names it
+        (on a mesh across processes, with the transport)."""
+        over = (f" ({multihost.transport()})"
+                if multihost.process_count() > 1 and self.mesh is not None
+                else "")
         if self._use_fused_sharded():
-            return "fused CUDA kernel, sharded"
+            return "fused CUDA kernel, sharded" + over
         if self.mesh is not None:
-            return "eager composition, sharded"
+            return "eager composition, sharded" + over
         if self._fused_periodic_tx() is not None:
             return "fused CUDA kernel, periodic (1x1 wrap)"
         if self._use_fused():
@@ -534,11 +565,36 @@ class OceanModel:
 
     def _global_state(self, state: SWState) -> SWState:
         """The eager sharded step's stacked, padded state -> the plain
-        global view at the basin's extents."""
-        return crop_state(unshard_tree(state), self.cfg.basin.nx,
+        global view at the basin's extents (gathered from every process:
+        collective)."""
+        return crop_state(unshard_tree(state, self.mesh), self.cfg.basin.nx,
                           self.cfg.basin.ny)
 
+    def _save(self, path: str, fmt: str, state: SWState,
+              plain) -> None:
+        """A restart point: the npz file (rank 0 writes the gathered
+        state; every process joins the gather) or the sharded directory
+        (every process writes its shards)."""
+        if fmt == "orbax" or os.path.isdir(path):
+            if self.mesh is not None and not self._use_fused_sharded():
+                save_checkpoint_sharded(
+                    path, state, self.num_step, self.mesh,
+                    extents=(self.cfg.basin.nx, self.cfg.basin.ny))
+            else:       # the basin, cut as the fused-sharded model cuts it
+                fs = getattr(self, "_fused_sh", None) if self.mesh else None
+                save_checkpoint_sharded(
+                    path, state, self.num_step, self.mesh,
+                    *((fs.x_edges, fs.y_edges) if fs else ()))
+            return
+        whole = plain(state)
+        if multihost.process_index() == 0:
+            save_checkpoint(path, whole, self.num_step)
+        multihost.barrier()
+
     def _output(self, state: SWState, nrec: int):
+        """One GrADS record of the (gathered) state, written by rank 0."""
+        if multihost.process_index() != 0:
+            return
         basin, run = self.cfg.basin, self.cfg.run
         t = model_time(self.num_step, run.tau, run.init_year)
         lu = self.grid.lu.cpu().numpy()
@@ -568,7 +624,9 @@ class OceanModel:
         """The main time loop (model.f90:132-200).
 
         ``checkpoint_format``: "npz" (one file, read and written by the
-        JAX package too); "orbax", its per-shard format, is not ported.
+        JAX package too) or "orbax": the port's per-shard directory
+        (``io/checkpoint.py::save_checkpoint_sharded``, not the orbax
+        format). Resume takes either: a directory is a sharded one.
 
         ``checkpoint_every``: write a restart point to
         ``checkpoint_path`` every N steps DURING the run (rounded to
@@ -583,16 +641,12 @@ class OceanModel:
 
         if checkpoint_format not in ("npz", "orbax"):
             raise ValueError(f"checkpoint_format={checkpoint_format!r}")
-        if checkpoint_path and (checkpoint_format == "orbax"
-                                or os.path.isdir(checkpoint_path)):
-            raise NotImplementedError(
-                "orbax (per-shard directory) checkpoints, io/checkpoint.py"
-                "::save_checkpoint_sharded, join with the multi-process "
-                "runs; use checkpoint_format=\"npz\"")
         if run.start_type == 1 and checkpoint_path \
                 and os.path.exists(checkpoint_path):
-            self.state, self.num_step = load_checkpoint(checkpoint_path,
-                                                        self.device)
+            load = (load_checkpoint_sharded if os.path.isdir(checkpoint_path)
+                    else load_checkpoint)
+            self.state, self.num_step = load(checkpoint_path,
+                                             device=self.device)
             if verbose:
                 print(f"MODEL: resumed from {checkpoint_path} "
                       f"at step {self.num_step}")
@@ -666,8 +720,8 @@ class OceanModel:
                     and done < n_total \
                     and done % max(checkpoint_every, 1) < n_batch:
                 with self.timers.phase("checkpoint"):
-                    save_checkpoint(checkpoint_path, plain(state),
-                                    self.num_step)
+                    self._save(checkpoint_path, checkpoint_format, state,
+                               plain)
                 if verbose:
                     print(f"MODEL: restart point at step "
                           f"{self.num_step} -> {checkpoint_path}")
@@ -675,16 +729,19 @@ class OceanModel:
                 t = model_time(self.num_step, run.tau, run.init_year)
                 print(f"MODEL: step {self.num_step}/{n_total}  {t.stamp()}")
 
-        state = self.state = plain(state)
         if checkpoint_path:
             with self.timers.phase("checkpoint"):
-                save_checkpoint(checkpoint_path, state, self.num_step)
+                self._save(checkpoint_path, checkpoint_format, state, plain)
+        state = self.state = plain(state)
         wet = float(self.grid.lu.sum())
         steps_done = self.num_step - run.init_step
         t_step = self.timers.acc.get("model_step", 0.0)
         pts = wet * steps_done / max(t_step, 1e-12)
+        # across processes ONE max/min-over-ranks table (mpp_finalize,
+        # mpp.f90:272-341): the gather is collective, so every process
+        # joins it whatever its verbose flag; rank 0 prints
         rep = self.timers.reduced_report(
             extra={"wet_points_per_sec": f"{pts:.3e}"})
-        if verbose:
+        if verbose and multihost.process_index() == 0:
             print(rep)
         return state

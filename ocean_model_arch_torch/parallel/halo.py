@@ -13,6 +13,14 @@ runs on the x-padded tensor, so corner halos come from the diagonal
 neighbour exactly like the reference's explicit corner strips (dirs 5-8,
 _gen_all.fi:49-52).
 
+Across processes (parallel/mesh.py: each rank a block of the shards) a
+pass keeps its ``narrow`` + ``cat`` between the shards of a block and
+sends the block's edge strips to the neighbouring ranks, as the
+``ppermute`` pair of ``ocean_model_arch_tpu/parallel/halo.py:28-53``
+does: both strips of a pass go out as one ``batch_isend_irecv``
+(parallel/multihost.py), zeros arrive at a closed edge, the wrap on a
+periodic one, and the x pass ends before the y pass begins.
+
 ``ShardHalo`` is the halo provider of model/step.py's composition on the
 stacked layout (the interface of ``GlobalHalo``).
 """
@@ -26,19 +34,41 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.stencil import HALO
+from . import multihost
 
 
 def _exchange_axis(f: torch.Tensor, axis: int, n: int, periodic: bool,
-                   h: int = HALO) -> torch.Tensor:
+                   h: int = HALO, ranks=None, strips=None) -> torch.Tensor:
     """Pad ``f`` along its spatial ``axis`` (-2: x, -1: y; negative, so
     nlev stacks work) with h cells from the neighbouring shards along the
-    shard axis two places before it (n shards there)."""
+    shard axis two places before it (n shards there). ``ranks``: the
+    ranks (low, high) beside this process's block along the axis when
+    the axis spans processes (None past a closed edge), whose strips
+    travel through ``strips`` (a ``multihost.Strips``); None when this
+    process holds the whole axis."""
     axis = axis % f.ndim
     sa = axis - 2
     size = f.shape[axis]
     last = f.narrow(axis, size - h, h)
     first = f.narrow(axis, 0, h)
-    if periodic:
+    if ranks is not None:
+        # the block's edge strips to and from the neighbouring ranks (the
+        # strip sent up is tagged 0, the one sent down 1)
+        lo, hi = ranks
+        from_lo = torch.zeros_like(last.narrow(sa, 0, 1))
+        from_hi = torch.zeros_like(from_lo)
+        if hi is not None:
+            strips.send(hi, last.narrow(sa, n - 1, 1), 0)
+        if lo is not None:
+            strips.send(lo, first.narrow(sa, 0, 1), 1)
+        if lo is not None:
+            strips.recv(lo, from_lo, 0)
+        if hi is not None:
+            strips.recv(hi, from_hi, 1)
+        strips.run()
+        low = torch.cat([from_lo, last.narrow(sa, 0, n - 1)], dim=sa)
+        high = torch.cat([first.narrow(sa, 1, n - 1), from_hi], dim=sa)
+    elif periodic:
         # shard i's low halo = shard (i - 1) % n's last strip, its high
         # halo = shard (i + 1) % n's first strip (n == 1: its own wrap)
         low = torch.cat([last.narrow(sa, n - 1, 1),
@@ -62,7 +92,18 @@ class ShardHalo:
 
     def __init__(self, px: int, py: int,
                  periodic_x: bool = False, periodic_y: bool = False,
-                 h: int = HALO):
+                 h: int = HALO, mesh=None):
+        # across processes: this rank's block, and the neighbouring ranks
+        # along each axis the ranks split
+        self._ranks = (None, None)
+        self._strips = multihost.Strips()
+        if mesh is not None and mesh.world > 1:
+            px, py = mesh.block
+            self._ranks = tuple(
+                (mesh.neighbour(a, -1, per), mesh.neighbour(a, 1, per))
+                if n > 1 else None
+                for a, n, per in ((0, mesh.rx, periodic_x),
+                                  (1, mesh.ry, periodic_y)))
         self.px = px
         self.py = py
         self.periodic_x = periodic_x
@@ -129,8 +170,15 @@ class ShardHalo:
 
     def _ex(self, f):
         self.exchanges += 1
-        f = _exchange_axis(f, -2, self.px, self.periodic_x, self.h)
-        return _exchange_axis(f, -1, self.py, self.periodic_y, self.h)
+        rx, ry = self._ranks
+        f = (_exchange_axis(f, -2, self.px, self.periodic_x, self.h)
+             if rx is None else
+             _exchange_axis(f, -2, self.px, self.periodic_x, self.h, rx,
+                            self._strips))
+        return (_exchange_axis(f, -1, self.py, self.periodic_y, self.h)
+                if ry is None else
+                _exchange_axis(f, -1, self.py, self.periodic_y, self.h, ry,
+                               self._strips))
 
     def zp(self, f):
         h = self.h
@@ -149,9 +197,11 @@ def halo_self_test(mesh, nx: int, ny: int,
 
     Call it at startup with the production mesh, like the reference's
     commented-in `call sync_test(domain, ocean_data%ssh)`
-    (init_data.f90:41-44).
+    (init_data.f90:41-44). On a mesh across processes every process
+    exchanges its block and the blocks are gathered before the check, as
+    the JAX package's process_allgather does (collective).
     """
-    from .mesh import shard_field
+    from .mesh import gather_field, shard_field
 
     px, py = mesh.px, mesh.py
     if nx % px or ny % py:
@@ -160,8 +210,9 @@ def halo_self_test(mesh, nx: int, ny: int,
     j = np.arange(1, ny + 1)[None, :].astype(np.float64)
     f = shard_field(torch.from_numpy(i * j), mesh)
 
-    hp = ShardHalo(px, py, periodic_x, periodic_y, h=h)
-    blocks = hp.ex(f).cpu().numpy()          # (px, py, lx + 2h, ly + 2h)
+    hp = ShardHalo(px, py, periodic_x, periodic_y, h=h, mesh=mesh)
+    # (px, py, lx + 2h, ly + 2h)
+    blocks = gather_field(hp.ex(f), mesh).cpu().numpy()
     lx, ly = nx // px, ny // py
     gi = np.arange(-h, lx + h)
     gj = np.arange(-h, ly + h)

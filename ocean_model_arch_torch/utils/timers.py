@@ -9,9 +9,10 @@ times per phase plus derived throughput. A phase that ends by reading a
 value from the device (the step loop reads its ``ok`` flag) includes
 the device's work.
 
-The port runs in one process, so :meth:`PhaseTimers.gather` returns this
-process's row alone and :meth:`PhaseTimers.reduced_report` prints the
-plain table; the max/min over ranks joins with the multi-process runs.
+Across processes (``parallel/multihost.py``) :meth:`PhaseTimers.gather`
+collects every process's table and :meth:`PhaseTimers.reduced_report`
+prints the max/min over the ranks; in one process they give this
+process's row and the plain table.
 """
 
 from __future__ import annotations
@@ -52,11 +53,31 @@ class PhaseTimers:
 
     def gather(self) -> list[dict]:
         """Every process's timer state, [{"acc": ..., "count": ...}, ...]
-        indexed by process: one element, this process's."""
-        return [{"acc": dict(self.acc), "count": dict(self.count)}]
+        indexed by process (collective: every process calls it). One
+        process: one element, this process's, with no collective."""
+        from ..parallel.multihost import all_objects
+        return all_objects({"acc": dict(self.acc),
+                            "count": dict(self.count)})
 
     def reduced_report(self, extra: dict | None = None) -> str:
-        """The table over all processes -- the analog of mpp_finalize's
-        reduced profile (shared/mpp/mpp.f90:272-341). One process: the
-        plain report."""
-        return self.report(extra)
+        """One table with the max/min totals over all processes -- the
+        analog of mpp_finalize's reduced profile (shared/mpp/mpp.f90:
+        272-341: mpi_allreduce MPI_MAX/MPI_MIN of every phase timer,
+        master-rank print); a phase that only some ranks ran appears, at 0
+        on the others. One process: the plain report."""
+        tables = self.gather()
+        if len(tables) == 1:
+            return self.report(extra)
+        names = sorted({n for t in tables for n in t["acc"]})
+        lines = [f"============ TIMER REPORT ({len(tables)} processes, "
+                 "max/min over ranks) ============",
+                 f"{'phase':<24} {'max s':>12} {'min s':>12} {'calls':>8}"]
+        for n in names:
+            vals = [t["acc"].get(n, 0.0) for t in tables]
+            calls = max(t["count"].get(n, 0) for t in tables)
+            lines.append(f"{n:<24} {max(vals):>12.4f} {min(vals):>12.4f} "
+                         f"{calls:>8d}")
+        for k, v in (extra or {}).items():
+            lines.append(f"{k:<24} {v}")
+        lines.append("=" * 68)
+        return "\n".join(lines)

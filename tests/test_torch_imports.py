@@ -47,6 +47,9 @@ MODULES = [
     "ocean_model_arch_torch.parallel.mesh",
     "ocean_model_arch_torch.parallel.domain",
     "ocean_model_arch_torch.parallel.halo",
+    "ocean_model_arch_torch.parallel.multihost",
+    "ocean_model_arch_torch.diag",
+    "ocean_model_arch_torch.diag.scaling",
     "ocean_model_arch_torch.utils",
     "ocean_model_arch_torch.utils.calendar",
     "ocean_model_arch_torch.utils.timers",
@@ -74,6 +77,7 @@ MODULES = [
     "scripts.persistent_probe_torch",
     "scripts.vpu_op_probe_torch",
     "scripts.vpu_shift_probe_torch",
+    "scripts.multiprocess_worker_torch",
 ]
 
 
@@ -82,7 +86,8 @@ def _port_sources():
              os.path.join(REPO, "scripts", "roofline_probe_torch.py"),
              os.path.join(REPO, "scripts", "persistent_probe_torch.py"),
              os.path.join(REPO, "scripts", "vpu_op_probe_torch.py"),
-             os.path.join(REPO, "scripts", "vpu_shift_probe_torch.py")]
+             os.path.join(REPO, "scripts", "vpu_shift_probe_torch.py"),
+             os.path.join(REPO, "scripts", "multiprocess_worker_torch.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -176,7 +181,8 @@ def test_running_the_timers_loads_no_jax():
 
 @pytest.mark.parametrize("entry", ["build_grid", "zero_state",
                                    "grid_from_numpy", "state_from_numpy",
-                                   "make_mesh"])
+                                   "make_mesh", "initialize",
+                                   "local_device"])
 def test_entry_points_default_to_the_card(entry):
     """Called without a device on a machine without CUDA, the entry
     points raise instead of returning CPU tensors; ``device="cpu"`` is
@@ -188,6 +194,7 @@ def test_entry_points_default_to_the_card(entry):
     from ocean_model_arch_torch.host import (Precision, basinpar_as250m_test,
                                              default_device,
                                              frame_of_land_mask)
+    from ocean_model_arch_torch.parallel import multihost
     from ocean_model_arch_torch.parallel.mesh import make_mesh
     if torch.cuda.is_available():
         pytest.skip("needs a machine without a CUDA device")
@@ -207,6 +214,10 @@ def test_entry_points_default_to_the_card(entry):
         "grid_from_numpy": lambda: tg.grid_from_numpy(grid_d),
         "state_from_numpy": lambda: ts.state_from_numpy(state_d),
         "make_mesh": lambda: make_mesh(2, 2),
+        # a process of a group takes the card unless asked for the CPU
+        "initialize": lambda: multihost.initialize(
+            "file:///nowhere", 2, 0, backend="gloo"),
+        "local_device": multihost.local_device,
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -31,6 +31,7 @@ from ocean_model_arch_torch.config import ParallelConfig, Precision
 from ocean_model_arch_torch.core.state import STATE_FIELDS
 from ocean_model_arch_torch.io import grads
 from ocean_model_arch_torch.io.checkpoint import (load_checkpoint,
+                                                  load_checkpoint_sharded,
                                                   save_checkpoint)
 from ocean_model_arch_torch.model.model import OceanModel, load_config_dir
 from ocean_model_arch_torch.parallel import decomposition as dd
@@ -366,25 +367,50 @@ def test_route_selection(tmp_path, name):
 
 
 LEFT_OUT = {
-    "orbax format": ({}, {"checkpoint_format": "orbax"}, "orbax"),
-    "checkpoint directory": ({}, {"checkpoint_path": "."}, "orbax"),
+    "orbax format": ({}, {"checkpoint_format": "orbax"}, "f32 2x2"),
+    "checkpoint directory": ({}, {"checkpoint_path": "."}, "f64 2x2"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(LEFT_OUT))
 def test_routes_left_out_raise(tmp_path, name):
-    """What this port has not got yet raises NotImplementedError naming
-    the module; nothing takes another path silently."""
-    dir_kw, run_kw, match = LEFT_OUT[name]
-    d = _small(tmp_path, **dir_kw)
-    cfg = _f32(load_config_dir(d))
-    run_kw = {"checkpoint_path": str(tmp_path / "ck"), **run_kw}
+    """The routes that raised until the sharded checkpoint was ported --
+    ``checkpoint_format="orbax"`` and a checkpoint directory -- write the
+    port's per-shard directory (its own format, not orbax; the fused
+    route on a 2 x 2 mesh in f32, the eager one in f64): it reads back as
+    the final state bit for bit, and a run resumed from it half way
+    equals the straight run bit for bit."""
+    dir_kw, run_kw, route = LEFT_OUT[name]
+    d = _small(tmp_path / "run", **dir_kw)
+    cfg = load_config_dir(d)
+    cfg = (_f32(cfg, mesh_x=2, mesh_y=2) if route == "f32 2x2" else
+           dataclasses.replace(cfg, parallel=dataclasses.replace(
+               cfg.parallel, mesh_x=2, mesh_y=2)))
+    ck = str(tmp_path / "ck")
+    run_kw = {"checkpoint_path": ck, **run_kw}
     if run_kw["checkpoint_path"] == ".":
-        run_kw["checkpoint_path"] = str(tmp_path)
+        os.makedirs(ck)
+        run_kw["checkpoint_path"] = ck
     model = OceanModel(cfg, base_dir=d, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        model.run(verbose=False, **run_kw)
-    assert model.num_step == 0            # nothing ran
+    full = model.run(verbose=False, **run_kw)
+    assert model.num_step == 60
+    assert os.path.isfile(os.path.join(ck, "index.json"))
+    back, step = load_checkpoint_sharded(ck, device="cpu")
+    assert step == 60
+    for n in STATE_FIELDS:
+        a, b = getattr(full, n), getattr(back, n)
+        assert (a is None) == (b is None), n
+        assert a is None or torch.equal(a, b), n
+    half = dataclasses.replace(cfg, run=dataclasses.replace(
+        cfg.run, run_duration_days=cfg.run.run_duration_days / 2))
+    OceanModel(half, base_dir=d, device="cpu").run(verbose=False, **run_kw)
+    assert load_checkpoint_sharded(ck, device="cpu")[1] == 30
+    resumed = dataclasses.replace(cfg, run=dataclasses.replace(
+        cfg.run, start_type=1))
+    final = OceanModel(resumed, base_dir=d, device="cpu").run(
+        verbose=False, **run_kw)
+    for n in ("ssh", "sshp", "ubrtr", "vbrtr", "ff", "hhq"):
+        assert torch.equal(getattr(final, n), getattr(full, n)), n
 
 
 def test_entry_points_raise_without_a_card(tmp_path):
