@@ -259,11 +259,13 @@ Ks; K7: three at two), K1b on phase 17's balanced cuts and on phase
 18a's 2 x 1 shards (and on phase 19a's cards, where it runs);
 the last line is ``{"ok": true, "device": {...}}``. With ``--parent
 DIR`` (the root of another checkout of this repository) it instead holds
-every one-step instantiation that checkout has against this one's, bit
-for bit and in kernel time, and every instantiation's registers, and
-stops; ``--parent DIR --bathymetry`` only the fast forms over bathymetry
-planes and the main path's chained and folded ones. Needs a CUDA device and nvcc; there is no
-CPU path.
+every one-step and chained instantiation that checkout has against this
+one's, bit for bit and in kernel time, and every instantiation's
+registers, and stops; ``--parent DIR --bathymetry`` only the fast forms
+over bathymetry planes and the main path's chained and folded ones,
+``--general`` the general forms and K2, ``--chained`` the chained fast
+forms, ``--one-step`` the fast one-step forms and K2. Needs a CUDA
+device and nvcc; there is no CPU path.
 """
 
 from __future__ import annotations
@@ -481,6 +483,26 @@ def ptxas_summary(table: list) -> str:
         or "(cached build)"
 
 
+def reg_limit_of(key: str, kind: str = "fast") -> int:
+    """The registers a thread the launch bound of one instantiation leaves,
+    from its template arguments (ptxas_table): ``kind`` "fast" or
+    "general" (the fused step's ``<tracers,guard,plane metrics,mu mode,...,
+    steps,...>``), "copy" (``<tracer window,steps,stacked,TMA,viscous>``):
+    ``MAX_REGS`` one step a launch, else the chained form's tile's
+    (``tile_of``: 64 at 512 threads and two blocks an SM or 1024 and one,
+    85 at 768 and one)."""
+    from ocean_model_arch_torch.ops.fused_step import reg_limit, tile_of
+    a = [int(v) for v in key[1:-1].split(",")]
+    if kind == "copy":
+        steps, n_tr, visc = a[1], a[0], len(a) > 4 and a[4] == 1
+    else:
+        steps, n_tr, visc = a[8], a[0], a[3] == 2
+    if steps != 2:
+        return MAX_REGS
+    return reg_limit(tile_of(2, 1 if n_tr < 0 else n_tr, visc,
+                             kind == "general"))
+
+
 def nc_loads(targets) -> str:
     """The global loads of the libraries of ``targets`` in their SASS, and
     how many of them go through the non-coherent path (LDG .CONSTANT or
@@ -636,7 +658,8 @@ def geometry_mirror() -> str:
     import ctypes
     from ocean_model_arch_torch.ops import copy_step as cs
     from ocean_model_arch_torch.ops.fused_step import (
-        _library, _persist_library, general_geometry, window_geometry)
+        _library, _persist_library, general_geometry, tile_of,
+        window_geometry)
 
     def held(lib, t, visc, hrp, ffs, g, what):
         out = (ctypes.c_longlong * 12)()
@@ -679,13 +702,26 @@ def geometry_mirror() -> str:
         for steps, t, visc in itertools.product((1, 2), (0, 1, 2, 3),
                                                 (False, True))
         for g in [general_geometry(t, steps, visc)])
-    for steps in (1, 2):
-        for t in (0, 1):
-            win = (ctypes.c_int * 3)()
-            cs._library().copy_step_window(t, steps, win)
-            g = window_geometry(t, steps)
-            check(tuple(win) == (g.rows, g.cols, g.plane),
-                  f"copy step window {tuple(win)} != {g[2:5]}")
+    for steps, t, visc in itertools.product((1, 2), (0, 1), (0, 1)):
+        win = (ctypes.c_int * 3)()
+        cs._library().copy_step_window(t, visc, steps, win)
+        g = window_geometry(t, steps, bool(visc))
+        check(tuple(win) == (g.rows, g.cols, g.plane),
+              f"copy step window {tuple(win)} != {g[2:5]}")
+        check(cs.tile_shape("cuda", steps, t, visc) == g.tile,
+              f"copy step tile {cs.tile_shape('cuda', steps, t, visc)} != "
+              f"{g.tile}")
+    # each library's tile of each form == the mirror's (tile_of)
+    for steps, t, visc, general in itertools.product(
+            (1, 2), range(4), (0, 1), (False, True)):
+        lib = _library(t, steps=steps, general=general)
+        got = tuple(f(visc) for f in (
+            lib.fused_sw_step_tile_x, lib.fused_sw_step_tile_y,
+            lib.fused_sw_step_threads, lib.fused_sw_step_min_blocks))
+        check(got == tile_of(steps, t, bool(visc), general),
+              f"the tile of (steps {steps}, T={t}, visc {visc}, general "
+              f"{general}): the library's {got}, the mirror's "
+              f"{tile_of(steps, t, bool(visc), general)}")
     g1, g2 = window_geometry(0, 1), window_geometry(0, 2)
     return (f"window geometry of {n} fast, general and persistent forms == "
             "the mirror (ops/fused_step.py::window_geometry, "
@@ -694,7 +730,11 @@ def geometry_mirror() -> str:
             f"{g1.rows} x {g1.cols} window, {g1.extra} planes of its own, "
             f"{g1.smem / 1e3:.1f} KB, {g1.blocks} blocks an SM, {g1.boxes} "
             f"boxes; chained T=0: {g2.rows} x {g2.cols}, {g2.extra}, "
-            f"{g2.smem / 1e3:.1f} KB, {g2.blocks} blocks, {g2.boxes} boxes")
+            f"{g2.smem / 1e3:.1f} KB, {g2.blocks} blocks, {g2.boxes} boxes; "
+            "chained tiles (rows, columns, threads, blocks an SM), each "
+            "library's == the mirror's: T=0 and general "
+            f"{tile_of(2)}, T>=1 {tile_of(2, 1)}, T>=1 viscous "
+            f"{tile_of(2, 1, True)}")
 
 
 def fmt(es) -> str:
@@ -1147,7 +1187,11 @@ def against_parent(parent: str, card: str, chain_regs: int,
     over bathymetry planes with 0 or ``N_TRACERS`` tracers (those whose
     plane plan places the bathymetry planes), and only their libraries and
     ``PARENT_MAIN``'s are built; ``--general``, only the general form's
-    instantiations and the K2 runs, and only their libraries."""
+    instantiations and the K2 runs, and only their libraries;
+    ``--chained``, only ``PARENT_MAIN`` and every chained fast
+    instantiation (``parent_chained``), with the parent's guard flags at
+    its own tile where the tiles differ; ``--one-step``, only the fast
+    one-step instantiations and the K2 runs."""
     from ocean_model_arch_torch.core.grid import build_grid
     from ocean_model_arch_torch.host import (Precision, basinpar_as250m_test,
                                              frame_of_land_mask, read_mask)
@@ -1168,29 +1212,41 @@ def against_parent(parent: str, card: str, chain_regs: int,
     theirs_build = importlib.import_module("parent_port.ops._build")
     probe = load_script("roofline_probe_torch")
     from ocean_model_arch_torch.ops import _build
-    bathymetry_only, general_only = (subset == "--bathymetry",
-                                     subset == "--general")
+    bathymetry_only, general_only, chained_only, one_step_only = (
+        subset == "--bathymetry", subset == "--general",
+        subset == "--chained", subset == "--one-step")
+    chained = (parent_chained() if hasattr(theirs, "fold_targets")
+               and not (bathymetry_only or general_only or one_step_only)
+               else [])
     fast_targets = () if general_only else theirs.library_targets()
     gen_targets = (theirs.library_targets(general=True)
                    if "general" in inspect.signature(
                        theirs.library_targets).parameters else ())
     persist = (theirs.persist_targets()
-               if hasattr(theirs, "persist_targets") and not bathymetry_only
-               else ())
+               if hasattr(theirs, "persist_targets")
+               and not (bathymetry_only or chained_only) else ())
     if bathymetry_only:
         fast_targets = tuple(sorted(
             {theirs.library_target(t, raw, trans, ffs) for t in (0, N_TRACERS)
              for raw in (False, True) for trans, ffs in mine.FORMS}
             | {theirs.library_target(t, False, 1, 1, 2) for t in (0, 2)}))
         gen_targets = ()
-    # the parent's fold libraries of PARENT_MAIN's folded forms
+    if chained_only or one_step_only:   # the chained or one-step fast ones
+        fast_targets = tuple(t for t in fast_targets
+                             if ("FUSED_STEPS=2" in t) == chained_only)
+        gen_targets = ()
+    # the parent's fold libraries of PARENT_MAIN's folded forms and of the
+    # chained ones
     fold_targets = tuple(sorted({
         theirs.library_target(t, False, 1, 1, spc, folds=3 + 4 * (spc > 1))
         for _, _, t, spc, kw in PARENT_MAIN if not kw}
         | {theirs.library_target(N_TRACERS, True, 1, 1, spc,
                                  folds=3 + 4 * (spc > 1))
-           for spc in (1, 2)})) if hasattr(
-            theirs, "fold_targets") and not general_only else ()
+           for spc in (1, 2)}
+        | {theirs.library_target(t, raw, trans, ffs, 2, folds=f)
+           for _, _, (trans, ffs), t, _, _, _, raw, f in chained if f})) \
+        if hasattr(theirs, "fold_targets") \
+        and not (general_only or one_step_only) else ()
     old_targets = fast_targets + gen_targets + fold_targets + persist
     t0 = time.perf_counter()
     theirs_build.build_all(old_targets)
@@ -1208,11 +1264,13 @@ def against_parent(parent: str, card: str, chain_regs: int,
                       f"parent's: {sorted(set(a) ^ set(b))[:6]}")
                 n_old += len(a)
                 continue
-            lim = chain_regs if "FUSED_STEPS=2" in t else MAX_REGS
-            over = [r for r in a if r[1] > lim or r[2] != 0]
+            kind = "general" if t in gen_targets else "fast"
+            over = [r for r in a if r[2] != 0 or r[1] > (
+                reg_limit_of(r[0], kind) if "FUSED_STEPS=2" in t
+                else MAX_REGS)]
             check(not over and len(a) == len(b), f"{t}: {len(a)} "
                   f"instantiations ({len(b)} in the parent's), above "
-                  f"{lim} registers or spilling: {over[:6]}")
+                  f"their launch bound or spilling: {over[:6]}")
             n_new += len(a)
         regs = (f"; registers and spills of the {n_old} instantiations on "
                 "the threads' loader == the parent's: yes; the "
@@ -1262,12 +1320,22 @@ def against_parent(parent: str, card: str, chain_regs: int,
             s, _ = fm.run_steps(fm.pack(state), 20)
         else:
             s = shard[1]
+        # the parent's chained tracer forms ran 16 x 32 tiles: its guard's
+        # flags at its own tile
+        tiles = {"T": tuple(args[7] or fm.tile),
+                 "P": tuple(theirs.tile_shape(s[0].device,
+                                              fm.steps_per_call))}
+        if tiles["P"] != tiles["T"]:
+            old_args = (*old_args[:6], None if args[6] is None else
+                        flags_at(fm, shard, tiles["P"], s[0].device),
+                        tiles["P"],
+                        *old_args[8:])
         if raw:
-            lay, tile = args[2], args[7] or fm.tile
-            bm_shape = tuple(-(-n // t) for n, t in zip(
-                (lay.Xs, lay.Ys), tile))
+            lay = args[2]
             bufs = {k: (tuple(torch.zeros_like(a) for a in s),
-                        torch.zeros(bm_shape, device=s[0].device))
+                        torch.zeros(tuple(-(-n // t) for n, t in zip(
+                            (lay.Xs, lay.Ys), tiles[k])),
+                            device=s[0].device))
                     for k in "PT"}
             mine.fused_sw_step_raw(s, *bufs["T"], *args)
             theirs.fused_sw_step_raw(s, *bufs["P"], *old_args)
@@ -1287,6 +1355,10 @@ def against_parent(parent: str, card: str, chain_regs: int,
 
             def new_call():
                 mine.fused_sw_step(s, *args)
+        # the block maxima block by block, or over the blocks where the
+        # tiles differ
+        if nb.shape != ob.shape:
+            nb, ob = torch.amax(nb), torch.amax(ob)
         same = (all(torch.equal(x, y) for x, y in zip(new, old))
                 and torch.equal(nb, ob))
         if not same:
@@ -1321,7 +1393,8 @@ def against_parent(parent: str, card: str, chain_regs: int,
                           for u, c in zip(us, order))
               + f" (medians this / parent {ratio:.4f})", flush=True)
 
-    for (trans, ffs), cg in [(f, c) for f in mine.FORMS for c in (0, 2)]:
+    for (trans, ffs), cg in [(f, c) for f in mine.FORMS for c in (0, 2)
+                             if not chained_only]:
         b = dataclasses.replace(basin, curve_grid=cg)
         for hr_planes in (False, True):
             grid = build_grid(b, mask, hhq_rest=hr if hr_planes else None,
@@ -1336,7 +1409,8 @@ def against_parent(parent: str, card: str, chain_regs: int,
                     if (t or k) and (f or bool(m) == hr_planes)
                     and (not bathymetry_only or f and hr_planes
                          and t in (0, N_TRACERS))
-                    and not (general_only and f)]:
+                    and not (general_only and f)
+                    and not (one_step_only and not f)]:
                 cfg = form_cfg(b, prec, n_tr, trans, ffs, ksw)
                 state = with_mu(init_ocean_state(grid, cfg), mu)
                 for guard, raw, spc in [(g, r, c) for r in raws
@@ -1352,7 +1426,8 @@ def against_parent(parent: str, card: str, chain_regs: int,
     # the main path's chained and folded forms, where the parent has them:
     # on the coastline guarded, on the frame unguarded (``default``), and
     # azov_visc's first shard of the 2 x 2 split
-    if hasattr(theirs, "fold_targets") and not general_only:
+    if hasattr(theirs, "fold_targets") and not (general_only
+                                                 or one_step_only):
         frame = frame_of_land_mask(basin.nx, basin.ny)
         for where, cg, n_tr, spc, kw in PARENT_MAIN:
             b = dataclasses.replace(basin, curve_grid=cg)
@@ -1374,6 +1449,22 @@ def against_parent(parent: str, card: str, chain_regs: int,
             compare(fs, cfg, state, True, True, key_text(form_key(fs))
                     + " (azov_visc 2 x 2, shard (0, 0))",
                     (fs, c[0].unbind(0)))
+    # every chained fast instantiation (parent_chained), on the coastline
+    grids = {}
+    for cg, hrp, (trans, ffs), n_tr, mu, ksw, guard, raw, f in chained:
+        b = dataclasses.replace(basin, curve_grid=cg)
+        if (cg, hrp) not in grids:
+            grids[cg, hrp] = build_grid(b, mask, hhq_rest=hr if hrp else None,
+                                        precision=prec)
+        cfg = form_cfg(b, prec, n_tr, trans, ffs, ksw)
+        fm = FusedSWModel(grids[cg, hrp], cfg, 1.0, mu_const=mu,
+                          tile_guard=guard, static_rslu=True,
+                          steps_per_call=2, elide_sel=bool(f & 1),
+                          q4=bool(f & 2), share_prev=bool(f & 4))
+        compare(fm, cfg, with_mu(init_ocean_state(grids[cg, hrp], cfg), mu),
+                raw, True, key_text(form_key(fm)[:5] + (raw,)
+                                    + form_key(fm)[6:])
+                + f" (curve_grid={cg})")
     if persist:
         n_forms += parent_persistent(theirs, basin, prec, mask, hr, worst)
     check(worst[True] <= 1.02 and worst[False] < 0.02, "a redesigned "
@@ -1386,6 +1477,25 @@ def against_parent(parent: str, card: str, chain_regs: int,
           f"{worst[True]:.4f}, forms on the threads' loader within "
           f"{worst[False]:.2%}")
     return 0
+
+
+def flags_at(fm, shard, tile, device) -> torch.Tensor:
+    """The guard's per-block flags of ``fm``'s form at ``tile`` (another
+    checkout's): of its single block, or with ``shard`` (the sharded model
+    and its first shard's fields) of that model's shard (0, 0), as the
+    models build them."""
+    from ocean_model_arch_torch.ops import fused_layout as fl
+    if shard is None:
+        lu_s = np.asarray(fl.embed(fm.lay, fm.grid.lu.cpu()))
+        wet = fl.tile_wet(lu_s, fm.lay, *tile)
+    else:
+        fs = shard[0]
+        own = np.zeros((fs.lay.Xs, fs.lay.Ys), np.float32)
+        own[fs.M:fs.M + fs.lx[0], fs.M:fs.M + fs.ly[0]] = \
+            fs.grid.lu.cpu().numpy()[fs.x_edges[0]:fs.x_edges[1],
+                                     fs.y_edges[0]:fs.y_edges[1]]
+        wet = fl.tile_wet(own, fs.lay, *tile)
+    return torch.from_numpy(wet).to(device)
 
 
 def parent_persistent(theirs, basin, prec, mask, hr, worst) -> int:
@@ -2694,6 +2804,12 @@ def launcher_host_us(mine, theirs, n: int = 10000) -> str:
                           steps_per_call=spc, tile_guard=guard)
         s = fm.pack(init_ocean_state(grid, cfg))
         args = model_args(fm, cfg)
+        # the parent's guard flags at its own tile (its chained tracer
+        # forms ran 16 x 32 tiles)
+        tile = tuple(theirs.tile_shape(s[0].device, spc))
+        old_args = args if tile == fm.tile else (
+            *args[:6], flags_at(fm, None, tile, s[0].device), tile,
+            *args[8:])
         code = mine.fold_code(mine.kernel_folds(fm.folds, spc, fm.ffs))
         calls = {}
         for side, mod in (("P", theirs), ("T", mine)):
@@ -2702,7 +2818,8 @@ def launcher_host_us(mine, theirs, n: int = 10000) -> str:
             lib.fused_sw_step_launch = lambda *a: (seen.append(a),
                                                    real(*a))[1]
             try:
-                mod.fused_sw_step_blockmax(s, *args)
+                mod.fused_sw_step_blockmax(s, *(old_args if side == "P"
+                                                else args))
             finally:
                 lib.fused_sw_step_launch = real
             calls[side] = (real, seen[0])
@@ -3645,7 +3762,9 @@ def general_models(grid, cfg, mu: float, spc: int, one=None) -> dict:
             if one[k] is not None:
                 out[k] = copy.copy(one[k])
                 out[k].steps_per_call = spc
-                check(out[k].tile == tile_shape(grid.lu.device, spc),
+                check(out[k].tile == tile_shape(
+                    grid.lu.device, spc, n_tracers=out[k].n_tracers,
+                    visc=out[k].visc, general=True),
                       "phase 13a: the chained tile is not the one-step tile")
         return out
     fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, steps_per_call=spc,
@@ -4270,6 +4389,49 @@ PARENT_MAIN = tuple(("azov", cg, t, spc, kw) for cg in (0, 2)
                                     "share_prev": False})
                     if spc == 2 or kw == {}) + (
     ("frame", 0, 0, 1, {}), ("frame", 0, 0, 2, {}))
+
+
+def parent_chained() -> list:
+    """--parent: the chained fast instantiations held against the
+    parent's (their body's walk and tiles are their own), each (curve_grid,
+    bathymetry planes, (advection, full free surface), tracers, mu,
+    ksw_lat, guard, raw, fold code): every tracer count (0, 1, 2 and the
+    run-time family at 3 and 4) and mu mode (0; 1, the tracers' diffusive
+    fluxes alone; 2) on both metric forms and both bathymetries, guarded
+    (the mu = 0 forms on flat bathymetry unguarded too); the other three
+    (advection, free surface) forms; the raw forms; the drivers' folds (3,
+    7) and the at-first-use codes (1, 2, 5, 6, and 4, share_prev alone)."""
+    from ocean_model_arch_torch.ops.fused_step import FORMS
+    full = FORMS[0]
+    out = []
+    for cg, hrp, n_tr in itertools.product((0, 2), (False, True),
+                                           (0, 1, 2, 3, 4)):
+        for mu, ksw in ((0.0, 1), (MU, 0), (MU, 1)):
+            if n_tr or ksw:
+                for guard in ((False, True) if mu == 0.0 and not hrp
+                              else (True,)):
+                    out.append((cg, hrp, full, n_tr, mu, ksw, guard, False,
+                                0))
+    for (trans, ffs), cg, n_tr, mu in itertools.product(
+            FORMS[1:], (0, 2), (0, 2, 3), (0.0, MU)):
+        out.append((cg, False, (trans, ffs), n_tr, mu, 1, True, False, 0))
+    for hrp, n_tr, mu in itertools.product((False, True), (0, 2, 3),
+                                           (0.0, MU)):
+        out.append((0, hrp, full, n_tr, mu, 1, True, True, 0))
+    out.append((2, False, full, 0, 0.0, 1, True, True, 0))
+    for folds, cg, n_tr, mu in itertools.product((3, 7), (0, 2),
+                                                 (0, 1, 2, 3, 4), (0.0, MU)):
+        out.append((cg, False, full, n_tr, mu, 1, True, False, folds))
+    for (trans, ffs), n_tr in itertools.product(((1, 0), (0, 1)), (0, 2, 3)):
+        out.append((0, False, (trans, ffs), n_tr, 0.0, 1, True, False,
+                    3 if ffs == 0 else 7))
+    for n_tr in (0, 2, 4):
+        out.append((0, False, full, n_tr, 0.0, 1, True, True, 7))
+        out.append((0, True, full, n_tr, MU, 1, True, False, 7))
+    for folds, n_tr in itertools.product((1, 2, 5, 6, 4), (0, 2)):
+        out.append((0, False, full, n_tr, 0.0, 1, True, False, folds))
+    return out
+
 # tests/test_fused.py::_assert_ulp_close: elide_sel and q4 (exact scalings,
 # contraction round-off), share_prev (a regrouping) on its 70 x 52 basin
 TOL_FOLD, TOL_SHARE = 1e-6, 1e-5
@@ -4333,9 +4495,7 @@ def fold_registers(fold_build, chain_regs: int) -> str:
         check(not twin or len(mine) == len(twin), f"{t}: {len(mine)} "
               f"instantiations, its unfolded twin {len(twin)}")
         rows += mine
-    over = [r for r in rows
-            if r[1] > (chain_regs if r[0][1:-1].split(",")[8] == "2"
-                       else MAX_REGS) or r[2] != 0]
+    over = [r for r in rows if r[1] > reg_limit_of(r[0]) or r[2] != 0]
     check(not over, f"fold instantiations above {MAX_REGS} registers (one "
           f"step a launch) or {chain_regs} (chained), or with spills: "
           f"{over}")
@@ -4754,9 +4914,10 @@ def fl_margin(steps: int, fs) -> int:
 
 def main(argv=()) -> int:
     if argv and (len(argv) not in (2, 3) or argv[0] != "--parent"
-                 or argv[2:] not in ([], ["--bathymetry"], ["--general"])):
+                 or argv[2:] not in ([], ["--bathymetry"], ["--general"],
+                                     ["--chained"], ["--one-step"])):
         print("usage: chip_smoke.py [--parent DIR [--bathymetry | "
-              "--general]]", file=sys.stderr)
+              "--general | --chained | --one-step]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -4772,7 +4933,8 @@ def main(argv=()) -> int:
     from ocean_model_arch_torch.model.step import make_step
     from ocean_model_arch_torch.ops import _build, copy_step as cs
     from ocean_model_arch_torch.ops.fused_step import (
-        TILES, _library as _fused_library, chain_smem, fold_targets,
+        _library as _fused_library, chain_smem, fold_targets, reg_limit,
+        tile_of,
         fused_sw_step, fused_sw_step_reference, general_geometry,
         library_target, library_targets, persist_targets, tile_shape)
     from ocean_model_arch_torch.ops import vpu_probe as vp
@@ -4799,9 +4961,10 @@ def main(argv=()) -> int:
         print(f"phase {phase} took {marks[-1][1] - marks[-2][1]:.1f} s "
               f"({marks[-1][1] - marks[0][1]:.1f} s in all)", flush=True)
 
-    # the chained forms' launch bound: 65536 registers over its threads
-    # and blocks an SM (phase 1's checks hold it against the library's)
-    chain_regs = 65536 // (TILES[2][2] * TILES[2][3])
+    # the chained forms' launch bound without tracers: 65536 registers
+    # over its threads and blocks an SM (phase 1's checks hold it against
+    # the library's; reg_limit_of gives each instantiation's)
+    chain_regs = reg_limit(tile_of(2))
     gen_tma = tuple(t for t in library_targets(general=True)
                     if general_loads_by_tma(t))
     gen_threads = tuple(t for t in library_targets(general=True)
@@ -4874,9 +5037,9 @@ def main(argv=()) -> int:
         geometry, the walk's grid."""
         libs = [_build.build(t) for t in targets]
         lib2 = _fused_library(steps=2)
-        check(chain_regs == 65536 // (lib2.fused_sw_step_threads()
-                                      * lib2.fused_sw_step_min_blocks()),
-              "the chained library's launch bound is not TILES[2]'s")
+        check(chain_regs == 65536 // (lib2.fused_sw_step_threads(0)
+                                      * lib2.fused_sw_step_min_blocks(0)),
+              "the chained library's launch bound is not tile_of(2)'s")
         fused_regs = [row for t in library_targets() for row in ptxas_table(
             _build.BUILDS.get(t, {}).get("log", ""))]
         gen_regs = [row for t in library_targets(general=True) for row in
@@ -4906,15 +5069,18 @@ def main(argv=()) -> int:
               + "; walk_kernel<in place> (K5): spill bytes "
               + (", ".join(f"{a} + {b}" for a, b in walk_regs)
                  or "(cached)")
-              + "; copy_step_kernel<tracer window,steps,stacked>: "
+              + "; copy_step_kernel<tracer window,steps,stacked,TMA,viscous>: "
               + ptxas_summary(copy_regs) + "; the op-cost probes (K6, K7, "
               + ", ".join(vpu_targets) + "): " + ptxas_summary(
                   [r for t in vpu_targets for r in vpu_ptxas(
                       _build.BUILDS.get(t, {}).get("log", ""))])
-              + f"; chained tile "
-              f"{tile_shape('cuda', 2)} of {lib2.fused_sw_step_threads()} "
-              f"threads, launch bound {lib2.fused_sw_step_min_blocks()} "
-              f"blocks an SM ({chain_regs} registers); chained shared memory "
+              + f"; chained tile without tracers "
+              f"{tile_shape('cuda', 2)} of {lib2.fused_sw_step_threads(0)} "
+              f"threads, launch bound {lib2.fused_sw_step_min_blocks(0)} "
+              f"blocks an SM ({chain_regs} registers; with tracers "
+              f"{tile_of(2, 1)}, viscous {tile_of(2, 1, True)}: "
+              f"{reg_limit(tile_of(2, 1))}, {reg_limit(tile_of(2, 1, True))} "
+              "registers); chained shared memory "
               "a block, T: KB (tracer levels kept / 2 T; viscous) "
               + ", ".join(
                   f"{t}: {a / 1024:.1f} ({la}/{2 * t}; {b / 1024:.1f}, "
@@ -4923,26 +5089,26 @@ def main(argv=()) -> int:
                                             chain_smem(t, True))]))
         # the steps a launch: the fused kernel's ninth template argument,
         # the copy kernel's second
-        over = [r for r in fused_regs + gen_regs + copy_regs
-                if r[1] > (chain_regs if r[0][1:-1].split(",")[
-                    8 if r in fused_regs or r in gen_regs else 1] == "2"
-                           else MAX_REGS)
-                or r[2] != 0]
+        over = [r for kind, rows in (("fast", fused_regs),
+                                     ("general", gen_regs),
+                                     ("copy", copy_regs))
+                for r in rows if r[1] > reg_limit_of(r[0], kind) or r[2] != 0]
         over += [r for r in persist_regs if r[1] > MAX_REGS or r[2] != 0]
         over += [r for r in walk_regs if r != (0, 0)]
         check(not over, f"instantiations above {MAX_REGS} registers (one "
-              f"step a launch) or {chain_regs} (chained), or with spills: "
-              f"{over}")
+              "step a launch) or their chained tile's launch bound, or "
+              f"with spills: {over}")
         if all(t in _build.BUILDS for t in targets):     # none was cached
             check(len(fused_regs) == 1408 and len(gen_regs) == 704
-                  and len(copy_regs) == 12 and len(persist_regs) == 132
+                  and len(copy_regs) == 15 and len(persist_regs) == 132
                   and len(walk_regs) == 2,
                   f"{len(fused_regs)} fused, {len(gen_regs)} general, "
                   f"{len(persist_regs)} persistent, {len(copy_regs)} "
                   f"copy-step and {len(walk_regs)} walk instantiations in "
                   "the build logs")
-        check(all(cs.tile_shape("cuda", s) == tile_shape("cuda", s)
-                  for s in (1, 2)),
+        check(all(cs.tile_shape("cuda", s, t, v)
+                  == tile_shape("cuda", s, n_tracers=t, visc=v)
+                  for s in (1, 2) for t in (0, 1) for v in (False, True)),
               "the copy step and the fused step were built with different "
               "tiles")
         print("phase 1 loader: " + geometry_mirror(), flush=True)

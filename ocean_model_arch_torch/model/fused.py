@@ -245,9 +245,12 @@ class FusedSWModel:
             self.planes = torch.from_numpy(planes).to(dev)
         else:
             self._fast_inputs(grid, cfg, lay, lu_s, hr_s, met)
-        # the guard's per-block wet flags, with the kernel's own tile (the
-        # chained form's, for two steps a launch)
-        self.tile = tile_shape(dev, self.steps_per_call)
+        # the guard's per-block wet flags, with the tile of the library
+        # that launches this form (the chained forms' differ by tracers and
+        # viscosity)
+        self.tile = tile_shape(dev, self.steps_per_call,
+                               n_tracers=self.n_tracers, visc=self.visc,
+                               general=self.general)
         wet = fl.tile_wet(lu_s, lay, *self.tile)
         self.n_tiles = (int(wet.sum()), int(wet.size - wet.sum()))
         if tile_guard is None:

@@ -329,11 +329,13 @@ class FusedSharded2DModel:
                               for j in range(py)] for i in range(px)]
 
         # ---- the guard's flags: wet cells of the shard's own box ---------
-        # (the kernel's tile: the chained form's for two steps a launch);
-        # a chained launch's first step still computes a dry-flagged
-        # tile's margin cells in its wet neighbour's window
+        # (the tile of the library that launches this form: the chained
+        # forms' differ by tracers and viscosity); a chained launch's first
+        # step still computes a dry-flagged tile's margin cells in its wet
+        # neighbour's window
         self.tile = tile_shape(self.cards[0] if self.cards else dev,
-                               self.steps_per_call)
+                               self.steps_per_call, n_tracers=self.n_tracers,
+                               visc=self.visc, general=self.general)
         self.tile_guard = bool(tile_guard)
         self.tile_wet = [[None] * py for _ in range(px)]
         wet_tiles = all_tiles = 0

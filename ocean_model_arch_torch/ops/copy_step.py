@@ -69,22 +69,28 @@ def copy_step_reference(windows, met, n_out: int, lay: FusedLayout,
     return tuple(outs)
 
 
-def tile_shape(device, steps: int = 1) -> tuple:
+def tile_shape(device, steps: int = 1, tracer_form: bool = False,
+               visc_form: bool = False) -> tuple:
     """The (rows, columns) of the kernel's output tile on a CUDA device
-    for the forms of ``steps`` model steps a launch (the library is built
-    if needed), ``CPU_TILE`` on the CPU."""
+    for the fused step's fast form of ``steps`` model steps a launch, with
+    tracers or not, viscous or not (the library is built if needed; the
+    chained forms with tracers have tiles of their own), ``CPU_TILE`` on
+    the CPU."""
     if torch.device(device).type == "cpu":
         return CPU_TILE
     lib = _library()
-    return lib.copy_step_tile_x(steps), lib.copy_step_tile_y(steps)
+    form = (int(bool(tracer_form)), int(bool(visc_form)), steps)
+    return lib.copy_step_tile_x(*form), lib.copy_step_tile_y(*form)
 
 
 def _check_inputs(windows, met, n_out, lay, tile_wet, tile,
                   steps, stacked: bool = False,
-                  loader: str = "threads") -> None:
+                  loader: str = "threads", tracer_form: bool = False,
+                  visc_form: bool = False) -> None:
     """``stacked``: the windows are the planes of one tensor, and neither
     they nor the outputs are bounded in number; ``loader``: with TMA, its
-    bounds and alignment too."""
+    bounds and alignment too; ``tracer_form``, ``visc_form``: the fused
+    form whose tile the guard's flags are for."""
     dev = windows[0].device
     shapes = [(w, (lay.Xs, lay.Ys)) for w in windows]
     if met is not None:
@@ -117,17 +123,19 @@ def _check_inputs(windows, met, n_out, lay, tile_wet, tile,
             raise ValueError(f"the TMA loader takes at most "
                              f"{lib.copy_step_max_async_windows()} windowed "
                              f"inputs, got {len(windows)}")
-        why = tma_refusal(lay, windows, steps)
+        why = tma_refusal(lay, windows, steps, int(bool(tracer_form)),
+                          visc=visc_form)
         if why:
             raise ValueError(f"the TMA loader cannot take {why}")
     if tile_wet is None:
         return
     want = (-(-lay.Xs // tile[0]), -(-lay.Ys // tile[1]))
-    if (tuple(tile) != tile_shape(dev, steps) or tile_wet.device != dev
+    own = tile_shape(dev, steps, tracer_form, visc_form)
+    if (tuple(tile) != own or tile_wet.device != dev
             or tile_wet.dtype != torch.int32 or not tile_wet.is_contiguous()
             or tuple(tile_wet.shape) != want):
         raise ValueError(f"tile_wet: need a contiguous int32 {want} tensor "
-                         f"on {dev} for {tile_shape(dev, steps)} tiles, got "
+                         f"on {dev} for {own} tiles, got "
                          f"{tile_wet.dtype} {tuple(tile_wet.shape)} for "
                          f"{tuple(tile)} tiles")
 
@@ -150,7 +158,8 @@ def copy_step(windows, met, n_out: int, lay: FusedLayout,
     if windows[0].device.type == "cpu":
         return copy_step_reference(windows, met, n_out, lay, tile_wet, tile)
     _check_inputs(windows, met, n_out, lay, tile_wet, tile, steps,
-                  loader=loader)
+                  loader=loader, tracer_form=tracer_form,
+                  visc_form=visc_form)
     lib = _library()
     outs = tuple(torch.empty_like(windows[0]) for _ in range(n_out))
     win_p = (ctypes.c_void_p * len(windows))(*(w.data_ptr()
@@ -194,7 +203,8 @@ def copy_step_stacked(stack: torch.Tensor, met, n_out: int, lay: FusedLayout,
         return torch.stack(copy_step_reference(stack.unbind(0), met, n_out,
                                                lay, tile_wet, tile))
     _check_inputs(stack.unbind(0), met, n_out, lay, tile_wet, tile, steps,
-                  stacked=True)
+                  stacked=True, tracer_form=tracer_form,
+                  visc_form=visc_form)
     lib = _library()
     out = torch.empty((n_out, lay.Xs, lay.Ys), dtype=torch.float32,
                       device=stack.device)
@@ -223,13 +233,13 @@ def _library() -> ctypes.CDLL:
     lib = load("copy_step")
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.copy_step_tile_x, lib.copy_step_tile_y):
-        fn.argtypes = [i]
+        fn.argtypes = [i, i, i]
         fn.restype = i
     for fn in (lib.copy_step_max_windows, lib.copy_step_max_outputs,
                lib.copy_step_max_async_windows):
         fn.argtypes = []
         fn.restype = i
-    lib.copy_step_window.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.copy_step_window.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.copy_step_window.restype = i
     lib.copy_step_error_string.argtypes = [i]
     lib.copy_step_error_string.restype = ctypes.c_char_p

@@ -105,24 +105,27 @@ __device__ __forceinline__ void store(const Params& p, size_t g, float a) {
 }
 
 // NT selects the window: Form<0> has halo 3, Form<1> halo 4; STEPS = 2
-// the chained form's tile and window (halo 6, 8); STACKED the stacked
-// form's addresses; ASYNC the TMA loader (maps: its tensor maps, first in
-// the parameter block, where each keeps the 64-byte alignment TMA asks).
-template <int NT, int STEPS, bool STACKED, bool ASYNC>
+// the chained form's tile and window (halo 6, 8); VISC the tile of a
+// chained viscous form with tracers (the fused step's fast forms' tiles:
+// fused_tile.cuh's shape_of); STACKED the stacked form's addresses; ASYNC
+// the TMA loader (maps: its tensor maps, first in the parameter block,
+// where each keeps the 64-byte alignment TMA asks).
+template <int NT, int STEPS, bool STACKED, bool ASYNC, bool VISC>
 __global__ void
-__launch_bounds__(Tile<STEPS>::NTHREADS, Tile<STEPS>::MIN_BLOCKS)
+__launch_bounds__(Tile<STEPS, NT, VISC, true>::NTHREADS,
+                  Tile<STEPS, NT, VISC, true>::MIN_BLOCKS)
 copy_step_kernel(const __grid_constant__ std::conditional_t<ASYNC, Maps,
                                                             NoMaps> maps,
                  const Params p) {
   static_assert(!(ASYNC && STACKED), "the stacked form loads by threads");
   // the window of the loader's form (the threads' the one they had)
-  using Fm = Form<NT, STEPS, ASYNC>;
+  using Fm = Form<NT, STEPS, ASYNC, VISC, true>;
   constexpr int HALO = Fm::WH;
   constexpr int WY = Fm::WY, PLANE = Fm::PLANE;
   constexpr int WCELLS = Fm::CELLS;
   constexpr int SH = Fm::R;  // the TMA box begins SH columns before it
-  constexpr int TX = Tile<STEPS>::TX, TY = Tile<STEPS>::TY;
-  constexpr int NTHREADS = Tile<STEPS>::NTHREADS;
+  constexpr int TX = Fm::TX, TY = Fm::TY;
+  constexpr int NTHREADS = Tile<STEPS, NT, VISC, true>::NTHREADS;
   constexpr int CELLS = (TX * TY + NTHREADS - 1) / NTHREADS;  // a thread's
 
   const int tid = threadIdx.x;
@@ -214,15 +217,16 @@ copy_step_kernel(const __grid_constant__ std::conditional_t<ASYNC, Maps,
   }
 }
 
-template <int NT, int STEPS, bool STACKED, bool ASYNC>
+template <int NT, int STEPS, bool STACKED, bool ASYNC, bool VISC>
 int launch(Params& p, int n_tr, bool visc, cudaStream_t stream) {
   // the fused form's shared memory: a viscous form's block also holds its
   // stress planes, unused here but for the turns' windows (and the TMA
   // form 128 bytes more, by which it aligns them)
-  using T = Tile<STEPS>;
-  using Fm = Form<NT, STEPS, ASYNC>;
+  using T = Tile<STEPS, NT, VISC, true>;
+  using Fm = Form<NT, STEPS, ASYNC, VISC, true>;
   int levels = 0;
-  const size_t fsmem = form_smem_bytes<STEPS, ASYNC>(n_tr, visc, &levels);
+  const size_t fsmem = form_smem_bytes<STEPS, ASYNC, true>(n_tr, visc,
+                                                           &levels);
   p.n_chunk = (int)(fsmem / (sizeof(float) * Fm::PLANE));
   const size_t smem = fsmem + (ASYNC ? 128 : 0);
   std::conditional_t<ASYNC, Maps, NoMaps> maps{};
@@ -235,10 +239,10 @@ int launch(Params& p, int n_tr, bool visc, cudaStream_t stream) {
     }
   }
   cudaError_t e = cudaFuncSetAttribute(
-      copy_step_kernel<NT, STEPS, STACKED, ASYNC>,
+      copy_step_kernel<NT, STEPS, STACKED, ASYNC, VISC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  copy_step_kernel<NT, STEPS, STACKED, ASYNC>
+  copy_step_kernel<NT, STEPS, STACKED, ASYNC, VISC>
       <<<dim3((p.Ys + T::TY - 1) / T::TY, (p.Xs + T::TX - 1) / T::TX),
          T::NTHREADS, smem, stream>>>(maps, p);
   return (int)cudaGetLastError();
@@ -246,26 +250,35 @@ int launch(Params& p, int n_tr, bool visc, cudaStream_t stream) {
 
 template <bool STACKED, bool ASYNC>
 int launch_form(Params& p, int n_tr, bool visc, int steps, cudaStream_t s) {
-  if (steps == 2)
-    return n_tr ? launch<1, 2, STACKED, ASYNC>(p, n_tr, visc, s)
-                : launch<0, 2, STACKED, ASYNC>(p, n_tr, visc, s);
-  return n_tr ? launch<1, 1, STACKED, ASYNC>(p, n_tr, visc, s)
-              : launch<0, 1, STACKED, ASYNC>(p, n_tr, visc, s);
+  if (steps == 2 && n_tr)
+    return visc ? launch<1, 2, STACKED, ASYNC, true>(p, n_tr, visc, s)
+                : launch<1, 2, STACKED, ASYNC, false>(p, n_tr, visc, s);
+  if (steps == 2) return launch<0, 2, STACKED, ASYNC, false>(p, n_tr, visc, s);
+  return n_tr ? launch<1, 1, STACKED, ASYNC, false>(p, n_tr, visc, s)
+              : launch<0, 1, STACKED, ASYNC, false>(p, n_tr, visc, s);
+}
+
+// The tile of the fused step's fast form with n_tracers tracers, viscous
+// or not, of `steps` model steps a launch (fused_tile.cuh's shape_of).
+Shape copy_step_tile(int n_tracers, int visc, int steps) {
+  if (steps != 2) return Tile<1>::S;
+  if (!n_tracers) return Tile<2, 0, false, true>::S;
+  return visc ? Tile<2, 1, true, true>::S : Tile<2, 1, false, true>::S;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The output tile (rows, columns) of a block for the forms that run
-// `steps` model steps a launch: the same constants the fused step is built
-// with.
-int copy_step_tile_x(int steps) {
-  return steps == 2 ? Tile<2>::TX : Tile<1>::TX;
+// The output tile (rows, columns) of a block for the fused form with
+// n_tracers tracers, viscous (visc != 0) or not, that runs `steps` model
+// steps a launch: the fused step's fast forms' own.
+int copy_step_tile_x(int n_tracers, int visc, int steps) {
+  return copy_step_tile(n_tracers, visc, steps).tx;
 }
 
-int copy_step_tile_y(int steps) {
-  return steps == 2 ? Tile<2>::TY : Tile<1>::TY;
+int copy_step_tile_y(int n_tracers, int visc, int steps) {
+  return copy_step_tile(n_tracers, visc, steps).ty;
 }
 
 int copy_step_max_windows() { return MAX_WIN; }
@@ -275,17 +288,19 @@ int copy_step_max_outputs() { return MAX_OUT; }
 int copy_step_max_async_windows() { return MAX_ASYNC_WIN; }
 
 // The window (rows, columns, floats a shared plane) of the form with
-// n_tracers tracers (its window halo) and `steps` model steps a launch.
-int copy_step_window(int n_tracers, int steps, int* out) {
-  const auto put = [out](int wx, int wy, int plane) {
-    out[0] = wx; out[1] = wy; out[2] = plane;
+// n_tracers tracers (its window halo), viscous (visc != 0) or not, and
+// `steps` model steps a launch.
+int copy_step_window(int n_tracers, int visc, int steps, int* out) {
+  const auto put = [out](auto fm) {
+    using Fm = decltype(fm);
+    out[0] = Fm::WX; out[1] = Fm::WY; out[2] = Fm::PLANE;
     return 0;
   };
-  if (steps == 2)
-    return n_tracers ? put(Form<1, 2>::WX, Form<1, 2>::WY, Form<1, 2>::PLANE)
-                     : put(Form<0, 2>::WX, Form<0, 2>::WY, Form<0, 2>::PLANE);
-  return n_tracers ? put(Form<1, 1>::WX, Form<1, 1>::WY, Form<1, 1>::PLANE)
-                   : put(Form<0, 1>::WX, Form<0, 1>::WY, Form<0, 1>::PLANE);
+  if (steps == 2 && n_tracers)
+    return visc ? put(Form<1, 2, true, true, true>{})
+                : put(Form<1, 2, true, false, true>{});
+  if (steps == 2) return put(Form<0, 2, true, false, true>{});
+  return n_tracers ? put(Form<1, 1>{}) : put(Form<0, 1>{});
 }
 
 const char* copy_step_error_string(int code) {

@@ -151,9 +151,41 @@
 // stores as the single step does. The block max covers the tile's own
 // cells of the box at both steps. A chained launch moves the bytes of one
 // step for two, and recomputes step A on the H-cell ring of every tile;
-// its block holds 20 + 2 T planes of the wider window (fused_tile.cuh has
-// its tile and what fits an SM). The guard is unchanged: an all-land tile
-// writes zeros and returns.
+// its block holds 20 + 2 T planes of the wider window. The guard is
+// unchanged: an all-land tile writes zeros and returns.
+//
+// What bounds the chained forms, and what the design does about it (the
+// tile and the walk; PERF.md section 6 has the numbers, H100 SXM 700 W):
+// - Without tracers (T = 0, two blocks of 512 threads an SM at 108 KB):
+//   not instruction issue. Each stage walks its region a column a thread
+//   (walk: no division a cell, the metric profile's rows held a column),
+//   which cut the stage loops' instructions a tile by 14 % (549k to 471k,
+//   scripts/sass_stages_torch.py on the main path's form) and moved the
+//   launch by less than 1 % (0.994 of the parent's): the SM issues about
+//   a third of what it could. Walking whole window rows instead, so that
+//   a warp's accesses take one shared-memory wavefront, not the two of a
+//   warp straddling two rows of the region, ran 3 % slower (its idle
+//   lanes), so bank conflicts do not bound it either; neither does the
+//   tile (tile_sweep: 16 x 32 in two blocks is the best). What is left:
+//   the latency of ten barrier-separated stages of one to three cells a
+//   thread, step B's device reads of the static planes step A's working
+//   planes overwrote, and the last of about six waves of wet tiles (1592
+//   on the coastline over 264 slots).
+// - With tracers: one block an SM (20 + 2 T planes of the window, plus the
+//   stress planes), so a 16 x 32 block left 16 warps to the SM and every
+//   barrier idled it, and step A computed 960 outputs for step B's 512.
+//   Their tile is their own (fused_tile.cuh's shape_of): 32 x 32 outputs,
+//   1024 threads (one block of 32 warps, 216 KB at T = 2; step A's ring 17
+//   % fewer cells a stage for each output), and 32 x 24 with 768 threads
+//   for the viscous ones, whose stress planes a 32 x 32 block cannot hold
+//   in 227 KB: 0.72-0.84 of the parent's time at T = 1, 2, 4 and viscous.
+//   The other route, step A's carried planes cut to the region step B
+//   reads (24 x 40 at T = 2), stays at one block an SM by its plane count
+//   (126 KB against the 113 KB two blocks allow) and was not built.
+// A tile, a thread map or a plane's extent changes where a value is
+// computed, not how: every chained form gives its parent's outputs and
+// block maxima bit for bit, and the one-step forms keep the walk's
+// row-major loop.
 //
 // Any number of tracers (NT = TLOOP, the TPU kernel's loop over
 // n_tracers): the tracer pass (stages 4 and 5) runs in groups of
@@ -165,9 +197,11 @@
 // groups read them. The 4 T tracer pointers are a device array the
 // launcher fills in stream order (any count, no bound in the kernel's
 // parameters). A chained launch keeps as many of step A's 2 T tracer
-// levels as fit in shared memory (every level up to T = 8, 7 viscous, at
-// the H100's 227 KB) and the others in a device scratch of window planes
-// of the block's own, which it writes in step A and reads back in step B:
+// levels as fit in shared memory (5 of them at the fast forms' 32 x 32
+// tile, 6 viscous at 32 x 24; every level up to T = 8, 7 viscous, at the
+// general forms' 16 x 32) and the others in a device scratch of window
+// planes of the block's own, which it writes in step A and reads back in
+// step B:
 // no other block touches them, so no grid-wide sync. What bounds it:
 // memory, as above, 16 bytes a cell for each tracer; the levels in
 // scratch add their write and read, mostly from L2.
@@ -305,15 +339,17 @@
 //     overwrites each cell after its thread has read it;
 //   planes of their own (after the working planes) as far as the blocks
 //     an SM the working planes leave allow: three one step (75 KB a
-//     block), two chained T = 0 (113 KB), one chained T >= 1 and chained
-//     viscous T = 0 (its 48-column window); in order rslu_u + rslu_v,
-//     sshp (one step), up + vp (one step), rslu_h, a one-step form's
-//     tracer levels: one step T = 0: rslu_u, rslu_v, sshp, up, vp;
-//     T >= 1: rslu_u, rslu_v, sshp; viscous T = 0: rslu_u, rslu_v;
-//     viscous T >= 1: none; chained T = 0: none; chained T = 1, 2 and
-//     viscous T = 0: rslu_u, rslu_v, rslu_h; chained TLOOP: none (its
-//     room is step A's tracer levels); the bathymetry planes none (with
-//     one, 16 forms left the threads' bits by an ulp);
+//     block), two chained T = 0 (113 KB), one chained viscous T = 0 (its
+//     48-column window) and chained T >= 1 (its own tile's window); in
+//     order rslu_u + rslu_v, sshp (one step), up + vp (one step), rslu_h,
+//     a one-step form's tracer levels: one step T = 0: rslu_u, rslu_v,
+//     sshp, up, vp; T >= 1: rslu_u, rslu_v, sshp; viscous T = 0: rslu_u,
+//     rslu_v; viscous T >= 1: none; chained T = 0: none; chained viscous
+//     T = 0 and chained T = 1 (viscous or not): rslu_u, rslu_v, rslu_h;
+//     chained T = 2: rslu_h (its 32 x 32 window leaves one plane),
+//     viscous rslu_u, rslu_v; chained TLOOP: none (its room is step A's
+//     tracer levels); the bathymetry planes none (with one, 16 forms left
+//     the threads' bits by an ulp);
 //   an input without a plane of its own lands in the working plane its
 //     first stage writes at the same cell, read there by that stage's
 //     thread before it writes: hrludxdy -> S_AQ (stage 0), rslu_u,
@@ -533,7 +569,7 @@ template <int NT, int MU, bool HRP, bool FFS, int STEPS, bool INIT,
           class MapsT>
 __device__ __forceinline__ void load_windows(const MapsT& m, float* sm,
                                              uint64_t* bars, int x0, int y0) {
-  using Fm = Form<NT, STEPS>;
+  using Fm = Form<NT, STEPS, true, MU == 2, true>;
   using Ld = Loads<NT, MU, HRP, FFS, STEPS>;
   using Pl = typename Ld::Pl;
   constexpr bool CHAIN = STEPS > 1;
@@ -702,6 +738,78 @@ __device__ __forceinline__ float* chain_level(const Params& p, float* e_tr,
       * PLANE;
 }
 
+// The metric rows a stage reads, as its cells see them: `get<M>(mi)` is
+// row M at index mi (the column of a profile row, the cell of a plane).
+// MetAt reads device memory at each call; MetHeld<Ms...> holds rows Ms of
+// a profile for one column, read once (0 off the array's columns, where
+// no cell reads them), and reads the others as MetAt does.
+struct MetAt {
+  const Params& p;
+  template <int M>
+  __device__ __forceinline__ float get(size_t mi) const { return p.met[M][mi]; }
+};
+
+template <int... Ms>
+struct MetHeld {
+  const Params& p;
+  float v[sizeof...(Ms) > 0 ? sizeof...(Ms) : 1];
+  template <int M>
+  __host__ __device__ static constexpr int slot() {
+    int k = 0, at = -1;
+    ((at = (Ms == M && at < 0) ? k : at, ++k), ...);
+    return at;
+  }
+  __device__ __forceinline__ MetHeld(const Params& q, int gy) : p(q) {
+    const bool in = gy >= 0 && gy < q.Ys;
+    int k = 0;
+    ((v[k++] = in ? q.met[Ms][gy] : 0.f), ...);
+  }
+  template <int M>
+  __device__ __forceinline__ float get(size_t mi) const {
+    if constexpr (slot<M>() >= 0) return v[slot<M>()];
+    else return p.met[M][mi];
+  }
+};
+
+template <int... Ms>
+struct Rows {};
+
+// The cells of a stage's region, h cells beyond the TX x TY tile of a
+// window of halo WH, each given to body(a, b, m, i) as its window row a
+// and column b, the metric rows m and its row-major index i in the region
+// (i = (a - (WH - h)) * w + b - (WH - h), w = TY + 2 h). One step a launch:
+// cell i = tid, tid + NTHREADS, ... (a = WH - h + i / w, b = WH - h + i %
+// w) and the rows read at each use (MetAt), the loop the one-step and
+// persistent forms have always run. The chained forms (COLS): each thread
+// keeps one column of the region, b = WH - h + tid % w, and walks its rows
+// tid / w, tid / w + R, ... (R = NTHREADS / w rows a pass; the last
+// NTHREADS % w threads idle): no division a cell, and with HOLD (profile
+// metrics, a fixed tracer count) the rows Ms are read once a column
+// (MetHeld), where the run-time tracer family keeps its registers for its
+// loop.
+template <bool COLS, bool HOLD, int TX, int TY, int WH, int NTHREADS, int h,
+          int... Ms, class Body>
+__device__ __forceinline__ void walk(const Params& p, int tid, int y0,
+                                     Rows<Ms...>, Body&& body) {
+  constexpr int w = TY + 2 * h, n = (TX + 2 * h) * w;
+  if constexpr (!COLS) {
+    const MetAt m{p};
+    for (int i = tid; i < n; i += NTHREADS)
+      body(WH - h + i / w, WH - h + i % w, m, i);
+  } else {
+    constexpr int R = NTHREADS / w;
+    static_assert(R >= 1, "a row of the region fits the block");
+    if (tid >= R * w) return;
+    const int c = tid % w, b = WH - h + c;
+    const auto cells = [&](const auto& m) {
+      for (int r = tid / w; r < TX + 2 * h; r += R)
+        body(WH - h + r, b, m, r * w + c);
+    };
+    if constexpr (HOLD) cells(MetHeld<Ms...>(p, y0 + b));
+    else cells(MetAt{p});
+  }
+}
+
 // One model step of a launch that chains STEPS of them. Step STEP
 // (0-based) computes its outputs on the region OH = HALO * (STEPS - 1 -
 // STEP) cells beyond the tile, and every stage's region is that many cells
@@ -729,18 +837,18 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
   // whether this body loads by TMA: under a Where with TMA, but for the
   // viscous forms on metric planes (fused_tile.cuh's Form)
   constexpr bool USE_TMA = Where::TMA && !(MET2D && MU == 2);
-  using Fm = Form<NT, STEPS, USE_TMA>;
+  constexpr bool VISC = MU == 2;            // stress stages
+  using Fm = Form<NT, STEPS, USE_TMA, VISC, true>;
   constexpr int HALO = Fm::HALO, EXTRA = Fm::EXTRA, WH = Fm::WH;
   constexpr int TX = Fm::TX, TY = Fm::TY;
-  constexpr int NTHREADS = Tile<STEPS>::NTHREADS;
+  constexpr int NTHREADS = Tile<STEPS, NT, VISC, true>::NTHREADS;
   constexpr int WY = Fm::WY, PLANE = Fm::PLANE;
-  constexpr bool VISC = MU == 2;            // stress stages
   constexpr bool DIFF = NT != 0 && MU != 0; // tracers' diffusive fluxes
   constexpr bool LOOP = NT < 0;             // a run-time tracer count
   constexpr bool FIRST = STEP == 0, LAST = STEP == STEPS - 1;
   constexpr int OH = HALO * (STEPS - 1 - STEP);   // this step's output halo
-  // this step's stress region: its halo, columns and cells
-  constexpr int VH = OH + Fm::VH, VW = TY + 2 * VH, VN = (TX + 2 * VH) * VW;
+  // this step's stress region: its halo and columns
+  constexpr int VH = OH + Fm::VH, VW = TY + 2 * VH;
   // the folds: no filter selects; the advection 1/4 in rslu_u / rslu_v;
   // step A's depths shared with step B (a full free surface chained: step
   // A leaves them in S_HU / S_HV, step B takes its previous-level depths
@@ -814,6 +922,19 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
   const float* ludxdy = p.planes + 3 * plane;
   const int W = 1;                          // one window row/col offset
   const int S = WY;                         // window row stride
+  // the chained forms walk each stage's region a column a thread, and on
+  // profile metrics with a fixed tracer count hold the rows each stage
+  // reads for the column (walk)
+  constexpr bool COLS = STEPS > 1, HOLD = COLS && !MET2D && !LOOP;
+  const auto wy0 = [&] { return COLS ? y0() : 0; };
+  using RowsS1 = std::conditional_t<VISC, Rows<M_RDYH, M_RDXH, M_RDXT, M_RDYT>,
+                                    Rows<>>;
+  using RowsS2 = std::conditional_t<
+      TRANS, Rows<M_VORT_V, M_VORT_UY, M_VORT_U, M_CORIO>, Rows<M_CORIO>>;
+  using RowsS3 = std::conditional_t<
+      VISC, Rows<M_RDXDY, M_RDXT, M_RDYT, M_RDYH, M_RDXH>,
+      Rows<M_RDXDY, M_RDXT, M_RDYT>>;
+  using RowsS4 = std::conditional_t<DIFF, Rows<M_RDXT, M_RDYT>, Rows<>>;
 
   // stage 0 (halo 3 + EXTRA): load the window; aq = (ssh + hr) * lu*dx*dy
   // or, on bathymetry planes, ssh * lu*dx*dy + hr*lu*dx*dy; with a linear
@@ -849,14 +970,13 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
     }
     __syncthreads();
   } else if (FFS) {
-    constexpr int h = OH + HALO, w = TY + 2 * h, n = (TX + 2 * h) * w;
-    for (int i = tid(); i < n; i += NTHREADS) {
-      const int a = WH - h + i / w, b = WH - h + i % w;
+    walk<COLS, HOLD, TX, TY, WH, NTHREADS, OH + HALO>(
+        p, tid(), wy0(), Rows<>{}, [&](int a, int b, const auto&, int) {
       const int k = a * S + b;
       const float ssh = s_ssh[k], ld = s_ld[k];
       s_aq[k] = HRP ? ssh * ld + at(p, p.hrld, x0() + a, y0() + b)
                     : (ssh + p.hr) * ld;
-    }
+    });
     __syncthreads();
   }
 
@@ -866,9 +986,8 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
   // previous-level velocities over their metrics
   {
     if constexpr (LD) tma::bar_wait(&bars[G_S1], where.phase());
-    constexpr int h = OH + 2 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
-    for (int i = tid(); i < n; i += NTHREADS) {
-      const int a = WH - h + i / w, b = WH - h + i % w;
+    walk<COLS, HOLD, TX, TY, WH, NTHREADS, OH + 2 + EXTRA>(
+        p, tid(), wy0(), RowsS1{}, [&](int a, int b, const auto& m, int) {
       const int k = a * S + b, gx = x0() + a, gy = y0() + b;
       // by TMA: in planes of their own, or where this stage writes hu, hv
       float ru = Pl::RUV ? x_ru[k] : LD ? s_hu[k] : 0.f;
@@ -884,10 +1003,10 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
                          : LD ? s_f[k] : f.up[g];
           const float vp = EIN || !FIRST ? e_vp[k] : Pl::UVP ? x_vp[k]
                          : LD ? s_k[k] : f.vp[g];
-          s_f[k] = up * p.met[M_RDYH][mi];
-          s_k[k] = vp * p.met[M_RDXH][mi];
-          s_rx[k] = up * p.met[M_RDXT][mi];
-          s_sy[k] = vp * p.met[M_RDYT][mi];
+          s_f[k] = up * m.template get<M_RDYH>(mi);
+          s_k[k] = vp * m.template get<M_RDXH>(mi);
+          s_rx[k] = up * m.template get<M_RDXT>(mi);
+          s_sy[k] = vp * m.template get<M_RDYT>(mi);
         }
       } else if (VISC) {
         s_f[k] = 0.f; s_k[k] = 0.f; s_rx[k] = 0.f; s_sy[k] = 0.f;
@@ -903,12 +1022,11 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
       s_hu[k] = hu; s_hv[k] = hv;
       s_ud[k] = s_u[k] * hu;
       s_vd[k] = s_v[k] * hv;
-    }
+    });
   }
   if (FFS && !SHARE_B) {
-    constexpr int h = OH + 1 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
-    for (int i = tid(); i < n; i += NTHREADS) {
-      const int a = WH - h + i / w, b = WH - h + i % w;
+    walk<COLS, HOLD, TX, TY, WH, NTHREADS, OH + 1 + EXTRA>(
+        p, tid(), wy0(), Rows<>{}, [&](int a, int b, const auto&, int) {
       const int k = a * S + b;
       // by TMA: E_SSHP chained, else a plane of its own or S_AQP, which
       // this cell's column overwrites
@@ -916,7 +1034,7 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
                        : LD ? s_aqp[k] : at(p, f.sshp, x0() + a, y0() + b);
       s_aqp[k] = HRP ? sshp * s_ld[k] + at(p, p.hrld, x0() + a, y0() + b)
                      : (sshp + p.hr) * s_ld[k];
-    }
+    });
   }
   __syncthreads();
 
@@ -924,14 +1042,16 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
   // shear at H points, and their four products with mu, the depth and the
   // squared metrics of the cell
   if constexpr (LD) tma::bar_wait(&bars[G_S2], where.phase());
-  if (VISC) {
-    constexpr int h = VH, n = VN;
+  if constexpr (VISC) {
     const float* s_q = s_f;
     const float* s_r = s_k;
     const float* s_s1 = s_rx;
     const float* s_s2 = s_sy;
-    for (int i = tid(); i < n; i += NTHREADS) {
-      const int a = WH - h + i / VW, b = WH - h + i % VW;
+    walk<COLS, HOLD, TX, TY, WH, NTHREADS, VH>(
+        p, tid(), wy0(),
+        Rows<M_DX, M_DY, M_DXB, M_DYB, M_DYDX, M_DXDY, M_RDYB, M_RDXB>{},
+        [&](int a, int b, const auto& m, int i) {
+      // i: this cell in the small stress planes, row-major over the region
       const int k = a * S + b, gx = x0() + a, gy = y0() + b;
       float a2 = 0.f, b2 = 0.f, d2 = 0.f, e2 = 0.f;
       if (inside(p, gx, gy)) {
@@ -940,12 +1060,14 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
         const bool wlu = s_ld[k] > 0.5f;
         const bool wluu = wlu && s_ld[k + S] > 0.5f
             && s_ld[k + W] > 0.5f && s_ld[k + S + W] > 0.5f;
-        const float dx = p.met[M_DX][mi], dy = p.met[M_DY][mi];
-        const float dxb = p.met[M_DXB][mi], dyb = p.met[M_DYB][mi];
+        const float dx = m.template get<M_DX>(mi);
+        const float dy = m.template get<M_DY>(mi);
+        const float dxb = m.template get<M_DXB>(mi);
+        const float dyb = m.template get<M_DYB>(mi);
         if (wlu) {
           const float str_t =
-              p.met[M_DYDX][mi] * (s_q[k] - s_q[k - S])
-              - p.met[M_DXDY][mi] * (s_r[k] - s_r[k - W]);
+              m.template get<M_DYDX>(mi) * (s_q[k] - s_q[k - S])
+              - m.template get<M_DXDY>(mi) * (s_r[k] - s_r[k - W]);
           const float hr = HRP ? p.hrp[g] : p.hr;
           const float hq = FFS ? hr + s_ssh[k] : hr;
           const float t2 = hq * str_t;
@@ -958,24 +1080,22 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
           const float rh = Pl::RH ? x_rh[k] : LD ? s_cx[k] : rslu_h[g];
           const float hh = (su + (s_aq[k + W] + s_aq[k + S + W])) * rh;
           const float str_s =
-              (dxb * p.met[M_RDYB][mi]) * (s_s1[k + W] - s_s1[k])
-              + (dyb * p.met[M_RDXB][mi]) * (s_s2[k + S] - s_s2[k]);
+              (dxb * m.template get<M_RDYB>(mi)) * (s_s1[k + W] - s_s1[k])
+              + (dyb * m.template get<M_RDXB>(mi)) * (s_s2[k + S] - s_s2[k]);
           const float hs2 = hh * str_s;
           d2 = (dxb * dxb * p.mu) * hs2;
           e2 = (dyb * dyb * p.mu) * hs2;
         }
       }
       s_a2[i] = a2; s_b2[i] = b2; s_d2[i] = d2; s_e2[i] = e2;
-    }
+    });
     __syncthreads();
   }
 
   // stage 2 (halo 1 + EXTRA): vorticity, edge fluxes, vorticity + Coriolis;
   // without advection the Coriolis products alone
-  {
-    constexpr int h = OH + 1 + EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
-    for (int i = tid(); i < n; i += NTHREADS) {
-      const int a = WH - h + i / w, b = WH - h + i % w;
+  walk<COLS, HOLD, TX, TY, WH, NTHREADS, OH + 1 + EXTRA>(
+      p, tid(), wy0(), RowsS2{}, [&](int a, int b, const auto& m, int) {
       const int k = a * S + b, gx = x0() + a, gy = y0() + b;
       // rslu_h by TMA: a plane of its own, or S_CX, written below
       float rh = Pl::RH ? x_rh[k] : LD ? s_cx[k] : 0.f;
@@ -985,11 +1105,11 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
         const size_t mi = MET2D ? g : (size_t)gy;
         if (!Pl::RH && !LD) rh = rslu_h[g];
         if (TRANS) {
-          m16 = p.met[M_VORT_V][mi];
-          m17 = p.met[M_VORT_UY][mi];
-          m18 = p.met[M_VORT_U][mi];
+          m16 = m.template get<M_VORT_V>(mi);
+          m17 = m.template get<M_VORT_UY>(mi);
+          m18 = m.template get<M_VORT_U>(mi);
         }
-        m21 = p.met[M_CORIO][mi];
+        m21 = m.template get<M_CORIO>(mi);
       }
       const float su = s_aq[k] + s_aq[k + S];
       const float hh = (su + (s_aq[k + W] + s_aq[k + S + W])) * rh;
@@ -1002,7 +1122,7 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
         const float vc = m21 * hh;
         s_rx[k] = vc * (vx + v);     // Px
         s_sy[k] = -(vc * (uy + u));  // -Ty
-        continue;
+        return;
       }
       // vorticity/4 (rows 16-18 carry the 1/4)
       const float vort = wluu ? (vx - v) * m16 - uy * m17 + u * m18 : 0.f;
@@ -1024,8 +1144,7 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
       s_sy[k] = L - Ty;
       s_cx[k] = (Px - F) - G;
       s_cy[k] = (-Ty - L) - K;
-    }
-  }
+  });
   __syncthreads();
 
   // stage 3: continuity, momentum, leapfrog + filter, the 6 SW outputs
@@ -1037,9 +1156,8 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
   {
     if constexpr (LD && Ld::UV3)
       tma::bar_wait(&bars[G_S3], where.phase());
-    constexpr int h = OH + 2 * EXTRA, w = TY + 2 * h, n = (TX + 2 * h) * w;
-    for (int i = tid(); i < n; i += NTHREADS) {
-      const int a = WH - h + i / w, b = WH - h + i % w;
+    walk<COLS, HOLD, TX, TY, WH, NTHREADS, OH + 2 * EXTRA>(
+        p, tid(), wy0(), RowsS3{}, [&](int a, int b, const auto& m, int) {
       const int k = a * S + b, gx = x0() + a, gy = y0() + b;
       // distance beyond this step's output region: 0 inside it
       const int ring = !NT ? 0
@@ -1050,7 +1168,7 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
         if (!LAST && ring == 0) {
           e_ssh[k] = 0.f; e_sshp[k] = 0.f; e_up[k] = 0.f; e_vp[k] = 0.f;
         }
-        continue;
+        return;
       }
       const size_t g = (size_t)gx * p.Ys + gy;
       const size_t mi = MET2D ? g : (size_t)gy;
@@ -1063,12 +1181,12 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
 
       // continuity: sshn = sshp - 2 tau div(flux) / (dx dy)
       const float div = ((s_ud[k] - s_ud[k - S]) + s_vd[k]) - s_vd[k - W];
-      const float sshn = sshp + div * (p.neg_two_tau * p.met[M_RDXDY][mi]);
+      const float sshn = sshp + div * (p.neg_two_tau * m.template get<M_RDXDY>(mi));
       // post-step depth column; sshn, not ssh_new: ld kills land (with a
       // linear free surface it is stage 0's column, already in place)
       if (NT && FFS) s_aq[k] = HRP ? sshn * s_ld[k] + p.hrld[g]
                                    : (sshn + p.hr) * s_ld[k];
-      if (ring > 1) continue;
+      if (ring > 1) return;
 
       // momentum: (up*bp0 + grx)/bp with the bp metric factor cancelled
       const float u = s_u[k], up = EIN || !FIRST ? e_up[k]
@@ -1085,12 +1203,12 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
         float slx = (s_ssh[k + S] - ssh) * hu * p.neg_g;
         // stress divergence: d(a2)/dx / dyh + d(D2)/dy / dxt
         if (VISC)
-          slx += (s_a2[j + VW] - s_a2[j]) * p.met[M_RDYH][mi]
-              + (s_d2[j] - s_d2[j - 1]) * p.met[M_RDXT][mi];
+          slx += (s_a2[j + VW] - s_a2[j]) * m.template get<M_RDYH>(mi)
+              + (s_d2[j] - s_d2[j - 1]) * m.template get<M_RDXT>(mi);
         const float acx = TRANS ? (s_cx[k] + s_rx[k - W]) + s_f[k - S]
                                 : s_rx[k] + s_rx[k - W];
         const float grx = slx + acx;
-        un = (up * hup + grx * (p.two_tau * p.met[M_RDXT][mi])) / hu;
+        un = (up * hup + grx * (p.two_tau * m.template get<M_RDXT>(mi))) / hu;
         if (SHARE_A) s_hu[k] = p.ts1 * hu + p.ts2 * hup;   // for step B
       }
       if (wlcv) {
@@ -1099,17 +1217,17 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
             : (s_aqp[k] + s_aqp[k + W]) * (Pl::RUV ? x_rv[k] : rslu_v[g]);
         float sly = (s_ssh[k + W] - ssh) * hv * p.neg_g;
         if (VISC)
-          sly += -(s_b2[j + 1] - s_b2[j]) * p.met[M_RDXH][mi]
-              + (s_e2[j] - s_e2[j - VW]) * p.met[M_RDYT][mi];
+          sly += -(s_b2[j + 1] - s_b2[j]) * m.template get<M_RDXH>(mi)
+              + (s_e2[j] - s_e2[j - VW]) * m.template get<M_RDYT>(mi);
         const float acy = TRANS ? (s_cy[k] + s_sy[k - S]) + s_k[k - W]
                                 : s_sy[k] + s_sy[k - S];
         const float gry = sly + acy;
-        vn = (vp * hvp + gry * (p.two_tau * p.met[M_RDYT][mi])) / hv;
+        vn = (vp * hvp + gry * (p.two_tau * m.template get<M_RDYT>(mi))) / hv;
         if (SHARE_A) s_hv[k] = p.ts1 * hv + p.ts2 * hvp;
       }
       if (NT) { s_cx[k] = un; s_cy[k] = vn; }   // 0 off the u / v wet sets
-      if (ring > 0) continue;
-      if (LAST && RAW && !in_box(p, gx, gy)) continue;   // not our margin
+      if (ring > 0) return;
+      if (LAST && RAW && !in_box(p, gx, gy)) return;   // not our margin
 
       // leapfrog rotation + Robert-Asselin filter
       const float ssh_new = wlu ? sshn : ssh;
@@ -1139,7 +1257,7 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
           && gx >= p.margin && gx < p.margin + p.nx
           && gy >= p.margin && gy < p.margin + p.ny)
         mx = nan_max(mx, fabsf(ssh_new));
-    }
+    });
   }
 
   if (NT) {
@@ -1172,10 +1290,8 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
       // transports uh = u_new * hun, vh = v_new * hvn on the u / v wet
       // sets, and each tracer's centred advective edge fluxes, plus the
       // diffusive ones mu / dxt * hun * dff/dx when mu != 0
-      {
-        constexpr int h = OH + 1, w = TY + 2 * h, n = (TX + 2 * h) * w;
-        for (int i = tid(); i < n; i += NTHREADS) {
-          const int a = WH - h + i / w, b = WH - h + i % w;
+      walk<COLS, HOLD, TX, TY, WH, NTHREADS, OH + 1>(
+          p, tid(), wy0(), RowsS4{}, [&](int a, int b, const auto& m, int) {
           const int k = a * S + b, gx = x0() + a, gy = y0() + b;
           float uh, vh, kx = 0.f, ky = 0.f;  // kx, ky: mu / dxt * hun, ...
           if (!LOOP || t0 == 0) {
@@ -1193,8 +1309,8 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
               const size_t mi = MET2D ? (size_t)gx * p.Ys + gy : (size_t)gy;
               // with q4 hun, hvn arrive quartered: 4 mu
               const float mu = Q4 ? 4.f * p.mu : p.mu;
-              kx = (mu * p.met[M_RDXT][mi]) * (wlcu ? hun : 0.f);
-              ky = (mu * p.met[M_RDYT][mi]) * (wlcv ? hvn : 0.f);
+              kx = (mu * m.template get<M_RDXT>(mi)) * (wlcu ? hun : 0.f);
+              ky = (mu * m.template get<M_RDYT>(mi)) * (wlcv ? hvn : 0.f);
             }
             if (LOOP) {
               s_uh[k] = uh; s_vh[k] = vh;
@@ -1226,15 +1342,14 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
             sw[(S_F + 2 * t) * PLANE + k] = fx;
             sw[(S_F + 2 * t + 1) * PLANE + k] = fy;
           }
-        }
-      }
+      });
       __syncthreads();
 
       // stage 5 (halo 0): leapfrog update from the flux divergence,
       // rotation + Robert-Asselin filter, the group's 2 ng tracer outputs
-      constexpr int h = OH, w = TY + 2 * h, n = (TX + 2 * h) * w;
-      for (int i = tid(); i < n; i += NTHREADS) {
-        const int a = WH - h + i / w, b = WH - h + i % w;
+      walk<COLS, HOLD, TX, TY, WH, NTHREADS, OH>(
+          p, tid(), wy0(), Rows<M_DX, M_DY>{},
+          [&](int a, int b, const auto& m, int) {
         const int k = a * S + b, gx = x0() + a, gy = y0() + b;
         if (!inside(p, gx, gy)) {
           if (!LAST) {
@@ -1244,16 +1359,16 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
               chain_level<NT, PLANE>(p, e_tr, 2 * t0 + t, where)[k] = 0.f;
             }
           }
-          continue;
+          return;
         }
-        if (LAST && RAW && !in_box(p, gx, gy)) continue;
+        if (LAST && RAW && !in_box(p, gx, gy)) return;
         const size_t g = (size_t)gx * p.Ys + gy;
         const bool wlu = s_ld[k] > 0.5f;
         // bp = hhq_n*area, bp0 = hhq_p*area with hhq_n = hr,
         // hhq_p = hr + sshp_new (hr with a linear free surface),
         // area = dx*dy / (2 tau)
         const size_t mi = MET2D ? g : (size_t)gy;
-        const float area = (p.met[M_DX][mi] * p.met[M_DY][mi])
+        const float area = (m.template get<M_DX>(mi) * m.template get<M_DY>(mi))
             * p.inv_two_tau;
         const float hr = HRP ? p.hrp[g] : p.hr;
         const float bp = hr * area;
@@ -1287,7 +1402,7 @@ __device__ __forceinline__ void sw_step(const Params& p, const FieldsT& f,
             e1[k] = ffp_new;
           }
         }
-      }
+      });
     }
   }
 }
@@ -1907,8 +2022,9 @@ __device__ __forceinline__ void step_launch(const Params& p,
                                             const Maps* maps) {
   static_assert(STEPS == 1 || STEPS == 2, "one or two steps a launch");
   static_assert(!GEN || FOLD == 0, "the folds are the fast form's");
-  constexpr int TX = Tile<STEPS>::TX, TY = Tile<STEPS>::TY;
-  constexpr int NTHREADS = Tile<STEPS>::NTHREADS, NWARPS = NTHREADS / 32;
+  using T = Tile<STEPS, NT, MU == 2, !GEN>;
+  constexpr int TX = T::TX, TY = T::TY;
+  constexpr int NTHREADS = T::NTHREADS, NWARPS = NTHREADS / 32;
 
   const int tid = threadIdx.x;
 
@@ -1998,7 +2114,8 @@ constexpr bool TAKES_MAPS = !GEN || GenPlan<NT, STEPS, MU == 2>::ON;
 template <int NT, bool GUARD, bool MET2D, int MU, bool HRP, bool RAW,
           bool TRANS, bool FFS, int STEPS, bool GEN>
 __global__ void
-__launch_bounds__(Tile<STEPS>::NTHREADS, Tile<STEPS>::MIN_BLOCKS)
+__launch_bounds__(Tile<STEPS, NT, MU == 2, !GEN>::NTHREADS,
+                  Tile<STEPS, NT, MU == 2, !GEN>::MIN_BLOCKS)
 fused_sw_step_kernel(
     const __grid_constant__
     std::conditional_t<TAKES_MAPS<NT, MU, STEPS, GEN>, Maps, NoMaps> maps,
@@ -2016,7 +2133,8 @@ fused_sw_step_kernel(
 template <int NT, bool GUARD, bool MET2D, int MU, bool HRP, bool RAW,
           bool TRANS, bool FFS, int STEPS, int FOLD>
 __global__ void
-__launch_bounds__(Tile<STEPS>::NTHREADS, Tile<STEPS>::MIN_BLOCKS)
+__launch_bounds__(Tile<STEPS, NT, MU == 2, true>::NTHREADS,
+                  Tile<STEPS, NT, MU == 2, true>::MIN_BLOCKS)
 fused_sw_fold_kernel(const __grid_constant__ Maps maps, const Params p) {
   step_launch<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, false,
               FOLD>(p, &maps);
@@ -2049,7 +2167,16 @@ constexpr bool ALL_FORMS = GEN_BUILD || PERSIST_BUILD;
 constexpr int STEPS_BUILD = FUSED_STEPS;
 // the folds of this library's forms (a fast library's; 0: none)
 constexpr int FOLD_BUILD = FUSED_FOLD;
+// the tile of this library's general and persistent forms; a fast form's
+// is its own (lib_tile)
 using TILE = Tile<STEPS_BUILD>;
+#if defined(FUSED_NT) && FUSED_NT > MAX_TRACERS
+constexpr int NT_BUILD = TLOOP;
+#elif defined(FUSED_NT)
+constexpr int NT_BUILD = FUSED_NT;
+#else
+constexpr int NT_BUILD = 0;
+#endif
 static_assert(!PERSIST_BUILD || (!RAW_BUILD && STEPS_BUILD == 1),
               "the persistent forms are of the single block, one step each");
 static_assert(FOLD_BUILD == 0 || !(GEN_BUILD || PERSIST_BUILD),
@@ -2096,7 +2223,7 @@ int encode_gen_maps(Maps& m, const Params& p) {
 // error of one TMA refuses.
 template <int NT, int MU, bool HRP, bool FFS, int STEPS>
 int encode_maps(Maps& m, const Params& p) {
-  using Fm = Form<NT, STEPS>;
+  using Fm = Form<NT, STEPS, true, MU == 2, true>;
   const size_t plane = (size_t)p.Xs * p.Ys;
   const float* src[N_TMAP] = {
       p.ssh, p.sshp, p.u, p.up, p.v, p.vp, p.planes, p.planes + plane,
@@ -2117,8 +2244,9 @@ int launch(const Params& p, cudaStream_t stream) {
   // in shared memory on top
   constexpr bool USE_TMA = !(MET2D && MU == 2);
   using Pl = Plan<NT, STEPS_BUILD, MU == 2, HRP, FFS_BUILD, USE_TMA>;
+  using T = Tile<STEPS_BUILD, NT, MU == 2, true>;
   const size_t smem = Pl::SMEM
-      + sizeof(float) * Form<NT, STEPS_BUILD, USE_TMA>::PLANE
+      + sizeof(float) * Form<NT, STEPS_BUILD, USE_TMA, MU == 2, true>::PLANE
         * (NT < 0 ? p.n_lev_sm : 0);
   Maps maps;
   if (USE_TMA) {
@@ -2131,9 +2259,8 @@ int launch(const Params& p, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kernel
-      <<<dim3((p.Ys + TILE::TY - 1) / TILE::TY,
-              (p.Xs + TILE::TX - 1) / TILE::TX),
-         TILE::NTHREADS, smem, stream>>>(maps, p);
+      <<<dim3((p.Ys + T::TY - 1) / T::TY, (p.Xs + T::TX - 1) / T::TX),
+         T::NTHREADS, smem, stream>>>(maps, p);
   return (int)cudaGetLastError();
 }
 
@@ -2684,7 +2811,7 @@ int geometry_of(long long* out) {
         GP::BLOCKS, (long long)GP::SMEM, GP::BOXES, GP::ON, GP::CARVE};
     for (int i = 0; i < N_GEOMETRY; ++i) out[i] = g[i];
   } else {
-    using Fm = Form<NT, STEPS_BUILD>;
+    using Fm = Form<NT, STEPS_BUILD, true, VISC, true>;
     using Pl = Plan<NT, STEPS_BUILD, VISC, HRP, FFS>;
     const size_t stat = PERSIST_BUILD ? GEN_STATIC : STATIC_SMEM;
     const long long g[N_GEOMETRY] = {
@@ -2708,6 +2835,15 @@ int geometry_nt(bool visc, bool hrp, bool ffs, long long* out) {
                     : geometry_of<NT, false, true, false>(out))
              : (ffs ? geometry_of<NT, false, false, true>(out)
                     : geometry_of<NT, false, false, false>(out));
+}
+
+// The tile of this library's forms, viscous or not: a chained fast form
+// with tracers has a tile of its own, and a viscous one another
+// (fused_tile.cuh's shape_of); the general and persistent forms TILE.
+Shape lib_tile(int visc) {
+  if (GEN_BUILD || PERSIST_BUILD) return TILE::S;
+  return visc ? Tile<STEPS_BUILD, NT_BUILD, true, true>::S
+              : Tile<STEPS_BUILD, NT_BUILD, false, true>::S;
 }
 
 }  // namespace
@@ -2736,18 +2872,19 @@ int fused_sw_step_geometry(int n_tracers, int visc, int hrp, int ffs,
   }
 }
 
-// The output tile (rows, columns) of a block: the host sizes blockmax and
+// The output tile (rows, columns) of a block of this library's forms,
+// viscous (visc != 0) or not (lib_tile): the host sizes blockmax and
 // builds the guard's per-block wet flags with these, both row-major over
 // (x tiles, y tiles).
-int fused_sw_step_tile_x() { return TILE::TX; }
+int fused_sw_step_tile_x(int visc) { return lib_tile(visc).tx; }
 
-int fused_sw_step_tile_y() { return TILE::TY; }
+int fused_sw_step_tile_y(int visc) { return lib_tile(visc).ty; }
 
 // The threads of a block and the blocks an SM keeps registers for
 // (__launch_bounds__): 65536 / (threads * blocks) registers a thread.
-int fused_sw_step_threads() { return TILE::NTHREADS; }
+int fused_sw_step_threads(int visc) { return lib_tile(visc).threads; }
 
-int fused_sw_step_min_blocks() { return TILE::MIN_BLOCKS; }
+int fused_sw_step_min_blocks(int visc) { return lib_tile(visc).blocks; }
 
 // How many metric rows fused_sw_step_launch takes slots for.
 int fused_sw_step_n_met() { return GEN_BUILD ? N_GEN_MET : N_MET; }
@@ -2799,8 +2936,8 @@ const char* fused_sw_step_error_string(int code) {
 // a chained block keeps there (all of them but in a chained TLOOP form
 // past the fit; 0 for one step a launch).
 long long fused_sw_step_smem_bytes(int n_tracers, int visc, int* levels) {
-  return (long long)form_smem_bytes<STEPS_BUILD>(n_tracers, visc != 0,
-                                                 levels);
+  return (long long)form_smem_bytes<STEPS_BUILD, true, !GEN_BUILD>(
+      n_tracers, visc != 0, levels);
 }
 
 // The floats of device scratch a launch needs (fused_sw_step_launch's
@@ -2811,9 +2948,13 @@ long long fused_sw_step_scratch_floats(int n_tracers, int visc, int Xs,
   int levels = 0;
   fused_sw_step_smem_bytes(n_tracers, visc, &levels);
   if (STEPS_BUILD == 1 || n_tracers <= MAX_TRACERS) return 0;
-  const long long blocks = (long long)((Xs + TILE::TX - 1) / TILE::TX)
-      * ((Ys + TILE::TY - 1) / TILE::TY);
-  return blocks * (2 * n_tracers - levels) * Form<TLOOP, STEPS_BUILD>::PLANE;
+  const Shape t = lib_tile(visc);
+  const long long blocks = (long long)((Xs + t.tx - 1) / t.tx)
+      * ((Ys + t.ty - 1) / t.ty);
+  const long long plane = visc
+      ? Form<TLOOP, STEPS_BUILD, true, true, !GEN_BUILD>::PLANE
+      : Form<TLOOP, STEPS_BUILD, true, false, !GEN_BUILD>::PLANE;
+  return blocks * (2 * n_tracers - levels) * plane;
 }
 
 #ifndef FUSED_PERSIST

@@ -7,20 +7,8 @@
 
 #include <cuda_runtime.h>
 
-// The chained form's tile (two model steps a launch), defaults below; a
-// build may set them (-DFUSED_CHAIN_TX=... etc.) to sweep tiles.
-#ifndef FUSED_CHAIN_TX
-#define FUSED_CHAIN_TX 16
-#endif
-#ifndef FUSED_CHAIN_TY
-#define FUSED_CHAIN_TY 32
-#endif
-#ifndef FUSED_CHAIN_THREADS
-#define FUSED_CHAIN_THREADS 512
-#endif
-#ifndef FUSED_CHAIN_MIN_BLOCKS
-#define FUSED_CHAIN_MIN_BLOCKS 2
-#endif
+// A build may set one tile for every chained fast form (-DFUSED_CHAIN_TX=
+// ... -DFUSED_CHAIN_TY, _THREADS, _MIN_BLOCKS): the tile sweep's libraries.
 
 namespace fused_tile {
 
@@ -41,28 +29,55 @@ constexpr int NTHREADS = 512;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int MIN_BLOCKS = 3;          // blocks per SM to keep registers for
 
-// Tile of the chained forms (two model steps a launch, window halo 6, or
-// 8 with tracers): 16 x 32 outputs, 512 threads, launch bound two blocks
-// per SM (64 registers; ptxas takes 40-60). The shared memory of a block
-// (20 + 2 T planes of the window, plus the four stress planes of a
-// viscous form) decides how many blocks an SM holds: 96 KB at T = 0 (two
-// blocks), 144 KB at T = 2 (one). Swept with
-// scripts/chain_tile_sweep_torch.py on an H100 SXM (700 W) at the 1533 x
-// 1152 layout, device us per launch of two steps (one step a launch in
-// the same run: 48.9 on the guarded Azov coastline, 78.7 with 2 tracers,
-// 76.7 on the unguarded frame). Coastline T = 0: 16x32/512 91.9;
-// 32x16/512 93.7; 16x16/256 112.4; 32x32/512 116.4; 8x32/256 122.2.
-// Coastline T = 2: 32x32/512 193.7; 32x16/512 248.9; 16x32/512 249.9;
-// 16x16/256 254.4; 8x32/256 273.9. Frame T = 0: 16x32/512 161.8;
-// 32x16/512 170.2; 32x32/512 206.7; 16x16/256 212.0; 8x32/256 222.0.
-// Launch bound 1 instead of 2 moves nothing (52 registers instead of 55,
-// within 0.7 %). One tile for every chained form: 16 x 32 is the best at
-// T = 0; at T = 2 32 x 32 would be 22 % faster, and both lose to one step
-// a launch there.
-constexpr int CHAIN_TX = FUSED_CHAIN_TX;
-constexpr int CHAIN_TY = FUSED_CHAIN_TY;
-constexpr int CHAIN_THREADS = FUSED_CHAIN_THREADS;
-constexpr int CHAIN_MIN_BLOCKS = FUSED_CHAIN_MIN_BLOCKS;
+// The chained forms' tiles (two model steps a launch, window halo 6, or 8
+// with tracers). A chained block holds 20 + 2 T planes of its window (plus
+// the four stress planes of a viscous form), so its shared memory decides
+// how many blocks an SM holds. Swept with scripts/chain_tile_sweep_torch.py
+// --folds 7 on the loader and this body (an H100 SXM at 700 W, the 1533 x
+// 1152 layout, device us a launch of two steps; PERF.md section 6):
+// - CHAIN_SHAPE, 16 x 32 outputs, 512 threads, launch bound two blocks an
+//   SM (64 registers): the fast forms without tracers (108 KB, two blocks)
+//   and every general form. The guarded coastline: 16x32/512 77.25,
+//   32x32/512 80.29, 32x32/1024 82.56, 32x24/768 87.26, 24x32/768 87.76;
+//   the frame 137.20, 143.22, 146.38, 161.68, 157.88. Two blocks an SM
+//   hide each other's barriers; a larger tile's cheaper ring does not pay
+//   for them.
+// - CHAIN_TR_SHAPE, 32 x 32 outputs, 1024 threads, one block an SM (64
+//   registers): the fast forms with tracers. Their planes leave one block
+//   an SM whatever the tile (216 KB at T = 2), so the larger tile costs no
+//   blocks; it computes step A's ring for 1024 outputs, not 512 (17 %
+//   fewer cells a stage for each output at T = 2), and its 32 warps fill
+//   the SM the 16 of a 16 x 32 block left idle at every barrier. T = 2:
+//   32x32/1024 131.48, 32x32/512 132.92, 24x32/768 135.94, 32x24/768
+//   137.10, 16x32/512 157.43; T = 4: 232.96, 282.68, 254.98, 247.29,
+//   325.71.
+// - CHAIN_TRV_SHAPE, 32 x 24 outputs, 768 threads, one block an SM (85
+//   registers): the viscous fast forms with tracers, whose stress planes a
+//   32 x 32 block cannot hold in 227 KB. T = 2 over bathymetry planes at
+//   mu = 1000: 32x24/768 200.66, 24x32/768 206.42, 16x32/512 235.50.
+struct Shape {
+  int tx, ty;       // output rows (x) and columns (y) of a block
+  int threads;
+  int blocks;       // blocks an SM the launch bound keeps registers for
+};
+constexpr Shape ONE_SHAPE{TX, TY, NTHREADS, MIN_BLOCKS};
+constexpr Shape CHAIN_SHAPE{16, 32, 512, 2};
+constexpr Shape CHAIN_TR_SHAPE{32, 32, 1024, 1};
+constexpr Shape CHAIN_TRV_SHAPE{32, 24, 768, 1};
+
+// The tile of a form that runs STEPS model steps a launch with NT
+// tracers, viscous or not, of the fast body (FAST) or the general one.
+template <int STEPS, int NT, bool VISC, bool FAST>
+constexpr Shape shape_of() {
+#ifdef FUSED_CHAIN_TX
+  if (STEPS > 1 && FAST)
+    return Shape{FUSED_CHAIN_TX, FUSED_CHAIN_TY, FUSED_CHAIN_THREADS,
+                 FUSED_CHAIN_MIN_BLOCKS};
+#endif
+  return STEPS == 1 ? ONE_SHAPE
+      : !FAST || NT == 0 ? CHAIN_SHAPE
+      : VISC ? CHAIN_TRV_SHAPE : CHAIN_TR_SHAPE;
+}
 
 // Tracers: NT = 0, 1, 2 are instantiations of their own; TLOOP stands
 // for a count known at run time, from MAX_TRACERS + 1 up, whose tracer
@@ -73,28 +88,27 @@ constexpr int N_SMEM_PLANES = 16;      // shared-memory windows of a block
 constexpr int N_CHAIN_PLANES = 4;      // step A's ssh, sshp, up, vp (chain)
 constexpr int N_VISC_PLANES = 4;       // stress products of the viscous forms
 
-// The launch shape of the forms that run STEPS model steps a launch.
-template <int STEPS>
+// The launch shape of a form (shape_of): the general forms' and the
+// copy step's by default.
+template <int STEPS, int NT = 0, bool VISC = false, bool FAST = false>
 struct Tile {
-  static constexpr int TX = STEPS == 1 ? fused_tile::TX : CHAIN_TX;
-  static constexpr int TY = STEPS == 1 ? fused_tile::TY : CHAIN_TY;
-  static constexpr int NTHREADS =
-      STEPS == 1 ? fused_tile::NTHREADS : CHAIN_THREADS;
-  static constexpr int MIN_BLOCKS =
-      STEPS == 1 ? fused_tile::MIN_BLOCKS : CHAIN_MIN_BLOCKS;
+  static constexpr Shape S = shape_of<STEPS, NT, VISC, FAST>();
+  static constexpr int TX = S.tx, TY = S.ty;
+  static constexpr int NTHREADS = S.threads, MIN_BLOCKS = S.blocks;
 };
 
 // The window of the form with NT tracers and STEPS chained steps, whose
 // body loads it by TMA (the loader: fused_step.cu's head) or by its
 // threads (the viscous fast forms on metric planes, the general forms
 // GenPlan leaves there, the copy step's threads).
-template <int NT, int STEPS = 1, bool TMA = true>
+template <int NT, int STEPS = 1, bool TMA = true, bool VISC = false,
+          bool FAST = false>
 struct Form {
   static constexpr int EXTRA = NT ? 1 : 0;        // reach of the tracer pass
   static constexpr int HALO = 3 + EXTRA;          // stencil reach of one step
   static constexpr int WH = STEPS * HALO;         // window halo
-  static constexpr int TX = Tile<STEPS>::TX;
-  static constexpr int TY = Tile<STEPS>::TY;
+  static constexpr int TX = Tile<STEPS, NT, VISC, FAST>::TX;
+  static constexpr int TY = Tile<STEPS, NT, VISC, FAST>::TY;
   static constexpr int WX = TX + 2 * WH;          // window rows
   // A TMA box (tma.cuh) begins on a column that is a multiple of 4 (16
   // bytes) and its rows are multiples of 16 bytes: the loader's box
@@ -135,11 +149,12 @@ struct Form {
 // (61.4 KB with tracers, at any count), and 67.1 KB (73.0 KB) for a
 // viscous form. A chained TLOOP form adds the levels chain_levels_in_smem
 // keeps; the fast form adds the planes of its Plan.
-template <int NT, int STEPS = 1, bool TMA = true>
-constexpr size_t smem_bytes(bool visc = false) {
-  using Fm = Form<NT, STEPS, TMA>;
+template <int NT, int STEPS = 1, bool TMA = true, bool VISC = false,
+          bool FAST = false>
+constexpr size_t smem_bytes() {
+  using Fm = Form<NT, STEPS, TMA, VISC, FAST>;
   return sizeof(float) * (Fm::N_PLANES * Fm::PLANE
-                          + (visc ? N_VISC_PLANES * Fm::VPLANE : 0));
+                          + (VISC ? N_VISC_PLANES * Fm::VPLANE : 0));
 }
 
 // What a block may take so that `blocks` of them share an SM of the H100
@@ -170,15 +185,15 @@ constexpr size_t smem_budget(int blocks) {
 // ON = false (a body that loads by threads): no TMA, no planes.
 template <int NT, int STEPS, bool VISC, bool HRP, bool FFS, bool ON = true>
 struct Plan {
-  using Fm = Form<NT, STEPS, ON>;
+  using Fm = Form<NT, STEPS, ON, VISC, true>;
+  using T = Tile<STEPS, NT, VISC, true>;
   static constexpr bool CHAIN = STEPS > 1;
-  static constexpr size_t BASE = smem_bytes<NT, STEPS, ON>(VISC);
+  static constexpr size_t BASE = smem_bytes<NT, STEPS, ON, VISC, true>();
   static constexpr size_t PBYTES = sizeof(float) * Fm::PLANE;
   static constexpr int FITS = (int)(SM_SMEM
       / (BASE + BLOCK_RESERVED + STATIC_SMEM));
   static constexpr int BLOCKS =
-      FITS < Tile<STEPS>::MIN_BLOCKS ? (FITS < 1 ? 1 : FITS)
-                                     : Tile<STEPS>::MIN_BLOCKS;
+      FITS < T::MIN_BLOCKS ? (FITS < 1 ? 1 : FITS) : T::MIN_BLOCKS;
   static constexpr int ROOM = !ON || (NT < 0 && CHAIN)
       || smem_budget(BLOCKS) < BASE
       ? 0 : (int)((smem_budget(BLOCKS) - BASE) / PBYTES);
@@ -259,7 +274,7 @@ struct GenPlan {
   static constexpr size_t VBYTES =
       VISC ? sizeof(float) * N_VISC_PLANES * Fm::VPLANE : 0;
   // the threads' twin: its blocks an SM and their carveout
-  static constexpr size_t TH_BASE = smem_bytes<NT, STEPS, false>(VISC);
+  static constexpr size_t TH_BASE = smem_bytes<NT, STEPS, false, VISC>();
   static constexpr size_t TH_BLOCK = TH_BASE + GEN_STATIC + BLOCK_RESERVED;
   static constexpr int TH_FITS = (int)(SM_SMEM / TH_BLOCK);
   static constexpr int BLOCKS = LOOP_CHAIN ? 1
@@ -303,37 +318,49 @@ inline size_t smem_limit() {
 // How many of step A's 2 n_tr tracer levels a chained TLOOP block keeps
 // in shared memory (whole planes of its window, after the N_BASE planes
 // and a viscous form's stress planes); the levels beyond them go to a
-// device-memory scratch of the block's own. A window plane is 6 KB at the
-// chained tile, the N_BASE planes 120 KB and the stress planes 19.25 KB,
-// so every level fits up to 8 tracers, 7 viscous, at 227 KB.
-inline int chain_levels_in_smem(int n_tr, bool visc, size_t limit) {
-  static_assert(Form<TLOOP, 2>::PLANE == Form<TLOOP, 2, false>::PLANE,
+// device-memory scratch of the block's own. The general forms' window
+// (16 x 32 tile) is 6 KB a plane, the N_BASE planes 120 KB and the stress
+// planes 19.25 KB: every level fits up to 8 tracers, 7 viscous, at 227
+// KB. The fast forms' (FAST): 9 KB a plane at 32 x 32, N_BASE 180 KB, so
+// 5 levels (T = 4 keeps 5 of 8); viscous 7.5 KB at 32 x 24, N_BASE 150
+// KB and stress 24.75 KB, so 6 levels (T = 3 keeps all).
+template <bool VISC, bool FAST>
+inline int chain_levels_in_smem(int n_tr, size_t limit) {
+  using Fm = Form<TLOOP, 2, true, VISC, FAST>;
+  static_assert(Fm::PLANE == Form<TLOOP, 2, false, VISC, FAST>::PLANE,
                 "the run-time tracer family's window is the loaders' both");
-  const size_t fixed = smem_bytes<TLOOP, 2>(visc);
-  const size_t plane = sizeof(float) * Form<TLOOP, 2>::PLANE;
+  const size_t fixed = smem_bytes<TLOOP, 2, true, VISC, FAST>();
+  const size_t plane = sizeof(float) * Fm::PLANE;
   const size_t fit = limit > fixed ? (limit - fixed) / plane : 0;
   return (int)(fit < (size_t)(2 * n_tr) ? fit : (size_t)(2 * n_tr));
 }
 
 // The dynamic shared memory of a block's working planes of the fused
 // step's form with n_tr tracers (viscous or not) that runs STEPS model
-// steps a launch and loads by TMA or by threads, on the current device;
-// *levels: how many of step A's 2 n_tr tracer levels a chained block keeps
-// there (0 for one step a launch).
-template <int STEPS, bool TMA = true>
-inline size_t form_smem_bytes(int n_tr, bool visc, int* levels) {
+// steps a launch, of the fast body (FAST) or the general one, and loads
+// by TMA or by threads, on the current device; *levels: how many of step
+// A's 2 n_tr tracer levels a chained block keeps there (0 for one step a
+// launch).
+template <int STEPS, bool TMA, bool VISC, bool FAST>
+inline size_t form_smem_bytes(int n_tr, int* levels) {
   *levels = STEPS == 1 ? 0 : 2 * n_tr;
-  if (STEPS == 1)
-    return n_tr ? smem_bytes<1, 1, TMA>(visc) : smem_bytes<0, 1, TMA>(visc);
   switch (n_tr) {
-    case 0: return smem_bytes<0, STEPS, TMA>(visc);
-    case 1: return smem_bytes<1, STEPS, TMA>(visc);
-    case 2: return smem_bytes<2, STEPS, TMA>(visc);
+    case 0: return smem_bytes<0, STEPS, TMA, VISC, FAST>();
+    case 1: return smem_bytes<1, STEPS, TMA, VISC, FAST>();
+    case 2: return smem_bytes<2, STEPS, TMA, VISC, FAST>();
     default:
-      *levels = chain_levels_in_smem(n_tr, visc, smem_limit());
-      return smem_bytes<TLOOP, STEPS>(visc)
-          + sizeof(float) * Form<TLOOP, STEPS>::PLANE * *levels;
+      if (STEPS == 1) return smem_bytes<1, 1, TMA, VISC, FAST>();
+      *levels = chain_levels_in_smem<VISC, FAST>(n_tr, smem_limit());
+      return smem_bytes<TLOOP, STEPS, TMA, VISC, FAST>()
+          + sizeof(float) * Form<TLOOP, STEPS, TMA, VISC, FAST>::PLANE
+          * *levels;
   }
+}
+
+template <int STEPS, bool TMA = true, bool FAST = false>
+inline size_t form_smem_bytes(int n_tr, bool visc, int* levels) {
+  return visc ? form_smem_bytes<STEPS, TMA, true, FAST>(n_tr, levels)
+              : form_smem_bytes<STEPS, TMA, false, FAST>(n_tr, levels);
 }
 
 }  // namespace fused_tile

@@ -218,9 +218,10 @@ def n_tracers_of(fields) -> int:
 
 def chain_smem(n_tracers: int, visc: bool = False) -> tuple:
     """(dynamic shared memory bytes of a block, step A's tracer levels it
-    keeps) of the chained form with ``n_tracers`` tracers on the current
-    CUDA device (the library is built if needed): every level up to 8
-    tracers, 7 viscous; past that the others live in device scratch."""
+    keeps) of the chained fast form with ``n_tracers`` tracers on the
+    current CUDA device (the library is built if needed): every level up
+    to 2 tracers; from 3 up 5 levels at the 32 x 32 tile, 6 viscous at 32
+    x 24, the others in device scratch."""
     lib = _library(n_tracers, steps=2)
     levels = ctypes.c_int(0)
     nbytes = lib.fused_sw_step_smem_bytes(n_tracers, int(visc),
@@ -228,16 +229,21 @@ def chain_smem(n_tracers: int, visc: bool = False) -> tuple:
     return int(nbytes), levels.value
 
 
-def tile_shape(device, steps: int = 1, chain_tile=None) -> tuple:
+def tile_shape(device, steps: int = 1, chain_tile=None, n_tracers: int = 0,
+               visc: bool = False, general: bool = False) -> tuple:
     """The (rows, columns) of the output tile the guard's flags refer to:
-    the kernel's own tile constants for a CUDA device (the library of the
-    forms that run ``steps`` model steps a launch, built if needed; a
-    chained form has a tile of its own), ``CPU_TILE`` for the plain
-    version on the CPU. ``chain_tile``: see :func:`library_target`."""
+    for a CUDA device the tile of the library that launches the form with
+    ``n_tracers`` tracers, viscous or not, of the ``general`` body or the
+    fast one, that runs ``steps`` model steps a launch (built if needed;
+    the chained fast forms with tracers have tiles of their own:
+    :func:`tile_of`), ``CPU_TILE`` for the plain version on the CPU.
+    ``chain_tile``: see :func:`library_target`."""
     if torch.device(device).type == "cpu":
         return CPU_TILE
-    lib = _library(steps=steps, chain_tile=chain_tile)
-    return lib.fused_sw_step_tile_x(), lib.fused_sw_step_tile_y()
+    lib = _library(n_tracers, steps=steps, chain_tile=chain_tile,
+                   general=general)
+    return (lib.fused_sw_step_tile_x(int(bool(visc))),
+            lib.fused_sw_step_tile_y(int(bool(visc))))
 
 
 class Geometry(typing.NamedTuple):
@@ -266,11 +272,16 @@ class Geometry(typing.NamedTuple):
 
 # the H100's shared memory as csrc/fused_tile.cuh budgets it: an SM's
 # bytes, those reserved a block, and a block's static arrays with the
-# planes' alignment; the one-step and chained tiles' (rows, columns,
-# threads, launch bound in blocks an SM); the working planes
+# planes' alignment; the tiles of its shape_of (rows, columns, threads,
+# launch bound in blocks an SM): one step a launch; chained, the general
+# forms and the fast ones without tracers; the chained fast forms with
+# tracers, and the viscous ones among them; the working planes
 SM_SMEM, BLOCK_RESERVED, STATIC_SMEM = 233472, 1024, 256
 BLOCK_SMEM_MAX = 232448     # what one block may take (227 KB)
-TILES = {1: (16, 32, 512, 3), 2: (16, 32, 512, 2)}
+ONE_TILE = (16, 32, 512, 3)
+CHAIN_TILE = (16, 32, 512, 2)
+CHAIN_TR_TILE = (32, 32, 1024, 1)
+CHAIN_TRV_TILE = (32, 24, 768, 1)
 N_SMEM_PLANES, N_CHAIN_PLANES, N_VISC_PLANES = 16, 4, 4
 TMA_BOX_MAX = 256       # cells a side of a TMA box
 TMA_ALIGN = 16          # bytes: addresses, rows and a box's row
@@ -281,17 +292,37 @@ CARVEOUTS_KB = (0, 8, 16, 32, 64, 100, 132, 164, 196, 228)
 GEN_STATIC = 384
 
 
+def tile_of(steps: int = 1, n_tracers: int = 0, visc: bool = False,
+            general: bool = False) -> tuple:
+    """(rows, columns, threads, blocks an SM the launch bound keeps
+    registers for) of the form with ``n_tracers`` tracers, viscous or not,
+    of the general body or the fast one, that runs ``steps`` model steps a
+    launch: csrc/fused_tile.cuh's shape_of."""
+    if steps == 1:
+        return ONE_TILE
+    if general or not n_tracers:
+        return CHAIN_TILE
+    return CHAIN_TRV_TILE if visc else CHAIN_TR_TILE
+
+
+def reg_limit(tile) -> int:
+    """The registers a thread the launch bound of ``tile`` (tile_of)
+    leaves: 65536 an SM over its blocks' threads."""
+    return 65536 // (tile[2] * tile[3])
+
+
 def carveout_kb(nbytes: int) -> int:
     """The smallest carveout (KB) that holds ``nbytes`` of an SM's shared
     memory, -1 for none: the one the driver takes for a kernel's blocks."""
     return next((k for k in CARVEOUTS_KB if nbytes <= k * 1024), -1)
 
 
-def _window(n_tracers: int, steps: int, tma: bool) -> tuple:
+def _window(n_tracers: int, steps: int, tma: bool, visc: bool = False,
+            general: bool = False) -> tuple:
     """(halo, rows, columns, floats a plane) of csrc/fused_tile.cuh's
     Form: by TMA the box begins R columns before the window on 16 bytes,
     the columns rounded up to 4 and each plane to 128 bytes."""
-    tx, ty = TILES[steps][:2]
+    tx, ty = tile_of(steps, n_tracers, visc, general)[:2]
     halo = steps * (3 + (1 if n_tracers else 0))
     rows = tx + 2 * halo
     if not tma:
@@ -302,9 +333,9 @@ def _window(n_tracers: int, steps: int, tma: bool) -> tuple:
     return halo, rows, cols, -(-(rows * cols + shift) // 32) * 32
 
 
-def _visc_plane(n_tracers: int, steps: int) -> int:
+def _visc_plane(n_tracers: int, steps: int, general: bool = False) -> int:
     """Floats of one of a viscous form's four stress planes."""
-    tx, ty = TILES[steps][:2]
+    tx, ty = tile_of(steps, n_tracers, True, general)[:2]
     vhw = (steps - 1) * (3 + (1 if n_tracers else 0)) + 1 + (
         1 if n_tracers else 0)
     return (tx + 2 * vhw) * (ty + 2 * vhw)
@@ -330,9 +361,9 @@ def window_geometry(n_tracers: int, steps: int = 1, visc: bool = False,
     computed here from the same rules (chip_smoke.py holds the two
     together on the card). ``persistent``: the persistent walk's (one step
     a tile), whose larger static shared memory enters its carveout."""
-    tx, ty, _, min_blocks = TILES[steps]
+    tx, ty, _, min_blocks = tile_of(steps, n_tracers, visc)
     nt = n_tracers if n_tracers <= MAX_TRACERS else -1   # TLOOP
-    halo, rows, cols, plane = _window(n_tracers, steps, True)
+    halo, rows, cols, plane = _window(n_tracers, steps, True, visc)
     chain = steps > 1
     n_planes = _n_planes(n_tracers, steps)
     vplane = _visc_plane(n_tracers, steps)
@@ -375,11 +406,11 @@ def general_geometry(n_tracers: int, steps: int = 1,
     form takes one block and keeps the threads' loader; its carveout here
     is the most it needs (its launcher takes the step of the tracer levels
     its block holds at run time)."""
-    tx, ty, _, min_blocks = TILES[steps]
+    tx, ty, _, min_blocks = tile_of(steps, n_tracers, visc, True)
     loop_chain = n_tracers > MAX_TRACERS and steps > 1
-    vbytes = (4 * N_VISC_PLANES * _visc_plane(n_tracers, steps) if visc
-              else 0)
-    halo, rows, cols, plane = _window(n_tracers, steps, False)
+    vbytes = (4 * N_VISC_PLANES * _visc_plane(n_tracers, steps, True)
+              if visc else 0)
+    halo, rows, cols, plane = _window(n_tracers, steps, False, visc, True)
     th_base = 4 * _n_planes(n_tracers, steps) * plane + vbytes
     th_block = th_base + GEN_STATIC + BLOCK_RESERVED
     fits = SM_SMEM // th_block
@@ -387,7 +418,7 @@ def general_geometry(n_tracers: int, steps: int = 1,
               else min_blocks)
     th_carve = CARVEOUTS_KB[-1] if loop_chain else carveout_kb(
         blocks * th_block)
-    _, _, t_cols, t_plane = _window(n_tracers, steps, True)
+    _, _, t_cols, t_plane = _window(n_tracers, steps, True, visc, True)
     n_work = _n_planes(n_tracers, steps) - (n_tracers == 0)
     base = 4 * n_work * t_plane + vbytes + 128
     limit = th_carve * 1024
@@ -408,7 +439,7 @@ def persistent_rounds(lay: FusedLayout, grid: int) -> tuple:
     """How the persistent walk's ``grid`` blocks cover the single block's
     tiles of ``lay``: (tiles, rounds a step, the last round's share of the
     grid that has a tile)."""
-    tx, ty = TILES[1][:2]
+    tx, ty = ONE_TILE[:2]
     tiles = -(-lay.Xs // tx) * -(-lay.Ys // ty)
     rounds = -(-tiles // grid)
     return tiles, rounds, (tiles - (rounds - 1) * grid) / grid
@@ -425,7 +456,7 @@ def tma_refusal(lay: FusedLayout, tensors, steps: int = 1,
     side (csrc/tma.cuh). A general form that loads by its threads
     (:func:`general_geometry`) has nothing to refuse."""
     g = (general_geometry(n_tracers, steps, visc) if general
-         else window_geometry(n_tracers, steps))
+         else window_geometry(n_tracers, steps, visc))
     if not g.tma:
         return None
     if (lay.Ys * 4) % TMA_ALIGN:
@@ -935,7 +966,7 @@ def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
                          f"TMA loader cannot take {why}")
     if tile_wet is None:
         return
-    want = tile_shape(dev, steps, chain_tile)
+    want = tile_shape(dev, steps, chain_tile, n_tr, visc, general)
     if tuple(tile) != want:
         raise ValueError(f"tile_wet was built for {tuple(tile)} tiles, the "
                          f"kernel's are {want}")
@@ -985,7 +1016,8 @@ def fused_sw_step_blockmax(fields, met, planes, lay: FusedLayout,
     rows = GENERAL_MET_ROWS if general else KERNEL_MET_ROWS
     where = {r: r for r in rows} if met_map is None else met_map
     slots = (ctypes.c_int * len(rows))(*(where.get(r, -1) for r in rows))
-    tx, ty = tile_shape(fields[0].device, steps, chain_tile)
+    tx, ty = tile_shape(fields[0].device, steps, chain_tile, n_tr, visc,
+                        general)
     n_blocks = (-(-lay.Xs // tx), -(-lay.Ys // ty))
     if raw:
         if (blockmax is None or blockmax.device != fields[0].device
@@ -1215,8 +1247,8 @@ def fused_sw_persistent(fields, met, planes, lay: FusedLayout, tau: float,
     slots = (ctypes.c_int * len(rows))(*rows)
     dev = fields[0].device
     with torch.cuda.device(dev):
-        tiles = (-(-lay.Xs // lib.fused_sw_step_tile_x())
-                 * -(-lay.Ys // lib.fused_sw_step_tile_y()))
+        tiles = (-(-lay.Xs // lib.fused_sw_step_tile_x(0))
+                 * -(-lay.Ys // lib.fused_sw_step_tile_y(0)))
         grid = ctypes.c_int(min(tiles, persistent_grid(
             n_tr, hr_const, mu_const, visc, trans, ffs, general)))
         # the blocks' maxima and the run-time family's pointer tables (the
@@ -1354,8 +1386,10 @@ def _library(n_tracers: int = 0, raw: bool = False, trans: int = 1,
                               chain_tile, general, folds))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.fused_sw_step_tile_x, lib.fused_sw_step_tile_y,
-               lib.fused_sw_step_threads, lib.fused_sw_step_min_blocks,
-               lib.fused_sw_step_n_met, lib.fused_sw_step_built_for,
+               lib.fused_sw_step_threads, lib.fused_sw_step_min_blocks):
+        fn.argtypes = [i]
+        fn.restype = i
+    for fn in (lib.fused_sw_step_n_met, lib.fused_sw_step_built_for,
                lib.fused_sw_step_built_raw, lib.fused_sw_step_built_trans,
                lib.fused_sw_step_built_ffs, lib.fused_sw_step_built_steps,
                lib.fused_sw_step_built_general,
@@ -1404,8 +1438,10 @@ def _persist_library(n_tracers: int = 0, general: bool = False) -> ctypes.CDLL:
     n_tracers = min(n_tracers, LOOP_TRACERS)
     lib = load(persist_target(n_tracers, general))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for fn in (lib.fused_sw_step_tile_x, lib.fused_sw_step_tile_y,
-               lib.fused_sw_step_n_met, lib.fused_sw_step_built_for,
+    for fn in (lib.fused_sw_step_tile_x, lib.fused_sw_step_tile_y):
+        fn.argtypes = [i]
+        fn.restype = i
+    for fn in (lib.fused_sw_step_n_met, lib.fused_sw_step_built_for,
                lib.fused_sw_step_built_general,
                lib.fused_sw_step_built_persist):
         fn.argtypes = []

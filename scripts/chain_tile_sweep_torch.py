@@ -15,9 +15,15 @@ the single-step kernel's us/launch in the same run, its shared memory,
 the blocks an SM holds by shared memory and by registers, and ptxas's
 registers and spills.
 
-Usage: python scripts/chain_tile_sweep_torch.py
+Usage: python scripts/chain_tile_sweep_torch.py [--folds CODE]
+       [--tracers N,...] [TXxTYxTHREADSxBLOCKS ...]
 
-At the Azov 250 m extents 1525 x 1115: the coastline
+Each argument ``16x32x512x2`` is a candidate tile (rows, columns,
+threads, launch bound in blocks an SM) in place of the default list;
+``default`` is csrc/fused_tile.cuh's own. ``--folds 7`` times the folded
+kernel (``fused_sw_fold_kernel``, elide_sel + q4 + share_prev, what the
+drivers run) instead of the unfolded one; ``--tracers 2`` sweeps only
+the forms with that many tracers. At the Azov 250 m extents 1525 x 1115: the coastline
 (data/AS/maskAzovCor.txt) guarded without tracers and with 2, and the
 2-cell frame unguarded without tracers. The first line printed is the
 card's name and power limit. Needs a CUDA device and nvcc; there is no
@@ -26,6 +32,7 @@ CPU path.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 import subprocess
@@ -47,31 +54,51 @@ from ocean_model_arch_torch.ops import fused_layout as fl  # noqa: E402
 from ocean_model_arch_torch.ops import fused_step as fstep  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def bathymetry(nx: int, ny: int) -> np.ndarray:
+    """chip_smoke.py's rest bathymetry: 15-100 m, deepest in the middle."""
+    i = np.arange(nx, dtype=np.float64)[:, None]
+    j = np.arange(ny, dtype=np.float64)[None, :]
+    return (15.0 + 85.0 * np.sin(np.pi * i / (nx - 1))
+            * np.sin(np.pi * j / (ny - 1))).astype(np.float32)
 N_LAUNCH = 200
 # (rows, columns, threads, blocks an SM the launch bound keeps registers
 # for); None is csrc/fused_tile.cuh's default
 TILES = (None, (16, 32, 512, 1), (16, 16, 256, 3), (16, 16, 256, 2),
          (8, 32, 256, 3), (8, 32, 256, 2), (32, 16, 512, 1),
          (32, 32, 512, 1))
+# (grid, tracers, guard, mu): the coastline without tracers, with 2 and 4
+# (the run-time tracer family), the frame without, and azov_visc (2
+# tracers over 15-100 m of bathymetry, viscous)
+FORMS = (("azov", 0, True, 0.0), ("azov", 2, True, 0.0),
+         ("frame", 0, False, 0.0), ("azov_hr", 2, True, 1.0e3),
+         ("azov", 4, True, 0.0))
 SM_SMEM, SM_REGS, SM_THREADS = 233472, 65536, 2048   # H100, per SM
 BLOCK_RESERVED = 1024      # shared memory the runtime keeps per block
 
 
 def smem_bytes(tile, n_tracers: int, visc: bool = False) -> int:
-    """csrc/fused_tile.cuh's smem_bytes<NT, 2> for a tile."""
+    """csrc/fused_tile.cuh's smem_bytes<NT, 2, TMA, VISC> for a tile (the
+    TMA loader's window; a run-time tracer count's levels all counted)."""
     tx, ty = tile[:2]
     halo = 3 + (1 if n_tracers else 0)
     wh = 2 * halo
+    shift = -wh % 4
+    rows, cols = tx + 2 * wh, -(-(ty + 2 * wh + shift) // 4) * 4
+    plane = -(-(rows * cols + shift) // 32) * 32
     planes = 16 + 4 + 2 * n_tracers
     vh = halo + 1 + (1 if n_tracers else 0)
     visc_b = 4 * (tx + 2 * vh) * (ty + 2 * vh) if visc else 0
-    return 4 * (planes * (tx + 2 * wh) * (ty + 2 * wh) + visc_b)
+    return 4 * (planes * plane + visc_b)
 
 
-def blocks_per_sm(tile, n_tracers: int, regs: int) -> tuple:
+def blocks_per_sm(tile, n_tracers: int, regs: int,
+                  visc: bool = False) -> tuple:
     """(by shared memory, by registers, by threads) blocks of one SM."""
     threads = tile[2]
-    by_smem = SM_SMEM // (smem_bytes(tile, n_tracers) + BLOCK_RESERVED)
+    by_smem = SM_SMEM // (smem_bytes(tile, n_tracers, visc)
+                          + BLOCK_RESERVED)
     per_warp = -(-regs * 32 // 256) * 256      # allocated in 256-reg units
     by_regs = SM_REGS // (per_warp * (threads // 32)) if regs else 0
     return by_smem, by_regs, SM_THREADS // threads
@@ -81,22 +108,23 @@ def ptxas_regs(log: str, n_tracers: int) -> tuple:
     """(most registers, most spill bytes) over the instantiations with
     ``n_tracers`` tracers in a build log."""
     regs, spill, cur = [0], [0], None
+    want = n_tracers if n_tracers <= 2 else -1     # the run-time family
     for ln in log.splitlines():
-        m = re.search(r"_kernelILi(\d)E", ln)
+        m = re.search(r"_kernelILi(-?\d+)E", ln)
         if m:
             cur = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
-        if m and cur == n_tracers:
+        if m and cur == want:
             spill.append(int(m.group(1)) + int(m.group(2)))
         m = re.search(r"Used (\d+) registers", ln)
-        if m and cur == n_tracers:
+        if m and cur == want:
             regs.append(int(m.group(1)))
     return max(regs), max(spill)
 
 
-def kernel_us(fn, n: int) -> float:
-    """Mean device us per launch of fused_sw_step_kernel over ``n`` calls
+def kernel_us(fn, n: int, name: str = "fused_sw_step_kernel") -> float:
+    """Mean device us per launch of the kernel ``name`` over ``n`` calls
     of ``fn`` (torch.profiler), after one warm-up call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -106,16 +134,18 @@ def kernel_us(fn, n: int) -> float:
             fn()
         torch.cuda.synchronize()
     for e in prof.key_averages():
-        if ("fused_sw_step_kernel" in e.key and e.count
+        if (name in e.key and e.count
                 and e.self_device_time_total > 0):
             return e.self_device_time_total / e.count
-    raise RuntimeError("torch.profiler recorded no device time for "
-                       "fused_sw_step_kernel")
+    raise RuntimeError(f"torch.profiler recorded no device time for "
+                       f"{name}")
 
 
-def sweep(n_launch: int = N_LAUNCH, tiles=TILES) -> list:
-    """Build and time every tile of ``tiles``; returns one dict per
-    (form, tile)."""
+def sweep(n_launch: int = N_LAUNCH, tiles=TILES, folds: int = 0,
+          tracers=(0, 2, 4)) -> list:
+    """Build and time every tile of ``tiles`` (the kernel with the fold
+    code ``folds``, 0 unfolded) for the forms with ``tracers``; returns
+    one dict per (form, tile)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the tile sweep needs a CUDA device")
     basin = basinpar_as250m_test()
@@ -125,21 +155,31 @@ def sweep(n_launch: int = N_LAUNCH, tiles=TILES) -> list:
     grids = {"azov": build_grid(basin, mask, precision=prec),
              "frame": build_grid(basin, frame_of_land_mask(basin.nx,
                                                            basin.ny),
-                                 precision=prec)}
-    targets = [fstep.library_target(n, steps=2, chain_tile=t)
-               for t in tiles for n in (0, 2)]
-    _build.build_all(targets + [fstep.library_target(n) for n in (0, 2)])
+                                 precision=prec),
+             "azov_hr": build_grid(basin, mask, hhq_rest=bathymetry(
+                 basin.nx, basin.ny), precision=prec)}
+    targets = [fstep.library_target(n, steps=2, chain_tile=t, folds=folds)
+               for t in tiles for n in tracers]
+    _build.build_all(targets + [fstep.library_target(n, folds=folds & 3)
+                                for n in tracers])
+    name = "fused_sw_fold_kernel" if folds else "fused_sw_step_kernel"
+    kfolds = fstep.Folds(bool(folds & 1), bool(folds & 2), bool(folds & 4))
     rows = []
-    for gname, n_tr, guard in (("azov", 0, True), ("azov", 2, True),
-                               ("frame", 0, False)):
+    for gname, n_tr, guard, mu in FORMS:
+        if n_tr not in tracers:
+            continue
         cfg = ModelConfig(basin=basin, sw=SWConfig(
             use_tracers=int(n_tr > 0), tracer_num=max(n_tr, 1)),
             precision=prec)
         grid = grids[gname]
-        # the unfolded fast form (the drivers default to its folds)
+        # the fast form with the swept folds (its planes and state packed
+        # for them; the drivers default to 7)
         one = FusedSWModel(grid, cfg, 1.0, tile_guard=guard, static_rslu=True,
-                           elide_sel=False, q4=False, share_prev=False)
-        s, _ = one.run_steps(one.pack(init_ocean_state(grid, cfg)), 20)
+                           mu_const=mu, elide_sel=kfolds.elide_sel,
+                           q4=kfolds.q4, share_prev=False)
+        s0 = init_ocean_state(grid, cfg)
+        s0 = dataclasses.replace(s0, mu=torch.full_like(s0.mu, mu))
+        s, _ = one.run_steps(one.pack(s0), 20)
         lu_s = np.asarray(fl.embed(one.lay, grid.lu.cpu()))
 
         def args(tw, tile, steps):
@@ -149,16 +189,27 @@ def sweep(n_launch: int = N_LAUNCH, tiles=TILES) -> list:
                     one.ffs, steps)
 
         a1 = args(one.tile_wet, one.tile, 1)
-        us_one = kernel_us(lambda: fstep.fused_sw_step_blockmax(s, *a1),
-                           n_launch)
-        ref, _ = fstep.fused_sw_step_reference(s, *args(None, None, 2))
+        f1 = kfolds._replace(share_prev=False)
+        us_one = kernel_us(lambda: fstep.fused_sw_step_blockmax(
+            s, *a1, folds=f1), n_launch, name if any(f1) else
+            "fused_sw_step_kernel")
+        ref, _ = fstep.fused_sw_step_reference(s, *args(None, None, 2),
+                                               folds=kfolds)
         first = None
         for t in tiles:
-            tile = fstep.tile_shape("cuda", 2, t)
+            tile = fstep.tile_shape("cuda", 2, t, n_tr, one.visc)
             tw = (torch.from_numpy(fl.tile_wet(lu_s, one.lay, *tile))
                   .to(s[0].device) if guard else None)
             a2 = args(tw, tile, 2)
-            out, _ = fstep.fused_sw_step_blockmax(s, *a2, chain_tile=t)
+            form = (f"{gname} T={n_tr} guard {'on' if guard else 'off'}"
+                    + (f" mu={mu:g}" if mu else ""))
+            try:
+                out, _ = fstep.fused_sw_step_blockmax(s, *a2, chain_tile=t,
+                                                      folds=kfolds)
+            except RuntimeError as e:     # a block the card cannot hold
+                rows.append({"form": form, "tile": t, "default": t is None,
+                             "refused": str(e)})
+                continue
             if first is None:
                 first = out
             same = all(torch.equal(a, b) for a, b in zip(out, first))
@@ -166,31 +217,52 @@ def sweep(n_launch: int = N_LAUNCH, tiles=TILES) -> list:
                       / max(float(b.abs().max()), 1e-30)
                       for a, b in zip(out, ref))
             us = kernel_us(lambda: fstep.fused_sw_step_blockmax(
-                s, *a2, chain_tile=t), n_launch)
-            lib = fstep._library(n_tr, False, 1, 1, 2, t)
-            shape = (lib.fused_sw_step_tile_x(), lib.fused_sw_step_tile_y(),
-                     lib.fused_sw_step_threads(),
-                     lib.fused_sw_step_min_blocks())
+                s, *a2, chain_tile=t, folds=kfolds), n_launch, name)
+            lib = fstep._library(n_tr, False, 1, 1, 2, t, folds=folds)
+            v = int(one.visc)
+            shape = (lib.fused_sw_step_tile_x(v), lib.fused_sw_step_tile_y(v),
+                     lib.fused_sw_step_threads(v),
+                     lib.fused_sw_step_min_blocks(v))
             log = _build.BUILDS.get(fstep.library_target(
-                n_tr, steps=2, chain_tile=t), {}).get("log", "")
+                n_tr, steps=2, chain_tile=t, folds=folds), {}).get("log", "")
             regs, spill = ptxas_regs(log, n_tr)
-            rows.append({"form": f"{gname} T={n_tr} guard "
-                                 f"{'on' if guard else 'off'}",
-                         "tile": shape, "default": t is None,
-                         "smem": smem_bytes(shape, n_tr),
-                         "blocks": blocks_per_sm(shape, n_tr, regs),
+            rows.append({"form": form, "tile": shape, "default": t is None,
+                         "smem": smem_bytes(shape, n_tr, one.visc),
+                         "blocks": blocks_per_sm(shape, n_tr, regs,
+                                                 one.visc),
                          "regs": regs, "spill": spill, "us": us,
                          "us_one": us_one, "same": same, "err": err})
     return rows
 
 
-def main() -> int:
+def parse(argv) -> dict:
+    """sweep()'s arguments from the command line (see the usage)."""
+    kw, tiles = {}, []
+    it = iter(argv)
+    for a in it:
+        if a == "--folds":
+            kw["folds"] = int(next(it))
+        elif a == "--tracers":
+            kw["tracers"] = tuple(int(n) for n in next(it).split(","))
+        elif a == "default":
+            tiles.append(None)
+        else:
+            tiles.append(tuple(int(n) for n in a.split("x")))
+    if tiles:
+        kw["tiles"] = tuple(tiles)
+    return kw
+
+
+def main(argv=()) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card.splitlines()[0])
-    rows = sweep()
+    rows = sweep(**parse(argv))
     for r in rows:
+        if "refused" in r:
+            print(f"{r['form']}: tile {r['tile'] or 'default'}: {r['refused']}")
+            continue
         tx, ty, th, mb = r["tile"]
         print(f"{r['form']}: tile {tx}x{ty}/{th} launch bound {mb}"
               + (" (default)" if r["default"] else "")
@@ -200,7 +272,8 @@ def main() -> int:
               f"threads {r['blocks']}, {r['regs']} regs, {r['spill']} B "
               f"spill; == default tile bit for bit: {r['same']}; vs plain "
               f"{r['err']:.2e}")
-    bad = [r for r in rows if not r["same"] or r["err"] > 1e-5]
+    bad = [r for r in rows if "refused" not in r
+           and (not r["same"] or r["err"] > 1e-5)]
     if bad:
         print(f"FAILED: {len(bad)} tiles differ", file=sys.stderr)
         return 1
@@ -208,4 +281,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -15,6 +15,15 @@ them. A stage's cost a tile is about its loop bodies times the cells of
 its region over the block's threads.
 
 Usage: python scripts/sass_stages_torch.py SASS_TEXT_OR_LIBRARY KERNEL_REGEX
+       [--cells N,N+N,...]
+
+With ``--cells`` (one entry a piece, in order: the cells of the region of
+each stage the piece holds, ``+`` between two stages of one piece, 0 for
+a piece that walks no region) it also prints the instructions a tile of
+the stage loops: each stage's cell loop body (a loop, less the unrolled
+twin nvcc puts after it, which a thread runs only with four cells or more
+left, never at the one to three cells a stage gives it) times the cells
+of its region, summed over the kernel.
 
 e.g. the chained guarded form without tracers, folded (elide_sel, q4,
 share_prev), from its library in ``build/torch_kernels/``:
@@ -92,6 +101,36 @@ def stages(ins: list) -> list:
     return out
 
 
+def cell_loops(loops: list) -> list:
+    """The loops of a piece that run once a cell of a stage: every loop
+    but the unrolled twin nvcc puts right after a loop (its FP32
+    instructions k >= 2 times the loop's, its body at most k times the
+    loop's and a few more)."""
+    out, kept = [], False        # kept: the loop before was a cell loop
+    for i, (body, fp) in enumerate(loops):
+        b0, f0 = loops[i - 1] if i else (0, 0)
+        if kept and f0 and fp >= 2 * f0 and fp % f0 == 0 \
+                and body <= fp // f0 * b0 + 8:
+            kept = False
+            continue
+        out.append((body, fp))
+        kept = True
+    return out
+
+
+def per_tile(pieces: list, cells: list) -> list:
+    """Instructions a tile of each piece's stage loops: its cell loops'
+    bodies (:func:`cell_loops`), the i-th times ``cells[piece][i]`` (0
+    where the piece has fewer stages than loops, e.g. the set-up's box
+    loops)."""
+    out = []
+    for st, cs in zip(pieces, cells):
+        loops = cell_loops(st["loops"])
+        out.append(sum(b * (cs[i] if i < len(cs) else 0)
+                       for i, (b, _) in enumerate(loops)))
+    return out
+
+
 def read_sass(path: str) -> str:
     """cuobjdump -sass text from a text file or a built library."""
     with open(path, "rb") as f:
@@ -106,19 +145,33 @@ def read_sass(path: str) -> str:
 
 
 def main(argv) -> int:
-    if len(argv) != 3:
+    cells = None
+    if len(argv) == 5 and argv[3] == "--cells":
+        cells = [[int(n) for n in piece.split("+")]
+                 for piece in argv[4].split(",")]
+    elif len(argv) != 3:
         print(__doc__.split("\n\n")[2], file=sys.stderr)
         return 2
     for name, ins in functions(read_sass(argv[1])).items():
         if not re.search(argv[2], name):
             continue
         print(f"{name}: {len(ins)} instructions")
-        for k, st in enumerate(stages(ins)):
+        pieces = stages(ins)
+        for k, st in enumerate(pieces):
             c = st["counts"]
             print(f"  piece {k} @{st['address']:#x}: " + " ".join(
                 f"{x} {c[x]}" for x in ("all",) + tuple(CLASSES))
                 + (f"; loop bodies (instructions, fp32) {st['loops']}"
                    if st["loops"] else ""))
+        if cells is not None:
+            if len(cells) != len(pieces):
+                print(f"--cells has {len(cells)} pieces, the kernel "
+                      f"{len(pieces)}", file=sys.stderr)
+                return 2
+            tile = per_tile(pieces, cells)
+            print("  stage loops a tile, by piece: " + ", ".join(
+                f"{n / 1e3:.1f}k" for n in tile)
+                + f"; all {sum(tile) / 1e3:.1f}k instructions a tile")
         return 0
     print(f"no kernel matches {argv[2]!r}", file=sys.stderr)
     return 1

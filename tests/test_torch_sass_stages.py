@@ -68,3 +68,24 @@ def test_loop_bodies_and_the_command_line(tmp_path, capsys, path_kind):
         assert "loop bodies (instructions, fp32) [(5, 1)]" in out.out
     else:
         assert rc == 1 and "no kernel matches" in out.err
+
+
+def test_instructions_a_tile_from_the_cells_of_each_stage(tmp_path, capsys):
+    """--cells: each piece's cell loops (the unrolled twin after a loop,
+    k times its FP32 instructions and at most k times its body, does not
+    run at a few cells a thread) times the cells of its stages."""
+    mod = _script()
+    loops = [(10, 2), (84, 32), (28, 6), (102, 24), (16, 2)]
+    assert mod.cell_loops(loops) == [(10, 2), (28, 6), (16, 2)]
+    pieces = [{"loops": []}, {"loops": loops}]
+    assert mod.per_tile(pieces, [[0], [100, 50, 20]]) == [
+        0, 10 * 100 + 28 * 50 + 16 * 20]
+    path = tmp_path / "k.sass"
+    path.write_text(SASS)
+    rc = mod.main(["sass_stages_torch.py", str(path), "kernelILi0E",
+                   "--cells", "0,1000,0"])
+    assert rc == 0
+    assert "all 5.0k instructions a tile" in capsys.readouterr().out
+    rc = mod.main(["sass_stages_torch.py", str(path), "kernelILi0E",
+                   "--cells", "0,1000"])
+    assert rc == 2 and "--cells has 2 pieces" in capsys.readouterr().err

@@ -51,7 +51,8 @@ def test_window_keeps_tma_limits(form):
     multiple of 4, so the box's is too); the block fits the card."""
     t, steps, visc, hrp, ffs = form
     g = fstep.window_geometry(t, steps, visc, hrp, ffs)
-    assert g.tile == (16, 32) and g.halo == steps * (3 + (t > 0))
+    assert g.tile == fstep.tile_of(steps, t, visc)[:2]
+    assert g.halo == steps * (3 + (t > 0))
     shift = -g.halo % 4
     assert (g.tile[1] - g.halo - shift) % 4 == 0      # the box's column
     assert (4 * g.cols) % fstep.TMA_ALIGN == 0
@@ -64,15 +65,37 @@ def test_window_keeps_tma_limits(form):
     assert g.boxes >= 4 + 3
 
 
+# the chained forms' plan, by (tracers, viscous): (tile, blocks an SM,
+# dynamic shared memory of a block in bytes; a run-time tracer count's
+# levels on top). Without tracers 16 x 32, 20 planes of 28 x 48: two
+# blocks (one viscous, with its stress planes); with tracers 32 x 32 and
+# 20 + 2 T planes of 48 x 48 (viscous: 32 x 24, planes of 48 x 40, which
+# leave room for the stress planes): one block of 1024 (768) threads.
+CHAIN_PLAN = {(0, False): ((16, 32), 2, 110208),
+              (0, True): ((16, 32), 1, 142080),
+              (1, False): ((32, 32), 1, 230528),
+              (1, True): ((32, 24), 1, 217472),
+              (2, False): ((32, 32), 1, 230528),
+              (2, True): ((32, 24), 1, 225152),
+              (3, False): ((32, 32), 1, 184448),
+              (3, True): ((32, 24), 1, 179072),
+              (9, False): ((32, 32), 1, 184448),
+              (9, True): ((32, 24), 1, 179072)}
+
+
 @pytest.mark.parametrize("form", FORMS, ids=_name)
 def test_blocks_an_sm(form):
     """Three blocks an SM for every one-step form and two for the chained
-    form without tracers (the viscous one takes one now: its 48-column
-    window); the blocks fit the SM's shared memory with their reserve."""
+    form without tracers (the viscous one takes one: its 48-column
+    window); a chained form with tracers one block of its larger tile
+    (CHAIN_PLAN, whatever its bathymetry and free surface); the blocks fit
+    the SM's shared memory with their reserve."""
     t, steps, visc, hrp, ffs = form
     g = fstep.window_geometry(t, steps, visc, hrp, ffs)
     want = 3 if steps == 1 else 1 if t or visc else 2
     assert g.blocks == want
+    if steps == 2:
+        assert (g.tile, g.blocks, g.smem) == CHAIN_PLAN[t, visc]
     per_block = g.smem + fstep.STATIC_SMEM + fstep.BLOCK_RESERVED
     assert g.blocks * per_block <= fstep.SM_SMEM
 
@@ -82,13 +105,14 @@ def test_plans_of_the_main_forms():
     without tracers rslu_u, rslu_v, sshp, up, vp (5); with tracers rslu_u,
     rslu_v, sshp (3); viscous without tracers rslu_u, rslu_v (2); viscous
     with tracers none; chained without tracers none; chained with 2
-    tracers rslu_u, rslu_v, rslu_h (3, over bathymetry planes too: the
+    tracers rslu_h (1: its 32 x 32 block leaves one plane), viscous over
+    bathymetry planes rslu_u, rslu_v (2: its 32 x 24 block leaves two; the
     bathymetry planes have none); the run-time tracer family chained
     none."""
     want = {(0, 1, False, False): 5, (2, 1, False, False): 3,
             (0, 1, True, False): 2, (2, 1, True, False): 0,
-            (0, 2, False, False): 0, (2, 2, False, False): 3,
-            (2, 2, True, True): 3, (9, 2, False, False): 0,
+            (0, 2, False, False): 0, (2, 2, False, False): 1,
+            (2, 2, True, True): 2, (9, 2, False, False): 0,
             (9, 1, False, False): 3, (0, 1, False, True): 5}
     for (t, steps, visc, hrp), n in want.items():
         g = fstep.window_geometry(t, steps, visc, hrp, True)
