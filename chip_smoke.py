@@ -263,9 +263,10 @@ every one-step and chained instantiation that checkout has against this
 one's, bit for bit and in kernel time, and every instantiation's
 registers, and stops; ``--parent DIR --bathymetry`` only the fast forms
 over bathymetry planes and the main path's chained and folded ones,
-``--general`` the general forms and K2, ``--chained`` the chained fast
-forms, ``--one-step`` the fast one-step forms and K2. Needs a CUDA
-device and nvcc; there is no CPU path.
+``--general`` the general forms and K2, ``--general-chained`` the
+general forms' chained ones, ``--chained`` the chained fast forms,
+``--one-step`` the fast one-step forms and K2. Needs a CUDA device and
+nvcc; there is no CPU path.
 """
 
 from __future__ import annotations
@@ -531,8 +532,10 @@ def nc_loads(targets) -> str:
 
 def general_loads_by_tma(target: str) -> bool:
     """Whether the general forms of a general library's ``target`` load by
-    TMA (``general_geometry``): every form of a library is alike, all but
-    the chained ones without tracers."""
+    TMA (``general_geometry``): those without viscosity on profile metrics
+    do in every library, one step and chained (a chained form without
+    tracers that is viscous or on metric planes keeps the threads' loader
+    beside them)."""
     from ocean_model_arch_torch.ops.fused_step import general_geometry
     n_tr = int(re.search(r"NT=(\d)", target).group(1))
     return general_geometry(n_tr, 2 if "FUSED_STEPS=2" in target else 1).tma
@@ -661,9 +664,9 @@ def geometry_mirror() -> str:
         _library, _persist_library, general_geometry, tile_of,
         window_geometry)
 
-    def held(lib, t, visc, hrp, ffs, g, what):
+    def held(lib, t, visc, hrp, ffs, g, what, met2d=0):
         out = (ctypes.c_longlong * 12)()
-        lib.fused_sw_step_geometry(t, visc, hrp, ffs, out)
+        lib.fused_sw_step_geometry(t, visc, hrp, ffs, met2d, out)
         want = (*g.tile, g.halo, g.rows, g.cols, g.plane, g.extra, g.blocks,
                 g.smem, g.boxes, int(g.tma), g.carveout)
         check(tuple(out) == want, f"window geometry ({what} T={t}, visc="
@@ -682,10 +685,11 @@ def geometry_mirror() -> str:
             held(lib, t, visc, hrp, ffs, g, f"fast, steps={steps}")
             check(g.blocks == (3 if steps == 1 else 2 if t == 0 and not visc
                                else 1), f"window geometry {g}: blocks an SM")
-            held(gen, t, visc, hrp, ffs, general_geometry(t, steps,
-                                                          bool(visc)),
-                 f"general, steps={steps}")
-            n += 2
+            for met2d in (0, 1):
+                held(gen, t, visc, hrp, ffs, general_geometry(
+                    t, steps, bool(visc), bool(met2d)),
+                     f"general, steps={steps}, met2d={met2d}", met2d)
+            n += 3
     for t, visc, hrp, ffs in itertools.product(range(4), (0, 1), (0, 1),
                                                (0, 1)):
         held(_persist_library(t), t, visc, hrp, ffs, window_geometry(
@@ -696,12 +700,13 @@ def geometry_mirror() -> str:
         n += 2
     gen_text = "; ".join(
         f"{'chained' if steps == 2 else 'one step'} T={t}"
-        + " viscous" * visc + f": {'TMA' if g.tma else 'threads'}, "
+        + " viscous" * visc + " metric planes" * met2d
+        + f": {'TMA' if g.tma else 'threads'}, "
         f"{g.blocks} blocks an SM, {g.smem / 1e3:.1f} KB, hr plane "
         f"{g.extra}, carveout {g.carveout} KB"
-        for steps, t, visc in itertools.product((1, 2), (0, 1, 2, 3),
-                                                (False, True))
-        for g in [general_geometry(t, steps, visc)])
+        for steps, t, visc, met2d in itertools.product(
+            (1, 2), (0, 1, 2, 3), (False, True), (False, True))
+        for g in [general_geometry(t, steps, visc, met2d)])
     for steps, t, visc in itertools.product((1, 2), (0, 1), (0, 1)):
         win = (ctypes.c_int * 3)()
         cs._library().copy_step_window(t, visc, steps, win)
@@ -732,8 +737,8 @@ def geometry_mirror() -> str:
             f"boxes; chained T=0: {g2.rows} x {g2.cols}, {g2.extra}, "
             f"{g2.smem / 1e3:.1f} KB, {g2.blocks} blocks, {g2.boxes} boxes; "
             "chained tiles (rows, columns, threads, blocks an SM), each "
-            "library's == the mirror's: T=0 and general "
-            f"{tile_of(2)}, T>=1 {tile_of(2, 1)}, T>=1 viscous "
+            "library's == the mirror's, the fast and the general forms': "
+            f"T=0 {tile_of(2)}, T>=1 {tile_of(2, 1)}, T>=1 viscous "
             f"{tile_of(2, 1, True)}")
 
 
@@ -1170,24 +1175,24 @@ def against_parent(parent: str, card: str, chain_regs: int,
     with the drivers' folds), and the six K2 runs of ``PERSIST_RUNS`` (one
     launch of ``N_TIME`` steps each). First the parent's libraries of
     those forms are built, all at once; where this process built its own
-    (phase 1), a redesigned form's instantiations (those on the TMA
-    loader: the fast body's, the general body's by TMA, the persistent
-    walk's) must be as many, within the launch bound (42 registers one step,
-    ``chain_regs`` chained) with no spill, a form left on the threads'
-    loader must have the parent's registers and spills. Outputs and block
+    (phase 1), each library's instantiations must be as many as the
+    parent's, within the launch bound (42 registers one step, the chained
+    tile's chained) with no spill. Outputs and block
     maxima from a state 20 steps in (K2: from the initial state, the
     fields and the max over the blocks): bit for bit, or for a fast
     instantiation each difference listed (and within 1e-5 of the
     parent's). Kernel device us/launch over three windows a side in the
     order parent, this, this, parent, parent, this (torch.profiler; K2:
-    CUDA events around its launch): a redesigned form's this / parent at
-    most 1.02, one-sided; a form on the threads' loader within 2 % (where
-    a form is off its rule, over up to nine windows a side). ``subset``:
+    CUDA events around its launch): this / parent at most 1.02,
+    one-sided (where a form is above it, over up to nine windows a side).
+    ``subset``:
     ``--bathymetry``, of the one-step instantiations only the fast ones
     over bathymetry planes with 0 or ``N_TRACERS`` tracers (those whose
     plane plan places the bathymetry planes), and only their libraries and
     ``PARENT_MAIN``'s are built; ``--general``, only the general form's
     instantiations and the K2 runs, and only their libraries;
+    ``--general-chained``, only the general form's chained ones (single
+    block and raw) and their libraries;
     ``--chained``, only ``PARENT_MAIN`` and every chained fast
     instantiation (``parent_chained``), with the parent's guard flags at
     its own tile where the tiles differ; ``--one-step``, only the fast
@@ -1200,7 +1205,6 @@ def against_parent(parent: str, card: str, chain_regs: int,
         FusedSharded2DModel
     from ocean_model_arch_torch.model.init import init_ocean_state
     from ocean_model_arch_torch.ops import fused_step as mine
-    from ocean_model_arch_torch.ops.fused_step import general_geometry
 
     pkg = os.path.join(os.path.abspath(parent), "ocean_model_arch_torch")
     spec = importlib.util.spec_from_file_location(
@@ -1213,8 +1217,10 @@ def against_parent(parent: str, card: str, chain_regs: int,
     probe = load_script("roofline_probe_torch")
     from ocean_model_arch_torch.ops import _build
     bathymetry_only, general_only, chained_only, one_step_only = (
-        subset == "--bathymetry", subset == "--general",
+        subset == "--bathymetry",
+        subset in ("--general", "--general-chained"),
         subset == "--chained", subset == "--one-step")
+    general_chained = subset == "--general-chained"
     chained = (parent_chained() if hasattr(theirs, "fold_targets")
                and not (bathymetry_only or general_only or one_step_only)
                else [])
@@ -1224,7 +1230,10 @@ def against_parent(parent: str, card: str, chain_regs: int,
                        theirs.library_targets).parameters else ())
     persist = (theirs.persist_targets()
                if hasattr(theirs, "persist_targets")
-               and not (bathymetry_only or chained_only) else ())
+               and not (bathymetry_only or chained_only or general_chained)
+               else ())
+    if general_chained:
+        gen_targets = tuple(t for t in gen_targets if "FUSED_STEPS=2" in t)
     if bathymetry_only:
         fast_targets = tuple(sorted(
             {theirs.library_target(t, raw, trans, ffs) for t in (0, N_TRACERS)
@@ -1254,16 +1263,11 @@ def against_parent(parent: str, card: str, chain_regs: int,
         _build.build_all(fold_targets)
     regs = ""
     if all(t in _build.BUILDS for t in fast_targets + gen_targets + persist):
-        n_old = n_new = 0
+        n_new = 0
         for t in fast_targets + gen_targets + persist:
             a = sorted(ptxas_table(_build.BUILDS[t]["log"]))
             b = sorted(ptxas_table(theirs_build.BUILDS.get(t, {}).get(
                 "log", "")))
-            if t in gen_targets and not general_loads_by_tma(t):
-                check(a == b, f"{t}: registers or spills differ from the "
-                      f"parent's: {sorted(set(a) ^ set(b))[:6]}")
-                n_old += len(a)
-                continue
             kind = "general" if t in gen_targets else "fast"
             over = [r for r in a if r[2] != 0 or r[1] > (
                 reg_limit_of(r[0], kind) if "FUSED_STEPS=2" in t
@@ -1272,9 +1276,7 @@ def against_parent(parent: str, card: str, chain_regs: int,
                   f"instantiations ({len(b)} in the parent's), above "
                   f"their launch bound or spilling: {over[:6]}")
             n_new += len(a)
-        regs = (f"; registers and spills of the {n_old} instantiations on "
-                "the threads' loader == the parent's: yes; the "
-                f"{n_new} on the TMA loader (fast, general, persistent) "
+        regs = (f"; the {n_new} instantiations (fast, general, persistent) "
                 "within the launch bound, no spill: yes")
     print(f"against parent: the parent's {len(old_targets)} libraries built "
           f"in {time.perf_counter() - t0:.1f} s{regs}", flush=True)
@@ -1299,18 +1301,15 @@ def against_parent(parent: str, card: str, chain_regs: int,
     mask = read_mask(os.path.join(REPO, "data", "AS", "maskAzovCor.txt"),
                      basin.nx, basin.ny)
     hr = bathymetry(basin.nx, basin.ny)
-    # redesigned: this / parent; on the threads' loader: |1 - it|
-    worst = {True: 0.0, False: 0.0}
+    # this / parent, the worst of every form
+    worst = [0.0]
     n_forms, exceptions = 0, []
 
     def compare(fm, cfg, state, raw, fast, tag, shard=None):
         """``shard``: (sharded model, its first shard's fields): that
         shard's raw launch instead of ``fm``'s. ``fast``: the fast body
-        (its differences listed); a general form by TMA is judged as
-        redesigned too, bit for bit."""
+        (its differences listed); a general form, bit for bit."""
         nonlocal n_forms
-        redesigned = fast or general_geometry(
-            fm.n_tracers, fm.steps_per_call, fm.visc).tma
         args = model_args(fm, cfg) if shard is None else \
             shard_args(shard[0], cfg, 0, 0)
         old_args = args[:n_old]
@@ -1320,11 +1319,9 @@ def against_parent(parent: str, card: str, chain_regs: int,
             s, _ = fm.run_steps(fm.pack(state), 20)
         else:
             s = shard[1]
-        # the parent's chained tracer forms ran 16 x 32 tiles: its guard's
-        # flags at its own tile
+        # where the parent's tiles differ: its guard's flags at its own
         tiles = {"T": tuple(args[7] or fm.tile),
-                 "P": tuple(theirs.tile_shape(s[0].device,
-                                              fm.steps_per_call))}
+                 "P": parent_tile(theirs, s[0].device, fm)}
         if tiles["P"] != tiles["T"]:
             old_args = (*old_args[:6], None if args[6] is None else
                         flags_at(fm, shard, tiles["P"], s[0].device),
@@ -1370,8 +1367,8 @@ def against_parent(parent: str, card: str, chain_regs: int,
             exceptions.append(f"{tag} max |diff| {diff:.3e}")
         # three windows a side, compared by their medians: one window in a
         # dozen reads 2-6 % off on either library. Medians off the rule
-        # (general: more than 2 % apart; fast: this above 1.02 x parent)
-        # get more windows (up to nine a side) before they count.
+        # (this above 1.02 x parent) get more windows (up to nine a side)
+        # before they count.
         order, us = "", []
         for _ in range(3):
             order += "PTTPPT"
@@ -1381,10 +1378,9 @@ def against_parent(parent: str, card: str, chain_regs: int,
             med = {c: float(np.median([u for u, o in zip(us, order)
                                        if o == c])) for c in "PT"}
             ratio = med["T"] / med["P"]
-            if (ratio <= 1.02) if redesigned else abs(ratio - 1.0) < 0.02:
+            if ratio <= 1.02:
                 break
-        worst[redesigned] = max(worst[redesigned], ratio if redesigned
-                                else abs(ratio - 1.0))
+        worst[0] = max(worst[0], ratio)
         n_forms += 1
         print(f"against parent {tag}: outputs and block max bit-identical: "
               + ("yes" if same else "no (" + exceptions[-1] + ")")
@@ -1415,7 +1411,9 @@ def against_parent(parent: str, card: str, chain_regs: int,
                 state = with_mu(init_ocean_state(grid, cfg), mu)
                 for guard, raw, spc in [(g, r, c) for r in raws
                                         for g in (False, True)
-                                        for c in ((1,) if fast else (1, 2))]:
+                                        for c in ((1,) if fast else (2,)
+                                                  if general_chained
+                                                  else (1, 2))]:
                     fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu,
                                       tile_guard=guard, static_rslu=fast,
                                       steps_per_call=spc, **UNFOLDED)
@@ -1467,33 +1465,42 @@ def against_parent(parent: str, card: str, chain_regs: int,
                 + f" (curve_grid={cg})")
     if persist:
         n_forms += parent_persistent(theirs, basin, prec, mask, hr, worst)
-    check(worst[True] <= 1.02 and worst[False] < 0.02, "a redesigned "
-          f"instantiation's time rose by {worst[True] - 1:.1%} or one on the "
-          f"threads' loader moved by {worst[False]:.1%}")
+    check(worst[0] <= 1.02, "an instantiation's time rose by "
+          f"{worst[0] - 1:.1%}")
     print(f"against parent ({card}): {n_forms} instantiations, "
           f"{n_forms - len(exceptions)} bit-identical"
           + (f" (not: {'; '.join(exceptions)})" if exceptions else "")
-          + f"; redesigned forms (the TMA loader) this / parent at most "
-          f"{worst[True]:.4f}, forms on the threads' loader within "
-          f"{worst[False]:.2%}")
+          + f"; this / parent at most {worst[0]:.4f}")
     return 0
 
 
-def flags_at(fm, shard, tile, device) -> torch.Tensor:
+def parent_tile(theirs, device, fm) -> tuple:
+    """The tile the parent's library (``theirs``: its ``ops.fused_step``)
+    launches ``fm``'s form at: its ``tile_shape`` asked with the form
+    where it takes one (a checkout whose tiles are the form's), else with
+    the steps a launch alone (every chained form 16 x 32)."""
+    if "general" in inspect.signature(theirs.tile_shape).parameters:
+        return tuple(theirs.tile_shape(
+            device, fm.steps_per_call, n_tracers=fm.n_tracers, visc=fm.visc,
+            general=fm.general))
+    return tuple(theirs.tile_shape(device, fm.steps_per_call))
+
+
+def flags_at(fm, shard, tile, device, ij=(0, 0)) -> torch.Tensor:
     """The guard's per-block flags of ``fm``'s form at ``tile`` (another
-    checkout's): of its single block, or with ``shard`` (the sharded model
-    and its first shard's fields) of that model's shard (0, 0), as the
-    models build them."""
+    checkout's, or another form's): of its single block, or with
+    ``shard`` (the sharded model and its first shard's fields) of that
+    model's shard ``ij``, as the models build them."""
     from ocean_model_arch_torch.ops import fused_layout as fl
     if shard is None:
         lu_s = np.asarray(fl.embed(fm.lay, fm.grid.lu.cpu()))
         wet = fl.tile_wet(lu_s, fm.lay, *tile)
     else:
-        fs = shard[0]
+        fs, (i, j) = shard[0], ij
         own = np.zeros((fs.lay.Xs, fs.lay.Ys), np.float32)
-        own[fs.M:fs.M + fs.lx[0], fs.M:fs.M + fs.ly[0]] = \
-            fs.grid.lu.cpu().numpy()[fs.x_edges[0]:fs.x_edges[1],
-                                     fs.y_edges[0]:fs.y_edges[1]]
+        own[fs.M:fs.M + fs.lx[i], fs.M:fs.M + fs.ly[j]] = \
+            fs.grid.lu.cpu().numpy()[fs.x_edges[i]:fs.x_edges[i + 1],
+                                     fs.y_edges[j]:fs.y_edges[j + 1]]
         wet = fl.tile_wet(own, fs.lay, *tile)
     return torch.from_numpy(wet).to(device)
 
@@ -1506,7 +1513,7 @@ def parent_persistent(theirs, basin, prec, mask, hr, worst) -> int:
     one launch a window (torch.profiler misses cooperative launches) in
     the order parent, this, this, parent, parent, this, three windows a
     side (up to nine where this / parent is above 1.02). Folds the ratio
-    into ``worst[True]``; returns the runs held."""
+    into ``worst[0]``; returns the runs held."""
     from ocean_model_arch_torch.core.grid import build_grid
     from ocean_model_arch_torch.host import frame_of_land_mask
     from ocean_model_arch_torch.model.fused import FusedSWModel
@@ -1546,7 +1553,7 @@ def parent_persistent(theirs, basin, prec, mask, hr, worst) -> int:
             ratio = med["T"] / med["P"]
             if ratio <= 1.02:
                 break
-        worst[True] = max(worst[True], ratio)
+        worst[0] = max(worst[0], ratio)
         key = (n_tr, mine.mu_mode(n_tr, mu, fp.visc),
                fp.hr_const is None and not fp.general, fp.trans, fp.ffs,
                fp.general)
@@ -2804,9 +2811,8 @@ def launcher_host_us(mine, theirs, n: int = 10000) -> str:
                           steps_per_call=spc, tile_guard=guard)
         s = fm.pack(init_ocean_state(grid, cfg))
         args = model_args(fm, cfg)
-        # the parent's guard flags at its own tile (its chained tracer
-        # forms ran 16 x 32 tiles)
-        tile = tuple(theirs.tile_shape(s[0].device, spc))
+        # the parent's guard flags at its own tile
+        tile = parent_tile(theirs, s[0].device, fm)
         old_args = args if tile == fm.tile else (
             *args[:6], flags_at(fm, None, tile, s[0].device), tile,
             *args[8:])
@@ -3728,17 +3734,35 @@ def general_name(fm) -> str:
             + forms + (feats or "_guarded" * bool(fm.tile_guard)))
 
 
-def with_form(model, cfg, mu: float):
+def with_form(model, cfg, mu: float, spc: int | None = None):
     """A shallow copy of a general-form model (single block or shards)
-    that runs the form of ``cfg`` with the viscosity ``mu``, as its
-    constructor would set it: the general form's statics depend on the
-    grid, the tracer count and the steps a launch only, so one build
-    serves every (advection, free surface, mu) form of them."""
+    that runs the form of ``cfg`` with the viscosity ``mu`` (and ``spc``
+    steps a launch, if given), as its constructor would set it: the
+    general form's statics depend on the grid, the tracer count and the
+    steps a launch only, so one build serves every (advection, free
+    surface, mu) form of them, its guard's flags rebuilt where its form's
+    tile differs (a chained form's tile depends on its tracers and its
+    viscosity)."""
+    from ocean_model_arch_torch.ops.fused_step import tile_shape
     m = copy.copy(model)
     m.cfg, m.mu_const = cfg, float(mu)
     m.visc = bool(cfg.sw.ksw_lat and m.mu_const != 0.0)
     m.trans = int(cfg.sw.trans_terms > 0)
     m.ffs = int(cfg.sw.full_free_surface > 0)
+    if spc is not None:
+        m.steps_per_call = spc
+    sharded = hasattr(m, "shard_lay")
+    dev = m.met_shards[0][0].device if sharded else m.met.device
+    tile = tuple(tile_shape(dev, m.steps_per_call, n_tracers=m.n_tracers,
+                            visc=m.visc, general=True))
+    if tile != tuple(m.tile):
+        m.tile = tile
+        if sharded:
+            m.tile_wet = [[flags_at(m, (m, None), tile, dev, (i, j))
+                           if m.tile_guard else None for j in range(m.py)]
+                          for i in range(m.px)]
+        elif m.tile_wet is not None:
+            m.tile_wet = flags_at(m, None, tile, dev)
     return m
 
 
@@ -3746,26 +3770,20 @@ def general_models(grid, cfg, mu: float, spc: int, one=None) -> dict:
     """Phase 13a's models of one (grid, tracer count, steps a launch),
     built by their constructors: the single general block and, on metric
     planes, its static reciprocal twin, guarded; the 2 x 2 general shards;
-    the land masks of the carried fields and the all-land tiles' cells.
-    ``one``: the same at one step a launch, whose block and twin serve two
-    steps a launch too (the chained tile is the same; the shards' margin
-    is not)."""
+    the land masks of the carried fields. ``one``: the same at one step a
+    launch, whose block and twin serve two steps a launch too, their
+    guard's flags built at the chained tile (``with_form``; the shards'
+    margin differs: built anew)."""
     from ocean_model_arch_torch.model.fused import FusedSWModel
     from ocean_model_arch_torch.model.fused_sharded2d import \
         FusedSharded2DModel
-    from ocean_model_arch_torch.ops.fused_step import tile_shape
     fs = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, mu_const=mu,
                              steps_per_call=spc, static_rslu=False)
     if one is not None:
         out = dict(one, shards=fs)
         for k in ("block", "static"):
             if one[k] is not None:
-                out[k] = copy.copy(one[k])
-                out[k].steps_per_call = spc
-                check(out[k].tile == tile_shape(
-                    grid.lu.device, spc, n_tracers=out[k].n_tracers,
-                    visc=out[k].visc, general=True),
-                      "phase 13a: the chained tile is not the one-step tile")
+                out[k] = with_form(one[k], cfg, mu, spc)
         return out
     fm = FusedSWModel(grid, cfg, 1.0, mu_const=mu, steps_per_call=spc,
                       tile_guard=True)
@@ -3776,10 +3794,7 @@ def general_models(grid, cfg, mu: float, spc: int, one=None) -> dict:
            if fm.metrics_2d else None)
     check((fst is None or fst.general) and fs.general,
           "phase 13a: a twin or the shards are not the general form")
-    tx, ty = fm.tile
-    dry = (fm.tile_wet == 0).repeat_interleave(tx, 0) \
-        .repeat_interleave(ty, 1)[:fm.lay.Xs, :fm.lay.Ys]
-    return {"block": fm, "static": fst, "shards": fs, "dry": dry,
+    return {"block": fm, "static": fst, "shards": fs,
             "land": land_masks(fm, grid, fm.n_tracers)}
 
 
@@ -3803,7 +3818,10 @@ def compare_general(tag, grid, models, cfg, mu, stats, plain) -> int:
     spc, form = fm.steps_per_call, general_name(fm)
     on = model_args(fm, cfg)
     off = on[:6] + (None,) + on[7:]
-    land, dry = models["land"], models["dry"]
+    land, (tx, ty) = models["land"], fm.tile
+    # the cells of the all-land tiles at the form's tile
+    dry = (fm.tile_wet == 0).repeat_interleave(tx, 0) \
+        .repeat_interleave(ty, 1)[:fm.lay.Xs, :fm.lay.Ys]
     s0 = fm.pack(state)
     n_carry = N_CARRY // spc
 
@@ -4002,7 +4020,7 @@ def general_paths(grids, cfgs, cfgs_b, prec, wet, pts, card, name, run,
         run["kernels"][form] = (fm, fm.n_tracers, t)
         b_ms, b_by, nbytes = bound_ms(fm, fm.n_tracers)
         by_tma = general_geometry(fm.n_tracers, fm.steps_per_call,
-                                  fm.visc).tma
+                                  fm.visc, fm.metrics_2d).tma
         head = (f"kernel by {'TMA' if by_tma else 'threads'} "
                 f"{t['ms_kernel'] * 1e3:.1f} us a launch, "
                 f"{nbytes / 1e6:.1f} MB, bound {b_ms * 1e3:.1f} us ({b_by}), "
@@ -4915,9 +4933,11 @@ def fl_margin(steps: int, fs) -> int:
 def main(argv=()) -> int:
     if argv and (len(argv) not in (2, 3) or argv[0] != "--parent"
                  or argv[2:] not in ([], ["--bathymetry"], ["--general"],
-                                     ["--chained"], ["--one-step"])):
+                                     ["--general-chained"], ["--chained"],
+                                     ["--one-step"])):
         print("usage: chip_smoke.py [--parent DIR [--bathymetry | "
-              "--general | --chained | --one-step]]", file=sys.stderr)
+              "--general | --general-chained | --chained | --one-step]]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -5592,6 +5612,7 @@ def main(argv=()) -> int:
     probe = load_script("roofline_probe_torch")
     cs.copy_step.launches = 0
     cs.copy_step.loader_launches.clear()
+    retaken = probe.kernel_us.retaken
     # the threads' loader is the floor only of the forms that keep it:
     # the viscous fast forms on metric planes (every general form the
     # probe's inputs stand for loads by TMA)
@@ -5610,14 +5631,22 @@ def main(argv=()) -> int:
                        (0, True, False, False)), threads=THREADS_FORMS)
     launches["copy_step"] = cs.copy_step.loader_launches["tma"]
     launches["copy_step_threads"] = cs.copy_step.loader_launches["threads"]
+    # windows torch.profiler recorded nothing in, taken again (kernel_us)
+    retaken = probe.kernel_us.retaken - retaken
     # K4: the stacked copy step, exactly against its plain version on the
     # card, and its us/launch against the separate form on the same planes
     cs.copy_step_stacked.launches = 0
+    retaken_k4 = probe.kernel_us.retaken
     k4 = probe.stacked(basin.nx, basin.ny, N_TIME)
     launches["copy_step_stacked"] = cs.copy_step_stacked.launches
-    check(all(r["equal"] for r in k4) and launches["copy_step_stacked"]
-          == len(k4) * (N_TIME + 2), "the stacked copy step differs from its "
-          f"plain version or launched {launches['copy_step_stacked']} times")
+    # a check, a warm-up and N_TIME launches each, N_TIME more for each
+    # window taken again (the stacked one's or the separate one's)
+    extra_k4 = launches["copy_step_stacked"] - len(k4) * (N_TIME + 2)
+    check(all(r["equal"] for r in k4) and extra_k4 >= 0
+          and extra_k4 % N_TIME == 0
+          and extra_k4 <= (probe.kernel_us.retaken - retaken_k4) * N_TIME,
+          "the stacked copy step differs from its plain version or "
+          f"launched {launches['copy_step_stacked']} times")
     stack0 = torch.randn((k4[0]["n_in"], lay.Xs, lay.Ys), device="cuda")
     met_k4 = torch.randn((k4[0]["n_met"], lay.Ys), device="cuda")
     plain_ms["copy_step_stacked"] = cuda_ms(lambda: cs.copy_step_reference(
@@ -5625,14 +5654,19 @@ def main(argv=()) -> int:
     n_forms = len(probe.FORMS) * (1 + len(masks)) + 2 + len(forms_r)
     n_threads = sum(r["us_threads"] is not None
                     for r in forms + forms_s + forms_r)
-    # each form timed by TMA, the forms that keep it by threads too
-    check(launches["copy_step"] == n_forms * (N_TIME + 1)
-          and launches["copy_step_threads"] == n_threads * (N_TIME + 1)
+    # each form timed by TMA, the forms that keep it by threads too, a
+    # warm-up and N_TIME launches each, and N_TIME more for each window
+    # taken again
+    extra = (launches["copy_step"] - n_forms * (N_TIME + 1),
+             launches["copy_step_threads"] - n_threads * (N_TIME + 1))
+    check(all(e >= 0 and e % N_TIME == 0 for e in extra)
+          and sum(extra) == retaken * N_TIME
           and n_threads == len(THREADS_FORMS) * (1 + len(masks))
           and len(forms) + len(forms_s) + len(forms_r) == n_forms,
           f"the probe launched the copy step {launches['copy_step']} times "
           f"by TMA and {launches['copy_step_threads']} by threads for "
-          f"{len(forms) + len(forms_s) + len(forms_r)} forms")
+          f"{len(forms) + len(forms_s) + len(forms_r)} forms, {retaken} "
+          "windows taken again")
 
     def cs_key(r):
         return (r["n_tracers"], r["guard"], r["met2d"], r["visc"],
@@ -5741,7 +5775,8 @@ def main(argv=()) -> int:
         else:
             b_ms, b_by, _ = bound_ms(m, n_tr)
         check(launches[form] > 0, f"{form} was never launched on its path")
-        by_tma = (general_geometry(m.n_tracers, m.steps_per_call, m.visc).tma
+        by_tma = (general_geometry(m.n_tracers, m.steps_per_call, m.visc,
+                                   m.metrics_2d).tma
                   if m.general else not (m.metrics_2d and m.visc))
         entries.append({
             "name": form, "route": "cuda", "source": CSRC + "fused_step.cu",

@@ -197,11 +197,10 @@
 // groups read them. The 4 T tracer pointers are a device array the
 // launcher fills in stream order (any count, no bound in the kernel's
 // parameters). A chained launch keeps as many of step A's 2 T tracer
-// levels as fit in shared memory (5 of them at the fast forms' 32 x 32
-// tile, 6 viscous at 32 x 24; every level up to T = 8, 7 viscous, at the
-// general forms' 16 x 32) and the others in a device scratch of window
-// planes of the block's own, which it writes in step A and reads back in
-// step B:
+// levels as fit in shared memory (5 of them at the 32 x 32 tile, 6
+// viscous at 32 x 24, the fast and the general forms alike) and the
+// others in a device scratch of window planes of the block's own, which it
+// writes in step A and reads back in step B:
 // no other block touches them, so no grid-wide sync. What bounds it:
 // memory, as above, 16 bytes a cell for each tracer; the levels in
 // scratch add their write and read, mostly from L2.
@@ -240,9 +239,18 @@
 //
 // What the design does about it: the same 16 shared-memory planes as the
 // fast form, so the same blocks an SM (three of one step a launch up to
-// 73 KB). The general form keeps no depth plane: its masks and wet counts
-// come from the lu window (in S_LD), the momentum stage re-forms hhu and
-// hhv from the aq window, and the previous-level column from sshp and hr
+// 73 KB), and the fast forms' chained tiles and column walk: 32 x 32 /
+// 1024 with tracers (32 x 24 / 768 viscous) at one block an SM, each
+// stage a column a thread, its row loop rolled, the profile's metric rows
+// held a column (the next column's too, for the shifted reads: NEXT); the
+// chained forms without tracers on profile metrics walk too, by TMA at two
+// blocks and 228 KB (0.94-0.99 of their parent's time), the viscous ones
+// and those on metric planes keep the row-major body and the threads'
+// loader (gen_step). Where a cell is computed moves, not how, so every
+// chained form keeps its parent's bits. The general form keeps no depth
+// plane: its masks and wet counts come from the lu window (in S_LD), the
+// momentum stage re-forms hhu and hhv from the aq window, and the
+// previous-level column from sshp and hr
 // at the three cells it needs, so the planes the fast form spent on hu,
 // hv and aqp hold the general form's eight edge terms (F, G, K, L, the
 // vorticity terms H and M and the Coriolis terms, each differenced with
@@ -374,17 +382,23 @@
 //
 // The general body's loader (sw_step_gen under GenPlan, fused_tile.cuh):
 // ssh, u, v, lu and hr, and a viscous form's up, vp, each one box of the
-// window, two mbarrier groups (stage 0, stage 1). That body reads up to a
-// dozen metric values a cell from device memory (16 planes on metric
-// planes) through L1, so its budget is the carveout its threads' twin
-// sits in, not the SM: a form moves only where its blocks keep that
-// carveout with the 40-column window (164 KB one step without tracers,
-// with 15 working planes: S_AQP is the tracers' column only; 196 KB with
-// tracers, and hr gets a plane of its own; 196 KB / 228 KB viscous;
-// chained with tracers, one block), and every general kernel is given its
-// carveout (cudaFuncAttributePreferredSharedMemoryCarveout). The chained
-// forms without tracers keep the threads' loader: their 48-column window
-// takes two blocks past 196 KB.
+// window, two mbarrier groups (stage 0, stage 1). One step a launch, that
+// body reads up to a dozen metric values a cell from device memory (16
+// planes on metric planes) through L1, so its budget is the carveout its
+// threads' twin sits in, not the SM: a form moves only where its blocks
+// keep that carveout with the 40-column window (164 KB one step without
+// tracers, with 15 working planes: S_AQP is the tracers' column only; 196
+// KB with tracers, and hr gets a plane of its own; 196 KB / 228 KB
+// viscous), and every general kernel is given its carveout
+// (cudaFuncAttributePreferredSharedMemoryCarveout). A chained form on
+// profile metrics walks its stages a column a thread (walk) and holds the
+// rows a column, so its budget is the SM: two blocks of 108 KB without
+// tracers (hr in a plane of its own), one block with tracers on the tracer
+// forms' tiles (on metric planes too, at their twin's 228 KB), the
+// run-time family at the carveout of the levels its block keeps; the
+// chained forms without tracers that are viscous (two blocks pass 228 KB
+// by TMA) or on metric planes (their twin's 196 KB) keep the threads'
+// loader.
 //
 // K2's walk (WalkTile, below) loads each tile by TMA, the fast body with
 // Plan, the general one with GenPlan: the barriers are initialised once a
@@ -618,12 +632,12 @@ __host__ __device__ constexpr int gen_plane(int s) {
 // The general body's boxes (GenPlan): group 0 ssh, u, v, lu and hr (into
 // a plane of its own, or S_AQ), waited on by stage 0; group 1 a viscous
 // form's up, vp (into S_F, S_K), waited on by stage 1.
-template <int NT, int STEPS, bool VISC, bool INIT, class MapsT>
+template <int NT, int STEPS, bool VISC, bool MET2D, bool INIT, class MapsT>
 __device__ __forceinline__ void load_gen_windows(const MapsT& m, float* sm,
                                                  uint64_t* bars, int x0,
                                                  int y0) {
-  using Fm = Form<NT, STEPS>;
-  using GP = GenPlan<NT, STEPS, VISC>;
+  using Fm = Form<NT, STEPS, true, VISC>;
+  using GP = GenPlan<NT, STEPS, VISC, MET2D>;
   const auto box = [&](int slot, int plane, int group) {
     tma::load_2d(sm + plane * Fm::PLANE, m.at(slot), &bars[group], x0,
                  y0 - Fm::R);
@@ -739,14 +753,19 @@ __device__ __forceinline__ float* chain_level(const Params& p, float* e_tr,
 }
 
 // The metric rows a stage reads, as its cells see them: `get<M>(mi)` is
-// row M at index mi (the column of a profile row, the cell of a plane).
-// MetAt reads device memory at each call; MetHeld<Ms...> holds rows Ms of
-// a profile for one column, read once (0 off the array's columns, where
-// no cell reads them), and reads the others as MetAt does.
+// row M at index mi (the column of a profile row, the cell of a plane), and
+// `get<M | NEXT>(mi)` row M at mi + 1 (the next column's; the general
+// form's shifted reads). MetAt reads device memory at each call;
+// MetHeld<Ms...> holds rows Ms of a profile for one column, read once (0
+// off the array's columns, where no cell reads them), and reads the others
+// as MetAt does.
+constexpr int NEXT = 64;
 struct MetAt {
   const Params& p;
-  template <int M>
-  __device__ __forceinline__ float get(size_t mi) const { return p.met[M][mi]; }
+  template <int M, class I>
+  __device__ __forceinline__ float get(I mi) const {
+    return p.met[M % NEXT][mi + M / NEXT];
+  }
 };
 
 template <int... Ms>
@@ -760,14 +779,14 @@ struct MetHeld {
     return at;
   }
   __device__ __forceinline__ MetHeld(const Params& q, int gy) : p(q) {
-    const bool in = gy >= 0 && gy < q.Ys;
     int k = 0;
-    ((v[k++] = in ? q.met[Ms][gy] : 0.f), ...);
+    ((v[k++] = gy + Ms / NEXT >= 0 && gy + Ms / NEXT < q.Ys
+                   ? q.met[Ms % NEXT][gy + Ms / NEXT] : 0.f), ...);
   }
-  template <int M>
-  __device__ __forceinline__ float get(size_t mi) const {
+  template <int M, class I>
+  __device__ __forceinline__ float get(I mi) const {
     if constexpr (slot<M>() >= 0) return v[slot<M>()];
-    else return p.met[M][mi];
+    else return p.met[M % NEXT][mi + M / NEXT];
   }
 };
 
@@ -786,8 +805,12 @@ struct Rows {};
 // NTHREADS % w threads idle): no division a cell, and with HOLD (profile
 // metrics, a fixed tracer count) the rows Ms are read once a column
 // (MetHeld), where the run-time tracer family keeps its registers for its
-// loop.
-template <bool COLS, bool HOLD, int TX, int TY, int WH, int NTHREADS, int h,
+// loop. COLS (WALK_*): row-major cells, a column a thread, or a column a
+// thread with the row loop kept rolled: nvcc unrolls it twice otherwise,
+// which the general body's cheaper chained forms paid up to 6 % for
+// (PERF.md).
+enum { WALK_ROWS, WALK_COLS, WALK_ROLLED };
+template <int COLS, bool HOLD, int TX, int TY, int WH, int NTHREADS, int h,
           int... Ms, class Body>
 __device__ __forceinline__ void walk(const Params& p, int tid, int y0,
                                      Rows<Ms...>, Body&& body) {
@@ -802,8 +825,14 @@ __device__ __forceinline__ void walk(const Params& p, int tid, int y0,
     if (tid >= R * w) return;
     const int c = tid % w, b = WH - h + c;
     const auto cells = [&](const auto& m) {
-      for (int r = tid / w; r < TX + 2 * h; r += R)
-        body(WH - h + r, b, m, r * w + c);
+      if constexpr (COLS == WALK_ROLLED) {
+#pragma unroll 1
+        for (int r = tid / w; r < TX + 2 * h; r += R)
+          body(WH - h + r, b, m, r * w + c);
+      } else {
+        for (int r = tid / w; r < TX + 2 * h; r += R)
+          body(WH - h + r, b, m, r * w + c);
+      }
     };
     if constexpr (HOLD) cells(MetHeld<Ms...>(p, y0 + b));
     else cells(MetAt{p});
@@ -1442,8 +1471,11 @@ __device__ __forceinline__ float gen_rcp_h(const Params& p, const float* s_lu,
 }
 
 // One model step of the general form (see the file's head), with the
-// stages, regions and chained-step bookkeeping of sw_step. Its use of the
-// 16 window planes:
+// stages, regions and chained-step bookkeeping of sw_step, each stage's
+// cells row-major: the one-step forms, K2's walk and the chained forms
+// without tracers that are viscous or on metric planes (gen_step; the
+// other chained forms walk columns, sw_step_gen). Its use of the 16 window
+// planes:
 //   S_LD <- lu; S_AQ <- aq; S_UD, S_VD <- the mass fluxes u*hhu*dyh,
 //   v*hhv*dxh; S_F, S_K, S_RX, S_SY <- the viscous forms' up/dyh, vp/dxh,
 //   up/dxt, vp/dyt between stage 1 and the stress stage, as in sw_step;
@@ -1457,17 +1489,18 @@ __device__ __forceinline__ float gen_rcp_h(const Params& p, const float* s_lu,
 // 128-byte aligned), the arithmetic unchanged: the same bits.
 template <int NT, bool MET2D, int MU, bool RAW, bool TRANS, bool FFS,
           int STEPS, int STEP, class FieldsT, class Where, class MapsT = Maps>
-__device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
-                                            float* sm, float& mx,
-                                            const Where& where,
-                                            const MapsT* maps = nullptr,
-                                            uint64_t* bars = nullptr) {
-  using GP = GenPlan<NT, STEPS, MU == 2>;
+__device__ __forceinline__ void sw_step_gen_rows(const Params& p,
+                                                 const FieldsT& f, float* sm,
+                                                 float& mx,
+                                                 const Where& where,
+                                                 const MapsT* maps = nullptr,
+                                                 uint64_t* bars = nullptr) {
+  using GP = GenPlan<NT, STEPS, MU == 2, MET2D>;
   constexpr bool USE_TMA = Where::TMA && GP::ON;
-  using Fm = Form<NT, STEPS, USE_TMA>;
+  using Fm = Form<NT, STEPS, USE_TMA, MU == 2>;
   constexpr int HALO = Fm::HALO, EXTRA = Fm::EXTRA, WH = Fm::WH;
   constexpr int TX = Fm::TX, TY = Fm::TY;
-  constexpr int NTHREADS = Tile<STEPS>::NTHREADS;
+  constexpr int NTHREADS = Tile<STEPS, NT, MU == 2>::NTHREADS;
   constexpr int WY = Fm::WY, PLANE = Fm::PLANE;
   constexpr bool VISC = MU == 2;            // stress stages
   constexpr bool DIFF = NT != 0 && MU != 0; // tracers' diffusive fluxes
@@ -1536,8 +1569,8 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
     // cell's column overwrites. Each thread's cell areas are loaded while
     // the boxes land (metric planes are as many bytes as the fields).
     if (tid() == 0)
-      load_gen_windows<NT, STEPS, MU == 2, Where::INIT>(*maps, sm, bars,
-                                                        x0(), y0());
+      load_gen_windows<NT, STEPS, MU == 2, MET2D, Where::INIT>(
+          *maps, sm, bars, x0(), y0());
     if (Where::INIT) __syncthreads();
     constexpr int NI = (Fm::CELLS + NTHREADS - 1) / NTHREADS;
     float area[NI];
@@ -2013,6 +2046,627 @@ __device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
   }
 }
 
+// One step of a chained launch of the general form (sw_step_gen_rows'
+// stages, planes and bookkeeping; gen_step picks it), each stage's region
+// walked a column a thread, the row loop kept rolled (walk, WALK_ROLLED),
+// and on profile metrics with a fixed tracer count the rows each stage
+// reads held for the column, its next column's among them (NEXT). Where a
+// cell is computed moves, not how: the same bits as the row-major body.
+template <int NT, bool MET2D, int MU, bool RAW, bool TRANS, bool FFS,
+          int STEPS, int STEP, class FieldsT, class Where, class MapsT = Maps>
+__device__ __forceinline__ void sw_step_gen(const Params& p, const FieldsT& f,
+                                            float* sm, float& mx,
+                                            const Where& where,
+                                            const MapsT* maps = nullptr,
+                                            uint64_t* bars = nullptr) {
+  static_assert(STEPS > 1, "the chained forms walk columns");
+  constexpr bool VISC = MU == 2;            // stress stages
+  using GP = GenPlan<NT, STEPS, VISC, MET2D>;
+  constexpr bool USE_TMA = Where::TMA && GP::ON;
+  using Fm = Form<NT, STEPS, USE_TMA, VISC>;
+  constexpr int HALO = Fm::HALO, EXTRA = Fm::EXTRA, WH = Fm::WH;
+  constexpr int TX = Fm::TX, TY = Fm::TY;
+  constexpr int NTHREADS = Tile<STEPS, NT, VISC>::NTHREADS;
+  constexpr int WY = Fm::WY, PLANE = Fm::PLANE;
+  constexpr bool DIFF = NT != 0 && MU != 0; // tracers' diffusive fluxes
+  constexpr bool LOOP = NT < 0;             // a run-time tracer count
+  constexpr bool FIRST = STEP == 0, LAST = STEP == STEPS - 1;
+  constexpr int OH = HALO * (STEPS - 1 - STEP);   // this step's output halo
+  constexpr int VH = OH + Fm::VH, VW = TY + 2 * VH;
+  // the loader: LD, this step's window came by TMA; HRX, hr in a plane of
+  // its own
+  constexpr bool LD = USE_TMA && FIRST, HRX = USE_TMA && GP::HR;
+  // each stage a column a thread, its row loop rolled; on profile
+  // metrics with a fixed tracer count the rows held a column (walk)
+  constexpr int COLS = WALK_ROLLED;
+  constexpr bool HOLD = !MET2D && !LOOP;
+
+  const int tid0 = where.thread();
+  const auto tid = [&] { return where.thread(tid0); };
+  // the window planes: under the loader R columns into each plane, where
+  // its box begins on a multiple of 16 bytes (fused_tile.cuh)
+  float* sw = sm + Fm::R;
+  const auto at_plane = [&](int s) {
+    return sw + gen_plane<NT, USE_TMA>(s) * PLANE;
+  };
+  float* s_ssh = at_plane(FIRST ? S_SSH : E_SSH);
+  float* s_u = at_plane(S_U);
+  float* s_v = at_plane(S_V);
+  float* s_lu = at_plane(S_LD);
+  float* s_aq = at_plane(S_AQ);
+  float* s_aqn = at_plane(FFS ? S_AQP : S_AQ);   // tracers' column
+  float* s_ud = at_plane(S_UD);
+  float* s_vd = at_plane(S_VD);
+  float* s_ef = at_plane(S_F);              // F   (viscous: up/dyh first)
+  float* s_ek = at_plane(S_K);              // K   (vp/dxh)
+  float* s_eh = at_plane(S_RX);             // H   (up/dxt)
+  float* s_em = at_plane(S_SY);             // M   (vp/dyt)
+  float* s_eg = at_plane(S_HU);             // G
+  float* s_el = at_plane(S_HV);             // L
+  float* s_cv = at_plane(S_CX);             // Cv
+  float* s_cu = at_plane(S_CY);             // Cu
+  const float* x_hr = sw + GP::P_HR * PLANE;   // hr's own plane (HRX)
+  const int n_win = LOOP && STEPS > 1 ? Fm::N_BASE + p.n_lev_sm : GP::N_WIN;
+  float* s_a2 = sm + n_win * PLANE + V_A2 * Fm::VPLANE;   // viscous
+  float* s_b2 = sm + n_win * PLANE + V_B2 * Fm::VPLANE;   // forms only
+  float* s_d2 = sm + n_win * PLANE + V_D2 * Fm::VPLANE;
+  float* s_e2 = sm + n_win * PLANE + V_E2 * Fm::VPLANE;
+  float* e_ssh = at_plane(E_SSH);
+  float* e_sshp = at_plane(E_SSHP);
+  float* e_up = at_plane(E_UP);
+  float* e_vp = at_plane(E_VP);
+  float* e_tr = at_plane(E_TR);             // see chain_level
+
+  // global row of window row 0, global column of window column 0
+  const int2 org = where.template origin<TX, TY, WH>();
+  const auto x0 = [&] { return where.template x0<TX, TY, WH>(org); };
+  const auto y0 = [&] { return where.template y0<TX, TY, WH>(org); };
+  const int plane = p.Xs * p.Ys;
+  const float* lu = p.planes;
+  const float* hr = p.hrp;
+  const int W = 1;                          // one window row/col offset
+  const int S = WY;                         // window row stride
+  // a metric row's index of array cell g in column gy
+  auto mix = [&](int g, int gy) { return MET2D ? g : gy; };
+  // the rows each stage reads (walk holds them on profile metrics)
+  using RowsS1 = Rows<G_RDXT, G_RDYH, G_RDXH, G_RDYT, G_DYH, G_DXH>;
+  using RowsS2 = std::conditional_t<
+      TRANS, Rows<G_RDXB, G_RDYB, G_RLH, G_DXB, G_DYB, G_DYT, G_DXT,
+                  G_DXT | NEXT>,
+      Rows<G_RDXB, G_RDYB, G_RLH, G_DXB, G_DYB>>;
+  using RowsS3 = std::conditional_t<NT && FFS, Rows<G_RDXDY, G_DX, G_DY>,
+                                    Rows<G_RDXDY>>;
+  using RowsS4 = Rows<G_DYH, G_DXH, G_RDXT, G_RDYH, G_RDXH, G_RDYT>;
+
+  // stage 0 (halo 3 + EXTRA): load the window; aq = (hr + ssh * ffs) *
+  // (dx * dy) * lu. A later step of a chained launch forms aq anew from
+  // the previous step's ssh (the static column of a linear free surface
+  // stays from the first)
+  if (FIRST && LD) {
+    // every box in flight at once; hr in its plane, or in S_AQ, which this
+    // cell's column overwrites. Each thread's cell areas are loaded while
+    // the boxes land (metric planes are as many bytes as the fields).
+    if (tid() == 0)
+      load_gen_windows<NT, STEPS, MU == 2, MET2D, Where::INIT>(
+          *maps, sm, bars, x0(), y0());
+    if (Where::INIT) __syncthreads();
+    constexpr int NI = (Fm::CELLS + NTHREADS - 1) / NTHREADS;
+    float area[NI];
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const int i = tid() + j * NTHREADS;
+      const int gx = x0() + i / WY, gy = y0() + i % WY;
+      area[j] = 0.f;
+      if (i < Fm::CELLS && inside(p, gx, gy)) {
+        const int mi = mix(gx * p.Ys + gy, gy);
+        area[j] = p.met[G_DX][mi] * p.met[G_DY][mi];
+      }
+    }
+    tma::bar_wait(&bars[G_S0], where.phase());
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const int i = tid() + j * NTHREADS;
+      if (i >= Fm::CELLS) break;
+      const int gx = x0() + i / WY, gy = y0() + i % WY;
+      float aq = 0.f;
+      if (inside(p, gx, gy)) {
+        const float h = HRX ? x_hr[i] : s_aq[i];
+        aq = ((FFS ? h + s_ssh[i] : h) * area[j]) * s_lu[i];
+      }
+      s_aq[i] = aq;
+    }
+    __syncthreads();
+  } else if (FIRST) {
+    for (int i = tid(); i < Fm::CELLS; i += NTHREADS) {
+      const int gx = x0() + i / WY, gy = y0() + i % WY;
+      float ssh = 0.f, u = 0.f, v = 0.f, l = 0.f, aq = 0.f;
+      if (inside(p, gx, gy)) {
+        const int g = gx * p.Ys + gy, mi = mix(g, gy);
+        ssh = f.ssh[g]; u = f.u[g]; v = f.v[g]; l = lu[g];
+        aq = ((FFS ? hr[g] + ssh : hr[g])
+              * (p.met[G_DX][mi] * p.met[G_DY][mi])) * l;
+      }
+      s_ssh[i] = ssh; s_u[i] = u; s_v[i] = v; s_lu[i] = l; s_aq[i] = aq;
+    }
+    __syncthreads();
+  } else if (FFS) {
+    walk<COLS, HOLD, TX, TY, WH, NTHREADS, OH + HALO>(
+        p, tid(), y0(), Rows<G_DX, G_DY>{},
+        [&](int a, int b, const auto& m, int) {
+      const int k = a * S + b, gx = x0() + a, gy = y0() + b;
+      float aq = 0.f;
+      if (inside(p, gx, gy)) {
+        const int g = gx * p.Ys + gy, mi = mix(g, gy);
+        aq = (((HRX ? x_hr[k] : hr[g]) + s_ssh[k])
+              * (m.template get<G_DX>(mi) * m.template get<G_DY>(mi)))
+            * s_lu[k];
+      }
+      s_aq[k] = aq;
+    });
+    __syncthreads();
+  }
+
+  // stage 1 (halo 2 + EXTRA): the depth interps hhu, hhv and the mass
+  // fluxes; with viscosity the previous-level velocities over their
+  // metrics (by TMA in S_F, S_K, which this cell's products overwrite)
+  {
+    if constexpr (LD && MU == 2) tma::bar_wait(&bars[G_S1], where.phase());
+    walk<COLS, HOLD, TX, TY, WH, NTHREADS, OH + 2 + EXTRA>(
+        p, tid(), y0(), RowsS1{}, [&](int a, int b, const auto& m, int) {
+      const int k = a * S + b, gx = x0() + a, gy = y0() + b;
+      float ud = 0.f, vd = 0.f;
+      if (inside(p, gx, gy)) {
+        const int g = gx * p.Ys + gy, mi = mix(g, gy);
+        const float hu = ((s_aq[k] + s_aq[k + S])
+                          * gen_rcp_u(p, s_lu, k, g, S))
+            * (m.template get<G_RDXT>(mi) * m.template get<G_RDYH>(mi));
+        const float hv = ((s_aq[k] + s_aq[k + W])
+                          * gen_rcp_v(p, s_lu, k, g, plane))
+            * (m.template get<G_RDXH>(mi) * m.template get<G_RDYT>(mi));
+        ud = (s_u[k] * hu) * m.template get<G_DYH>(mi);
+        vd = (s_v[k] * hv) * m.template get<G_DXH>(mi);
+        if (VISC) {
+          const float up = LD ? s_ef[k] : FIRST ? f.up[g] : e_up[k];
+          const float vp = LD ? s_ek[k] : FIRST ? f.vp[g] : e_vp[k];
+          s_ef[k] = up * m.template get<G_RDYH>(mi);
+          s_ek[k] = vp * m.template get<G_RDXH>(mi);
+          s_eh[k] = up * m.template get<G_RDXT>(mi);
+          s_em[k] = vp * m.template get<G_RDYT>(mi);
+        }
+      } else if (VISC) {
+        s_ef[k] = 0.f; s_ek[k] = 0.f; s_eh[k] = 0.f; s_em[k] = 0.f;
+      }
+      s_ud[k] = ud; s_vd[k] = vd;
+    });
+  }
+  __syncthreads();
+
+  // stress stage (halo 1 + EXTRA, viscous forms): tension at T points,
+  // shear at H points, and their four products with mu, the depth and the
+  // squared metrics of the cell; the small stress planes row-major over
+  // the region (i, as walk counts it). Its rows are read at each use:
+  // held a column, they let nvcc contract otherwise, and the viscous forms
+  // on profile metrics left their parent's bits by an ulp (PERF.md)
+  if (VISC) {
+    const float* s_q = s_ef;
+    const float* s_r = s_ek;
+    const float* s_s1 = s_eh;
+    const float* s_s2 = s_em;
+    walk<COLS, HOLD, TX, TY, WH, NTHREADS, VH>(
+        p, tid(), y0(), Rows<>{}, [&](int a, int b, const auto& m, int i) {
+      const int k = a * S + b, gx = x0() + a, gy = y0() + b;
+      float a2 = 0.f, b2 = 0.f, d2 = 0.f, e2 = 0.f;
+      if (inside(p, gx, gy)) {
+        const int g = gx * p.Ys + gy, mi = mix(g, gy);
+        const float l0 = s_lu[k];
+        const bool wluu = ((l0 * s_lu[k + S]) * s_lu[k + W])
+            * s_lu[k + S + W] > 0.5f;
+        const float dx = m.template get<G_DX>(mi);
+        const float dy = m.template get<G_DY>(mi);
+        const float dxb = m.template get<G_DXB>(mi);
+        const float dyb = m.template get<G_DYB>(mi);
+        if (l0 > 0.5f) {
+          const float str_t = (dy / dx) * (s_q[k] - s_q[k - S])
+              - (dx / dy) * (s_r[k] - s_r[k - W]);
+          const float hq = HRX ? x_hr[k] : hr[g];
+          const float t2 = (FFS ? hq + s_ssh[k] : hq) * str_t;
+          a2 = (dy * dy * p.mu) * t2;
+          b2 = (dx * dx * p.mu) * t2;
+        }
+        if (wluu) {
+          const float hh = ((((s_aq[k] + s_aq[k + S]) + s_aq[k + W])
+                             + s_aq[k + S + W])
+                            * gen_rcp_h(p, s_lu, k, g, plane, S))
+              * (m.template get<G_RDXB>(mi) * m.template get<G_RDYB>(mi));
+          const float str_s =
+              (dxb * m.template get<G_RDYB>(mi)) * (s_s1[k + W] - s_s1[k])
+              + (dyb * m.template get<G_RDXB>(mi)) * (s_s2[k + S] - s_s2[k]);
+          const float hs2 = hh * str_s;
+          d2 = (dxb * dxb * p.mu) * hs2;
+          e2 = (dyb * dyb * p.mu) * hs2;
+        }
+      }
+      s_a2[i] = a2; s_b2[i] = b2; s_d2[i] = d2; s_e2[i] = e2;
+    });
+    __syncthreads();
+  }
+
+  // stage 2 (halo 1 + EXTRA): hhh, the Coriolis terms, and with advection
+  // the vorticity, the edge fluxes and the vorticity terms
+  walk<COLS, HOLD, TX, TY, WH, NTHREADS, OH + 1 + EXTRA>(
+      p, tid(), y0(), RowsS2{}, [&](int a, int b, const auto& m, int) {
+    const int k = a * S + b, gx = x0() + a, gy = y0() + b;
+    float F = 0.f, G = 0.f, K = 0.f, L = 0.f, H = 0.f, Mv = 0.f;
+    float cv = 0.f, cu = 0.f;
+    if (inside(p, gx, gy)) {
+      const int g = gx * p.Ys + gy, mi = mix(g, gy);
+      const bool wluu = ((s_lu[k] * s_lu[k + S]) * s_lu[k + W])
+          * s_lu[k + S + W] > 0.5f;
+      const float hh = ((((s_aq[k] + s_aq[k + S]) + s_aq[k + W])
+                         + s_aq[k + S + W])
+                        * gen_rcp_h(p, s_lu, k, g, plane, S))
+          * (m.template get<G_RDXB>(mi) * m.template get<G_RDYB>(mi));
+      const float u = s_u[k], v = s_v[k];
+      const float ux = s_u[k + S], uy = s_u[k + W];
+      const float vx = s_v[k + S], vy = s_v[k + W];
+      const float s2u = uy + u, s2v = vx + v;
+      const float corio = (m.template get<G_RLH>(mi)
+                           * m.template get<G_DXB>(mi)
+                           * m.template get<G_DYB>(mi)) * hh;
+      cv = corio * s2v;
+      cu = corio * s2u;
+      if (TRANS) {
+        float vort = 0.f;
+        if (wluu) {      // every neighbour wet: inside the array
+          const float vd_t = v * m.template get<G_DYT>(mi);
+          const float vd_tx =
+              vx * m.template get<G_DYT>(MET2D ? g + p.Ys : mi);
+          const float ud_t = u * m.template get<G_DXT>(mi);
+          const float ud_ty = uy * m.template get<G_DXT | NEXT>(mi);
+          vort = ((vd_tx - vd_t) - (ud_ty - ud_t))
+              - ((vx - v) * m.template get<G_DYB>(mi)
+                 - (uy - u) * m.template get<G_DXB>(mi));
+        }
+        const float vorth = vort * hh;
+        const float ud = s_ud[k], vd = s_vd[k];
+        F = (ud + s_ud[k + S]) * (u + ux) * 0.25f;
+        G = (vd + s_vd[k + S]) * s2u * (wluu ? 0.25f : 0.f);
+        K = (vd + s_vd[k + W]) * (v + vy) * 0.25f;
+        L = (ud + s_ud[k + W]) * s2v * 0.25f;
+        H = vorth * s2v;
+        Mv = vorth * s2u;
+      }
+    }
+    if (TRANS) {
+      s_ef[k] = F; s_eg[k] = G; s_ek[k] = K; s_el[k] = L;
+      s_eh[k] = H; s_em[k] = Mv;
+    }
+    s_cv[k] = cv; s_cu[k] = cu;
+  });
+  __syncthreads();
+
+  // stage 3: continuity, momentum, leapfrog + filter, the 6 SW outputs
+  // (halo 0). With tracers the continuity runs at halo 2 and the momentum
+  // at halo 1, and they leave aq_new, un and vn in shared memory. Step A
+  // of a chained launch keeps its outputs (halo 3 + EXTRA) in shared
+  // memory, zeros outside the array, and computes the raw form's margin
+  // too. Three passes, each field stored as soon as it is known: (a) the
+  // continuity and ssh, (b) u, (c) v. None reads what another writes, so
+  // no barrier parts them; apart, each holds few enough values that the
+  // one-step forms keep their 40 registers without spilling.
+  // distance of window cell (a, b) beyond this step's output region: 0
+  // inside it
+  auto ring_of = [&](int a, int b) {
+    return !NT ? 0
+        : max(max(WH - OH - a, a - (WH + OH + TX - 1)),
+              max(max(WH - OH - b, b - (WH + OH + TY - 1)), 0));
+  };
+  walk<COLS, HOLD, TX, TY, WH, NTHREADS, OH + 2 * EXTRA>(
+      p, tid(), y0(), RowsS3{}, [&](int a, int b, const auto& m, int) {
+    const int k = a * S + b, gx = x0() + a, gy = y0() + b;
+    const int ring = ring_of(a, b);
+    if (!inside(p, gx, gy)) {
+      if (NT && FFS) s_aqn[k] = 0.f;
+      if (!LAST && ring == 0) {
+        e_ssh[k] = 0.f; e_sshp[k] = 0.f; e_up[k] = 0.f; e_vp[k] = 0.f;
+      }
+      return;
+    }
+    const int g = gx * p.Ys + gy, mi = mix(g, gy);
+    const float ssh = s_ssh[k], sshp = FIRST ? f.sshp[g] : e_sshp[k];
+    const float l0 = s_lu[k];
+    const bool wlu = l0 > 0.5f;
+
+    // continuity: sshn = sshp - 2 tau div(flux) / (dx dy) on the wet set
+    const float div = ((s_ud[k] - s_ud[k - S]) + s_vd[k]) - s_vd[k - W];
+    const float sshn = wlu ? sshp - p.two_tau
+                                 * (div * m.template get<G_RDXDY>(mi))
+                           : 0.f;
+    // post-step depth column from the new ssh
+    if (NT && FFS)
+      s_aqn[k] = (((HRX ? x_hr[k] : hr[g]) + (wlu ? sshn : ssh))
+                  * (m.template get<G_DX>(mi) * m.template get<G_DY>(mi)))
+          * l0;
+    if (ring > 0) return;
+    if (LAST && RAW && !in_box(p, gx, gy)) return;   // not our margin
+
+    // leapfrog rotation + Robert-Asselin filter
+    const float ssh_new = wlu ? sshn : ssh;
+    const float sshp_new = wlu ? p.ts1 * ssh + p.ts2 * (sshn + sshp) : sshp;
+    if (LAST) {
+      f.ssh_o[g] = ssh_new;
+      f.sshp_o[g] = sshp_new;
+    } else {
+      e_ssh[k] = ssh_new; e_sshp[k] = sshp_new;
+    }
+    // the block's own cells of the box, at every step
+    if ((OH == 0 || (a >= WH && a < WH + TX && b >= WH && b < WH + TY))
+        && gx >= p.margin && gx < p.margin + p.nx
+        && gy >= p.margin && gy < p.margin + p.ny)
+      mx = nan_max(mx, fabsf(ssh_new));
+  });
+  // (b), (c): momentum, (up*bp0 + gr) / bp with bp = hhu * dxt*dyh /
+  // (2 tau), then the rotation and filter of u, and of v. Y selects v.
+  // The previous-level column at cell k + d (array cell g + dg, its metric
+  // row index mi + dm) comes from sshp and hr, as stage 0 forms aq.
+  auto momentum = [&](auto y_pass) {
+    constexpr bool Y = decltype(y_pass)::value;
+    const int D = Y ? W : S;                  // the cell x + 1 or y + 1
+    float* s_c = Y ? s_v : s_u;               // the component
+    float* e_cp = Y ? e_vp : e_up;            // its previous level
+    const float* cp_g = Y ? f.vp : f.up;
+    float* c_o = Y ? f.v_o : f.u_o;
+    float* cp_o = Y ? f.vp_o : f.up_o;
+    using RowsM = std::conditional_t<
+        Y, Rows<G_DX, G_DY, G_DX | NEXT, G_DY | NEXT, G_RDXH, G_RDYT, G_DXH,
+                G_DYT>,
+        Rows<G_DX, G_DY, G_RDXT, G_RDYH, G_DYH, G_DXT>>;
+    walk<COLS, HOLD, TX, TY, WH, NTHREADS, OH + EXTRA>(
+        p, tid(), y0(), RowsM{}, [&](int a, int b, const auto& m, int) {
+      const int k = a * S + b, gx = x0() + a, gy = y0() + b;
+      if (!inside(p, gx, gy)) return;
+      const int g = gx * p.Ys + gy, mi = mix(g, gy);
+      const int dg = Y ? 1 : p.Ys, dm = Y || MET2D ? dg : 0;
+      const bool wet = s_lu[k] * s_lu[k + D] > 0.5f;   // wlcu / wlcv
+      const float c = s_c[k], cp = FIRST ? cp_g[g] : e_cp[k];
+      float cn = 0.f;
+      if (wet) {          // the cell k + D is wet: inside the array
+        // dx * dy at the cell, or (far) at the cell k + D: the next
+        // column's rows for v on a profile
+        auto area = [&](auto far) {
+          if constexpr (decltype(far)::value && Y && !MET2D)
+            return m.template get<G_DX | NEXT>(mi)
+                * m.template get<G_DY | NEXT>(mi);
+          else
+            return m.template get<G_DX>(mi + (decltype(far)::value ? dm : 0))
+                * m.template get<G_DY>(mi + (decltype(far)::value ? dm : 0));
+        };
+        auto aqp = [&](int d, int eg, auto far) {
+          const float sp = FIRST ? f.sshp[g + eg] : e_sshp[k + d];
+          return (((HRX ? x_hr[k + d] : hr[g + eg]) + sp) * area(far))
+              * s_lu[k + d];
+        };
+        // this cell in the small stress planes (viscous forms)
+        const int j = (a - (WH - VH)) * VW + (b - (WH - VH));
+        const float r = Y ? gen_rcp_v(p, s_lu, k, g, plane)
+                          : gen_rcp_u(p, s_lu, k, g, S);
+        const float mt = Y ? m.template get<G_RDXH>(mi)
+                                 * m.template get<G_RDYT>(mi)
+                           : m.template get<G_RDXT>(mi)
+                                 * m.template get<G_RDYH>(mi);
+        const float hc = ((s_aq[k] + s_aq[k + D]) * r) * mt;
+        const float hcp = FFS ? ((aqp(0, 0, std::false_type{})
+                                  + aqp(D, dg, std::true_type{})) * r) * mt
+                              : hc;
+        // the metric across the face: dyh for u, dxh for v
+        const float mf = Y ? m.template get<G_DXH>(mi)
+                           : m.template get<G_DYH>(mi);
+        const float bpm = (Y ? m.template get<G_DYT>(mi) * mf
+                             : m.template get<G_DXT>(mi) * mf)
+            * p.inv_two_tau;
+        float gr = (s_ssh[k + D] - s_ssh[k]) * hc * (mf * p.neg_g);
+        if (Y) {
+          if (VISC)
+            gr = gr + (-(s_b2[j + 1] - s_b2[j]) * m.template get<G_RDXH>(mi)
+                       + (s_e2[j] - s_e2[j - VW])
+                           * m.template get<G_RDYT>(mi));
+          if (TRANS)
+            gr = gr + (-(((s_el[k] - s_el[k - S]) + s_ek[k]) - s_ek[k - W])
+                       - (s_em[k] + s_em[k - S]) * 0.25f);
+          gr = gr - (s_cu[k] + s_cu[k - S]) * 0.25f;
+        } else {
+          if (VISC)
+            gr = gr + ((s_a2[j + VW] - s_a2[j]) * m.template get<G_RDYH>(mi)
+                       + (s_d2[j] - s_d2[j - 1])
+                           * m.template get<G_RDXT>(mi));
+          if (TRANS)
+            gr = gr + (-(((s_ef[k] - s_ef[k - S]) + s_eg[k]) - s_eg[k - W])
+                       + (s_eh[k] + s_eh[k - W]) * 0.25f);
+          gr = gr + (s_cv[k] + s_cv[k - W]) * 0.25f;
+        }
+        cn = (cp * (hcp * bpm) + gr) / (hc * bpm);
+      }
+      if (NT) s_c[k] = cn;      // 0 off the wet set
+      if (ring_of(a, b) > 0) return;
+      if (LAST && RAW && !in_box(p, gx, gy)) return;   // not our margin
+      const float c_new = wet ? cn : c;
+      const float cp_new = wet ? p.ts1 * c + p.ts2 * (cn + cp) : cp;
+      if (LAST) { c_o[g] = c_new; cp_o[g] = cp_new; }
+      else { s_c[k] = c_new; e_cp[k] = cp_new; }
+    });
+  };
+  momentum(std::false_type{});
+  momentum(std::true_type{});
+
+  if (NT) {
+    // The tracers in groups of G, as in sw_step. The transports uh = un *
+    // hhun, vh = vn * hhvn and the diffusive weights kx, ky are the same
+    // for every tracer: a run-time count's first group keeps them in
+    // S_HU, S_HV, S_CX, S_CY (last read in stage 3) for the later groups.
+    constexpr int G = LOOP ? MAX_TRACERS : NT;
+    const int ntr = LOOP ? p.n_tr : NT;
+    float* s_uh = at_plane(S_HU);
+    float* s_vh = at_plane(S_HV);
+    float* s_kx = at_plane(S_CX);
+    float* s_ky = at_plane(S_CY);
+    for (int t0 = 0; t0 < ntr; t0 += G) {
+      const int ng = LOOP ? min(G, ntr - t0) : G;   // tracers of the group
+      __syncthreads();
+
+      // stage 4 (halo 1): post-step depths hhun, hhvn from aq_new, the
+      // transports on the u / v wet sets, and each tracer's centred
+      // advective edge fluxes with their dyh, dxh, plus the diffusive
+      // ones mu * dyh/dxt * hhun * dff/dx when mu != 0
+      walk<COLS, HOLD, TX, TY, WH, NTHREADS, OH + 1>(
+          p, tid(), y0(), RowsS4{}, [&](int a, int b, const auto& m, int) {
+        const int k = a * S + b, gx = x0() + a, gy = y0() + b;
+        const float l0 = s_lu[k];
+        const bool wlcu = l0 * s_lu[k + S] > 0.5f;
+        const bool wlcv = l0 * s_lu[k + W] > 0.5f;
+        float uh = 0.f, vh = 0.f, kx = 0.f, ky = 0.f;
+        float cx = 0.f, cy = 0.f;          // dyh * -1/2, dxh * -1/2
+        if (inside(p, gx, gy)) {
+          const int g = gx * p.Ys + gy, mi = mix(g, gy);
+          cx = m.template get<G_DYH>(mi) * -0.5f;
+          cy = m.template get<G_DXH>(mi) * -0.5f;
+          if (!LOOP || t0 == 0) {
+            const float aqn = s_aqn[k];
+            const float hun = ((aqn + s_aqn[k + S])
+                               * gen_rcp_u(p, s_lu, k, g, S))
+                * (m.template get<G_RDXT>(mi) * m.template get<G_RDYH>(mi));
+            const float hvn = ((aqn + s_aqn[k + W])
+                               * gen_rcp_v(p, s_lu, k, g, plane))
+                * (m.template get<G_RDXH>(mi) * m.template get<G_RDYT>(mi));
+            uh = s_u[k] * hun;
+            vh = s_v[k] * hvn;
+            if (DIFF) {
+              kx = (p.mu * (m.template get<G_DYH>(mi)
+                            * m.template get<G_RDXT>(mi))) * hun;
+              ky = (p.mu * (m.template get<G_DXH>(mi)
+                            * m.template get<G_RDYT>(mi))) * hvn;
+            }
+            if (LOOP) {
+              s_uh[k] = uh; s_vh[k] = vh;
+              if (DIFF) { s_kx[k] = kx; s_ky[k] = ky; }
+            }
+          } else {
+            uh = s_uh[k]; vh = s_vh[k];
+            if (DIFF) { kx = s_kx[k]; ky = s_ky[k]; }
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < G; ++t) {
+          if (LOOP && t >= ng) break;
+          const int l = 2 * (t0 + t);
+          float ff, ffx, ffy;
+          if (FIRST) {
+            const float* ffg = tr_in<NT>(f, l);
+            ff = at(p, ffg, gx, gy);
+            ffx = at(p, ffg, gx + 1, gy);
+            ffy = at(p, ffg, gx, gy + 1);
+          } else {
+            const float* e = chain_level<NT, PLANE>(p, e_tr, l, where);
+            ff = e[k]; ffx = e[k + S]; ffy = e[k + W];
+          }
+          float fx = 0.f, fy = 0.f;
+          if (wlcu) {
+            fx = uh * (ff + ffx) * cx;
+            if (DIFF) fx = fx + kx * (ffx - ff);
+          }
+          if (wlcv) {
+            fy = vh * (ff + ffy) * cy;
+            if (DIFF) fy = fy + ky * (ffy - ff);
+          }
+          at_plane(S_F + 2 * t)[k] = fx;
+          at_plane(S_F + 2 * t + 1)[k] = fy;
+        }
+      });
+      __syncthreads();
+
+      // stage 5 (halo 0): leapfrog update from the flux divergence,
+      // rotation + Robert-Asselin filter, the group's 2 ng tracer outputs
+      walk<COLS, HOLD, TX, TY, WH, NTHREADS, OH>(
+          p, tid(), y0(), Rows<G_DX, G_DY>{},
+          [&](int a, int b, const auto& m, int) {
+        const int k = a * S + b, gx = x0() + a, gy = y0() + b;
+        if (!inside(p, gx, gy)) {
+          if (!LAST) {
+#pragma unroll
+            for (int t = 0; t < 2 * G; ++t) {
+              if (LOOP && t >= 2 * ng) break;
+              chain_level<NT, PLANE>(p, e_tr, 2 * t0 + t, where)[k] = 0.f;
+            }
+          }
+          return;
+        }
+        if (LAST && RAW && !in_box(p, gx, gy)) return;
+        const int g = gx * p.Ys + gy, mi = mix(g, gy);
+        const bool wlu = s_lu[k] > 0.5f;
+        // bp = hhq_n*area, bp0 = hhq_p*area with hhq_n = hr,
+        // hhq_p = hr + sshp_new * ffs, area = dx*dy / (2 tau); the new
+        // sshp is this step's output
+        const float area = m.template get<G_DX>(mi)
+            * m.template get<G_DY>(mi) * p.inv_two_tau;
+        const float hrc = HRX ? x_hr[k] : hr[g];
+        const float bp = hrc * area;
+        const float bp0 = FFS ? (hrc + (LAST ? f.sshp_o[g] : e_sshp[k]))
+                                    * area
+                              : bp;
+        // one tracer at a time: unrolled, the group's loads together
+        // spill the raw two-tracer forms past their 40 registers
+#pragma unroll 1
+        for (int t = 0; t < G; ++t) {
+          if (LOOP && t >= ng) break;
+          const int l = 2 * (t0 + t);
+          const float* fx = at_plane(S_F + 2 * t);
+          const float* fy = at_plane(S_F + 2 * t + 1);
+          float* e0 = FIRST && LAST
+              ? nullptr : chain_level<NT, PLANE>(p, e_tr, l, where);
+          float* e1 = FIRST && LAST
+              ? nullptr : chain_level<NT, PLANE>(p, e_tr, l + 1, where);
+          const float ff = FIRST ? tr_in<NT>(f, l)[g] : e0[k];
+          const float ffp = FIRST ? tr_in<NT>(f, l + 1)[g] : e1[k];
+          float ffn = 0.f;
+          if (wlu) {
+            const float rhs = ((fx[k] - fx[k - S]) + fy[k]) - fy[k - W];
+            ffn = (bp0 * ffp + rhs) / bp;
+          }
+          const float ff_new = wlu ? ffn : ff;
+          const float ffp_new = wlu ? p.ts1 * ff + p.ts2 * (ffn + ffp) : ffp;
+          if (LAST) {
+            tr_out<NT>(p, f, l)[g] = ff_new;
+            tr_out<NT>(p, f, l + 1)[g] = ffp_new;
+          } else {
+            e0[k] = ff_new;
+            e1[k] = ffp_new;
+          }
+        }
+      });
+    }
+  }
+}
+
+// One step of the general form: the chained forms walk columns
+// (sw_step_gen), but those without tracers that are viscous or on metric
+// planes, which a column a thread ran up to 1.05 and 1.02 x their
+// row-major time unguarded (PERF.md); they and the rest, one step a launch
+// (the one-step forms and K2's walk), keep the row-major body
+// (sw_step_gen_rows), their SASS as it was.
+template <int NT, bool MET2D, int MU, bool RAW, bool TRANS, bool FFS,
+          int STEPS, int STEP, class FieldsT, class Where, class MapsT = Maps>
+__device__ __forceinline__ void gen_step(const Params& p, const FieldsT& f,
+                                         float* sm, float& mx,
+                                         const Where& where,
+                                         const MapsT* maps = nullptr,
+                                         uint64_t* bars = nullptr) {
+  if constexpr (STEPS > 1 && !(NT == 0 && (MU == 2 || MET2D)))
+    sw_step_gen<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, STEP>(
+        p, f, sm, mx, where, maps, bars);
+  else
+    sw_step_gen_rows<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, STEP>(
+        p, f, sm, mx, where, maps, bars);
+}
+
 // The body of a launch: the guard, one or two steps of the tile, the
 // block max. FOLD: the fast form's folds (0: none); maps: the fast form's
 // tensor maps (the loader).
@@ -2058,24 +2712,24 @@ __device__ __forceinline__ void step_launch(const Params& p,
   __shared__ float s_red[NWARPS];
 
   float mx = 0.f;
-  if constexpr (GEN && GenPlan<NT, STEPS, MU == 2>::ON) {
+  if constexpr (GEN && GenPlan<NT, STEPS, MU == 2, MET2D>::ON) {
     // the loader's barriers; its boxes land at 128-byte boundaries
     __shared__ uint64_t s_bar[N_GROUPS];
     float* sma = tma::align128(sm);
-    sw_step_gen<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 0>(
+    gen_step<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 0>(
         p, p, sma, mx, BlockTile{}, maps, s_bar);
     if constexpr (STEPS > 1) {
       __syncthreads();     // step A's outputs are in shared memory
-      sw_step_gen<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 1>(
+      gen_step<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 1>(
           p, p, sma, mx, BlockTile{}, maps, s_bar);
     }
   } else if constexpr (GEN) {
-    sw_step_gen<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 0>(p, p, sm, mx,
-                                                          BlockTile{});
+    gen_step<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 0>(p, p, sm, mx,
+                                                       BlockTile{});
     if constexpr (STEPS > 1) {
       __syncthreads();     // step A's outputs are in shared memory
-      sw_step_gen<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 1>(p, p, sm, mx,
-                                                            BlockTile{});
+      gen_step<NT, MET2D, MU, RAW, TRANS, FFS, STEPS, 1>(p, p, sm, mx,
+                                                         BlockTile{});
     }
   } else {
     // the loader's barriers; its boxes land at 128-byte boundaries
@@ -2105,8 +2759,8 @@ __device__ __forceinline__ void step_launch(const Params& p,
 
 // Whether the form's kernel takes tensor maps: every fast form, and the
 // general forms that GenPlan moves to TMA.
-template <int NT, int MU, int STEPS, bool GEN>
-constexpr bool TAKES_MAPS = !GEN || GenPlan<NT, STEPS, MU == 2>::ON;
+template <int NT, bool MET2D, int MU, int STEPS, bool GEN>
+constexpr bool TAKES_MAPS = !GEN || GenPlan<NT, STEPS, MU == 2, MET2D>::ON;
 
 // maps: the tensor maps (a general form on the threads' loader takes
 // none), first in the parameter block, where each keeps the 64-byte
@@ -2118,9 +2772,10 @@ __launch_bounds__(Tile<STEPS, NT, MU == 2, !GEN>::NTHREADS,
                   Tile<STEPS, NT, MU == 2, !GEN>::MIN_BLOCKS)
 fused_sw_step_kernel(
     const __grid_constant__
-    std::conditional_t<TAKES_MAPS<NT, MU, STEPS, GEN>, Maps, NoMaps> maps,
+    std::conditional_t<TAKES_MAPS<NT, MET2D, MU, STEPS, GEN>, Maps,
+                       NoMaps> maps,
     const Params p) {
-  if constexpr (TAKES_MAPS<NT, MU, STEPS, GEN>)
+  if constexpr (TAKES_MAPS<NT, MET2D, MU, STEPS, GEN>)
     step_launch<NT, GUARD, MET2D, MU, HRP, RAW, TRANS, FFS, STEPS, GEN, 0>(
         p, &maps);
   else
@@ -2167,8 +2822,8 @@ constexpr bool ALL_FORMS = GEN_BUILD || PERSIST_BUILD;
 constexpr int STEPS_BUILD = FUSED_STEPS;
 // the folds of this library's forms (a fast library's; 0: none)
 constexpr int FOLD_BUILD = FUSED_FOLD;
-// the tile of this library's general and persistent forms; a fast form's
-// is its own (lib_tile)
+// the tile of this library's persistent forms; a fused form's is its own
+// (lib_tile)
 using TILE = Tile<STEPS_BUILD>;
 #if defined(FUSED_NT) && FUSED_NT > MAX_TRACERS
 constexpr int NT_BUILD = TLOOP;
@@ -2205,7 +2860,7 @@ auto fast_kernel() {
 // TMA refuses.
 template <int NT, int STEPS, bool VISC>
 int encode_gen_maps(Maps& m, const Params& p) {
-  using Fm = Form<NT, STEPS>;
+  using Fm = Form<NT, STEPS, true, VISC>;
   const float* src[] = {p.ssh, p.u, p.v, p.up, p.vp, p.planes, p.hrp};
   const int slot[] = {T_SSH, T_U, T_V, T_UP, T_VP, T_LU, T_HR};
   for (int i = 0; i < 7; ++i) {
@@ -2297,9 +2952,10 @@ int launch_form(const Params& p, bool met2d, int mu_mode, cudaStream_t s) {
 // the carveout of its blocks (GenPlan), by TMA where GenPlan says
 template <int NT, bool GUARD, bool MET2D, int MU, bool TRANS, bool FFS>
 int launch_gen(const Params& p, cudaStream_t stream) {
-  using GP = GenPlan<NT, STEPS_BUILD, MU == 2>;
+  using GP = GenPlan<NT, STEPS_BUILD, MU == 2, MET2D>;
+  using T = Tile<STEPS_BUILD, NT, MU == 2>;
   const size_t smem = GP::SMEM
-      + sizeof(float) * Form<NT, STEPS_BUILD, GP::ON>::PLANE
+      + sizeof(float) * Form<NT, STEPS_BUILD, GP::ON, MU == 2>::PLANE
         * (NT < 0 ? p.n_lev_sm : 0);
   const auto kernel = fused_sw_step_kernel<NT, GUARD, MET2D, MU, false,
                                            RAW_BUILD, TRANS, FFS,
@@ -2310,7 +2966,7 @@ int launch_gen(const Params& p, cudaStream_t stream) {
     if (bad) return bad;
   }
   // a chained TLOOP block's step is that of its tracer levels (one
-  // block an SM: 164 KB at 3 tracers, not 228)
+  // block an SM)
   const int carve = GP::LOOP_CHAIN
       ? carveout_kb(smem + GEN_STATIC + BLOCK_RESERVED) : GP::CARVE;
   cudaError_t e = cudaFuncSetAttribute(
@@ -2320,9 +2976,8 @@ int launch_gen(const Params& p, cudaStream_t stream) {
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              carveout_percent(carve));
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3((p.Ys + TILE::TY - 1) / TILE::TY,
-                (p.Xs + TILE::TX - 1) / TILE::TX),
-           TILE::NTHREADS, smem, stream>>>(maps, p);
+  kernel<<<dim3((p.Ys + T::TY - 1) / T::TY, (p.Xs + T::TX - 1) / T::TX),
+           T::NTHREADS, smem, stream>>>(maps, p);
   return (int)cudaGetLastError();
 }
 
@@ -2533,7 +3188,7 @@ __device__ __forceinline__ void persist_step(const Params& p,
   __syncthreads();
   while (walk_at[W_MORE]) {
     if constexpr (GEN_BUILD)
-      sw_step_gen<NT, false, MU, false, TRANS, FFS, 1, 0>(
+      sw_step_gen_rows<NT, false, MU, false, TRANS, FFS, 1, 0>(
           p, walk_fields, sm, mx, WalkTile{}, &maps, bars);
     else
       sw_step<NT, false, MU, HRP, false, TRANS, FFS, 1, 0>(
@@ -2801,11 +3456,11 @@ int statics(Params& p, const float* met, const float* planes,
 // (fused_sw_step_geometry): the fast body's (Plan) or the general body's
 // (GenPlan), one step a tile in the persistent walk.
 constexpr int N_GEOMETRY = 12;
-template <int NT, bool VISC, bool HRP, bool FFS>
+template <int NT, bool VISC, bool HRP, bool FFS, bool MET2D>
 int geometry_of(long long* out) {
   if constexpr (GEN_BUILD) {
-    using GP = GenPlan<NT, STEPS_BUILD, VISC>;
-    using Fm = Form<NT, STEPS_BUILD, GP::ON>;
+    using GP = GenPlan<NT, STEPS_BUILD, VISC, MET2D>;
+    using Fm = Form<NT, STEPS_BUILD, GP::ON, VISC>;
     const long long g[N_GEOMETRY] = {
         Fm::TX, Fm::TY, Fm::WH, Fm::WX, Fm::WY, Fm::PLANE, GP::HR,
         GP::BLOCKS, (long long)GP::SMEM, GP::BOXES, GP::ON, GP::CARVE};
@@ -2824,26 +3479,31 @@ int geometry_of(long long* out) {
   return 0;
 }
 
-template <int NT>
-int geometry_nt(bool visc, bool hrp, bool ffs, long long* out) {
-  if (visc)
-    return hrp ? (ffs ? geometry_of<NT, true, true, true>(out)
-                      : geometry_of<NT, true, true, false>(out))
-               : (ffs ? geometry_of<NT, true, false, true>(out)
-                      : geometry_of<NT, true, false, false>(out));
-  return hrp ? (ffs ? geometry_of<NT, false, true, true>(out)
-                    : geometry_of<NT, false, true, false>(out))
-             : (ffs ? geometry_of<NT, false, false, true>(out)
-                    : geometry_of<NT, false, false, false>(out));
+template <int NT, bool VISC, bool HRP>
+int geometry_ffs(bool ffs, bool met2d, long long* out) {
+  if (ffs)
+    return met2d ? geometry_of<NT, VISC, HRP, true, true>(out)
+                 : geometry_of<NT, VISC, HRP, true, false>(out);
+  return met2d ? geometry_of<NT, VISC, HRP, false, true>(out)
+               : geometry_of<NT, VISC, HRP, false, false>(out);
 }
 
-// The tile of this library's forms, viscous or not: a chained fast form
-// with tracers has a tile of its own, and a viscous one another
-// (fused_tile.cuh's shape_of); the general and persistent forms TILE.
+template <int NT>
+int geometry_nt(bool visc, bool hrp, bool ffs, bool met2d, long long* out) {
+  if (visc)
+    return hrp ? geometry_ffs<NT, true, true>(ffs, met2d, out)
+               : geometry_ffs<NT, true, false>(ffs, met2d, out);
+  return hrp ? geometry_ffs<NT, false, true>(ffs, met2d, out)
+             : geometry_ffs<NT, false, false>(ffs, met2d, out);
+}
+
+// The tile of this library's forms, viscous or not: a chained form with
+// tracers has a tile of its own, and a viscous one another (fused_tile.cuh's
+// shape_of); the persistent forms TILE.
 Shape lib_tile(int visc) {
-  if (GEN_BUILD || PERSIST_BUILD) return TILE::S;
-  return visc ? Tile<STEPS_BUILD, NT_BUILD, true, true>::S
-              : Tile<STEPS_BUILD, NT_BUILD, false, true>::S;
+  if (PERSIST_BUILD) return TILE::S;
+  return visc ? Tile<STEPS_BUILD, NT_BUILD, true, !GEN_BUILD>::S
+              : Tile<STEPS_BUILD, NT_BUILD, false, !GEN_BUILD>::S;
 }
 
 }  // namespace
@@ -2853,7 +3513,8 @@ extern "C" {
 // The window geometry of this library's form (its steps a launch; the
 // general body's in a general library, one step a tile in a persistent
 // one) with n_tracers tracers, viscous or not, on bathymetry planes or not,
-// with a full free surface or not (the general body: neither), into
+// with a full free surface or not (the general body: neither), on metric
+// planes or profiles (met2d; the fast body: either alike), into
 // out[12]: the tile's rows and columns, the window halo WH, rows WX and
 // columns WY, the floats of a shared plane, the loader's planes of their
 // own, the blocks an SM the plan keeps, the dynamic shared memory of a
@@ -2862,13 +3523,13 @@ extern "C" {
 // loads by TMA (0: by threads) and the carveout of its blocks in KB.
 // Returns 0.
 int fused_sw_step_geometry(int n_tracers, int visc, int hrp, int ffs,
-                           long long* out) {
-  const bool v = visc != 0, h = hrp != 0, f = ffs != 0;
+                           int met2d, long long* out) {
+  const bool v = visc != 0, h = hrp != 0, f = ffs != 0, m = met2d != 0;
   switch (n_tracers) {
-    case 0: return geometry_nt<0>(v, h, f, out);
-    case 1: return geometry_nt<1>(v, h, f, out);
-    case 2: return geometry_nt<2>(v, h, f, out);
-    default: return geometry_nt<TLOOP>(v, h, f, out);
+    case 0: return geometry_nt<0>(v, h, f, m, out);
+    case 1: return geometry_nt<1>(v, h, f, m, out);
+    case 2: return geometry_nt<2>(v, h, f, m, out);
+    default: return geometry_nt<TLOOP>(v, h, f, m, out);
   }
 }
 

@@ -7,8 +7,11 @@
 
 #include <cuda_runtime.h>
 
-// A build may set one tile for every chained fast form (-DFUSED_CHAIN_TX=
-// ... -DFUSED_CHAIN_TY, _THREADS, _MIN_BLOCKS): the tile sweep's libraries.
+// A build may set one tile for every chained form, fast or general
+// (-DFUSED_CHAIN_TX= ... -DFUSED_CHAIN_TY, _THREADS, _MIN_BLOCKS): the tile
+// sweep's libraries. -DFUSED_CHAIN_GEN_TMA=0 or 1 keeps the chained general
+// forms without tracers on the threads' loader or moves them to TMA,
+// whatever GenPlan's rule says: the loader sweep's libraries.
 
 namespace fused_tile {
 
@@ -30,31 +33,36 @@ constexpr int NWARPS = NTHREADS / 32;
 constexpr int MIN_BLOCKS = 3;          // blocks per SM to keep registers for
 
 // The chained forms' tiles (two model steps a launch, window halo 6, or 8
-// with tracers). A chained block holds 20 + 2 T planes of its window (plus
-// the four stress planes of a viscous form), so its shared memory decides
-// how many blocks an SM holds. Swept with scripts/chain_tile_sweep_torch.py
-// --folds 7 on the loader and this body (an H100 SXM at 700 W, the 1533 x
-// 1152 layout, device us a launch of two steps; PERF.md section 6):
+// with tracers), the fast body's and the general one's alike. A chained
+// block holds 20 + 2 T planes of its window (plus the four stress planes
+// of a viscous form), so its shared memory decides how many blocks an SM
+// holds. Swept with scripts/chain_tile_sweep_torch.py --folds 7 (--general)
+// on the loader and this body (an H100 SXM at 700 W, the 1533 x 1152
+// layout, device us a launch of two steps; PERF.md section 6):
 // - CHAIN_SHAPE, 16 x 32 outputs, 512 threads, launch bound two blocks an
-//   SM (64 registers): the fast forms without tracers (108 KB, two blocks)
-//   and every general form. The guarded coastline: 16x32/512 77.25,
-//   32x32/512 80.29, 32x32/1024 82.56, 32x24/768 87.26, 24x32/768 87.76;
-//   the frame 137.20, 143.22, 146.38, 161.68, 157.88. Two blocks an SM
-//   hide each other's barriers; a larger tile's cheaper ring does not pay
-//   for them.
+//   SM (64 registers): the forms without tracers (108 KB, two blocks).
+//   The guarded coastline: 16x32/512 77.25, 32x32/512 80.29, 32x32/1024
+//   82.56, 32x24/768 87.26, 24x32/768 87.76; the frame 137.20, 143.22,
+//   146.38, 161.68, 157.88. Two blocks an SM hide each other's barriers; a
+//   larger tile's cheaper ring does not pay for them. The general form on
+//   the coastline (--general, by TMA): 102.21, 32x32/1024 111.92,
+//   32x24/768 121.58.
 // - CHAIN_TR_SHAPE, 32 x 32 outputs, 1024 threads, one block an SM (64
-//   registers): the fast forms with tracers. Their planes leave one block
-//   an SM whatever the tile (216 KB at T = 2), so the larger tile costs no
+//   registers): the forms with tracers. Their planes leave one block an
+//   SM whatever the tile (216 KB at T = 2), so the larger tile costs no
 //   blocks; it computes step A's ring for 1024 outputs, not 512 (17 %
 //   fewer cells a stage for each output at T = 2), and its 32 warps fill
 //   the SM the 16 of a 16 x 32 block left idle at every barrier. T = 2:
 //   32x32/1024 131.48, 32x32/512 132.92, 24x32/768 135.94, 32x24/768
 //   137.10, 16x32/512 157.43; T = 4: 232.96, 282.68, 254.98, 247.29,
-//   325.71.
+//   325.71. The general forms: T = 1 32x32/1024 166.84, 32x24/768 177.17,
+//   16x32/512 232.96; T = 2 180.79, 193.71, 254.87; T = 4 289.12, 302.38,
+//   411.22.
 // - CHAIN_TRV_SHAPE, 32 x 24 outputs, 768 threads, one block an SM (85
-//   registers): the viscous fast forms with tracers, whose stress planes a
-//   32 x 32 block cannot hold in 227 KB. T = 2 over bathymetry planes at
-//   mu = 1000: 32x24/768 200.66, 24x32/768 206.42, 16x32/512 235.50.
+//   registers): the viscous forms with tracers, whose stress planes a 32 x
+//   32 block cannot hold in 227 KB. T = 2 over bathymetry planes at mu =
+//   1000: 32x24/768 200.66, 24x32/768 206.42, 16x32/512 235.50; the
+//   general form 32x24/768 227.30, 16x32/512 288.67.
 struct Shape {
   int tx, ty;       // output rows (x) and columns (y) of a block
   int threads;
@@ -70,12 +78,12 @@ constexpr Shape CHAIN_TRV_SHAPE{32, 24, 768, 1};
 template <int STEPS, int NT, bool VISC, bool FAST>
 constexpr Shape shape_of() {
 #ifdef FUSED_CHAIN_TX
-  if (STEPS > 1 && FAST)
+  if (STEPS > 1)
     return Shape{FUSED_CHAIN_TX, FUSED_CHAIN_TY, FUSED_CHAIN_THREADS,
                  FUSED_CHAIN_MIN_BLOCKS};
 #endif
   return STEPS == 1 ? ONE_SHAPE
-      : !FAST || NT == 0 ? CHAIN_SHAPE
+      : NT == 0 ? CHAIN_SHAPE
       : VISC ? CHAIN_TRV_SHAPE : CHAIN_TR_SHAPE;
 }
 
@@ -247,30 +255,40 @@ constexpr int carveout_percent(int kb) {
 constexpr size_t GEN_STATIC = 384;
 
 // How the general body (fused_step.cu's sw_step_gen) loads its window and
-// where its boxes land. The budget is the carveout its threads' twin sits
-// in, not the SM: that body reads up to a dozen metric values a cell from
-// device memory (16 whole planes on metric planes), which L1 serves, so a
-// form moves to TMA only if its blocks an SM keep that carveout with the
-// wider window (ON). Without tracers it has no use for S_AQP (the
-// tracers' post-step column), so its TMA form keeps 15 working planes,
-// which is what lets the one-step form without tracers keep 164 KB. Its
-// boxes: ssh, u, v, lu into their stage-0 planes, hr into a plane of its
-// own where the carveout leaves one (HR; stages 0, 2, 3 and the tracers'
-// read it there), else into S_AQ, which stage 0 writes at the same cell; a
-// viscous form's up, vp into S_F, S_K, which stage 1 writes at the same
-// cell. The rest, and every later read of an input without a plane, stay
-// device loads. A chained form without tracers keeps the threads' loader:
-// its 48-column window takes its two blocks past 196 KB. So does a chained
-// TLOOP form, one block an SM whose tracer levels decide its shared memory
-// at run time (its launcher takes that carveout; CARVE is the most it
-// needs): with the carveout fixed at 228 KB it ran 2-7 % slower than its
-// parent on either loader (PERF.md), and TMA with the right carveout is
-// not measured yet.
-template <int NT, int STEPS, bool VISC>
+// where its boxes land. One step a launch, its budget is the carveout its
+// threads' twin sits in, not the SM: that body reads up to a dozen metric
+// values a cell from device memory (16 whole planes on metric planes),
+// which L1 serves, so a one-step form moves to TMA only if its blocks an
+// SM keep that carveout with the wider window (ON). A chained form on
+// profile metrics walks each stage a column a thread and holds the
+// metric rows for the column (fused_step.cu's walk), so L1 serves few of
+// them: its budget is the SM (228 KB, 28 KB of L1), and it loads by TMA
+// wherever its blocks fit (the viscous form without tracers does not:
+// threads). On metric planes (MET2D) the 16 plane reads a cell still go
+// through L1, and a chained form keeps its twin's carveout as a one-step
+// form does: the form without tracers stays on threads (by TMA at 228 KB
+// it ran 1.074 of its time on threads, against 0.964 on profile metrics;
+// PERF.md section 6), the forms with tracers, one block an SM at 228 KB
+// either way, move. The run-time tracer family takes the carveout of its
+// tracer levels, which its launcher sets (CARVE is the most it needs).
+// Without tracers the body has no use for S_AQP (the tracers' post-step
+// column), so its TMA form keeps 15 working planes, which is what lets the
+// one-step form without tracers keep 164 KB. Its boxes: ssh, u, v, lu into
+// their stage-0 planes, hr into a plane of its own where the budget leaves
+// one (HR; every later read of hr is there), else into S_AQ, which stage 0
+// writes at the same cell (and so always for the run-time tracer family,
+// whose levels follow its working planes); a viscous form's up, vp into
+// S_F, S_K, which stage 1 writes at the same cell. The rest stay device
+// loads. -DFUSED_CHAIN_GEN_TMA=0 (1) puts the chained forms without
+// tracers on the threads' loader (on TMA, at the SM's budget, where their
+// blocks fit) whatever the rule: the loader sweep's libraries.
+template <int NT, int STEPS, bool VISC, bool MET2D = false>
 struct GenPlan {
-  using Th = Form<NT, STEPS, false>;
-  using Fm = Form<NT, STEPS, true>;
-  static constexpr bool LOOP_CHAIN = NT < 0 && STEPS > 1;
+  using Th = Form<NT, STEPS, false, VISC>;
+  using Fm = Form<NT, STEPS, true, VISC>;
+  using T = Tile<STEPS, NT, VISC>;
+  static constexpr bool CHAIN = STEPS > 1;
+  static constexpr bool LOOP_CHAIN = NT < 0 && CHAIN;
   static constexpr size_t VBYTES =
       VISC ? sizeof(float) * N_VISC_PLANES * Fm::VPLANE : 0;
   // the threads' twin: its blocks an SM and their carveout
@@ -278,18 +296,30 @@ struct GenPlan {
   static constexpr size_t TH_BLOCK = TH_BASE + GEN_STATIC + BLOCK_RESERVED;
   static constexpr int TH_FITS = (int)(SM_SMEM / TH_BLOCK);
   static constexpr int BLOCKS = LOOP_CHAIN ? 1
-      : TH_FITS < Tile<STEPS>::MIN_BLOCKS ? (TH_FITS < 1 ? 1 : TH_FITS)
-                                          : Tile<STEPS>::MIN_BLOCKS;
+      : TH_FITS < T::MIN_BLOCKS ? (TH_FITS < 1 ? 1 : TH_FITS)
+                                : T::MIN_BLOCKS;
   static constexpr int TH_CARVE = LOOP_CHAIN
       ? CARVEOUT_KB[N_CARVEOUTS - 1] : carveout_kb(BLOCKS * TH_BLOCK);
   // by TMA: the working planes, the planes' alignment
   static constexpr int N_WORK = Fm::N_PLANES - (NT == 0 ? 1 : 0);
   static constexpr size_t PBYTES = sizeof(float) * Fm::PLANE;
   static constexpr size_t BASE = N_WORK * PBYTES + VBYTES + 128;
-  static constexpr size_t LIMIT = (size_t)TH_CARVE * 1024;
-  static constexpr bool ON = !LOOP_CHAIN
-      && BLOCKS * (BASE + GEN_STATIC + BLOCK_RESERVED) <= LIMIT;
-  static constexpr bool HR = ON
+#ifdef FUSED_CHAIN_GEN_TMA
+  static constexpr bool SM_BUDGET = CHAIN && (NT == 0 || !MET2D);
+#else
+  static constexpr bool SM_BUDGET = CHAIN && !MET2D;
+#endif
+  static constexpr size_t LIMIT =
+      (size_t)(SM_BUDGET ? CARVEOUT_KB[N_CARVEOUTS - 1] : TH_CARVE) * 1024;
+  static constexpr bool FITS =
+      BLOCKS * (BASE + GEN_STATIC + BLOCK_RESERVED) <= LIMIT;
+#ifdef FUSED_CHAIN_GEN_TMA
+  static constexpr bool ON = CHAIN && NT == 0 ? FUSED_CHAIN_GEN_TMA && FITS
+                                              : FITS;
+#else
+  static constexpr bool ON = FITS;
+#endif
+  static constexpr bool HR = ON && !LOOP_CHAIN
       && BLOCKS * (BASE + PBYTES + GEN_STATIC + BLOCK_RESERVED) <= LIMIT;
   // hr's plane, after the working planes; the stress planes follow it
   static constexpr int P_HR = N_WORK;
@@ -301,7 +331,7 @@ struct GenPlan {
   static constexpr int CARVE = LOOP_CHAIN ? TH_CARVE
       : carveout_kb(BLOCKS * (SMEM + GEN_STATIC + BLOCK_RESERVED));
   static constexpr int BOXES = ON ? 5 + 2 * VISC : 0;
-  static_assert(!ON || CARVE <= TH_CARVE, "the threads' twin's carveout");
+  static_assert(!ON || (size_t)CARVE * 1024 <= LIMIT, "the budget's carveout");
 };
 
 // The dynamic shared memory a block may take on the current device: the
@@ -318,12 +348,12 @@ inline size_t smem_limit() {
 // How many of step A's 2 n_tr tracer levels a chained TLOOP block keeps
 // in shared memory (whole planes of its window, after the N_BASE planes
 // and a viscous form's stress planes); the levels beyond them go to a
-// device-memory scratch of the block's own. The general forms' window
-// (16 x 32 tile) is 6 KB a plane, the N_BASE planes 120 KB and the stress
-// planes 19.25 KB: every level fits up to 8 tracers, 7 viscous, at 227
-// KB. The fast forms' (FAST): 9 KB a plane at 32 x 32, N_BASE 180 KB, so
-// 5 levels (T = 4 keeps 5 of 8); viscous 7.5 KB at 32 x 24, N_BASE 150
-// KB and stress 24.75 KB, so 6 levels (T = 3 keeps all).
+// device-memory scratch of the block's own. The fast and the general
+// forms share the tile: 9 KB a plane at 32 x 32, N_BASE 180 KB, so 5
+// levels (T = 4 keeps 5 of 8); viscous 7.5 KB at 32 x 24, N_BASE 150 KB
+// and stress 24.75 KB, so 6 levels (T = 3 keeps all). `limit`: what the
+// levels and the rest may take (smem_limit(); the general body's larger
+// static arrays and its planes' alignment come off it: form_smem_bytes).
 template <bool VISC, bool FAST>
 inline int chain_levels_in_smem(int n_tr, size_t limit) {
   using Fm = Form<TLOOP, 2, true, VISC, FAST>;
@@ -350,7 +380,8 @@ inline size_t form_smem_bytes(int n_tr, int* levels) {
     case 2: return smem_bytes<2, STEPS, TMA, VISC, FAST>();
     default:
       if (STEPS == 1) return smem_bytes<1, 1, TMA, VISC, FAST>();
-      *levels = chain_levels_in_smem<VISC, FAST>(n_tr, smem_limit());
+      *levels = chain_levels_in_smem<VISC, FAST>(
+          n_tr, smem_limit() - (FAST ? 0 : GEN_STATIC + 128 - STATIC_SMEM));
       return smem_bytes<TLOOP, STEPS, TMA, VISC, FAST>()
           + sizeof(float) * Form<TLOOP, STEPS, TMA, VISC, FAST>::PLANE
           * *levels;

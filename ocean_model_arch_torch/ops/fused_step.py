@@ -273,9 +273,9 @@ class Geometry(typing.NamedTuple):
 # the H100's shared memory as csrc/fused_tile.cuh budgets it: an SM's
 # bytes, those reserved a block, and a block's static arrays with the
 # planes' alignment; the tiles of its shape_of (rows, columns, threads,
-# launch bound in blocks an SM): one step a launch; chained, the general
-# forms and the fast ones without tracers; the chained fast forms with
-# tracers, and the viscous ones among them; the working planes
+# launch bound in blocks an SM): one step a launch; chained, the forms
+# without tracers; the chained forms with tracers, and the viscous ones
+# among them (the fast and the general body's alike); the working planes
 SM_SMEM, BLOCK_RESERVED, STATIC_SMEM = 233472, 1024, 256
 BLOCK_SMEM_MAX = 232448     # what one block may take (227 KB)
 ONE_TILE = (16, 32, 512, 3)
@@ -296,11 +296,12 @@ def tile_of(steps: int = 1, n_tracers: int = 0, visc: bool = False,
             general: bool = False) -> tuple:
     """(rows, columns, threads, blocks an SM the launch bound keeps
     registers for) of the form with ``n_tracers`` tracers, viscous or not,
-    of the general body or the fast one, that runs ``steps`` model steps a
-    launch: csrc/fused_tile.cuh's shape_of."""
+    of the general body or the fast one (the same tiles), that runs
+    ``steps`` model steps a launch: csrc/fused_tile.cuh's shape_of."""
+    del general                  # the two bodies' tiles are alike
     if steps == 1:
         return ONE_TILE
-    if general or not n_tracers:
+    if not n_tracers:
         return CHAIN_TILE
     return CHAIN_TRV_TILE if visc else CHAIN_TR_TILE
 
@@ -394,20 +395,24 @@ def window_geometry(n_tracers: int, steps: int = 1, visc: bool = False,
 
 
 @functools.lru_cache(maxsize=None)
-def general_geometry(n_tracers: int, steps: int = 1,
-                     visc: bool = False) -> Geometry:
+def general_geometry(n_tracers: int, steps: int = 1, visc: bool = False,
+                     met2d: bool = False) -> Geometry:
     """The :class:`Geometry` of the general form (csrc/fused_tile.cuh's
     GenPlan, what a general or a persistent general library's
-    ``fused_sw_step_geometry`` reports): its threads' twin's blocks an SM
-    and carveout; the form loads by TMA only where its blocks keep that
-    carveout with the TMA window (without tracers 15 working planes: it
-    has no use for S_AQP), and then gives hr a plane of its own
-    (``extra``) where the carveout leaves room. A chained run-time tracer
-    form takes one block and keeps the threads' loader; its carveout here
-    is the most it needs (its launcher takes the step of the tracer levels
+    ``fused_sw_step_geometry`` reports) on metric planes (``met2d``) or
+    profiles: its threads' twin's blocks an SM and carveout; the form
+    loads by TMA only where its blocks keep that carveout with the TMA
+    window, but a chained form on profile metrics, which holds its metric
+    rows a column, wherever its blocks fit the SM (228 KB). Without
+    tracers it keeps 15 working planes (no use for S_AQP), and hr gets a
+    plane of its own (``extra``) where the budget leaves room, but never
+    in a chained run-time tracer form, whose tracer levels follow its
+    working planes: that form takes one block, and its carveout here is
+    the most it needs (its launcher takes the step of the tracer levels
     its block holds at run time)."""
     tx, ty, _, min_blocks = tile_of(steps, n_tracers, visc, True)
-    loop_chain = n_tracers > MAX_TRACERS and steps > 1
+    chain = steps > 1
+    loop_chain = n_tracers > MAX_TRACERS and chain
     vbytes = (4 * N_VISC_PLANES * _visc_plane(n_tracers, steps, True)
               if visc else 0)
     halo, rows, cols, plane = _window(n_tracers, steps, False, visc, True)
@@ -421,18 +426,18 @@ def general_geometry(n_tracers: int, steps: int = 1,
     _, _, t_cols, t_plane = _window(n_tracers, steps, True, visc, True)
     n_work = _n_planes(n_tracers, steps) - (n_tracers == 0)
     base = 4 * n_work * t_plane + vbytes + 128
-    limit = th_carve * 1024
-    on = not loop_chain and blocks * (
-        base + GEN_STATIC + BLOCK_RESERVED) <= limit
-    hr = on and blocks * (
+    limit = (CARVEOUTS_KB[-1] if chain and not met2d else th_carve) * 1024
+    on = blocks * (base + GEN_STATIC + BLOCK_RESERVED) <= limit
+    hr = on and not loop_chain and blocks * (
         base + 4 * t_plane + GEN_STATIC + BLOCK_RESERVED) <= limit
     if not on:
         return Geometry((tx, ty), halo, rows, cols, plane, 0, blocks,
                         th_base, 0, False, th_carve)
     smem = base + 4 * t_plane * hr
     return Geometry((tx, ty), halo, rows, t_cols, t_plane, int(hr), blocks,
-                    smem, 5 + 2 * visc, True, carveout_kb(
-                        blocks * (smem + GEN_STATIC + BLOCK_RESERVED)))
+                    smem, 5 + 2 * visc, True, th_carve if loop_chain else
+                    carveout_kb(blocks * (smem + GEN_STATIC
+                                          + BLOCK_RESERVED)))
 
 
 def persistent_rounds(lay: FusedLayout, grid: int) -> tuple:
@@ -447,15 +452,16 @@ def persistent_rounds(lay: FusedLayout, grid: int) -> tuple:
 
 def tma_refusal(lay: FusedLayout, tensors, steps: int = 1,
                 n_tracers: int = 0, general: bool = False,
-                visc: bool = False) -> str | None:
+                visc: bool = False, met2d: bool = False) -> str | None:
     """Why TMA cannot load the windows of ``tensors`` (each (..., Xs,
     Ys) of ``lay``, contiguous float32) for the forms of ``steps`` model
     steps a launch with ``n_tracers`` tracers (the general form's with
-    ``general``, viscous or not), or None: each address and row 16-byte
+    ``general``, viscous or not, on metric planes or not), or None: each
+    address and row 16-byte
     aligned, the box's row a multiple of 16 bytes, at most 256 cells a
     side (csrc/tma.cuh). A general form that loads by its threads
     (:func:`general_geometry`) has nothing to refuse."""
-    g = (general_geometry(n_tracers, steps, visc) if general
+    g = (general_geometry(n_tracers, steps, visc, met2d) if general
          else window_geometry(n_tracers, steps, visc))
     if not g.tma:
         return None
@@ -960,7 +966,8 @@ def _check_inputs(fields, met, planes, lay: FusedLayout, tile_wet,
     if steps not in (1, 2):
         raise ValueError(f"steps={steps}: the kernel runs 1 or 2 steps a "
                          "launch")
-    why = tma_refusal(lay, (*fields, planes), steps, n_tr, general, visc)
+    why = tma_refusal(lay, (*fields, planes), steps, n_tr, general, visc,
+                      met_map is not None)
     if why:
         raise ValueError(f"the {'general' if general else 'fast'} form's "
                          f"TMA loader cannot take {why}")
@@ -1300,7 +1307,10 @@ def library_target(n_tracers: int, raw: bool = False, trans: int = 1,
     ``FUSED_STEPS=2`` where the form has them.
     ``chain_tile``: (rows, columns, threads, blocks an SM) of a chained
     form's tile in place of csrc/fused_tile.cuh's (a tile sweep's
-    libraries); None for the header's own. ``general``: the library of
+    libraries), and a fifth entry, 0 or 1, puts a general library's
+    chained forms without tracers on the threads' loader or on TMA
+    (``FUSED_CHAIN_GEN_TMA``, the loader sweep's); None for the header's
+    own. ``general``: the library of
     the general forms, ``FUSED_GEN=1``, which holds every (trans, ffs)
     form of its tracer count, raw or not, and steps a launch. ``folds``:
     the :func:`fold_code` of a fast library's folds, ``FUSED_FOLD``
@@ -1314,7 +1324,7 @@ def library_target(n_tracers: int, raw: bool = False, trans: int = 1,
               + (f"@FUSED_FOLD={folds}" if folds else ""))
     if chain_tile is not None:
         target += "".join(f"@FUSED_CHAIN_{k}={v}" for k, v in zip(
-            ("TX", "TY", "THREADS", "MIN_BLOCKS"), chain_tile))
+            ("TX", "TY", "THREADS", "MIN_BLOCKS", "GEN_TMA"), chain_tile))
     return target
 
 
@@ -1421,7 +1431,7 @@ def _library(n_tracers: int = 0, raw: bool = False, trans: int = 1,
     lib.fused_sw_step_smem_bytes.restype = ctypes.c_longlong
     lib.fused_sw_step_scratch_floats.argtypes = [i, i, i, i]
     lib.fused_sw_step_scratch_floats.restype = ctypes.c_longlong
-    lib.fused_sw_step_geometry.argtypes = [i, i, i, i,
+    lib.fused_sw_step_geometry.argtypes = [i, i, i, i, i,
                                            ctypes.POINTER(ctypes.c_longlong)]
     lib.fused_sw_step_geometry.restype = i
     lib.fused_sw_step_launch.argtypes = ([p] * 21 + [i] * 13 + [f] * 8
@@ -1456,7 +1466,7 @@ def _persist_library(n_tracers: int = 0, general: bool = False) -> ctypes.CDLL:
                            f"{built}, not {want}")
     lib.fused_sw_step_error_string.argtypes = [i]
     lib.fused_sw_step_error_string.restype = ctypes.c_char_p
-    lib.fused_sw_step_geometry.argtypes = [i, i, i, i,
+    lib.fused_sw_step_geometry.argtypes = [i, i, i, i, i,
                                            ctypes.POINTER(ctypes.c_longlong)]
     lib.fused_sw_step_geometry.restype = i
     lib.fused_sw_persist_launch.argtypes = ([p] * 7 + [i] * 6

@@ -134,7 +134,8 @@ def kernel_us(fn, n: int, kernel: str = "copy_step_kernel") -> float:
     warm-up call. The wrapper's Python takes longer than the kernel, so
     CUDA events around the calls would time the host. torch.profiler now
     and then records no device activity in a window (about once in 950
-    on an H100): such a window is taken again, three windows at most."""
+    on an H100): such a window is taken again, three windows at most
+    (``kernel_us.retaken`` counts them: ``n`` more calls each)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -146,7 +147,11 @@ def kernel_us(fn, n: int, kernel: str = "copy_step_kernel") -> float:
         for e in prof.key_averages():
             if kernel in e.key and e.count and e.self_device_time_total > 0:
                 return e.self_device_time_total / e.count
+        kernel_us.retaken += 1
     raise RuntimeError(f"torch.profiler recorded no device time for {kernel}")
+
+
+kernel_us.retaken = 0
 
 
 def probe(nx: int, ny: int, masks=(), n_launch: int = N_LAUNCH,

@@ -15,7 +15,7 @@ them. A stage's cost a tile is about its loop bodies times the cells of
 its region over the block's threads.
 
 Usage: python scripts/sass_stages_torch.py SASS_TEXT_OR_LIBRARY KERNEL_REGEX
-       [--cells N,N+N,...]
+       [--cells N,N+N,...] [--tile TXxTY]
 
 With ``--cells`` (one entry a piece, in order: the cells of the region of
 each stage the piece holds, ``+`` between two stages of one piece, 0 for
@@ -23,10 +23,17 @@ a piece that walks no region) it also prints the instructions a tile of
 the stage loops: each stage's cell loop body (a loop, less the unrolled
 twin nvcc puts after it, which a thread runs only with four cells or more
 left, never at the one to three cells a stage gives it) times the cells
-of its region, summed over the kernel.
+of its region, summed over the kernel. With ``--tile TXxTY`` a stage may
+be given by its region's halo instead, ``hN``: the (TX + 2 N) x (TY + 2
+N) cells N beyond the tile, as the fused step's stages walk them (the
+fast and the general body alike). An entry ``.../K`` is a loop that
+nvcc unrolled K times, K cells an iteration (its stores a cell times K
+in its body): its cells over K.
 
 e.g. the chained guarded form without tracers, folded (elide_sel, q4,
-share_prev), from its library in ``build/torch_kernels/``:
+share_prev), from its library in ``build/torch_kernels/`` (the general
+form's is ``fused_sw_step_kernelILi0ELb1ELb0ELi0ELb0ELb0ELb1ELb1ELi2ELb1E``
+in ``libfused_step-FUSED_NT0-FUSED_GEN1-FUSED_STEPS2-*.so``):
   python scripts/sass_stages_torch.py \\
       build/torch_kernels/libfused_step-FUSED_NT0-FUSED_STEPS2-FUSED_FOLD7-*.so \\
       'fold_kernelILi0ELb1ELb0ELi0ELb0ELb0ELb1ELb1ELi2ELi7E'
@@ -144,13 +151,38 @@ def read_sass(path: str) -> str:
                           text=True, check=True).stdout
 
 
+def parse_cells(spec: str, tile=None) -> list:
+    """``--cells``'s pieces: a list a piece of each stage's cells (its
+    loop's iterations), an entry ``N`` or, with ``tile`` (rows, columns),
+    ``hN`` for the region N cells beyond it, either over ``/K`` for a loop
+    of K cells an iteration."""
+    def one(e):
+        e, _, k = e.partition("/")
+        if e.startswith("h"):
+            if tile is None:
+                raise ValueError(f"{e}: a region's halo needs --tile")
+            h = int(e[1:])
+            n = (tile[0] + 2 * h) * (tile[1] + 2 * h)
+        else:
+            n = int(e)
+        return n / int(k) if k else n
+    return [[one(e) for e in piece.split("+")] for piece in spec.split(",")]
+
+
 def main(argv) -> int:
-    cells = None
-    if len(argv) == 5 and argv[3] == "--cells":
-        cells = [[int(n) for n in piece.split("+")]
-                 for piece in argv[4].split(",")]
-    elif len(argv) != 3:
+    opts = dict(zip(argv[3::2], argv[4::2]))
+    if (len(argv) < 3 or len(argv) % 2 == 0
+            or set(opts) - {"--cells", "--tile"}
+            or ("--tile" in opts and "--cells" not in opts)):
         print(__doc__.split("\n\n")[2], file=sys.stderr)
+        return 2
+    tile = (tuple(int(n) for n in opts["--tile"].split("x"))
+            if "--tile" in opts else None)
+    try:
+        cells = (parse_cells(opts["--cells"], tile) if "--cells" in opts
+                 else None)
+    except ValueError as e:
+        print(e, file=sys.stderr)
         return 2
     for name, ins in functions(read_sass(argv[1])).items():
         if not re.search(argv[2], name):

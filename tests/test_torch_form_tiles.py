@@ -1,10 +1,10 @@
 """The tile is a property of the form (csrc/fused_tile.cuh's shape_of,
-ops/fused_step.py::tile_of): the chained fast forms with tracers run 32 x
-32 tiles of 1024 threads, the viscous ones 32 x 24 of 768, every other
-form 16 x 32. ``tile_shape`` asks the library that launches the form, and
-the guard's per-block flags (``FusedSWModel``, ``FusedSharded2DModel``),
-the copy step's check and the dynamic load balance's wet-tile counts are
-built at that tile. On the CPU the wrappers' plain versions run at
+ops/fused_step.py::tile_of): the chained forms with tracers, fast or
+general, run 32 x 32 tiles of 1024 threads, the viscous ones 32 x 24 of
+768, every other form 16 x 32. ``tile_shape`` asks the library that
+launches the form, and the guard's per-block flags (``FusedSWModel``,
+``FusedSharded2DModel``), the copy step's check and the dynamic load
+balance's wet-tile counts are built at that tile. On the CPU the wrappers' plain versions run at
 ``CPU_TILE``; a fake library object stands in for the card's, which the
 wrapper would build with nvcc, and ``tile_shape`` is sent to it as for a
 CUDA device."""
@@ -50,8 +50,13 @@ TILES = {(1, 0, False, False): (16, 32, 512, 3),
          (2, 2, True, False): (32, 24, 768, 1),
          (2, 4, True, False): (32, 24, 768, 1),
          (2, 0, False, True): (16, 32, 512, 2),
-         (2, 2, False, True): (16, 32, 512, 2),
-         (2, 2, True, True): (16, 32, 512, 2)}
+         (2, 0, True, True): (16, 32, 512, 2),
+         (2, 1, False, True): (32, 32, 1024, 1),
+         (2, 2, False, True): (32, 32, 1024, 1),
+         (2, 4, False, True): (32, 32, 1024, 1),
+         (2, 1, True, True): (32, 24, 768, 1),
+         (2, 2, True, True): (32, 24, 768, 1),
+         (2, 4, True, True): (32, 24, 768, 1)}
 
 
 @pytest.mark.parametrize("form,tile", TILES.items(), ids=str)
@@ -62,9 +67,9 @@ def test_tile_of_each_form(form, tile):
     assert fstep.tile_of(*form) == tile
     assert fstep.reg_limit(tile) == {3: 42, 2: 64, 1: 64 if tile[2] == 1024
                                      else 85}[tile[3]]
-    g = fstep.window_geometry(form[1], form[0], form[2])
-    if not form[3]:
-        assert g.tile == tile[:2]
+    g = (fstep.general_geometry(form[1], form[0], form[2]) if form[3]
+         else fstep.window_geometry(form[1], form[0], form[2]))
+    assert g.tile == tile[:2]
 
 
 class FakeLibrary:
@@ -142,8 +147,10 @@ def _coastline(n_tracers, mu=0.0):
 
 
 # (tracers, mu, static_rslu): the main path's T = 0 form, the tracer form,
-# its viscous twin, and the general tracer form (the old chained tile)
-FORMS = [(0, 0.0, True), (2, 0.0, True), (2, MU, True), (2, 0.0, False)]
+# its viscous twin, and the general forms: without tracers, with 2 (its own
+# tile since it was redesigned), viscous, and the run-time tracer family
+FORMS = [(0, 0.0, True), (2, 0.0, True), (2, MU, True), (2, 0.0, False),
+         (0, 0.0, False), (2, MU, False), (3, 0.0, False)]
 
 
 @pytest.mark.parametrize("form", FORMS, ids=lambda f: f"T{f[0]}-mu{f[1]:g}"
@@ -172,15 +179,18 @@ def test_guard_flags_at_the_form_tile(card, form):
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
 
 
-@pytest.mark.parametrize("n_tr", [0, 2])
-def test_shard_flags_and_the_dlb_at_the_form_tile(card, n_tr):
-    """FusedSharded2DModel builds each shard's flags at its form's tile,
-    and the dynamic load balance counts its wet tiles there: the ratio of
-    the round it installs is that of the installed model's flags."""
+@pytest.mark.parametrize("n_tr,fast", [(0, True), (2, True), (0, False),
+                                       (2, False)])
+def test_shard_flags_and_the_dlb_at_the_form_tile(card, n_tr, fast):
+    """FusedSharded2DModel builds each shard's flags at its form's tile
+    (fast, or general: ``static_rslu=False``), and the dynamic load
+    balance counts its wet tiles there: the ratio of the round it
+    installs is that of the installed model's flags."""
     grid, cfg, state = _coastline(n_tr)
-    want = fstep.tile_of(2, n_tr)[:2]
-    fs = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, steps_per_call=2)
-    assert fs.tile == want
+    want = fstep.tile_of(2, n_tr, False, not fast)[:2]
+    fs = FusedSharded2DModel(grid, cfg, 1.0, 2, 2, steps_per_call=2,
+                             static_rslu=fast)
+    assert fs.tile == want and fs.general != fast
     for i in range(2):
         for j in range(2):
             assert tuple(fs.tile_wet[i][j].shape) == (

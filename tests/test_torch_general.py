@@ -87,6 +87,7 @@ CASES = {
     "profile_frame": (1, False, 0, 0.0, 1, 1),
     "planes": (2, True, 0, 0.0, 1, 1),
     "planes_frame": (2, False, 0, 0.0, 1, 1),
+    "profile_T1": (1, True, 1, 0.0, 1, 1),
     "profile_T2": (1, True, 2, 0.0, 1, 1),
     "planes_T2": (2, True, 2, 0.0, 1, 1),
     "profile_T3": (1, True, 3, 0.0, 1, 1),
@@ -166,7 +167,9 @@ def test_static_reciprocals_bit_identical_to_selects():
     assert torch.equal(planes[2], want)
 
 
-@pytest.mark.parametrize("name", ["profile", "planes_T2_mu", "profile_T3"])
+@pytest.mark.parametrize("name", ["profile", "planes_T2_mu", "profile_T3",
+                                  "profile_T1", "profile_T2",
+                                  "profile_T3_mu"])
 def test_chained_general_form(name):
     """Two steps a launch (``steps_per_call=2``): against the JAX chained
     general kernel (1e-5 after 30 steps) and against 30 single steps of

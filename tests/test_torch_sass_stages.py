@@ -89,3 +89,30 @@ def test_instructions_a_tile_from_the_cells_of_each_stage(tmp_path, capsys):
     rc = mod.main(["sass_stages_torch.py", str(path), "kernelILi0E",
                    "--cells", "0,1000"])
     assert rc == 2 and "--cells has 2 pieces" in capsys.readouterr().err
+
+
+def test_cells_by_the_halo_of_each_stage_region(tmp_path, capsys):
+    """--cells with --tile: an entry ``hN`` is the region N cells beyond
+    the tile, (TX + 2 N) x (TY + 2 N) cells, so a chained form's stages
+    (the general body's among them) are given by their halos, ``/K`` for
+    a loop of K cells an iteration; ``hN`` without --tile, or --tile
+    without --cells, is refused."""
+    mod = _script()
+    assert mod.parse_cells("0,h6+h5,7", (16, 32)) == [[0], [28 * 44, 26 * 42],
+                                                      [7]]
+    # a loop nvcc unrolled twice: half as many iterations
+    assert mod.parse_cells("h1/2,9/3", (2, 4)) == [[12.0], [3.0]]
+    with pytest.raises(ValueError, match="--tile"):
+        mod.parse_cells("h1")
+    path = tmp_path / "k.sass"
+    path.write_text(SASS)
+    # h0 of a 10 x 10 tile is 100 cells of the 5-instruction loop: 0.5k
+    rc = mod.main(["sass_stages_torch.py", str(path), "kernelILi0E",
+                   "--cells", "0,h0,0", "--tile", "10x10"])
+    assert rc == 0
+    assert "all 0.5k instructions a tile" in capsys.readouterr().out
+    assert mod.main(["sass_stages_torch.py", str(path), "kernelILi0E",
+                     "--cells", "0,h0,0"]) == 2
+    assert "needs --tile" in capsys.readouterr().err
+    assert mod.main(["sass_stages_torch.py", str(path), "kernelILi0E",
+                     "--tile", "10x10"]) == 2

@@ -146,3 +146,67 @@ def test_validation_bs10k_through_main_on_the_cpu():
     last = json.loads(lines[-1])
     assert last["steps"] == 10000 and last["n_checks"] == 27
     assert last["ok"], "\n".join(lines)
+
+
+def test_chain_tile_sweep_command_line():
+    """``scripts/chain_tile_sweep_torch.py``'s arguments: tiles, folds,
+    tracers, the general forms, the loaders and the rounds; a general form
+    without tracers gets each loader's library (``FUSED_CHAIN_GEN_TMA``,
+    after the tile's macros), any other form the tile's alone; with no
+    card the sweep refuses to run."""
+    mod = _script("chain_tile_sweep_torch")
+    from ocean_model_arch_torch.ops import fused_step as fstep
+    assert mod.parse(["--general", "--loader", "threads,tma", "--rounds",
+                      "3", "--tracers", "0,2", "default", "32x32x1024x1"]) \
+        == {"general": True, "loaders": (0, 1), "rounds": 3,
+            "tracers": (0, 2), "tiles": (None, (32, 32, 1024, 1))}
+    assert mod.parse(["--folds", "7"]) == {"folds": 7}
+    assert mod.sweep_tile(None, 0, False, 1, True) == (16, 32, 512, 2, 1)
+    assert mod.sweep_tile((32, 32, 1024, 1), 0, False, 0, True) == (
+        32, 32, 1024, 1, 0)
+    assert mod.sweep_tile((32, 32, 1024, 1), 2, False, 0, True) == (
+        32, 32, 1024, 1)
+    assert mod.sweep_tile(None, 0, False, 1, False) is None
+    assert fstep.library_target(
+        0, steps=2, chain_tile=mod.sweep_tile(None, 0, False, 0, True),
+        general=True) == ("fused_step@FUSED_NT=0@FUSED_GEN=1@FUSED_STEPS=2"
+                          "@FUSED_CHAIN_TX=16@FUSED_CHAIN_TY=32"
+                          "@FUSED_CHAIN_THREADS=512@FUSED_CHAIN_MIN_BLOCKS=2"
+                          "@FUSED_CHAIN_GEN_TMA=0")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            mod.sweep(general=True)
+
+
+def test_roofline_probe_counts_the_windows_it_takes_again(monkeypatch):
+    """``scripts/roofline_probe_torch.py::kernel_us`` takes a window again
+    where torch.profiler recorded no device time for the kernel, and
+    counts it in ``kernel_us.retaken`` (``n`` more calls; chip_smoke.py's
+    phase 7 holds the copy step's launches against it); three windows
+    without one raise."""
+    import types
+    import torch.profiler as tp
+    mod = _script("roofline_probe_torch")
+    seen = types.SimpleNamespace(key="copy_step_kernel<0>", count=4,
+                                 self_device_time_total=8.0)
+    windows = iter([[], [seen], [], [], []])
+
+    class Window:
+        def __enter__(self):
+            self.events = next(windows)
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return self.events
+
+    monkeypatch.setattr(tp, "profile", lambda **kw: Window())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    calls = []
+    assert mod.kernel_us(lambda: calls.append(1), 4) == 2.0
+    assert mod.kernel_us.retaken == 1 and len(calls) == 1 + 2 * 4
+    with pytest.raises(RuntimeError, match="no device time"):
+        mod.kernel_us(lambda: calls.append(1), 4)
+    assert mod.kernel_us.retaken == 4

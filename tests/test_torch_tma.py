@@ -215,31 +215,34 @@ def test_refusals():
     assert fstep.tma_refusal(lay, (base[:-1].view(lay.Xs, lay.Ys),)) is None
 
 
-# the general form's (tracers, steps a launch, viscous)
-GEN_FORMS = list(itertools.product((0, 1, 2, 3, 9), (1, 2), (False, True)))
+# the general form's (tracers, steps a launch, viscous, metric planes)
+GEN_FORMS = list(itertools.product((0, 1, 2, 3, 9), (1, 2), (False, True),
+                                   (False, True)))
 
 
 def _gen_name(form):
-    t, steps, visc = form
-    return f"T{t}-{steps}step" + "-visc" * visc
+    t, steps, visc, met2d = form
+    return f"T{t}-{steps}step" + "-visc" * visc + "-planes" * met2d
 
 
 def _twin_carveout(t, steps, visc):
     """(blocks an SM, carveout KB) of the general form's threads' twin,
-    worked out here from its window: (16 + 2 H) x (32 + 2 H) cells a
-    plane, 16 planes (20 + 2 T chained at a fixed count), a viscous
-    form's four stress planes of the region 1 + EXTRA cells (plus a
-    chained step's H) around the tile."""
+    worked out here from its window on its tile (tile_of: 16 x 32 one step
+    and chained without tracers, 32 x 32 chained with, 32 x 24 viscous):
+    (TX + 2 H) x (TY + 2 H) cells a plane, 16 planes (20 + 2 T chained at
+    a fixed count), a viscous form's four stress planes of the region 1 +
+    EXTRA cells (plus a chained step's H) around the tile."""
+    tx, ty, _, bound = fstep.tile_of(steps, t, visc, True)
     halo = steps * (3 + (t > 0))
-    plane = (16 + 2 * halo) * (32 + 2 * halo)
+    plane = (tx + 2 * halo) * (ty + 2 * halo)
     n = 16 + (4 + (2 * t if 0 < t <= 2 else 0) if steps == 2 else 0)
     vh = (steps - 1) * (3 + (t > 0)) + 1 + (t > 0)
-    nbytes = 4 * (n * plane + (4 * (16 + 2 * vh) * (32 + 2 * vh)
+    nbytes = 4 * (n * plane + (4 * (tx + 2 * vh) * (ty + 2 * vh)
                                if visc else 0))
     if t > 2 and steps == 2:          # its tracer levels fill one block
         return 1, 228
     block = nbytes + fstep.GEN_STATIC + fstep.BLOCK_RESERVED
-    blocks = min(3 if steps == 1 else 2, fstep.SM_SMEM // block)
+    blocks = min(bound, fstep.SM_SMEM // block)
     return blocks, fstep.carveout_kb(blocks * block)
 
 
@@ -248,12 +251,15 @@ def test_general_window_keeps_tma_limits(form):
     """A general form by TMA: the box is the whole window, its columns a
     multiple of 16 bytes from a column that is one, at most 256 cells a
     side, each plane on 128 bytes; five boxes (ssh, u, v, lu, hr) and a
-    viscous form's up, vp. Only the chained forms without tracers and of
-    the run-time tracer count keep the threads' loader (no boxes)."""
-    t, steps, visc = form
-    g = fstep.general_geometry(t, steps, visc)
-    assert g.tma == (steps == 1 or 0 < t <= 2)
-    assert g.tile == (16, 32) and g.halo == steps * (3 + (t > 0))
+    viscous form's up, vp. Every form loads by TMA but the chained ones
+    without tracers that are viscous (their two blocks of the TMA window
+    pass the SM) or on metric planes (their twin's carveout): they keep
+    the threads' loader, no boxes; each on its own tile."""
+    t, steps, visc, met2d = form
+    g = fstep.general_geometry(t, steps, visc, met2d)
+    assert g.tma == (steps == 1 or t > 0 or not (visc or met2d))
+    assert g.tile == fstep.tile_of(steps, t, visc, True)[:2]
+    assert g.halo == steps * (3 + (t > 0))
     if not g.tma:
         assert g.boxes == 0 and g.extra == 0
         assert g.cols == g.tile[1] + 2 * g.halo
@@ -270,24 +276,31 @@ def test_general_window_keeps_tma_limits(form):
 
 @pytest.mark.parametrize("form", GEN_FORMS, ids=_gen_name)
 def test_general_keeps_its_twins_carveout(form):
-    """No general form's blocks an SM times its shared memory (with the
-    static arrays and the block's reserve) pass the carveout step its
-    threads' twin sits in: the body reads its metric rows or planes
-    through L1, which a larger carveout shrinks. The blocks an SM are the
-    twin's: three one step, two chained without tracers, one chained
-    with."""
-    t, steps, visc = form
-    g = fstep.general_geometry(t, steps, visc)
+    """No one-step general form's blocks an SM times its shared memory
+    (with the static arrays and the block's reserve) pass the carveout
+    step its threads' twin sits in: that body reads its metric rows or
+    planes through L1, which a larger carveout shrinks. A chained form on
+    profile metrics holds its rows a column, and its budget is the SM
+    (228 KB). The blocks an SM are the twin's: three one step, two
+    chained without tracers, one chained with."""
+    t, steps, visc, met2d = form
+    g = fstep.general_geometry(t, steps, visc, met2d)
     blocks, carve = _twin_carveout(t, steps, visc)
     assert g.blocks == blocks
-    assert g.carveout <= carve
+    budget = carve if steps == 1 or met2d else 228
+    assert g.carveout <= budget
     if not (t > 2 and steps == 2):
         assert g.blocks * (g.smem + fstep.GEN_STATIC
-                           + fstep.BLOCK_RESERVED) <= carve * 1024
-    # the one-step forms all move; hr gets a plane of its own where the
-    # carveout leaves one: with tracers (not viscous) and chained
-    assert g.extra == (g.tma and t > 0 and not visc and steps == 1
-                       or g.tma and steps == 2 and t in (1, 2))
+                           + fstep.BLOCK_RESERVED) <= budget * 1024
+    # hr gets a plane of its own where the budget leaves one (one step:
+    # with tracers, not viscous), never in the chained run-time tracer
+    # family, whose levels follow the working planes
+    room = g.blocks * (g.smem + 4 * g.plane * (1 - g.extra)
+                       + fstep.GEN_STATIC + fstep.BLOCK_RESERVED) \
+        <= budget * 1024
+    assert g.extra == (g.tma and room and not (t > 2 and steps == 2))
+    if steps == 1:
+        assert g.extra == (g.tma and t > 0 and not visc)
 
 
 # the persistent walk's forms: (tracers, viscous, bathymetry planes, full
@@ -327,16 +340,19 @@ def test_walk_keeps_three_blocks(form):
 
 def test_general_refusals():
     """A general form by TMA refuses what TMA does not take, as the fast
-    forms do; a chained general form without tracers (the threads'
-    loader) has nothing to refuse."""
+    forms do; the chained general forms without tracers that are viscous
+    or on metric planes (the threads' loader) have nothing to refuse."""
     lay = fl.make_layout(40, 40)
     base = torch.zeros(lay.Xs * lay.Ys + 1)
     shifted = base[1:].view(lay.Xs, lay.Ys)
     for t, visc in itertools.product((0, 2), (False, True)):
         assert "aligned" in fstep.tma_refusal(lay, (shifted,), 1, t, True,
                                               visc)
-    assert fstep.tma_refusal(lay, (shifted,), 2, 0, True) is None
-    assert "aligned" in fstep.tma_refusal(lay, (shifted,), 2, 2, True)
+    assert fstep.tma_refusal(lay, (shifted,), 2, 0, True, True) is None
+    assert fstep.tma_refusal(lay, (shifted,), 2, 0, True, False,
+                             True) is None
+    for t in (0, 2, 3):
+        assert "aligned" in fstep.tma_refusal(lay, (shifted,), 2, t, True)
 
 
 def test_carveouts():
