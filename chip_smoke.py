@@ -170,9 +170,10 @@ window in one launch (phase 14) -> ``pack`` -> ``run_steps`` ->
    and an sshp spike; (c) each timed beside ``run_steps`` (guarded as the
    model defaults, and unguarded) and the chained form of the same run:
    kernel us a step, path, idle, the grid;
-15. (printed before phase 7) K1's arithmetic folds as the drivers
-   default them: (a) the fold libraries' registers (42 one step, 64
-   chained, no spill); (b) six folded main paths (``azov_mask`` one
+15. (printed after phase 20, before phase 7: it waits for the end of the
+   background build) K1's arithmetic folds at the models' defaults: (a)
+   the fold libraries' registers (42 one step, 64 chained, no spill);
+   (b) six folded main paths (``azov_mask`` one
    step and chained, ``azov_tracers``, ``azov_tracers4`` (the run-time
    tracer count of phase 12c's entry point), ``bipolar_azov`` and
    ``azov_visc`` chained): 200 steps of their own folded instantiation
@@ -188,10 +189,14 @@ window in one launch (phase 14) -> ``pack`` -> ``run_steps`` ->
    unfolded one of the same configuration; (e) tests/test_fused.py's
    round-5 cases on the card (70 x 52 islands; also with 2 and 4
    tracers): elide_sel + q4 within 1e-6, share_prev within 1e-5;
-16. (printed before phase 7) the op-cost probes K6 and K7: (a) every
+16. (printed after phase 15, before phase 7: its timing wants the host
+   free of the build and its SASS reading, which it waits for) the
+   op-cost probes K6 and K7: (a) every
    kind at both Ks of its probe against the plain version after 1 and 3
-   carried calls (1e-6), the SASS instructions an iteration of each
-   kind; (b) ``scripts/vpu_op_probe_torch.py`` and
+   carried calls (1e-6), on seeded inputs and on spikes at the rolls'
+   seams, rolly's refusal of another width, the SASS instructions a cell
+   and iteration of each kind; (b)
+   ``scripts/vpu_op_probe_torch.py`` and
    ``scripts/vpu_shift_probe_torch.py``'s timing at their own n (2000,
    500), each kind's launches counted;
 17. (printed before phase 7) ``OceanModel`` on a 4 x 2 mesh off the fused
@@ -265,8 +270,9 @@ registers, and stops; ``--parent DIR --bathymetry`` only the fast forms
 over bathymetry planes and the main path's chained and folded ones,
 ``--general`` the general forms and K2, ``--general-chained`` the
 general forms' chained ones, ``--chained`` the chained fast forms,
-``--one-step`` the fast one-step forms and K2. Needs a CUDA device and
-nvcc; there is no CPU path.
+``--one-step`` the fast one-step forms and K2, ``--probes`` the op-cost
+probes K6 and K7 (bit for bit and timed in turns). Needs a CUDA device
+and nvcc; there is no CPU path.
 """
 
 from __future__ import annotations
@@ -455,14 +461,16 @@ def ptxas_table(log: str) -> list:
 
 def vpu_ptxas(log: str) -> list:
     """(kernel, registers, spill bytes) of the probe library's kernels
-    from nvcc's -Xptxas -v output: the elementwise kinds by their names."""
-    from ocean_model_arch_torch.ops.vpu_probe import KINDS
+    from nvcc's -Xptxas -v output, by kind (``vpu_probe.kernel_kind``:
+    rolly at K7's width ``rolly@1119``)."""
+    from ocean_model_arch_torch.ops.vpu_probe import kernel_kind
     out, name, spill = [], None, -1
     for ln in log.splitlines():
         m = re.search(r"entry function '\S*?(elem|bf16|rollx|rolly)_kernel"
-                      r"(?:ILi(\d+)E)?", ln)
+                      r"(?:I((?:Li\d+E)+)E)?", ln)
         if m:
-            name = KINDS[int(m.group(2))] if m.group(2) else m.group(1)
+            name = kernel_kind(m.group(1) + "_kernel", tuple(
+                int(a) for a in re.findall(r"\d+", m.group(2) or "")))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
         if m and name:
@@ -472,6 +480,25 @@ def vpu_ptxas(log: str) -> list:
             out.append((name, int(m.group(1)), spill))
             name = None
     return out
+
+
+# the kernels of a probe library: 7 elementwise kinds, mulbf16, rollx and
+# rolly at two widths
+VPU_KERNELS = 11
+
+
+def vpu_summary(rows: list) -> str:
+    """The probe libraries' ptxas line: registers a kernel and the spilled
+    bytes of all (which must be none)."""
+    regs: dict = {}
+    for kind, r, _ in rows:
+        regs.setdefault(kind, set()).add(r)
+    spilled = sum(sp for _, _, sp in rows if sp > 0)
+    return (", ".join(f"{kind} {'/'.join(map(str, sorted(r)))}"
+                      for kind, r in regs.items())
+            + f" registers ({len(rows)} kernels); spilled bytes: "
+            + (f"{spilled}" if rows else "(cached)")
+            + (" -- none" if rows and not spilled else ""))
 
 
 def ptxas_summary(table: list) -> str:
@@ -1154,6 +1181,19 @@ def bathymetry(nx: int, ny: int) -> np.ndarray:
             * np.sin(np.pi * j / (ny - 1))).astype(np.float32)
 
 
+def import_parent(parent: str) -> None:
+    """The port of the checkout at ``parent`` as the package
+    ``parent_port`` (its modules ``parent_port.ops...``)."""
+    if "parent_port" in sys.modules:
+        return
+    pkg = os.path.join(os.path.abspath(parent), "ocean_model_arch_torch")
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    sys.modules["parent_port"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules["parent_port"])
+
+
 def against_parent(parent: str, card: str, chain_regs: int,
                    subset: str | None = None) -> int:
     """Every one-step instantiation the checkout at ``parent`` has, on the
@@ -1206,12 +1246,7 @@ def against_parent(parent: str, card: str, chain_regs: int,
     from ocean_model_arch_torch.model.init import init_ocean_state
     from ocean_model_arch_torch.ops import fused_step as mine
 
-    pkg = os.path.join(os.path.abspath(parent), "ocean_model_arch_torch")
-    spec = importlib.util.spec_from_file_location(
-        "parent_port", os.path.join(pkg, "__init__.py"),
-        submodule_search_locations=[pkg])
-    sys.modules["parent_port"] = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(sys.modules["parent_port"])
+    import_parent(parent)
     theirs = importlib.import_module("parent_port.ops.fused_step")
     theirs_build = importlib.import_module("parent_port.ops._build")
     probe = load_script("roofline_probe_torch")
@@ -2183,9 +2218,15 @@ def k1b_us(fs, cfg, carry, k: int, n: int) -> tuple:
     def launches():
         for _ in range(n):
             fused_sw_step_raw(f, out, bm, *args)
-    dev = next(ms for name in FUSED_KERNELS
-               if (ms := profile_device_ms(launches, name)[0]) is not None)
-    return dev * 1e3, cuda_ms(launches, 1) / n * 1e3
+    # torch.profiler now and then records nothing in a window (it stopped
+    # a whole run here once): three windows a kernel name at most
+    for _ in range(3):
+        for kern in FUSED_KERNELS:
+            dev = profile_device_ms(launches, kern)[0]
+            if dev is not None:
+                return dev * 1e3, cuda_ms(launches, 1) / n * 1e3
+    raise SmokeFailure("K1b: torch.profiler recorded none of its launches "
+                       "in three windows")
 
 
 def process_route(card: str, name: str, stats: dict) -> list:
@@ -4484,12 +4525,16 @@ def build_behind(names) -> None:
     """Build ``names`` at niceness 10, as many at once as there are cores,
     below the phases that time the card: on Linux ``os.nice`` lowers the
     calling thread only, and the threads and compilers it starts inherit
-    it. (All 96 at once take the host loop's core: the run took 1056 s.)"""
+    it. (All 96 at once take the host loop's core: the run took 1056 s.)
+    The builds start in the queue's order, one as soon as another ends:
+    in batches of as many as the cores, each batch waited for its longest
+    build (a fold library takes up to 61 s, a probe library a few), and
+    the queue ended at 1088 s of a 1308 s run on an H100 host of 8
+    cores."""
     from ocean_model_arch_torch.ops import _build
     os.nice(10)
-    n = os.cpu_count() or 8
-    for i in range(0, len(names), n):
-        _build.build_all(names[i:i + n])
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 8) as pool:
+        list(pool.map(_build.build, names))
 
 
 def fold_registers(fold_build, chain_regs: int) -> str:
@@ -4837,42 +4882,47 @@ TOL_PROBE = 1e-6         # max |kernel - plain| / max |plain| over the interior
 
 def probe_phase(card: str, name: str) -> list:
     """Phase 16: K6 and K7. (a) every kind at both Ks of its probe, the
-    kernel against the plain version after 1 and 3 carried calls on seeded
-    inputs at the scripts' layouts (rel <= 1e-6 over the interior rows,
-    the same non-finite cells, margins the input's; the carrier is one
-    fused multiply-add on both sides, IEEE division on both; ``rcp`` runs
-    rcp.approx, whose plain version is the exact 1 / b, an ulp apart
-    before the carrier's 1e-4 weight); the SASS instructions an iteration
-    of each kind; (b) the two scripts' own timing at their n, their
-    launches counted (zeroed just before each script, read just after).
-    Returns the kernels line's entries."""
+    kernel against the plain version after 1 and 3 carried calls at the
+    scripts' layouts, on seeded inputs and on :func:`probe_spikes` (rel
+    <= 1e-6 over the interior rows, the same NaN and infinite cells,
+    margins the input's; the carrier is one fused multiply-add on both
+    sides, IEEE division on both; ``rcp`` runs rcp.approx, whose plain
+    version is the exact 1 / b, an ulp apart before the carrier's 1e-4
+    weight); rolly's refusal of a width it is not instantiated for; the
+    SASS instructions an iteration of each kind; (b) the two scripts' own
+    timing at their n, their launches counted (zeroed just before each
+    script, read just after). Returns the kernels line's entries."""
     from ocean_model_arch_torch.ops import vpu_probe as vp
     n_cmp, worst = 0, {}
     for ks, kinds, ys in ((vp.OP_KS, vp.KINDS, vp.YS_OP),
                           (vp.SHIFT_KS, vp.SHIFT_KINDS, vp.YS_SHIFT)):
-        x = vp.probe_input(ys, "cuda", PROBE_SEED)
-        for kind in kinds:
-            for k in ks:
-                for n in (1, 3):
-                    got = vp.vpu_probe(x, kind, k, n)
-                    want = vp.vpu_probe_reference(x, kind, k, n)
-                    torch.cuda.synchronize()
-                    a, b = got[vp.M:-vp.M], want[vp.M:-vp.M]
-                    fin = torch.isfinite(b)
-                    check(torch.equal(torch.isfinite(a), fin)
-                          and torch.equal(a[~fin], b[~fin])
-                          and torch.equal(got[:vp.M], x[:vp.M])
-                          and torch.equal(got[-vp.M:], x[-vp.M:]),
-                          f"probe {kind} K={k} n={n}: non-finite cells or "
-                          "margins differ")
-                    scale = max(float(b[fin].abs().max()), 1e-30)
-                    err = float((a[fin] - b[fin]).abs().max()) / scale
-                    check(err <= TOL_PROBE, f"probe {kind} K={k} n={n} "
-                          f"(YS {ys}): kernel vs plain rel err {err:.2e}")
-                    key = (kind, k, ys)
-                    worst[key] = max(worst.get(key, 0.0),
-                                     float((a[fin] - b[fin]).abs().max()))
-                    n_cmp += 1
+        for what, x in (("seeded", vp.probe_input(ys, "cuda", PROBE_SEED)),
+                        ("spikes", probe_spikes(vp, ys))):
+            for kind in kinds:
+                for k in ks:
+                    for n in (1, 3):
+                        got = vp.vpu_probe(x, kind, k, n)
+                        want = vp.vpu_probe_reference(x, kind, k, n)
+                        torch.cuda.synchronize()
+                        tag = f"probe {kind} K={k} n={n} (YS {ys}, {what})"
+                        a, b = got[vp.M:-vp.M], want[vp.M:-vp.M]
+                        fin = torch.isfinite(b)
+                        check(torch.equal(torch.isfinite(a), fin)
+                              and torch.equal(torch.isnan(a), torch.isnan(b))
+                              and torch.equal(a[~fin].nan_to_num(0.0),
+                                              b[~fin].nan_to_num(0.0))
+                              and torch.equal(got[:vp.M], x[:vp.M])
+                              and torch.equal(got[-vp.M:], x[-vp.M:]),
+                              f"{tag}: non-finite cells or margins differ")
+                        check(bool(fin.any()), f"{tag}: no finite cell")
+                        diff = float((a[fin] - b[fin]).abs().max())
+                        err = diff / max(float(b[fin].abs().max()), 1e-30)
+                        check(err <= TOL_PROBE, f"{tag}: kernel vs plain "
+                              f"rel err {err:.2e}")
+                        key = (kind, k, ys)
+                        worst[key] = max(worst.get(key, 0.0), diff)
+                        n_cmp += 1
+    refused = rolly_refusal(vp)
     sass = vp.sass_per_iteration(*vp.OP_KS)
     check(all(sass.values()), f"SASS: a kind with no instructions an "
           f"iteration: {sass}")
@@ -4883,11 +4933,13 @@ def probe_phase(card: str, name: str) -> list:
     print(f"phase 16a probes (K6, K7) kernel vs plain: {n_cmp} comparisons "
           f"(every kind at K = {vp.OP_KS} on {vp.XS}x{vp.YS_OP}, the shift "
           f"kinds at K = {vp.SHIFT_KS} on {vp.XS}x{vp.YS_SHIFT}; 1 and 3 "
-          f"carried calls) rel err <= {max(v for v in worst.values()):.2e} "
-          f"(<= {TOL_PROBE}); margins the input's, non-finite cells alike: "
-          f"yes; SASS instructions an iteration (K = {vp.OP_KS[1]} less K = "
-          f"{vp.OP_KS[0]}, cuobjdump -sass; the rolls: a pass of a thread's "
-          f"loop): {sass_text}", flush=True)
+          f"carried calls; PROBE_SEED's inputs and probe_spikes') rel err "
+          f"<= {max(v for v in worst.values()):.2e} (<= {TOL_PROBE}); "
+          f"margins the input's, non-finite cells alike: yes; {refused}; SASS instructions a cell and iteration (K = "
+          f"{vp.OP_KS[1]} less K = {vp.OP_KS[0]}, cuobjdump -sass, over the "
+          "cells a thread holds: " + ", ".join(
+              f"{kind} {vp.cells_a_thread(kind, vp.YS_OP)}"
+              for kind in vp.KINDS) + f"): {sass_text}", flush=True)
 
     entries = []
     for script, ks, kinds, ys, n, replaces_at in (
@@ -4925,6 +4977,212 @@ def probe_phase(card: str, name: str) -> list:
     return entries
 
 
+def rolly_refusal(vp) -> str:
+    """rolly on a width it is not instantiated for (1000): refused by the
+    library's launcher and, naming the width, by the wrapper. Returns its
+    phrase of phase 16a's line."""
+    x = torch.ones((vp.XS, 1000), device="cuda")
+    y = torch.empty_like(x)
+    rc = vp._library(vp.OP_KS[0]).vpu_run(
+        x.data_ptr(), y.data_ptr(), None, vp.KINDS.index("rolly"), 1,
+        vp.XS, 1000, torch.cuda.current_stream().cuda_stream)
+    check(rc != 0, "vpu_run launched rolly on YS = 1000")
+    try:
+        vp.vpu_probe(x, "rolly", vp.OP_KS[0])
+        refused = False
+    except ValueError as e:
+        refused = "1000" in str(e)
+    check(refused, "vpu_probe did not refuse rolly on YS = 1000 by name")
+    return "rolly on YS = 1000 refused by vpu_run and by the wrapper: yes"
+
+
+# --parent DIR --probes: the order of the timed turns, a side's turns more
+# where a kind is past its limit, the limits (this / parent: the rolls at
+# the larger K, every kind at both)
+PROBE_TURNS = ("parent", "this", "this", "parent", "parent", "this")
+PROBE_MORE = 2
+PROBE_ROLL_LIMIT, PROBE_LIMIT = 0.5, 1.02
+
+
+def probe_spikes(vp, ys: int) -> torch.Tensor:
+    """A probe input of zeros but ones in each window's last row (which
+    rollx's row 0 reads across the wrap), in the last column and at
+    rolly's lane seams of a few rows: there a roll that read a neighbour
+    after its update would be 1e-3 off, where the seeded inputs' carrier
+    (weight 1e-4) rounds such a slip away."""
+    x = torch.zeros((vp.XS, ys), device="cuda")
+    c, _ = vp.lane_split(ys)
+    for t in range((vp.XS - 2 * vp.M) // vp.TX):
+        x[t * vp.TX + vp.TX + 2 * vp.M - 1, 3 + t] = 1.0
+    for r, col in ((5, ys - 1), (6, c - 1), (7, c), (8, 31 * c - 1)):
+        x[vp.M + r, col] = 1.0
+    return x
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi ``clocks.max.sm``), MHz."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
+def probes_against_parent(parent: str, card: str) -> int:
+    """``--parent DIR --probes``: K6 and K7 against the checkout at
+    ``parent``'s (``ops/vpu_probe.py`` imported from DIR). Builds both
+    trees' libraries (K = 16, 48, 64) at once and prints their ptxas
+    lines (this tree's may spill nothing); holds every kind of K6 at K =
+    16, 64 and of K7 at K = 16, 48 against the parent's library bit for
+    bit, whole outputs after 1 and 3 carried calls on ``PROBE_SEED``'s
+    inputs; times both in turns (``PROBE_TURNS``: parent, this, this,
+    parent, parent, this), each turn the scripts' own ``time_calls`` at
+    their n (K6: 2000 carried calls, K7: 500 from the input; the best of
+    three runs), medians a side; prints us a call, the slope (us an
+    iteration), each kind's marginal cost in carriers (its slope over
+    plain's, less 1) and the rolls' slopes in SM cycles a cell and
+    iteration, both sides. Then it fails unless each roll takes at most
+    ``PROBE_ROLL_LIMIT`` of the parent's time at the larger K and no kind
+    more than ``PROBE_LIMIT`` (a kind past it is timed ``PROBE_MORE``
+    turns a side more first)."""
+    import statistics
+    from ocean_model_arch_torch.ops import _build
+    from ocean_model_arch_torch.ops import vpu_probe as vp
+    import_parent(parent)
+    theirs = importlib.import_module("parent_port.ops.vpu_probe")
+    theirs_build = importlib.import_module("parent_port.ops._build")
+    ks = sorted(set(vp.OP_KS + vp.SHIFT_KS))
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(b.build_all, [m.target(k) for k in ks])
+                  for b, m in ((_build, vp), (theirs_build, theirs))]
+        for b in builds:
+            b.result()
+    build_s = time.perf_counter() - t0
+    rows = {side: [r for k in ks for r in vpu_ptxas(
+        b.BUILDS.get(m.target(k), {}).get("log", ""))]
+        for side, b, m in (("this", _build, vp),
+                           ("parent", theirs_build, theirs))}
+    print(f"probes --parent: {card}; both trees' {len(ks)} libraries built "
+          f"at once in {build_s:.1f} s; ptxas, this tree: "
+          + vpu_summary(rows["this"]) + "; the parent's: "
+          + vpu_summary(rows["parent"]), flush=True)
+    check(all(sp == 0 for _, _, sp in rows["this"]),
+          f"a probe kernel spills: {rows['this']}")
+
+    n_cmp = 0
+    for pks, kinds, ys in ((vp.OP_KS, vp.KINDS, vp.YS_OP),
+                           (vp.SHIFT_KS, vp.SHIFT_KINDS, vp.YS_SHIFT)):
+        for x in (vp.probe_input(ys, "cuda", PROBE_SEED),
+                  probe_spikes(vp, ys)):
+            for kind in kinds:
+                for k in pks:
+                    for n in (1, 3):
+                        got = vp.vpu_probe(x, kind, k, n)
+                        want = theirs.vpu_probe(x, kind, k, n)
+                        torch.cuda.synchronize()
+                        check(torch.equal(got.view(torch.int32),
+                                          want.view(torch.int32)),
+                              f"probe {kind} K={k} n={n} (YS {ys}): not "
+                              "the parent's bits")
+                        n_cmp += 1
+    print(f"probes --parent: {n_cmp} comparisons (every kind at K = "
+          f"{vp.OP_KS} on {vp.XS}x{vp.YS_OP}, the shift kinds at K = "
+          f"{vp.SHIFT_KS} on {vp.XS}x{vp.YS_SHIFT}; 1 and 3 carried calls, "
+          "whole outputs; PROBE_SEED's inputs and probe_spikes'): the "
+          "parent's bits: yes", flush=True)
+
+    sass = vp.sass_per_iteration(*vp.OP_KS)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = sm_clock_mhz()
+    # the MUFU pipe's floor: 16 results a clock an SM (compute capability
+    # 9.0), the SASS's MUFU a cell and iteration over K6's interior
+    interior = (vp.XS - 2 * vp.M) * vp.YS_OP
+    mufu = {kind: sass[kind].get("MUFU", 0.0) for kind in vp.KINDS
+            if sass[kind].get("MUFU")}
+    print("probes --parent: SASS a cell and iteration, this tree "
+          "(cuobjdump, K = 64 less 16): " + "; ".join(
+              f"{kind} {sum(c.values()):.3f}" for kind, c in sass.items())
+          + f"; the MUFU floor (16 a clock an SM, {n_sm} SMs at {mhz:.0f} "
+          "MHz; us a call at K = " + ", ".join(map(str, vp.OP_KS)) + "): "
+          + "; ".join(f"{kind} {m:g} MUFU a cell, " + " / ".join(
+              f"{m * interior * k / (16 * n_sm * mhz):.2f}"
+              for k in vp.OP_KS) for kind, m in mufu.items()), flush=True)
+
+    sides = ("this", "parent")
+    verdicts = []
+    for probe, pks, kinds, ys, n, carry in (
+            ("K6", vp.OP_KS, vp.KINDS, vp.YS_OP, vp.OP_N, True),
+            ("K7", vp.SHIFT_KS, vp.SHIFT_KINDS, vp.YS_SHIFT, vp.SHIFT_N,
+             False)):
+        x = vp.probe_input(ys, "cuda")        # ones, as the scripts time
+        med = {}
+        for kind in kinds:
+            for k in pks:
+                t = {side: [] for side in sides}
+
+                def turn(side, kind=kind, k=k, t=t):
+                    mod = vp if side == "this" else theirs
+                    t[side].append(1e3 * mod.time_calls(x, kind, k, n,
+                                                        carry))
+                for side in PROBE_TURNS:
+                    turn(side)
+                limit = (PROBE_ROLL_LIMIT if kind.startswith("roll")
+                         and k == pks[-1] else PROBE_LIMIT)
+                if (statistics.median(t["this"])
+                        > limit * statistics.median(t["parent"])):
+                    for side in PROBE_TURNS[:2 * PROBE_MORE]:
+                        turn(side)
+                med[kind, k] = {s: statistics.median(t[s]) for s in sides}
+        k0, k1 = pks[0], pks[-1]
+        slope = {(kind, s): (med[kind, k1][s] - med[kind, k0][s]) / (k1 - k0)
+                 for kind in kinds for s in sides}
+        parts = []
+        for kind in kinds:
+            r = [med[kind, k]["this"] / med[kind, k]["parent"] for k in pks]
+            marg = "".join(
+                f"{slope[kind, s] / slope['plain', s] - 1:+.2f}"
+                + (" [" if s == "this" else "]") for s in sides)
+            parts.append(
+                f"{kind} " + ", ".join(
+                    f"K{k} {med[kind, k]['this']:.3f} "
+                    f"[{med[kind, k]['parent']:.3f}]" for k in pks)
+                + " us, this / parent " + " / ".join(f"{v:.3f}" for v in r)
+                + f", slope {slope[kind, 'this']:.4f} "
+                f"[{slope[kind, 'parent']:.4f}] us an iteration"
+                + ("" if kind == "plain" else f", marginal {marg} carriers"))
+            for k, v in zip(pks, r):
+                limit = (PROBE_ROLL_LIMIT if kind.startswith("roll")
+                         and k == k1 else PROBE_LIMIT)
+                verdicts.append((f"{probe} {kind} K={k}", v, limit))
+        print(f"probes --parent {probe} ({vp.XS}x{ys}, n = {n}, "
+              f"{'carried' if carry else 'from the input'}; device us a "
+              "call, this [parent], medians of "
+              f"{PROBE_TURNS.count('this')} turns a side, each the best of "
+              f"three runs; {card}): " + "; ".join(parts), flush=True)
+        tiles = (vp.XS - 2 * vp.M) // vp.TX
+        cells = {"rollx": tiles * (vp.TX + 2 * vp.M) * ys,
+                 "rolly": (vp.XS - 2 * vp.M) * ys,
+                 "plain": (vp.XS - 2 * vp.M) * ys}
+        # an SM's cycles x its 128 FP32 lanes: the carrier alone is 2
+        cyc = {(kind, s): slope[kind, s] * 1e-6 * n_sm * mhz * 1e6 * 128
+               / cells[kind] for kind in cells for s in sides}
+        print(f"probes --parent {probe} the slopes in FP32 lane cycles a "
+              f"cell and iteration (SM cycles x 128 lanes, {n_sm} SMs at "
+              f"{mhz:.0f} MHz; cells an iteration: rollx every window row, "
+              "rolly and plain the interior): " + "; ".join(
+                  f"{kind} {cyc[kind, 'this']:.4f} [{cyc[kind, 'parent']:.4f}]"
+                  ", the parent's less this "
+                  f"{cyc[kind, 'parent'] - cyc[kind, 'this']:.4f}"
+                  for kind in cells), flush=True)
+    bad = [(what, round(v, 3), lim) for what, v, lim in verdicts if v > lim]
+    print(f"probes --parent: the rolls at the larger K at most "
+          f"{PROBE_ROLL_LIMIT} of the parent, every kind at most "
+          f"{PROBE_LIMIT}: " + ("yes" if not bad else f"no: {bad}"),
+          flush=True)
+    check(not bad, f"probes past their limits: {bad}")
+    return 0
+
+
 def fl_margin(steps: int, fs) -> int:
     from ocean_model_arch_torch.ops import fused_layout as fl
     return fl.margin_for(steps, fs.n_tracers)
@@ -4934,10 +5192,10 @@ def main(argv=()) -> int:
     if argv and (len(argv) not in (2, 3) or argv[0] != "--parent"
                  or argv[2:] not in ([], ["--bathymetry"], ["--general"],
                                      ["--general-chained"], ["--chained"],
-                                     ["--one-step"])):
+                                     ["--one-step"], ["--probes"])):
         print("usage: chip_smoke.py [--parent DIR [--bathymetry | "
-              "--general | --general-chained | --chained | --one-step]]",
-              file=sys.stderr)
+              "--general | --general-chained | --chained | --one-step | "
+              "--probes]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -4965,6 +5223,9 @@ def main(argv=()) -> int:
     # ---- phase 1: device and kernel build ------------------------------
     name = torch.cuda.get_device_name(0)
     card = gpu_line()
+    if argv[2:] == ["--probes"]:
+        print(card)
+        return probes_against_parent(argv[1], card)
     nvcc_ver = subprocess.run([_build.nvcc(), "--version"],
                               capture_output=True, text=True,
                               check=True).stdout.strip().splitlines()[-1]
@@ -5068,6 +5329,8 @@ def main(argv=()) -> int:
             "log", ""))
         persist_regs = [row for t in persist_targets() for row in ptxas_table(
             _build.BUILDS.get(t, {}).get("log", ""))]
+        vpu_regs = [r for t in vpu_targets for r in vpu_ptxas(
+            _build.BUILDS.get(t, {}).get("log", ""))]
         walk_regs = [(int(m.group(1)), int(m.group(2))) for m in re.finditer(
             r"(\d+) bytes spill stores, (\d+) bytes spill loads",
             _build.BUILDS.get("persistent_probe", {}).get("log", ""))]
@@ -5091,9 +5354,7 @@ def main(argv=()) -> int:
                  or "(cached)")
               + "; copy_step_kernel<tracer window,steps,stacked,TMA,viscous>: "
               + ptxas_summary(copy_regs) + "; the op-cost probes (K6, K7, "
-              + ", ".join(vpu_targets) + "): " + ptxas_summary(
-                  [r for t in vpu_targets for r in vpu_ptxas(
-                      _build.BUILDS.get(t, {}).get("log", ""))])
+              + ", ".join(vpu_targets) + "): " + vpu_summary(vpu_regs)
               + f"; chained tile without tracers "
               f"{tile_shape('cuda', 2)} of {lib2.fused_sw_step_threads(0)} "
               f"threads, launch bound {lib2.fused_sw_step_min_blocks(0)} "
@@ -5115,17 +5376,19 @@ def main(argv=()) -> int:
                 for r in rows if r[1] > reg_limit_of(r[0], kind) or r[2] != 0]
         over += [r for r in persist_regs if r[1] > MAX_REGS or r[2] != 0]
         over += [r for r in walk_regs if r != (0, 0)]
+        over += [r for r in vpu_regs if r[2] != 0]
         check(not over, f"instantiations above {MAX_REGS} registers (one "
               "step a launch) or their chained tile's launch bound, or "
               f"with spills: {over}")
         if all(t in _build.BUILDS for t in targets):     # none was cached
             check(len(fused_regs) == 1408 and len(gen_regs) == 704
                   and len(copy_regs) == 15 and len(persist_regs) == 132
-                  and len(walk_regs) == 2,
+                  and len(walk_regs) == 2
+                  and len(vpu_regs) == VPU_KERNELS * len(vpu_targets),
                   f"{len(fused_regs)} fused, {len(gen_regs)} general, "
                   f"{len(persist_regs)} persistent, {len(copy_regs)} "
-                  f"copy-step and {len(walk_regs)} walk instantiations in "
-                  "the build logs")
+                  f"copy-step, {len(walk_regs)} walk and {len(vpu_regs)} "
+                  "probe instantiations in the build logs")
         check(all(cs.tile_shape("cuda", s, t, v)
                   == tile_shape("cuda", s, n_tracers=t, visc=v)
                   for s in (1, 2) for t in (0, 1) for v in (False, True)),
@@ -5545,15 +5808,6 @@ def main(argv=()) -> int:
 
     mark("14")
 
-    # ---- phase 15: K1's arithmetic folds ----------------------------------
-    fold_phase(grids, basin, basin_b, prec, wet, pts, card, name, run,
-               max_abs, cell, build, chain_regs)
-    mark("15")
-
-    # ---- phase 16: the op-cost probes (K6, K7) ----------------------------
-    probe_entries = probe_phase(card, name)
-    mark("16")
-
     # ---- phase 17: OceanModel on a mesh off the fused path; the DLB -----
     mesh_entries = mesh_route(card, name, max_abs)
     mark("17")
@@ -5569,6 +5823,22 @@ def main(argv=()) -> int:
     # ---- phase 20: the rest of the Grid, the diagnostics ----------------
     grid_diag_phase(card, name)
     mark("20")
+
+    # ---- phase 15: K1's arithmetic folds ----------------------------------
+    # last of the card's phases: it waits for the 96 fold libraries, the
+    # end of the build queue, which phases 16-20 leave time to finish
+    fold_phase(grids, basin, basin_b, prec, wet, pts, card, name, run,
+               max_abs, cell, build, chain_regs)
+    mark("15")
+
+    # ---- phase 16: the op-cost probes (K6, K7) ----------------------------
+    # on a host free of the build and of its SASS reading: their compilers
+    # and cuobjdump slowed the launches of the probes' 4-10 us calls
+    # (mulf32 at K = 16 6.4-7.2 us a call beside them, 4.3 alone)
+    build_s, sass_text = sass.result()
+    mark("1 (the build and its SASS, waited)")
+    probe_entries = probe_phase(card, name)
+    mark("16")
 
     # ---- phase 7: the copy step ----------------------------------------
     # kernel vs plain version on what each form of the fused step loads:
@@ -5760,7 +6030,6 @@ def main(argv=()) -> int:
             + (f"{row['us']:.1f} us" if row else "not measured"))
     print(f"bounds ({card}): " + "; ".join(floors + run["bounds"]))
     mark("7")
-    build_s, sass_text = sass.result()
     phase1_checks()
     print(sass_text, flush=True)
     mark("1 (its checks)")

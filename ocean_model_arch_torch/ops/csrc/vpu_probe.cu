@@ -22,8 +22,9 @@
 //     rollx  b of the row above, circular over the window's TX + 2 M rows
 //     rolly  b of the column before, circular over the YS columns
 //   and two chains without the carrier: mulf32, b = a * 0.9999, then K
-//   times b = b * b; mulbf16, the same in bf16, two columns a thread in
-//   packed __nv_bfloat162 (__hmul2, the card's bf16 elementwise path).
+//   times b = b * b; mulbf16, the same in bf16, a pair of columns (2 j,
+//   2 j + 1) in a packed __nv_bfloat162 (__hmul2, the card's bf16
+//   elementwise path).
 //   The carrier is written __fmaf_rn(b, 0.999f, __fmul_rn(op, 1e-4f)), so
 //   that nvcc neither contracts it otherwise nor folds the chain: one FMUL
 //   and one FFMA an iteration. The squaring chains are dependent products,
@@ -37,19 +38,62 @@
 // windows overlap by 2 M rows, so a call cannot run in place: the carried
 // calls step between two buffers.
 //
-// The window does not fit a block's shared memory (80 x 1152 f32 is 360
-// KB, a block gets 227 KB), so the decomposition follows the op: the
-// elementwise kinds keep the chain in registers, one output cell a thread
-// (two for mulbf16) and only the output rows; rollx runs a strip of 32
-// columns of all 80 window rows a block, rolly 4 whole rows of YS columns
-// a block, each iteration reading the neighbour from shared memory
-// (double-buffered, one barrier an iteration), as K1 reads s_ud[k + S].
-//
-// What bounds it: at K = 16 memory (the output rows and the input rows
-// they depend on, once each: 14.2 MB, 4.2 us at 3.35 TB/s), at K = 64 the
-// chain: 2 FP32 instructions an output cell an iteration, 226 M at K = 64,
-// 6.8 us at 132 SMs x 128 lanes x 1.98 GHz. So at K = 16 the slope of the
-// time against K can understate an op.
+// What bounds each kind, and what the design does about it. A cell's
+// chain is K dependent iterations of 2 FP32 instructions (the carrier)
+// plus the op's own, so at K = 64 the FP32 pipe bounds every kind (226 M
+// instructions for plain, 6.8 us at 132 SMs x 128 lanes x 1.98 GHz), at K
+// = 16 the bytes (the output rows and the input rows they depend on, once
+// each: 14.2 MB, 4.2 us at 3.35 TB/s). rcp, rcpn and div also run one
+// MUFU.RCP a cell and iteration, 16 a clock an SM: 0.42 us an iteration
+// over K6's 1.77 M cells, which bounds them before the FP32 pipe does.
+// div adds the IEEE range check and its refinement (13 SASS an
+// iteration).
+//   - The elementwise kinds (elem_kernel, bf16_kernel). plain, sel,
+//     mulf32 and mulbf16: a thread holds the chains of four adjacent
+//     interior cells, loaded and stored as one 16-byte access each (the
+//     interior starts at byte 32 YS and holds a multiple of 4 cells on
+//     every layout of whole tiles) and run interleaved, four independent
+//     chains a thread (mulbf16: the pairs (2 j, 2 j + 1), two
+//     __nv_bfloat162); the grid is at most one wave of the card's SMs and
+//     its threads stride over the quads. That cuts a call's fixed part (a
+//     quarter of the threads and of the load and store instructions) and
+//     leaves the pipes' work, which the chains already saturate, as it
+//     was. div, rcp, rcpn and bmul keep the first port's cell a thread
+//     (CELLS below): in quads their slopes rose (the MUFU kinds from 97 %
+//     of the MUFU pipe's rate to 87 %); they drop its division of the
+//     cell's index by YS, which only bmul needs, for its row.
+//   - rollx (rollx_kernel): two threads hold one column of one tile's
+//     window in registers, lane l (l < 16) its rows [0, H), lane l + 16
+//     its rows [H, W), H = (TX + 2 M) / 2 = 40; a warp holds 16 adjacent
+//     columns, so each load and store is two coalesced 64-byte runs. An
+//     iteration first takes, by one __shfl_xor_sync, the other half's
+//     last row (the lower half's row 0 reads window row W - 1 across the
+//     wrap, the upper half's row H reads row H - 1), then updates its
+//     rows H - 1 down to 1 in place from the row above (still the last
+//     iteration's value), then its first row from the value taken: the
+//     circular roll with no shared memory and no barrier, 40 independent
+//     carriers and one SHFL a thread and iteration. (A whole column a
+//     thread, 80 rows, spilled 16 bytes at 96 registers at K = 48 and
+//     64 under nvcc 12.9.) The first port wrote every cell to a
+//     double-buffered shared array, passed a __syncthreads() and read the
+//     neighbour back (5.1 SASS a cell an iteration: 2 LDS, STS, FFMA,
+//     FMUL, a BAR each 10 cells).
+//   - rolly (rolly_kernel<C, LAST>): a warp holds one interior row, lane
+//     l the C = ceil(YS / 32) contiguous columns [l C, l C + C) (lane 31:
+//     the LAST = YS - 31 C that are left). An iteration takes the value
+//     the lane's first column needs, the last column of lane l - 1 (lane
+//     0: lane 31's column LAST - 1), by one __shfl_sync before it updates
+//     its columns in place from the last down, as rollx does: one SHFL a
+//     lane and iteration in place of a shared-memory round trip and a
+//     barrier a cell. A contiguous run of C floats a lane is not a
+//     coalesced access, so the row is loaded and stored through a
+//     shared-memory stage of odd stride (C | 1 floats a lane, no bank
+//     conflict), once a call. C and LAST are template parameters,
+//     instantiated for the two probes' widths (1152: 36, 36; 1119: 35,
+//     34); another width is refused (cudaErrorInvalidValue).
+//   The rolls compute all TX + 2 M rows of a window (rollx) as the TPU
+//   kernel does; a thread map changes where a cell is computed, not how,
+//   so every kind gives the first port's bits.
 //
 // K is a compile-time constant (-DVPU_K, default 16), the chain unrolled,
 // so each K is a library of its own (vpu_probe@VPU_K=16, ...) and the
@@ -57,6 +101,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #ifndef VPU_K
 #define VPU_K 16
@@ -68,16 +114,24 @@ constexpr int K = VPU_K;             // dependent iterations of the chain
 constexpr int TX = 64;               // rows of a tile's output
 constexpr int M = 8;                 // margin rows around it
 constexpr int W = TX + 2 * M;        // rows of a window
+constexpr int H = W / 2;             // rollx: rows a thread holds
+static_assert(W % 2 == 0, "rollx: two threads a window column");
 constexpr float C1 = 0.999f, C2 = 1e-4f, SQ = 0.9999f;
 
 enum Kind {
   PLAIN, DIV, RCP, RCPN, SEL, BMUL, ROLLX, ROLLY, MULF32, MULBF16, N_KINDS
 };
 
-constexpr int NTHREADS = 256;        // elementwise kinds and rolly
-constexpr int CW = 32, RY = 8;       // rollx: columns a block, thread rows
-constexpr int RR = 4;                // rolly: rows a block
-static_assert(W % RY == 0 && TX % RR == 0, "the rolls' blocks tile");
+constexpr int NTHREADS = 256;        // the elementwise kinds
+constexpr int WARPS = 4;             // the rolls: warps a block
+// The interior cells a thread of each elementwise kind holds: 4 (quads),
+// or 1 (the first port's map). rollx's thread holds H window rows;
+// rolly's C columns. div, rcp, rcpn and bmul keep the first
+// port's map: in quads their slopes rose 3-15 %, to 1.012-1.078 x its
+// time at K = 64 in turns with it (H100 80GB HBM3, 700 W).
+constexpr int CELLS[N_KINDS] = {4, 1, 1, 1, 4, 1, H, 0, 4, 4};
+// rolly's widths: YS = 31 C + LAST, C = ceil(YS / 32)
+constexpr int ROLLY_C[2] = {36, 35}, ROLLY_LAST[2] = {36, 34};
 
 __device__ __forceinline__ float carrier(float b, float op) {
   return __fmaf_rn(b, C1, __fmul_rn(op, C2));
@@ -89,158 +143,274 @@ __device__ __forceinline__ float rcp_approx(float b) {
   return r;
 }
 
-// The elementwise kinds: output cell i of the interior rows [M, xs - M).
+// op(b) of an elementwise kind: a the cell's input, row bmul's row value
 template <int KIND>
-__global__ void __launch_bounds__(NTHREADS)
-elem_kernel(const float* x, float* y, int xs, int ys) {
-  const long long n = (long long)(xs - 2 * M) * ys;
-  const long long i = (long long)blockIdx.x * NTHREADS + threadIdx.x;
-  if (i >= n) return;
-  const int r = M + (int)(i / ys), c = (int)(i % ys);
-  const size_t g = (size_t)r * ys + c;
-  const float a = x[g];
-  float b;
-  if constexpr (KIND == MULF32) {
-    b = __fmul_rn(a, SQ);
-#pragma unroll
-    for (int k = 0; k < K; ++k) b = __fmul_rn(b, b);
+__device__ __forceinline__ float op_of(float b, float a, float row) {
+  if constexpr (KIND == PLAIN) {
+    return b;
+  } else if constexpr (KIND == DIV) {
+    return __fdiv_rn(a, b);
+  } else if constexpr (KIND == RCP) {
+    return rcp_approx(b);
+  } else if constexpr (KIND == RCPN) {
+    const float q = rcp_approx(b);
+    return q * (2.f - b * q);
+  } else if constexpr (KIND == SEL) {
+    return b > 0.5f ? b : a;
   } else {
-    float row = 0.f;
-    if constexpr (KIND == BMUL) row = x[(size_t)((r - M) / TX * TX) * ys + c];
-    b = a;
+    static_assert(KIND == BMUL, "an elementwise kind");
+    return __fmul_rn(b, row);
+  }
+}
+
+// The chains of N cells, interleaved: b from a (and bmul's rows).
+template <int KIND, int N>
+__device__ __forceinline__ void chains(float (&b)[N], const float (&a)[N],
+                                       const float (&row)[N]) {
+  if constexpr (KIND == MULF32) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) b[j] = __fmul_rn(a[j], SQ);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      float op;
-      if constexpr (KIND == PLAIN) {
-        op = b;
-      } else if constexpr (KIND == DIV) {
-        op = __fdiv_rn(a, b);
-      } else if constexpr (KIND == RCP) {
-        op = rcp_approx(b);
-      } else if constexpr (KIND == RCPN) {
-        const float q = rcp_approx(b);
-        op = q * (2.f - b * q);
-      } else if constexpr (KIND == SEL) {
-        op = b > 0.5f ? b : a;
-      } else {
-        static_assert(KIND == BMUL, "an elementwise kind");
-        op = __fmul_rn(b, row);
-      }
-      b = carrier(b, op);
+#pragma unroll
+      for (int j = 0; j < N; ++j) b[j] = __fmul_rn(b[j], b[j]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) b[j] = a[j];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        b[j] = carrier(b[j], op_of<KIND>(b[j], a[j], row[j]));
     }
   }
-  y[g] = b;
 }
 
-// mulbf16: the output cells 2 j, 2 j + 1 of a row, packed.
+// The elementwise kinds. N = 1: interior cell i a thread, a thread per
+// cell (the first port's map). N = 4: the quads of interior cells [4 q,
+// 4 q + 4), a float4 in and out, the grid striding (not bmul, whose row
+// would be one a cell).
+template <int KIND, int N>
+__global__ void __launch_bounds__(NTHREADS)
+elem_kernel(const float* x, float* y, int xs, int ys) {
+  static_assert(N == 1 || (N == 4 && KIND != BMUL),
+                "one cell a thread, or a quad of any kind but bmul");
+  const long long cells = (long long)(xs - 2 * M) * ys;
+  const float* xi = x + (size_t)M * ys;          // the interior
+  float* yi = y + (size_t)M * ys;
+  if constexpr (N == 1) {
+    const long long i = (long long)blockIdx.x * NTHREADS + threadIdx.x;
+    if (i >= cells) return;
+    float a[1] = {xi[i]}, row[1] = {0.f}, b[1];
+    if constexpr (KIND == BMUL) {
+      // the window row 0 of the cell's tile: global row (i / ys) / TX TX
+      const int r = (int)(i / ys), c = (int)(i - (long long)r * ys);
+      row[0] = x[(size_t)(r / TX * TX) * ys + c];
+    }
+    chains<KIND>(b, a, row);
+    yi[i] = b[0];
+  } else {
+    const float4* xq = reinterpret_cast<const float4*>(xi);
+    float4* yq = reinterpret_cast<float4*>(yi);
+    const long long quads = cells / 4;
+    for (long long q = (long long)blockIdx.x * NTHREADS + threadIdx.x;
+         q < quads; q += (long long)gridDim.x * NTHREADS) {
+      const float4 v = xq[q];
+      const float a[4] = {v.x, v.y, v.z, v.w}, row[4] = {};
+      float b[4];
+      chains<KIND>(b, a, row);
+      yq[q] = make_float4(b[0], b[1], b[2], b[3]);
+    }
+  }
+}
+
+// mulbf16: the two pairs (2 j, 2 j + 1) of a quad of interior cells a
+// thread, a float4 in and out, the grid striding.
 __global__ void __launch_bounds__(NTHREADS)
 bf16_kernel(const float* x, float* y, int xs, int ys) {
-  const int half = ys / 2;
-  const long long n = (long long)(xs - 2 * M) * half;
-  const long long i = (long long)blockIdx.x * NTHREADS + threadIdx.x;
-  if (i >= n) return;
-  const size_t g = (size_t)(M + i / half) * ys + 2 * (int)(i % half);
-  __nv_bfloat162 b = __floats2bfloat162_rn(__fmul_rn(x[g], SQ),
-                                           __fmul_rn(x[g + 1], SQ));
+  const long long quads = (long long)(xs - 2 * M) * ys / 4;
+  const float4* xq = reinterpret_cast<const float4*>(x + (size_t)M * ys);
+  float4* yq = reinterpret_cast<float4*>(y + (size_t)M * ys);
+  for (long long q = (long long)blockIdx.x * NTHREADS + threadIdx.x;
+       q < quads; q += (long long)gridDim.x * NTHREADS) {
+    const float4 v = xq[q];
+    __nv_bfloat162 b0 = __floats2bfloat162_rn(__fmul_rn(v.x, SQ),
+                                              __fmul_rn(v.y, SQ));
+    __nv_bfloat162 b1 = __floats2bfloat162_rn(__fmul_rn(v.z, SQ),
+                                              __fmul_rn(v.w, SQ));
 #pragma unroll
-  for (int k = 0; k < K; ++k) b = __hmul2(b, b);
-  y[g] = __low2float(b);
-  y[g + 1] = __high2float(b);
+    for (int k = 0; k < K; ++k) {
+      b0 = __hmul2(b0, b0);
+      b1 = __hmul2(b1, b1);
+    }
+    yq[q] = make_float4(__low2float(b0), __high2float(b0),
+                        __low2float(b1), __high2float(b1));
+  }
 }
 
-// rollx: a strip of CW columns of tile blockIdx.y's window, all W rows.
-__global__ void __launch_bounds__(CW * RY)
-rollx_kernel(const float* x, float* y, int ys) {
-  __shared__ float buf[2][W][CW];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c = blockIdx.x * CW + tx;
-  const size_t row0 = (size_t)blockIdx.y * TX;
+// rollx: column c of tile t's window a pair of threads, lanes l and l ^ 16
+// of a warp of 16 columns, the lower one the window's rows [0, H), the
+// upper one [H, W), in registers; warp w of the grid holds tile w / wpr,
+// columns 16 (w % wpr) + (lane & 15). A column past ys computes zeros and
+// stores nothing (both of its threads, which the shuffle needs).
+__global__ void __launch_bounds__(32 * WARPS)
+rollx_kernel(const float* __restrict__ x, float* __restrict__ y, int tiles,
+             int ys) {
+  const int wpr = (ys + 15) / 16;                 // warps a tile
+  const int w = blockIdx.x * WARPS + threadIdx.x / 32;
+  const int t = w / wpr;
+  if (t >= tiles) return;                         // the whole warp
+  const int lane = threadIdx.x & 31, half = lane >> 4;
+  const int c = (w - t * wpr) * 16 + (lane & 15);
   const bool on = c < ys;
+  const size_t row0 = (size_t)t * TX + half * H;  // the thread's first row
+  const float* src = x + row0 * ys + c;
+  float b[H];
 #pragma unroll
-  for (int j = 0; j < W / RY; ++j) {
-    const int r = ty + j * RY;
-    buf[0][r][tx] = on ? x[(row0 + r) * ys + c] : 0.f;
-  }
-  __syncthreads();
+  for (int r = 0; r < H; ++r) b[r] = on ? src[(size_t)r * ys] : 0.f;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const int s = k & 1;
+    // the row before the thread's first (window row W - 1 for the lower
+    // half, H - 1 for the upper), as the other half held it before this
+    // iteration
+    const float before = __shfl_xor_sync(0xffffffffu, b[H - 1], 16);
 #pragma unroll
-    for (int j = 0; j < W / RY; ++j) {
-      const int r = ty + j * RY;
-      const int rm = r == 0 ? W - 1 : r - 1;
-      buf[s ^ 1][r][tx] = carrier(buf[s][r][tx], buf[s][rm][tx]);
-    }
-    __syncthreads();
+    for (int r = H - 1; r > 0; --r) b[r] = carrier(b[r], b[r - 1]);
+    b[0] = carrier(b[0], before);
   }
   if (!on) return;
+  // the output rows: window rows [M, M + TX), global row0 + r
+  float* dst = y + row0 * ys + c;
 #pragma unroll
-  for (int j = 0; j < W / RY; ++j) {
-    const int r = ty + j * RY;
-    if (r >= M && r < M + TX) y[(row0 + r) * ys + c] = buf[K & 1][r][tx];
+  for (int r = 0; r < H; ++r) {
+    const int wr = half * H + r;
+    if (wr >= M && wr < M + TX) dst[(size_t)r * ys] = b[r];
   }
 }
 
-// rolly: the RR interior rows M + blockIdx.x RR ... of all ys columns.
-__global__ void __launch_bounds__(NTHREADS)
-rolly_kernel(const float* x, float* y, int ys) {
-  extern __shared__ float sm[];        // [2][RR][ys]
-  const int n = RR * ys;
-  const size_t g0 = (size_t)(M + blockIdx.x * RR) * ys;
-  for (int i = threadIdx.x; i < n; i += NTHREADS) sm[i] = x[g0 + i];
-  __syncthreads();
+// rolly: interior row blockIdx.x WARPS + warp a warp, lane l holding its
+// columns [l C, l C + C) (lane 31: LAST of them) in registers.
+template <int C, int LAST>
+__global__ void __launch_bounds__(32 * WARPS)
+rolly_kernel(const float* __restrict__ x, float* __restrict__ y, int rows) {
+  constexpr int YS = 31 * C + LAST;
+  constexpr int P = C | 1;             // a lane's stride in the stage: odd
+  static_assert(LAST >= 1 && LAST <= C, "lane 31 holds 1 to C columns");
+  __shared__ float stage[WARPS][32 * P];
+  const int lane = threadIdx.x & 31, wi = threadIdx.x / 32;
+  const int row = blockIdx.x * WARPS + wi;
+  if (row >= rows) return;             // the whole warp
+  float* s = stage[wi];
+  const float* src = x + (size_t)(M + row) * YS;
+  float* dst = y + (size_t)(M + row) * YS;
+  for (int i = lane; i < YS; i += 32) s[i / C * P + i % C] = src[i];
+  __syncwarp();
+  float b[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    b[j] = (LAST == C || lane < 31 || j < LAST) ? s[lane * P + j] : 0.f;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const float* cur = sm + (k & 1) * n;
-    float* nxt = sm + ((k & 1) ^ 1) * n;
-    for (int c = threadIdx.x; c < ys; c += NTHREADS) {
-      const int cm = c == 0 ? ys - 1 : c - 1;
+    // the value column l C - 1 held before this iteration (lane 0: YS - 1)
+    const float send =
+        (LAST == C || lane < 31) ? b[C - 1] : b[LAST - 1];
+    const float carried = __shfl_sync(0xffffffffu, send, (lane + 31) & 31);
 #pragma unroll
-      for (int rr = 0; rr < RR; ++rr)
-        nxt[rr * ys + c] = carrier(cur[rr * ys + c], cur[rr * ys + cm]);
-    }
-    __syncthreads();
+    for (int j = C - 1; j > 0; --j) b[j] = carrier(b[j], b[j - 1]);
+    b[0] = carrier(b[0], carried);
   }
-  const float* fin = sm + (K & 1) * n;
-  for (int i = threadIdx.x; i < n; i += NTHREADS) y[g0 + i] = fin[i];
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    if (LAST == C || lane < 31 || j < LAST) s[lane * P + j] = b[j];
+  __syncwarp();
+  for (int i = lane; i < YS; i += 32) dst[i] = s[i / C * P + i % C];
+}
+
+int sm_count() {
+  static int n[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (!n[dev])
+    cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev);
+  return n[dev];
+}
+
+// Blocks of NTHREADS for `units` thread items: at most one wave of the
+// card's SMs (the threads stride over the rest), none short of it;
+// per_sm, the kernel's resident blocks an SM, is asked once (a static of
+// the caller, one a kernel).
+template <typename Kern>
+int wave_blocks(Kern kern, int& per_sm, long long units) {
+  if (!per_sm)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NTHREADS,
+                                                  0);
+  const long long need = (units + NTHREADS - 1) / NTHREADS;
+  const long long wave = (long long)per_sm * sm_count();
+  return (int)(wave > 0 && need > wave ? wave : need);
+}
+
+template <int KIND>
+void launch_elem(const float* x, float* y, int xs, int ys, cudaStream_t s) {
+  constexpr int N = CELLS[KIND];
+  const long long cells = (long long)(xs - 2 * M) * ys;
+  if constexpr (N == 1) {
+    elem_kernel<KIND, 1><<<(int)((cells + NTHREADS - 1) / NTHREADS),
+                           NTHREADS, 0, s>>>(x, y, xs, ys);
+  } else {
+    static int per_sm = 0;
+    const int blocks = wave_blocks(elem_kernel<KIND, 4>, per_sm, cells / 4);
+    elem_kernel<KIND, 4><<<blocks, NTHREADS, 0, s>>>(x, y, xs, ys);
+  }
+}
+
+// rolly's instantiation for width ys: its index in ROLLY_C, or -1
+int rolly_form(int ys) {
+  for (int f = 0; f < 2; ++f)
+    if (ys == 31 * ROLLY_C[f] + ROLLY_LAST[f]) return f;
+  return -1;
 }
 
 // One call of kind `kind` from x into y.
 int launch(const float* x, float* y, int kind, int xs, int ys,
            cudaStream_t s) {
-  const long long cells = (long long)(xs - 2 * M) * ys;
-  const int blocks = (int)((cells + NTHREADS - 1) / NTHREADS);
+  const int rows = xs - 2 * M, tiles = rows / TX;
   switch (kind) {
-    case PLAIN: elem_kernel<PLAIN><<<blocks, NTHREADS, 0, s>>>(x, y, xs, ys);
+    case PLAIN: launch_elem<PLAIN>(x, y, xs, ys, s); break;
+    case DIV: launch_elem<DIV>(x, y, xs, ys, s); break;
+    case RCP: launch_elem<RCP>(x, y, xs, ys, s); break;
+    case RCPN: launch_elem<RCPN>(x, y, xs, ys, s); break;
+    case SEL: launch_elem<SEL>(x, y, xs, ys, s); break;
+    case BMUL: launch_elem<BMUL>(x, y, xs, ys, s); break;
+    case MULF32: launch_elem<MULF32>(x, y, xs, ys, s); break;
+    case MULBF16: {
+      static int per_sm = 0;
+      bf16_kernel<<<wave_blocks(bf16_kernel, per_sm,
+                                (long long)rows * ys / 4),
+                    NTHREADS, 0, s>>>(x, y, xs, ys);
       break;
-    case DIV: elem_kernel<DIV><<<blocks, NTHREADS, 0, s>>>(x, y, xs, ys);
+    }
+    case ROLLX: {
+      const int warps = tiles * ((ys + 15) / 16);
+      rollx_kernel<<<(warps + WARPS - 1) / WARPS, 32 * WARPS, 0, s>>>(
+          x, y, tiles, ys);
       break;
-    case RCP: elem_kernel<RCP><<<blocks, NTHREADS, 0, s>>>(x, y, xs, ys);
-      break;
-    case RCPN: elem_kernel<RCPN><<<blocks, NTHREADS, 0, s>>>(x, y, xs, ys);
-      break;
-    case SEL: elem_kernel<SEL><<<blocks, NTHREADS, 0, s>>>(x, y, xs, ys);
-      break;
-    case BMUL: elem_kernel<BMUL><<<blocks, NTHREADS, 0, s>>>(x, y, xs, ys);
-      break;
-    case MULF32:
-      elem_kernel<MULF32><<<blocks, NTHREADS, 0, s>>>(x, y, xs, ys);
-      break;
-    case MULBF16:
-      bf16_kernel<<<(int)((cells / 2 + NTHREADS - 1) / NTHREADS), NTHREADS,
-                    0, s>>>(x, y, xs, ys);
-      break;
-    case ROLLX:
-      rollx_kernel<<<dim3((ys + CW - 1) / CW, (xs - 2 * M) / TX),
-                     dim3(CW, RY), 0, s>>>(x, y, ys);
-      break;
+    }
     case ROLLY: {
-      const size_t smem = sizeof(float) * 2 * RR * ys;
-      cudaError_t e = cudaFuncSetAttribute(
-          rolly_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
-      rolly_kernel<<<(xs - 2 * M) / RR, NTHREADS, smem, s>>>(x, y, ys);
+      const int blocks = (rows + WARPS - 1) / WARPS;
+      switch (rolly_form(ys)) {
+        case 0:
+          rolly_kernel<ROLLY_C[0], ROLLY_LAST[0]>
+              <<<blocks, 32 * WARPS, 0, s>>>(x, y, rows);
+          break;
+        case 1:
+          rolly_kernel<ROLLY_C[1], ROLLY_LAST[1]>
+              <<<blocks, 32 * WARPS, 0, s>>>(x, y, rows);
+          break;
+        default:
+          return (int)cudaErrorInvalidValue;
+      }
       break;
     }
     default:
@@ -269,14 +439,16 @@ const char* vpu_error_string(int code) {
 // and writes y0 (s even) or y1 (s odd); the last call's output is
 // y[(n - 1) % 2] (y1 may be null for n = 1). Only the interior rows [M,
 // xs - M) are written. x may not be y0 or y1 (neighbouring windows
-// overlap). Returns 0, or the first
-// launch's error; xs - 2 M must be a positive multiple of the tile's rows,
-// and ys even for mulbf16.
+// overlap). Returns 0, or the first launch's error; xs - 2 M must be a
+// positive multiple of the tile's rows, ys even for mulbf16, one of
+// rolly's widths for rolly, and x, y0, y1 16-byte aligned (the quads).
 int vpu_run(const float* x, float* y0, float* y1, int kind, int n, int xs,
             int ys, void* stream) {
   if (n < 1 || xs - 2 * M <= 0 || (xs - 2 * M) % TX || ys <= 0
       || (kind == MULBF16 && ys % 2) || y0 == nullptr || x == y0 || x == y1
-      || (n > 1 && (y1 == nullptr || y0 == y1)))
+      || (n > 1 && (y1 == nullptr || y0 == y1))
+      || (kind == ROLLY && rolly_form(ys) < 0)
+      || ((uintptr_t)x | (uintptr_t)y0 | (uintptr_t)y1) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* src = x;

@@ -8,10 +8,11 @@ between margins of ``M`` rows, tile i reads the window of rows
 ``[i TX, i TX + TX + 2 M)``, all YS columns, runs K dependent iterations
 of ``b = b * 0.999 + 1e-4 * op(b)`` (``b`` = the window ``a`` at first)
 and writes the window's rows ``[M, M + TX)`` to the output's rows
-``[i TX + M, i TX + M + TX)``; ``KINDS`` names the ops (their meaning:
-``csrc/vpu_probe.cu``). ``bmul``'s row is the window's row 0 (global row
-``i TX``), ``rollx`` and ``rolly`` are circular rolls by one within the
-window (over its ``TX + 2 M`` rows, or over all YS columns), and
+``[i TX + M, i TX + M + TX)``; ``KINDS`` names the ops (their meaning,
+and the kernels' thread maps: ``csrc/vpu_probe.cu``). ``bmul``'s row is
+the window's row 0 (global row ``i TX``), ``rollx`` and ``rolly`` are
+circular rolls by one within the window (over its ``TX + 2 M`` rows, or
+over all YS columns), and
 ``mulf32`` / ``mulbf16`` are dependent squaring chains without the
 carrier. K7 is the kinds ``plain``, ``rollx``, ``rolly`` on its own
 layout (YS = NY + 4, not rounded up).
@@ -62,6 +63,14 @@ OP_KS, OP_N = (16, 64), 2000           # K6: chain lengths, calls a run
 SHIFT_KS, SHIFT_N = (16, 48), 500      # K7
 # the chain's constants as float32 values
 C1, C2, SQ = np.float32(0.999), np.float32(1e-4), np.float32(0.9999)
+# the interior cells a thread of each elementwise kind holds in the kernel
+# (4: a quad, one 16-byte load and store; 1: the first port's map, which
+# the kinds whose quads measured slower keep); mirror of
+# csrc/vpu_probe.cu's CELLS
+CELLS = {"plain": 4, "div": 1, "rcp": 1, "rcpn": 1, "sel": 4, "bmul": 1,
+         "mulf32": 4, "mulbf16": 4}
+# the widths rolly_kernel<C, LAST> is instantiated for (K6's and K7's)
+ROLLY_WIDTHS = (YS_OP, YS_SHIFT)
 # lower bounds of the FP32-pipe instructions an output cell an iteration
 # (the carrier's FMUL + FFMA, and the op's own), for the operations bound
 FP32_OPS = {"plain": 2, "div": 3, "rcp": 3, "rcpn": 5, "sel": 3, "bmul": 3,
@@ -136,6 +145,39 @@ def vpu_probe_reference(x: torch.Tensor, kind: str, k: int, n: int = 1,
     return x
 
 
+def lane_split(ys: int) -> tuple:
+    """rolly's warp a row: (C, LAST), the C = ceil(ys / 32) contiguous
+    columns each lane holds and the LAST = ys - 31 C that lane 31 holds.
+    Raises where lanes before the last would be ragged or empty."""
+    c = -(-ys // 32)
+    last = ys - 31 * c
+    if ys < 1 or not 1 <= last <= c:
+        raise ValueError(f"YS = {ys}: lane 31 would hold {last} of {c} "
+                         "columns (lanes 0-30 hold C = ceil(YS / 32) each)")
+    return c, last
+
+
+def check_rolly_width(ys: int) -> None:
+    """Raise unless rolly's kernel is instantiated for width ``ys``."""
+    if ys not in ROLLY_WIDTHS:
+        raise ValueError(f"rolly holds a row in a warp's registers, C = "
+                         f"ceil(YS / 32) columns a lane, a template "
+                         f"instantiated for YS in {ROLLY_WIDTHS}: YS = {ys} "
+                         "is not")
+
+
+def cells_a_thread(kind: str, ys: int) -> int:
+    """The cells a thread of ``kind``'s kernel holds on width ``ys``:
+    ``CELLS`` for the elementwise kinds, half the window's ``TX + 2 M``
+    rows for rollx (two threads a column), C of :func:`lane_split` for
+    rolly."""
+    if kind == "rollx":
+        return (TX + 2 * M) // 2
+    if kind == "rolly":
+        return lane_split(ys)[0]
+    return CELLS[kind]
+
+
 def _check_layout(x: torch.Tensor, tx: int, m: int) -> None:
     if (x.dim() != 2 or x.dtype != torch.float32 or x.shape[0] - 2 * m <= 0
             or (x.shape[0] - 2 * m) % tx):
@@ -150,7 +192,8 @@ def vpu_probe(x: torch.Tensor, kind: str, k: int, n: int = 1) -> torch.Tensor:
     margins of ``M``): the plain version for a CPU tensor, the kernel for a
     CUDA tensor (counted in ``vpu_probe.launches`` and, by ``(kind, k)``,
     ``.form_launches``, one a call), into new buffers whose margin rows
-    are ``x``'s. Returns the last call's output."""
+    are ``x``'s. Returns the last call's output. On the card ``x`` must
+    begin on 16 bytes, and rolly runs only on ``ROLLY_WIDTHS``."""
     if x.device.type == "cpu":
         return vpu_probe_reference(x, kind, k, n)
     if kind not in KINDS:
@@ -162,6 +205,10 @@ def vpu_probe(x: torch.Tensor, kind: str, k: int, n: int = 1) -> torch.Tensor:
         raise ValueError(f"need a contiguous CUDA tensor, got {x.device}")
     if kind == "mulbf16" and x.shape[1] % 2:
         raise ValueError("mulbf16 runs two columns a thread: YS must be even")
+    if kind == "rolly":
+        check_rolly_width(x.shape[1])
+    if x.data_ptr() % 16:
+        raise ValueError("the kernels load quads: x must begin on 16 bytes")
     lib = _library(k)
     bufs = [torch.empty_like(x) for _ in range(min(n, 2))]
     for b in bufs:
@@ -236,9 +283,25 @@ def bound(kind: str, k: int, ys: int, peak_bytes: float,
                                                       nbytes)
 
 
-# the kernels' names in the SASS: kind by template argument, or by kernel
+# the kernels' names in the SASS and their template arguments
 _SASS_KERNEL = re.compile(r"Function : \S*?(elem_kernel|bf16_kernel|"
-                          r"rollx_kernel|rolly_kernel)(?:ILi(\d+)E)?")
+                          r"rollx_kernel|rolly_kernel)(?:I((?:Li\d+E)+)E)?")
+
+
+def kernel_kind(name: str, args: tuple) -> str:
+    """The kind of a kernel of csrc/vpu_probe.cu from its name and
+    template arguments: ``elem_kernel<kind, cells>`` by its first,
+    ``rolly_kernel<C, LAST>`` as ``rolly`` at K6's width (``rolly@<YS>``
+    at another; an older source's ``rolly_kernel`` has none)."""
+    if name == "elem_kernel":
+        return KINDS[args[0]]
+    if name == "rolly_kernel" and args:
+        ys = 31 * args[0] + args[1]
+        return "rolly" if ys == YS_OP else f"rolly@{ys}"
+    return {"bf16_kernel": "mulbf16", "rollx_kernel": "rollx",
+            "rolly_kernel": "rolly"}[name]
+
+
 _SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                       r"([A-Z][A-Z0-9_.]*)")
 
@@ -254,10 +317,9 @@ def sass_opcodes(k: int) -> dict:
     for ln in sass.splitlines():
         f = _SASS_KERNEL.search(ln)
         if f:
-            name, arg = f.groups()
-            kind = (KINDS[int(arg)] if name == "elem_kernel" else
-                    {"bf16_kernel": "mulbf16", "rollx_kernel": "rollx",
-                     "rolly_kernel": "rolly"}[name])
+            name, args = f.groups()
+            kind = kernel_kind(name, tuple(
+                int(a) for a in re.findall(r"\d+", args or "")))
             out[kind] = collections.Counter()
             continue
         op = _SASS_OP.search(ln)
@@ -267,15 +329,17 @@ def sass_opcodes(k: int) -> dict:
 
 
 def sass_per_iteration(k0: int, k1: int) -> dict:
-    """kind -> {opcode: instructions an iteration}, the SASS of the
-    libraries of chain lengths ``k1`` and ``k0`` apart over ``k1 - k0``
-    (the rolls: an iteration of a thread's loop over its cells)."""
+    """kind -> {opcode: instructions a cell and iteration}, the SASS of
+    the libraries of chain lengths ``k1`` and ``k0`` apart over ``k1 -
+    k0`` and the cells a thread holds at K6's width
+    (:func:`cells_a_thread`)."""
     a, b = sass_opcodes(k0), sass_opcodes(k1)
     out = {}
     for kind in KINDS:
         d = b.get(kind, collections.Counter())
         d.subtract(a.get(kind, collections.Counter()))
-        out[kind] = {op: c / (k1 - k0) for op, c in sorted(d.items()) if c}
+        per = (k1 - k0) * cells_a_thread(kind, YS_OP)
+        out[kind] = {op: c / per for op, c in sorted(d.items()) if c}
     return out
 
 

@@ -9,8 +9,9 @@ iterations over each tile's (TX + 16, YS) window
   plain  op = b, unshifted (the carrier alone)
   rollx  op = b of the row above, circular over the window's rows
   rolly  op = b of the column before, circular over the YS columns
-(the rolls read their neighbour from shared memory, as the fused step
-reads its shifted operands). The ms-vs-K slope difference is a shifted
+(rollx holds a window column a thread, rolly a row a warp, in registers:
+a shifted operand is a register of the same thread, or one shuffle a lane
+across a warp's lanes). The ms-vs-K slope difference is a shifted
 operand's cost in carrier-equivalents.
 
 For each kind and K it prints the device ms a call (CUDA events around

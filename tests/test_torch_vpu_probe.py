@@ -207,3 +207,182 @@ def test_entry_points_need_the_card_unless_asked(capsys):
     out = capsys.readouterr().out
     assert "not the card" in out and "sel     marginal" in out
     assert "rolly   slope" in out and "nvidia" not in out.lower()
+
+
+# ---- the kernels' thread maps, modelled on the CPU --------------------------
+# csrc/vpu_probe.cu cannot run here; these models walk the cells in the
+# order its threads do, with the module's own carrier, and must give the
+# plain version's bits.
+
+def _rollx_model(x, k, tx, m):
+    """rollx as ``rollx_kernel`` runs it: two threads hold one column of
+    one tile's window, the lower its rows ``[0, H)``, the upper ``[H, W)``
+    (here the tiles and columns side by side); an iteration first takes
+    the other half's last row as it stands (the lower half's row 0 reads
+    row ``W - 1`` across the wrap), then updates rows ``H - 1`` down to 1
+    of each half in place from the row above (not yet updated), then the
+    half's first row from the value taken."""
+    xs, ys = x.shape
+    w, tiles = tx + 2 * m, (xs - 2 * m) // tx
+    h = w // 2
+    b = torch.stack([x[t * tx:t * tx + w] for t in range(tiles)])
+    halves = b.view(tiles, 2, h, ys)
+    for _ in range(k):
+        before = halves[:, :, h - 1].flip(1).clone()   # the other half's
+        for r in range(h - 1, 0, -1):
+            halves[:, :, r] = vp._carrier(halves[:, :, r], halves[:, :, r - 1])
+        halves[:, :, 0] = vp._carrier(halves[:, :, 0], before)
+    out = x.clone()
+    out[m:xs - m] = b[:, m:m + tx].reshape(-1, ys)
+    return out
+
+
+def _rolly_model(x, k, m):
+    """rolly as ``rolly_kernel<C, LAST>`` runs it: a warp a row, lane l
+    holding columns ``[l C, l C + C)`` (lane 31 the LAST left, its other
+    slots idle); an iteration first takes from lane l - 1 (lane 0: lane
+    31) the value of the column before its first, the sender's last
+    column before this iteration's update, then updates its columns in
+    place from the last down to 1, and column 0 from the value taken."""
+    xs, ys = x.shape
+    c, last = vp.lane_split(ys)
+    flat = torch.zeros((xs - 2 * m, 32 * c))
+    flat[:, :ys] = x[m:xs - m]
+    b = flat.view(xs - 2 * m, 32, c)
+    for _ in range(k):
+        send = b[:, :, c - 1].clone()
+        send[:, 31] = b[:, 31, last - 1]
+        taken = send.roll(1, dims=1)
+        for j in range(c - 1, 0, -1):
+            b[:, :, j] = vp._carrier(b[:, :, j], b[:, :, j - 1])
+        b[:, :, 0] = vp._carrier(b[:, :, 0], taken)
+    out = x.clone()
+    out[m:xs - m] = flat[:, :ys]
+    return out
+
+
+def _spikes(ys, cells):
+    """Zeros but ones at ``cells``: a roll's neighbour then differs from
+    its own value by orders of magnitude, so reading a neighbour after its
+    update (1e-3 off) shows in the bits; on the seeded inputs the
+    carrier's 1e-4 weight rounds such a slip away."""
+    x = np.zeros((XS, ys), np.float32)
+    for r, c in cells:
+        x[r, c] = 1.0
+    return x
+
+
+@pytest.mark.parametrize("inp", ["uniform", "spikes"])
+@pytest.mark.parametrize("ys", [YS - 1, YS])
+@pytest.mark.parametrize("k", [3, K])
+def test_rollx_thread_map_gives_the_plain_versions_bits(k, ys, inp):
+    """rollx's column a pair of threads, each half descending in place
+    after taking the other half's last row, == ``vpu_probe_reference`` bit
+    for bit (3 tiles of 16 rows), on seeded inputs and on ones in each
+    window's last row (which row 0 reads across the wrap) and in the
+    lower half's last (which the upper half's first reads)."""
+    x = torch.from_numpy(
+        _input(ys, seed=21) if inp == "uniform" else
+        _spikes(ys, [(t * TX + TX + 2 * M - 1, 3 + t) for t in range(3)]
+                + [(t * TX + (TX + 2 * M) // 2 - 1, 9 + t)
+                   for t in range(3)]))
+    want = vp.vpu_probe_reference(x, "rollx", k, tx=TX, m=M)
+    got = _rollx_model(x, k, TX, M)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("inp", ["uniform", "spikes"])
+@pytest.mark.parametrize("ys", [95, 96], ids=["ragged_lane31", "even"])
+@pytest.mark.parametrize("k", [3, K])
+def test_rolly_thread_map_gives_the_plain_versions_bits(k, ys, inp):
+    """rolly's row a warp at C = 3 columns a lane (ys = 95: lane 31 holds
+    2; 96: all 3), the carried value taken before the update, == the
+    plain version bit for bit, on seeded inputs and on ones in the last
+    column and at lane seams."""
+    x = torch.from_numpy(
+        _input(ys, seed=22) if inp == "uniform" else
+        _spikes(ys, [(M + 5, ys - 1), (M + 6, 2), (M + 7, 32)]))
+    want = vp.vpu_probe_reference(x, "rolly", k, tx=TX, m=M)
+    got = _rolly_model(x, k, M)
+    assert vp.lane_split(ys) == (3, ys - 93)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("ys,split", [(1152, (36, 36)), (1119, (35, 34)),
+                                      (95, (3, 2)), (96, (3, 3))])
+def test_lane_split(ys, split):
+    """rolly's lane split, ceil(ys / 32) columns a lane and lane 31's
+    count: K6's 1152 -> (36, 36), K7's 1119 -> (35, 34)."""
+    assert vp.lane_split(ys) == split
+    c, last = split
+    assert 31 * c + last == ys and 1 <= last <= c
+
+
+@pytest.mark.parametrize("ys", [1000, 1120, 1151, 96])
+def test_rolly_refuses_an_uninstantiated_width(ys):
+    """The kernel is instantiated for the probes' two widths: another is
+    refused by name (the wrapper checks before the launcher, which
+    returns cudaErrorInvalidValue), and a split whose lanes before the
+    last would be ragged does not exist."""
+    with pytest.raises(ValueError, match=str(ys)):
+        vp.check_rolly_width(ys)
+    for ok in vp.ROLLY_WIDTHS:
+        vp.check_rolly_width(ok)
+    assert vp.ROLLY_WIDTHS == (vp.YS_OP, vp.YS_SHIFT)
+    with pytest.raises(ValueError):
+        vp.lane_split(33)          # lanes 17-31 would hold nothing
+
+
+def _interior_quads(xs, ys, m):
+    """(the interior's first byte, its quads) on an (xs, ys) float32
+    layout, as the elementwise kernels load the rows ``[m, xs - m)``: one
+    float4 a quad from a 16-byte aligned buffer, so both must be whole."""
+    first, cells = 4 * m * ys, (xs - 2 * m) * ys
+    if first % 16 or cells % 4:
+        raise ValueError(f"{xs} x {ys}, margin {m}: not whole quads")
+    return first, cells // 4
+
+
+@pytest.mark.parametrize("ys", [vp.YS_OP, vp.YS_SHIFT, YS, YS - 1])
+def test_interior_is_whole_quads(ys):
+    """The elementwise kernels load and store the interior as float4s:
+    its first byte (M YS floats in) and its cell count are multiples of
+    16 bytes on both probes' layouts (and the small one), and mulbf16's
+    pairs (2 j, 2 j + 1) lie in one quad and one row at K6's YS."""
+    for xs, m in ((vp.XS, vp.M), (XS, M)):
+        first, quads = _interior_quads(xs, ys, m)
+        assert first == 4 * m * ys and first % 16 == 0
+        assert quads * 4 == (xs - 2 * m) * ys
+    assert vp.YS_OP % 2 == 0 and vp.CELLS["mulbf16"] == 4
+    with pytest.raises(ValueError):
+        _interior_quads(2 * 3 + 16, 7, 3)   # the interior at byte 84
+
+
+@pytest.mark.parametrize("kind", vp.KINDS)
+def test_cells_a_thread_and_kernel_names(kind):
+    """The cells a thread holds (the SASS line's divisor): quads for the
+    elementwise kinds (mulbf16 always; bmul never, its row being one a
+    cell), or the first port's one cell for those that keep its map, half
+    the window's 80 rows for rollx, C for rolly; the
+    kernels' mangled names map to their kinds (rolly at K7's width apart),
+    the first port's names too."""
+    if kind == "rollx":
+        assert vp.cells_a_thread(kind, vp.YS_OP) == 40
+    elif kind == "rolly":
+        assert [vp.cells_a_thread(kind, ys) for ys in vp.ROLLY_WIDTHS] == [
+            36, 35]
+    else:
+        cells = vp.cells_a_thread(kind, vp.YS_OP)
+        want = {"mulbf16": (4,), "bmul": (1,)}.get(kind, (1, 4))
+        assert cells == vp.CELLS[kind] and cells in want
+    names = {"rollx": ("rollx_kernel", ()), "rolly": ("rolly_kernel",
+                                                      (36, 36)),
+             "mulbf16": ("bf16_kernel", ())}
+    name, args = names.get(kind, ("elem_kernel",
+                                  (vp.KINDS.index(kind),
+                                   vp.CELLS.get(kind, 1))))
+    assert vp.kernel_kind(name, args) == kind
+    assert vp.kernel_kind("rolly_kernel", (35, 34)) == "rolly@1119"
+    assert vp.kernel_kind("rolly_kernel", ()) == "rolly"
+    if name == "elem_kernel":
+        assert vp.kernel_kind(name, args[:1]) == kind
